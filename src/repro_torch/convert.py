@@ -1,0 +1,59 @@
+"""Parameters of the JAX package, as numpy arrays, -> the port's parameters."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import torch_dtype
+
+__all__ = ["params_from_jax"]
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = ""):
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            yield from _flatten(val, name + ".")
+        else:
+            yield name, val
+
+
+def _to_tensor(arr, device, dtype) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: widening to f32 is exact
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr, order="C")).to(device=device, dtype=dtype)
+
+
+def params_from_jax(
+    tree: Mapping[str, Any],
+    cfg: ArchConfig,
+    *,
+    device: Union[str, torch.device],
+    dtype: Optional[torch.dtype] = None,
+) -> Dict[str, torch.Tensor]:
+    """A ``DecoderLM`` state dict from the JAX parameter tree.
+
+    ``tree`` is ``repro.models.transformer.DecoderLM.init``'s output with
+    every leaf turned into a numpy array.  Its ``layers`` subtree is stacked
+    on a leading layer axis; each slice ``i`` becomes ``layers.{i}.*``.  The
+    other names carry over with ``.`` joining the keys, as ``nn.Module``
+    names them.  ``dtype`` defaults to the config's ``param_dtype``.
+    """
+    dtype = torch_dtype(dtype or cfg.param_dtype)
+    out: Dict[str, torch.Tensor] = {}
+    for name, arr in _flatten(tree):
+        if name.startswith("layers."):
+            arr = np.asarray(arr)
+            if arr.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name} stacks {arr.shape[0]} layers, config has {cfg.n_layers}")
+            rest = name[len("layers."):]
+            for i in range(cfg.n_layers):
+                out[f"layers.{i}.{rest}"] = _to_tensor(arr[i], device, dtype)
+        else:
+            out[name] = _to_tensor(arr, device, dtype)
+    return out

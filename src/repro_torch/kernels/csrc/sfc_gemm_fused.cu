@@ -1,0 +1,426 @@
+// SFC-ordered fused GEMM for Hopper (sm_90a), hand-written CUDA C++.
+//
+// Replaces the TPU kernel `repro/kernels/sfc_gemm.py::_fused_kernel` in both
+// of the modes the server uses: `sfc_gemm_fused` (plain, A (M, K)) and
+// `sfc_gemm_batched_fused` (batched, A (B, M, K) against shared (K, N) or
+// per-batch (B, K, N) weights).  It computes what that body computes:
+//
+//   C[b] = epilogue(A[b] @ B[b or shared])
+//   epilogue = act(acc + bias) [GLU: act(acc_gate + gate_bias) * (acc + bias)]
+//              * out_scale + residual
+//
+// on the f32 accumulator, with one cast to the output type.
+//
+// Order.  blockIdx.x is the task index t of the gilbert schedule that
+// `repro_torch/core/schedule.py::compile_schedule(gemm_spec(mb, nb))` builds;
+// the CTA reads its C tile (im, in) from the table's major / minor rows, and
+// blockIdx.y is the batch element.  CTAs launched in curve order share A and
+// B panels in the 50 MB L2, which is how the paper's locality reaches this
+// card.  The TPU grid's sequential (K_layers, k_block_factor) dimensions
+// become one K loop inside the CTA with the accumulator in registers: blocks
+// run in parallel in no order, so nothing can carry over between them.
+//
+// What bounds it on the H100.  Decode (M = batch = 4) reads every weight
+// once for 2*M flops a weight: it is bound by the bytes of B at 3.35 TB/s.
+// Prefill (M = 128 rows per sequence, 4 sequences) does 2*M*N*K flops on
+// (M + N)*K inputs and is bound by the bf16 tensor-core rate.
+//
+// The design is the simple one: a 64 x 64 C tile per CTA of 4 warps, A and B
+// panels staged through shared memory one K step at a time (16-byte loads,
+// zero-filled past the ragged M/N/K edge), bf16 products on the tensor cores
+// through WMMA 16x16x16 fragments and f32 products as SIMT FMAs, then the
+// accumulator goes through shared memory to a coalesced epilogue.  What it
+// leaves on the table: no wgmma (the only path to the full bf16 rate), no
+// TMA and no multi-stage pipeline, so loads and math do not overlap; no
+// persistent CTAs walking curve segments; and at decode M = 4 only 4 of the
+// 64 tile rows are real and narrow N gives few CTAs (16 for N = 1024), so
+// the weight stream cannot reach the card's memory rate.
+//
+// Epilogue flags are template parameters.  One compilation unit holds one
+// (input type, GLU, activation) part, chosen by -DSFC_DTYPE / -DSFC_GLU /
+// -DSFC_ACT with its entry point named by -DSFC_ENTRY, so the build can run
+// the parts in parallel (`repro_torch/kernels/build.py`).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#ifndef SFC_DTYPE  // 0: float32 inputs, 1: bfloat16 inputs
+#define SFC_DTYPE 1
+#endif
+#ifndef SFC_GLU  // 1: dual-B gated form
+#define SFC_GLU 0
+#endif
+#ifndef SFC_ACT  // 0: none, 1: silu, 2: gelu (tanh form), 3: relu
+#define SFC_ACT 0
+#endif
+#ifndef SFC_ENTRY
+#define SFC_ENTRY sfc_gemm_fused_entry
+#endif
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kBM = 64;  // C tile rows (keep in step with build.py TILE)
+constexpr int kBN = 64;  // C tile cols
+constexpr int kThreads = 128;
+constexpr int kLDC = kBN + 4;  // f32 epilogue tile, row stride in floats
+
+// K step and shared-memory row strides; the pads keep 16-byte (and, for
+// WMMA, 32-byte) alignment of every fragment while spreading banks.
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<bf16> {
+  static constexpr int BK = 64;
+  static constexpr int LDA = BK + 8;
+  static constexpr int LDB = kBN + 8;
+};
+template <>
+struct Cfg<float> {
+  static constexpr int BK = 16;
+  static constexpr int LDA = BK + 4;
+  static constexpr int LDB = kBN + 4;
+};
+
+struct Params {
+  const void* a;
+  const void* b;
+  const void* bg;
+  const void* bias;
+  const void* gbias;
+  const void* res;
+  void* out;
+  const int* tab;  // (2, n_tasks): row 0 = major (im), row 1 = minor (in)
+  int n_tasks;
+  int M, N, K;
+  long long a_bstride;  // elements between batch elements of A
+  long long b_bstride;  // 0 when B is shared across the batch
+  float out_scale;
+  int vec_a;  // rows of A may be read as 16-byte vectors
+  int vec_b;  // rows of B (and B_gate) may be read as 16-byte vectors
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch casts
+}
+
+template <int ACT>
+__device__ __forceinline__ float activate(float x) {
+  if constexpr (ACT == 1) {
+    return x * (1.0f / (1.0f + expf(-x)));  // silu = x * sigmoid(x)
+  } else if constexpr (ACT == 2) {
+    // jax.nn.gelu's default tanh approximation
+    const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+    return 0.5f * x * (1.0f + tanhf(inner));
+  } else if constexpr (ACT == 3) {
+    return fmaxf(x, 0.0f);
+  } else {
+    return x;
+  }
+}
+
+// Stage rows [r0, r0 + ROWS) x cols [c0, c0 + COLS) of a row-major matrix
+// with nrows x ncols elements and row stride ld into shared memory (row
+// stride LDS), writing zeros outside the matrix: the ragged edge is masked
+// here, so padding contributes nothing to the contraction.
+template <typename T, int ROWS, int COLS, int LDS>
+__device__ __forceinline__ void load_tile(T* __restrict__ s, const T* __restrict__ g, int ld,
+                                          int r0, int c0, int nrows, int ncols, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  static_assert(COLS % VEC == 0, "tile width must hold whole 16-byte vectors");
+  if (vec) {
+    // vec is set only when ncols % VEC == 0 and rows start 16-byte aligned,
+    // so a vector that starts inside the matrix lies wholly inside it
+    constexpr int PER_ROW = COLS / VEC;
+    constexpr int N_VEC = ROWS * PER_ROW;
+#pragma unroll
+    for (int it = 0; it < (N_VEC + kThreads - 1) / kThreads; ++it) {
+      const int i = it * kThreads + threadIdx.x;
+      if (i < N_VEC) {
+        const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
+        const int gr = r0 + r, gc = c0 + c;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (gr < nrows && gc < ncols) {
+          v = __ldg(reinterpret_cast<const uint4*>(g + (size_t)gr * ld + gc));
+        }
+        *reinterpret_cast<uint4*>(s + r * LDS + c) = v;
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += kThreads) {
+      const int r = i / COLS, c = i % COLS;
+      const int gr = r0 + r, gc = c0 + c;
+      T v = from_f32<T>(0.0f);
+      if (gr < nrows && gc < ncols) v = g[(size_t)gr * ld + gc];
+      s[r * LDS + c] = v;
+    }
+  }
+}
+
+// bf16: tensor cores through WMMA.  4 warps in a 2 x 2 grid, each owning a
+// 32 x 32 quarter of the C tile as 2 x 2 fragments (and as many again for the
+// gate accumulator of the GLU form).  Leaves the f32 accumulators in Cs/Cgs.
+template <bool GLU>
+__device__ __forceinline__ void mainloop(const Params& p, const bf16* A, const bf16* B,
+                                         const bf16* Bg, int row0, int col0, bf16* As, bf16* Bs,
+                                         bf16* Bgs, float* Cs, float* Cgs) {
+  using namespace nvcuda;
+  constexpr int BK = Cfg<bf16>::BK, LDA = Cfg<bf16>::LDA, LDB = Cfg<bf16>::LDB;
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 2, wn = warp % 2;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accg[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::fill_fragment(acc[i][j], 0.0f);
+      if constexpr (GLU) wmma::fill_fragment(accg[i][j], 0.0f);
+    }
+  }
+  for (int k0 = 0; k0 < p.K; k0 += BK) {
+    __syncthreads();  // every warp is done with the previous K step
+    load_tile<bf16, kBM, BK, LDA>(As, A, p.K, row0, k0, p.M, p.K, p.vec_a);
+    load_tile<bf16, BK, kBN, LDB>(Bs, B, p.N, k0, col0, p.K, p.N, p.vec_b);
+    if constexpr (GLU) load_tile<bf16, BK, kBN, LDB>(Bgs, Bg, p.N, k0, col0, p.K, p.N, p.vec_b);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+      }
+      if constexpr (GLU) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], Bgs + kk * LDB + wn * 32 + j * 16, LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(accg[i][j], af[i], bf[j], accg[i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // Cs/Cgs alias the operand tiles
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float* c = Cs + (wm * 32 + i * 16) * kLDC + wn * 32 + j * 16;
+      wmma::store_matrix_sync(c, acc[i][j], kLDC, wmma::mem_row_major);
+      if constexpr (GLU) {
+        float* cg = Cgs + (wm * 32 + i * 16) * kLDC + wn * 32 + j * 16;
+        wmma::store_matrix_sync(cg, accg[i][j], kLDC, wmma::mem_row_major);
+      }
+    }
+  }
+}
+
+// f32: SIMT FMAs in full f32 (no TF32, so the result holds the plain
+// version's rtol 1e-4).  Threads form an 8 (N) x 16 (M) grid, each owning
+// 4 rows x 8 cols of the C tile.
+template <bool GLU>
+__device__ __forceinline__ void mainloop(const Params& p, const float* A, const float* B,
+                                         const float* Bg, int row0, int col0, float* As,
+                                         float* Bs, float* Bgs, float* Cs, float* Cgs) {
+  constexpr int BK = Cfg<float>::BK, LDA = Cfg<float>::LDA, LDB = Cfg<float>::LDB;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  float acc[4][8];
+  float accg[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[i][j] = 0.0f;
+      accg[i][j] = 0.0f;
+    }
+  }
+  for (int k0 = 0; k0 < p.K; k0 += BK) {
+    __syncthreads();
+    load_tile<float, kBM, BK, LDA>(As, A, p.K, row0, k0, p.M, p.K, p.vec_a);
+    load_tile<float, BK, kBN, LDB>(Bs, B, p.N, k0, col0, p.K, p.N, p.vec_b);
+    if constexpr (GLU) load_tile<float, BK, kBN, LDB>(Bgs, Bg, p.N, k0, col0, p.K, p.N, p.vec_b);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[(ty * 4 + i) * LDA + kk];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = Bs[kk * LDB + tx * 8 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      if constexpr (GLU) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = Bgs[kk * LDB + tx * 8 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) accg[i][j] = fmaf(a[i], b[j], accg[i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      Cs[(ty * 4 + i) * kLDC + tx * 8 + j] = acc[i][j];
+      if constexpr (GLU) Cgs[(ty * 4 + i) * kLDC + tx * 8 + j] = accg[i][j];
+    }
+  }
+}
+
+template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES>
+__global__ void __launch_bounds__(kThreads) sfc_gemm_fused_kernel(const Params p) {
+  constexpr int A_ELEMS = kBM * Cfg<T>::LDA;
+  constexpr int B_ELEMS = Cfg<T>::BK * Cfg<T>::LDB;
+  constexpr int OPERAND_BYTES = (A_ELEMS + B_ELEMS * (GLU ? 2 : 1)) * (int)sizeof(T);
+  constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float) * (GLU ? 2 : 1);
+  constexpr int SMEM_BYTES = OPERAND_BYTES > EPI_BYTES ? OPERAND_BYTES : EPI_BYTES;
+  static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory is capped at 48 KB");
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + A_ELEMS;
+  T* Bgs = Bs + B_ELEMS;
+  float* Cs = reinterpret_cast<float*>(smem);
+  float* Cgs = Cs + kBM * kLDC;
+
+  // the task's C tile, in curve order
+  const int t = blockIdx.x;
+  const int row0 = __ldg(p.tab + t) * kBM;
+  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;
+  const long long bi = blockIdx.y;
+  const T* A = static_cast<const T*>(p.a) + bi * p.a_bstride;
+  const T* B = static_cast<const T*>(p.b) + bi * p.b_bstride;
+  const T* Bg = static_cast<const T*>(p.bg);  // GLU weights are shared
+
+  mainloop<GLU>(p, A, B, Bg, row0, col0, As, Bs, Bgs, Cs, Cgs);
+  __syncthreads();
+
+  const long long c_off = bi * (long long)p.M * p.N;
+  const T* bias = static_cast<const T*>(p.bias);
+  const T* gbias = static_cast<const T*>(p.gbias);
+  const T* res = static_cast<const T*>(p.res) + (RES ? c_off : 0);
+  T* out = static_cast<T*>(p.out) + c_off;
+  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
+    const int r = i / kBN, c = i % kBN;
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr >= p.M || gc >= p.N) continue;
+    float v = Cs[r * kLDC + c];
+    if constexpr (BIAS) v += to_f32(bias[gc]);
+    float y;
+    if constexpr (GLU) {
+      float g = Cgs[r * kLDC + c];
+      if constexpr (GBIAS) g += to_f32(gbias[gc]);
+      y = activate<ACT>(g) * v;
+    } else {
+      y = activate<ACT>(v);
+    }
+    if constexpr (SCALE) y *= p.out_scale;
+    if constexpr (RES) y += to_f32(res[(size_t)gr * p.N + gc]);
+    out[(size_t)gr * p.N + gc] = from_f32<T>(y);
+  }
+}
+
+#if SFC_DTYPE == 1
+typedef bf16 ElemT;
+#else
+typedef float ElemT;
+#endif
+
+template <bool BIAS, bool GBIAS, bool SCALE, bool RES>
+void launch(const Params& p, dim3 grid, cudaStream_t s) {
+  sfc_gemm_fused_kernel<ElemT, SFC_GLU != 0, SFC_ACT, BIAS, GBIAS, SCALE, RES>
+      <<<grid, kThreads, 0, s>>>(p);
+}
+
+template <bool BIAS, bool GBIAS, bool SCALE>
+void launch_res(const Params& p, dim3 grid, cudaStream_t s) {
+  if (p.res)
+    launch<BIAS, GBIAS, SCALE, true>(p, grid, s);
+  else
+    launch<BIAS, GBIAS, SCALE, false>(p, grid, s);
+}
+
+template <bool BIAS, bool GBIAS>
+void launch_scale(const Params& p, bool scale, dim3 grid, cudaStream_t s) {
+  if (scale)
+    launch_res<BIAS, GBIAS, true>(p, grid, s);
+  else
+    launch_res<BIAS, GBIAS, false>(p, grid, s);
+}
+
+template <bool BIAS>
+void launch_gbias(const Params& p, bool scale, dim3 grid, cudaStream_t s) {
+#if SFC_GLU
+  if (p.gbias) {
+    launch_scale<BIAS, true>(p, scale, grid, s);
+    return;
+  }
+#endif
+  launch_scale<BIAS, false>(p, scale, grid, s);
+}
+
+}  // namespace
+
+// One launch of the fused kernel over a (n_tasks, batch) grid.  Pointers
+// that are null switch their epilogue term off.  Returns cudaGetLastError()
+// after the launch, so a refused launch reaches the caller.
+extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
+                         const void* gate_bias, const void* residual, void* out, const int* tab,
+                         int n_tasks, int batch, int M, int N, int K, long long a_bstride,
+                         long long b_bstride, int has_scale, float out_scale, int vec_a,
+                         int vec_b, void* stream) {
+  if ((SFC_GLU != 0) != (b_gate != nullptr)) return (int)cudaErrorInvalidValue;
+  if (!SFC_GLU && gate_bias != nullptr) return (int)cudaErrorInvalidValue;
+  Params p;
+  p.a = a;
+  p.b = b;
+  p.bg = b_gate;
+  p.bias = bias;
+  p.gbias = gate_bias;
+  p.res = residual;
+  p.out = out;
+  p.tab = tab;
+  p.n_tasks = n_tasks;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.a_bstride = a_bstride;
+  p.b_bstride = b_bstride;
+  p.out_scale = out_scale;
+  p.vec_a = vec_a;
+  p.vec_b = vec_b;
+  const dim3 grid((unsigned)n_tasks, (unsigned)batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias)
+    launch_gbias<true>(p, has_scale != 0, grid, s);
+  else
+    launch_gbias<false>(p, has_scale != 0, grid, s);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,206 @@
+"""GQA attention block with RoPE, qk-norm, optional qkv bias and a KV-cache
+decode (the port's ``repro.models.attention``, dense-decoder half).
+
+`Attention` holds the parameters; the prefill/decode math is in plain
+functions that take it, as the JAX package's functions take its parameter
+dict.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.gemm_backend import matmul as _bmm
+from repro_torch.models.layers import (
+    RMSNorm,
+    apply_rope,
+    blockwise_attention,
+    decode_attention,
+    normal_,
+    param,
+    rmsnorm,
+)
+
+__all__ = ["Attention", "attention_forward", "attention_prefill", "attention_decode"]
+
+_NOT_PORTED = {
+    "sfc": "attn_impl='sfc' needs the SFC flash and decode kernels (K11, K14), "
+    "not ported yet: ROADMAP queue 2, next slice",
+    "flash_pallas": "attn_impl='flash_pallas' needs the legacy flash kernel (K15), "
+    "not ported yet: ROADMAP queue 2",
+}
+
+
+def _check_impl(attn_impl: str) -> None:
+    if attn_impl in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[attn_impl])
+    if attn_impl != "blockwise":
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+
+
+def _attend(q, k, v, *, causal: bool, q_chunk: int, k_chunk: int, attn_impl: str) -> torch.Tensor:
+    """The switch for every prefill/training attention contraction."""
+    _check_impl(attn_impl)
+    return blockwise_attention(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk)
+
+
+def _attend_cached(q, k, v, valid: torch.Tensor, *, attn_impl: str) -> torch.Tensor:
+    """The decode-path switch."""
+    _check_impl(attn_impl)
+    return decode_attention(q, k, v, valid)
+
+
+class Attention(nn.Module):
+    """Projection weights (in, out) plus optional qkv biases and per-head
+    q/k RMS norms (Qwen3)."""
+
+    def __init__(
+        self,
+        *,
+        d_model: int,
+        n_heads: int,
+        kv_heads: int,
+        head_dim: Optional[int] = None,
+        qkv_bias: bool = False,
+        qk_norm: bool = False,
+        dtype,
+        device,
+    ):
+        super().__init__()
+        hd = head_dim or d_model // n_heads
+        kw = dict(dtype=dtype, device=device)
+        self.wq = param((d_model, n_heads * hd), **kw)
+        self.wk = param((d_model, kv_heads * hd), **kw)
+        self.wv = param((d_model, kv_heads * hd), **kw)
+        self.wo = param((n_heads * hd, d_model), **kw)
+        for name, width in (("bq", n_heads * hd), ("bk", kv_heads * hd), ("bv", kv_heads * hd)):
+            self.register_parameter(name, param((width,), **kw) if qkv_bias else None)
+        self.q_norm = RMSNorm(hd, **kw) if qk_norm else None
+        self.k_norm = RMSNorm(hd, **kw) if qk_norm else None
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            normal_(w, generator)
+        for b in (self.bq, self.bk, self.bv):
+            if b is not None:
+                b.zero_()
+        for norm in (self.q_norm, self.k_norm):
+            if norm is not None:
+                norm.init()
+
+
+def _project_qkv(p: Attention, x: torch.Tensor, *, n_heads: int, kv_heads: int):
+    b, s, _ = x.shape
+    q = _bmm(x, p.wq)
+    k = _bmm(x, p.wk)
+    v = _bmm(x, p.wv)
+    if p.bq is not None:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    hd = q.shape[-1] // n_heads
+    q = q.reshape(b, s, n_heads, hd)
+    k = k.reshape(b, s, kv_heads, hd)
+    v = v.reshape(b, s, kv_heads, hd)
+    if p.q_norm is not None:  # per-head RMS (Qwen3)
+        q = rmsnorm(q, p.q_norm.scale)
+        k = rmsnorm(k, p.k_norm.scale)
+    return q, k, v
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def attention_forward(
+    p: Attention,
+    x: torch.Tensor,  # (B, S, d)
+    *,
+    n_heads: int,
+    kv_heads: int,
+    positions: Optional[torch.Tensor] = None,
+    rope_theta: float = 10000.0,
+    rotary_pct: float = 1.0,
+    causal: bool = True,
+    q_chunk: int = 512,
+    k_chunk: int = 512,
+    attn_impl: str = "blockwise",
+) -> torch.Tensor:
+    """Self-attention for training / prefill (no cache returned)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, n_heads=n_heads, kv_heads=kv_heads)
+    if positions is None:
+        positions = _positions(b, s, x.device)
+    if rotary_pct > 0:
+        q = apply_rope(q, positions, theta=rope_theta, rotary_pct=rotary_pct)
+        k = apply_rope(k, positions, theta=rope_theta, rotary_pct=rotary_pct)
+    o = _attend(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk, attn_impl=attn_impl)
+    return _bmm(o.reshape(b, s, -1), p.wo)
+
+
+def attention_prefill(
+    p: Attention,
+    x: torch.Tensor,
+    *,
+    n_heads: int,
+    kv_heads: int,
+    cache_len: int,
+    positions: Optional[torch.Tensor] = None,
+    rope_theta: float = 10000.0,
+    rotary_pct: float = 1.0,
+    q_chunk: int = 512,
+    k_chunk: int = 512,
+    attn_impl: str = "blockwise",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill: returns the output and a KV cache right-padded to cache_len."""
+    b, s, _ = x.shape
+    if cache_len < s:
+        raise ValueError(f"cache_len {cache_len} < prompt length {s}")
+    q, k, v = _project_qkv(p, x, n_heads=n_heads, kv_heads=kv_heads)
+    if positions is None:
+        positions = _positions(b, s, x.device)
+    if rotary_pct > 0:
+        q = apply_rope(q, positions, theta=rope_theta, rotary_pct=rotary_pct)
+        k = apply_rope(k, positions, theta=rope_theta, rotary_pct=rotary_pct)
+    o = _attend(q, k, v, causal=True, q_chunk=q_chunk, k_chunk=k_chunk, attn_impl=attn_impl)
+    pad = cache_len - s
+    cache = {
+        "k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+        "v": F.pad(v, (0, 0, 0, 0, 0, pad)),
+    }
+    return _bmm(o.reshape(b, s, -1), p.wo), cache
+
+
+def attention_decode(
+    p: Attention,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: Dict[str, torch.Tensor],  # k/v (B, T, Hkv, D)
+    index: int,  # current length, shared by the batch
+    *,
+    n_heads: int,
+    kv_heads: int,
+    rope_theta: float = 10000.0,
+    rotary_pct: float = 1.0,
+    attn_impl: str = "blockwise",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode against the KV cache.  The new k/v are written into
+    ``cache`` in place (the JAX package returns a new cache; in place saves
+    a copy of the whole cache per step) and the same dict is returned."""
+    b = x.shape[0]
+    _check_impl(attn_impl)
+    q, k, v = _project_qkv(p, x, n_heads=n_heads, kv_heads=kv_heads)
+    positions = torch.full((b, 1), index, device=x.device)
+    if rotary_pct > 0:
+        q = apply_rope(q, positions, theta=rope_theta, rotary_pct=rotary_pct)
+        k = apply_rope(k, positions, theta=rope_theta, rotary_pct=rotary_pct)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, index] = k[:, 0].to(ck.dtype)
+    cv[:, index] = v[:, 0].to(cv.dtype)
+    valid = torch.full((b,), index + 1, dtype=torch.int32, device=x.device)
+    o = _attend_cached(q, ck, cv, valid, attn_impl=attn_impl)
+    return _bmm(o.reshape(b, 1, -1), p.wo), cache
