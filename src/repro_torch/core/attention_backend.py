@@ -1,0 +1,156 @@
+"""Pluggable attention backend, forward half (the port's
+``repro.core.attention_backend``).
+
+`models.attention` routes every prefill and decode attention through this
+switch; the active implementation is the call site's ``attn_impl`` (from
+`ArchConfig.attn_impl`) unless the `attention_backend` context overrides
+it:
+
+  "blockwise"     plain-torch online-softmax loop (`models.layers`), default
+  "flash_pallas"  the dense-grid flash forward (K15, `kernels/flash_attention`)
+  "sfc"           the SFC band flash forward (K11) and the single-launch
+                  decode (K14), `kernels/sfc_attention`
+
+Knobs: on CPU tensors `resolve_attn_knobs` clips the caller's hint exactly
+as the JAX package does when its tune cache has no entry, so the plain
+versions walk the JAX package's task tables.  On the card the chunks are
+the CUDA kernel's compiled tile, and the task table is built over it.
+
+Left out of this slice, each with its ROADMAP queue 1 item:
+
+* the tune-cache lookup (item 13): `resolve_attn_knobs` takes the hint path
+  only, as the JAX package does when the cache has no entry;
+* `run_with_fallback` and `degradation_report` (item 14): nothing falls
+  back, a kernel that fails raises;
+* the custom VJP over the backward kernels K12/K13 (item 9): the kernels'
+  outputs have no ``grad_fn``, so inputs that need a gradient raise.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.namespaces import NS_ATTN_DECODE, NS_ATTN_FWD
+from repro_torch.kernels import build
+from repro_torch.kernels.sfc_attention import (
+    check_fwd_shapes,
+    require_no_grad,
+    sfc_decode_attention,
+    sfc_flash_fwd,
+)
+
+__all__ = [
+    "ATTN_IMPLS",
+    "attention_backend",
+    "current_attention_backend",
+    "resolve_attn_impl",
+    "resolve_attn_knobs",
+    "flash_attention",
+    "decode_attention",
+]
+
+ATTN_IMPLS = ("blockwise", "flash_pallas", "sfc")
+
+_ATTN_BACKEND: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
+    "attention_backend", default=None
+)
+
+
+@contextlib.contextmanager
+def attention_backend(name: str):
+    """Override the attention implementation for every call inside."""
+    if name not in ATTN_IMPLS:
+        raise ValueError(f"unknown attention backend {name!r}; pick from {ATTN_IMPLS}")
+    tok = _ATTN_BACKEND.set(name)
+    try:
+        yield
+    finally:
+        _ATTN_BACKEND.reset(tok)
+
+
+def current_attention_backend() -> Optional[str]:
+    return _ATTN_BACKEND.get()
+
+
+def resolve_attn_impl(impl: str) -> str:
+    """Context override first, the call site's (config) value otherwise."""
+    return _ATTN_BACKEND.get() or impl
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, (int(x) - 1).bit_length())
+
+
+def _clip_chunk(chunk: int, extent: int, floor: int = 8) -> int:
+    """Largest power of two <= chunk that does not overshoot the padded
+    extent, at least ``floor``."""
+    return max(floor, min(_pow2_ceil(chunk), _pow2_ceil(extent)))
+
+
+def resolve_attn_knobs(
+    sq: int,
+    sk: int,
+    d: int,
+    dtype,
+    *,
+    op: str,
+    q_chunk: Optional[int] = None,
+    k_chunk: Optional[int] = None,
+    device: Union[str, torch.device] = "cpu",
+) -> Tuple[int, int]:
+    """(q_chunk, k_chunk) for one attention launch of namespace ``op``.
+
+    On the card: the CUDA kernel's compiled tile (the decode kernel's
+    chunk for ``op="attn_decode"``).  Elsewhere: the hint
+    (128 when absent) clipped to the padded extents, the JAX package's path
+    when its tune cache has no entry (the cache is not ported: item 13)."""
+    if torch.device(device).type == "cuda":
+        return (build.ATTN_TILE[0], build.DECODE_CHUNK) if op == NS_ATTN_DECODE else build.ATTN_TILE
+    return _clip_chunk(q_chunk or 128, sq), _clip_chunk(k_chunk or 128, sk)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, T, Hkv, D)
+    v: torch.Tensor,  # (B, T, Hkv, D)
+    *,
+    causal: bool = True,
+    q_chunk: Optional[int] = None,
+    k_chunk: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """SFC flash attention in the model's (B, S, H, D) layout, forward only.
+
+    GQA is resolved by the kernel's head map; ragged S and T are masked,
+    not padded.  ``q_offset`` places the q block at global rows
+    ``[q_offset, q_offset + S)`` of a causal stream whose first ``q_offset``
+    keys are cached.  ``q_chunk``/``k_chunk`` are hints (`resolve_attn_knobs`).
+    Inputs that need a gradient raise `NotImplementedError` (K12/K13)."""
+    require_no_grad("attn_impl='sfc' flash_attention", q, k, v)
+    check_fwd_shapes(q, k, v, None, None, q_offset)  # negative q_offset, GQA ratio, ...
+    s, d, t = q.shape[1], q.shape[3], k.shape[1]
+    qc, kc = resolve_attn_knobs(s, t, d, q.dtype, op=NS_ATTN_FWD, q_chunk=q_chunk, k_chunk=k_chunk,
+                                device=q.device)
+    o, _ = sfc_flash_fwd(q, k, v, causal=causal, seq_q=s, seq_k=t, q_offset=q_offset, q_chunk=qc, k_chunk=kc)
+    return o
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k: torch.Tensor,  # (B, T, Hkv, D) cache
+    v: torch.Tensor,  # (B, T, Hkv, D)
+    valid_len: torch.Tensor,  # (B,) live cache lengths
+    *,
+    k_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-launch decode attention against the KV cache, read in place;
+    drop-in for `models.layers.decode_attention`."""
+    require_no_grad("attn_impl='sfc' decode_attention", q, k, v)
+    h, d, t = q.shape[2], q.shape[3], k.shape[1]
+    _, kc = resolve_attn_knobs(h, t, d, q.dtype, op=NS_ATTN_DECODE, q_chunk=None, k_chunk=k_chunk,
+                               device=q.device)
+    return sfc_decode_attention(q, k, v, valid_len, k_chunk=kc)

@@ -3,37 +3,62 @@
 Each kernel source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds, not minutes) under ``build/`` at the repository root,
-keyed by a digest of the source and flags, and loaded with ``ctypes``.
+keyed by a digest of the source, every ``csrc/`` header it includes, and
+the flags, and loaded with ``ctypes``.  Two libraries:
 
-``sfc_gemm_fused.cu`` is compiled once per (input type, GLU, activation)
-part, all parts at the same time, each part with its epilogue flags as
-template parameters; the objects are then linked into one library.
-Nothing here runs at import: the CPU tests import this module on machines
-with no ``nvcc``.
+* ``sfc_gemm_fused.cu``, compiled once per (input type, GLU, activation)
+  part, each part with its epilogue flags as template parameters;
+* ``sfc_attention.cu``, compiled once per input type, each part holding the
+  flash-forward and decode kernels for the head dims in ``ATTN_HEAD_DIMS``.
+
+A library's parts are compiled by parallel ``nvcc`` processes and linked
+into one ``.so``; `load_all` starts the parts of every library that is not
+built yet at the same time.  Each part's compiler output (``-Xptxas -v``:
+registers, shared memory, spills) is kept in ``nvcc.log`` beside the
+library.  Nothing here runs at import: the CPU tests import this module on
+machines with no ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
     "TILE",
+    "ATTN_TILE",
+    "ATTN_HEAD_DIMS",
+    "MAX_DECODE_GROUPS",
+    "DECODE_CHUNK",
     "ACTIVATION_CODES",
     "DTYPE_NAMES",
     "entry_name",
+    "attn_entry_name",
+    "source_digest",
     "load_library",
+    "load_attention_library",
+    "load_all",
 ]
 
 # (bm, bn) of the C tile one CTA computes: kBM / kBN in csrc/sfc_gemm_fused.cu
 TILE: Tuple[int, int] = (64, 64)
+# (q rows, k rows) of one flash-forward tile: kBQ / kBK in csrc/sfc_attention.cu
+ATTN_TILE: Tuple[int, int] = (64, 64)
+# head dims the attention kernels are compiled for (SFC_*_ENTRY in the source)
+ATTN_HEAD_DIMS: Tuple[int, ...] = (64, 128)
+# GQA rows one decode CTA holds: kMaxGroups in csrc/sfc_attention.cu
+MAX_DECODE_GROUPS = 16
+# cache rows per step of the decode kernel's loop: kDecChunk in csrc/sfc_attention.cu
+DECODE_CHUNK = 64
 
 ACTIVATION_CODES: Dict[Optional[str], int] = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 DTYPE_NAMES = {"float32": "f32", "bfloat16": "bf16"}
@@ -41,7 +66,8 @@ _DTYPE_CODES = {"f32": 0, "bf16": 1}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
+_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def entry_name(dtype_name: str, glu: bool, activation: Optional[str]) -> str:
@@ -49,11 +75,83 @@ def entry_name(dtype_name: str, glu: bool, activation: Optional[str]) -> str:
     return f"sfc_gemm_fused_{dtype_name}_glu{int(glu)}_act{ACTIVATION_CODES[activation]}"
 
 
-def _parts():
+def attn_entry_name(kind: str, dtype_name: str, head_dim: int) -> str:
+    """C symbol of an attention entry: ``kind`` is "fwd" or "decode"."""
+    if kind not in ("fwd", "decode"):
+        raise ValueError(f"unknown attention entry kind {kind!r}")
+    return f"sfc_attn_{kind}_{dtype_name}_d{head_dim}"
+
+
+def _gemm_parts():
     for dt in _DTYPE_CODES:
         for glu in (False, True):
             for act in ACTIVATION_CODES:
-                yield dt, glu, act
+                yield entry_name(dt, glu, act), (
+                    f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
+                    f"-DSFC_GLU={int(glu)}",
+                    f"-DSFC_ACT={ACTIVATION_CODES[act]}",
+                    f"-DSFC_ENTRY={entry_name(dt, glu, act)}",
+                )
+
+
+def _attention_parts():
+    for dt, code in _DTYPE_CODES.items():
+        yield f"sfc_attention_{dt}", (f"-DSFC_ATTN_DTYPE={code}", f"-DSFC_ATTN_TAG={dt}")
+
+
+def _bind_gemm(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, _ in _gemm_parts():
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # a, b, b_gate, bias, gate_bias, residual, out
+            ptr, i32, i32,  # task table, n_tasks, batch
+            i32, i32, i32,  # M, N, K
+            ctypes.c_longlong, ctypes.c_longlong,  # A / B batch strides (elements)
+            i32, ctypes.c_float,  # has_scale, out_scale
+            i32, i32,  # vec_a, vec_b
+            ptr,  # cudaStream_t
+        ]
+        fn.restype = i32
+
+
+def _bind_attention(lib: ctypes.CDLL) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for dt in _DTYPE_CODES:
+        for d in ATTN_HEAD_DIMS:
+            fwd = getattr(lib, attn_entry_name("fwd", dt, d))
+            fwd.argtypes = [
+                ptr, ptr, ptr, ptr, ptr,  # q, k, v, o, lse (may be null)
+                ptr, ptr,  # k tile per task, row starts
+                i32, i32, i32, i32,  # nq, batch, H, groups
+                i32, i32, i32, i32,  # S, T, seq_q, seq_k
+                i32, i32,  # q_offset, causal
+                i64, i64, i64, i64, i64, i64, i64, i64, i64,  # q, k, v strides (batch, seq, head)
+                ctypes.c_float,  # scale
+                ptr,  # cudaStream_t
+            ]
+            fwd.restype = i32
+            dec = getattr(lib, attn_entry_name("decode", dt, d))
+            dec.argtypes = [
+                ptr, ptr, ptr, ptr, ptr,  # q, k, v, valid_len, o
+                i32, i32, i32, i32,  # batch, H, Hkv, T
+                i64, i64, i64, i64, i64, i64,  # k, v strides (batch, seq, head)
+                ctypes.c_float,  # scale
+                ptr,  # cudaStream_t
+            ]
+            dec.restype = i32
+
+
+@dataclasses.dataclass(frozen=True)
+class _Library:
+    name: str
+    source: str  # file under csrc/
+    parts: Callable[[], Iterable[Tuple[str, Tuple[str, ...]]]]  # (object name, -D flags)
+    bind: Callable[[ctypes.CDLL], None]
+
+
+_GEMM = _Library("sfc_gemm_fused", "sfc_gemm_fused.cu", _gemm_parts, _bind_gemm)
+_ATTENTION = _Library("sfc_attention", "sfc_attention.cu", _attention_parts, _bind_attention)
 
 
 def _build_root() -> Path:
@@ -74,67 +172,108 @@ def _nvcc() -> str:
     return found
 
 
-def _part_flags(dt: str, glu: bool, act: Optional[str]) -> Tuple[str, ...]:
-    return (
-        f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
-        f"-DSFC_GLU={int(glu)}",
-        f"-DSFC_ACT={ACTIVATION_CODES[act]}",
-        f"-DSFC_ENTRY={entry_name(dt, glu, act)}",
-    )
+def _sources(src: Path) -> List[Path]:
+    """``src`` and every file it includes with ``#include "..."`` that lies
+    beside it, recursively, in a fixed order."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            inc = (path.parent / name).resolve()
+            if inc.exists():
+                todo.append(inc)
+    return seen
 
 
-def _compile(nvcc: str, src: Path, out_lib: Path) -> None:
-    """Compile every part at once, link them, and move the library into
-    place atomically (another process may be building the same digest)."""
+def source_digest(src: Path, flags: Iterable[str] = ()) -> str:
+    """12-hex digest of a source, the local headers it includes, and flags."""
+    digest = hashlib.sha1()
+    for path in _sources(src):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    digest.update(" ".join(flags).encode())
+    return digest.hexdigest()[:12]
+
+
+def _lib_path(lib: _Library) -> Path:
+    flags = _ARCH_FLAGS + _FLAGS + tuple(f for _, fl in lib.parts() for f in fl)
+    digest = source_digest(_CSRC / lib.source, flags)
+    return _build_root() / f"{lib.name}-{digest}" / f"lib{lib.name}.so"
+
+
+def _start(nvcc: str, lib: _Library, out_lib: Path):
+    """Start one nvcc process per part of ``lib`` in a scratch directory
+    beside ``out_lib``; returns what `_finish` needs."""
     out_lib.parent.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_lib.parent) as tmp:
-        procs = []
-        for dt, glu, act in _parts():
-            obj = Path(tmp) / f"{entry_name(dt, glu, act)}.o"
-            cmd = [nvcc, *_ARCH_FLAGS, *_FLAGS, *_part_flags(dt, glu, act), "-c", str(src), "-o", str(obj)]
-            procs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        failed = []
+    tmp = tempfile.TemporaryDirectory(dir=out_lib.parent)
+    procs = []
+    for name, flags in lib.parts():
+        obj = Path(tmp.name) / f"{name}.o"
+        cmd = [nvcc, *_ARCH_FLAGS, *_FLAGS, *flags, "-c", str(_CSRC / lib.source), "-o", str(obj)]
+        procs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    return nvcc, out_lib, tmp, procs
+
+
+def _finish(job) -> None:
+    """Wait for the parts, link them, keep the compiler log, and move the
+    library into place atomically (another process may build the same
+    digest)."""
+    nvcc, out_lib, tmp, procs = job
+    with tmp:
+        logs, failed = [], []
         for cmd, _, proc in procs:
-            log, _ = proc.communicate()
+            out, _ = proc.communicate()
+            text = f"$ {' '.join(cmd)}\n{out.decode(errors='replace')}"
+            logs.append(text)
             if proc.returncode != 0:
-                failed.append(f"$ {' '.join(cmd)}\n{log.decode(errors='replace')}")
+                failed.append(text)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        tmp_lib = Path(tmp) / out_lib.name
+        tmp_lib = Path(tmp.name) / out_lib.name
         link = [nvcc, *_ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)]
         res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n$ {' '.join(link)}\n{res.stdout.decode(errors='replace')}")
+        (out_lib.parent / "nvcc.log").write_text("\n".join(logs))
         os.replace(tmp_lib, out_lib)
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for dt, glu, act in _parts():
-        fn = getattr(lib, entry_name(dt, glu, act))
-        fn.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # a, b, b_gate, bias, gate_bias, residual, out
-            ptr, i32, i32,  # task table, n_tasks, batch
-            i32, i32, i32,  # M, N, K
-            ctypes.c_longlong, ctypes.c_longlong,  # A / B batch strides (elements)
-            i32, ctypes.c_float,  # has_scale, out_scale
-            i32, i32,  # vec_a, vec_b
-            ptr,  # cudaStream_t
-        ]
-        fn.restype = i32
+def _ensure_built(libs: Iterable[_Library]) -> None:
+    missing = [(lib, path) for lib in libs if not (path := _lib_path(lib)).exists()]
+    if not missing:
+        return
+    nvcc = _nvcc()
+    jobs = [_start(nvcc, lib, path) for lib, path in missing]
+    for job in jobs:
+        _finish(job)
 
 
 @functools.lru_cache(maxsize=None)
+def _load(lib: _Library) -> ctypes.CDLL:
+    _ensure_built([lib])
+    handle = ctypes.CDLL(str(_lib_path(lib)))
+    lib.bind(handle)
+    return handle
+
+
 def load_library() -> ctypes.CDLL:
     """The fused-GEMM library, built on first use into ``build/``."""
-    src = _CSRC / "sfc_gemm_fused.cu"
-    nvcc = _nvcc()
-    digest = hashlib.sha1()
-    digest.update(src.read_bytes())
-    digest.update(" ".join(_ARCH_FLAGS + _FLAGS).encode())
-    lib_path = _build_root() / f"sfc_gemm_fused-{digest.hexdigest()[:12]}" / "libsfc_gemm_fused.so"
-    if not lib_path.exists():
-        _compile(nvcc, src, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    _bind(lib)
-    return lib
+    return _load(_GEMM)
+
+
+def load_attention_library() -> ctypes.CDLL:
+    """The attention library (flash forward and decode), built on first use."""
+    return _load(_ATTENTION)
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Build every library that is not built yet, all parts at once, and
+    load them all: ``{"sfc_gemm_fused": ..., "sfc_attention": ...}``."""
+    libs = (_GEMM, _ATTENTION)
+    _ensure_built(libs)
+    return {lib.name: _load(lib) for lib in libs}
+

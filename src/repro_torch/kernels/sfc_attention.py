@@ -1,0 +1,413 @@
+"""SFC-scheduled attention, forward half: the CUDA ports of the TPU kernels
+``repro.kernels.sfc_attention.sfc_flash_fwd`` (K11) and
+``sfc_decode_attention_pallas`` (K14), each beside its plain PyTorch
+version.
+
+``sfc_flash_fwd`` is the band-table online-softmax flash forward: it walks
+the (q, k) tile pairs of the causal band in the serpentine order that
+``core.schedule.attention_spec`` compiles and returns the output and the
+per-row logsumexp.  ``sfc_decode_attention`` is one launch for a whole
+decode step: one program per (batch, kv head), the kv head's GQA group as
+its rows, and a chunk loop bounded by each sequence's live cache length.
+
+Both take the model's layout (q (B, S, H, D), k/v (B, T, Hkv, D)), resolve
+GQA by mapping q head h to kv head ``h // groups`` and pad nothing.  A CPU
+tensor goes to the plain version (``*_plain``), which repeats the TPU
+kernel's arithmetic: f32 online softmax, masked scores ``NEG``, the final
+division guarded by ``max(l, 1e-30)``.  A CUDA tensor goes to the
+hand-written kernel in ``csrc/sfc_attention.cu`` or the call raises; there
+is no fallback from one to the other.  On the card the chunks are the
+kernel's compiled tile (`kernel_chunks`).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.schedule import attention_spec, compile_schedule
+from repro_torch.kernels import build
+
+__all__ = [
+    "NEG",
+    "build_attention_task_table",
+    "kernel_chunks",
+    "require_no_grad",
+    "sfc_flash_fwd",
+    "sfc_flash_fwd_plain",
+    "sfc_decode_attention",
+    "sfc_decode_attention_plain",
+]
+
+NEG = -1e30
+_TINY = 1e-30
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, the (batch, head) axis
+
+
+def build_attention_task_table(
+    nq: int,
+    nk: int,
+    *,
+    causal: bool,
+    q_chunk: int,
+    k_chunk: int,
+    transpose: bool = False,
+    q_offset: int = 0,
+) -> np.ndarray:
+    """(4, T) band task table (major, minor, first, last) for the (nq, nk)
+    attention tile grid, from `core.schedule.attention_spec`.  Causal bands
+    are start-aligned: global q position ``q_offset + i`` attends
+    k[0..q_offset+i].  ``transpose`` gives the k-row-major table."""
+    spec = attention_spec(
+        nq, nk, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk,
+        transpose=transpose, q_offset=q_offset,
+    )
+    return compile_schedule(spec).table
+
+
+def kernel_chunks() -> Tuple[int, int]:
+    """(q_chunk, k_chunk) of the tile the CUDA flash kernel is compiled for."""
+    return build.ATTN_TILE
+
+
+def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels' outputs carry no ``grad_fn``: refuse inputs that would
+    need one rather than hand autograd a constant."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward: the flash backward kernels (K12 dQ, K13 dK/dV) are not "
+            "ported yet (ROADMAP queue 1 item 9); call it under torch.no_grad()"
+        )
+
+
+def check_fwd_shapes(q, k, v, seq_q, seq_k, q_offset):
+    """Shape contract of the flash forward; returns (seq_q, seq_k)."""
+    if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"q must be (B, S, H, D) and k, v (B, T, Hkv, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    b2, t, hkv, d2 = k.shape
+    if b != b2 or d != d2:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in batch or head dim")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"GQA heads {h} not a multiple of kv heads {hkv}")
+    if t == 0:
+        raise ValueError("attention needs at least one key")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    seq_q = s if seq_q is None else seq_q
+    seq_k = t if seq_k is None else seq_k
+    if not (0 <= seq_q <= s and 0 <= seq_k <= t):
+        raise ValueError(f"seq_q={seq_q}, seq_k={seq_k} outside the shapes S={s}, T={t}")
+    return seq_q, seq_k
+
+
+def pad_seq(x: torch.Tensor, length: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, length - x.shape[1]))
+
+
+def sfc_flash_fwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    q_chunk: int,
+    k_chunk: int,
+    seq_q: Optional[int] = None,
+    seq_k: Optional[int] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the band flash forward, on any device.
+
+    A Python loop over the compiled band table, all (batch, head) pairs of
+    a task at once, with `_flash_fwd_kernel`'s arithmetic: q scaled by
+    1/sqrt(D) in f32, masked scores NEG, f32 online softmax, flush at the
+    row's last task.  Sequences are zero-padded to chunk multiples here (as
+    the JAX wrapper pads); rows at or past ``seq_q`` hold the masked
+    sentinel.  Returns o (B, S, H, D) in q's type and lse (B, S, H) f32.
+    """
+    seq_q, seq_k = check_fwd_shapes(q, k, v, seq_q, seq_k, q_offset)
+    b, s, h, d = q.shape
+    _, t, hkv, _ = k.shape
+    groups = h // hkv
+    nq, nk = math.ceil(s / q_chunk), math.ceil(t / k_chunk)
+    heads = torch.arange(h, device=q.device) // groups
+    qp = pad_seq(q, nq * q_chunk).float().transpose(1, 2) * (1.0 / math.sqrt(d))  # (B, H, Sp, D)
+    kp = pad_seq(k, nk * k_chunk).float()[:, :, heads].transpose(1, 2)  # (B, H, Tp, D)
+    vp = pad_seq(v, nk * k_chunk).float()[:, :, heads].transpose(1, 2)
+    o = torch.zeros((b, h, nq * q_chunk, d), dtype=torch.float32, device=q.device)
+    lse = torch.zeros((b, h, nq * q_chunk), dtype=torch.float32, device=q.device)
+    rows = torch.arange(q_chunk, device=q.device)[:, None]
+    cols = torch.arange(k_chunk, device=q.device)[None, :]
+    tab = build_attention_task_table(nq, nk, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk,
+                                     q_offset=q_offset)
+    for iq, ik, first, last in tab.T.tolist():
+        if first:
+            acc = torch.zeros((b, h, q_chunk, d), dtype=torch.float32, device=q.device)
+            m = torch.full((b, h, q_chunk, 1), NEG, dtype=torch.float32, device=q.device)
+            l = torch.zeros_like(m)
+        qs = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        ks = slice(ik * k_chunk, (ik + 1) * k_chunk)
+        sc = qp[:, :, qs] @ kp[:, :, ks].transpose(-1, -2)
+        qpos, kpos = iq * q_chunk + rows, ik * k_chunk + cols
+        valid = (kpos < seq_k) & (qpos < seq_q)
+        if causal:
+            valid = valid & (kpos <= qpos + q_offset)
+        sc = torch.where(valid, sc, torch.full_like(sc, NEG))
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        acc = acc * alpha + p @ vp[:, :, ks]
+        m = m_new
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if last:
+            lc = torch.clamp_min(l, _TINY)
+            o[:, :, qs] = acc / lc
+            lse[:, :, qs] = (m + torch.log(lc))[..., 0]
+    return o[:, :, :s].transpose(1, 2).to(q.dtype), lse[:, :, :s].transpose(1, 2).contiguous()
+
+
+@functools.lru_cache(maxsize=256)
+def _device_band(nq: int, nk: int, causal: bool, q_offset: int, device: torch.device):
+    """(k tile per task, row starts (nq + 1,)) of the serpentine band over
+    the kernel's tile, int32, uploaded once per shape and kept there.  Row
+    iq's tasks are [row_start[iq], row_start[iq + 1]) in table order; the
+    segments are found from the table's ``first`` flags."""
+    qc, kc = build.ATTN_TILE
+    tab = build_attention_task_table(nq, nk, causal=causal, q_chunk=qc, k_chunk=kc, q_offset=q_offset)
+    starts = np.flatnonzero(tab[2])
+    if not np.array_equal(tab[0, starts], np.arange(nq)):
+        raise AssertionError("band table rows are not one segment per q tile in order")
+    row_start = np.append(starts, tab.shape[1]).astype(np.int32)
+    return (torch.from_numpy(tab[1].copy()).to(device), torch.from_numpy(row_start).to(device))
+
+
+def _vec_ok(t: torch.Tensor) -> bool:
+    """16-byte aligned rows along the last (contiguous) dim."""
+    vec = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % vec == 0 for st in t.stride()[:-1]))
+
+
+def _check_launch(name: str, q: torch.Tensor, *others: torch.Tensor) -> str:
+    """Device, type and layout checks shared by the kernels' launches;
+    returns the C type tag."""
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, got {q.dtype}")
+    d = q.shape[-1]
+    if d not in build.ATTN_HEAD_DIMS:
+        raise ValueError(f"{name}: the CUDA kernel is compiled for head dims {build.ATTN_HEAD_DIMS}, got {d}")
+    for t in (q, *others):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: tensors of {t.dtype} and {q.dtype}")
+        if not _vec_ok(t):
+            raise ValueError(f"{name}: needs a contiguous head dim and 16-byte aligned rows, "
+                             f"got strides {t.stride()}")
+    return build.DTYPE_NAMES[str(q.dtype).split(".")[1]]
+
+
+def launch_flash_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    tab_k: torch.Tensor,
+    row_start: torch.Tensor,
+    *,
+    causal: bool,
+    seq_q: int,
+    seq_k: int,
+    q_offset: int,
+    want_lse: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of the CUDA flash forward over the (row, (batch, head))
+    grid with the given per-row task segments.  Shared by K11 (serpentine
+    band, lse) and K15 (ascending k tiles, no lse); counts nothing."""
+    b, s, h, d = q.shape
+    _, t, hkv, _ = k.shape
+    dt = _check_launch("flash forward", q, k, v)
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"batch x heads {b * h} exceeds the grid limit {_MAX_GRID_Y}")
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device) if want_lse else None
+    if o.numel() == 0:
+        return o, lse
+    nq = row_start.numel() - 1
+    fn = getattr(build.load_attention_library(), build.attn_entry_name("fwd", dt, d))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(),
+            tab_k.data_ptr(), row_start.data_ptr(),
+            nq, b, h, h // hkv,
+            s, t, seq_q, seq_k,
+            q_offset, int(causal),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            1.0 / math.sqrt(d),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash forward kernel launch failed with CUDA error {rc}")
+    return o, lse
+
+
+def sfc_flash_fwd(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, T, Hkv, D)
+    v: torch.Tensor,  # (B, T, Hkv, D)
+    *,
+    causal: bool,
+    seq_q: Optional[int] = None,
+    seq_k: Optional[int] = None,
+    q_offset: int = 0,
+    q_chunk: Optional[int] = None,
+    k_chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Band-scheduled flash forward: (o (B, S, H, D) in q's type, lse
+    (B, S, H) f32).
+
+    ``seq_q``/``seq_k`` (default: the shapes) bound the masks;
+    ``q_offset`` places q row i at global position ``q_offset + i`` of a
+    causal stream whose first ``q_offset`` keys are cached.  On a CUDA
+    tensor this launches the kernel, whose tile is fixed at compile time:
+    the chunks must be `kernel_chunks()` or None.  Every launch adds one to
+    ``sfc_flash_fwd.launches``.  On a CPU tensor it runs
+    `sfc_flash_fwd_plain` (chunks default to the kernel's) and counts
+    nothing.
+    """
+    seq_q, seq_k = check_fwd_shapes(q, k, v, seq_q, seq_k, q_offset)
+    if q.device.type == "cpu":
+        qc, kc = kernel_chunks()
+        return sfc_flash_fwd_plain(q, k, v, causal=causal, q_chunk=q_chunk or qc, k_chunk=k_chunk or kc,
+                                   seq_q=seq_q, seq_k=seq_k, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"sfc_flash_fwd runs on cuda or cpu tensors, got {q.device}")
+    if (q_chunk or build.ATTN_TILE[0], k_chunk or build.ATTN_TILE[1]) != build.ATTN_TILE:
+        raise ValueError(f"the CUDA kernel is compiled for (q_chunk, k_chunk)={build.ATTN_TILE}, "
+                         f"got {(q_chunk, k_chunk)}")
+    qc, kc = build.ATTN_TILE
+    tab_k, row_start = _device_band(math.ceil(q.shape[1] / qc), math.ceil(k.shape[1] / kc), bool(causal),
+                                    int(q_offset), q.device)
+    o, lse = launch_flash_fwd(q, k, v, tab_k, row_start, causal=causal, seq_q=seq_q, seq_k=seq_k,
+                              q_offset=q_offset, want_lse=True)
+    sfc_flash_fwd.launches += 1
+    return o, lse
+
+
+sfc_flash_fwd.launches = 0
+
+
+def _check_decode(q, k, v, valid_len):
+    if q.ndim != 4 or q.shape[1] != 1 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"q must be (B, 1, H, D) and k, v (B, T, Hkv, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, h, d = q.shape
+    b2, _, hkv, d2 = k.shape
+    if b != b2 or d != d2 or hkv == 0 or h % hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not fit the cache {tuple(k.shape)}")
+    if tuple(valid_len.shape) != (b,) or valid_len.dtype.is_floating_point:
+        raise ValueError(f"valid_len must be an integer (B,)=({b},) tensor, got {valid_len.dtype} "
+                         f"{tuple(valid_len.shape)}")
+
+
+def sfc_decode_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_len: torch.Tensor,
+    *,
+    k_chunk: int,
+) -> torch.Tensor:
+    """The plain version of the decode kernel, on any device.
+
+    A loop over ``k_chunk`` chunks of the cache with `_decode_kernel`'s
+    arithmetic; a sequence's state moves only on chunks that start inside
+    its live length (``valid_len`` clamped to [0, T]), and keys at or past
+    it score NEG.  Returns (B, 1, H, D) in q's type.
+    """
+    _check_decode(q, k, v, valid_len)
+    b, _, h, d = q.shape
+    _, t, hkv, _ = k.shape
+    groups = h // hkv
+    qg = q.reshape(b, hkv, groups, d).float() * (1.0 / math.sqrt(d))
+    valid = valid_len.to(device=q.device, dtype=torch.long).clamp(0, t)
+    acc = torch.zeros((b, hkv, groups, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hkv, groups, 1), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    n_chunks = math.ceil(int(valid.max()) / k_chunk) if b else 0
+    for c in range(n_chunks):
+        lo, hi = c * k_chunk, min((c + 1) * k_chunk, t)
+        sc = torch.einsum("bhgd,bnhd->bhgn", qg, k[:, lo:hi].float())
+        live = torch.arange(lo, hi, device=q.device)[None, :] < valid[:, None]  # (B, n)
+        sc = torch.where(live[:, None, None, :], sc, torch.full_like(sc, NEG))
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        active = (lo < valid)[:, None, None, None]
+        acc = torch.where(active, acc * alpha + torch.einsum("bhgn,bnhd->bhgd", p, v[:, lo:hi].float()), acc)
+        l = torch.where(active, l * alpha + p.sum(dim=-1, keepdim=True), l)
+        m = torch.where(active, m_new, m)
+    o = acc / torch.clamp_min(l, _TINY)
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def sfc_decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k: torch.Tensor,  # (B, T, Hkv, D) cache, as stored
+    v: torch.Tensor,  # (B, T, Hkv, D)
+    valid_len: torch.Tensor,  # (B,) live cache lengths
+    *,
+    k_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-launch decode attention against the KV cache: (B, 1, H, D).
+
+    On a CUDA tensor this launches the kernel: one CTA per (batch, kv
+    head), the chunk loop bounded by ``valid_len`` on the device (int32,
+    on the card; the host never reads it), the cache read in place.
+    ``k_chunk`` must be the kernel's ``build.DECODE_CHUNK`` or None.  Every
+    launch adds one to ``sfc_decode_attention.launches``.  On a CPU tensor
+    it runs `sfc_decode_attention_plain` and counts nothing.
+    """
+    _check_decode(q, k, v, valid_len)
+    if q.device.type == "cpu":
+        return sfc_decode_attention_plain(q, k, v, valid_len, k_chunk=k_chunk or build.DECODE_CHUNK)
+    if q.device.type != "cuda":
+        raise ValueError(f"sfc_decode_attention runs on cuda or cpu tensors, got {q.device}")
+    if k_chunk not in (None, build.DECODE_CHUNK):
+        raise ValueError(f"the CUDA kernel is compiled for k_chunk={build.DECODE_CHUNK}, got {k_chunk}")
+    b, _, h, d = q.shape
+    _, t, hkv, _ = k.shape
+    if h // hkv > build.MAX_DECODE_GROUPS:
+        raise ValueError(f"GQA group {h // hkv} exceeds the kernel's {build.MAX_DECODE_GROUPS} rows")
+    if valid_len.dtype != torch.int32 or valid_len.device != q.device or not valid_len.is_contiguous():
+        raise TypeError(f"valid_len must be a contiguous int32 tensor on {q.device}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    dt = _check_launch("decode attention", q, k, v)
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    fn = getattr(build.load_attention_library(), build.attn_entry_name("decode", dt, d))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(), o.data_ptr(),
+            b, h, hkv, t,
+            *k.stride()[:3], *v.stride()[:3],
+            1.0 / math.sqrt(d),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"decode attention kernel launch failed with CUDA error {rc}")
+    sfc_decode_attention.launches += 1
+    return o
+
+
+sfc_decode_attention.launches = 0

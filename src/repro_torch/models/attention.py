@@ -14,7 +14,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import attention_backend as _ab
 from repro_torch.core.gemm_backend import matmul as _bmm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.models.layers import (
     RMSNorm,
     apply_rope,
@@ -27,31 +29,31 @@ from repro_torch.models.layers import (
 
 __all__ = ["Attention", "attention_forward", "attention_prefill", "attention_decode"]
 
-_NOT_PORTED = {
-    "sfc": "attn_impl='sfc' needs the SFC flash and decode kernels (K11, K14), "
-    "not ported yet: ROADMAP queue 2, next slice",
-    "flash_pallas": "attn_impl='flash_pallas' needs the legacy flash kernel (K15), "
-    "not ported yet: ROADMAP queue 2",
-}
-
-
-def _check_impl(attn_impl: str) -> None:
-    if attn_impl in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[attn_impl])
-    if attn_impl != "blockwise":
-        raise ValueError(f"unknown attn_impl {attn_impl!r}")
-
 
 def _attend(q, k, v, *, causal: bool, q_chunk: int, k_chunk: int, attn_impl: str) -> torch.Tensor:
-    """The switch for every prefill/training attention contraction."""
-    _check_impl(attn_impl)
-    return blockwise_attention(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk)
+    """The switch for every prefill/training attention contraction; the
+    `attention_backend` context wins over the per-call (config) value."""
+    impl = _ab.resolve_attn_impl(attn_impl)
+    if impl == "sfc":
+        # the SFC band flash forward (K11); the config's chunks are hints
+        return _ab.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk)
+    if impl == "flash_pallas":
+        return _fa.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk)
+    if impl == "blockwise":
+        return blockwise_attention(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk)
+    raise ValueError(f"unknown attn_impl {impl!r}; pick from {_ab.ATTN_IMPLS}")
 
 
 def _attend_cached(q, k, v, valid: torch.Tensor, *, attn_impl: str) -> torch.Tensor:
-    """The decode-path switch."""
-    _check_impl(attn_impl)
-    return decode_attention(q, k, v, valid)
+    """The decode-path switch: "sfc" runs the whole (batch, head) fan-out as
+    one launch (K14); "flash_pallas" and "blockwise" decode in plain torch,
+    as in the JAX package."""
+    impl = _ab.resolve_attn_impl(attn_impl)
+    if impl == "sfc":
+        return _ab.decode_attention(q, k, v, valid)
+    if impl in _ab.ATTN_IMPLS:
+        return decode_attention(q, k, v, valid)
+    raise ValueError(f"unknown attn_impl {impl!r}; pick from {_ab.ATTN_IMPLS}")
 
 
 class Attention(nn.Module):
@@ -192,7 +194,6 @@ def attention_decode(
     ``cache`` in place (the JAX package returns a new cache; in place saves
     a copy of the whole cache per step) and the same dict is returned."""
     b = x.shape[0]
-    _check_impl(attn_impl)
     q, k, v = _project_qkv(p, x, n_heads=n_heads, kv_heads=kv_heads)
     positions = torch.full((b, 1), index, device=x.device)
     if rotary_pct > 0:

@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version, and
-the build's bookkeeping on the CPU.
+"""The port's CUDA kernels on the card (the fused GEMM, the attention flash
+forward in its band and dense modes, and the decode attention), each
+against its plain PyTorch version, and the build's bookkeeping on the CPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only PyTorch (the repository's conftest needs JAX; skip it):
@@ -18,9 +19,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import sfc_attention as tsa  # noqa: E402
 from repro_torch.kernels import sfc_gemm as tk  # noqa: E402
 
 CU_SOURCE = Path(build.__file__).resolve().parent / "csrc" / "sfc_gemm_fused.cu"
+ATTN_SOURCE = CU_SOURCE.with_name("sfc_attention.cu")
 
 
 def test_python_tile_matches_the_compiled_tile():
@@ -35,6 +39,32 @@ def test_every_part_has_its_own_entry_point():
              for act in build.ACTIVATION_CODES}
     assert len(names) == 16
     assert build.entry_name("bf16", True, "silu") == "sfc_gemm_fused_bf16_glu1_act1"
+
+
+def test_attention_constants_match_the_compiled_source():
+    src = ATTN_SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert build.ATTN_TILE == (const("kBQ"), const("kBK")) == tsa.kernel_chunks()
+    assert build.DECODE_CHUNK == const("kDecChunk")
+    assert build.MAX_DECODE_GROUPS == const("kMaxGroups")
+    for kind in ("FWD", "DECODE"):
+        dims = tuple(int(d) for d in re.findall(rf"^SFC_{kind}_ENTRY\((\d+)\)", src, re.MULTILINE))
+        assert dims == build.ATTN_HEAD_DIMS
+    assert build.attn_entry_name("fwd", "bf16", 128) == "sfc_attn_fwd_bf16_d128"
+
+
+def test_digest_covers_included_headers(tmp_path):
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "common.cuh"\nint x;\n')
+    (tmp_path / "common.cuh").write_text('#include "deeper.cuh"\n')
+    (tmp_path / "deeper.cuh").write_text("int y;\n")
+    first = build.source_digest(tmp_path / "k.cu", ["-O3"])
+    assert build.source_digest(tmp_path / "k.cu", ["-O3"]) == first
+    assert build.source_digest(tmp_path / "k.cu", ["-O2"]) != first
+    (tmp_path / "deeper.cuh").write_text("int z;\n")
+    assert build.source_digest(tmp_path / "k.cu", ["-O3"]) != first
 
 
 def test_wrapper_rejects_other_devices_and_counts_nothing_on_cpu():
@@ -110,3 +140,97 @@ def test_kernel_rejects_what_it_does_not_take():
         tk.sfc_gemm_fused(a, torch.ones(8, 8, device="cuda").T)
     with pytest.raises(ValueError, match="is on"):
         tk.sfc_gemm_fused(a, b.cpu())
+
+
+def _attn_inputs(b, s, t, h, hkv, d, dtype, seed=20):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+            for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "case",
+    ["prefill_gqa_ragged", "q_offset_48", "non_causal_cross", "masks_shorter_than_shapes"],
+)
+def test_flash_fwd_kernel_matches_plain_version_on_card(dtype, case):
+    _card()
+    dt = getattr(torch, dtype)
+    (b, s, t, h, hkv, d), kw = {
+        "prefill_gqa_ragged": ((2, 130, 130, 8, 2, 128), dict(causal=True)),
+        "q_offset_48": ((1, 70, 118, 4, 4, 64), dict(causal=True, q_offset=48)),
+        "non_causal_cross": ((2, 50, 200, 4, 1, 64), dict(causal=False)),
+        "masks_shorter_than_shapes": ((1, 100, 100, 4, 2, 128), dict(causal=True, seq_q=90, seq_k=77)),
+    }[case]
+    q, k, v = _attn_inputs(b, s, t, h, hkv, d, dt)
+    before = tsa.sfc_flash_fwd.launches
+    o, lse = tsa.sfc_flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tsa.sfc_flash_fwd.launches == before + 1
+    qc, kc = tsa.kernel_chunks()
+    want_o, want_lse = tsa.sfc_flash_fwd_plain(q, k, v, q_chunk=qc, k_chunk=kc, **kw)
+    assert o.dtype == dt and o.shape == want_o.shape and lse.shape == want_lse.shape
+    assert _agree(o, want_o, dt)
+    assert _agree(lse, want_lse, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dense_flash_kernel_matches_plain_version_on_card(dtype, causal):
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(2, 130, 130, 8, 2, 128, dt, seed=21)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal, q_chunk=512, k_chunk=1024)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    qc, kc = tsa.kernel_chunks()
+    assert _agree(got, tfa.flash_attention_plain(q, k, v, causal=causal, q_chunk=qc, k_chunk=kc), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["serve_shape", "strided_cache_with_empty_row"])
+def test_decode_kernel_matches_plain_version_on_card(dtype, case):
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(22)
+    if case == "serve_shape":
+        b, t, h, hkv, d, valids = 4, 145, 32, 8, 128, (129, 134, 139, 144)
+        k, v = (torch.from_numpy(rng.standard_normal((b, t, hkv, d)).astype(np.float32)).to("cuda", dt)
+                for _ in range(2))
+    else:  # a view of a wider cache: strided rows, the head dim contiguous
+        b, t, h, hkv, d, valids = 3, 300, 16, 2, 64, (0, 1, 300)
+        wide = torch.from_numpy(rng.standard_normal((2, b, t, hkv, 2 * d)).astype(np.float32)).to("cuda", dt)
+        k, v = wide[0, ..., :d], wide[1, ..., d:]
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, d)).astype(np.float32)).to("cuda", dt)
+    valid = torch.tensor(valids, dtype=torch.int32, device="cuda")
+    before = tsa.sfc_decode_attention.launches
+    got = tsa.sfc_decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tsa.sfc_decode_attention.launches == before + 1
+    want = tsa.sfc_decode_attention_plain(q, k, v, valid, k_chunk=build.DECODE_CHUNK)
+    assert _agree(got, want, dt)
+    if 0 in valids:
+        assert torch.all(got[valids.index(0)] == 0)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_reject_what_they_do_not_take():
+    _card()
+    q, k, v = _attn_inputs(1, 8, 8, 4, 2, 64, torch.bfloat16)
+    with pytest.raises(TypeError):
+        tsa.sfc_flash_fwd(q.half(), k.half(), v.half(), causal=True)
+    with pytest.raises(ValueError, match="head dims"):
+        tsa.sfc_flash_fwd(q[..., :32], k[..., :32], v[..., :32], causal=True)
+    with pytest.raises(ValueError, match="compiled for"):
+        tsa.sfc_flash_fwd(q, k, v, causal=True, q_chunk=32, k_chunk=32)
+    with pytest.raises(ValueError, match="aligned"):
+        tsa.sfc_flash_fwd(q.transpose(1, 3).contiguous().transpose(1, 3), k, v, causal=True)
+    valid = torch.tensor([8], dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        tsa.sfc_decode_attention(q[:, :1], k, v, valid.long())
+    with pytest.raises(ValueError, match="exceeds"):
+        tsa.sfc_decode_attention(q[:, :1].repeat(1, 1, 9, 1), k[:, :, :1], v[:, :, :1], valid)

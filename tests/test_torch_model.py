@@ -155,11 +155,6 @@ def test_unported_model_options_raise():
     cfg = get_config("qwen3_4b").reduced()
     with pytest.raises(NotImplementedError, match="item 11"):
         build_model(dataclasses.replace(cfg, n_experts=4), device="cpu")
-    for impl, item in (("sfc", "K11"), ("flash_pallas", "K15")):
-        model = build_model(dataclasses.replace(cfg, attn_impl=impl), device="cpu")
-        model.init(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match=item):
-            model.prefill(torch.zeros((1, 4), dtype=torch.long), cache_len=8)
 
 
 def test_build_model_without_device_raises_where_cuda_is_absent(monkeypatch):

@@ -2,6 +2,8 @@
 identical greedy tokens, the same latency-report keys, the same deadline
 semantics; and the port's entry points default to the card."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -69,6 +71,23 @@ def test_engine_matches_jax_on_pallas_backend(shared_model):
     engine = ServingEngine(cfg, params, max_batch=1, max_seq=16, gemm_backend="sfc_cuda", device="cpu")
     [got] = engine.run(engine.submit_many([prompt], max_new_tokens=4))
     assert got.output == want.output
+
+
+@pytest.mark.parametrize("impl", ["sfc", "flash_pallas"])
+def test_engine_attn_impl_tokens_match_jax(shared_model, impl):
+    """The JAX engine and the port's, both with the config's attn_impl set
+    (prefill on K11 / K15, decode on K14 / plain), give the same greedy
+    tokens for requests of two prompt lengths."""
+    jcfg, jparams, cfg, params = shared_model
+    prompts = _prompts(5, 2, 9, jcfg.vocab) + _prompts(6, 1, 6, jcfg.vocab)
+    jengine = JServingEngine(dataclasses.replace(jcfg, attn_impl=impl), jparams, max_batch=2, max_seq=16)
+    want = {tuple(r.prompt.tolist()): r.output for r in jengine.run(jengine.submit_many(prompts, max_new_tokens=4))}
+    engine = ServingEngine(dataclasses.replace(cfg, attn_impl=impl), params, max_batch=2, max_seq=16,
+                           gemm_backend="sfc_cuda", device="cpu")
+    done = engine.run(engine.submit_many(prompts, max_new_tokens=4))
+    assert [r.status for r in done] == ["completed"] * 3
+    for r in done:
+        assert r.output == want[tuple(r.prompt.tolist())]
 
 
 def test_deadline_sheds_waiting_and_retires_live(shared_model):
