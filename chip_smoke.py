@@ -4,34 +4,53 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from the sources in this
-checkout (src/repro_torch/kernels/csrc: the fused GEMM and the attention
-library, all parts compiled at once), then runs four phases, each printing
+checkout (src/repro_torch/kernels/csrc: the GEMM library with its forward
+and backward parts and the attention library with its forward, decode and
+backward parts, all compiled at once), then runs six phases, each printing
 one JSON line and raising on failure:
 
-1. device   the card's name and power limit (nvidia-smi) and the build time;
-2. kernels  each kernel against its plain PyTorch version at the shapes the
-            qwen3-4b server runs, timed beside its bound and one PyTorch
-            call of the same function: the SFC fused GEMM at every GEMM
-            shape (decode M=4, batched prefill 4 x 128, the LM head) and one
-            ragged case with every epilogue flag; the band flash forward
-            (K11) at the prefill shape and at 1 x 2000 with q_offset 0 and
-            48; the dense flash forward (K15) at the prefill shape; the
-            decode attention (K14) at the serve's cache (145 rows, live
-            129..144) and at a 4096-row cache with live lengths 1..4096;
-3. serve    ServingEngine serves full-width qwen3-4b (36 layers, bf16,
-            random weights from a seeded torch.Generator), 4 requests,
-            prompt 128, 16 new tokens, three times: sfc_cuda GEMMs with
-            blockwise attention (exactly 217 x 16 GEMM launches), sfc_cuda
-            GEMMs with attn_impl="sfc" (exactly 3,472 GEMM, 36 K11 and 540
-            K14 launches), and the torch backend.  A prefill under
-            attn_impl="flash_pallas" must launch K15 36 times.  The prefill
-            logits of the same weights in f32 must agree with the torch
-            backend's within the bf16 bound for each sfc_cuda variant, and
-            each variant's bf16 logits must be as close to that f32 model as
-            the torch backend's are;
-4. the {"kernels": [...]} line: per kernel and shape, launches in the
-            phase-3 run of its path, max error, kernel / plain / library
-            times and the bound.
+1. device     the card's name and power limit (nvidia-smi) and the build time;
+2. kernels    each kernel against its plain PyTorch version at the shapes the
+              qwen3-4b server and trainer run, timed beside its bound and
+              one PyTorch call of the same function: the SFC fused GEMM
+              (K1/K2) at every serve shape (decode M=4, batched prefill
+              4 x 128, the LM head), every training-forward shape (2 x 256,
+              the GLU in its preact mode) and one ragged case with every
+              epilogue flag; the NT (K7, dA) and TN (K8, dW) kernels at every
+              training shape, single and dual, plus a ragged f32 case each;
+              the band flash forward (K11) at the prefill and training shapes
+              and at 1 x 2000 with q_offset 0 and 48; the dense flash forward
+              (K15); the decode attention (K14) at the serve's cache and at a
+              4096-row cache; the flash backward (K12 dQ, K13 dK/dV) at the
+              training shape and a ragged GQA f32 case with S != T;
+3. grad check full-width qwen3-4b cut to 4 layers, f32, batch 2 x 256: the
+              loss and every parameter's gradient under sfc_cuda GEMMs with
+              attn_impl="sfc" against the torch backend with blockwise
+              attention, within the bf16 bound; every projection weight has
+              a non-zero gradient;
+4. serve      ServingEngine serves full-width qwen3-4b (36 layers, bf16,
+              random weights from a seeded torch.Generator), 4 requests,
+              prompt 128, 16 new tokens, three times: sfc_cuda GEMMs with
+              blockwise attention (exactly 217 x 16 GEMM launches), sfc_cuda
+              GEMMs with attn_impl="sfc" (exactly 3,472 GEMM, 36 K11 and 540
+              K14 launches), and the torch backend.  A prefill under
+              attn_impl="flash_pallas" must launch K15 36 times.  The prefill
+              logits of the same weights in f32 must agree with the torch
+              backend's within the bf16 bound for each sfc_cuda variant, and
+              each variant's bf16 logits must be as close to that f32 model as
+              the torch backend's are;
+5. train      `launch.train.build_trainer` trains full-width qwen3-4b (36
+              layers, bf16, AdamW on f32 master weights) for 3 steps of
+              2 x 256 SyntheticLM tokens under sfc_cuda + attn_impl="sfc",
+              with exactly 217 K1/K2, 217 K7, 217 K8, 36 K11, 36 K12 and 36
+              K13 launches per step, then the same 3 steps from the same
+              init under torch + blockwise: every loss finite and within
+              2^-7 of the torch backend's, every parameter changed; step
+              times and peak memory, and a fourth step of each run under
+              torch.profiler for its device-busy time by kernel group;
+6. the {"kernels": [...]} line: per kernel and shape, launches in the run
+              of its path (serve or train), max error, kernel / plain /
+              library times and the bound.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository's src/repro_torch beside this file, it exits non-zero
@@ -41,6 +60,7 @@ and prints no result.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -62,6 +82,12 @@ F32_RTOL, F32_ATOL_REL = 1e-4, 1e-5
 BF16_RTOL, BF16_ATOL_REL = 2.0**-7, 1e-3
 
 PROMPT, NEW_TOKENS, BATCH = 128, 16, 4
+# the trainer: 2 sequences of 256 tokens, 3 AdamW steps; the f32 gradient
+# check cuts the model to 4 layers (full width)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 256, 3
+GRAD_CHECK_LAYERS = 4
+# a training loss may differ from the torch backend's by one bf16 rounding
+TRAIN_LOSS_RTOL = 2.0**-7
 
 # bf16 serving: the sfc_cuda prefill logits may be at most this many times
 # further (mean |error|) from the same model run in f32 than the torch
@@ -89,6 +115,14 @@ def within(got, want, dtype):
     return ok, float(err.max()), worst
 
 
+def within_all(got, want, dtype):
+    """`within` over a tensor or over matching tuples of tensors."""
+    if not isinstance(got, (tuple, list)):
+        return within(got, want, dtype)
+    res = [within(g, w, dtype) for g, w in zip(got, want)]
+    return all(r[0] for r in res), max(r[1] for r in res), max(r[2] for r in res)
+
+
 def time_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
     """Mean device time of fn(i) over reps calls, by CUDA events.  With
     ``graph`` the reps calls are captured once in a CUDA graph and one
@@ -96,8 +130,13 @@ def time_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
     does not leave the card idle between short kernels."""
     import torch
 
-    for i in range(warmup):
-        fn(i)
+    # warm up on a side stream, as capturing autograd's backward requires
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     if graph:
         g = torch.cuda.CUDAGraph()
@@ -124,12 +163,17 @@ class Gemm:
     """One GEMM of the main path: (batch, M) rows against (K, N) weights."""
 
     name: str
-    mode: str  # "decode" (plain kernel mode) | "prefill" (batched mode)
+    mode: str  # "decode" (plain kernel mode) | "prefill" | "train" (batched mode)
     batch: int  # 0 = plain mode
     m: int
     k: int
     n: int
     glu: bool = False
+    preact: bool = False  # the training forward's GLU: both pre-activations out
+
+    @property
+    def path(self) -> str:
+        return "train" if self.mode == "train" else "serve"
 
     @property
     def key(self):
@@ -143,25 +187,76 @@ class Gemm:
         return 2.0 * self.rows * self.k * self.n * (2 if self.glu else 1)
 
     def bytes(self, elem: int) -> float:
-        return elem * (self.rows * self.k + self.k * self.n * (2 if self.glu else 1) + self.rows * self.n)
+        outs = 2 if self.preact else 1
+        return elem * (self.rows * self.k + self.k * self.n * (2 if self.glu else 1) + outs * self.rows * self.n)
 
     def bound(self, elem: int, peak_flops: float):
-        t_ops, t_bytes = self.flops() / peak_flops, self.bytes(elem) / PEAK_BYTES
-        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+        return _bound(self.flops(), self.bytes(elem), peak_flops)
+
+
+def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """(least ms, what bounds it) over the H100 SXM peaks."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _projections(cfg):
+    """(name, K, N, glu) of each projection of a layer, forward (M, K) @ (K, N)."""
+    d, q = cfg.d_model, cfg.n_heads * cfg.head_dim_
+    kv = cfg.kv_heads * cfg.head_dim_
+    return [("q", d, q, False), ("k,v", d, kv, False), ("o", q, d, False),
+            ("mlp_glu", d, cfg.d_ff, True), ("mlp_out", cfg.d_ff, d, False)]
 
 
 def main_path_gemms(cfg):
-    """Every distinct GEMM the server launches for this config: the decode
-    step's (M = batch rows, flattened) and the batched prefill's, plus the
-    LM head on the last position (plain mode in both phases)."""
-    d, q = cfg.d_model, cfg.n_heads * cfg.head_dim_
-    kv = cfg.kv_heads * cfg.head_dim_
-    proj = [("q", d, q, False), ("k,v", d, kv, False), ("o", q, d, False),
-            ("mlp_glu", d, cfg.d_ff, True), ("mlp_out", cfg.d_ff, d, False)]
+    """Every distinct forward GEMM the server and the trainer launch for
+    this config: the decode step's (M = batch rows, flattened) and the
+    batched prefill's, plus the LM head on the last position (plain mode in
+    both phases); the training forward's, batched over 2 x 256 tokens, the
+    GLU in its preact mode and the LM head on every position."""
+    proj = _projections(cfg)
+    d = cfg.d_model
     out = [Gemm(f"decode/{n}", "decode", 0, BATCH, k, nn, g) for n, k, nn, g in proj]
     out.append(Gemm("head", "decode", 0, BATCH, d, cfg.vocab))
     out += [Gemm(f"prefill/{n}", "prefill", BATCH, PROMPT, k, nn, g) for n, k, nn, g in proj]
+    out += [Gemm(f"train/{n}", "train", TRAIN_BATCH, TRAIN_SEQ, k, nn, g, preact=g) for n, k, nn, g in proj]
+    out.append(Gemm("train/head", "train", TRAIN_BATCH, TRAIN_SEQ, d, cfg.vocab))
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdGemm:
+    """One backward GEMM of the training step for the forward projection
+    (M, K) @ (K, N): K7 ("nt", dA (M, K) = dC (M, N) W (K, N)^T) or K8
+    ("tn", dW (K, N) = A (M, K)^T dC (M, N)); dual for the GLU."""
+
+    name: str
+    kind: str
+    m: int
+    k: int
+    n: int
+    dual: bool = False
+
+    @property
+    def key(self):  # the launches_by_shape key of sfc_gemm_nt / sfc_gemm_tn
+        return (self.m, self.k, self.n, self.dual) if self.kind == "nt" else (self.k, self.n, self.m, self.dual)
+
+    def flops(self) -> float:
+        return 2.0 * self.m * self.k * self.n * (2 if self.dual else 1)
+
+    def bytes(self, elem: int) -> float:
+        pairs = 2 if self.dual else 1
+        if self.kind == "nt":  # dC and W (twice when dual) in, dA out
+            return elem * (pairs * (self.m * self.n + self.k * self.n) + self.m * self.k)
+        return elem * (self.m * self.k + pairs * (self.m * self.n + self.k * self.n))  # A, dC in; dW out
+
+
+def train_backward_gemms(cfg):
+    """K7 and K8 at every projection of the training step (2 x 256 token
+    rows), the LM head included."""
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    proj = _projections(cfg) + [("head", cfg.d_model, cfg.vocab, False)]
+    return [BwdGemm(f"train/{name}", kind, rows, k, n, glu) for kind in ("nt", "tn") for name, k, n, glu in proj]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +277,7 @@ class Attn:
     q_offset: int = 0
     valid: tuple = ()
     main_path: bool = True
+    path: str = "serve"  # the run whose launches the row reports
 
     @property
     def decode(self) -> bool:
@@ -206,8 +302,7 @@ class Attn:
         return elem * (qo + 2 * self.b * self.t * self.hkv * self.d) + lse
 
     def bound(self, elem: int):
-        t_ops, t_bytes = 4.0 * self.d * self.pairs() / PEAK_BF16_FLOPS, self.bytes(elem) / PEAK_BYTES
-        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+        return _bound(4.0 * self.d * self.pairs(), self.bytes(elem))
 
     def shape(self) -> dict:
         out = {"b": self.b, "s": self.s, "t": self.t, "h": self.h, "hkv": self.hkv, "d": self.d}
@@ -222,6 +317,7 @@ def attention_cases(cfg):
     cache = PROMPT + NEW_TOKENS + 1
     return [
         Attn("prefill", "sfc_flash_fwd", BATCH, PROMPT, PROMPT, **heads),
+        Attn("train", "sfc_flash_fwd", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, path="train", **heads),
         Attn("long_1x2000", "sfc_flash_fwd", 1, 2000, 2000, main_path=False, **heads),
         Attn("long_1x2000_q_offset_48", "sfc_flash_fwd", 1, 2000, 2048, q_offset=48, main_path=False, **heads),
         Attn("prefill", "flash_attention", BATCH, PROMPT, PROMPT, **heads),
@@ -318,21 +414,22 @@ def phase_kernels(torch, cfg, gemms, tk, ops):
         copies = max(1, math.ceil(4 * L2_BYTES / w_bytes))
         ws = [(torch.randn((gm.k, gm.n), generator=gen, device=dev) * 0.02).to(dt) for _ in range(copies)]
         gs = [(torch.randn((gm.k, gm.n), generator=gen, device=dev) * 0.02).to(dt) for _ in range(copies)] if gm.glu else None
-        act = cfg.act if gm.glu else None
+        # the serve's GLU applies its activation in the flush; the training
+        # forward's (preact) flushes both pre-activations
+        kw = dict(preact=True) if gm.preact else dict(activation=cfg.act if gm.glu else None)
 
         def kernel(i):
-            return tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies] if gs else None, activation=act)
+            return tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies] if gs else None, **kw)
 
         bm, bn, _ = ops.pick_blocks(gm.m, gm.n, gm.k)
 
         def plain(i):
-            return tk.sfc_gemm_fused_plain(a, ws[i % copies], gs[i % copies] if gs else None,
-                                           activation=act, bm=bm, bn=bn)
+            return tk.sfc_gemm_fused_plain(a, ws[i % copies], gs[i % copies] if gs else None, bm=bm, bn=bn, **kw)
 
-        got = kernel(0)
+        got, want = kernel(0), plain(0)
         torch.cuda.synchronize()
-        ok, err, worst = within(got, plain(0), dt)
-        checks.append({"case": gm.name, "shape": [gm.batch, gm.m, gm.k, gm.n], "glu": gm.glu,
+        ok, err, worst = within_all(got, want, dt)
+        checks.append({"case": gm.name, "shape": [gm.batch, gm.m, gm.k, gm.n], "glu": gm.glu, "preact": gm.preact,
                        "ok": ok, "max_abs_err": err, "err_over_bound": worst})
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version at {gm}: max err {err}, err/bound {worst}")
@@ -364,6 +461,315 @@ def phase_kernels(torch, cfg, gemms, tk, ops):
         if not ok:
             raise AssertionError(f"all-flags ragged case ({dtype}) disagrees: max err {err}")
     return rows, checks
+
+
+def phase_backward_gemms(torch, gemms, tk, ops):
+    """K7 and K8 against their plain versions at every training shape
+    (bf16), timed beside their bound and torch.matmul of the same product;
+    plus one ragged f32 case of each (dual)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    dt = torch.bfloat16
+    rows, checks = [], []
+
+    def r(*shape, dtype=dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def operands(gm, dtype):
+        """(args of the wrapper, args of torch.matmul's yardstick)."""
+        m, k, n = gm.m, gm.k, gm.n
+        if gm.kind == "nt":
+            dc, w = r(m, n, dtype=dtype), r(k, n, dtype=dtype, scale=0.02)
+            if not gm.dual:
+                return (dc, w), (dc, w.T)
+            dc2, w2 = r(m, n, dtype=dtype), r(k, n, dtype=dtype, scale=0.02)
+            return (dc, w, dc2, w2), (torch.cat([dc, dc2], 1), torch.cat([w, w2], 1).T)
+        x, dc = r(m, k, dtype=dtype), r(m, n, dtype=dtype)
+        if not gm.dual:
+            return (x, dc), (x.T, dc)
+        dc2 = r(m, n, dtype=dtype)
+        return (x, dc, dc2), (x.T, torch.cat([dc, dc2], 1))
+
+    for gm in gemms:
+        fn, plain_fn = (tk.sfc_gemm_nt, tk.sfc_gemm_nt_plain) if gm.kind == "nt" else (tk.sfc_gemm_tn, tk.sfc_gemm_tn_plain)
+        out_rows, out_cols = (gm.m, gm.k) if gm.kind == "nt" else (gm.k, gm.n)
+        bm, bn, _ = ops.pick_blocks(out_rows, out_cols, gm.n if gm.kind == "nt" else gm.m)
+        # enough input copies that a timed loop streams them from HBM
+        copies = max(1, math.ceil(4 * L2_BYTES / gm.bytes(2)))
+        ins = [operands(gm, dt) for _ in range(copies)]
+        got, want = fn(*ins[0][0]), plain_fn(*ins[0][0], bm=bm, bn=bn)
+        torch.cuda.synchronize()
+        ok, err, worst = within_all(got, want, dt)
+        checks.append({"case": f"{gm.kind}:{gm.name}", "shape": [gm.m, gm.k, gm.n], "dual": gm.dual, "ok": ok,
+                       "max_abs_err": err, "err_over_bound": worst})
+        if not ok:
+            raise AssertionError(f"sfc_gemm_{gm.kind} disagrees with its plain version at {gm}: max err {err}, "
+                                 f"err/bound {worst}")
+        reps = max(20, copies)
+        ms = time_ms(lambda i: fn(*ins[i % copies][0]), reps=reps, graph=True)
+        lib_ms = time_ms(lambda i: torch.matmul(*ins[i % copies][1]), reps=reps, graph=True)
+        plain_ms = time_ms(lambda i: plain_fn(*ins[i % copies][0], bm=bm, bn=bn), reps=2, warmup=1)
+        bound_ms, bound_by = _bound(gm.flops(), gm.bytes(2))
+        rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        del ins, got, want
+    for kind in ("nt", "tn"):
+        gm = BwdGemm("ragged_f32", kind, 77, 203, 133, dual=True)
+        args, _ = operands(gm, torch.float32)
+        plain_fn = tk.sfc_gemm_nt_plain if kind == "nt" else tk.sfc_gemm_tn_plain
+        got = (tk.sfc_gemm_nt if kind == "nt" else tk.sfc_gemm_tn)(*args)
+        torch.cuda.synchronize()
+        ok, err, worst = within_all(got, plain_fn(*args, bm=32, bn=32), torch.float32)
+        checks.append({"case": f"{kind}:ragged_dual_f32", "shape": [gm.m, gm.k, gm.n], "ok": ok,
+                       "max_abs_err": err, "err_over_bound": worst})
+        if not ok:
+            raise AssertionError(f"sfc_gemm_{kind} ragged f32 case disagrees: max err {err}")
+    return rows, checks
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnBwd:
+    """One flash backward: dQ (K12) and dK/dV (K13) for (b, s) queries
+    against (b, t) keys."""
+
+    name: str
+    b: int
+    s: int
+    t: int
+    h: int
+    hkv: int
+    d: int
+    dtype: str
+    causal: bool = True
+    q_offset: int = 0
+    main_path: bool = True
+
+    def pairs(self) -> int:
+        return Attn("", "sfc_flash_fwd", self.b, self.s, self.t, self.h, self.hkv, self.d, self.causal,
+                    self.q_offset).pairs()
+
+    def bound(self, kernel: str, elem: int):
+        """K12 reads q, k, v, dO, lse and delta and writes dQ, with 6 D flops
+        a pair (S, dP, dS k); K13 reads the same and writes dK and dV, with
+        8 D flops a pair (S, dP, P^T dO, dS^T q)."""
+        q_elems, kv_elems = self.b * self.s * self.h * self.d, self.b * self.t * self.hkv * self.d
+        stats = 2 * 4 * self.b * self.s * self.h
+        if kernel == "sfc_flash_bwd_dq":
+            return _bound(6.0 * self.d * self.pairs(), elem * (3 * q_elems + 2 * kv_elems) + stats)
+        return _bound(8.0 * self.d * self.pairs(), elem * (2 * q_elems + 4 * kv_elems) + stats)
+
+    def shape(self) -> dict:
+        return {"b": self.b, "s": self.s, "t": self.t, "h": self.h, "hkv": self.hkv, "d": self.d,
+                "causal": self.causal, "q_offset": self.q_offset, "dtype": self.dtype}
+
+
+def attention_bwd_cases(cfg):
+    heads = dict(h=cfg.n_heads, hkv=cfg.kv_heads, d=cfg.head_dim_)
+    return [
+        AttnBwd("train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, dtype="bfloat16", **heads),
+        AttnBwd("ragged_gqa_f32", 1, 190, 250, dtype="float32", q_offset=60, main_path=False, **heads),
+    ]
+
+
+def phase_attention_bwd(torch, cases, tsa, build):
+    """K12 and K13 against their plain versions, the main case timed beside
+    its bound and the backward of scaled_dot_product_attention (a yardstick
+    the port never calls: one graph of SDPA forward and backward, less one
+    of the forward alone; it computes dQ, dK and dV together, so K12 and
+    K13 share it)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows, checks = [], []
+    for c in cases:
+        dt = getattr(torch, c.dtype)
+        r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa: E731
+        q, k, v, do = r(c.b, c.s, c.h, c.d), r(c.b, c.t, c.hkv, c.d), r(c.b, c.t, c.hkv, c.d), r(c.b, c.s, c.h, c.d)
+        kw = dict(causal=c.causal, q_offset=c.q_offset)
+        o, lse = tsa.sfc_flash_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        qc, kc = tsa.kernel_chunks()
+        dqc, dkc = build.ATTN_DKV_TILE[build.DTYPE_NAMES[c.dtype]]
+        kernels = {
+            "sfc_flash_bwd_dq": (lambda i: tsa.sfc_flash_bwd_dq(*args, **kw),
+                                 lambda i: tsa.sfc_flash_bwd_dq_plain(*args, q_chunk=qc, k_chunk=kc, **kw)),
+            "sfc_flash_bwd_dkv": (lambda i: tsa.sfc_flash_bwd_dkv(*args, **kw),
+                                  lambda i: tsa.sfc_flash_bwd_dkv_plain(*args, q_chunk=dqc, k_chunk=dkc, **kw)),
+        }
+        lib_ms = None
+        if c.main_path:
+            views = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+            do_t = do.transpose(1, 2)
+
+            def sdpa(i):
+                return F.scaled_dot_product_attention(*views, is_causal=c.causal, enable_gqa=True)
+
+            def sdpa_fwd_bwd(i):
+                return torch.autograd.grad(sdpa(i), views, do_t)
+
+            lib_ms = time_ms(sdpa_fwd_bwd, reps=20, graph=True) - time_ms(sdpa, reps=20, graph=True)
+        for name, (kernel, plain) in kernels.items():
+            got, want = kernel(0), plain(0)
+            torch.cuda.synchronize()
+            ok, err, worst = within_all(got, want, dt)
+            checks.append({"case": f"{name}:{c.name}", "shape": c.shape(), "ok": ok, "max_abs_err": err,
+                           "err_over_bound": worst})
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version at {c}: max err {err}, "
+                                     f"err/bound {worst}")
+            if not c.main_path:
+                continue
+            bound_ms, bound_by = c.bound(name, 2)
+            rows.append(dict(case=c, kernel=name, max_abs_err=err, ms=time_ms(kernel, reps=20, graph=True),
+                             plain_ms=time_ms(plain, reps=2, warmup=1), library_ms=lib_ms,
+                             bound_ms=bound_ms, bound_by=bound_by))
+    return rows, checks
+
+
+def _is_projection(name: str) -> bool:
+    return name.split(".")[-1] in ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "head")
+
+
+def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, batch):
+    """Full-width qwen3-4b cut to GRAD_CHECK_LAYERS layers, in f32: the loss
+    and every parameter's gradient under sfc_cuda + attn_impl="sfc" (K1/K2,
+    K7, K8, K11, K12, K13) against the torch backend with blockwise
+    attention, within the bf16 bound; every projection weight must get a
+    non-zero gradient."""
+    cfg4 = dataclasses.replace(cfg, n_layers=GRAD_CHECK_LAYERS, param_dtype="float32")
+    model = build_model(cfg4, device="cuda").init(torch.Generator(device="cuda").manual_seed(7))
+    losses, grads = {}, {}
+    for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
+        with gemm_backend(gemm), attention_backend(impl):
+            loss = model.loss(batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        losses[name] = loss.detach()
+        grads[name] = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    missing = [n for n, g in grads["sfc_cuda+sfc_attn"].items()
+               if _is_projection(n) and (g is None or not bool(g.abs().max() > 0))]
+    if missing:
+        raise AssertionError(f"projection weights without a gradient under sfc_cuda: {missing}")
+    ok_loss, err_loss, worst_loss = within(losses["sfc_cuda+sfc_attn"], losses["torch"], torch.bfloat16)
+    per_param = {n: within(g, grads["torch"][n], torch.bfloat16) for n, g in grads["sfc_cuda+sfc_attn"].items()}
+    bad = {n: r for n, r in per_param.items() if not r[0]}
+    out = {"layers": GRAD_CHECK_LAYERS, "dtype": "float32", "tokens": list(batch["tokens"].shape),
+           "loss": {"sfc_cuda+sfc_attn": float(losses["sfc_cuda+sfc_attn"]), "torch": float(losses["torch"]),
+                    "ok": ok_loss, "err_over_bound": worst_loss},
+           "params": len(per_param), "projections_with_gradient": sum(map(_is_projection, per_param)),
+           "grad_worst_err_over_bound": max(r[2] for r in per_param.values()),
+           "grad_max_abs_err": max(r[1] for r in per_param.values())}
+    del model, grads
+    if not ok_loss or bad:
+        raise AssertionError(f"sfc_cuda gradients disagree with the torch backend's: loss ok={ok_loss} "
+                             f"(err/bound {worst_loss}); parameters {sorted(bad)}")
+    return out
+
+
+# kernel-name fragments of the port's kernels in a profiler trace
+_KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("nt_kernel", "K7"), ("tn_kernel", "K8"),
+                  ("flash_fwd_kernel", "K11"), ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"))
+
+
+def profile_step(torch, step_fn, opt_state, batch):
+    """One more train step under torch.profiler: its wall time, the
+    device's busy time (the sum of the device-side events: kernels, memcpy,
+    memset), the idle share, and the busy time by group: the port's
+    kernels by name, the rest (elementwise, reductions, cuBLAS, copies) as
+    "other"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt_state, metrics = step_fn(opt_state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups = {label: 0.0 for _, label in _KERNEL_GROUPS}
+    groups["other"] = 0.0
+    top = []
+    for ev in prof.key_averages():
+        # the device's own activities (kernels, memcpy, memset); a CPU op
+        # also reports the device time of the kernels it launched
+        us = ev.self_device_time_total
+        if ev.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        label = next((lab for frag, lab in _KERNEL_GROUPS if frag in ev.key), "other")
+        groups[label] += us / 1e3
+        top.append((us / 1e3, ev.key[:80]))
+    busy = sum(groups.values()) / 1e3
+    top.sort(reverse=True)
+    # a trace with no device time measured nothing: no idle share then
+    return opt_state, {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall if busy else None,
+                       "device_ms_by_group": groups, "top_device_ms": top[:10]}
+
+
+def phase_train(torch, cfg, build_trainer, counted):
+    """Three steps of `build_trainer` at full width under sfc_cuda +
+    attn_impl="sfc", then the same steps from the same init under torch +
+    blockwise.  Returns (summary, launches by shape of the sfc run)."""
+    per_step = cfg.n_layers * 6 + 1
+    want = {"sfc_gemm_fused": per_step, "sfc_gemm_nt": per_step, "sfc_gemm_tn": per_step,
+            "sfc_flash_fwd": cfg.n_layers, "sfc_flash_bwd_dq": cfg.n_layers, "sfc_flash_bwd_dkv": cfg.n_layers}
+    runs, by_shape = {}, {}
+    for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, opt_state, step_fn, batch_fn = build_trainer(
+            cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=TRAIN_STEPS, seed=0,
+            gemm_backend=gemm, attn_impl=impl, device="cuda")
+        params = dict(model.named_parameters())
+        # a fingerprint of each initial parameter (its f64 sum): every
+        # parameter's f32 master must move off it
+        before = {n: float(p.detach().double().sum()) for n, p in params.items()}
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        losses, times, launches = [], [], []
+        for fn in counted.values():
+            fn.launches = 0
+            if hasattr(fn, "launches_by_shape"):
+                fn.launches_by_shape.clear()
+        for step in range(TRAIN_STEPS):
+            batch = batch_fn(step)
+            start = {k: fn.launches for k, fn in counted.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt_state, metrics = step_fn(opt_state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append({k: fn.launches - start[k] for k, fn in counted.items()})
+        unchanged = [n for n in params if float(opt_state["master"][n].double().sum()) == before[n]]
+        runs[name] = {"losses": losses, "step_s": times, "setup_s": setup_s,
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated(), "unchanged_params": unchanged,
+                      "launches_per_step": launches, "grad_norm_last": float(metrics["grad_norm"])}
+        if name == "sfc_cuda+sfc_attn":
+            by_shape = {k: dict(fn.launches_by_shape) for k, fn in counted.items() if hasattr(fn, "launches_by_shape")}
+            by_shape["totals"] = {k: fn.launches for k, fn in counted.items()}
+        # a fourth step, profiled, for the split of its time (not compared)
+        opt_state, runs[name]["profiled_step"] = profile_step(torch, step_fn, opt_state, batch_fn(TRAIN_STEPS))
+        del model, opt_state, step_fn, batch_fn, params, metrics
+        torch.cuda.empty_cache()
+    sfc, ref = runs["sfc_cuda+sfc_attn"], runs["torch"]
+    loss_ok = [math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b) for a, b in zip(sfc["losses"], ref["losses"])]
+    out = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "launches_expected_per_step": want,
+           "loss_within_2^-7": loss_ok, **{f"{k}": v for k, v in runs.items()}}
+    emit(out)
+    bad_counts = [i for i, c in enumerate(sfc["launches_per_step"]) if c != want]
+    if bad_counts:
+        raise AssertionError(f"train steps {bad_counts} launched {sfc['launches_per_step']}, expected {want} per step")
+    if not all(loss_ok) or not all(math.isfinite(x) for x in ref["losses"]):
+        raise AssertionError(f"train losses {sfc['losses']} vs torch {ref['losses']}: not within 2^-7 or not finite")
+    for name, run in runs.items():
+        if run["unchanged_params"]:
+            raise AssertionError(f"{name} training left parameters unchanged: {run['unchanged_params']}")
+    return out, by_shape
 
 
 def small_reference_check(torch, get_config, build_model, gemm_backend):
@@ -408,11 +814,14 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.core.attention_backend import attention_backend
     from repro_torch.core.gemm_backend import gemm_backend
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import sfc_attention as tsa
     from repro_torch.kernels import sfc_gemm as tk
+    from repro_torch.launch.train import build_trainer
     from repro_torch.models.registry import build_model
     from repro_torch.serving.engine import ServingEngine
 
@@ -436,15 +845,24 @@ def main() -> int:
     gemms = main_path_gemms(cfg)
     rows, checks = phase_kernels(torch, cfg, gemms, tk, ops)
     attn_rows, attn_checks = phase_attention(torch, attention_cases(cfg), tsa, tfa, build)
+    bwd_rows, bwd_checks = phase_backward_gemms(torch, train_backward_gemms(cfg), tk, ops)
+    attn_bwd_rows, attn_bwd_checks = phase_attention_bwd(torch, attention_bwd_cases(cfg), tsa, build)
     small = small_reference_check(torch, get_config, build_model, gemm_backend)
     emit({"phase": "kernels_vs_plain", "ok": True, "tolerance": {
         "float32": f"|k-p| <= {F32_RTOL}|p| + {F32_ATOL_REL} max|p|",
         "bfloat16": f"|k-p| <= 2^-7 |p| + {BF16_ATOL_REL} max|p|",
         "lse": "float32 tolerance"},
-        "checks": checks + attn_checks, "reduced_model_f32_vs_reference": small})
+        "checks": checks + attn_checks + bwd_checks + attn_bwd_checks, "reduced_model_f32_vs_reference": small})
     torch.cuda.empty_cache()
 
-    # ---- 3. serve full-width qwen3-4b --------------------------------------
+    # ---- 3. gradients of a 4-layer full-width model in f32 -----------------
+    data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=1))
+    gc_batch = {key: torch.from_numpy(val).cuda() for key, val in data.batch(0).items()}
+    emit({"phase": "grad_check", "ok": True,
+          **phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, gc_batch)})
+    torch.cuda.empty_cache()
+
+    # ---- 4. serve full-width qwen3-4b --------------------------------------
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -571,8 +989,18 @@ def main() -> int:
                                  f"err/bound {res['err_over_bound']}")
     if not all(parity.values()):
         raise AssertionError(f"bf16 logits further from the f32 model than torch's: {noise}")
+    # the serve's model and every tensor of it leave the card before training
+    del model, params, params_of, logits, ref
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ---- 4. the kernels line ------------------------------------------------
+    # ---- 5. train full-width qwen3-4b --------------------------------------
+    counted = {"sfc_gemm_fused": tk.sfc_gemm_fused, "sfc_gemm_nt": tk.sfc_gemm_nt, "sfc_gemm_tn": tk.sfc_gemm_tn,
+               "sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_flash_bwd_dq": tsa.sfc_flash_bwd_dq,
+               "sfc_flash_bwd_dkv": tsa.sfc_flash_bwd_dkv}
+    _, train_counts = phase_train(torch, cfg, build_trainer, counted)
+
+    # ---- 6. the kernels line ------------------------------------------------
     kernels = []
     for row in rows:
         gm = row["gemm"]
@@ -581,29 +1009,69 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
             "replaces": "src/repro/kernels/sfc_gemm.py:491" if gm.batch else "src/repro/kernels/sfc_gemm.py:355",
-            "launches": by_shape.get(gm.key, 0),
+            "launches": (train_counts["sfc_gemm_fused"] if gm.path == "train" else by_shape).get(gm.key, 0),
+            "path": gm.path,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "glu": gm.glu},
+            "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "glu": gm.glu, "preact": gm.preact},
+        })
+    for row in bwd_rows:
+        gm = row["gemm"]
+        kernels.append({
+            "name": f"sfc_gemm_{gm.kind}:{gm.name}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "replaces": "src/repro/kernels/sfc_gemm.py:1219" if gm.kind == "nt" else "src/repro/kernels/sfc_gemm.py:1429",
+            "launches": train_counts[f"sfc_gemm_{gm.kind}"].get(gm.key, 0),
+            "path": "train",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": {"m": gm.m, "k": gm.k, "n": gm.n, "dual": gm.dual},
         })
     replaces = {"sfc_flash_fwd": "src/repro/kernels/sfc_attention.py:204",
                 "flash_attention": "src/repro/kernels/flash_attention.py:107",
-                "sfc_decode_attention": "src/repro/kernels/sfc_attention.py:660"}
+                "sfc_decode_attention": "src/repro/kernels/sfc_attention.py:660",
+                "sfc_flash_bwd_dq": "src/repro/kernels/sfc_attention.py:428",
+                "sfc_flash_bwd_dkv": "src/repro/kernels/sfc_attention.py:509"}
+    for row in attn_bwd_rows:
+        c = row["case"]
+        kernels.append({
+            "name": f"{row['kernel']}:{c.name}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_attention.cu",
+            "replaces": replaces[row["kernel"]],
+            "launches": train_counts["totals"][row["kernel"]],
+            "path": "train",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": "scaled_dot_product_attention backward (dQ, dK, dV together)",
+            "shape": c.shape(),
+        })
     for row in attn_rows:
         c = row["case"]
         # every launch of a path's run is at its main-path shape; a check row
         # at another shape carries its kernel's count from that run
+        count = train_counts["totals"][c.kernel] if c.path == "train" else attn_launches[c.kernel]
         kernels.append({
             "name": f"{c.kernel}:{c.name}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sfc_attention.cu",
             "replaces": replaces[c.kernel],
-            "launches": attn_launches[c.kernel],
-            "launches_at_shape": attn_launches[c.kernel] if c.main_path else 0,
+            "launches": count,
+            "launches_at_shape": count if c.main_path else 0,
+            "path": c.path,
             "main_path": c.main_path,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
@@ -615,7 +1083,7 @@ def main() -> int:
         })
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
-        raise AssertionError(f"main-path kernels never launched during serve: {missing}")
+        raise AssertionError(f"main-path kernels never launched in the run of their path: {missing}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

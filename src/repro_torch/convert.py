@@ -1,4 +1,5 @@
-"""Parameters of the JAX package, as numpy arrays, -> the port's parameters."""
+"""Parameters and optimizer state of the JAX package, as numpy arrays, to
+the port's, and the port's parameters back to the JAX tree layout."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import torch_dtype
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "opt_state_from_jax"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -56,4 +57,45 @@ def params_from_jax(
                 out[f"layers.{i}.{rest}"] = _to_tensor(arr[i], device, dtype)
         else:
             out[name] = _to_tensor(arr, device, dtype)
+    return out
+
+
+def params_to_jax(params: Mapping[str, torch.Tensor], cfg: ArchConfig) -> Dict[str, Any]:
+    """The inverse name map of `params_from_jax`: the port's parameters as
+    f32 numpy arrays in the JAX tree layout (``layers.{i}.*`` stacked on a
+    leading layer axis, dotted names nested)."""
+    tree: Dict[str, Any] = {}
+
+    def put(name: str, arr: np.ndarray) -> None:
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+
+    layer_leaves: Dict[str, list] = {}
+    for name, t in params.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            layer_leaves.setdefault(rest, [None] * cfg.n_layers)[int(i)] = arr
+        else:
+            put(name, arr)
+    for rest, arrs in layer_leaves.items():
+        put(f"layers.{rest}", np.stack(arrs))
+    return tree
+
+
+def opt_state_from_jax(
+    state: Mapping[str, Any],
+    cfg: ArchConfig,
+    *,
+    device: Union[str, torch.device],
+) -> Dict[str, Any]:
+    """The port's AdamW state from the JAX package's ``adamw_init`` tree
+    (numpy leaves): the step as an int32 scalar, and ``mu``, ``nu`` and
+    ``master`` as f32 tensors named as the model's parameters."""
+    out: Dict[str, Any] = {"step": torch.tensor(np.asarray(state["step"]), dtype=torch.int32).to(device)}
+    for slot in ("mu", "nu", "master"):
+        out[slot] = params_from_jax(state[slot], cfg, device=device, dtype=torch.float32)
     return out

@@ -1,5 +1,4 @@
-"""Pluggable attention backend, forward half (the port's
-``repro.core.attention_backend``).
+"""Pluggable attention backend (the port's ``repro.core.attention_backend``).
 
 `models.attention` routes every prefill and decode attention through this
 switch; the active implementation is the call site's ``attn_impl`` (from
@@ -8,8 +7,9 @@ it:
 
   "blockwise"     plain-torch online-softmax loop (`models.layers`), default
   "flash_pallas"  the dense-grid flash forward (K15, `kernels/flash_attention`)
-  "sfc"           the SFC band flash forward (K11) and the single-launch
-                  decode (K14), `kernels/sfc_attention`
+  "sfc"           the SFC band flash forward (K11), differentiable through
+                  the flash backward (K12 dQ, K13 dK/dV), and the
+                  single-launch decode (K14), `kernels/sfc_attention`
 
 Knobs: on CPU tensors `resolve_attn_knobs` clips the caller's hint exactly
 as the JAX package does when its tune cache has no entry, so the plain
@@ -21,25 +21,31 @@ Left out of this slice, each with its ROADMAP queue 1 item:
 * the tune-cache lookup (item 13): `resolve_attn_knobs` takes the hint path
   only, as the JAX package does when the cache has no entry;
 * `run_with_fallback` and `degradation_report` (item 14): nothing falls
-  back, a kernel that fails raises;
-* the custom VJP over the backward kernels K12/K13 (item 9): the kernels'
-  outputs have no ``grad_fn``, so inputs that need a gradient raise.
+  back, a kernel that fails raises.
+
+`flash_attention` is differentiable (`_FlashCore`, the JAX package's
+``_flash_core`` custom VJP); `decode_attention` and the "flash_pallas"
+kernel are forward-only, as in the JAX package, and refuse inputs that need
+a gradient.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.namespaces import NS_ATTN_DECODE, NS_ATTN_FWD
+from repro_torch.core.namespaces import NS_ATTN_BWD, NS_ATTN_DECODE, NS_ATTN_FWD
 from repro_torch.kernels import build
 from repro_torch.kernels.sfc_attention import (
     check_fwd_shapes,
     require_no_grad,
     sfc_decode_attention,
+    sfc_flash_bwd_dkv,
+    sfc_flash_bwd_dq,
     sfc_flash_fwd,
 )
 
@@ -113,6 +119,50 @@ def resolve_attn_knobs(
     return _clip_chunk(q_chunk or 128, sq), _clip_chunk(k_chunk or 128, sk)
 
 
+@dataclasses.dataclass(frozen=True)
+class _FlashCfg:
+    causal: bool
+    seq_q: int
+    seq_k: int
+    q_chunk: int
+    k_chunk: int
+    q_chunk_hint: Optional[int]
+    k_chunk_hint: Optional[int]
+    q_offset: int = 0
+
+
+class _FlashCore(torch.autograd.Function):
+    """``_flash_core`` of the JAX package: K11 forward, saving (q, k, v, o,
+    lse); the backward forms ``delta = rowsum(dO ⊙ O)`` in plain torch, as
+    the JAX package does outside its kernels, then launches K12 and K13."""
+
+    @staticmethod
+    def forward(ctx, cfg: _FlashCfg, q, k, v):
+        o, lse = sfc_flash_fwd(q, k, v, causal=cfg.causal, seq_q=cfg.seq_q, seq_k=cfg.seq_k,
+                               q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, q_offset=cfg.q_offset)
+        ctx.cfg = cfg
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        cfg = ctx.cfg
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)  # (B, S, H) f32
+        if q.device.type == "cuda":
+            qc = kc = None  # each kernel's compiled tile
+        else:
+            # the backward resolves its own knobs, as the JAX package does
+            qc, kc = resolve_attn_knobs(cfg.seq_q, cfg.seq_k, q.shape[-1], q.dtype, op=NS_ATTN_BWD,
+                                        q_chunk=cfg.q_chunk_hint, k_chunk=cfg.k_chunk_hint)
+        kw = dict(causal=cfg.causal, seq_q=cfg.seq_q, seq_k=cfg.seq_k, q_offset=cfg.q_offset,
+                  q_chunk=qc, k_chunk=kc)
+        dq = sfc_flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = sfc_flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return None, dq, dk, dv
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, T, Hkv, D)
@@ -123,18 +173,23 @@ def flash_attention(
     k_chunk: Optional[int] = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """SFC flash attention in the model's (B, S, H, D) layout, forward only.
+    """Differentiable SFC flash attention in the model's (B, S, H, D) layout.
 
-    GQA is resolved by the kernel's head map; ragged S and T are masked,
+    GQA is resolved by the kernels' head maps; ragged S and T are masked,
     not padded.  ``q_offset`` places the q block at global rows
     ``[q_offset, q_offset + S)`` of a causal stream whose first ``q_offset``
-    keys are cached.  ``q_chunk``/``k_chunk`` are hints (`resolve_attn_knobs`).
-    Inputs that need a gradient raise `NotImplementedError` (K12/K13)."""
-    require_no_grad("attn_impl='sfc' flash_attention", q, k, v)
+    keys are cached.  ``q_chunk``/``k_chunk`` are hints
+    (`resolve_attn_knobs`); the backward resolves its own from the same
+    hints.  With an input that needs a gradient the call runs through
+    `_FlashCore` (K11 forward, K12/K13 backward)."""
     check_fwd_shapes(q, k, v, None, None, q_offset)  # negative q_offset, GQA ratio, ...
     s, d, t = q.shape[1], q.shape[3], k.shape[1]
     qc, kc = resolve_attn_knobs(s, t, d, q.dtype, op=NS_ATTN_FWD, q_chunk=q_chunk, k_chunk=k_chunk,
                                 device=q.device)
+    cfg = _FlashCfg(causal=causal, seq_q=s, seq_k=t, q_chunk=qc, k_chunk=kc, q_chunk_hint=q_chunk,
+                    k_chunk_hint=k_chunk, q_offset=q_offset)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashCore.apply(cfg, q, k, v)
     o, _ = sfc_flash_fwd(q, k, v, causal=causal, seq_q=s, seq_k=t, q_offset=q_offset, q_chunk=qc, k_chunk=kc)
     return o
 

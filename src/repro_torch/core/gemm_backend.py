@@ -10,8 +10,12 @@
                    tensors)
   "sfc_reference"  the Listing-1 loop in plain torch
 
-There is no fallback ladder: "sfc_cuda" launches the kernel on a CUDA
-tensor or raises.
+Every backend is differentiable.  "torch" and "sfc_reference" are plain
+torch ops under autograd; under "sfc_cuda", with an input that needs a
+gradient, `matmul` and `glu_matmul` run through `kernels.ops`'s autograd
+Function, whose backward launches the NT (dA) and TN (dW) kernels.  There
+is no fallback ladder: "sfc_cuda" launches the kernel on a CUDA tensor or
+raises.
 """
 
 from __future__ import annotations

@@ -7,9 +7,12 @@ keyed by a digest of the source, every ``csrc/`` header it includes, and
 the flags, and loaded with ``ctypes``.  Two libraries:
 
 * ``sfc_gemm_fused.cu``, compiled once per (input type, GLU, activation)
-  part, each part with its epilogue flags as template parameters;
-* ``sfc_attention.cu``, compiled once per input type, each part holding the
-  flash-forward and decode kernels for the head dims in ``ATTN_HEAD_DIMS``.
+  part, each part with its epilogue flags as template parameters, plus one
+  backward part per input type (``-DSFC_BWD=1``: the NT and TN kernels);
+* ``sfc_attention.cu``, compiled once per (input type, half), each part
+  holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
+  decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
+  (half 1).
 
 A library's parts are compiled by parallel ``nvcc`` processes and linked
 into one ``.so``; `load_all` starts the parts of every library that is not
@@ -36,12 +39,14 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 __all__ = [
     "TILE",
     "ATTN_TILE",
+    "ATTN_DKV_TILE",
     "ATTN_HEAD_DIMS",
     "MAX_DECODE_GROUPS",
     "DECODE_CHUNK",
     "ACTIVATION_CODES",
     "DTYPE_NAMES",
     "entry_name",
+    "bwd_entry_name",
     "attn_entry_name",
     "source_digest",
     "load_library",
@@ -53,6 +58,10 @@ __all__ = [
 TILE: Tuple[int, int] = (64, 64)
 # (q rows, k rows) of one flash-forward tile: kBQ / kBK in csrc/sfc_attention.cu
 ATTN_TILE: Tuple[int, int] = (64, 64)
+# (q rows, k rows) of one dK/dV tile per input type: dkv_bq() / kBK in
+# csrc/sfc_attention.cu (the f32 tile takes 32 q rows to fit shared memory);
+# the dQ kernel uses ATTN_TILE
+ATTN_DKV_TILE: Dict[str, Tuple[int, int]] = {"bf16": (64, 64), "f32": (32, 64)}
 # head dims the attention kernels are compiled for (SFC_*_ENTRY in the source)
 ATTN_HEAD_DIMS: Tuple[int, ...] = (64, 128)
 # GQA rows one decode CTA holds: kMaxGroups in csrc/sfc_attention.cu
@@ -75,9 +84,17 @@ def entry_name(dtype_name: str, glu: bool, activation: Optional[str]) -> str:
     return f"sfc_gemm_fused_{dtype_name}_glu{int(glu)}_act{ACTIVATION_CODES[activation]}"
 
 
+def bwd_entry_name(kind: str, dtype_name: str) -> str:
+    """C symbol of a backward GEMM entry: ``kind`` is "nt" (dA) or "tn" (dW)."""
+    if kind not in ("nt", "tn"):
+        raise ValueError(f"unknown backward GEMM kind {kind!r}")
+    return f"sfc_gemm_{kind}_{dtype_name}"
+
+
 def attn_entry_name(kind: str, dtype_name: str, head_dim: int) -> str:
-    """C symbol of an attention entry: ``kind`` is "fwd" or "decode"."""
-    if kind not in ("fwd", "decode"):
+    """C symbol of an attention entry: ``kind`` is "fwd", "decode", "dq" or
+    "dkv"."""
+    if kind not in ("fwd", "decode", "dq", "dkv"):
         raise ValueError(f"unknown attention entry kind {kind!r}")
     return f"sfc_attn_{kind}_{dtype_name}_d{head_dim}"
 
@@ -92,27 +109,47 @@ def _gemm_parts():
                     f"-DSFC_ACT={ACTIVATION_CODES[act]}",
                     f"-DSFC_ENTRY={entry_name(dt, glu, act)}",
                 )
+        yield f"sfc_gemm_bwd_{dt}", (
+            f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
+            "-DSFC_BWD=1",
+            f"-DSFC_NT_ENTRY={bwd_entry_name('nt', dt)}",
+            f"-DSFC_TN_ENTRY={bwd_entry_name('tn', dt)}",
+        )
 
 
 def _attention_parts():
     for dt, code in _DTYPE_CODES.items():
-        yield f"sfc_attention_{dt}", (f"-DSFC_ATTN_DTYPE={code}", f"-DSFC_ATTN_TAG={dt}")
+        for half, name in ((0, f"sfc_attention_{dt}"), (1, f"sfc_attention_bwd_{dt}")):
+            yield name, (f"-DSFC_ATTN_DTYPE={code}", f"-DSFC_ATTN_TAG={dt}", f"-DSFC_ATTN_PART={half}")
 
 
 def _bind_gemm(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, _ in _gemm_parts():
-        fn = getattr(lib, name)
-        fn.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # a, b, b_gate, bias, gate_bias, residual, out
-            ptr, i32, i32,  # task table, n_tasks, batch
-            i32, i32, i32,  # M, N, K
-            ctypes.c_longlong, ctypes.c_longlong,  # A / B batch strides (elements)
-            i32, ctypes.c_float,  # has_scale, out_scale
-            i32, i32,  # vec_a, vec_b
-            ptr,  # cudaStream_t
-        ]
-        fn.restype = i32
+    for dt in _DTYPE_CODES:
+        for glu in (False, True):
+            for act in ACTIVATION_CODES:
+                fn = getattr(lib, entry_name(dt, glu, act))
+                fn.argtypes = [
+                    ptr, ptr, ptr, ptr, ptr, ptr,  # a, b, b_gate, bias, gate_bias, residual
+                    ptr, ptr,  # out, out_gate (preact mode)
+                    ptr, i32, i32,  # task table, n_tasks, batch
+                    i32, i32, i32,  # M, N, K
+                    ctypes.c_longlong, ctypes.c_longlong,  # A / B batch strides (elements)
+                    i32, ctypes.c_float,  # has_scale, out_scale
+                    i32, i32,  # vec_a, vec_b
+                    ptr,  # cudaStream_t
+                ]
+                fn.restype = i32
+        for kind in ("nt", "tn"):
+            fn = getattr(lib, bwd_entry_name(kind, dt))
+            fn.argtypes = [
+                ptr, ptr, ptr, ptr, ptr,  # nt: a, b, a2, b2, out; tn: a, b, b2, out, out2
+                ptr, i32,  # task table, n_tasks
+                i32, i32, i32,  # R, C, D (output rows, output cols, contraction)
+                i32, i32,  # vec_a, vec_b
+                ptr,  # cudaStream_t
+            ]
+            fn.restype = i32
 
 
 def _bind_attention(lib: ctypes.CDLL) -> None:
@@ -140,6 +177,20 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
                 ptr,  # cudaStream_t
             ]
             dec.restype = i32
+            for kind in ("dq", "dkv"):
+                bwd = getattr(lib, attn_entry_name(kind, dt, d))
+                bwd.argtypes = [
+                    ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, dO, lse, delta
+                    *((ptr,) if kind == "dq" else (ptr, ptr)),  # dq, or dk and dv
+                    ptr, ptr, i32,  # other tile per task, row starts, rows
+                    i32, i32, i32,  # batch, H, groups
+                    i32, i32, i32, i32,  # S, T, seq_q, seq_k
+                    i32, i32,  # q_offset, causal
+                    ptr,  # 12 strides (q, k, v, dO; batch, seq, head), int64 on the host
+                    ctypes.c_float,  # scale
+                    ptr,  # cudaStream_t
+                ]
+                bwd.restype = i32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,7 +317,8 @@ def load_library() -> ctypes.CDLL:
 
 
 def load_attention_library() -> ctypes.CDLL:
-    """The attention library (flash forward and decode), built on first use."""
+    """The attention library (flash forward, decode and the flash
+    backward), built on first use."""
     return _load(_ATTENTION)
 
 

@@ -1,6 +1,6 @@
 // SFC-scheduled attention for Hopper (sm_90a), hand-written CUDA C++.
 //
-// Two kernels, each with a plain C entry point per (input type, head dim):
+// Four kernels, each with a plain C entry point per (input type, head dim):
 //
 // flash_fwd_kernel replaces two TPU kernels:
 //   * `repro/kernels/sfc_attention.py::sfc_flash_fwd` (`_flash_fwd_kernel`):
@@ -61,10 +61,37 @@
 //   on 132 SMs it cannot reach the card's memory rate; splitting the cache
 //   across CTAs (split-K with a merge) is a later kernel.
 //
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel replace the training
+//   backward `repro/kernels/sfc_attention.py::sfc_flash_bwd_dq`
+//   (`_flash_bwd_dq_kernel`, K12) and `sfc_flash_bwd_dkv`
+//   (`_flash_bwd_dkv_kernel`, K13).  Both recompute the (p, ds) prelude of
+//   `_bwd_p_ds` per tile from the forward's lse and delta = rowsum(dO * O):
+//     p = exp(scale * q k^T - lse) masked,  ds = p * (dO v^T - delta),
+//   then dQ = scale * sum ds k over the q-major band (one CTA per q tile and
+//   q head), dV = sum p^T dO and dK = scale * sum ds^T q over the k-major
+//   band with the GQA group innermost (one CTA per k tile and kv head, the
+//   two accumulators in shared memory for the whole walk: no atomics, no
+//   per-q-head copies).  P, dS and the f32 accumulators go through shared
+//   memory, as O does in the forward; in bf16, P and dS enter the tensor
+//   cores as hi + lo bf16 pairs (store_split), so the gradients, sums that
+//   cancel, keep f32 operands to about 2^-16.  No padding: loads past the
+//   tensors' ends are zeros and the masks do the rest.
+//
+//   What bounds them on the H100: at the training step's shape (2 x 256
+//   tokens, 32 / 8 heads, D 128, bf16, causal) K12 moves about 14.8 MB (q,
+//   k, v, dO, lse, delta in, dQ out), 4.4 us at 3.35 TB/s, against 6 D
+//   flops per attended pair (S, dP, dS k), 1.6 GFLOP, 1.6 us at the bf16
+//   peak; K13 moves 12.7 MB (3.8 us) against 8 D flops a pair (2.2 us):
+//   bytes bound both.  What they leave on the
+//   table is the forward's: no wgmma, TMA or pipeline, and the products of S
+//   and dP are recomputed by both kernels.
+//
 // One compilation unit holds one input type, chosen by -DSFC_ATTN_DTYPE
-// (0: float32, 1: bfloat16) and named by -DSFC_ATTN_TAG, with the head dims
-// 64 and 128 (`repro_torch/kernels/build.py` builds both types at once).
-// Every entry launches on the caller's stream and returns cudaGetLastError().
+// (0: float32, 1: bfloat16) and named by -DSFC_ATTN_TAG, and one half,
+// chosen by -DSFC_ATTN_PART (0: flash forward and decode, 1: the backward),
+// with the head dims 64 and 128 (`repro_torch/kernels/build.py` builds all
+// four parts at once).  Every entry launches on the caller's stream and
+// returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +103,9 @@
 #endif
 #ifndef SFC_ATTN_TAG
 #define SFC_ATTN_TAG bf16
+#endif
+#ifndef SFC_ATTN_PART  // 0: flash forward and decode; 1: the backward (dq, dkv)
+#define SFC_ATTN_PART 0
 #endif
 
 namespace {
@@ -439,29 +469,362 @@ __global__ void __launch_bounds__(D) decode_kernel(const DecodeParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward: dQ (K12) and dK / dV (K13)
+// ---------------------------------------------------------------------------
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;      // dO, laid out as q
+  const float* lse;      // (B, S, H) contiguous f32, from the forward
+  const float* delta;    // (B, S, H) contiguous f32: rowsum(dO * O)
+  void* dq;              // (B, S, H, D) contiguous, input type
+  void* dk;              // (B, T, Hkv, D) contiguous, input type
+  void* dv;
+  const int* tab_minor;  // the other tile of each task, rows back to back
+  const int* row_start;  // (n_rows + 1): row r's tasks are [row_start[r], row_start[r + 1])
+  int S, T, seq_q, seq_k;
+  int H, Hkv, groups, q_offset, causal;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;  // dO
+  float scale;
+};
+
+__device__ __forceinline__ bool attn_valid(const BwdParams& p, int qpos, int kpos) {
+  return kpos < p.seq_k && qpos < p.seq_q && (!p.causal || kpos <= qpos + p.q_offset);
+}
+
+// An f32 operand x of a bf16 tensor-core product is stored as the pair
+// hi = bf16(x), lo = bf16(x - hi), and the product runs on both: x k =
+// hi k + lo k to about 2^-16 of |x|, where hi alone would carry x's bf16
+// rounding (2^-9) into sums that cancel, as dQ, dK and dV do.  In f32 the
+// SIMT products take x as it is.
+template <typename T>
+__host__ __device__ constexpr bool split_operand() {
+  return sizeof(T) == 2;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_split(T* hi, T* lo, float x) {
+  const T h = from_f32<T>(x);
+  *hi = h;
+  if constexpr (split_operand<T>()) *lo = from_f32<T>(x - to_f32(h));
+}
+
+// dynamic shared memory of the dQ kernel: q, dO, k, v tiles in T; the f32
+// score and dP strips; dS in T (hi and, in bf16, lo); the f32 dQ
+// accumulator
+template <typename T, int D>
+struct DqSmem {
+  static constexpr int LDQ = D + pad<T>();
+  static constexpr int LDS = kBK + 4;
+  static constexpr int LDP = kBK + pad<T>();
+  static constexpr int LDO = D + 4;
+  static constexpr size_t Q = 0;
+  static constexpr size_t DO = align128(Q + (size_t)kBQ * LDQ * sizeof(T));
+  static constexpr size_t K = align128(DO + (size_t)kBQ * LDQ * sizeof(T));
+  static constexpr size_t V = align128(K + (size_t)kBK * LDQ * sizeof(T));
+  static constexpr size_t S = align128(V + (size_t)kBK * LDQ * sizeof(T));
+  static constexpr size_t DP = align128(S + (size_t)kBQ * LDS * sizeof(float));
+  static constexpr size_t DS = align128(DP + (size_t)kBQ * LDS * sizeof(float));
+  static constexpr size_t DS_LO = align128(DS + (size_t)kBQ * LDP * sizeof(T));
+  static constexpr size_t DQ = align128(DS_LO + (split_operand<T>() ? (size_t)kBQ * LDP * sizeof(T) : 0));
+  static constexpr size_t BYTES = align128(DQ + (size_t)kBQ * LDO * sizeof(float));
+};
+
+// K12.  One CTA per (64-row q tile, (batch, q head)); it walks its row's
+// segment of the q-major band table.  Per k tile: S = q k^T, P = exp(scale S
+// - lse) masked, dP = dO v^T, dS = P (dP - delta), dQ += dS k.  Warp w owns
+// q rows [16w, 16w + 16) through every step, as in the forward, so the
+// warps meet at a block barrier only when a new k / v tile lands.  dQ stays
+// in shared memory in f32 and takes the scale once, at the flush.
+template <typename T, int D>
+__global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_kernel(const BwdParams p) {
+  using L = DqSmem<T, D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L::Q);
+  T* dOs = reinterpret_cast<T*>(smem + L::DO);
+  T* Ks = reinterpret_cast<T*>(smem + L::K);
+  T* Vs = reinterpret_cast<T*>(smem + L::V);
+  float* Ss = reinterpret_cast<float*>(smem + L::S);
+  float* dPs = reinterpret_cast<float*>(smem + L::DP);
+  T* dSs = reinterpret_cast<T*>(smem + L::DS);
+  T* dSlo = reinterpret_cast<T*>(smem + L::DS_LO);
+  float* dQs = reinterpret_cast<float*>(smem + L::DQ);
+
+  const int iq = blockIdx.x;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int hk = h / p.groups;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = warp * 16 + (lane >> 1), half = lane & 1;
+  const int qpos = iq * kBQ + r;
+
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  load_rows<T, D, kBQ, L::LDQ>(Qs, q, p.q_ss, iq * kBQ, p.S);
+  load_rows<T, D, kBQ, L::LDQ>(dOs, dout, p.o_ss, iq * kBQ, p.S);
+#pragma unroll 8
+  for (int j = 0; j < D / 2; ++j) dQs[r * L::LDO + half + 2 * j] = 0.0f;
+  const long long stat = ((long long)b * p.S + qpos) * p.H + h;
+  const float lse_r = qpos < p.S ? p.lse[stat] : 0.0f;
+  const float delta_r = qpos < p.S ? p.delta[stat] : 0.0f;
+
+  const int t0 = __ldg(p.row_start + iq), t1 = __ldg(p.row_start + iq + 1);
+  for (int t = t0; t < t1; ++t) {
+    const int ik = __ldg(p.tab_minor + t);
+    __syncthreads();  // every warp is done with the previous k / v tile
+    load_rows<T, D, kBK, L::LDQ>(Ks, k, p.k_ss, ik * kBK, p.T);
+    load_rows<T, D, kBK, L::LDQ>(Vs, v, p.v_ss, ik * kBK, p.T);
+    __syncthreads();
+
+    scores<D, L::LDQ, L::LDS>(Qs, Ks, Ss, warp, lane);
+    scores<D, L::LDQ, L::LDS>(dOs, Vs, dPs, warp, lane);
+    __syncwarp();
+#pragma unroll 8
+    for (int j = 0; j < kBK / 2; ++j) {
+      const int c = half + 2 * j;
+      const float pr = attn_valid(p, qpos, ik * kBK + c) ? expf(Ss[r * L::LDS + c] * p.scale - lse_r) : 0.0f;
+      store_split<T>(dSs + r * L::LDP + c, dSlo + r * L::LDP + c, pr * (dPs[r * L::LDS + c] - delta_r));
+    }
+    __syncwarp();
+    accumulate_pv<D, L::LDQ, L::LDP, L::LDO>(dSs, Ks, dQs, warp, lane, 1.0f);
+    if constexpr (split_operand<T>()) {
+      __syncwarp();
+      accumulate_pv<D, L::LDQ, L::LDP, L::LDO>(dSlo, Ks, dQs, warp, lane, 1.0f);
+    }
+    __syncwarp();
+  }
+  __syncwarp();
+
+  T* dq = static_cast<T*>(p.dq);
+  for (int rr = 0; rr < 16; ++rr) {
+    const int row = warp * 16 + rr;
+    const int pos = iq * kBQ + row;
+    if (pos >= p.S) continue;  // warp-uniform
+    const long long base = (((long long)b * p.S + pos) * p.H + h) * D;
+    for (int c = lane; c < D; c += 32) dq[base + c] = from_f32<T>(dQs[row * L::LDO + c] * p.scale);
+  }
+}
+
+// q rows of the dK / dV kernel's q tile: 64 in bf16; 32 in f32, where the
+// 64-row tile's shared memory would exceed the 227 KB a block may use
+// (keep in step with build.py ATTN_DKV_TILE)
+template <typename T>
+__host__ __device__ constexpr int dkv_bq() {
+  return sizeof(T) == 2 ? 64 : 32;
+}
+
+// dynamic shared memory of the dK / dV kernel: q, dO (BQ rows) and k, v
+// (64 rows) tiles in T; the f32 S and dP tiles; P and dS in T, each as its
+// hi and lo pair (in f32 they overwrite S and dP in place); the two f32
+// accumulators; lse and delta
+template <typename T, int D>
+struct DkvSmem {
+  static constexpr int BQ = dkv_bq<T>();
+  static constexpr bool SEPARATE_P = split_operand<T>();
+  static constexpr int LDQ = D + pad<T>();
+  static constexpr int LDS = kBK + 4;
+  static constexpr int LDP = SEPARATE_P ? kBK + pad<T>() : LDS;
+  static constexpr int LDO = D + 4;
+  static constexpr size_t Q = 0;
+  static constexpr size_t DO = align128(Q + (size_t)BQ * LDQ * sizeof(T));
+  static constexpr size_t K = align128(DO + (size_t)BQ * LDQ * sizeof(T));
+  static constexpr size_t V = align128(K + (size_t)kBK * LDQ * sizeof(T));
+  static constexpr size_t S = align128(V + (size_t)kBK * LDQ * sizeof(T));
+  static constexpr size_t DP = align128(S + (size_t)BQ * LDS * sizeof(float));
+  static constexpr size_t TILE_P = SEPARATE_P ? (size_t)BQ * LDP * sizeof(T) : 0;
+  static constexpr size_t P = align128(DP + (size_t)BQ * LDS * sizeof(float));
+  static constexpr size_t P_LO = align128(P + TILE_P);
+  static constexpr size_t DS = align128(P_LO + TILE_P);
+  static constexpr size_t DS_LO = align128(DS + TILE_P);
+  static constexpr size_t DK = align128(DS_LO + TILE_P);
+  static constexpr size_t DV = align128(DK + (size_t)kBK * LDO * sizeof(float));
+  static constexpr size_t STATS = align128(DV + (size_t)kBK * LDO * sizeof(float));
+  static constexpr size_t BYTES = align128(STATS + 2 * (size_t)BQ * sizeof(float));
+};
+
+// S = q k^T and dP = dO v^T of one (BQ, 64) tile.  bf16: warp w computes q
+// rows [16w, 16w + 16) on the tensor cores.
+template <int D, int BQ, int LDQ, int LDS>
+__device__ __forceinline__ void dkv_scores(const bf16* Qs, const bf16* Ks, float* Ss, int warp) {
+  static_assert(BQ == 4 * 16, "one 16-row strip per warp");
+  scores<D, LDQ, LDS>(Qs, Ks, Ss, warp, 0);
+}
+
+// f32: SIMT over the whole tile, element e = (row e / 64, col e % 64).
+template <int D, int BQ, int LDQ, int LDS>
+__device__ __forceinline__ void dkv_scores(const float* Qs, const float* Ks, float* Ss, int) {
+  for (int e = threadIdx.x; e < BQ * kBK; e += kFwdThreads) {
+    const int i = e / kBK, j = e % kBK;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) acc = fmaf(Qs[i * LDQ + d], Ks[j * LDQ + d], acc);
+    Ss[i * LDS + j] = acc;
+  }
+}
+
+// acc (64, D) += X^T Y for X (BQ, 64) and Y (BQ, D): dV += P^T dO and
+// dK += dS^T q, contracted over the q rows, the TN move on the resident
+// tiles.  bf16: warp w owns k rows [16w, 16w + 16); X^T is X read as a
+// col_major matrix_a, so no transposed tile is stored.
+template <int D, int BQ, int LDX, int LDY, int LDO>
+__device__ __forceinline__ void dkv_accumulate(const bf16* Xs, const bf16* Ys, float* Acc, int warp) {
+  using namespace nvcuda;
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    float* aptr = Acc + warp * 16 * LDO + n * 16;
+    wmma::load_matrix_sync(acc, aptr, LDO, wmma::mem_row_major);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> x;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> y;
+      wmma::load_matrix_sync(x, Xs + kk * 16 * LDX + warp * 16, LDX);
+      wmma::load_matrix_sync(y, Ys + kk * 16 * LDY + n * 16, LDY);
+      wmma::mma_sync(acc, x, y, acc);
+    }
+    wmma::store_matrix_sync(aptr, acc, LDO, wmma::mem_row_major);
+  }
+}
+
+// f32: SIMT, element e = (k row e / D, column e % D).
+template <int D, int BQ, int LDX, int LDY, int LDO>
+__device__ __forceinline__ void dkv_accumulate(const float* Xs, const float* Ys, float* Acc, int) {
+  for (int e = threadIdx.x; e < kBK * D; e += kFwdThreads) {
+    const int kr = e / D, d = e % D;
+    float acc = Acc[kr * LDO + d];
+    for (int i = 0; i < BQ; ++i) acc = fmaf(Xs[i * LDX + kr], Ys[i * LDY + d], acc);
+    Acc[kr * LDO + d] = acc;
+  }
+}
+
+// K13.  One CTA per (64-row k tile, (batch, kv head)); it walks its row of
+// the k-major band table and, innermost, the `groups` q heads of its kv
+// head, as the TPU grid (b * hkv, T, groups) does.  dK and dV stay in shared
+// memory in f32 across the whole walk, so the GQA group needs no atomics and
+// no per-q-head copies; dK takes the scale once, at the flush.  A k tile past
+// every q position walks one masked task and flushes zeros.
+template <typename T, int D>
+__global__ void __launch_bounds__(kFwdThreads) flash_bwd_dkv_kernel(const BwdParams p) {
+  using L = DkvSmem<T, D>;
+  constexpr int BQ = L::BQ;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L::Q);
+  T* dOs = reinterpret_cast<T*>(smem + L::DO);
+  T* Ks = reinterpret_cast<T*>(smem + L::K);
+  T* Vs = reinterpret_cast<T*>(smem + L::V);
+  float* Ss = reinterpret_cast<float*>(smem + L::S);
+  float* dPs = reinterpret_cast<float*>(smem + L::DP);
+  T* Ps = L::SEPARATE_P ? reinterpret_cast<T*>(smem + L::P) : reinterpret_cast<T*>(Ss);
+  T* Plo = reinterpret_cast<T*>(smem + L::P_LO);
+  T* dSs = L::SEPARATE_P ? reinterpret_cast<T*>(smem + L::DS) : reinterpret_cast<T*>(dPs);
+  T* dSlo = reinterpret_cast<T*>(smem + L::DS_LO);
+  float* dKs = reinterpret_cast<float*>(smem + L::DK);
+  float* dVs = reinterpret_cast<float*>(smem + L::DV);
+  float* lse_s = reinterpret_cast<float*>(smem + L::STATS);
+  float* delta_s = lse_s + BQ;
+
+  const int ik = blockIdx.x;
+  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+  const int warp = threadIdx.x >> 5;
+
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  load_rows<T, D, kBK, L::LDQ>(Ks, k, p.k_ss, ik * kBK, p.T);
+  load_rows<T, D, kBK, L::LDQ>(Vs, v, p.v_ss, ik * kBK, p.T);
+  for (int e = threadIdx.x; e < kBK * L::LDO; e += kFwdThreads) {
+    dKs[e] = 0.0f;
+    dVs[e] = 0.0f;
+  }
+
+  const int t0 = __ldg(p.row_start + ik), t1 = __ldg(p.row_start + ik + 1);
+  for (int t = t0; t < t1; ++t) {
+    const int iq = __ldg(p.tab_minor + t);
+    for (int g = 0; g < p.groups; ++g) {
+      const int h = hk * p.groups + g;
+      __syncthreads();  // the previous step is done with q, dO, P, dS
+      load_rows<T, D, BQ, L::LDQ>(Qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, iq * BQ, p.S);
+      load_rows<T, D, BQ, L::LDQ>(dOs, static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh, p.o_ss, iq * BQ,
+                                  p.S);
+      for (int i = threadIdx.x; i < BQ; i += kFwdThreads) {
+        const int qpos = iq * BQ + i;
+        const long long stat = ((long long)b * p.S + qpos) * p.H + h;
+        lse_s[i] = qpos < p.S ? p.lse[stat] : 0.0f;
+        delta_s[i] = qpos < p.S ? p.delta[stat] : 0.0f;
+      }
+      __syncthreads();
+      dkv_scores<D, BQ, L::LDQ, L::LDS>(Qs, Ks, Ss, warp);
+      dkv_scores<D, BQ, L::LDQ, L::LDS>(dOs, Vs, dPs, warp);
+      __syncthreads();
+      for (int e = threadIdx.x; e < BQ * kBK; e += kFwdThreads) {
+        const int i = e / kBK, j = e % kBK;
+        const float pr =
+            attn_valid(p, iq * BQ + i, ik * kBK + j) ? expf(Ss[i * L::LDS + j] * p.scale - lse_s[i]) : 0.0f;
+        const float ds = pr * (dPs[i * L::LDS + j] - delta_s[i]);
+        store_split<T>(Ps + i * L::LDP + j, Plo + i * L::LDP + j, pr);
+        store_split<T>(dSs + i * L::LDP + j, dSlo + i * L::LDP + j, ds);
+      }
+      __syncthreads();
+      dkv_accumulate<D, BQ, L::LDP, L::LDQ, L::LDO>(Ps, dOs, dVs, warp);
+      dkv_accumulate<D, BQ, L::LDP, L::LDQ, L::LDO>(dSs, Qs, dKs, warp);
+      if constexpr (split_operand<T>()) {
+        dkv_accumulate<D, BQ, L::LDP, L::LDQ, L::LDO>(Plo, dOs, dVs, warp);
+        dkv_accumulate<D, BQ, L::LDP, L::LDQ, L::LDO>(dSlo, Qs, dKs, warp);
+      }
+    }
+  }
+  __syncthreads();
+
+  T* dk = static_cast<T*>(p.dk);
+  T* dv = static_cast<T*>(p.dv);
+  for (int e = threadIdx.x; e < kBK * D; e += kFwdThreads) {
+    const int kr = e / D, d = e % D;
+    const int kpos = ik * kBK + kr;
+    if (kpos >= p.T) continue;
+    const long long out = (((long long)b * p.T + kpos) * p.Hkv + hk) * D + d;
+    dk[out] = from_f32<T>(dKs[kr * L::LDO + d] * p.scale);
+    dv[out] = from_f32<T>(dVs[kr * L::LDO + d]);
+  }
+}
+
 #if SFC_ATTN_DTYPE == 1
 typedef bf16 ElemT;
 #else
 typedef float ElemT;
 #endif
 
-template <int D>
-int launch_fwd(const FwdParams& p, int nq, int bh, cudaStream_t s) {
-  constexpr size_t bytes = FwdSmem<ElemT, D>::BYTES;
-  static_assert(bytes <= 232448, "over the 227 KB a block may use");
-  // above 48 KB a launch is refused unless the kernel opts in, once per
-  // device (so no attribute call lands inside a CUDA graph capture)
-  static bool opted_in[kMaxDevices] = {};
+// Above 48 KB of dynamic shared memory a launch is refused unless the kernel
+// opts in; do it once per device (so no attribute call lands inside a CUDA
+// graph capture).  `done` is the caller's per-kernel flag array.
+template <typename Kernel>
+int opt_in(Kernel kernel, size_t bytes, bool* done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<ElemT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    opted_in[dev] = true;
+    done[dev] = true;
   }
+  return 0;
+}
+
+#if SFC_ATTN_PART == 0
+
+template <int D>
+int launch_fwd(const FwdParams& p, int nq, int bh, cudaStream_t s) {
+  constexpr size_t bytes = FwdSmem<ElemT, D>::BYTES;
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
+  static bool opted_in[kMaxDevices] = {};
+  const int rc = opt_in(flash_fwd_kernel<ElemT, D>, bytes, opted_in);
+  if (rc != 0) return rc;
   flash_fwd_kernel<ElemT, D><<<dim3((unsigned)nq, (unsigned)bh), kFwdThreads, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
@@ -471,6 +834,73 @@ int launch_decode(const DecodeParams& p, int batch, cudaStream_t s) {
   decode_kernel<ElemT, D><<<(unsigned)(batch * p.Hkv), D, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
+
+#else  // SFC_ATTN_PART == 1: the backward
+
+template <int D>
+int launch_dq(const BwdParams& p, int n_rows, int bh, cudaStream_t s) {
+  constexpr size_t bytes = DqSmem<ElemT, D>::BYTES;
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
+  static bool opted_in[kMaxDevices] = {};
+  const int rc = opt_in(flash_bwd_dq_kernel<ElemT, D>, bytes, opted_in);
+  if (rc != 0) return rc;
+  flash_bwd_dq_kernel<ElemT, D><<<dim3((unsigned)n_rows, (unsigned)bh), kFwdThreads, bytes, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(const BwdParams& p, int n_rows, int bh, cudaStream_t s) {
+  constexpr size_t bytes = DkvSmem<ElemT, D>::BYTES;
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
+  static bool opted_in[kMaxDevices] = {};
+  const int rc = opt_in(flash_bwd_dkv_kernel<ElemT, D>, bytes, opted_in);
+  if (rc != 0) return rc;
+  flash_bwd_dkv_kernel<ElemT, D><<<dim3((unsigned)n_rows, (unsigned)bh), kFwdThreads, bytes, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+BwdParams bwd_params(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                     const float* delta, void* dq, void* dk, void* dv, const int* tab_minor,
+                     const int* row_start, int H, int groups, int S, int T, int seq_q, int seq_k,
+                     int q_offset, int causal, const long long* strides, float scale) {
+  BwdParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.tab_minor = tab_minor;
+  p.row_start = row_start;
+  p.S = S;
+  p.T = T;
+  p.seq_q = seq_q;
+  p.seq_k = seq_k;
+  p.H = H;
+  p.Hkv = H / groups;
+  p.groups = groups;
+  p.q_offset = q_offset;
+  p.causal = causal;
+  p.q_sb = strides[0];
+  p.q_ss = strides[1];
+  p.q_sh = strides[2];
+  p.k_sb = strides[3];
+  p.k_ss = strides[4];
+  p.k_sh = strides[5];
+  p.v_sb = strides[6];
+  p.v_ss = strides[7];
+  p.v_sh = strides[8];
+  p.o_sb = strides[9];
+  p.o_ss = strides[10];
+  p.o_sh = strides[11];
+  p.scale = scale;
+  return p;
+}
+
+#endif  // SFC_ATTN_PART
 
 }  // namespace
 
@@ -542,7 +972,43 @@ int launch_decode(const DecodeParams& p, int batch, cudaStream_t s) {
     return launch_decode<D>(p, batch, static_cast<cudaStream_t>(stream));                      \
   }
 
+// Backward entries: dq over an (nq, batch * H) grid walking the q-major
+// band; dkv over an (nk, batch * Hkv) grid walking the k-major band.
+// strides: q, k, v, dO, each (batch, seq, head), in elements.
+#define SFC_DQ_ENTRY(D)                                                                         \
+  extern "C" int SFC_CAT(sfc_attn_dq_, SFC_ATTN_TAG, _d, D)(                                    \
+      const void* q, const void* k, const void* v, const void* dout, const float* lse,          \
+      const float* delta, void* dq, const int* tab_k, const int* row_start, int nq, int batch,  \
+      int H, int groups, int S, int T, int seq_q, int seq_k, int q_offset, int causal,          \
+      const long long* strides, float scale, void* stream) {                                    \
+    if (groups < 1 || H % groups != 0) return (int)cudaErrorInvalidValue;                       \
+    const BwdParams p = bwd_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, tab_k,      \
+                                   row_start, H, groups, S, T, seq_q, seq_k, q_offset, causal,  \
+                                   strides, scale);                                             \
+    return launch_dq<D>(p, nq, batch * H, static_cast<cudaStream_t>(stream));                   \
+  }
+
+#define SFC_DKV_ENTRY(D)                                                                        \
+  extern "C" int SFC_CAT(sfc_attn_dkv_, SFC_ATTN_TAG, _d, D)(                                   \
+      const void* q, const void* k, const void* v, const void* dout, const float* lse,          \
+      const float* delta, void* dk, void* dv, const int* tab_q, const int* row_start, int nk,   \
+      int batch, int H, int groups, int S, int T, int seq_q, int seq_k, int q_offset,           \
+      int causal, const long long* strides, float scale, void* stream) {                        \
+    if (groups < 1 || H % groups != 0) return (int)cudaErrorInvalidValue;                       \
+    const BwdParams p = bwd_params(q, k, v, dout, lse, delta, nullptr, dk, dv, tab_q,           \
+                                   row_start, H, groups, S, T, seq_q, seq_k, q_offset, causal,  \
+                                   strides, scale);                                             \
+    return launch_dkv<D>(p, nk, batch * (H / groups), static_cast<cudaStream_t>(stream));       \
+  }
+
+#if SFC_ATTN_PART == 0
 SFC_FWD_ENTRY(64)
 SFC_FWD_ENTRY(128)
 SFC_DECODE_ENTRY(64)
 SFC_DECODE_ENTRY(128)
+#else
+SFC_DQ_ENTRY(64)
+SFC_DQ_ENTRY(128)
+SFC_DKV_ENTRY(64)
+SFC_DKV_ENTRY(128)
+#endif

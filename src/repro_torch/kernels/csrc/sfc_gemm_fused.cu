@@ -39,7 +39,34 @@
 // Epilogue flags are template parameters.  One compilation unit holds one
 // (input type, GLU, activation) part, chosen by -DSFC_DTYPE / -DSFC_GLU /
 // -DSFC_ACT with its entry point named by -DSFC_ENTRY, so the build can run
-// the parts in parallel (`repro_torch/kernels/build.py`).
+// the parts in parallel (`repro_torch/kernels/build.py`).  The GLU parts also
+// take the training forward's `preact` mode (`_FusedSpec.preact_out`): both
+// biased pre-activations, A@B + bias and A@B_gate + gate_bias, flushed to two
+// outputs from the one traversal of A, with no activation.
+//
+// -DSFC_BWD=1 compiles, instead of the fused forward, the two backward
+// kernels of one input type (entries -DSFC_NT_ENTRY / -DSFC_TN_ENTRY):
+//
+// nt_kernel replaces `repro/kernels/sfc_gemm.py::sfc_gemm_nt` (`_nt_kernel`):
+//   C = A @ B^T (+ A2 @ B2^T), the dA of a projection (A = dC (M, N), B = the
+//   forward weight (K, N) as stored, so C is (M, K)).  One CTA per C tile in
+//   gilbert order, as the fused kernel; the B operand is a row slab of the
+//   untransposed weight, read by the tensor cores as a col_major WMMA
+//   matrix_b, so no transposed copy exists in HBM.  The dual form (the GLU's
+//   dg Wg^T + dh Wv^T) streams both operand pairs into one accumulator.
+// tn_kernel replaces `sfc_gemm_tn` (`_tn_kernel`) in its dW mode:
+//   C = A^T @ B (and C2 = A^T @ B2), the dW of a projection (A = the forward
+//   activations (M, K), B = dC (M, N), C is (K, N)).  The loop over the M
+//   token rows runs inside one CTA, so there are no atomics and the result is
+//   deterministic; the A panel is loaded as stored and read as a col_major
+//   matrix_a.  The dual form shares the A panel between two accumulators and
+//   two outputs (the GLU's dWv, dWg).  The TPU kernel's update flush (fused
+//   AdamW) and its ABFT lane are not ported.
+// What bounds them on the H100: the training step's 512 token rows make
+// every dA and dW a 2*512*K*N flop product over (512 + K)*N or (K + N)*512
+// inputs, tensor-core bound at the bf16 peak for every projection.  What
+// they leave on the table is the fused kernel's: no wgmma, no TMA, no
+// pipeline, and (TN) each CTA re-reads its A and B panels from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +84,15 @@
 #endif
 #ifndef SFC_ENTRY
 #define SFC_ENTRY sfc_gemm_fused_entry
+#endif
+#ifndef SFC_BWD  // 1: this part holds the NT / TN backward kernels instead
+#define SFC_BWD 0
+#endif
+#ifndef SFC_NT_ENTRY
+#define SFC_NT_ENTRY sfc_gemm_nt_entry
+#endif
+#ifndef SFC_TN_ENTRY
+#define SFC_TN_ENTRY sfc_gemm_tn_entry
 #endif
 
 namespace {
@@ -93,6 +129,7 @@ struct Params {
   const void* gbias;
   const void* res;
   void* out;
+  void* out_gate;  // preact mode: the gate pre-activation's output
   const int* tab;  // (2, n_tasks): row 0 = major (im), row 1 = minor (in)
   int n_tasks;
   int M, N, K;
@@ -295,8 +332,17 @@ __device__ __forceinline__ void mainloop(const Params& p, const float* A, const 
   }
 }
 
-template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES>
+#if SFC_DTYPE == 1
+typedef bf16 ElemT;
+#else
+typedef float ElemT;
+#endif
+
+#if !SFC_BWD
+
+template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT>
 __global__ void __launch_bounds__(kThreads) sfc_gemm_fused_kernel(const Params p) {
+  static_assert(!PREACT || (GLU && !SCALE && !RES), "preact flushes the two biased pre-activations");
   constexpr int A_ELEMS = kBM * Cfg<T>::LDA;
   constexpr int B_ELEMS = Cfg<T>::BK * Cfg<T>::LDB;
   constexpr int OPERAND_BYTES = (A_ELEMS + B_ELEMS * (GLU ? 2 : 1)) * (int)sizeof(T);
@@ -327,6 +373,7 @@ __global__ void __launch_bounds__(kThreads) sfc_gemm_fused_kernel(const Params p
   const T* gbias = static_cast<const T*>(p.gbias);
   const T* res = static_cast<const T*>(p.res) + (RES ? c_off : 0);
   T* out = static_cast<T*>(p.out) + c_off;
+  T* out_gate = static_cast<T*>(p.out_gate) + (PREACT ? c_off : 0);
   for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
     const int r = i / kBN, c = i % kBN;
     const int gr = row0 + r, gc = col0 + c;
@@ -337,7 +384,12 @@ __global__ void __launch_bounds__(kThreads) sfc_gemm_fused_kernel(const Params p
     if constexpr (GLU) {
       float g = Cgs[r * kLDC + c];
       if constexpr (GBIAS) g += to_f32(gbias[gc]);
-      y = activate<ACT>(g) * v;
+      if constexpr (PREACT) {
+        out_gate[(size_t)gr * p.N + gc] = from_f32<T>(g);
+        y = v;
+      } else {
+        y = activate<ACT>(g) * v;
+      }
     } else {
       y = activate<ACT>(v);
     }
@@ -347,15 +399,9 @@ __global__ void __launch_bounds__(kThreads) sfc_gemm_fused_kernel(const Params p
   }
 }
 
-#if SFC_DTYPE == 1
-typedef bf16 ElemT;
-#else
-typedef float ElemT;
-#endif
-
-template <bool BIAS, bool GBIAS, bool SCALE, bool RES>
+template <bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT = false>
 void launch(const Params& p, dim3 grid, cudaStream_t s) {
-  sfc_gemm_fused_kernel<ElemT, SFC_GLU != 0, SFC_ACT, BIAS, GBIAS, SCALE, RES>
+  sfc_gemm_fused_kernel<ElemT, SFC_GLU != 0, SFC_ACT, BIAS, GBIAS, SCALE, RES, PREACT>
       <<<grid, kThreads, 0, s>>>(p);
 }
 
@@ -369,6 +415,12 @@ void launch_res(const Params& p, dim3 grid, cudaStream_t s) {
 
 template <bool BIAS, bool GBIAS>
 void launch_scale(const Params& p, bool scale, dim3 grid, cudaStream_t s) {
+#if SFC_GLU
+  if (p.out_gate) {  // preact: the entry has refused a scale and a residual
+    launch<BIAS, GBIAS, false, false, true>(p, grid, s);
+    return;
+  }
+#endif
   if (scale)
     launch_res<BIAS, GBIAS, true>(p, grid, s);
   else
@@ -386,18 +438,361 @@ void launch_gbias(const Params& p, bool scale, dim3 grid, cudaStream_t s) {
   launch_scale<BIAS, false>(p, scale, grid, s);
 }
 
+#else  // SFC_BWD
+
+struct BwdParams {
+  const void* a;
+  const void* b;
+  const void* a2;  // NT dual: second addend's A (else null)
+  const void* b2;  // NT / TN dual: second B (else null)
+  void* out;
+  void* out2;      // TN dual: second output
+  const int* tab;  // (2, n_tasks) gilbert table over the (R, C) output tiles
+  int n_tasks;
+  int R, C, D;     // output rows, output cols, contraction length
+  int vec_a, vec_b;
+};
+
+// Shared-memory strides of the NT operand tiles (64 output rows or cols x
+// BK contraction) and of the TN ones (BK contraction rows x 64).
+template <typename T>
+struct NtCfg {
+  static constexpr int BK = Cfg<T>::BK;
+  static constexpr int LD = BK + 16 / (int)sizeof(T);
+};
+template <typename T>
+struct TnCfg {
+  static constexpr int BK = Cfg<T>::BK;
+  static constexpr int LD = kBM + 16 / (int)sizeof(T);
+};
+
+// NT, bf16: 4 warps in a 2 x 2 grid of 32 x 32 quarters.  Both tiles are
+// stored (64, BK) row-major; the B tile read as col_major is B^T.
+template <bool DUAL>
+__device__ __forceinline__ void nt_mainloop(const BwdParams& p, int row0, int col0, bf16* As, bf16* Bs,
+                                            bf16* A2s, bf16* B2s, float* Cs) {
+  using namespace nvcuda;
+  constexpr int BK = NtCfg<bf16>::BK, LD = NtCfg<bf16>::LD;
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const bf16* A = static_cast<const bf16*>(p.a);
+  const bf16* B = static_cast<const bf16*>(p.b);
+  const bf16* A2 = static_cast<const bf16*>(p.a2);
+  const bf16* B2 = static_cast<const bf16*>(p.b2);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  }
+  for (int k0 = 0; k0 < p.D; k0 += BK) {
+    __syncthreads();
+    load_tile<bf16, kBM, BK, LD>(As, A, p.D, row0, k0, p.R, p.D, p.vec_a);
+    load_tile<bf16, kBN, BK, LD>(Bs, B, p.D, col0, k0, p.C, p.D, p.vec_b);
+    if constexpr (DUAL) {
+      load_tile<bf16, kBM, BK, LD>(A2s, A2, p.D, row0, k0, p.R, p.D, p.vec_a);
+      load_tile<bf16, kBN, BK, LD>(B2s, B2, p.D, col0, k0, p.C, p.D, p.vec_b);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int pass = 0; pass < (DUAL ? 2 : 1); ++pass) {
+      const bf16* as = pass ? A2s : As;
+      const bf16* bs = pass ? B2s : Bs;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], as + (wm * 32 + i * 16) * LD + kk, LD);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], bs + (wn * 32 + j * 16) * LD + kk, LD);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // Cs aliases the operand tiles
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kLDC + wn * 32 + j * 16, acc[i][j], kLDC,
+                              wmma::mem_row_major);
+    }
+  }
+}
+
+// NT, f32: SIMT FMAs in full f32; threads form an 8 (cols) x 16 (rows) grid,
+// each owning 4 rows x 8 cols of the C tile.
+template <bool DUAL>
+__device__ __forceinline__ void nt_mainloop(const BwdParams& p, int row0, int col0, float* As, float* Bs,
+                                            float* A2s, float* B2s, float* Cs) {
+  constexpr int BK = NtCfg<float>::BK, LD = NtCfg<float>::LD;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const float* A = static_cast<const float*>(p.a);
+  const float* B = static_cast<const float*>(p.b);
+  const float* A2 = static_cast<const float*>(p.a2);
+  const float* B2 = static_cast<const float*>(p.b2);
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  for (int k0 = 0; k0 < p.D; k0 += BK) {
+    __syncthreads();
+    load_tile<float, kBM, BK, LD>(As, A, p.D, row0, k0, p.R, p.D, p.vec_a);
+    load_tile<float, kBN, BK, LD>(Bs, B, p.D, col0, k0, p.C, p.D, p.vec_b);
+    if constexpr (DUAL) {
+      load_tile<float, kBM, BK, LD>(A2s, A2, p.D, row0, k0, p.R, p.D, p.vec_a);
+      load_tile<float, kBN, BK, LD>(B2s, B2, p.D, col0, k0, p.C, p.D, p.vec_b);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int pass = 0; pass < (DUAL ? 2 : 1); ++pass) {
+      const float* as = pass ? A2s : As;
+      const float* bs = pass ? B2s : Bs;
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[4], b[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = as[(ty * 4 + i) * LD + kk];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = bs[(tx * 8 + j) * LD + kk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) Cs[(ty * 4 + i) * kLDC + tx * 8 + j] = acc[i][j];
+  }
+}
+
+// TN, bf16: the (BK, 64) A panel read as col_major is the A^T slab; B and
+// B2 are (BK, 64) row-major slabs of dC.
+template <bool DUAL>
+__device__ __forceinline__ void tn_mainloop(const BwdParams& p, int row0, int col0, bf16* As, bf16* Bs,
+                                            bf16* B2s, float* Cs, float* C2s) {
+  using namespace nvcuda;
+  constexpr int BK = TnCfg<bf16>::BK, LD = TnCfg<bf16>::LD;
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const bf16* A = static_cast<const bf16*>(p.a);
+  const bf16* B = static_cast<const bf16*>(p.b);
+  const bf16* B2 = static_cast<const bf16*>(p.b2);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc2[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::fill_fragment(acc[i][j], 0.0f);
+      if constexpr (DUAL) wmma::fill_fragment(acc2[i][j], 0.0f);
+    }
+  }
+  for (int m0 = 0; m0 < p.D; m0 += BK) {
+    __syncthreads();
+    load_tile<bf16, BK, kBM, LD>(As, A, p.R, m0, row0, p.D, p.R, p.vec_a);
+    load_tile<bf16, BK, kBN, LD>(Bs, B, p.C, m0, col0, p.D, p.C, p.vec_b);
+    if constexpr (DUAL) load_tile<bf16, BK, kBN, LD>(B2s, B2, p.C, m0, col0, p.D, p.C, p.vec_b);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], As + kk * LD + wm * 32 + i * 16, LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], Bs + kk * LD + wn * 32 + j * 16, LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+      }
+      if constexpr (DUAL) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], B2s + kk * LD + wn * 32 + j * 16, LD);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc2[i][j], af[i], bf[j], acc2[i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // Cs/C2s alias the operand tiles
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int off = (wm * 32 + i * 16) * kLDC + wn * 32 + j * 16;
+      wmma::store_matrix_sync(Cs + off, acc[i][j], kLDC, wmma::mem_row_major);
+      if constexpr (DUAL) wmma::store_matrix_sync(C2s + off, acc2[i][j], kLDC, wmma::mem_row_major);
+    }
+  }
+}
+
+// TN, f32: SIMT; a thread owns 4 rows x 8 cols of the C tile (and of C2).
+template <bool DUAL>
+__device__ __forceinline__ void tn_mainloop(const BwdParams& p, int row0, int col0, float* As, float* Bs,
+                                            float* B2s, float* Cs, float* C2s) {
+  constexpr int BK = TnCfg<float>::BK, LD = TnCfg<float>::LD;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const float* A = static_cast<const float*>(p.a);
+  const float* B = static_cast<const float*>(p.b);
+  const float* B2 = static_cast<const float*>(p.b2);
+  float acc[4][8];
+  float acc2[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[i][j] = 0.0f;
+      acc2[i][j] = 0.0f;
+    }
+  }
+  for (int m0 = 0; m0 < p.D; m0 += BK) {
+    __syncthreads();
+    load_tile<float, BK, kBM, LD>(As, A, p.R, m0, row0, p.D, p.R, p.vec_a);
+    load_tile<float, BK, kBN, LD>(Bs, B, p.C, m0, col0, p.D, p.C, p.vec_b);
+    if constexpr (DUAL) load_tile<float, BK, kBN, LD>(B2s, B2, p.C, m0, col0, p.D, p.C, p.vec_b);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk * LD + ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = Bs[kk * LD + tx * 8 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      if constexpr (DUAL) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = B2s[kk * LD + tx * 8 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc2[i][j] = fmaf(a[i], b[j], acc2[i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      Cs[(ty * 4 + i) * kLDC + tx * 8 + j] = acc[i][j];
+      if constexpr (DUAL) C2s[(ty * 4 + i) * kLDC + tx * 8 + j] = acc2[i][j];
+    }
+  }
+}
+
+// Coalesced flush of one f32 C tile (in shared memory) into an (R, C)
+// row-major output, masked at the ragged edge: one rounding to T.
+template <typename T>
+__device__ __forceinline__ void flush_tile(const float* Cs, T* out, int row0, int col0, int R, int C) {
+  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
+    const int r = i / kBN, c = i % kBN;
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr < R && gc < C) out[(size_t)gr * C + gc] = from_f32<T>(Cs[r * kLDC + c]);
+  }
+}
+
+template <typename T, bool DUAL>
+__global__ void __launch_bounds__(kThreads) nt_kernel(const BwdParams p) {
+  constexpr int TILE = kBM * NtCfg<T>::LD;
+  constexpr int OPERAND_BYTES = TILE * (DUAL ? 4 : 2) * (int)sizeof(T);
+  constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float);
+  constexpr int SMEM_BYTES = OPERAND_BYTES > EPI_BYTES ? OPERAND_BYTES : EPI_BYTES;
+  static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory is capped at 48 KB");
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + TILE;
+  T* A2s = Bs + TILE;
+  T* B2s = A2s + TILE;
+  float* Cs = reinterpret_cast<float*>(smem);
+  const int t = blockIdx.x;
+  const int row0 = __ldg(p.tab + t) * kBM;
+  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;
+  nt_mainloop<DUAL>(p, row0, col0, As, Bs, A2s, B2s, Cs);
+  __syncthreads();
+  flush_tile<T>(Cs, static_cast<T*>(p.out), row0, col0, p.R, p.C);
+}
+
+template <typename T, bool DUAL>
+__global__ void __launch_bounds__(kThreads) tn_kernel(const BwdParams p) {
+  constexpr int TILE = TnCfg<T>::BK * TnCfg<T>::LD;
+  constexpr int OPERAND_BYTES = TILE * (DUAL ? 3 : 2) * (int)sizeof(T);
+  constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float) * (DUAL ? 2 : 1);
+  constexpr int SMEM_BYTES = OPERAND_BYTES > EPI_BYTES ? OPERAND_BYTES : EPI_BYTES;
+  static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory is capped at 48 KB");
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + TILE;
+  T* B2s = Bs + TILE;
+  float* Cs = reinterpret_cast<float*>(smem);
+  float* C2s = Cs + kBM * kLDC;
+  const int t = blockIdx.x;
+  const int row0 = __ldg(p.tab + t) * kBM;
+  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;
+  tn_mainloop<DUAL>(p, row0, col0, As, Bs, B2s, Cs, C2s);
+  __syncthreads();
+  flush_tile<T>(Cs, static_cast<T*>(p.out), row0, col0, p.R, p.C);
+  if constexpr (DUAL) flush_tile<T>(C2s, static_cast<T*>(p.out2), row0, col0, p.R, p.C);
+}
+
+BwdParams bwd_params(const void* a, const void* b, const void* a2, const void* b2, void* out, void* out2,
+                     const int* tab, int n_tasks, int R, int C, int D, int vec_a, int vec_b) {
+  BwdParams p;
+  p.a = a;
+  p.b = b;
+  p.a2 = a2;
+  p.b2 = b2;
+  p.out = out;
+  p.out2 = out2;
+  p.tab = tab;
+  p.n_tasks = n_tasks;
+  p.R = R;
+  p.C = C;
+  p.D = D;
+  p.vec_a = vec_a;
+  p.vec_b = vec_b;
+  return p;
+}
+
+#endif  // SFC_BWD
+
 }  // namespace
 
+#if !SFC_BWD
+
 // One launch of the fused kernel over a (n_tasks, batch) grid.  Pointers
-// that are null switch their epilogue term off.  Returns cudaGetLastError()
-// after the launch, so a refused launch reaches the caller.
+// that are null switch their epilogue term off; a non-null out_gate selects
+// the preact mode (GLU parts only, no scale or residual).  Returns
+// cudaGetLastError() after the launch, so a refused launch reaches the
+// caller.
 extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
-                         const void* gate_bias, const void* residual, void* out, const int* tab,
-                         int n_tasks, int batch, int M, int N, int K, long long a_bstride,
-                         long long b_bstride, int has_scale, float out_scale, int vec_a,
-                         int vec_b, void* stream) {
+                         const void* gate_bias, const void* residual, void* out, void* out_gate,
+                         const int* tab, int n_tasks, int batch, int M, int N, int K,
+                         long long a_bstride, long long b_bstride, int has_scale, float out_scale,
+                         int vec_a, int vec_b, void* stream) {
   if ((SFC_GLU != 0) != (b_gate != nullptr)) return (int)cudaErrorInvalidValue;
   if (!SFC_GLU && gate_bias != nullptr) return (int)cudaErrorInvalidValue;
+  if (out_gate != nullptr && (!SFC_GLU || residual != nullptr || has_scale)) return (int)cudaErrorInvalidValue;
   Params p;
   p.a = a;
   p.b = b;
@@ -406,6 +801,7 @@ extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const
   p.gbias = gate_bias;
   p.res = residual;
   p.out = out;
+  p.out_gate = out_gate;
   p.tab = tab;
   p.n_tasks = n_tasks;
   p.M = M;
@@ -424,3 +820,37 @@ extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const
     launch_gbias<false>(p, has_scale != 0, grid, s);
   return (int)cudaGetLastError();
 }
+
+#else  // SFC_BWD
+
+// NT: out (R, C) = a (R, D) @ b (C, D)^T [+ a2 @ b2^T when a2 is non-null],
+// one CTA per task of the gilbert table over the output tiles.
+extern "C" int SFC_NT_ENTRY(const void* a, const void* b, const void* a2, const void* b2, void* out,
+                            const int* tab, int n_tasks, int R, int C, int D, int vec_a, int vec_b,
+                            void* stream) {
+  if ((a2 == nullptr) != (b2 == nullptr)) return (int)cudaErrorInvalidValue;
+  const BwdParams p = bwd_params(a, b, a2, b2, out, nullptr, tab, n_tasks, R, C, D, vec_a, vec_b);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a2)
+    nt_kernel<ElemT, true><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
+  else
+    nt_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// TN: out (R, C) = a (D, R)^T @ b (D, C) [and out2 = a^T @ b2 when b2 is
+// non-null], the contraction over the D rows inside each CTA.
+extern "C" int SFC_TN_ENTRY(const void* a, const void* b, const void* b2, void* out, void* out2,
+                            const int* tab, int n_tasks, int R, int C, int D, int vec_a, int vec_b,
+                            void* stream) {
+  if ((b2 == nullptr) != (out2 == nullptr)) return (int)cudaErrorInvalidValue;
+  const BwdParams p = bwd_params(a, b, nullptr, b2, out, out2, tab, n_tasks, R, C, D, vec_a, vec_b);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b2)
+    tn_kernel<ElemT, true><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
+  else
+    tn_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+#endif  // SFC_BWD

@@ -1,5 +1,6 @@
-"""Public wrappers around the SFC fused-GEMM kernel (the port's
-``repro.kernels.ops`` forward half).
+"""Public wrappers around the SFC GEMM kernels (the port's
+``repro.kernels.ops``: the forward, the NT/TN backward entry points and the
+custom VJP that joins them).
 
 `sfc_matmul` accepts ``(M, K) @ (K, N)``, ``(..., M, K) @ (K, N)`` (shared
 weights) and ``(..., M, K) @ (..., K, N)``, validates the operands and the
@@ -15,23 +16,42 @@ on the card they are the kernel's compiled tile, and the K loop runs inside
 one CTA, so the fused plan always fits (no VMEM budget, no replicated
 fallback).
 
+Training.  When grad mode is on and an input needs a gradient,
+`sfc_matmul` and `sfc_glu_matmul` run through `_MatmulCore`, a
+``torch.autograd.Function`` (JAX: ``_matmul_core``'s custom VJP).  Its
+forward is JAX's training forward: a linear epilogue is the one fused
+launch; an activation is a linear launch, then the activation in f32; a GLU
+is one ``preact`` launch (both biased pre-activations), then ``act(g)·h``
+in f32.  Its backward computes the f32 epilogue cotangents
+(`_epilogue_cotangents`), casts them to the compute type, and launches the
+NT kernel for dA (`sfc_matmul_nt`, dual for the GLU) and the TN kernel for
+dW (`sfc_matmul_tn`, dual for the GLU); bias gradients are sums, the
+residual's passes straight through.  Under ``torch.no_grad`` (serving) the
+calls keep the single fused launch with the activation in the flush.  On
+CPU tensors every launch is its kernel's plain version, so the CPU runs the
+same NT/TN structure as the card.
+
 Not ported in this slice, each raising ``NotImplementedError``: the
-replicated 2.5D form (``fuse=False``, ROADMAP queue 2 K4-K6), the training
-forward's ``preact`` output (queue 1 item 9) and the ABFT checksum lane
-(queue 1 item 14).
+replicated 2.5D form (``fuse=False``, ROADMAP queue 2 K4-K6) and the ABFT
+checksum lane (queue 1 item 14).  The backward has no fallback ladder
+(item 14): a kernel that fails raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.sfc_gemm import kernel_tile, sfc_gemm_fused
+from repro_torch.kernels.sfc_gemm import activation_fn, kernel_tile, sfc_gemm_fused, sfc_gemm_nt, sfc_gemm_tn
 
 __all__ = [
     "sfc_matmul",
     "sfc_glu_matmul",
+    "sfc_matmul_nt",
+    "sfc_matmul_tn",
     "pick_blocks",
     "resolve_knobs",
     "reference_knobs",
@@ -89,6 +109,11 @@ def reference_knobs(m: int, n: int, k: int) -> Tuple[int, int, int, int, int]:
     return bm, bn, bk, 1, 1
 
 
+def _no_abft(abft: Optional[str]) -> None:
+    if abft not in (None, "off"):
+        raise NotImplementedError("the ABFT checksum lane is not ported: ROADMAP queue 1 item 14")
+
+
 def _matmul_impl(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -112,14 +137,7 @@ def _matmul_impl(
         raise NotImplementedError(
             "the replicated 2.5D form (fuse=False) is not ported: ROADMAP queue 2, K4-K6"
         )
-    if preact:
-        raise NotImplementedError(
-            "preact (the training forward's GLU pre-activations) is not ported: ROADMAP queue 1 item 9"
-        )
-    if abft not in (None, "off"):
-        raise NotImplementedError(
-            "the ABFT checksum lane is not ported: ROADMAP queue 1 item 14"
-        )
+    _no_abft(abft)
     if a.ndim < 2 or b.ndim < 2:
         raise ValueError(f"sfc_matmul needs matrices, got {tuple(a.shape)} @ {tuple(b.shape)}")
 
@@ -150,7 +168,7 @@ def _matmul_impl(
     )
     kw = dict(
         activation=activation, out_scale=out_scale, bm=bm, bn=bn,
-        k_layers=k_layers, k_block_factor=k_block_factor, out_dtype=out_dtype,
+        k_layers=k_layers, k_block_factor=k_block_factor, out_dtype=out_dtype, preact=preact,
     )
     gate = None if b_gate is None else b_gate.contiguous()
     vecs = [None if v is None else v.contiguous() for v in (bias, gate_bias)]
@@ -159,14 +177,216 @@ def _matmul_impl(
         return sfc_gemm_fused(a.contiguous(), b.contiguous(), gate, *vecs, res, **kw)
 
     # fold leading dims into one batch axis for the kernel grid
-    bsz = 1
-    for d in lead:
-        bsz *= d
+    bsz = math.prod(lead)
     a3 = a.reshape(bsz, m, k).contiguous()
     b3 = b.reshape(bsz, k, n).contiguous() if b_batched else b.contiguous()
     res3 = None if residual is None else residual.reshape(bsz, m, n).contiguous()
     out = sfc_gemm_fused(a3, b3, gate, *vecs, res3, **kw)
+    if preact:
+        return tuple(o.reshape(*lead, m, n) for o in out)
     return out.reshape(*lead, m, n)
+
+
+# ---------------------------------------------------------------------------
+# backward (NT / TN) entry points
+# ---------------------------------------------------------------------------
+
+
+def sfc_matmul_nt(
+    a: torch.Tensor,  # (..., M, K)
+    b: torch.Tensor,  # (N, K): consumed as bᵀ, no transposed copy
+    a2: Optional[torch.Tensor] = None,  # (..., M, K) second addend
+    b2: Optional[torch.Tensor] = None,  # (N, K)
+    *,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    k_layers: Optional[int] = None,
+    k_block_factor: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    abft: Optional[str] = None,
+) -> torch.Tensor:
+    """C = A @ Bᵀ (+ A2 @ B2ᵀ) through the SFC NT kernel: the dA backward
+    GEMM (``dA = dC @ Wᵀ``; the dual form is the GLU's ``dg·Wgᵀ + dh·Wvᵀ``
+    in one traversal).  Leading batch dims of ``a`` fold into M (the (N, K)
+    operand is shared); ragged shapes are masked by the kernel and clipped
+    by its plain version, not padded.  Knobs resolve as `resolve_knobs`
+    does for the forward."""
+    _no_abft(abft)
+    if a.ndim < 2 or b.ndim != 2 or a.shape[-1] != b.shape[-1]:
+        raise ValueError(f"sfc_matmul_nt needs a (..., M, K) and b (N, K); got {tuple(a.shape)}, {tuple(b.shape)}")
+    if (a2 is None) != (b2 is None) or (a2 is not None and tuple(a2.shape) != tuple(a.shape)):
+        raise ValueError("the dual form needs a2 shaped like a and b2 shaped like b")
+    lead = tuple(a.shape[:-2])
+    a2d = a.reshape(-1, a.shape[-1]).contiguous()
+    a22d = None if a2 is None else a2.reshape(-1, a2.shape[-1]).contiguous()
+    m, k = a2d.shape
+    n = b.shape[0]
+    bm, bn, kl, kbf = resolve_knobs(m, n, k, a.device, bm=bm, bn=bn, k_layers=k_layers,
+                                    k_block_factor=k_block_factor)
+    out = sfc_gemm_nt(a2d, b.contiguous(), a22d, None if b2 is None else b2.contiguous(),
+                      bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf, out_dtype=out_dtype)
+    return out.reshape(*lead, a.shape[-2], n)
+
+
+def sfc_matmul_tn(
+    a: torch.Tensor,  # (..., M, K): consumed as aᵀ, no transposed copy
+    b: torch.Tensor,  # (..., M, N)
+    b2: Optional[torch.Tensor] = None,  # (..., M, N) second operand
+    *,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    k_layers: Optional[int] = None,
+    k_block_factor: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    abft: Optional[str] = None,
+):
+    """C = Aᵀ @ B (and Aᵀ @ B2) through the SFC TN kernel: the dW backward
+    GEMM (``dW = Aᵀ @ dC``); with ``b2`` one traversal of the activations
+    flushes both weight grads (the GLU's dWv, dWg pair).  Leading batch
+    dims fold into the contraction (the weight grad sums over them).
+    Returns (K, N), or a pair with ``b2``."""
+    _no_abft(abft)
+    a2d = a.reshape(-1, a.shape[-1]).contiguous()
+    b2d = b.reshape(-1, b.shape[-1]).contiguous()
+    b22d = None if b2 is None else b2.reshape(-1, b2.shape[-1]).contiguous()
+    m, k = a2d.shape
+    if b2d.shape[0] != m or (b22d is not None and b22d.shape != b2d.shape):
+        raise ValueError(f"sfc_matmul_tn row mismatch: {tuple(a.shape)}, {tuple(b.shape)}")
+    n = b2d.shape[1]
+    # the output is (K, N); the contraction runs over M
+    bm, bn, kl, kbf = resolve_knobs(k, n, m, a.device, bm=bm, bn=bn, k_layers=k_layers,
+                                    k_block_factor=k_block_factor)
+    return sfc_gemm_tn(a2d, b2d, b22d, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the custom VJP: the backward pass is itself SFC GEMMs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _VjpCfg:
+    glu: bool
+    activation: Optional[str]
+    out_scale: Optional[float]
+    bm: Optional[int]
+    bn: Optional[int]
+    k_layers: Optional[int]
+    k_block_factor: Optional[int]
+    out_dtype: Optional[torch.dtype]
+    fuse: Optional[bool]
+    abft: Optional[str] = None
+
+
+def _activation_grad(name: str, x: torch.Tensor) -> torch.Tensor:
+    """d act / dx in f32, for the activations of `activation_fn`."""
+    if name == "silu":
+        s = torch.sigmoid(x)
+        return s + x * s * (1.0 - s)
+    if name == "gelu":  # the tanh form
+        c = math.sqrt(2.0 / math.pi)
+        t = torch.tanh(c * (x + 0.044715 * x**3))
+        return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * c * (1.0 + 3.0 * 0.044715 * x * x)
+    if name == "relu":
+        return (x > 0).to(x.dtype)
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def _epilogue_cotangents(glu, activation, out_scale, h_pre, g_pre, dy):
+    """(dh, dg) f32 cotangents of the biased pre-activations given dy: the
+    epilogue-derivative prelude of the backward."""
+    dyf = dy.float()
+    if out_scale is not None:
+        dyf = dyf * out_scale
+    if glu:
+        g = g_pre.float()
+        dh = dyf * activation_fn(activation)(g)
+        dg = dyf * h_pre.float() * _activation_grad(activation, g)
+    elif activation is not None:
+        dh, dg = dyf * _activation_grad(activation, h_pre.float()), None
+    else:
+        dh, dg = dyf, None
+    return dh, dg
+
+
+class _MatmulCore(torch.autograd.Function):
+    """``_matmul_core`` of the JAX package: the training forward on the
+    forward kernel, the backward on the NT/TN kernels."""
+
+    @staticmethod
+    def forward(ctx, cfg: _VjpCfg, a, b, b_gate, bias, gate_bias, residual):
+        out_dtype = cfg.out_dtype or a.dtype
+        kw = dict(bm=cfg.bm, bn=cfg.bn, k_layers=cfg.k_layers, k_block_factor=cfg.k_block_factor,
+                  fuse=cfg.fuse, abft=cfg.abft)
+        h_pre = g_pre = None
+        if cfg.glu:
+            h_pre, g_pre = _matmul_impl(a, b, b_gate, bias=bias, gate_bias=gate_bias, residual=None,
+                                        activation=None, out_scale=None, out_dtype=None, preact=True, **kw)
+            y = activation_fn(cfg.activation)(g_pre.float()) * h_pre.float()
+        elif cfg.activation is not None:
+            h_pre = _matmul_impl(a, b, None, bias=bias, gate_bias=None, residual=None,
+                                 activation=None, out_scale=None, out_dtype=None, **kw)
+            y = activation_fn(cfg.activation)(h_pre.float())
+        else:
+            # linear epilogue: the fully fused path is the training forward too
+            out = _matmul_impl(a, b, None, bias=bias, gate_bias=None, residual=residual,
+                               activation=None, out_scale=cfg.out_scale, out_dtype=cfg.out_dtype, **kw)
+            y = None
+        if y is not None:
+            if cfg.out_scale is not None:
+                y = y * cfg.out_scale
+            if residual is not None:
+                y = y + residual.float()
+            out = y.to(out_dtype)
+        ctx.cfg = cfg
+        ctx.res_dtype = None if residual is None else residual.dtype
+        ctx.save_for_backward(a, b, b_gate, h_pre, g_pre, bias, gate_bias)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, b_gate, h_pre, g_pre, bias, gate_bias = ctx.saved_tensors
+        cfg = ctx.cfg
+        need_a, need_b, need_bg = ctx.needs_input_grad[1:4]
+        dh, dg = _epilogue_cotangents(cfg.glu, cfg.activation, cfg.out_scale, h_pre, g_pre, dy)
+        cdt = a.dtype  # the backward kernels run in the forward's compute type
+        dh_c = dh.to(cdt)
+        dg_c = None if dg is None else dg.to(cdt)
+        da = db = dbg = None
+        if b.ndim > 2:
+            # per-batch weights (no model call site; the forward refuses a
+            # GLU): the forward kernel on transposed copies, as in JAX
+            if need_a:
+                da = sfc_matmul(dh_c, b.transpose(-1, -2))
+            if need_b:
+                db = sfc_matmul(a.transpose(-1, -2), dh_c)
+        else:
+            if need_a:
+                da = sfc_matmul_nt(dh_c, b, dg_c, b_gate if dg_c is not None else None)
+            if need_b or need_bg:
+                n = b.shape[-1]
+                a2d = a.reshape(-1, a.shape[-1])
+                if dg_c is not None:
+                    db, dbg = sfc_matmul_tn(a2d, dh_c.reshape(-1, n), dg_c.reshape(-1, n))
+                else:
+                    db = sfc_matmul_tn(a2d, dh_c.reshape(-1, n))
+        lead_axes = tuple(range(dh.ndim - 1))
+        dbias = None if bias is None else dh.sum(dim=lead_axes).reshape(bias.shape).to(bias.dtype)
+        dgbias = None if gate_bias is None else dg.sum(dim=lead_axes).reshape(gate_bias.shape).to(gate_bias.dtype)
+        dres = None if ctx.res_dtype is None else dy.to(ctx.res_dtype)
+        return (
+            None,
+            None if da is None else da.to(a.dtype),
+            None if db is None else db.to(b.dtype),
+            None if dbg is None else dbg.to(b_gate.dtype),
+            dbias,
+            dgbias,
+            dres,
+        )
+
+
+def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def sfc_matmul(
@@ -193,7 +413,13 @@ def sfc_matmul(
     (N,), ``activation`` in {"silu", "gelu", "relu"}, ``out_scale`` (a
     Python float) and ``residual`` (..., M, N) — runs in the kernel's flush:
     ``C = act(A@B + bias) * out_scale + residual`` on the f32 accumulator.
+    Differentiable: with an input that needs a gradient it runs through
+    `_MatmulCore` (the NT/TN kernels in the backward).
     """
+    if _needs_grad(a, b, bias, residual):
+        cfg = _VjpCfg(glu=False, activation=activation, out_scale=out_scale, bm=bm, bn=bn, k_layers=k_layers,
+                      k_block_factor=k_block_factor, out_dtype=out_dtype, fuse=fuse, abft=abft)
+        return _MatmulCore.apply(cfg, a, b, None, bias, None, residual)
     return _matmul_impl(
         a, b, None,
         bias=bias, gate_bias=None, residual=residual,
@@ -223,7 +449,14 @@ def sfc_glu_matmul(
 ) -> torch.Tensor:
     """Gated-MLP projection ``act(A@Wg + gate_bias) * (A@Wv + bias)`` in one
     SFC traversal of A (dual-B kernel: two weight panels, two f32
-    accumulators, one C write).  Weights are shared 2-D (K, N)."""
+    accumulators, one C write).  Weights are shared 2-D (K, N).
+    Differentiable as `sfc_matmul` is; the forward then flushes both
+    pre-activations (``preact``) and the backward runs the dual NT/TN
+    forms."""
+    if _needs_grad(a, b_gate, b_val, bias, gate_bias, residual):
+        cfg = _VjpCfg(glu=True, activation=activation, out_scale=out_scale, bm=bm, bn=bn, k_layers=k_layers,
+                      k_block_factor=k_block_factor, out_dtype=out_dtype, fuse=fuse, abft=abft)
+        return _MatmulCore.apply(cfg, a, b_val, b_gate, bias, gate_bias, residual)
     return _matmul_impl(
         a, b_val, b_gate,
         bias=bias, gate_bias=gate_bias, residual=residual,

@@ -1,27 +1,34 @@
-"""SFC-scheduled attention, forward half: the CUDA ports of the TPU kernels
-``repro.kernels.sfc_attention.sfc_flash_fwd`` (K11) and
+"""SFC-scheduled attention: the CUDA ports of the TPU kernels
+``repro.kernels.sfc_attention.sfc_flash_fwd`` (K11),
+``sfc_flash_bwd_dq`` (K12), ``sfc_flash_bwd_dkv`` (K13) and
 ``sfc_decode_attention_pallas`` (K14), each beside its plain PyTorch
 version.
 
 ``sfc_flash_fwd`` is the band-table online-softmax flash forward: it walks
 the (q, k) tile pairs of the causal band in the serpentine order that
 ``core.schedule.attention_spec`` compiles and returns the output and the
-per-row logsumexp.  ``sfc_decode_attention`` is one launch for a whole
+per-row logsumexp.  ``sfc_flash_bwd_dq`` and ``sfc_flash_bwd_dkv`` are its
+backward: from the forward's lse and ``delta = rowsum(dO ⊙ O)`` they
+recompute the probabilities per tile and return dQ over the q-major band
+and (dK, dV) over the k-major band, the GQA group innermost.
+``sfc_decode_attention`` is one launch for a whole
 decode step: one program per (batch, kv head), the kv head's GQA group as
 its rows, and a chunk loop bounded by each sequence's live cache length.
 
-Both take the model's layout (q (B, S, H, D), k/v (B, T, Hkv, D)), resolve
+All take the model's layout (q (B, S, H, D), k/v (B, T, Hkv, D)), resolve
 GQA by mapping q head h to kv head ``h // groups`` and pad nothing.  A CPU
 tensor goes to the plain version (``*_plain``), which repeats the TPU
-kernel's arithmetic: f32 online softmax, masked scores ``NEG``, the final
-division guarded by ``max(l, 1e-30)``.  A CUDA tensor goes to the
-hand-written kernel in ``csrc/sfc_attention.cu`` or the call raises; there
-is no fallback from one to the other.  On the card the chunks are the
-kernel's compiled tile (`kernel_chunks`).
+kernel's arithmetic in f32: online softmax, masked scores ``NEG``, the
+final division guarded by ``max(l, 1e-30)``; the backward's
+``_bwd_p_ds`` prelude.  A CUDA tensor goes to the hand-written kernel in
+``csrc/sfc_attention.cu`` or the call raises; there is no fallback from
+one to the other.  On the card the chunks are the kernel's compiled tile
+(`kernel_chunks`; the f32 dK/dV kernel's is ``build.ATTN_DKV_TILE``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional, Tuple
@@ -39,6 +46,10 @@ __all__ = [
     "require_no_grad",
     "sfc_flash_fwd",
     "sfc_flash_fwd_plain",
+    "sfc_flash_bwd_dq",
+    "sfc_flash_bwd_dq_plain",
+    "sfc_flash_bwd_dkv",
+    "sfc_flash_bwd_dkv_plain",
     "sfc_decode_attention",
     "sfc_decode_attention_plain",
 ]
@@ -76,12 +87,12 @@ def kernel_chunks() -> Tuple[int, int]:
 
 
 def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels' outputs carry no ``grad_fn``: refuse inputs that would
-    need one rather than hand autograd a constant."""
+    """A forward-only kernel's output carries no ``grad_fn``: refuse inputs
+    that would need one rather than hand autograd a constant."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward: the flash backward kernels (K12 dQ, K13 dK/dV) are not "
-            "ported yet (ROADMAP queue 1 item 9); call it under torch.no_grad()"
+            f"{name} is forward-only, as in the JAX package (it has no backward); "
+            "call it under torch.no_grad()"
         )
 
 
@@ -174,16 +185,18 @@ def sfc_flash_fwd_plain(
 
 
 @functools.lru_cache(maxsize=256)
-def _device_band(nq: int, nk: int, causal: bool, q_offset: int, device: torch.device):
-    """(k tile per task, row starts (nq + 1,)) of the serpentine band over
-    the kernel's tile, int32, uploaded once per shape and kept there.  Row
-    iq's tasks are [row_start[iq], row_start[iq + 1]) in table order; the
-    segments are found from the table's ``first`` flags."""
-    qc, kc = build.ATTN_TILE
-    tab = build_attention_task_table(nq, nk, causal=causal, q_chunk=qc, k_chunk=kc, q_offset=q_offset)
+def _device_band(nq: int, nk: int, causal: bool, q_offset: int, device: torch.device,
+                 q_chunk: int = build.ATTN_TILE[0], k_chunk: int = build.ATTN_TILE[1], transpose: bool = False):
+    """(minor tile per task, row starts (n_major + 1,)) of the serpentine
+    band over the kernel's tile, int32, uploaded once per shape and kept
+    there.  Major row r's tasks are [row_start[r], row_start[r + 1]) in
+    table order; the segments are found from the table's ``first`` flags.
+    The major rows are q tiles, or k tiles with ``transpose``."""
+    tab = build_attention_task_table(nq, nk, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk,
+                                     q_offset=q_offset, transpose=transpose)
     starts = np.flatnonzero(tab[2])
-    if not np.array_equal(tab[0, starts], np.arange(nq)):
-        raise AssertionError("band table rows are not one segment per q tile in order")
+    if not np.array_equal(tab[0, starts], np.arange(nk if transpose else nq)):
+        raise AssertionError("band table rows are not one segment per major tile in order")
     row_start = np.append(starts, tab.shape[1]).astype(np.int32)
     return (torch.from_numpy(tab[1].copy()).to(device), torch.from_numpy(row_start).to(device))
 
@@ -302,6 +315,272 @@ def sfc_flash_fwd(
 
 
 sfc_flash_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward: dQ (K12) and dK / dV (K13)
+# ---------------------------------------------------------------------------
+
+
+def _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset):
+    """Shape contract of the flash backward; returns (seq_q, seq_k)."""
+    seq_q, seq_k = check_fwd_shapes(q, k, v, seq_q, seq_k, q_offset)
+    b, s, h, _ = q.shape
+    if tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"do {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if tuple(x.shape) != (b, s, h) or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 (B, S, H)=({b}, {s}, {h}), got {x.dtype} {tuple(x.shape)}")
+    return seq_q, seq_k
+
+
+def _bwd_p_ds(q, k, v, do, lse, delta, valid, *, scale: float):
+    """The (p, ds) prelude of both backward versions, all f32 (the TPU
+    kernels' ``_bwd_p_ds``): p = exp(scale·qkᵀ − lse) masked to the band,
+    ds = p ⊙ (do·vᵀ − delta)."""
+    sc = (q @ k.transpose(-1, -2)) * scale
+    p = torch.where(valid, torch.exp(sc - lse[..., None]), torch.zeros_like(sc))
+    dp = do @ v.transpose(-1, -2)
+    return p, p * (dp - delta[..., None])
+
+
+def _tile_valid(iq, ik, q_chunk, k_chunk, seq_q, seq_k, causal, q_offset, device):
+    qpos = iq * q_chunk + torch.arange(q_chunk, device=device)[:, None]
+    kpos = ik * k_chunk + torch.arange(k_chunk, device=device)[None, :]
+    valid = (kpos < seq_k) & (qpos < seq_q)
+    return valid & (kpos <= qpos + q_offset) if causal else valid
+
+
+def sfc_flash_bwd_dq_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    *,
+    causal: bool,
+    q_chunk: int,
+    k_chunk: int,
+    seq_q: Optional[int] = None,
+    seq_k: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """The plain version of the dQ kernel, on any device: a Python loop over
+    the q-major band table, all (batch, head) pairs of a task at once, with
+    `_flash_bwd_dq_kernel`'s arithmetic (``acc += scale · ds @ k`` in f32,
+    flushed at the row's last task).  Sequences are zero-padded to chunk
+    multiples internally to walk the JAX table.  Returns dQ (B, S, H, D) in
+    q's type."""
+    seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
+    b, s, h, d = q.shape
+    _, t, hkv, _ = k.shape
+    nq, nk = math.ceil(s / q_chunk), math.ceil(t / k_chunk)
+    heads = torch.arange(h, device=q.device) // (h // hkv)
+    scale = 1.0 / math.sqrt(d)
+    qp = pad_seq(q, nq * q_chunk).float().transpose(1, 2)  # (B, H, Sp, D)
+    dop = pad_seq(do, nq * q_chunk).float().transpose(1, 2)
+    kp = pad_seq(k, nk * k_chunk).float()[:, :, heads].transpose(1, 2)  # (B, H, Tp, D)
+    vp = pad_seq(v, nk * k_chunk).float()[:, :, heads].transpose(1, 2)
+    lsep = torch.nn.functional.pad(lse, (0, 0, 0, nq * q_chunk - s)).transpose(1, 2)  # (B, H, Sp)
+    deltap = torch.nn.functional.pad(delta, (0, 0, 0, nq * q_chunk - s)).transpose(1, 2)
+    dq = torch.zeros_like(qp)
+    tab = build_attention_task_table(nq, nk, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk, q_offset=q_offset)
+    for iq, ik, first, last in tab.T.tolist():
+        qs = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        ks = slice(ik * k_chunk, (ik + 1) * k_chunk)
+        if first:
+            acc = torch.zeros((b, h, q_chunk, d), dtype=torch.float32, device=q.device)
+        valid = _tile_valid(iq, ik, q_chunk, k_chunk, seq_q, seq_k, causal, q_offset, q.device)
+        _, ds = _bwd_p_ds(qp[:, :, qs], kp[:, :, ks], vp[:, :, ks], dop[:, :, qs], lsep[:, :, qs],
+                          deltap[:, :, qs], valid, scale=scale)
+        acc = acc + scale * (ds @ kp[:, :, ks])
+        if last:
+            dq[:, :, qs] = acc
+    return dq[:, :, :s].transpose(1, 2).to(q.dtype)
+
+
+def sfc_flash_bwd_dkv_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    *,
+    causal: bool,
+    q_chunk: int,
+    k_chunk: int,
+    seq_q: Optional[int] = None,
+    seq_k: Optional[int] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the dK/dV kernel, on any device: a Python loop
+    over the k-major (transposed) band table and, innermost, the GQA group
+    of each kv head, with `_flash_bwd_dkv_kernel`'s arithmetic (``dv += pᵀ
+    @ do``, ``dk += scale · dsᵀ @ q`` in f32, flushed at the row's last
+    task).  Returns (dK, dV), each (B, T, Hkv, D) in k's type."""
+    seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
+    b, s, h, d = q.shape
+    _, t, hkv, _ = k.shape
+    groups = h // hkv
+    nq, nk = math.ceil(s / q_chunk), math.ceil(t / k_chunk)
+    sp, tp = nq * q_chunk, nk * k_chunk
+    scale = 1.0 / math.sqrt(d)
+
+    def by_group(x):  # (B, Sp, H, ...) -> (B, Hkv, G, Sp, ...)
+        return x.reshape(b, sp, hkv, groups, *x.shape[3:]).movedim(1, 3)
+
+    qg = by_group(pad_seq(q, sp).float())
+    dog = by_group(pad_seq(do, sp).float())
+    lseg = by_group(torch.nn.functional.pad(lse, (0, 0, 0, sp - s)))
+    deltag = by_group(torch.nn.functional.pad(delta, (0, 0, 0, sp - s)))
+    kp = pad_seq(k, tp).float().transpose(1, 2)  # (B, Hkv, Tp, D)
+    vp = pad_seq(v, tp).float().transpose(1, 2)
+    dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
+    tab = build_attention_task_table(nq, nk, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk,
+                                     q_offset=q_offset, transpose=True)
+    for ik, iq, first, last in tab.T.tolist():
+        qs = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        ks = slice(ik * k_chunk, (ik + 1) * k_chunk)
+        if first:
+            dk_acc = torch.zeros((b, hkv, k_chunk, d), dtype=torch.float32, device=q.device)
+            dv_acc = torch.zeros_like(dk_acc)
+        valid = _tile_valid(iq, ik, q_chunk, k_chunk, seq_q, seq_k, causal, q_offset, q.device)
+        for g in range(groups):
+            q_, do_ = qg[:, :, g, qs], dog[:, :, g, qs]
+            p, ds = _bwd_p_ds(q_, kp[:, :, ks], vp[:, :, ks], do_, lseg[:, :, g, qs], deltag[:, :, g, qs],
+                              valid, scale=scale)
+            dv_acc = dv_acc + p.transpose(-1, -2) @ do_
+            dk_acc = dk_acc + scale * (ds.transpose(-1, -2) @ q_)
+        if last:
+            dk[:, :, ks], dv[:, :, ks] = dk_acc, dv_acc
+    return dk[:, :, :t].transpose(1, 2).to(k.dtype), dv[:, :, :t].transpose(1, 2).to(v.dtype)
+
+
+def _launch_bwd(kind: str, q, k, v, do, lse, delta, outs, tab_minor, row_start, *, causal, seq_q, seq_k,
+                q_offset):
+    b, s, h, d = q.shape
+    _, t, hkv, _ = k.shape
+    dt = _check_launch(f"flash backward {kind}", q, k, v, do)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"flash backward {kind}: {name} must be contiguous on {q.device}")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"batch x heads {b * h} exceeds the grid limit {_MAX_GRID_Y}")
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    fn = getattr(build.load_attention_library(), build.attn_entry_name(kind, dt, d))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            tab_minor.data_ptr(), row_start.data_ptr(), row_start.numel() - 1,
+            b, h, h // hkv,
+            s, t, seq_q, seq_k,
+            q_offset, int(causal),
+            ctypes.addressof(strides),
+            1.0 / math.sqrt(d),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash backward {kind} kernel launch failed with CUDA error {rc}")
+
+
+def _bwd_chunks(name: str, tile: Tuple[int, int], q_chunk, k_chunk) -> None:
+    if (q_chunk or tile[0], k_chunk or tile[1]) != tile:
+        raise ValueError(f"the CUDA {name} kernel is compiled for (q_chunk, k_chunk)={tile}, "
+                         f"got {(q_chunk, k_chunk)}")
+
+
+def sfc_flash_bwd_dq(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, T, Hkv, D)
+    v: torch.Tensor,
+    do: torch.Tensor,  # (B, S, H, D)
+    lse: torch.Tensor,  # (B, S, H) f32, from the forward
+    delta: torch.Tensor,  # (B, S, H) f32, rowsum(dO ⊙ O)
+    *,
+    causal: bool,
+    seq_q: Optional[int] = None,
+    seq_k: Optional[int] = None,
+    q_offset: int = 0,
+    q_chunk: Optional[int] = None,
+    k_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """dQ (B, S, H, D, in q's type) over the q-major band table.
+
+    On a CUDA tensor this launches the dQ kernel (tile `kernel_chunks()`;
+    the chunks must be that or None) and adds one to
+    ``sfc_flash_bwd_dq.launches``.  On a CPU tensor it runs
+    `sfc_flash_bwd_dq_plain` (chunks default to the kernel's) and counts
+    nothing."""
+    seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
+    kw = dict(causal=causal, seq_q=seq_q, seq_k=seq_k, q_offset=q_offset)
+    if q.device.type == "cpu":
+        qc, kc = build.ATTN_TILE
+        return sfc_flash_bwd_dq_plain(q, k, v, do, lse, delta, q_chunk=q_chunk or qc, k_chunk=k_chunk or kc, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"sfc_flash_bwd_dq runs on cuda or cpu tensors, got {q.device}")
+    _bwd_chunks("dQ", build.ATTN_TILE, q_chunk, k_chunk)
+    qc, kc = build.ATTN_TILE
+    nq, nk = math.ceil(q.shape[1] / qc), math.ceil(k.shape[1] / kc)
+    tab_k, row_start = _device_band(nq, nk, bool(causal), int(q_offset), q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel():
+        _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), tab_k, row_start, **kw)
+        sfc_flash_bwd_dq.launches += 1
+    return dq
+
+
+def sfc_flash_bwd_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    *,
+    causal: bool,
+    seq_q: Optional[int] = None,
+    seq_k: Optional[int] = None,
+    q_offset: int = 0,
+    q_chunk: Optional[int] = None,
+    k_chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV), each (B, T, Hkv, D) in k's type, over the k-major band
+    table with the GQA group innermost: one kv head's accumulators stay
+    resident while its q heads stream through, so no per-q-head copies
+    and no reduction pass.
+
+    On a CUDA tensor this launches the dK/dV kernel, whose tile is
+    ``build.ATTN_DKV_TILE`` for the input type (the chunks must be that or
+    None), and adds one to ``sfc_flash_bwd_dkv.launches``.  On a CPU
+    tensor it runs `sfc_flash_bwd_dkv_plain` and counts nothing."""
+    seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
+    kw = dict(causal=causal, seq_q=seq_q, seq_k=seq_k, q_offset=q_offset)
+    if q.device.type == "cpu":
+        qc, kc = build.ATTN_TILE
+        return sfc_flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_chunk=q_chunk or qc, k_chunk=k_chunk or kc, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"sfc_flash_bwd_dkv runs on cuda or cpu tensors, got {q.device}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"flash backward dkv: the CUDA kernel takes float32 or bfloat16, got {q.dtype}")
+    tile = build.ATTN_DKV_TILE[build.DTYPE_NAMES[str(q.dtype).split(".")[1]]]
+    _bwd_chunks("dK/dV", tile, q_chunk, k_chunk)
+    qc, kc = tile
+    nq, nk = math.ceil(q.shape[1] / qc), math.ceil(k.shape[1] / kc)
+    tab_q, row_start = _device_band(nq, nk, bool(causal), int(q_offset), q.device, qc, kc, True)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if dk.numel():
+        _launch_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), tab_q, row_start, **kw)
+        sfc_flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+sfc_flash_bwd_dq.launches = 0
+sfc_flash_bwd_dkv.launches = 0
 
 
 def _check_decode(q, k, v, valid_len):

@@ -1,0 +1,99 @@
+"""Training launcher on the port.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+      --backend sfc_cuda --attn-impl sfc --steps 3 --batch 2 --seq 256
+
+Weights are random, drawn from ``--seed``; batches come from `SyntheticLM`.
+``--device`` defaults to the card; ``--device cpu --reduced`` trains a tiny
+model on the CPU, where the ``sfc_cuda`` backend takes each kernel's plain
+version.  The JAX CLI's ``--backend xla`` / ``sfc_pallas`` are ``torch`` /
+``sfc_cuda`` here, and ``--attn-impl`` sets the step's attention backend.
+Checkpointing and `TrainLoop` (ROADMAP queue 1 item 14), the fused
+optimizer (item 10) and the mesh (item 16) are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.attention_backend import ATTN_IMPLS
+from repro_torch.core.namespaces import BACKENDS
+from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+from repro_torch.models.registry import build_model
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.train.step import BackendConfig, make_train_step
+
+
+def build_trainer(
+    cfg,
+    *,
+    batch: int,
+    seq: int,
+    lr: float = 3e-4,
+    total_steps: int = 1000,
+    remat: str = "none",
+    microbatches: int = 1,
+    seed: int = 0,
+    gemm_backend: Optional[str] = None,
+    attn_impl: Optional[str] = None,
+    device=None,
+):
+    """Returns (model, opt_state, step, batch_fn): the model with random
+    weights from ``seed`` on ``device`` (the card unless named), the AdamW
+    state, ``step(opt_state, batch) -> (opt_state, metrics)`` and
+    ``batch_fn(step) -> batch`` on the model's device."""
+    model = build_model(cfg, device=device)
+    model.init(torch.Generator(device=model.embed.device).manual_seed(seed))
+    opt_cfg = AdamWConfig(lr=lr, total_steps=total_steps, warmup_steps=min(100, total_steps // 10 + 1))
+    step_fn = make_train_step(
+        model, opt_cfg, remat=remat, microbatches=microbatches,
+        backend=BackendConfig(gemm_backend=gemm_backend, attn_impl=attn_impl),
+    )
+    opt_state = adamw_init(dict(model.named_parameters()))
+    data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
+
+    def batch_fn(step: int):
+        return {k: torch.from_numpy(v).to(model.embed.device) for k, v in data.batch(step).items()}
+
+    return model, opt_state, step_fn, batch_fn
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", help="tiny same-family config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--backend", default=None, choices=list(BACKENDS),
+                    help="GEMM backend for the train step (forward and backward)")
+    ap.add_argument("--attn-impl", default=None, choices=list(ATTN_IMPLS),
+                    help="attention backend for the train step (default: the config's)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model, opt_state, step_fn, batch_fn = build_trainer(
+        cfg, batch=args.batch, seq=args.seq, lr=args.lr, total_steps=args.steps,
+        microbatches=args.microbatches, seed=args.seed, gemm_backend=args.backend,
+        attn_impl=args.attn_impl, device=args.device,
+    )
+    history = []
+    for step in range(args.steps):
+        opt_state, metrics = step_fn(opt_state, batch_fn(step))
+        history.append((step + 1, float(metrics["loss"])))
+    print(f"final loss: {history[-1][1]:.4f}  (from {history[0][1]:.4f})")
+    return history
+
+
+if __name__ == "__main__":
+    main()

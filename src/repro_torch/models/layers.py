@@ -31,6 +31,7 @@ __all__ = [
     "blockwise_attention",
     "decode_attention",
     "MLP",
+    "cross_entropy_loss",
 ]
 
 
@@ -203,9 +204,11 @@ def blockwise_attention(
         if not causal or ki * k_chunk <= q_offset + qi * q_chunk + q_chunk - 1
     ]
 
-    o_acc = torch.zeros((nq, b, h, q_chunk, d), dtype=torch.float32, device=q.device)
-    m_acc = torch.full((nq, b, h, q_chunk), _NEG, dtype=torch.float32, device=q.device)
-    l_acc = torch.zeros((nq, b, h, q_chunk), dtype=torch.float32, device=q.device)
+    # per-chunk running statistics in lists (no in-place writes), so that
+    # autograd can differentiate the loop
+    o_acc = [torch.zeros((b, h, q_chunk, d), dtype=torch.float32, device=q.device)] * nq
+    m_acc = [torch.full((b, h, q_chunk), _NEG, dtype=torch.float32, device=q.device)] * nq
+    l_acc = [torch.zeros((b, h, q_chunk), dtype=torch.float32, device=q.device)] * nq
     for qi, ki in pairs:
         qs = slice(qi * q_chunk, (qi + 1) * q_chunk)
         ks = slice(ki * k_chunk, (ki + 1) * k_chunk)
@@ -221,7 +224,7 @@ def blockwise_attention(
         o_acc[qi] = o_acc[qi] * c1[..., None] + o * c2[..., None]
         l_acc[qi] = l_acc[qi] * c1 + l * c2
         m_acc[qi] = m_new
-    chunks = o_acc / torch.clamp(l_acc[..., None], min=1e-30)
+    chunks = torch.stack(o_acc) / torch.clamp(torch.stack(l_acc)[..., None], min=1e-30)
     out = chunks.to(q.dtype).permute(1, 2, 0, 3, 4).reshape(b, h, sp, d)[:, :, :s]
     return out.transpose(1, 2)  # (B, S, H, D)
 
@@ -277,3 +280,24 @@ class MLP(nn.Module):
         else:
             h = _bmm(x, self.w_in, activation=self.act)
         return _bmm(h, self.w_out)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # (B, S, V)
+    labels: torch.Tensor,  # (B, S)
+    *,
+    ignore_id: int = -1,
+) -> torch.Tensor:
+    """Mean next-token cross entropy in f32 over the labels that are not
+    ``ignore_id``: an f32 logsumexp minus the picked logit."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    # an ignored label picks any column; the mask zeroes its term
+    picked = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)

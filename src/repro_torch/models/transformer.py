@@ -19,7 +19,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import torch_dtype
 from repro_torch.core.gemm_backend import matmul as _bmm
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import MLP, make_norm, normal_, param
+from repro_torch.models.layers import MLP, cross_entropy_loss, make_norm, normal_, param
 
 __all__ = ["Block", "DecoderLM"]
 
@@ -119,6 +119,20 @@ class DecoderLM(nn.Module):
             x = x + layer.mlp(layer.norm2(x))
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._logits(x), {"moe_aux_loss": zero, "moe_z_loss": zero}
+
+    def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "none") -> torch.Tensor:
+        """Training loss of a batch ``{"tokens", "labels": (B, S)}``: the
+        f32 cross entropy of the forward's logits plus the MoE losses (zero
+        for the dense family) over the layer count.  Only ``remat="none"``
+        is ported (the JAX package's default is "dots")."""
+        if remat != "none":
+            raise NotImplementedError(
+                f"remat={remat!r} (activation recomputation through torch.utils.checkpoint) is not "
+                "ported: ROADMAP queue 1 item 18"
+            )
+        logits, aux = self.forward(batch["tokens"].long())
+        n = self.cfg.n_layers
+        return cross_entropy_loss(logits, batch["labels"]) + aux["moe_aux_loss"] / n + aux["moe_z_loss"] / n
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, cache_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:

@@ -262,14 +262,22 @@ def test_negative_q_offset_raises():
 
 
 def test_inputs_that_need_a_gradient_raise():
+    """attn_impl="sfc" flash attention is differentiable (K12/K13 in its
+    backward; its gradients match the blockwise attention's); the decode
+    attention and the flash_pallas kernel are forward-only, as in the JAX
+    package, and refuse inputs that need a gradient."""
     q, k, v = map(torch.from_numpy, _qkv(1, 8, 8, 2, 1, 8))
     qg = q.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K12"):
-        tab.flash_attention(qg, k, v)
-    with pytest.raises(NotImplementedError, match="K13"):
+    o = tab.flash_attention(qg, k, v)
+    assert type(o.grad_fn).__name__ == "_FlashCoreBackward"
+    (dq,) = torch.autograd.grad(o.square().sum(), qg)
+    qb = q.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(tl.blockwise_attention(qb, k, v, q_chunk=4, k_chunk=4).square().sum(), qb)
+    _close(dq, want)
+    with pytest.raises(NotImplementedError, match="forward-only, as in the JAX package"):
         tfa.flash_attention(qg, k, v)
     valid = torch.tensor([8], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="forward-only, as in the JAX package"):
         tab.decode_attention(qg[:, :1], k, v, valid)
     with torch.no_grad():
         o = tab.flash_attention(qg, k, v)

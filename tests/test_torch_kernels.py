@@ -1,6 +1,9 @@
-"""The port's CUDA kernels on the card (the fused GEMM, the attention flash
-forward in its band and dense modes, and the decode attention), each
-against its plain PyTorch version, and the build's bookkeeping on the CPU.
+"""The port's CUDA kernels on the card (the fused GEMM with its preact mode,
+the NT/TN backward GEMMs, the attention flash forward in its band and dense
+modes, the flash backward's dQ and dK/dV, and the decode attention), each
+against its plain PyTorch version; a decoder's loss gradients under the
+sfc_cuda backend against the torch backend's; and the build's bookkeeping
+on the CPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only PyTorch (the repository's conftest needs JAX; skip it):
@@ -10,6 +13,7 @@ machine with only PyTorch (the repository's conftest needs JAX; skip it):
 On a machine without a card the tests marked ``cuda`` skip.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -54,6 +58,26 @@ def test_attention_constants_match_the_compiled_source():
         dims = tuple(int(d) for d in re.findall(rf"^SFC_{kind}_ENTRY\((\d+)\)", src, re.MULTILINE))
         assert dims == build.ATTN_HEAD_DIMS
     assert build.attn_entry_name("fwd", "bf16", 128) == "sfc_attn_fwd_bf16_d128"
+
+
+def test_backward_parts_and_constants_match_the_compiled_sources():
+    gemm = CU_SOURCE.read_text()
+    attn = ATTN_SOURCE.read_text()
+    parts = dict(build._gemm_parts())
+    for dt in ("f32", "bf16"):
+        flags = parts[f"sfc_gemm_bwd_{dt}"]
+        assert "-DSFC_BWD=1" in flags
+        assert f"-DSFC_NT_ENTRY={build.bwd_entry_name('nt', dt)}" in flags
+        assert f"-DSFC_TN_ENTRY={build.bwd_entry_name('tn', dt)}" in flags
+    assert "extern \"C\" int SFC_NT_ENTRY(" in gemm and "extern \"C\" int SFC_TN_ENTRY(" in gemm
+    bq = re.search(r"return sizeof\(T\) == 2 \? (\d+) : (\d+);", attn)
+    kbk = int(re.search(r"constexpr int kBK = (\d+);", attn).group(1))
+    assert build.ATTN_DKV_TILE == {"bf16": (int(bq.group(1)), kbk), "f32": (int(bq.group(2)), kbk)}
+    for kind in ("DQ", "DKV"):
+        dims = tuple(int(d) for d in re.findall(rf"^SFC_{kind}_ENTRY\((\d+)\)", attn, re.MULTILINE))
+        assert dims == build.ATTN_HEAD_DIMS
+    assert {name for name, _ in build._attention_parts()} == {
+        f"sfc_attention{half}_{dt}" for half in ("", "_bwd") for dt in ("f32", "bf16")}
 
 
 def test_digest_covers_included_headers(tmp_path):
@@ -234,3 +258,132 @@ def test_attention_kernels_reject_what_they_do_not_take():
         tsa.sfc_decode_attention(q[:, :1], k, v, valid.long())
     with pytest.raises(ValueError, match="exceeds"):
         tsa.sfc_decode_attention(q[:, :1].repeat(1, 1, 9, 1), k[:, :, :1], v[:, :, :1], valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batched", [False, True])
+def test_preact_kernel_matches_plain_version_on_card(dtype, batched):
+    _card()
+    dt = getattr(torch, dtype)
+    a, b, bg, bias, gbias, _ = _inputs(dt, seed=11)
+    a = a if batched else a[0]
+    got = tk.sfc_gemm_fused(a, b, bg, bias, gbias, preact=True)
+    torch.cuda.synchronize()
+    want = tk.sfc_gemm_fused_plain(a, b, bg, bias, gbias, bm=64, bn=64, preact=True)
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        assert _agree(g, w, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("shape", [(77, 133, 203), (256, 192, 512), (5, 64, 1000)])
+def test_nt_tn_kernels_match_plain_versions_on_card(dtype, dual, shape):
+    _card()
+    dt = getattr(torch, dtype)
+    m, k, n = shape  # forward (M, K) @ (K, N): dA (M, K) = dC W^T, dW (K, N) = A^T dC
+    rng = np.random.default_rng(12)
+    dc, dc2, x = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dt)
+                  for s in ((m, n), (m, n), (m, k)))
+    w, w2 = (torch.from_numpy((rng.standard_normal((k, n)) * 0.1).astype(np.float32)).to("cuda", dt)
+             for _ in range(2))
+    before = (tk.sfc_gemm_nt.launches, tk.sfc_gemm_tn.launches)
+    da = tk.sfc_gemm_nt(dc, w, dc2 if dual else None, w2 if dual else None)
+    dw = tk.sfc_gemm_tn(x, dc, dc2 if dual else None)
+    torch.cuda.synchronize()
+    assert (tk.sfc_gemm_nt.launches, tk.sfc_gemm_tn.launches) == (before[0] + 1, before[1] + 1)
+    want_da = tk.sfc_gemm_nt_plain(dc, w, dc2 if dual else None, w2 if dual else None, bm=64, bn=64)
+    want_dw = tk.sfc_gemm_tn_plain(x, dc, dc2 if dual else None, bm=64, bn=64)
+    assert da.dtype == dt and da.shape == (m, k)
+    assert _agree(da, want_da, dt)
+    for g, w_ in zip(dw if dual else [dw], want_dw if dual else [want_dw]):
+        assert g.dtype == dt and g.shape == (k, n)
+        assert _agree(g, w_, dt)
+
+
+@pytest.mark.cuda
+def test_backward_gemm_kernels_reject_what_they_do_not_take():
+    _card()
+    a, b = torch.ones(4, 8, device="cuda"), torch.ones(8, 8, device="cuda")
+    with pytest.raises(TypeError):
+        tk.sfc_gemm_nt(a.half(), b.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.sfc_gemm_nt(a, b.T)
+    with pytest.raises(ValueError, match="compiled for"):
+        tk.sfc_gemm_tn(a, a, bm=32, bn=32)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tk.sfc_gemm_tn(a, a, master=b, mu=b, nu=b, hyper=torch.zeros(12, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "case",
+    ["train_shape", "gqa_ragged_s_ne_t", "q_offset_past_the_queries", "non_causal_d64"],
+)
+def test_flash_bwd_kernels_match_plain_versions_on_card(dtype, case):
+    _card()
+    dt = getattr(torch, dtype)
+    (b, s, t, h, hkv, d), kw = {
+        "train_shape": ((2, 256, 256, 32, 8, 128), dict(causal=True)),
+        "gqa_ragged_s_ne_t": ((2, 100, 150, 8, 2, 128), dict(causal=True, q_offset=30)),
+        # k tiles past every query position (T > S + q_offset) flush zeros
+        "q_offset_past_the_queries": ((1, 40, 230, 4, 1, 64), dict(causal=True, q_offset=20)),
+        "non_causal_d64": ((1, 70, 130, 6, 3, 64), dict(causal=False)),
+    }[case]
+    q, k, v = _attn_inputs(b, s, t, h, hkv, d, dt, seed=23)
+    do = _attn_inputs(b, s, t, h, hkv, d, dt, seed=24)[0]
+    o, lse = tsa.sfc_flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (tsa.sfc_flash_bwd_dq.launches, tsa.sfc_flash_bwd_dkv.launches)
+    dq = tsa.sfc_flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = tsa.sfc_flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (tsa.sfc_flash_bwd_dq.launches, tsa.sfc_flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    qc, kc = tsa.kernel_chunks()
+    want_dq = tsa.sfc_flash_bwd_dq_plain(q, k, v, do, lse, delta, q_chunk=qc, k_chunk=kc, **kw)
+    dqc, dkc = build.ATTN_DKV_TILE[build.DTYPE_NAMES[dtype]]
+    want_dk, want_dv = tsa.sfc_flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_chunk=dqc, k_chunk=dkc, **kw)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dt and got.shape == want.shape
+        assert _agree(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_impl", ["blockwise", "sfc"])
+def test_decoder_loss_gradients_under_sfc_cuda_match_torch_on_card(attn_impl):
+    """The backward of every projection runs on the NT/TN kernels: each
+    projection weight gets a gradient, and every gradient matches the
+    torch backend's (f32, a reduced decoder with the full head dim 128)."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm_backend import gemm_backend
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config("qwen3_4b").reduced(), head_dim=128, attn_impl=attn_impl)
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(5))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = {key: torch.randint(0, cfg.vocab, (2, 96), generator=gen, device="cuda") for key in ("tokens", "labels")}
+    grads, losses = {}, {}
+    for backend in ("sfc_cuda", "torch"):
+        model.zero_grad(set_to_none=True)
+        before = (tk.sfc_gemm_nt.launches, tk.sfc_gemm_tn.launches)
+        with gemm_backend(backend):
+            loss = model.loss(batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        launched = (tk.sfc_gemm_nt.launches - before[0], tk.sfc_gemm_tn.launches - before[1])
+        assert launched == ((6 * cfg.n_layers + 1,) * 2 if backend == "sfc_cuda" else (0, 0))
+        losses[backend] = float(loss)
+        grads[backend] = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    names = {n for n, _ in model.named_parameters()}
+    projections = {n for n in names if n.split(".")[-1] in ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "head")}
+    assert len(projections) == 7 * cfg.n_layers + 1
+    assert set(grads["sfc_cuda"]) == set(grads["torch"]) == names
+    for n in projections:
+        assert bool(grads["sfc_cuda"][n].abs().max() > 0), n
+    assert abs(losses["sfc_cuda"] - losses["torch"]) <= 1e-4 * abs(losses["torch"])
+    for n in names:
+        assert _agree(grads["sfc_cuda"][n], grads["torch"][n], torch.float32), n

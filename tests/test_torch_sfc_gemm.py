@@ -182,10 +182,27 @@ def test_unported_options_and_bad_operands_raise():
         tops.sfc_matmul(a, b, fuse=False)
     with pytest.raises(NotImplementedError, match="item 14"):
         tops.sfc_matmul(a, b, abft="detect")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tops._matmul_impl(a, b, bg, bias=None, gate_bias=None, residual=None, activation=None,
-                          out_scale=None, bm=None, bn=None, k_layers=None, k_block_factor=None,
-                          out_dtype=None, preact=True)
+    # preact (the training forward of a GLU) is ported: the (h_pre, g_pre)
+    # pair of the JAX package's _matmul_impl(..., preact=True)
+    x, wv, wg, bias, gbias = _arrays(9, (2, 8, 16), (16, 24), (16, 24), (24,), (24,))
+    kw = dict(bias=None, gate_bias=None, residual=None, activation=None, out_scale=None, bm=None, bn=None,
+              k_layers=None, k_block_factor=None, out_dtype=None, preact=True)
+    for vecs in ((None, None), (bias, gbias)):
+        kw.update(bias=vecs[0], gate_bias=vecs[1])
+        want = jops._matmul_impl(_j(x), _j(wv), _j(wg), interpret=True, fuse=None,
+                                 **{k: _j(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()})
+        got = tops._matmul_impl(_t(x), _t(wv), _t(wg), **{k: _t(v) if isinstance(v, np.ndarray) else v
+                                                          for k, v in kw.items()})
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            _close(g, w)
+    with pytest.raises(ValueError, match="preact"):
+        tops._matmul_impl(a, b, bg, **dict(kw, bias=None, gate_bias=None, activation="silu"))
+    # the TN kernel's update mode (the fused AdamW flush) is not
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tk.sfc_gemm_tn(a, a, master=b, mu=b, nu=b, hyper=torch.zeros(12))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tk.sfc_gemm_tn(a, a, abft=True)
     with pytest.raises(ValueError):
         tops.sfc_matmul(a, b[:8])
     with pytest.raises(ValueError):
@@ -199,3 +216,21 @@ def test_unported_options_and_bad_operands_raise():
     with pytest.raises(ValueError):
         with tgb.gemm_backend("xla"):
             pass
+
+
+def test_matmuls_that_need_a_gradient_run_through_the_autograd_function():
+    """With an input that needs a gradient, sfc_matmul and sfc_glu_matmul
+    return the output of the port's autograd Function (whose backward runs
+    the NT/TN kernels, their plain versions here); under no_grad they keep
+    the single fused call and carry no graph."""
+    a, w, wg = _arrays(10, (3, 5, 16), (16, 24), (16, 24))
+    x = _t(a).requires_grad_(True)
+    out = tops.sfc_matmul(x, _t(w), activation="gelu")
+    glu = tops.sfc_glu_matmul(_t(a), _t(wg), _t(w).requires_grad_(True))
+    for y in (out, glu):
+        assert isinstance(y.grad_fn, tops._MatmulCore._backward_cls)
+    with torch.no_grad():
+        assert tops.sfc_matmul(x, _t(w)).grad_fn is None
+    assert tops.sfc_matmul(_t(a), _t(w)).grad_fn is None
+    out.sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape
