@@ -18,6 +18,9 @@ one JSON line and raising on failure:
               the GLU in its preact mode) and one ragged case with every
               epilogue flag; the NT (K7, dA) and TN (K8, dW) kernels at every
               training shape, single and dual, plus a ragged f32 case each;
+              K8's update mode (AdamW in the flush, bf16 W stochastically
+              rounded) and norm mode at every training shape, in bf16 and
+              f32;
               the band flash forward (K11) at the prefill and training shapes
               and at 1 x 2000 with q_offset 0 and 48; the dense flash forward
               (K15); the decode attention (K14) at the serve's cache and at a
@@ -27,7 +30,11 @@ one JSON line and raising on failure:
               loss and every parameter's gradient under sfc_cuda GEMMs with
               attn_impl="sfc" against the torch backend with blockwise
               attention, within the bf16 bound; every projection weight has
-              a non-zero gradient;
+              a non-zero gradient; then the fused optimizer's step (AdamW in
+              K8's update flush, exact clip in two phases) against the
+              unfused sfc_cuda step from the same init, with a clip that
+              binds, for two steps, and a third step whose gradients are
+              all NaN, which must leave every weight and state bitwise;
 4. serve      ServingEngine serves full-width qwen3-4b (36 layers, bf16,
               random weights from a seeded torch.Generator), 4 requests,
               prompt 128, 16 new tokens, three times: sfc_cuda GEMMs with
@@ -47,7 +54,11 @@ one JSON line and raising on failure:
               init under torch + blockwise: every loss finite and within
               2^-7 of the torch backend's, every parameter changed; step
               times and peak memory, and a fourth step of each run under
-              torch.profiler for its device-busy time by kernel group;
+              torch.profiler for its device-busy time by kernel group.  A
+              third run, between them, trains the same 3 steps with
+              fused_optimizer=True (K8 in its norm and update modes, exactly
+              217 of each and no dW launch per step, no weight left with a
+              .grad), its losses within 2^-7 of the unfused run's;
 6. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound.
@@ -88,6 +99,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 256, 3
 GRAD_CHECK_LAYERS = 4
 # a training loss may differ from the torch backend's by one bf16 rounding
 TRAIN_LOSS_RTOL = 2.0**-7
+# the fused-step check: a clip far under the gradient norm, so it binds
+FUSED_CHECK_CLIP = 1e-3
 
 # bf16 serving: the sfc_cuda prefill logits may be at most this many times
 # further (mean |error|) from the same model run in f32 than the torch
@@ -528,6 +541,155 @@ def phase_backward_gemms(torch, gemms, tk, ops):
 
 
 @dataclasses.dataclass(frozen=True)
+class UpdGemm:
+    """K8 in its update or norm mode for the forward projection (M, K) @
+    (K, N): dW (K, N) = A^T dC in the f32 accumulator, then AdamW against
+    the f32 master / mu / nu and W written (update), or only sum(dW^2)
+    (norm); dual for the GLU."""
+
+    name: str
+    mode: str  # "update" | "norm"
+    m: int
+    k: int
+    n: int
+    dual: bool = False
+
+    @property
+    def key(self):  # sfc_gemm_tn.launches_by_shape's key for the mode
+        return (self.k, self.n, self.m, self.dual, self.mode)
+
+    @property
+    def sets(self) -> int:
+        return 2 if self.dual else 1
+
+    def flops(self) -> float:
+        return 2.0 * self.m * self.k * self.n * self.sets
+
+    def bytes(self, elem: int) -> float:
+        """A and dC read once; update: 12 B of f32 state read and 14 B (the
+        state and W) written per weight element; norm: the per-task
+        partials."""
+        operands = elem * (self.m * self.k + self.sets * self.m * self.n)
+        if self.mode == "update":
+            return operands + 26.0 * self.sets * self.k * self.n
+        return operands + 4.0 * self.sets * math.ceil(self.k / 64) * math.ceil(self.n / 64)
+
+
+def train_update_gemms(cfg):
+    """K8's update mode at every projection of the training step (its norm
+    mode runs the same shapes)."""
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    proj = _projections(cfg) + [("head", cfg.d_model, cfg.vocab, False)]
+    return [UpdGemm(f"train/{name}", "update", rows, k, n, glu) for name, k, n, glu in proj]
+
+
+def phase_update_gemms(torch, cfg, tk, opt):
+    """K8's update and norm modes against their plain versions at every
+    training shape, in bf16 (stochastic rounding on, the main path, timed)
+    and in f32: master, mu and nu within the f32 bound; a bf16 W bitwise the
+    stochastic rounding of the kernel's own master with the plain version's
+    tile bits (the counter hash) and within the bf16 bound of the plain W
+    (the two masters differ in their last bits, and a rounding with the
+    same bits may then land one ulp apart), an f32 W the new master; the
+    norms within the f32 bound, the norm mode's bitwise the update mode's.
+    Yardstick: torch.mm to an f32 dW plus torch._fused_adamw_ on the same
+    state (two calls; they write no bf16 W)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    hyper = opt.pack_adamw_hyper(opt.AdamWConfig(lr=1e-2), torch.tensor(7, dtype=torch.int32, device=dev),
+                                 torch.tensor(0.37, device=dev))
+    salt = (3 << 16) + 5
+    rows, checks = [], []
+
+    def r(shape, scale, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def inputs(gm, dt):
+        """(x, [dC per set], [(master, mu, nu, W) per set]): a later step's
+        state, its moments on the scale of dW (about sqrt(M))."""
+        g = math.sqrt(gm.m)
+        x, dcs = r((gm.m, gm.k), 1.0, dt), [r((gm.m, gm.n), 1.0, dt) for _ in range(gm.sets)]
+        sets = []
+        for _ in range(gm.sets):
+            mst = r((gm.k, gm.n), 0.02)
+            sets.append((mst, r((gm.k, gm.n), 0.5 * g), r((gm.k, gm.n), 2.0 * g) ** 2 + 1.0, mst.to(dt)))
+        return x, dcs, sets
+
+    def update(fn, x, dcs, sets, dt, **kw):
+        (m1, u1, v1, w1), *rest = sets
+        extra = dict(w2=rest[0][3]) if rest else {}
+        second = list(rest[0][:3]) if rest else [None] * 3
+        return fn(x, dcs[0], dcs[1] if rest else None, m1, u1, v1, *second, hyper, w=w1, salt=salt,
+                  stochastic_round=dt == torch.bfloat16, **extra, **kw)
+
+    def clone(sets):
+        return [tuple(t.clone() for t in st) for st in sets]
+
+    for gm in train_update_gemms(cfg):
+        for dt in (torch.bfloat16, torch.float32):
+            x, dcs, sets = inputs(gm, dt)
+            got_sets, want_sets = clone(sets), clone(sets)
+            got = update(tk.sfc_gemm_tn, x, dcs, got_sets, dt)
+            norm_only = tk.sfc_gemm_tn(x, dcs[0], dcs[1] if gm.dual else None, norm=True)
+            torch.cuda.synchronize()
+            want = update(tk.sfc_gemm_tn_plain, x, dcs, want_sets, dt, bm=64, bn=64)
+            ok, norm_err, worst = within(got, want, torch.float32)
+            res = {"case": f"tn_update:{gm.name}", "dtype": str(dt), "shape": [gm.m, gm.k, gm.n], "dual": gm.dual,
+                   "norm_ok": ok, "norm_max_abs_err": norm_err, "norm_err_over_bound": worst,
+                   "norm_mode_bitwise": bool(torch.equal(norm_only, got))}
+            err, worst_state, w_bitwise = 0.0, 0.0, True
+            for s, ((g_mst, g_mu, g_nu, g_w), (p_mst, p_mu, p_nu, p_w)) in enumerate(zip(got_sets, want_sets)):
+                for g_, w_ in ((g_mst, p_mst), (g_mu, p_mu), (g_nu, p_nu), (g_w, p_w)):
+                    ok_s, err_s, worst_s = within(g_, w_, torch.float32 if g_.dtype == torch.float32 else dt)
+                    ok, err, worst_state = ok and ok_s, max(err, err_s), max(worst_state, worst_s)
+                if dt == torch.bfloat16:
+                    bits = tk._tile_bits(gm.k, gm.n, 64, 64, hyper, salt, *((1,) if s else ()))
+                    w_bitwise &= bool(torch.equal(g_w, tk.stochastic_round_to(g_mst, bits, dt)))
+                    del bits
+                else:
+                    w_bitwise &= bool(torch.equal(g_w, g_mst))
+            res.update(ok=ok and w_bitwise and res["norm_mode_bitwise"], max_abs_err=err,
+                       state_err_over_bound=worst_state, w_bitwise_sr_of_master=w_bitwise)
+            checks.append(res)
+            if not res["ok"]:
+                raise AssertionError(f"sfc_gemm_tn update / norm mode disagrees with its plain version: {res}")
+            del got_sets, want_sets
+            if dt != torch.bfloat16:
+                del x, dcs, sets
+                continue
+            # the main path's type: time both modes, the plain versions and the yardstick
+            copies = max(1, math.ceil(4 * L2_BYTES / gm.bytes(2)))
+            ins = [(x, dcs, sets)] + [inputs(gm, dt) for _ in range(copies - 1)]
+            step_t = torch.zeros((), device=dev)
+
+            def library(i):
+                x_, dcs_, sets_ = ins[i % copies]
+                grads = [torch.mm(x_.T, d, out_dtype=torch.float32) for d in dcs_]
+                torch._fused_adamw_([st[0] for st in sets_], grads, [st[1] for st in sets_],
+                                    [st[2] for st in sets_], [], [step_t] * len(sets_), lr=1e-2, beta1=0.9,
+                                    beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)
+
+            reps = max(20, copies)
+            upd_ms = time_ms(lambda i: update(tk.sfc_gemm_tn, *ins[i % copies], dt), reps=reps, graph=True)
+            norm_ms = time_ms(lambda i: tk.sfc_gemm_tn(ins[i % copies][0], *ins[i % copies][1], norm=True),
+                              reps=reps, graph=True)
+            lib_ms = time_ms(library, reps=reps, graph=True)
+            plain_upd_ms = time_ms(lambda i: update(tk.sfc_gemm_tn_plain, x, dcs, sets, dt, bm=64, bn=64),
+                                   reps=1, warmup=1)
+            plain_norm_ms = time_ms(lambda i: tk.sfc_gemm_tn_plain(x, *dcs, norm=True, bm=64, bn=64),
+                                    reps=1, warmup=1)
+            for mode, ms, plain_ms, l_ms in (("update", upd_ms, plain_upd_ms, lib_ms),
+                                             ("norm", norm_ms, plain_norm_ms, None)):
+                g2 = dataclasses.replace(gm, mode=mode)
+                bound_ms, bound_by = _bound(g2.flops(), g2.bytes(2))
+                rows.append(dict(gemm=g2, max_abs_err=err if mode == "update" else norm_err, ms=ms, plain_ms=plain_ms,
+                                 library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by))
+            del ins, x, dcs, sets
+            torch.cuda.empty_cache()
+    return rows, checks
+
+
+@dataclasses.dataclass(frozen=True)
 class AttnBwd:
     """One flash backward: dQ (K12) and dK/dV (K13) for (b, s) queries
     against (b, t) keys."""
@@ -669,9 +831,74 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     return out
 
 
+def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, batches):
+    """Full-width qwen3-4b cut to GRAD_CHECK_LAYERS layers, in f32: two
+    fused-optimizer steps (sfc_cuda + attn_impl="sfc", AdamW of every
+    projection in K8's update flush, the clip exact in two phases) against
+    two unfused sfc_cuda steps from the same init, with a clip that binds:
+    losses, grad norms, every parameter and every master / mu / nu within
+    the f32 bound; then a third fused step whose gradients are all NaN (a
+    hook on the final norm's output): every weight and state bitwise
+    unchanged, the step counted."""
+    cfg4 = dataclasses.replace(cfg, n_layers=GRAD_CHECK_LAYERS, param_dtype="float32")
+    opt_cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3, clip_norm=FUSED_CHECK_CLIP)
+    runs = {}
+    for name, fused in (("unfused", False), ("fused", True)):
+        model = build_model(cfg4, device="cuda").init(torch.Generator(device="cuda").manual_seed(7))
+        step = make_train_step(model, opt_cfg, backend=BackendConfig(gemm_backend="sfc_cuda", attn_impl="sfc",
+                                                                     fused_optimizer=fused))
+        state = opt.adamw_init(dict(model.named_parameters()))
+        metrics = []
+        modes0 = dict(tk.sfc_gemm_tn.launches_by_mode)
+        for batch in batches[:2]:
+            state, m = step(state, batch)
+            metrics.append({"loss": m["loss"], "grad_norm": m["grad_norm"]})
+        torch.cuda.synchronize()
+        modes = {k: v - modes0.get(k, 0) for k, v in tk.sfc_gemm_tn.launches_by_mode.items()}
+        runs[name] = (model, step, state, metrics, modes)
+    (mu_, _, su, metu, _), (mf, stepf, sf, metf, modesf) = runs["unfused"], runs["fused"]
+    per_step = GRAD_CHECK_LAYERS * 6 + 1
+    worst, ok = 0.0, True
+    for a, b in zip(metf, metu):
+        for key in ("loss", "grad_norm"):
+            ok_, _, w_ = within(a[key], b[key], torch.float32)
+            ok, worst = ok and ok_, max(worst, w_)
+    binds = all(float(m["grad_norm"]) > FUSED_CHECK_CLIP for m in metu)
+    pf, pu = dict(mf.named_parameters()), dict(mu_.named_parameters())
+    for n in pf:
+        for a, b in [(pf[n], pu[n])] + [(sf[k][n], su[k][n]) for k in ("mu", "nu", "master")]:
+            ok_, _, w_ = within(a.detach(), b.detach(), torch.float32)
+            ok, worst = ok and ok_, max(worst, w_)
+    no_grad = all(p.grad is None for p in pf.values())
+    counts_ok = modesf.get("norm", 0) == modesf.get("update", 0) == 2 * per_step and not modesf.get("dw")
+    del mu_, su, pu, runs
+    # the non-finite case
+    before = {n: p.detach().clone() for n, p in pf.items()}
+    slots = {k: {n: t.clone() for n, t in sf[k].items()} for k in ("mu", "nu", "master")}
+    hook = mf.final_norm.register_forward_hook(lambda mod, inp, out: out.register_hook(lambda g: g * float("nan"))
+                                               and None)
+    sf, m_nan = stepf(sf, batches[2])
+    hook.remove()
+    torch.cuda.synchronize()
+    skipped = (not math.isfinite(float(m_nan["grad_norm"])) and int(sf["step"]) == 3
+               and all(torch.equal(p.detach(), before[n]) for n, p in pf.items())
+               and all(torch.equal(sf[k][n], slots[k][n]) for k in slots for n in slots[k]))
+    out = {"layers": GRAD_CHECK_LAYERS, "dtype": "float32", "clip_norm": FUSED_CHECK_CLIP, "clip_binds": binds,
+           "losses": {"fused": [float(m["loss"]) for m in metf], "unfused": [float(m["loss"]) for m in metu]},
+           "grad_norms": {"fused": [float(m["grad_norm"]) for m in metf],
+                          "unfused": [float(m["grad_norm"]) for m in metu]},
+           "worst_err_over_bound": worst, "within_f32_bound": ok, "no_weight_has_grad": no_grad,
+           "tn_launches_by_mode_2_steps": modesf, "nonfinite_step_skipped_bitwise": skipped}
+    del mf, sf, stepf, pf, before, slots
+    if not (ok and binds and no_grad and counts_ok and skipped):
+        raise AssertionError(f"the fused step disagrees with the unfused one: {out}")
+    return out
+
+
 # kernel-name fragments of the port's kernels in a profiler trace
 _KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("nt_kernel", "K7"), ("tn_kernel", "K8"),
-                  ("flash_fwd_kernel", "K11"), ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"))
+                  ("tn_update_kernel", "K8 norm/update"), ("flash_fwd_kernel", "K11"),
+                  ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"))
 
 
 def profile_step(torch, step_fn, opt_state, batch):
@@ -690,8 +917,8 @@ def profile_step(torch, step_fn, opt_state, batch):
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups = {label: 0.0 for _, label in _KERNEL_GROUPS}
-    groups["other"] = 0.0
+    groups = {label: 0.0 for _, label in _KERNEL_GROUPS if label != "K8 norm/update"}
+    groups.update({"K8 norm": 0.0, "K8 update": 0.0, "other": 0.0})
     top = []
     for ev in prof.key_averages():
         # the device's own activities (kernels, memcpy, memset); a CPU op
@@ -700,6 +927,8 @@ def profile_step(torch, step_fn, opt_state, batch):
         if ev.device_type != DeviceType.CUDA or us <= 0:
             continue
         label = next((lab for frag, lab in _KERNEL_GROUPS if frag in ev.key), "other")
+        if label == "K8 norm/update":  # tn_update_kernel<T, DUAL, UPDATE, SR>
+            label = "K8 update" if ev.key.split("tn_update_kernel<")[1].split(", ")[2] == "true" else "K8 norm"
         groups[label] += us / 1e3
         top.append((us / 1e3, ev.key[:80]))
     busy = sum(groups.values()) / 1e3
@@ -709,20 +938,33 @@ def profile_step(torch, step_fn, opt_state, batch):
                        "device_ms_by_group": groups, "top_device_ms": top[:10]}
 
 
+def _tn_mode_counts(tn):
+    return {f"sfc_gemm_tn:{mode}": tn.launches_by_mode.get(mode, 0) for mode in ("dw", "norm", "update")}
+
+
 def phase_train(torch, cfg, build_trainer, counted):
     """Three steps of `build_trainer` at full width under sfc_cuda +
-    attn_impl="sfc", then the same steps from the same init under torch +
-    blockwise.  Returns (summary, launches by shape of the sfc run)."""
+    attn_impl="sfc", the same steps from the same init with the fused
+    optimizer, then under torch + blockwise.  Returns (summary, launches by
+    shape of each sfc run)."""
     per_step = cfg.n_layers * 6 + 1
-    want = {"sfc_gemm_fused": per_step, "sfc_gemm_nt": per_step, "sfc_gemm_tn": per_step,
-            "sfc_flash_fwd": cfg.n_layers, "sfc_flash_bwd_dq": cfg.n_layers, "sfc_flash_bwd_dkv": cfg.n_layers}
+    layers = {"sfc_flash_fwd": cfg.n_layers, "sfc_flash_bwd_dq": cfg.n_layers, "sfc_flash_bwd_dkv": cfg.n_layers}
+    want = {"sfc_gemm_fused": per_step, "sfc_gemm_nt": per_step, "sfc_gemm_tn": per_step, **layers,
+            "sfc_gemm_tn:dw": per_step, "sfc_gemm_tn:norm": 0, "sfc_gemm_tn:update": 0}
+    # the fused step: K8 runs its norm mode in the backward and its update
+    # mode after it, and never writes dW
+    want_fused = {**want, "sfc_gemm_tn": 2 * per_step, "sfc_gemm_tn:dw": 0, "sfc_gemm_tn:norm": per_step,
+                  "sfc_gemm_tn:update": per_step}
+    tn = counted["sfc_gemm_tn"]
     runs, by_shape = {}, {}
-    for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
+    for name, (gemm, impl, fused) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc", False)),
+                                      ("sfc_cuda+sfc_attn+fused_optimizer", ("sfc_cuda", "sfc", True)),
+                                      ("torch", ("torch", "blockwise", False))):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model, opt_state, step_fn, batch_fn = build_trainer(
             cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=TRAIN_STEPS, seed=0,
-            gemm_backend=gemm, attn_impl=impl, device="cuda")
+            gemm_backend=gemm, attn_impl=impl, fused_optimizer=fused, device="cuda")
         params = dict(model.named_parameters())
         # a fingerprint of each initial parameter (its f64 sum): every
         # parameter's f32 master must move off it
@@ -734,41 +976,58 @@ def phase_train(torch, cfg, build_trainer, counted):
             fn.launches = 0
             if hasattr(fn, "launches_by_shape"):
                 fn.launches_by_shape.clear()
+        tn.launches_by_mode.clear()
+
+        def counts():
+            return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(tn)}
+
         for step in range(TRAIN_STEPS):
             batch = batch_fn(step)
-            start = {k: fn.launches for k, fn in counted.items()}
+            start = counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             opt_state, metrics = step_fn(opt_state, batch)
             losses.append(float(metrics["loss"]))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            launches.append({k: fn.launches - start[k] for k, fn in counted.items()})
+            launches.append({k: v - start[k] for k, v in counts().items()})
         unchanged = [n for n in params if float(opt_state["master"][n].double().sum()) == before[n]]
         runs[name] = {"losses": losses, "step_s": times, "setup_s": setup_s,
                       "peak_memory_bytes": torch.cuda.max_memory_allocated(), "unchanged_params": unchanged,
+                      "params_with_grad": [n for n, p in params.items() if p.grad is not None],
                       "launches_per_step": launches, "grad_norm_last": float(metrics["grad_norm"])}
-        if name == "sfc_cuda+sfc_attn":
-            by_shape = {k: dict(fn.launches_by_shape) for k, fn in counted.items() if hasattr(fn, "launches_by_shape")}
-            by_shape["totals"] = {k: fn.launches for k, fn in counted.items()}
+        if gemm == "sfc_cuda":
+            by_shape[name] = {k: dict(fn.launches_by_shape) for k, fn in counted.items()
+                              if hasattr(fn, "launches_by_shape")}
+            by_shape[name]["totals"] = counts()
         # a fourth step, profiled, for the split of its time (not compared)
         opt_state, runs[name]["profiled_step"] = profile_step(torch, step_fn, opt_state, batch_fn(TRAIN_STEPS))
         del model, opt_state, step_fn, batch_fn, params, metrics
         torch.cuda.empty_cache()
-    sfc, ref = runs["sfc_cuda+sfc_attn"], runs["torch"]
-    loss_ok = [math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b) for a, b in zip(sfc["losses"], ref["losses"])]
+    sfc, fused, ref = runs["sfc_cuda+sfc_attn"], runs["sfc_cuda+sfc_attn+fused_optimizer"], runs["torch"]
+
+    def close(a_run, b_run):
+        return [math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+                for a, b in zip(a_run["losses"], b_run["losses"])]
+
+    loss_ok, fused_ok = close(sfc, ref), close(fused, sfc)
     out = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "launches_expected_per_step": want,
-           "loss_within_2^-7": loss_ok, **{f"{k}": v for k, v in runs.items()}}
+           "fused_launches_expected_per_step": want_fused, "loss_within_2^-7": loss_ok,
+           "fused_loss_within_2^-7_of_unfused": fused_ok, **{f"{k}": v for k, v in runs.items()}}
     emit(out)
-    bad_counts = [i for i, c in enumerate(sfc["launches_per_step"]) if c != want]
-    if bad_counts:
-        raise AssertionError(f"train steps {bad_counts} launched {sfc['launches_per_step']}, expected {want} per step")
-    if not all(loss_ok) or not all(math.isfinite(x) for x in ref["losses"]):
-        raise AssertionError(f"train losses {sfc['losses']} vs torch {ref['losses']}: not within 2^-7 or not finite")
+    for run, expect in ((sfc, want), (fused, want_fused)):
+        bad_counts = [i for i, c in enumerate(run["launches_per_step"]) if c != expect]
+        if bad_counts:
+            raise AssertionError(f"train steps {bad_counts} launched {run['launches_per_step']}, expected {expect}")
+    if not all(loss_ok) or not all(fused_ok) or not all(math.isfinite(x) for x in ref["losses"]):
+        raise AssertionError(f"train losses {sfc['losses']} (fused {fused['losses']}) vs torch {ref['losses']}: "
+                             "not within 2^-7 or not finite")
     for name, run in runs.items():
         if run["unchanged_params"]:
             raise AssertionError(f"{name} training left parameters unchanged: {run['unchanged_params']}")
+    if fused["params_with_grad"]:
+        raise AssertionError(f"the fused step left weights with a .grad: {fused['params_with_grad']}")
     return out, by_shape
 
 
@@ -823,7 +1082,9 @@ def main() -> int:
     from repro_torch.kernels import sfc_gemm as tk
     from repro_torch.launch.train import build_trainer
     from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw as opt
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.train.step import BackendConfig, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -846,13 +1107,18 @@ def main() -> int:
     rows, checks = phase_kernels(torch, cfg, gemms, tk, ops)
     attn_rows, attn_checks = phase_attention(torch, attention_cases(cfg), tsa, tfa, build)
     bwd_rows, bwd_checks = phase_backward_gemms(torch, train_backward_gemms(cfg), tk, ops)
+    upd_rows, upd_checks = phase_update_gemms(torch, cfg, tk, opt)
     attn_bwd_rows, attn_bwd_checks = phase_attention_bwd(torch, attention_bwd_cases(cfg), tsa, build)
     small = small_reference_check(torch, get_config, build_model, gemm_backend)
     emit({"phase": "kernels_vs_plain", "ok": True, "tolerance": {
         "float32": f"|k-p| <= {F32_RTOL}|p| + {F32_ATOL_REL} max|p|",
         "bfloat16": f"|k-p| <= 2^-7 |p| + {BF16_ATOL_REL} max|p|",
         "lse": "float32 tolerance"},
-        "checks": checks + attn_checks + bwd_checks + attn_bwd_checks, "reduced_model_f32_vs_reference": small})
+        "tn_update": "master, mu, nu and the norms at the float32 tolerance; a bf16 W bitwise the stochastic "
+                     "rounding of the kernel's master with the plain version's bits and within the bfloat16 "
+                     "tolerance of the plain W",
+        "checks": checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks,
+        "reduced_model_f32_vs_reference": small})
     torch.cuda.empty_cache()
 
     # ---- 3. gradients of a 4-layer full-width model in f32 -----------------
@@ -860,6 +1126,11 @@ def main() -> int:
     gc_batch = {key: torch.from_numpy(val).cuda() for key, val in data.batch(0).items()}
     emit({"phase": "grad_check", "ok": True,
           **phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, gc_batch)})
+    torch.cuda.empty_cache()
+    fc_batches = [{key: torch.from_numpy(val).cuda() for key, val in data.batch(i).items()} for i in range(3)]
+    emit({"phase": "fused_step_check", "ok": True,
+          **phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, fc_batches)})
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 4. serve full-width qwen3-4b --------------------------------------
@@ -998,7 +1269,8 @@ def main() -> int:
     counted = {"sfc_gemm_fused": tk.sfc_gemm_fused, "sfc_gemm_nt": tk.sfc_gemm_nt, "sfc_gemm_tn": tk.sfc_gemm_tn,
                "sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_flash_bwd_dq": tsa.sfc_flash_bwd_dq,
                "sfc_flash_bwd_dkv": tsa.sfc_flash_bwd_dkv}
-    _, train_counts = phase_train(torch, cfg, build_trainer, counted)
+    _, counts_by_run = phase_train(torch, cfg, build_trainer, counted)
+    train_counts, fused_counts = counts_by_run["sfc_cuda+sfc_attn"], counts_by_run["sfc_cuda+sfc_attn+fused_optimizer"]
 
     # ---- 6. the kernels line ------------------------------------------------
     kernels = []
@@ -1035,6 +1307,25 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": {"m": gm.m, "k": gm.k, "n": gm.n, "dual": gm.dual},
+        })
+    for row in upd_rows:
+        gm = row["gemm"]
+        kernels.append({
+            "name": f"sfc_gemm_tn_{gm.mode}:{gm.name}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "replaces": "src/repro/kernels/sfc_gemm.py:1094",
+            "launches": fused_counts["sfc_gemm_tn"].get(gm.key, 0),
+            "path": "train, fused optimizer",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": "torch.mm to an f32 dW + torch._fused_adamw_ (two calls)" if gm.mode == "update" else None,
+            "shape": {"m": gm.m, "k": gm.k, "n": gm.n, "dual": gm.dual, "dtype": "bfloat16",
+                      "stochastic_round": gm.mode == "update"},
         })
     replaces = {"sfc_flash_fwd": "src/repro/kernels/sfc_attention.py:204",
                 "flash_attention": "src/repro/kernels/flash_attention.py:107",

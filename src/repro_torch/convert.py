@@ -11,7 +11,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import torch_dtype
 
-__all__ = ["params_from_jax", "params_to_jax", "opt_state_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "opt_state_from_jax", "jax_leaf_path"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -28,6 +28,18 @@ def _to_tensor(arr, device, dtype) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: widening to f32 is exact
         arr = arr.astype(np.float32)
     return torch.from_numpy(np.array(arr, order="C")).to(device=device, dtype=dtype)
+
+
+def jax_leaf_path(name: str):
+    """(path, layer) of the JAX package's leaf that holds the port's
+    parameter ``name``, the path as the JAX package's ``optim.fused`` spells
+    it: ``layers.{i}.attn.wq`` is row ``i`` of ``layers/attn/wq``, any
+    other name its keys joined by "/" with layer None (the inverse of
+    `params_from_jax`'s name map)."""
+    if name.startswith("layers."):
+        _, i, rest = name.split(".", 2)
+        return "layers/" + rest.replace(".", "/"), int(i)
+    return name.replace(".", "/"), None
 
 
 def params_from_jax(
@@ -94,8 +106,12 @@ def opt_state_from_jax(
 ) -> Dict[str, Any]:
     """The port's AdamW state from the JAX package's ``adamw_init`` tree
     (numpy leaves): the step as an int32 scalar, and ``mu``, ``nu`` and
-    ``master`` as f32 tensors named as the model's parameters."""
+    ``master`` as f32 tensors named as the model's parameters; the optional
+    ``gnorm`` leaf (``adamw_init(..., with_gnorm=True)``, informational)
+    as an f32 scalar."""
     out: Dict[str, Any] = {"step": torch.tensor(np.asarray(state["step"]), dtype=torch.int32).to(device)}
+    if "gnorm" in state:
+        out["gnorm"] = torch.tensor(np.asarray(state["gnorm"]), dtype=torch.float32).to(device)
     for slot in ("mu", "nu", "master"):
         out[slot] = params_from_jax(state[slot], cfg, device=device, dtype=torch.float32)
     return out

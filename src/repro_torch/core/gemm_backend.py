@@ -16,6 +16,12 @@ gradient, `matmul` and `glu_matmul` run through `kernels.ops`'s autograd
 Function, whose backward launches the NT (dA) and TN (dW) kernels.  There
 is no fallback ladder: "sfc_cuda" launches the kernel on a CUDA tensor or
 raises.
+
+The fused optimizer (`optim.fused`): while a fused step's session is
+active, a weight it routes goes through `ops.fused_update_matmul` /
+`fused_update_glu_matmul` instead (the TN kernel's update flush under
+"sfc_cuda", the JAX package's oracle under the other backends), and a
+routing probe counts the parameters that reach these call sites.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from repro_torch.core.namespaces import (
     BACKEND_TORCH,
     BACKENDS,
 )
+from repro_torch.optim import fused as _fused
 
 __all__ = ["gemm_backend", "current_backend", "matmul", "glu_matmul"]
 
@@ -113,8 +120,28 @@ def matmul(
     Under "sfc_cuda", rank-2 ``x`` launches the kernel's plain mode and
     rank >= 3 its batched mode (one SFC traversal per batch element, the
     weight panels shared), except decode-shaped (B, 1, K), which is
-    flattened to (B, K)."""
+    flattened to (B, K).  A weight routed by the active fused step goes
+    through the update path (no ``out_scale`` or ``residual`` there, as in
+    the JAX package)."""
     name = _BACKEND.get()
+    fusable = out_scale is None and residual is None
+    probe = _fused.current_probe()
+    if probe is not None and fusable:
+        probe.observe(w, "matmul")
+    session = _fused.current_session()
+    leaf = session.lookup(w) if session is not None else None
+    if leaf is not None:
+        if not fusable:
+            raise NotImplementedError("fused-optimizer routing does not support out_scale/residual epilogues; "
+                                      "exclude this weight with fused_filter")
+        from repro_torch.kernels.ops import fused_update_matmul
+
+        slot = session.slot(leaf)
+        if name == BACKEND_SFC_CUDA:
+            x_run, _, post = _kernel_operands(x, None, w.shape[1])
+            out = fused_update_matmul(x_run, w, slot, bias=bias, activation=activation)
+            return post(out) if post is not None else out
+        return fused_update_matmul(x, w, slot.dw_sink(0), bias=bias, activation=activation, fused=False)
     if name == BACKEND_TORCH or w.ndim != 2:
         return _epilogue(
             x @ w, bias=bias, activation=activation,
@@ -152,8 +179,32 @@ def glu_matmul(
     """Gated projection ``act(x@w_gate + gate_bias) * (x@w_val + bias)``
     through the active backend.  Under "sfc_cuda" the dual-B kernel
     traverses ``x`` once: two weight panels, two f32 accumulators, one
-    fused flush."""
+    fused flush.  Routed by the active fused step, the pair goes through
+    the dual update path; both weights must be routed or neither."""
     name = _BACKEND.get()
+    fusable = out_scale is None and residual is None
+    probe = _fused.current_probe()
+    if probe is not None and fusable:
+        probe.observe(w_gate, "glu")
+        probe.observe(w_val, "glu")
+    session = _fused.current_session()
+    if session is not None and (session.lookup(w_gate) is not None or session.lookup(w_val) is not None):
+        leaf_g, leaf_v = session.lookup(w_gate), session.lookup(w_val)
+        if leaf_g is None or leaf_v is None:
+            raise ValueError("GLU gate/value weights must be fused-routed together; adjust fused_filter so both "
+                             "(or neither) match")
+        if not fusable:
+            raise NotImplementedError("fused-optimizer routing does not support out_scale/residual epilogues; "
+                                      "exclude these weights with fused_filter")
+        from repro_torch.kernels.ops import fused_update_glu_matmul
+
+        slot = session.slot(leaf_v, leaf_g)
+        kw = dict(activation=activation, bias=bias, gate_bias=gate_bias)
+        if name == BACKEND_SFC_CUDA:
+            x_run, _, post = _kernel_operands(x, None, w_val.shape[1])
+            out = fused_update_glu_matmul(x_run, w_gate, w_val, slot, **kw)
+            return post(out) if post is not None else out
+        return fused_update_glu_matmul(x, w_gate, w_val, (slot.dw_sink(0), slot.dw_sink(1)), fused=False, **kw)
     if name == BACKEND_TORCH or w_val.ndim != 2:
         g = x @ w_gate
         if gate_bias is not None:

@@ -7,8 +7,9 @@ keyed by a digest of the source, every ``csrc/`` header it includes, and
 the flags, and loaded with ``ctypes``.  Two libraries:
 
 * ``sfc_gemm_fused.cu``, compiled once per (input type, GLU, activation)
-  part, each part with its epilogue flags as template parameters, plus one
-  backward part per input type (``-DSFC_BWD=1``: the NT and TN kernels);
+  part, each part with its epilogue flags as template parameters, plus two
+  backward parts per input type (``-DSFC_BWD=1``: the NT and TN kernels;
+  ``-DSFC_BWD=2``: the TN kernel with its update / norm flush);
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
@@ -85,8 +86,9 @@ def entry_name(dtype_name: str, glu: bool, activation: Optional[str]) -> str:
 
 
 def bwd_entry_name(kind: str, dtype_name: str) -> str:
-    """C symbol of a backward GEMM entry: ``kind`` is "nt" (dA) or "tn" (dW)."""
-    if kind not in ("nt", "tn"):
+    """C symbol of a backward GEMM entry: ``kind`` is "nt" (dA), "tn" (dW)
+    or "tn_update" (the TN kernel's update and norm modes)."""
+    if kind not in ("nt", "tn", "tn_update"):
         raise ValueError(f"unknown backward GEMM kind {kind!r}")
     return f"sfc_gemm_{kind}_{dtype_name}"
 
@@ -114,6 +116,11 @@ def _gemm_parts():
             "-DSFC_BWD=1",
             f"-DSFC_NT_ENTRY={bwd_entry_name('nt', dt)}",
             f"-DSFC_TN_ENTRY={bwd_entry_name('tn', dt)}",
+        )
+        yield f"sfc_gemm_tn_update_{dt}", (
+            f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
+            "-DSFC_BWD=2",
+            f"-DSFC_TNU_ENTRY={bwd_entry_name('tn_update', dt)}",
         )
 
 
@@ -150,6 +157,18 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                 ptr,  # cudaStream_t
             ]
             fn.restype = i32
+        fn = getattr(lib, bwd_entry_name("tn_update", dt))
+        fn.argtypes = [
+            ptr, ptr, ptr,  # a, b, b2
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # w, w2, master, mu, nu, master2, mu2, nu2
+            ptr, i32, i32,  # hyper (null: norm mode), salt, stochastic_round
+            ptr,  # partials (n_sets, n_tasks) f32
+            ptr, i32,  # task table, n_tasks
+            i32, i32, i32,  # R, C, D
+            i32, i32,  # vec_a, vec_b
+            ptr,  # cudaStream_t
+        ]
+        fn.restype = i32
 
 
 def _bind_attention(lib: ctypes.CDLL) -> None:

@@ -60,8 +60,31 @@
 //   token rows runs inside one CTA, so there are no atomics and the result is
 //   deterministic; the A panel is loaded as stored and read as a col_major
 //   matrix_a.  The dual form shares the A panel between two accumulators and
-//   two outputs (the GLU's dWv, dWg).  The TPU kernel's update flush (fused
-//   AdamW) and its ABFT lane are not ported.
+//   two outputs (the GLU's dWv, dWg).  The TPU kernel's ABFT lane is not
+//   ported.
+//
+// -DSFC_BWD=2 compiles tn_update_kernel (entry -DSFC_TNU_ENTRY), the same TN
+// traversal with the TPU kernel's grad-and-update flush
+// (`_apply_update_flush`) in place of the dW write, in two modes:
+//   update: AdamW on each f32 dW tile, already staged in shared memory,
+//     against the f32 master / mu / nu, read and written in place with
+//     coalesced accesses; W is written in the input type, for bf16
+//     stochastically rounded on request; the 12 AdamW scalars come from a
+//     device vector (`optim/adamw.py::pack_adamw_hyper`), read once per CTA,
+//     and the weight's salt is an argument; a gradient scale of 0 keeps the
+//     state and writes the deterministic cast (the non-finite skip).
+//   norm: only each tile's sum(dW^2), the first phase of the exact clip.
+//   Both write the tile's sum(dW^2), taken before the scale, into a per-task
+//   partials buffer that the wrapper sums on the device: no atomics, so the
+//   norm is deterministic as the dW write is.  The stochastic-rounding bits
+//   are the counter hash of the JAX package's interpret path
+//   (`tile_random_bits`, `_tile_seed`), so they equal the plain version's.
+//   The flush arithmetic uses the _rn intrinsics, so no product is fused
+//   into an FMA and each step rounds as the plain version's does.
+//   What bounds it: per weight element it reads 12 B of state and writes
+//   14 B (at 2 x 256 token rows that is at least as long as the bf16
+//   products); the flush has no vector loads and runs once per tile after
+//   the main loop, so its traffic does not overlap the products.
 // What bounds them on the H100: the training step's 512 token rows make
 // every dA and dW a 2*512*K*N flop product over (512 + K)*N or (K + N)*512
 // inputs, tensor-core bound at the bf16 peak for every projection.  What
@@ -85,7 +108,7 @@
 #ifndef SFC_ENTRY
 #define SFC_ENTRY sfc_gemm_fused_entry
 #endif
-#ifndef SFC_BWD  // 1: this part holds the NT / TN backward kernels instead
+#ifndef SFC_BWD  // 1: the NT / TN backward kernels instead; 2: the TN update / norm kernel
 #define SFC_BWD 0
 #endif
 #ifndef SFC_NT_ENTRY
@@ -93,6 +116,9 @@
 #endif
 #ifndef SFC_TN_ENTRY
 #define SFC_TN_ENTRY sfc_gemm_tn_entry
+#endif
+#ifndef SFC_TNU_ENTRY
+#define SFC_TNU_ENTRY sfc_gemm_tn_update_entry
 #endif
 
 namespace {
@@ -774,6 +800,173 @@ BwdParams bwd_params(const void* a, const void* b, const void* a2, const void* b
   return p;
 }
 
+#if SFC_BWD == 2
+
+// lanes of the (12,) hyper vector (optim/adamw.py HYP_*); the salt lane is
+// not read, the salt is an argument
+enum { kLR, kB1, k1MB1, kB2, k1MB2, kEPS, kWD, kB1C, kB2C, kSCALE, kSEED };
+
+struct UpdParams {
+  void* w;  // update mode: W (R, C) in the input type, written in place
+  void* w2;
+  float* mst;  // f32 master, mu, nu (R, C), read and written in place
+  float* mu;
+  float* nu;
+  float* mst2;
+  float* mu2;
+  float* nu2;
+  const float* hyper;  // null: norm mode
+  unsigned salt;
+  float* partials;  // (n_sets, n_tasks): each task's sum(dW^2)
+};
+
+// repro/kernels/sfc_gemm.py::_hash_u32 (murmur3-style finalizer)
+__device__ __forceinline__ unsigned hash_u32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// repro/kernels/sfc_gemm.py::_tile_seed: the step's bits, the weight's salt,
+// the tile (im, in), and one more salt of 1 for the dual form's second set
+__device__ __forceinline__ unsigned tile_seed(unsigned step_bits, unsigned salt, unsigned im, unsigned in,
+                                              int set) {
+  unsigned h = hash_u32(step_bits ^ 0x2545F491u);
+  h = hash_u32(h ^ salt * 0x85EBCA77u);
+  h = hash_u32(h ^ im * 0x9E3779B1u);
+  h = hash_u32(h ^ in * 0x9E3779B1u);
+  if (set) h = hash_u32(h ^ 0x9E3779B1u);
+  return h;
+}
+
+// W from the new master: a plain cast, or for bf16 with SR the stochastic
+// rounding of repro/kernels/sfc_gemm.py::stochastic_round_to (non-finite
+// values are cast)
+template <typename T>
+__device__ __forceinline__ T write_w(float x, unsigned bits, bool sr);
+template <>
+__device__ __forceinline__ float write_w<float>(float x, unsigned, bool) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 write_w<bf16>(float x, unsigned bits, bool sr) {
+  const unsigned u = __float_as_uint(x);
+  if (sr && (u & 0x7F800000u) != 0x7F800000u) x = __uint_as_float((u + (bits & 0xFFFFu)) & 0xFFFF0000u);
+  return __float2bfloat16(x);  // exact after the truncation
+}
+
+// The CTA's sum of v in a fixed order (a warp butterfly, then warp 0's lane 0
+// over the warp sums); valid in thread 0.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  __syncthreads();  // red may still be read by a previous call
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) s += red[i];
+  }
+  return s;
+}
+
+// One set's flush from the f32 C tile in shared memory: sum(dW^2), and in
+// update mode AdamW in the TPU kernel's expression order.
+template <typename T, bool UPDATE, bool SR>
+__device__ __forceinline__ void update_flush(const float* Cs, const BwdParams& p, const UpdParams& u, int set,
+                                             const float* hv, unsigned seed, int row0, int col0, float* red) {
+  T* W = static_cast<T*>(set ? u.w2 : u.w);
+  float* mst = set ? u.mst2 : u.mst;
+  float* mu = set ? u.mu2 : u.mu;
+  float* nu = set ? u.nu2 : u.nu;
+  const bool skip = UPDATE && hv[kSCALE] == 0.0f;
+  float sq = 0.0f;
+  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
+    const int r = i / kBN, c = i % kBN;
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr >= p.R || gc >= p.C) continue;
+    const float acc = Cs[r * kLDC + c];
+    sq = __fadd_rn(sq, __fmul_rn(acc, acc));
+    if constexpr (UPDATE) {
+      const size_t idx = (size_t)gr * p.C + gc;
+      const float m0 = mu[idx], v0 = nu[idx], w0 = mst[idx];
+      const float g = __fmul_rn(acc, hv[kSCALE]);
+      float m1 = __fadd_rn(__fmul_rn(hv[kB1], m0), __fmul_rn(hv[k1MB1], g));
+      float v1 = __fadd_rn(__fmul_rn(hv[kB2], v0), __fmul_rn(hv[k1MB2], __fmul_rn(g, g)));
+      const float mhat = __fdiv_rn(m1, hv[kB1C]);
+      const float nhat = __fdiv_rn(v1, hv[kB2C]);
+      const float step = __fadd_rn(__fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(nhat), hv[kEPS])), __fmul_rn(hv[kWD], w0));
+      float w1 = __fsub_rn(w0, __fmul_rn(hv[kLR], step));
+      if (skip) {  // a select: a NaN gradient cannot reach the state
+        m1 = m0;
+        v1 = v0;
+        w1 = w0;
+      }
+      mu[idx] = m1;
+      nu[idx] = v1;
+      mst[idx] = w1;
+      unsigned bits = 0u;
+      if constexpr (SR) bits = hash_u32(seed ^ ((unsigned)r * 0x9E3779B1u) ^ ((unsigned)c * 0x85EBCA77u));
+      W[idx] = write_w<T>(w1, bits, SR && !skip);
+    }
+  }
+  const float total = block_sum(sq, red);
+  if (threadIdx.x == 0) u.partials[(size_t)set * p.n_tasks + blockIdx.x] = total;
+}
+
+template <typename T, bool DUAL, bool UPDATE, bool SR>
+__global__ void __launch_bounds__(kThreads) tn_update_kernel(const BwdParams p, const UpdParams u) {
+  constexpr int TILE = TnCfg<T>::BK * TnCfg<T>::LD;
+  constexpr int OPERAND_BYTES = TILE * (DUAL ? 3 : 2) * (int)sizeof(T);
+  constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float) * (DUAL ? 2 : 1);
+  constexpr int SMEM_BYTES = OPERAND_BYTES > EPI_BYTES ? OPERAND_BYTES : EPI_BYTES;
+  static_assert(SMEM_BYTES + 64 <= 48 * 1024, "static shared memory is capped at 48 KB");
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  __shared__ float red[kThreads / 32];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + TILE;
+  T* B2s = Bs + TILE;
+  float* Cs = reinterpret_cast<float*>(smem);
+  float* C2s = Cs + kBM * kLDC;
+  const int t = blockIdx.x;
+  const int im = __ldg(p.tab + t), in = __ldg(p.tab + p.n_tasks + t);
+  const int row0 = im * kBM, col0 = in * kBN;
+  float hv[kSEED + 1];
+#pragma unroll
+  for (int i = 0; i <= kSEED; ++i) hv[i] = UPDATE ? __ldg(u.hyper + i) : 0.0f;
+  tn_mainloop<DUAL>(p, row0, col0, As, Bs, B2s, Cs, C2s);
+  __syncthreads();
+  const unsigned step_bits = __float_as_uint(hv[kSEED]);
+  update_flush<T, UPDATE, SR>(Cs, p, u, 0, hv, SR ? tile_seed(step_bits, u.salt, im, in, 0) : 0u, row0, col0,
+                              red);
+  if constexpr (DUAL)
+    update_flush<T, UPDATE, SR>(C2s, p, u, 1, hv, SR ? tile_seed(step_bits, u.salt, im, in, 1) : 0u, row0, col0,
+                                red);
+}
+
+template <bool DUAL>
+int launch_tn_update(const BwdParams& p, const UpdParams& u, bool sr, cudaStream_t s) {
+  const unsigned grid = (unsigned)p.n_tasks;
+  if (u.hyper == nullptr) {
+    tn_update_kernel<ElemT, DUAL, false, false><<<grid, kThreads, 0, s>>>(p, u);
+  } else if constexpr (SFC_DTYPE == 1) {
+    if (sr)
+      tn_update_kernel<ElemT, DUAL, true, true><<<grid, kThreads, 0, s>>>(p, u);
+    else
+      tn_update_kernel<ElemT, DUAL, true, false><<<grid, kThreads, 0, s>>>(p, u);
+  } else {
+    // an f32 W has nothing to dither: the cast is the rounding
+    tn_update_kernel<ElemT, DUAL, true, false><<<grid, kThreads, 0, s>>>(p, u);
+  }
+  return (int)cudaGetLastError();
+}
+
+#endif  // SFC_BWD == 2
+
 #endif  // SFC_BWD
 
 }  // namespace
@@ -821,7 +1014,7 @@ extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const
   return (int)cudaGetLastError();
 }
 
-#else  // SFC_BWD
+#elif SFC_BWD == 1
 
 // NT: out (R, C) = a (R, D) @ b (C, D)^T [+ a2 @ b2^T when a2 is non-null],
 // one CTA per task of the gilbert table over the output tiles.
@@ -851,6 +1044,39 @@ extern "C" int SFC_TN_ENTRY(const void* a, const void* b, const void* b2, void* 
   else
     tn_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+#else  // SFC_BWD == 2
+
+// TN with the update flush: norm mode when hyper is null (only partials is
+// written: partials[set * n_tasks + t] = the task's sum(dW^2)), else update
+// mode, which also writes w, master, mu and nu (and the second set when b2 is
+// non-null) in place.  sr asks for the stochastic rounding of a bf16 W.
+extern "C" int SFC_TNU_ENTRY(const void* a, const void* b, const void* b2, void* w, void* w2, float* master,
+                             float* mu, float* nu, float* master2, float* mu2, float* nu2, const float* hyper,
+                             int salt, int sr, float* partials, const int* tab, int n_tasks, int R, int C, int D,
+                             int vec_a, int vec_b, void* stream) {
+  const bool dual = b2 != nullptr;
+  if (partials == nullptr) return (int)cudaErrorInvalidValue;
+  if (hyper != nullptr) {
+    if (!w || !master || !mu || !nu) return (int)cudaErrorInvalidValue;
+    if (dual != (w2 && master2 && mu2 && nu2)) return (int)cudaErrorInvalidValue;
+  }
+  const BwdParams p = bwd_params(a, b, nullptr, b2, nullptr, nullptr, tab, n_tasks, R, C, D, vec_a, vec_b);
+  UpdParams u;
+  u.w = w;
+  u.w2 = w2;
+  u.mst = master;
+  u.mu = mu;
+  u.nu = nu;
+  u.mst2 = master2;
+  u.mu2 = mu2;
+  u.nu2 = nu2;
+  u.hyper = hyper;
+  u.salt = (unsigned)salt;
+  u.partials = partials;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dual ? launch_tn_update<true>(p, u, sr != 0, s) : launch_tn_update<false>(p, u, sr != 0, s);
 }
 
 #endif  // SFC_BWD

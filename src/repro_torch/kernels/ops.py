@@ -31,6 +31,19 @@ calls keep the single fused launch with the activation in the flush.  On
 CPU tensors every launch is its kernel's plain version, so the CPU runs the
 same NT/TN structure as the card.
 
+The fused optimizer.  `sfc_matmul_tn_update` is the TN kernel in its update
+mode (dW and AdamW in one flush, the weight and its f32 state written in
+place) and `sfc_matmul_tn_norm` in its norm mode.  `_UpdateCore` is the
+autograd Function of a projection whose weight the fused optimizer routes
+(JAX: ``_update_core``): its forward is `_MatmulCore`'s; its backward runs
+the NT kernel for dA, hands ``(a, dh, dg)`` to the step's tape (which runs
+the norm mode in the first phase of the exact clip and the update mode
+after the backward) and returns no weight gradient.  Under the "torch" and
+"sfc_reference" backends a routed weight takes the JAX package's oracle
+instead (`fused_update_matmul(..., fused=False)`): plain autograd dW, handed
+to the tape through `_RoutedWeight`, then the same AdamW program
+(`plain_update`).
+
 Not ported in this slice, each raising ``NotImplementedError``: the
 replicated 2.5D form (``fuse=False``, ROADMAP queue 2 K4-K6) and the ABFT
 checksum lane (queue 1 item 14).  The backward has no fallback ladder
@@ -45,13 +58,26 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.sfc_gemm import activation_fn, kernel_tile, sfc_gemm_fused, sfc_gemm_nt, sfc_gemm_tn
+from repro_torch.kernels.sfc_gemm import (
+    activation_fn,
+    kernel_tile,
+    sfc_gemm_fused,
+    sfc_gemm_nt,
+    sfc_gemm_tn,
+    stochastic_round_to,
+    tile_random_bits,
+)
 
 __all__ = [
     "sfc_matmul",
     "sfc_glu_matmul",
     "sfc_matmul_nt",
     "sfc_matmul_tn",
+    "sfc_matmul_tn_norm",
+    "sfc_matmul_tn_update",
+    "plain_update",
+    "fused_update_matmul",
+    "fused_update_glu_matmul",
     "pick_blocks",
     "resolve_knobs",
     "reference_knobs",
@@ -246,17 +272,115 @@ def sfc_matmul_tn(
     dims fold into the contraction (the weight grad sums over them).
     Returns (K, N), or a pair with ``b2``."""
     _no_abft(abft)
-    a2d = a.reshape(-1, a.shape[-1]).contiguous()
-    b2d = b.reshape(-1, b.shape[-1]).contiguous()
-    b22d = None if b2 is None else b2.reshape(-1, b2.shape[-1]).contiguous()
+    a2d, b2d, b22d = _tn_operands(a, b, b2)
     m, k = a2d.shape
-    if b2d.shape[0] != m or (b22d is not None and b22d.shape != b2d.shape):
-        raise ValueError(f"sfc_matmul_tn row mismatch: {tuple(a.shape)}, {tuple(b.shape)}")
-    n = b2d.shape[1]
     # the output is (K, N); the contraction runs over M
-    bm, bn, kl, kbf = resolve_knobs(k, n, m, a.device, bm=bm, bn=bn, k_layers=k_layers,
+    bm, bn, kl, kbf = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
                                     k_block_factor=k_block_factor)
     return sfc_gemm_tn(a2d, b2d, b22d, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf, out_dtype=out_dtype)
+
+
+def _tn_operands(a, dy, dy2):
+    """The TN operands as 2-D contiguous matrices, leading dims folded into
+    the contraction's M rows."""
+    a2d = a.reshape(-1, a.shape[-1]).contiguous()
+    b2d = dy.reshape(-1, dy.shape[-1]).contiguous()
+    b22d = None if dy2 is None else dy2.reshape(-1, dy2.shape[-1]).contiguous()
+    if b2d.shape[0] != a2d.shape[0] or (b22d is not None and b22d.shape != b2d.shape):
+        raise ValueError(f"TN row mismatch: {tuple(a.shape)}, {tuple(dy.shape)}")
+    return a2d, b2d, b22d
+
+
+def sfc_matmul_tn_norm(
+    a: torch.Tensor,  # (..., M, K) forward activations (leading dims fold)
+    dy: torch.Tensor,  # (..., M, N) output cotangent
+    dy2: Optional[torch.Tensor] = None,  # (..., M, N) second cotangent (GLU)
+    *,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    k_layers: Optional[int] = None,
+    k_block_factor: Optional[int] = None,
+):
+    """``sum(dW²)`` of ``dW = Aᵀ @ dY`` (and of ``Aᵀ @ dY2``) from the TN
+    kernel's norm mode: dW stays in the f32 accumulator.  The first phase
+    of the fused step's exact clip (the JAX package runs the update flush at
+    scale 1 and keeps only its norm tokens).  Returns an f32 scalar, or a
+    pair with ``dy2``."""
+    a2d, b2d, b22d = _tn_operands(a, dy, dy2)
+    m, k = a2d.shape
+    bm, bn, kl, kbf = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
+                                    k_block_factor=k_block_factor)
+    norms = sfc_gemm_tn(a2d, b2d, b22d, norm=True, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf)
+    return norms[0] if dy2 is None else (norms[0], norms[1])
+
+
+def sfc_matmul_tn_update(
+    a: torch.Tensor,  # (..., M, K) forward activations (leading dims fold)
+    dy: torch.Tensor,  # (..., M, N) output cotangent
+    master: torch.Tensor,  # (K, N) f32 master weights, updated in place
+    mu: torch.Tensor,  # (K, N) f32, in place
+    nu: torch.Tensor,  # (K, N) f32, in place
+    hyper: torch.Tensor,  # (12,) f32 `optim.adamw.pack_adamw_hyper` vector
+    dy2: Optional[torch.Tensor] = None,  # (..., M, N) second cotangent (GLU)
+    master2: Optional[torch.Tensor] = None,
+    mu2: Optional[torch.Tensor] = None,
+    nu2: Optional[torch.Tensor] = None,
+    *,
+    w: torch.Tensor,  # (K, N) the weight, in a's type, written in place
+    w2: Optional[torch.Tensor] = None,
+    salt: int = 0,
+    stochastic_round: bool = False,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    k_layers: Optional[int] = None,
+    k_block_factor: Optional[int] = None,
+    abft: Optional[str] = None,
+):
+    """Fused dW-and-AdamW: one TN launch computes ``dW = Aᵀ @ dY`` in the
+    f32 accumulator and applies the update in its flush, writing W (and
+    its f32 master, mu and nu) in place; dW never reaches device memory.
+    Returns ``sum(dW²)`` before the scale (an f32 scalar, or a pair with
+    ``dy2``, whose set is (w2, master2, mu2, nu2)).  The JAX package's
+    ``sfc_matmul_tn_update`` returns the new arrays instead; its hyper
+    vector carries the salt, here ``salt`` does."""
+    _no_abft(abft)
+    a2d, b2d, b22d = _tn_operands(a, dy, dy2)
+    m, k = a2d.shape
+    bm, bn, kl, kbf = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
+                                    k_block_factor=k_block_factor)
+    norms = sfc_gemm_tn(a2d, b2d, b22d, master, mu, nu, master2, mu2, nu2, hyper, w=w, w2=w2, salt=salt,
+                        stochastic_round=stochastic_round, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf)
+    return norms[0] if dy2 is None else (norms[0], norms[1])
+
+
+@torch.no_grad()
+def plain_update(dw, master, mu, nu, w, hyper, *, salt: int, stochastic_round: bool) -> torch.Tensor:
+    """The oracle backends' AdamW step from the hyper vector (the JAX
+    package's ``_jnp_update``): `optim.adamw.adamw_leaf_update` on the raw
+    dW, written in place, W stochastically rounded (bf16) with ONE hash over
+    the whole leaf seeded ``seed ^ salt * 0x85EB`` (not per tile, so its
+    bits differ from the kernel's by design).  Returns ``sum(dW²)``."""
+    from repro_torch.optim import adamw as opt
+
+    g0 = dw.float()
+    sq = torch.sum(g0 * g0)
+    h = hyper
+    mu_n, nu_n, mst_n = opt.adamw_leaf_update(
+        g0, mu, nu, master, lr=h[opt.HYP_LR], b1=h[opt.HYP_B1], b2=h[opt.HYP_B2], eps=h[opt.HYP_EPS],
+        weight_decay=h[opt.HYP_WD], b1c=h[opt.HYP_B1C], b2c=h[opt.HYP_B2C], scale=h[opt.HYP_SCALE],
+    )
+    if stochastic_round and w.dtype == torch.bfloat16:
+        flat = mst_n.reshape(-1, mst_n.shape[-1])
+        seed = (opt.seed_from_lane(h[opt.HYP_SEED]).to(torch.int64) ^ (salt * 0x85EB)) & 0xFFFFFFFF
+        w_sr = stochastic_round_to(flat, tile_random_bits(flat.shape, seed), w.dtype).reshape(mst_n.shape)
+        w_n = torch.where(h[opt.HYP_SCALE] == 0.0, mst_n.to(w.dtype), w_sr)
+    else:
+        w_n = mst_n.to(w.dtype)
+    mu.copy_(mu_n)
+    nu.copy_(nu_n)
+    master.copy_(mst_n)
+    w.copy_(w_n)
+    return sq
 
 
 # ---------------------------------------------------------------------------
@@ -309,35 +433,54 @@ def _epilogue_cotangents(glu, activation, out_scale, h_pre, g_pre, dy):
     return dh, dg
 
 
+def _training_forward(cfg: _VjpCfg, a, b, b_gate, bias, gate_bias, residual):
+    """JAX's training forward of ``_matmul_core``: (out, h_pre, g_pre), the
+    pre-activations kept for the backward (None for a linear epilogue)."""
+    out_dtype = cfg.out_dtype or a.dtype
+    kw = dict(bm=cfg.bm, bn=cfg.bn, k_layers=cfg.k_layers, k_block_factor=cfg.k_block_factor,
+              fuse=cfg.fuse, abft=cfg.abft)
+    h_pre = g_pre = None
+    if cfg.glu:
+        h_pre, g_pre = _matmul_impl(a, b, b_gate, bias=bias, gate_bias=gate_bias, residual=None,
+                                    activation=None, out_scale=None, out_dtype=None, preact=True, **kw)
+        y = activation_fn(cfg.activation)(g_pre.float()) * h_pre.float()
+    elif cfg.activation is not None:
+        h_pre = _matmul_impl(a, b, None, bias=bias, gate_bias=None, residual=None,
+                             activation=None, out_scale=None, out_dtype=None, **kw)
+        y = activation_fn(cfg.activation)(h_pre.float())
+    else:
+        # linear epilogue: the fully fused path is the training forward too
+        out = _matmul_impl(a, b, None, bias=bias, gate_bias=None, residual=residual,
+                           activation=None, out_scale=cfg.out_scale, out_dtype=cfg.out_dtype, **kw)
+        return out, None, None
+    if cfg.out_scale is not None:
+        y = y * cfg.out_scale
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(out_dtype), h_pre, g_pre
+
+
+def _compute_cotangents(cfg: _VjpCfg, a, h_pre, g_pre, dy):
+    """(dh, dg) in f32 and (dh_c, dg_c) in the compute type: the backward
+    kernels run in the forward's compute type."""
+    dh, dg = _epilogue_cotangents(cfg.glu, cfg.activation, cfg.out_scale, h_pre, g_pre, dy)
+    return dh, dg, dh.to(a.dtype), None if dg is None else dg.to(a.dtype)
+
+
+def _bias_grads(dh, dg, bias, gate_bias):
+    lead_axes = tuple(range(dh.ndim - 1))
+    dbias = None if bias is None else dh.sum(dim=lead_axes).reshape(bias.shape).to(bias.dtype)
+    dgbias = None if gate_bias is None else dg.sum(dim=lead_axes).reshape(gate_bias.shape).to(gate_bias.dtype)
+    return dbias, dgbias
+
+
 class _MatmulCore(torch.autograd.Function):
     """``_matmul_core`` of the JAX package: the training forward on the
     forward kernel, the backward on the NT/TN kernels."""
 
     @staticmethod
     def forward(ctx, cfg: _VjpCfg, a, b, b_gate, bias, gate_bias, residual):
-        out_dtype = cfg.out_dtype or a.dtype
-        kw = dict(bm=cfg.bm, bn=cfg.bn, k_layers=cfg.k_layers, k_block_factor=cfg.k_block_factor,
-                  fuse=cfg.fuse, abft=cfg.abft)
-        h_pre = g_pre = None
-        if cfg.glu:
-            h_pre, g_pre = _matmul_impl(a, b, b_gate, bias=bias, gate_bias=gate_bias, residual=None,
-                                        activation=None, out_scale=None, out_dtype=None, preact=True, **kw)
-            y = activation_fn(cfg.activation)(g_pre.float()) * h_pre.float()
-        elif cfg.activation is not None:
-            h_pre = _matmul_impl(a, b, None, bias=bias, gate_bias=None, residual=None,
-                                 activation=None, out_scale=None, out_dtype=None, **kw)
-            y = activation_fn(cfg.activation)(h_pre.float())
-        else:
-            # linear epilogue: the fully fused path is the training forward too
-            out = _matmul_impl(a, b, None, bias=bias, gate_bias=None, residual=residual,
-                               activation=None, out_scale=cfg.out_scale, out_dtype=cfg.out_dtype, **kw)
-            y = None
-        if y is not None:
-            if cfg.out_scale is not None:
-                y = y * cfg.out_scale
-            if residual is not None:
-                y = y + residual.float()
-            out = y.to(out_dtype)
+        out, h_pre, g_pre = _training_forward(cfg, a, b, b_gate, bias, gate_bias, residual)
         ctx.cfg = cfg
         ctx.res_dtype = None if residual is None else residual.dtype
         ctx.save_for_backward(a, b, b_gate, h_pre, g_pre, bias, gate_bias)
@@ -348,10 +491,7 @@ class _MatmulCore(torch.autograd.Function):
         a, b, b_gate, h_pre, g_pre, bias, gate_bias = ctx.saved_tensors
         cfg = ctx.cfg
         need_a, need_b, need_bg = ctx.needs_input_grad[1:4]
-        dh, dg = _epilogue_cotangents(cfg.glu, cfg.activation, cfg.out_scale, h_pre, g_pre, dy)
-        cdt = a.dtype  # the backward kernels run in the forward's compute type
-        dh_c = dh.to(cdt)
-        dg_c = None if dg is None else dg.to(cdt)
+        dh, dg, dh_c, dg_c = _compute_cotangents(cfg, a, h_pre, g_pre, dy)
         da = db = dbg = None
         if b.ndim > 2:
             # per-batch weights (no model call site; the forward refuses a
@@ -370,9 +510,7 @@ class _MatmulCore(torch.autograd.Function):
                     db, dbg = sfc_matmul_tn(a2d, dh_c.reshape(-1, n), dg_c.reshape(-1, n))
                 else:
                     db = sfc_matmul_tn(a2d, dh_c.reshape(-1, n))
-        lead_axes = tuple(range(dh.ndim - 1))
-        dbias = None if bias is None else dh.sum(dim=lead_axes).reshape(bias.shape).to(bias.dtype)
-        dgbias = None if gate_bias is None else dg.sum(dim=lead_axes).reshape(gate_bias.shape).to(gate_bias.dtype)
+        dbias, dgbias = _bias_grads(dh, dg, bias, gate_bias)
         dres = None if ctx.res_dtype is None else dy.to(ctx.res_dtype)
         return (
             None,
@@ -383,6 +521,88 @@ class _MatmulCore(torch.autograd.Function):
             dgbias,
             dres,
         )
+
+
+class _UpdateCore(torch.autograd.Function):
+    """``_update_core`` of the JAX package (its fused branch) for a
+    projection whose weight the fused optimizer routes: the forward is
+    `_MatmulCore`'s; the backward computes the epilogue cotangents, runs the
+    NT kernel for dA, hands ``(a (M, K), dh (M, N), dg)`` in the compute
+    type to ``sink`` (the step's tape, which launches the TN kernel's norm
+    and update modes) and returns no gradient for the weights, so dW never
+    exists."""
+
+    @staticmethod
+    def forward(ctx, cfg: _VjpCfg, a, b, b_gate, bias, gate_bias, sink):
+        out, h_pre, g_pre = _training_forward(cfg, a, b, b_gate, bias, gate_bias, None)
+        ctx.cfg, ctx.sink = cfg, sink
+        ctx.save_for_backward(a, b, b_gate, h_pre, g_pre, bias, gate_bias)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, b_gate, h_pre, g_pre, bias, gate_bias = ctx.saved_tensors
+        dh, dg, dh_c, dg_c = _compute_cotangents(ctx.cfg, a, h_pre, g_pre, dy)
+        da = None
+        if ctx.needs_input_grad[1]:
+            da = sfc_matmul_nt(dh_c, b, dg_c, b_gate if dg_c is not None else None).to(a.dtype)
+        n = b.shape[-1]
+        ctx.sink(a.reshape(-1, a.shape[-1]), dh_c.reshape(-1, n), None if dg_c is None else dg_c.reshape(-1, n))
+        dbias, dgbias = _bias_grads(dh, dg, bias, gate_bias)
+        return None, da, None, None, dbias, dgbias, None
+
+
+class _RoutedWeight(torch.autograd.Function):
+    """Identity on a routed weight whose gradient goes to ``sink`` and not
+    to the weight: the oracle backends' way to take plain-autograd dW
+    without a ``.grad`` (the JAX package's oracle returns its update through
+    the cotangent slot, which torch has no counterpart of)."""
+
+    @staticmethod
+    def forward(ctx, w, sink):
+        ctx.sink = sink
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, dw):
+        ctx.sink(dw)
+        return None, None
+
+
+def fused_update_matmul(x, w, sink, *, bias=None, activation=None, fused: bool = True) -> torch.Tensor:
+    """Projection of a routed weight (JAX: ``fused_update_matmul``):
+    ``epilogue(x @ w)`` whose backward hands the weight's share to ``sink``
+    instead of a gradient.  ``fused``: `_UpdateCore` (the SFC kernels;
+    ``sink(a, dh, None)``); else the oracle, ``x @ w`` in plain torch with
+    ``sink(dw)``."""
+    if fused:
+        cfg = _VjpCfg(glu=False, activation=activation, out_scale=None, bm=None, bn=None, k_layers=None,
+                      k_block_factor=None, out_dtype=None, fuse=None)
+        return _UpdateCore.apply(cfg, x, w, None, bias, None, sink)
+    y = x @ _RoutedWeight.apply(w, sink)
+    if bias is not None:
+        y = y + bias
+    return activation_fn(activation)(y) if activation is not None else y
+
+
+def fused_update_glu_matmul(x, w_gate, w_val, sink, *, activation="silu", bias=None, gate_bias=None,
+                            fused: bool = True) -> torch.Tensor:
+    """Gated projection of a routed (gate, value) pair (JAX:
+    ``fused_update_glu_matmul``): one dual TN update flush serves both.
+    ``fused``: `_UpdateCore`, ``sink(a, dh, dg)``; else the oracle, with
+    ``sink`` a pair of callables taking dW of the value and of the gate."""
+    if fused:
+        cfg = _VjpCfg(glu=True, activation=activation, out_scale=None, bm=None, bn=None, k_layers=None,
+                      k_block_factor=None, out_dtype=None, fuse=None)
+        return _UpdateCore.apply(cfg, x, w_val, w_gate, bias, gate_bias, sink)
+    sink_val, sink_gate = sink
+    g = x @ _RoutedWeight.apply(w_gate, sink_gate)
+    if gate_bias is not None:
+        g = g + gate_bias
+    h = x @ _RoutedWeight.apply(w_val, sink_val)
+    if bias is not None:
+        h = h + bias
+    return activation_fn(activation)(g) * h
 
 
 def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:

@@ -1,6 +1,7 @@
 """SFC-ordered GEMMs: the CUDA ports of the TPU kernels
 ``repro.kernels.sfc_gemm._fused_kernel`` (K1/K2), ``sfc_gemm_nt`` (K7) and
-``sfc_gemm_tn`` (K8, dW mode), each beside its plain PyTorch version.
+``sfc_gemm_tn`` (K8, with its update and norm modes), each beside its
+plain PyTorch version.
 
 ``sfc_gemm_fused`` is the one wrapper for both modes the TPU package ran as
 separate Pallas entry points: ``a`` (M, K) is the plain mode
@@ -24,6 +25,17 @@ Each kernel and its plain version walk the C tiles in the order of the
 gilbert task table that ``core.schedule.compile_schedule(gemm_spec(mb,
 nb))`` builds, and accept ragged shapes: the plain versions clip their edge
 tiles, the kernels mask them.
+
+``sfc_gemm_tn`` has two more modes, the TPU kernel's grad-and-update flush
+(``_apply_update_flush``): the **update** mode runs AdamW on each f32 dW
+tile against the f32 master / mu / nu and writes W (stochastically rounded
+when bf16 and asked for) and the three states **in place**, so dW never
+reaches device memory; the **norm** mode runs the same traversal and writes
+only each tile's ``sum(dW²)``, the first phase of the exact global-norm
+clip.  Both return the per-set norm, taken before the gradient scale.  The
+stochastic rounding draws its bits from the counter hash of the JAX
+package's interpret path (`tile_random_bits`), seeded per (step, weight,
+tile), so the card's bits are the plain version's and the JAX package's.
 """
 
 from __future__ import annotations
@@ -48,6 +60,8 @@ __all__ = [
     "sfc_gemm_nt_plain",
     "sfc_gemm_tn",
     "sfc_gemm_tn_plain",
+    "tile_random_bits",
+    "stochastic_round_to",
     "kernel_tile",
 ]
 
@@ -392,26 +406,188 @@ def sfc_gemm_nt_plain(
     return out
 
 
+# ---------------------------------------------------------------------------
+# stochastic rounding and the TN update flush (the TPU kernel's
+# `_apply_update_flush`, its interpret-mode hash bits)
+#
+# torch's uint32 has few CPU operations, so the 32-bit arithmetic runs on
+# int64 tensors holding values in [0, 2^32), masked after every step.
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+# lanes of the (12,) hyper vector (`optim.adamw.HYP_*`)
+_LR, _B1, _1MB1, _B2, _1MB2, _EPS, _WD, _B1C, _B2C, _SCALE, _SEED = range(11)
+
+
+def _u32(x) -> torch.Tensor:
+    """An int32 (or int) tensor's bit pattern as a uint32 value in int64."""
+    return torch.as_tensor(x).to(torch.int64) & _M32
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for x in [0, 2^32), in two 16-bit halves of c so
+    no int64 product overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _hash_u32(x: torch.Tensor) -> torch.Tensor:
+    """32-bit finalizer (murmur3-style avalanche), the JAX package's
+    ``_hash_u32``."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def tile_random_bits(shape, seed) -> torch.Tensor:
+    """(rows, cols) uint32 random bits (int64 holding [0, 2^32)) from a
+    scalar int32 / uint32 seed: the counter hash over the tile's local
+    (row, col) of the JAX package's ``tile_random_bits(hw_rng=False)``."""
+    seed = _u32(seed)
+    i = torch.arange(shape[0], dtype=torch.int64, device=seed.device)[:, None]
+    j = torch.arange(shape[1], dtype=torch.int64, device=seed.device)[None, :]
+    return _hash_u32(seed ^ _mul32(i, 0x9E3779B1) ^ _mul32(j, 0x85EBCA77))
+
+
+def stochastic_round_to(x: torch.Tensor, bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Round f32 ``x`` to bf16 up with probability equal to the truncated
+    fraction: add the low 16 bits of ``bits`` to the f32 significand and
+    truncate.  Other targets are a plain cast; non-finite values pass
+    through (the JAX package's ``stochastic_round_to``)."""
+    if dtype != torch.bfloat16:
+        return x.to(dtype)
+    xf = x.float()
+    xu = (_u32(xf.view(torch.int32)) + (bits & 0xFFFF)) & 0xFFFF0000
+    rounded = torch.where(xu >= 1 << 31, xu - (1 << 32), xu).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isfinite(xf), rounded, xf).to(torch.bfloat16)
+
+
+def _tile_seed(hyper: torch.Tensor, salt, *salts) -> torch.Tensor:
+    """Per-(step, weight, tile) uint32 seed: the int32 step (bitcast out of
+    the seed lane) mixed with the weight's ``salt`` and the tile
+    coordinates (each an int or an int tensor; they broadcast).  The JAX
+    package's ``_tile_seed`` reads the salt from the hyper lane."""
+    h = _hash_u32(_u32(hyper[_SEED].view(torch.int32)) ^ 0x2545F491)
+    h = _hash_u32(h ^ _mul32(_u32(salt), 0x85EBCA77))
+    for extra in salts:
+        h = _hash_u32(h ^ _mul32(_u32(extra), 0x9E3779B1))
+    return h
+
+
+def _tile_bits(rows: int, cols: int, bm: int, bn: int, hyper, salt, *extra) -> torch.Tensor:
+    """(rows, cols) stochastic-rounding bits of a whole (K, N) output: each
+    element gets the hash of its tile's seed (`_tile_seed` at the tile's
+    (im, in)) and its local (row, col) in that tile, as the kernel draws
+    them."""
+    dev = hyper.device
+    r = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=dev)[None, :]
+    seed = _tile_seed(hyper, salt, r // bm, c // bn, *extra)
+    return _hash_u32(seed ^ _mul32(r % bm, 0x9E3779B1) ^ _mul32(c % bn, 0x85EBCA77))
+
+
+@torch.no_grad()
+def _update_flush_plain(dw, master, mu, nu, w, hyper, *, bits):
+    """The update flush on a whole f32 dW at once (each tile's flush is
+    elementwise, so the order of tiles does not matter): AdamW from the
+    hyper lanes in the TPU kernel's expression order, ``scale == 0`` a
+    select that keeps the state and writes the deterministic cast, then
+    master, mu, nu and W written in place.  ``bits`` None: no stochastic
+    rounding."""
+    h = hyper.float()
+    skip = h[_SCALE] == 0.0
+    g = dw * h[_SCALE]
+    mu_n = h[_B1] * mu + h[_1MB1] * g
+    nu_n = h[_B2] * nu + h[_1MB2] * (g * g)
+    step_v = (mu_n / h[_B1C]) / (torch.sqrt(nu_n / h[_B2C]) + h[_EPS]) + h[_WD] * master
+    mst_n = torch.where(skip, master, master - h[_LR] * step_v)
+    mu.copy_(torch.where(skip, mu, mu_n))
+    nu.copy_(torch.where(skip, nu, nu_n))
+    master.copy_(mst_n)
+    if bits is None:
+        w.copy_(mst_n.to(w.dtype))
+    else:
+        w.copy_(torch.where(skip, mst_n.to(w.dtype), stochastic_round_to(mst_n, bits, w.dtype)))
+
+
+def _check_update(a, k, n, b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt):
+    """The update / norm modes' operands.  Returns (mode, sets): the mode
+    ("dw", "norm" or "update") and, for the update, one (master, mu, nu,
+    w) per operand set."""
+    state = (master, mu, nu, master2, mu2, nu2, hyper, w, w2)
+    if norm:
+        if any(x is not None for x in state):
+            raise ValueError("the TN kernel's norm mode takes no optimizer state")
+        return "norm", None
+    if all(x is None for x in state):
+        return "dw", None
+    dual = b2 is not None
+    sets = [("master", master), ("mu", mu), ("nu", nu), ("w", w)]
+    sets2 = [("master2", master2), ("mu2", mu2), ("nu2", nu2), ("w2", w2)]
+    need = sets + (sets2 if dual else [])
+    missing = [name for name, x in need if x is None] + ([] if hyper is not None else ["hyper"])
+    if missing or (not dual and any(x is not None for _, x in sets2)):
+        raise ValueError(f"the TN kernel's update mode needs master, mu, nu, w and hyper (and their second set "
+                         f"with b2, only then); missing {missing}")
+    for name, x in need:
+        want = a.dtype if name.startswith("w") else torch.float32
+        if tuple(x.shape) != (k, n) or x.dtype != want or x.device != a.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({k}, {n}) {want} tensor on {a.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if tuple(hyper.shape) != (12,) or hyper.dtype != torch.float32 or hyper.device != a.device:
+        raise ValueError(f"hyper must be the (12,) float32 vector of optim.adamw.pack_adamw_hyper on {a.device}")
+    if not -(1 << 31) <= salt < (1 << 31):
+        raise ValueError(f"salt {salt} is not an int32")
+    return "update", [(master, mu, nu, w)] + ([(master2, mu2, nu2, w2)] if dual else [])
+
+
 def sfc_gemm_tn_plain(
     a: torch.Tensor,
     b: torch.Tensor,
     b2: Optional[torch.Tensor] = None,
+    master: Optional[torch.Tensor] = None,
+    mu: Optional[torch.Tensor] = None,
+    nu: Optional[torch.Tensor] = None,
+    master2: Optional[torch.Tensor] = None,
+    mu2: Optional[torch.Tensor] = None,
+    nu2: Optional[torch.Tensor] = None,
+    hyper: Optional[torch.Tensor] = None,
     *,
+    w: Optional[torch.Tensor] = None,
+    w2: Optional[torch.Tensor] = None,
+    salt: int = 0,
+    stochastic_round: bool = False,
+    norm: bool = False,
     bm: int,
     bn: int,
     k_layers: int = 1,
     k_block_factor: int = 1,
     out_dtype: Optional[torch.dtype] = None,
 ):
-    """The plain version of the TN kernel in its dW mode, on any device:
-    per task of the gilbert table over C's (K, N) tiles, ``a[:, im]ᵀ @
-    b[:, in]`` (and ``b2``) accumulated in f32 over the contraction chunks
-    of the M rows, one cast at the flush.  Returns C, or (C, C2) with
-    ``b2``."""
+    """The plain version of the TN kernel, on any device.
+
+    dW mode (no state): per task of the gilbert table over C's (K, N)
+    tiles, ``a[:, im]ᵀ @ b[:, in]`` (and ``b2``) accumulated in f32 over
+    the contraction chunks of the M rows, one cast at the flush.  Returns
+    C, or (C, C2) with ``b2``.
+
+    Norm mode (``norm=True``) and update mode (``master``, ``mu``, ``nu``,
+    ``w``, ``hyper``; with ``b2`` also the second set): the same f32 tiles,
+    then per set the sum of every tile's ``sum(dW²)`` in table order,
+    returned as an (n_sets,) f32 tensor.  The update mode also runs the
+    flush (`_update_flush_plain`) and writes W, master, mu and nu in
+    place; with ``stochastic_round`` and a bf16 W its bits are the tile
+    hash at this (bm, bn), so they equal the kernel's at its 64 x 64 tile.
+    The salt lane of ``hyper`` is not read: ``salt`` is the weight's.
+    """
     k, n, m = _check_tn(a, b, b2)
-    out = torch.empty((k, n), dtype=out_dtype or a.dtype, device=a.device)
+    mode, sets = _check_update(a, k, n, b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
+    acc_dtype = torch.float32 if mode != "dw" else (out_dtype or a.dtype)
+    out = torch.empty((k, n), dtype=acc_dtype, device=a.device)
     out2 = torch.empty_like(out) if b2 is not None else None
-    for rs, cs, chunks in _plain_tiles(k, n, m, bm, bn, k_layers, k_block_factor):
+    tiles = list(_plain_tiles(k, n, m, bm, bn, k_layers, k_block_factor))
+    for rs, cs, chunks in tiles:
         acc = torch.zeros((rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32, device=a.device)
         acc2 = torch.zeros_like(acc) if b2 is not None else None
         for ms in chunks:
@@ -422,7 +598,24 @@ def sfc_gemm_tn_plain(
         out[rs, cs] = acc.to(out.dtype)
         if b2 is not None:
             out2[rs, cs] = acc2.to(out.dtype)
-    return out if b2 is None else (out, out2)
+    if mode == "dw":
+        return out if b2 is None else (out, out2)
+    outs = [out] if b2 is None else [out, out2]
+    norms = torch.zeros(len(outs), dtype=torch.float32, device=a.device)
+    if tiles:
+        # per-tile sums of squares, summed in table order
+        mb, nb = math.ceil(k / bm), math.ceil(n / bn)
+        tab = torch.from_numpy(compile_schedule(gemm_spec(mb, nb, 1)).table[:2].astype("int64")).to(a.device)
+        for s, dw in enumerate(outs):
+            sq = F.pad(dw * dw, (0, nb * bn - n, 0, mb * bm - k)).reshape(mb, bm, nb, bn).sum(dim=(1, 3))
+            norms[s] = sq[tab[0], tab[1]].sum()
+    if mode == "update":
+        for s, (dw, (mst, m1, m2, w_)) in enumerate(zip(outs, sets)):
+            bits = None
+            if stochastic_round and w_.dtype == torch.bfloat16:
+                bits = _tile_bits(k, n, bm, bn, hyper, salt, *((1,) if s else ()))
+            _update_flush_plain(dw, mst, m1, m2, w_, hyper, bits=bits)
+    return norms
 
 
 def _launch_bwd(kind: str, a, b, x2, out, out2, *, rows: int, cols: int, depth: int, vec_a: bool, vec_b: bool):
@@ -479,18 +672,49 @@ def sfc_gemm_nt(
     return out
 
 
+def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: bool, rows: int, cols: int,
+                      depth: int, vec_a: bool, vec_b: bool) -> torch.Tensor:
+    """One launch of the TN kernel in norm mode (``sets`` None) or update
+    mode (``sets``: one (master, mu, nu, w) per operand set); returns the
+    (n_sets,) per-set sums of the per-task partials."""
+    mb, nb = math.ceil(rows / build.TILE[0]), math.ceil(cols / build.TILE[1])
+    n_sets = 1 if b2 is None else 2
+    partials = torch.empty((n_sets, mb * nb), dtype=torch.float32, device=a.device)
+    tab = _device_table(mb, nb, a.device)
+    fn = getattr(build.load_library(), build.bwd_entry_name("tn_update", _dtype_name(a)))
+    state = [None] * 8
+    if sets is not None:
+        (m1, u1, v1, w1), *rest = sets
+        m2, u2, v2, w2 = rest[0] if rest else (None,) * 4
+        state = [w1, w2, m1, u1, v1, m2, u2, v2]  # the entry's order
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), *(_ptr(x) for x in state), _ptr(hyper), salt,
+                int(stochastic_round), partials.data_ptr(), tab.data_ptr(), mb * nb, rows, cols, depth,
+                int(vec_a), int(vec_b), stream)
+    if rc != 0:
+        raise RuntimeError(f"sfc_gemm_tn {'update' if sets else 'norm'} kernel launch failed with CUDA error {rc}")
+    # the per-task partials in table order, summed on the device: no atomics
+    return partials.sum(dim=1)
+
+
 def sfc_gemm_tn(
     a: torch.Tensor,  # (M, K): consumed as aᵀ, never transposed in memory
     b: torch.Tensor,  # (M, N)
     b2: Optional[torch.Tensor] = None,  # (M, N) second operand (the GLU's dWg)
-    master: Optional[torch.Tensor] = None,
+    master: Optional[torch.Tensor] = None,  # (K, N) f32: selects the update mode
     mu: Optional[torch.Tensor] = None,
     nu: Optional[torch.Tensor] = None,
-    master2: Optional[torch.Tensor] = None,
+    master2: Optional[torch.Tensor] = None,  # the second set (with b2)
     mu2: Optional[torch.Tensor] = None,
     nu2: Optional[torch.Tensor] = None,
-    hyper: Optional[torch.Tensor] = None,
+    hyper: Optional[torch.Tensor] = None,  # (12,) f32, optim.adamw.pack_adamw_hyper
     *,
+    w: Optional[torch.Tensor] = None,  # (K, N) in a's type, written in place
+    w2: Optional[torch.Tensor] = None,
+    salt: int = 0,
+    stochastic_round: bool = False,
+    norm: bool = False,
     bm: int = build.TILE[0],
     bn: int = build.TILE[1],
     k_layers: int = 1,
@@ -499,42 +723,63 @@ def sfc_gemm_tn(
     abft: bool = False,
 ):
     """C = Aᵀ @ B (and Aᵀ @ B2) over the gilbert traversal of C's (K, N)
-    tiles: the dW backward GEMM (A = the forward activations, B = dC).
-    Returns C, or (C, C2) with ``b2``.
+    tiles: the dW backward GEMM (A = the forward activations, B = dC), in
+    one of three modes.
 
-    Only the dW mode is ported: the grad-and-update flush (``master``,
-    ``mu``, ``nu``, ``hyper``: the fused AdamW step) and the ABFT checksum
-    lane raise `NotImplementedError`.  On a CUDA tensor this launches the
-    TN kernel, whose CTAs each loop over all M rows (no atomics), and adds
-    one to ``sfc_gemm_tn.launches`` and to ``launches_by_shape[(K, N, M,
-    dual)]``.  On a CPU tensor it runs `sfc_gemm_tn_plain` and counts
-    nothing."""
-    if any(x is not None for x in (master, mu, nu, master2, mu2, nu2, hyper)):
-        raise NotImplementedError(
-            "the TN kernel's update mode (the fused AdamW flush: master, mu, nu, hyper) is not ported: "
-            "ROADMAP queue 1 item 10"
-        )
+    * dW (no state): returns C, or (C, C2) with ``b2``.
+    * norm (``norm=True``): returns the (n_sets,) f32 ``sum(dW²)`` per set;
+      nothing else is written.
+    * update (``master``, ``mu``, ``nu``, ``w`` and ``hyper``; with ``b2``
+      also ``master2``, ``mu2``, ``nu2``, ``w2``): AdamW on each f32 dW
+      tile from the hyper lanes, writing W (in ``a``'s type; stochastically
+      rounded when bf16 and ``stochastic_round``) and the f32 master, mu and
+      nu in place; ``hyper``'s scale lane 0 keeps the state and writes the
+      deterministic cast of master.  Returns the per-set norm as the norm
+      mode does, taken before the scale.  ``salt`` (an int32) is the
+      weight's own: the kernel does not read ``hyper``'s salt lane.  The
+      second set draws its bits with one more salt of 1.
+
+    On a CUDA tensor this launches the TN kernel, whose CTAs each loop over
+    all M rows (no atomics: the norms are per-task partials summed on the
+    device), and adds one to ``sfc_gemm_tn.launches``, to
+    ``launches_by_mode[mode]`` and to ``launches_by_shape[(K, N, M, dual)]``
+    (dW mode) or ``[(K, N, M, dual, mode)]``.  On a CPU tensor it runs
+    `sfc_gemm_tn_plain` and counts nothing.  The ABFT checksum lane raises
+    `NotImplementedError`."""
     if abft:
         raise NotImplementedError("the ABFT checksum lane is not ported: ROADMAP queue 1 item 14")
     k, n, m = _check_tn(a, b, b2)
+    mode, sets = _check_update(a, k, n, b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
-        return sfc_gemm_tn_plain(a, b, b2, bm=bm, bn=bn, k_layers=k_layers,
+        return sfc_gemm_tn_plain(a, b, b2, master, mu, nu, master2, mu2, nu2, hyper, w=w, w2=w2, salt=salt,
+                                 stochastic_round=stochastic_round, norm=norm, bm=bm, bn=bn, k_layers=k_layers,
                                  k_block_factor=k_block_factor, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"sfc_gemm_tn runs on cuda or cpu tensors, got {a.device}")
     _check_operands(bm, bn, out_dtype, a, b=b, b2=b2)
-    out = torch.empty((k, n), dtype=out_dtype, device=a.device)
-    out2 = torch.empty_like(out) if b2 is not None else None
-    if out.numel():
-        _launch_bwd("tn", a, b, b2, out, out2, rows=k, cols=n, depth=m,
-                    vec_a=_rows_vec(k, a), vec_b=_rows_vec(n, b, b2))
+    vecs = dict(vec_a=_rows_vec(k, a), vec_b=_rows_vec(n, b, b2))
+    if mode == "dw":
+        out = torch.empty((k, n), dtype=out_dtype, device=a.device)
+        out2 = torch.empty_like(out) if b2 is not None else None
+        result = out if b2 is None else (out, out2)
+        if out.numel():
+            _launch_bwd("tn", a, b, b2, out, out2, rows=k, cols=n, depth=m, **vecs)
+    elif k * n == 0:
+        return torch.zeros(1 if b2 is None else 2, dtype=torch.float32, device=a.device)
+    else:
+        result = _launch_tn_update(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,
+                                   rows=k, cols=n, depth=m, **vecs)
+    if k * n:
         sfc_gemm_tn.launches += 1
-        sfc_gemm_tn.launches_by_shape[(k, n, m, b2 is not None)] += 1
-    return out if b2 is None else (out, out2)
+        sfc_gemm_tn.launches_by_mode[mode] += 1
+        key = (k, n, m, b2 is not None)
+        sfc_gemm_tn.launches_by_shape[key if mode == "dw" else (*key, mode)] += 1
+    return result
 
 
 sfc_gemm_nt.launches = 0
 sfc_gemm_nt.launches_by_shape = collections.Counter()
 sfc_gemm_tn.launches = 0
+sfc_gemm_tn.launches_by_mode = collections.Counter()
 sfc_gemm_tn.launches_by_shape = collections.Counter()

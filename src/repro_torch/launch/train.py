@@ -8,8 +8,16 @@ Weights are random, drawn from ``--seed``; batches come from `SyntheticLM`.
 model on the CPU, where the ``sfc_cuda`` backend takes each kernel's plain
 version.  The JAX CLI's ``--backend xla`` / ``sfc_pallas`` are ``torch`` /
 ``sfc_cuda`` here, and ``--attn-impl`` sets the step's attention backend.
-Checkpointing and `TrainLoop` (ROADMAP queue 1 item 14), the fused
-optimizer (item 10) and the mesh (item 16) are not ported.
+``--fused-optimizer`` runs AdamW of every routed projection weight inside
+the TN kernel's flush (dW never reaches device memory; the clip stays
+exact), and ``--no-stochastic-round`` makes its bf16 write-back round to
+nearest:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --reduced \
+      --device cpu --fused-optimizer --backend sfc_cuda --steps 8 --batch 4 --seq 32
+
+Checkpointing and `TrainLoop` (ROADMAP queue 1 item 14) and the mesh (item
+16) are not ported.
 """
 
 from __future__ import annotations
@@ -40,18 +48,22 @@ def build_trainer(
     seed: int = 0,
     gemm_backend: Optional[str] = None,
     attn_impl: Optional[str] = None,
+    fused_optimizer: bool = False,
+    stochastic_round: bool = True,
     device=None,
 ):
     """Returns (model, opt_state, step, batch_fn): the model with random
     weights from ``seed`` on ``device`` (the card unless named), the AdamW
     state, ``step(opt_state, batch) -> (opt_state, metrics)`` and
-    ``batch_fn(step) -> batch`` on the model's device."""
+    ``batch_fn(step) -> batch`` on the model's device.  ``fused_optimizer``
+    and ``stochastic_round`` are `train.step.BackendConfig`'s."""
     model = build_model(cfg, device=device)
     model.init(torch.Generator(device=model.embed.device).manual_seed(seed))
     opt_cfg = AdamWConfig(lr=lr, total_steps=total_steps, warmup_steps=min(100, total_steps // 10 + 1))
     step_fn = make_train_step(
         model, opt_cfg, remat=remat, microbatches=microbatches,
-        backend=BackendConfig(gemm_backend=gemm_backend, attn_impl=attn_impl),
+        backend=BackendConfig(gemm_backend=gemm_backend, attn_impl=attn_impl, fused_optimizer=fused_optimizer,
+                              stochastic_round=stochastic_round),
     )
     opt_state = adamw_init(dict(model.named_parameters()))
     data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
@@ -75,6 +87,11 @@ def main(argv=None):
                     help="GEMM backend for the train step (forward and backward)")
     ap.add_argument("--attn-impl", default=None, choices=list(ATTN_IMPLS),
                     help="attention backend for the train step (default: the config's)")
+    ap.add_argument("--fused-optimizer", action="store_true",
+                    help="AdamW inside the TN kernel flush for routed 2-D weights (dW never reaches device "
+                         "memory; exact grad clipping in two phases)")
+    ap.add_argument("--no-stochastic-round", action="store_true",
+                    help="round-to-nearest bf16 write-back in the fused flush")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -85,7 +102,8 @@ def main(argv=None):
     model, opt_state, step_fn, batch_fn = build_trainer(
         cfg, batch=args.batch, seq=args.seq, lr=args.lr, total_steps=args.steps,
         microbatches=args.microbatches, seed=args.seed, gemm_backend=args.backend,
-        attn_impl=args.attn_impl, device=args.device,
+        attn_impl=args.attn_impl, fused_optimizer=args.fused_optimizer,
+        stochastic_round=not args.no_stochastic_round, device=args.device,
     )
     history = []
     for step in range(args.steps):

@@ -15,8 +15,9 @@ moments, the master weights and the parameters **in place**, leaf by leaf
 and in slices of at most ``_CHUNK`` elements: at full width the f32 state
 alone is three times the size of the parameters in f32, and a temporary per
 leaf of the 389 M-element embedding would be 1.56 GB each.  The
-``HYP_*`` lane constants keep the layout of the fused kernel's hyper vector;
-`pack_adamw_hyper` and the fused flush wait for ROADMAP queue 1 item 10.
+``HYP_*`` lane constants give the layout of the (12,) f32 hyper vector that
+the fused TN-update kernel reads (`pack_adamw_hyper`, built on the device
+from the step and the clip scale, so no step waits on the host).
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ import torch
 __all__ = [
     "HYPER_LEN",
     "AdamWConfig",
+    "seed_to_lane",
+    "seed_from_lane",
+    "pack_adamw_hyper",
     "lr_at",
     "adamw_init",
     "global_norm",
@@ -41,7 +45,8 @@ __all__ = [
 ]
 
 # layout of the fused-update hyperparameter vector (f32 (12,)):
-# [lr, b1, 1-b1, b2, 1-b2, eps, weight_decay, b1c, b2c, grad_scale, seed, salt]
+# [lr, b1, 1-b1, b2, 1-b2, eps, weight_decay, b1c, b2c, grad_scale,
+#  seed (the int32 step's bit pattern in an f32 lane), salt]
 HYPER_LEN = 12
 (
     HYP_LR,
@@ -62,6 +67,16 @@ HYPER_LEN = 12
 _CHUNK = 1 << 24
 
 Scalar = Union[torch.Tensor, float]
+
+
+def seed_to_lane(seed) -> torch.Tensor:
+    """int32 seed -> f32 lane of the hyper vector (bit pattern, not value)."""
+    return torch.as_tensor(seed).to(torch.int32).view(torch.float32)
+
+
+def seed_from_lane(lane: torch.Tensor) -> torch.Tensor:
+    """f32 hyper lane -> int32 seed (inverse of `seed_to_lane`)."""
+    return lane.view(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,16 +114,22 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """Zero moments and an f32 copy of every parameter, step 0."""
+def adamw_init(params: Mapping[str, torch.Tensor], *, with_gnorm: bool = False) -> Dict[str, Any]:
+    """Zero moments and an f32 copy of every parameter, step 0.  With
+    ``with_gnorm`` the state also carries the last global gradient norm
+    (f32 scalar): informational only, as in the JAX package, whose fused
+    step clips exactly and no longer reads it."""
     device = next(iter(params.values())).device
     with torch.no_grad():
-        return {
+        state = {
             "step": torch.zeros((), dtype=torch.int32, device=device),
             "mu": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in params.items()},
             "nu": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in params.items()},
             "master": {n: p.detach().to(torch.float32, copy=True) for n, p in params.items()},
         }
+        if with_gnorm:
+            state["gnorm"] = torch.zeros((), dtype=torch.float32, device=device)
+    return state
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -171,6 +192,24 @@ def adamw_leaf_update(
     return mu_n, nu_n, master_n
 
 
+def pack_adamw_hyper(cfg: AdamWConfig, step: torch.Tensor, scale) -> torch.Tensor:
+    """(12,) f32 hyper vector of the fused TN-update kernel, on ``step``'s
+    device, from tensors only: ``step`` is the post-increment int32 step
+    (the bias corrections and the stochastic-rounding seed derive from it;
+    the seed lane holds its bit pattern), ``scale`` the gradient scale
+    (the clip factor, a device tensor that depends on the global norm).
+    The salt lane is 0: each routed weight's salt is an argument of its
+    launch (`optim.fused`)."""
+    step = torch.as_tensor(step)
+    lr, b1c, b2c = adamw_scalars(cfg, step)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=step.device)  # noqa: E731
+    return torch.stack([
+        f32(lr), f32(cfg.b1), f32(1 - cfg.b1), f32(cfg.b2), f32(1 - cfg.b2), f32(cfg.eps),
+        f32(cfg.weight_decay), f32(b1c), f32(b2c), f32(scale).reshape(()),
+        seed_to_lane(step.to(torch.int32)), seed_to_lane(torch.zeros((), dtype=torch.int32, device=step.device)),
+    ])
+
+
 @torch.no_grad()
 def adamw_apply(
     cfg: AdamWConfig,
@@ -221,4 +260,7 @@ def adamw_update(
     gnorm = global_norm(grads)
     scale = clip_scale(cfg, gnorm)
     params, slots = adamw_apply(cfg, grads, state, params, scale=scale, step=step, lr_scale=lr_scale)
-    return params, {"step": step, **slots}, {"grad_norm": gnorm, "lr": lr_at(cfg, step)}
+    new_state = {"step": step, **slots}
+    if "gnorm" in state:
+        new_state["gnorm"] = gnorm
+    return params, new_state, {"grad_norm": gnorm, "lr": lr_at(cfg, step)}

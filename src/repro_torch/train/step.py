@@ -10,9 +10,10 @@ JAX step pins them at trace time.
 
 The JAX step is a pure function returning new parameters; here the model
 holds its parameters and the step updates them, and the optimizer state,
-in place (`optim.adamw.adamw_apply`).  Left out: the fused optimizer
-(``fused_optimizer=True``, ROADMAP queue 1 item 10), the ABFT lane (item
-14) and remat other than "none" (item 18); each raises
+in place (`optim.adamw.adamw_apply`).  ``fused_optimizer=True`` builds the
+grad-and-update step (`_make_fused_train_step`): AdamW of every routed
+projection weight runs in the TN kernel's flush.  Left out: the ABFT lane
+(item 14) and remat other than "none" (item 18); each raises
 ``NotImplementedError``.
 """
 
@@ -20,13 +21,23 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.core.attention_backend import attention_backend as _attn_backend_ctx
 from repro_torch.core.gemm_backend import gemm_backend as _gemm_backend_ctx
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim import fused as _fused
+from repro_torch.optim.adamw import (
+    HYP_LR,
+    AdamWConfig,
+    adamw_apply,
+    adamw_update,
+    clip_scale,
+    lr_at,
+    pack_adamw_hyper,
+)
 
 __all__ = ["BackendConfig", "make_train_step", "make_eval_step"]
 
@@ -39,7 +50,12 @@ class BackendConfig:
         "sfc_reference"); None inherits the caller's `gemm_backend()`.
     attn_impl: attention backend pin ("blockwise" | "flash_pallas" |
         "sfc"), overriding the model config's value; None inherits.
-    fused_optimizer: the fused AdamW flush (item 10); True raises.
+    fused_optimizer: fuse AdamW into the backward for every routed 2-D
+        projection weight: the TN kernel's flush updates W and its f32
+        master / mu / nu in place, and dW never exists in device memory.
+        Requires ``microbatches == 1``.
+    stochastic_round: stochastically round bf16 weights in the fused
+        flush (ignored unless ``fused_optimizer``).
     abft: ABFT checksum mode pin (item 14); anything but None or "off"
         raises.
     """
@@ -47,6 +63,7 @@ class BackendConfig:
     gemm_backend: Optional[str] = None
     attn_impl: Optional[str] = None
     fused_optimizer: bool = False
+    stochastic_round: bool = True
     abft: Optional[str] = None
 
 
@@ -76,6 +93,7 @@ def make_train_step(
     remat: str = "none",
     microbatches: int = 1,
     backend: Optional[BackendConfig] = None,
+    fused_filter: Optional[Callable[[str, torch.Tensor], bool]] = None,
     nonfinite_guard: bool = True,
 ) -> Callable:
     """Returns ``train_step(opt_state, batch, *, lr_scale=None) ->
@@ -86,14 +104,22 @@ def make_train_step(
     whose gradients are summed in f32 and averaged, as is the loss.  A
     nonfinite global gradient norm skips the update exactly (the scale-0
     sentinel of `optim.adamw.clip_scale`); as in the JAX package's unfused
-    step, ``nonfinite_guard`` only matters to the fused step (item 10).
+    step, ``nonfinite_guard`` only matters to the fused step.
     ``lr_scale`` (None = 1) multiplies the schedule's lr.
+
+    ``backend.fused_optimizer`` builds the grad-and-update step instead
+    (`_make_fused_train_step`); ``fused_filter(name, param) -> bool``
+    overrides its routing candidates.
     """
     cfg = backend if backend is not None else BackendConfig()
     if cfg.fused_optimizer:
-        raise NotImplementedError(
-            "fused_optimizer (AdamW in the TN kernel's flush) is not ported: ROADMAP queue 1 item 10"
-        )
+        if microbatches != 1:
+            raise ValueError(
+                "fused_optimizer requires microbatches=1: the in-kernel update applies on every backward "
+                "pass, which would run once per microbatch"
+            )
+        return _make_fused_train_step(model, opt_cfg, remat=remat, cfg=cfg, fused_filter=fused_filter,
+                                      nonfinite_guard=nonfinite_guard)
     del nonfinite_guard  # the unfused step always guards
     params = dict(model.named_parameters())
 
@@ -126,6 +152,72 @@ def make_train_step(
         _, opt_state, opt_metrics = adamw_update(opt_cfg, grads, opt_state, params, lr_scale=lr_scale)
         del grads
         return opt_state, {"loss": loss, **opt_metrics}
+
+    return train_step
+
+
+def _make_fused_train_step(model, opt_cfg: AdamWConfig, *, remat: str, cfg: BackendConfig, fused_filter,
+                           nonfinite_guard: bool) -> Callable:
+    """The grad-and-update step (the JAX package's ``_make_fused_train_step``).
+
+    Routing is probed once, here (`optim.fused.probe_routed`).  Each step
+    runs ONE forward and ONE backward with a `FusedSession` active: every
+    routed projection's backward launches the NT kernel for dA and records
+    ``(a, dh, dg)`` on the session's tape, and no routed weight gets a
+    ``.grad``.  Clip-by-global-norm is exact, in two phases as in JAX:
+
+      1. in the backward, the TN kernel's norm mode gives each routed
+         weight's ``sum(dW²)``; with the unrouted leaves' raw gradients that
+         is the global norm, and ``clip_scale`` (with the non-finite guard)
+         the scale;
+      2. after the backward, the TN kernel's update mode runs over the tape
+         with that scale, and `adamw_apply` updates the unrouted leaves with
+         the same scale.
+
+    The JAX step traces the backward a second time for phase 2 and lets
+    ``jit`` drop the repeated forward and NT chain; eager torch would run
+    them again, so the tape keeps what the update needs instead.  With an
+    infinite ``clip_norm`` and the guard off there is one phase: the update
+    runs at scale 1 and its norms give ``grad_norm``.
+    """
+    routed = _fused.probe_routed(model, fused_filter=fused_filter)
+    params = dict(model.named_parameters())
+    unrouted = {n: p for n, p in params.items() if n not in routed}
+    two_phase = math.isfinite(opt_cfg.clip_norm) or nonfinite_guard
+    device = next(iter(params.values())).device
+
+    def train_step(opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor], *, lr_scale=None):
+        step = opt_state["step"] + 1
+        session = _fused.FusedSession(routed, params, opt_state, two_phase=two_phase)
+        for p in params.values():
+            p.grad = None
+        with _backend_ctx(cfg.gemm_backend, cfg.attn_impl, cfg.abft), _fused.fused_session(session):
+            loss = model.loss(batch, remat=remat)
+        loss.backward()
+        session.check_complete()
+        grads = {n: p.grad for n, p in unrouted.items()}
+        for p in unrouted.values():
+            p.grad = None  # ``grads`` holds them until the update is done
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        unrouted_sq = sum((torch.sum(torch.square(g.float())) for g in grads.values()), zero)
+        if two_phase:
+            gnorm = torch.sqrt(session.phase1_sq() + unrouted_sq)
+            scale = clip_scale(opt_cfg, gnorm, guard_nonfinite=nonfinite_guard)
+        else:
+            scale = torch.ones((), dtype=torch.float32, device=device)
+        hyper = pack_adamw_hyper(opt_cfg, step, scale)
+        if lr_scale is not None:
+            hyper[HYP_LR] *= torch.as_tensor(lr_scale, dtype=torch.float32)
+        with _fused.fused_update_config(_fused.FusedUpdateConfig(stochastic_round=cfg.stochastic_round)):
+            routed_sq = session.apply(hyper) + zero
+        if not two_phase:
+            gnorm = torch.sqrt(routed_sq + unrouted_sq)
+        _, slots = adamw_apply(opt_cfg, grads, opt_state, unrouted, scale=scale, step=step, lr_scale=lr_scale)
+        del grads
+        new_state = {"step": step, **slots}
+        if "gnorm" in opt_state:
+            new_state["gnorm"] = gnorm  # informational, as in the JAX package
+        return new_state, {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr_at(opt_cfg, step)}
 
     return train_step
 

@@ -313,8 +313,83 @@ def test_backward_gemm_kernels_reject_what_they_do_not_take():
         tk.sfc_gemm_nt(a, b.T)
     with pytest.raises(ValueError, match="compiled for"):
         tk.sfc_gemm_tn(a, a, bm=32, bn=32)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the update mode needs W and a (12,) f32 hyper vector beside f32 state
+    with pytest.raises(ValueError, match="update mode"):
         tk.sfc_gemm_tn(a, a, master=b, mu=b, nu=b, hyper=torch.zeros(12, device="cuda"))
+    with pytest.raises(ValueError, match="hyper"):
+        tk.sfc_gemm_tn(a, a, master=b, mu=b, nu=b, w=b.clone(), hyper=torch.zeros(11, device="cuda"))
+    # no fallback: a launch the kernel refuses (update mode without W) raises
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tk._launch_tn_update(a, a, None, [(b, b, b, None)], torch.zeros(12, device="cuda"), salt=0,
+                             stochastic_round=False, rows=8, cols=8, depth=4, vec_a=False, vec_b=False)
+
+
+def _state(rng, k, n, dtype):
+    """f32 master / mu / nu of a later step (the moments away from zero, so
+    the update is smooth in dW) and the weight, all on the card."""
+    mst = rng.standard_normal((k, n)) * 0.02
+    mu = rng.standard_normal((k, n)) * 0.5
+    nu = (rng.standard_normal((k, n)) * 2.0) ** 2 + 0.1
+    f32 = [torch.from_numpy(x.astype(np.float32)).to("cuda") for x in (mst, mu, nu)]
+    return f32, f32[0].to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.37, 0.0])
+@pytest.mark.parametrize("dtype,sr", [("float32", False), ("bfloat16", False), ("bfloat16", True)])
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("shape", [(77, 133, 203), (256, 192, 512)])
+def test_tn_update_and_norm_modes_match_plain_versions_on_card(shape, dual, dtype, sr, scale):
+    """K8's update mode against its plain version: master, mu, nu within
+    the f32 bound (dW is summed in another order), a bf16 W with
+    stochastic rounding bitwise the rounding of the kernel's own master
+    with the plain version's tile bits and within one bf16 ulp of the plain
+    W, scale 0 leaving the state bitwise unchanged; the norm mode's norms
+    bitwise the update mode's and within the f32 bound of the plain's."""
+    _card()
+    from repro_torch.optim.adamw import AdamWConfig, pack_adamw_hyper
+
+    dt = getattr(torch, dtype)
+    m, k, n = shape
+    rng = np.random.default_rng(31)
+    x, dc, dc2 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dt)
+                  for s in ((m, k), (m, n), (m, n)))
+    hyper = pack_adamw_hyper(AdamWConfig(lr=1e-2), torch.tensor(7, dtype=torch.int32, device="cuda"),
+                             torch.tensor(scale, device="cuda"))
+    sets = [_state(rng, k, n, dt) for _ in range(2 if dual else 1)]
+    kw = dict(salt=(5 << 16) + 3, stochastic_round=sr)
+
+    def run(fn, **extra):
+        state = [([t.clone() for t in f32], w.clone()) for f32, w in sets]
+        args = [t for f32, _ in state for t in f32] + [None] * (0 if dual else 3)
+        ws = dict(w=state[0][1], w2=state[1][1] if dual else None)
+        norms = fn(x, dc, dc2 if dual else None, *args, hyper, **ws, **kw, **extra)
+        return norms, state
+
+    before = dict(tk.sfc_gemm_tn.launches_by_mode)
+    got_norms, got = run(tk.sfc_gemm_tn)
+    only_norms = tk.sfc_gemm_tn(x, dc, dc2 if dual else None, norm=True)
+    torch.cuda.synchronize()
+    after = tk.sfc_gemm_tn.launches_by_mode
+    assert (after["update"] - before.get("update", 0), after["norm"] - before.get("norm", 0)) == (1, 1)
+    want_norms, want = run(tk.sfc_gemm_tn_plain, bm=64, bn=64)
+    assert torch.equal(only_norms, got_norms)
+    assert _agree(got_norms, want_norms, torch.float32)
+    for s, ((g_f32, g_w), (w_f32, w_w), (o_f32, o_w)) in enumerate(zip(got, want, sets)):
+        if scale == 0.0:
+            for g, o in zip(g_f32, o_f32):
+                assert torch.equal(g, o)
+            assert torch.equal(g_w, o_f32[0].to(dt))
+            continue
+        for g, w_ in zip(g_f32, w_f32):
+            assert _agree(g, w_, torch.float32)
+        if sr and dt == torch.bfloat16:
+            bits = tk._tile_bits(k, n, 64, 64, hyper, kw["salt"], *((1,) if s else ()))
+            assert torch.equal(g_w, tk.stochastic_round_to(g_f32[0], bits, dt))
+        else:
+            assert torch.equal(g_w, g_f32[0].to(dt))
+        ulp = 2.0**-7 * torch.maximum(g_w.float().abs(), w_w.float().abs())
+        assert bool(((g_w.float() - w_w.float()).abs() <= ulp).all())
 
 
 @pytest.mark.cuda
@@ -387,3 +462,46 @@ def test_decoder_loss_gradients_under_sfc_cuda_match_torch_on_card(attn_impl):
     assert abs(losses["sfc_cuda"] - losses["torch"]) <= 1e-4 * abs(losses["torch"])
     for n in names:
         assert _agree(grads["sfc_cuda"][n], grads["torch"][n], torch.float32), n
+
+
+@pytest.mark.cuda
+def test_fused_train_step_on_card_matches_unfused():
+    """The fused optimizer on the card (f32, a reduced decoder with head dim
+    128): two steps with a clip that binds match the unfused sfc_cuda
+    steps, no weight keeps a ``.grad``, and each step launches the TN
+    kernel once per projection in its norm mode and once in its update
+    mode, never in its dW mode."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw as opt
+    from repro_torch.train.step import BackendConfig, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3_4b").reduced(), head_dim=128, attn_impl="sfc")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batches = [{key: torch.randint(0, cfg.vocab, (2, 96), generator=gen, device="cuda")
+                for key in ("tokens", "labels")} for _ in range(2)]
+    opt_cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2, clip_norm=1e-2)
+    runs = {}
+    for fused in (False, True):
+        model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(5))
+        step = make_train_step(model, opt_cfg, backend=BackendConfig(gemm_backend="sfc_cuda", fused_optimizer=fused))
+        state = opt.adamw_init(dict(model.named_parameters()))
+        before = dict(tk.sfc_gemm_tn.launches_by_mode)
+        metrics = []
+        for batch in batches:
+            state, m = step(state, batch)
+            metrics.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        modes = {k: v - before.get(k, 0) for k, v in tk.sfc_gemm_tn.launches_by_mode.items()}
+        runs[fused] = (dict(model.named_parameters()), state, metrics, modes)
+    (pu, su, mu_, _), (pf, sf, mf, modes) = runs[False], runs[True]
+    per_step = 6 * cfg.n_layers + 1
+    assert (modes.get("norm"), modes.get("update"), modes.get("dw", 0)) == (2 * per_step, 2 * per_step, 0)
+    assert all(p.grad is None for p in pf.values())
+    assert min(mu_) > 1e-2  # the clip binds
+    np.testing.assert_allclose(mf, mu_, rtol=1e-4)
+    for n in pu:
+        assert _agree(pf[n].detach(), pu[n].detach(), torch.float32), n
+        for slot in ("mu", "nu", "master"):
+            assert _agree(sf[slot][n], su[slot][n], torch.float32), (slot, n)

@@ -198,8 +198,9 @@ def test_unported_options_and_bad_operands_raise():
             _close(g, w)
     with pytest.raises(ValueError, match="preact"):
         tops._matmul_impl(a, b, bg, **dict(kw, bias=None, gate_bias=None, activation="silu"))
-    # the TN kernel's update mode (the fused AdamW flush) is not
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the TN kernel's update mode (the fused AdamW flush) is ported: it
+    # needs W beside master, mu, nu and the (12,) hyper vector
+    with pytest.raises(ValueError, match="update mode"):
         tk.sfc_gemm_tn(a, a, master=b, mu=b, nu=b, hyper=torch.zeros(12))
     with pytest.raises(NotImplementedError, match="item 14"):
         tk.sfc_gemm_tn(a, a, abft=True)

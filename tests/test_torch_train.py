@@ -387,8 +387,9 @@ def test_unported_training_options_raise(yi_reduced):
     _, _, cfg = yi_reduced
     model = build_model(cfg, device="cpu")
     opt = tadamw.AdamWConfig()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_train_step(model, opt, backend=BackendConfig(fused_optimizer=True))
+    # the fused optimizer is ported; with microbatches it raises, as in JAX
+    with pytest.raises(ValueError, match="microbatches=1"):
+        make_train_step(model, opt, microbatches=2, backend=BackendConfig(fused_optimizer=True))
     step = make_train_step(model, opt, backend=BackendConfig(abft="detect"))
     batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(SyntheticLMConfig(cfg.vocab, 8, 2)).batch(0).items()}
     with pytest.raises(NotImplementedError, match="item 14"):
