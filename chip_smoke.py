@@ -6,7 +6,7 @@
 Builds the port's hand-written CUDA kernels from the sources in this
 checkout (src/repro_torch/kernels/csrc: the GEMM library with its forward
 and backward parts and the attention library with its forward, decode and
-backward parts, all compiled at once), then runs six phases, each printing
+backward parts, all compiled at once), then runs nine phases, each printing
 one JSON line and raising on failure:
 
 1. device     the card's name and power limit (nvidia-smi) and the build time;
@@ -25,7 +25,12 @@ one JSON line and raising on failure:
               and at 1 x 2000 with q_offset 0 and 48; the dense flash forward
               (K15); the decode attention (K14) at the serve's cache and at a
               4096-row cache; the flash backward (K12 dQ, K13 dK/dV) at the
-              training shape and a ragged GQA f32 case with S != T;
+              training shape and a ragged GQA f32 case with S != T; the
+              grouped MoE kernels K3 (forward: GLU with silu in the flush,
+              GLU preact, w_out), K9 (dA) and K10 (dW) at every olmoe-1b-7b
+              shape (64 experts; decode 32, prefill and training 80 rows an
+              expert), timed beside one torch.bmm, and each on ragged
+              expert sizes (5, 0, 19, 32) in f32 and bf16;
 3. grad check full-width qwen3-4b cut to 4 layers, f32, batch 2 x 256: the
               loss and every parameter's gradient under sfc_cuda GEMMs with
               attn_impl="sfc" against the torch backend with blockwise
@@ -59,7 +64,25 @@ one JSON line and raising on failure:
               fused_optimizer=True (K8 in its norm and update modes, exactly
               217 of each and no dW launch per step, no weight left with a
               .grad), its losses within 2^-7 of the unfused run's;
-6. the {"kernels": [...]} line: per kernel and shape, launches in the run
+6. grad check olmoe-1b-7b at full width cut to 2 layers, f32, as phase 3:
+              the router and the expert stacks through K3, K9 and K10;
+7. serve      ServingEngine serves full-width, full-depth olmoe-1b-7b (16
+              layers, 64 experts top-8, bf16, seeded random weights), 4
+              requests, prompt 128, 16 new tokens: sfc_cuda GEMMs with
+              blockwise attention and with attn_impl="sfc" (exactly 512 K3
+              and 1,296 K1/K2 launches; 16 K11 and 240 K14 with "sfc"), and
+              the torch backend; the f32 prefill logits of the same weights
+              cut to 4 layers within the bf16 bound of the torch backend's;
+              where the bf16 greedy tokens part from torch's, the routing
+              of both backends at that step (top-k sets that differ, the
+              router's probability gap of the swapped experts);
+8. train      `build_trainer` trains olmoe-1b-7b at full width on 8 of its 16
+              layers (AdamW's 16 B a parameter: 57 GB) for 3 steps of 2 x 256
+              tokens under sfc_cuda + attn_impl="sfc" (exactly 16 K3, 16 K9,
+              16 K10 and 41 each of K1/K2, K7, K8 a step), then under torch +
+              blockwise from the same init: losses within 2^-7, every
+              parameter moved, a profiled fourth step of each;
+9. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound.
 
@@ -106,6 +129,16 @@ FUSED_CHECK_CLIP = 1e-3
 # further (mean |error|) from the same model run in f32 than the torch
 # backend's bf16 logits are
 ACCURACY_PARITY = 1.25
+
+# olmoe-1b-7b (the MoE slice): served at full width and depth; trained at
+# full width on 8 of its 16 layers (AdamW holds 16 B a parameter: 16 layers
+# would need 111 GB); its f32 checks cut the depth further
+MOE_ARCH = "olmoe_1b_7b"
+MOE_TRAIN_LAYERS = 8
+MOE_CHECK_LAYERS = 2  # the f32 gradient check
+MOE_SERVE_F32_LAYERS = 4  # the f32 prefill-logits check
+# expert row counts of the ragged checks: one expert empty, none a whole tile
+RAGGED_GROUPS = (5, 0, 19, 32)
 
 
 def emit(obj) -> None:
@@ -791,16 +824,17 @@ def phase_attention_bwd(torch, cases, tsa, build):
 
 
 def _is_projection(name: str) -> bool:
-    return name.split(".")[-1] in ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "head")
+    return name.split(".")[-1] in ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "head", "router")
 
 
-def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, batch):
-    """Full-width qwen3-4b cut to GRAD_CHECK_LAYERS layers, in f32: the loss
+def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, batch, layers=GRAD_CHECK_LAYERS):
+    """The config at full width cut to ``layers`` layers, in f32: the loss
     and every parameter's gradient under sfc_cuda + attn_impl="sfc" (K1/K2,
-    K7, K8, K11, K12, K13) against the torch backend with blockwise
-    attention, within the bf16 bound; every projection weight must get a
-    non-zero gradient."""
-    cfg4 = dataclasses.replace(cfg, n_layers=GRAD_CHECK_LAYERS, param_dtype="float32")
+    K7, K8, K11, K12, K13; for olmoe also K3, K9 and K10) against the torch
+    backend with blockwise attention, within the bf16 bound; every
+    projection weight (the router and the expert stacks included) must get
+    a non-zero gradient."""
+    cfg4 = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32")
     model = build_model(cfg4, device="cuda").init(torch.Generator(device="cuda").manual_seed(7))
     losses, grads = {}, {}
     for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
@@ -818,7 +852,7 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     ok_loss, err_loss, worst_loss = within(losses["sfc_cuda+sfc_attn"], losses["torch"], torch.bfloat16)
     per_param = {n: within(g, grads["torch"][n], torch.bfloat16) for n, g in grads["sfc_cuda+sfc_attn"].items()}
     bad = {n: r for n, r in per_param.items() if not r[0]}
-    out = {"layers": GRAD_CHECK_LAYERS, "dtype": "float32", "tokens": list(batch["tokens"].shape),
+    out = {"arch": cfg.name, "layers": layers, "dtype": "float32", "tokens": list(batch["tokens"].shape),
            "loss": {"sfc_cuda+sfc_attn": float(losses["sfc_cuda+sfc_attn"]), "torch": float(losses["torch"]),
                     "ok": ok_loss, "err_over_bound": worst_loss},
            "params": len(per_param), "projections_with_gradient": sum(map(_is_projection, per_param)),
@@ -899,9 +933,14 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
 _KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("nt_kernel", "K7"), ("tn_kernel", "K8"),
                   ("tn_update_kernel", "K8 norm/update"), ("flash_fwd_kernel", "K11"),
                   ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"))
+# the MoE step's: the grouped kernels first, since "nt_kernel" and
+# "tn_kernel" are fragments of their names too
+_MOE_KERNEL_GROUPS = (("sfc_gemm_grouped_kernel", "K3"), ("grouped_nt_kernel", "K9"), ("grouped_tn_kernel", "K10"),
+                      ("sfc_gemm_fused_kernel", "K1/K2"), ("nt_kernel", "K7"), ("tn_kernel", "K8"),
+                      ("flash_fwd_kernel", "K11"), ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"))
 
 
-def profile_step(torch, step_fn, opt_state, batch):
+def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS):
     """One more train step under torch.profiler: its wall time, the
     device's busy time (the sum of the device-side events: kernels, memcpy,
     memset), the idle share, and the busy time by group: the port's
@@ -917,8 +956,10 @@ def profile_step(torch, step_fn, opt_state, batch):
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups = {label: 0.0 for _, label in _KERNEL_GROUPS if label != "K8 norm/update"}
-    groups.update({"K8 norm": 0.0, "K8 update": 0.0, "other": 0.0})
+    groups = {label: 0.0 for _, label in kernel_groups if label != "K8 norm/update"}
+    if any(label == "K8 norm/update" for _, label in kernel_groups):
+        groups.update({"K8 norm": 0.0, "K8 update": 0.0})
+    groups["other"] = 0.0
     top = []
     for ev in prof.key_averages():
         # the device's own activities (kernels, memcpy, memset); a CPU op
@@ -926,7 +967,7 @@ def profile_step(torch, step_fn, opt_state, batch):
         us = ev.self_device_time_total
         if ev.device_type != DeviceType.CUDA or us <= 0:
             continue
-        label = next((lab for frag, lab in _KERNEL_GROUPS if frag in ev.key), "other")
+        label = next((lab for frag, lab in kernel_groups if frag in ev.key), "other")
         if label == "K8 norm/update":  # tn_update_kernel<T, DUAL, UPDATE, SR>
             label = "K8 update" if ev.key.split("tn_update_kernel<")[1].split(", ")[2] == "true" else "K8 norm"
         groups[label] += us / 1e3
@@ -942,6 +983,61 @@ def _tn_mode_counts(tn):
     return {f"sfc_gemm_tn:{mode}": tn.launches_by_mode.get(mode, 0) for mode in ("dw", "norm", "update")}
 
 
+def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_groups=_KERNEL_GROUPS):
+    """TRAIN_STEPS steps of `build_trainer` from seed 0, each step's launch
+    counts, times and loss, then a profiled step.  Returns (run summary,
+    launches by shape of every counted kernel, their totals)."""
+    tn = counted["sfc_gemm_tn"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt_state, step_fn, batch_fn = build_trainer(
+        cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=TRAIN_STEPS, seed=0,
+        gemm_backend=gemm, attn_impl=impl, fused_optimizer=fused, device="cuda")
+    params = dict(model.named_parameters())
+    # a fingerprint of each initial parameter (its f64 sum): every
+    # parameter's f32 master must move off it
+    before = {n: float(p.detach().double().sum()) for n, p in params.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, times, launches = [], [], []
+    for fn in counted.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_shape"):
+            fn.launches_by_shape.clear()
+    tn.launches_by_mode.clear()
+
+    def counts():
+        return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(tn)}
+
+    for step in range(TRAIN_STEPS):
+        batch = batch_fn(step)
+        start = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt_state, metrics = step_fn(opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append({k: v - start[k] for k, v in counts().items()})
+    unchanged = [n for n in params if float(opt_state["master"][n].double().sum()) == before[n]]
+    run = {"losses": losses, "step_s": times, "setup_s": setup_s,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(), "unchanged_params": unchanged,
+           "params_with_grad": [n for n, p in params.items() if p.grad is not None],
+           "launches_per_step": launches, "grad_norm_last": float(metrics["grad_norm"])}
+    by_shape = {k: dict(fn.launches_by_shape) for k, fn in counted.items() if hasattr(fn, "launches_by_shape")}
+    by_shape["totals"] = counts()
+    # a fourth step, profiled, for the split of its time (not compared)
+    opt_state, run["profiled_step"] = profile_step(torch, step_fn, opt_state, batch_fn(TRAIN_STEPS), kernel_groups)
+    del model, opt_state, step_fn, batch_fn, params, metrics
+    torch.cuda.empty_cache()
+    return run, by_shape
+
+
+def _losses_close(a_run, b_run):
+    return [math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+            for a, b in zip(a_run["losses"], b_run["losses"])]
+
+
 def phase_train(torch, cfg, build_trainer, counted):
     """Three steps of `build_trainer` at full width under sfc_cuda +
     attn_impl="sfc", the same steps from the same init with the fused
@@ -955,62 +1051,15 @@ def phase_train(torch, cfg, build_trainer, counted):
     # mode after it, and never writes dW
     want_fused = {**want, "sfc_gemm_tn": 2 * per_step, "sfc_gemm_tn:dw": 0, "sfc_gemm_tn:norm": per_step,
                   "sfc_gemm_tn:update": per_step}
-    tn = counted["sfc_gemm_tn"]
     runs, by_shape = {}, {}
     for name, (gemm, impl, fused) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc", False)),
                                       ("sfc_cuda+sfc_attn+fused_optimizer", ("sfc_cuda", "sfc", True)),
                                       ("torch", ("torch", "blockwise", False))):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        model, opt_state, step_fn, batch_fn = build_trainer(
-            cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=TRAIN_STEPS, seed=0,
-            gemm_backend=gemm, attn_impl=impl, fused_optimizer=fused, device="cuda")
-        params = dict(model.named_parameters())
-        # a fingerprint of each initial parameter (its f64 sum): every
-        # parameter's f32 master must move off it
-        before = {n: float(p.detach().double().sum()) for n, p in params.items()}
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        losses, times, launches = [], [], []
-        for fn in counted.values():
-            fn.launches = 0
-            if hasattr(fn, "launches_by_shape"):
-                fn.launches_by_shape.clear()
-        tn.launches_by_mode.clear()
-
-        def counts():
-            return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(tn)}
-
-        for step in range(TRAIN_STEPS):
-            batch = batch_fn(step)
-            start = counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            opt_state, metrics = step_fn(opt_state, batch)
-            losses.append(float(metrics["loss"]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            launches.append({k: v - start[k] for k, v in counts().items()})
-        unchanged = [n for n in params if float(opt_state["master"][n].double().sum()) == before[n]]
-        runs[name] = {"losses": losses, "step_s": times, "setup_s": setup_s,
-                      "peak_memory_bytes": torch.cuda.max_memory_allocated(), "unchanged_params": unchanged,
-                      "params_with_grad": [n for n, p in params.items() if p.grad is not None],
-                      "launches_per_step": launches, "grad_norm_last": float(metrics["grad_norm"])}
+        runs[name], shapes = _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused)
         if gemm == "sfc_cuda":
-            by_shape[name] = {k: dict(fn.launches_by_shape) for k, fn in counted.items()
-                              if hasattr(fn, "launches_by_shape")}
-            by_shape[name]["totals"] = counts()
-        # a fourth step, profiled, for the split of its time (not compared)
-        opt_state, runs[name]["profiled_step"] = profile_step(torch, step_fn, opt_state, batch_fn(TRAIN_STEPS))
-        del model, opt_state, step_fn, batch_fn, params, metrics
-        torch.cuda.empty_cache()
+            by_shape[name] = shapes
     sfc, fused, ref = runs["sfc_cuda+sfc_attn"], runs["sfc_cuda+sfc_attn+fused_optimizer"], runs["torch"]
-
-    def close(a_run, b_run):
-        return [math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
-                for a, b in zip(a_run["losses"], b_run["losses"])]
-
-    loss_ok, fused_ok = close(sfc, ref), close(fused, sfc)
+    loss_ok, fused_ok = _losses_close(sfc, ref), _losses_close(fused, sfc)
     out = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "launches_expected_per_step": want,
            "fused_launches_expected_per_step": want_fused, "loss_within_2^-7": loss_ok,
@@ -1028,6 +1077,407 @@ def phase_train(torch, cfg, build_trainer, counted):
             raise AssertionError(f"{name} training left parameters unchanged: {run['unchanged_params']}")
     if fused["params_with_grad"]:
         raise AssertionError(f"the fused step left weights with a .grad: {fused['params_with_grad']}")
+    return out, by_shape
+
+
+# ---------------------------------------------------------------------------
+# olmoe-1b-7b: the grouped expert GEMMs (K3, K9, K10), serving and training
+# ---------------------------------------------------------------------------
+
+
+def moe_rows(cfg, groups: int, tokens_per_group: int) -> int:
+    """Rows per expert of the MoE dispatch buffer: groups x capacity, the
+    capacity as the JAX package's ``moe_forward`` sets it."""
+    cap = max(math.ceil(tokens_per_group * cfg.moe_top_k * cfg.capacity_factor / cfg.n_experts), cfg.moe_top_k)
+    return groups * cap
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedGemm:
+    """One expert-GEMM launch of olmoe's main path, for the forward (E x
+    rows, K) @ (E, K, N): K3 ("fwd"), K9 ("nt": dA (T, K) = dC (T, N)
+    W[e]^T) or K10 ("tn": dW[e] (K, N) = A_e^T dC_e); dual for the GLU."""
+
+    name: str
+    kind: str  # "fwd" | "nt" | "tn"
+    path: str  # the run whose launches the row reports: "serve" | "train"
+    experts: int
+    rows: int  # per expert
+    k: int
+    n: int
+    glu: bool = False
+    preact: bool = False
+
+    @property
+    def t(self) -> int:
+        return self.experts * self.rows
+
+    @property
+    def sets(self) -> int:
+        return 2 if self.glu else 1
+
+    @property
+    def kernel(self) -> str:
+        return {"fwd": "sfc_gemm_grouped", "nt": "sfc_gemm_grouped_nt", "tn": "sfc_gemm_grouped_tn"}[self.kind]
+
+    @property
+    def replaces(self) -> str:
+        return "src/repro/kernels/sfc_gemm.py:" + {"fwd": "883", "nt": "1642", "tn": "1859"}[self.kind]
+
+    @property
+    def key(self):  # the wrapper's launches_by_shape key
+        if self.kind == "tn":
+            return (self.experts, self.k, self.n, self.t, self.glu)
+        return (self.experts, self.t, self.k, self.n, self.glu)
+
+    def flops(self) -> float:
+        return 2.0 * self.t * self.k * self.n * self.sets
+
+    def bytes(self, elem: int) -> float:
+        """Each input read once, each output written once: every expert's
+        weights (the dW stacks for K10) once per launch."""
+        w = self.experts * self.k * self.n * self.sets
+        if self.kind == "fwd":
+            return elem * (self.t * self.k + w + (2 if self.preact else 1) * self.t * self.n)
+        if self.kind == "nt":
+            return elem * (self.sets * self.t * self.n + w + self.t * self.k)
+        return elem * (self.t * self.k + self.sets * self.t * self.n + w)
+
+    def shape(self) -> dict:
+        return {"experts": self.experts, "rows_per_expert": self.rows, "k": self.k, "n": self.n, "dual": self.glu,
+                "preact": self.preact}
+
+
+def moe_grouped_gemms(cfg):
+    """Every distinct expert GEMM of olmoe's serve (decode at batch 4, the
+    4 x 128 prefill) and training step (2 x 256 tokens): the GLU (dual-B;
+    the training forward's in preact mode) and w_out, forward, dA and dW."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    dec, pre, tr = moe_rows(cfg, BATCH, 1), moe_rows(cfg, BATCH, PROMPT), moe_rows(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out = []
+    for path, label, rows in (("serve", "decode", dec), ("serve", "prefill", pre)):
+        out += [GroupedGemm(f"{label}/glu", "fwd", path, e, rows, d, f, glu=True),
+                GroupedGemm(f"{label}/w_out", "fwd", path, e, rows, f, d)]
+    out += [GroupedGemm("train/glu_preact", "fwd", "train", e, tr, d, f, glu=True, preact=True),
+            GroupedGemm("train/w_out", "fwd", "train", e, tr, f, d)]
+    for kind in ("nt", "tn"):
+        out += [GroupedGemm("train/glu", kind, "train", e, tr, d, f, glu=True),
+                GroupedGemm("train/w_out", kind, "train", e, tr, f, d)]
+    return out
+
+
+def _grouped_operands(torch, gm, dtype, gen, rows=None):
+    """(kernel args, kernel kwargs, library operands) of one grouped GEMM:
+    the library call is one torch.bmm over the (E, rows, .) views, the dual
+    forms on concatenated operands."""
+    dev = torch.device("cuda")
+    rows = rows if rows is not None else (gm.rows,) * gm.experts
+    t, e, k, n = sum(rows), gm.experts, gm.k, gm.n
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    if gm.kind == "fwd":
+        a, w = r(t, k), r(e, k, n, scale=0.02)
+        if not gm.glu:
+            return (a, w), {}, (a.view(e, -1, k), w) if len(set(rows)) == 1 else None
+        wg = r(e, k, n, scale=0.02)
+        kw = dict(preact=True) if gm.preact else dict(activation="silu")
+        lib = (a.view(e, -1, k), torch.cat([wg, w], dim=2)) if len(set(rows)) == 1 else None
+        return (a, w, wg), kw, lib
+    if gm.kind == "nt":  # dA (T, K) = dC (T, N) W[e]^T, W as stored (E, K, N)
+        dc, w = r(t, n), r(e, k, n, scale=0.02)
+        if not gm.glu:
+            return (dc, w), {}, (dc.view(e, -1, n), w.transpose(1, 2)) if len(set(rows)) == 1 else None
+        dc2, w2 = r(t, n), r(e, k, n, scale=0.02)
+        lib = ((torch.cat([dc, dc2], 1).view(e, -1, 2 * n), torch.cat([w, w2], 2).transpose(1, 2))
+               if len(set(rows)) == 1 else None)
+        return (dc, w, dc2, w2), {}, lib
+    a, dc = r(t, k), r(t, n)
+    dc2 = r(t, n) if gm.glu else None
+    both = torch.cat([dc, dc2], 1) if gm.glu else dc
+    lib = (a.view(e, -1, k).transpose(1, 2), both.view(e, -1, both.shape[1])) if len(set(rows)) == 1 else None
+    return (a, dc, dc2), {}, lib
+
+
+def phase_grouped_gemms(torch, gemms, tk):
+    """K3, K9 and K10 against their plain versions at every olmoe shape
+    (bf16), timed beside their bound and one torch.bmm of the same product;
+    then each on the ragged expert sizes RAGGED_GROUPS (one expert empty)
+    at olmoe's widths, in f32 and bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    dt = torch.bfloat16
+    fns = {"fwd": (tk.sfc_gemm_grouped, tk.sfc_gemm_grouped_plain),
+           "nt": (tk.sfc_gemm_grouped_nt, tk.sfc_gemm_grouped_nt_plain),
+           "tn": (tk.sfc_gemm_grouped_tn, tk.sfc_gemm_grouped_tn_plain)}
+    rows, checks = [], []
+    for gm in gemms:
+        fn, plain_fn = fns[gm.kind]
+        gs = dict(group_sizes=(gm.rows,) * gm.experts)
+        # every launch streams every expert's weights (0.27-0.55 GB), far
+        # past the 50 MB L2: one copy of the inputs is enough
+        copies = max(1, math.ceil(4 * L2_BYTES / gm.bytes(2)))
+        ins = [_grouped_operands(torch, gm, dt, gen) for _ in range(copies)]
+        args, kw, _ = ins[0]
+        got, want = fn(*args, **gs, **kw), plain_fn(*args, **gs, bm=64, bn=64, **kw)
+        torch.cuda.synchronize()
+        ok, err, worst = within_all(got, want, dt)
+        checks.append({"case": f"{gm.kernel}:{gm.name}", "shape": gm.shape(), "ok": ok, "max_abs_err": err,
+                       "err_over_bound": worst})
+        if not ok:
+            raise AssertionError(f"{gm.kernel} disagrees with its plain version at {gm}: max err {err}, "
+                                 f"err/bound {worst}")
+        del got, want
+        reps = max(20, copies)
+        ms = time_ms(lambda i: fn(*ins[i % copies][0], **gs, **ins[i % copies][1]), reps=reps, graph=True)
+        lib_ms = time_ms(lambda i: torch.bmm(*ins[i % copies][2]), reps=reps, graph=True)
+        plain_ms = time_ms(lambda i: plain_fn(*args, **gs, bm=64, bn=64, **kw), reps=1, warmup=0)
+        bound_ms, bound_by = _bound(gm.flops(), gm.bytes(2))
+        rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        del ins, args
+        torch.cuda.empty_cache()
+    # the ragged checks: the olmoe widths, four experts, one of them empty
+    d, f = gemms[0].k, gemms[0].n
+    e = len(RAGGED_GROUPS)
+    ragged = [GroupedGemm("ragged/glu", "fwd", "-", e, 0, d, f, glu=True),
+              GroupedGemm("ragged/glu_preact", "fwd", "-", e, 0, d, f, glu=True, preact=True),
+              GroupedGemm("ragged/w_out", "fwd", "-", e, 0, f, d)]
+    ragged += [GroupedGemm(f"ragged/{w}", kind, "-", e, 0, *kn, glu=glu) for kind in ("nt", "tn")
+               for w, kn, glu in (("glu", (d, f), True), ("w_out", (f, d), False))]
+    for dtype in (torch.float32, torch.bfloat16):
+        for gm in ragged:
+            fn, plain_fn = fns[gm.kind]
+            args, kw, _ = _grouped_operands(torch, gm, dtype, gen, rows=RAGGED_GROUPS)
+            got = fn(*args, group_sizes=RAGGED_GROUPS, **kw)
+            torch.cuda.synchronize()
+            ok, err, worst = within_all(got, plain_fn(*args, group_sizes=RAGGED_GROUPS, bm=64, bn=64, **kw), dtype)
+            if gm.kind == "tn":  # the empty expert's weight gradient is exactly zero
+                ok = ok and not any(bool(g[1].any()) for g in (got if gm.glu else [got]))
+            checks.append({"case": f"{gm.kernel}:{gm.name}", "dtype": str(dtype), "group_sizes": list(RAGGED_GROUPS),
+                           "shape": gm.shape(), "ok": ok, "max_abs_err": err, "err_over_bound": worst})
+            if not ok:
+                raise AssertionError(f"{gm.kernel} ragged case {gm.name} ({dtype}) disagrees: max err {err}")
+    return rows, checks
+
+
+def moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, top_k):
+    """Why the bf16 sfc_cuda serve's greedy tokens leave the torch
+    backend's.  Both engines replay the serve (the same prompts, then
+    decode steps fed the torch run's tokens, which both runs chose up to
+    each request's first divergent token) with every MoE layer's routing
+    recorded.  For each request that diverged, at the step that produced
+    its first divergent token: the layers whose top-k expert sets differ
+    between the backends, the first of them, and, per differing set, the
+    torch router's probability of the expert it chose over the one sfc_cuda
+    chose in its place (the swap's gap), beside the median gap between the
+    torch router's k-th and (k+1)-th expert at that step and the largest
+    difference of the two routers' probabilities there; the torch logits'
+    top-1 margin at that step; and the (token, layer) sets of the request
+    that differ over all its tokens up to that step (the prompt's included)."""
+    import repro_torch.models.moe as moe_mod
+
+    route = moe_mod.route
+    seen = []
+
+    def recording(*args, **kw):
+        r = route(*args, **kw)
+        g, tg = r.probs.shape[:2]
+        seen.append((r.probs.float(), r.flat_e.reshape(g, tg, top_k)))
+        return r
+
+    first = {i: int(np.nonzero(tokens_of["sfc_cuda"][i] != tokens_of["torch"][i])[0][0])
+             for i in range(len(prompts)) if (tokens_of["sfc_cuda"][i] != tokens_of["torch"][i]).any()}
+    if not first:
+        return {"diverged_requests": 0}
+    steps = max(first.values())
+    dev = engines["torch"].device
+    forced = torch.from_numpy(tokens_of["torch"]).long().to(dev)
+    rec = {}  # name -> [(routing of each layer, logits)] for step 0 (prefill) .. steps
+    moe_mod.route = recording
+    try:
+        for name in ("sfc_cuda", "torch"):
+            eng, rec[name] = engines[name], []
+            seen.clear()
+            logits, cache = eng._prefill(torch.from_numpy(np.stack(prompts)).long().to(dev))
+            rec[name].append((list(seen), logits.float()))
+            for s in range(1, steps + 1):
+                seen.clear()
+                logits, cache = eng._decode(forced[:, s - 1:s], cache)
+                rec[name].append((list(seen), logits.float()))
+    finally:
+        moe_mod.route = route
+    out = {"diverged_requests": len(first), "requests": []}
+    for i, j in sorted(first.items()):
+        layers_s, logits_t = rec["sfc_cuda"][j][0], rec["torch"][j][1]
+        layers_t = rec["torch"][j][0]
+        differ, gaps, margins, prob_diff = [], [], [], 0.0
+        for layer, ((ps, es), (pt, et)) in enumerate(zip(layers_s, layers_t)):
+            ps, es, pt, et = ps[i, -1], es[i, -1], pt[i, -1], et[i, -1]  # the step's last token
+            top = torch.sort(pt, descending=True).values
+            margins.append(float(top[top_k - 1] - top[top_k]))
+            prob_diff = max(prob_diff, float((ps - pt).abs().max()))
+            chose_s, chose_t = set(es.tolist()), set(et.tolist())
+            if chose_s != chose_t:
+                differ.append(layer)
+                gaps.append(float(max(pt[e] for e in chose_t - chose_s) - min(pt[e] for e in chose_s - chose_t)))
+        upto, total = 0, 0
+        for k in range(j + 1):
+            for (ps, es), (pt, et) in zip(rec["sfc_cuda"][k][0], rec["torch"][k][0]):
+                a, b = torch.sort(es[i], dim=-1).values, torch.sort(et[i], dim=-1).values
+                upto += int((a != b).any(dim=-1).sum())
+                total += a.shape[0]
+        lt = torch.sort(logits_t[i], descending=True).values
+        out["requests"].append({
+            "request": i, "first_divergent_token": j, "step": "prefill" if j == 0 else f"decode {j}",
+            "layers_with_different_topk": len(differ), "layers": len(layers_t),
+            "first_layer_different": differ[0] if differ else None,
+            "swapped_prob_gap_torch": gaps, "topk_margin_median_torch": float(np.median(margins)),
+            "max_abs_router_prob_diff": prob_diff, "torch_top1_logit_margin": float(lt[0] - lt[1]),
+            "sets_different_through_step": upto, "sets_through_step": total})
+    return out
+
+
+def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
+    """ServingEngine serves full-width, full-depth olmoe-1b-7b (bf16, random
+    weights from a seeded torch.Generator), 4 requests x 128 + 16 tokens,
+    under sfc_cuda GEMMs with blockwise attention and with attn_impl="sfc",
+    and under the torch backend: exactly 2 K3 launches a layer a forward
+    and 5 K1/K2 a layer (q, k, v, o, the router) plus the head; the
+    prefill logits of the same weights cut to MOE_SERVE_F32_LAYERS layers
+    in f32 within the bf16 bound of the torch backend's.  Returns (summary,
+    K3 launches by shape of the sfc_cuda run)."""
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = model.state_dict()
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=PROMPT).astype(np.int32) for _ in range(BATCH)]
+    variants = {"sfc_cuda": ("sfc_cuda", "blockwise"), "sfc_cuda+sfc_attn": ("sfc_cuda", "sfc"),
+                "torch": ("torch", "blockwise")}
+
+    def engine(name, config, weights):
+        gemm, impl = variants[name]
+        return ServingEngine(dataclasses.replace(config, attn_impl=impl), weights, max_batch=BATCH,
+                             max_seq=PROMPT + NEW_TOKENS + 1, gemm_backend=gemm, device="cuda")
+
+    engines = {name: engine(name, cfg, params) for name in variants}
+    for eng in engines.values():  # warm-up: first launches, allocator, cuBLAS handles
+        eng.run(eng.submit_many(prompts[:1], max_new_tokens=2))
+    torch.cuda.synchronize()
+    n_layers = cfg.n_layers
+    counted = {"sfc_gemm_grouped": tk.sfc_gemm_grouped, "sfc_gemm_fused": tk.sfc_gemm_fused,
+               "sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_decode_attention": tsa.sfc_decode_attention}
+    gemm_want = {"sfc_gemm_grouped": 2 * n_layers * NEW_TOKENS, "sfc_gemm_fused": (5 * n_layers + 1) * NEW_TOKENS}
+    want = {"sfc_cuda": {**gemm_want, "sfc_flash_fwd": 0, "sfc_decode_attention": 0},
+            "sfc_cuda+sfc_attn": {**gemm_want, "sfc_flash_fwd": n_layers,
+                                  "sfc_decode_attention": n_layers * (NEW_TOKENS - 1)},
+            "torch": {k: 0 for k in counted}}
+    done, launches, by_shape = {}, {}, {}
+    for name, eng in engines.items():
+        for fn in counted.values():
+            fn.launches = 0
+            if hasattr(fn, "launches_by_shape"):
+                fn.launches_by_shape.clear()
+        done[name] = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
+        torch.cuda.synchronize()
+        launches[name] = {k: fn.launches for k, fn in counted.items()}
+        if name == "sfc_cuda":
+            by_shape = dict(tk.sfc_gemm_grouped.launches_by_shape)
+    for batch in done.values():
+        for r in batch:
+            if (r.status != "completed" or len(r.output) != NEW_TOKENS
+                    or not all(0 <= t < cfg.vocab for t in r.output)):
+                raise AssertionError(f"olmoe request {r.uid} ended {r.status} with {len(r.output or [])} tokens")
+    reports = {name: engines[name].latency_report(batch) for name, batch in done.items()}
+    tokens_of = {name: np.array([r.output for r in batch]) for name, batch in done.items()}
+    tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
+    logits = {name: eng._prefill(tokens)[0].float() for name, eng in engines.items()}
+    divergence = moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, cfg.moe_top_k)
+    del engines, eng
+    for name, lg in logits.items():
+        if tuple(lg.shape) != (BATCH, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"olmoe {name} prefill logits shape {tuple(lg.shape)} or non-finite values")
+    # the f32 check on a cut: in bf16 the router's logits round to ties that
+    # the two backends break differently, so only f32 isolates the kernels
+    cut = dataclasses.replace(cfg, n_layers=MOE_SERVE_F32_LAYERS, param_dtype="float32")
+    cut_params = {k: v.float() for k, v in params.items()
+                  if not k.startswith("layers.") or int(k.split(".")[1]) < MOE_SERVE_F32_LAYERS}
+    logits32 = {name: engine(name, cut, cut_params)._prefill(tokens)[0] for name in variants}
+    del cut_params
+    torch.cuda.synchronize()
+    f32_agree = {name: dict(zip(("ok", "max_abs_err", "err_over_bound"),
+                                within(logits32[name], logits32["torch"], torch.bfloat16)))
+                 for name in ("sfc_cuda", "sfc_cuda+sfc_attn")}
+    out = {
+        "phase": "serve_moe", "arch": cfg.name, "layers": n_layers, "d_model": cfg.d_model,
+        "experts": cfg.n_experts, "top_k": cfg.moe_top_k, "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+        "params": n_params, "init_s": init_s, "requests": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
+        "launches": launches, "launches_expected": want,
+        "prefill_logits": {
+            "f32_cut_layers": MOE_SERVE_F32_LAYERS, "f32_vs_torch": f32_agree,
+            "bf16_sfc_cuda_vs_torch_mean_abs_err": float((logits["sfc_cuda"] - logits["torch"]).abs().mean()),
+            "bf16_max_abs_logit": float(logits["torch"].abs().max()),
+        },
+        "first_token_match": {name: float((logits[name].argmax(-1) == logits["torch"].argmax(-1)).float().mean())
+                              for name in ("sfc_cuda", "sfc_cuda+sfc_attn")},
+        "greedy_token_match": {name: float((tokens_of[name] == tokens_of["torch"]).mean())
+                               for name in ("sfc_cuda", "sfc_cuda+sfc_attn")},
+        "routing_at_divergence": divergence,
+        "latency": reports,
+    }
+    emit(out)
+    del model, params, logits, logits32
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, expect in want.items():
+        if launches[name] != expect:
+            raise AssertionError(f"olmoe {name} serve launched {launches[name]}, expected {expect}")
+    for name, res in f32_agree.items():
+        if not res["ok"]:
+            raise AssertionError(f"olmoe f32 prefill logits {name} vs torch: max err {res['max_abs_err']}, "
+                                 f"err/bound {res['err_over_bound']}")
+    return out, by_shape
+
+
+def phase_moe_train(torch, cfg, build_trainer, counted):
+    """Three steps of `build_trainer` on olmoe-1b-7b at full width and
+    MOE_TRAIN_LAYERS layers under sfc_cuda + attn_impl="sfc" (K3, K9, K10
+    for the experts; K1/K2, K7, K8 for attention, the router and the head;
+    K11-K13), then from the same init under torch + blockwise: exact
+    launches a step, every loss within 2^-7 of the torch backend's, every
+    parameter moved; then a profiled step of each.  Returns (summary,
+    launches by shape of the sfc run)."""
+    cut = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    n_layers = MOE_TRAIN_LAYERS
+    dense = 5 * n_layers + 1  # q, k, v, o and the router a layer, plus the head
+    want = {"sfc_gemm_fused": dense, "sfc_gemm_nt": dense, "sfc_gemm_tn": dense,
+            "sfc_gemm_tn:dw": dense, "sfc_gemm_tn:norm": 0, "sfc_gemm_tn:update": 0,
+            "sfc_gemm_grouped": 2 * n_layers, "sfc_gemm_grouped_nt": 2 * n_layers,
+            "sfc_gemm_grouped_tn": 2 * n_layers, "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers,
+            "sfc_flash_bwd_dkv": n_layers}
+    runs, by_shape = {}, {}
+    for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
+        runs[name], shapes = _train_run(torch, cut, build_trainer, counted, gemm, impl, False, _MOE_KERNEL_GROUPS)
+        if gemm == "sfc_cuda":
+            by_shape = shapes
+    sfc, ref = runs["sfc_cuda+sfc_attn"], runs["torch"]
+    loss_ok = _losses_close(sfc, ref)
+    out = {"phase": "train_moe", "arch": cfg.name, "layers": n_layers, "layers_of_config": cfg.n_layers,
+           "params_bytes_per_param": 16, "dtype": cfg.param_dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "launches_expected_per_step": want, "loss_within_2^-7": loss_ok, **runs}
+    emit(out)
+    bad_counts = [i for i, c in enumerate(sfc["launches_per_step"]) if c != want]
+    if bad_counts:
+        raise AssertionError(f"olmoe train steps {bad_counts} launched {sfc['launches_per_step']}, expected {want}")
+    if not all(loss_ok) or not all(math.isfinite(x) for x in ref["losses"]):
+        raise AssertionError(f"olmoe train losses {sfc['losses']} vs torch {ref['losses']}: not within 2^-7 or "
+                             "not finite")
+    for name, run in runs.items():
+        if run["unchanged_params"]:
+            raise AssertionError(f"olmoe {name} training left parameters unchanged: {run['unchanged_params']}")
     return out, by_shape
 
 
@@ -1109,6 +1559,8 @@ def main() -> int:
     bwd_rows, bwd_checks = phase_backward_gemms(torch, train_backward_gemms(cfg), tk, ops)
     upd_rows, upd_checks = phase_update_gemms(torch, cfg, tk, opt)
     attn_bwd_rows, attn_bwd_checks = phase_attention_bwd(torch, attention_bwd_cases(cfg), tsa, build)
+    ocfg = get_config(MOE_ARCH)
+    grouped_rows, grouped_checks = phase_grouped_gemms(torch, moe_grouped_gemms(ocfg), tk)
     small = small_reference_check(torch, get_config, build_model, gemm_backend)
     emit({"phase": "kernels_vs_plain", "ok": True, "tolerance": {
         "float32": f"|k-p| <= {F32_RTOL}|p| + {F32_ATOL_REL} max|p|",
@@ -1117,7 +1569,7 @@ def main() -> int:
         "tn_update": "master, mu, nu and the norms at the float32 tolerance; a bf16 W bitwise the stochastic "
                      "rounding of the kernel's master with the plain version's bits and within the bfloat16 "
                      "tolerance of the plain W",
-        "checks": checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks,
+        "checks": checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks,
         "reduced_model_f32_vs_reference": small})
     torch.cuda.empty_cache()
 
@@ -1205,6 +1657,7 @@ def main() -> int:
     # from that f32 reference than the torch backend's are.
     tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
     logits = {name: eng._prefill(tokens)[0].float() for name, eng in engines.items()}
+    divergence = moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, cfg.moe_top_k)
     del engines, eng
     # the attn_impl="flash_pallas" prefill: its attention on K15
     reset_counts()
@@ -1271,8 +1724,27 @@ def main() -> int:
                "sfc_flash_bwd_dkv": tsa.sfc_flash_bwd_dkv}
     _, counts_by_run = phase_train(torch, cfg, build_trainer, counted)
     train_counts, fused_counts = counts_by_run["sfc_cuda+sfc_attn"], counts_by_run["sfc_cuda+sfc_attn+fused_optimizer"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ---- 6. the kernels line ------------------------------------------------
+    # ---- 6. olmoe-1b-7b: f32 gradients of a 2-layer full-width cut ---------
+    odata = SyntheticLM(SyntheticLMConfig(vocab=ocfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=1))
+    ogc_batch = {key: torch.from_numpy(val).cuda() for key, val in odata.batch(0).items()}
+    emit({"phase": "grad_check_moe", "ok": True,
+          **phase_grad_check(torch, ocfg, build_model, gemm_backend, attention_backend, ogc_batch,
+                             layers=MOE_CHECK_LAYERS)})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 7. serve full-width, full-depth olmoe-1b-7b ------------------------
+    _, moe_serve_counts = phase_moe_serve(torch, np, ocfg, build_model, ServingEngine, tk, tsa)
+
+    # ---- 8. train olmoe-1b-7b at full width, 8 layers ----------------------
+    moe_counted = {**counted, "sfc_gemm_grouped": tk.sfc_gemm_grouped, "sfc_gemm_grouped_nt": tk.sfc_gemm_grouped_nt,
+                   "sfc_gemm_grouped_tn": tk.sfc_gemm_grouped_tn}
+    _, moe_train_counts = phase_moe_train(torch, ocfg, build_trainer, moe_counted)
+
+    # ---- 9. the kernels line ------------------------------------------------
     kernels = []
     for row in rows:
         gm = row["gemm"]
@@ -1371,6 +1843,25 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": c.shape(),
+        })
+    for row in grouped_rows:
+        gm = row["gemm"]
+        counts = moe_serve_counts if gm.path == "serve" else moe_train_counts[gm.kernel]
+        kernels.append({
+            "name": f"{gm.kernel}:{gm.name}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "replaces": gm.replaces,
+            "launches": counts.get(gm.key, 0),
+            "path": f"olmoe {gm.path}",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": "torch.bmm over the (E, rows, .) views (dual forms on concatenated operands)",
+            "shape": gm.shape(),
         })
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:

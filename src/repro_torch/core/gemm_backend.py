@@ -17,6 +17,12 @@ Function, whose backward launches the NT (dA) and TN (dW) kernels.  There
 is no fallback ladder: "sfc_cuda" launches the kernel on a CUDA tensor or
 raises.
 
+`grouped_matmul()` and `grouped_glu_matmul()` are the MoE expert GEMMs,
+``(..., E, C, K) @ (E, K, N)`` over dispatch buffers of C capacity rows
+per (token group, expert): an einsum under "torch", one launch of the
+grouped SFC kernel (K3) under "sfc_cuda" with each expert's rows gathered
+by `_rows_by_expert`, and Listing 1 per expert under "sfc_reference".
+
 The fused optimizer (`optim.fused`): while a fused step's session is
 active, a weight it routes goes through `ops.fused_update_matmul` /
 `fused_update_glu_matmul` instead (the TN kernel's update flush under
@@ -39,7 +45,7 @@ from repro_torch.core.namespaces import (
 )
 from repro_torch.optim import fused as _fused
 
-__all__ = ["gemm_backend", "current_backend", "matmul", "glu_matmul"]
+__all__ = ["gemm_backend", "current_backend", "matmul", "glu_matmul", "grouped_matmul", "grouped_glu_matmul"]
 
 _BACKEND: contextvars.ContextVar[str] = contextvars.ContextVar(
     "gemm_backend", default=BACKEND_TORCH
@@ -236,3 +242,90 @@ def glu_matmul(
     return _epilogue(
         _act(activation)(g) * h, out_scale=out_scale, residual=residual
     )
+
+
+# ---------------------------------------------------------------------------
+# grouped (MoE expert) GEMMs
+# ---------------------------------------------------------------------------
+
+
+def _rows_by_expert(x: torch.Tensor):
+    """(..., E, C, K) -> ((E*g*C, K) rows grouped by expert, (g, E, C),
+    restore), g the product of the leading dims; ``restore(out, n)`` puts
+    the (E*g*C, n) result back as (..., E, C, n)."""
+    e, c, k = x.shape[-3:]
+    lead = tuple(x.shape[:-3])
+    g = 1
+    for d in lead:
+        g *= d
+    rows = x.reshape(g, e, c, k).transpose(0, 1).reshape(e * g * c, k)
+
+    def restore(out: torch.Tensor, n: int) -> torch.Tensor:
+        return out.reshape(e, g, c, n).transpose(0, 1).reshape(*lead, e, c, n)
+
+    return rows, (g, e, c), restore
+
+
+def grouped_matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+    out_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Per-expert contraction ``(..., E, C, K) @ (E, K, N) -> (..., E, C,
+    N)`` through the active backend, with an optional per-expert epilogue
+    (``bias`` (E, N), ``activation``, ``out_scale``).  Under "sfc_cuda" the
+    experts' rows go through one grouped kernel launch (K3) with the
+    epilogue in its flush; differentiable (K9 / K10 in the backward)."""
+    name = _BACKEND.get()
+    if name == BACKEND_TORCH:
+        y = torch.einsum("...eck,ekn->...ecn", x, w)
+        if bias is not None:
+            y = y + bias[..., :, None, :]
+        return _epilogue(y, activation=activation, out_scale=out_scale)
+    rows, (g, e, c), restore = _rows_by_expert(x)
+    n = w.shape[-1]
+    if name == BACKEND_SFC_CUDA:
+        from repro_torch.kernels.ops import sfc_grouped_matmul
+
+        out = sfc_grouped_matmul(rows, w, (g * c,) * e, bias=bias, activation=activation, out_scale=out_scale)
+        return restore(out, n)
+    parts = []
+    for ei in range(e):
+        ye = _reference_matmul(rows[ei * g * c:(ei + 1) * g * c], w[ei])
+        parts.append(ye if bias is None else ye + bias[ei])
+    return restore(_epilogue(torch.cat(parts), activation=activation, out_scale=out_scale), n)
+
+
+def grouped_glu_matmul(
+    x: torch.Tensor,
+    w_gate: torch.Tensor,
+    w_val: torch.Tensor,
+    *,
+    activation: str = "silu",
+    out_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Per-expert gated MLP ``act(x@w_gate[e]) * (x@w_val[e])`` over ``(...,
+    E, C, K)`` dispatch buffers.  Under "sfc_cuda" the dual-B grouped kernel
+    (K3) reads the dispatched rows once for both expert weight stacks, the
+    gate's activation in its flush."""
+    name = _BACKEND.get()
+    if name == BACKEND_TORCH:
+        g_ = torch.einsum("...eck,ekn->...ecn", x, w_gate)
+        h = torch.einsum("...eck,ekn->...ecn", x, w_val)
+        return _epilogue(_act(activation)(g_) * h, out_scale=out_scale)
+    rows, (g, e, c), restore = _rows_by_expert(x)
+    n = w_val.shape[-1]
+    if name == BACKEND_SFC_CUDA:
+        from repro_torch.kernels.ops import sfc_grouped_glu_matmul
+
+        out = sfc_grouped_glu_matmul(rows, w_gate, w_val, (g * c,) * e, activation=activation,
+                                     out_scale=out_scale)
+        return restore(out, n)
+    parts = []
+    for ei in range(e):
+        xe = rows[ei * g * c:(ei + 1) * g * c]
+        parts.append(_act(activation)(_reference_matmul(xe, w_gate[ei])) * _reference_matmul(xe, w_val[ei]))
+    return restore(_epilogue(torch.cat(parts), out_scale=out_scale), n)

@@ -9,7 +9,10 @@ the flags, and loaded with ``ctypes``.  Two libraries:
 * ``sfc_gemm_fused.cu``, compiled once per (input type, GLU, activation)
   part, each part with its epilogue flags as template parameters, plus two
   backward parts per input type (``-DSFC_BWD=1``: the NT and TN kernels;
-  ``-DSFC_BWD=2``: the TN kernel with its update / norm flush);
+  ``-DSFC_BWD=2``: the TN kernel with its update / norm flush); the
+  forward, NT and TN entries also take the grouped (MoE expert) mode of
+  K3, K9 and K10 through a per-expert row array and launch it as kernels
+  of their own in the same parts, so it adds no part;
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
@@ -144,6 +147,7 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                     ctypes.c_longlong, ctypes.c_longlong,  # A / B batch strides (elements)
                     i32, ctypes.c_float,  # has_scale, out_scale
                     i32, i32,  # vec_a, vec_b
+                    ptr, i32,  # grouped mode (K3): per-expert (3, E) rows, E; null, 0 otherwise
                     ptr,  # cudaStream_t
                 ]
                 fn.restype = i32
@@ -154,6 +158,7 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                 ptr, i32,  # task table, n_tasks
                 i32, i32, i32,  # R, C, D (output rows, output cols, contraction)
                 i32, i32,  # vec_a, vec_b
+                ptr, i32,  # grouped mode (K9 / K10): per-expert (3, E) rows, E; null, 0 otherwise
                 ptr,  # cudaStream_t
             ]
             fn.restype = i32

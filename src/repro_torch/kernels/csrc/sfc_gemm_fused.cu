@@ -36,6 +36,23 @@
 // 64 tile rows are real and narrow N gives few CTAs (16 for N = 1024), so
 // the weight stream cannot reach the card's memory rate.
 //
+// Grouped mode (K3, `repro/kernels/sfc_gemm.py::sfc_gemm_grouped`, the MoE
+// expert GEMMs): when the entry gets a per-expert array `grp` (3, E) of row
+// starts, row counts and first padded row blocks, it launches
+// sfc_gemm_grouped_kernel, the same tile body under a name of its own (so a
+// profiler trace tells K3 from K1/K2).  The task table has a third row, the
+// expert, and each CTA computes one tile of its expert's product
+// A[rows of e] @ B[e] with B, B_gate and the bias rows offset by the expert.
+// Each expert's rows lie packed, unpadded, in A and C: the CTA masks its
+// expert's last row block at the expert's row count, where the TPU kernel
+// runs on rows padded to whole blocks.  The table keeps the TPU's padded
+// block numbering (one gilbert map per expert over its row blocks), so the
+// tile order is the TPU's.  What bounds it: at the olmoe shapes (80 rows an
+// expert at prefill and training, 32 at decode) every launch reads each
+// expert's weights once, 2 * rows flops a weight, far below the card's
+// 295 flops a byte, so the weight bytes bound it; the 64-row tile is then
+// mostly a weight stream, and at decode 32 of its 64 rows are real.
+//
 // Epilogue flags are template parameters.  One compilation unit holds one
 // (input type, GLU, activation) part, chosen by -DSFC_DTYPE / -DSFC_GLU /
 // -DSFC_ACT with its entry point named by -DSFC_ENTRY, so the build can run
@@ -62,6 +79,18 @@
 //   matrix_a.  The dual form shares the A panel between two accumulators and
 //   two outputs (the GLU's dWv, dWg).  The TPU kernel's ABFT lane is not
 //   ported.
+// Both entries take the grouped mode too, with the per-expert `grp` array,
+// and launch it as a kernel of its own over the same tile body:
+// grouped_nt_kernel replaces `sfc_gemm_grouped_nt` (`_grouped_nt_kernel`, K9):
+//   dA[rows of e] = dC_e @ B[e]^T (+ dC2_e @ B2[e]^T) with the expert's
+//   weight read as stored (E, N, K), over the forward's grouped table.
+// grouped_tn_kernel replaces `sfc_gemm_grouped_tn` in its dW mode
+//   (`_grouped_tn_kernel`, K10): dW[e] = A_e^T @ dC_e (and dC2_e) over one
+//   gilbert map of the (K, N) tiles replayed per expert; the CTA's contraction loop runs over its
+//   expert's rows only (the TPU kernel's `rb` bound), so an expert with no
+//   rows flushes a zero tile, with no atomics.  At 80 rows an expert the
+//   loop is two steps deep: the launch is bound by the weight-sized output
+//   it writes and by the re-reads of each expert's rows from L2.
 //
 // -DSFC_BWD=2 compiles tn_update_kernel (entry -DSFC_TNU_ENTRY), the same TN
 // traversal with the TPU kernel's grad-and-update flush
@@ -166,6 +195,14 @@ struct Params {
   int vec_b;  // rows of B (and B_gate) may be read as 16-byte vectors
 };
 
+// The grouped mode's second argument (K3): (3, n_groups) per-expert row
+// start, row count and first padded row block; the table's third row is
+// the expert.  Apart from Params, so K1/K2's argument is as it was.
+struct GroupRows {
+  const int* grp;
+  int n_groups;
+};
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
@@ -237,7 +274,7 @@ __device__ __forceinline__ void load_tile(T* __restrict__ s, const T* __restrict
 // 32 x 32 quarter of the C tile as 2 x 2 fragments (and as many again for the
 // gate accumulator of the GLU form).  Leaves the f32 accumulators in Cs/Cgs.
 template <bool GLU>
-__device__ __forceinline__ void mainloop(const Params& p, const bf16* A, const bf16* B,
+__device__ __forceinline__ void mainloop(const Params& p, int M, const bf16* A, const bf16* B,
                                          const bf16* Bg, int row0, int col0, bf16* As, bf16* Bs,
                                          bf16* Bgs, float* Cs, float* Cgs) {
   using namespace nvcuda;
@@ -256,7 +293,7 @@ __device__ __forceinline__ void mainloop(const Params& p, const bf16* A, const b
   }
   for (int k0 = 0; k0 < p.K; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K step
-    load_tile<bf16, kBM, BK, LDA>(As, A, p.K, row0, k0, p.M, p.K, p.vec_a);
+    load_tile<bf16, kBM, BK, LDA>(As, A, p.K, row0, k0, M, p.K, p.vec_a);
     load_tile<bf16, BK, kBN, LDB>(Bs, B, p.N, k0, col0, p.K, p.N, p.vec_b);
     if constexpr (GLU) load_tile<bf16, BK, kBN, LDB>(Bgs, Bg, p.N, k0, col0, p.K, p.N, p.vec_b);
     __syncthreads();
@@ -303,7 +340,7 @@ __device__ __forceinline__ void mainloop(const Params& p, const bf16* A, const b
 // version's rtol 1e-4).  Threads form an 8 (N) x 16 (M) grid, each owning
 // 4 rows x 8 cols of the C tile.
 template <bool GLU>
-__device__ __forceinline__ void mainloop(const Params& p, const float* A, const float* B,
+__device__ __forceinline__ void mainloop(const Params& p, int M, const float* A, const float* B,
                                          const float* Bg, int row0, int col0, float* As,
                                          float* Bs, float* Bgs, float* Cs, float* Cgs) {
   constexpr int BK = Cfg<float>::BK, LDA = Cfg<float>::LDA, LDB = Cfg<float>::LDB;
@@ -320,7 +357,7 @@ __device__ __forceinline__ void mainloop(const Params& p, const float* A, const 
   }
   for (int k0 = 0; k0 < p.K; k0 += BK) {
     __syncthreads();
-    load_tile<float, kBM, BK, LDA>(As, A, p.K, row0, k0, p.M, p.K, p.vec_a);
+    load_tile<float, kBM, BK, LDA>(As, A, p.K, row0, k0, M, p.K, p.vec_a);
     load_tile<float, BK, kBN, LDB>(Bs, B, p.N, k0, col0, p.K, p.N, p.vec_b);
     if constexpr (GLU) load_tile<float, BK, kBN, LDB>(Bgs, Bg, p.N, k0, col0, p.K, p.N, p.vec_b);
     __syncthreads();
@@ -366,44 +403,21 @@ typedef float ElemT;
 
 #if !SFC_BWD
 
+// The fused kernel's flush of one C tile from the f32 accumulators in
+// shared memory: C (and the residual, the preact gate output) at c_off in
+// their arrays, the bias rows at vec_off; M bounds the tile's rows.
 template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT>
-__global__ void __launch_bounds__(kThreads) sfc_gemm_fused_kernel(const Params p) {
-  static_assert(!PREACT || (GLU && !SCALE && !RES), "preact flushes the two biased pre-activations");
-  constexpr int A_ELEMS = kBM * Cfg<T>::LDA;
-  constexpr int B_ELEMS = Cfg<T>::BK * Cfg<T>::LDB;
-  constexpr int OPERAND_BYTES = (A_ELEMS + B_ELEMS * (GLU ? 2 : 1)) * (int)sizeof(T);
-  constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float) * (GLU ? 2 : 1);
-  constexpr int SMEM_BYTES = OPERAND_BYTES > EPI_BYTES ? OPERAND_BYTES : EPI_BYTES;
-  static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory is capped at 48 KB");
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + A_ELEMS;
-  T* Bgs = Bs + B_ELEMS;
-  float* Cs = reinterpret_cast<float*>(smem);
-  float* Cgs = Cs + kBM * kLDC;
-
-  // the task's C tile, in curve order
-  const int t = blockIdx.x;
-  const int row0 = __ldg(p.tab + t) * kBM;
-  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;
-  const long long bi = blockIdx.y;
-  const T* A = static_cast<const T*>(p.a) + bi * p.a_bstride;
-  const T* B = static_cast<const T*>(p.b) + bi * p.b_bstride;
-  const T* Bg = static_cast<const T*>(p.bg);  // GLU weights are shared
-
-  mainloop<GLU>(p, A, B, Bg, row0, col0, As, Bs, Bgs, Cs, Cgs);
-  __syncthreads();
-
-  const long long c_off = bi * (long long)p.M * p.N;
-  const T* bias = static_cast<const T*>(p.bias);
-  const T* gbias = static_cast<const T*>(p.gbias);
+__device__ __forceinline__ void fused_flush(const Params& p, int M, const float* Cs, const float* Cgs, int row0,
+                                            int col0, long long c_off, long long vec_off) {
+  const T* bias = static_cast<const T*>(p.bias) + (BIAS ? vec_off : 0);
+  const T* gbias = static_cast<const T*>(p.gbias) + (GBIAS ? vec_off : 0);
   const T* res = static_cast<const T*>(p.res) + (RES ? c_off : 0);
   T* out = static_cast<T*>(p.out) + c_off;
   T* out_gate = static_cast<T*>(p.out_gate) + (PREACT ? c_off : 0);
   for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
     const int r = i / kBN, c = i % kBN;
     const int gr = row0 + r, gc = col0 + c;
-    if (gr >= p.M || gc >= p.N) continue;
+    if (gr >= M || gc >= p.N) continue;
     float v = Cs[r * kLDC + c];
     if constexpr (BIAS) v += to_f32(bias[gc]);
     float y;
@@ -425,43 +439,123 @@ __global__ void __launch_bounds__(kThreads) sfc_gemm_fused_kernel(const Params p
   }
 }
 
+// One task's C tile: K1/K2 (batch element blockIdx.y) or, GROUPED, K3 (the
+// task's expert's packed rows against its own weights and bias rows; its
+// row block is renumbered from the expert's first padded block, and the
+// expert's row count masks its last block).
+template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT, bool GROUPED>
+__device__ __forceinline__ void fused_tile(const Params& p, const GroupRows& g) {
+  static_assert(!PREACT || (GLU && !SCALE && !RES), "preact flushes the two biased pre-activations");
+  static_assert(!GROUPED || !RES, "the grouped mode has no residual");
+  constexpr int A_ELEMS = kBM * Cfg<T>::LDA;
+  constexpr int B_ELEMS = Cfg<T>::BK * Cfg<T>::LDB;
+  constexpr int OPERAND_BYTES = (A_ELEMS + B_ELEMS * (GLU ? 2 : 1)) * (int)sizeof(T);
+  constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float) * (GLU ? 2 : 1);
+  constexpr int SMEM_BYTES = OPERAND_BYTES > EPI_BYTES ? OPERAND_BYTES : EPI_BYTES;
+  static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory is capped at 48 KB");
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + A_ELEMS;
+  T* Bgs = Bs + B_ELEMS;
+  float* Cs = reinterpret_cast<float*>(smem);
+  float* Cgs = Cs + kBM * kLDC;
+
+  // the task's C tile, in curve order
+  const int t = blockIdx.x;
+  int row0 = __ldg(p.tab + t) * kBM;
+  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;
+  const long long bi = blockIdx.y;
+  const T* A = static_cast<const T*>(p.a) + bi * p.a_bstride;
+  const T* B = static_cast<const T*>(p.b) + bi * p.b_bstride;
+  const T* Bg = static_cast<const T*>(p.bg);  // GLU weights are shared
+  if constexpr (GROUPED) {
+    int M = p.M;
+    long long c_off = bi * (long long)p.M * p.N, vec_off = 0;
+    if (g.grp != nullptr) {  // always taken; a run-time branch all the same (sfc_gemm_grouped_kernel)
+      const int e = __ldg(p.tab + 2 * p.n_tasks + t);
+      const int r_start = __ldg(g.grp + e);
+      M = __ldg(g.grp + g.n_groups + e);
+      row0 -= __ldg(g.grp + 2 * g.n_groups + e) * kBM;
+      const size_t w_off = (size_t)e * p.K * p.N;
+      A = static_cast<const T*>(p.a) + (size_t)r_start * p.K;
+      B = static_cast<const T*>(p.b) + w_off;
+      if constexpr (GLU) Bg += w_off;
+      c_off = (long long)r_start * p.N;
+      vec_off = (long long)e * p.N;
+    }
+    mainloop<GLU>(p, M, A, B, Bg, row0, col0, As, Bs, Bgs, Cs, Cgs);
+    __syncthreads();
+    fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, M, Cs, Cgs, row0, col0, c_off, vec_off);
+  } else {
+    mainloop<GLU>(p, p.M, A, B, Bg, row0, col0, As, Bs, Bgs, Cs, Cgs);
+    __syncthreads();
+    fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, p.M, Cs, Cgs, row0, col0, bi * (long long)p.M * p.N,
+                                                              0);
+  }
+}
+
+// K1/K2
+template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT>
+__global__ void __launch_bounds__(kThreads) sfc_gemm_fused_kernel(const Params p) {
+  fused_tile<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT, false>(p, GroupRows{nullptr, 0});
+}
+
+// K3, the grouped mode: a kernel of its own so that a profiler trace tells
+// it from K1/K2.  The entry launches it only with a grp array, yet its
+// offsets sit on a run-time branch: with the branch resolved at compile
+// time nvcc spent more registers on the tile (the bf16 GLU 250 in place of
+// 168, w_out 135 in place of 102), fewer CTAs fit an SM, and the grouped
+// launches ran 1.01-1.54x slower at olmoe's shapes on an H100
+// (scripts/dense_kernel_ab.py).
+template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool PREACT>
+__global__ void __launch_bounds__(kThreads) sfc_gemm_grouped_kernel(const Params p, const GroupRows g) {
+  fused_tile<T, GLU, ACT, BIAS, GBIAS, SCALE, false, PREACT, true>(p, g);
+}
+
 template <bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT = false>
-void launch(const Params& p, dim3 grid, cudaStream_t s) {
+void launch(const Params& p, const GroupRows& g, dim3 grid, cudaStream_t s) {
+  if constexpr (!RES) {  // the entry refuses a residual in the grouped mode
+    if (g.grp != nullptr) {
+      sfc_gemm_grouped_kernel<ElemT, SFC_GLU != 0, SFC_ACT, BIAS, GBIAS, SCALE, PREACT>
+          <<<grid, kThreads, 0, s>>>(p, g);
+      return;
+    }
+  }
   sfc_gemm_fused_kernel<ElemT, SFC_GLU != 0, SFC_ACT, BIAS, GBIAS, SCALE, RES, PREACT>
       <<<grid, kThreads, 0, s>>>(p);
 }
 
 template <bool BIAS, bool GBIAS, bool SCALE>
-void launch_res(const Params& p, dim3 grid, cudaStream_t s) {
+void launch_res(const Params& p, const GroupRows& g, dim3 grid, cudaStream_t s) {
   if (p.res)
-    launch<BIAS, GBIAS, SCALE, true>(p, grid, s);
+    launch<BIAS, GBIAS, SCALE, true>(p, g, grid, s);
   else
-    launch<BIAS, GBIAS, SCALE, false>(p, grid, s);
+    launch<BIAS, GBIAS, SCALE, false>(p, g, grid, s);
 }
 
 template <bool BIAS, bool GBIAS>
-void launch_scale(const Params& p, bool scale, dim3 grid, cudaStream_t s) {
+void launch_scale(const Params& p, const GroupRows& g, bool scale, dim3 grid, cudaStream_t s) {
 #if SFC_GLU
   if (p.out_gate) {  // preact: the entry has refused a scale and a residual
-    launch<BIAS, GBIAS, false, false, true>(p, grid, s);
+    launch<BIAS, GBIAS, false, false, true>(p, g, grid, s);
     return;
   }
 #endif
   if (scale)
-    launch_res<BIAS, GBIAS, true>(p, grid, s);
+    launch_res<BIAS, GBIAS, true>(p, g, grid, s);
   else
-    launch_res<BIAS, GBIAS, false>(p, grid, s);
+    launch_res<BIAS, GBIAS, false>(p, g, grid, s);
 }
 
 template <bool BIAS>
-void launch_gbias(const Params& p, bool scale, dim3 grid, cudaStream_t s) {
+void launch_gbias(const Params& p, const GroupRows& g, bool scale, dim3 grid, cudaStream_t s) {
 #if SFC_GLU
   if (p.gbias) {
-    launch_scale<BIAS, true>(p, scale, grid, s);
+    launch_scale<BIAS, true>(p, g, scale, grid, s);
     return;
   }
 #endif
-  launch_scale<BIAS, false>(p, scale, grid, s);
+  launch_scale<BIAS, false>(p, g, scale, grid, s);
 }
 
 #else  // SFC_BWD
@@ -477,6 +571,10 @@ struct BwdParams {
   int n_tasks;
   int R, C, D;     // output rows, output cols, contraction length
   int vec_a, vec_b;
+  // grouped mode (null otherwise): (3, n_groups) per-expert row start, row
+  // count and first padded row block; the table's third row is the expert
+  const int* grp;
+  int n_groups;
 };
 
 // Shared-memory strides of the NT operand tiles (64 output rows or cols x
@@ -495,16 +593,13 @@ struct TnCfg {
 // NT, bf16: 4 warps in a 2 x 2 grid of 32 x 32 quarters.  Both tiles are
 // stored (64, BK) row-major; the B tile read as col_major is B^T.
 template <bool DUAL>
-__device__ __forceinline__ void nt_mainloop(const BwdParams& p, int row0, int col0, bf16* As, bf16* Bs,
+__device__ __forceinline__ void nt_mainloop(const BwdParams& p, const bf16* A, const bf16* B, const bf16* A2,
+                                            const bf16* B2, int R, int row0, int col0, bf16* As, bf16* Bs,
                                             bf16* A2s, bf16* B2s, float* Cs) {
   using namespace nvcuda;
   constexpr int BK = NtCfg<bf16>::BK, LD = NtCfg<bf16>::LD;
   const int warp = threadIdx.x / 32;
   const int wm = warp / 2, wn = warp % 2;
-  const bf16* A = static_cast<const bf16*>(p.a);
-  const bf16* B = static_cast<const bf16*>(p.b);
-  const bf16* A2 = static_cast<const bf16*>(p.a2);
-  const bf16* B2 = static_cast<const bf16*>(p.b2);
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -513,10 +608,10 @@ __device__ __forceinline__ void nt_mainloop(const BwdParams& p, int row0, int co
   }
   for (int k0 = 0; k0 < p.D; k0 += BK) {
     __syncthreads();
-    load_tile<bf16, kBM, BK, LD>(As, A, p.D, row0, k0, p.R, p.D, p.vec_a);
+    load_tile<bf16, kBM, BK, LD>(As, A, p.D, row0, k0, R, p.D, p.vec_a);
     load_tile<bf16, kBN, BK, LD>(Bs, B, p.D, col0, k0, p.C, p.D, p.vec_b);
     if constexpr (DUAL) {
-      load_tile<bf16, kBM, BK, LD>(A2s, A2, p.D, row0, k0, p.R, p.D, p.vec_a);
+      load_tile<bf16, kBM, BK, LD>(A2s, A2, p.D, row0, k0, R, p.D, p.vec_a);
       load_tile<bf16, kBN, BK, LD>(B2s, B2, p.D, col0, k0, p.C, p.D, p.vec_b);
     }
     __syncthreads();
@@ -554,14 +649,11 @@ __device__ __forceinline__ void nt_mainloop(const BwdParams& p, int row0, int co
 // NT, f32: SIMT FMAs in full f32; threads form an 8 (cols) x 16 (rows) grid,
 // each owning 4 rows x 8 cols of the C tile.
 template <bool DUAL>
-__device__ __forceinline__ void nt_mainloop(const BwdParams& p, int row0, int col0, float* As, float* Bs,
+__device__ __forceinline__ void nt_mainloop(const BwdParams& p, const float* A, const float* B, const float* A2,
+                                            const float* B2, int R, int row0, int col0, float* As, float* Bs,
                                             float* A2s, float* B2s, float* Cs) {
   constexpr int BK = NtCfg<float>::BK, LD = NtCfg<float>::LD;
   const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  const float* A = static_cast<const float*>(p.a);
-  const float* B = static_cast<const float*>(p.b);
-  const float* A2 = static_cast<const float*>(p.a2);
-  const float* B2 = static_cast<const float*>(p.b2);
   float acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -570,10 +662,10 @@ __device__ __forceinline__ void nt_mainloop(const BwdParams& p, int row0, int co
   }
   for (int k0 = 0; k0 < p.D; k0 += BK) {
     __syncthreads();
-    load_tile<float, kBM, BK, LD>(As, A, p.D, row0, k0, p.R, p.D, p.vec_a);
+    load_tile<float, kBM, BK, LD>(As, A, p.D, row0, k0, R, p.D, p.vec_a);
     load_tile<float, kBN, BK, LD>(Bs, B, p.D, col0, k0, p.C, p.D, p.vec_b);
     if constexpr (DUAL) {
-      load_tile<float, kBM, BK, LD>(A2s, A2, p.D, row0, k0, p.R, p.D, p.vec_a);
+      load_tile<float, kBM, BK, LD>(A2s, A2, p.D, row0, k0, R, p.D, p.vec_a);
       load_tile<float, kBN, BK, LD>(B2s, B2, p.D, col0, k0, p.C, p.D, p.vec_b);
     }
     __syncthreads();
@@ -607,15 +699,13 @@ __device__ __forceinline__ void nt_mainloop(const BwdParams& p, int row0, int co
 // TN, bf16: the (BK, 64) A panel read as col_major is the A^T slab; B and
 // B2 are (BK, 64) row-major slabs of dC.
 template <bool DUAL>
-__device__ __forceinline__ void tn_mainloop(const BwdParams& p, int row0, int col0, bf16* As, bf16* Bs,
+__device__ __forceinline__ void tn_mainloop(const BwdParams& p, const bf16* A, const bf16* B, const bf16* B2, int D,
+                                            int row0, int col0, bf16* As, bf16* Bs,
                                             bf16* B2s, float* Cs, float* C2s) {
   using namespace nvcuda;
   constexpr int BK = TnCfg<bf16>::BK, LD = TnCfg<bf16>::LD;
   const int warp = threadIdx.x / 32;
   const int wm = warp / 2, wn = warp % 2;
-  const bf16* A = static_cast<const bf16*>(p.a);
-  const bf16* B = static_cast<const bf16*>(p.b);
-  const bf16* B2 = static_cast<const bf16*>(p.b2);
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc2[2][2];
 #pragma unroll
@@ -626,11 +716,11 @@ __device__ __forceinline__ void tn_mainloop(const BwdParams& p, int row0, int co
       if constexpr (DUAL) wmma::fill_fragment(acc2[i][j], 0.0f);
     }
   }
-  for (int m0 = 0; m0 < p.D; m0 += BK) {
+  for (int m0 = 0; m0 < D; m0 += BK) {
     __syncthreads();
-    load_tile<bf16, BK, kBM, LD>(As, A, p.R, m0, row0, p.D, p.R, p.vec_a);
-    load_tile<bf16, BK, kBN, LD>(Bs, B, p.C, m0, col0, p.D, p.C, p.vec_b);
-    if constexpr (DUAL) load_tile<bf16, BK, kBN, LD>(B2s, B2, p.C, m0, col0, p.D, p.C, p.vec_b);
+    load_tile<bf16, BK, kBM, LD>(As, A, p.R, m0, row0, D, p.R, p.vec_a);
+    load_tile<bf16, BK, kBN, LD>(Bs, B, p.C, m0, col0, D, p.C, p.vec_b);
+    if constexpr (DUAL) load_tile<bf16, BK, kBN, LD>(B2s, B2, p.C, m0, col0, D, p.C, p.vec_b);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -670,13 +760,11 @@ __device__ __forceinline__ void tn_mainloop(const BwdParams& p, int row0, int co
 
 // TN, f32: SIMT; a thread owns 4 rows x 8 cols of the C tile (and of C2).
 template <bool DUAL>
-__device__ __forceinline__ void tn_mainloop(const BwdParams& p, int row0, int col0, float* As, float* Bs,
+__device__ __forceinline__ void tn_mainloop(const BwdParams& p, const float* A, const float* B, const float* B2, int D,
+                                            int row0, int col0, float* As, float* Bs,
                                             float* B2s, float* Cs, float* C2s) {
   constexpr int BK = TnCfg<float>::BK, LD = TnCfg<float>::LD;
   const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  const float* A = static_cast<const float*>(p.a);
-  const float* B = static_cast<const float*>(p.b);
-  const float* B2 = static_cast<const float*>(p.b2);
   float acc[4][8];
   float acc2[4][8];
 #pragma unroll
@@ -687,11 +775,11 @@ __device__ __forceinline__ void tn_mainloop(const BwdParams& p, int row0, int co
       acc2[i][j] = 0.0f;
     }
   }
-  for (int m0 = 0; m0 < p.D; m0 += BK) {
+  for (int m0 = 0; m0 < D; m0 += BK) {
     __syncthreads();
-    load_tile<float, BK, kBM, LD>(As, A, p.R, m0, row0, p.D, p.R, p.vec_a);
-    load_tile<float, BK, kBN, LD>(Bs, B, p.C, m0, col0, p.D, p.C, p.vec_b);
-    if constexpr (DUAL) load_tile<float, BK, kBN, LD>(B2s, B2, p.C, m0, col0, p.D, p.C, p.vec_b);
+    load_tile<float, BK, kBM, LD>(As, A, p.R, m0, row0, D, p.R, p.vec_a);
+    load_tile<float, BK, kBN, LD>(Bs, B, p.C, m0, col0, D, p.C, p.vec_b);
+    if constexpr (DUAL) load_tile<float, BK, kBN, LD>(B2s, B2, p.C, m0, col0, D, p.C, p.vec_b);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
@@ -738,8 +826,11 @@ __device__ __forceinline__ void flush_tile(const float* Cs, T* out, int row0, in
   }
 }
 
+// One task's output tile of the NT kernel: out (R, p.C) = A @ B^T
+// (+ A2 @ B2^T), the operands already at the tile's matrix.
 template <typename T, bool DUAL>
-__global__ void __launch_bounds__(kThreads) nt_kernel(const BwdParams p) {
+__device__ __forceinline__ void nt_tile(const BwdParams& p, const T* A, const T* B, const T* A2, const T* B2, T* out,
+                                        int R, int row0, int col0) {
   constexpr int TILE = kBM * NtCfg<T>::LD;
   constexpr int OPERAND_BYTES = TILE * (DUAL ? 4 : 2) * (int)sizeof(T);
   constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float);
@@ -751,16 +842,57 @@ __global__ void __launch_bounds__(kThreads) nt_kernel(const BwdParams p) {
   T* A2s = Bs + TILE;
   T* B2s = A2s + TILE;
   float* Cs = reinterpret_cast<float*>(smem);
-  const int t = blockIdx.x;
-  const int row0 = __ldg(p.tab + t) * kBM;
-  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;
-  nt_mainloop<DUAL>(p, row0, col0, As, Bs, A2s, B2s, Cs);
+  nt_mainloop<DUAL>(p, A, B, A2, B2, R, row0, col0, As, Bs, A2s, B2s, Cs);
   __syncthreads();
-  flush_tile<T>(Cs, static_cast<T*>(p.out), row0, col0, p.R, p.C);
+  flush_tile<T>(Cs, out, row0, col0, R, p.C);
 }
 
+// K7
 template <typename T, bool DUAL>
-__global__ void __launch_bounds__(kThreads) tn_kernel(const BwdParams p) {
+__global__ void __launch_bounds__(kThreads) nt_kernel(const BwdParams p) {
+  const int t = blockIdx.x;
+  nt_tile<T, DUAL>(p, static_cast<const T*>(p.a), static_cast<const T*>(p.b), static_cast<const T*>(p.a2),
+                   static_cast<const T*>(p.b2), static_cast<T*>(p.out), p.R, __ldg(p.tab + t) * kBM,
+                   __ldg(p.tab + p.n_tasks + t) * kBN);
+}
+
+// K9, a kernel of its own for the trace: the dC rows of the task's expert
+// against its (C, D) weight slab, into the expert's rows of dA.  The
+// offsets sit on a run-time branch, as K3's do (bf16 dual: 96 registers,
+// 168 with the branch resolved at compile time).
+template <typename T, bool DUAL>
+__global__ void __launch_bounds__(kThreads) grouped_nt_kernel(const BwdParams p) {
+  const int t = blockIdx.x;
+  const T* a = static_cast<const T*>(p.a);
+  const T* b = static_cast<const T*>(p.b);
+  const T* a2 = static_cast<const T*>(p.a2);
+  const T* b2 = static_cast<const T*>(p.b2);
+  T* out = static_cast<T*>(p.out);
+  int rows = p.R;
+  int row0 = __ldg(p.tab + t) * kBM;
+  if (p.grp != nullptr) {
+    const int e = __ldg(p.tab + 2 * p.n_tasks + t);
+    const size_t r_start = (size_t)__ldg(p.grp + e);
+    const size_t w_off = (size_t)e * p.C * p.D;
+    a += r_start * p.D;
+    b += w_off;
+    if constexpr (DUAL) {
+      a2 += r_start * p.D;
+      b2 += w_off;
+    }
+    out += r_start * p.C;
+    rows = __ldg(p.grp + p.n_groups + e);
+    row0 -= __ldg(p.grp + 2 * p.n_groups + e) * kBM;
+  }
+  nt_tile<T, DUAL>(p, a, b, a2, b2, out, rows, row0, __ldg(p.tab + p.n_tasks + t) * kBN);
+}
+
+// One task's output tile of the TN kernel: out (p.R, p.C) = A^T @ B (and
+// out2 = A^T @ B2), the contraction over D rows, the operands already at
+// the tile's matrix.
+template <typename T, bool DUAL>
+__device__ __forceinline__ void tn_tile(const BwdParams& p, const T* A, const T* B, const T* B2, T* out, T* out2,
+                                        int D, int row0, int col0) {
   constexpr int TILE = TnCfg<T>::BK * TnCfg<T>::LD;
   constexpr int OPERAND_BYTES = TILE * (DUAL ? 3 : 2) * (int)sizeof(T);
   constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float) * (DUAL ? 2 : 1);
@@ -772,13 +904,49 @@ __global__ void __launch_bounds__(kThreads) tn_kernel(const BwdParams p) {
   T* B2s = Bs + TILE;
   float* Cs = reinterpret_cast<float*>(smem);
   float* C2s = Cs + kBM * kLDC;
-  const int t = blockIdx.x;
-  const int row0 = __ldg(p.tab + t) * kBM;
-  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;
-  tn_mainloop<DUAL>(p, row0, col0, As, Bs, B2s, Cs, C2s);
+  tn_mainloop<DUAL>(p, A, B, B2, D, row0, col0, As, Bs, B2s, Cs, C2s);
   __syncthreads();
-  flush_tile<T>(Cs, static_cast<T*>(p.out), row0, col0, p.R, p.C);
-  if constexpr (DUAL) flush_tile<T>(C2s, static_cast<T*>(p.out2), row0, col0, p.R, p.C);
+  flush_tile<T>(Cs, out, row0, col0, p.R, p.C);
+  if constexpr (DUAL) flush_tile<T>(C2s, out2, row0, col0, p.R, p.C);
+}
+
+// K8 dW
+template <typename T, bool DUAL>
+__global__ void __launch_bounds__(kThreads) tn_kernel(const BwdParams p) {
+  const int t = blockIdx.x;
+  tn_tile<T, DUAL>(p, static_cast<const T*>(p.a), static_cast<const T*>(p.b), static_cast<const T*>(p.b2),
+                   static_cast<T*>(p.out), static_cast<T*>(p.out2), p.D, __ldg(p.tab + t) * kBM,
+                   __ldg(p.tab + p.n_tasks + t) * kBN);
+}
+
+// K10 dW, a kernel of its own for the trace: the contraction runs over the
+// task's expert's rows only, and the tile lands in the expert's (R, C)
+// slice of the (E, R, C) output.  The offsets sit on a run-time branch,
+// as K3's do (bf16 dual: 128 registers, 182 with the branch resolved at
+// compile time).
+template <typename T, bool DUAL>
+__global__ void __launch_bounds__(kThreads) grouped_tn_kernel(const BwdParams p) {
+  const int t = blockIdx.x;
+  const T* a = static_cast<const T*>(p.a);
+  const T* b = static_cast<const T*>(p.b);
+  const T* b2 = static_cast<const T*>(p.b2);
+  T* out = static_cast<T*>(p.out);
+  T* out2 = static_cast<T*>(p.out2);
+  int depth = p.D;
+  if (p.grp != nullptr) {
+    const int e = __ldg(p.tab + 2 * p.n_tasks + t);
+    const size_t r_start = (size_t)__ldg(p.grp + e);
+    const size_t o_off = (size_t)e * p.R * p.C;
+    a += r_start * p.R;
+    b += r_start * p.C;
+    out += o_off;
+    if constexpr (DUAL) {
+      b2 += r_start * p.C;
+      out2 += o_off;
+    }
+    depth = __ldg(p.grp + p.n_groups + e);
+  }
+  tn_tile<T, DUAL>(p, a, b, b2, out, out2, depth, __ldg(p.tab + t) * kBM, __ldg(p.tab + p.n_tasks + t) * kBN);
 }
 
 BwdParams bwd_params(const void* a, const void* b, const void* a2, const void* b2, void* out, void* out2,
@@ -797,6 +965,8 @@ BwdParams bwd_params(const void* a, const void* b, const void* a2, const void* b
   p.D = D;
   p.vec_a = vec_a;
   p.vec_b = vec_b;
+  p.grp = nullptr;
+  p.n_groups = 0;
   return p;
 }
 
@@ -938,7 +1108,8 @@ __global__ void __launch_bounds__(kThreads) tn_update_kernel(const BwdParams p, 
   float hv[kSEED + 1];
 #pragma unroll
   for (int i = 0; i <= kSEED; ++i) hv[i] = UPDATE ? __ldg(u.hyper + i) : 0.0f;
-  tn_mainloop<DUAL>(p, row0, col0, As, Bs, B2s, Cs, C2s);
+  tn_mainloop<DUAL>(p, static_cast<const T*>(p.a), static_cast<const T*>(p.b), static_cast<const T*>(p.b2), p.D,
+                    row0, col0, As, Bs, B2s, Cs, C2s);
   __syncthreads();
   const unsigned step_bits = __float_as_uint(hv[kSEED]);
   update_flush<T, UPDATE, SR>(Cs, p, u, 0, hv, SR ? tile_seed(step_bits, u.salt, im, in, 0) : 0u, row0, col0,
@@ -975,17 +1146,20 @@ int launch_tn_update(const BwdParams& p, const UpdParams& u, bool sr, cudaStream
 
 // One launch of the fused kernel over a (n_tasks, batch) grid.  Pointers
 // that are null switch their epilogue term off; a non-null out_gate selects
-// the preact mode (GLU parts only, no scale or residual).  Returns
-// cudaGetLastError() after the launch, so a refused launch reaches the
-// caller.
+// the preact mode (GLU parts only, no scale or residual).  A non-null grp
+// (3, n_groups) selects the grouped mode: tab is (3, n_tasks), B and B_gate
+// are (n_groups, K, N), the biases (n_groups, N), M is the total row count,
+// and there is no batch and no residual.  Returns cudaGetLastError() after
+// the launch, so a refused launch reaches the caller.
 extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
                          const void* gate_bias, const void* residual, void* out, void* out_gate,
                          const int* tab, int n_tasks, int batch, int M, int N, int K,
                          long long a_bstride, long long b_bstride, int has_scale, float out_scale,
-                         int vec_a, int vec_b, void* stream) {
+                         int vec_a, int vec_b, const int* grp, int n_groups, void* stream) {
   if ((SFC_GLU != 0) != (b_gate != nullptr)) return (int)cudaErrorInvalidValue;
   if (!SFC_GLU && gate_bias != nullptr) return (int)cudaErrorInvalidValue;
   if (out_gate != nullptr && (!SFC_GLU || residual != nullptr || has_scale)) return (int)cudaErrorInvalidValue;
+  if (grp != nullptr && (batch != 1 || residual != nullptr || n_groups < 1)) return (int)cudaErrorInvalidValue;
   Params p;
   p.a = a;
   p.b = b;
@@ -1005,26 +1179,37 @@ extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const
   p.out_scale = out_scale;
   p.vec_a = vec_a;
   p.vec_b = vec_b;
+  const GroupRows g{grp, n_groups};
   const dim3 grid((unsigned)n_tasks, (unsigned)batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias)
-    launch_gbias<true>(p, has_scale != 0, grid, s);
+    launch_gbias<true>(p, g, has_scale != 0, grid, s);
   else
-    launch_gbias<false>(p, has_scale != 0, grid, s);
+    launch_gbias<false>(p, g, has_scale != 0, grid, s);
   return (int)cudaGetLastError();
 }
 
 #elif SFC_BWD == 1
 
 // NT: out (R, C) = a (R, D) @ b (C, D)^T [+ a2 @ b2^T when a2 is non-null],
-// one CTA per task of the gilbert table over the output tiles.
+// one CTA per task of the gilbert table over the output tiles.  A non-null
+// grp (3, n_groups) selects the grouped mode: tab is the grouped table
+// (3, n_tasks), b (and b2) is (n_groups, C, D), R the total row count, and
+// each expert's rows use its own weight slab.
 extern "C" int SFC_NT_ENTRY(const void* a, const void* b, const void* a2, const void* b2, void* out,
                             const int* tab, int n_tasks, int R, int C, int D, int vec_a, int vec_b,
-                            void* stream) {
+                            const int* grp, int n_groups, void* stream) {
   if ((a2 == nullptr) != (b2 == nullptr)) return (int)cudaErrorInvalidValue;
-  const BwdParams p = bwd_params(a, b, a2, b2, out, nullptr, tab, n_tasks, R, C, D, vec_a, vec_b);
+  if (grp != nullptr && n_groups < 1) return (int)cudaErrorInvalidValue;
+  BwdParams p = bwd_params(a, b, a2, b2, out, nullptr, tab, n_tasks, R, C, D, vec_a, vec_b);
+  p.grp = grp;
+  p.n_groups = n_groups;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a2)
+  if (grp != nullptr && a2)
+    grouped_nt_kernel<ElemT, true><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
+  else if (grp != nullptr)
+    grouped_nt_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
+  else if (a2)
     nt_kernel<ElemT, true><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
   else
     nt_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
@@ -1032,14 +1217,25 @@ extern "C" int SFC_NT_ENTRY(const void* a, const void* b, const void* a2, const 
 }
 
 // TN: out (R, C) = a (D, R)^T @ b (D, C) [and out2 = a^T @ b2 when b2 is
-// non-null], the contraction over the D rows inside each CTA.
+// non-null], the contraction over the D rows inside each CTA.  A non-null
+// grp (3, n_groups) selects the grouped dW mode: tab is (3, n_tasks), one
+// gilbert map of the (R, C) tiles per expert with the expert in its third
+// row; out (and out2) is (n_groups, R, C), D the total row count, and each
+// expert contracts over its own rows.
 extern "C" int SFC_TN_ENTRY(const void* a, const void* b, const void* b2, void* out, void* out2,
                             const int* tab, int n_tasks, int R, int C, int D, int vec_a, int vec_b,
-                            void* stream) {
+                            const int* grp, int n_groups, void* stream) {
   if ((b2 == nullptr) != (out2 == nullptr)) return (int)cudaErrorInvalidValue;
-  const BwdParams p = bwd_params(a, b, nullptr, b2, out, out2, tab, n_tasks, R, C, D, vec_a, vec_b);
+  if (grp != nullptr && n_groups < 1) return (int)cudaErrorInvalidValue;
+  BwdParams p = bwd_params(a, b, nullptr, b2, out, out2, tab, n_tasks, R, C, D, vec_a, vec_b);
+  p.grp = grp;
+  p.n_groups = n_groups;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b2)
+  if (grp != nullptr && b2)
+    grouped_tn_kernel<ElemT, true><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
+  else if (grp != nullptr)
+    grouped_tn_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
+  else if (b2)
     tn_kernel<ElemT, true><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
   else
     tn_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);

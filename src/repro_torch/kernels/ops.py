@@ -44,6 +44,15 @@ instead (`fused_update_matmul(..., fused=False)`): plain autograd dW, handed
 to the tape through `_RoutedWeight`, then the same AdamW program
 (`plain_update`).
 
+The grouped (MoE expert) forms.  `sfc_grouped_matmul` and
+`sfc_grouped_glu_matmul` run every expert's ``epilogue(a[rows of e] @
+b[e])`` in one launch of the grouped kernel (K3), the rows of each expert
+packed and unpadded; `sfc_grouped_matmul_nt` (K9) and
+`sfc_grouped_matmul_tn` (K10) are their dA and dW.  `_GroupedCore` is the
+grouped autograd Function (JAX: ``_grouped_core``), built as `_MatmulCore`
+is: the GLU forward in ``preact`` mode, the backward on K9 and K10, bias
+gradients as per-expert sums.
+
 Not ported in this slice, each raising ``NotImplementedError``: the
 replicated 2.5D form (``fuse=False``, ROADMAP queue 2 K4-K6) and the ABFT
 checksum lane (queue 1 item 14).  The backward has no fallback ladder
@@ -60,8 +69,12 @@ import torch
 
 from repro_torch.kernels.sfc_gemm import (
     activation_fn,
+    grouped_tn_row_block,
     kernel_tile,
     sfc_gemm_fused,
+    sfc_gemm_grouped,
+    sfc_gemm_grouped_nt,
+    sfc_gemm_grouped_tn,
     sfc_gemm_nt,
     sfc_gemm_tn,
     stochastic_round_to,
@@ -78,6 +91,10 @@ __all__ = [
     "plain_update",
     "fused_update_matmul",
     "fused_update_glu_matmul",
+    "sfc_grouped_matmul",
+    "sfc_grouped_glu_matmul",
+    "sfc_grouped_matmul_nt",
+    "sfc_grouped_matmul_tn",
     "pick_blocks",
     "resolve_knobs",
     "reference_knobs",
@@ -684,3 +701,243 @@ def sfc_glu_matmul(
         bm=bm, bn=bn, k_layers=k_layers, k_block_factor=k_block_factor,
         out_dtype=out_dtype, fuse=fuse, abft=abft,
     )
+
+
+# ---------------------------------------------------------------------------
+# grouped (MoE expert) GEMMs: K3 forward, K9 dA, K10 dW, and their VJP
+# ---------------------------------------------------------------------------
+
+
+def _grouped_knobs(max_rows: int, n: int, k: int, device, bm, bn) -> Tuple[int, int]:
+    """(bm, bn) of a grouped launch: the kernel's tile on the card; on the
+    CPU the JAX package's choice, `pick_blocks` over the largest expert's
+    rows with bm at most 128."""
+    if torch.device(device).type == "cuda":
+        bm, bn, _, _ = resolve_knobs(max_rows, n, k, device, bm=bm, bn=bn)
+        return bm, bn
+    pbm, pbn, _ = pick_blocks(max(max_rows, 1), n, k)
+    return bm or min(pbm, 128), bn or pbn
+
+
+def _grouped_impl(
+    a: torch.Tensor,  # (T, K) rows sorted by expert
+    b: torch.Tensor,  # (E, K, N) per-expert weights
+    b_gate: Optional[torch.Tensor],  # (E, K, N) per-expert gate weights
+    group_sizes,
+    *,
+    bias: Optional[torch.Tensor],
+    gate_bias: Optional[torch.Tensor],
+    activation: Optional[str],
+    out_scale: Optional[float],
+    bm: Optional[int],
+    bn: Optional[int],
+    k_block_factor: Optional[int],
+    out_dtype: Optional[torch.dtype],
+    preact: bool = False,
+):
+    """One launch of the grouped kernel (the JAX package's ``_grouped_impl``
+    less its row padding and its ABFT lane: the kernel masks each expert's
+    last row block)."""
+    if a.ndim != 2 or b.ndim != 3 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"grouped matmul needs a (T, K) and b (E, K, N); got {tuple(a.shape)}, {tuple(b.shape)}")
+    e_cnt, k, n = b.shape
+    for name, vec in (("bias", bias), ("gate_bias", gate_bias)):
+        if vec is not None and tuple(vec.shape) != (e_cnt, n):
+            raise ValueError(f"{name} must be (E, N)=({e_cnt},{n}), got {tuple(vec.shape)}")
+    gs = tuple(int(g) for g in group_sizes)
+    bm, bn = _grouped_knobs(max(gs, default=1), n, k, a.device, bm, bn)
+    vecs = [None if v is None else v.contiguous() for v in (bias, gate_bias)]
+    return sfc_gemm_grouped(
+        a.contiguous(), b.contiguous(), None if b_gate is None else b_gate.contiguous(), *vecs,
+        group_sizes=gs, activation=activation, out_scale=out_scale, bm=bm, bn=bn,
+        k_block_factor=k_block_factor or 1, out_dtype=out_dtype, preact=preact,
+    )
+
+
+def sfc_grouped_matmul_nt(
+    a: torch.Tensor,  # (T, K) rows sorted by expert (the dC rows)
+    b: torch.Tensor,  # (E, N, K) per-expert operand, consumed as b[e]ᵀ
+    group_sizes,
+    a2: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+    *,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    k_block_factor: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Grouped NT: ``out[rows of e] = a[rows of e] @ b[e]ᵀ`` (+ ``a2 @
+    b2[e]ᵀ``), the grouped dA (per-expert weights read as stored) through
+    K9.  Knobs as in the JAX package's ``sfc_grouped_matmul_nt``."""
+    gs = tuple(int(g) for g in group_sizes)
+    bm, bn = _grouped_knobs(max(gs, default=1), b.shape[-2], a.shape[-1], a.device, bm, bn)
+    return sfc_gemm_grouped_nt(
+        a.contiguous(), b.contiguous(), None if a2 is None else a2.contiguous(),
+        None if b2 is None else b2.contiguous(),
+        group_sizes=gs, bm=bm, bn=bn, k_block_factor=k_block_factor or 1, out_dtype=out_dtype,
+    )
+
+
+def sfc_grouped_matmul_tn(
+    a: torch.Tensor,  # (T, K) rows sorted by expert (the forward activations)
+    b: torch.Tensor,  # (T, N) rows sorted by expert (the dC rows)
+    group_sizes,
+    b2: Optional[torch.Tensor] = None,  # (T, N) second dC (the GLU's gate grad)
+    *,
+    row_block: Optional[int] = None,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
+):
+    """Grouped TN: ``dW[e] = a[rows of e]ᵀ @ b[rows of e]`` for every
+    expert in one K10 launch; with ``b2`` the activations stream once for
+    both weight-grad stacks (a pair).  Knobs as in the JAX package's
+    ``sfc_grouped_matmul_tn`` (the output tile from `pick_blocks`, at most
+    128, the contraction chunk from the largest expert's rows)."""
+    gs = tuple(int(g) for g in group_sizes)
+    k, n = a.shape[-1], b.shape[-1]
+    if torch.device(a.device).type == "cuda":
+        bm, bn, _, _ = resolve_knobs(k, n, a.shape[0], a.device, bm=bm, bn=bn)
+    elif bm is None or bn is None:
+        pbm, pbn, _ = pick_blocks(k, n, max(a.shape[0], 1))
+        bm, bn = bm or min(pbm, 128), bn or min(pbn, 128)
+    return sfc_gemm_grouped_tn(
+        a.contiguous(), b.contiguous(), None if b2 is None else b2.contiguous(),
+        group_sizes=gs, bm=bm, bn=bn, row_block=row_block or grouped_tn_row_block(gs), out_dtype=out_dtype,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class _GroupedVjpCfg:
+    group_sizes: Tuple[int, ...]
+    glu: bool
+    activation: Optional[str]
+    out_scale: Optional[float]
+    bm: Optional[int]
+    bn: Optional[int]
+    k_block_factor: Optional[int]
+    out_dtype: Optional[torch.dtype]
+
+
+def _grouped_training_forward(cfg: _GroupedVjpCfg, a, b, b_gate, bias, gate_bias):
+    """JAX's ``_grouped_core_fwd``: (out, h_pre, g_pre)."""
+    out_dtype = cfg.out_dtype or a.dtype
+    kw = dict(bm=cfg.bm, bn=cfg.bn, k_block_factor=cfg.k_block_factor)
+    h_pre = g_pre = None
+    if cfg.glu:
+        h_pre, g_pre = _grouped_impl(a, b, b_gate, cfg.group_sizes, bias=bias, gate_bias=gate_bias,
+                                     activation=None, out_scale=None, out_dtype=None, preact=True, **kw)
+        y = activation_fn(cfg.activation)(g_pre.float()) * h_pre.float()
+    elif cfg.activation is not None:
+        h_pre = _grouped_impl(a, b, None, cfg.group_sizes, bias=bias, gate_bias=None,
+                              activation=None, out_scale=None, out_dtype=None, **kw)
+        y = activation_fn(cfg.activation)(h_pre.float())
+    else:
+        out = _grouped_impl(a, b, None, cfg.group_sizes, bias=bias, gate_bias=None,
+                            activation=None, out_scale=cfg.out_scale, out_dtype=cfg.out_dtype, **kw)
+        return out, None, None
+    if cfg.out_scale is not None:
+        y = y * cfg.out_scale
+    return y.to(out_dtype), h_pre, g_pre
+
+
+def _segment_sums(x: torch.Tensor, group_sizes) -> torch.Tensor:
+    """(E, N) f32 per-expert sums of the rows of ``x`` (T, N), each in its
+    own reduction: no atomics."""
+    parts = torch.split(x.float(), list(group_sizes))
+    return torch.stack([p.sum(dim=0) for p in parts])
+
+
+class _GroupedCore(torch.autograd.Function):
+    """``_grouped_core`` of the JAX package: the training forward on K3
+    (the GLU in ``preact`` mode), the backward on K9 (dA) and K10 (dW)."""
+
+    @staticmethod
+    def forward(ctx, cfg: _GroupedVjpCfg, a, b, b_gate, bias, gate_bias):
+        out, h_pre, g_pre = _grouped_training_forward(cfg, a, b, b_gate, bias, gate_bias)
+        ctx.cfg = cfg
+        ctx.save_for_backward(a, b, b_gate, h_pre, g_pre, bias, gate_bias)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, b_gate, h_pre, g_pre, bias, gate_bias = ctx.saved_tensors
+        cfg = ctx.cfg
+        gs = cfg.group_sizes
+        need_a, need_b, need_bg = ctx.needs_input_grad[1:4]
+        dh, dg = _epilogue_cotangents(cfg.glu, cfg.activation, cfg.out_scale, h_pre, g_pre, dy)
+        dh_c = dh.to(a.dtype)
+        dg_c = None if dg is None else dg.to(a.dtype)
+        da = db = dbg = None
+        if need_a:
+            # (E, K, N) weights as stored are the NT kernel's (E, N', K') operand
+            da = sfc_grouped_matmul_nt(dh_c, b, gs, dg_c, b_gate if dg_c is not None else None)
+        if need_b or need_bg:
+            if dg_c is not None:
+                db, dbg = sfc_grouped_matmul_tn(a, dh_c, gs, dg_c)
+            else:
+                db = sfc_grouped_matmul_tn(a, dh_c, gs)
+        dbias = None if bias is None else _segment_sums(dh, gs).to(bias.dtype)
+        dgbias = None if gate_bias is None else _segment_sums(dg, gs).to(gate_bias.dtype)
+        return (
+            None,
+            None if da is None else da.to(a.dtype),
+            None if db is None else db.to(b.dtype),
+            None if dbg is None else dbg.to(b_gate.dtype),
+            dbias,
+            dgbias,
+        )
+
+
+def sfc_grouped_matmul(
+    a: torch.Tensor,  # (T, K) rows sorted by expert
+    b: torch.Tensor,  # (E, K, N) per-expert weights
+    group_sizes,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+    out_scale: Optional[float] = None,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    k_block_factor: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Ragged grouped GEMM: ``out[rows of e] = epilogue(a[rows of e] @
+    b[e])`` for every expert in one launch of K3, the epilogue (per-expert
+    ``bias`` (E, N), ``activation``, ``out_scale``) in its flush.
+    ``group_sizes`` are the experts' row counts (zero is legal), summing to
+    ``a``'s rows.  Differentiable: with an input that needs a gradient it
+    runs through `_GroupedCore` (K9 and K10 in the backward)."""
+    cfg = _GroupedVjpCfg(group_sizes=tuple(int(g) for g in group_sizes), glu=False, activation=activation,
+                         out_scale=out_scale, bm=bm, bn=bn, k_block_factor=k_block_factor, out_dtype=out_dtype)
+    if _needs_grad(a, b, bias):
+        return _GroupedCore.apply(cfg, a, b, None, bias, None)
+    return _grouped_impl(a, b, None, cfg.group_sizes, bias=bias, gate_bias=None, activation=activation,
+                         out_scale=out_scale, bm=bm, bn=bn, k_block_factor=k_block_factor, out_dtype=out_dtype)
+
+
+def sfc_grouped_glu_matmul(
+    a: torch.Tensor,  # (T, K) rows sorted by expert
+    b_gate: torch.Tensor,  # (E, K, N) per-expert gate weights
+    b_val: torch.Tensor,  # (E, K, N) per-expert value weights
+    group_sizes,
+    *,
+    activation: str = "silu",
+    bias: Optional[torch.Tensor] = None,
+    gate_bias: Optional[torch.Tensor] = None,
+    out_scale: Optional[float] = None,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    k_block_factor: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Ragged grouped gated MLP ``act(a@b_gate[e] + gate_bias[e]) *
+    (a@b_val[e] + bias[e])`` per expert in one dual-B launch of K3: each
+    dispatched row slab is read once for both weight stacks.
+    Differentiable through `_GroupedCore` (the dual K9 and K10 forms)."""
+    cfg = _GroupedVjpCfg(group_sizes=tuple(int(g) for g in group_sizes), glu=True, activation=activation,
+                         out_scale=out_scale, bm=bm, bn=bn, k_block_factor=k_block_factor, out_dtype=out_dtype)
+    if _needs_grad(a, b_gate, b_val, bias, gate_bias):
+        return _GroupedCore.apply(cfg, a, b_val, b_gate, bias, gate_bias)
+    return _grouped_impl(a, b_val, b_gate, cfg.group_sizes, bias=bias, gate_bias=gate_bias, activation=activation,
+                         out_scale=out_scale, bm=bm, bn=bn, k_block_factor=k_block_factor, out_dtype=out_dtype)

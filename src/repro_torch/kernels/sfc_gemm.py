@@ -1,7 +1,8 @@
 """SFC-ordered GEMMs: the CUDA ports of the TPU kernels
-``repro.kernels.sfc_gemm._fused_kernel`` (K1/K2), ``sfc_gemm_nt`` (K7) and
-``sfc_gemm_tn`` (K8, with its update and norm modes), each beside its
-plain PyTorch version.
+``repro.kernels.sfc_gemm._fused_kernel`` (K1/K2, and K3 in its grouped
+mode), ``sfc_gemm_nt`` (K7), ``sfc_gemm_tn`` (K8, with its update and norm
+modes), ``sfc_gemm_grouped_nt`` (K9) and ``sfc_gemm_grouped_tn`` (K10, its
+dW mode), each beside its plain PyTorch version.
 
 ``sfc_gemm_fused`` is the one wrapper for both modes the TPU package ran as
 separate Pallas entry points: ``a`` (M, K) is the plain mode
@@ -36,6 +37,13 @@ clip.  Both return the per-set norm, taken before the gradient scale.  The
 stochastic rounding draws its bits from the counter hash of the JAX
 package's interpret path (`tile_random_bits`), seeded per (step, weight,
 tile), so the card's bits are the plain version's and the JAX package's.
+
+The grouped wrappers run the MoE expert GEMMs in one launch each:
+``sfc_gemm_grouped`` (K3, the forward with the same epilogue and preact
+mode), ``sfc_gemm_grouped_nt`` (K9, dA) and ``sfc_gemm_grouped_tn`` (K10,
+dW).  Each expert's rows lie packed, unpadded, in one matrix and its
+weights in an (E, K, N) stack; the kernels mask each expert's last row
+block where the TPU kernels took rows padded to whole blocks.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.schedule import compile_schedule, gemm_spec
+from repro_torch.core.schedule import compile_schedule, gemm_spec, grouped_gemm_spec, grouped_tn_spec
 from repro_torch.kernels import build
 
 __all__ = [
@@ -60,6 +68,15 @@ __all__ = [
     "sfc_gemm_nt_plain",
     "sfc_gemm_tn",
     "sfc_gemm_tn_plain",
+    "sfc_gemm_grouped",
+    "sfc_gemm_grouped_plain",
+    "sfc_gemm_grouped_nt",
+    "sfc_gemm_grouped_nt_plain",
+    "sfc_gemm_grouped_tn",
+    "sfc_gemm_grouped_tn_plain",
+    "build_grouped_task_table",
+    "build_grouped_tn_task_table",
+    "grouped_tn_row_block",
     "tile_random_bits",
     "stochastic_round_to",
     "kernel_tile",
@@ -144,6 +161,13 @@ def _epilogue(acc, gate, bias, gate_bias, residual, activation, out_scale, preac
     return y
 
 
+def _k_chunks(depth: int, n_chunks: int):
+    """The contraction's ``n_chunks`` slices of ceil(depth / n_chunks), the
+    last ones clipped (possibly empty)."""
+    chunk = max(1, math.ceil(depth / n_chunks))
+    return [slice(min(c * chunk, depth), min((c + 1) * chunk, depth)) for c in range(n_chunks)]
+
+
 def sfc_gemm_fused_plain(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -182,16 +206,14 @@ def sfc_gemm_fused_plain(
     out = torch.empty((a3.shape[0], m, n), dtype=out_dtype, device=a.device)
     out_gate = torch.empty_like(out) if preact else None
     if m and n:
-        n_chunks = k_layers * k_block_factor
-        k_chunk = max(1, math.ceil(k / n_chunks))
+        chunks = _k_chunks(k, k_layers * k_block_factor)
         tab = compile_schedule(gemm_spec(math.ceil(m / bm), math.ceil(n / bn), 1)).table
         for im, in_ in zip(tab[0].tolist(), tab[1].tolist()):
             rs = slice(im * bm, min((im + 1) * bm, m))
             cs = slice(in_ * bn, min((in_ + 1) * bn, n))
             acc = torch.zeros((a3.shape[0], rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32, device=a.device)
             gate = torch.zeros_like(acc) if b_gate is not None else None
-            for c in range(n_chunks):
-                ks = slice(min(c * k_chunk, k), min((c + 1) * k_chunk, k))
+            for ks in chunks:
                 a_panel = a3[:, rs, ks].float()
                 acc += a_panel @ b3[:, ks, cs].float()
                 if gate is not None:
@@ -279,7 +301,7 @@ def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, b
             m * k, k * n if b_batched else 0,
             int(out_scale is not None), float(out_scale if out_scale is not None else 1.0),
             int(_rows_vec(k, a)), int(_rows_vec(n, b, b_gate)),
-            stream,
+            None, 0, stream,
         )
     if rc != 0:
         raise RuntimeError(f"sfc_gemm_fused kernel launch failed with CUDA error {rc}")
@@ -370,9 +392,7 @@ def _plain_tiles(rows: int, cols: int, depth: int, bm: int, bn: int, k_layers: i
         raise ValueError(f"bad knobs bm={bm} bn={bn} k_layers={k_layers} k_block_factor={k_block_factor}")
     if not (rows and cols):
         return
-    n_chunks = k_layers * k_block_factor
-    chunk = max(1, math.ceil(depth / n_chunks))
-    ks = [slice(min(c * chunk, depth), min((c + 1) * chunk, depth)) for c in range(n_chunks)]
+    ks = _k_chunks(depth, k_layers * k_block_factor)
     tab = compile_schedule(gemm_spec(math.ceil(rows / bm), math.ceil(cols / bn), 1)).table
     for im, in_ in zip(tab[0].tolist(), tab[1].tolist()):
         yield slice(im * bm, min((im + 1) * bm, rows)), slice(in_ * bn, min((in_ + 1) * bn, cols)), ks
@@ -629,7 +649,7 @@ def _launch_bwd(kind: str, a, b, x2, out, out2, *, rows: int, cols: int, depth: 
             ptrs = (a.data_ptr(), b.data_ptr(), _ptr(a2), _ptr(b2), out.data_ptr())
         else:
             ptrs = (a.data_ptr(), b.data_ptr(), _ptr(x2), out.data_ptr(), _ptr(out2))
-        rc = fn(*ptrs, tab.data_ptr(), mb * nb, rows, cols, depth, int(vec_a), int(vec_b), stream)
+        rc = fn(*ptrs, tab.data_ptr(), mb * nb, rows, cols, depth, int(vec_a), int(vec_b), None, 0, stream)
     if rc != 0:
         raise RuntimeError(f"sfc_gemm_{kind} kernel launch failed with CUDA error {rc}")
 
@@ -783,3 +803,449 @@ sfc_gemm_nt.launches_by_shape = collections.Counter()
 sfc_gemm_tn.launches = 0
 sfc_gemm_tn.launches_by_mode = collections.Counter()
 sfc_gemm_tn.launches_by_shape = collections.Counter()
+
+
+# ---------------------------------------------------------------------------
+# grouped (MoE expert) kernels: K3 forward, K9 dA, K10 dW
+#
+# The experts' rows lie packed in one (T, K) matrix, expert 0's first, with
+# ``group_sizes[e]`` rows each (zero is legal).  The TPU kernels take them
+# padded to whole row blocks (`repro.kernels.ops._grouped_row_pad`); the
+# CUDA kernels mask each expert's last row block at its row count instead,
+# and the plain versions clip it, so no padded copy exists.  Both walk the
+# TPU kernels' tables: one gilbert map per expert over its padded row blocks
+# (K3, K9), one shared gilbert map over the (K, N) weight tiles replayed per
+# expert (K10).
+# ---------------------------------------------------------------------------
+
+
+def build_grouped_task_table(row_blocks, nb: int):
+    """(3, sum_e row_blocks[e] * nb) int32 table of the grouped forward / NT
+    kernels: rows (im_global, in, expert), each expert's ``row_blocks[e] x
+    nb`` tile grid in its own gilbert order, ``im_global`` offset by the
+    row blocks of the experts before it; an expert with no rows has no
+    task (the JAX package's ``build_grouped_task_table``)."""
+    return compile_schedule(grouped_gemm_spec(tuple(int(r) for r in row_blocks), int(nb))).table
+
+
+def build_grouped_tn_task_table(row_blocks, kb: int, nb: int):
+    """(5, E * kb * nb) int32 table of the grouped TN kernel: rows (ik, in,
+    expert, row_off, rb), one gilbert map of the ``kb x nb`` weight tiles
+    replayed per expert, with the block offset and extent of the expert's
+    rows (the JAX package's ``build_grouped_tn_task_table``)."""
+    return compile_schedule(grouped_tn_spec(tuple(int(r) for r in row_blocks), int(kb), int(nb))).table
+
+
+def _group_sizes(group_sizes, rows: int, experts: int):
+    gs = tuple(int(g) for g in group_sizes)
+    if len(gs) != experts:
+        raise ValueError(f"{len(gs)} group sizes for {experts} experts")
+    if any(g < 0 for g in gs) or sum(gs) != rows:
+        raise ValueError(f"group sizes {gs} must be >= 0 and sum to the {rows} rows")
+    return gs
+
+
+def _starts(sizes):
+    """Exclusive prefix sums: where each group begins."""
+    out, acc = [], 0
+    for s_ in sizes:
+        out.append(acc)
+        acc += s_
+    return out
+
+
+def _check_grouped(a, b, b_gate, bias, gate_bias, group_sizes, activation, out_scale, preact):
+    """Shape contract of K3 and its plain version.  Returns (gs, T, K, N)."""
+    if preact and (b_gate is None or activation is not None or out_scale is not None):
+        raise ValueError("preact returns the two biased GLU pre-activations: it needs b_gate and takes "
+                         "no activation or out_scale")
+    if a.ndim != 2 or b.ndim != 3 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"the grouped GEMM needs a (T, K) and b (E, K, N); got {tuple(a.shape)}, {tuple(b.shape)}")
+    e, k, n = b.shape
+    gs = _group_sizes(group_sizes, a.shape[0], e)
+    if b_gate is not None and tuple(b_gate.shape) != tuple(b.shape):
+        raise ValueError(f"gate weights {tuple(b_gate.shape)} != {tuple(b.shape)}")
+    if gate_bias is not None and b_gate is None:
+        raise ValueError("gate_bias needs the GLU form (b_gate)")
+    for name, vec in (("bias", bias), ("gate_bias", gate_bias)):
+        if vec is not None and tuple(vec.shape) not in ((e, n), (e, 1, n)):
+            raise ValueError(f"{name} must be (E, N) or (E, 1, N) with (E, N)={(e, n)}, got {tuple(vec.shape)}")
+    if activation is not None and activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; pick from {ACTIVATIONS}")
+    return gs, a.shape[0], k, n
+
+
+def _grouped_row_tiles(gs, bm: int, nb: int):
+    """(expert, row slice, local col block) per task of the grouped table at
+    row block ``bm``, the expert's last row block clipped at its rows."""
+    row_blocks = [math.ceil(g / bm) for g in gs]
+    starts, blk_starts = _starts(gs), _starts(row_blocks)
+    tab = build_grouped_task_table(row_blocks, nb)
+    for im, in_, e in zip(*(row.tolist() for row in tab)):
+        r0 = starts[e] + (im - blk_starts[e]) * bm
+        yield e, slice(r0, min(r0 + bm, starts[e] + gs[e])), in_
+
+
+def sfc_gemm_grouped_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    b_gate: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    gate_bias: Optional[torch.Tensor] = None,
+    *,
+    group_sizes,
+    activation: Optional[str] = None,
+    out_scale: Optional[float] = None,
+    bm: int,
+    bn: int,
+    k_block_factor: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+    preact: bool = False,
+):
+    """The plain version of the grouped kernel, on any device: per task of
+    the grouped table (`build_grouped_task_table` over each expert's
+    ``ceil(rows / bm)`` row blocks) the tile ``epilogue(a[rows of e] @
+    b[e])``, accumulated in f32 over ``k_block_factor`` K chunks with the
+    epilogue of `sfc_gemm_fused_plain` and expert e's bias row.  Returns
+    (T, N), or the (value, gate) pair of pre-activations under ``preact``."""
+    gs, t, k, n = _check_grouped(a, b, b_gate, bias, gate_bias, group_sizes, activation, out_scale, preact)
+    if bm < 1 or bn < 1 or k_block_factor < 1:
+        raise ValueError(f"bad knobs bm={bm} bn={bn} k_block_factor={k_block_factor}")
+    out_dtype = out_dtype or a.dtype
+    e_cnt = b.shape[0]
+    bias2 = None if bias is None else bias.reshape(e_cnt, n)
+    gbias2 = None if gate_bias is None else gate_bias.reshape(e_cnt, n)
+    out = torch.empty((t, n), dtype=out_dtype, device=a.device)
+    out_gate = torch.empty_like(out) if preact else None
+    if t and n:
+        chunks = _k_chunks(k, k_block_factor)
+        for e, rs, in_ in _grouped_row_tiles(gs, bm, math.ceil(n / bn)):
+            cs = slice(in_ * bn, min((in_ + 1) * bn, n))
+            acc = torch.zeros((rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32, device=a.device)
+            gate = torch.zeros_like(acc) if b_gate is not None else None
+            for ks in chunks:
+                a_panel = a[rs, ks].float()
+                acc += a_panel @ b[e, ks, cs].float()
+                if gate is not None:
+                    gate += a_panel @ b_gate[e, ks, cs].float()
+            y = _epilogue(acc, gate, None if bias2 is None else bias2[e, cs],
+                          None if gbias2 is None else gbias2[e, cs], None, activation, out_scale, preact)
+            if preact:
+                y, g = y
+                out_gate[rs, cs] = g.to(out_dtype)
+            out[rs, cs] = y.to(out_dtype)
+    return (out, out_gate) if preact else out
+
+
+@functools.lru_cache(maxsize=64)
+def _device_groups(gs: tuple, device: torch.device) -> torch.Tensor:
+    """(3, E) int32 per-expert row start, row count and first row block of
+    the kernel's tile, uploaded once per (group sizes, device)."""
+    row_blocks = [math.ceil(g / build.TILE[0]) for g in gs]
+    arr = torch.tensor([_starts(gs), list(gs), _starts(row_blocks)], dtype=torch.int32)
+    return arr.to(device).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _device_grouped_table(gs: tuple, nb: int, device: torch.device) -> torch.Tensor:
+    """(3, T) int32 grouped table at the kernel's row tile, kept on the device."""
+    tab = build_grouped_task_table([math.ceil(g / build.TILE[0]) for g in gs], nb)
+    return torch.from_numpy(tab.copy()).to(device).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _device_grouped_tn_table(experts: int, kb: int, nb: int, device: torch.device) -> torch.Tensor:
+    """(3, E * kb * nb) int32 (ik, in, expert) rows of the grouped TN table;
+    the kernel bounds each expert's contraction by its row count, so the
+    table's offset / extent rows stay on the host."""
+    tab = build_grouped_tn_task_table((1,) * experts, kb, nb)[:3]
+    return torch.from_numpy(tab.copy()).to(device).contiguous()
+
+
+def _launch_grouped(a, b, b_gate, bias, gate_bias, *, gs, activation, out_scale, bm, bn, out_dtype, preact):
+    t, k = a.shape
+    e_cnt, _, n = b.shape
+    vecs = [None if v is None else v.reshape(e_cnt, n) for v in (bias, gate_bias)]
+    _check_operands(bm, bn, out_dtype, a, b=b, b_gate=b_gate, bias=vecs[0], gate_bias=vecs[1])
+    out = torch.empty((t, n), dtype=out_dtype, device=a.device)
+    out_gate = torch.empty_like(out) if preact else None
+    if out.numel() == 0:
+        return (out, out_gate) if preact else out
+    nb = math.ceil(n / bn)
+    tab = _device_grouped_table(gs, nb, a.device)
+    grp = _device_groups(gs, a.device)
+    fn = getattr(build.load_library(), build.entry_name(_dtype_name(a), b_gate is not None, activation))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(
+            a.data_ptr(), b.data_ptr(), _ptr(b_gate), _ptr(vecs[0]), _ptr(vecs[1]), None,
+            out.data_ptr(), _ptr(out_gate),
+            tab.data_ptr(), tab.shape[1], 1,
+            t, n, k, 0, 0,
+            int(out_scale is not None), float(out_scale if out_scale is not None else 1.0),
+            int(_rows_vec(k, a)), int(_rows_vec(n, b, b_gate)),
+            grp.data_ptr(), e_cnt, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sfc_gemm_grouped kernel launch failed with CUDA error {rc}")
+    sfc_gemm_grouped.launches += 1
+    sfc_gemm_grouped.launches_by_shape[(e_cnt, t, k, n, b_gate is not None)] += 1
+    return (out, out_gate) if preact else out
+
+
+def sfc_gemm_grouped(
+    a: torch.Tensor,  # (T, K) the experts' rows, packed, unpadded
+    b: torch.Tensor,  # (E, K, N) per-expert weights
+    b_gate: Optional[torch.Tensor] = None,  # (E, K, N) per-expert gate weights (GLU)
+    bias: Optional[torch.Tensor] = None,  # (E, N) or (E, 1, N)
+    gate_bias: Optional[torch.Tensor] = None,
+    *,
+    group_sizes,
+    activation: Optional[str] = None,
+    out_scale: Optional[float] = None,
+    bm: int = build.TILE[0],
+    bn: int = build.TILE[1],
+    k_block_factor: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+    preact: bool = False,
+):
+    """Grouped (ragged) SFC GEMM with the fused epilogue: ``out[rows of e] =
+    epilogue(a[rows of e] @ b[e])``, expert e owning ``group_sizes[e]``
+    packed rows of ``a``; the dual-B GLU form and ``preact`` as in
+    `sfc_gemm_fused`.  Returns (T, N) (a pair under ``preact``).
+
+    On a CUDA tensor this launches ``sfc_gemm_grouped_kernel`` (K3, the
+    fused kernel's tile body; tile `kernel_tile()`, each expert's last row block masked, the K
+    loop inside the CTA) and adds one to ``sfc_gemm_grouped.launches`` and
+    to ``launches_by_shape[(E, T, K, N, glu)]``.  On a CPU tensor it runs
+    `sfc_gemm_grouped_plain` and counts nothing."""
+    gs, _, _, _ = _check_grouped(a, b, b_gate, bias, gate_bias, group_sizes, activation, out_scale, preact)
+    out_dtype = out_dtype or a.dtype
+    kw = dict(activation=activation, out_scale=out_scale, bm=bm, bn=bn, out_dtype=out_dtype, preact=preact)
+    if a.device.type == "cpu":
+        return sfc_gemm_grouped_plain(a, b, b_gate, bias, gate_bias, group_sizes=gs,
+                                      k_block_factor=k_block_factor, **kw)
+    if a.device.type != "cuda":
+        raise ValueError(f"sfc_gemm_grouped runs on cuda or cpu tensors, got {a.device}")
+    return _launch_grouped(a, b, b_gate, bias, gate_bias, gs=gs, **kw)
+
+
+def _check_grouped_nt(a, b, a2, b2, group_sizes):
+    if a.ndim != 2 or b.ndim != 3 or a.shape[1] != b.shape[2]:
+        raise ValueError(f"the grouped NT GEMM needs a (T, K) and b (E, N, K); got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    if (a2 is None) != (b2 is None):
+        raise ValueError("the dual grouped NT form needs both a2 and b2")
+    if a2 is not None and (tuple(a2.shape) != tuple(a.shape) or tuple(b2.shape) != tuple(b.shape)):
+        raise ValueError(f"a2 {tuple(a2.shape)} / b2 {tuple(b2.shape)} must match a {tuple(a.shape)} / "
+                         f"b {tuple(b.shape)}")
+    gs = _group_sizes(group_sizes, a.shape[0], b.shape[0])
+    return gs, a.shape[0], b.shape[1], a.shape[1]
+
+
+def sfc_gemm_grouped_nt_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    a2: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+    *,
+    group_sizes,
+    bm: int,
+    bn: int,
+    k_block_factor: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The plain version of the grouped NT kernel, on any device: per task
+    of the grouped table, ``a[rows of e] @ b[e]ᵀ (+ a2 @ b2[e]ᵀ)``
+    accumulated in f32 over the K chunks, one cast at the flush."""
+    gs, t, n, k = _check_grouped_nt(a, b, a2, b2, group_sizes)
+    out = torch.empty((t, n), dtype=out_dtype or a.dtype, device=a.device)
+    if t and n:
+        chunks = _k_chunks(k, k_block_factor)
+        for e, rs, in_ in _grouped_row_tiles(gs, bm, math.ceil(n / bn)):
+            cs = slice(in_ * bn, min((in_ + 1) * bn, n))
+            acc = torch.zeros((rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32, device=a.device)
+            for ks in chunks:
+                acc += a[rs, ks].float() @ b[e, cs, ks].float().T
+                if a2 is not None:
+                    acc += a2[rs, ks].float() @ b2[e, cs, ks].float().T
+            out[rs, cs] = acc.to(out.dtype)
+    return out
+
+
+def sfc_gemm_grouped_nt(
+    a: torch.Tensor,  # (T, K) the experts' packed rows (the dC of each expert)
+    b: torch.Tensor,  # (E, N, K) per-expert weights as stored, consumed as b[e]ᵀ
+    a2: Optional[torch.Tensor] = None,  # (T, K) second addend (the GLU's dA)
+    b2: Optional[torch.Tensor] = None,  # (E, N, K)
+    *,
+    group_sizes,
+    bm: int = build.TILE[0],
+    bn: int = build.TILE[1],
+    k_block_factor: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Grouped NT: ``out[rows of e] = a[rows of e] @ b[e]ᵀ (+ a2 @
+    b2[e]ᵀ)``, the dA of the grouped (MoE expert) backward, over the
+    forward's grouped table.
+
+    On a CUDA tensor this launches ``grouped_nt_kernel`` (K9, the NT
+    kernel's tile body) and adds one to ``sfc_gemm_grouped_nt.launches`` and to
+    ``launches_by_shape[(E, T, N, K, dual)]``.  On a CPU tensor it runs
+    `sfc_gemm_grouped_nt_plain` and counts nothing."""
+    gs, t, n, k = _check_grouped_nt(a, b, a2, b2, group_sizes)
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return sfc_gemm_grouped_nt_plain(a, b, a2, b2, group_sizes=gs, bm=bm, bn=bn,
+                                         k_block_factor=k_block_factor, out_dtype=out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"sfc_gemm_grouped_nt runs on cuda or cpu tensors, got {a.device}")
+    _check_operands(bm, bn, out_dtype, a, b=b, a2=a2, b2=b2)
+    out = torch.empty((t, n), dtype=out_dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    e_cnt = b.shape[0]
+    tab = _device_grouped_table(gs, math.ceil(n / bn), a.device)
+    grp = _device_groups(gs, a.device)
+    fn = getattr(build.load_library(), build.bwd_entry_name("nt", _dtype_name(a)))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(a2), _ptr(b2), out.data_ptr(), tab.data_ptr(), tab.shape[1],
+                t, n, k, int(_rows_vec(k, a, a2)), int(_rows_vec(k, b, b2)), grp.data_ptr(), e_cnt, stream)
+    if rc != 0:
+        raise RuntimeError(f"sfc_gemm_grouped_nt kernel launch failed with CUDA error {rc}")
+    sfc_gemm_grouped_nt.launches += 1
+    sfc_gemm_grouped_nt.launches_by_shape[(e_cnt, t, n, k, a2 is not None)] += 1
+    return out
+
+
+def _check_grouped_tn(a, b, b2, group_sizes, experts):
+    if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"the grouped TN GEMM needs a (T, K) and b (T, N); got {tuple(a.shape)}, {tuple(b.shape)}")
+    if b2 is not None and tuple(b2.shape) != tuple(b.shape):
+        raise ValueError(f"b2 {tuple(b2.shape)} must match b {tuple(b.shape)}")
+    if experts is None:
+        experts = len(tuple(group_sizes))
+    gs = _group_sizes(group_sizes, a.shape[0], experts)
+    return gs, a.shape[1], b.shape[1], a.shape[0]
+
+
+def grouped_tn_row_block(group_sizes) -> int:
+    """The grouped TN kernel's rows per contraction chunk on the TPU: the
+    largest expert's rows rounded up to 8, at most 128 (the JAX package's
+    ``sfc_grouped_matmul_tn`` before its VMEM check)."""
+    max_g = max(group_sizes) if len(group_sizes) else 1
+    return min(128, -(-max(max_g, 8) // 8) * 8)
+
+
+def sfc_gemm_grouped_tn_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    b2: Optional[torch.Tensor] = None,
+    *,
+    group_sizes,
+    bm: int,
+    bn: int,
+    row_block: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
+):
+    """The plain version of the grouped TN kernel (dW mode), on any device:
+    per task (ik, in, e, row_off, rb) of `build_grouped_tn_task_table` over
+    ``ceil(rows / row_block)`` contraction chunks per expert, ``a[rows of
+    e, ik]ᵀ @ b[rows of e, in]`` (and ``b2``) accumulated in f32 chunk by
+    chunk, the expert's last chunk clipped at its rows; an expert with no
+    rows flushes zeros.  Returns (E, K, N), or a pair with ``b2``."""
+    gs, k, n, _ = _check_grouped_tn(a, b, b2, group_sizes, None)
+    if bm < 1 or bn < 1:
+        raise ValueError(f"bad knobs bm={bm} bn={bn}")
+    row_block = row_block or grouped_tn_row_block(gs)
+    out_dtype = out_dtype or a.dtype
+    e_cnt = len(gs)
+    out = torch.zeros((e_cnt, k, n), dtype=out_dtype, device=a.device)
+    out2 = torch.zeros_like(out) if b2 is not None else None
+    if k and n and e_cnt:
+        starts = _starts(gs)
+        row_blocks = [math.ceil(g / row_block) for g in gs]
+        tab = build_grouped_tn_task_table(row_blocks, math.ceil(k / bm), math.ceil(n / bn))
+        for ik, in_, e, _, rb in zip(*(row.tolist() for row in tab)):
+            rs = slice(ik * bm, min((ik + 1) * bm, k))
+            cs = slice(in_ * bn, min((in_ + 1) * bn, n))
+            acc = torch.zeros((rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32, device=a.device)
+            acc2 = torch.zeros_like(acc) if b2 is not None else None
+            end = starts[e] + gs[e]
+            for c in range(rb):  # chunks past the expert's rows contribute nothing
+                ms = slice(starts[e] + c * row_block, min(starts[e] + (c + 1) * row_block, end))
+                a_pan = a[ms, rs].float().T
+                acc += a_pan @ b[ms, cs].float()
+                if b2 is not None:
+                    acc2 += a_pan @ b2[ms, cs].float()
+            out[e, rs, cs] = acc.to(out_dtype)
+            if b2 is not None:
+                out2[e, rs, cs] = acc2.to(out_dtype)
+    return out if b2 is None else (out, out2)
+
+
+def sfc_gemm_grouped_tn(
+    a: torch.Tensor,  # (T, K) the experts' packed forward rows
+    b: torch.Tensor,  # (T, N) their dC rows, packed alike
+    b2: Optional[torch.Tensor] = None,  # (T, N) second dC (the GLU's dg)
+    master: Optional[torch.Tensor] = None,  # (E, K, N) f32: the update mode, not ported
+    mu: Optional[torch.Tensor] = None,
+    nu: Optional[torch.Tensor] = None,
+    hyper: Optional[torch.Tensor] = None,
+    *,
+    group_sizes,
+    bm: int = build.TILE[0],
+    bn: int = build.TILE[1],
+    row_block: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
+):
+    """Grouped TN in its dW mode: ``dW[e] = a[rows of e]ᵀ @ b[rows of e]``
+    for every expert in one launch (and ``a[rows of e]ᵀ @ b2[rows of e]``
+    with ``b2``, the activations read once for both).  Returns (E, K, N), or
+    a pair with ``b2``.
+
+    On a CUDA tensor this launches ``grouped_tn_kernel`` (K10, the TN
+    kernel's tile body; each CTA loops over its expert's rows, an empty expert writes zeros, no
+    atomics) and adds one to ``sfc_gemm_grouped_tn.launches`` and to
+    ``launches_by_shape[(E, K, N, T, dual)]``; ``row_block`` only chunks the
+    plain version's sum.  On a CPU tensor it runs
+    `sfc_gemm_grouped_tn_plain` and counts nothing.  The update mode (the
+    fused optimizer over expert stacks) raises `NotImplementedError`."""
+    if any(x is not None for x in (master, mu, nu, hyper)):
+        raise NotImplementedError("the grouped TN kernel's update mode (K10, the fused optimizer over expert "
+                                  "stacks) is not ported: ROADMAP queue 1 item 11, its next slice")
+    gs, k, n, t = _check_grouped_tn(a, b, b2, group_sizes, None)
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return sfc_gemm_grouped_tn_plain(a, b, b2, group_sizes=gs, bm=bm, bn=bn, row_block=row_block,
+                                         out_dtype=out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"sfc_gemm_grouped_tn runs on cuda or cpu tensors, got {a.device}")
+    _check_operands(bm, bn, out_dtype, a, b=b, b2=b2)
+    e_cnt = len(gs)
+    out = torch.empty((e_cnt, k, n), dtype=out_dtype, device=a.device)
+    out2 = torch.empty_like(out) if b2 is not None else None
+    result = out if b2 is None else (out, out2)
+    if out.numel() == 0:
+        return result
+    tab = _device_grouped_tn_table(e_cnt, math.ceil(k / bm), math.ceil(n / bn), a.device)
+    grp = _device_groups(gs, a.device)
+    fn = getattr(build.load_library(), build.bwd_entry_name("tn", _dtype_name(a)))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), out.data_ptr(), _ptr(out2), tab.data_ptr(), tab.shape[1],
+                k, n, t, int(_rows_vec(k, a)), int(_rows_vec(n, b, b2)), grp.data_ptr(), e_cnt, stream)
+    if rc != 0:
+        raise RuntimeError(f"sfc_gemm_grouped_tn kernel launch failed with CUDA error {rc}")
+    sfc_gemm_grouped_tn.launches += 1
+    sfc_gemm_grouped_tn.launches_by_shape[(e_cnt, k, n, t, b2 is not None)] += 1
+    return result
+
+
+sfc_gemm_grouped.launches = 0
+sfc_gemm_grouped.launches_by_shape = collections.Counter()
+sfc_gemm_grouped_nt.launches = 0
+sfc_gemm_grouped_nt.launches_by_shape = collections.Counter()
+sfc_gemm_grouped_tn.launches = 0
+sfc_gemm_grouped_tn.launches_by_shape = collections.Counter()

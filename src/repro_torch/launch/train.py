@@ -16,6 +16,9 @@ nearest:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --reduced \
       --device cpu --fused-optimizer --backend sfc_cuda --steps 8 --batch 4 --seq 32
 
+The MoE config trains unfused (its expert stacks need K10's update mode for
+the fused optimizer).
+
 Checkpointing and `TrainLoop` (ROADMAP queue 1 item 14) and the mesh (item
 16) are not ported.
 """

@@ -1,4 +1,4 @@
-"""Model registry: ArchConfig -> model instance (dense family only)."""
+"""Model registry: ArchConfig -> model instance (dense and MoE families)."""
 
 from __future__ import annotations
 
@@ -23,8 +23,8 @@ def build_model(
     card unless another device is named; raises where CUDA is absent).
     Fill it with ``.init(generator)`` or ``.load_state_dict(...)``."""
     dev = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 items 11-12"
+            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 12"
         )
     return DecoderLM(cfg, device=dev, dtype=dtype)

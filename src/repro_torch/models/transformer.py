@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM, dense family (the port's
-``repro.models.transformer.DecoderLM``).
+"""Decoder-only transformer LM, dense and MoE families (the port's
+``repro.models.transformer.DecoderLM``).  A config with ``n_experts``
+replaces each block's MLP by a `models.moe.MoE` layer.
 
 Parameters keep the JAX package's layout: projection weights are (in, out),
 so the GEMM kernel receives (K, N) as the TPU kernel did, and the per-layer
@@ -10,7 +11,7 @@ maps one onto the other).  The layer stack is a Python loop.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,12 +21,13 @@ from repro_torch.core.device import torch_dtype
 from repro_torch.core.gemm_backend import matmul as _bmm
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import MLP, cross_entropy_loss, make_norm, normal_, param
+from repro_torch.models.moe import MoE, moe_forward
 
 __all__ = ["Block", "DecoderLM"]
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP block."""
+    """Pre-norm attention + MLP (or MoE) block."""
 
     def __init__(self, cfg: ArchConfig, *, dtype, device):
         super().__init__()
@@ -42,23 +44,32 @@ class Block(nn.Module):
         )
         self.norm1 = norm(cfg.d_model, **kw)
         self.norm2 = norm(cfg.d_model, **kw)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp, act=cfg.act, **kw)
+        if cfg.n_experts:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, **kw)
+            self.moe_kw = dict(top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp, act=cfg.act, **kw)
 
     def init(self, generator: torch.Generator) -> None:
         self.attn.init(generator)
         self.norm1.init()
         self.norm2.init()
-        self.mlp.init(generator)
+        (self.moe if hasattr(self, "moe") else self.mlp).init(generator)
+
+    def ffn(self, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """The MLP (aux None), or the MoE layer and its aux losses."""
+        if hasattr(self, "moe"):
+            return moe_forward(self.moe, h, **self.moe_kw)
+        return self.mlp(h), None
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder LM: prefill into a KV cache, then one-token decode."""
+    """Dense or MoE decoder LM: prefill into a KV cache, then one-token
+    decode."""
 
     def __init__(self, cfg: ArchConfig, *, device, dtype=None):
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError("MoE layers are not ported yet: ROADMAP queue 1 item 11")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 12")
         if cfg.mrope_sections is not None:
             raise NotImplementedError("M-RoPE (VLM backbone) is not ported yet: ROADMAP queue 1 item 12")
@@ -107,18 +118,22 @@ class DecoderLM(nn.Module):
     # ---------------- entry points ----------------
 
     def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Training forward: (logits, aux); aux holds the MoE losses, zero
-        for the dense family."""
+        """Training forward: (logits, aux); aux holds the MoE losses summed
+        over the layers, zero for the dense family."""
         cfg = self.cfg
         x = self._embed(tokens)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_acc = {"moe_aux_loss": zero, "moe_z_loss": zero}
         for layer in self.layers:
             h = layer.norm1(x)
             x = x + attn.attention_forward(
                 layer.attn, h, causal=True, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, **self._attn_kw()
             )
-            x = x + layer.mlp(layer.norm2(x))
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._logits(x), {"moe_aux_loss": zero, "moe_z_loss": zero}
+            m, aux = layer.ffn(layer.norm2(x))
+            x = x + m
+            if aux is not None:
+                aux_acc = {k: aux_acc[k] + aux[k] for k in aux_acc}
+        return self._logits(x), aux_acc
 
     def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "none") -> torch.Tensor:
         """Training loss of a batch ``{"tokens", "labels": (B, S)}``: the
@@ -150,7 +165,7 @@ class DecoderLM(nn.Module):
             ks.append(cache["k"])
             vs.append(cache["v"])
             x = x + a
-            x = x + layer.mlp(layer.norm2(x))
+            x = x + layer.ffn(layer.norm2(x))[0]
         logits = self._logits(x[:, -1:])
         return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs), "index": s}
 
@@ -168,6 +183,6 @@ class DecoderLM(nn.Module):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
             a, _ = attn.attention_decode(layer.attn, h, layer_cache, index, **self._attn_kw())
             x = x + a
-            x = x + layer.mlp(layer.norm2(x))
+            x = x + layer.ffn(layer.norm2(x))[0]
         logits = self._logits(x)
         return logits[:, 0], {"k": cache["k"], "v": cache["v"], "index": index + 1}

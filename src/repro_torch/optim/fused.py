@@ -81,8 +81,9 @@ def current_update_config() -> FusedUpdateConfig:
 
 def default_fused_filter(name: str, param: torch.Tensor) -> bool:
     """Routing candidates: 2-D weights not named like embeddings (the
-    JAX package's filter, whose 3-D and 4-D scan and expert stacks are
-    per-layer 2-D parameters or unported MoE stacks here)."""
+    JAX package's filter, whose 3-D and 4-D scan stacks are per-layer 2-D
+    parameters here).  The MoE expert stacks (3-D) need K10's update mode,
+    not ported: the fused step refuses a model that has them."""
     return param.ndim == 2 and "embed" not in name.lower()
 
 

@@ -179,7 +179,18 @@ def _make_fused_train_step(model, opt_cfg: AdamWConfig, *, remat: str, cfg: Back
     them again, so the tape keeps what the update needs instead.  With an
     infinite ``clip_norm`` and the guard off there is one phase: the update
     runs at scale 1 and its norms give ``grad_norm``.
+
+    A model with 3-D expert stacks (the MoE family) raises
+    `NotImplementedError`: their update is K10's update mode, not ported,
+    and the 2-D routing would leave them to an eager round-to-nearest
+    AdamW where the JAX step runs the grouped update flush.
     """
+    stacks = [n for n, p in model.named_parameters() if p.ndim == 3]
+    if stacks:
+        raise NotImplementedError(
+            f"fused_optimizer on 3-D expert stacks ({stacks[0]}, ...) needs the grouped TN kernel's update "
+            "mode (K10), which is not ported: ROADMAP queue 1 item 11, its next slice; train this model "
+            "with fused_optimizer=False")
     routed = _fused.probe_routed(model, fused_filter=fused_filter)
     params = dict(model.named_parameters())
     unrouted = {n: p for n, p in params.items() if n not in routed}

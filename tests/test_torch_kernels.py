@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card (the fused GEMM with its preact mode,
-the NT/TN backward GEMMs, the attention flash forward in its band and dense
-modes, the flash backward's dQ and dK/dV, and the decode attention), each
-against its plain PyTorch version; a decoder's loss gradients under the
-sfc_cuda backend against the torch backend's; and the build's bookkeeping
-on the CPU.
+the NT/TN backward GEMMs, their grouped MoE modes K3, K9 and K10, the
+attention flash forward in its band and dense modes, the flash backward's
+dQ and dK/dV, and the decode attention), each against its plain PyTorch
+version; the loss gradients of a dense decoder and of reduced olmoe under
+the sfc_cuda backend against the torch backend's; and the build's
+bookkeeping on the CPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only PyTorch (the repository's conftest needs JAX; skip it):
@@ -459,6 +460,106 @@ def test_decoder_loss_gradients_under_sfc_cuda_match_torch_on_card(attn_impl):
     assert set(grads["sfc_cuda"]) == set(grads["torch"]) == names
     for n in projections:
         assert bool(grads["sfc_cuda"][n].abs().max() > 0), n
+    assert abs(losses["sfc_cuda"] - losses["torch"]) <= 1e-4 * abs(losses["torch"])
+    for n in names:
+        assert _agree(grads["sfc_cuda"][n], grads["torch"][n], torch.float32), n
+
+
+def test_grouped_modes_are_arguments_of_the_existing_entries():
+    """K3, K9 and K10 are the grouped modes of the forward, NT and TN
+    kernels: each entry takes the per-expert row array, and no part is
+    added to the build."""
+    src = CU_SOURCE.read_text()
+    for entry in ("SFC_ENTRY", "SFC_NT_ENTRY", "SFC_TN_ENTRY"):
+        decl = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
+        assert "const int* grp, int n_groups, void* stream" in decl, entry
+    assert len(dict(build._gemm_parts())) == 20
+
+
+def _grouped_inputs(rng, group_sizes, k, n, dtype, scale=0.1):
+    t, e = sum(group_sizes), len(group_sizes)
+
+    def r(*shape, c=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * c).astype(np.float32)).to("cuda", dtype)
+
+    return r(t, k), r(e, k, n, c=scale), r(e, k, n, c=scale), r(e, n), r(e, n), r(t, n), r(t, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kn", [(256, 192), (203, 133)])
+@pytest.mark.parametrize("group_sizes", [(5, 0, 19, 32), (80,) * 6, (1, 130, 0, 64)])
+def test_grouped_kernels_match_plain_versions_on_card(group_sizes, kn, dtype):
+    """K3 (linear, GLU with its activation in the flush, GLU preact, bias +
+    relu + scale), K9 (single and dual) and K10 (single and dual) against
+    their plain versions, on ragged expert sizes with empty experts; one
+    launch each."""
+    _card()
+    dt = getattr(torch, dtype)
+    k, n = kn
+    a, w, wg, bias, gbias, dc, dc2 = _grouped_inputs(np.random.default_rng(14), group_sizes, k, n, dt)
+    gs = dict(group_sizes=group_sizes)
+    forms = [((a, w), {}), ((a, w, wg), dict(activation="silu")), ((a, w, wg, bias, gbias), dict(preact=True)),
+             ((a, w, None, bias), dict(activation="relu", out_scale=0.5))]
+    for args, kw in forms:
+        before = tk.sfc_gemm_grouped.launches
+        got = tk.sfc_gemm_grouped(*args, **gs, **kw)
+        torch.cuda.synchronize()
+        assert tk.sfc_gemm_grouped.launches == before + 1
+        want = tk.sfc_gemm_grouped_plain(*args, bm=64, bn=64, **gs, **kw)
+        for g, w_ in zip(got if kw.get("preact") else [got], want if kw.get("preact") else [want]):
+            assert g.dtype == dt and g.shape == (sum(group_sizes), n)
+            assert _agree(g, w_, dt), kw
+    for dual in (False, True):
+        extra = (dc2, wg) if dual else (None, None)
+        before = (tk.sfc_gemm_grouped_nt.launches, tk.sfc_gemm_grouped_tn.launches)
+        da = tk.sfc_gemm_grouped_nt(dc, w, *extra, **gs)
+        dw = tk.sfc_gemm_grouped_tn(a, dc, dc2 if dual else None, **gs)
+        torch.cuda.synchronize()
+        assert (tk.sfc_gemm_grouped_nt.launches, tk.sfc_gemm_grouped_tn.launches) == (before[0] + 1, before[1] + 1)
+        assert da.shape == (sum(group_sizes), k) and _agree(da, tk.sfc_gemm_grouped_nt_plain(
+            dc, w, *extra, bm=64, bn=64, **gs), dt)
+        want_dw = tk.sfc_gemm_grouped_tn_plain(a, dc, dc2 if dual else None, bm=64, bn=64, **gs)
+        for g, w_ in zip(dw if dual else [dw], want_dw if dual else [want_dw]):
+            assert g.shape == (len(group_sizes), k, n) and _agree(g, w_, dt)
+            for e, size in enumerate(group_sizes):
+                if size == 0:
+                    assert not bool(g[e].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_impl", ["blockwise", "sfc"])
+def test_olmoe_loss_gradients_under_sfc_cuda_match_torch_on_card(attn_impl):
+    """Reduced olmoe (4 layers, 8 experts top-2, f32, head dim 128): the
+    router and every expert stack get their gradients through K3, K9 and
+    K10, and every gradient matches the torch backend's."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm_backend import gemm_backend
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b").reduced(), head_dim=128, attn_impl=attn_impl)
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(5))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = {key: torch.randint(0, cfg.vocab, (2, 96), generator=gen, device="cuda") for key in ("tokens", "labels")}
+    grads, losses = {}, {}
+    kernels = (tk.sfc_gemm_grouped, tk.sfc_gemm_grouped_nt, tk.sfc_gemm_grouped_tn)
+    for backend in ("sfc_cuda", "torch"):
+        model.zero_grad(set_to_none=True)
+        before = [fn.launches for fn in kernels]
+        with gemm_backend(backend):
+            loss = model.loss(batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        launched = [fn.launches - b for fn, b in zip(kernels, before)]
+        assert launched == ([2 * cfg.n_layers] * 3 if backend == "sfc_cuda" else [0, 0, 0])
+        losses[backend] = float(loss)
+        grads[backend] = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    names = {n for n, _ in model.named_parameters()}
+    assert set(grads["sfc_cuda"]) == set(grads["torch"]) == names
+    for n in names:
+        if ".moe." in n:
+            assert bool(grads["sfc_cuda"][n].abs().max() > 0), n
     assert abs(losses["sfc_cuda"] - losses["torch"]) <= 1e-4 * abs(losses["torch"])
     for n in names:
         assert _agree(grads["sfc_cuda"][n], grads["torch"][n], torch.float32), n

@@ -153,8 +153,14 @@ def test_init_is_seeded_and_shaped_like_jax():
 
 def test_unported_model_options_raise():
     cfg = get_config("qwen3_4b").reduced()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model(dataclasses.replace(cfg, n_experts=4), device="cpu")
+    # MoE layers are ported (tests/test_torch_moe.py); M-RoPE and the other
+    # families are not
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build_model(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build_model(dataclasses.replace(cfg, family="ssm"), device="cpu")
+    moe = build_model(dataclasses.replace(cfg, family="moe", n_experts=4, moe_top_k=2), device="cpu")
+    assert tuple(moe.layers[0].moe.w_in.shape) == (4, cfg.d_model, cfg.d_ff)
 
 
 def test_build_model_without_device_raises_where_cuda_is_absent(monkeypatch):
@@ -171,9 +177,10 @@ def _port_files():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """AST check over src/repro_torch and chip_smoke.py, then a fresh
-    interpreter that imports every port module must not load jax or repro."""
-    for path in _port_files():
+    """AST check over src/repro_torch, chip_smoke.py and the port's card
+    scripts, then a fresh interpreter that imports every port module must
+    not load jax or repro."""
+    for path in _port_files() + sorted((ROOT / "scripts").glob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
