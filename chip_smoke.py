@@ -7,7 +7,7 @@ Builds the port's hand-written CUDA kernels from the sources in this
 checkout (src/repro_torch/kernels/csrc: the GEMM library with its forward
 and backward parts and the attention library with its forward, decode and
 backward parts, all compiled at once), then runs nine phases, each printing
-one JSON line and raising on failure:
+one JSON line (phases 3 and 6 two) and raising on failure:
 
 1. device     the card's name and power limit (nvidia-smi) and the build time;
 2. kernels    each kernel against its plain PyTorch version at the shapes the
@@ -30,7 +30,12 @@ one JSON line and raising on failure:
               GLU preact, w_out), K9 (dA) and K10 (dW) at every olmoe-1b-7b
               shape (64 experts; decode 32, prefill and training 80 rows an
               expert), timed beside one torch.bmm, and each on ragged
-              expert sizes (5, 0, 19, 32) in f32 and bf16;
+              expert sizes (5, 0, 19, 32) in f32 and bf16; K10's update
+              mode (per-expert AdamW in the flush, bf16 W stochastically
+              rounded) and norm mode at olmoe's two training shapes in
+              bf16, timed beside torch.bmm + torch._fused_adamw_, and on
+              the ragged sizes in f32 and bf16 (the empty expert's g = 0
+              update included);
 3. grad check full-width qwen3-4b cut to 4 layers, f32, batch 2 x 256: the
               loss and every parameter's gradient under sfc_cuda GEMMs with
               attn_impl="sfc" against the torch backend with blockwise
@@ -66,6 +71,9 @@ one JSON line and raising on failure:
               .grad), its losses within 2^-7 of the unfused run's;
 6. grad check olmoe-1b-7b at full width cut to 2 layers, f32, as phase 3:
               the router and the expert stacks through K3, K9 and K10;
+              then its fused step as phase 3's (K8's modes for q, k, v, o
+              and the head, K10's for the expert stacks; the router, as in
+              the JAX package, unrouted), with the NaN step;
 7. serve      ServingEngine serves full-width, full-depth olmoe-1b-7b (16
               layers, 64 experts top-8, bf16, seeded random weights), 4
               requests, prompt 128, 16 new tokens: sfc_cuda GEMMs with
@@ -79,9 +87,14 @@ one JSON line and raising on failure:
 8. train      `build_trainer` trains olmoe-1b-7b at full width on 8 of its 16
               layers (AdamW's 16 B a parameter: 57 GB) for 3 steps of 2 x 256
               tokens under sfc_cuda + attn_impl="sfc" (exactly 16 K3, 16 K9,
-              16 K10 and 41 each of K1/K2, K7, K8 a step), then under torch +
-              blockwise from the same init: losses within 2^-7, every
-              parameter moved, a profiled fourth step of each;
+              16 K10 and 41 each of K1/K2, K7, K8 a step), the same steps with
+              fused_optimizer=True (16 K10 norm and 16 update launches, 33
+              K8 norm and 33 update, the router's 8 K8 dW, no K10 dW a step;
+              no weight left with a .grad; losses within 2^-7 of the unfused
+              run's), then under torch + blockwise from the same init:
+              losses within 2^-7, every parameter moved, a profiled fourth
+              step of each (K8's and K10's norm and update modes as groups
+              of their own);
 9. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound.
@@ -865,16 +878,20 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     return out
 
 
-def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, batches):
-    """Full-width qwen3-4b cut to GRAD_CHECK_LAYERS layers, in f32: two
+def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, batches,
+                           layers=GRAD_CHECK_LAYERS):
+    """The config at full width cut to ``layers`` layers, in f32: two
     fused-optimizer steps (sfc_cuda + attn_impl="sfc", AdamW of every
-    projection in K8's update flush, the clip exact in two phases) against
-    two unfused sfc_cuda steps from the same init, with a clip that binds:
-    losses, grad norms, every parameter and every master / mu / nu within
-    the f32 bound; then a third fused step whose gradients are all NaN (a
-    hook on the final norm's output): every weight and state bitwise
-    unchanged, the step counted."""
-    cfg4 = dataclasses.replace(cfg, n_layers=GRAD_CHECK_LAYERS, param_dtype="float32")
+    projection in K8's update flush and, for a MoE config, of every expert
+    stack in K10's; the clip exact in two phases) against two unfused
+    sfc_cuda steps from the same init, with a clip that binds: losses, grad
+    norms, every parameter and every master / mu / nu within the f32 bound,
+    exact norm and update launches of both kernels and no dW launch; then a
+    third fused step whose gradients are all NaN (a hook on the final
+    norm's output): every weight and state bitwise unchanged, the step
+    counted."""
+    cfg4 = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32")
+    kernels = {"sfc_gemm_tn": tk.sfc_gemm_tn, "sfc_gemm_grouped_tn": tk.sfc_gemm_grouped_tn}
     opt_cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3, clip_norm=FUSED_CHECK_CLIP)
     runs = {}
     for name, fused in (("unfused", False), ("fused", True)):
@@ -883,15 +900,21 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
                                                                      fused_optimizer=fused))
         state = opt.adamw_init(dict(model.named_parameters()))
         metrics = []
-        modes0 = dict(tk.sfc_gemm_tn.launches_by_mode)
+        modes0 = {k: dict(fn.launches_by_mode) for k, fn in kernels.items()}
         for batch in batches[:2]:
             state, m = step(state, batch)
             metrics.append({"loss": m["loss"], "grad_norm": m["grad_norm"]})
         torch.cuda.synchronize()
-        modes = {k: v - modes0.get(k, 0) for k, v in tk.sfc_gemm_tn.launches_by_mode.items()}
+        modes = {k: {mode: v - modes0[k].get(mode, 0) for mode, v in fn.launches_by_mode.items()}
+                 for k, fn in kernels.items()}
         runs[name] = (model, step, state, metrics, modes)
     (mu_, _, su, metu, _), (mf, stepf, sf, metf, modesf) = runs["unfused"], runs["fused"]
-    per_step = GRAD_CHECK_LAYERS * 6 + 1
+    # routed a layer: q, k, v, o and the GLU pair and w_out, or q, k, v, o
+    # and the two expert projections; the head.  The MoE router stays
+    # unrouted (as in the JAX package): its dW runs K8's dW mode.
+    per_step = {"sfc_gemm_tn": layers * (4 if cfg.n_experts else 6) + 1,
+                "sfc_gemm_grouped_tn": layers * 2 if cfg.n_experts else 0}
+    dw_per_step = {"sfc_gemm_tn": layers if cfg.n_experts else 0, "sfc_gemm_grouped_tn": 0}
     worst, ok = 0.0, True
     for a, b in zip(metf, metu):
         for key in ("loss", "grad_norm"):
@@ -904,7 +927,8 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
             ok_, _, w_ = within(a.detach(), b.detach(), torch.float32)
             ok, worst = ok and ok_, max(worst, w_)
     no_grad = all(p.grad is None for p in pf.values())
-    counts_ok = modesf.get("norm", 0) == modesf.get("update", 0) == 2 * per_step and not modesf.get("dw")
+    counts_ok = all(modesf[k].get("norm", 0) == modesf[k].get("update", 0) == 2 * n
+                    and modesf[k].get("dw", 0) == 2 * dw_per_step[k] for k, n in per_step.items())
     del mu_, su, pu, runs
     # the non-finite case
     before = {n: p.detach().clone() for n, p in pf.items()}
@@ -917,12 +941,13 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
     skipped = (not math.isfinite(float(m_nan["grad_norm"])) and int(sf["step"]) == 3
                and all(torch.equal(p.detach(), before[n]) for n, p in pf.items())
                and all(torch.equal(sf[k][n], slots[k][n]) for k in slots for n in slots[k]))
-    out = {"layers": GRAD_CHECK_LAYERS, "dtype": "float32", "clip_norm": FUSED_CHECK_CLIP, "clip_binds": binds,
+    out = {"arch": cfg.name, "layers": layers, "dtype": "float32", "clip_norm": FUSED_CHECK_CLIP,
+           "clip_binds": binds,
            "losses": {"fused": [float(m["loss"]) for m in metf], "unfused": [float(m["loss"]) for m in metu]},
            "grad_norms": {"fused": [float(m["grad_norm"]) for m in metf],
                           "unfused": [float(m["grad_norm"]) for m in metu]},
            "worst_err_over_bound": worst, "within_f32_bound": ok, "no_weight_has_grad": no_grad,
-           "tn_launches_by_mode_2_steps": modesf, "nonfinite_step_skipped_bitwise": skipped}
+           "launches_by_mode_2_steps": modesf, "nonfinite_step_skipped_bitwise": skipped}
     del mf, sf, stepf, pf, before, slots
     if not (ok and binds and no_grad and counts_ok and skipped):
         raise AssertionError(f"the fused step disagrees with the unfused one: {out}")
@@ -933,11 +958,10 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
 _KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("nt_kernel", "K7"), ("tn_kernel", "K8"),
                   ("tn_update_kernel", "K8 norm/update"), ("flash_fwd_kernel", "K11"),
                   ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"))
-# the MoE step's: the grouped kernels first, since "nt_kernel" and
-# "tn_kernel" are fragments of their names too
+# the MoE step's: the grouped kernels first, since "nt_kernel",
+# "tn_kernel" and "tn_update_kernel" are fragments of their names too
 _MOE_KERNEL_GROUPS = (("sfc_gemm_grouped_kernel", "K3"), ("grouped_nt_kernel", "K9"), ("grouped_tn_kernel", "K10"),
-                      ("sfc_gemm_fused_kernel", "K1/K2"), ("nt_kernel", "K7"), ("tn_kernel", "K8"),
-                      ("flash_fwd_kernel", "K11"), ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"))
+                      ("grouped_tn_update_kernel", "K10 norm/update"), *_KERNEL_GROUPS)
 
 
 def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS):
@@ -956,9 +980,11 @@ def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS)
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups = {label: 0.0 for _, label in kernel_groups if label != "K8 norm/update"}
-    if any(label == "K8 norm/update" for _, label in kernel_groups):
-        groups.update({"K8 norm": 0.0, "K8 update": 0.0})
+    # a "norm/update" kernel is two groups, split by its UPDATE template argument
+    groups = {}
+    for _, label in kernel_groups:
+        base, split = label.removesuffix(" norm/update"), label.endswith(" norm/update")
+        groups.update({f"{base} norm": 0.0, f"{base} update": 0.0} if split else {label: 0.0})
     groups["other"] = 0.0
     top = []
     for ev in prof.key_averages():
@@ -968,8 +994,9 @@ def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS)
         if ev.device_type != DeviceType.CUDA or us <= 0:
             continue
         label = next((lab for frag, lab in kernel_groups if frag in ev.key), "other")
-        if label == "K8 norm/update":  # tn_update_kernel<T, DUAL, UPDATE, SR>
-            label = "K8 update" if ev.key.split("tn_update_kernel<")[1].split(", ")[2] == "true" else "K8 norm"
+        if label.endswith(" norm/update"):  # [grouped_]tn_update_kernel<T, DUAL, UPDATE, SR>
+            update = ev.key.split("tn_update_kernel<")[1].split(", ")[2] == "true"
+            label = label.removesuffix("norm/update") + ("update" if update else "norm")
         groups[label] += us / 1e3
         top.append((us / 1e3, ev.key[:80]))
     busy = sum(groups.values()) / 1e3
@@ -979,15 +1006,17 @@ def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS)
                        "device_ms_by_group": groups, "top_device_ms": top[:10]}
 
 
-def _tn_mode_counts(tn):
-    return {f"sfc_gemm_tn:{mode}": tn.launches_by_mode.get(mode, 0) for mode in ("dw", "norm", "update")}
+def _tn_mode_counts(counted):
+    """Launches by mode of the TN kernels among ``counted`` (K8, and K10
+    where the run counts it)."""
+    return {f"{name}:{mode}": counted[name].launches_by_mode.get(mode, 0)
+            for name in ("sfc_gemm_tn", "sfc_gemm_grouped_tn") if name in counted for mode in ("dw", "norm", "update")}
 
 
 def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_groups=_KERNEL_GROUPS):
     """TRAIN_STEPS steps of `build_trainer` from seed 0, each step's launch
     counts, times and loss, then a profiled step.  Returns (run summary,
     launches by shape of every counted kernel, their totals)."""
-    tn = counted["sfc_gemm_tn"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, opt_state, step_fn, batch_fn = build_trainer(
@@ -1002,12 +1031,12 @@ def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_gro
     losses, times, launches = [], [], []
     for fn in counted.values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_shape"):
-            fn.launches_by_shape.clear()
-    tn.launches_by_mode.clear()
+        for counter in ("launches_by_shape", "launches_by_mode"):
+            if hasattr(fn, counter):
+                getattr(fn, counter).clear()
 
     def counts():
-        return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(tn)}
+        return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(counted)}
 
     for step in range(TRAIN_STEPS):
         batch = batch_fn(step)
@@ -1261,6 +1290,169 @@ def phase_grouped_gemms(torch, gemms, tk):
     return rows, checks
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupedUpdGemm:
+    """K10 in its update or norm mode for the expert projection (E x rows,
+    K) @ (E, K, N): each dW_e (K, N) = A_e^T dC_e in the f32 accumulators,
+    then per-expert AdamW against the f32 master / mu / nu stacks and W
+    written (update), or only sum(dW^2) (norm); dual for the GLU pair."""
+
+    name: str
+    mode: str  # "update" | "norm"
+    experts: int
+    rows: int  # per expert
+    k: int
+    n: int
+    glu: bool = False
+
+    @property
+    def t(self) -> int:
+        return self.experts * self.rows
+
+    @property
+    def sets(self) -> int:
+        return 2 if self.glu else 1
+
+    @property
+    def key(self):  # sfc_gemm_grouped_tn.launches_by_shape's key for the mode
+        return (self.experts, self.k, self.n, self.t, self.glu, self.mode)
+
+    def flops(self) -> float:
+        return 2.0 * self.t * self.k * self.n * self.sets
+
+    def bytes(self, elem: int) -> float:
+        """A and dC read once; update: 12 B of f32 state read and 14 B (the
+        state and W) written per weight element of every expert; norm: the
+        per-task partials."""
+        operands = elem * (self.t * self.k + self.sets * self.t * self.n)
+        if self.mode == "update":
+            return operands + 26.0 * self.sets * self.experts * self.k * self.n
+        return operands + 4.0 * self.sets * self.experts * math.ceil(self.k / 64) * math.ceil(self.n / 64)
+
+
+def moe_update_gemms(cfg):
+    """K10's update mode at olmoe's two expert projections of the training
+    step, 80 rows an expert (its norm mode runs the same shapes)."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    tr = moe_rows(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    return [GroupedUpdGemm("train/glu", "update", e, tr, d, f, glu=True),
+            GroupedUpdGemm("train/w_out", "update", e, tr, f, d)]
+
+
+def phase_grouped_update_gemms(torch, cfg, tk, opt):
+    """K10's update and norm modes against their plain versions at olmoe's
+    training shapes in bf16 (stochastic rounding on, the main path, timed),
+    then on the ragged expert sizes RAGGED_GROUPS at olmoe's widths in f32
+    and bf16, the empty expert's g = 0 update included: master, mu and nu
+    within the f32 bound; a bf16 W bitwise the stochastic rounding of the
+    kernel's own master with the plain version's grouped tile bits and
+    within the bf16 bound of the plain W, an f32 W the new master; the
+    norms within the f32 bound, the norm mode's bitwise the update mode's.
+    Yardstick: torch.bmm per set to an f32 dW stack plus
+    torch._fused_adamw_ on the same state (they write no bf16 W)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    hyper = opt.pack_adamw_hyper(opt.AdamWConfig(lr=1e-2), torch.tensor(7, dtype=torch.int32, device=dev),
+                                 torch.tensor(0.37, device=dev))
+    salt = (5 << 16) + 3
+    rows, checks = [], []
+
+    def r(shape, scale, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def inputs(gm, dt, sizes):
+        """(x, [dC per set], [(master, mu, nu, W) per set]): a later step's
+        state, its moments on the scale of dW (about sqrt(rows))."""
+        g, t, stack = math.sqrt(max(sizes)), sum(sizes), (gm.experts, gm.k, gm.n)
+        x, dcs = r((t, gm.k), 1.0, dt), [r((t, gm.n), 1.0, dt) for _ in range(gm.sets)]
+        sets = []
+        for _ in range(gm.sets):
+            mst = r(stack, 0.02)
+            sets.append((mst, r(stack, 0.5 * g), r(stack, 2.0 * g) ** 2 + 1.0, mst.to(dt)))
+        return x, dcs, sets
+
+    def update(fn, x, dcs, sets, sizes, dt, **kw):
+        (m1, u1, v1, w1), *rest = sets
+        extra = dict(w2=rest[0][3]) if rest else {}
+        second = list(rest[0][:3]) if rest else [None] * 3
+        return fn(x, dcs[0], dcs[1] if rest else None, m1, u1, v1, *second, hyper, group_sizes=sizes, w=w1,
+                  salt=salt, stochastic_round=dt == torch.bfloat16, **extra, **kw)
+
+    def check(gm, dt, sizes, case):
+        """Kernel against plain on fresh inputs; returns (result, plain ms
+        of the update, the inputs)."""
+        x, dcs, sets = inputs(gm, dt, sizes)
+        got_sets, want_sets = [tuple(v.clone() for v in st) for st in sets], [tuple(v.clone() for v in st)
+                                                                               for st in sets]
+        got = update(tk.sfc_gemm_grouped_tn, x, dcs, got_sets, sizes, dt)
+        norm_only = tk.sfc_gemm_grouped_tn(x, *dcs, group_sizes=sizes, norm=True)
+        torch.cuda.synchronize()
+        want = []
+        plain_ms = time_ms(lambda i: want.append(update(tk.sfc_gemm_grouped_tn_plain, x, dcs, want_sets, sizes, dt,
+                                                        bm=64, bn=64)), reps=1, warmup=0)
+        ok, norm_err, worst = within(got, want[0], torch.float32)
+        res = {"case": f"sfc_gemm_grouped_tn:update:{case}", "dtype": str(dt), "group_sizes": list(sizes),
+               "shape": {"experts": gm.experts, "k": gm.k, "n": gm.n, "dual": gm.glu}, "norm_ok": ok,
+               "norm_max_abs_err": norm_err, "norm_err_over_bound": worst,
+               "norm_mode_bitwise": bool(torch.equal(norm_only, got))}
+        err, worst_state, w_bitwise, empty_moved = 0.0, 0.0, True, True
+        for s, (g_set, p_set, o_set) in enumerate(zip(got_sets, want_sets, sets)):
+            for g_, w_ in zip(g_set, p_set):
+                ok_s, err_s, worst_s = within(g_, w_, torch.float32 if g_.dtype == torch.float32 else dt)
+                ok, err, worst_state = ok and ok_s, max(err, err_s), max(worst_state, worst_s)
+            if dt == torch.bfloat16:
+                bits = tk._grouped_tile_bits(gm.experts, gm.k, gm.n, 64, 64, hyper, salt, s)
+                w_bitwise &= bool(torch.equal(g_set[3], tk.stochastic_round_to(g_set[0], bits, dt)))
+                del bits
+            else:
+                w_bitwise &= bool(torch.equal(g_set[3], g_set[0]))
+            # an empty expert's moments decay: its g = 0 update ran
+            empty_moved &= all(not torch.equal(g_set[1][e], o_set[1][e]) for e, z in enumerate(sizes) if z == 0)
+        res.update(ok=ok and w_bitwise and empty_moved and res["norm_mode_bitwise"], max_abs_err=err,
+                   state_err_over_bound=worst_state, w_bitwise_sr_of_master=w_bitwise,
+                   empty_experts_updated=empty_moved)
+        checks.append(res)
+        if not res["ok"]:
+            raise AssertionError(f"sfc_gemm_grouped_tn update / norm mode disagrees with its plain version: {res}")
+        return res, plain_ms, (x, dcs, sets)
+
+    for gm in moe_update_gemms(cfg):
+        dt, sizes = torch.bfloat16, (gm.rows,) * gm.experts
+        res, plain_upd_ms, (x, dcs, sets) = check(gm, dt, sizes, gm.name)
+        # every launch streams 3.5-7 GB of state, far past the 50 MB L2: one copy of the inputs
+        step_t = torch.zeros((), device=dev)
+        e, rows_e = gm.experts, gm.rows
+
+        def library(i):
+            grads = [torch.bmm(x.view(e, rows_e, gm.k).transpose(1, 2), d.view(e, rows_e, gm.n),
+                               out_dtype=torch.float32) for d in dcs]
+            torch._fused_adamw_([st[0] for st in sets], grads, [st[1] for st in sets], [st[2] for st in sets], [],
+                                [step_t] * len(sets), lr=1e-2, beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+                                amsgrad=False, maximize=False)
+
+        upd_ms = time_ms(lambda i: update(tk.sfc_gemm_grouped_tn, x, dcs, sets, sizes, dt), reps=20, graph=True)
+        norm_ms = time_ms(lambda i: tk.sfc_gemm_grouped_tn(x, *dcs, group_sizes=sizes, norm=True), reps=20,
+                          graph=True)
+        lib_ms = time_ms(library, reps=20, graph=True)
+        plain_norm_ms = time_ms(lambda i: tk.sfc_gemm_grouped_tn_plain(x, *dcs, group_sizes=sizes, norm=True, bm=64,
+                                                                       bn=64), reps=1, warmup=0)
+        for mode, ms, plain_ms, l_ms in (("update", upd_ms, plain_upd_ms, lib_ms),
+                                         ("norm", norm_ms, plain_norm_ms, None)):
+            g2 = dataclasses.replace(gm, mode=mode)
+            bound_ms, bound_by = _bound(g2.flops(), g2.bytes(2))
+            rows.append(dict(gemm=g2, max_abs_err=res["max_abs_err"] if mode == "update" else res["norm_max_abs_err"],
+                             ms=ms, plain_ms=plain_ms, library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by))
+        del x, dcs, sets
+        torch.cuda.empty_cache()
+    # the ragged checks: olmoe's widths, four experts, one of them empty
+    for dt in (torch.float32, torch.bfloat16):
+        for gm in moe_update_gemms(cfg):
+            check(dataclasses.replace(gm, experts=len(RAGGED_GROUPS), rows=0), dt, RAGGED_GROUPS,
+                  f"ragged/{gm.name.split('/')[1]}")
+    torch.cuda.empty_cache()
+    return rows, checks
+
+
 def moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, top_k):
     """Why the bf16 sfc_cuda serve's greedy tokens leave the torch
     backend's.  Both engines replay the serve (the same prompts, then
@@ -1332,7 +1524,9 @@ def moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, top_k):
             "request": i, "first_divergent_token": j, "step": "prefill" if j == 0 else f"decode {j}",
             "layers_with_different_topk": len(differ), "layers": len(layers_t),
             "first_layer_different": differ[0] if differ else None,
-            "swapped_prob_gap_torch": gaps, "topk_margin_median_torch": float(np.median(margins)),
+            "swapped_prob_gap_torch": gaps,
+            # a model without MoE layers records no routing: nothing to take the median of
+            "topk_margin_median_torch": float(np.median(margins)) if margins else None,
             "max_abs_router_prob_diff": prob_diff, "torch_top1_logit_margin": float(lt[0] - lt[1]),
             "sets_different_through_step": upto, "sets_through_step": total})
     return out
@@ -1446,38 +1640,57 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
     """Three steps of `build_trainer` on olmoe-1b-7b at full width and
     MOE_TRAIN_LAYERS layers under sfc_cuda + attn_impl="sfc" (K3, K9, K10
     for the experts; K1/K2, K7, K8 for attention, the router and the head;
-    K11-K13), then from the same init under torch + blockwise: exact
-    launches a step, every loss within 2^-7 of the torch backend's, every
-    parameter moved; then a profiled step of each.  Returns (summary,
-    launches by shape of the sfc run)."""
+    K11-K13), the same steps from the same init with the fused optimizer
+    (K8's and K10's norm and update modes, no dW launch, no routed weight
+    left with a .grad), then under torch + blockwise: exact launches a
+    step, every unfused loss within 2^-7 of the torch backend's and every
+    fused loss within 2^-7 of the unfused one's, every parameter moved;
+    then a profiled step of each.  Returns (summary, launches by shape of
+    each sfc run)."""
     cut = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
     n_layers = MOE_TRAIN_LAYERS
     dense = 5 * n_layers + 1  # q, k, v, o and the router a layer, plus the head
+    grouped = 2 * n_layers  # the GLU pair and w_out a layer
     want = {"sfc_gemm_fused": dense, "sfc_gemm_nt": dense, "sfc_gemm_tn": dense,
             "sfc_gemm_tn:dw": dense, "sfc_gemm_tn:norm": 0, "sfc_gemm_tn:update": 0,
-            "sfc_gemm_grouped": 2 * n_layers, "sfc_gemm_grouped_nt": 2 * n_layers,
-            "sfc_gemm_grouped_tn": 2 * n_layers, "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers,
-            "sfc_flash_bwd_dkv": n_layers}
+            "sfc_gemm_grouped": grouped, "sfc_gemm_grouped_nt": grouped, "sfc_gemm_grouped_tn": grouped,
+            "sfc_gemm_grouped_tn:dw": grouped, "sfc_gemm_grouped_tn:norm": 0, "sfc_gemm_grouped_tn:update": 0,
+            "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers, "sfc_flash_bwd_dkv": n_layers}
+    # the fused step: K8 and K10 run their norm mode in the backward and
+    # their update mode after it, and never write a routed weight's dW; the
+    # router stays unrouted, as in the JAX package (its dW: K8's dW mode)
+    routed = dense - n_layers
+    want_fused = {**want, "sfc_gemm_tn": 2 * routed + n_layers, "sfc_gemm_tn:dw": n_layers,
+                  "sfc_gemm_tn:norm": routed, "sfc_gemm_tn:update": routed, "sfc_gemm_grouped_tn": 2 * grouped,
+                  "sfc_gemm_grouped_tn:dw": 0, "sfc_gemm_grouped_tn:norm": grouped,
+                  "sfc_gemm_grouped_tn:update": grouped}
     runs, by_shape = {}, {}
-    for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
-        runs[name], shapes = _train_run(torch, cut, build_trainer, counted, gemm, impl, False, _MOE_KERNEL_GROUPS)
+    for name, (gemm, impl, fused) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc", False)),
+                                      ("sfc_cuda+sfc_attn+fused_optimizer", ("sfc_cuda", "sfc", True)),
+                                      ("torch", ("torch", "blockwise", False))):
+        runs[name], shapes = _train_run(torch, cut, build_trainer, counted, gemm, impl, fused, _MOE_KERNEL_GROUPS)
         if gemm == "sfc_cuda":
-            by_shape = shapes
-    sfc, ref = runs["sfc_cuda+sfc_attn"], runs["torch"]
-    loss_ok = _losses_close(sfc, ref)
+            by_shape[name] = shapes
+    sfc, fused, ref = runs["sfc_cuda+sfc_attn"], runs["sfc_cuda+sfc_attn+fused_optimizer"], runs["torch"]
+    loss_ok, fused_ok = _losses_close(sfc, ref), _losses_close(fused, sfc)
     out = {"phase": "train_moe", "arch": cfg.name, "layers": n_layers, "layers_of_config": cfg.n_layers,
            "params_bytes_per_param": 16, "dtype": cfg.param_dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "steps": TRAIN_STEPS, "launches_expected_per_step": want, "loss_within_2^-7": loss_ok, **runs}
+           "steps": TRAIN_STEPS, "launches_expected_per_step": want, "fused_launches_expected_per_step": want_fused,
+           "loss_within_2^-7": loss_ok, "fused_loss_within_2^-7_of_unfused": fused_ok, **runs}
     emit(out)
-    bad_counts = [i for i, c in enumerate(sfc["launches_per_step"]) if c != want]
-    if bad_counts:
-        raise AssertionError(f"olmoe train steps {bad_counts} launched {sfc['launches_per_step']}, expected {want}")
-    if not all(loss_ok) or not all(math.isfinite(x) for x in ref["losses"]):
-        raise AssertionError(f"olmoe train losses {sfc['losses']} vs torch {ref['losses']}: not within 2^-7 or "
-                             "not finite")
+    for run, expect in ((sfc, want), (fused, want_fused)):
+        bad_counts = [i for i, c in enumerate(run["launches_per_step"]) if c != expect]
+        if bad_counts:
+            raise AssertionError(f"olmoe train steps {bad_counts} launched {run['launches_per_step']}, "
+                                 f"expected {expect}")
+    if not all(loss_ok) or not all(fused_ok) or not all(math.isfinite(x) for x in ref["losses"]):
+        raise AssertionError(f"olmoe train losses {sfc['losses']} (fused {fused['losses']}) vs torch "
+                             f"{ref['losses']}: not within 2^-7 or not finite")
     for name, run in runs.items():
         if run["unchanged_params"]:
             raise AssertionError(f"olmoe {name} training left parameters unchanged: {run['unchanged_params']}")
+    if fused["params_with_grad"]:
+        raise AssertionError(f"the fused olmoe step left weights with a .grad: {fused['params_with_grad']}")
     return out, by_shape
 
 
@@ -1561,6 +1774,7 @@ def main() -> int:
     attn_bwd_rows, attn_bwd_checks = phase_attention_bwd(torch, attention_bwd_cases(cfg), tsa, build)
     ocfg = get_config(MOE_ARCH)
     grouped_rows, grouped_checks = phase_grouped_gemms(torch, moe_grouped_gemms(ocfg), tk)
+    grouped_upd_rows, grouped_upd_checks = phase_grouped_update_gemms(torch, ocfg, tk, opt)
     small = small_reference_check(torch, get_config, build_model, gemm_backend)
     emit({"phase": "kernels_vs_plain", "ok": True, "tolerance": {
         "float32": f"|k-p| <= {F32_RTOL}|p| + {F32_ATOL_REL} max|p|",
@@ -1569,7 +1783,8 @@ def main() -> int:
         "tn_update": "master, mu, nu and the norms at the float32 tolerance; a bf16 W bitwise the stochastic "
                      "rounding of the kernel's master with the plain version's bits and within the bfloat16 "
                      "tolerance of the plain W",
-        "checks": checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks,
+        "checks": checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
+                  + grouped_upd_checks,
         "reduced_model_f32_vs_reference": small})
     torch.cuda.empty_cache()
 
@@ -1657,7 +1872,6 @@ def main() -> int:
     # from that f32 reference than the torch backend's are.
     tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
     logits = {name: eng._prefill(tokens)[0].float() for name, eng in engines.items()}
-    divergence = moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, cfg.moe_top_k)
     del engines, eng
     # the attn_impl="flash_pallas" prefill: its attention on K15
     reset_counts()
@@ -1735,6 +1949,12 @@ def main() -> int:
                              layers=MOE_CHECK_LAYERS)})
     gc.collect()
     torch.cuda.empty_cache()
+    ofc_batches = [{key: torch.from_numpy(val).cuda() for key, val in odata.batch(i).items()} for i in range(3)]
+    emit({"phase": "fused_step_check_moe", "ok": True,
+          **phase_fused_step_check(torch, ocfg, build_model, tk, make_train_step, BackendConfig, opt, ofc_batches,
+                                   layers=MOE_CHECK_LAYERS)})
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 7. serve full-width, full-depth olmoe-1b-7b ------------------------
     _, moe_serve_counts = phase_moe_serve(torch, np, ocfg, build_model, ServingEngine, tk, tsa)
@@ -1743,6 +1963,7 @@ def main() -> int:
     moe_counted = {**counted, "sfc_gemm_grouped": tk.sfc_gemm_grouped, "sfc_gemm_grouped_nt": tk.sfc_gemm_grouped_nt,
                    "sfc_gemm_grouped_tn": tk.sfc_gemm_grouped_tn}
     _, moe_train_counts = phase_moe_train(torch, ocfg, build_trainer, moe_counted)
+    moe_fused_counts = moe_train_counts["sfc_cuda+sfc_attn+fused_optimizer"]["sfc_gemm_grouped_tn"]
 
     # ---- 9. the kernels line ------------------------------------------------
     kernels = []
@@ -1846,7 +2067,7 @@ def main() -> int:
         })
     for row in grouped_rows:
         gm = row["gemm"]
-        counts = moe_serve_counts if gm.path == "serve" else moe_train_counts[gm.kernel]
+        counts = moe_serve_counts if gm.path == "serve" else moe_train_counts["sfc_cuda+sfc_attn"][gm.kernel]
         kernels.append({
             "name": f"{gm.kernel}:{gm.name}",
             "route": "cuda",
@@ -1862,6 +2083,25 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "library": "torch.bmm over the (E, rows, .) views (dual forms on concatenated operands)",
             "shape": gm.shape(),
+        })
+    for row in grouped_upd_rows:
+        gm = row["gemm"]
+        kernels.append({
+            "name": f"sfc_gemm_grouped_tn_{gm.mode}:{gm.name}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "replaces": "src/repro/kernels/sfc_gemm.py:1859",
+            "launches": moe_fused_counts.get(gm.key, 0),
+            "path": "olmoe train, fused optimizer",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": "torch.bmm per set to an f32 dW stack + torch._fused_adamw_" if gm.mode == "update" else None,
+            "shape": {"experts": gm.experts, "rows_per_expert": gm.rows, "k": gm.k, "n": gm.n, "dual": gm.glu,
+                      "dtype": "bfloat16", "stochastic_round": gm.mode == "update"},
         })
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:

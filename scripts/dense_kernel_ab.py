@@ -1,10 +1,11 @@
 """Compare the GEMM kernels of source trees on one card: the times of
 K1/K2 (`sfc_gemm_fused`), K7 (`sfc_gemm_nt`) and K8's dW mode
 (`sfc_gemm_tn`) at qwen3-4b's main-path shapes (`chip_smoke.py`'s
-`main_path_gemms` and `train_backward_gemms`, bf16), of the grouped K3,
-K9 and K10 at olmoe-1b-7b's (`moe_grouped_gemms`) in the trees that have
-them, and the registers and spills that ptxas reports for every
-instantiation of their CUDA kernels.
+`main_path_gemms` and `train_backward_gemms`, bf16), of K8's update and
+norm modes there (`train_update_gemms`), of the grouped K3, K9 and K10 at
+olmoe-1b-7b's (`moe_grouped_gemms`) and of K10's update and norm modes
+(`moe_update_gemms`) in the trees that have them, and the registers and
+spills that ptxas reports for every instantiation of their CUDA kernels.
 
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1
 
@@ -37,6 +38,7 @@ _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 _DENSE = ("sfc_gemm_fused_kernel", "nt_kernel", "tn_kernel", "tn_update_kernel")
+_HYPER_STEP, _HYPER_SCALE, _SALT = 7, 0.37, (3 << 16) + 5
 
 
 def _demangle(names):
@@ -109,6 +111,8 @@ def worker(tree: Path) -> dict:
         rows[f"{'K7' if gm.kind == 'nt' else 'K8'} {gm.name}"] = cs.time_ms(
             lambda i: fn(*ins[i % copies]), reps=max(20, copies), graph=True)
         del ins
+    if hasattr(cs, "train_update_gemms"):
+        rows.update(_update_rows(torch, cs, tk, cs.train_update_gemms(cfg), gen, "K8"))
     if hasattr(cs, "moe_grouped_gemms"):
         fns = {"fwd": ("K3", tk.sfc_gemm_grouped), "nt": ("K9", tk.sfc_gemm_grouped_nt),
                "tn": ("K10", tk.sfc_gemm_grouped_tn)}
@@ -120,7 +124,41 @@ def worker(tree: Path) -> dict:
             rows[f"{label} {gm.name}"] = cs.time_ms(lambda i: fn(*args, **gs, **kw), reps=20, graph=True)
             del args
             torch.cuda.empty_cache()
+    if hasattr(cs, "moe_update_gemms"):
+        rows.update(_update_rows(torch, cs, tk, cs.moe_update_gemms(get_config("olmoe_1b_7b")), gen, "K10"))
     return {"tree": str(tree), "ms": rows, "ptxas": ptxas_counts(tree)}
+
+
+def _update_rows(torch, cs, tk, gemms, gen, label):
+    """Times of the update mode (bf16, stochastic rounding) and the norm
+    mode of K8 (`sfc_gemm_tn`) or K10 (`sfc_gemm_grouped_tn`) at each of
+    ``gemms``; one copy of the inputs (the trees compare alike)."""
+    from repro_torch.optim import adamw as opt
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    hyper = opt.pack_adamw_hyper(opt.AdamWConfig(lr=1e-2), torch.tensor(_HYPER_STEP, dtype=torch.int32, device=dev),
+                                 torch.tensor(_HYPER_SCALE, device=dev))
+    grouped = label == "K10"
+    fn = tk.sfc_gemm_grouped_tn if grouped else tk.sfc_gemm_tn
+    out = {}
+    for gm in gemms:
+        t = gm.t if grouped else gm.m
+        stack = (gm.experts, gm.k, gm.n) if grouped else (gm.k, gm.n)
+        kw = dict(group_sizes=(gm.rows,) * gm.experts) if grouped else {}
+        r = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale)  # noqa: E731
+        x, dcs = r(t, gm.k).to(dt), [r(t, gm.n).to(dt) for _ in range(gm.sets)]
+        sets = [(r(*stack, scale=0.02), r(*stack, scale=0.5), r(*stack) ** 2 + 1.0) for _ in range(gm.sets)]
+        ws = [st[0].to(dt) for st in sets]
+        state = [*sets[0], *(sets[1] if gm.sets == 2 else (None,) * 3)]
+        upd = dict(w=ws[0], w2=ws[1] if gm.sets == 2 else None, salt=_SALT, stochastic_round=True, **kw)
+        dc2 = dcs[1] if gm.sets == 2 else None
+        out[f"{label} update {gm.name}"] = cs.time_ms(lambda i: fn(x, dcs[0], dc2, *state, hyper, **upd), reps=20,
+                                                      graph=True)
+        out[f"{label} norm {gm.name}"] = cs.time_ms(lambda i: fn(x, dcs[0], dc2, norm=True, **kw), reps=20,
+                                                    graph=True)
+        del x, dcs, sets, ws, state, upd
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:

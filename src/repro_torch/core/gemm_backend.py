@@ -25,9 +25,11 @@ by `_rows_by_expert`, and Listing 1 per expert under "sfc_reference".
 
 The fused optimizer (`optim.fused`): while a fused step's session is
 active, a weight it routes goes through `ops.fused_update_matmul` /
-`fused_update_glu_matmul` instead (the TN kernel's update flush under
-"sfc_cuda", the JAX package's oracle under the other backends), and a
-routing probe counts the parameters that reach these call sites.
+`fused_update_glu_matmul` instead, and an expert stack through
+`ops.fused_update_grouped_matmul` / `fused_update_grouped_glu_matmul` (the
+TN kernel's or K10's update flush under "sfc_cuda", the JAX package's
+oracle under the other backends); a routing probe counts the parameters
+that reach these call sites.
 """
 
 from __future__ import annotations
@@ -278,8 +280,27 @@ def grouped_matmul(
     N)`` through the active backend, with an optional per-expert epilogue
     (``bias`` (E, N), ``activation``, ``out_scale``).  Under "sfc_cuda" the
     experts' rows go through one grouped kernel launch (K3) with the
-    epilogue in its flush; differentiable (K9 / K10 in the backward)."""
+    epilogue in its flush; differentiable (K9 / K10 in the backward).  A
+    stack routed by the active fused step goes through the grouped update
+    path (no ``out_scale`` there, as in the JAX package)."""
     name = _BACKEND.get()
+    probe = _fused.current_probe()
+    if probe is not None and out_scale is None:
+        probe.observe(w, "grouped")
+    session = _fused.current_session()
+    leaf = session.lookup(w) if session is not None else None
+    if leaf is not None:
+        if out_scale is not None:
+            raise NotImplementedError("fused-optimizer routing does not support the out_scale epilogue; exclude "
+                                      "this weight with fused_filter")
+        from repro_torch.kernels.ops import fused_update_grouped_matmul
+
+        slot = session.slot(leaf)
+        rows, (g, e, c), restore = _rows_by_expert(x)
+        fused = name == BACKEND_SFC_CUDA
+        out = fused_update_grouped_matmul(rows, w, (g * c,) * e, slot if fused else slot.dw_sink(0), bias=bias,
+                                          activation=activation, fused=fused)
+        return restore(out, w.shape[-1])
     if name == BACKEND_TORCH:
         y = torch.einsum("...eck,ekn->...ecn", x, w)
         if bias is not None:
@@ -310,8 +331,32 @@ def grouped_glu_matmul(
     """Per-expert gated MLP ``act(x@w_gate[e]) * (x@w_val[e])`` over ``(...,
     E, C, K)`` dispatch buffers.  Under "sfc_cuda" the dual-B grouped kernel
     (K3) reads the dispatched rows once for both expert weight stacks, the
-    gate's activation in its flush."""
+    gate's activation in its flush.  Routed by the active fused step, the
+    pair goes through the dual grouped update path; both stacks must be
+    routed or neither."""
     name = _BACKEND.get()
+    probe = _fused.current_probe()
+    if probe is not None and out_scale is None:
+        probe.observe(w_gate, "grouped_glu")
+        probe.observe(w_val, "grouped_glu")
+    session = _fused.current_session()
+    if session is not None and (session.lookup(w_gate) is not None or session.lookup(w_val) is not None):
+        leaf_g, leaf_v = session.lookup(w_gate), session.lookup(w_val)
+        if leaf_g is None or leaf_v is None:
+            raise ValueError("GLU gate/value expert stacks must be fused-routed together; adjust fused_filter so "
+                             "both (or neither) match")
+        if out_scale is not None:
+            raise NotImplementedError("fused-optimizer routing does not support the out_scale epilogue; exclude "
+                                      "these stacks with fused_filter")
+        from repro_torch.kernels.ops import fused_update_grouped_glu_matmul
+
+        slot = session.slot(leaf_v, leaf_g)
+        rows, (g, e, c), restore = _rows_by_expert(x)
+        fused = name == BACKEND_SFC_CUDA
+        out = fused_update_grouped_glu_matmul(rows, w_gate, w_val, (g * c,) * e,
+                                              slot if fused else (slot.dw_sink(0), slot.dw_sink(1)),
+                                              activation=activation, fused=fused)
+        return restore(out, w_val.shape[-1])
     if name == BACKEND_TORCH:
         g_ = torch.einsum("...eck,ekn->...ecn", x, w_gate)
         h = torch.einsum("...eck,ekn->...ecn", x, w_val)

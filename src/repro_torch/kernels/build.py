@@ -10,9 +10,10 @@ the flags, and loaded with ``ctypes``.  Two libraries:
   part, each part with its epilogue flags as template parameters, plus two
   backward parts per input type (``-DSFC_BWD=1``: the NT and TN kernels;
   ``-DSFC_BWD=2``: the TN kernel with its update / norm flush); the
-  forward, NT and TN entries also take the grouped (MoE expert) mode of
-  K3, K9 and K10 through a per-expert row array and launch it as kernels
-  of their own in the same parts, so it adds no part;
+  forward, NT, TN and TN-update entries also take the grouped (MoE
+  expert) mode of K3, K9 and K10 (dW, update and norm) through a
+  per-expert row array and launch it as kernels of their own in the same
+  parts, so it adds no part;
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
@@ -164,13 +165,14 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
             fn.restype = i32
         fn = getattr(lib, bwd_entry_name("tn_update", dt))
         fn.argtypes = [
-            ptr, ptr, ptr,  # a, b, b2
+            ptr, ptr, ptr, i32,  # a, b, b2, n_sets
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # w, w2, master, mu, nu, master2, mu2, nu2
             ptr, i32, i32,  # hyper (null: norm mode), salt, stochastic_round
             ptr,  # partials (n_sets, n_tasks) f32
             ptr, i32,  # task table, n_tasks
             i32, i32, i32,  # R, C, D
             i32, i32,  # vec_a, vec_b
+            ptr, i32,  # grouped mode (K10): per-expert (3, E) rows, E; null, 0 otherwise
             ptr,  # cudaStream_t
         ]
         fn.restype = i32

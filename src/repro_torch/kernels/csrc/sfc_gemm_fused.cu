@@ -1119,20 +1119,100 @@ __global__ void __launch_bounds__(kThreads) tn_update_kernel(const BwdParams p, 
                                 red);
 }
 
-template <bool DUAL>
-int launch_tn_update(const BwdParams& p, const UpdParams& u, bool sr, cudaStream_t s) {
-  const unsigned grid = (unsigned)p.n_tasks;
-  if (u.hyper == nullptr) {
-    tn_update_kernel<ElemT, DUAL, false, false><<<grid, kThreads, 0, s>>>(p, u);
-  } else if constexpr (SFC_DTYPE == 1) {
-    if (sr)
-      tn_update_kernel<ElemT, DUAL, true, true><<<grid, kThreads, 0, s>>>(p, u);
-    else
-      tn_update_kernel<ElemT, DUAL, true, false><<<grid, kThreads, 0, s>>>(p, u);
-  } else {
-    // an f32 W has nothing to dither: the cast is the rounding
-    tn_update_kernel<ElemT, DUAL, true, false><<<grid, kThreads, 0, s>>>(p, u);
+// repro/kernels/sfc_gemm.py::_grouped_tn_kernel's flush seed: `_tile_seed`
+// with one more lane, 2e + set, hashed for every expert and set (K8's
+// `tile_seed` adds a lane for its second set only)
+__device__ __forceinline__ unsigned grouped_tile_seed(unsigned step_bits, unsigned salt, unsigned im, unsigned in,
+                                                      unsigned lane) {
+  return hash_u32(tile_seed(step_bits, salt, im, in, 0) ^ lane * 0x9E3779B1u);
+}
+
+// K10 update / norm (repro/kernels/sfc_gemm.py::sfc_gemm_grouped_tn with
+// master, mu, nu and hyper; body `_grouped_tn_kernel`, flush
+// `_apply_update_flush`), a kernel of its own for the trace: K10 dW's walk
+// over the task's expert's rows (its offsets on the same run-time branch)
+// feeding K8's flush, which writes W, master, mu and nu at the expert's
+// (R, C) slice of the (E, R, C) stacks.  An empty expert contracts nothing
+// and flushes a zero tile: the g = 0 update (moment decay and weight decay)
+// in the same launch.  Bound by the state's bytes (12 B read, 14 B written
+// a weight in update mode); one CTA a tile, no atomics, no padding.
+template <typename T, bool DUAL, bool UPDATE, bool SR>
+__global__ void __launch_bounds__(kThreads) grouped_tn_update_kernel(const BwdParams p, const UpdParams u) {
+  constexpr int TILE = TnCfg<T>::BK * TnCfg<T>::LD;
+  constexpr int OPERAND_BYTES = TILE * (DUAL ? 3 : 2) * (int)sizeof(T);
+  constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float) * (DUAL ? 2 : 1);
+  constexpr int SMEM_BYTES = OPERAND_BYTES > EPI_BYTES ? OPERAND_BYTES : EPI_BYTES;
+  static_assert(SMEM_BYTES + 64 <= 48 * 1024, "static shared memory is capped at 48 KB");
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  __shared__ float red[kThreads / 32];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + TILE;
+  T* B2s = Bs + TILE;
+  float* Cs = reinterpret_cast<float*>(smem);
+  float* C2s = Cs + kBM * kLDC;
+  const int t = blockIdx.x;
+  const int im = __ldg(p.tab + t), in = __ldg(p.tab + p.n_tasks + t);
+  const int row0 = im * kBM, col0 = in * kBN;
+  const T* a = static_cast<const T*>(p.a);
+  const T* b = static_cast<const T*>(p.b);
+  const T* b2 = static_cast<const T*>(p.b2);
+  UpdParams v = u;
+  int depth = p.D, e = 0;
+  if (p.grp != nullptr) {
+    e = __ldg(p.tab + 2 * p.n_tasks + t);
+    const size_t r_start = (size_t)__ldg(p.grp + e);
+    const size_t o_off = (size_t)e * p.R * p.C;
+    a += r_start * p.R;
+    b += r_start * p.C;
+    if constexpr (DUAL) b2 += r_start * p.C;
+    if constexpr (UPDATE) {
+      v.w = static_cast<T*>(u.w) + o_off;
+      v.mst = u.mst + o_off;
+      v.mu = u.mu + o_off;
+      v.nu = u.nu + o_off;
+      if constexpr (DUAL) {
+        v.w2 = static_cast<T*>(u.w2) + o_off;
+        v.mst2 = u.mst2 + o_off;
+        v.mu2 = u.mu2 + o_off;
+        v.nu2 = u.nu2 + o_off;
+      }
+    }
+    depth = __ldg(p.grp + p.n_groups + e);
   }
+  float hv[kSEED + 1];
+#pragma unroll
+  for (int i = 0; i <= kSEED; ++i) hv[i] = UPDATE ? __ldg(u.hyper + i) : 0.0f;
+  tn_mainloop<DUAL>(p, a, b, b2, depth, row0, col0, As, Bs, B2s, Cs, C2s);
+  __syncthreads();
+  const unsigned step_bits = __float_as_uint(hv[kSEED]);
+  const unsigned lane = 2u * (unsigned)e;
+  update_flush<T, UPDATE, SR>(Cs, p, v, 0, hv, SR ? grouped_tile_seed(step_bits, u.salt, im, in, lane) : 0u, row0,
+                              col0, red);
+  if constexpr (DUAL)
+    update_flush<T, UPDATE, SR>(C2s, p, v, 1, hv, SR ? grouped_tile_seed(step_bits, u.salt, im, in, lane + 1u) : 0u,
+                                row0, col0, red);
+}
+
+// The update kernel (K8's, or K10's when GROUPED) of one (UPDATE, SR)
+// instantiation.
+template <bool DUAL, bool GROUPED, bool UPDATE, bool SR>
+auto tn_update_entry() {
+  if constexpr (GROUPED)
+    return &grouped_tn_update_kernel<ElemT, DUAL, UPDATE, SR>;
+  else
+    return &tn_update_kernel<ElemT, DUAL, UPDATE, SR>;
+}
+
+template <bool DUAL, bool GROUPED>
+int launch_tn_update(const BwdParams& p, const UpdParams& u, bool sr, cudaStream_t s) {
+  void (*kernel)(const BwdParams, const UpdParams) = tn_update_entry<DUAL, GROUPED, false, false>();
+  if (u.hyper != nullptr) {
+    // an f32 W has nothing to dither: the cast is the rounding
+    constexpr bool kCanRound = SFC_DTYPE == 1;
+    kernel = kCanRound && sr ? tn_update_entry<DUAL, GROUPED, true, kCanRound>()
+                             : tn_update_entry<DUAL, GROUPED, true, false>();
+  }
+  kernel<<<(unsigned)p.n_tasks, kThreads, 0, s>>>(p, u);
   return (int)cudaGetLastError();
 }
 
@@ -1216,26 +1296,28 @@ extern "C" int SFC_NT_ENTRY(const void* a, const void* b, const void* a2, const 
   return (int)cudaGetLastError();
 }
 
-// TN: out (R, C) = a (D, R)^T @ b (D, C) [and out2 = a^T @ b2 when b2 is
-// non-null], the contraction over the D rows inside each CTA.  A non-null
-// grp (3, n_groups) selects the grouped dW mode: tab is (3, n_tasks), one
-// gilbert map of the (R, C) tiles per expert with the expert in its third
-// row; out (and out2) is (n_groups, R, C), D the total row count, and each
-// expert contracts over its own rows.
+// TN: out (R, C) = a (D, R)^T @ b (D, C) [and out2 = a^T @ b2 when out2 is
+// non-null; b2 may then be null only for an empty contraction, D == 0,
+// whose operands are never read], the contraction over the D rows inside
+// each CTA.  A non-null grp (3, n_groups) selects the grouped dW mode: tab
+// is (3, n_tasks), one gilbert map of the (R, C) tiles per expert with the
+// expert in its third row; out (and out2) is (n_groups, R, C), D the total
+// row count, and each expert contracts over its own rows.
 extern "C" int SFC_TN_ENTRY(const void* a, const void* b, const void* b2, void* out, void* out2,
                             const int* tab, int n_tasks, int R, int C, int D, int vec_a, int vec_b,
                             const int* grp, int n_groups, void* stream) {
-  if ((b2 == nullptr) != (out2 == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool dual = out2 != nullptr;
+  if ((!dual && b2 != nullptr) || (dual && b2 == nullptr && D > 0)) return (int)cudaErrorInvalidValue;
   if (grp != nullptr && n_groups < 1) return (int)cudaErrorInvalidValue;
   BwdParams p = bwd_params(a, b, nullptr, b2, out, out2, tab, n_tasks, R, C, D, vec_a, vec_b);
   p.grp = grp;
   p.n_groups = n_groups;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (grp != nullptr && b2)
+  if (grp != nullptr && dual)
     grouped_tn_kernel<ElemT, true><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
   else if (grp != nullptr)
     grouped_tn_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
-  else if (b2)
+  else if (dual)
     tn_kernel<ElemT, true><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
   else
     tn_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
@@ -1246,19 +1328,28 @@ extern "C" int SFC_TN_ENTRY(const void* a, const void* b, const void* b2, void* 
 
 // TN with the update flush: norm mode when hyper is null (only partials is
 // written: partials[set * n_tasks + t] = the task's sum(dW^2)), else update
-// mode, which also writes w, master, mu and nu (and the second set when b2 is
-// non-null) in place.  sr asks for the stochastic rounding of a bf16 W.
-extern "C" int SFC_TNU_ENTRY(const void* a, const void* b, const void* b2, void* w, void* w2, float* master,
-                             float* mu, float* nu, float* master2, float* mu2, float* nu2, const float* hyper,
-                             int salt, int sr, float* partials, const int* tab, int n_tasks, int R, int C, int D,
-                             int vec_a, int vec_b, void* stream) {
-  const bool dual = b2 != nullptr;
+// mode, which also writes w, master, mu and nu (and the second set when
+// n_sets is 2) in place; b2 may be null only for an empty contraction (D ==
+// 0).  sr asks for the stochastic rounding of a bf16 W.  A non-null grp (3,
+// n_groups) selects the grouped mode (K10): tab is the grouped TN table (3,
+// n_tasks), D the total row count, w and the state (n_groups, R, C) stacks,
+// each expert contracting over its own rows.
+extern "C" int SFC_TNU_ENTRY(const void* a, const void* b, const void* b2, int n_sets, void* w, void* w2,
+                             float* master, float* mu, float* nu, float* master2, float* mu2, float* nu2,
+                             const float* hyper, int salt, int sr, float* partials, const int* tab, int n_tasks, int R,
+                             int C, int D, int vec_a, int vec_b, const int* grp, int n_groups, void* stream) {
+  const bool dual = n_sets == 2;
+  if (n_sets != 1 && n_sets != 2) return (int)cudaErrorInvalidValue;
+  if ((!dual && b2 != nullptr) || (dual && b2 == nullptr && D > 0)) return (int)cudaErrorInvalidValue;
   if (partials == nullptr) return (int)cudaErrorInvalidValue;
   if (hyper != nullptr) {
     if (!w || !master || !mu || !nu) return (int)cudaErrorInvalidValue;
     if (dual != (w2 && master2 && mu2 && nu2)) return (int)cudaErrorInvalidValue;
   }
-  const BwdParams p = bwd_params(a, b, nullptr, b2, nullptr, nullptr, tab, n_tasks, R, C, D, vec_a, vec_b);
+  if (grp != nullptr && n_groups < 1) return (int)cudaErrorInvalidValue;
+  BwdParams p = bwd_params(a, b, nullptr, b2, nullptr, nullptr, tab, n_tasks, R, C, D, vec_a, vec_b);
+  p.grp = grp;
+  p.n_groups = n_groups;
   UpdParams u;
   u.w = w;
   u.w2 = w2;
@@ -1272,7 +1363,9 @@ extern "C" int SFC_TNU_ENTRY(const void* a, const void* b, const void* b2, void*
   u.salt = (unsigned)salt;
   u.partials = partials;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dual ? launch_tn_update<true>(p, u, sr != 0, s) : launch_tn_update<false>(p, u, sr != 0, s);
+  if (grp != nullptr)
+    return dual ? launch_tn_update<true, true>(p, u, sr != 0, s) : launch_tn_update<false, true>(p, u, sr != 0, s);
+  return dual ? launch_tn_update<true, false>(p, u, sr != 0, s) : launch_tn_update<false, false>(p, u, sr != 0, s);
 }
 
 #endif  // SFC_BWD

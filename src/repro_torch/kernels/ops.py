@@ -51,7 +51,12 @@ packed and unpadded; `sfc_grouped_matmul_nt` (K9) and
 `sfc_grouped_matmul_tn` (K10) are their dA and dW.  `_GroupedCore` is the
 grouped autograd Function (JAX: ``_grouped_core``), built as `_MatmulCore`
 is: the GLU forward in ``preact`` mode, the backward on K9 and K10, bias
-gradients as per-expert sums.
+gradients as per-expert sums.  The fused optimizer's grouped forms follow
+the dense ones: `sfc_grouped_matmul_tn_update` / `_norm` are K10's update
+and norm modes over (E, K, N) stacks, `_GroupedUpdateCore` hands ``(a, dh,
+dg, group_sizes)`` to the step's tape, and `fused_update_grouped_matmul` /
+`fused_update_grouped_glu_matmul` keep the JAX package's oracle
+(``fused=False``) for the other backends.
 
 Not ported in this slice, each raising ``NotImplementedError``: the
 replicated 2.5D form (``fuse=False``, ROADMAP queue 2 K4-K6) and the ABFT
@@ -95,6 +100,10 @@ __all__ = [
     "sfc_grouped_glu_matmul",
     "sfc_grouped_matmul_nt",
     "sfc_grouped_matmul_tn",
+    "sfc_grouped_matmul_tn_norm",
+    "sfc_grouped_matmul_tn_update",
+    "fused_update_grouped_matmul",
+    "fused_update_grouped_glu_matmul",
     "pick_blocks",
     "resolve_knobs",
     "reference_knobs",
@@ -376,7 +385,9 @@ def plain_update(dw, master, mu, nu, w, hyper, *, salt: int, stochastic_round: b
     package's ``_jnp_update``): `optim.adamw.adamw_leaf_update` on the raw
     dW, written in place, W stochastically rounded (bf16) with ONE hash over
     the whole leaf seeded ``seed ^ salt * 0x85EB`` (not per tile, so its
-    bits differ from the kernel's by design).  Returns ``sum(dW²)``."""
+    bits differ from the kernel's by design).  A 2-D weight or an (E, K, N)
+    expert stack (the grouped form: the hash runs over its (E·K, N) rows, as
+    JAX's does).  Returns ``sum(dW²)``."""
     from repro_torch.optim import adamw as opt
 
     g0 = dw.float()
@@ -795,16 +806,83 @@ def sfc_grouped_matmul_tn(
     ``sfc_grouped_matmul_tn`` (the output tile from `pick_blocks`, at most
     128, the contraction chunk from the largest expert's rows)."""
     gs = tuple(int(g) for g in group_sizes)
+    bm, bn = _grouped_tn_knobs(a, b, bm, bn)
+    return sfc_gemm_grouped_tn(
+        a.contiguous(), b.contiguous(), None if b2 is None else b2.contiguous(),
+        group_sizes=gs, bm=bm, bn=bn, row_block=row_block or grouped_tn_row_block(gs), out_dtype=out_dtype,
+    )
+
+
+def _grouped_tn_knobs(a, b, bm, bn) -> Tuple[int, int]:
+    """(bm, bn) of a grouped TN launch over (T, K) activations and (T, N)
+    cotangents: the kernel's tile on the card; on the CPU the JAX
+    package's, `pick_blocks` with each at most 128."""
     k, n = a.shape[-1], b.shape[-1]
     if torch.device(a.device).type == "cuda":
         bm, bn, _, _ = resolve_knobs(k, n, a.shape[0], a.device, bm=bm, bn=bn)
     elif bm is None or bn is None:
         pbm, pbn, _ = pick_blocks(k, n, max(a.shape[0], 1))
         bm, bn = bm or min(pbm, 128), bn or min(pbn, 128)
-    return sfc_gemm_grouped_tn(
-        a.contiguous(), b.contiguous(), None if b2 is None else b2.contiguous(),
-        group_sizes=gs, bm=bm, bn=bn, row_block=row_block or grouped_tn_row_block(gs), out_dtype=out_dtype,
-    )
+    return bm, bn
+
+
+def sfc_grouped_matmul_tn_norm(
+    a: torch.Tensor,  # (T, K) rows sorted by expert (the forward activations)
+    dy: torch.Tensor,  # (T, N) rows sorted by expert (the output cotangent)
+    group_sizes,
+    dy2: Optional[torch.Tensor] = None,  # (T, N) second cotangent (the GLU's gate)
+    *,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+):
+    """``sum(dW²)`` over every expert of ``dW[e] = a[rows of e]ᵀ @ dy[rows
+    of e]`` (and of ``dy2``'s) from K10's norm mode: the expert weight-grad
+    stack stays in the f32 accumulators.  The first phase of the fused
+    step's exact clip.  Returns an f32 scalar, or a pair with ``dy2``."""
+    gs = tuple(int(g) for g in group_sizes)
+    bm, bn = _grouped_tn_knobs(a, dy, bm, bn)
+    norms = sfc_gemm_grouped_tn(a.contiguous(), dy.contiguous(), None if dy2 is None else dy2.contiguous(),
+                                group_sizes=gs, norm=True, bm=bm, bn=bn)
+    return norms[0] if dy2 is None else (norms[0], norms[1])
+
+
+def sfc_grouped_matmul_tn_update(
+    a: torch.Tensor,  # (T, K) rows sorted by expert (the forward activations)
+    dy: torch.Tensor,  # (T, N) rows sorted by expert (the output cotangent)
+    group_sizes,
+    master: torch.Tensor,  # (E, K, N) f32 master weights, updated in place
+    mu: torch.Tensor,  # (E, K, N) f32, in place
+    nu: torch.Tensor,  # (E, K, N) f32, in place
+    hyper: torch.Tensor,  # (12,) f32 `optim.adamw.pack_adamw_hyper` vector
+    dy2: Optional[torch.Tensor] = None,  # (T, N) second cotangent (the GLU's gate)
+    master2: Optional[torch.Tensor] = None,
+    mu2: Optional[torch.Tensor] = None,
+    nu2: Optional[torch.Tensor] = None,
+    *,
+    w: torch.Tensor,  # (E, K, N) the expert stack, in a's type, written in place
+    w2: Optional[torch.Tensor] = None,
+    salt: int = 0,
+    stochastic_round: bool = False,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    row_block: Optional[int] = None,
+):
+    """Grouped grad-and-update: per-expert ``dW[e] = a[rows of e]ᵀ @
+    dy[rows of e]`` in K10's f32 accumulators and AdamW in its flush over
+    the (E, K, N) stacks, W, master, mu and nu written in place; the expert
+    weight-grad stack never exists.  An expert with no rows, and a dispatch
+    with no rows at all, runs the g = 0 update in the same launch.  Returns
+    ``sum(dW²)`` before the scale (a pair with ``dy2``, whose set is (w2,
+    master2, mu2, nu2)).  The JAX package's ``sfc_grouped_matmul_tn_update``
+    returns the new stacks instead; its hyper vector carries the salt, here
+    ``salt`` does."""
+    gs = tuple(int(g) for g in group_sizes)
+    bm, bn = _grouped_tn_knobs(a, dy, bm, bn)
+    norms = sfc_gemm_grouped_tn(a.contiguous(), dy.contiguous(), None if dy2 is None else dy2.contiguous(),
+                                master, mu, nu, master2, mu2, nu2, hyper, group_sizes=gs, w=w, w2=w2, salt=salt,
+                                stochastic_round=stochastic_round, bm=bm, bn=bn,
+                                row_block=row_block or grouped_tn_row_block(gs))
+    return norms[0] if dy2 is None else (norms[0], norms[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -862,31 +940,108 @@ class _GroupedCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         a, b, b_gate, h_pre, g_pre, bias, gate_bias = ctx.saved_tensors
-        cfg = ctx.cfg
-        gs = cfg.group_sizes
-        need_a, need_b, need_bg = ctx.needs_input_grad[1:4]
-        dh, dg = _epilogue_cotangents(cfg.glu, cfg.activation, cfg.out_scale, h_pre, g_pre, dy)
-        dh_c = dh.to(a.dtype)
-        dg_c = None if dg is None else dg.to(a.dtype)
-        da = db = dbg = None
-        if need_a:
-            # (E, K, N) weights as stored are the NT kernel's (E, N', K') operand
-            da = sfc_grouped_matmul_nt(dh_c, b, gs, dg_c, b_gate if dg_c is not None else None)
+        gs = ctx.cfg.group_sizes
+        need_b, need_bg = ctx.needs_input_grad[2:4]
+        dh_c, dg_c, da, dbias, dgbias = _grouped_backward(ctx, a, b, b_gate, h_pre, g_pre, bias, gate_bias, dy)
+        db = dbg = None
         if need_b or need_bg:
             if dg_c is not None:
                 db, dbg = sfc_grouped_matmul_tn(a, dh_c, gs, dg_c)
             else:
                 db = sfc_grouped_matmul_tn(a, dh_c, gs)
-        dbias = None if bias is None else _segment_sums(dh, gs).to(bias.dtype)
-        dgbias = None if gate_bias is None else _segment_sums(dg, gs).to(gate_bias.dtype)
         return (
             None,
-            None if da is None else da.to(a.dtype),
+            da,
             None if db is None else db.to(b.dtype),
             None if dbg is None else dbg.to(b_gate.dtype),
             dbias,
             dgbias,
         )
+
+
+def _grouped_backward(ctx, a, b, b_gate, h_pre, g_pre, bias, gate_bias, dy):
+    """The part of the grouped backward both Functions share: the epilogue
+    cotangents (and in the compute type), dA on K9 where asked for, and the
+    per-expert bias sums.  Returns (dh_c, dg_c, da, dbias, dgbias)."""
+    cfg = ctx.cfg
+    gs = cfg.group_sizes
+    dh, dg = _epilogue_cotangents(cfg.glu, cfg.activation, cfg.out_scale, h_pre, g_pre, dy)
+    dh_c = dh.to(a.dtype)
+    dg_c = None if dg is None else dg.to(a.dtype)
+    da = None
+    if ctx.needs_input_grad[1]:
+        # (E, K, N) weights as stored are the NT kernel's (E, N', K') operand
+        da = sfc_grouped_matmul_nt(dh_c, b, gs, dg_c, b_gate if dg_c is not None else None).to(a.dtype)
+    dbias = None if bias is None else _segment_sums(dh, gs).to(bias.dtype)
+    dgbias = None if gate_bias is None else _segment_sums(dg, gs).to(gate_bias.dtype)
+    return dh_c, dg_c, da, dbias, dgbias
+
+
+class _GroupedUpdateCore(torch.autograd.Function):
+    """``_grouped_update_core`` of the JAX package (its fused branch) for
+    expert stacks that the fused optimizer routes: the forward is
+    `_GroupedCore`'s; the backward runs K9 for dA, hands ``(a (T, K), dh (T,
+    N), dg, group_sizes)`` in the compute type to ``sink`` (the step's tape,
+    which launches K10's norm and update modes) and returns no gradient for
+    the stacks.  Per-expert bias gradients stay autograd gradients."""
+
+    @staticmethod
+    def forward(ctx, cfg: _GroupedVjpCfg, a, b, b_gate, bias, gate_bias, sink):
+        out, h_pre, g_pre = _grouped_training_forward(cfg, a, b, b_gate, bias, gate_bias)
+        ctx.cfg, ctx.sink = cfg, sink
+        ctx.save_for_backward(a, b, b_gate, h_pre, g_pre, bias, gate_bias)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, b_gate, h_pre, g_pre, bias, gate_bias = ctx.saved_tensors
+        dh_c, dg_c, da, dbias, dgbias = _grouped_backward(ctx, a, b, b_gate, h_pre, g_pre, bias, gate_bias, dy)
+        ctx.sink(a, dh_c, dg_c, ctx.cfg.group_sizes)
+        return None, da, None, None, dbias, dgbias, None
+
+
+def _grouped_oracle(x, w, group_sizes):
+    """``x[rows of e] @ w[e]`` per expert in plain torch: the oracle's
+    product, differentiable in both."""
+    parts = torch.split(x, list(group_sizes))
+    return torch.cat([p @ w[e] for e, p in enumerate(parts)])
+
+
+def fused_update_grouped_matmul(x, w, group_sizes, sink, *, bias=None, activation=None,
+                                fused: bool = True) -> torch.Tensor:
+    """Expert projection of a routed (E, K, N) stack (JAX:
+    ``fused_update_grouped_matmul``): ``epilogue(x[rows of e] @ w[e])``
+    whose backward hands the stack's share to ``sink`` instead of a
+    gradient.  ``fused``: `_GroupedUpdateCore` (K3, K9; ``sink(a, dh, None,
+    group_sizes)``); else the oracle, the product in plain torch with
+    ``sink(dw)``."""
+    gs = tuple(int(g) for g in group_sizes)
+    if fused:
+        cfg = _GroupedVjpCfg(group_sizes=gs, glu=False, activation=activation, out_scale=None, bm=None, bn=None,
+                             k_block_factor=None, out_dtype=None)
+        return _GroupedUpdateCore.apply(cfg, x, w, None, bias, None, sink)
+    y = _grouped_oracle(x, _RoutedWeight.apply(w, sink), gs)
+    if bias is not None:
+        y = y + torch.repeat_interleave(bias, torch.tensor(gs, device=bias.device), dim=0)
+    return activation_fn(activation)(y) if activation is not None else y
+
+
+def fused_update_grouped_glu_matmul(x, w_gate, w_val, group_sizes, sink, *, activation="silu",
+                                    fused: bool = True) -> torch.Tensor:
+    """Gated expert MLP of a routed (gate, value) stack pair (JAX:
+    ``fused_update_grouped_glu_matmul``): one dual K10 update flush serves
+    both.  ``fused``: `_GroupedUpdateCore`, ``sink(a, dh, dg, group_sizes)``;
+    else the oracle, with ``sink`` a pair of callables taking dW of the
+    value and of the gate stack."""
+    gs = tuple(int(g) for g in group_sizes)
+    if fused:
+        cfg = _GroupedVjpCfg(group_sizes=gs, glu=True, activation=activation, out_scale=None, bm=None, bn=None,
+                             k_block_factor=None, out_dtype=None)
+        return _GroupedUpdateCore.apply(cfg, x, w_val, w_gate, None, None, sink)
+    sink_val, sink_gate = sink
+    g = _grouped_oracle(x, _RoutedWeight.apply(w_gate, sink_gate), gs)
+    h = _grouped_oracle(x, _RoutedWeight.apply(w_val, sink_val), gs)
+    return activation_fn(activation)(g) * h
 
 
 def sfc_grouped_matmul(

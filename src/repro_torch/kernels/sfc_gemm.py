@@ -1,8 +1,8 @@
 """SFC-ordered GEMMs: the CUDA ports of the TPU kernels
 ``repro.kernels.sfc_gemm._fused_kernel`` (K1/K2, and K3 in its grouped
 mode), ``sfc_gemm_nt`` (K7), ``sfc_gemm_tn`` (K8, with its update and norm
-modes), ``sfc_gemm_grouped_nt`` (K9) and ``sfc_gemm_grouped_tn`` (K10, its
-dW mode), each beside its plain PyTorch version.
+modes), ``sfc_gemm_grouped_nt`` (K9) and ``sfc_gemm_grouped_tn`` (K10,
+with the same three modes), each beside its plain PyTorch version.
 
 ``sfc_gemm_fused`` is the one wrapper for both modes the TPU package ran as
 separate Pallas entry points: ``a`` (M, K) is the plain mode
@@ -41,9 +41,11 @@ tile), so the card's bits are the plain version's and the JAX package's.
 The grouped wrappers run the MoE expert GEMMs in one launch each:
 ``sfc_gemm_grouped`` (K3, the forward with the same epilogue and preact
 mode), ``sfc_gemm_grouped_nt`` (K9, dA) and ``sfc_gemm_grouped_tn`` (K10,
-dW).  Each expert's rows lie packed, unpadded, in one matrix and its
-weights in an (E, K, N) stack; the kernels mask each expert's last row
-block where the TPU kernels took rows padded to whole blocks.
+dW, and the update and norm modes over (E, K, N) state stacks, whose bf16
+rounding also hashes the expert into each tile's seed).  Each expert's
+rows lie packed, unpadded, in one matrix and its weights in an (E, K, N)
+stack; the kernels mask each expert's last row block where the TPU
+kernels took rows padded to whole blocks.
 """
 
 from __future__ import annotations
@@ -531,10 +533,11 @@ def _update_flush_plain(dw, master, mu, nu, w, hyper, *, bits):
         w.copy_(torch.where(skip, mst_n.to(w.dtype), stochastic_round_to(mst_n, bits, w.dtype)))
 
 
-def _check_update(a, k, n, b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt):
-    """The update / norm modes' operands.  Returns (mode, sets): the mode
-    ("dw", "norm" or "update") and, for the update, one (master, mu, nu,
-    w) per operand set."""
+def _check_update(a, shape, b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt):
+    """The update / norm modes' operands, the weight and its state of
+    ``shape``: (K, N) for the TN kernel, (E, K, N) stacks for the grouped
+    one.  Returns (mode, sets): the mode ("dw", "norm" or "update") and,
+    for the update, one (master, mu, nu, w) per operand set."""
     state = (master, mu, nu, master2, mu2, nu2, hyper, w, w2)
     if norm:
         if any(x is not None for x in state):
@@ -550,10 +553,11 @@ def _check_update(a, k, n, b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, 
     if missing or (not dual and any(x is not None for _, x in sets2)):
         raise ValueError(f"the TN kernel's update mode needs master, mu, nu, w and hyper (and their second set "
                          f"with b2, only then); missing {missing}")
+    shape = tuple(shape)
     for name, x in need:
         want = a.dtype if name.startswith("w") else torch.float32
-        if tuple(x.shape) != (k, n) or x.dtype != want or x.device != a.device or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous ({k}, {n}) {want} tensor on {a.device}, got "
+        if tuple(x.shape) != shape or x.dtype != want or x.device != a.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} {want} tensor on {a.device}, got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
     if tuple(hyper.shape) != (12,) or hyper.dtype != torch.float32 or hyper.device != a.device:
         raise ValueError(f"hyper must be the (12,) float32 vector of optim.adamw.pack_adamw_hyper on {a.device}")
@@ -602,7 +606,7 @@ def sfc_gemm_tn_plain(
     The salt lane of ``hyper`` is not read: ``salt`` is the weight's.
     """
     k, n, m = _check_tn(a, b, b2)
-    mode, sets = _check_update(a, k, n, b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
+    mode, sets = _check_update(a, (k, n), b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
     acc_dtype = torch.float32 if mode != "dw" else (out_dtype or a.dtype)
     out = torch.empty((k, n), dtype=acc_dtype, device=a.device)
     out2 = torch.empty_like(out) if b2 is not None else None
@@ -693,14 +697,20 @@ def sfc_gemm_nt(
 
 
 def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: bool, rows: int, cols: int,
-                      depth: int, vec_a: bool, vec_b: bool) -> torch.Tensor:
+                      depth: int, vec_a: bool, vec_b: bool, gs: Optional[tuple] = None) -> torch.Tensor:
     """One launch of the TN kernel in norm mode (``sets`` None) or update
     mode (``sets``: one (master, mu, nu, w) per operand set); returns the
-    (n_sets,) per-set sums of the per-task partials."""
+    (n_sets,) per-set sums of the per-task partials.  ``gs`` (the group
+    sizes) selects the grouped kernel (K10) over (E, rows, cols) stacks."""
     mb, nb = math.ceil(rows / build.TILE[0]), math.ceil(cols / build.TILE[1])
     n_sets = 1 if b2 is None else 2
-    partials = torch.empty((n_sets, mb * nb), dtype=torch.float32, device=a.device)
-    tab = _device_table(mb, nb, a.device)
+    if gs is None:
+        tab, grp, n_groups = _device_table(mb, nb, a.device), None, 0
+    else:
+        tab = _device_grouped_tn_table(len(gs), mb, nb, a.device)
+        grp, n_groups = _device_groups(gs, a.device), len(gs)
+    n_tasks = tab.shape[1]
+    partials = torch.empty((n_sets, n_tasks), dtype=torch.float32, device=a.device)
     fn = getattr(build.load_library(), build.bwd_entry_name("tn_update", _dtype_name(a)))
     state = [None] * 8
     if sets is not None:
@@ -709,11 +719,12 @@ def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: boo
         state = [w1, w2, m1, u1, v1, m2, u2, v2]  # the entry's order
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), *(_ptr(x) for x in state), _ptr(hyper), salt,
-                int(stochastic_round), partials.data_ptr(), tab.data_ptr(), mb * nb, rows, cols, depth,
-                int(vec_a), int(vec_b), stream)
+        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), n_sets, *(_ptr(x) for x in state), _ptr(hyper), salt,
+                int(stochastic_round), partials.data_ptr(), tab.data_ptr(), n_tasks, rows, cols, depth,
+                int(vec_a), int(vec_b), _ptr(grp), n_groups, stream)
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_tn {'update' if sets else 'norm'} kernel launch failed with CUDA error {rc}")
+        kind = "sfc_gemm_tn" if gs is None else "sfc_gemm_grouped_tn"
+        raise RuntimeError(f"{kind} {'update' if sets else 'norm'} kernel launch failed with CUDA error {rc}")
     # the per-task partials in table order, summed on the device: no atomics
     return partials.sum(dim=1)
 
@@ -769,7 +780,7 @@ def sfc_gemm_tn(
     if abft:
         raise NotImplementedError("the ABFT checksum lane is not ported: ROADMAP queue 1 item 14")
     k, n, m = _check_tn(a, b, b2)
-    mode, sets = _check_update(a, k, n, b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
+    mode, sets = _check_update(a, (k, n), b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
         return sfc_gemm_tn_plain(a, b, b2, master, mu, nu, master2, mu2, nu2, hyper, w=w, w2=w2, salt=salt,
@@ -806,7 +817,7 @@ sfc_gemm_tn.launches_by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
-# grouped (MoE expert) kernels: K3 forward, K9 dA, K10 dW
+# grouped (MoE expert) kernels: K3 forward, K9 dA, K10 dW / norm / update
 #
 # The experts' rows lie packed in one (T, K) matrix, expert 0's first, with
 # ``group_sizes[e]`` rows each (zero is legal).  The TPU kernels take them
@@ -1138,35 +1149,66 @@ def grouped_tn_row_block(group_sizes) -> int:
     return min(128, -(-max(max_g, 8) // 8) * 8)
 
 
+def _grouped_tile_bits(experts: int, rows: int, cols: int, bm: int, bn: int, hyper, salt, s: int) -> torch.Tensor:
+    """(E, rows, cols) stochastic-rounding bits of set ``s`` of a grouped
+    update: `_tile_bits` with the expert lane ``2e + s`` that the grouped
+    flush hashes for every expert and set (the JAX package's
+    ``_grouped_tn_kernel`` seeds ``_tile_seed(hyp, im, in, 2e + set)``)."""
+    lane = 2 * torch.arange(experts, dtype=torch.int64, device=hyper.device)[:, None, None] + s
+    return _tile_bits(rows, cols, bm, bn, hyper, salt, lane)
+
+
 def sfc_gemm_grouped_tn_plain(
     a: torch.Tensor,
     b: torch.Tensor,
     b2: Optional[torch.Tensor] = None,
+    master: Optional[torch.Tensor] = None,
+    mu: Optional[torch.Tensor] = None,
+    nu: Optional[torch.Tensor] = None,
+    master2: Optional[torch.Tensor] = None,
+    mu2: Optional[torch.Tensor] = None,
+    nu2: Optional[torch.Tensor] = None,
+    hyper: Optional[torch.Tensor] = None,
     *,
     group_sizes,
+    w: Optional[torch.Tensor] = None,
+    w2: Optional[torch.Tensor] = None,
+    salt: int = 0,
+    stochastic_round: bool = False,
+    norm: bool = False,
     bm: int,
     bn: int,
     row_block: Optional[int] = None,
     out_dtype: Optional[torch.dtype] = None,
 ):
-    """The plain version of the grouped TN kernel (dW mode), on any device:
-    per task (ik, in, e, row_off, rb) of `build_grouped_tn_task_table` over
-    ``ceil(rows / row_block)`` contraction chunks per expert, ``a[rows of
-    e, ik]ᵀ @ b[rows of e, in]`` (and ``b2``) accumulated in f32 chunk by
-    chunk, the expert's last chunk clipped at its rows; an expert with no
-    rows flushes zeros.  Returns (E, K, N), or a pair with ``b2``."""
+    """The plain version of the grouped TN kernel, on any device.
+
+    dW mode (no state): per task (ik, in, e, row_off, rb) of
+    `build_grouped_tn_task_table` over ``ceil(rows / row_block)``
+    contraction chunks per expert, ``a[rows of e, ik]ᵀ @ b[rows of e, in]``
+    (and ``b2``) accumulated in f32 chunk by chunk, the expert's last chunk
+    clipped at its rows; an expert with no rows flushes zeros.  Returns (E,
+    K, N), or a pair with ``b2``.
+
+    Norm and update modes, as `sfc_gemm_tn_plain`'s over (E, K, N) stacks:
+    the same f32 tiles, per set the sum of every task's ``sum(dW²)`` in
+    table order (an (n_sets,) f32 tensor); the update also runs the flush
+    (`_update_flush_plain`) on every expert, an empty one's the g = 0
+    update, and writes W, master, mu and nu in place, bf16 W with the
+    grouped tile bits (`_grouped_tile_bits`) at this (bm, bn)."""
     gs, k, n, _ = _check_grouped_tn(a, b, b2, group_sizes, None)
+    e_cnt = len(gs)
+    mode, sets = _check_update(a, (e_cnt, k, n), b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
     if bm < 1 or bn < 1:
         raise ValueError(f"bad knobs bm={bm} bn={bn}")
     row_block = row_block or grouped_tn_row_block(gs)
-    out_dtype = out_dtype or a.dtype
-    e_cnt = len(gs)
+    out_dtype = torch.float32 if mode != "dw" else (out_dtype or a.dtype)
     out = torch.zeros((e_cnt, k, n), dtype=out_dtype, device=a.device)
     out2 = torch.zeros_like(out) if b2 is not None else None
+    kb, nb = math.ceil(k / bm), math.ceil(n / bn)
+    tab = build_grouped_tn_task_table([math.ceil(g / row_block) for g in gs], kb, nb)
     if k and n and e_cnt:
         starts = _starts(gs)
-        row_blocks = [math.ceil(g / row_block) for g in gs]
-        tab = build_grouped_tn_task_table(row_blocks, math.ceil(k / bm), math.ceil(n / bn))
         for ik, in_, e, _, rb in zip(*(row.tolist() for row in tab)):
             rs = slice(ik * bm, min((ik + 1) * bm, k))
             cs = slice(in_ * bn, min((in_ + 1) * bn, n))
@@ -1182,64 +1224,108 @@ def sfc_gemm_grouped_tn_plain(
             out[e, rs, cs] = acc.to(out_dtype)
             if b2 is not None:
                 out2[e, rs, cs] = acc2.to(out_dtype)
-    return out if b2 is None else (out, out2)
+    if mode == "dw":
+        return out if b2 is None else (out, out2)
+    outs = [out] if b2 is None else [out, out2]
+    norms = torch.zeros(len(outs), dtype=torch.float32, device=a.device)
+    if k and n and e_cnt:
+        # per-task sums of squares, summed in table order
+        idx = [torch.from_numpy(tab[i].astype("int64")).to(a.device) for i in (2, 0, 1)]
+        for s, dw in enumerate(outs):
+            sq = F.pad(dw * dw, (0, nb * bn - n, 0, kb * bm - k)).reshape(e_cnt, kb, bm, nb, bn).sum(dim=(2, 4))
+            norms[s] = sq[idx[0], idx[1], idx[2]].sum()
+    if mode == "update":
+        for s, (dw, (mst, m1, m2, w_)) in enumerate(zip(outs, sets)):
+            bits = None
+            if stochastic_round and w_.dtype == torch.bfloat16:
+                bits = _grouped_tile_bits(e_cnt, k, n, bm, bn, hyper, salt, s)
+            _update_flush_plain(dw, mst, m1, m2, w_, hyper, bits=bits)
+    return norms
 
 
 def sfc_gemm_grouped_tn(
     a: torch.Tensor,  # (T, K) the experts' packed forward rows
     b: torch.Tensor,  # (T, N) their dC rows, packed alike
     b2: Optional[torch.Tensor] = None,  # (T, N) second dC (the GLU's dg)
-    master: Optional[torch.Tensor] = None,  # (E, K, N) f32: the update mode, not ported
+    master: Optional[torch.Tensor] = None,  # (E, K, N) f32: selects the update mode
     mu: Optional[torch.Tensor] = None,
     nu: Optional[torch.Tensor] = None,
-    hyper: Optional[torch.Tensor] = None,
+    master2: Optional[torch.Tensor] = None,  # the second set (with b2)
+    mu2: Optional[torch.Tensor] = None,
+    nu2: Optional[torch.Tensor] = None,
+    hyper: Optional[torch.Tensor] = None,  # (12,) f32, optim.adamw.pack_adamw_hyper
     *,
     group_sizes,
+    w: Optional[torch.Tensor] = None,  # (E, K, N) in a's type, written in place
+    w2: Optional[torch.Tensor] = None,
+    salt: int = 0,
+    stochastic_round: bool = False,
+    norm: bool = False,
     bm: int = build.TILE[0],
     bn: int = build.TILE[1],
     row_block: Optional[int] = None,
     out_dtype: Optional[torch.dtype] = None,
 ):
-    """Grouped TN in its dW mode: ``dW[e] = a[rows of e]ᵀ @ b[rows of e]``
-    for every expert in one launch (and ``a[rows of e]ᵀ @ b2[rows of e]``
-    with ``b2``, the activations read once for both).  Returns (E, K, N), or
-    a pair with ``b2``.
+    """Grouped TN, ``dW[e] = a[rows of e]ᵀ @ b[rows of e]`` for every
+    expert in one launch (and ``a[rows of e]ᵀ @ b2[rows of e]`` with
+    ``b2``, the activations read once for both), in the three modes of
+    `sfc_gemm_tn`:
 
-    On a CUDA tensor this launches ``grouped_tn_kernel`` (K10, the TN
-    kernel's tile body; each CTA loops over its expert's rows, an empty expert writes zeros, no
-    atomics) and adds one to ``sfc_gemm_grouped_tn.launches`` and to
-    ``launches_by_shape[(E, K, N, T, dual)]``; ``row_block`` only chunks the
-    plain version's sum.  On a CPU tensor it runs
-    `sfc_gemm_grouped_tn_plain` and counts nothing.  The update mode (the
-    fused optimizer over expert stacks) raises `NotImplementedError`."""
-    if any(x is not None for x in (master, mu, nu, hyper)):
-        raise NotImplementedError("the grouped TN kernel's update mode (K10, the fused optimizer over expert "
-                                  "stacks) is not ported: ROADMAP queue 1 item 11, its next slice")
+    * dW (no state): returns (E, K, N), or a pair with ``b2``;
+    * norm (``norm=True``): returns the (n_sets,) f32 ``sum(dW²)`` over
+      every expert; nothing else is written;
+    * update (``master``, ``mu``, ``nu``, ``w``, ``hyper`` as (E, K, N)
+      stacks and the (12,) vector; with ``b2`` the second set): per-expert
+      AdamW on each f32 dW tile, W, master, mu and nu written in place, an
+      expert with no rows taking the g = 0 update (moment decay and weight
+      decay) in the same launch; scale 0 keeps the state bitwise.  Returns
+      the norm as the norm mode does.  The bf16 stochastic rounding hashes
+      the expert lane ``2e + set`` into each tile's seed.
+
+    On a CUDA tensor this launches ``grouped_tn_kernel`` (dW) or
+    ``grouped_tn_update_kernel`` (norm, update) (K10, the TN kernel's tile
+    body; each CTA loops over its expert's rows, no atomics) and adds one to
+    ``sfc_gemm_grouped_tn.launches``, to ``launches_by_mode[mode]`` and to
+    ``launches_by_shape[(E, K, N, T, dual)]`` (dW mode) or ``[(E, K, N, T,
+    dual, mode)]``; ``row_block`` only chunks the plain version's sum.  On
+    a CPU tensor it runs `sfc_gemm_grouped_tn_plain` and counts nothing."""
     gs, k, n, t = _check_grouped_tn(a, b, b2, group_sizes, None)
+    e_cnt = len(gs)
+    mode, sets = _check_update(a, (e_cnt, k, n), b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
-        return sfc_gemm_grouped_tn_plain(a, b, b2, group_sizes=gs, bm=bm, bn=bn, row_block=row_block,
-                                         out_dtype=out_dtype)
+        return sfc_gemm_grouped_tn_plain(a, b, b2, master, mu, nu, master2, mu2, nu2, hyper, group_sizes=gs, w=w,
+                                         w2=w2, salt=salt, stochastic_round=stochastic_round, norm=norm, bm=bm,
+                                         bn=bn, row_block=row_block, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"sfc_gemm_grouped_tn runs on cuda or cpu tensors, got {a.device}")
     _check_operands(bm, bn, out_dtype, a, b=b, b2=b2)
-    e_cnt = len(gs)
-    out = torch.empty((e_cnt, k, n), dtype=out_dtype, device=a.device)
-    out2 = torch.empty_like(out) if b2 is not None else None
-    result = out if b2 is None else (out, out2)
-    if out.numel() == 0:
-        return result
-    tab = _device_grouped_tn_table(e_cnt, math.ceil(k / bm), math.ceil(n / bn), a.device)
-    grp = _device_groups(gs, a.device)
-    fn = getattr(build.load_library(), build.bwd_entry_name("tn", _dtype_name(a)))
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), out.data_ptr(), _ptr(out2), tab.data_ptr(), tab.shape[1],
-                k, n, t, int(_rows_vec(k, a)), int(_rows_vec(n, b, b2)), grp.data_ptr(), e_cnt, stream)
-    if rc != 0:
-        raise RuntimeError(f"sfc_gemm_grouped_tn kernel launch failed with CUDA error {rc}")
+    vecs = dict(vec_a=_rows_vec(k, a), vec_b=_rows_vec(n, b, b2))
+    if e_cnt * k * n == 0:
+        if mode == "dw":
+            out = torch.empty((e_cnt, k, n), dtype=out_dtype, device=a.device)
+            return out if b2 is None else (out, torch.empty_like(out))
+        return torch.zeros(1 if b2 is None else 2, dtype=torch.float32, device=a.device)
+    if mode == "dw":
+        out = torch.empty((e_cnt, k, n), dtype=out_dtype, device=a.device)
+        out2 = torch.empty_like(out) if b2 is not None else None
+        result = out if b2 is None else (out, out2)
+        tab = _device_grouped_tn_table(e_cnt, math.ceil(k / bm), math.ceil(n / bn), a.device)
+        grp = _device_groups(gs, a.device)
+        fn = getattr(build.load_library(), build.bwd_entry_name("tn", _dtype_name(a)))
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), out.data_ptr(), _ptr(out2), tab.data_ptr(),
+                    tab.shape[1], k, n, t, int(vecs["vec_a"]), int(vecs["vec_b"]), grp.data_ptr(), e_cnt, stream)
+        if rc != 0:
+            raise RuntimeError(f"sfc_gemm_grouped_tn kernel launch failed with CUDA error {rc}")
+    else:
+        result = _launch_tn_update(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,
+                                   rows=k, cols=n, depth=t, gs=gs, **vecs)
     sfc_gemm_grouped_tn.launches += 1
-    sfc_gemm_grouped_tn.launches_by_shape[(e_cnt, k, n, t, b2 is not None)] += 1
+    sfc_gemm_grouped_tn.launches_by_mode[mode] += 1
+    key = (e_cnt, k, n, t, b2 is not None)
+    sfc_gemm_grouped_tn.launches_by_shape[key if mode == "dw" else (*key, mode)] += 1
     return result
 
 
@@ -1248,4 +1334,5 @@ sfc_gemm_grouped.launches_by_shape = collections.Counter()
 sfc_gemm_grouped_nt.launches = 0
 sfc_gemm_grouped_nt.launches_by_shape = collections.Counter()
 sfc_gemm_grouped_tn.launches = 0
+sfc_gemm_grouped_tn.launches_by_mode = collections.Counter()
 sfc_gemm_grouped_tn.launches_by_shape = collections.Counter()

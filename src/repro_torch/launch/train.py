@@ -16,8 +16,11 @@ nearest:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --reduced \
       --device cpu --fused-optimizer --backend sfc_cuda --steps 8 --batch 4 --seq 32
 
-The MoE config trains unfused (its expert stacks need K10's update mode for
-the fused optimizer).
+On the MoE config (olmoe-1b-7b) the fused optimizer also runs each expert
+stack's AdamW inside the grouped TN kernel's flush (K10):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced \
+      --device cpu --fused-optimizer --backend sfc_cuda --steps 4 --batch 2 --seq 16
 
 Checkpointing and `TrainLoop` (ROADMAP queue 1 item 14) and the mesh (item
 16) are not ported.
@@ -91,8 +94,8 @@ def main(argv=None):
     ap.add_argument("--attn-impl", default=None, choices=list(ATTN_IMPLS),
                     help="attention backend for the train step (default: the config's)")
     ap.add_argument("--fused-optimizer", action="store_true",
-                    help="AdamW inside the TN kernel flush for routed 2-D weights (dW never reaches device "
-                         "memory; exact grad clipping in two phases)")
+                    help="AdamW inside the TN kernel flush for routed 2-D weights and expert stacks (dW "
+                         "never reaches device memory; exact grad clipping in two phases)")
     ap.add_argument("--no-stochastic-round", action="store_true",
                     help="round-to-nearest bf16 write-back in the fused flush")
     ap.add_argument("--device", default="cuda")

@@ -1,9 +1,11 @@
 """Grad-and-update fusion: route projection weights into the TN kernel's
-update flush (the port's ``repro.optim.fused``).
+update flush, and MoE expert stacks into the grouped TN kernel's (K10),
+(the port's ``repro.optim.fused``).
 
 The fused optimizer never writes a routed weight's gradient to device
-memory: the TN kernel computes dW in its f32 accumulator and applies AdamW
-in its flush, writing W, master, mu and nu in place.  The JAX package
+memory: the TN kernel (K8, or K10 for an (E, K, N) expert stack) computes
+dW in its f32 accumulator and applies AdamW in its flush, writing W,
+master, mu and nu in place.  The JAX package
 threads the optimizer state into the backward pass inside a ``FusedParam``
 pytree node and returns the applied update through the cotangent slots.
 torch has no cotangent slot to return state through, so here:
@@ -11,22 +13,25 @@ torch has no cotangent slot to return state through, so here:
   * **routing** is decided by parameter identity: `probe_routed` runs a
     forward of one token under ``torch.no_grad()`` on the "torch" backend
     and counts which ``nn.Parameter`` objects reach `core.gemm_backend`'s
-    ``matmul`` / ``glu_matmul`` as ``w`` exactly once with no ``out_scale``
-    or ``residual`` (the JAX package's ``probe_routed``).  A tied head
-    reaches the call site as the view ``embed.T``, not as the parameter,
-    so it stays unrouted, as in JAX;
+    ``matmul`` / ``glu_matmul`` (op "matmul" / "glu") or ``grouped_matmul``
+    / ``grouped_glu_matmul`` (op "grouped" / "grouped_glu") as ``w``
+    exactly once with no ``out_scale`` or ``residual`` (the JAX package's
+    ``probe_routed``).  A tied head reaches the call site as the view
+    ``embed.T``, not as the parameter, so it stays unrouted, as in JAX;
   * **the step's tape** (`FusedSession`) is active while the step's forward
     runs: each routed projection goes through `kernels.ops`'s
-    `_UpdateCore` (or the oracle under "torch" / "sfc_reference"), whose
-    backward hands its ``(a, dh, dg)`` (oracle: dW) to a `_Slot` of the
-    tape and returns no weight gradient.  In the first phase of the exact
-    clip the slot launches the TN kernel's norm mode; after the backward,
+    `_UpdateCore` (an expert stack: `_GroupedUpdateCore`; the oracle under
+    "torch" / "sfc_reference"), whose backward hands its ``(a, dh, dg)``
+    (and the group sizes; oracle: dW) to a `_Slot` of the tape and returns
+    no weight gradient.  In the first phase of the exact clip the slot
+    launches the TN kernel's (or K10's) norm mode; after the backward,
     `FusedSession.apply` launches its update mode with the exact scale.
 
 Salts follow the JAX package's ``wrap_routed``: ``(index of the weight's
 JAX path in sorted(routed paths) + 1) << 16``, plus the layer index for
 the scan-stacked ``layers/...`` leaves, so the port's ``layers.{i}.attn.wq``
-salts as JAX's ``layers/attn/wq`` row ``i`` (`convert.jax_leaf_path`).
+salts as JAX's ``layers/attn/wq`` row ``i`` (`convert.jax_leaf_path`), and
+``layers.{i}.moe.w_in`` as JAX's (L, E, K, N) ``layers/moe/w_in`` row ``i``.
 """
 
 from __future__ import annotations
@@ -80,11 +85,15 @@ def current_update_config() -> FusedUpdateConfig:
 
 
 def default_fused_filter(name: str, param: torch.Tensor) -> bool:
-    """Routing candidates: 2-D weights not named like embeddings (the
-    JAX package's filter, whose 3-D and 4-D scan stacks are per-layer 2-D
-    parameters here).  The MoE expert stacks (3-D) need K10's update mode,
-    not ported: the fused step refuses a model that has them."""
-    return param.ndim == 2 and "embed" not in name.lower()
+    """Routing candidates: 2-D weights and 3-D expert stacks not named like
+    embeddings (the JAX package's filter, whose 3-D and 4-D scan stacks are
+    per-layer 2-D weights and (E, K, N) stacks here); the probe keeps those
+    consumed once at a projection call site.  The MoE router stays
+    unrouted, as in JAX, whose probe drops it because ``moe_forward`` reads
+    its shape outside a call site: its AdamW is the eager one, and the
+    other leaves keep JAX's salts."""
+    low = name.lower()
+    return param.ndim in (2, 3) and "embed" not in low and not low.endswith(".router")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +103,7 @@ class RoutedLeaf:
     name: str  # the port's parameter name
     path: str  # the JAX package's leaf path ("layers/attn/wq", "head")
     layer: Optional[int]  # the row of a scan-stacked JAX leaf
-    op: str  # "matmul" | "glu"
+    op: str  # "matmul" | "glu" | "grouped" | "grouped_glu"
     salt: int
 
 
@@ -159,8 +168,10 @@ def probe_routed(
 
 class _Slot:
     """The tape's record of one routed projection: its weights (one, or
-    the GLU's value and gate) and, after the backward, what their update
-    needs: ``(a, dh, dg)`` for the kernel, or the raw dW for the oracle."""
+    the GLU's value and gate; 2-D, or (E, K, N) expert stacks) and, after
+    the backward, what their update needs: ``(a, dh, dg, group_sizes)`` for
+    the kernel (group sizes None for a 2-D weight), or the raw dW for the
+    oracle."""
 
     def __init__(self, session: "FusedSession", leaves: List[RoutedLeaf]):
         self.session = session
@@ -169,13 +180,17 @@ class _Slot:
         self.dws: List[Optional[torch.Tensor]] = [None] * len(leaves)
         self.norm_sq: Optional[torch.Tensor] = None
 
-    # the fused path: `_UpdateCore.backward` calls the slot itself
-    def __call__(self, a2d, dh, dg) -> None:
-        from repro_torch.kernels.ops import sfc_matmul_tn_norm
+    # the fused path: `_UpdateCore.backward` / `_GroupedUpdateCore.backward`
+    # call the slot itself
+    def __call__(self, a2d, dh, dg, group_sizes=None) -> None:
+        from repro_torch.kernels.ops import sfc_grouped_matmul_tn_norm, sfc_matmul_tn_norm
 
-        self.kernel_args = (a2d, dh, dg)
+        self.kernel_args = (a2d, dh, dg, group_sizes)
         if self.session.two_phase:
-            norms = sfc_matmul_tn_norm(a2d, dh, dg)
+            if group_sizes is None:
+                norms = sfc_matmul_tn_norm(a2d, dh, dg)
+            else:
+                norms = sfc_grouped_matmul_tn_norm(a2d, dh, group_sizes, dg)
             self.norm_sq = norms if dg is None else norms[0] + norms[1]
 
     # the oracle: `_RoutedWeight.backward` of weight ``i`` calls this
@@ -192,8 +207,9 @@ class _Slot:
             return sum(torch.sum(torch.square(d.float())) for d in self.dws)
         return self.norm_sq
 
+    @torch.no_grad()
     def apply(self, hyper: torch.Tensor, stochastic_round: bool) -> torch.Tensor:
-        from repro_torch.kernels.ops import plain_update, sfc_matmul_tn_update
+        from repro_torch.kernels.ops import plain_update, sfc_grouped_matmul_tn_update, sfc_matmul_tn_update
 
         state = self.session.state
         params = self.session.params
@@ -203,14 +219,16 @@ class _Slot:
         # passes w_val.hyper for both); the kernel salts the gate's set once more
         salt = self.leaves[0].salt
         if self.kernel_args is not None:
-            a2d, dh, dg = self.kernel_args
+            a2d, dh, dg, group_sizes = self.kernel_args
             (w, mst, mu, nu), *rest = sets
-            extra = {}
+            extra = dict(w=w, salt=salt, stochastic_round=stochastic_round)
             if rest:
                 w2, mst2, mu2, nu2 = rest[0]
-                extra = dict(dy2=dg, master2=mst2, mu2=mu2, nu2=nu2, w2=w2)
-            norms = sfc_matmul_tn_update(a2d, dh, mst, mu, nu, hyper, w=w, salt=salt,
-                                         stochastic_round=stochastic_round, **extra)
+                extra.update(dy2=dg, master2=mst2, mu2=mu2, nu2=nu2, w2=w2)
+            if group_sizes is None:
+                norms = sfc_matmul_tn_update(a2d, dh, mst, mu, nu, hyper, **extra)
+            else:
+                norms = sfc_grouped_matmul_tn_update(a2d, dh, group_sizes, mst, mu, nu, hyper, **extra)
             sq = norms if not rest else norms[0] + norms[1]
         else:
             sq = sum(plain_update(dw, mst, mu, nu, w, hyper, salt=salt, stochastic_round=stochastic_round)

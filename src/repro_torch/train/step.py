@@ -12,7 +12,8 @@ The JAX step is a pure function returning new parameters; here the model
 holds its parameters and the step updates them, and the optimizer state,
 in place (`optim.adamw.adamw_apply`).  ``fused_optimizer=True`` builds the
 grad-and-update step (`_make_fused_train_step`): AdamW of every routed
-projection weight runs in the TN kernel's flush.  Left out: the ABFT lane
+projection weight runs in the TN kernel's flush, and of every routed MoE
+expert stack in the grouped TN kernel's (K10).  Left out: the ABFT lane
 (item 14) and remat other than "none" (item 18); each raises
 ``NotImplementedError``.
 """
@@ -51,8 +52,9 @@ class BackendConfig:
     attn_impl: attention backend pin ("blockwise" | "flash_pallas" |
         "sfc"), overriding the model config's value; None inherits.
     fused_optimizer: fuse AdamW into the backward for every routed 2-D
-        projection weight: the TN kernel's flush updates W and its f32
-        master / mu / nu in place, and dW never exists in device memory.
+        projection weight and (E, K, N) expert stack: the TN kernel's (or
+        K10's) flush updates W and its f32 master / mu / nu in place, and
+        dW never exists in device memory.
         Requires ``microbatches == 1``.
     stochastic_round: stochastically round bf16 weights in the fused
         flush (ignored unless ``fused_optimizer``).
@@ -167,9 +169,9 @@ def _make_fused_train_step(model, opt_cfg: AdamWConfig, *, remat: str, cfg: Back
     ``.grad``.  Clip-by-global-norm is exact, in two phases as in JAX:
 
       1. in the backward, the TN kernel's norm mode gives each routed
-         weight's ``sum(dW²)``; with the unrouted leaves' raw gradients that
-         is the global norm, and ``clip_scale`` (with the non-finite guard)
-         the scale;
+         weight's ``sum(dW²)``; with the unrouted leaves' raw gradients
+         that is the global norm, and ``clip_scale`` (with the non-finite
+         guard) the scale;
       2. after the backward, the TN kernel's update mode runs over the tape
          with that scale, and `adamw_apply` updates the unrouted leaves with
          the same scale.
@@ -180,17 +182,9 @@ def _make_fused_train_step(model, opt_cfg: AdamWConfig, *, remat: str, cfg: Back
     infinite ``clip_norm`` and the guard off there is one phase: the update
     runs at scale 1 and its norms give ``grad_norm``.
 
-    A model with 3-D expert stacks (the MoE family) raises
-    `NotImplementedError`: their update is K10's update mode, not ported,
-    and the 2-D routing would leave them to an eager round-to-nearest
-    AdamW where the JAX step runs the grouped update flush.
+    Expert stacks (the MoE family) take K10 instead of K8: its norm mode
+    in phase 1 and its update mode in phase 2, over the (E, K, N) stacks.
     """
-    stacks = [n for n, p in model.named_parameters() if p.ndim == 3]
-    if stacks:
-        raise NotImplementedError(
-            f"fused_optimizer on 3-D expert stacks ({stacks[0]}, ...) needs the grouped TN kernel's update "
-            "mode (K10), which is not ported: ROADMAP queue 1 item 11, its next slice; train this model "
-            "with fused_optimizer=False")
     routed = _fused.probe_routed(model, fused_filter=fused_filter)
     params = dict(model.named_parameters())
     unrouted = {n: p for n, p in params.items() if n not in routed}

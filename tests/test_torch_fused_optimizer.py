@@ -85,7 +85,9 @@ def test_stochastic_round_is_byte_identical_to_jax():
     assert np.array_equal(same.numpy().view(np.uint32), x.view(np.uint32))
 
 
-@pytest.mark.parametrize("coords", [(), (3, 5), (3, 5, 1), (0, 0, 1)])
+# the last two: the grouped flush's expert lane 2e + set, hashed for
+# expert 0's first set too
+@pytest.mark.parametrize("coords", [(), (3, 5), (3, 5, 1), (0, 0, 1), (3, 5, 0), (2, 1, 7)])
 def test_tile_seed_is_byte_identical_to_jax(coords):
     cfg = jadamw.AdamWConfig()
     for step in I32:
@@ -245,7 +247,7 @@ def test_plain_update_matches_jax_oracle():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen3_4b", "yi_6b"])
+@pytest.mark.parametrize("arch", ["qwen3_4b", "yi_6b", "olmoe_1b_7b"])
 def test_routing_and_salts_match_jax(arch):
     jcfg, cfg = j_get_config(arch).reduced(), get_config(arch).reduced()
     jmodel = j_build_model(jcfg)
@@ -278,9 +280,15 @@ def test_routing_and_salts_match_jax(arch):
     assert set(got) == set(want)
     for path, (salts, op) in got.items():
         assert [salts[i] for i in sorted(salts)] == want[path][0], path
-        assert op == {"glu": "glu", "matmul": "matmul"}[want[path][1]], path
-    # every projection weight, and not the embedding or the norms
+        assert op == want[path][1], path
+    # every projection weight, and not the embedding or the norms: q, k, v,
+    # o and the GLU pair and w_out a layer; or q, k, v, o and the three
+    # expert stacks (the GLU pair as grouped_glu, w_out grouped), the
+    # router unrouted as in JAX
     assert len(routed) == 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    if cfg.n_experts:
+        assert {leaf.op for n, leaf in routed.items() if ".moe." in n} == {"grouped", "grouped_glu"}
+        assert not any(n.endswith(".router") for n in routed)
     tied = tfused.probe_routed(build_model(dataclasses.replace(cfg, tie_embeddings=True), device="cpu"))
     assert "head" not in tied and not any("embed" in n for n in tied)
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (the fused GEMM with its preact mode,
-the NT/TN backward GEMMs, their grouped MoE modes K3, K9 and K10, the
+the NT/TN backward GEMMs with K8's update and norm modes, their grouped
+MoE modes K3, K9 and K10 (with K10's update and norm modes), the
 attention flash forward in its band and dense modes, the flash backward's
 dQ and dK/dV, and the decode attention), each against its plain PyTorch
 version; the loss gradients of a dense decoder and of reduced olmoe under
@@ -466,11 +467,11 @@ def test_decoder_loss_gradients_under_sfc_cuda_match_torch_on_card(attn_impl):
 
 
 def test_grouped_modes_are_arguments_of_the_existing_entries():
-    """K3, K9 and K10 are the grouped modes of the forward, NT and TN
-    kernels: each entry takes the per-expert row array, and no part is
-    added to the build."""
+    """K3, K9 and K10 (dW, and its update and norm modes) are the grouped
+    modes of the forward, NT, TN and TN-update kernels: each entry takes
+    the per-expert row array, and no part is added to the build."""
     src = CU_SOURCE.read_text()
-    for entry in ("SFC_ENTRY", "SFC_NT_ENTRY", "SFC_TN_ENTRY"):
+    for entry in ("SFC_ENTRY", "SFC_NT_ENTRY", "SFC_TN_ENTRY", "SFC_TNU_ENTRY"):
         decl = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
         assert "const int* grp, int n_groups, void* stream" in decl, entry
     assert len(dict(build._gemm_parts())) == 20
@@ -525,6 +526,110 @@ def test_grouped_kernels_match_plain_versions_on_card(group_sizes, kn, dtype):
             for e, size in enumerate(group_sizes):
                 if size == 0:
                     assert not bool(g[e].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.37, 0.0])
+@pytest.mark.parametrize("dtype,sr", [("float32", False), ("bfloat16", False), ("bfloat16", True)])
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("group_sizes,kn", [((5, 0, 19, 32), (203, 133)), ((80,) * 6, (256, 192)),
+                                            ((0, 0, 0), (64, 96))])
+def test_grouped_tn_update_and_norm_modes_match_plain_versions_on_card(group_sizes, kn, dual, dtype, sr, scale):
+    """K10's update mode against its plain version, on ragged experts with
+    an empty one and on a dispatch with no rows at all (every expert takes
+    the g = 0 update): master, mu, nu within the f32 bound, a bf16 W with
+    stochastic rounding bitwise the rounding of the kernel's own master
+    with the plain version's grouped tile bits and within one bf16 ulp of
+    the plain W, scale 0 leaving the state bitwise unchanged; the norm
+    mode's norms bitwise the update mode's and within the f32 bound of the
+    plain's; one launch of each mode."""
+    _card()
+    from repro_torch.optim.adamw import AdamWConfig, pack_adamw_hyper
+
+    dt = getattr(torch, dtype)
+    (k, n), e, t = kn, len(group_sizes), sum(group_sizes)
+    rng = np.random.default_rng(32)
+    x, dc, dc2 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dt)
+                  for s in ((t, k), (t, n), (t, n)))
+    hyper = pack_adamw_hyper(AdamWConfig(lr=1e-2), torch.tensor(7, dtype=torch.int32, device="cuda"),
+                             torch.tensor(scale, device="cuda"))
+    sets = []
+    for _ in range(2 if dual else 1):
+        mst, mu, nu = (rng.standard_normal((e, k, n)) * c for c in (0.02, 0.5, 2.0))
+        f32 = [torch.from_numpy(v.astype(np.float32)).to("cuda") for v in (mst, mu, nu ** 2 + 0.1)]
+        sets.append((f32, f32[0].to(dt)))
+    kw = dict(group_sizes=group_sizes, salt=(5 << 16) + 3, stochastic_round=sr)
+
+    def run(fn, **extra):
+        state = [([v.clone() for v in f32], w.clone()) for f32, w in sets]
+        args = [v for f32, _ in state for v in f32] + [None] * (0 if dual else 3)
+        ws = dict(w=state[0][1], w2=state[1][1] if dual else None)
+        norms = fn(x, dc, dc2 if dual else None, *args, hyper, **ws, **kw, **extra)
+        return norms, state
+
+    before = dict(tk.sfc_gemm_grouped_tn.launches_by_mode)
+    got_norms, got = run(tk.sfc_gemm_grouped_tn)
+    only_norms = tk.sfc_gemm_grouped_tn(x, dc, dc2 if dual else None, group_sizes=group_sizes, norm=True)
+    torch.cuda.synchronize()
+    after = tk.sfc_gemm_grouped_tn.launches_by_mode
+    assert (after["update"] - before.get("update", 0), after["norm"] - before.get("norm", 0)) == (1, 1)
+    want_norms, want = run(tk.sfc_gemm_grouped_tn_plain, bm=64, bn=64)
+    assert torch.equal(only_norms, got_norms)
+    assert _agree(got_norms, want_norms, torch.float32)
+    for s, ((g_f32, g_w), (w_f32, w_w), (o_f32, o_w)) in enumerate(zip(got, want, sets)):
+        if scale == 0.0:
+            for g, o in zip(g_f32, o_f32):
+                assert torch.equal(g, o)
+            assert torch.equal(g_w, o_f32[0].to(dt))
+            continue
+        for g, w_, o in zip(g_f32, w_f32, o_f32):
+            assert _agree(g, w_, torch.float32)
+            assert not torch.equal(g, o)  # every expert moved, an empty one by its g = 0 update
+        if sr and dt == torch.bfloat16:
+            bits = tk._grouped_tile_bits(e, k, n, 64, 64, hyper, kw["salt"], s)
+            assert torch.equal(g_w, tk.stochastic_round_to(g_f32[0], bits, dt))
+        else:
+            assert torch.equal(g_w, g_f32[0].to(dt))
+        ulp = 2.0**-7 * torch.maximum(g_w.float().abs(), w_w.float().abs())
+        assert bool(((g_w.float() - w_w.float()).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_tn_of_an_empty_dispatch_launches_and_writes_zeros_on_card(dtype):
+    """A dispatch with no rows at all: K10's dW mode, single and dual,
+    launches (its empty operands are null pointers) and writes zero stacks;
+    the norm mode returns zero norms."""
+    _card()
+    dt = getattr(torch, dtype)
+    a, dc = torch.empty(0, 72, device="cuda", dtype=dt), torch.empty(0, 40, device="cuda", dtype=dt)
+    gs = dict(group_sizes=(0, 0, 0))
+    before = tk.sfc_gemm_grouped_tn.launches
+    single, (dw, dwg) = tk.sfc_gemm_grouped_tn(a, dc, **gs), tk.sfc_gemm_grouped_tn(a, dc, dc, **gs)
+    norms = tk.sfc_gemm_grouped_tn(a, dc, dc, norm=True, **gs)
+    torch.cuda.synchronize()
+    assert tk.sfc_gemm_grouped_tn.launches == before + 3
+    for out in (single, dw, dwg):
+        assert out.shape == (3, 72, 40) and not bool(out.any())
+    assert torch.equal(norms, torch.zeros(2, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_grouped_tn_update_mode_rejects_what_it_does_not_take():
+    """No fallback: update-mode misuse raises, and a launch the kernel
+    refuses (update mode without W) raises with its CUDA error."""
+    _card()
+    a, dc = torch.ones(6, 8, device="cuda"), torch.ones(6, 4, device="cuda")
+    st = torch.zeros(2, 8, 4, device="cuda")
+    hyper = torch.zeros(12, device="cuda")
+    kw = dict(group_sizes=(2, 4))
+    with pytest.raises(ValueError, match=r"\(2, 8, 4\)"):
+        tk.sfc_gemm_grouped_tn(a, dc, None, st[0], st[0], st[0], hyper=hyper, w=st[0].clone(), **kw)
+    with pytest.raises(ValueError, match="master"):
+        tk.sfc_gemm_grouped_tn(a, dc, None, st.bfloat16(), st, st, hyper=hyper, w=st.clone(), **kw)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tk._launch_tn_update(a, dc, None, [(st, st, st, None)], hyper, salt=0, stochastic_round=False, rows=8,
+                             cols=4, depth=6, vec_a=False, vec_b=False, gs=(2, 4))
 
 
 @pytest.mark.cuda
@@ -599,6 +704,53 @@ def test_fused_train_step_on_card_matches_unfused():
     (pu, su, mu_, _), (pf, sf, mf, modes) = runs[False], runs[True]
     per_step = 6 * cfg.n_layers + 1
     assert (modes.get("norm"), modes.get("update"), modes.get("dw", 0)) == (2 * per_step, 2 * per_step, 0)
+    assert all(p.grad is None for p in pf.values())
+    assert min(mu_) > 1e-2  # the clip binds
+    np.testing.assert_allclose(mf, mu_, rtol=1e-4)
+    for n in pu:
+        assert _agree(pf[n].detach(), pu[n].detach(), torch.float32), n
+        for slot in ("mu", "nu", "master"):
+            assert _agree(sf[slot][n], su[slot][n], torch.float32), (slot, n)
+
+
+@pytest.mark.cuda
+def test_olmoe_fused_train_step_on_card_matches_unfused():
+    """The fused optimizer over reduced olmoe on the card (f32, head dim
+    128): two steps with a clip that binds match the unfused sfc_cuda
+    steps; each step launches K8's norm and update modes once per routed
+    dense projection and K10's once per expert projection, K10 never in
+    its dW mode and K8 only for the unrouted router, and no weight keeps a
+    ``.grad``."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw as opt
+    from repro_torch.train.step import BackendConfig, make_train_step
+
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b").reduced(), head_dim=128, attn_impl="sfc")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batches = [{key: torch.randint(0, cfg.vocab, (2, 96), generator=gen, device="cuda")
+                for key in ("tokens", "labels")} for _ in range(2)]
+    opt_cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2, clip_norm=1e-2)
+    runs = {}
+    for fused in (False, True):
+        model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(5))
+        step = make_train_step(model, opt_cfg, backend=BackendConfig(gemm_backend="sfc_cuda", fused_optimizer=fused))
+        state = opt.adamw_init(dict(model.named_parameters()))
+        before = [dict(fn.launches_by_mode) for fn in (tk.sfc_gemm_tn, tk.sfc_gemm_grouped_tn)]
+        metrics = []
+        for batch in batches:
+            state, m = step(state, batch)
+            metrics.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        modes = [{k: v - b.get(k, 0) for k, v in fn.launches_by_mode.items()}
+                 for fn, b in zip((tk.sfc_gemm_tn, tk.sfc_gemm_grouped_tn), before)]
+        runs[fused] = (dict(model.named_parameters()), state, metrics, modes)
+    (pu, su, mu_, _), (pf, sf, mf, (dense, grouped)) = runs[False], runs[True]
+    per_step = 4 * cfg.n_layers + 1  # q, k, v, o; the head (the router stays unrouted, as in JAX)
+    assert (dense.get("norm"), dense.get("update"), dense.get("dw", 0)) == (2 * per_step, 2 * per_step,
+                                                                           2 * cfg.n_layers)
+    assert (grouped.get("norm"), grouped.get("update"), grouped.get("dw", 0)) == (4 * cfg.n_layers,) * 2 + (0,)
     assert all(p.grad is None for p in pf.values())
     assert min(mu_) > 1e-2  # the clip binds
     np.testing.assert_allclose(mf, mu_, rtol=1e-4)

@@ -4,7 +4,23 @@ routing (experts, capacity keep, dispatch slots) identical, forced router
 ties included; its gradients against ``jax.grad`` under "xla"; the reduced
 model's logits, greedy served tokens and three train steps (losses at rtol
 1e-4, parameters at rtol 5e-4); the parameter conversion of the expert
-stacks; and the fused optimizer's refusal of expert stacks."""
+stacks; and the fused optimizer over the expert stacks (K10's update and
+norm modes through their plain versions): three steps against the JAX
+fused step with the clip off and binding, against the port's unfused step
+under "torch" (rtol 1e-5, atol 1e-6, the JAX package's own bar), no
+expert ``.grad``, the non-finite skip bitwise, and the train CLI.
+
+AdamW divides by ``sqrt(nu) + eps`` (eps 1e-8): an element whose gradient
+is near eps turns a rounding of its gradient (sums taken in another order)
+into a step of up to lr (ROADMAP queue 3 records one in the JAX package's
+own fused-vs-unfused test).  The fused-step comparisons therefore bound a
+parameter or master element that misses the tolerance by ``sum_t lr_t |u_t
+- u'_t|``, with u = mhat / (sqrt(nhat) + eps) computed from each run's own
+mu and nu after step t, which are held to the tolerance themselves; the
+weight update of every other element is held to the tolerance alone.
+Each test counts the elements that needed the bound and fails if more
+than 0.1% did (none did at this size and seed when the tests were
+written)."""
 
 import dataclasses
 
@@ -21,17 +37,24 @@ from repro.core.gemm_backend import gemm_backend as j_gemm_backend  # noqa: E402
 from repro.data.synthetic import SyntheticLM as JSyntheticLM, SyntheticLMConfig as JSyntheticLMConfig  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models.registry import build_model as j_build_model  # noqa: E402
+from repro.launch.train import build_trainer as j_build_trainer  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
+from repro.robust import get_registry as j_get_registry  # noqa: E402
 from repro.serving.engine import ServingEngine as JServingEngine  # noqa: E402
 from repro.train.step import BackendConfig as JBackendConfig, make_train_step as j_make_train_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import opt_state_from_jax, params_from_jax, params_to_jax  # noqa: E402
 from repro_torch.core.gemm_backend import gemm_backend  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig  # noqa: E402
+from repro_torch.kernels import sfc_gemm as tk  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.transformer import DecoderLM  # noqa: E402
+from repro_torch.optim import fused as tfused  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.train import step as tstep  # noqa: E402
 from repro_torch.train.step import BackendConfig, make_train_step  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -241,12 +264,252 @@ def test_expert_stacks_convert_both_ways(olmoe):
 
 
 def test_fused_optimizer_refuses_expert_stacks(olmoe):
-    """The fused step over 3-D expert stacks needs K10's update mode: it
-    raises, and does not quietly update the stacks eagerly."""
-    _, _, cfg = olmoe
-    model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="K10"):
-        make_train_step(model, tadamw.AdamWConfig(), backend=BackendConfig(fused_optimizer=True))
+    """The fused step routes the expert stacks' GLU pair together or not at
+    all: a filter that routes w_in without w_gate is refused at the first
+    step, and nothing is updated eagerly in its place."""
+    _, jparams, cfg = olmoe
+    model = _port_model(cfg, jparams)
+    step = make_train_step(model, tadamw.AdamWConfig(), backend=BackendConfig(fused_optimizer=True),
+                           fused_filter=lambda n, p: p.ndim in (2, 3) and "embed" not in n and "w_gate" not in n
+                           and "router" not in n)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = {k: torch.from_numpy(v) for k, v in _fused_batches(cfg)[0].items()}
+    with pytest.raises(ValueError, match="routed together"):
+        step(tadamw.adamw_init(dict(model.named_parameters())), batch)
+    assert all(torch.equal(p.detach(), before[n]) for n, p in model.named_parameters())
+
+
+# ---------------------------------------------------------------------------
+# the fused optimizer over the expert stacks (K10's update and norm modes)
+# ---------------------------------------------------------------------------
+
+FUSED_STEPS = 3
+FUSED_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=FUSED_STEPS)
+FUSED_CLIPS = {"clip_off": 1e9, "clip_binds": 0.05}
+
+
+def _fused_batches(cfg):
+    data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=1))
+    return [data.batch(i) for i in range(FUSED_STEPS)]
+
+
+def _adam_direction(mu, nu, step, opt):
+    """AdamW's u = mhat / (sqrt(nhat) + eps) after ``step`` from mu and nu."""
+    b1c, b2c = 1.0 - opt.b1**step, 1.0 - opt.b2**step
+    return (mu / b1c) / (np.sqrt(nu / b2c) + opt.eps)
+
+
+def _eps_allowance(moments, lrs, opt):
+    """{leaf index: sum_t lr_t |u_t - u'_t|} from two runs' (mu, nu) leaves
+    after each step: the most an element's weight can part by when the two
+    runs' AdamW directions part (near eps)."""
+    out = None
+    for t, (lr, (a_mu, a_nu), (b_mu, b_nu)) in enumerate(zip(lrs, *moments), start=1):
+        step = [lr * np.abs(_adam_direction(am, an, t, opt) - _adam_direction(bm, bn, t, opt))
+                for am, an, bm, bn in zip(a_mu, a_nu, b_mu, b_nu)]
+        out = step if out is None else [o + s_ for o, s_ in zip(out, step)]
+    return out
+
+
+def _close_bounded(got, want, allowance, rtol, atol, name):
+    """``got`` within rtol / atol of ``want``, an element that misses it
+    within that plus its near-eps ``allowance``; returns how many needed it."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    tol = atol + rtol * np.abs(want)
+    over = np.abs(got - want) > tol
+    assert np.all(np.abs(got - want)[over] <= (tol + allowance)[over]), name
+    return int(over.sum())
+
+
+def _leaves(tree_of_port, cfg):
+    return jax.tree_util.tree_leaves(params_to_jax(tree_of_port, cfg))
+
+
+@pytest.fixture(scope="module")
+def olmoe_fused(olmoe):
+    """The jitted JAX fused step (sfc_pallas interpreted, no stochastic
+    rounding) over FUSED_STEPS steps of reduced olmoe, once per clip
+    setting: each step's metrics and (mu, nu) leaves, and the end state."""
+    jcfg, jparams, cfg = olmoe
+    runs = {}
+    for name, clip in FUSED_CLIPS.items():
+        jstep = jax.jit(j_make_train_step(
+            j_build_model(jcfg), jadamw.AdamWConfig(clip_norm=clip, **FUSED_OPT), remat="none",
+            backend=JBackendConfig(gemm_backend="sfc_pallas", fused_optimizer=True, stochastic_round=False)))
+        params = jax.tree_util.tree_map(jnp.asarray, jparams)
+        state, metrics, moments = jadamw.adamw_init(params, with_gnorm=True), [], []
+        for batch in _fused_batches(cfg):
+            params, state, m = jstep(params, state, {k: jnp.asarray(v) for k, v in batch.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+            moments.append(tuple([np.asarray(x) for x in jax.tree_util.tree_leaves(state[s_])] for s_ in ("mu", "nu")))
+        # the grouped update ran its kernel: no namespace fell back to the oracle
+        assert not j_get_registry().quarantined_namespaces()
+        runs[name] = (metrics, moments, jax.tree_util.tree_map(np.asarray, params),
+                      jax.tree_util.tree_map(np.asarray, state))
+    return runs
+
+
+def _port_fused_run(cfg, jparams, backend, opt, **step_kw):
+    """FUSED_STEPS steps of the port's step from JAX's init: (metrics,
+    (mu, nu) leaves after each step in JAX's layout, model, state)."""
+    model = _port_model(cfg, jparams)
+    state = tadamw.adamw_init(dict(model.named_parameters()))
+    step = make_train_step(model, opt, remat="none", backend=backend, **step_kw)
+    metrics, moments = [], []
+    for batch in _fused_batches(cfg):
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+        moments.append(tuple(_leaves(state[s_], cfg) for s_ in ("mu", "nu")))
+    return metrics, moments, model, state
+
+
+@pytest.mark.parametrize("clip", sorted(FUSED_CLIPS))
+def test_olmoe_fused_train_step_matches_jax(olmoe, olmoe_fused, clip):
+    """Reduced olmoe's fused step on the port (sfc_cuda on the CPU: the
+    plain versions of K8's and K10's norm and update modes) against the JAX
+    fused step (sfc_pallas interpreted) from one init: losses and grad
+    norms at rtol 1e-4, every parameter and every master / mu / nu at rtol
+    5e-4, atol 1e-5 (test_torch_train.py's bar), a parameter or master
+    element bounded by its near-eps allowance where it misses that."""
+    jcfg, jparams, cfg = olmoe
+    want, jmoments, jend, jstate = olmoe_fused[clip]
+    opt = tadamw.AdamWConfig(clip_norm=FUSED_CLIPS[clip], **FUSED_OPT)
+    metrics, moments, model, state = _port_fused_run(
+        cfg, jparams, BackendConfig(gemm_backend="sfc_cuda", fused_optimizer=True, stochastic_round=False), opt)
+    for m, w in zip(metrics, want):
+        np.testing.assert_allclose(m["loss"], w["loss"], rtol=1e-4)
+        np.testing.assert_allclose(m["grad_norm"], w["grad_norm"], rtol=1e-4)
+        assert (w["grad_norm"] > FUSED_CLIPS[clip]) == (clip == "clip_binds")
+    allowance = _eps_allowance((moments, jmoments), [w["lr"] for w in want], opt)
+    bounded = 0
+    for slot in ("mu", "nu"):
+        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(params_to_jax(state[slot], cfg)),
+                                jax.tree_util.tree_leaves(jstate[slot])):
+            # atol 1e-5, or 1e-4 of the leaf's largest moment where that is
+            # less (the expert stacks' moments are ~1e-4: 1e-5 would hide
+            # any error in them)
+            atol = min(1e-5, 1e-4 * float(np.abs(w).max()))
+            np.testing.assert_allclose(g, w, rtol=5e-4, atol=atol, err_msg=f"{slot} {path}")
+    for tree, wtree in ((dict(model.named_parameters()), jend), (state["master"], jstate["master"])):
+        for i, ((path, g), w) in enumerate(zip(jax.tree_util.tree_leaves_with_path(params_to_jax(tree, cfg)),
+                                               jax.tree_util.tree_leaves(wtree))):
+            bounded += _close_bounded(g, w, allowance[i], 5e-4, 1e-5, str(path))
+    n = sum(p.numel() for p in model.parameters())
+    assert bounded <= 1e-3 * 2 * n, bounded  # a few near-eps elements, not a drift
+
+
+@pytest.mark.parametrize("mode", ["two_phase", "one_phase"])
+def test_olmoe_fused_step_under_torch_matches_unfused_f32(olmoe, mode):
+    """The oracle (plain autograd dW of every expert stack, the hyper
+    vector's AdamW program) against the unfused step, both under "torch",
+    with a clip that binds (two phases) or with no clip and no guard (one
+    phase): losses and grad norms at rtol 1e-5, mu and nu at rtol 1e-5,
+    atol 1e-6, parameters and master there too or within their near-eps
+    allowance."""
+    _, jparams, cfg = olmoe
+    clip, guard = (0.05, True) if mode == "two_phase" else (float("inf"), False)
+    opt = tadamw.AdamWConfig(clip_norm=clip, **FUSED_OPT)
+    runs = [_port_fused_run(cfg, jparams, BackendConfig(gemm_backend="torch", fused_optimizer=fused), opt,
+                            nonfinite_guard=guard) for fused in (False, True)]
+    (mu_, mom_u, model_u, su), (mf, mom_f, model_f, sf) = runs
+    np.testing.assert_allclose([(m["loss"], m["grad_norm"]) for m in mf],
+                               [(m["loss"], m["grad_norm"]) for m in mu_], rtol=1e-5)
+    if mode == "two_phase":
+        assert mu_[0]["grad_norm"] > clip
+    for slot in ("mu", "nu"):
+        for i, (g, w) in enumerate(zip(_leaves(sf[slot], cfg), _leaves(su[slot], cfg))):
+            atol = min(1e-6, 1e-5 * float(np.abs(w).max()))  # scaled down as in the JAX comparison
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=atol, err_msg=f"{slot} {i}")
+    allowance = _eps_allowance((mom_f, mom_u), [m["lr"] for m in mu_], opt)
+    bounded = 0
+    for tree_f, tree_u in ((dict(model_f.named_parameters()), dict(model_u.named_parameters())),
+                           (sf["master"], su["master"])):
+        for i, (g, w) in enumerate(zip(_leaves(tree_f, cfg), _leaves(tree_u, cfg))):
+            bounded += _close_bounded(g, w, allowance[i], 1e-5, 1e-6, str(i))
+    n = sum(p.numel() for p in model_f.parameters())
+    assert bounded <= 1e-3 * 2 * n, bounded
+
+
+def test_olmoe_fused_step_routes_every_expert_stack_without_grad(olmoe, monkeypatch):
+    """No fallback: no weight is left with a ``.grad``, the elementwise
+    AdamW sees only the unrouted leaves (the embedding, the norms, the
+    router), and each step runs K10's norm and update modes once per expert
+    projection (the GLU pair in one dual launch) and never its dW mode."""
+    _, jparams, cfg = olmoe
+    model = _port_model(cfg, jparams)
+    routed = tfused.probe_routed(model)
+    step = make_train_step(model, tadamw.AdamWConfig(**FUSED_OPT),
+                           backend=BackendConfig(gemm_backend="sfc_cuda", fused_optimizer=True))
+    seen, calls = [], []
+    real_apply = tstep.adamw_apply
+    monkeypatch.setattr(tstep, "adamw_apply", lambda cfg_, grads, st, params, **kw: (
+        seen.append(sorted(params)), real_apply(cfg_, grads, st, params, **kw))[1])
+    real_tn = tk.sfc_gemm_grouped_tn
+    monkeypatch.setattr(tk, "sfc_gemm_grouped_tn", lambda *a, **kw: (
+        calls.append("norm" if kw.get("norm") else "update" if kw.get("w") is not None else "dw"),
+        real_tn(*a, **kw))[1])
+    import repro_torch.kernels.ops as ops_mod
+    monkeypatch.setattr(ops_mod, "sfc_gemm_grouped_tn", tk.sfc_gemm_grouped_tn)
+    state = tadamw.adamw_init(dict(model.named_parameters()))
+    state, _ = step(state, {k: torch.from_numpy(v) for k, v in _fused_batches(cfg)[0].items()})
+    names = dict(model.named_parameters())
+    assert {n for n in routed if ".moe." in n} == {f"layers.{i}.moe.{w}" for i in range(cfg.n_layers)
+                                                   for w in ("w_in", "w_gate", "w_out")}
+    assert seen == [sorted(set(names) - set(routed))]
+    assert all(p.grad is None for p in names.values())
+    assert calls.count("norm") == calls.count("update") == 2 * cfg.n_layers and "dw" not in calls
+
+
+def test_olmoe_nonfinite_gradient_skips_the_fused_step_bitwise(olmoe, monkeypatch):
+    """A NaN in every gradient (through a hook on the logits) binds the
+    scale to 0: every expert stack, every other weight and all their
+    master, mu and nu stay bitwise, and the step still counts."""
+    _, jparams, cfg = olmoe
+    model = _port_model(cfg, jparams)
+    step = make_train_step(model, tadamw.AdamWConfig(**FUSED_OPT),
+                           backend=BackendConfig(gemm_backend="sfc_cuda", fused_optimizer=True))
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in _fused_batches(cfg)]
+    state, _ = step(tadamw.adamw_init(dict(model.named_parameters())), batches[0])
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    slots = {s_: {n: t.clone() for n, t in state[s_].items()} for s_ in ("mu", "nu", "master")}
+    real = DecoderLM._logits
+
+    def poisoned(self, x):
+        out = real(self, x)
+        out.register_hook(lambda g: g * float("nan"))
+        return out
+
+    monkeypatch.setattr(DecoderLM, "_logits", poisoned)
+    state, m = step(state, batches[1])
+    assert not np.isfinite(float(m["grad_norm"])) and np.isfinite(float(m["loss"]))
+    assert int(state["step"]) == 2
+    for n, p in model.named_parameters():
+        assert torch.equal(p.detach(), before[n]), n
+        for s_ in slots:
+            assert torch.equal(state[s_][n], slots[s_][n]), (s_, n)
+
+
+def test_olmoe_fused_train_cli_follows_the_jax_fused_trajectory(olmoe, monkeypatch, capsys):
+    """``python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced
+    --steps 4 --batch 2 --seq 16 --backend sfc_cuda --device cpu
+    --fused-optimizer --no-stochastic-round``, started from the JAX fused
+    trainer's initial parameters, follows its loss trajectory."""
+    jcfg, _, cfg = olmoe
+    params, opt_state, jstep, batch_fn = j_build_trainer(jcfg, batch=2, seq=16, lr=1e-3, total_steps=4,
+                                                         gemm_backend="sfc_pallas", fused_optimizer=True,
+                                                         stochastic_round=False)
+    start = params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu")
+    want = []
+    for i in range(4):
+        params, opt_state, m = jstep(params, opt_state, batch_fn(i))
+        want.append(float(m["loss"]))
+    monkeypatch.setattr(DecoderLM, "init", lambda self, generator: self.load_state_dict(start) and self)
+    history = train_cli.main(["--arch", "olmoe-1b-7b", "--reduced", "--steps", "4", "--batch", "2", "--seq", "16",
+                              "--lr", "1e-3", "--backend", "sfc_cuda", "--device", "cpu", "--fused-optimizer",
+                              "--no-stochastic-round"])
+    np.testing.assert_allclose([loss for _, loss in history], want, rtol=1e-4)
+    assert want[-1] < want[0]
+    assert f"final loss: {want[-1]:.4f}" in capsys.readouterr().out
 
 
 def test_olmoe_config_matches_jax_and_reduces():

@@ -73,3 +73,29 @@ def test_routing_at_divergence_replays_both_backends():
     assert req["sets_through_step"] == (8 + 2) * cfg.n_layers
     assert 0 <= req["sets_different_through_step"] <= req["sets_through_step"]
     assert req["topk_margin_median_torch"] >= 0 and req["torch_top1_logit_margin"] >= 0
+
+
+def test_routing_reading_of_a_model_without_moe_layers_has_no_median():
+    """A dense model records no routing: where its greedy tokens part, the
+    reading has an empty layer list and writes ``None`` for the median of
+    the top-k margins (no "Mean of empty slice" warning, no NaN)."""
+    import warnings
+
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    cfg = get_config("qwen3_4b").reduced()
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=8).astype(np.int32) for _ in range(2)]
+    engines = {name: ServingEngine(cfg, params, max_batch=2, max_seq=13, gemm_backend=name, device="cpu")
+               for name in ("sfc_cuda", "torch")}
+    batch = engines["torch"].run(engines["torch"].submit_many(prompts, max_new_tokens=3))
+    torch_tokens = np.array([r.output for r in batch])
+    parted = torch_tokens.copy()
+    parted[0, 1] = (parted[0, 1] + 1) % cfg.vocab
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        out = cs.moe_routing_at_divergence(torch, np, engines, prompts, {"sfc_cuda": parted, "torch": torch_tokens},
+                                           cfg.moe_top_k)
+    (req,) = out["requests"]
+    assert (req["layers"], req["layers_with_different_topk"], req["first_layer_different"]) == (0, 0, None)
+    assert req["topk_margin_median_torch"] is None and req["sets_through_step"] == 0
