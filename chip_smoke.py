@@ -16,7 +16,14 @@ one JSON line (phases 3 and 6 two) and raising on failure:
               (K1/K2) at every serve shape (decode M=4, batched prefill
               4 x 128, the LM head), every training-forward shape (2 x 256,
               the GLU in its preact mode) and one ragged case with every
-              epilogue flag; the NT (K7, dA) and TN (K8, dW) kernels at every
+              epilogue flag; the replicated form's partial copies (K4
+              plain, K5 batched) and their layer sum (K6) at every serve
+              shape at k_layers 1, 2, 4 and 8 (the LM head at 1 and 8; the
+              GLU's two products with f32 copies), each timed alone, the
+              unfused call (`fuse=False`) as a whole beside K1/K2 and
+              torch.matmul of the same product, plus a ragged case of each
+              input type with every epilogue flag at k_layers 2, kbf 4 and
+              K = 203; the NT (K7, dA) and TN (K8, dW) kernels at every
               training shape, single and dual, plus a ragged f32 case each;
               K8's update mode (AdamW in the flush, bf16 W stochastically
               rounded) and norm mode at every training shape, in bf16 and
@@ -47,15 +54,20 @@ one JSON line (phases 3 and 6 two) and raising on failure:
               all NaN, which must leave every weight and state bitwise;
 4. serve      ServingEngine serves full-width qwen3-4b (36 layers, bf16,
               random weights from a seeded torch.Generator), 4 requests,
-              prompt 128, 16 new tokens, three times: sfc_cuda GEMMs with
+              prompt 128, 16 new tokens, five times: sfc_cuda GEMMs with
               blockwise attention (exactly 217 x 16 GEMM launches), sfc_cuda
               GEMMs with attn_impl="sfc" (exactly 3,472 GEMM, 36 K11 and 540
-              K14 launches), and the torch backend.  A prefill under
-              attn_impl="flash_pallas" must launch K15 36 times.  The prefill
-              logits of the same weights in f32 must agree with the torch
-              backend's within the bf16 bound for each sfc_cuda variant, and
-              each variant's bf16 logits must be as close to that f32 model as
-              the torch backend's are;
+              K14 launches), the "replicated" backend (exactly 252 K5 and
+              3,796 K4 launches, no K6 and no K1/K2: k_layers is 1 at every
+              shape), the same with every product split over 8 K layers
+              (as many K4/K5, 4,048 K6), and the torch backend.  A prefill
+              under attn_impl="flash_pallas" must launch K15 36 times.  One
+              decode step of sfc_cuda, both replicated serves and torch is
+              profiled (device busy time, idle share, GEMM kernel time).  The
+              prefill logits of the same weights in f32 must agree with the
+              torch backend's within the bf16 bound for each SFC variant,
+              and each variant's bf16 logits must be as close to that f32
+              model as the torch backend's are;
 5. train      `launch.train.build_trainer` trains full-width qwen3-4b (36
               layers, bf16, AdamW on f32 master weights) for 3 steps of
               2 x 256 SyntheticLM tokens under sfc_cuda + attn_impl="sfc",
@@ -97,7 +109,8 @@ one JSON line (phases 3 and 6 two) and raising on failure:
               of their own);
 9. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
-              library times and the bound.
+              library times and the bound; before it, the seconds at which
+              each phase began and the run's total.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository's src/repro_torch beside this file, it exits non-zero
@@ -152,6 +165,12 @@ MOE_CHECK_LAYERS = 2  # the f32 gradient check
 MOE_SERVE_F32_LAYERS = 4  # the f32 prefill-logits check
 # expert row counts of the ragged checks: one expert empty, none a whole tile
 RAGGED_GROUPS = (5, 0, 19, 32)
+
+# the replicated form (split-K): the K layers of phase 2's rows (the LM head
+# at two of them), and those of the second "replicated" serve
+REP_LAYERS = (1, 2, 4, 8)
+REP_HEAD_LAYERS = (1, 8)
+REP_SERVE_LAYERS = 8
 
 
 def emit(obj) -> None:
@@ -520,6 +539,247 @@ def phase_kernels(torch, cfg, gemms, tk, ops):
         if not ok:
             raise AssertionError(f"all-flags ragged case ({dtype}) disagrees: max err {err}")
     return rows, checks
+
+
+@dataclasses.dataclass(frozen=True)
+class RepGemm:
+    """One product of the replicated form at a serve shape: (batch, M) rows
+    against (K, N) weights, split over ``layers`` K slabs into partial
+    copies (K4, K5 batched) that K6 sums; the unfused GLU is two such
+    products with f32 copies."""
+
+    name: str
+    batch: int  # 0 = plain mode (K4)
+    m: int
+    k: int
+    n: int
+    layers: int
+    glu: bool = False
+
+    @property
+    def kernel(self) -> str:
+        return "K5" if self.batch else "K4"
+
+    @property
+    def key(self):  # sfc_gemm_replicated.launches_by_shape
+        return (self.batch, self.m, self.k, self.n, self.layers)
+
+    @property
+    def reduce_key(self):  # add_reduce.launches_by_shape
+        return (self.batch, self.layers, self.m, self.n)
+
+    @property
+    def rows(self) -> int:
+        return max(self.batch, 1) * self.m
+
+    @property
+    def copy_elem(self) -> int:
+        return 4 if self.glu else 2
+
+    def bound(self):
+        """One K4/K5 launch: A and B read once, the L copies written once."""
+        nbytes = 2 * (self.rows * self.k + self.k * self.n) + self.copy_elem * self.layers * self.rows * self.n
+        return _bound(2.0 * self.rows * self.k * self.n, nbytes)
+
+    def reduce_bound(self):
+        """One K6 launch: the L copies read once, C written once."""
+        return _bound(float((self.layers - 1) * self.rows * self.n),
+                      self.copy_elem * (self.layers + 1) * self.rows * self.n, PEAK_F32_FLOPS)
+
+    def shape(self) -> dict:
+        return {"batch": self.batch, "m": self.m, "k": self.k, "n": self.n, "k_layers": self.layers,
+                "glu": self.glu, "copies": "float32" if self.glu else "bfloat16"}
+
+
+def replicated_gemms(cfg):
+    """Every product the "replicated" serve launches (decode M = 4 in the
+    plain mode, prefill 4 x 128 batched; the GLU's two products as one
+    row), at each k_layers of REP_LAYERS, and the LM head at 1 and 8."""
+    out = []
+    for mode, batch, m in (("decode", 0, BATCH), ("prefill", BATCH, PROMPT)):
+        for name, k, n, glu in _projections(cfg):
+            out += [RepGemm(f"{mode}/{name}", batch, m, k, n, layers, glu) for layers in REP_LAYERS]
+    out += [RepGemm("head", 0, BATCH, cfg.d_model, cfg.vocab, layers) for layers in REP_HEAD_LAYERS]
+    return out
+
+
+def phase_replicated(torch, cfg, gemms, tk, ops):
+    """K4/K5 (the partial copies) and K6 (their sum) against their plain
+    versions at every serve shape and k_layers, and the public unfused call
+    (``ops.sfc_matmul`` / ``sfc_glu_matmul`` with ``fuse=False``) against
+    the plain versions' composition; each timed alone and the call as a
+    whole, beside the fused K1/K2 and torch.matmul of the same product.
+    Then a ragged case of each input type with every epilogue flag at
+    k_layers 2, kbf 4 and K = 203 (split 104 + 99, not ceil's 102 + 101),
+    on the card against the same call on the CPU."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    dt = torch.bfloat16
+    rows, checks = [], []
+
+    def check(case, got, want, tol_dtype, **extra):
+        ok, err, worst = within_all(got, want, tol_dtype)
+        checks.append({"case": case, "ok": ok, "max_abs_err": err, "err_over_bound": worst, **extra})
+        if not ok:
+            raise AssertionError(f"{case} disagrees with its plain version: max err {err}, err/bound {worst}")
+        return err
+
+    for gm in gemms:
+        lead = (gm.batch,) if gm.batch else ()
+        kl, cdt = gm.layers, (torch.float32 if gm.glu else dt)
+        a = torch.randn((*lead, gm.m, gm.k), generator=gen, device=dev).to(dt)
+        # weight copies past the 50 MB L2, as phase 2's K1/K2 rows stream them
+        copies = max(1, math.ceil(4 * L2_BYTES / (gm.k * gm.n * 2 * (2 if gm.glu else 1))))
+        ws = [(torch.randn((gm.k, gm.n), generator=gen, device=dev) * 0.02).to(dt) for _ in range(copies)]
+        gs = [(torch.randn((gm.k, gm.n), generator=gen, device=dev) * 0.02).to(dt)
+              for _ in range(copies)] if gm.glu else None
+        bm, bn, _ = ops.pick_blocks(gm.m, gm.n, gm.k)
+
+        def k4(i):
+            return tk.sfc_gemm_replicated(a, ws[i % copies], k_layers=kl, out_dtype=cdt)
+
+        def k4_plain(i):
+            return tk.sfc_gemm_replicated_plain(a, ws[i % copies], bm=bm, bn=bn, k_layers=kl, out_dtype=cdt)
+
+        def public(i):
+            if gm.glu:
+                return ops.sfc_glu_matmul(a, gs[i % copies], ws[i % copies], activation=cfg.act, fuse=False,
+                                          k_layers=kl)
+            return ops.sfc_matmul(a, ws[i % copies], fuse=False, k_layers=kl)
+
+        parts = k4(0)
+        summed = tk.add_reduce(parts) if kl > 1 else None
+        got = public(0)
+        torch.cuda.synchronize()
+        want = k4_plain(0)
+        shape = [gm.batch, gm.m, gm.k, gm.n, kl]
+        err = check(f"{gm.kernel}:{gm.name}@L{kl}", parts, want, cdt, shape=shape, copies=str(cdt))
+        err6 = check(f"K6:{gm.name}@L{kl}", summed, tk.add_reduce_plain(parts), cdt, shape=shape) if kl > 1 else None
+        check(f"unfused:{gm.name}@L{kl}", got,
+              composed(tk, a, ws[0], gs[0] if gs else None, activation=cfg.act if gm.glu else None, k_layers=kl),
+              dt, shape=shape)
+        del want, got, summed
+
+        reps = max(20, copies)
+        ms = time_ms(k4, reps=reps, graph=True)
+        together_ms = time_ms(public, reps=reps, graph=True)
+        fused_ms = time_ms(lambda i: tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies] if gs else None,
+                                                       activation=cfg.act if gm.glu else None), reps=reps, graph=True)
+        if gm.glu:
+            cats = [torch.cat([g, w], dim=1) for g, w in zip(gs, ws)]
+            matmul_ms = time_ms(lambda i: torch.matmul(a, cats[i % copies]), reps=reps, graph=True)
+            del cats
+        else:
+            matmul_ms = time_ms(lambda i: torch.matmul(a, ws[i % copies]), reps=reps, graph=True)
+        library_ms = None
+        if not gm.glu and gm.k % kl == 0:
+            # the same copies from one torch.matmul over the K slabs (bf16
+            # out; no single call writes the GLU's f32 copies)
+            a_sl = a.unflatten(-1, (kl, gm.k // kl)).movedim(-2, -3)
+            w_sl = [w.view(kl, gm.k // kl, gm.n) for w in ws]
+            library_ms = time_ms(lambda i: torch.matmul(a_sl, w_sl[i % copies]), reps=reps, graph=True)
+            del a_sl, w_sl
+        plain_ms = time_ms(k4_plain, reps=2, warmup=1)
+        bound_ms, bound_by = gm.bound()
+        row = dict(gemm=gm, kernel=gm.kernel, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms, together_ms=together_ms, fused_ms=fused_ms,
+                   matmul_ms=matmul_ms)
+        rows.append(row)
+        if kl > 1:
+            # K6 timed on copies rotated past the L2, as its bound counts
+            # them from device memory (in the serve K4 has just written them)
+            n_rot = max(1, math.ceil(4 * L2_BYTES / (parts.numel() * parts.element_size())))
+            rot = [parts] + [parts.clone() for _ in range(n_rot - 1)]
+            r_bound, r_by = gm.reduce_bound()
+            rows.append(dict(gemm=gm, kernel="K6", max_abs_err=err6,
+                             ms=time_ms(lambda i: tk.add_reduce(rot[i % n_rot]), reps=max(20, n_rot), graph=True),
+                             plain_ms=time_ms(lambda i: tk.add_reduce_plain(parts), reps=2, warmup=1),
+                             library_ms=time_ms(lambda i: rot[i % n_rot].float().sum(-3).to(cdt), reps=max(20, n_rot),
+                                                graph=True),
+                             bound_ms=r_bound, bound_by=r_by))
+            del rot
+        del ws, gs, a, parts
+        torch.cuda.empty_cache()
+
+    # the ragged cases: every epilogue flag, k_layers 2, kbf 4, K = 203
+    for dtype in (torch.float32, torch.bfloat16):
+        m, k, n = 77, 203, 133
+        r = lambda *shp: torch.randn(shp, generator=gen, device=dev).to(dtype)  # noqa: E731
+        x, w, wg, bias, gbias, res = r(3, m, k), r(k, n) * 0.1, r(k, n) * 0.1, r(n), r(1, n), r(3, m, n)
+        knobs = dict(k_layers=2, k_block_factor=4)
+        kw = dict(bias=bias, out_scale=0.7, residual=res, fuse=False, **knobs)
+        cpu = {key: v.cpu() if isinstance(v, torch.Tensor) else v for key, v in kw.items()}
+        parts = tk.sfc_gemm_replicated(x, w, **knobs)
+        got = ops.sfc_matmul(x, w, activation="gelu", **kw)
+        got_glu = ops.sfc_glu_matmul(x, wg, w, activation="gelu", gate_bias=gbias, **kw)
+        torch.cuda.synchronize()
+        extra = dict(dtype=str(dtype), shape=[3, m, k, n], slab=tk.layer_slab(k, 2, 4))
+        check("K5:ragged_kbf4", parts, tk.sfc_gemm_replicated_plain(x, w, bm=64, bn=64, **knobs), dtype, **extra)
+        check("K6:ragged", tk.add_reduce(parts), tk.add_reduce_plain(parts), dtype, **extra)
+        flags = dict(bias=bias, out_scale=0.7, residual=res, activation="gelu", **knobs)
+        check("unfused:ragged_all_epilogue_flags", got, composed(tk, x, w, **flags), dtype, **extra)
+        check("unfused_glu:ragged_all_epilogue_flags", got_glu, composed(tk, x, w, wg, gate_bias=gbias, **flags),
+              dtype, **extra)
+        if dtype == torch.float32:  # and against the whole call on the CPU
+            check("unfused:ragged_f32_vs_cpu", got,
+                  ops.sfc_matmul(x.cpu(), w.cpu(), activation="gelu", bm=64, bn=64, **cpu).to(dev), dtype, **extra)
+            check("unfused_glu:ragged_f32_vs_cpu", got_glu,
+                  ops.sfc_glu_matmul(x.cpu(), wg.cpu(), w.cpu(), activation="gelu", gate_bias=gbias.cpu(), bm=64,
+                                     bn=64, **cpu).to(dev), dtype, **extra)
+    return rows, checks
+
+
+# kernel-name fragments of the serve's GEMM kernels in a profiler trace
+_SERVE_KERNEL_GROUPS = (("sfc_gemm_replicated_kernel", "K4/K5"), ("add_reduce_kernel", "K6"),
+                        ("sfc_gemm_fused_kernel", "K1/K2"))
+
+
+def profile_decode(torch, eng, tokens, ops, layers=None):
+    """One decode step of 4 sequences (after the 128-token prefill and a
+    warm step) under torch.profiler: the wall time until its tokens reach
+    the host, the device's busy time (kernels, memcpy, memset), the idle
+    share, and the busy time of the GEMM kernels by group.  The profiler
+    slows the host, so the wall time and idle share run above an
+    unprofiled step's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with ops.knob_defaults(k_layers=layers):
+        logits, cache = eng._prefill(tokens)
+        logits, cache = eng._decode(logits.argmax(-1)[:, None], cache)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits, cache = eng._decode(tok, cache)
+            logits.argmax(-1).tolist()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {label: 0.0 for _, label in _SERVE_KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if ev.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        groups[next((lab for frag, lab in _SERVE_KERNEL_GROUPS if frag in ev.key), "other")] += us / 1e3
+    busy = sum(groups.values())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms if busy else None,
+            "device_ms_by_group": groups}
+
+
+def composed(tk, a, w, w_gate=None, *, activation=None, bias=None, gate_bias=None, out_scale=None, residual=None,
+             **knobs):
+    """What the unfused call must return given the kernel's own copies:
+    their f32 sum in the copies' type (f32 for the GLU's two products),
+    then the epilogue in f32 and one cast.  In bf16 each copy is rounded
+    before the sum, so the result is held to the copies the kernel wrote
+    (themselves held to their plain version), not to a sum of other
+    roundings."""
+    import torch
+
+    cdt = torch.float32 if w_gate is not None else a.dtype
+    val, gate = (None if b is None else tk.add_reduce_plain(tk.sfc_gemm_replicated(a, b, out_dtype=cdt, **knobs))
+                 for b in (w, w_gate))
+    return tk._epilogue(val.float(), gate, bias, gate_bias, residual, activation, out_scale).to(a.dtype)
 
 
 def phase_backward_gemms(torch, gemms, tk, ops):
@@ -1754,6 +2014,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # ---- 1. device ---------------------------------------------------------
+    run_t0 = time.perf_counter()
+    phase_at = {}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1765,9 +2027,12 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_and_load_s": time.perf_counter() - t0})
 
     # ---- 2. kernels against their plain versions ---------------------------
+    phase_at[2] = time.perf_counter() - run_t0
     cfg = get_config("qwen3_4b")
     gemms = main_path_gemms(cfg)
     rows, checks = phase_kernels(torch, cfg, gemms, tk, ops)
+    rep_rows, rep_checks = phase_replicated(torch, cfg, replicated_gemms(cfg), tk, ops)
+    phase_at["2, after the replicated form's rows"] = time.perf_counter() - run_t0
     attn_rows, attn_checks = phase_attention(torch, attention_cases(cfg), tsa, tfa, build)
     bwd_rows, bwd_checks = phase_backward_gemms(torch, train_backward_gemms(cfg), tk, ops)
     upd_rows, upd_checks = phase_update_gemms(torch, cfg, tk, opt)
@@ -1783,12 +2048,13 @@ def main() -> int:
         "tn_update": "master, mu, nu and the norms at the float32 tolerance; a bf16 W bitwise the stochastic "
                      "rounding of the kernel's master with the plain version's bits and within the bfloat16 "
                      "tolerance of the plain W",
-        "checks": checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
+        "checks": checks + rep_checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
                   + grouped_upd_checks,
         "reduced_model_f32_vs_reference": small})
     torch.cuda.empty_cache()
 
     # ---- 3. gradients of a 4-layer full-width model in f32 -----------------
+    phase_at[3] = time.perf_counter() - run_t0
     data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=1))
     gc_batch = {key: torch.from_numpy(val).cuda() for key, val in data.batch(0).items()}
     emit({"phase": "grad_check", "ok": True,
@@ -1801,6 +2067,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. serve full-width qwen3-4b --------------------------------------
+    phase_at[4] = time.perf_counter() - run_t0
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -1811,8 +2078,9 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab, size=PROMPT).astype(np.int32) for _ in range(BATCH)]
     # (gemm backend, attn_impl) of each served configuration
     variants = {"sfc_cuda": ("sfc_cuda", "blockwise"), "sfc_cuda+sfc_attn": ("sfc_cuda", "sfc"),
-                "torch": ("torch", "blockwise"), "sfc_cuda+flash_attn": ("sfc_cuda", "flash_pallas")}
-    served = ("sfc_cuda", "sfc_cuda+sfc_attn", "torch")
+                "torch": ("torch", "blockwise"), "sfc_cuda+flash_attn": ("sfc_cuda", "flash_pallas"),
+                "replicated": ("replicated", "blockwise")}
+    served = ("sfc_cuda", "sfc_cuda+sfc_attn", "replicated", "torch")
 
     def engine(name, config):
         gemm, impl = variants[name]
@@ -1832,10 +2100,17 @@ def main() -> int:
                     "flash_attention": tfa.flash_attention}
 
     def reset_counts():
-        tk.sfc_gemm_fused.launches = 0
-        tk.sfc_gemm_fused.launches_by_shape.clear()
+        for fn in (tk.sfc_gemm_fused, tk.sfc_gemm_replicated, tk.add_reduce):
+            fn.launches = 0
+            fn.launches_by_shape.clear()
         for fn in attn_kernels.values():
             fn.launches = 0
+
+    def replicated_counts():
+        by_shape = tk.sfc_gemm_replicated.launches_by_shape
+        return {"K5": sum(c for key, c in by_shape.items() if key[0]), "K4": sum(c for key, c in by_shape.items()
+                                                                            if not key[0]),
+                "K6": tk.add_reduce.launches, "K1/K2": tk.sfc_gemm_fused.launches}
 
     # the blockwise path: every projection on the GEMM kernel
     reset_counts()
@@ -1855,8 +2130,30 @@ def main() -> int:
     if attn_gemm_launches != want_launches or any(attn_launches[k] != n for k, n in want_attn.items()):
         raise AssertionError(f"attn_impl='sfc' serve launched GEMM {attn_gemm_launches} (want {want_launches}) "
                              f"and attention {attn_launches} (want {want_attn}) times")
+    # the replicated form: every projection a K5 (prefill) or K4 (decode)
+    # launch, the GLU two; k_layers resolves to 1 at every shape, so no K6
+    # and no K1/K2.  Then the same serve with every product split over
+    # REP_SERVE_LAYERS K layers: as many K4/K5 launches, one K6 after each.
+    per_layer = 7  # q, k, v, o, the GLU's two products, w_out
+    want_rep = {"K5": cfg.n_layers * per_layer, "K4": cfg.n_layers * per_layer * (NEW_TOKENS - 1) + NEW_TOKENS,
+                "K6": 0, "K1/K2": 0}
+    want_split = dict(want_rep, K6=want_rep["K5"] + want_rep["K4"])
+    eng = engines["replicated"]
+    rep_counts, rep_by_shape = {}, {}
+    for name, layers, want in (("replicated", None, want_rep), (f"replicated@k{REP_SERVE_LAYERS}", REP_SERVE_LAYERS,
+                                                                  want_split)):
+        with ops.knob_defaults(k_layers=layers):
+            eng.run(eng.submit_many(prompts[:1], max_new_tokens=2))  # warm-up: this split's task tables
+            torch.cuda.synchronize()
+            reset_counts()
+            done[name] = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
+        torch.cuda.synchronize()
+        rep_counts[name] = replicated_counts()
+        rep_by_shape[name] = (dict(tk.sfc_gemm_replicated.launches_by_shape), dict(tk.add_reduce.launches_by_shape))
+        if rep_counts[name] != want:
+            raise AssertionError(f"{name} serve launched {rep_counts[name]}, expected {want}")
     done["torch"] = engines["torch"].run(engines["torch"].submit_many(prompts, max_new_tokens=NEW_TOKENS))
-    reports = {name: engines[name].latency_report(batch) for name, batch in done.items()}
+    reports = {name: engines[name.split("@")[0]].latency_report(batch) for name, batch in done.items()}
     for batch in done.values():
         for r in batch:
             if (r.status != "completed" or len(r.output) != NEW_TOKENS
@@ -1871,7 +2168,13 @@ def main() -> int:
     # weights in f32 on every variant.  The bf16 logits must be no further
     # from that f32 reference than the torch backend's are.
     tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
+    split = f"replicated@k{REP_SERVE_LAYERS}"
+    decode_profile = {name: profile_decode(torch, engines[name.split("@")[0]], tokens, ops, layers)
+                      for name, layers in (("sfc_cuda", None), ("replicated", None), (split, REP_SERVE_LAYERS),
+                                           ("torch", None))}
     logits = {name: eng._prefill(tokens)[0].float() for name, eng in engines.items()}
+    with ops.knob_defaults(k_layers=REP_SERVE_LAYERS):
+        logits[split] = engines["replicated"]._prefill(tokens)[0].float()
     del engines, eng
     # the attn_impl="flash_pallas" prefill: its attention on K15
     reset_counts()
@@ -1883,15 +2186,17 @@ def main() -> int:
                              f"expected {cfg.n_layers}")
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     params_of["float32"] = {k: v.float() for k, v in params.items()}
-    for name in ("torch", "sfc_cuda", "sfc_cuda+sfc_attn", "sfc_cuda+flash_attn"):
+    for name in ("torch", "sfc_cuda", "sfc_cuda+sfc_attn", "sfc_cuda+flash_attn", "replicated"):
         logits[name + "_f32"] = engine(name, cfg32)._prefill(tokens)[0]
+    with ops.knob_defaults(k_layers=REP_SERVE_LAYERS):
+        logits[split + "_f32"] = engine("replicated", cfg32)._prefill(tokens)[0]
     del params_of["float32"]
     torch.cuda.synchronize()
-    for name in ("sfc_cuda", "sfc_cuda+sfc_attn", "sfc_cuda+flash_attn"):
+    sfc_variants = ("sfc_cuda", "sfc_cuda+sfc_attn", "sfc_cuda+flash_attn", "replicated", split)
+    for name in sfc_variants:
         if tuple(logits[name].shape) != (BATCH, cfg.vocab) or not bool(torch.isfinite(logits[name]).all()):
             raise AssertionError(f"{name} prefill logits shape {tuple(logits[name].shape)} or non-finite values")
     ref = logits["torch_f32"]
-    sfc_variants = ("sfc_cuda", "sfc_cuda+sfc_attn", "sfc_cuda+flash_attn")
     f32_agree = {name: dict(zip(("ok", "max_abs_err", "err_over_bound"),
                                 within(logits[name + "_f32"], ref, torch.bfloat16))) for name in sfc_variants}
     ok16, err16, worst16 = within(logits["sfc_cuda"], logits["torch"], torch.bfloat16)
@@ -1905,6 +2210,8 @@ def main() -> int:
         "launches": launches, "launches_expected": want_launches,
         "attn_impl_sfc_launches": {"sfc_gemm_fused": attn_gemm_launches, **{k: attn_launches[k] for k in want_attn}},
         "flash_pallas_prefill_launches": attn_launches["flash_attention"],
+        "replicated_launches": rep_counts, "replicated_launches_expected": {"replicated": want_rep,
+                                                                           split: want_split},
         "prefill_logits": {
             "f32_vs_torch": f32_agree,
             "bf16_sfc_cuda_vs_torch": {"within_bound": ok16, "max_abs_err": err16, "err_over_bound": worst16,
@@ -1915,17 +2222,21 @@ def main() -> int:
         "first_token_match": {name: float((logits[name].argmax(-1) == logits["torch"].argmax(-1)).float().mean())
                               for name in sfc_variants},
         "greedy_token_match": {name: float((tokens_of[name] == tokens_of["torch"]).mean())
-                               for name in ("sfc_cuda", "sfc_cuda+sfc_attn")},
+                               for name in ("sfc_cuda", "sfc_cuda+sfc_attn", "replicated", split)},
         "greedy_token_match_sfc_attn_vs_sfc_cuda":
             float((tokens_of["sfc_cuda+sfc_attn"] == tokens_of["sfc_cuda"]).mean()),
         "latency": reports,
+        "decode_step_profile": decode_profile,
     }
     emit(serve)
     for name, res in f32_agree.items():
         if not res["ok"]:
             raise AssertionError(f"f32 prefill logits {name} vs torch: max err {res['max_abs_err']}, "
                                  f"err/bound {res['err_over_bound']}")
-    if not all(parity.values()):
+    # the split serve's bf16 copies are rounded once per K layer before the
+    # sum (the JAX package's replicated result): its parity is reported,
+    # not held; its f32 logits are held above like every variant's
+    if not all(ok for name, ok in parity.items() if name != split):
         raise AssertionError(f"bf16 logits further from the f32 model than torch's: {noise}")
     # the serve's model and every tensor of it leave the card before training
     del model, params, params_of, logits, ref
@@ -1933,6 +2244,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. train full-width qwen3-4b --------------------------------------
+    phase_at[5] = time.perf_counter() - run_t0
     counted = {"sfc_gemm_fused": tk.sfc_gemm_fused, "sfc_gemm_nt": tk.sfc_gemm_nt, "sfc_gemm_tn": tk.sfc_gemm_tn,
                "sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_flash_bwd_dq": tsa.sfc_flash_bwd_dq,
                "sfc_flash_bwd_dkv": tsa.sfc_flash_bwd_dkv}
@@ -1942,6 +2254,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. olmoe-1b-7b: f32 gradients of a 2-layer full-width cut ---------
+    phase_at[6] = time.perf_counter() - run_t0
     odata = SyntheticLM(SyntheticLMConfig(vocab=ocfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=1))
     ogc_batch = {key: torch.from_numpy(val).cuda() for key, val in odata.batch(0).items()}
     emit({"phase": "grad_check_moe", "ok": True,
@@ -1957,15 +2270,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. serve full-width, full-depth olmoe-1b-7b ------------------------
+    phase_at[7] = time.perf_counter() - run_t0
     _, moe_serve_counts = phase_moe_serve(torch, np, ocfg, build_model, ServingEngine, tk, tsa)
 
     # ---- 8. train olmoe-1b-7b at full width, 8 layers ----------------------
+    phase_at[8] = time.perf_counter() - run_t0
     moe_counted = {**counted, "sfc_gemm_grouped": tk.sfc_gemm_grouped, "sfc_gemm_grouped_nt": tk.sfc_gemm_grouped_nt,
                    "sfc_gemm_grouped_tn": tk.sfc_gemm_grouped_tn}
     _, moe_train_counts = phase_moe_train(torch, ocfg, build_trainer, moe_counted)
     moe_fused_counts = moe_train_counts["sfc_cuda+sfc_attn+fused_optimizer"]["sfc_gemm_grouped_tn"]
 
     # ---- 9. the kernels line ------------------------------------------------
+    phase_at[9] = time.perf_counter() - run_t0
     kernels = []
     for row in rows:
         gm = row["gemm"]
@@ -1983,6 +2299,36 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "glu": gm.glu, "preact": gm.preact},
+        })
+    # the replicated form: launches of each kernel in its serve (K4/K5 in
+    # the k_layers-1 serve, K6 in the split one), and at the row's shape in
+    # the serve whose split it has
+    rep_serves = {1: "replicated", REP_SERVE_LAYERS: split}
+    for row in rep_rows:
+        gm = row["gemm"]
+        k6 = row["kernel"] == "K6"
+        serve_name = split if k6 else "replicated"
+        at_shape = rep_by_shape[rep_serves[gm.layers]][int(k6)] if gm.layers in rep_serves else {}
+        kernels.append({
+            "name": f"{'add_reduce' if k6 else 'sfc_gemm_replicated'}:{gm.name}@L{gm.layers}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "replaces": ("src/repro/kernels/sfc_gemm.py:2040" if k6 else
+                         "src/repro/kernels/sfc_gemm.py:772" if gm.batch else "src/repro/kernels/sfc_gemm.py:656"),
+            "launches": rep_counts[serve_name][row["kernel"] if k6 else gm.kernel],
+            "launches_at_shape": at_shape.get(gm.reduce_key if k6 else gm.key, 0),
+            "path": f"serve {serve_name}",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": ("copies.float().sum(-3).to(dtype)" if k6 else
+                        None if row["library_ms"] is None else "torch.matmul over the K slabs"),
+            **({} if k6 else {"unfused_call_ms": row["together_ms"], "fused_k1_k2_ms": row["fused_ms"],
+                              "torch_matmul_ms": row["matmul_ms"]}),
+            "shape": gm.shape(),
         })
     for row in bwd_rows:
         gm = row["gemm"]
@@ -2106,6 +2452,9 @@ def main() -> int:
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise AssertionError(f"main-path kernels never launched in the run of their path: {missing}")
+    # seconds since phase 1 began at the start of each later phase, and
+    # the whole run's (the build included)
+    emit({"phase": "clock", "phase_start_s": phase_at, "total_s": time.perf_counter() - run_t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

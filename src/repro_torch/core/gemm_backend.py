@@ -7,15 +7,27 @@
                    counterpart of the JAX package's "xla" (the default)
   "sfc_cuda"       the hand-written SFC fused-GEMM kernel, epilogue and
                    GLU gate inside its flush (its plain version on CPU
-                   tensors)
+                   tensors) — the JAX package's "sfc_pallas"
+  "replicated"     the replicated 2.5D form, ``fuse=False``: the split-K
+                   partial copies (K4, K5 batched) and their sum (K6,
+                   when k_layers > 1), the epilogue after in f32; the GLU
+                   as two products with f32 copies — JAX's "replicated"
+                   rung
   "sfc_reference"  the Listing-1 loop in plain torch
 
+The four are the JAX fallback ladder's rungs, one to one; the port has no
+ladder (ROADMAP item 14), so a backend is chosen, never fallen back to.
 Every backend is differentiable.  "torch" and "sfc_reference" are plain
-torch ops under autograd; under "sfc_cuda", with an input that needs a
-gradient, `matmul` and `glu_matmul` run through `kernels.ops`'s autograd
-Function, whose backward launches the NT (dA) and TN (dW) kernels.  There
-is no fallback ladder: "sfc_cuda" launches the kernel on a CUDA tensor or
+torch ops under autograd; under "sfc_cuda" and "replicated", with an input
+that needs a gradient, `matmul` and `glu_matmul` run through
+`kernels.ops`'s autograd Function, whose backward launches the NT (dA) and
+TN (dW) kernels.  A kernel backend launches its kernels on a CUDA tensor or
 raises.
+
+"replicated" changes only `matmul` and `glu_matmul`: in the JAX package,
+failing the gemm / glu fused rungs leaves every other namespace on its
+first rung, so the grouped entry points, the fused optimizer's routes and
+everything else run as under "sfc_cuda" (attention is `attn_impl`'s).
 
 `grouped_matmul()` and `grouped_glu_matmul()` are the MoE expert GEMMs,
 ``(..., E, C, K) @ (E, K, N)`` over dispatch buffers of C capacity rows
@@ -41,6 +53,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.namespaces import (
+    BACKEND_REPLICATED,
     BACKEND_SFC_CUDA,
     BACKEND_TORCH,
     BACKENDS,
@@ -52,6 +65,8 @@ __all__ = ["gemm_backend", "current_backend", "matmul", "glu_matmul", "grouped_m
 _BACKEND: contextvars.ContextVar[str] = contextvars.ContextVar(
     "gemm_backend", default=BACKEND_TORCH
 )
+# the backends that launch the SFC kernels
+_KERNEL_BACKENDS = (BACKEND_SFC_CUDA, BACKEND_REPLICATED)
 
 
 @contextlib.contextmanager
@@ -101,6 +116,12 @@ def _reference_matmul(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _fuse(name: str) -> Optional[bool]:
+    """``fuse`` of a kernel backend's `sfc_matmul` call: False (the
+    replicated form) under "replicated", the fused form otherwise."""
+    return False if name == BACKEND_REPLICATED else None
+
+
 def _kernel_operands(x, residual, n):
     """The kernel's view of ``x``: a 1-D ``x`` becomes one row, and a
     decode-shaped (B, 1, K) ``x`` is flattened into M (a batched grid would
@@ -128,7 +149,9 @@ def matmul(
     Under "sfc_cuda", rank-2 ``x`` launches the kernel's plain mode and
     rank >= 3 its batched mode (one SFC traversal per batch element, the
     weight panels shared), except decode-shaped (B, 1, K), which is
-    flattened to (B, K).  A weight routed by the active fused step goes
+    flattened to (B, K).  "replicated" takes the same operands to the
+    partial-copy kernel (K4 plain, K5 batched), then K6 and the epilogue.
+    A weight routed by the active fused step goes
     through the update path (no ``out_scale`` or ``residual`` there, as in
     the JAX package)."""
     name = _BACKEND.get()
@@ -145,7 +168,7 @@ def matmul(
         from repro_torch.kernels.ops import fused_update_matmul
 
         slot = session.slot(leaf)
-        if name == BACKEND_SFC_CUDA:
+        if name in _KERNEL_BACKENDS:
             x_run, _, post = _kernel_operands(x, None, w.shape[1])
             out = fused_update_matmul(x_run, w, slot, bias=bias, activation=activation)
             return post(out) if post is not None else out
@@ -155,13 +178,13 @@ def matmul(
             x @ w, bias=bias, activation=activation,
             out_scale=out_scale, residual=residual,
         )
-    if name == BACKEND_SFC_CUDA:
+    if name in _KERNEL_BACKENDS:
         from repro_torch.kernels.ops import sfc_matmul
 
         x_run, res_run, post = _kernel_operands(x, residual, w.shape[1])
         out = sfc_matmul(
             x_run, w, bias=bias, activation=activation,
-            out_scale=out_scale, residual=res_run,
+            out_scale=out_scale, residual=res_run, fuse=_fuse(name),
         )
         return post(out) if post is not None else out
     lead = x.shape[:-1]
@@ -187,7 +210,9 @@ def glu_matmul(
     """Gated projection ``act(x@w_gate + gate_bias) * (x@w_val + bias)``
     through the active backend.  Under "sfc_cuda" the dual-B kernel
     traverses ``x`` once: two weight panels, two f32 accumulators, one
-    fused flush.  Routed by the active fused step, the pair goes through
+    fused flush; under "replicated" the two products are replicated-form
+    launches with f32 copies, the gate's activation applied after them.
+    Routed by the active fused step, the pair goes through
     the dual update path; both weights must be routed or neither."""
     name = _BACKEND.get()
     fusable = out_scale is None and residual is None
@@ -208,7 +233,7 @@ def glu_matmul(
 
         slot = session.slot(leaf_v, leaf_g)
         kw = dict(activation=activation, bias=bias, gate_bias=gate_bias)
-        if name == BACKEND_SFC_CUDA:
+        if name in _KERNEL_BACKENDS:
             x_run, _, post = _kernel_operands(x, None, w_val.shape[1])
             out = fused_update_glu_matmul(x_run, w_gate, w_val, slot, **kw)
             return post(out) if post is not None else out
@@ -223,13 +248,14 @@ def glu_matmul(
         return _epilogue(
             _act(activation)(g) * h, out_scale=out_scale, residual=residual
         )
-    if name == BACKEND_SFC_CUDA:
+    if name in _KERNEL_BACKENDS:
         from repro_torch.kernels.ops import sfc_glu_matmul
 
         x_run, res_run, post = _kernel_operands(x, residual, w_val.shape[1])
         out = sfc_glu_matmul(
             x_run, w_gate, w_val, activation=activation, bias=bias,
             gate_bias=gate_bias, out_scale=out_scale, residual=res_run,
+            fuse=_fuse(name),
         )
         return post(out) if post is not None else out
     lead = x.shape[:-1]
@@ -297,7 +323,7 @@ def grouped_matmul(
 
         slot = session.slot(leaf)
         rows, (g, e, c), restore = _rows_by_expert(x)
-        fused = name == BACKEND_SFC_CUDA
+        fused = name in _KERNEL_BACKENDS
         out = fused_update_grouped_matmul(rows, w, (g * c,) * e, slot if fused else slot.dw_sink(0), bias=bias,
                                           activation=activation, fused=fused)
         return restore(out, w.shape[-1])
@@ -308,7 +334,7 @@ def grouped_matmul(
         return _epilogue(y, activation=activation, out_scale=out_scale)
     rows, (g, e, c), restore = _rows_by_expert(x)
     n = w.shape[-1]
-    if name == BACKEND_SFC_CUDA:
+    if name in _KERNEL_BACKENDS:
         from repro_torch.kernels.ops import sfc_grouped_matmul
 
         out = sfc_grouped_matmul(rows, w, (g * c,) * e, bias=bias, activation=activation, out_scale=out_scale)
@@ -352,7 +378,7 @@ def grouped_glu_matmul(
 
         slot = session.slot(leaf_v, leaf_g)
         rows, (g, e, c), restore = _rows_by_expert(x)
-        fused = name == BACKEND_SFC_CUDA
+        fused = name in _KERNEL_BACKENDS
         out = fused_update_grouped_glu_matmul(rows, w_gate, w_val, (g * c,) * e,
                                               slot if fused else (slot.dw_sink(0), slot.dw_sink(1)),
                                               activation=activation, fused=fused)
@@ -363,7 +389,7 @@ def grouped_glu_matmul(
         return _epilogue(_act(activation)(g_) * h, out_scale=out_scale)
     rows, (g, e, c), restore = _rows_by_expert(x)
     n = w_val.shape[-1]
-    if name == BACKEND_SFC_CUDA:
+    if name in _KERNEL_BACKENDS:
         from repro_torch.kernels.ops import sfc_grouped_glu_matmul
 
         out = sfc_grouped_glu_matmul(rows, w_gate, w_val, (g * c,) * e, activation=activation,

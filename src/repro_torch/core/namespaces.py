@@ -51,6 +51,7 @@ __all__ = [
     "ALL_NAMESPACES",
     "BACKEND_TORCH",
     "BACKEND_SFC_CUDA",
+    "BACKEND_REPLICATED",
     "BACKEND_SFC_REFERENCE",
     "BACKENDS",
     "schedule_namespace",
@@ -115,9 +116,13 @@ ALL_NAMESPACES = TUNE_OPS + LADDER_ONLY_NAMESPACES
 # --- GEMM backends (`core.gemm_backend.gemm_backend`) --------------------
 BACKEND_TORCH = "torch"                  # torch.matmul + epilogue ("xla" in JAX)
 BACKEND_SFC_CUDA = "sfc_cuda"            # the hand-written SFC CUDA kernel
+BACKEND_REPLICATED = "replicated"        # split-K partial copies + add_reduce, epilogue after
 BACKEND_SFC_REFERENCE = "sfc_reference"  # Listing-1 loop in plain torch
 
-BACKENDS = (BACKEND_TORCH, BACKEND_SFC_CUDA, BACKEND_SFC_REFERENCE)
+# The JAX package's ladder rungs, one to one: "sfc_pallas", "replicated",
+# "sfc_reference", "xla" (its DEFAULT_LADDER order, which a ported ladder,
+# ROADMAP item 14, would walk: sfc_cuda, replicated, sfc_reference, torch).
+BACKENDS = (BACKEND_TORCH, BACKEND_SFC_CUDA, BACKEND_REPLICATED, BACKEND_SFC_REFERENCE)
 
 
 def schedule_namespace(base: str, key: str) -> str:

@@ -13,7 +13,9 @@ the flags, and loaded with ``ctypes``.  Two libraries:
   forward, NT, TN and TN-update entries also take the grouped (MoE
   expert) mode of K3, K9 and K10 (dW, update and norm) through a
   per-expert row array and launch it as kernels of their own in the same
-  parts, so it adds no part;
+  parts, so it adds no part; and one replicated part per input type
+  (``-DSFC_REP=1``: the split-K partial products K4/K5 and the layer sum
+  K6), which leaves every other part's code as it was;
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
@@ -52,6 +54,7 @@ __all__ = [
     "DTYPE_NAMES",
     "entry_name",
     "bwd_entry_name",
+    "rep_entry_name",
     "attn_entry_name",
     "source_digest",
     "load_library",
@@ -97,6 +100,14 @@ def bwd_entry_name(kind: str, dtype_name: str) -> str:
     return f"sfc_gemm_{kind}_{dtype_name}"
 
 
+def rep_entry_name(kind: str, dtype_name: str) -> str:
+    """C symbol of a replicated-form entry: ``kind`` is "gemm" (K4/K5, the
+    partial copies) or "add_reduce" (K6, their sum)."""
+    if kind not in ("gemm", "add_reduce"):
+        raise ValueError(f"unknown replicated-form kind {kind!r}")
+    return f"sfc_gemm_replicated_{dtype_name}" if kind == "gemm" else f"sfc_add_reduce_{dtype_name}"
+
+
 def attn_entry_name(kind: str, dtype_name: str, head_dim: int) -> str:
     """C symbol of an attention entry: ``kind`` is "fwd", "decode", "dq" or
     "dkv"."""
@@ -125,6 +136,12 @@ def _gemm_parts():
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
             "-DSFC_BWD=2",
             f"-DSFC_TNU_ENTRY={bwd_entry_name('tn_update', dt)}",
+        )
+        yield f"sfc_gemm_rep_{dt}", (
+            f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
+            "-DSFC_REP=1",
+            f"-DSFC_REP_ENTRY={rep_entry_name('gemm', dt)}",
+            f"-DSFC_ADD_REDUCE_ENTRY={rep_entry_name('add_reduce', dt)}",
         )
 
 
@@ -163,6 +180,20 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                 ptr,  # cudaStream_t
             ]
             fn.restype = i32
+        fn = getattr(lib, rep_entry_name("gemm", dt))
+        fn.argtypes = [
+            ptr, ptr, ptr, i32,  # a, b, out, out_f32
+            ptr, i32, i32,  # task table (3, n_tasks), n_tasks, batch
+            i32, i32, i32,  # M, N, K
+            ctypes.c_longlong, ctypes.c_longlong,  # A / B batch strides (elements)
+            i32, i32,  # k_layers, k_slab
+            i32, i32,  # vec_a, vec_b
+            ptr,  # cudaStream_t
+        ]
+        fn.restype = i32
+        fn = getattr(lib, rep_entry_name("add_reduce", dt))
+        fn.argtypes = [ptr, ptr, i32, i32, ctypes.c_longlong, i32, ptr]  # copies, out, L, batch, M*N, vec, stream
+        fn.restype = i32
         fn = getattr(lib, bwd_entry_name("tn_update", dt))
         fn.argtypes = [
             ptr, ptr, ptr, i32,  # a, b, b2, n_sets

@@ -119,6 +119,33 @@
 // inputs, tensor-core bound at the bf16 peak for every projection.  What
 // they leave on the table is the fused kernel's: no wgmma, no TMA, no
 // pipeline, and (TN) each CTA re-reads its A and B panels from L2.
+//
+// -DSFC_REP=1 compiles, instead, the replicated 2.5D form of one input type
+// (entries -DSFC_REP_ENTRY / -DSFC_ADD_REDUCE_ENTRY), the paper's own
+// scheme (Listing 1, lines 26-35), which the TPU collapsed into one
+// accumulator for want of a second worker; on this card the SMs are the
+// workers again, so it is split-K across SMs:
+// sfc_gemm_replicated_kernel replaces `sfc_gemm_pallas` (`_sfc_gemm_kernel`,
+//   K4) and `sfc_gemm_batched` (`_sfc_gemm_batched_kernel`, K5): the task
+//   table of gemm_spec(mb, nb, k_layers) (layer-major, gilbert within a
+//   layer) gives each CTA a C tile (im, in) and a layer l; it runs the fused
+//   kernel's main loop over the layer's K slab [l * k_slab, (l + 1) * k_slab)
+//   clipped to K (the slab is the JAX package's: K padded to a multiple of
+//   k_layers * k_block_factor, split evenly) and writes the tile of copy l
+//   once, in the input type or in f32 (the unfused GLU's copies).  k_layers
+//   CTAs share each C tile with no atomics; blockIdx.y is the batch element
+//   against a shared or per-batch B.  No epilogue: it runs after the sum.
+// add_reduce_kernel replaces `add_reduce_pallas` (`_add_reduce_kernel`,
+//   `_add_reduce_batched_kernel`, K6): (B, L, M, N) copies -> (B, M, N),
+//   each output the f32 sum of its L copies in layer order, cast once to
+//   the copies' type, 16-byte vector loads where M*N allows.
+// What bounds them: at decode (M = 4) K4 reads the weight once, 2*M flops a
+// weight, so the weight bytes bound it as they bound K1; split over k_layers
+// slabs the same bytes stream through k_layers times as many CTAs (16 for
+// k/v's N = 1024 at L = 1, 128 at L = 8), at the price of L copies of C
+// written and read back by K6, which is bound by (L + 1) M N elements of
+// bytes.  At prefill (4 x 128 rows) the products are tensor-core bound and
+// the split only adds copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,6 +175,15 @@
 #endif
 #ifndef SFC_TNU_ENTRY
 #define SFC_TNU_ENTRY sfc_gemm_tn_update_entry
+#endif
+#ifndef SFC_REP  // 1: the replicated form's kernels (K4/K5 and K6) instead
+#define SFC_REP 0
+#endif
+#ifndef SFC_REP_ENTRY
+#define SFC_REP_ENTRY sfc_gemm_replicated_entry
+#endif
+#ifndef SFC_ADD_REDUCE_ENTRY
+#define SFC_ADD_REDUCE_ENTRY sfc_add_reduce_entry
 #endif
 
 namespace {
@@ -273,10 +309,12 @@ __device__ __forceinline__ void load_tile(T* __restrict__ s, const T* __restrict
 // bf16: tensor cores through WMMA.  4 warps in a 2 x 2 grid, each owning a
 // 32 x 32 quarter of the C tile as 2 x 2 fragments (and as many again for the
 // gate accumulator of the GLU form).  Leaves the f32 accumulators in Cs/Cgs.
+// The K loop runs over [k_lo, k_hi): the whole depth [0, K) for the fused
+// kernels, one layer's slab for the replicated one (K4/K5).
 template <bool GLU>
 __device__ __forceinline__ void mainloop(const Params& p, int M, const bf16* A, const bf16* B,
-                                         const bf16* Bg, int row0, int col0, bf16* As, bf16* Bs,
-                                         bf16* Bgs, float* Cs, float* Cgs) {
+                                         const bf16* Bg, int row0, int col0, int k_lo, int k_hi, bf16* As,
+                                         bf16* Bs, bf16* Bgs, float* Cs, float* Cgs) {
   using namespace nvcuda;
   constexpr int BK = Cfg<bf16>::BK, LDA = Cfg<bf16>::LDA, LDB = Cfg<bf16>::LDB;
   const int warp = threadIdx.x / 32;
@@ -291,11 +329,11 @@ __device__ __forceinline__ void mainloop(const Params& p, int M, const bf16* A, 
       if constexpr (GLU) wmma::fill_fragment(accg[i][j], 0.0f);
     }
   }
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K step
-    load_tile<bf16, kBM, BK, LDA>(As, A, p.K, row0, k0, M, p.K, p.vec_a);
-    load_tile<bf16, BK, kBN, LDB>(Bs, B, p.N, k0, col0, p.K, p.N, p.vec_b);
-    if constexpr (GLU) load_tile<bf16, BK, kBN, LDB>(Bgs, Bg, p.N, k0, col0, p.K, p.N, p.vec_b);
+    load_tile<bf16, kBM, BK, LDA>(As, A, p.K, row0, k0, M, k_hi, p.vec_a);
+    load_tile<bf16, BK, kBN, LDB>(Bs, B, p.N, k0, col0, k_hi, p.N, p.vec_b);
+    if constexpr (GLU) load_tile<bf16, BK, kBN, LDB>(Bgs, Bg, p.N, k0, col0, k_hi, p.N, p.vec_b);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -341,7 +379,7 @@ __device__ __forceinline__ void mainloop(const Params& p, int M, const bf16* A, 
 // 4 rows x 8 cols of the C tile.
 template <bool GLU>
 __device__ __forceinline__ void mainloop(const Params& p, int M, const float* A, const float* B,
-                                         const float* Bg, int row0, int col0, float* As,
+                                         const float* Bg, int row0, int col0, int k_lo, int k_hi, float* As,
                                          float* Bs, float* Bgs, float* Cs, float* Cgs) {
   constexpr int BK = Cfg<float>::BK, LDA = Cfg<float>::LDA, LDB = Cfg<float>::LDB;
   const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
@@ -355,11 +393,11 @@ __device__ __forceinline__ void mainloop(const Params& p, int M, const float* A,
       accg[i][j] = 0.0f;
     }
   }
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();
-    load_tile<float, kBM, BK, LDA>(As, A, p.K, row0, k0, M, p.K, p.vec_a);
-    load_tile<float, BK, kBN, LDB>(Bs, B, p.N, k0, col0, p.K, p.N, p.vec_b);
-    if constexpr (GLU) load_tile<float, BK, kBN, LDB>(Bgs, Bg, p.N, k0, col0, p.K, p.N, p.vec_b);
+    load_tile<float, kBM, BK, LDA>(As, A, p.K, row0, k0, M, k_hi, p.vec_a);
+    load_tile<float, BK, kBN, LDB>(Bs, B, p.N, k0, col0, k_hi, p.N, p.vec_b);
+    if constexpr (GLU) load_tile<float, BK, kBN, LDB>(Bgs, Bg, p.N, k0, col0, k_hi, p.N, p.vec_b);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
@@ -401,7 +439,90 @@ typedef bf16 ElemT;
 typedef float ElemT;
 #endif
 
-#if !SFC_BWD
+#if SFC_REP
+
+// K4/K5: one 64 x 64 tile of copy `layer` of batch element blockIdx.y.  The
+// table is (3, n_tasks): major (im), minor (in), layer.  Ragged edges are
+// masked by the main loop (M, N and the slab's end) and by the write.
+// At least 4 CTAs an SM (128 registers): a decode product split 8 ways
+// has 128-1216 short CTAs, and a fourth resident CTA takes a 512-CTA
+// launch (q) in one wave on 132 SMs.
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(kThreads, 4) sfc_gemm_replicated_kernel(const Params p, const int k_layers,
+                                                                           const int k_slab) {
+  constexpr int A_ELEMS = kBM * Cfg<T>::LDA;
+  constexpr int B_ELEMS = Cfg<T>::BK * Cfg<T>::LDB;
+  constexpr int OPERAND_BYTES = (A_ELEMS + B_ELEMS) * (int)sizeof(T);
+  constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float);
+  constexpr int SMEM_BYTES = OPERAND_BYTES > EPI_BYTES ? OPERAND_BYTES : EPI_BYTES;
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + A_ELEMS;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int t = blockIdx.x;
+  const int row0 = __ldg(p.tab + t) * kBM;
+  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;
+  const int layer = __ldg(p.tab + 2 * p.n_tasks + t);
+  const long long bi = blockIdx.y;
+  const T* A = static_cast<const T*>(p.a) + bi * p.a_bstride;
+  const T* B = static_cast<const T*>(p.b) + bi * p.b_bstride;
+  const int k_lo = (int)min((long long)layer * k_slab, (long long)p.K);
+  const int k_hi = (int)min((long long)k_lo + k_slab, (long long)p.K);
+  mainloop<false>(p, p.M, A, B, nullptr, row0, col0, k_lo, k_hi, As, Bs, nullptr, Cs, nullptr);
+  __syncthreads();
+  OutT* out = static_cast<OutT*>(p.out) + (bi * k_layers + layer) * (long long)p.M * p.N;
+  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
+    const int r = i / kBN, c = i % kBN;
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr < p.M && gc < p.N) out[(size_t)gr * p.N + gc] = from_f32<OutT>(Cs[r * kLDC + c]);
+  }
+}
+
+constexpr int kReduceThreads = 256;
+
+// K6: out[b, j] = sum over l of copies[b, l, j], in f32 in layer order, cast
+// once to T; total = batch * mn outputs.  vec: mn is a whole number of
+// 16-byte vectors and both arrays start 16-byte aligned, so each thread
+// reads one vector of every copy and writes one.
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads) add_reduce_kernel(const T* __restrict__ c, T* __restrict__ out,
+                                                                     int layers, long long mn, long long total,
+                                                                     int vec) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const long long stride = (long long)gridDim.x * kReduceThreads;
+  const long long first = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
+  if (vec) {
+    for (long long e = first * VEC; e < total; e += stride * VEC) {
+      const long long b = e / mn, j = e - b * mn;
+      const T* src = c + b * layers * mn + j;
+      float acc[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+      for (int l = 0; l < layers; ++l) {
+        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + l * mn));
+        const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] += to_f32(x[i]);
+      }
+      uint4 res;
+      T* y = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) y[i] = from_f32<T>(acc[i]);
+      *reinterpret_cast<uint4*>(out + e) = res;
+    }
+  } else {
+    for (long long e = first; e < total; e += stride) {
+      const long long b = e / mn, j = e - b * mn;
+      const T* src = c + b * layers * mn + j;
+      float acc = 0.0f;
+      for (int l = 0; l < layers; ++l) acc += to_f32(src[l * mn]);
+      out[e] = from_f32<T>(acc);
+    }
+  }
+}
+
+#elif !SFC_BWD
 
 // The fused kernel's flush of one C tile from the f32 accumulators in
 // shared memory: C (and the residual, the preact gate output) at c_off in
@@ -483,11 +604,11 @@ __device__ __forceinline__ void fused_tile(const Params& p, const GroupRows& g) 
       c_off = (long long)r_start * p.N;
       vec_off = (long long)e * p.N;
     }
-    mainloop<GLU>(p, M, A, B, Bg, row0, col0, As, Bs, Bgs, Cs, Cgs);
+    mainloop<GLU>(p, M, A, B, Bg, row0, col0, 0, p.K, As, Bs, Bgs, Cs, Cgs);
     __syncthreads();
     fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, M, Cs, Cgs, row0, col0, c_off, vec_off);
   } else {
-    mainloop<GLU>(p, p.M, A, B, Bg, row0, col0, As, Bs, Bgs, Cs, Cgs);
+    mainloop<GLU>(p, p.M, A, B, Bg, row0, col0, 0, p.K, As, Bs, Bgs, Cs, Cgs);
     __syncthreads();
     fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, p.M, Cs, Cgs, row0, col0, bi * (long long)p.M * p.N,
                                                               0);
@@ -1222,7 +1343,55 @@ int launch_tn_update(const BwdParams& p, const UpdParams& u, bool sr, cudaStream
 
 }  // namespace
 
-#if !SFC_BWD
+#if SFC_REP
+
+// K4/K5: out (batch, k_layers, M, N) partial copies of a (batch, M, K) @ b,
+// b (K, N) shared (b_bstride 0) or (batch, K, N); copy l contracts over
+// [l * k_slab, (l + 1) * k_slab) clipped to K.  tab is gemm_spec(mb, nb,
+// k_layers)'s (3, n_tasks) table; out_f32 writes f32 copies (else the input
+// type).  Returns cudaGetLastError() after the launch.
+extern "C" int SFC_REP_ENTRY(const void* a, const void* b, void* out, int out_f32, const int* tab, int n_tasks,
+                             int batch, int M, int N, int K, long long a_bstride, long long b_bstride, int k_layers,
+                             int k_slab, int vec_a, int vec_b, void* stream) {
+  if (k_layers < 1 || k_slab < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.a = a;
+  p.b = b;
+  p.out = out;
+  p.tab = tab;
+  p.n_tasks = n_tasks;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.a_bstride = a_bstride;
+  p.b_bstride = b_bstride;
+  p.vec_a = vec_a;
+  p.vec_b = vec_b;
+  const dim3 grid((unsigned)n_tasks, (unsigned)batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_f32)
+    sfc_gemm_replicated_kernel<ElemT, float><<<grid, kThreads, 0, s>>>(p, k_layers, k_slab);
+  else
+    sfc_gemm_replicated_kernel<ElemT, ElemT><<<grid, kThreads, 0, s>>>(p, k_layers, k_slab);
+  return (int)cudaGetLastError();
+}
+
+// K6: out (batch, mn) = the f32 sum over l of copies (batch, layers, mn),
+// cast to the copies' type; vec asks for 16-byte vectors (mn a multiple of
+// 16 / sizeof(T), both pointers 16-byte aligned).
+extern "C" int SFC_ADD_REDUCE_ENTRY(const void* copies, void* out, int layers, int batch, long long mn, int vec,
+                                    void* stream) {
+  if (layers < 1 || batch < 1 || mn < 1) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)batch * mn;
+  const long long items = vec ? total / (16 / (long long)sizeof(ElemT)) : total;
+  const long long want = (items + kReduceThreads - 1) / kReduceThreads;
+  const long long blocks = want < 132LL * 16 ? want : 132LL * 16;  // a grid-stride loop past 16 a SM
+  add_reduce_kernel<ElemT><<<(unsigned)blocks, kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const ElemT*>(copies), static_cast<ElemT*>(out), layers, mn, total, vec);
+  return (int)cudaGetLastError();
+}
+
+#elif !SFC_BWD
 
 // One launch of the fused kernel over a (n_tasks, batch) grid.  Pointers
 // that are null switch their epilogue term off; a non-null out_gate selects

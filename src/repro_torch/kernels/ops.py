@@ -9,12 +9,25 @@ fused-epilogue kernel: ``C = act(A@B + bias) * out_scale + residual`` on the
 f32 accumulator, one write of C.  `sfc_glu_matmul` is the dual-B gated form
 (``act(A@Wg + gate_bias) * (A@Wv + bias)``, one traversal of A).
 
-Ragged M/N/K need no padding here: the CUDA kernel masks its edge tiles and
-the plain version clips them.  Knobs: on the CPU, ``bm``/``bn`` come from
-`pick_blocks` (as in the JAX package, minus its tune cache and perf model);
-on the card they are the kernel's compiled tile, and the K loop runs inside
-one CTA, so the fused plan always fits (no VMEM budget, no replicated
-fallback).
+Ragged M/N/K need no padding here: the CUDA kernels mask their edge tiles
+and the plain versions clip them.  Knobs: on the CPU, ``bm``/``bn`` come
+from `pick_blocks` (as in the JAX package, minus its tune cache and perf
+model); on the card they are the kernels' compiled tile.  Unset K knobs are
+1, or what `knob_defaults` sets for a block of calls.  The fused kernel
+loops over the whole K range inside one CTA, so its plan always fits: the
+JAX package's VMEM check (``ensure_fused_fits``) and the fallback it
+guards have no counterpart here.
+
+The replicated 2.5D form.  ``fuse=False`` is the JAX package's unfused
+path, the paper's own scheme: `sfc_gemm_replicated` (K4, K5 for a batched
+A) writes the (k_layers, M, N) partial copies of A @ B, one per layer's K
+slab, in the output type; `add_reduce` (K6) sums them in f32 when
+``k_layers > 1`` (copy 0 is the result otherwise, and K6 is not launched);
+the epilogue then runs in f32 on the result and casts once
+(`_replicated_impl`, JAX: ``_epilogue_jnp``).  The GLU is two such
+products with f32 copies, then ``act(gate + gate_bias) * (val + bias)``
+in f32.  On the card the layers are split-K across the SMs.  Its backward
+is the fused form's (the NT/TN kernels), as in the JAX package.
 
 Training.  When grad mode is on and an input needs a gradient,
 `sfc_matmul` and `sfc_glu_matmul` run through `_MatmulCore`, a
@@ -58,14 +71,15 @@ dg, group_sizes)`` to the step's tape, and `fused_update_grouped_matmul` /
 `fused_update_grouped_glu_matmul` keep the JAX package's oracle
 (``fused=False``) for the other backends.
 
-Not ported in this slice, each raising ``NotImplementedError``: the
-replicated 2.5D form (``fuse=False``, ROADMAP queue 2 K4-K6) and the ABFT
-checksum lane (queue 1 item 14).  The backward has no fallback ladder
-(item 14): a kernel that fails raises.
+Not ported in this slice, raising ``NotImplementedError``: the ABFT
+checksum lane (queue 1 item 14).  There is no fallback ladder (item 14): a
+kernel that fails raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -73,10 +87,14 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.sfc_gemm import (
+    _epilogue,
     activation_fn,
+    add_reduce,
+    check_preact,
     grouped_tn_row_block,
     kernel_tile,
     sfc_gemm_fused,
+    sfc_gemm_replicated,
     sfc_gemm_grouped,
     sfc_gemm_grouped_nt,
     sfc_gemm_grouped_tn,
@@ -105,6 +123,7 @@ __all__ = [
     "fused_update_grouped_matmul",
     "fused_update_grouped_glu_matmul",
     "pick_blocks",
+    "knob_defaults",
     "resolve_knobs",
     "reference_knobs",
 ]
@@ -123,6 +142,27 @@ def pick_blocks(m: int, n: int, k: int) -> Tuple[int, int, int]:
     return pick(m), pick(n), pick(k)
 
 
+_KNOB_DEFAULTS: contextvars.ContextVar[Tuple[Optional[int], Optional[int]]] = contextvars.ContextVar(
+    "sfc_knob_defaults", default=(None, None)
+)
+
+
+@contextlib.contextmanager
+def knob_defaults(*, k_layers: Optional[int] = None, k_block_factor: Optional[int] = None):
+    """Values for the K knobs that the calls inside the block leave unset
+    (a call's own knobs win).  The port has no tune cache yet (ROADMAP
+    queue 1 item 13), so this is how a caller runs, say, every product of a
+    serve on the replicated backend at ``k_layers=8``."""
+    for name, val in (("k_layers", k_layers), ("k_block_factor", k_block_factor)):
+        if val is not None and val < 1:
+            raise ValueError(f"{name} must be at least 1, got {val}")
+    tok = _KNOB_DEFAULTS.set((k_layers, k_block_factor))
+    try:
+        yield
+    finally:
+        _KNOB_DEFAULTS.reset(tok)
+
+
 def resolve_knobs(
     m: int,
     n: int,
@@ -138,8 +178,10 @@ def resolve_knobs(
 
     On a CUDA device the tile is the kernel's compiled one and an explicit
     other ``bm``/``bn`` is an error; on the CPU unset blocks come from
-    `pick_blocks`.  Unset K knobs are 1: there is no tune cache or perf
-    model yet (ROADMAP queue 1 item 13)."""
+    `pick_blocks`.  Unset K knobs are `knob_defaults`'s, else 1: there is
+    no tune cache or perf model yet (ROADMAP queue 1 item 13).  The fused
+    kernels ignore them on the card; the replicated form's grid is
+    ``k_layers`` times its tile count."""
     if torch.device(device).type == "cuda":
         tile = kernel_tile()
         if (bm or tile[0], bn or tile[1]) != tile:
@@ -149,7 +191,8 @@ def resolve_knobs(
         pbm, pbn, _ = pick_blocks(m, n, k)
         bm = bm or pbm
         bn = bn or pbn
-    return bm, bn, k_layers or 1, k_block_factor or 1
+    d_layers, d_kbf = _KNOB_DEFAULTS.get()
+    return bm, bn, k_layers or d_layers or 1, k_block_factor or d_kbf or 1
 
 
 def reference_knobs(m: int, n: int, k: int) -> Tuple[int, int, int, int, int]:
@@ -185,10 +228,6 @@ def _matmul_impl(
     preact: bool = False,
     abft: Optional[str] = None,
 ) -> torch.Tensor:
-    if fuse is False:
-        raise NotImplementedError(
-            "the replicated 2.5D form (fuse=False) is not ported: ROADMAP queue 2, K4-K6"
-        )
     _no_abft(abft)
     if a.ndim < 2 or b.ndim < 2:
         raise ValueError(f"sfc_matmul needs matrices, got {tuple(a.shape)} @ {tuple(b.shape)}")
@@ -218,25 +257,48 @@ def _matmul_impl(
     bm, bn, k_layers, k_block_factor = resolve_knobs(
         m, n, k, a.device, bm=bm, bn=bn, k_layers=k_layers, k_block_factor=k_block_factor
     )
-    kw = dict(
-        activation=activation, out_scale=out_scale, bm=bm, bn=bn,
-        k_layers=k_layers, k_block_factor=k_block_factor, out_dtype=out_dtype, preact=preact,
-    )
     gate = None if b_gate is None else b_gate.contiguous()
     vecs = [None if v is None else v.contiguous() for v in (bias, gate_bias)]
-    if not lead:
-        res = None if residual is None else residual.contiguous()
-        return sfc_gemm_fused(a.contiguous(), b.contiguous(), gate, *vecs, res, **kw)
-
     # fold leading dims into one batch axis for the kernel grid
     bsz = math.prod(lead)
-    a3 = a.reshape(bsz, m, k).contiguous()
-    b3 = b.reshape(bsz, k, n).contiguous() if b_batched else b.contiguous()
-    res3 = None if residual is None else residual.reshape(bsz, m, n).contiguous()
-    out = sfc_gemm_fused(a3, b3, gate, *vecs, res3, **kw)
+    a_run = a.reshape(bsz, m, k).contiguous() if lead else a.contiguous()
+    b_run = b.reshape(bsz, k, n).contiguous() if b_batched else b.contiguous()
+    res_run = None if residual is None else residual.reshape(a_run.shape[:-1] + (n,)).contiguous()
+    knobs = dict(bm=bm, bn=bn, k_layers=k_layers, k_block_factor=k_block_factor)
+    if fuse is False:
+        check_preact(preact, b_gate, activation, out_scale, residual)
+        out = _replicated_impl(a_run, b_run, gate, *vecs, res_run, activation=activation, out_scale=out_scale,
+                               knobs=knobs, out_dtype=out_dtype or a.dtype, preact=preact)
+    else:
+        out = sfc_gemm_fused(a_run, b_run, gate, *vecs, res_run, activation=activation, out_scale=out_scale,
+                             out_dtype=out_dtype, preact=preact, **knobs)
     if preact:
         return tuple(o.reshape(*lead, m, n) for o in out)
     return out.reshape(*lead, m, n)
+
+
+def _replicated_impl(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, knobs, out_dtype, preact):
+    """The JAX package's ``fuse=False`` branch of ``_matmul_impl`` on the
+    kernel's operands (``a`` (M, K) or (B, M, K), folded and contiguous):
+    the partial copies (K4 / K5) in ``out_dtype``, their sum (K6) when
+    ``k_layers > 1``, then the epilogue in f32 and one cast.  The GLU is two
+    products with f32 copies and its epilogue (``preact``: the two biased
+    pre-activations, each cast to ``out_dtype``).  ``knobs`` are resolved."""
+    if b_gate is not None:
+        val, gate = (_replicated_impl(a, w, None, None, None, None, activation=None, out_scale=None, knobs=knobs,
+                                      out_dtype=torch.float32, preact=False) for w in (b, b_gate))
+        if preact:
+            if bias is not None:
+                val = val + bias.reshape(-1).float()
+            if gate_bias is not None:
+                gate = gate + gate_bias.reshape(-1).float()
+            return val.to(out_dtype), gate.to(out_dtype)
+        return _epilogue(val, gate, bias, gate_bias, residual, activation, out_scale).to(out_dtype)
+    copies = sfc_gemm_replicated(a, b, out_dtype=out_dtype, **knobs)
+    c = add_reduce(copies) if knobs["k_layers"] > 1 else copies.select(-3, 0)
+    if bias is None and activation is None and out_scale is None and residual is None:
+        return c  # no epilogue term: its f32 round trip of the copies' type is exact
+    return _epilogue(c.float(), None, bias, None, residual, activation, out_scale).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

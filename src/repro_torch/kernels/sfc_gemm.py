@@ -1,8 +1,10 @@
 """SFC-ordered GEMMs: the CUDA ports of the TPU kernels
 ``repro.kernels.sfc_gemm._fused_kernel`` (K1/K2, and K3 in its grouped
-mode), ``sfc_gemm_nt`` (K7), ``sfc_gemm_tn`` (K8, with its update and norm
-modes), ``sfc_gemm_grouped_nt`` (K9) and ``sfc_gemm_grouped_tn`` (K10,
-with the same three modes), each beside its plain PyTorch version.
+mode), ``sfc_gemm_pallas`` / ``sfc_gemm_batched`` (K4/K5, the replicated
+form's partial products) and ``add_reduce_pallas`` (K6), ``sfc_gemm_nt``
+(K7), ``sfc_gemm_tn`` (K8, with its update and norm modes),
+``sfc_gemm_grouped_nt`` (K9) and ``sfc_gemm_grouped_tn`` (K10, with the
+same three modes), each beside its plain PyTorch version.
 
 ``sfc_gemm_fused`` is the one wrapper for both modes the TPU package ran as
 separate Pallas entry points: ``a`` (M, K) is the plain mode
@@ -38,6 +40,16 @@ stochastic rounding draws its bits from the counter hash of the JAX
 package's interpret path (`tile_random_bits`), seeded per (step, weight,
 tile), so the card's bits are the plain version's and the JAX package's.
 
+The replicated 2.5D form (the paper's Listing 1, lines 26-35) is two
+wrappers: ``sfc_gemm_replicated`` writes the (K_layers, M, N) partial
+copies of A (M, K) @ B, or (B, K_layers, M, N) for a batched A, copy ``l``
+the product over layer ``l``'s K slab (the JAX package's: K padded to a
+multiple of ``k_layers * k_block_factor`` and split evenly, clipped here
+instead of padded), one CTA per (tile, layer) task of
+``gemm_spec(mb, nb, k_layers)``'s table, so the layers run as split-K
+across the SMs; ``add_reduce`` sums the copies in f32 and casts them back
+to their type.  Neither has an epilogue.
+
 The grouped wrappers run the MoE expert GEMMs in one launch each:
 ``sfc_gemm_grouped`` (K3, the forward with the same epilogue and preact
 mode), ``sfc_gemm_grouped_nt`` (K9, dA) and ``sfc_gemm_grouped_tn`` (K10,
@@ -66,6 +78,11 @@ __all__ = [
     "activation_fn",
     "sfc_gemm_fused",
     "sfc_gemm_fused_plain",
+    "sfc_gemm_replicated",
+    "sfc_gemm_replicated_plain",
+    "add_reduce",
+    "add_reduce_plain",
+    "layer_slab",
     "sfc_gemm_nt",
     "sfc_gemm_nt_plain",
     "sfc_gemm_tn",
@@ -109,12 +126,18 @@ def kernel_tile() -> tuple:
     return build.TILE
 
 
-def _check(a, b, b_gate, bias, gate_bias, residual, activation, out_scale, preact):
-    """Shape contract shared by the kernel and its plain version.  Returns
-    (batch, M, K, N, b_batched); batch is 0 for the plain (2-D) mode."""
+def check_preact(preact, b_gate, activation, out_scale, residual) -> None:
+    """``preact`` (the training forward of a GLU) needs the gate weights and
+    takes no activation, scale or residual."""
     if preact and (b_gate is None or activation is not None or out_scale is not None or residual is not None):
         raise ValueError("preact returns the two biased GLU pre-activations: it needs b_gate and takes "
                          "no activation, out_scale or residual")
+
+
+def _check(a, b, b_gate, bias, gate_bias, residual, activation, out_scale, preact):
+    """Shape contract shared by the kernel and its plain version.  Returns
+    (batch, M, K, N, b_batched); batch is 0 for the plain (2-D) mode."""
+    check_preact(preact, b_gate, activation, out_scale, residual)
     if a.ndim not in (2, 3) or b.ndim not in (2, 3):
         raise ValueError(f"a must be (M, K) or (B, M, K) and b (K, N) or (B, K, N); got {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape[-2:]
@@ -361,6 +384,196 @@ def sfc_gemm_fused(
 
 sfc_gemm_fused.launches = 0
 sfc_gemm_fused.launches_by_shape = collections.Counter()
+
+
+# ---------------------------------------------------------------------------
+# the replicated 2.5D form: K4/K5 partial products, K6 their sum
+# ---------------------------------------------------------------------------
+
+
+def layer_slab(depth: int, k_layers: int, k_block_factor: int = 1) -> int:
+    """Rows of K a layer of the replicated form owns: ``k_block_factor``
+    chunks of ceil(depth / (k_layers * k_block_factor)), the JAX package's
+    split of K padded to a multiple of ``k_layers * k_block_factor``; the
+    last layers are clipped to ``depth`` (possibly empty).  `_k_chunks` cuts
+    at the same boundaries."""
+    return k_block_factor * max(1, math.ceil(depth / (k_layers * k_block_factor)))
+
+
+def _rep_shape(a, b, k_layers, k_block_factor):
+    batch, m, k, n, b_batched = _check(a, b, None, None, None, None, None, None, False)
+    if k_layers < 1 or k_block_factor < 1:
+        raise ValueError(f"bad knobs k_layers={k_layers} k_block_factor={k_block_factor}")
+    return batch, m, k, n, b_batched
+
+
+def sfc_gemm_replicated_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    bm: int,
+    bn: int,
+    k_layers: int = 1,
+    k_block_factor: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The plain version of the replicated kernel, on any device.
+
+    A Python loop over the tasks of ``gemm_spec(mb, nb, k_layers)``'s table
+    (layer-major, gilbert within a layer): for each (im, in, layer) it sums
+    the layer's ``k_block_factor`` K chunks in f32, in order (the TPU grid's
+    innermost axis), and writes that tile of copy ``layer`` in
+    ``out_dtype``.  Edge tiles and chunks are clipped to the matrix.
+    Returns (k_layers, M, N), or (B, k_layers, M, N) for a batched ``a``."""
+    batch, m, k, n, b_batched = _rep_shape(a, b, k_layers, k_block_factor)
+    if bm < 1 or bn < 1:
+        raise ValueError(f"bad knobs bm={bm} bn={bn}")
+    a3 = a if a.ndim == 3 else a[None]
+    b3 = b if b_batched else b[None]
+    out = torch.zeros((a3.shape[0], k_layers, m, n), dtype=out_dtype or a.dtype, device=a.device)
+    if m and n:
+        chunks = _k_chunks(k, k_layers * k_block_factor)
+        tab = compile_schedule(gemm_spec(math.ceil(m / bm), math.ceil(n / bn), k_layers)).table
+        for im, in_, layer in zip(*(row.tolist() for row in tab[:3])):
+            rs = slice(im * bm, min((im + 1) * bm, m))
+            cs = slice(in_ * bn, min((in_ + 1) * bn, n))
+            acc = torch.zeros((a3.shape[0], rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32,
+                              device=a.device)
+            for ks in chunks[layer * k_block_factor:(layer + 1) * k_block_factor]:
+                acc += a3[:, rs, ks].float() @ b3[:, ks, cs].float()
+            out[:, layer, rs, cs] = acc.to(out.dtype)
+    return out if a.ndim == 3 else out[0]
+
+
+@functools.lru_cache(maxsize=256)
+def _device_layer_table(mb: int, nb: int, k_layers: int, device: torch.device) -> torch.Tensor:
+    """(3, T) int32 major / minor / layer rows of ``gemm_spec(mb, nb,
+    k_layers)``'s table, uploaded once per key and kept there."""
+    tab = compile_schedule(gemm_spec(mb, nb, k_layers)).table[:3]
+    return torch.from_numpy(tab.copy()).to(device).contiguous()
+
+
+def sfc_gemm_replicated(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    bm: int = build.TILE[0],
+    bn: int = build.TILE[1],
+    k_layers: int = 1,
+    k_block_factor: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The replicated form's partial products (K4, and K5 for a batched
+    ``a``): copy ``l`` is A[:, slab l] @ B[slab l, :] with the f32
+    accumulator cast to ``out_dtype``, the slabs those of `layer_slab`.
+
+    ``a`` (M, K) gives (k_layers, M, N); ``a`` (B, M, K) against ``b`` (K,
+    N) shared or (B, K, N) per element gives (B, k_layers, M, N).
+    ``out_dtype`` is the input type or float32 (the unfused GLU's copies).
+    On a CUDA tensor this launches the kernel, one CTA per (tile, layer)
+    task, ``bm``/``bn`` the compiled tile; ``k_block_factor`` only sets the
+    slab (the kernel runs one K loop over it).  Every launch adds one to
+    ``sfc_gemm_replicated.launches`` and to ``launches_by_shape`` under
+    ``(batch, M, K, N, k_layers)``, batch 0 for the plain mode.  On a CPU
+    tensor it runs `sfc_gemm_replicated_plain` and counts nothing."""
+    batch, m, k, n, b_batched = _rep_shape(a, b, k_layers, k_block_factor)
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return sfc_gemm_replicated_plain(a, b, bm=bm, bn=bn, k_layers=k_layers, k_block_factor=k_block_factor,
+                                         out_dtype=out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"sfc_gemm_replicated runs on cuda or cpu tensors, got {a.device}")
+    _check_operands(bm, bn, a.dtype, a, b=b)  # the copies' type is checked here, not there
+    if out_dtype not in (a.dtype, torch.float32):
+        raise TypeError(f"the replicated kernel writes {a.dtype} or float32 copies, asked for {out_dtype}")
+    if max(batch, 1) > _MAX_GRID_Y:
+        raise ValueError(f"batch {batch} exceeds the grid limit {_MAX_GRID_Y}")
+    out = torch.empty((batch, k_layers, m, n) if a.ndim == 3 else (k_layers, m, n), dtype=out_dtype,
+                      device=a.device)
+    if out.numel() == 0 or k == 0:
+        return out.zero_()
+    slab = layer_slab(k, k_layers, k_block_factor)
+    lib = build.load_library()
+    fn = getattr(lib, build.rep_entry_name("gemm", _dtype_name(a)))
+    mb, nb = math.ceil(m / bm), math.ceil(n / bn)
+    tab = _device_layer_table(mb, nb, k_layers, a.device)
+    vec = 16 // a.element_size()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), int(out_dtype == torch.float32 and a.dtype != torch.float32),
+            tab.data_ptr(), mb * nb * k_layers, max(batch, 1),
+            m, n, k,
+            m * k, k * n if b_batched else 0,
+            k_layers, slab,
+            int(_rows_vec(k, a) and slab % vec == 0), int(_rows_vec(n, b)),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sfc_gemm_replicated kernel launch failed with CUDA error {rc}")
+    sfc_gemm_replicated.launches += 1
+    sfc_gemm_replicated.launches_by_shape[(batch, m, k, n, k_layers)] += 1
+    return out
+
+
+sfc_gemm_replicated.launches = 0
+sfc_gemm_replicated.launches_by_shape = collections.Counter()
+
+
+def _check_copies(copies: torch.Tensor) -> None:
+    if copies.ndim not in (3, 4):
+        raise ValueError(f"add_reduce takes (L, M, N) or (B, L, M, N) copies, got {tuple(copies.shape)}")
+
+
+def add_reduce_plain(copies: torch.Tensor) -> torch.Tensor:
+    """The plain version of K6 (the JAX package's ``add_reduce_ref``):
+    (L, M, N) -> (M, N) or (B, L, M, N) -> (B, M, N), the f32 sum over the
+    layer axis cast to the copies' type."""
+    _check_copies(copies)
+    return copies.float().sum(dim=copies.ndim - 3).to(copies.dtype)
+
+
+def add_reduce(copies: torch.Tensor) -> torch.Tensor:
+    """The layer sum of the replicated form (K6): each output element is
+    the f32 sum of its L copies, written once in the copies' type.
+
+    On a CUDA tensor this launches the kernel (bound by the (L + 1)·M·N
+    elements it moves); every launch adds one to ``add_reduce.launches`` and
+    to ``launches_by_shape`` under ``(batch, L, M, N)``, batch 0 for the
+    3-D form.  On a CPU tensor it runs `add_reduce_plain` and counts
+    nothing."""
+    _check_copies(copies)
+    if copies.device.type == "cpu":
+        return add_reduce_plain(copies)
+    if copies.device.type != "cuda":
+        raise ValueError(f"add_reduce runs on cuda or cpu tensors, got {copies.device}")
+    if copies.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"add_reduce takes float32 or bfloat16 copies, got {copies.dtype}")
+    if not copies.is_contiguous():
+        raise ValueError("copies must be contiguous")
+    *lead, layers, m, n = copies.shape
+    batch = lead[0] if lead else 0
+    out = torch.empty((*lead, m, n), dtype=copies.dtype, device=copies.device)
+    if out.numel() == 0:
+        return out
+    if layers == 0:
+        return out.zero_()
+    lib = build.load_library()
+    fn = getattr(lib, build.rep_entry_name("add_reduce", _dtype_name(copies)))
+    vec = int((m * n) % (16 // copies.element_size()) == 0 and copies.data_ptr() % 16 == 0
+              and out.data_ptr() % 16 == 0)
+    with torch.cuda.device(copies.device):
+        stream = torch.cuda.current_stream(copies.device).cuda_stream
+        rc = fn(copies.data_ptr(), out.data_ptr(), layers, max(batch, 1), m * n, vec, stream)
+    if rc != 0:
+        raise RuntimeError(f"add_reduce kernel launch failed with CUDA error {rc}")
+    add_reduce.launches += 1
+    add_reduce.launches_by_shape[(batch, layers, m, n)] += 1
+    return out
+
+
+add_reduce.launches = 0
+add_reduce.launches_by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

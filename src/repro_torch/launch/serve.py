@@ -5,7 +5,9 @@
 
 Weights are random, drawn from ``--seed``.  ``--device`` defaults to the
 card; ``--device cpu --reduced`` runs a tiny model on the CPU, where the
-``sfc_cuda`` backend takes the kernel's plain version.
+``sfc_cuda`` and ``replicated`` backends take the kernels' plain versions.
+``--backend replicated`` serves on the replicated 2.5D form (split-K
+partial copies, their sum, the epilogue after).
 """
 
 from __future__ import annotations

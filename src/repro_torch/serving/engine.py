@@ -6,6 +6,8 @@ built with:
 
   "torch"          torch.matmul + epilogue (the JAX package's "xla")
   "sfc_cuda"       the hand-written SFC fused-GEMM kernel
+  "replicated"     the replicated 2.5D form: split-K partial copies, their
+                   sum, the epilogue after (``fuse=False``)
   "sfc_reference"  the Listing-1 reference loop
 
 Not ported in this slice: warmup and knob tuning (ROADMAP queue 1 item 13),

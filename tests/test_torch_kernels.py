@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (the fused GEMM with its preact mode,
-the NT/TN backward GEMMs with K8's update and norm modes, their grouped
+the replicated form's partial copies (K4/K5) and their sum (K6), the NT/TN
+backward GEMMs with K8's update and norm modes, their grouped
 MoE modes K3, K9 and K10 (with K10's update and norm modes), the
 attention flash forward in its band and dense modes, the flash backward's
 dQ and dK/dV, and the decode attention), each against its plain PyTorch
@@ -26,6 +27,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import sfc_attention as tsa  # noqa: E402
 from repro_torch.kernels import sfc_gemm as tk  # noqa: E402
 
@@ -326,6 +328,66 @@ def test_backward_gemm_kernels_reject_what_they_do_not_take():
                              stochastic_round=False, rows=8, cols=8, depth=4, vec_a=False, vec_b=False)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_layers", [1, 2, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["plain", "batched_shared", "per_batch_weights", "f32_copies", "kbf4"])
+def test_replicated_kernels_match_plain_versions_on_card(case, dtype, k_layers):
+    """K4 / K5 (the partial copies) and K6 (their sum) against their plain
+    versions on ragged shapes (K = 203, whose split at kbf 4 is the JAX
+    package's 104 + 99, not 102 + 101), and the whole unfused product with
+    every epilogue flag against the same call on the CPU."""
+    _card()
+    dt = getattr(torch, dtype)
+    a, b, _, bias, _, res = _inputs(dt, seed=11)
+    args, kw = {
+        "plain": ((a[0], b), {}),
+        "batched_shared": ((a, b), {}),
+        "per_batch_weights": ((a, b[None].repeat(3, 1, 1).contiguous()), {}),
+        "f32_copies": ((a, b), dict(out_dtype=torch.float32)),
+        "kbf4": ((a, b), dict(k_block_factor=4)),
+    }[case]
+    kw = dict(kw, k_layers=k_layers)
+    before = (tk.sfc_gemm_replicated.launches, tk.add_reduce.launches)
+    copies = tk.sfc_gemm_replicated(*args, **kw)
+    summed = tk.add_reduce(copies)
+    torch.cuda.synchronize()
+    assert (tk.sfc_gemm_replicated.launches, tk.add_reduce.launches) == (before[0] + 1, before[1] + 1)
+    want = tk.sfc_gemm_replicated_plain(*args, bm=64, bn=64, **kw)
+    assert copies.dtype == want.dtype and copies.shape == want.shape
+    assert _agree(copies, want, copies.dtype)
+    assert _agree(summed, tk.add_reduce_plain(copies), copies.dtype)
+    if case == "batched_shared":
+        # the unfused call: the sum of these copies in their type, then
+        # the epilogue in f32 and one cast (in bf16 held to the copies the
+        # kernel wrote: each is rounded before the sum); in f32 also
+        # against the same call on the CPU
+        ops_kw = dict(bias=bias, activation="gelu", out_scale=0.7, residual=res, k_layers=k_layers, fuse=False)
+        got = tops.sfc_matmul(a, b, **ops_kw)
+        want = tk._epilogue(tk.add_reduce_plain(copies).float(), None, bias, None, res, "gelu", 0.7).to(dt)
+        assert got.dtype == dt and _agree(got, want, dt)
+        if dt == torch.float32:
+            cpu = tops.sfc_matmul(a.cpu(), b.cpu(), bm=64, bn=64,
+                                  **{key: v.cpu() if isinstance(v, torch.Tensor) else v for key, v in ops_kw.items()})
+            assert _agree(got.cpu(), cpu, dt)
+
+
+@pytest.mark.cuda
+def test_replicated_kernels_reject_what_they_do_not_take():
+    _card()
+    a, b = torch.ones(4, 8, device="cuda"), torch.ones(8, 8, device="cuda")
+    with pytest.raises(TypeError):
+        tk.sfc_gemm_replicated(a.bfloat16(), b.bfloat16(), out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="compiled for"):
+        tk.sfc_gemm_replicated(a, b, bm=32, bn=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.sfc_gemm_replicated(a, torch.ones(8, 8, device="cuda").T)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.add_reduce(torch.ones(2, 8, 4, device="cuda").transpose(1, 2))
+    with pytest.raises(TypeError):
+        tk.add_reduce(torch.ones(2, 4, 8, device="cuda").half())
+
+
 def _state(rng, k, n, dtype):
     """f32 master / mu / nu of a later step (the moments away from zero, so
     the update is smooth in dW) and the weight, all on the card."""
@@ -474,7 +536,10 @@ def test_grouped_modes_are_arguments_of_the_existing_entries():
     for entry in ("SFC_ENTRY", "SFC_NT_ENTRY", "SFC_TN_ENTRY", "SFC_TNU_ENTRY"):
         decl = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
         assert "const int* grp, int n_groups, void* stream" in decl, entry
-    assert len(dict(build._gemm_parts())) == 20
+    # 16 forward, 2 NT / TN and 2 TN-update parts, and the replicated
+    # form's own 2 (K4/K5 and K6, one per input type)
+    parts = dict(build._gemm_parts())
+    assert len(parts) == 22 and sum(name.startswith("sfc_gemm_rep_") for name in parts) == 2
 
 
 def _grouped_inputs(rng, group_sizes, k, n, dtype, scale=0.1):

@@ -97,4 +97,9 @@ def test_namespaces_match_reference():
     assert tns.ALL_NAMESPACES == jns.ALL_NAMESPACES
     assert tns.schedule_namespace(tns.NS_GEMM, "abc") == jns.schedule_namespace(jns.NS_GEMM, "abc")
     assert tns.base_namespace("glu@123") == "glu"
-    assert tns.BACKENDS == ("torch", "sfc_cuda", "sfc_reference")
+    assert tns.BACKENDS == ("torch", "sfc_cuda", "replicated", "sfc_reference")
+    # one backend for each rung of the JAX package's ladder
+    rungs = dict(torch=jns.RUNG_XLA, sfc_cuda=jns.RUNG_SFC_PALLAS, replicated=jns.RUNG_REPLICATED,
+                 sfc_reference=jns.RUNG_SFC_REFERENCE)
+    assert set(rungs) == set(tns.BACKENDS) and set(rungs.values()) == set(jns.DEFAULT_LADDER)
+    assert tns.BACKEND_REPLICATED == jns.RUNG_REPLICATED

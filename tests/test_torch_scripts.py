@@ -99,3 +99,26 @@ def test_routing_reading_of_a_model_without_moe_layers_has_no_median():
     (req,) = out["requests"]
     assert (req["layers"], req["layers_with_different_topk"], req["first_layer_different"]) == (0, 0, None)
     assert req["topk_margin_median_torch"] is None and req["sets_through_step"] == 0
+
+
+def test_replicated_rows_cover_every_serve_shape_with_their_bounds():
+    """chip_smoke.py's replicated-form rows: every projection of the
+    qwen3-4b serve at decode (K4) and prefill (K5) at each k_layers, the LM
+    head at 1 and 8; the bounds count A and B once and the L copies once
+    (K4/K5) or the L copies and C once (K6)."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    cfg = get_config("qwen3_4b")
+    gemms = cs.replicated_gemms(cfg)
+    assert len(gemms) == 2 * 5 * len(cs.REP_LAYERS) + len(cs.REP_HEAD_LAYERS)
+    assert {(g.kernel, g.m) for g in gemms} == {("K4", cs.BATCH), ("K5", cs.PROMPT)}
+    kv8 = next(g for g in gemms if g.name == "decode/k,v" and g.layers == 8)
+    assert kv8.key == (0, cs.BATCH, 2560, 1024, 8) and kv8.reduce_key == (0, 8, cs.BATCH, 1024)
+    ms, by = kv8.bound()
+    nbytes = 2 * (4 * 2560 + 2560 * 1024) + 2 * 8 * 4 * 1024
+    assert by == "bytes" and ms == pytest.approx(nbytes / cs.PEAK_BYTES * 1e3)
+    glu = next(g for g in gemms if g.name == "prefill/mlp_glu" and g.layers == 8)
+    ms, by = glu.reduce_bound()
+    assert glu.copy_elem == 4 and by == "bytes"
+    assert ms == pytest.approx(4 * 9 * 4 * 128 * cfg.d_ff / cs.PEAK_BYTES * 1e3)
+    head = [g.layers for g in gemms if g.name == "head"]
+    assert head == list(cs.REP_HEAD_LAYERS) and glu.shape()["copies"] == "float32"
