@@ -6,8 +6,9 @@
 Builds the port's hand-written CUDA kernels from the sources in this
 checkout (src/repro_torch/kernels/csrc: the GEMM library with its forward
 and backward parts and the attention library with its forward, decode and
-backward parts, all compiled at once), then runs nine phases, each printing
-one JSON line (phases 3 and 6 two) and raising on failure:
+backward parts and the ABFT checksum lanes' parts, all compiled at once),
+then runs nine phases, each printing one JSON line (phases 2 and 6 two,
+phase 3 three) and raising on failure:
 
 1. device     the card's name and power limit (nvidia-smi) and the build time;
 2. kernels    each kernel against its plain PyTorch version at the shapes the
@@ -43,6 +44,25 @@ one JSON line (phases 3 and 6 two) and raising on failure:
               bf16, timed beside torch.bmm + torch._fused_adamw_, and on
               the ragged sizes in f32 and bf16 (the empty expert's g = 0
               update included);
+              the ABFT checksum lanes ("abft_lanes" line): K1/K2 at every
+              K1/K2 shape above and the ragged all-flags case, K3 at
+              olmoe's decode, prefill and training shapes and the ragged
+              sizes, K8 dW (single, dual) at every training shape with the
+              LM head, K8's update (bf16 stochastically rounded, f32) and
+              norm modes at every layer's training shape, each in bf16 and
+              f32: the lane within 1e-5 of the sum of |64 x 64 raw tile
+              sums| of its plain version's lane (never more than
+              robust.abft.tolerance(); a lane of 0, the plain lane less
+              its last tile and the ragged case's sum after the epilogue
+              must miss that limit), within tolerance() of the
+              operand-side reference, the
+              outputs with the lane on bitwise those with it off; timed in
+              bf16 with the lane on and off beside the operand-side
+              reference; a negative control per lane (one exponent bit of
+              one element of A flipped after the launch: eager verify
+              raises SdcDetected, "strict" in a step scope returns NaN and
+              counts one detection) and K8's update with an all-NaN
+              gradient (a NaN residual, no detection);
 3. grad check full-width qwen3-4b cut to 4 layers, f32, batch 2 x 256: the
               loss and every parameter's gradient under sfc_cuda GEMMs with
               attn_impl="sfc" against the torch backend with blockwise
@@ -52,6 +72,9 @@ one JSON line (phases 3 and 6 two) and raising on failure:
               unfused sfc_cuda step from the same init, with a clip that
               binds, for two steps, and a third step whose gradients are
               all NaN, which must leave every weight and state bitwise;
+              the same fused check again with both steps under
+              BackendConfig(abft="detect"): no detection, the NaN step's
+              NaN residuals none;
 4. serve      ServingEngine serves full-width qwen3-4b (36 layers, bf16,
               random weights from a seeded torch.Generator), 4 requests,
               prompt 128, 16 new tokens, five times: sfc_cuda GEMMs with
@@ -60,7 +83,15 @@ one JSON line (phases 3 and 6 two) and raising on failure:
               K14 launches), the "replicated" backend (exactly 252 K5 and
               3,796 K4 launches, no K6 and no K1/K2: k_layers is 1 at every
               shape), the same with every product split over 8 K layers
-              (as many K4/K5, 4,048 K6), and the torch backend.  A prefill
+              (as many K4/K5, 4,048 K6), and the torch backend.  The
+              attn_impl="sfc" serve again under ABFT "detect" (the prefill
+              in abft_mode, ServingEngine(verify_every=1)): 0 detections,
+              the same tokens, the same 3,472 K1/K2 launches, every one
+              with its checksum lane and checked (3,472 checks), the
+              verify ledger, its TTFT and decode gap, the largest
+              residual / tolerance; and one serve step (prefill and one
+              decode step) on "replicated" split over 8 K layers under
+              "detect" (the op-level K4/K5 + K6 checks).  A prefill
               under attn_impl="flash_pallas" must launch K15 36 times.  One
               decode step of sfc_cuda, both replicated serves and torch is
               profiled (device busy time, idle share, GEMM kernel time).  The
@@ -80,7 +111,12 @@ one JSON line (phases 3 and 6 two) and raising on failure:
               third run, between them, trains the same 3 steps with
               fused_optimizer=True (K8 in its norm and update modes, exactly
               217 of each and no dW launch per step, no weight left with a
-              .grad), its losses within 2^-7 of the unfused run's;
+              .grad), its losses within 2^-7 of the unfused run's; and both
+              again under BackendConfig(abft="detect") (no profiled step):
+              the same launches a step, 217 K1/K2 and 217 (fused: 434) K8
+              launches with the lane, 0 detections, losses within 2^-7 of
+              the runs without ABFT (bitwise or not is reported), step
+              times and peak memory, the largest residual / tolerance;
 6. grad check olmoe-1b-7b at full width cut to 2 layers, f32, as phase 3:
               the router and the expert stacks through K3, K9 and K10;
               then its fused step as phase 3's (K8's modes for q, k, v, o
@@ -95,7 +131,10 @@ one JSON line (phases 3 and 6 two) and raising on failure:
               cut to 4 layers within the bf16 bound of the torch backend's;
               where the bf16 greedy tokens part from torch's, the routing
               of both backends at that step (top-k sets that differ, the
-              router's probability gap of the swapped experts);
+              router's probability gap of the swapped experts); the
+              sfc_cuda serve again under ABFT "detect" (verify_every=1):
+              0 detections, tokens identical, 512 K3 and 1,296 K1/K2
+              launches, every one with its lane;
 8. train      `build_trainer` trains olmoe-1b-7b at full width on 8 of its 16
               layers (AdamW's 16 B a parameter: 57 GB) for 3 steps of 2 x 256
               tokens under sfc_cuda + attn_impl="sfc" (exactly 16 K3, 16 K9,
@@ -109,8 +148,12 @@ one JSON line (phases 3 and 6 two) and raising on failure:
               of their own);
 9. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
-              library times and the bound; before it, the seconds at which
-              each phase began and the run's total.
+              library times and the bound; the lane rows (K1/K2, K3, K8 dW,
+              update, norm with the lane) carry the launches of the ABFT
+              run of their path, the time with the lane off, the operand
+              reference's time and the partials their bound adds; before
+              it, the seconds at which each phase began and the run's
+              total.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository's src/repro_torch beside this file, it exits non-zero
@@ -1139,7 +1182,7 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
 
 
 def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, batches,
-                           layers=GRAD_CHECK_LAYERS):
+                           layers=GRAD_CHECK_LAYERS, abft=None):
     """The config at full width cut to ``layers`` layers, in f32: two
     fused-optimizer steps (sfc_cuda + attn_impl="sfc", AdamW of every
     projection in K8's update flush and, for a MoE config, of every expert
@@ -1149,7 +1192,11 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
     exact norm and update launches of both kernels and no dW launch; then a
     third fused step whose gradients are all NaN (a hook on the final
     norm's output): every weight and state bitwise unchanged, the step
-    counted."""
+    counted.  ``abft``: both runs' `BackendConfig.abft`; under "detect" no
+    step may count a detection (the NaN step's NaN residuals are none)."""
+    from repro_torch.robust import abft as abft_lib
+
+    abft_lib.reset_runtime_sdc()
     cfg4 = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32")
     kernels = {"sfc_gemm_tn": tk.sfc_gemm_tn, "sfc_gemm_grouped_tn": tk.sfc_gemm_grouped_tn}
     opt_cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3, clip_norm=FUSED_CHECK_CLIP)
@@ -1157,7 +1204,7 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
     for name, fused in (("unfused", False), ("fused", True)):
         model = build_model(cfg4, device="cuda").init(torch.Generator(device="cuda").manual_seed(7))
         step = make_train_step(model, opt_cfg, backend=BackendConfig(gemm_backend="sfc_cuda", attn_impl="sfc",
-                                                                     fused_optimizer=fused))
+                                                                     fused_optimizer=fused, abft=abft))
         state = opt.adamw_init(dict(model.named_parameters()))
         metrics = []
         modes0 = {k: dict(fn.launches_by_mode) for k, fn in kernels.items()}
@@ -1208,8 +1255,14 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
                           "unfused": [float(m["grad_norm"]) for m in metu]},
            "worst_err_over_bound": worst, "within_f32_bound": ok, "no_weight_has_grad": no_grad,
            "launches_by_mode_2_steps": modesf, "nonfinite_step_skipped_bitwise": skipped}
+    clean = True
+    if abft:
+        out["abft"] = {"mode": abft, "sdc_detections": abft_lib.runtime_sdc_total(),
+                       "checks": abft_lib.runtime_check_total(),
+                       "max_residual_over_tol": abft_lib.runtime_max_ratio()}
+        clean = out["abft"]["sdc_detections"] == 0 and out["abft"]["checks"] > 0
     del mf, sf, stepf, pf, before, slots
-    if not (ok and binds and no_grad and counts_ok and skipped):
+    if not (ok and binds and no_grad and counts_ok and skipped and clean):
         raise AssertionError(f"the fused step disagrees with the unfused one: {out}")
     return out
 
@@ -1273,15 +1326,20 @@ def _tn_mode_counts(counted):
             for name in ("sfc_gemm_tn", "sfc_gemm_grouped_tn") if name in counted for mode in ("dw", "norm", "update")}
 
 
-def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_groups=_KERNEL_GROUPS):
+def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_groups=_KERNEL_GROUPS, abft=None):
     """TRAIN_STEPS steps of `build_trainer` from seed 0, each step's launch
     counts, times and loss, then a profiled step.  Returns (run summary,
-    launches by shape of every counted kernel, their totals)."""
+    launches by shape of every counted kernel, their totals).  ``abft``:
+    `BackendConfig.abft`; such a run also counts each kernel's launches with
+    the checksum lane (``"<kernel>:abft"``) and reports the runtime ABFT
+    counters of its steps, and profiles no step."""
+    from repro_torch.robust import abft as abft_lib
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, opt_state, step_fn, batch_fn = build_trainer(
         cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=TRAIN_STEPS, seed=0,
-        gemm_backend=gemm, attn_impl=impl, fused_optimizer=fused, device="cuda")
+        gemm_backend=gemm, attn_impl=impl, fused_optimizer=fused, abft=abft, device="cuda")
     params = dict(model.named_parameters())
     # a fingerprint of each initial parameter (its f64 sum): every
     # parameter's f32 master must move off it
@@ -1291,12 +1349,16 @@ def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_gro
     losses, times, launches = [], [], []
     for fn in counted.values():
         fn.launches = 0
+        if hasattr(fn, "abft_launches"):
+            fn.abft_launches = 0
         for counter in ("launches_by_shape", "launches_by_mode"):
             if hasattr(fn, counter):
                 getattr(fn, counter).clear()
+    abft_lib.reset_runtime_sdc()
 
     def counts():
-        return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(counted)}
+        lanes = {f"{k}:abft": fn.abft_launches for k, fn in counted.items() if abft and hasattr(fn, "abft_launches")}
+        return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(counted), **lanes}
 
     for step in range(TRAIN_STEPS):
         batch = batch_fn(step)
@@ -1313,10 +1375,14 @@ def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_gro
            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "unchanged_params": unchanged,
            "params_with_grad": [n for n, p in params.items() if p.grad is not None],
            "launches_per_step": launches, "grad_norm_last": float(metrics["grad_norm"])}
+    if abft:
+        run["abft"] = {"mode": abft, "sdc_detections": abft_lib.runtime_sdc_total(),
+                       "checks": abft_lib.runtime_check_total(), "max_residual_over_tol": abft_lib.runtime_max_ratio()}
     by_shape = {k: dict(fn.launches_by_shape) for k, fn in counted.items() if hasattr(fn, "launches_by_shape")}
     by_shape["totals"] = counts()
-    # a fourth step, profiled, for the split of its time (not compared)
-    opt_state, run["profiled_step"] = profile_step(torch, step_fn, opt_state, batch_fn(TRAIN_STEPS), kernel_groups)
+    if not abft:  # a fourth step, profiled, for the split of its time (not compared)
+        opt_state, run["profiled_step"] = profile_step(torch, step_fn, opt_state, batch_fn(TRAIN_STEPS),
+                                                       kernel_groups)
     del model, opt_state, step_fn, batch_fn, params, metrics
     torch.cuda.empty_cache()
     return run, by_shape
@@ -1340,27 +1406,42 @@ def phase_train(torch, cfg, build_trainer, counted):
     # mode after it, and never writes dW
     want_fused = {**want, "sfc_gemm_tn": 2 * per_step, "sfc_gemm_tn:dw": 0, "sfc_gemm_tn:norm": per_step,
                   "sfc_gemm_tn:update": per_step}
+    # under ABFT "detect": the same launches, every K1/K2 and K8 one with
+    # its checksum lane (K7 and the attention kernels have none)
+    want_abft = {**want, "sfc_gemm_fused:abft": per_step, "sfc_gemm_tn:abft": per_step}
+    want_fused_abft = {**want_fused, "sfc_gemm_fused:abft": per_step, "sfc_gemm_tn:abft": 2 * per_step}
     runs, by_shape = {}, {}
-    for name, (gemm, impl, fused) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc", False)),
-                                      ("sfc_cuda+sfc_attn+fused_optimizer", ("sfc_cuda", "sfc", True)),
-                                      ("torch", ("torch", "blockwise", False))):
-        runs[name], shapes = _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused)
+    for name, (gemm, impl, fused, abft) in (
+            ("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc", False, None)),
+            ("sfc_cuda+sfc_attn+abft", ("sfc_cuda", "sfc", False, "detect")),
+            ("sfc_cuda+sfc_attn+fused_optimizer", ("sfc_cuda", "sfc", True, None)),
+            ("sfc_cuda+sfc_attn+fused_optimizer+abft", ("sfc_cuda", "sfc", True, "detect")),
+            ("torch", ("torch", "blockwise", False, None))):
+        runs[name], shapes = _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, abft=abft)
         if gemm == "sfc_cuda":
             by_shape[name] = shapes
     sfc, fused, ref = runs["sfc_cuda+sfc_attn"], runs["sfc_cuda+sfc_attn+fused_optimizer"], runs["torch"]
+    sfc_abft, fused_abft = runs["sfc_cuda+sfc_attn+abft"], runs["sfc_cuda+sfc_attn+fused_optimizer+abft"]
     loss_ok, fused_ok = _losses_close(sfc, ref), _losses_close(fused, sfc)
+    abft_ok = {"unfused": _losses_close(sfc_abft, sfc), "fused": _losses_close(fused_abft, fused)}
+    abft_bitwise = {"unfused": sfc_abft["losses"] == sfc["losses"], "fused": fused_abft["losses"] == fused["losses"]}
     out = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "launches_expected_per_step": want,
-           "fused_launches_expected_per_step": want_fused, "loss_within_2^-7": loss_ok,
-           "fused_loss_within_2^-7_of_unfused": fused_ok, **{f"{k}": v for k, v in runs.items()}}
+           "fused_launches_expected_per_step": want_fused, "abft_launches_expected_per_step": want_abft,
+           "fused_abft_launches_expected_per_step": want_fused_abft, "loss_within_2^-7": loss_ok,
+           "fused_loss_within_2^-7_of_unfused": fused_ok, "abft_loss_within_2^-7_of_off": abft_ok,
+           "abft_losses_bitwise_off": abft_bitwise, **{f"{k}": v for k, v in runs.items()}}
     emit(out)
-    for run, expect in ((sfc, want), (fused, want_fused)):
+    for run, expect in ((sfc, want), (fused, want_fused), (sfc_abft, want_abft), (fused_abft, want_fused_abft)):
         bad_counts = [i for i, c in enumerate(run["launches_per_step"]) if c != expect]
         if bad_counts:
             raise AssertionError(f"train steps {bad_counts} launched {run['launches_per_step']}, expected {expect}")
     if not all(loss_ok) or not all(fused_ok) or not all(math.isfinite(x) for x in ref["losses"]):
         raise AssertionError(f"train losses {sfc['losses']} (fused {fused['losses']}) vs torch {ref['losses']}: "
                              "not within 2^-7 or not finite")
+    for name, run in (("unfused", sfc_abft), ("fused", fused_abft)):
+        if not all(abft_ok[name]) or run["abft"]["sdc_detections"] or not run["abft"]["max_residual_over_tol"] < 1:
+            raise AssertionError(f"the {name} train run under ABFT detect: losses {run['losses']}, {run['abft']}")
     for name, run in runs.items():
         if run["unchanged_params"]:
             raise AssertionError(f"{name} training left parameters unchanged: {run['unchanged_params']}")
@@ -1799,8 +1880,13 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
     and under the torch backend: exactly 2 K3 launches a layer a forward
     and 5 K1/K2 a layer (q, k, v, o, the router) plus the head; the
     prefill logits of the same weights cut to MOE_SERVE_F32_LAYERS layers
-    in f32 within the bf16 bound of the torch backend's.  Returns (summary,
-    K3 launches by shape of the sfc_cuda run)."""
+    in f32 within the bf16 bound of the torch backend's.  Then the sfc_cuda
+    serve again under ABFT "detect" (the prefill in `abft_mode`, every
+    decode step verified, ``verify_every=1``): no detection, the same
+    tokens and launches, every K3 and K1/K2 launch with its checksum lane.
+    Returns (summary, K3 launches by shape of the sfc_cuda run and of the
+    one under ABFT)."""
+    from repro_torch.robust import abft
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -1840,13 +1926,37 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
         launches[name] = {k: fn.launches for k, fn in counted.items()}
         if name == "sfc_cuda":
             by_shape = dict(tk.sfc_gemm_grouped.launches_by_shape)
+    # the sfc_cuda serve under ABFT "detect": a fresh engine (its verify
+    # ledger starts at 0) after a warm-up one
+    for _ in range(2):
+        abft_eng = ServingEngine(dataclasses.replace(cfg, attn_impl="blockwise"), params, max_batch=BATCH, max_seq=PROMPT + NEW_TOKENS + 1,
+                                 gemm_backend="sfc_cuda", device="cuda", verify_every=1)
+        for fn in counted.values():
+            fn.launches = 0
+            if hasattr(fn, "launches_by_shape"):
+                fn.launches_by_shape.clear()
+        tk.sfc_gemm_grouped.abft_launches = tk.sfc_gemm_fused.abft_launches = 0
+        abft.reset_runtime_sdc()
+        with abft.abft_mode("detect"):
+            done["sfc_cuda+abft"] = abft_eng.run(abft_eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
+        torch.cuda.synchronize()
+    launches["sfc_cuda+abft"] = {**{k: fn.launches for k, fn in counted.items()},
+                                 "sfc_gemm_grouped:abft": tk.sfc_gemm_grouped.abft_launches,
+                                 "sfc_gemm_fused:abft": tk.sfc_gemm_fused.abft_launches}
+    want["sfc_cuda+abft"] = {**want["sfc_cuda"], "sfc_gemm_grouped:abft": gemm_want["sfc_gemm_grouped"],
+                             "sfc_gemm_fused:abft": gemm_want["sfc_gemm_fused"]}
+    abft_by_shape = dict(tk.sfc_gemm_grouped.launches_by_shape)
+    abft_serve = {"verify": abft_eng.degradation_report()["verify"], "sdc_detections": abft.runtime_sdc_total(),
+                  "checks": abft.runtime_check_total(), "max_residual_over_tol": abft.runtime_max_ratio()}
+    del abft_eng
     for batch in done.values():
         for r in batch:
             if (r.status != "completed" or len(r.output) != NEW_TOKENS
                     or not all(0 <= t < cfg.vocab for t in r.output)):
                 raise AssertionError(f"olmoe request {r.uid} ended {r.status} with {len(r.output or [])} tokens")
-    reports = {name: engines[name].latency_report(batch) for name, batch in done.items()}
+    reports = {name: ServingEngine.latency_report(batch) for name, batch in done.items()}
     tokens_of = {name: np.array([r.output for r in batch]) for name, batch in done.items()}
+    abft_serve["tokens_identical_to_off"] = bool((tokens_of["sfc_cuda+abft"] == tokens_of["sfc_cuda"]).all())
     tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
     logits = {name: eng._prefill(tokens)[0].float() for name, eng in engines.items()}
     divergence = moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, cfg.moe_top_k)
@@ -1881,6 +1991,7 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
                                for name in ("sfc_cuda", "sfc_cuda+sfc_attn")},
         "routing_at_divergence": divergence,
         "latency": reports,
+        "abft_detect": abft_serve,
     }
     emit(out)
     del model, params, logits, logits32
@@ -1893,7 +2004,10 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
         if not res["ok"]:
             raise AssertionError(f"olmoe f32 prefill logits {name} vs torch: max err {res['max_abs_err']}, "
                                  f"err/bound {res['err_over_bound']}")
-    return out, by_shape
+    if abft_serve["sdc_detections"] or not abft_serve["tokens_identical_to_off"] or not (
+            abft_serve["max_residual_over_tol"] < 1):
+        raise AssertionError(f"the olmoe serve under ABFT detect: {abft_serve}")
+    return out, by_shape, abft_by_shape
 
 
 def phase_moe_train(torch, cfg, build_trainer, counted):
@@ -1954,6 +2068,371 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
     return out, by_shape
 
 
+# ---------------------------------------------------------------------------
+# ABFT: the checksum lanes of K1/K2, K3 and K8 (dW, update, norm)
+# ---------------------------------------------------------------------------
+
+# exponent bit 4 of a bf16 / f32 element: flipped on an element of
+# magnitude in [2, 65536), it multiplies that element by 2^16
+_EXP_BIT4 = {"bfloat16": 1 << 11, "float32": 1 << 27}
+
+
+def flip_exponent_bit(torch, x):
+    """A copy of ``x`` with exponent bit 4 of its largest element flipped:
+    one input element corrupted silently, 2^16 times larger."""
+    flat = x.detach().reshape(-1).clone()
+    i = int(flat.float().abs().argmax())
+    if not 2.0 <= abs(float(flat[i])) < 65536.0:
+        raise AssertionError(f"the largest element {float(flat[i])} is not in [2, 65536)")
+    bits = flat.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+    bits[i] = bits[i] ^ _EXP_BIT4[str(x.dtype).split(".")[1]]
+    return flat.reshape(x.shape)
+
+
+def _once_ms(torch, fn):
+    """(result, ms) of one call, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+# A lane and its plain version's lane sum the same f32 raw accumulators in
+# other orders, so they are held far inside `tolerance()` (which allows for
+# the operand side's reassociation and, for bf16, a cast): within LANE_RTOL
+# of the sum of |each tile's raw sum| at LANE_TILE x LANE_TILE tiles.  A
+# lane that wrote 0, dropped a task or summed after the epilogue misses it
+# (the lane-side controls).  On an H100 the lanes came within 0.32 of it
+# (bf16 at decode) and every control missed it by 3x or more.
+LANE_RTOL = 1e-5
+LANE_TILE = 64
+
+
+def raw_tile_sums(torch, *raws):
+    """The f32 sum of each LANE_TILE x LANE_TILE block (edge blocks clipped)
+    of the last two dims of the raw products ``raws``, the raws added block
+    by block as the GLU's lane adds its two accumulators: a lane's
+    partials at that tile, flattened, the bottom-right block last."""
+    total = None
+    for c in raws:
+        r, k = c.shape[-2:]
+        c = torch.nn.functional.pad(c.float(), (0, -k % LANE_TILE, 0, -r % LANE_TILE))
+        s = c.reshape(*c.shape[:-2], c.shape[-2] // LANE_TILE, LANE_TILE, c.shape[-1] // LANE_TILE,
+                      LANE_TILE).sum(dim=(-3, -1))
+        total = s if total is None else total + s
+    return total.reshape(-1)
+
+
+def lane_limit(tiles, tol):
+    """How far a lane may sit from its plain version's: LANE_RTOL of the
+    sum of |tile sums|, never more than ``tol`` (`tolerance()`)."""
+    return min(LANE_RTOL * float(tiles.abs().sum()) + 1e-30, float(tol))
+
+
+def grouped_raw(torch, a, w, sizes):
+    """(E, max rows, N) f32 raw products of a grouped GEMM: expert e's rows
+    of ``a`` (sorted by expert) against ``w[e]``, from row 0 of its slab
+    (zero rows below), so that its row blocks are the kernel's."""
+    e, dev = len(sizes), a.device
+    sz = torch.tensor(sizes, device=dev)
+    expert = torch.repeat_interleave(torch.arange(e, device=dev), sz, output_size=a.shape[0])
+    pos = torch.arange(a.shape[0], device=dev) - (torch.cumsum(sz, 0) - sz)[expert]
+    slab = torch.zeros((e, max(sizes, default=0), a.shape[1]), dtype=torch.float32, device=dev)
+    slab[expert, pos] = a.float()
+    return slab @ w.float()
+
+
+def _lane_check(torch, abft, case, lane, plain_lane, ref, mag, depth, on, off, tiles, wrong=None, **extra):
+    """The three checks of a lane: its checksum within `lane_limit` of its
+    plain version's lane (``tiles``: `raw_tile_sums` of the launch's raw
+    products), within `tolerance()` of the operand-side reference, and the
+    outputs with the lane on bitwise those with it off.  ``wrong``: the
+    lane-side controls, lanes of a faulty kernel ({name: value}), each of
+    which must miss the plain lane by more than the limit."""
+    tol = float(abft.tolerance(mag, depth))
+    limit = lane_limit(tiles, tol)
+    lane_f, plain_f, ref_f = float(lane), float(plain_lane), float(ref)
+    res = {"case": case, **extra, "lane": lane_f, "plain_lane": plain_f, "operand_ref": ref_f, "tolerance": tol,
+           "lane_limit": limit, "lane_vs_plain_over_limit": abs(lane_f - plain_f) / limit,
+           "lane_vs_ref_over_tol": abs(lane_f - ref_f) / tol,
+           "outputs_bitwise_lane_off": all(torch.equal(x, y) for x, y in zip(on, off))}
+    if wrong:
+        res["lane_side_controls_over_limit"] = {k: abs(float(v) - plain_f) / limit for k, v in wrong.items()}
+    res["ok"] = (res["lane_vs_plain_over_limit"] <= 1 and res["lane_vs_ref_over_tol"] <= 1
+                 and res["outputs_bitwise_lane_off"]
+                 and all(r > 1 for r in res.get("lane_side_controls_over_limit", {}).values()))
+    if not res["ok"]:
+        raise AssertionError(f"ABFT lane check failed: {res}")
+    return res
+
+
+def _dropped(plain_lane, tiles):
+    """The lane-side controls: a lane of 0, and the plain lane with its
+    last tile's partial left out (a kernel that skipped its last task)."""
+    return {"zero": 0.0, "last_tile_dropped": float(plain_lane) - float(tiles[-1])}
+
+
+def _negative_control(torch, abft, namespace, out, chk, ref_of, a, depth):
+    """One input element of A flipped after the launch (`flip_exponent_bit`)
+    and the reference taken from the flipped A: eager `verify` must raise
+    `SdcDetected`, and under "strict" in a step scope the output must come
+    back NaN and the scope count one detection."""
+    ref, mag = ref_of(flip_exponent_bit(torch, a))
+    try:
+        abft.verify(namespace, out, chk, ref, mag, contract_dim=depth, mode="detect")
+        raised = False
+    except abft.SdcDetected:
+        raised = True
+    before = abft.runtime_sdc_total()
+    with abft.step_scope() as scope:
+        poisoned = abft.verify(namespace, out, chk, ref, mag, contract_dim=depth, mode="strict")
+    outs = poisoned if isinstance(poisoned, tuple) else (poisoned,)
+    res = {"raised_sdc_detected": raised, "strict_output_nan": all(bool(torch.isnan(x).all()) for x in outs),
+           "strict_counted": abft.runtime_sdc_total() - before, "scope_detections": scope.detections}
+    if not (raised and res["strict_output_nan"] and res["strict_counted"] == 1):
+        raise AssertionError(f"ABFT negative control in {namespace!r} failed: {res}")
+    return res
+
+
+def _lane_row(kernel, gm, lane_err, ms, off_ms, ref_ms, plain_ms, bound, partials):
+    """A lane's row of the kernels line: its time with the lane on and off,
+    the operand-side reference's, and the bound of the launch with the
+    partials it writes (4 B a task and set)."""
+    flops, nbytes, peak = bound
+    bound_ms, bound_by = _bound(flops, nbytes + 4.0 * partials, peak)
+    return dict(kernel=kernel, gemm=gm, max_abs_err=lane_err, ms=ms, lane_off_ms=off_ms, operand_ref_ms=ref_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, partials=partials)
+
+
+def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
+    """Each checksum lane against its plain version's lane and the
+    operand-side reference within `tolerance()`, its outputs bitwise those
+    with the lane off, at every shape of its path in bf16 and f32: K1/K2 at
+    phase 2's K1/K2 shapes and its ragged case with every epilogue flag; K3
+    at olmoe's decode, prefill and training shapes and on RAGGED_GROUPS; K8
+    dW, single and dual, at every training shape, the LM head included;
+    K8's update (bf16 stochastically rounded, f32) and norm modes at every
+    layer's training shape.  In bf16 each is timed with the lane on and off
+    beside the operand-side reference (`gemm_checksum_ref` /
+    `tn_checksum_ref`).  Then a negative control per lane, and K8's update
+    with an all-NaN gradient, whose NaN residual is no detection.  Returns
+    (rows, checks, controls)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows, checks, controls = [], [], {}
+
+    def r(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # K1/K2 at the main path's shapes
+    for gm in main_path_gemms(cfg):
+        for dt in (torch.bfloat16, torch.float32):
+            lead = (gm.batch,) if gm.batch else ()
+            copies = max(1, math.ceil(4 * L2_BYTES / (gm.k * gm.n * 2 * (2 if gm.glu else 1)))) \
+                if dt == torch.bfloat16 else 1
+            a = r(*lead, gm.m, gm.k, dtype=dt)
+            ws = [r(gm.k, gm.n, dtype=dt, scale=0.02) for _ in range(copies)]
+            gs = [r(gm.k, gm.n, dtype=dt, scale=0.02) for _ in range(copies)] if gm.glu else [None] * copies
+            kw = dict(preact=True) if gm.preact else dict(activation=cfg.act if gm.glu else None)
+
+            def call(i, lane):
+                return tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies], abft=lane, **kw)
+
+            on, off = call(0, True), call(0, False)
+            off = off if isinstance(off, tuple) else (off,)
+            bm, bn, _ = ops.pick_blocks(gm.m, gm.n, gm.k)
+            plain, plain_ms = _once_ms(torch, lambda: tk.sfc_gemm_fused_plain(a, ws[0], gs[0], bm=bm, bn=bn,
+                                                                             abft=True, **kw))
+            ref, mag = abft.gemm_checksum_ref(a, ws[0], gs[0])
+            af = a.float()
+            tiles = raw_tile_sums(torch, *(af @ x.float() for x in (ws[0], gs[0]) if x is not None))
+            del af
+            checks.append(_lane_check(torch, abft, f"K1/K2:{gm.name}", on[-1], plain[-1], ref, mag, gm.k, on[:-1], off,
+                                      tiles, _dropped(plain[-1], tiles) if gm.name == "decode/q" else None,
+                                      dtype=str(dt)))
+            if dt == torch.bfloat16:
+                if gm.name == "decode/q":
+                    controls["K1/K2 decode/q"] = _negative_control(
+                        torch, abft, "gemm", on[0], on[-1], lambda x: abft.gemm_checksum_ref(x, ws[0]), a, gm.k)
+                reps = max(20, copies)
+                ms = time_ms(lambda i: call(i, True), reps=reps, graph=True)
+                off_ms = time_ms(lambda i: call(i, False), reps=reps, graph=True)
+                ref_ms = time_ms(lambda i: abft.gemm_checksum_ref(a, ws[i % copies], gs[i % copies]), reps=reps,
+                                 graph=True)
+                tasks = max(gm.batch, 1) * math.ceil(gm.m / 64) * math.ceil(gm.n / 64)
+                rows.append(_lane_row("K1/K2", gm, abs(float(on[-1]) - float(plain[-1])), ms, off_ms, ref_ms,
+                                      plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), tasks))
+            del a, ws, gs, on, off, plain, tiles
+    # the ragged case with every epilogue flag, in both input types
+    for dt in (torch.float32, torch.bfloat16):
+        m, k, n = 77, 203, 133
+        args = (r(3, m, k, dtype=dt), r(k, n, dtype=dt, scale=0.1), r(k, n, dtype=dt, scale=0.1), r(n, dtype=dt),
+                r(1, n, dtype=dt), r(3, m, n, dtype=dt))
+        kw = dict(activation="gelu", out_scale=0.7)
+        on, off = tk.sfc_gemm_fused(*args, abft=True, **kw), tk.sfc_gemm_fused(*args, **kw)
+        plain = tk.sfc_gemm_fused_plain(*args, bm=32, bn=32, abft=True, **kw)
+        ref, mag = abft.gemm_checksum_ref(args[0], args[1], args[2])
+        tiles = raw_tile_sums(torch, args[0].float() @ args[1].float(), args[0].float() @ args[2].float())
+        wrong = {**_dropped(plain[-1], tiles), "after_epilogue": on[0].float().sum()}
+        checks.append(_lane_check(torch, abft, "K1/K2:all_epilogue_flags_ragged", on[-1], plain[-1], ref, mag, k,
+                                  on[:-1], (off,), tiles, wrong, dtype=str(dt), shape=[3, m, k, n]))
+    # K3 at olmoe's shapes, then on the ragged expert sizes
+    fwd = [gm for gm in moe_grouped_gemms(ocfg) if gm.kind == "fwd"]
+    d, f = fwd[0].k, fwd[0].n
+    e = len(RAGGED_GROUPS)
+    ragged = [GroupedGemm("ragged/glu", "fwd", "-", e, 0, d, f, glu=True),
+              GroupedGemm("ragged/glu_preact", "fwd", "-", e, 0, d, f, glu=True, preact=True),
+              GroupedGemm("ragged/w_out", "fwd", "-", e, 0, f, d)]
+    for gm in fwd + ragged:
+        sizes = (gm.rows,) * gm.experts if gm.rows else RAGGED_GROUPS
+        for dt in (torch.bfloat16, torch.float32):
+            args, kw, _ = _grouped_operands(torch, gm, dt, gen, rows=sizes)
+            a, w, wg = args[0], args[1], args[2] if gm.glu else None
+
+            def call(lane):
+                return tk.sfc_gemm_grouped(*args, group_sizes=sizes, abft=lane, **kw)
+
+            on, off = call(True), call(False)
+            off = off if isinstance(off, tuple) else (off,)
+            plain, plain_ms = _once_ms(torch, lambda: tk.sfc_gemm_grouped_plain(*args, group_sizes=sizes, bm=64, bn=64,
+                                                                               abft=True, **kw))
+
+            def ref_of(x):
+                return abft.grouped_checksum_ref(x, w, wg, sizes)
+
+            ref, mag = ref_of(a)
+            tiles = raw_tile_sums(torch, *(grouped_raw(torch, a, x, sizes) for x in (w, wg) if x is not None))
+            wrong = _dropped(plain[-1], tiles) if gm.name in ("decode/glu", "ragged/glu") else None
+            checks.append(_lane_check(torch, abft, f"K3:{gm.name}", on[-1], plain[-1], ref, mag, gm.k, on[:-1], off,
+                                      tiles, wrong, dtype=str(dt), group_sizes=list(sizes)))
+            if dt == torch.bfloat16 and gm.path == "serve":
+                if gm.name == "decode/glu":
+                    controls["K3 decode/glu"] = _negative_control(torch, abft, "grouped_glu", on[0], on[-1], ref_of,
+                                                                  a, gm.k)
+                ms = time_ms(lambda i: call(True), reps=20, graph=True)
+                off_ms = time_ms(lambda i: call(False), reps=20, graph=True)
+                ref_ms = time_ms(lambda i: ref_of(a), reps=20, graph=True)
+                tasks = gm.experts * math.ceil(gm.rows / 64) * math.ceil(gm.n / 64)
+                rows.append(_lane_row("K3", gm, abs(float(on[-1]) - float(plain[-1])), ms, off_ms, ref_ms, plain_ms,
+                                      (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), tasks))
+            del args, a, w, wg, on, off, plain, tiles
+            torch.cuda.empty_cache()
+    # K8 dW at every training shape
+    for gm in [g for g in train_backward_gemms(cfg) if g.kind == "tn"]:
+        for dt in (torch.bfloat16, torch.float32):
+            copies = max(1, math.ceil(4 * L2_BYTES / gm.bytes(2))) if dt == torch.bfloat16 else 1
+            ins = [(r(gm.m, gm.k, dtype=dt), r(gm.m, gm.n, dtype=dt), r(gm.m, gm.n, dtype=dt) if gm.dual else None)
+                   for _ in range(copies)]
+            x, dc, dc2 = ins[0]
+            on, off = tk.sfc_gemm_tn(x, dc, dc2, abft=True), tk.sfc_gemm_tn(x, dc, dc2)
+            off = off if isinstance(off, tuple) else (off,)
+            plain, plain_ms = _once_ms(torch, lambda: tk.sfc_gemm_tn_plain(x, dc, dc2, bm=64, bn=64, abft=True))
+            for s, d_ in enumerate((dc, dc2) if gm.dual else (dc,)):
+                ref, mag = abft.tn_checksum_ref(x, d_)
+                tiles = raw_tile_sums(torch, x.float().T @ d_.float())
+                checks.append(_lane_check(torch, abft, f"K8 dW:{gm.name}[{s}]", on[-1][s, 0], plain[-1][s, 0], ref,
+                                          mag, gm.m, on[:-1], off, tiles,
+                                          _dropped(plain[-1][s, 0], tiles) if gm.name == "train/q" else None,
+                                          dtype=str(dt)))
+                del tiles
+            if dt == torch.bfloat16:
+                if gm.name == "train/q":
+                    controls["K8 dW train/q"] = _negative_control(
+                        torch, abft, "tn", on[0], on[-1][0, 0], lambda a_: abft.tn_checksum_ref(a_, dc), x, gm.m)
+                reps = max(20, copies)
+                ms = time_ms(lambda i: tk.sfc_gemm_tn(*ins[i % copies], abft=True), reps=reps, graph=True)
+                off_ms = time_ms(lambda i: tk.sfc_gemm_tn(*ins[i % copies]), reps=reps, graph=True)
+                ref_ms = time_ms(lambda i: [abft.tn_checksum_ref(ins[i % copies][0], d_)
+                                            for d_ in ins[i % copies][1:] if d_ is not None], reps=reps, graph=True)
+                sets = 2 if gm.dual else 1
+                tasks = sets * math.ceil(gm.k / 64) * math.ceil(gm.n / 64)
+                rows.append(_lane_row("K8 dW", gm, abs(float(on[-1][0, 0]) - float(plain[-1][0, 0])), ms, off_ms,
+                                      ref_ms, plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), tasks))
+            del ins, x, dc, dc2, on, off, plain
+            torch.cuda.empty_cache()
+    # K8's update and norm modes at every layer's training shape
+    hyper = opt.pack_adamw_hyper(opt.AdamWConfig(lr=1e-2), torch.tensor(7, dtype=torch.int32, device=dev),
+                                 torch.tensor(0.37, device=dev))
+    salt = (3 << 16) + 5
+
+    def state(gm, dt):
+        g = math.sqrt(gm.m)
+        out = []
+        for _ in range(gm.sets):
+            mst = r(gm.k, gm.n, dtype=torch.float32, scale=0.02)
+            out.append((mst, r(gm.k, gm.n, dtype=torch.float32, scale=0.5 * g),
+                        r(gm.k, gm.n, dtype=torch.float32, scale=2.0 * g) ** 2 + 1.0, mst.to(dt)))
+        return out
+
+    def update(fn, x, dcs, sets, dt, **kw):
+        (m1, u1, v1, w1), *rest = sets
+        second = list(rest[0][:3]) if rest else [None] * 3
+        return fn(x, dcs[0], dcs[1] if rest else None, m1, u1, v1, *second, hyper, w=w1,
+                  w2=rest[0][3] if rest else None, salt=salt, stochastic_round=dt == torch.bfloat16, **kw)
+
+    def clone(sets):
+        return [tuple(t.clone() for t in st) for st in sets]
+
+    for gm in [g for g in train_update_gemms(cfg) if g.name != "train/head"]:
+        for dt in (torch.bfloat16, torch.float32):
+            x, dcs, sets = r(gm.m, gm.k, dtype=dt), [r(gm.m, gm.n, dtype=dt) for _ in range(gm.sets)], state(gm, dt)
+            on_sets, off_sets = clone(sets), clone(sets)
+            norms_on, chk = update(tk.sfc_gemm_tn, x, dcs, on_sets, dt, abft=True)
+            norms_off = update(tk.sfc_gemm_tn, x, dcs, off_sets, dt)
+            (_, plain_chk), plain_ms = _once_ms(torch, lambda: update(tk.sfc_gemm_tn_plain, x, dcs, clone(sets), dt,
+                                                                      bm=64, bn=64, abft=True))
+            nnorm_on, nchk = tk.sfc_gemm_tn(x, *dcs, norm=True, abft=True)
+            nnorm_off = tk.sfc_gemm_tn(x, *dcs, norm=True)
+            on_all = [norms_on, *(t for st in on_sets for t in st)]
+            off_all = [norms_off, *(t for st in off_sets for t in st)]
+            for s, d_ in enumerate(dcs):
+                ref, mag = abft.tn_checksum_ref(x, d_)
+                tiles = raw_tile_sums(torch, x.float().T @ d_.float())
+                wrong = _dropped(plain_chk[s, 0], tiles) if gm.name == "train/q" else None
+                checks.append(_lane_check(torch, abft, f"K8 update:{gm.name}[{s}]", chk[s, 0], plain_chk[s, 0], ref,
+                                          mag, gm.m, on_all, off_all, tiles, wrong, dtype=str(dt),
+                                          stochastic_round=dt == torch.bfloat16))
+                checks.append(_lane_check(torch, abft, f"K8 norm:{gm.name}[{s}]", nchk[s, 0], plain_chk[s, 0], ref,
+                                          mag, gm.m, [nnorm_on], [nnorm_off], tiles, wrong, dtype=str(dt)))
+                del tiles
+            if dt == torch.bfloat16:
+                if gm.name == "train/q":
+                    controls["K8 update train/q"] = _negative_control(
+                        torch, abft, "tn_update", norms_on, chk[0, 0], lambda a_: abft.tn_checksum_ref(a_, dcs[0]),
+                        x, gm.m)
+                    # an all-NaN gradient: a NaN residual, which is no detection
+                    nan_dc = torch.full_like(dcs[0], float("nan"))
+                    _, nan_chk = update(tk.sfc_gemm_tn, x, [nan_dc], clone(sets), dt, abft=True)
+                    nan_ref, nan_mag = abft.tn_checksum_ref(x, nan_dc)
+                    before = abft.runtime_sdc_total()
+                    abft.verify("tn_update", norms_on, nan_chk[0, 0], nan_ref, nan_mag, contract_dim=gm.m,
+                                mode="detect")  # eager: raises on a detection
+                    with abft.step_scope() as scope:
+                        abft.verify("tn_update", norms_on, nan_chk[0, 0], nan_ref, nan_mag, contract_dim=gm.m,
+                                    mode="strict")
+                    controls["K8 update, all-NaN gradient"] = {
+                        "lane_is_nan": bool(torch.isnan(nan_chk).all()), "detections": scope.detections,
+                        "counted": abft.runtime_sdc_total() - before}
+                    if not controls["K8 update, all-NaN gradient"]["lane_is_nan"] or scope.detections:
+                        raise AssertionError(f"the NaN step's lane: {controls['K8 update, all-NaN gradient']}")
+                ms = time_ms(lambda i: update(tk.sfc_gemm_tn, x, dcs, on_sets, dt, abft=True), reps=20, graph=True)
+                off_ms = time_ms(lambda i: update(tk.sfc_gemm_tn, x, dcs, off_sets, dt), reps=20, graph=True)
+                ref_ms = time_ms(lambda i: [abft.tn_checksum_ref(x, d_) for d_ in dcs], reps=20, graph=True)
+                nms = time_ms(lambda i: tk.sfc_gemm_tn(x, *dcs, norm=True, abft=True), reps=20, graph=True)
+                noff_ms = time_ms(lambda i: tk.sfc_gemm_tn(x, *dcs, norm=True), reps=20, graph=True)
+                tasks = gm.sets * math.ceil(gm.k / 64) * math.ceil(gm.n / 64)
+                err = abs(float(chk[0, 0]) - float(plain_chk[0, 0]))
+                for mode, t_on, t_off in (("update", ms, off_ms), ("norm", nms, noff_ms)):
+                    g2 = dataclasses.replace(gm, mode=mode)
+                    rows.append(_lane_row(f"K8 {mode}", g2, err, t_on, t_off, ref_ms, plain_ms,
+                                          (g2.flops(), g2.bytes(2), PEAK_BF16_FLOPS), tasks))
+            del x, dcs, sets, on_sets, off_sets
+            torch.cuda.empty_cache()
+    return rows, checks, controls
+
+
 def small_reference_check(torch, get_config, build_model, gemm_backend):
     """Reduced qwen3-4b in f32 on the card: sfc_cuda logits against the
     Listing-1 reference backend at rtol 1e-4 (prefill and 3 decode steps)."""
@@ -2006,6 +2485,7 @@ def main() -> int:
     from repro_torch.launch.train import build_trainer
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw as opt
+    from repro_torch.robust import abft
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.train.step import BackendConfig, make_train_step
 
@@ -2040,6 +2520,8 @@ def main() -> int:
     ocfg = get_config(MOE_ARCH)
     grouped_rows, grouped_checks = phase_grouped_gemms(torch, moe_grouped_gemms(ocfg), tk)
     grouped_upd_rows, grouped_upd_checks = phase_grouped_update_gemms(torch, ocfg, tk, opt)
+    phase_at["2, the ABFT lanes"] = time.perf_counter() - run_t0
+    lane_rows, lane_checks, lane_controls = phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt)
     small = small_reference_check(torch, get_config, build_model, gemm_backend)
     emit({"phase": "kernels_vs_plain", "ok": True, "tolerance": {
         "float32": f"|k-p| <= {F32_RTOL}|p| + {F32_ATOL_REL} max|p|",
@@ -2051,6 +2533,17 @@ def main() -> int:
         "checks": checks + rep_checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
                   + grouped_upd_checks,
         "reduced_model_f32_vs_reference": small})
+    emit({"phase": "abft_lanes", "ok": True,
+          "tolerance": f"|lane - plain lane| <= min({LANE_RTOL} * sum |{LANE_TILE}x{LANE_TILE} raw tile sums|, "
+                       "robust.abft.tolerance(mag, depth)), and each lane-side control (a lane of 0, the plain lane "
+                       "less its last tile, the ragged case's sum after the epilogue) beyond it; "
+                       "|lane - operand reference| <= robust.abft.tolerance(mag, depth); "
+                       "the outputs with the lane on bitwise those with it off",
+          "max_lane_vs_plain_over_limit": max(c["lane_vs_plain_over_limit"] for c in lane_checks),
+          "min_lane_side_control_over_limit": min(r for c in lane_checks
+                                                  for r in c.get("lane_side_controls_over_limit", {}).values()),
+          "max_lane_vs_ref_over_tol": max(c["lane_vs_ref_over_tol"] for c in lane_checks),
+          "checks": lane_checks, "negative_controls": lane_controls})
     torch.cuda.empty_cache()
 
     # ---- 3. gradients of a 4-layer full-width model in f32 -----------------
@@ -2063,6 +2556,10 @@ def main() -> int:
     fc_batches = [{key: torch.from_numpy(val).cuda() for key, val in data.batch(i).items()} for i in range(3)]
     emit({"phase": "fused_step_check", "ok": True,
           **phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, fc_batches)})
+    gc.collect()
+    emit({"phase": "fused_step_check_abft", "ok": True,
+          **phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, fc_batches,
+                                   abft="detect")})
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2152,6 +2649,44 @@ def main() -> int:
         rep_by_shape[name] = (dict(tk.sfc_gemm_replicated.launches_by_shape), dict(tk.add_reduce.launches_by_shape))
         if rep_counts[name] != want:
             raise AssertionError(f"{name} serve launched {rep_counts[name]}, expected {want}")
+    # the attn_impl="sfc" serve again under ABFT "detect": the prefill in
+    # abft_mode (eager checks), every decode step verified in a step scope
+    # (verify_every=1); a warm-up engine, then a fresh one (its ledger at 0)
+    for prompts_, new in ((prompts[:1], 2), (prompts, NEW_TOKENS)):
+        abft_eng = ServingEngine(dataclasses.replace(cfg, attn_impl="sfc"), params, max_batch=BATCH,
+                                 max_seq=PROMPT + NEW_TOKENS + 1, gemm_backend="sfc_cuda", device="cuda",
+                                 verify_every=1)
+        torch.cuda.synchronize()
+        reset_counts()
+        tk.sfc_gemm_fused.abft_launches = 0
+        abft.reset_runtime_sdc()
+        with abft.abft_mode("detect"):
+            done_abft = abft_eng.run(abft_eng.submit_many(prompts_, max_new_tokens=new))
+        torch.cuda.synchronize()
+    abft_by_shape = dict(tk.sfc_gemm_fused.launches_by_shape)
+    abft_serve = {
+        "verify": abft_eng.degradation_report()["verify"], "sdc_detections": abft.runtime_sdc_total(),
+        "checks": abft.runtime_check_total(), "max_residual_over_tol": abft.runtime_max_ratio(),
+        "launches": {"sfc_gemm_fused": tk.sfc_gemm_fused.launches, "with_lane": tk.sfc_gemm_fused.abft_launches,
+                     **{k: attn_kernels[k].launches for k in want_attn}},
+        "tokens_identical_to_off": [r.output for r in done_abft] == [r.output for r in done["sfc_cuda+sfc_attn"]],
+        "latency": abft_eng.latency_report(done_abft),
+    }
+    del abft_eng
+    # one serve step (the prefill and one decode step) on "replicated" split
+    # over REP_SERVE_LAYERS K layers under "detect": the op-level checks of
+    # K4 / K5 + K6 (eager; a detection raises)
+    eng = engines["replicated"]
+    reset_counts()
+    abft.reset_runtime_sdc()
+    with ops.knob_defaults(k_layers=REP_SERVE_LAYERS), abft.abft_mode("detect"):
+        rep_abft = eng.run(eng.submit_many(prompts, max_new_tokens=2))
+    torch.cuda.synchronize()
+    abft_serve[f"replicated@k{REP_SERVE_LAYERS}_one_decode_step"] = {
+        "checks": abft.runtime_check_total(), "max_residual_over_tol": abft.runtime_max_ratio(),
+        "launches": replicated_counts(),
+        "tokens_identical_to_off": [r.output for r in rep_abft] == [r.output[:2] for r in
+                                                                      done[f"replicated@k{REP_SERVE_LAYERS}"]]}
     done["torch"] = engines["torch"].run(engines["torch"].submit_many(prompts, max_new_tokens=NEW_TOKENS))
     reports = {name: engines[name.split("@")[0]].latency_report(batch) for name, batch in done.items()}
     for batch in done.values():
@@ -2227,6 +2762,7 @@ def main() -> int:
             float((tokens_of["sfc_cuda+sfc_attn"] == tokens_of["sfc_cuda"]).mean()),
         "latency": reports,
         "decode_step_profile": decode_profile,
+        "abft_detect": abft_serve,
     }
     emit(serve)
     for name, res in f32_agree.items():
@@ -2238,6 +2774,14 @@ def main() -> int:
     # not held; its f32 logits are held above like every variant's
     if not all(ok for name, ok in parity.items() if name != split):
         raise AssertionError(f"bf16 logits further from the f32 model than torch's: {noise}")
+    rep_step = abft_serve[f"replicated@k{REP_SERVE_LAYERS}_one_decode_step"]
+    if (abft_serve["sdc_detections"] or abft_serve["checks"] != want_launches or not abft_serve["tokens_identical_to_off"]
+            or abft_serve["launches"] != {"sfc_gemm_fused": want_launches, "with_lane": want_launches, **want_attn}
+            or abft_serve["verify"] != {"verify_every": 1, "decode_steps": NEW_TOKENS - 1,
+                                        "verified_steps": NEW_TOKENS - 1, "sdc_detections": 0}
+            or not abft_serve["max_residual_over_tol"] < 1 or not rep_step["tokens_identical_to_off"]
+            or not rep_step["max_residual_over_tol"] < 1 or not rep_step["checks"]):
+        raise AssertionError(f"the serve under ABFT detect: {abft_serve}")
     # the serve's model and every tensor of it leave the card before training
     del model, params, params_of, logits, ref
     gc.collect()
@@ -2271,7 +2815,7 @@ def main() -> int:
 
     # ---- 7. serve full-width, full-depth olmoe-1b-7b ------------------------
     phase_at[7] = time.perf_counter() - run_t0
-    _, moe_serve_counts = phase_moe_serve(torch, np, ocfg, build_model, ServingEngine, tk, tsa)
+    _, moe_serve_counts, moe_abft_counts = phase_moe_serve(torch, np, ocfg, build_model, ServingEngine, tk, tsa)
 
     # ---- 8. train olmoe-1b-7b at full width, 8 layers ----------------------
     phase_at[8] = time.perf_counter() - run_t0
@@ -2365,6 +2909,45 @@ def main() -> int:
             "library": "torch.mm to an f32 dW + torch._fused_adamw_ (two calls)" if gm.mode == "update" else None,
             "shape": {"m": gm.m, "k": gm.k, "n": gm.n, "dual": gm.dual, "dtype": "bfloat16",
                       "stochastic_round": gm.mode == "update"},
+        })
+    # the checksum lanes: launches in the run of their path under ABFT
+    # "detect" (the qwen3-4b serve with verify_every=1, its unfused and
+    # fused training runs, the olmoe serve), at the row's shape
+    abft_train, abft_fused = counts_by_run["sfc_cuda+sfc_attn+abft"], counts_by_run[
+        "sfc_cuda+sfc_attn+fused_optimizer+abft"]
+    lanes = {"K1/K2": ("sfc_gemm_fused_abft_kernel", "src/repro/kernels/sfc_gemm.py:246"),
+             "K3": ("sfc_gemm_grouped_abft_kernel", "src/repro/kernels/sfc_gemm.py:1003"),
+             "K8 dW": ("tn_abft_kernel", "src/repro/kernels/sfc_gemm.py:1388"),
+             "K8 update": ("tn_update_abft_kernel", "src/repro/kernels/sfc_gemm.py:1388"),
+             "K8 norm": ("tn_update_abft_kernel", "src/repro/kernels/sfc_gemm.py:1388")}
+    for row in lane_rows:
+        gm, lane = row["gemm"], row["kernel"]
+        if lane == "K1/K2":
+            path = "train, abft detect" if gm.path == "train" else "serve, abft detect, verify_every=1"
+            count = (abft_train["sfc_gemm_fused"] if gm.path == "train" else abft_by_shape).get(gm.key, 0)
+        elif lane == "K3":
+            path, count = "olmoe serve, abft detect, verify_every=1", moe_abft_counts.get(gm.key, 0)
+        elif lane == "K8 dW":
+            path, count = "train, abft detect", abft_train["sfc_gemm_tn"].get(gm.key, 0)
+        else:
+            path, count = "train, fused optimizer, abft detect", abft_fused["sfc_gemm_tn"].get(gm.key, 0)
+        kernels.append({
+            "name": f"{lanes[lane][0]}:{lane}:{gm.name}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "replaces": lanes[lane][1],
+            "launches": count,
+            "path": path,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "lane_off_ms": row["lane_off_ms"],
+            "operand_ref_ms": row["operand_ref_ms"],
+            "partials": row["partials"],
+            "shape": dataclasses.asdict(gm),
         })
     replaces = {"sfc_flash_fwd": "src/repro/kernels/sfc_attention.py:204",
                 "flash_attention": "src/repro/kernels/flash_attention.py:107",

@@ -18,17 +18,22 @@ the card between passes).  Times: CUDA events around a captured graph of
 times them.  Prints one JSON line per pass and, last, a summary: each
 row's times by tree, each tree's mean over the `--base` tree's (default
 1), the ptxas counts of the dense kernels the trees share by name, side by
-side, and those of each tree's other kernels.
-Needs a CUDA device and nvcc.
+side, those of each tree's other kernels, and which shared dense kernels
+compiled to different machine code (a digest of each kernel's SASS
+instructions, from `cuobjdump -sass` of each tree's GEMM library;
+addresses, encodings and line information left out).
+Needs a CUDA device, nvcc and cuobjdump.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -37,6 +42,8 @@ from pathlib import Path
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+_FUNCTION = re.compile(r"Function : (\S+)")
+_SASS = re.compile(r"/\*[0-9a-f]+\*/\s+(.+?)\s*;")
 _DENSE = ("sfc_gemm_fused_kernel", "nt_kernel", "tn_kernel", "tn_update_kernel")
 _HYPER_STEP, _HYPER_SCALE, _SALT = 7, 0.37, (3 << 16) + 5
 
@@ -67,6 +74,38 @@ def ptxas_counts(tree: Path) -> dict:
         elif name and (m := _REGS.search(line)):
             out[name] = [int(m.group(1)), *(spill or [0, 0])]
             name = None
+    names = _demangle(list(out))
+    return {names[n]: v for n, v in out.items()}
+
+
+def _sass_digests(lines) -> dict:
+    """{mangled kernel name: sha1 of its SASS instructions} from the lines
+    of `cuobjdump -sass`; addresses, encodings and line information do not
+    enter the digest."""
+    out, name, digest = {}, None, None
+    for line in lines:
+        if m := _FUNCTION.search(line):
+            if name:
+                out[name] = digest.hexdigest()
+            name, digest = m.group(1), hashlib.sha1()
+        elif name and (m := _SASS.search(line)):
+            digest.update(m.group(1).encode() + b"\n")
+    if name:
+        out[name] = digest.hexdigest()
+    return out
+
+
+def sass_digests(tree: Path) -> dict:
+    """{kernel name: `_sass_digests` digest} of the tree's GEMM library,
+    read as `cuobjdump -sass` streams it."""
+    libs = sorted((tree / "build").glob("sfc_gemm_fused-*/libsfc_gemm_fused.so"), key=lambda p: p.stat().st_mtime)
+    if not libs:
+        raise FileNotFoundError(f"no GEMM library under {tree / 'build'}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    with subprocess.Popen([tool, "-sass", str(libs[-1])], stdout=subprocess.PIPE, text=True) as proc:
+        out = _sass_digests(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {libs[-1]} with exit code {proc.returncode}")
     names = _demangle(list(out))
     return {names[n]: v for n, v in out.items()}
 
@@ -193,13 +232,16 @@ def main(argv=None) -> int:
     dense = [n for n in shared if any(k in n for k in _DENSE)]
     ptxas = {n: {str(i): ps[0]["ptxas"][n] for i, ps in by_tree.items()} for n in dense}
     changed = {n: v for n, v in ptxas.items() if len({tuple(c) for c in v.values()}) > 1}
+    sass = [sass_digests(trees[i]) for i in sorted(by_tree)]
+    sass_differ = sorted(n for n in dense if len({d.get(n) for d in sass}) > 1)
     only = {}  # kernels of one tree alone (a new kernel's first counts)
     for i, ps in by_tree.items():
         own = sorted(set(ps[0]["ptxas"]) - set(shared))
         only[str(i)] = {n: ps[0]["ptxas"][n] for n in own}
     print(json.dumps({"trees": [str(t) for t in trees], "order": order, "base": args.base, "ms": ms,
                       "ptxas_registers_spill_st_spill_ld": ptxas, "ptxas_changed": changed,
-                      "kernels_compared": len(dense), "ptxas_only_in_tree": only}))
+                      "kernels_compared": len(dense), "ptxas_only_in_tree": only,
+                      "sass_identical": len(dense) - len(sass_differ), "sass_differ": sass_differ}))
     return 0
 
 

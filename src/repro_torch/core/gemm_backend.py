@@ -70,13 +70,24 @@ _KERNEL_BACKENDS = (BACKEND_SFC_CUDA, BACKEND_REPLICATED)
 
 
 @contextlib.contextmanager
-def gemm_backend(name: str):
-    """Select the GEMM backend for the calls made inside the block."""
+def gemm_backend(name: str, *, abft: Optional[str] = None):
+    """Select the GEMM backend for the calls made inside the block; ``abft``
+    ("off" | "detect" | "strict"; None leaves the ambient
+    `robust.abft.abft_mode` as it is) sets the ABFT mode of every kernel
+    launch made inside it.  Under "sfc_cuda" and "replicated" the kernels
+    check their checksums; "torch" and "sfc_reference" check nothing, as the
+    JAX package's "xla" and "sfc_reference" do not."""
     if name not in BACKENDS:
         raise ValueError(f"unknown gemm backend {name!r}; pick from {BACKENDS}")
     tok = _BACKEND.set(name)
     try:
-        yield
+        if abft is None:
+            yield
+        else:
+            from repro_torch.robust.abft import abft_mode
+
+            with abft_mode(abft):
+                yield
     finally:
         _BACKEND.reset(tok)
 

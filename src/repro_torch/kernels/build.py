@@ -13,9 +13,13 @@ the flags, and loaded with ``ctypes``.  Two libraries:
   forward, NT, TN and TN-update entries also take the grouped (MoE
   expert) mode of K3, K9 and K10 (dW, update and norm) through a
   per-expert row array and launch it as kernels of their own in the same
-  parts, so it adds no part; and one replicated part per input type
+  parts, so it adds no part; one replicated part per input type
   (``-DSFC_REP=1``: the split-K partial products K4/K5 and the layer sum
-  K6), which leaves every other part's code as it was;
+  K6), which leaves every other part's code as it was; and the ABFT
+  checksum lanes (``-DSFC_ABFT=1``), a twin of each forward part (K1/K2 and
+  K3 with the lane) and, per input type, a TN part (K8 dW) and a TN-update
+  part (K8's update and norm modes), each behind entries of its own, so the
+  parts without the lane keep their code;
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
@@ -87,17 +91,20 @@ _FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def entry_name(dtype_name: str, glu: bool, activation: Optional[str]) -> str:
-    """C symbol of the fused-GEMM part for one (input type, GLU, activation)."""
-    return f"sfc_gemm_fused_{dtype_name}_glu{int(glu)}_act{ACTIVATION_CODES[activation]}"
+def entry_name(dtype_name: str, glu: bool, activation: Optional[str], abft: bool = False) -> str:
+    """C symbol of the fused-GEMM part for one (input type, GLU, activation),
+    or of its twin with the ABFT checksum lane."""
+    lane = "abft_" if abft else ""
+    return f"sfc_gemm_fused_{lane}{dtype_name}_glu{int(glu)}_act{ACTIVATION_CODES[activation]}"
 
 
-def bwd_entry_name(kind: str, dtype_name: str) -> str:
+def bwd_entry_name(kind: str, dtype_name: str, abft: bool = False) -> str:
     """C symbol of a backward GEMM entry: ``kind`` is "nt" (dA), "tn" (dW)
-    or "tn_update" (the TN kernel's update and norm modes)."""
-    if kind not in ("nt", "tn", "tn_update"):
-        raise ValueError(f"unknown backward GEMM kind {kind!r}")
-    return f"sfc_gemm_{kind}_{dtype_name}"
+    or "tn_update" (the TN kernel's update and norm modes); ``abft``: the
+    entry with the checksum lane (TN and TN update only)."""
+    if kind not in ("nt", "tn", "tn_update") or (abft and kind == "nt"):
+        raise ValueError(f"unknown backward GEMM kind {kind!r}{' with the ABFT lane' if abft else ''}")
+    return f"sfc_gemm_{kind}_{'abft_' if abft else ''}{dtype_name}"
 
 
 def rep_entry_name(kind: str, dtype_name: str) -> str:
@@ -120,12 +127,14 @@ def _gemm_parts():
     for dt in _DTYPE_CODES:
         for glu in (False, True):
             for act in ACTIVATION_CODES:
-                yield entry_name(dt, glu, act), (
-                    f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
-                    f"-DSFC_GLU={int(glu)}",
-                    f"-DSFC_ACT={ACTIVATION_CODES[act]}",
-                    f"-DSFC_ENTRY={entry_name(dt, glu, act)}",
-                )
+                for abft in (False, True):
+                    yield entry_name(dt, glu, act, abft), (
+                        f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
+                        f"-DSFC_GLU={int(glu)}",
+                        f"-DSFC_ACT={ACTIVATION_CODES[act]}",
+                        f"-DSFC_ENTRY={entry_name(dt, glu, act, abft)}",
+                        *(("-DSFC_ABFT=1",) if abft else ()),
+                    )
         yield f"sfc_gemm_bwd_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
             "-DSFC_BWD=1",
@@ -136,6 +145,18 @@ def _gemm_parts():
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
             "-DSFC_BWD=2",
             f"-DSFC_TNU_ENTRY={bwd_entry_name('tn_update', dt)}",
+        )
+        yield f"sfc_gemm_tn_abft_{dt}", (
+            f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
+            "-DSFC_BWD=1",
+            "-DSFC_ABFT=1",
+            f"-DSFC_TN_ABFT_ENTRY={bwd_entry_name('tn', dt, abft=True)}",
+        )
+        yield f"sfc_gemm_tn_update_abft_{dt}", (
+            f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
+            "-DSFC_BWD=2",
+            "-DSFC_ABFT=1",
+            f"-DSFC_TNU_ABFT_ENTRY={bwd_entry_name('tn_update', dt, abft=True)}",
         )
         yield f"sfc_gemm_rep_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
@@ -156,19 +177,21 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
     for dt in _DTYPE_CODES:
         for glu in (False, True):
             for act in ACTIVATION_CODES:
-                fn = getattr(lib, entry_name(dt, glu, act))
-                fn.argtypes = [
-                    ptr, ptr, ptr, ptr, ptr, ptr,  # a, b, b_gate, bias, gate_bias, residual
-                    ptr, ptr,  # out, out_gate (preact mode)
-                    ptr, i32, i32,  # task table, n_tasks, batch
-                    i32, i32, i32,  # M, N, K
-                    ctypes.c_longlong, ctypes.c_longlong,  # A / B batch strides (elements)
-                    i32, ctypes.c_float,  # has_scale, out_scale
-                    i32, i32,  # vec_a, vec_b
-                    ptr, i32,  # grouped mode (K3): per-expert (3, E) rows, E; null, 0 otherwise
-                    ptr,  # cudaStream_t
-                ]
-                fn.restype = i32
+                for abft in (False, True):
+                    fn = getattr(lib, entry_name(dt, glu, act, abft))
+                    fn.argtypes = [
+                        ptr, ptr, ptr, ptr, ptr, ptr,  # a, b, b_gate, bias, gate_bias, residual
+                        ptr, ptr,  # out, out_gate (preact mode)
+                        ptr, i32, i32,  # task table, n_tasks, batch
+                        i32, i32, i32,  # M, N, K
+                        ctypes.c_longlong, ctypes.c_longlong,  # A / B batch strides (elements)
+                        i32, ctypes.c_float,  # has_scale, out_scale
+                        i32, i32,  # vec_a, vec_b
+                        ptr, i32,  # grouped mode (K3): per-expert (3, E) rows, E; null, 0 otherwise
+                        *((ptr,) if abft else ()),  # the lane's (batch * n_tasks) f32 partials
+                        ptr,  # cudaStream_t
+                    ]
+                    fn.restype = i32
         for kind in ("nt", "tn"):
             fn = getattr(lib, bwd_entry_name(kind, dt))
             fn.argtypes = [
@@ -180,6 +203,16 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                 ptr,  # cudaStream_t
             ]
             fn.restype = i32
+        fn = getattr(lib, bwd_entry_name("tn", dt, abft=True))
+        fn.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,  # a, b, b2, out, out2
+            ptr, i32,  # task table, n_tasks
+            i32, i32, i32,  # R, C, D
+            i32, i32,  # vec_a, vec_b
+            ptr,  # the lane's (n_sets, n_tasks) f32 partials
+            ptr,  # cudaStream_t
+        ]
+        fn.restype = i32
         fn = getattr(lib, rep_entry_name("gemm", dt))
         fn.argtypes = [
             ptr, ptr, ptr, i32,  # a, b, out, out_f32
@@ -207,6 +240,10 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
             ptr,  # cudaStream_t
         ]
         fn.restype = i32
+        lane = getattr(lib, bwd_entry_name("tn_update", dt, abft=True))
+        # the same arguments without the grouped mode, plus the lane's partials
+        lane.argtypes = fn.argtypes[:-3] + [ptr, ptr]
+        lane.restype = i32
 
 
 def _bind_attention(lib: ctypes.CDLL) -> None:

@@ -77,8 +77,8 @@
 //   token rows runs inside one CTA, so there are no atomics and the result is
 //   deterministic; the A panel is loaded as stored and read as a col_major
 //   matrix_a.  The dual form shares the A panel between two accumulators and
-//   two outputs (the GLU's dWv, dWg).  The TPU kernel's ABFT lane is not
-//   ported.
+//   two outputs (the GLU's dWv, dWg).  Its ABFT checksum lane is a build
+//   part of its own (-DSFC_ABFT=1, below).
 // Both entries take the grouped mode too, with the per-expert `grp` array,
 // and launch it as a kernel of its own over the same tile body:
 // grouped_nt_kernel replaces `sfc_gemm_grouped_nt` (`_grouped_nt_kernel`, K9):
@@ -146,6 +146,25 @@
 // written and read back by K6, which is bound by (L + 1) M N elements of
 // bytes.  At prefill (4 x 128 rows) the products are tensor-core bound and
 // the split only adds copies.
+//
+// -DSFC_ABFT=1 compiles, beside any of the forward parts, the -DSFC_BWD=1
+// part or the -DSFC_BWD=2 part, the same kernels with the TPU kernels' ABFT
+// checksum lane (`_FusedSpec.abft`, sfc_gemm.py:175-178, :216-224, :246-252;
+// `_tn_kernel`'s `abft`, :1355-1368, :1388-1392), under names of their own
+// and behind entries of their own, so the parts above keep their code:
+// sfc_gemm_fused_abft_kernel (K1/K2) and sfc_gemm_grouped_abft_kernel (K3)
+// for the forward part's (GLU, activation) and every epilogue flag of it;
+// tn_abft_kernel (K8 dW); tn_update_abft_kernel (K8's update and norm
+// modes).  After the main loop each task sums its raw f32 accumulator
+// tile (the GLU's two together; the TN dual form's two sets apart), before
+// the epilogue, the cast or AdamW, over the rows and cols inside the
+// output only, and thread 0 writes that sum into the task's slot of an
+// (n_sets, batch * n_tasks) f32 partials buffer, which the wrapper sums on
+// the device: the TPU's launch-resident accumulator needs an ordered grid,
+// and atomics would make the checksum vary from run to run.  The lane
+// reads the tile from shared memory once more after the flush (64 x 64
+// f32, 16 KB) and adds a block reduction and one 4-byte write a task; the
+// flush is the same code, so the outputs are bitwise those without it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,6 +203,15 @@
 #endif
 #ifndef SFC_ADD_REDUCE_ENTRY
 #define SFC_ADD_REDUCE_ENTRY sfc_add_reduce_entry
+#endif
+#ifndef SFC_ABFT  // 1: the ABFT checksum lanes of the part's kernels instead
+#define SFC_ABFT 0
+#endif
+#ifndef SFC_TN_ABFT_ENTRY
+#define SFC_TN_ABFT_ENTRY sfc_gemm_tn_abft_entry
+#endif
+#ifndef SFC_TNU_ABFT_ENTRY
+#define SFC_TNU_ABFT_ENTRY sfc_gemm_tn_update_abft_entry
 #endif
 
 namespace {
@@ -433,6 +461,45 @@ __device__ __forceinline__ void mainloop(const Params& p, int M, const float* A,
   }
 }
 
+// The CTA's sum of v in a fixed order (a warp butterfly, then warp 0's lane 0
+// over the warp sums); valid in thread 0.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  __syncthreads();  // red may still be read by a previous call
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) s += red[i];
+  }
+  return s;
+}
+
+// The ABFT checksum lane of one task (the TPU kernels' launch-resident
+// `chk` output, sfc_gemm.py:246-252 and :1388-1392): thread 0 writes to
+// *dst the f32 sum of the raw accumulator tile in shared memory (and of the
+// GLU's gate accumulator with it, TWO), over the tile's rows and cols that
+// lie inside the R x C output
+// only, so what lies past a ragged edge never enters the sum.  Each task
+// writes its own slot of a per-task partials buffer and the wrapper sums it
+// on the device: no atomics, the checksum as deterministic as the output.
+template <bool TWO>
+__device__ __forceinline__ void tile_checksum(const float* Cs, const float* C2s, int R, int C, int row0, int col0,
+                                              float* dst) {
+  __shared__ float red[kThreads / 32];
+  float s = 0.0f;
+  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
+    const int r = i / kBN, c = i % kBN;
+    if (row0 + r >= R || col0 + c >= C) continue;
+    s += Cs[r * kLDC + c];
+    if constexpr (TWO) s += C2s[r * kLDC + c];
+  }
+  const float total = block_sum(s, red);
+  if (threadIdx.x == 0) *dst = total;
+}
+
 #if SFC_DTYPE == 1
 typedef bf16 ElemT;
 #else
@@ -563,9 +630,12 @@ __device__ __forceinline__ void fused_flush(const Params& p, int M, const float*
 // One task's C tile: K1/K2 (batch element blockIdx.y) or, GROUPED, K3 (the
 // task's expert's packed rows against its own weights and bias rows; its
 // row block is renumbered from the expert's first padded block, and the
-// expert's row count masks its last block).
-template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT, bool GROUPED>
-__device__ __forceinline__ void fused_tile(const Params& p, const GroupRows& g) {
+// expert's row count masks its last block).  ABFT: the checksum lane, the
+// sum of the raw accumulators (both for the GLU) before the epilogue, into
+// chk[blockIdx.y * n_tasks + blockIdx.x]; the flush is the same code.
+template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT, bool GROUPED,
+          bool ABFT = false>
+__device__ __forceinline__ void fused_tile(const Params& p, const GroupRows& g, float* chk = nullptr) {
   static_assert(!PREACT || (GLU && !SCALE && !RES), "preact flushes the two biased pre-activations");
   static_assert(!GROUPED || !RES, "the grouped mode has no residual");
   constexpr int A_ELEMS = kBM * Cfg<T>::LDA;
@@ -607,11 +677,13 @@ __device__ __forceinline__ void fused_tile(const Params& p, const GroupRows& g) 
     mainloop<GLU>(p, M, A, B, Bg, row0, col0, 0, p.K, As, Bs, Bgs, Cs, Cgs);
     __syncthreads();
     fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, M, Cs, Cgs, row0, col0, c_off, vec_off);
+    if constexpr (ABFT) tile_checksum<GLU>(Cs, Cgs, M, p.N, row0, col0, chk + t);
   } else {
     mainloop<GLU>(p, p.M, A, B, Bg, row0, col0, 0, p.K, As, Bs, Bgs, Cs, Cgs);
     __syncthreads();
     fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, p.M, Cs, Cgs, row0, col0, bi * (long long)p.M * p.N,
                                                               0);
+    if constexpr (ABFT) tile_checksum<GLU>(Cs, Cgs, p.M, p.N, row0, col0, chk + bi * p.n_tasks + t);
   }
 }
 
@@ -633,8 +705,36 @@ __global__ void __launch_bounds__(kThreads) sfc_gemm_grouped_kernel(const Params
   fused_tile<T, GLU, ACT, BIAS, GBIAS, SCALE, false, PREACT, true>(p, g);
 }
 
+#if SFC_ABFT
+// The checksum lane's kernels (a build part of their own, -DSFC_ABFT=1):
+// K1/K2 and K3 with the lane, under names of their own, so the parts
+// above keep their code.
+template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT>
+__global__ void __launch_bounds__(kThreads) sfc_gemm_fused_abft_kernel(const Params p, float* chk) {
+  fused_tile<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT, false, true>(p, GroupRows{nullptr, 0}, chk);
+}
+
+template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool PREACT>
+__global__ void __launch_bounds__(kThreads) sfc_gemm_grouped_abft_kernel(const Params p, const GroupRows g,
+                                                                          float* chk) {
+  fused_tile<T, GLU, ACT, BIAS, GBIAS, SCALE, false, PREACT, true, true>(p, g, chk);
+}
+#endif
+
 template <bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT = false>
-void launch(const Params& p, const GroupRows& g, dim3 grid, cudaStream_t s) {
+void launch(const Params& p, const GroupRows& g, float* chk, dim3 grid, cudaStream_t s) {
+#if SFC_ABFT
+  if constexpr (!RES) {
+    if (g.grp != nullptr) {
+      sfc_gemm_grouped_abft_kernel<ElemT, SFC_GLU != 0, SFC_ACT, BIAS, GBIAS, SCALE, PREACT>
+          <<<grid, kThreads, 0, s>>>(p, g, chk);
+      return;
+    }
+  }
+  sfc_gemm_fused_abft_kernel<ElemT, SFC_GLU != 0, SFC_ACT, BIAS, GBIAS, SCALE, RES, PREACT>
+      <<<grid, kThreads, 0, s>>>(p, chk);
+#else
+  (void)chk;
   if constexpr (!RES) {  // the entry refuses a residual in the grouped mode
     if (g.grp != nullptr) {
       sfc_gemm_grouped_kernel<ElemT, SFC_GLU != 0, SFC_ACT, BIAS, GBIAS, SCALE, PREACT>
@@ -644,39 +744,40 @@ void launch(const Params& p, const GroupRows& g, dim3 grid, cudaStream_t s) {
   }
   sfc_gemm_fused_kernel<ElemT, SFC_GLU != 0, SFC_ACT, BIAS, GBIAS, SCALE, RES, PREACT>
       <<<grid, kThreads, 0, s>>>(p);
+#endif
 }
 
 template <bool BIAS, bool GBIAS, bool SCALE>
-void launch_res(const Params& p, const GroupRows& g, dim3 grid, cudaStream_t s) {
+void launch_res(const Params& p, const GroupRows& g, float* chk, dim3 grid, cudaStream_t s) {
   if (p.res)
-    launch<BIAS, GBIAS, SCALE, true>(p, g, grid, s);
+    launch<BIAS, GBIAS, SCALE, true>(p, g, chk, grid, s);
   else
-    launch<BIAS, GBIAS, SCALE, false>(p, g, grid, s);
+    launch<BIAS, GBIAS, SCALE, false>(p, g, chk, grid, s);
 }
 
 template <bool BIAS, bool GBIAS>
-void launch_scale(const Params& p, const GroupRows& g, bool scale, dim3 grid, cudaStream_t s) {
+void launch_scale(const Params& p, const GroupRows& g, float* chk, bool scale, dim3 grid, cudaStream_t s) {
 #if SFC_GLU
   if (p.out_gate) {  // preact: the entry has refused a scale and a residual
-    launch<BIAS, GBIAS, false, false, true>(p, g, grid, s);
+    launch<BIAS, GBIAS, false, false, true>(p, g, chk, grid, s);
     return;
   }
 #endif
   if (scale)
-    launch_res<BIAS, GBIAS, true>(p, g, grid, s);
+    launch_res<BIAS, GBIAS, true>(p, g, chk, grid, s);
   else
-    launch_res<BIAS, GBIAS, false>(p, g, grid, s);
+    launch_res<BIAS, GBIAS, false>(p, g, chk, grid, s);
 }
 
 template <bool BIAS>
-void launch_gbias(const Params& p, const GroupRows& g, bool scale, dim3 grid, cudaStream_t s) {
+void launch_gbias(const Params& p, const GroupRows& g, float* chk, bool scale, dim3 grid, cudaStream_t s) {
 #if SFC_GLU
   if (p.gbias) {
-    launch_scale<BIAS, true>(p, g, scale, grid, s);
+    launch_scale<BIAS, true>(p, g, chk, scale, grid, s);
     return;
   }
 #endif
-  launch_scale<BIAS, false>(p, g, scale, grid, s);
+  launch_scale<BIAS, false>(p, g, chk, scale, grid, s);
 }
 
 #else  // SFC_BWD
@@ -1010,10 +1111,11 @@ __global__ void __launch_bounds__(kThreads) grouped_nt_kernel(const BwdParams p)
 
 // One task's output tile of the TN kernel: out (p.R, p.C) = A^T @ B (and
 // out2 = A^T @ B2), the contraction over D rows, the operands already at
-// the tile's matrix.
-template <typename T, bool DUAL>
+// the tile's matrix.  ABFT: the checksum lane, each set's raw dW tile
+// summed apart into chk[set * n_tasks + blockIdx.x]; the flush is the same.
+template <typename T, bool DUAL, bool ABFT = false>
 __device__ __forceinline__ void tn_tile(const BwdParams& p, const T* A, const T* B, const T* B2, T* out, T* out2,
-                                        int D, int row0, int col0) {
+                                        int D, int row0, int col0, float* chk = nullptr) {
   constexpr int TILE = TnCfg<T>::BK * TnCfg<T>::LD;
   constexpr int OPERAND_BYTES = TILE * (DUAL ? 3 : 2) * (int)sizeof(T);
   constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float) * (DUAL ? 2 : 1);
@@ -1029,6 +1131,10 @@ __device__ __forceinline__ void tn_tile(const BwdParams& p, const T* A, const T*
   __syncthreads();
   flush_tile<T>(Cs, out, row0, col0, p.R, p.C);
   if constexpr (DUAL) flush_tile<T>(C2s, out2, row0, col0, p.R, p.C);
+  if constexpr (ABFT) {
+    tile_checksum<false>(Cs, nullptr, p.R, p.C, row0, col0, chk + blockIdx.x);
+    if constexpr (DUAL) tile_checksum<false>(C2s, nullptr, p.R, p.C, row0, col0, chk + p.n_tasks + blockIdx.x);
+  }
 }
 
 // K8 dW
@@ -1039,6 +1145,17 @@ __global__ void __launch_bounds__(kThreads) tn_kernel(const BwdParams p) {
                    static_cast<T*>(p.out), static_cast<T*>(p.out2), p.D, __ldg(p.tab + t) * kBM,
                    __ldg(p.tab + p.n_tasks + t) * kBN);
 }
+
+#if SFC_ABFT
+// K8 dW with the checksum lane (the -DSFC_BWD=1 -DSFC_ABFT=1 part)
+template <typename T, bool DUAL>
+__global__ void __launch_bounds__(kThreads) tn_abft_kernel(const BwdParams p, float* chk) {
+  const int t = blockIdx.x;
+  tn_tile<T, DUAL, true>(p, static_cast<const T*>(p.a), static_cast<const T*>(p.b), static_cast<const T*>(p.b2),
+                         static_cast<T*>(p.out), static_cast<T*>(p.out2), p.D, __ldg(p.tab + t) * kBM,
+                         __ldg(p.tab + p.n_tasks + t) * kBN, chk);
+}
+#endif
 
 // K10 dW, a kernel of its own for the trace: the contraction runs over the
 // task's expert's rows only, and the tile lands in the expert's (R, C)
@@ -1149,22 +1266,6 @@ __device__ __forceinline__ bf16 write_w<bf16>(float x, unsigned bits, bool sr) {
   return __float2bfloat16(x);  // exact after the truncation
 }
 
-// The CTA's sum of v in a fixed order (a warp butterfly, then warp 0's lane 0
-// over the warp sums); valid in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  __syncthreads();  // red may still be read by a previous call
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.0f;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) s += red[i];
-  }
-  return s;
-}
-
 // One set's flush from the f32 C tile in shared memory: sum(dW^2), and in
 // update mode AdamW in the TPU kernel's expression order.
 template <typename T, bool UPDATE, bool SR>
@@ -1209,8 +1310,11 @@ __device__ __forceinline__ void update_flush(const float* Cs, const BwdParams& p
   if (threadIdx.x == 0) u.partials[(size_t)set * p.n_tasks + blockIdx.x] = total;
 }
 
-template <typename T, bool DUAL, bool UPDATE, bool SR>
-__global__ void __launch_bounds__(kThreads) tn_update_kernel(const BwdParams p, const UpdParams u) {
+// One task of K8's update / norm modes.  ABFT: the checksum lane, each
+// set's raw dW tile (before the scale and AdamW) summed apart into
+// chk[set * n_tasks + blockIdx.x].
+template <typename T, bool DUAL, bool UPDATE, bool SR, bool ABFT>
+__device__ __forceinline__ void tn_update_tile(const BwdParams& p, const UpdParams& u, float* chk) {
   constexpr int TILE = TnCfg<T>::BK * TnCfg<T>::LD;
   constexpr int OPERAND_BYTES = TILE * (DUAL ? 3 : 2) * (int)sizeof(T);
   constexpr int EPI_BYTES = kBM * kLDC * (int)sizeof(float) * (DUAL ? 2 : 1);
@@ -1232,6 +1336,10 @@ __global__ void __launch_bounds__(kThreads) tn_update_kernel(const BwdParams p, 
   tn_mainloop<DUAL>(p, static_cast<const T*>(p.a), static_cast<const T*>(p.b), static_cast<const T*>(p.b2), p.D,
                     row0, col0, As, Bs, B2s, Cs, C2s);
   __syncthreads();
+  if constexpr (ABFT) {
+    tile_checksum<false>(Cs, nullptr, p.R, p.C, row0, col0, chk + t);
+    if constexpr (DUAL) tile_checksum<false>(C2s, nullptr, p.R, p.C, row0, col0, chk + p.n_tasks + t);
+  }
   const unsigned step_bits = __float_as_uint(hv[kSEED]);
   update_flush<T, UPDATE, SR>(Cs, p, u, 0, hv, SR ? tile_seed(step_bits, u.salt, im, in, 0) : 0u, row0, col0,
                               red);
@@ -1239,6 +1347,20 @@ __global__ void __launch_bounds__(kThreads) tn_update_kernel(const BwdParams p, 
     update_flush<T, UPDATE, SR>(C2s, p, u, 1, hv, SR ? tile_seed(step_bits, u.salt, im, in, 1) : 0u, row0, col0,
                                 red);
 }
+
+template <typename T, bool DUAL, bool UPDATE, bool SR>
+__global__ void __launch_bounds__(kThreads) tn_update_kernel(const BwdParams p, const UpdParams u) {
+  tn_update_tile<T, DUAL, UPDATE, SR, false>(p, u, nullptr);
+}
+
+#if SFC_ABFT
+// K8's update / norm modes with the checksum lane (the -DSFC_BWD=2
+// -DSFC_ABFT=1 part)
+template <typename T, bool DUAL, bool UPDATE, bool SR>
+__global__ void __launch_bounds__(kThreads) tn_update_abft_kernel(const BwdParams p, const UpdParams u, float* chk) {
+  tn_update_tile<T, DUAL, UPDATE, SR, true>(p, u, chk);
+}
+#endif
 
 // repro/kernels/sfc_gemm.py::_grouped_tn_kernel's flush seed: `_tile_seed`
 // with one more lane, 2e + set, hashed for every expert and set (K8's
@@ -1337,6 +1459,22 @@ int launch_tn_update(const BwdParams& p, const UpdParams& u, bool sr, cudaStream
   return (int)cudaGetLastError();
 }
 
+#if SFC_ABFT
+// K8's update / norm kernel with the checksum lane (K10 has none, as in the
+// JAX package)
+template <bool DUAL>
+int launch_tn_update_abft(const BwdParams& p, const UpdParams& u, bool sr, float* chk, cudaStream_t s) {
+  void (*kernel)(const BwdParams, const UpdParams, float*) = &tn_update_abft_kernel<ElemT, DUAL, false, false>;
+  if (u.hyper != nullptr) {
+    constexpr bool kCanRound = SFC_DTYPE == 1;
+    kernel = kCanRound && sr ? &tn_update_abft_kernel<ElemT, DUAL, true, kCanRound>
+                             : &tn_update_abft_kernel<ElemT, DUAL, true, false>;
+  }
+  kernel<<<(unsigned)p.n_tasks, kThreads, 0, s>>>(p, u, chk);
+  return (int)cudaGetLastError();
+}
+#endif
+
 #endif  // SFC_BWD == 2
 
 #endif  // SFC_BWD
@@ -1399,12 +1537,13 @@ extern "C" int SFC_ADD_REDUCE_ENTRY(const void* copies, void* out, int layers, i
 // (3, n_groups) selects the grouped mode: tab is (3, n_tasks), B and B_gate
 // are (n_groups, K, N), the biases (n_groups, N), M is the total row count,
 // and there is no batch and no residual.  Returns cudaGetLastError() after
-// the launch, so a refused launch reaches the caller.
-extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
-                         const void* gate_bias, const void* residual, void* out, void* out_gate,
-                         const int* tab, int n_tasks, int batch, int M, int N, int K,
-                         long long a_bstride, long long b_bstride, int has_scale, float out_scale,
-                         int vec_a, int vec_b, const int* grp, int n_groups, void* stream) {
+// the launch, so a refused launch reaches the caller.  The -DSFC_ABFT=1
+// part's entry takes one more pointer, chk: the (batch * n_tasks) f32
+// partials of the checksum lane, one a task.
+static int fused_entry(const void* a, const void* b, const void* b_gate, const void* bias, const void* gate_bias,
+                       const void* residual, void* out, void* out_gate, const int* tab, int n_tasks, int batch, int M,
+                       int N, int K, long long a_bstride, long long b_bstride, int has_scale, float out_scale,
+                       int vec_a, int vec_b, const int* grp, int n_groups, float* chk, void* stream) {
   if ((SFC_GLU != 0) != (b_gate != nullptr)) return (int)cudaErrorInvalidValue;
   if (!SFC_GLU && gate_bias != nullptr) return (int)cudaErrorInvalidValue;
   if (out_gate != nullptr && (!SFC_GLU || residual != nullptr || has_scale)) return (int)cudaErrorInvalidValue;
@@ -1432,9 +1571,48 @@ extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const
   const dim3 grid((unsigned)n_tasks, (unsigned)batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias)
-    launch_gbias<true>(p, g, has_scale != 0, grid, s);
+    launch_gbias<true>(p, g, chk, has_scale != 0, grid, s);
   else
-    launch_gbias<false>(p, g, has_scale != 0, grid, s);
+    launch_gbias<false>(p, g, chk, has_scale != 0, grid, s);
+  return (int)cudaGetLastError();
+}
+
+#if !SFC_ABFT
+extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
+                         const void* gate_bias, const void* residual, void* out, void* out_gate,
+                         const int* tab, int n_tasks, int batch, int M, int N, int K,
+                         long long a_bstride, long long b_bstride, int has_scale, float out_scale,
+                         int vec_a, int vec_b, const int* grp, int n_groups, void* stream) {
+  return fused_entry(a, b, b_gate, bias, gate_bias, residual, out, out_gate, tab, n_tasks, batch, M, N, K, a_bstride,
+                     b_bstride, has_scale, out_scale, vec_a, vec_b, grp, n_groups, nullptr, stream);
+}
+#else
+extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
+                         const void* gate_bias, const void* residual, void* out, void* out_gate,
+                         const int* tab, int n_tasks, int batch, int M, int N, int K,
+                         long long a_bstride, long long b_bstride, int has_scale, float out_scale,
+                         int vec_a, int vec_b, const int* grp, int n_groups, float* chk, void* stream) {
+  if (chk == nullptr) return (int)cudaErrorInvalidValue;
+  return fused_entry(a, b, b_gate, bias, gate_bias, residual, out, out_gate, tab, n_tasks, batch, M, N, K, a_bstride,
+                     b_bstride, has_scale, out_scale, vec_a, vec_b, grp, n_groups, chk, stream);
+}
+#endif
+
+#elif SFC_BWD == 1 && SFC_ABFT
+
+// TN (K8 dW) with the checksum lane: SFC_TN_ENTRY's arguments without the
+// grouped mode (K10 has no lane), plus chk, the (n_sets, n_tasks) f32
+// partials: chk[set * n_tasks + t] = the sum of task t's raw dW tile.
+extern "C" int SFC_TN_ABFT_ENTRY(const void* a, const void* b, const void* b2, void* out, void* out2, const int* tab,
+                                 int n_tasks, int R, int C, int D, int vec_a, int vec_b, float* chk, void* stream) {
+  const bool dual = out2 != nullptr;
+  if ((!dual && b2 != nullptr) || (dual && b2 == nullptr && D > 0) || chk == nullptr) return (int)cudaErrorInvalidValue;
+  BwdParams p = bwd_params(a, b, nullptr, b2, out, out2, tab, n_tasks, R, C, D, vec_a, vec_b);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dual)
+    tn_abft_kernel<ElemT, true><<<(unsigned)n_tasks, kThreads, 0, s>>>(p, chk);
+  else
+    tn_abft_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p, chk);
   return (int)cudaGetLastError();
 }
 
@@ -1502,11 +1680,14 @@ extern "C" int SFC_TN_ENTRY(const void* a, const void* b, const void* b2, void* 
 // 0).  sr asks for the stochastic rounding of a bf16 W.  A non-null grp (3,
 // n_groups) selects the grouped mode (K10): tab is the grouped TN table (3,
 // n_tasks), D the total row count, w and the state (n_groups, R, C) stacks,
-// each expert contracting over its own rows.
-extern "C" int SFC_TNU_ENTRY(const void* a, const void* b, const void* b2, int n_sets, void* w, void* w2,
-                             float* master, float* mu, float* nu, float* master2, float* mu2, float* nu2,
-                             const float* hyper, int salt, int sr, float* partials, const int* tab, int n_tasks, int R,
-                             int C, int D, int vec_a, int vec_b, const int* grp, int n_groups, void* stream) {
+// each expert contracting over its own rows.  The -DSFC_ABFT=1 part's entry
+// takes one more pointer, chk, the (n_sets, n_tasks) f32 partials of the
+// checksum lane (chk[set * n_tasks + t] = the sum of task t's raw dW tile),
+// and no grouped mode (K10 has no lane).
+static int tnu_entry(const void* a, const void* b, const void* b2, int n_sets, void* w, void* w2, float* master,
+                     float* mu, float* nu, float* master2, float* mu2, float* nu2, const float* hyper, int salt, int sr,
+                     float* partials, const int* tab, int n_tasks, int R, int C, int D, int vec_a, int vec_b,
+                     const int* grp, int n_groups, float* chk, void* stream) {
   const bool dual = n_sets == 2;
   if (n_sets != 1 && n_sets != 2) return (int)cudaErrorInvalidValue;
   if ((!dual && b2 != nullptr) || (dual && b2 == nullptr && D > 0)) return (int)cudaErrorInvalidValue;
@@ -1532,9 +1713,33 @@ extern "C" int SFC_TNU_ENTRY(const void* a, const void* b, const void* b2, int n
   u.salt = (unsigned)salt;
   u.partials = partials;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if SFC_ABFT
+  if (grp != nullptr || chk == nullptr) return (int)cudaErrorInvalidValue;
+  return dual ? launch_tn_update_abft<true>(p, u, sr != 0, chk, s) : launch_tn_update_abft<false>(p, u, sr != 0, chk, s);
+#else
+  (void)chk;
   if (grp != nullptr)
     return dual ? launch_tn_update<true, true>(p, u, sr != 0, s) : launch_tn_update<false, true>(p, u, sr != 0, s);
   return dual ? launch_tn_update<true, false>(p, u, sr != 0, s) : launch_tn_update<false, false>(p, u, sr != 0, s);
+#endif
 }
+
+#if SFC_ABFT
+extern "C" int SFC_TNU_ABFT_ENTRY(const void* a, const void* b, const void* b2, int n_sets, void* w, void* w2,
+                                  float* master, float* mu, float* nu, float* master2, float* mu2, float* nu2,
+                                  const float* hyper, int salt, int sr, float* partials, const int* tab, int n_tasks,
+                                  int R, int C, int D, int vec_a, int vec_b, float* chk, void* stream) {
+  return tnu_entry(a, b, b2, n_sets, w, w2, master, mu, nu, master2, mu2, nu2, hyper, salt, sr, partials, tab,
+                   n_tasks, R, C, D, vec_a, vec_b, nullptr, 0, chk, stream);
+}
+#else
+extern "C" int SFC_TNU_ENTRY(const void* a, const void* b, const void* b2, int n_sets, void* w, void* w2,
+                             float* master, float* mu, float* nu, float* master2, float* mu2, float* nu2,
+                             const float* hyper, int salt, int sr, float* partials, const int* tab, int n_tasks, int R,
+                             int C, int D, int vec_a, int vec_b, const int* grp, int n_groups, void* stream) {
+  return tnu_entry(a, b, b2, n_sets, w, w2, master, mu, nu, master2, mu2, nu2, hyper, salt, sr, partials, tab,
+                   n_tasks, R, C, D, vec_a, vec_b, grp, n_groups, nullptr, stream);
+}
+#endif
 
 #endif  // SFC_BWD

@@ -71,9 +71,23 @@ dg, group_sizes)`` to the step's tape, and `fused_update_grouped_matmul` /
 `fused_update_grouped_glu_matmul` keep the JAX package's oracle
 (``fused=False``) for the other backends.
 
-Not ported in this slice, raising ``NotImplementedError``: the ABFT
-checksum lane (queue 1 item 14).  There is no fallback ladder (item 14): a
-kernel that fails raises.
+ABFT (`robust.abft`).  Every entry point checks its product against the
+operand-side checksum when its namespace's mode is not "off" (an explicit
+``abft`` pins it; None resolves it from the ambient `abft_mode`, the
+namespace the JAX package's): the fused forward (``NS_GEMM`` / ``NS_GLU``,
+``preact`` and batched included), the grouped forward (``NS_GROUPED`` /
+``NS_GROUPED_GLU``), TN (``NS_TN(_DUAL)``) and TN update (``NS_TN_UPDATE
+(_DUAL)``, its norm mode, the first phase of the fused step's clip, too,
+as JAX's first phase is an update flush) run their kernel's checksum lane;
+the replicated form and NT (K7) have no lane, so their check is op-level,
+on the sum of the output they cast (``cast_dtype``: the port's NT writes
+the compute type, JAX's f32, so bf16's rounding enters its tolerance).
+K9, K10 and the add-reduce of the unfused GLU have no check, as in JAX.
+`_VjpCfg.abft` pins the forward only; the backward launches resolve from
+the ambient mode of the forward, which the autograd Functions carry to
+their backward (on the card autograd runs it on a thread of its own).
+There is no fallback ladder (item 14): a kernel that fails raises, and so
+does a mismatch outside a step scope.
 """
 
 from __future__ import annotations
@@ -81,11 +95,24 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.namespaces import (
+    NS_GEMM,
+    NS_GLU,
+    NS_GROUPED,
+    NS_GROUPED_GLU,
+    NS_NT,
+    NS_NT_DUAL,
+    NS_TN,
+    NS_TN_DUAL,
+    NS_TN_UPDATE,
+    NS_TN_UPDATE_DUAL,
+)
 from repro_torch.kernels.sfc_gemm import (
     _epilogue,
     activation_fn,
@@ -103,6 +130,7 @@ from repro_torch.kernels.sfc_gemm import (
     stochastic_round_to,
     tile_random_bits,
 )
+from repro_torch.robust import abft as _abft
 
 __all__ = [
     "sfc_matmul",
@@ -204,9 +232,10 @@ def reference_knobs(m: int, n: int, k: int) -> Tuple[int, int, int, int, int]:
     return bm, bn, bk, 1, 1
 
 
-def _no_abft(abft: Optional[str]) -> None:
-    if abft not in (None, "off"):
-        raise NotImplementedError("the ABFT checksum lane is not ported: ROADMAP queue 1 item 14")
+def _mode(abft: Optional[str], namespace: str) -> str:
+    """The ABFT mode of a call: its own ``abft``, else the ambient one of its
+    namespace."""
+    return abft if abft is not None else _abft.current_mode(namespace)
 
 
 def _matmul_impl(
@@ -228,7 +257,6 @@ def _matmul_impl(
     preact: bool = False,
     abft: Optional[str] = None,
 ) -> torch.Tensor:
-    _no_abft(abft)
     if a.ndim < 2 or b.ndim < 2:
         raise ValueError(f"sfc_matmul needs matrices, got {tuple(a.shape)} @ {tuple(b.shape)}")
 
@@ -265,28 +293,40 @@ def _matmul_impl(
     b_run = b.reshape(bsz, k, n).contiguous() if b_batched else b.contiguous()
     res_run = None if residual is None else residual.reshape(a_run.shape[:-1] + (n,)).contiguous()
     knobs = dict(bm=bm, bn=bn, k_layers=k_layers, k_block_factor=k_block_factor)
+    op = NS_GLU if glu else NS_GEMM
+    mode = _mode(abft, op)
     if fuse is False:
         check_preact(preact, b_gate, activation, out_scale, residual)
         out = _replicated_impl(a_run, b_run, gate, *vecs, res_run, activation=activation, out_scale=out_scale,
-                               knobs=knobs, out_dtype=out_dtype or a.dtype, preact=preact)
+                               knobs=knobs, out_dtype=out_dtype or a.dtype, preact=preact, mode=mode)
     else:
         out = sfc_gemm_fused(a_run, b_run, gate, *vecs, res_run, activation=activation, out_scale=out_scale,
-                             out_dtype=out_dtype, preact=preact, **knobs)
+                             out_dtype=out_dtype, preact=preact, abft=mode != "off", **knobs)
+        if mode != "off":
+            *outs, chk = out
+            out = tuple(outs) if preact else outs[0]
+            ref, mag = _abft.gemm_checksum_ref(a_run, b_run, gate)
+            out = _abft.verify(op, out, chk, ref, mag, contract_dim=k, mode=mode)
     if preact:
         return tuple(o.reshape(*lead, m, n) for o in out)
     return out.reshape(*lead, m, n)
 
 
-def _replicated_impl(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, knobs, out_dtype, preact):
+def _replicated_impl(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, knobs, out_dtype, preact,
+                     mode="off"):
     """The JAX package's ``fuse=False`` branch of ``_matmul_impl`` on the
     kernel's operands (``a`` (M, K) or (B, M, K), folded and contiguous):
     the partial copies (K4 / K5) in ``out_dtype``, their sum (K6) when
     ``k_layers > 1``, then the epilogue in f32 and one cast.  The GLU is two
     products with f32 copies and its epilogue (``preact``: the two biased
-    pre-activations, each cast to ``out_dtype``).  ``knobs`` are resolved."""
+    pre-activations, each cast to ``out_dtype``).  ``knobs`` are resolved.
+    ABFT (``mode``): the op-level check of each product under ``NS_GEMM``,
+    the f32 sum of its reduced copies (the raw accumulator cast to the
+    copies' type, before the epilogue) against the operand checksum, with
+    that type's rounding in the tolerance, as in JAX."""
     if b_gate is not None:
         val, gate = (_replicated_impl(a, w, None, None, None, None, activation=None, out_scale=None, knobs=knobs,
-                                      out_dtype=torch.float32, preact=False) for w in (b, b_gate))
+                                      out_dtype=torch.float32, preact=False, mode=mode) for w in (b, b_gate))
         if preact:
             if bias is not None:
                 val = val + bias.reshape(-1).float()
@@ -297,8 +337,14 @@ def _replicated_impl(a, b, b_gate, bias, gate_bias, residual, *, activation, out
     copies = sfc_gemm_replicated(a, b, out_dtype=out_dtype, **knobs)
     c = add_reduce(copies) if knobs["k_layers"] > 1 else copies.select(-3, 0)
     if bias is None and activation is None and out_scale is None and residual is None:
-        return c  # no epilogue term: its f32 round trip of the copies' type is exact
-    return _epilogue(c.float(), None, bias, None, residual, activation, out_scale).to(out_dtype)
+        res = c  # no epilogue term: its f32 round trip of the copies' type is exact
+    else:
+        res = _epilogue(c.float(), None, bias, None, residual, activation, out_scale).to(out_dtype)
+    if mode != "off":
+        ref, mag = _abft.gemm_checksum_ref(a, b)
+        res = _abft.verify(NS_GEMM, res, c.sum(dtype=torch.float32), ref, mag, contract_dim=a.shape[-1], mode=mode,
+                           cast_dtype=out_dtype)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -324,8 +370,9 @@ def sfc_matmul_nt(
     in one traversal).  Leading batch dims of ``a`` fold into M (the (N, K)
     operand is shared); ragged shapes are masked by the kernel and clipped
     by its plain version, not padded.  Knobs resolve as `resolve_knobs`
-    does for the forward."""
-    _no_abft(abft)
+    does for the forward.  ABFT: an op-level check under ``NS_NT(_DUAL)``
+    (K7 has no lane), the f32 sum of the output against the operand
+    checksum, the output type's rounding in the tolerance."""
     if a.ndim < 2 or b.ndim != 2 or a.shape[-1] != b.shape[-1]:
         raise ValueError(f"sfc_matmul_nt needs a (..., M, K) and b (N, K); got {tuple(a.shape)}, {tuple(b.shape)}")
     if (a2 is None) != (b2 is None) or (a2 is not None and tuple(a2.shape) != tuple(a.shape)):
@@ -339,7 +386,17 @@ def sfc_matmul_nt(
                                     k_block_factor=k_block_factor)
     out = sfc_gemm_nt(a2d, b.contiguous(), a22d, None if b2 is None else b2.contiguous(),
                       bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf, out_dtype=out_dtype)
-    return out.reshape(*lead, a.shape[-2], n)
+    res = out.reshape(*lead, a.shape[-2], n)
+    ns = NS_NT if a2 is None else NS_NT_DUAL
+    mode = _mode(abft, ns)
+    if mode != "off":
+        ref, mag = _abft.nt_checksum_ref(a2d, b)
+        if a2 is not None:
+            r2, m2 = _abft.nt_checksum_ref(a22d, b2)
+            ref, mag = ref + r2, mag + m2
+        res = _abft.verify(ns, res, out.sum(dtype=torch.float32), ref, mag, contract_dim=k, mode=mode,
+                           cast_dtype=out.dtype)
+    return res
 
 
 def sfc_matmul_tn(
@@ -358,14 +415,30 @@ def sfc_matmul_tn(
     GEMM (``dW = Aᵀ @ dC``); with ``b2`` one traversal of the activations
     flushes both weight grads (the GLU's dWv, dWg pair).  Leading batch
     dims fold into the contraction (the weight grad sums over them).
-    Returns (K, N), or a pair with ``b2``."""
-    _no_abft(abft)
+    Returns (K, N), or a pair with ``b2``.  ABFT under ``NS_TN(_DUAL)``: the
+    kernel's checksum lane, one check per operand set."""
     a2d, b2d, b22d = _tn_operands(a, b, b2)
     m, k = a2d.shape
     # the output is (K, N); the contraction runs over M
     bm, bn, kl, kbf = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
                                     k_block_factor=k_block_factor)
-    return sfc_gemm_tn(a2d, b2d, b22d, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf, out_dtype=out_dtype)
+    ns = NS_TN if b2 is None else NS_TN_DUAL
+    mode = _mode(abft, ns)
+    out = sfc_gemm_tn(a2d, b2d, b22d, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf, out_dtype=out_dtype,
+                      abft=mode != "off")
+    if mode == "off":
+        return out
+    *outs, chk = out
+    return _verify_tn(ns, tuple(outs) if b2 is not None else outs[0], chk, a2d, b2d, b22d, mode)
+
+
+def _verify_tn(ns, res, chk, a2d, b2d, b22d, mode):
+    """The TN lane's checks, one per operand set: ``chk`` (n_sets, 1)
+    against ``Aᵀ @ B``'s (and ``Aᵀ @ B2``'s) operand checksum."""
+    for s, bs in enumerate((b2d,) if b22d is None else (b2d, b22d)):
+        ref, mag = _abft.tn_checksum_ref(a2d, bs)
+        res = _abft.verify(ns, res, chk[s, 0], ref, mag, contract_dim=a2d.shape[0], mode=mode)
+    return res
 
 
 def _tn_operands(a, dy, dy2):
@@ -393,12 +466,20 @@ def sfc_matmul_tn_norm(
     kernel's norm mode: dW stays in the f32 accumulator.  The first phase
     of the fused step's exact clip (the JAX package runs the update flush at
     scale 1 and keeps only its norm tokens).  Returns an f32 scalar, or a
-    pair with ``dy2``."""
+    pair with ``dy2``.  ABFT: the kernel's checksum lane, checked under
+    ``NS_TN_UPDATE(_DUAL)``, as the JAX package checks its first phase's
+    update flush."""
     a2d, b2d, b22d = _tn_operands(a, dy, dy2)
     m, k = a2d.shape
     bm, bn, kl, kbf = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
                                     k_block_factor=k_block_factor)
-    norms = sfc_gemm_tn(a2d, b2d, b22d, norm=True, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf)
+    ns = NS_TN_UPDATE if dy2 is None else NS_TN_UPDATE_DUAL
+    mode = _mode(None, ns)
+    norms = sfc_gemm_tn(a2d, b2d, b22d, norm=True, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf,
+                        abft=mode != "off")
+    if mode != "off":
+        norms, chk = norms
+        norms = _verify_tn(ns, norms, chk, a2d, b2d, b22d, mode)
     return norms[0] if dy2 is None else (norms[0], norms[1])
 
 
@@ -430,14 +511,28 @@ def sfc_matmul_tn_update(
     Returns ``sum(dW²)`` before the scale (an f32 scalar, or a pair with
     ``dy2``, whose set is (w2, master2, mu2, nu2)).  The JAX package's
     ``sfc_matmul_tn_update`` returns the new arrays instead; its hyper
-    vector carries the salt, here ``salt`` does."""
-    _no_abft(abft)
+    vector carries the salt, here ``salt`` does.
+
+    ABFT under ``NS_TN_UPDATE(_DUAL)``: the kernel's checksum lane, the raw
+    dW taken before the scale and AdamW consume it, one check per set;
+    "strict" in a step scope poisons the written W, master, mu and nu in
+    place as well as the norms."""
     a2d, b2d, b22d = _tn_operands(a, dy, dy2)
     m, k = a2d.shape
     bm, bn, kl, kbf = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
                                     k_block_factor=k_block_factor)
+    ns = NS_TN_UPDATE if dy2 is None else NS_TN_UPDATE_DUAL
+    mode = _mode(abft, ns)
     norms = sfc_gemm_tn(a2d, b2d, b22d, master, mu, nu, master2, mu2, nu2, hyper, w=w, w2=w2, salt=salt,
-                        stochastic_round=stochastic_round, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf)
+                        stochastic_round=stochastic_round, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf,
+                        abft=mode != "off")
+    if mode != "off":
+        norms, chk = norms
+        state = [x for x in (w, master, mu, nu, w2, master2, mu2, nu2) if x is not None]
+        norms, *checked = _verify_tn(ns, (norms, *state), chk, a2d, b2d, b22d, mode)
+        for dst, src in zip(state, checked):
+            if src is not dst:  # "strict" in a step scope: the poisoned state, written back in place
+                dst.copy_(src)
     return norms[0] if dy2 is None else (norms[0], norms[1])
 
 
@@ -557,6 +652,20 @@ def _compute_cotangents(cfg: _VjpCfg, a, h_pre, g_pre, dy):
     return dh, dg, dh.to(a.dtype), None if dg is None else dg.to(a.dtype)
 
 
+def _in_forward_abft_state(backward):
+    """Run an autograd Function's backward in the ABFT state (mode and step
+    scope) its forward saw, ``ctx.abft``: on the card autograd runs the
+    backward on a device thread where the step's context variables are
+    unset, and JAX checks the backward's launches under the step's mode."""
+
+    @functools.wraps(backward)
+    def run(ctx, *grads):
+        with _abft.restored(ctx.abft):
+            return backward(ctx, *grads)
+
+    return run
+
+
 def _bias_grads(dh, dg, bias, gate_bias):
     lead_axes = tuple(range(dh.ndim - 1))
     dbias = None if bias is None else dh.sum(dim=lead_axes).reshape(bias.shape).to(bias.dtype)
@@ -571,12 +680,13 @@ class _MatmulCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg: _VjpCfg, a, b, b_gate, bias, gate_bias, residual):
         out, h_pre, g_pre = _training_forward(cfg, a, b, b_gate, bias, gate_bias, residual)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.abft = cfg, _abft.capture()
         ctx.res_dtype = None if residual is None else residual.dtype
         ctx.save_for_backward(a, b, b_gate, h_pre, g_pre, bias, gate_bias)
         return out
 
     @staticmethod
+    @_in_forward_abft_state
     def backward(ctx, dy):
         a, b, b_gate, h_pre, g_pre, bias, gate_bias = ctx.saved_tensors
         cfg = ctx.cfg
@@ -625,11 +735,12 @@ class _UpdateCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg: _VjpCfg, a, b, b_gate, bias, gate_bias, sink):
         out, h_pre, g_pre = _training_forward(cfg, a, b, b_gate, bias, gate_bias, None)
-        ctx.cfg, ctx.sink = cfg, sink
+        ctx.cfg, ctx.sink, ctx.abft = cfg, sink, _abft.capture()
         ctx.save_for_backward(a, b, b_gate, h_pre, g_pre, bias, gate_bias)
         return out
 
     @staticmethod
+    @_in_forward_abft_state
     def backward(ctx, dy):
         a, b, b_gate, h_pre, g_pre, bias, gate_bias = ctx.saved_tensors
         dh, dg, dh_c, dg_c = _compute_cotangents(ctx.cfg, a, h_pre, g_pre, dy)
@@ -809,8 +920,10 @@ def _grouped_impl(
     preact: bool = False,
 ):
     """One launch of the grouped kernel (the JAX package's ``_grouped_impl``
-    less its row padding and its ABFT lane: the kernel masks each expert's
-    last row block)."""
+    less its row padding: the kernel masks each expert's last row block).
+    ABFT under ``NS_GROUPED`` / ``NS_GROUPED_GLU``: the kernel's checksum
+    lane against the sum of every expert's operand checksum (each expert's
+    rows against its own weight slab)."""
     if a.ndim != 2 or b.ndim != 3 or a.shape[1] != b.shape[1]:
         raise ValueError(f"grouped matmul needs a (T, K) and b (E, K, N); got {tuple(a.shape)}, {tuple(b.shape)}")
     e_cnt, k, n = b.shape
@@ -820,11 +933,18 @@ def _grouped_impl(
     gs = tuple(int(g) for g in group_sizes)
     bm, bn = _grouped_knobs(max(gs, default=1), n, k, a.device, bm, bn)
     vecs = [None if v is None else v.contiguous() for v in (bias, gate_bias)]
-    return sfc_gemm_grouped(
+    ns = NS_GROUPED if b_gate is None else NS_GROUPED_GLU
+    mode = _mode(None, ns)
+    out = sfc_gemm_grouped(
         a.contiguous(), b.contiguous(), None if b_gate is None else b_gate.contiguous(), *vecs,
         group_sizes=gs, activation=activation, out_scale=out_scale, bm=bm, bn=bn,
-        k_block_factor=k_block_factor or 1, out_dtype=out_dtype, preact=preact,
+        k_block_factor=k_block_factor or 1, out_dtype=out_dtype, preact=preact, abft=mode != "off",
     )
+    if mode == "off":
+        return out
+    *outs, chk = out
+    ref, mag = _abft.grouped_checksum_ref(a, b, b_gate, gs)
+    return _abft.verify(ns, tuple(outs) if preact else outs[0], chk, ref, mag, contract_dim=k, mode=mode)
 
 
 def sfc_grouped_matmul_nt(

@@ -58,6 +58,18 @@ rounding also hashes the expert into each tile's seed).  Each expert's
 rows lie packed, unpadded, in one matrix and its weights in an (E, K, N)
 stack; the kernels mask each expert's last row block where the TPU
 kernels took rows padded to whole blocks.
+
+The ABFT checksum lane (``abft=True`` on ``sfc_gemm_fused``,
+``sfc_gemm_grouped`` and ``sfc_gemm_tn`` in all three modes; the TPU
+kernels' launch-resident ``chk`` output) appends the f32 sum of the raw
+accumulators, before the epilogue, the cast or AdamW, to the result: each
+task sums its tile (the GLU's two accumulators together, the TN kernel's
+operand sets apart) over the rows and columns inside the output, into a
+per-task partials buffer that the wrapper sums on the device, so the
+checksum needs no atomics and is as deterministic as the output.  On the
+card it is a kernel of its own per mode (the ``-DSFC_ABFT=1`` parts); the
+plain versions sum the same tiles.  `robust.abft` compares it with the
+operand-side checksum.
 """
 
 from __future__ import annotations
@@ -209,6 +221,7 @@ def sfc_gemm_fused_plain(
     k_block_factor: int = 1,
     out_dtype: Optional[torch.dtype] = None,
     preact: bool = False,
+    abft: bool = False,
 ):
     """The plain version of the fused kernel, on any device.
 
@@ -217,7 +230,10 @@ def sfc_gemm_fused_plain(
     ``k_layers x k_block_factor`` K chunks in f32, layer-major as in
     Listing 1, and applies the epilogue in f32.  Edge tiles and the last K
     chunk are clipped to the matrix.  ``preact`` returns the pair
-    (A@B + bias, A@B_gate + gate_bias).
+    (A@B + bias, A@B_gate + gate_bias).  ``abft`` appends the checksum lane,
+    an f32 scalar: the sum of every tile's raw accumulator (the GLU's two
+    together), taken before the epilogue, per (batch element, task) in the
+    TPU grid's order and then summed, as the kernel's partials are.
     """
     batch, m, k, n, b_batched = _check(a, b, b_gate, bias, gate_bias, residual, activation, out_scale, preact)
     if bm < 1 or bn < 1 or k_layers < 1 or k_block_factor < 1:
@@ -230,10 +246,13 @@ def sfc_gemm_fused_plain(
     gbias_row = None if gate_bias is None else gate_bias.reshape(n)
     out = torch.empty((a3.shape[0], m, n), dtype=out_dtype, device=a.device)
     out_gate = torch.empty_like(out) if preact else None
+    parts = None
     if m and n:
         chunks = _k_chunks(k, k_layers * k_block_factor)
         tab = compile_schedule(gemm_spec(math.ceil(m / bm), math.ceil(n / bn), 1)).table
-        for im, in_ in zip(tab[0].tolist(), tab[1].tolist()):
+        if abft:
+            parts = torch.zeros((a3.shape[0], tab.shape[1]), dtype=torch.float32, device=a.device)
+        for t, (im, in_) in enumerate(zip(tab[0].tolist(), tab[1].tolist())):
             rs = slice(im * bm, min((im + 1) * bm, m))
             cs = slice(in_ * bn, min((in_ + 1) * bn, n))
             acc = torch.zeros((a3.shape[0], rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32, device=a.device)
@@ -243,6 +262,8 @@ def sfc_gemm_fused_plain(
                 acc += a_panel @ b3[:, ks, cs].float()
                 if gate is not None:
                     gate += a_panel @ b_gate[ks, cs].float()
+            if abft:
+                parts[:, t] = _tile_sums(acc, gate)
             y = _epilogue(
                 acc, gate,
                 None if bias_row is None else bias_row[cs],
@@ -254,9 +275,26 @@ def sfc_gemm_fused_plain(
                 y, g = y
                 out_gate[:, rs, cs] = g.to(out_dtype)
             out[:, rs, cs] = y.to(out_dtype)
-    if preact:
-        return (out, out_gate) if a.ndim == 3 else (out[0], out_gate[0])
-    return out if a.ndim == 3 else out[0]
+    if a.ndim == 2:
+        out, out_gate = out[0], None if out_gate is None else out_gate[0]
+    return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
+
+
+def _tile_sums(acc: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
+    """The checksum lane of one tile of every batch element: the f32 sum of
+    the (B, rows, cols) raw accumulator, plus the gate's for the GLU."""
+    s = acc.sum(dim=(-2, -1))
+    return s if gate is None else s + gate.sum(dim=(-2, -1))
+
+
+def _lane_total(parts: Optional[torch.Tensor], device, sets: Optional[int] = None) -> torch.Tensor:
+    """The lane's checksum: the per-task partials summed, 0 with no task; with
+    ``sets``, per operand set, (sets, 1)."""
+    if sets is None:
+        return parts.sum() if parts is not None else torch.zeros((), dtype=torch.float32, device=device)
+    if parts is None:
+        return torch.zeros((sets, 1), dtype=torch.float32, device=device)
+    return parts.sum(dim=1, keepdim=True)
 
 
 @functools.lru_cache(maxsize=256)
@@ -302,8 +340,17 @@ def _rows_vec(cols: int, *tensors: Optional[torch.Tensor]) -> bool:
     return all(cols % (16 // t.element_size()) == 0 and t.data_ptr() % 16 == 0 for t in tensors if t is not None)
 
 
+def _results(outs, lane: Optional[torch.Tensor] = None):
+    """A wrapper's return: its outputs that exist, with the lane's checksum
+    appended when it ran."""
+    res = tuple(o for o in outs if o is not None)
+    if lane is not None:
+        res = (*res, lane)
+    return res if len(res) > 1 else res[0]
+
+
 def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, bm, bn, out_dtype, shape,
-            preact=False):
+            preact=False, abft=False):
     batch, m, k, n, b_batched = shape
     _check_operands(bm, bn, out_dtype, a, b=b, b_gate=b_gate, bias=bias, gate_bias=gate_bias, residual=residual)
     if max(batch, 1) > _MAX_GRID_Y:
@@ -311,11 +358,12 @@ def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, b
     out = torch.empty((batch, m, n) if a.ndim == 3 else (m, n), dtype=out_dtype, device=a.device)
     out_gate = torch.empty_like(out) if preact else None
     if out.numel() == 0:
-        return (out, out_gate) if preact else out
+        return _results((out, out_gate), _lane_total(None, a.device) if abft else None)
     lib = build.load_library()
-    fn = getattr(lib, build.entry_name(_dtype_name(a), b_gate is not None, activation))
+    fn = getattr(lib, build.entry_name(_dtype_name(a), b_gate is not None, activation, abft))
     mb, nb = math.ceil(m / bm), math.ceil(n / bn)
     tab = _device_table(mb, nb, a.device)
+    parts = torch.empty((max(batch, 1), mb * nb), dtype=torch.float32, device=a.device) if abft else None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(
@@ -326,13 +374,15 @@ def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, b
             m * k, k * n if b_batched else 0,
             int(out_scale is not None), float(out_scale if out_scale is not None else 1.0),
             int(_rows_vec(k, a)), int(_rows_vec(n, b, b_gate)),
-            None, 0, stream,
+            None, 0, *((parts.data_ptr(),) if abft else ()), stream,
         )
     if rc != 0:
         raise RuntimeError(f"sfc_gemm_fused kernel launch failed with CUDA error {rc}")
     sfc_gemm_fused.launches += 1
     sfc_gemm_fused.launches_by_shape[(batch, m, k, n, b_gate is not None)] += 1
-    return (out, out_gate) if preact else out
+    if abft:
+        sfc_gemm_fused.abft_launches += 1
+    return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
 
 def sfc_gemm_fused(
@@ -351,6 +401,7 @@ def sfc_gemm_fused(
     k_block_factor: int = 1,
     out_dtype: Optional[torch.dtype] = None,
     preact: bool = False,
+    abft: bool = False,
 ):
     """Single-launch SFC GEMM with the fused epilogue, plain or batched.
 
@@ -368,10 +419,18 @@ def sfc_gemm_fused(
     ``sfc_gemm_fused.launches`` (and to ``launches_by_shape`` under
     ``(batch, M, K, N, glu)``, batch 0 for the plain mode).  On a CPU
     tensor it runs `sfc_gemm_fused_plain` and counts nothing.
+
+    ``abft`` runs the kernel with its checksum lane (the TPU kernel's
+    ``_FusedSpec.abft``) and appends an f32 scalar to the result: the sum
+    of the raw f32 accumulators (the GLU's two) over every tile, before the
+    epilogue, from per-task partials summed on the device.  The outputs are
+    bitwise those without it.  Such a launch also adds one to
+    ``sfc_gemm_fused.abft_launches``.
     """
     shape = _check(a, b, b_gate, bias, gate_bias, residual, activation, out_scale, preact)
     out_dtype = out_dtype or a.dtype
-    kw = dict(activation=activation, out_scale=out_scale, bm=bm, bn=bn, out_dtype=out_dtype, preact=preact)
+    kw = dict(activation=activation, out_scale=out_scale, bm=bm, bn=bn, out_dtype=out_dtype, preact=preact,
+              abft=abft)
     if a.device.type == "cpu":
         return sfc_gemm_fused_plain(
             a, b, b_gate, bias, gate_bias, residual,
@@ -383,6 +442,7 @@ def sfc_gemm_fused(
 
 
 sfc_gemm_fused.launches = 0
+sfc_gemm_fused.abft_launches = 0
 sfc_gemm_fused.launches_by_shape = collections.Counter()
 
 
@@ -801,6 +861,7 @@ def sfc_gemm_tn_plain(
     k_layers: int = 1,
     k_block_factor: int = 1,
     out_dtype: Optional[torch.dtype] = None,
+    abft: bool = False,
 ):
     """The plain version of the TN kernel, on any device.
 
@@ -817,6 +878,10 @@ def sfc_gemm_tn_plain(
     place; with ``stochastic_round`` and a bf16 W its bits are the tile
     hash at this (bm, bn), so they equal the kernel's at its 64 x 64 tile.
     The salt lane of ``hyper`` is not read: ``salt`` is the weight's.
+
+    ``abft`` appends the checksum lane, an (n_sets, 1) f32 tensor: per set
+    the sum of every tile's raw dW (before the cast, the scale and AdamW),
+    per task in table order, then summed.
     """
     k, n, m = _check_tn(a, b, b2)
     mode, sets = _check_update(a, (k, n), b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
@@ -824,7 +889,9 @@ def sfc_gemm_tn_plain(
     out = torch.empty((k, n), dtype=acc_dtype, device=a.device)
     out2 = torch.empty_like(out) if b2 is not None else None
     tiles = list(_plain_tiles(k, n, m, bm, bn, k_layers, k_block_factor))
-    for rs, cs, chunks in tiles:
+    n_sets = 1 if b2 is None else 2
+    parts = torch.zeros((n_sets, len(tiles)), dtype=torch.float32, device=a.device) if abft else None
+    for t, (rs, cs, chunks) in enumerate(tiles):
         acc = torch.zeros((rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32, device=a.device)
         acc2 = torch.zeros_like(acc) if b2 is not None else None
         for ms in chunks:
@@ -835,8 +902,11 @@ def sfc_gemm_tn_plain(
         out[rs, cs] = acc.to(out.dtype)
         if b2 is not None:
             out2[rs, cs] = acc2.to(out.dtype)
+        if abft:
+            parts[:, t] = torch.stack([acc.sum()] + ([acc2.sum()] if b2 is not None else []))
+    chk = _lane_total(parts, a.device, n_sets) if abft else None
     if mode == "dw":
-        return out if b2 is None else (out, out2)
+        return _results((out, out2), chk)
     outs = [out] if b2 is None else [out, out2]
     norms = torch.zeros(len(outs), dtype=torch.float32, device=a.device)
     if tiles:
@@ -852,13 +922,16 @@ def sfc_gemm_tn_plain(
             if stochastic_round and w_.dtype == torch.bfloat16:
                 bits = _tile_bits(k, n, bm, bn, hyper, salt, *((1,) if s else ()))
             _update_flush_plain(dw, mst, m1, m2, w_, hyper, bits=bits)
-    return norms
+    return (norms, chk) if abft else norms
 
 
-def _launch_bwd(kind: str, a, b, x2, out, out2, *, rows: int, cols: int, depth: int, vec_a: bool, vec_b: bool):
+def _launch_bwd(kind: str, a, b, x2, out, out2, *, rows: int, cols: int, depth: int, vec_a: bool, vec_b: bool,
+                chk: Optional[torch.Tensor] = None):
+    """One launch of the NT or TN kernel; ``chk`` (TN only): the (n_sets,
+    n_tasks) partials of the checksum lane, which selects the lane's entry."""
     mb, nb = math.ceil(rows / build.TILE[0]), math.ceil(cols / build.TILE[1])
     tab = _device_table(mb, nb, a.device)
-    fn = getattr(build.load_library(), build.bwd_entry_name(kind, _dtype_name(a)))
+    fn = getattr(build.load_library(), build.bwd_entry_name(kind, _dtype_name(a), abft=chk is not None))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if kind == "nt":
@@ -866,7 +939,8 @@ def _launch_bwd(kind: str, a, b, x2, out, out2, *, rows: int, cols: int, depth: 
             ptrs = (a.data_ptr(), b.data_ptr(), _ptr(a2), _ptr(b2), out.data_ptr())
         else:
             ptrs = (a.data_ptr(), b.data_ptr(), _ptr(x2), out.data_ptr(), _ptr(out2))
-        rc = fn(*ptrs, tab.data_ptr(), mb * nb, rows, cols, depth, int(vec_a), int(vec_b), None, 0, stream)
+        tail = (None, 0) if chk is None else (chk.data_ptr(),)  # no grouped mode; the lane's partials
+        rc = fn(*ptrs, tab.data_ptr(), mb * nb, rows, cols, depth, int(vec_a), int(vec_b), *tail, stream)
     if rc != 0:
         raise RuntimeError(f"sfc_gemm_{kind} kernel launch failed with CUDA error {rc}")
 
@@ -910,11 +984,13 @@ def sfc_gemm_nt(
 
 
 def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: bool, rows: int, cols: int,
-                      depth: int, vec_a: bool, vec_b: bool, gs: Optional[tuple] = None) -> torch.Tensor:
+                      depth: int, vec_a: bool, vec_b: bool, gs: Optional[tuple] = None, abft: bool = False):
     """One launch of the TN kernel in norm mode (``sets`` None) or update
     mode (``sets``: one (master, mu, nu, w) per operand set); returns the
     (n_sets,) per-set sums of the per-task partials.  ``gs`` (the group
-    sizes) selects the grouped kernel (K10) over (E, rows, cols) stacks."""
+    sizes) selects the grouped kernel (K10) over (E, rows, cols) stacks;
+    ``abft`` K8's entry with the checksum lane (K10 has none), and then the
+    pair (norms, the (n_sets, 1) lane sums)."""
     mb, nb = math.ceil(rows / build.TILE[0]), math.ceil(cols / build.TILE[1])
     n_sets = 1 if b2 is None else 2
     if gs is None:
@@ -924,7 +1000,8 @@ def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: boo
         grp, n_groups = _device_groups(gs, a.device), len(gs)
     n_tasks = tab.shape[1]
     partials = torch.empty((n_sets, n_tasks), dtype=torch.float32, device=a.device)
-    fn = getattr(build.load_library(), build.bwd_entry_name("tn_update", _dtype_name(a)))
+    chk = torch.empty_like(partials) if abft else None
+    fn = getattr(build.load_library(), build.bwd_entry_name("tn_update", _dtype_name(a), abft=abft))
     state = [None] * 8
     if sets is not None:
         (m1, u1, v1, w1), *rest = sets
@@ -932,14 +1009,16 @@ def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: boo
         state = [w1, w2, m1, u1, v1, m2, u2, v2]  # the entry's order
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
+        lane = (_ptr(grp), n_groups) if chk is None else (chk.data_ptr(),)
         rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), n_sets, *(_ptr(x) for x in state), _ptr(hyper), salt,
                 int(stochastic_round), partials.data_ptr(), tab.data_ptr(), n_tasks, rows, cols, depth,
-                int(vec_a), int(vec_b), _ptr(grp), n_groups, stream)
+                int(vec_a), int(vec_b), *lane, stream)
     if rc != 0:
         kind = "sfc_gemm_tn" if gs is None else "sfc_gemm_grouped_tn"
         raise RuntimeError(f"{kind} {'update' if sets else 'norm'} kernel launch failed with CUDA error {rc}")
     # the per-task partials in table order, summed on the device: no atomics
-    return partials.sum(dim=1)
+    norms = partials.sum(dim=1)
+    return (norms, _lane_total(chk, a.device, n_sets)) if abft else norms
 
 
 def sfc_gemm_tn(
@@ -988,43 +1067,56 @@ def sfc_gemm_tn(
     device), and adds one to ``sfc_gemm_tn.launches``, to
     ``launches_by_mode[mode]`` and to ``launches_by_shape[(K, N, M, dual)]``
     (dW mode) or ``[(K, N, M, dual, mode)]``.  On a CPU tensor it runs
-    `sfc_gemm_tn_plain` and counts nothing.  The ABFT checksum lane raises
-    `NotImplementedError`."""
-    if abft:
-        raise NotImplementedError("the ABFT checksum lane is not ported: ROADMAP queue 1 item 14")
+    `sfc_gemm_tn_plain` and counts nothing.
+
+    ``abft`` (any mode) runs the kernel with its checksum lane (the TPU
+    kernel's ``abft``) and appends an (n_sets, 1) f32 tensor to the result:
+    per set the sum of the raw dW accumulators over every tile, before the
+    cast, the scale and AdamW, from per-task partials summed on the device.
+    dW mode then returns (C, chk) or (C, C2, chk), the norm and update modes
+    (norms, chk).  The outputs are bitwise those without it.  Such a launch
+    also adds one to ``sfc_gemm_tn.abft_launches``."""
     k, n, m = _check_tn(a, b, b2)
     mode, sets = _check_update(a, (k, n), b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
         return sfc_gemm_tn_plain(a, b, b2, master, mu, nu, master2, mu2, nu2, hyper, w=w, w2=w2, salt=salt,
                                  stochastic_round=stochastic_round, norm=norm, bm=bm, bn=bn, k_layers=k_layers,
-                                 k_block_factor=k_block_factor, out_dtype=out_dtype)
+                                 k_block_factor=k_block_factor, out_dtype=out_dtype, abft=abft)
     if a.device.type != "cuda":
         raise ValueError(f"sfc_gemm_tn runs on cuda or cpu tensors, got {a.device}")
     _check_operands(bm, bn, out_dtype, a, b=b, b2=b2)
     vecs = dict(vec_a=_rows_vec(k, a), vec_b=_rows_vec(n, b, b2))
+    n_sets = 1 if b2 is None else 2
     if mode == "dw":
         out = torch.empty((k, n), dtype=out_dtype, device=a.device)
         out2 = torch.empty_like(out) if b2 is not None else None
-        result = out if b2 is None else (out, out2)
+        parts = None
         if out.numel():
-            _launch_bwd("tn", a, b, b2, out, out2, rows=k, cols=n, depth=m, **vecs)
+            mb, nb = math.ceil(k / bm), math.ceil(n / bn)
+            parts = torch.empty((n_sets, mb * nb), dtype=torch.float32, device=a.device) if abft else None
+            _launch_bwd("tn", a, b, b2, out, out2, rows=k, cols=n, depth=m, chk=parts, **vecs)
+        result = _results((out, out2), _lane_total(parts, a.device, n_sets) if abft else None)
     elif k * n == 0:
-        return torch.zeros(1 if b2 is None else 2, dtype=torch.float32, device=a.device)
+        norms = torch.zeros(n_sets, dtype=torch.float32, device=a.device)
+        return (norms, _lane_total(None, a.device, n_sets)) if abft else norms
     else:
         result = _launch_tn_update(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,
-                                   rows=k, cols=n, depth=m, **vecs)
+                                   rows=k, cols=n, depth=m, abft=abft, **vecs)
     if k * n:
         sfc_gemm_tn.launches += 1
         sfc_gemm_tn.launches_by_mode[mode] += 1
         key = (k, n, m, b2 is not None)
         sfc_gemm_tn.launches_by_shape[key if mode == "dw" else (*key, mode)] += 1
+        if abft:
+            sfc_gemm_tn.abft_launches += 1
     return result
 
 
 sfc_gemm_nt.launches = 0
 sfc_gemm_nt.launches_by_shape = collections.Counter()
 sfc_gemm_tn.launches = 0
+sfc_gemm_tn.abft_launches = 0
 sfc_gemm_tn.launches_by_mode = collections.Counter()
 sfc_gemm_tn.launches_by_shape = collections.Counter()
 
@@ -1125,13 +1217,16 @@ def sfc_gemm_grouped_plain(
     k_block_factor: int = 1,
     out_dtype: Optional[torch.dtype] = None,
     preact: bool = False,
+    abft: bool = False,
 ):
     """The plain version of the grouped kernel, on any device: per task of
     the grouped table (`build_grouped_task_table` over each expert's
     ``ceil(rows / bm)`` row blocks) the tile ``epilogue(a[rows of e] @
     b[e])``, accumulated in f32 over ``k_block_factor`` K chunks with the
     epilogue of `sfc_gemm_fused_plain` and expert e's bias row.  Returns
-    (T, N), or the (value, gate) pair of pre-activations under ``preact``."""
+    (T, N), or the (value, gate) pair of pre-activations under ``preact``;
+    ``abft`` appends the checksum lane as `sfc_gemm_fused_plain` does (an
+    expert with no rows has no task and adds nothing)."""
     gs, t, k, n = _check_grouped(a, b, b_gate, bias, gate_bias, group_sizes, activation, out_scale, preact)
     if bm < 1 or bn < 1 or k_block_factor < 1:
         raise ValueError(f"bad knobs bm={bm} bn={bn} k_block_factor={k_block_factor}")
@@ -1141,9 +1236,12 @@ def sfc_gemm_grouped_plain(
     gbias2 = None if gate_bias is None else gate_bias.reshape(e_cnt, n)
     out = torch.empty((t, n), dtype=out_dtype, device=a.device)
     out_gate = torch.empty_like(out) if preact else None
+    parts = None
     if t and n:
         chunks = _k_chunks(k, k_block_factor)
-        for e, rs, in_ in _grouped_row_tiles(gs, bm, math.ceil(n / bn)):
+        tiles = list(_grouped_row_tiles(gs, bm, math.ceil(n / bn)))
+        parts = torch.zeros(len(tiles), dtype=torch.float32, device=a.device) if abft else None
+        for task, (e, rs, in_) in enumerate(tiles):
             cs = slice(in_ * bn, min((in_ + 1) * bn, n))
             acc = torch.zeros((rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32, device=a.device)
             gate = torch.zeros_like(acc) if b_gate is not None else None
@@ -1152,13 +1250,15 @@ def sfc_gemm_grouped_plain(
                 acc += a_panel @ b[e, ks, cs].float()
                 if gate is not None:
                     gate += a_panel @ b_gate[e, ks, cs].float()
+            if abft:
+                parts[task] = _tile_sums(acc, gate)
             y = _epilogue(acc, gate, None if bias2 is None else bias2[e, cs],
                           None if gbias2 is None else gbias2[e, cs], None, activation, out_scale, preact)
             if preact:
                 y, g = y
                 out_gate[rs, cs] = g.to(out_dtype)
             out[rs, cs] = y.to(out_dtype)
-    return (out, out_gate) if preact else out
+    return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
 
 @functools.lru_cache(maxsize=64)
@@ -1186,7 +1286,7 @@ def _device_grouped_tn_table(experts: int, kb: int, nb: int, device: torch.devic
     return torch.from_numpy(tab.copy()).to(device).contiguous()
 
 
-def _launch_grouped(a, b, b_gate, bias, gate_bias, *, gs, activation, out_scale, bm, bn, out_dtype, preact):
+def _launch_grouped(a, b, b_gate, bias, gate_bias, *, gs, activation, out_scale, bm, bn, out_dtype, preact, abft):
     t, k = a.shape
     e_cnt, _, n = b.shape
     vecs = [None if v is None else v.reshape(e_cnt, n) for v in (bias, gate_bias)]
@@ -1194,11 +1294,12 @@ def _launch_grouped(a, b, b_gate, bias, gate_bias, *, gs, activation, out_scale,
     out = torch.empty((t, n), dtype=out_dtype, device=a.device)
     out_gate = torch.empty_like(out) if preact else None
     if out.numel() == 0:
-        return (out, out_gate) if preact else out
+        return _results((out, out_gate), _lane_total(None, a.device) if abft else None)
     nb = math.ceil(n / bn)
     tab = _device_grouped_table(gs, nb, a.device)
     grp = _device_groups(gs, a.device)
-    fn = getattr(build.load_library(), build.entry_name(_dtype_name(a), b_gate is not None, activation))
+    parts = torch.empty(tab.shape[1], dtype=torch.float32, device=a.device) if abft else None
+    fn = getattr(build.load_library(), build.entry_name(_dtype_name(a), b_gate is not None, activation, abft))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(
@@ -1208,13 +1309,15 @@ def _launch_grouped(a, b, b_gate, bias, gate_bias, *, gs, activation, out_scale,
             t, n, k, 0, 0,
             int(out_scale is not None), float(out_scale if out_scale is not None else 1.0),
             int(_rows_vec(k, a)), int(_rows_vec(n, b, b_gate)),
-            grp.data_ptr(), e_cnt, stream,
+            grp.data_ptr(), e_cnt, *((parts.data_ptr(),) if abft else ()), stream,
         )
     if rc != 0:
         raise RuntimeError(f"sfc_gemm_grouped kernel launch failed with CUDA error {rc}")
     sfc_gemm_grouped.launches += 1
     sfc_gemm_grouped.launches_by_shape[(e_cnt, t, k, n, b_gate is not None)] += 1
-    return (out, out_gate) if preact else out
+    if abft:
+        sfc_gemm_grouped.abft_launches += 1
+    return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
 
 def sfc_gemm_grouped(
@@ -1232,11 +1335,14 @@ def sfc_gemm_grouped(
     k_block_factor: int = 1,
     out_dtype: Optional[torch.dtype] = None,
     preact: bool = False,
+    abft: bool = False,
 ):
     """Grouped (ragged) SFC GEMM with the fused epilogue: ``out[rows of e] =
     epilogue(a[rows of e] @ b[e])``, expert e owning ``group_sizes[e]``
-    packed rows of ``a``; the dual-B GLU form and ``preact`` as in
-    `sfc_gemm_fused`.  Returns (T, N) (a pair under ``preact``).
+    packed rows of ``a``; the dual-B GLU form, ``preact`` and the ``abft``
+    checksum lane (counted in ``sfc_gemm_grouped.abft_launches`` too) as in
+    `sfc_gemm_fused`.  Returns (T, N) (a pair under ``preact``; the lane's
+    scalar appended under ``abft``).
 
     On a CUDA tensor this launches ``sfc_gemm_grouped_kernel`` (K3, the
     fused kernel's tile body; tile `kernel_tile()`, each expert's last row block masked, the K
@@ -1245,7 +1351,8 @@ def sfc_gemm_grouped(
     `sfc_gemm_grouped_plain` and counts nothing."""
     gs, _, _, _ = _check_grouped(a, b, b_gate, bias, gate_bias, group_sizes, activation, out_scale, preact)
     out_dtype = out_dtype or a.dtype
-    kw = dict(activation=activation, out_scale=out_scale, bm=bm, bn=bn, out_dtype=out_dtype, preact=preact)
+    kw = dict(activation=activation, out_scale=out_scale, bm=bm, bn=bn, out_dtype=out_dtype, preact=preact,
+              abft=abft)
     if a.device.type == "cpu":
         return sfc_gemm_grouped_plain(a, b, b_gate, bias, gate_bias, group_sizes=gs,
                                       k_block_factor=k_block_factor, **kw)
@@ -1543,6 +1650,7 @@ def sfc_gemm_grouped_tn(
 
 
 sfc_gemm_grouped.launches = 0
+sfc_gemm_grouped.abft_launches = 0
 sfc_gemm_grouped.launches_by_shape = collections.Counter()
 sfc_gemm_grouped_nt.launches = 0
 sfc_gemm_grouped_nt.launches_by_shape = collections.Counter()

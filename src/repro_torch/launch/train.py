@@ -56,20 +56,21 @@ def build_trainer(
     attn_impl: Optional[str] = None,
     fused_optimizer: bool = False,
     stochastic_round: bool = True,
+    abft: Optional[str] = None,
     device=None,
 ):
     """Returns (model, opt_state, step, batch_fn): the model with random
     weights from ``seed`` on ``device`` (the card unless named), the AdamW
     state, ``step(opt_state, batch) -> (opt_state, metrics)`` and
-    ``batch_fn(step) -> batch`` on the model's device.  ``fused_optimizer``
-    and ``stochastic_round`` are `train.step.BackendConfig`'s."""
+    ``batch_fn(step) -> batch`` on the model's device.  ``fused_optimizer``,
+    ``stochastic_round`` and ``abft`` are `train.step.BackendConfig`'s."""
     model = build_model(cfg, device=device)
     model.init(torch.Generator(device=model.embed.device).manual_seed(seed))
     opt_cfg = AdamWConfig(lr=lr, total_steps=total_steps, warmup_steps=min(100, total_steps // 10 + 1))
     step_fn = make_train_step(
         model, opt_cfg, remat=remat, microbatches=microbatches,
         backend=BackendConfig(gemm_backend=gemm_backend, attn_impl=attn_impl, fused_optimizer=fused_optimizer,
-                              stochastic_round=stochastic_round),
+                              stochastic_round=stochastic_round, abft=abft),
     )
     opt_state = adamw_init(dict(model.named_parameters()))
     data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))

@@ -27,6 +27,11 @@ torch has no cotangent slot to return state through, so here:
     launches the TN kernel's (or K10's) norm mode; after the backward,
     `FusedSession.apply` launches its update mode with the exact scale.
 
+ABFT: the norm launch of the first phase and the update launch of the
+second run inside the train step's ABFT mode and step scope, so under
+"detect" both carry K8's checksum lane (the JAX package checks the update
+flush of both of its phases); K10's have no lane, as in JAX.
+
 Salts follow the JAX package's ``wrap_routed``: ``(index of the weight's
 JAX path in sorted(routed paths) + 1) << 16``, plus the layer index for
 the scan-stacked ``layers/...`` leaves, so the port's ``layers.{i}.attn.wq``

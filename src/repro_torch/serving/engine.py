@@ -10,8 +10,17 @@ built with:
                    sum, the epilogue after (``fuse=False``)
   "sfc_reference"  the Listing-1 reference loop
 
+Sampled ABFT verification (``verify_every=N``): every Nth decode step runs
+under ``abft_mode("detect")`` in a step scope (`robust.abft`), so each of
+its kernel launches checks its checksum lane on the device and the step
+reads the verdict once, at its end.  On a detection the JAX engine
+quarantines the kernel rungs and redoes the step on the healed program;
+the port has no fallback ladder yet (ROADMAP queue 1 item 14), so it raises
+`SdcDetected` for the step instead.  A prefill runs under the caller's
+ABFT mode, eagerly: a mismatch raises there too.
+
 Not ported in this slice: warmup and knob tuning (ROADMAP queue 1 item 13),
-sampled ABFT verification and the self-healing retry (item 14), and the
+the self-healing retry and the health registry (item 14), and the
 telemetry registry (item 15); percentiles are computed with numpy.
 """
 
@@ -28,6 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device, torch_dtype
 from repro_torch.core.namespaces import BACKEND_TORCH, BACKENDS
 from repro_torch.models.registry import build_model
+from repro_torch.robust import abft as _abft
 from repro_torch.serving import backend as backend_lib
 
 __all__ = ["Request", "ServingEngine"]
@@ -70,11 +80,14 @@ class ServingEngine:
         max_seq: int = 256,
         gemm_backend: str = BACKEND_TORCH,
         device: Optional[Union[str, torch.device]] = None,
+        verify_every: Optional[int] = None,
     ):
         """``params`` is a ``DecoderLM`` state dict (``model.state_dict()``
         or `repro_torch.convert.params_from_jax`).  Tensors already on
         ``device`` in the config's type are used as they are, not copied.
-        ``device`` defaults to the card and raises where CUDA is absent."""
+        ``device`` defaults to the card and raises where CUDA is absent.
+        ``verify_every``: run every Nth decode step under ABFT "detect"
+        (None or 0: never)."""
         if gemm_backend not in BACKENDS:
             raise ValueError(f"unknown gemm backend {gemm_backend!r}; pick from {BACKENDS}")
         self.cfg = cfg
@@ -89,6 +102,23 @@ class ServingEngine:
             assign=True,
         )
         self._uid = 0
+        self._verify_every = verify_every
+        self._decode_steps = 0
+        self._verified_steps = 0
+        self._sdc_detections = 0
+
+    def degradation_report(self) -> Dict[str, Any]:
+        """This engine's sampled-verification ledger, under the JAX engine's
+        ``"verify"`` key (decode steps run, steps verified, detections).  The
+        JAX report's health-registry part waits for the fallback ladder."""
+        return {
+            "verify": {
+                "verify_every": self._verify_every,
+                "decode_steps": self._decode_steps,
+                "verified_steps": self._verified_steps,
+                "sdc_detections": self._sdc_detections,
+            }
+        }
 
     # ---------------- model calls ----------------
 
@@ -99,6 +129,21 @@ class ServingEngine:
     def _decode(self, token: torch.Tensor, cache):
         with backend_lib.gemm_backend(self.backend):
             return self.model.decode_step(token, cache)
+
+    def _verified_decode(self, token: torch.Tensor, cache):
+        """One decode step under ABFT "detect" in a step scope: every kernel
+        launch checks its checksum on the device, and the scope reads the
+        verdict once.  A detection raises `SdcDetected` for the step (the
+        JAX engine redoes it on healed rungs; the port has no ladder yet),
+        naming the namespaces that mismatched and, as residual over a
+        tolerance of 1, the step's largest residual / tolerance."""
+        self._verified_steps += 1
+        with _abft.abft_mode("detect"), _abft.step_scope() as scope:
+            out = self._decode(token, cache)
+        if scope.detections:
+            self._sdc_detections += sum(scope.detections.values())
+            raise _abft.SdcDetected(", ".join(sorted(scope.detections)), scope.max_ratio, 1.0)
+        return out
 
     # ---------------- serving loop ----------------
 
@@ -182,7 +227,11 @@ class ServingEngine:
                         live.remove(i)
                 if not live:
                     break
-                logits, cache = self._decode(next_tok, cache)
+                self._decode_steps += 1
+                if self._verify_every and self._decode_steps % self._verify_every == 0:
+                    logits, cache = self._verified_decode(next_tok, cache)
+                else:
+                    logits, cache = self._decode(next_tok, cache)
                 next_tok = logits.argmax(dim=-1)[:, None]
                 ids = next_tok[:, 0].tolist()
                 still = []

@@ -13,9 +13,16 @@ holds its parameters and the step updates them, and the optimizer state,
 in place (`optim.adamw.adamw_apply`).  ``fused_optimizer=True`` builds the
 grad-and-update step (`_make_fused_train_step`): AdamW of every routed
 projection weight runs in the TN kernel's flush, and of every routed MoE
-expert stack in the grouped TN kernel's (K10).  Left out: the ABFT lane
-(item 14) and remat other than "none" (item 18); each raises
-``NotImplementedError``.
+expert stack in the grouped TN kernel's (K10).
+
+ABFT (``BackendConfig(abft=)``, `robust.abft`): a step runs its forward,
+backward and update inside the mode's context and a step scope, the port's
+stand-in for JAX's traced step, so every kernel launch of the step, the
+backward and the fused update included, checks its checksum without a host
+read, and nothing raises for a mismatch: the caller reads
+``runtime_sdc_total()`` after the step, as the JAX package's ``TrainLoop``
+does (its rollback is ROADMAP queue 1 item 14).  Left out: remat other than
+"none" (item 18), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from repro_torch.optim.adamw import (
     lr_at,
     pack_adamw_hyper,
 )
+from repro_torch.robust.abft import abft_mode, step_scope
 
 __all__ = ["BackendConfig", "make_train_step", "make_eval_step"]
 
@@ -58,8 +66,11 @@ class BackendConfig:
         Requires ``microbatches == 1``.
     stochastic_round: stochastically round bf16 weights in the fused
         flush (ignored unless ``fused_optimizer``).
-    abft: ABFT checksum mode pin (item 14); anything but None or "off"
-        raises.
+    abft: ABFT checksum mode pin for the step ("off" | "detect" |
+        "strict"); None inherits the caller's `robust.abft.abft_mode`.
+        Under "detect" every SFC kernel launch of the step checks its
+        checksum (the forward, the NT / TN backward and the fused update
+        flush); detections land in the runtime counters at the step's end.
     """
 
     gemm_backend: Optional[str] = None
@@ -71,13 +82,23 @@ class BackendConfig:
 
 def _backend_ctx(gemm_backend: Optional[str], attn_impl: Optional[str], abft: Optional[str] = None):
     """Stacked backend pins (each may be None = inherit)."""
-    if abft not in (None, "off"):
-        raise NotImplementedError("the ABFT checksum lane is not ported: ROADMAP queue 1 item 14")
     ctx = contextlib.ExitStack()
     if gemm_backend is not None:
         ctx.enter_context(_gemm_backend_ctx(gemm_backend))
     if attn_impl is not None:
         ctx.enter_context(_attn_backend_ctx(attn_impl))
+    if abft is not None:
+        ctx.enter_context(abft_mode(abft))
+    return ctx
+
+
+def _step_ctx(abft: Optional[str]):
+    """A train step's ABFT context, around its forward, backward and update:
+    the mode pin (None inherits) and a step scope."""
+    ctx = contextlib.ExitStack()
+    if abft is not None:
+        ctx.enter_context(abft_mode(abft))
+    ctx.enter_context(step_scope())
     return ctx
 
 
@@ -137,6 +158,10 @@ def make_train_step(
         return loss.detach(), {n: p.grad for n, p in params.items()}
 
     def train_step(opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor], *, lr_scale=None):
+        with _step_ctx(cfg.abft):
+            return step(opt_state, batch, lr_scale=lr_scale)
+
+    def step(opt_state, batch, *, lr_scale):
         if microbatches == 1:
             loss, grads = grads_of(batch)
         else:
@@ -192,6 +217,10 @@ def _make_fused_train_step(model, opt_cfg: AdamWConfig, *, remat: str, cfg: Back
     device = next(iter(params.values())).device
 
     def train_step(opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor], *, lr_scale=None):
+        with _step_ctx(cfg.abft):
+            return fused_step(opt_state, batch, lr_scale=lr_scale)
+
+    def fused_step(opt_state, batch, *, lr_scale):
         step = opt_state["step"] + 1
         session = _fused.FusedSession(routed, params, opt_state, two_phase=two_phase)
         for p in params.values():

@@ -536,10 +536,12 @@ def test_grouped_modes_are_arguments_of_the_existing_entries():
     for entry in ("SFC_ENTRY", "SFC_NT_ENTRY", "SFC_TN_ENTRY", "SFC_TNU_ENTRY"):
         decl = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
         assert "const int* grp, int n_groups, void* stream" in decl, entry
-    # 16 forward, 2 NT / TN and 2 TN-update parts, and the replicated
-    # form's own 2 (K4/K5 and K6, one per input type)
+    # 16 forward, 2 NT / TN and 2 TN-update parts, the replicated form's
+    # own 2 (K4/K5 and K6, one per input type), and the ABFT lanes' 20 (a
+    # twin of each forward part, a TN and a TN-update part per input type)
     parts = dict(build._gemm_parts())
-    assert len(parts) == 22 and sum(name.startswith("sfc_gemm_rep_") for name in parts) == 2
+    assert len(parts) == 42 and sum(name.startswith("sfc_gemm_rep_") for name in parts) == 2
+    assert sum("abft" in name for name in parts) == 20
 
 
 def _grouped_inputs(rng, group_sizes, k, n, dtype, scale=0.1):
@@ -823,3 +825,84 @@ def test_olmoe_fused_train_step_on_card_matches_unfused():
         assert _agree(pf[n].detach(), pu[n].detach(), torch.float32), n
         for slot in ("mu", "nu", "master"):
             assert _agree(sf[slot][n], su[slot][n], torch.float32), (slot, n)
+
+
+def test_abft_lane_entries_are_their_own():
+    """The checksum lanes (-DSFC_ABFT=1) are entries of their own beside
+    the parents' (K7 has no lane)."""
+    lanes = {build.entry_name(dt, glu, act, abft=True) for dt in ("f32", "bf16") for glu in (False, True)
+             for act in build.ACTIVATION_CODES}
+    plain = {build.entry_name(dt, glu, act) for dt in ("f32", "bf16") for glu in (False, True)
+             for act in build.ACTIVATION_CODES}
+    assert len(lanes) == 16 and not lanes & plain
+    assert build.bwd_entry_name("tn_update", "bf16", abft=True) == "sfc_gemm_tn_update_abft_bf16"
+    with pytest.raises(ValueError):
+        build.bwd_entry_name("nt", "bf16", abft=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_abft_lanes_match_plain_versions_on_card(dtype):
+    """Each checksum lane (K1/K2 with every epilogue flag, K3 on ragged
+    experts with an empty one, K8 dW dual, K8's update and norm modes)
+    within chip_smoke.py's `lane_limit` of its plain version's lane (1e-5
+    of the sum of |64 x 64 raw tile sums|, below `robust.abft.tolerance()`),
+    where a lane of 0 or one less its last tile would miss it, and the
+    outputs with the lane on bitwise those with it off."""
+    _card()
+    import importlib.util
+    import sys
+
+    from repro_torch.optim import adamw as opt
+    from repro_torch.robust import abft
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_limits", Path(__file__).resolve().parents[1]
+                                                  / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = cs  # dataclasses look their module up here
+    spec.loader.exec_module(cs)
+    dt = getattr(torch, dtype)
+    a, b, bg, bias, gbias, res = _inputs(dt)
+
+    def close(lane, plain, mag, depth, *raws):
+        tiles = cs.raw_tile_sums(torch, *raws)
+        limit = cs.lane_limit(tiles, abft.tolerance(mag, depth))
+        assert abs(float(lane) - float(plain)) <= limit, (float(lane), float(plain), limit)
+        for name, wrong in cs._dropped(plain, tiles).items():
+            assert abs(wrong - float(plain)) > limit, (name, wrong, float(plain), limit)
+
+    kw = dict(activation="silu", out_scale=0.5)
+    on = tk.sfc_gemm_fused(a, b, bg, bias, gbias, res, abft=True, **kw)
+    assert torch.equal(on[0], tk.sfc_gemm_fused(a, b, bg, bias, gbias, res, **kw))
+    plain = tk.sfc_gemm_fused_plain(a.cpu(), b.cpu(), bg.cpu(), bias.cpu(), gbias.cpu(), res.cpu(), bm=64, bn=64,
+                                    abft=True, **kw)
+    close(on[-1], plain[-1], abft.gemm_checksum_ref(a, b, bg)[1], 203, a.float() @ b.float(), a.float() @ bg.float())
+    gs = (5, 0, 19, 32)
+    ag, wg = a.reshape(-1, 203)[:56].contiguous(), b.expand(4, 203, 133).contiguous()
+    on = tk.sfc_gemm_grouped(ag, wg, wg, group_sizes=gs, activation="silu", abft=True)
+    assert torch.equal(on[0], tk.sfc_gemm_grouped(ag, wg, wg, group_sizes=gs, activation="silu"))
+    plain = tk.sfc_gemm_grouped_plain(ag.cpu(), wg.cpu(), wg.cpu(), group_sizes=gs, activation="silu", bm=64,
+                                      bn=64, abft=True)
+    close(on[-1], plain[-1], abft.grouped_checksum_ref(ag, wg, wg, gs)[1], 203,
+          *(2 * [cs.grouped_raw(torch, ag, wg, gs)]))
+    x, dc, dc2 = a[0], res[0], res[1]
+    on = tk.sfc_gemm_tn(x, dc, dc2, abft=True)
+    for o, p in zip(on[:-1], tk.sfc_gemm_tn(x, dc, dc2)):
+        assert torch.equal(o, p)
+    plain = tk.sfc_gemm_tn_plain(x.cpu(), dc.cpu(), dc2.cpu(), bm=64, bn=64, abft=True)
+    for s, d in enumerate((dc, dc2)):
+        close(on[-1][s, 0], plain[-1][s, 0], abft.tn_checksum_ref(x, d)[1], 77, x.float().T @ d.float())
+    hyper = opt.pack_adamw_hyper(opt.AdamWConfig(), torch.tensor(2, dtype=torch.int32, device="cuda"),
+                                 torch.tensor(0.5, device="cuda"))
+    sets = [[torch.full((203, 133), v, device="cuda") for v in (0.1, 0.0, 0.01)] for _ in range(2)]
+    ws = [torch.zeros((203, 133), dtype=dt, device="cuda") for _ in range(2)]
+    norms, chk = tk.sfc_gemm_tn(x, dc, None, *sets[0], None, None, None, hyper, w=ws[0], salt=3,
+                                stochastic_round=True, abft=True)
+    norms_off = tk.sfc_gemm_tn(x, dc, None, *sets[1], None, None, None, hyper, w=ws[1], salt=3,
+                               stochastic_round=True)
+    assert torch.equal(norms, norms_off) and torch.equal(ws[0], ws[1])
+    assert all(torch.equal(p, q) for p, q in zip(*sets))
+    close(chk[0, 0], plain[-1][0, 0], abft.tn_checksum_ref(x, dc)[1], 77, x.float().T @ dc.float())
+    nnorms, nchk = tk.sfc_gemm_tn(x, dc, norm=True, abft=True)
+    assert torch.equal(nnorms, tk.sfc_gemm_tn(x, dc, norm=True))
+    close(nchk[0, 0], plain[-1][0, 0], abft.tn_checksum_ref(x, dc)[1], 77, x.float().T @ dc.float())

@@ -181,10 +181,10 @@ def test_unported_options_and_bad_operands_raise():
     # the replicated form (fuse=False) is ported: the JAX package's unfused
     # result (tests/test_torch_replicated.py holds it against JAX in full)
     _close(tops.sfc_matmul(a, b, fuse=False, k_layers=2), a @ b)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tops.sfc_matmul(a, b, fuse=False, abft="detect")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tops.sfc_matmul(a, b, abft="detect")
+    # the ABFT check is ported (tests/test_torch_abft.py holds it in full):
+    # on a clean product "detect" returns what "off" does, fused or not
+    for fuse in (False, None):
+        assert torch.equal(tops.sfc_matmul(a, b, fuse=fuse, abft="detect"), tops.sfc_matmul(a, b, fuse=fuse))
     # preact (the training forward of a GLU) is ported: the (h_pre, g_pre)
     # pair of the JAX package's _matmul_impl(..., preact=True)
     x, wv, wg, bias, gbias = _arrays(9, (2, 8, 16), (16, 24), (16, 24), (24,), (24,))
@@ -205,8 +205,10 @@ def test_unported_options_and_bad_operands_raise():
     # needs W beside master, mu, nu and the (12,) hyper vector
     with pytest.raises(ValueError, match="update mode"):
         tk.sfc_gemm_tn(a, a, master=b, mu=b, nu=b, hyper=torch.zeros(12))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tk.sfc_gemm_tn(a, a, abft=True)
+    # the TN kernel's checksum lane is ported: (dW, its (1, 1) raw sum)
+    dw, chk = tk.sfc_gemm_tn(a, a, abft=True)
+    assert torch.equal(dw, tk.sfc_gemm_tn(a, a)) and tuple(chk.shape) == (1, 1)
+    np.testing.assert_allclose(float(chk[0, 0]), float(dw.sum()), rtol=RTOL, atol=ATOL * float((a.T.abs() @ a.abs()).sum()))
     with pytest.raises(ValueError):
         tops.sfc_matmul(a, b[:8])
     with pytest.raises(ValueError):

@@ -390,10 +390,17 @@ def test_unported_training_options_raise(yi_reduced):
     # the fused optimizer is ported; with microbatches it raises, as in JAX
     with pytest.raises(ValueError, match="microbatches=1"):
         make_train_step(model, opt, microbatches=2, backend=BackendConfig(fused_optimizer=True))
-    step = make_train_step(model, opt, backend=BackendConfig(abft="detect"))
+    # the ABFT lane is ported: a step under "detect" runs and counts no
+    # detection (tests/test_torch_abft.py holds its losses to "off")
+    from repro_torch.robust import abft
+
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, yi_reduced[1]), cfg, device="cpu"))
+    step = make_train_step(model, opt, backend=BackendConfig(gemm_backend="sfc_cuda", abft="detect"))
     batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(SyntheticLMConfig(cfg.vocab, 8, 2)).batch(0).items()}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        step(tadamw.adamw_init(dict(model.named_parameters())), batch)
+    abft.reset_runtime_sdc()
+    _, metrics = step(tadamw.adamw_init(dict(model.named_parameters())), batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert abft.runtime_sdc_total() == 0 and abft.runtime_check_total() > 0
     with pytest.raises(NotImplementedError, match="item 18"):
         model.loss(batch, remat="dots")
     with pytest.raises(ValueError, match="microbatch"):
