@@ -29,10 +29,17 @@ phase 3 three) and raising on failure:
               K8's update mode (AdamW in the flush, bf16 W stochastically
               rounded) and norm mode at every training shape, in bf16 and
               f32;
+              the plain-mode bf16 rows of at most 16 (the decode projections
+              and the LM head) launch the cluster kernel, each 64-column C
+              tile split over L K slabs inside one launch, and are held
+              against the plain version summed over the same L layers; each
+              K1/K2 row names the kernel it launched and its L;
               the band flash forward (K11) at the prefill and training shapes
               and at 1 x 2000 with q_offset 0 and 48; the dense flash forward
-              (K15); the decode attention (K14) at the serve's cache and at a
-              4096-row cache; the flash backward (K12 dQ, K13 dK/dV) at the
+              (K15); the decode attention (K14, batch x Hkv clusters of S CTAs,
+              one a cache segment; its plain version over the same S
+              segments) at the serve's cache and at a 4096-row cache; the
+              flash backward (K12 dQ, K13 dK/dV) at the
               training shape and a ragged GQA f32 case with S != T; the
               grouped MoE kernels K3 (forward: GLU with silu in the flush,
               GLU preact, w_out), K9 (dA) and K10 (dW) at every olmoe-1b-7b
@@ -148,7 +155,8 @@ phase 3 three) and raising on failure:
               of their own);
 9. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
-              library times and the bound; the lane rows (K1/K2, K3, K8 dW,
+              library times and the bound (K1/K2 rows: the kernel launched
+              and its K layers; K14 rows: the segments); the lane rows (K1/K2, K3, K8 dW,
               update, norm with the lane) carry the launches of the ABFT
               run of their path, the time with the lane off, the operand
               reference's time and the partials their bound adds; before
@@ -162,6 +170,7 @@ and prints no result.  Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -242,6 +251,15 @@ def within_all(got, want, dtype):
         return within(got, want, dtype)
     res = [within(g, w, dtype) for g, w in zip(got, want)]
     return all(r[0] for r in res), max(r[1] for r in res), max(r[2] for r in res)
+
+
+def launched(counter, fn):
+    """(fn(), the one key of ``counter`` that the call added to): which
+    kernel (and split) a wrapper launched."""
+    before = collections.Counter(counter)
+    out = fn()
+    (key,) = collections.Counter(counter) - before
+    return out, key
 
 
 def time_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
@@ -469,11 +487,14 @@ def phase_attention(torch, cases, tsa, tfa, build):
             valid = torch.tensor(c.valid, dtype=torch.int32, device=dev)
             mask = (torch.arange(c.t, device=dev)[None, :] < valid[:, None])[:, None, None, :]
 
+            splits = tsa.decode_splits(c.b, c.hkv, c.t, torch.cuda.get_device_properties(dev).multi_processor_count)
+
             def kernel(i):
                 return tsa.sfc_decode_attention(*ins[i % copies], valid)
 
             def plain(i):
-                return tsa.sfc_decode_attention_plain(*ins[i % copies], valid, k_chunk=build.DECODE_CHUNK)
+                return tsa.sfc_decode_attention_plain(*ins[i % copies], valid, k_chunk=build.DECODE_CHUNK,
+                                                      splits=splits)
         elif c.kernel == "sfc_flash_fwd":
             kw = dict(causal=c.causal, q_offset=c.q_offset)
 
@@ -495,7 +516,13 @@ def phase_attention(torch, cases, tsa, tfa, build):
         causal_flag = not c.decode and c.causal and mask is None
         library = lambda i: F.scaled_dot_product_attention(  # noqa: E731
             *views[i % copies], attn_mask=mask, is_causal=causal_flag, enable_gqa=True)
-        got, want = kernel(0), plain(0)
+        if c.decode:
+            got, launched_splits = launched(tsa.sfc_decode_attention.launches_by_splits, lambda: kernel(0))
+            if launched_splits != splits:
+                raise AssertionError(f"decode launched {launched_splits} segments, its plain version {splits}")
+        else:
+            got = kernel(0)
+        want = plain(0)
         torch.cuda.synchronize()
         if c.kernel == "sfc_flash_fwd":
             (got, got_lse), (want, want_lse) = got, want
@@ -514,7 +541,7 @@ def phase_attention(torch, cases, tsa, tfa, build):
         plain_ms = time_ms(plain, reps=2, warmup=1)
         bound_ms, bound_by = c.bound(2)
         rows.append(dict(case=c, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
+                         bound_ms=bound_ms, bound_by=bound_by, **({"splits": splits} if c.decode else {})))
         del ins, views
     return rows, checks
 
@@ -543,15 +570,19 @@ def phase_kernels(torch, cfg, gemms, tk, ops):
             return tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies] if gs else None, **kw)
 
         bm, bn, _ = ops.pick_blocks(gm.m, gm.n, gm.k)
+        # which kernel the wrapper takes: the cluster kernel (M <= 16), its
+        # plain version summed over the same K layers, or the tile kernel
+        got, (name, layers) = launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: kernel(0))
 
         def plain(i):
-            return tk.sfc_gemm_fused_plain(a, ws[i % copies], gs[i % copies] if gs else None, bm=bm, bn=bn, **kw)
+            return tk.sfc_gemm_fused_plain(a, ws[i % copies], gs[i % copies] if gs else None, bm=bm, bn=bn,
+                                           k_layers=layers, **kw)
 
-        got, want = kernel(0), plain(0)
+        want = plain(0)
         torch.cuda.synchronize()
         ok, err, worst = within_all(got, want, dt)
         checks.append({"case": gm.name, "shape": [gm.batch, gm.m, gm.k, gm.n], "glu": gm.glu, "preact": gm.preact,
-                       "ok": ok, "max_abs_err": err, "err_over_bound": worst})
+                       "kernel": name, "k_layers": layers, "ok": ok, "max_abs_err": err, "err_over_bound": worst})
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version at {gm}: max err {err}, err/bound {worst}")
         if gm.glu:
@@ -564,7 +595,7 @@ def phase_kernels(torch, cfg, gemms, tk, ops):
         plain_ms = time_ms(plain, reps=2, warmup=1)
         bound_ms, bound_by = gm.bound(2, PEAK_BF16_FLOPS)
         rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
+                         bound_ms=bound_ms, bound_by=bound_by, kernel=name, k_layers=layers))
         del ws, gs, a
         if gm.glu:
             del cats
@@ -774,7 +805,8 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
 
 # kernel-name fragments of the serve's GEMM kernels in a profiler trace
 _SERVE_KERNEL_GROUPS = (("sfc_gemm_replicated_kernel", "K4/K5"), ("add_reduce_kernel", "K6"),
-                        ("sfc_gemm_fused_kernel", "K1/K2"))
+                        ("sfc_gemm_fused_kernel", "K1/K2"), ("sfc_gemm_cluster_kernel", "K1 cluster"),
+                        ("decode_split_kernel", "K14"))
 
 
 def profile_decode(torch, eng, tokens, ops, layers=None):
@@ -2196,14 +2228,14 @@ def _negative_control(torch, abft, namespace, out, chk, ref_of, a, depth):
     return res
 
 
-def _lane_row(kernel, gm, lane_err, ms, off_ms, ref_ms, plain_ms, bound, partials):
+def _lane_row(kernel, gm, lane_err, ms, off_ms, ref_ms, plain_ms, bound, partials, **extra):
     """A lane's row of the kernels line: its time with the lane on and off,
     the operand-side reference's, and the bound of the launch with the
     partials it writes (4 B a task and set)."""
     flops, nbytes, peak = bound
     bound_ms, bound_by = _bound(flops, nbytes + 4.0 * partials, peak)
     return dict(kernel=kernel, gemm=gm, max_abs_err=lane_err, ms=ms, lane_off_ms=off_ms, operand_ref_ms=ref_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, partials=partials)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, partials=partials, **extra)
 
 
 def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
@@ -2240,18 +2272,19 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
             def call(i, lane):
                 return tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies], abft=lane, **kw)
 
-            on, off = call(0, True), call(0, False)
+            on, (name, layers) = launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: call(0, True))
+            off = call(0, False)
             off = off if isinstance(off, tuple) else (off,)
             bm, bn, _ = ops.pick_blocks(gm.m, gm.n, gm.k)
             plain, plain_ms = _once_ms(torch, lambda: tk.sfc_gemm_fused_plain(a, ws[0], gs[0], bm=bm, bn=bn,
-                                                                             abft=True, **kw))
+                                                                             k_layers=layers, abft=True, **kw))
             ref, mag = abft.gemm_checksum_ref(a, ws[0], gs[0])
             af = a.float()
             tiles = raw_tile_sums(torch, *(af @ x.float() for x in (ws[0], gs[0]) if x is not None))
             del af
             checks.append(_lane_check(torch, abft, f"K1/K2:{gm.name}", on[-1], plain[-1], ref, mag, gm.k, on[:-1], off,
                                       tiles, _dropped(plain[-1], tiles) if gm.name == "decode/q" else None,
-                                      dtype=str(dt)))
+                                      dtype=str(dt), kernel=name.replace("_kernel", "_abft_kernel"), k_layers=layers))
             if dt == torch.bfloat16:
                 if gm.name == "decode/q":
                     controls["K1/K2 decode/q"] = _negative_control(
@@ -2263,7 +2296,8 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
                                  graph=True)
                 tasks = max(gm.batch, 1) * math.ceil(gm.m / 64) * math.ceil(gm.n / 64)
                 rows.append(_lane_row("K1/K2", gm, abs(float(on[-1]) - float(plain[-1])), ms, off_ms, ref_ms,
-                                      plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), tasks))
+                                      plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), tasks,
+                                      cuda_kernel=name.replace("_kernel", "_abft_kernel"), k_layers=layers))
             del a, ws, gs, on, off, plain, tiles
     # the ragged case with every epilogue flag, in both input types
     for dt in (torch.float32, torch.bfloat16):
@@ -2600,6 +2634,8 @@ def main() -> int:
         for fn in (tk.sfc_gemm_fused, tk.sfc_gemm_replicated, tk.add_reduce):
             fn.launches = 0
             fn.launches_by_shape.clear()
+        tk.sfc_gemm_fused.launches_by_kernel.clear()
+        tsa.sfc_decode_attention.launches_by_splits.clear()
         for fn in attn_kernels.values():
             fn.launches = 0
 
@@ -2624,6 +2660,10 @@ def main() -> int:
     torch.cuda.synchronize()
     attn_launches = {name: fn.launches for name, fn in attn_kernels.items()}
     attn_gemm_launches = tk.sfc_gemm_fused.launches
+    attn_by_kernel = {"sfc_gemm_fused": {f"{name}@L{layers}": n for (name, layers), n in
+                                         tk.sfc_gemm_fused.launches_by_kernel.items()},
+                      "sfc_decode_attention": {f"S{k}": n for k, n in
+                                               tsa.sfc_decode_attention.launches_by_splits.items()}}
     if attn_gemm_launches != want_launches or any(attn_launches[k] != n for k, n in want_attn.items()):
         raise AssertionError(f"attn_impl='sfc' serve launched GEMM {attn_gemm_launches} (want {want_launches}) "
                              f"and attention {attn_launches} (want {want_attn}) times")
@@ -2744,6 +2784,7 @@ def main() -> int:
         "requests": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
         "launches": launches, "launches_expected": want_launches,
         "attn_impl_sfc_launches": {"sfc_gemm_fused": attn_gemm_launches, **{k: attn_launches[k] for k in want_attn}},
+        "attn_impl_sfc_launches_by_kernel": attn_by_kernel,
         "flash_pallas_prefill_launches": attn_launches["flash_attention"],
         "replicated_launches": rep_counts, "replicated_launches_expected": {"replicated": want_rep,
                                                                            split: want_split},
@@ -2842,6 +2883,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            # the CUDA kernel the wrapper launched at this shape, and its K layers (a cluster's CTAs)
+            "kernel": row["kernel"],
+            "k_layers": row["k_layers"],
             "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "glu": gm.glu, "preact": gm.preact},
         })
     # the replicated form: launches of each kernel in its serve (K4/K5 in
@@ -2932,7 +2976,7 @@ def main() -> int:
         else:
             path, count = "train, fused optimizer, abft detect", abft_fused["sfc_gemm_tn"].get(gm.key, 0)
         kernels.append({
-            "name": f"{lanes[lane][0]}:{lane}:{gm.name}",
+            "name": f"{row.get('cuda_kernel', lanes[lane][0])}:{lane}:{gm.name}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
             "replaces": lanes[lane][1],
@@ -2947,6 +2991,7 @@ def main() -> int:
             "lane_off_ms": row["lane_off_ms"],
             "operand_ref_ms": row["operand_ref_ms"],
             "partials": row["partials"],
+            **({"k_layers": row["k_layers"]} if "k_layers" in row else {}),
             "shape": dataclasses.asdict(gm),
         })
     replaces = {"sfc_flash_fwd": "src/repro/kernels/sfc_attention.py:204",
@@ -2992,6 +3037,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            **({"kernel": "decode_split_kernel", "splits": row["splits"]} if c.decode else {}),
             "shape": c.shape(),
         })
     for row in grouped_rows:

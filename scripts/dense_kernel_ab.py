@@ -1,11 +1,14 @@
-"""Compare the GEMM kernels of source trees on one card: the times of
-K1/K2 (`sfc_gemm_fused`), K7 (`sfc_gemm_nt`) and K8's dW mode
-(`sfc_gemm_tn`) at qwen3-4b's main-path shapes (`chip_smoke.py`'s
-`main_path_gemms` and `train_backward_gemms`, bf16), of K8's update and
-norm modes there (`train_update_gemms`), of the grouped K3, K9 and K10 at
-olmoe-1b-7b's (`moe_grouped_gemms`) and of K10's update and norm modes
+"""Compare the kernels of source trees on one card: the times of K1/K2
+(`sfc_gemm_fused`; at M <= 16 the cluster kernel in a tree that has it),
+K7 (`sfc_gemm_nt`) and K8's dW mode (`sfc_gemm_tn`) at qwen3-4b's
+main-path shapes (`chip_smoke.py`'s `main_path_gemms` and
+`train_backward_gemms`, bf16), of K8's update and norm modes there
+(`train_update_gemms`), of the decode attention K14 at the serve's cache
+and the 4096-row check (`attention_cases`), of the grouped K3, K9 and K10
+at olmoe-1b-7b's (`moe_grouped_gemms`) and of K10's update and norm modes
 (`moe_update_gemms`) in the trees that have them, and the registers and
-spills that ptxas reports for every instantiation of their CUDA kernels.
+spills that ptxas reports for every instantiation of the GEMM and
+attention libraries' CUDA kernels.
 
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1
 
@@ -14,14 +17,16 @@ Each pass runs in a process of its own with the tree's `src/` and
 its own `build/` and is timed by its own code; `--order` lists the trees'
 indices, one pass each (parent, change, change, parent reads a drift of
 the card between passes).  Times: CUDA events around a captured graph of
-20+ calls with the weights rotated past the 50 MB L2, as `chip_smoke.py`
-times them.  Prints one JSON line per pass and, last, a summary: each
-row's times by tree, each tree's mean over the `--base` tree's (default
-1), the ptxas counts of the dense kernels the trees share by name, side by
-side, those of each tree's other kernels, and which shared dense kernels
-compiled to different machine code (a digest of each kernel's SASS
-instructions, from `cuobjdump -sass` of each tree's GEMM library;
-addresses, encodings and line information left out).
+20+ calls with the weights (K14: the caches) rotated past the 50 MB L2, as
+`chip_smoke.py` times them; each pass also records which GEMM kernel (and
+how many K layers) each K1/K2 row launched, where its tree counts that.
+Prints one JSON line per pass and, last, a summary: each row's times by
+tree, each tree's mean over the `--base` tree's (default 1), the ptxas
+counts of every kernel the trees share by name, side by side, those of
+each tree's other kernels, and which shared kernels compiled to different
+machine code (a digest of each kernel's SASS instructions, from
+`cuobjdump -sass` of each tree's libraries; addresses, encodings and line
+information left out).
 Needs a CUDA device, nvcc and cuobjdump.
 """
 
@@ -44,7 +49,7 @@ _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 _FUNCTION = re.compile(r"Function : (\S+)")
 _SASS = re.compile(r"/\*[0-9a-f]+\*/\s+(.+?)\s*;")
-_DENSE = ("sfc_gemm_fused_kernel", "nt_kernel", "tn_kernel", "tn_update_kernel")
+_LIBRARIES = ("sfc_gemm_fused", "sfc_attention")
 _HYPER_STEP, _HYPER_SCALE, _SALT = 7, 0.37, (3 << 16) + 5
 
 
@@ -59,21 +64,31 @@ def _demangle(names):
         return {n: re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", n) for n in names}
 
 
+def _latest(tree: Path, pattern: str) -> list:
+    """The newest file of each library under the tree's build/ that
+    matches ``pattern`` (``{lib}`` stands for the library's name)."""
+    found = []
+    for lib in _LIBRARIES:
+        files = sorted((tree / "build").glob(pattern.format(lib=lib)), key=lambda p: p.stat().st_mtime)
+        found += files[-1:]
+    if not found:
+        raise FileNotFoundError(f"no {pattern.format(lib='*')} under {tree / 'build'}")
+    return found
+
+
 def ptxas_counts(tree: Path) -> dict:
     """{kernel name: [registers, spill store bytes, spill load bytes]}
-    from the nvcc.log of the tree's GEMM library build."""
-    logs = sorted((tree / "build").glob("sfc_gemm_fused-*/nvcc.log"), key=lambda p: p.stat().st_mtime)
-    if not logs:
-        raise FileNotFoundError(f"no GEMM build log under {tree / 'build'}")
+    from the nvcc.log of the tree's GEMM and attention library builds."""
     out, name, spill = {}, None, None
-    for line in logs[-1].read_text().splitlines():
-        if m := _ENTRY.search(line):
-            name, spill = m.group(1), None
-        elif name and (m := _SPILL.search(line)):
-            spill = [int(m.group(1)), int(m.group(2))]
-        elif name and (m := _REGS.search(line)):
-            out[name] = [int(m.group(1)), *(spill or [0, 0])]
-            name = None
+    for log in _latest(tree, "{lib}-*/nvcc.log"):
+        for line in log.read_text().splitlines():
+            if m := _ENTRY.search(line):
+                name, spill = m.group(1), None
+            elif name and (m := _SPILL.search(line)):
+                spill = [int(m.group(1)), int(m.group(2))]
+            elif name and (m := _REGS.search(line)):
+                out[name] = [int(m.group(1)), *(spill or [0, 0])]
+                name = None
     names = _demangle(list(out))
     return {names[n]: v for n, v in out.items()}
 
@@ -96,16 +111,15 @@ def _sass_digests(lines) -> dict:
 
 
 def sass_digests(tree: Path) -> dict:
-    """{kernel name: `_sass_digests` digest} of the tree's GEMM library,
-    read as `cuobjdump -sass` streams it."""
-    libs = sorted((tree / "build").glob("sfc_gemm_fused-*/libsfc_gemm_fused.so"), key=lambda p: p.stat().st_mtime)
-    if not libs:
-        raise FileNotFoundError(f"no GEMM library under {tree / 'build'}")
+    """{kernel name: `_sass_digests` digest} of the tree's GEMM and
+    attention libraries, read as `cuobjdump -sass` streams them."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    with subprocess.Popen([tool, "-sass", str(libs[-1])], stdout=subprocess.PIPE, text=True) as proc:
-        out = _sass_digests(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"cuobjdump failed on {libs[-1]} with exit code {proc.returncode}")
+    out = {}
+    for lib in _latest(tree, "{lib}-*/lib{lib}.so"):
+        with subprocess.Popen([tool, "-sass", str(lib)], stdout=subprocess.PIPE, text=True) as proc:
+            out.update(_sass_digests(proc.stdout))
+        if proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump failed on {lib} with exit code {proc.returncode}")
     names = _demangle(list(out))
     return {names[n]: v for n, v in out.items()}
 
@@ -117,13 +131,14 @@ def worker(tree: Path) -> dict:
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import sfc_attention as tsa
     from repro_torch.kernels import sfc_gemm as tk
 
-    build.load_library()
+    build.load_all()
     cfg = get_config("qwen3_4b")
     dev, dt = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows = {}
+    rows, kernels = {}, {}
     for gm in cs.main_path_gemms(cfg):
         lead = (gm.batch,) if gm.batch else ()
         a = torch.randn((*lead, gm.m, gm.k), generator=gen, device=dev).to(dt)
@@ -135,7 +150,22 @@ def worker(tree: Path) -> dict:
         rows[f"K1/K2 {gm.name}"] = cs.time_ms(
             lambda i: tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies] if gs else None, **kw),
             reps=max(20, copies), graph=True)
+        # after the timing, so that both trees allocate alike before it
+        by_kernel = getattr(tk.sfc_gemm_fused, "launches_by_kernel", None)
+        if by_kernel is not None:
+            _, kernels[f"K1/K2 {gm.name}"] = cs.launched(
+                by_kernel, lambda: tk.sfc_gemm_fused(a, ws[0], gs[0] if gs else None, **kw))
         del a, ws, gs
+    for c in cs.attention_cases(cfg):
+        if c.kernel != "sfc_decode_attention":
+            continue
+        copies = max(1, math.ceil(4 * cs.L2_BYTES / c.bytes(2)))
+        ins = [tuple(torch.randn(s, generator=gen, device=dev).to(dt) for s in
+                     ((c.b, 1, c.h, c.d), (c.b, c.t, c.hkv, c.d), (c.b, c.t, c.hkv, c.d))) for _ in range(copies)]
+        valid = torch.tensor(c.valid, dtype=torch.int32, device=dev)
+        rows[f"K14 {c.name}"] = cs.time_ms(lambda i: tsa.sfc_decode_attention(*ins[i % copies], valid),
+                                           reps=max(20, copies), graph=True)
+        del ins
     for gm in cs.train_backward_gemms(cfg):
         m, k, n = gm.m, gm.k, gm.n
         copies = max(1, math.ceil(4 * cs.L2_BYTES / gm.bytes(2)))
@@ -165,7 +195,7 @@ def worker(tree: Path) -> dict:
             torch.cuda.empty_cache()
     if hasattr(cs, "moe_update_gemms"):
         rows.update(_update_rows(torch, cs, tk, cs.moe_update_gemms(get_config("olmoe_1b_7b")), gen, "K10"))
-    return {"tree": str(tree), "ms": rows, "ptxas": ptxas_counts(tree)}
+    return {"tree": str(tree), "ms": rows, "k1_kernels": kernels, "ptxas": ptxas_counts(tree)}
 
 
 def _update_rows(torch, cs, tk, gemms, gen, label):
@@ -229,19 +259,19 @@ def main(argv=None) -> int:
             base = statistics.mean(ms[row][str(args.base)])
             ms[row]["over_base"] = {i: statistics.mean(v) / base for i, v in ms[row].items() if i != str(args.base)}
     shared = sorted(set.intersection(*(set(ps[0]["ptxas"]) for ps in by_tree.values())))
-    dense = [n for n in shared if any(k in n for k in _DENSE)]
-    ptxas = {n: {str(i): ps[0]["ptxas"][n] for i, ps in by_tree.items()} for n in dense}
+    ptxas = {n: {str(i): ps[0]["ptxas"][n] for i, ps in by_tree.items()} for n in shared}
     changed = {n: v for n, v in ptxas.items() if len({tuple(c) for c in v.values()}) > 1}
     sass = [sass_digests(trees[i]) for i in sorted(by_tree)]
-    sass_differ = sorted(n for n in dense if len({d.get(n) for d in sass}) > 1)
+    sass_differ = sorted(n for n in shared if len({d.get(n) for d in sass}) > 1)
     only = {}  # kernels of one tree alone (a new kernel's first counts)
     for i, ps in by_tree.items():
         own = sorted(set(ps[0]["ptxas"]) - set(shared))
         only[str(i)] = {n: ps[0]["ptxas"][n] for n in own}
     print(json.dumps({"trees": [str(t) for t in trees], "order": order, "base": args.base, "ms": ms,
+                      "k1_kernels": {str(i): ps[0].get("k1_kernels", {}) for i, ps in by_tree.items()},
                       "ptxas_registers_spill_st_spill_ld": ptxas, "ptxas_changed": changed,
-                      "kernels_compared": len(dense), "ptxas_only_in_tree": only,
-                      "sass_identical": len(dense) - len(sass_differ), "sass_differ": sass_differ}))
+                      "kernels_compared": len(shared), "ptxas_only_in_tree": only,
+                      "sass_identical": len(shared) - len(sass_differ), "sass_differ": sass_differ}))
     return 0
 
 

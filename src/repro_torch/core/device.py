@@ -2,11 +2,12 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "torch_dtype"]
+__all__ = ["resolve_device", "sm_count", "torch_dtype"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -19,6 +20,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run the port on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device: what the split kernels
+    size their grids by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:

@@ -19,7 +19,9 @@ the flags, and loaded with ``ctypes``.  Two libraries:
   checksum lanes (``-DSFC_ABFT=1``), a twin of each forward part (K1/K2 and
   K3 with the lane) and, per input type, a TN part (K8 dW) and a TN-update
   part (K8's update and norm modes), each behind entries of its own, so the
-  parts without the lane keep their code;
+  parts without the lane keep their code; the bf16 forward parts and their
+  lane twins also hold the cluster kernel (K1 at M <= ``SPLIT_MAX_ROWS``)
+  behind entries of its own (`cluster_entry_name`);
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
@@ -54,9 +56,13 @@ __all__ = [
     "ATTN_HEAD_DIMS",
     "MAX_DECODE_GROUPS",
     "DECODE_CHUNK",
+    "MAX_DECODE_SPLITS",
+    "SPLIT_MAX_ROWS",
+    "MAX_CLUSTER_LAYERS",
     "ACTIVATION_CODES",
     "DTYPE_NAMES",
     "entry_name",
+    "cluster_entry_name",
     "bwd_entry_name",
     "rep_entry_name",
     "attn_entry_name",
@@ -78,8 +84,15 @@ ATTN_DKV_TILE: Dict[str, Tuple[int, int]] = {"bf16": (64, 64), "f32": (32, 64)}
 ATTN_HEAD_DIMS: Tuple[int, ...] = (64, 128)
 # GQA rows one decode CTA holds: kMaxGroups in csrc/sfc_attention.cu
 MAX_DECODE_GROUPS = 16
-# cache rows per step of the decode kernel's loop: kDecChunk in csrc/sfc_attention.cu
+# cache rows the decode kernel's segments are a multiple of: kDecChunk in
+# csrc/sfc_attention.cu
 DECODE_CHUNK = 64
+# segments (cluster CTAs) of the decode kernel: kMaxSplits in csrc/sfc_attention.cu
+MAX_DECODE_SPLITS = 8
+# A rows the cluster GEMM kernel takes (kSplitRows) and CTAs (K layers) a
+# cluster (kMaxLayers), in csrc/sfc_gemm_fused.cu
+SPLIT_MAX_ROWS = 16
+MAX_CLUSTER_LAYERS = 8
 
 ACTIVATION_CODES: Dict[Optional[str], int] = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 DTYPE_NAMES = {"float32": "f32", "bfloat16": "bf16"}
@@ -96,6 +109,14 @@ def entry_name(dtype_name: str, glu: bool, activation: Optional[str], abft: bool
     or of its twin with the ABFT checksum lane."""
     lane = "abft_" if abft else ""
     return f"sfc_gemm_fused_{lane}{dtype_name}_glu{int(glu)}_act{ACTIVATION_CODES[activation]}"
+
+
+def cluster_entry_name(glu: bool, activation: Optional[str], abft: bool = False) -> str:
+    """C symbol of the cluster kernel's entry (K1 at M <= SPLIT_MAX_ROWS,
+    split-K across a cluster) in the bf16 part of one (GLU, activation), or
+    in its ABFT twin."""
+    lane = "abft_" if abft else ""
+    return f"sfc_gemm_cluster_{lane}bf16_glu{int(glu)}_act{ACTIVATION_CODES[activation]}"
 
 
 def bwd_entry_name(kind: str, dtype_name: str, abft: bool = False) -> str:
@@ -134,6 +155,7 @@ def _gemm_parts():
                         f"-DSFC_ACT={ACTIVATION_CODES[act]}",
                         f"-DSFC_ENTRY={entry_name(dt, glu, act, abft)}",
                         *(("-DSFC_ABFT=1",) if abft else ()),
+                        *((f"-DSFC_CLUSTER_ENTRY={cluster_entry_name(glu, act, abft)}",) if dt == "bf16" else ()),
                     )
         yield f"sfc_gemm_bwd_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
@@ -189,6 +211,21 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                         i32, i32,  # vec_a, vec_b
                         ptr, i32,  # grouped mode (K3): per-expert (3, E) rows, E; null, 0 otherwise
                         *((ptr,) if abft else ()),  # the lane's (batch * n_tasks) f32 partials
+                        ptr,  # cudaStream_t
+                    ]
+                    fn.restype = i32
+                    if dt != "bf16":
+                        continue
+                    fn = getattr(lib, cluster_entry_name(glu, act, abft))
+                    fn.argtypes = [
+                        ptr, ptr, ptr, ptr, ptr, ptr,  # a, b, b_gate, bias, gate_bias, residual
+                        ptr, ptr,  # out, out_gate (preact mode)
+                        ptr, i32,  # task table (2, n_tasks), n_tasks
+                        i32, i32, i32,  # M, N, K
+                        i32, i32,  # layers (CTAs a cluster), slab (K rows a layer)
+                        i32, ctypes.c_float,  # has_scale, out_scale
+                        i32, i32,  # vec_a, vec_b
+                        *((ptr,) if abft else ()),  # the lane's (n_tasks) f32 partials
                         ptr,  # cudaStream_t
                     ]
                     fn.restype = i32
@@ -268,6 +305,7 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
                 i32, i32, i32, i32,  # batch, H, Hkv, T
                 i64, i64, i64, i64, i64, i64,  # k, v strides (batch, seq, head)
                 ctypes.c_float,  # scale
+                i32, i32,  # splits (CTAs a cluster), seg (cache rows a segment)
                 ptr,  # cudaStream_t
             ]
             dec.restype = i32

@@ -46,20 +46,43 @@
 //   registers); and each CTA re-reads its kv head's k and v once per q head
 //   of the group (from L2).
 //
-// decode_kernel replaces `repro/kernels/sfc_attention.py::
-//   sfc_decode_attention_pallas` (`_decode_kernel`): one launch for the whole
-//   (batch, head) fan-out of a decode step.  One CTA per (batch, kv head); its
-//   rows are the kv head's GQA group (no padding of the group to 8 rows).  The
-//   k-chunk loop ends at valid_len[b], read on the device, so chunks past the
-//   live cache are never read and the host never waits for the length; the
-//   cache is read in place in its stored (B, T, Hkv, D) layout with no pad to
-//   a chunk multiple.  valid_len is clamped to [0, T]; valid_len 0 gives
-//   zeros, as the TPU kernel's max(l, 1e-30) does.
+// decode_split_kernel replaces `repro/kernels/sfc_attention.py::
+//   sfc_decode_attention_pallas` (:660, `_decode_kernel` :601): one launch
+//   for the whole (batch, head) fan-out of a decode step, the kv head's GQA
+//   group as its rows (padded only to the next of 1, 2, 4, 8, 16).  Each
+//   sequence's live length valid_len[b] is read on the device and clamped
+//   to [0, T], so rows past the live cache are never read and the host never
+//   waits for the length; the cache is read in place in its stored (B, T,
+//   Hkv, D) layout.  valid_len 0 gives zeros, as the TPU kernel's
+//   max(l, 1e-30) does.
 //
 //   What bounds it: the bytes of the live cache (k and v, 2 x valid x D per
-//   kv head) at 3.35 TB/s.  What it leaves on the table: with 4 x 8 = 32 CTAs
-//   on 132 SMs it cannot reach the card's memory rate; splitting the cache
-//   across CTAs (split-K with a merge) is a later kernel.
+//   kv head) at 3.35 TB/s.  The first port ran one CTA per (batch, kv head),
+//   4 x 8 = 32 CTAs on 132 SMs, each walking its cache serially with 8-byte
+//   reads and three barriers a 64-row chunk: 1.67 ms on an H100
+//   (chip_smoke.py) where the 4096-row check row's bytes take 8.8 us.  So
+//   the wrapper cuts the capacity T into S segments of whole 64-row chunks
+//   (S a function of the batch, the kv heads, T and the SM count, never of
+//   valid_len: 2 CTAs an SM, at most a chunk each and 8) and launches
+//   batch x Hkv clusters of S CTAs, still one launch.  Each CTA streams its
+//   segment's live rows through a ring of 32-row (k, v) tiles with 16-byte
+//   cp.async copies (at bf16 D 128, 4 stages: three 16 KB tiles in
+//   flight).  Its eight warps take four rows of each tile apiece, each with
+//   its own copies, its own online softmax of the group's rows in f32 on
+//   the CUDA cores and no block barrier in the loop (with two barriers a
+//   tile and the softmax shared by the CTA, a tile took as long on an idle
+//   card as on a busy one: the warps waited on one another).  2 D bytes a
+//   cache row carry 4 G D flops: at G <= 16 the FMAs stay under the byte
+//   time, so there is no tensor-core path.  The warps' states merge in
+//   warp order; after cluster.sync() the leader merges the segments' (m,
+//   l, acc) in segment order, m* = max m_s, l = sum l_s e^(m_s - m*), o =
+//   sum acc_s e^(m_s - m*) / max(l, 1e-30), reading its peers through
+//   distributed shared memory: no atomics, no scratch in HBM, the same
+//   result from run to run.  A segment with no live row reads nothing and
+//   weighs nothing (m = -1e30, l = 0, acc = 0; e^(m_s - m*) is then 0, or 1
+//   times zeros when no segment is live), so an empty cache still gives
+//   zeros, not NaN.  At the server's 145-row cache (S = 3, 96 CTAs of two
+//   tiles each) the launch and the cluster barrier bound it.
 //
 // flash_bwd_dq_kernel and flash_bwd_dkv_kernel replace the training
 //   backward `repro/kernels/sfc_attention.py::sfc_flash_bwd_dq`
@@ -93,10 +116,13 @@
 // four parts at once).  Every entry launches on the caller's stream and
 // returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "cuda_common.cuh"
 
 #ifndef SFC_ATTN_DTYPE
 #define SFC_ATTN_DTYPE 1
@@ -110,17 +136,18 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kBQ = 64;  // q rows of a tile (keep in step with build.py ATTN_TILE)
 constexpr int kBK = 64;  // k rows of a tile
 constexpr int kFwdThreads = 128;  // 4 warps x 16 q rows
-constexpr int kDecChunk = 64;     // cache rows per decode step of the loop
+constexpr int kDecChunk = 64;     // cache rows a decode segment is a multiple of (build.py DECODE_CHUNK)
 constexpr int kMaxGroups = 16;    // GQA rows a decode CTA holds (build.py MAX_DECODE_GROUPS)
 constexpr float kNeg = -1e30f;
 constexpr float kTiny = 1e-30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -375,98 +402,332 @@ struct DecodeParams {
   float scale;
 };
 
-// One CTA of D threads per (batch, kv head).  Thread d owns output column d
-// of every row of the group.
-template <typename T, int D>
-__global__ void __launch_bounds__(D) decode_kernel(const DecodeParams p) {
-  constexpr int kWarps = D / 32;
-  constexpr int kPer = D / 32;  // elements of a k row per lane
-  __shared__ float qs[kMaxGroups][D];
-  __shared__ float ss[kMaxGroups][kDecChunk];
-  __shared__ float ms[kMaxGroups], ls[kMaxGroups], alphas[kMaxGroups];
+// ---------------------------------------------------------------------------
+// decode, split over the cache: one cluster of S CTAs per (batch, kv head)
+// ---------------------------------------------------------------------------
 
-  const int b = blockIdx.x / p.Hkv, hk = blockIdx.x % p.Hkv;
+constexpr int kDecTile = 32;      // cache rows per stage of the decode kernel's ring
+constexpr int kDecThreads = 256;  // eight warps, four rows of a tile each
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kMaxSplits = 8;     // segments of a cache, a portable cluster (build.py MAX_DECODE_SPLITS)
+
+// the f32 values of one 16-byte chunk of a cache row
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out, bf16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out, float*) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+
+// CPL consecutive elements of a cache row (8 or 16 bytes, aligned), as f32
+template <int CPL>
+__device__ __forceinline__ void load_cols(const unsigned char* p, float* out, bf16*) {
+  static_assert(CPL == 2 || CPL == 4, "two or four columns a lane");
+  if constexpr (CPL == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    out[0] = lo.x;
+    out[1] = lo.y;
+    out[2] = hi.x;
+    out[3] = hi.y;
+  } else {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = f.x;
+    out[1] = f.y;
+  }
+}
+template <int CPL>
+__device__ __forceinline__ void load_cols(const unsigned char* p, float* out, float*) {
+  if constexpr (CPL == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    out[0] = f.x;
+    out[1] = f.y;
+    out[2] = f.z;
+    out[3] = f.w;
+  } else {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    out[0] = f.x;
+    out[1] = f.y;
+  }
+}
+
+// Dynamic shared memory of decode_split_kernel<T, D, KG>: the ring of
+// (k, v) tiles (after the loop, the warps' states), then f32 arrays.  A
+// row's pitch is its bytes + 64.
+template <typename T, int D, int KG>
+struct DecSplitSmem {
+  static constexpr int ROW = D * (int)sizeof(T);
+  static constexpr int PITCH = ROW + 64;
+  static constexpr int NCH = ROW / 16;              // 16-byte chunks a row
+  static constexpr int EPC = 16 / (int)sizeof(T);   // elements a chunk
+  static constexpr int ROWS_W = kDecTile / kDecWarps;  // rows a warp takes of a tile
+  static constexpr int CPL = D / 32;                // P v columns a lane
+  static constexpr int TILE = kDecTile * PITCH;
+  static constexpr int STAGE = 2 * TILE;            // the k tile, then the v tile
+  static constexpr int STAGES = 96 * 1024 / STAGE >= 4 ? 4 : (96 * 1024 / STAGE >= 3 ? 3 : 2);
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int WACC_BYTES = 4 * kDecWarps * KG * D;  // the warps' acc [8][KG][D], over the ring
+  static constexpr int Q = (RING > WACC_BYTES ? RING : WACC_BYTES) / 4;  // float offsets: q (scaled) [KG][D]
+  static constexpr int P = Q + KG * D;              // the warps' probabilities [8][4][KG]
+  static constexpr int WM = P + kDecWarps * ROWS_W * KG;  // the warps' m [8][KG]
+  static constexpr int WL = WM + kDecWarps * KG;    // the warps' l [8][KG]
+  static constexpr int PART = WL + kDecWarps * KG;  // the segment's m [KG], l [KG]
+  static constexpr int BYTES = 4 * (PART + 2 * KG);
+  static_assert(NCH % 8 == 0 && ROWS_W * 8 == 32, "a warp's rows are four, eight lanes a row");
+};
+
+// One CTA per (batch, kv head, segment); the segments of a (batch, kv
+// head) are the S CTAs of one cluster, rank s taking cache rows
+// [s * seg, (s + 1) * seg) clipped to T and to valid_len[b].  The CTA's
+// eight warps run on their own, with no block barrier in the loop: warp w
+// takes rows 4w..4w+3 of every 32-row tile, streams them through its part
+// of a cp.async ring (its own commit groups, one __syncwarp a tile) and
+// keeps its own online softmax of the group's KG rows (G padded to KG with
+// zero q rows, whose outputs are not written) in f32 on the CUDA cores:
+// lane (row, eighth) takes every eighth 16-byte chunk of k for the scores
+// (joined by shuffles); for P v each lane owns D / 32 columns and takes
+// each row's probabilities by shuffle.  After the loop the warps' states
+// merge in warp order, then the leader (rank 0) merges the segments' (m,
+// l, acc) in segment order through distributed shared memory and writes o.
+// A segment with no live row keeps m = -1e30, l = 0, acc = 0, so it weighs
+// nothing, and a group with no live row at all gives zeros.
+// Two CTAs an SM (128 registers) for the groups of up to four rows, whose
+// q columns sit in registers; one for the larger groups.
+template <typename T, int D, int KG>
+__global__ void __launch_bounds__(kDecThreads, KG <= 4 ? 2 : 1)
+    decode_split_kernel(const DecodeParams p, const int seg) {
+  using L = DecSplitSmem<T, D, KG>;
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  float* fs = reinterpret_cast<float*>(dec_smem);
+  float* wacc = fs;  // [kDecWarps][KG][D]; after the warp merge, [0] holds the segment's acc
+  float* qs = fs + L::Q;
+  float* ps = fs + L::P + (int)(threadIdx.x >> 5) * L::ROWS_W * KG;  // this warp's four rows
+  float* wm = fs + L::WM;
+  float* wl = fs + L::WL;
+  float* pm = fs + L::PART;
+  float* pl = pm + KG;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int s = (int)cluster.block_rank();
+  const int bh = blockIdx.x / splits;
+  const int b = bh / p.Hkv, hk = bh % p.Hkv;
   const int G = p.groups;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int valid = min(max(__ldg(p.valid + b), 0), p.T);
-
-  const T* q = static_cast<const T*>(p.q) + ((long long)b * p.H + hk * G) * D;
+  const long long s0 = (long long)s * seg;
+  const int end = (int)min(min(s0 + seg, (long long)p.T), (long long)valid);
+  const int ntiles = end > s0 ? (int)((end - s0 + kDecTile - 1) / kDecTile) : 0;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  for (int e = tid; e < G * D; e += D) qs[e / D][e % D] = to_f32(q[e]) * p.scale;
-  if (tid < G) {
-    ms[tid] = kNeg;
-    ls[tid] = 0.0f;
-  }
-  float acc[kMaxGroups];
+  const int row_w = warp * L::ROWS_W;  // the warp's first row of a tile
+
+  // the warp's k and v rows of tile i into its stage of the ring, rows at
+  // or past `end` zero-filled (so 0 * v stays 0); one commit group a call
+  auto issue = [&](int i) {
+    if (i < ntiles) {
+      unsigned char* st = dec_smem + (i % L::STAGES) * L::STAGE;
+      const long long r0 = s0 + (long long)i * kDecTile + row_w;
 #pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g) acc[g] = 0.0f;
+      for (int c = lane; c < 2 * L::ROWS_W * L::NCH; c += 32) {
+        const int kv = c / (L::ROWS_W * L::NCH), rem = c % (L::ROWS_W * L::NCH);
+        const int r = rem / L::NCH, ch = rem % L::NCH;
+        const bool live = r0 + r < end;
+        const long long row = live ? r0 + r : s0;
+        const T* src = kv ? v + row * p.v_st : k + row * p.k_st;
+        cp_async16(st + kv * L::TILE + (row_w + r) * L::PITCH + ch * 16, src + ch * L::EPC, live);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const T* q = static_cast<const T*>(p.q) + ((long long)b * p.H + hk * G) * D;
+  // scores in the log2 domain (q scaled by log2 e), so exp2f gives e^(s - m)
+  const float qscale = p.scale * kLog2e;
+  for (int e = tid; e < KG * D; e += kDecThreads) qs[e] = e / D < G ? to_f32(q[e]) * qscale : 0.0f;
+#pragma unroll
+  for (int i = 0; i < L::STAGES - 1; ++i) issue(i);
+  __syncthreads();  // q is in shared memory
+
+  float m_run[KG], l_run[KG], acc[KG][L::CPL];
+#pragma unroll
+  for (int g = 0; g < KG; ++g) {
+    m_run[g] = kNeg;
+    l_run[g] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < L::CPL; ++c) acc[g][c] = 0.0f;
+  }
+  const int r4 = lane >> 3, eighth = lane & 7;
+  // up to four group rows, the lane's q columns live in registers: read
+  // from shared memory every tile they were the kernel's busiest traffic
+  // (eight lanes' 16-byte reads 32 bytes apart, two to a bank)
+  constexpr bool kQRegs = KG <= 4;
+  float qr[kQRegs ? KG : 1][L::NCH / 8][L::EPC];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int g = 0; g < KG; ++g) {
+#pragma unroll
+      for (int j = 0; j < L::NCH / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < L::EPC; ++e) qr[g][j][e] = qs[g * D + (eighth + 8 * j) * L::EPC + e];
+      }
+    }
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<L::STAGES - 2>();
+    __syncwarp();  // the warp's rows of tile i have landed; every lane is done with tile i - 1
+    issue(i + L::STAGES - 1);
+    const unsigned char* st = dec_smem + (i % L::STAGES) * L::STAGE;
+    // scores of the lane's row: eight lanes a row, each every eighth chunk
+    float dot[KG];
+#pragma unroll
+    for (int g = 0; g < KG; ++g) dot[g] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < L::NCH / 8; ++j) {
+      const int ch = eighth + 8 * j;
+      float kf[L::EPC];
+      unpack16(*reinterpret_cast<const uint4*>(st + (row_w + r4) * L::PITCH + ch * 16), kf,
+               static_cast<T*>(nullptr));
+#pragma unroll
+      for (int g = 0; g < KG; ++g) {
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int e = 0; e < L::EPC; ++e) dot[g] = fmaf(qr[g][j][e], kf[e], dot[g]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < L::EPC; e += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qs + g * D + ch * L::EPC + e);
+            dot[g] = fmaf(q4.x, kf[e], dot[g]);
+            dot[g] = fmaf(q4.y, kf[e + 1], dot[g]);
+            dot[g] = fmaf(q4.z, kf[e + 2], dot[g]);
+            dot[g] = fmaf(q4.w, kf[e + 3], dot[g]);
+          }
+        }
+      }
+    }
+    const bool live = s0 + (long long)i * kDecTile + row_w + r4 < end;
+    // the warp's online softmax over its four rows
+    float pr[KG];
+#pragma unroll
+    for (int g = 0; g < KG; ++g) {
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) dot[g] += __shfl_xor_sync(kFull, dot[g], off);
+      float mx = live ? dot[g] : kNeg;
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 16));
+      const float m_new = fmaxf(m_run[g], mx);
+      pr[g] = live ? exp2f(dot[g] - m_new) : 0.0f;
+      if (eighth == 0) ps[r4 * KG + g] = pr[g];
+      float sum = pr[g];
+      sum += __shfl_xor_sync(kFull, sum, 8);
+      sum += __shfl_xor_sync(kFull, sum, 16);
+      const float alpha = exp2f(m_run[g] - m_new);
+      l_run[g] = l_run[g] * alpha + sum;
+      m_run[g] = m_new;
+#pragma unroll
+      for (int c = 0; c < L::CPL; ++c) acc[g][c] *= alpha;
+    }
+    __syncwarp();  // the four rows' probabilities
+    // P v over the warp's four rows: the lane's D / 32 columns
+    const unsigned char* vt = st + L::TILE + row_w * L::PITCH + lane * L::CPL * (int)sizeof(T);
+#pragma unroll
+    for (int rr = 0; rr < L::ROWS_W; ++rr) {
+      float x[L::CPL];
+      load_cols<L::CPL>(vt + rr * L::PITCH, x, static_cast<T*>(nullptr));
+#pragma unroll
+      for (int g = 0; g < KG; ++g) {
+        const float pg = ps[rr * KG + g];
+#pragma unroll
+        for (int c = 0; c < L::CPL; ++c) acc[g][c] = fmaf(pg, x[c], acc[g][c]);
+      }
+    }
+  }
+
+  // the warps' states, merged in warp order into the segment's (m, l, acc)
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int g = 0; g < KG; ++g) {
+#pragma unroll
+    for (int c = 0; c < L::CPL; ++c) wacc[(warp * KG + g) * D + lane * L::CPL + c] = acc[g][c];
+    if (lane == 0) {
+      wm[warp * KG + g] = m_run[g];
+      wl[warp * KG + g] = l_run[g];
+    }
+  }
   __syncthreads();
-
-  for (int j0 = 0; j0 < valid; j0 += kDecChunk) {
-    // scores: warp w takes cache rows w, w + kWarps, ... of the chunk
-    for (int jj = warp; jj < kDecChunk; jj += kWarps) {
-      const int kpos = j0 + jj;
-      float kv[kPer];
+  if (tid < KG) {
+    float m = wm[tid];
+    for (int w = 1; w < kDecWarps; ++w) m = fmaxf(m, wm[w * KG + tid]);
+    float l = 0.0f;
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float e = exp2f(wm[w * KG + tid] - m);
+      wm[w * KG + tid] = e;  // now the warp's weight
+      l += wl[w * KG + tid] * e;
+    }
+    pm[tid] = m;
+    pl[tid] = l;
+  }
+  __syncthreads();
+  for (int e = tid; e < KG * D; e += kDecThreads) {
+    const int g = e / D;
+    float a = 0.0f;
 #pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        kv[e] = kpos < valid ? to_f32(k[(long long)kpos * p.k_st + lane * kPer + e]) : 0.0f;
+    for (int w = 0; w < kDecWarps; ++w) a += wacc[w * KG * D + e] * wm[w * KG + g];
+    wacc[e] = a;  // the segment's acc [KG][D]
+  }
+  cluster.sync();  // every segment's state is visible to the cluster
+  if (s == 0) {
+    float* wts = wm;  // [kMaxSplits][KG] segment weights e^(m_s - m*)
+    float* den = wl;  // [KG] max(l, 1e-30)
+    if (tid < G) {
+      float ms[kMaxSplits], ls[kMaxSplits];
+      float mstar = kNeg;
+#pragma unroll
+      for (int j = 0; j < kMaxSplits; ++j) {
+        if (j < splits) {
+          ms[j] = cluster.map_shared_rank(pm, j)[tid];
+          ls[j] = cluster.map_shared_rank(pl, j)[tid];
+          mstar = fmaxf(mstar, ms[j]);
+        }
       }
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.0f;
+      float l = 0.0f;
 #pragma unroll
-        for (int e = 0; e < kPer; ++e) dot = fmaf(qs[g][lane * kPer + e], kv[e], dot);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
-        if (lane == 0) ss[g][jj] = kpos < valid ? dot : kNeg;
+      for (int j = 0; j < kMaxSplits; ++j) {
+        if (j < splits) {
+          const float w = exp2f(ms[j] - mstar);
+          wts[j * KG + tid] = w;
+          l += ls[j] * w;
+        }
       }
+      den[tid] = fmaxf(l, kTiny);
     }
     __syncthreads();
-    // online softmax: warp w takes rows w, w + kWarps, ...
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = kNeg;
-      for (int jj = lane; jj < kDecChunk; jj += 32) mx = fmaxf(mx, ss[g][jj]);
+    T* o = static_cast<T*>(p.o) + ((long long)b * p.H + hk * G) * D;
+    for (int e = tid; e < G * D; e += kDecThreads) {
+      const int g = e / D;
+      float part[kMaxSplits];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_prev = ms[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-      for (int jj = lane; jj < kDecChunk; jj += 32) {
-        const float e = expf(ss[g][jj] - m_new);
-        ss[g][jj] = e;
-        sum += e;
+      for (int j = 0; j < kMaxSplits; ++j) part[j] = j < splits ? cluster.map_shared_rank(wacc, j)[e] : 0.0f;
+      float num = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kMaxSplits; ++j) {
+        if (j < splits) num += part[j] * wts[j * KG + g];
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alphas[g] = alpha;
-        ls[g] = ls[g] * alpha + sum;
-        ms[g] = m_new;
-      }
+      o[e] = from_f32<T>(num / den[g]);
     }
-    __syncthreads();
-    // P v over the live rows of the chunk (rows past valid have p = 0)
-    const int live = min(kDecChunk, valid - j0);
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
-      if (g < G) acc[g] *= alphas[g];
-    }
-    for (int jj = 0; jj < live; ++jj) {
-      const float x = to_f32(v[(long long)(j0 + jj) * p.v_st + tid]);
-#pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g) {
-        if (g < G) acc[g] = fmaf(ss[g][jj], x, acc[g]);
-      }
-    }
-    __syncthreads();  // ss is rewritten by the next chunk
   }
-
-  T* o = static_cast<T*>(p.o) + ((long long)b * p.H + hk * G) * D;
-#pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g) {
-    if (g < G) o[g * D + tid] = from_f32<T>(acc[g] / fmaxf(ls[g], kTiny));
-  }
+  cluster.sync();  // the peers keep their shared memory until the leader has read it
 }
 
 // ---------------------------------------------------------------------------
@@ -799,23 +1060,6 @@ typedef bf16 ElemT;
 typedef float ElemT;
 #endif
 
-// Above 48 KB of dynamic shared memory a launch is refused unless the kernel
-// opts in; do it once per device (so no attribute call lands inside a CUDA
-// graph capture).  `done` is the caller's per-kernel flag array.
-template <typename Kernel>
-int opt_in(Kernel kernel, size_t bytes, bool* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    done[dev] = true;
-  }
-  return 0;
-}
-
 #if SFC_ATTN_PART == 0
 
 template <int D>
@@ -829,10 +1073,39 @@ int launch_fwd(const FwdParams& p, int nq, int bh, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// The split kernel over batch * Hkv clusters of `splits` CTAs, one launch.
+template <int D, int KG>
+int launch_decode_split_kg(const DecodeParams& p, int batch, int splits, int seg, cudaStream_t s) {
+  constexpr size_t bytes = DecSplitSmem<ElemT, D, KG>::BYTES;
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
+  static bool opted_in[kMaxDevices] = {};
+  const int rc = opt_in(decode_split_kernel<ElemT, D, KG>, bytes, opted_in);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(batch * p.Hkv * splits));
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, decode_split_kernel<ElemT, D, KG>, p, seg);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The group's rows padded to the next of 1, 2, 4, 8, 16.
 template <int D>
-int launch_decode(const DecodeParams& p, int batch, cudaStream_t s) {
-  decode_kernel<ElemT, D><<<(unsigned)(batch * p.Hkv), D, 0, s>>>(p);
-  return (int)cudaGetLastError();
+int launch_decode_split(const DecodeParams& p, int batch, int splits, int seg, cudaStream_t s) {
+  if (splits < 1 || splits > kMaxSplits || seg < 1 || seg % kDecChunk != 0) return (int)cudaErrorInvalidValue;
+  if (p.groups <= 1) return launch_decode_split_kg<D, 1>(p, batch, splits, seg, s);
+  if (p.groups <= 2) return launch_decode_split_kg<D, 2>(p, batch, splits, seg, s);
+  if (p.groups <= 4) return launch_decode_split_kg<D, 4>(p, batch, splits, seg, s);
+  if (p.groups <= 8) return launch_decode_split_kg<D, 8>(p, batch, splits, seg, s);
+  return launch_decode_split_kg<D, 16>(p, batch, splits, seg, s);
 }
 
 #else  // SFC_ATTN_PART == 1: the backward
@@ -945,12 +1218,14 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
     return launch_fwd<D>(p, nq, batch * H, static_cast<cudaStream_t>(stream));                  \
   }
 
-// Decode entry: one launch over batch * Hkv CTAs.
+// Decode entry: one launch over batch * Hkv clusters of `splits` CTAs,
+// segment s the cache rows [s * seg, (s + 1) * seg).  The k and v rows must
+// start 16-byte aligned (checked by the caller).
 #define SFC_DECODE_ENTRY(D)                                                                     \
   extern "C" int SFC_CAT(sfc_attn_decode_, SFC_ATTN_TAG, _d, D)(                                \
       const void* q, const void* k, const void* v, const int* valid, void* o, int batch, int H, \
       int Hkv, int T, long long k_sb, long long k_st, long long k_sh, long long v_sb,           \
-      long long v_st, long long v_sh, float scale, void* stream) {                              \
+      long long v_st, long long v_sh, float scale, int splits, int seg, void* stream) {         \
     if (H % Hkv != 0 || H / Hkv > kMaxGroups) return (int)cudaErrorInvalidValue;               \
     DecodeParams p;                                                                             \
     p.q = q;                                                                                    \
@@ -969,7 +1244,7 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
     p.v_st = v_st;                                                                              \
     p.v_sh = v_sh;                                                                              \
     p.scale = scale;                                                                            \
-    return launch_decode<D>(p, batch, static_cast<cudaStream_t>(stream));                      \
+    return launch_decode_split<D>(p, batch, splits, seg, static_cast<cudaStream_t>(stream));   \
   }
 
 // Backward entries: dq over an (nq, batch * H) grid walking the q-major

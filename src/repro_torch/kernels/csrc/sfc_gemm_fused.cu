@@ -32,9 +32,30 @@
 // accumulator goes through shared memory to a coalesced epilogue.  What it
 // leaves on the table: no wgmma (the only path to the full bf16 rate), no
 // TMA and no multi-stage pipeline, so loads and math do not overlap; no
-// persistent CTAs walking curve segments; and at decode M = 4 only 4 of the
-// 64 tile rows are real and narrow N gives few CTAs (16 for N = 1024), so
-// the weight stream cannot reach the card's memory rate.
+// persistent CTAs walking curve segments.  At decode M = 4 only 4 of the 64
+// tile rows were real and narrow N gave few CTAs (16 for N = 1024), so the
+// weight stream could not reach the card's memory rate: the bf16 parts now
+// launch sfc_gemm_cluster_kernel (below) for a plain-mode A of at most 16
+// rows, and this kernel keeps every other shape, and f32.
+//
+// sfc_gemm_cluster_kernel replaces the same TPU kernel (`_fused_kernel`,
+// `sfc_gemm_fused` at M <= 16: every decode projection and the decode LM
+// head) with the paper's 2.5D replication of C over K layers, which the
+// TPU collapsed into one accumulator: each C tile (64 columns, in the
+// gilbert order of gemm_spec(1, nb)) is a thread-block cluster of L CTAs,
+// CTA l running the K slab of layer l (layer_slab(K, L), the JAX package's
+// partition), so nb * L CTAs stream the weights where nb did; L, chosen by
+// the wrapper from nb and K, is the launch configuration, not a knob.  Each
+// CTA streams its slab's (BK = 64) x 64 weight tiles (and the GLU's gate
+// tiles) with the M rows of A through a 3-4 stage cp.async ring (16-byte
+// copies, one barrier a step) and multiplies on the tensor cores swap-AB:
+// the weight tile as WMMA 32x8x16's 32-row operand, A's rows as its
+// 8-column one, so no 64-row tile of which 4 rows are real.  After
+// cluster.sync() the leader adds its peers' f32 16 x 64 tiles from
+// distributed shared memory in layer order and runs fused_flush (and, in
+// the ABFT twin sfc_gemm_cluster_abft_kernel, tile_checksum) once: no
+// atomics, no partial copies in HBM, one launch.  What bounds it: the
+// weight bytes (2 M flops a weight); f32 stays on the kernel above.
 //
 // Grouped mode (K3, `repro/kernels/sfc_gemm.py::sfc_gemm_grouped`, the MoE
 // expert GEMMs): when the entry gets a per-expert array `grp` (3, E) of row
@@ -166,10 +187,13 @@
 // f32, 16 KB) and adds a block reduction and one 4-byte write a task; the
 // flush is the same code, so the outputs are bitwise those without it.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "cuda_common.cuh"
 
 #ifndef SFC_DTYPE  // 0: float32 inputs, 1: bfloat16 inputs
 #define SFC_DTYPE 1
@@ -779,6 +803,267 @@ void launch_gbias(const Params& p, const GroupRows& g, float* chk, bool scale, d
 #endif
   launch_scale<BIAS, false>(p, g, chk, scale, grid, s);
 }
+
+#if SFC_DTYPE == 1 && defined(SFC_CLUSTER_ENTRY)
+
+// ---------------------------------------------------------------------------
+// K1 at M <= 16 rows: split-K across a thread-block cluster (bf16 parts)
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitRows = 16;  // A rows the cluster kernel takes (build.py SPLIT_MAX_ROWS)
+constexpr int kMaxLayers = 8;   // CTAs (K layers) a cluster, a portable cluster (build.py MAX_CLUSTER_LAYERS)
+
+// The ring of (A, B[, B_gate]) stages in dynamic shared memory; after the
+// main loop the f32 partial tiles of the two K halves (and their gates)
+// alias it.  Three GLU stages or four plain ones keep 3 or 4 CTAs an SM.
+template <bool GLU>
+struct SplitCfg {
+  static constexpr int BK = Cfg<bf16>::BK;
+  static constexpr int LDA = Cfg<bf16>::LDA;
+  static constexpr int LDB = Cfg<bf16>::LDB;
+  static constexpr int STAGES = GLU ? 3 : 4;
+  static constexpr int A_ELEMS = kSplitRows * LDA;
+  static constexpr int B_ELEMS = BK * LDB;
+  static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS * (GLU ? 2 : 1);
+  static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
+  static constexpr int C_FLOATS = kSplitRows * kLDC;  // one f32 partial tile
+  static constexpr int SETS = GLU ? 2 : 1;            // the tile, and the gate's
+  static constexpr int C_BYTES = 2 * SETS * C_FLOATS * 4;
+  static constexpr int BYTES = RING_BYTES > C_BYTES ? RING_BYTES : C_BYTES;
+};
+
+// K rows [k0, k0 + BK) clipped to k_hi and the tile's 64 columns clipped to
+// N of a (K, N) weight into a stage, zeros outside: 16-byte cp.async copies
+// when rows are whole vectors (vec_b), else element loads.
+__device__ __forceinline__ void split_stage_b(const Params& p, const bf16* B, int col0, int k0, int k_hi, bf16* Bs) {
+  constexpr int BK = SplitCfg<false>::BK, LDB = SplitCfg<false>::LDB;
+  if (p.vec_b) {
+    for (int i = threadIdx.x; i < BK * (kBN / 8); i += kThreads) {
+      const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
+      const bool in = k0 + r < k_hi && col0 + c < p.N;
+      cp_async16(Bs + r * LDB + c, in ? B + (size_t)(k0 + r) * p.N + col0 + c : B, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BK * kBN; i += kThreads) {
+      const int r = i / kBN, c = i % kBN;
+      const bool in = k0 + r < k_hi && col0 + c < p.N;
+      Bs[r * LDB + c] = in ? B[(size_t)(k0 + r) * p.N + col0 + c] : from_f32<bf16>(0.0f);
+    }
+  }
+}
+
+// One stage: the M rows of A over [k0, k0 + BK) (vec_a: 16-byte copies,
+// one a thread; the slab and K are whole vectors) and the weights' rows.
+template <bool GLU>
+__device__ __forceinline__ void split_issue(const Params& p, int col0, int k0, int k_hi, bf16* st) {
+  using C = SplitCfg<GLU>;
+  const bf16* A = static_cast<const bf16*>(p.a);
+  bf16* As = st;
+  if (p.vec_a) {
+    const int r = threadIdx.x / (C::BK / 8), c = (threadIdx.x % (C::BK / 8)) * 8;
+    if (r < p.M) {
+      const bool in = k0 + c < k_hi;
+      cp_async16(As + r * C::LDA + c, in ? A + (size_t)r * p.K + k0 + c : A, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < p.M * C::BK; i += kThreads) {
+      const int r = i / C::BK, c = i % C::BK;
+      As[r * C::LDA + c] = k0 + c < k_hi ? A[(size_t)r * p.K + k0 + c] : from_f32<bf16>(0.0f);
+    }
+  }
+  split_stage_b(p, static_cast<const bf16*>(p.b), col0, k0, k_hi, st + C::A_ELEMS);
+  if constexpr (GLU) split_stage_b(p, static_cast<const bf16*>(p.bg), col0, k0, k_hi, st + C::A_ELEMS + C::B_ELEMS);
+}
+
+// The CTA's product over K rows [k_lo, k_hi) into Cs (and Cs + C_FLOATS,
+// the gate), rows < M of a 16 x 64 f32 tile at row stride kLDC (A's rows
+// past M in the ring are never written: they reach only C rows past M,
+// which nothing reads).  Swap-AB on
+// the tensor cores: the weight tile is the 32-row operand (32 columns of C
+// by 16 of K, read col-major from its stage) and A the 8-column one (16 of
+// K by 8 rows of C), WMMA 32x8x16.  Warp w takes C columns 32 (w & 1) and
+// the k16 steps w >> 1, w >> 1 + 2 of each BK step; the two K halves'
+// tiles are added in order at the end.
+template <bool GLU>
+__device__ __forceinline__ void split_mainloop(const Params& p, int col0, int k_lo, int k_hi, unsigned char* smem,
+                                               float* Cs) {
+  using namespace nvcuda;
+  using C = SplitCfg<GLU>;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int warp = threadIdx.x / 32;
+  const int wn = warp & 1, kh = warp >> 1;
+  const int mt = (p.M + 7) / 8;  // 8-row slices of C that hold rows
+  wmma::fragment<wmma::accumulator, 32, 8, 16, float> acc[2], accg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    wmma::fill_fragment(acc[i], 0.0f);
+    if constexpr (GLU) wmma::fill_fragment(accg[i], 0.0f);
+  }
+  const int nsteps = k_hi > k_lo ? (k_hi - k_lo + C::BK - 1) / C::BK : 0;
+#pragma unroll
+  for (int st = 0; st < C::STAGES - 1; ++st) {
+    if (st < nsteps) split_issue<GLU>(p, col0, k_lo + st * C::BK, k_hi, ring + st * C::STAGE_ELEMS);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // step s has landed; every warp is done with step s - 1's stage
+    const int nxt = s + C::STAGES - 1;
+    if (nxt < nsteps) split_issue<GLU>(p, col0, k_lo + nxt * C::BK, k_hi, ring + (nxt % C::STAGES) * C::STAGE_ELEMS);
+    cp_async_commit();
+    const bf16* As = ring + (s % C::STAGES) * C::STAGE_ELEMS;
+    const bf16* Bs = As + C::A_ELEMS;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int kk = (kh + 2 * j) * 16;
+      wmma::fragment<wmma::matrix_a, 32, 8, 16, bf16, wmma::col_major> wa;
+      wmma::fragment<wmma::matrix_b, 32, 8, 16, bf16, wmma::col_major> xb[2];
+      wmma::load_matrix_sync(wa, Bs + kk * C::LDB + wn * 32, C::LDB);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (mi < mt) {
+          wmma::load_matrix_sync(xb[mi], As + mi * 8 * C::LDA + kk, C::LDA);
+          wmma::mma_sync(acc[mi], wa, xb[mi], acc[mi]);
+        }
+      }
+      if constexpr (GLU) {
+        wmma::load_matrix_sync(wa, Bs + C::B_ELEMS + kk * C::LDB + wn * 32, C::LDB);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if (mi < mt) wmma::mma_sync(accg[mi], wa, xb[mi], accg[mi]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the partial tiles alias the ring
+  float* half = Cs + kh * C::SETS * C::C_FLOATS;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    if (mi < mt) {
+      wmma::store_matrix_sync(half + mi * 8 * kLDC + wn * 32, acc[mi], kLDC, wmma::mem_col_major);
+      if constexpr (GLU) {
+        wmma::store_matrix_sync(half + C::C_FLOATS + mi * 8 * kLDC + wn * 32, accg[mi], kLDC, wmma::mem_col_major);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < C::SETS * p.M * kBN; i += kThreads) {
+    const int set = i / (p.M * kBN), e = i % (p.M * kBN);
+    float* c = Cs + set * C::C_FLOATS + (e / kBN) * kLDC + e % kBN;
+    *c += c[C::SETS * C::C_FLOATS];
+  }
+}
+
+// One C tile of a plain-mode product with M <= 16 rows: the cluster of
+// `layers` CTAs of task blockIdx.x / layers, CTA l (its rank) running the
+// K slab [l * slab, (l + 1) * slab) clipped to K.  After cluster.sync()
+// the leader adds its peers' f32 tiles, read through distributed shared
+// memory, in layer order (P_0 + P_1 + ... + P_{L-1}), then flushes the
+// epilogue once; ABFT: the lane sums that raw tile before the epilogue.
+template <bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT, bool ABFT>
+__device__ __forceinline__ void cluster_tile(const Params& p, int slab, float* chk) {
+  namespace cg = cooperative_groups;
+  using C = SplitCfg<GLU>;
+  extern __shared__ __align__(128) unsigned char split_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int layers = (int)cluster.num_blocks();
+  const int layer = (int)cluster.block_rank();
+  const int t = blockIdx.x / layers;
+  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;  // one row block: the major row is 0
+  const int k_lo = (int)min((long long)layer * slab, (long long)p.K);
+  const int k_hi = (int)min((long long)k_lo + slab, (long long)p.K);
+  float* Cs = reinterpret_cast<float*>(split_smem);
+  split_mainloop<GLU>(p, col0, k_lo, k_hi, split_smem, Cs);
+  cluster.sync();  // every layer's partial tile is in its CTA's shared memory
+  if (layer == 0) {
+    for (int i = threadIdx.x; i < C::SETS * p.M * kBN; i += kThreads) {
+      const int set = i / (p.M * kBN), e = i % (p.M * kBN);
+      const int off = set * C::C_FLOATS + (e / kBN) * kLDC + e % kBN;
+      float v = Cs[off];
+      for (int l = 1; l < layers; ++l) v += cluster.map_shared_rank(Cs, l)[off];
+      Cs[off] = v;
+    }
+  }
+  cluster.sync();  // the leader has read every peer (they may exit) and holds the sum
+  if (layer != 0) return;
+  fused_flush<bf16, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, p.M, Cs, Cs + C::C_FLOATS, 0, col0, 0, 0);
+  if constexpr (ABFT) tile_checksum<GLU>(Cs, Cs + C::C_FLOATS, p.M, p.N, 0, col0, chk + t);
+}
+
+// The CTAs an SM holds (the ring's size allows as many): 3 for the GLU, 4
+// otherwise, up to 170 and 128 registers a thread.
+#if SFC_ABFT
+template <bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT>
+__global__ void __launch_bounds__(kThreads, GLU ? 3 : 4)
+    sfc_gemm_cluster_abft_kernel(const Params p, const int slab, float* chk) {
+  cluster_tile<GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT, true>(p, slab, chk);
+}
+#else
+template <bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT>
+__global__ void __launch_bounds__(kThreads, GLU ? 3 : 4) sfc_gemm_cluster_kernel(const Params p, const int slab) {
+  cluster_tile<GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT, false>(p, slab, nullptr);
+}
+#endif
+
+template <bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT = false>
+int cluster_launch(const Params& p, float* chk, int layers, int slab, cudaStream_t s) {
+  constexpr bool GLU = SFC_GLU != 0;
+#if SFC_ABFT
+  const auto kernel = &sfc_gemm_cluster_abft_kernel<GLU, SFC_ACT, BIAS, GBIAS, SCALE, RES, PREACT>;
+#else
+  const auto kernel = &sfc_gemm_cluster_kernel<GLU, SFC_ACT, BIAS, GBIAS, SCALE, RES, PREACT>;
+#endif
+  constexpr size_t bytes = SplitCfg<GLU>::BYTES;
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
+  static bool opted_in[kMaxDevices] = {};
+  const int rc = opt_in(kernel, bytes, opted_in);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.n_tasks * layers));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)layers;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+#if SFC_ABFT
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p, slab, chk);
+#else
+  (void)chk;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p, slab);
+#endif
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <bool BIAS, bool GBIAS, bool SCALE>
+int cluster_launch_res(const Params& p, float* chk, int layers, int slab, cudaStream_t s) {
+  if (p.res) return cluster_launch<BIAS, GBIAS, SCALE, true>(p, chk, layers, slab, s);
+  return cluster_launch<BIAS, GBIAS, SCALE, false>(p, chk, layers, slab, s);
+}
+
+template <bool BIAS, bool GBIAS>
+int cluster_launch_scale(const Params& p, float* chk, bool scale, int layers, int slab, cudaStream_t s) {
+#if SFC_GLU
+  if (p.out_gate) return cluster_launch<BIAS, GBIAS, false, false, true>(p, chk, layers, slab, s);
+#endif
+  if (scale) return cluster_launch_res<BIAS, GBIAS, true>(p, chk, layers, slab, s);
+  return cluster_launch_res<BIAS, GBIAS, false>(p, chk, layers, slab, s);
+}
+
+template <bool BIAS>
+int cluster_launch_gbias(const Params& p, float* chk, bool scale, int layers, int slab, cudaStream_t s) {
+#if SFC_GLU
+  if (p.gbias) return cluster_launch_scale<BIAS, true>(p, chk, scale, layers, slab, s);
+#endif
+  return cluster_launch_scale<BIAS, false>(p, chk, scale, layers, slab, s);
+}
+
+#endif  // SFC_DTYPE == 1 && SFC_CLUSTER_ENTRY
 
 #else  // SFC_BWD
 
@@ -1597,6 +1882,66 @@ extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const
                      b_bstride, has_scale, out_scale, vec_a, vec_b, grp, n_groups, chk, stream);
 }
 #endif
+
+#if SFC_DTYPE == 1 && defined(SFC_CLUSTER_ENTRY)
+// One launch of the cluster kernel (K1 at M <= 16): n_tasks clusters of
+// `layers` CTAs over the (2, n_tasks) table of gemm_spec(1, nb), CTA l of
+// a cluster the K slab [l * slab, (l + 1) * slab).  Plain mode only (no
+// batch, no grouped mode); the epilogue pointers as SFC_ENTRY's.  vec_a
+// also needs slab % 8 == 0.  The -DSFC_ABFT=1 part's entry takes chk, the
+// (n_tasks) f32 partials of the lane.  Returns the launch's CUDA error.
+static int cluster_entry(const void* a, const void* b, const void* b_gate, const void* bias, const void* gate_bias,
+                         const void* residual, void* out, void* out_gate, const int* tab, int n_tasks, int M, int N,
+                         int K, int layers, int slab, int has_scale, float out_scale, int vec_a, int vec_b, float* chk,
+                         void* stream) {
+  if ((SFC_GLU != 0) != (b_gate != nullptr)) return (int)cudaErrorInvalidValue;
+  if (!SFC_GLU && gate_bias != nullptr) return (int)cudaErrorInvalidValue;
+  if (out_gate != nullptr && (!SFC_GLU || residual != nullptr || has_scale)) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > kSplitRows || layers < 1 || layers > kMaxLayers || slab < 1) return (int)cudaErrorInvalidValue;
+  if (vec_a && slab % 8 != 0) return (int)cudaErrorInvalidValue;
+  Params p;
+  p.a = a;
+  p.b = b;
+  p.bg = b_gate;
+  p.bias = bias;
+  p.gbias = gate_bias;
+  p.res = residual;
+  p.out = out;
+  p.out_gate = out_gate;
+  p.tab = tab;
+  p.n_tasks = n_tasks;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.a_bstride = 0;
+  p.b_bstride = 0;
+  p.out_scale = out_scale;
+  p.vec_a = vec_a;
+  p.vec_b = vec_b;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias) return cluster_launch_gbias<true>(p, chk, has_scale != 0, layers, slab, s);
+  return cluster_launch_gbias<false>(p, chk, has_scale != 0, layers, slab, s);
+}
+
+#if !SFC_ABFT
+extern "C" int SFC_CLUSTER_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
+                                 const void* gate_bias, const void* residual, void* out, void* out_gate,
+                                 const int* tab, int n_tasks, int M, int N, int K, int layers, int slab,
+                                 int has_scale, float out_scale, int vec_a, int vec_b, void* stream) {
+  return cluster_entry(a, b, b_gate, bias, gate_bias, residual, out, out_gate, tab, n_tasks, M, N, K, layers, slab,
+                       has_scale, out_scale, vec_a, vec_b, nullptr, stream);
+}
+#else
+extern "C" int SFC_CLUSTER_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
+                                 const void* gate_bias, const void* residual, void* out, void* out_gate,
+                                 const int* tab, int n_tasks, int M, int N, int K, int layers, int slab,
+                                 int has_scale, float out_scale, int vec_a, int vec_b, float* chk, void* stream) {
+  if (chk == nullptr) return (int)cudaErrorInvalidValue;
+  return cluster_entry(a, b, b_gate, bias, gate_bias, residual, out, out_gate, tab, n_tasks, M, N, K, layers, slab,
+                       has_scale, out_scale, vec_a, vec_b, chk, stream);
+}
+#endif
+#endif  // SFC_DTYPE == 1 && SFC_CLUSTER_ENTRY
 
 #elif SFC_BWD == 1 && SFC_ABFT
 

@@ -12,8 +12,10 @@ backward: from the forward's lse and ``delta = rowsum(dO ⊙ O)`` they
 recompute the probabilities per tile and return dQ over the q-major band
 and (dK, dV) over the k-major band, the GQA group innermost.
 ``sfc_decode_attention`` is one launch for a whole
-decode step: one program per (batch, kv head), the kv head's GQA group as
-its rows, and a chunk loop bounded by each sequence's live cache length.
+decode step: the kv head's GQA group as its rows, a chunk loop bounded by
+each sequence's live cache length, and the cache capacity cut into
+`decode_splits` segments of whole chunks, reduced apart and merged in
+segment order (one cluster of CTAs per (batch, kv head) on the card).
 
 All take the model's layout (q (B, S, H, D), k/v (B, T, Hkv, D)), resolve
 GQA by mapping q head h to kv head ``h // groups`` and pad nothing.  A CPU
@@ -28,6 +30,7 @@ one to the other.  On the card the chunks are the kernel's compiled tile
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -36,6 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.device import sm_count
 from repro_torch.core.schedule import attention_spec, compile_schedule
 from repro_torch.kernels import build
 
@@ -52,12 +56,18 @@ __all__ = [
     "sfc_flash_bwd_dkv_plain",
     "sfc_decode_attention",
     "sfc_decode_attention_plain",
+    "decode_splits",
+    "decode_segment_rows",
+    "H100_SMS",
 ]
 
 NEG = -1e30
 _TINY = 1e-30
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, the (batch, head) axis
+# an H100 SXM's streaming multiprocessors: the SM count `decode_splits`
+# takes for a CPU tensor, so the plain version runs the card's segments
+H100_SMS = 132
 
 
 def build_attention_task_table(
@@ -596,35 +606,42 @@ def _check_decode(q, k, v, valid_len):
                          f"{tuple(valid_len.shape)}")
 
 
-def sfc_decode_attention_plain(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    valid_len: torch.Tensor,
-    *,
-    k_chunk: int,
-) -> torch.Tensor:
-    """The plain version of the decode kernel, on any device.
+def decode_segment_rows(t: int, splits: int, chunk: int = build.DECODE_CHUNK) -> int:
+    """Cache rows a segment of the split decode owns: ceil(ceil(T / chunk) /
+    splits) whole chunks, so that segment s is rows [s * seg, (s + 1) *
+    seg) clipped to T."""
+    if splits < 1 or chunk < 1:
+        raise ValueError(f"bad decode split: splits={splits} chunk={chunk}")
+    return max(1, math.ceil(math.ceil(t / chunk) / splits)) * chunk
 
-    A loop over ``k_chunk`` chunks of the cache with `_decode_kernel`'s
-    arithmetic; a sequence's state moves only on chunks that start inside
-    its live length (``valid_len`` clamped to [0, T]), and keys at or past
-    it score NEG.  Returns (B, 1, H, D) in q's type.
-    """
-    _check_decode(q, k, v, valid_len)
-    b, _, h, d = q.shape
-    _, t, hkv, _ = k.shape
-    groups = h // hkv
-    qg = q.reshape(b, hkv, groups, d).float() * (1.0 / math.sqrt(d))
-    valid = valid_len.to(device=q.device, dtype=torch.long).clamp(0, t)
-    acc = torch.zeros((b, hkv, groups, d), dtype=torch.float32, device=q.device)
-    m = torch.full((b, hkv, groups, 1), NEG, dtype=torch.float32, device=q.device)
+
+def decode_splits(batch: int, kv_heads: int, t: int, sm_count: int) -> int:
+    """Segments of the decode's cache capacity ``t``: enough that batch x
+    kv_heads x S CTAs give 2 an SM of ``sm_count``, at most one a
+    ``build.DECODE_CHUNK``-row chunk and at most ``build.MAX_DECODE_SPLITS``
+    (a portable cluster), and none empty of capacity.  A function of the
+    shapes and the card alone, never of the live lengths (which stay on the
+    device)."""
+    chunks = max(1, math.ceil(t / build.DECODE_CHUNK))
+    want = math.ceil(2 * sm_count / max(1, batch * kv_heads))
+    splits = max(1, min(chunks, want, build.MAX_DECODE_SPLITS))
+    per = math.ceil(chunks / splits)
+    return math.ceil(chunks / per)
+
+
+def _decode_walk(qg, k, v, valid, lo_seg, hi_seg, k_chunk):
+    """`_decode_kernel`'s chunk walk over cache rows [lo_seg, hi_seg):
+    the running (m, l, acc) of every (batch, kv head, group row), moved only
+    by chunks that start inside a sequence's live length."""
+    b, hkv, groups, d = qg.shape
+    acc = torch.zeros((b, hkv, groups, d), dtype=torch.float32, device=qg.device)
+    m = torch.full((b, hkv, groups, 1), NEG, dtype=torch.float32, device=qg.device)
     l = torch.zeros_like(m)
-    n_chunks = math.ceil(int(valid.max()) / k_chunk) if b else 0
-    for c in range(n_chunks):
-        lo, hi = c * k_chunk, min((c + 1) * k_chunk, t)
+    top = min(hi_seg, int(valid.max())) if b else lo_seg
+    for lo in range(lo_seg, top, k_chunk):
+        hi = min(lo + k_chunk, hi_seg)
         sc = torch.einsum("bhgd,bnhd->bhgn", qg, k[:, lo:hi].float())
-        live = torch.arange(lo, hi, device=q.device)[None, :] < valid[:, None]  # (B, n)
+        live = torch.arange(lo, hi, device=qg.device)[None, :] < valid[:, None]  # (B, n)
         sc = torch.where(live[:, None, None, :], sc, torch.full_like(sc, NEG))
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
         p = torch.exp(sc - m_new)
@@ -633,6 +650,44 @@ def sfc_decode_attention_plain(
         acc = torch.where(active, acc * alpha + torch.einsum("bhgn,bnhd->bhgd", p, v[:, lo:hi].float()), acc)
         l = torch.where(active, l * alpha + p.sum(dim=-1, keepdim=True), l)
         m = torch.where(active, m_new, m)
+    return m, l, acc
+
+
+def sfc_decode_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_len: torch.Tensor,
+    *,
+    k_chunk: int,
+    splits: int = 1,
+) -> torch.Tensor:
+    """The plain version of the decode kernels, on any device.
+
+    The cache capacity is cut into ``splits`` segments of whole ``k_chunk``
+    chunks (`decode_segment_rows`); each segment runs `_decode_kernel`'s
+    chunk walk on its own (a sequence's state moves only on chunks that
+    start inside its live length, ``valid_len`` clamped to [0, T], and keys
+    at or past it score NEG), and the segments' (m_s, l_s, acc_s) merge in
+    segment order: m* = max m_s, l = sum l_s e^(m_s - m*), o = sum acc_s
+    e^(m_s - m*) / max(l, 1e-30).  ``splits`` 1 is the TPU kernel's one
+    walk.  Returns (B, 1, H, D) in q's type.
+    """
+    _check_decode(q, k, v, valid_len)
+    b, _, h, d = q.shape
+    _, t, hkv, _ = k.shape
+    groups = h // hkv
+    qg = q.reshape(b, hkv, groups, d).float() * (1.0 / math.sqrt(d))
+    valid = valid_len.to(device=q.device, dtype=torch.long).clamp(0, t)
+    seg = decode_segment_rows(t, splits, k_chunk)
+    parts = [_decode_walk(qg, k, v, valid, lo, min(lo + seg, t), k_chunk) for lo in range(0, max(t, 1), seg)]
+    if len(parts) == 1:
+        _, l, acc = parts[0]
+    else:
+        mstar = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        weights = [torch.exp(m - mstar) for m, _, _ in parts]
+        l = sum(lp * w for (_, lp, _), w in zip(parts, weights))
+        acc = sum(ap * w for (_, _, ap), w in zip(parts, weights))
     o = acc / torch.clamp_min(l, _TINY)
     return o.reshape(b, 1, h, d).to(q.dtype)
 
@@ -647,22 +702,27 @@ def sfc_decode_attention(
 ) -> torch.Tensor:
     """Single-launch decode attention against the KV cache: (B, 1, H, D).
 
-    On a CUDA tensor this launches the kernel: one CTA per (batch, kv
-    head), the chunk loop bounded by ``valid_len`` on the device (int32,
-    on the card; the host never reads it), the cache read in place.
-    ``k_chunk`` must be the kernel's ``build.DECODE_CHUNK`` or None.  Every
-    launch adds one to ``sfc_decode_attention.launches``.  On a CPU tensor
-    it runs `sfc_decode_attention_plain` and counts nothing.
+    The cache capacity T is cut into ``decode_splits(B, Hkv, T, SMs)``
+    segments of whole chunks (SMs: the card's count; `H100_SMS` for a CPU
+    tensor).  On a CUDA tensor this launches the kernel: one cluster of S
+    CTAs per (batch, kv head), each reducing one segment, the leader merging
+    them; the live lengths ``valid_len`` stay on the device (int32; the host
+    never reads them) and the cache is read in place.  ``k_chunk`` must be
+    ``build.DECODE_CHUNK`` or None.  Every launch adds one to
+    ``sfc_decode_attention.launches`` and to ``launches_by_splits[S]``.  On
+    a CPU tensor it runs `sfc_decode_attention_plain` with the same
+    segments and counts nothing.
     """
     _check_decode(q, k, v, valid_len)
+    b, _, h, d = q.shape
+    _, t, hkv, _ = k.shape
     if q.device.type == "cpu":
-        return sfc_decode_attention_plain(q, k, v, valid_len, k_chunk=k_chunk or build.DECODE_CHUNK)
+        return sfc_decode_attention_plain(q, k, v, valid_len, k_chunk=k_chunk or build.DECODE_CHUNK,
+                                          splits=decode_splits(b, hkv, t, H100_SMS))
     if q.device.type != "cuda":
         raise ValueError(f"sfc_decode_attention runs on cuda or cpu tensors, got {q.device}")
     if k_chunk not in (None, build.DECODE_CHUNK):
         raise ValueError(f"the CUDA kernel is compiled for k_chunk={build.DECODE_CHUNK}, got {k_chunk}")
-    b, _, h, d = q.shape
-    _, t, hkv, _ = k.shape
     if h // hkv > build.MAX_DECODE_GROUPS:
         raise ValueError(f"GQA group {h // hkv} exceeds the kernel's {build.MAX_DECODE_GROUPS} rows")
     if valid_len.dtype != torch.int32 or valid_len.device != q.device or not valid_len.is_contiguous():
@@ -673,6 +733,7 @@ def sfc_decode_attention(
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    splits = decode_splits(b, hkv, t, sm_count(q.device))
     fn = getattr(build.load_attention_library(), build.attn_entry_name("decode", dt, d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -681,12 +742,15 @@ def sfc_decode_attention(
             b, h, hkv, t,
             *k.stride()[:3], *v.stride()[:3],
             1.0 / math.sqrt(d),
+            splits, decode_segment_rows(t, splits),
             stream,
         )
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed with CUDA error {rc}")
     sfc_decode_attention.launches += 1
+    sfc_decode_attention.launches_by_splits[splits] += 1
     return o
 
 
 sfc_decode_attention.launches = 0
+sfc_decode_attention.launches_by_splits = collections.Counter()

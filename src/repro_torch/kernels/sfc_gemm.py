@@ -82,6 +82,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.device import sm_count
 from repro_torch.core.schedule import compile_schedule, gemm_spec, grouped_gemm_spec, grouped_tn_spec
 from repro_torch.kernels import build
 
@@ -95,6 +96,8 @@ __all__ = [
     "add_reduce",
     "add_reduce_plain",
     "layer_slab",
+    "cluster_layers",
+    "uses_cluster_kernel",
     "sfc_gemm_nt",
     "sfc_gemm_nt_plain",
     "sfc_gemm_tn",
@@ -349,6 +352,34 @@ def _results(outs, lane: Optional[torch.Tensor] = None):
     return res if len(res) > 1 else res[0]
 
 
+# the cluster kernel's slabs are at least this many K rows deep (4 BK steps)
+_MIN_SLAB = 256
+
+
+def cluster_layers(k: int, n: int, sm_count: int) -> int:
+    """K layers (CTAs a cluster) of the cluster kernel for an (M <= 16, k)
+    @ (k, n) product: the smallest power of two L with nb * L >= 1.5 x
+    ``sm_count`` CTAs (nb = ceil(n / 64) C tiles), at most
+    ``build.MAX_CLUSTER_LAYERS``, and no more once a slab (`layer_slab`)
+    would be under 256 K rows.  Past one and a half CTAs an SM a deeper
+    split adds cluster and reduction cost and takes no more bytes at once
+    (`scripts/split_sweep.py`).  The kernel's launch configuration: the
+    plain version's sum order is still ``k_layers``'s."""
+    nb = math.ceil(n / build.TILE[1])
+    layers = 1
+    while (layers < build.MAX_CLUSTER_LAYERS and 2 * nb * layers < 3 * sm_count
+           and layer_slab(k, 2 * layers) >= _MIN_SLAB):
+        layers *= 2
+    return layers
+
+
+def uses_cluster_kernel(a: torch.Tensor) -> bool:
+    """Whether `sfc_gemm_fused` launches the cluster kernel for this A on
+    the card: the plain mode (2-D), 1 to ``build.SPLIT_MAX_ROWS`` rows,
+    bf16; every other A takes the 64 x 64 tile kernel."""
+    return a.ndim == 2 and 1 <= a.shape[0] <= build.SPLIT_MAX_ROWS and a.dtype == torch.bfloat16
+
+
 def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, bm, bn, out_dtype, shape,
             preact=False, abft=False):
     batch, m, k, n, b_batched = shape
@@ -359,6 +390,9 @@ def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, b
     out_gate = torch.empty_like(out) if preact else None
     if out.numel() == 0:
         return _results((out, out_gate), _lane_total(None, a.device) if abft else None)
+    if uses_cluster_kernel(a):
+        return _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, activation=activation,
+                               out_scale=out_scale, abft=abft)
     lib = build.load_library()
     fn = getattr(lib, build.entry_name(_dtype_name(a), b_gate is not None, activation, abft))
     mb, nb = math.ceil(m / bm), math.ceil(n / bn)
@@ -378,10 +412,44 @@ def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, b
         )
     if rc != 0:
         raise RuntimeError(f"sfc_gemm_fused kernel launch failed with CUDA error {rc}")
+    _count(batch, m, k, n, b_gate is not None, abft, ("sfc_gemm_fused_kernel", 1))
+    return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
+
+
+def _count(batch, m, k, n, glu, abft, kernel):
     sfc_gemm_fused.launches += 1
-    sfc_gemm_fused.launches_by_shape[(batch, m, k, n, b_gate is not None)] += 1
+    sfc_gemm_fused.launches_by_shape[(batch, m, k, n, glu)] += 1
+    sfc_gemm_fused.launches_by_kernel[kernel] += 1
     if abft:
         sfc_gemm_fused.abft_launches += 1
+
+
+def _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, activation, out_scale, abft):
+    """The cluster kernel (K1 at M <= 16): one cluster of L CTAs per C tile
+    of ``gemm_spec(1, nb)``'s table, CTA l the K slab of layer l."""
+    m, k = a.shape
+    n = b.shape[1]
+    layers = cluster_layers(k, n, sm_count(a.device))
+    slab = layer_slab(k, layers)
+    nb = math.ceil(n / build.TILE[1])
+    tab = _device_table(1, nb, a.device)
+    parts = torch.empty(nb, dtype=torch.float32, device=a.device) if abft else None
+    fn = getattr(build.load_library(), build.cluster_entry_name(b_gate is not None, activation, abft))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(
+            a.data_ptr(), b.data_ptr(), _ptr(b_gate), _ptr(bias), _ptr(gate_bias), _ptr(residual),
+            out.data_ptr(), _ptr(out_gate),
+            tab.data_ptr(), nb,
+            m, n, k,
+            layers, slab,
+            int(out_scale is not None), float(out_scale if out_scale is not None else 1.0),
+            int(_rows_vec(k, a) and slab % 8 == 0), int(_rows_vec(n, b, b_gate)),
+            *((parts.data_ptr(),) if abft else ()), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sfc_gemm_fused cluster kernel launch failed with CUDA error {rc}")
+    _count(0, m, k, n, b_gate is not None, abft, ("sfc_gemm_cluster_kernel", layers))
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
 
@@ -413,12 +481,18 @@ def sfc_gemm_fused(
     the training forward's ``_FusedSpec.preact_out``.
 
     On a CUDA tensor this launches the kernel, whose C tile is fixed at
-    compile time: ``bm``/``bn`` must be `kernel_tile()`, and the kernel runs
-    the whole K range in one loop, so ``k_layers``/``k_block_factor`` only
-    order the plain version's sum.  Every launch adds one to
-    ``sfc_gemm_fused.launches`` (and to ``launches_by_shape`` under
-    ``(batch, M, K, N, glu)``, batch 0 for the plain mode).  On a CPU
-    tensor it runs `sfc_gemm_fused_plain` and counts nothing.
+    compile time: ``bm``/``bn`` must be `kernel_tile()`.  A plain-mode bf16
+    A of at most 16 rows (`uses_cluster_kernel`: every decode projection)
+    takes the cluster kernel, each 64-column C tile split over
+    `cluster_layers` K slabs (`layer_slab`) summed in layer order inside
+    the launch; every other A the 64 x 64 tile kernel with the whole K
+    range in one loop.  ``k_layers``/``k_block_factor`` only order the
+    plain version's sum.  Every launch adds one to
+    ``sfc_gemm_fused.launches``, to ``launches_by_shape`` under
+    ``(batch, M, K, N, glu)`` (batch 0 for the plain mode) and to
+    ``launches_by_kernel`` under ("sfc_gemm_cluster_kernel", L) or
+    ("sfc_gemm_fused_kernel", 1).  On a CPU tensor it runs
+    `sfc_gemm_fused_plain` and counts nothing.
 
     ``abft`` runs the kernel with its checksum lane (the TPU kernel's
     ``_FusedSpec.abft``) and appends an f32 scalar to the result: the sum
@@ -444,6 +518,7 @@ def sfc_gemm_fused(
 sfc_gemm_fused.launches = 0
 sfc_gemm_fused.abft_launches = 0
 sfc_gemm_fused.launches_by_shape = collections.Counter()
+sfc_gemm_fused.launches_by_kernel = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from repro.models.registry import build_model as j_build_model  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import attention_backend as tab  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import sfc_attention as tsa  # noqa: E402
@@ -185,6 +186,54 @@ def test_decode_plain_chunking_does_not_change_the_result():
     q, k, v = _rand(6, 3, 1, 8, 16), _rand(7, 3, 50, 2, 16), _rand(8, 3, 50, 2, 16)
     args = (*map(torch.from_numpy, (q, k, v)), torch.tensor([50, 1, 23], dtype=torch.int32))
     _close(tsa.sfc_decode_attention_plain(*args, k_chunk=8), tsa.sfc_decode_attention_plain(*args, k_chunk=64))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])  # GQA group 1 and 4
+def test_decode_plain_split_over_the_cache_matches_jax_kernel(splits, h, hkv):
+    """The segments reduced apart and merged in segment order, against the
+    TPU kernel's one walk: live lengths 0, 1, T, one past T, and one that
+    ends exactly on a segment edge."""
+    b, t, d, kc = 5, 40, 16, 8
+    seg = tsa.decode_segment_rows(t, splits, kc)
+    valids = (0, 1, t, t + 7, min(seg, t - 1))
+    q, k, v = _rand(30, b, 1, h, d), _rand(31, b, t, hkv, d), _rand(32, b, t, hkv, d)
+    got = tsa.sfc_decode_attention_plain(*map(torch.from_numpy, (q, k, v)), torch.tensor(valids, dtype=torch.int32),
+                                         k_chunk=kc, splits=splits)
+    _close(got, _jax_decode(q, k, v, tuple(min(x, t) for x in valids), kc))
+    assert torch.all(got[0] == 0)  # an empty cache merges to zeros, not NaN
+
+
+def test_decode_splits_are_a_function_of_the_shapes_and_the_card():
+    """S at qwen3-4b's (32 / 8 heads) and olmoe-1b-7b's (16 / 16) decode
+    shapes: 3 at the server's 145-row cache, 8 at 4096 rows; never over
+    the cluster limit or one a chunk, no segment empty of capacity, and no
+    live length among its arguments."""
+    import inspect
+
+    assert list(inspect.signature(tsa.decode_splits).parameters) == ["batch", "kv_heads", "t", "sm_count"]
+    table = {(4, 8, 145): 3, (4, 8, 4096): 8, (4, 16, 145): 3, (4, 16, 4096): 5, (1, 1, 64): 1, (4, 8, 1): 1}
+    for (b, hkv, t), want in table.items():
+        s = tsa.decode_splits(b, hkv, t, tsa.H100_SMS)
+        seg = tsa.decode_segment_rows(t, s)
+        assert s == want, (b, hkv, t, s)
+        assert 1 <= s <= build.MAX_DECODE_SPLITS and s <= -(-t // build.DECODE_CHUNK)
+        assert seg % build.DECODE_CHUNK == 0 and (s - 1) * seg < t <= s * seg
+
+
+def test_cpu_decode_wrapper_takes_the_cards_segments(monkeypatch):
+    seen = []
+    real = tsa.sfc_decode_attention_plain
+
+    def plain(*args, **kw):
+        seen.append(kw["splits"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tsa, "sfc_decode_attention_plain", plain)
+    q, k, v = _rand(33, 4, 1, 32, 8), _rand(34, 4, 145, 8, 8), _rand(35, 4, 145, 8, 8)
+    for valids in ((129, 134, 139, 144), (0, 0, 0, 1)):
+        tsa.sfc_decode_attention(*map(torch.from_numpy, (q, k, v)), torch.tensor(valids, dtype=torch.int32))
+    assert seen == [3, 3]
 
 
 # ---------------------------------------------------------------------------

@@ -128,30 +128,70 @@ def _agree(got, want, dtype):
     return bool(torch.isfinite(got.float()).all()) and bool((err <= bound).all())
 
 
+# plain-mode products of at most 16 rows (the cluster kernel in bf16) and
+# one of 17 (the 64 x 64 tile kernel): (M, K, N, GLU, bias, gate bias,
+# residual, epilogue keywords); K 2056 and 1000 give slabs of 257 and 500
+# rows (ragged, element loads), K 2560 whole 16-byte vectors
+CLUSTER_CASES = {
+    "m1_glu_every_flag_ragged": (1, 2056, 133, True, True, True, True, dict(activation="gelu", out_scale=0.7)),
+    "m4_relu_bias_residual_scale": (4, 2560, 1024, False, True, False, True, dict(activation="relu", out_scale=0.5)),
+    "m4_glu_silu": (4, 2560, 9728, True, False, False, False, dict(activation="silu")),
+    "m16_glu_preact_ragged": (16, 1000, 133, True, True, True, False, dict(preact=True)),
+    "m16_silu_ragged_k": (16, 203, 133, False, False, False, False, dict(activation="silu")),
+    "m17_every_flag": (17, 2056, 133, True, True, True, True, dict(activation="gelu", out_scale=0.7)),
+}
+
+
+def _cluster_inputs(dtype, m, k, n, glu, has_bias, has_gbias, has_res, seed=13):
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to("cuda", dtype)
+
+    return (r(m, k), r(k, n, scale=0.05), r(k, n, scale=0.05) if glu else None, r(n) if has_bias else None,
+            r(1, n) if has_gbias else None, r(m, n) if has_res else None)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "case",
-    ["batched_glu_every_flag", "plain_relu_bias_residual", "batched_silu", "per_batch_weights", "glu_no_act"],
+    ["batched_glu_every_flag", "plain_relu_bias_residual", "batched_silu", "per_batch_weights", "glu_no_act",
+     *(f"plain_{name}" for name in CLUSTER_CASES)],
 )
 def test_kernel_matches_plain_version_on_card(dtype, case):
+    """Each kernel of sfc_gemm_fused against its plain version; a bf16
+    plain-mode A of at most 16 rows launches the cluster kernel, summed by
+    the plain version over the same K layers."""
     _card()
     dt = getattr(torch, dtype)
-    a, b, bg, bias, gbias, res = _inputs(dt)
-    args, kw = {
-        "batched_glu_every_flag": ((a, b, bg, bias, gbias, res), dict(activation="gelu", out_scale=0.7)),
-        "plain_relu_bias_residual": ((a[0], b, None, bias, None, res[0]), dict(activation="relu")),
-        "batched_silu": ((a, b), dict(activation="silu")),
-        "per_batch_weights": ((a, b[None].repeat(3, 1, 1).contiguous()), dict(out_scale=2.0)),
-        "glu_no_act": ((a[1], b, bg), dict()),
-    }[case]
-    before = tk.sfc_gemm_fused.launches
+    if case.startswith("plain_m"):
+        m, k, n, *flags, kw = CLUSTER_CASES[case.removeprefix("plain_")]
+        args = _cluster_inputs(dt, m, k, n, *flags)
+        cluster = tk.uses_cluster_kernel(args[0])
+        assert cluster == (dt == torch.bfloat16 and m <= build.SPLIT_MAX_ROWS)
+        layers = tk.cluster_layers(k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+        want_kernel = ("sfc_gemm_cluster_kernel", layers) if cluster else ("sfc_gemm_fused_kernel", 1)
+        plain_kw = dict(k_layers=layers if cluster else 1)
+    else:
+        a, b, bg, bias, gbias, res = _inputs(dt)
+        args, kw = {
+            "batched_glu_every_flag": ((a, b, bg, bias, gbias, res), dict(activation="gelu", out_scale=0.7)),
+            "plain_relu_bias_residual": ((a[0], b, None, bias, None, res[0]), dict(activation="relu")),
+            "batched_silu": ((a, b), dict(activation="silu")),
+            "per_batch_weights": ((a, b[None].repeat(3, 1, 1).contiguous()), dict(out_scale=2.0)),
+            "glu_no_act": ((a[1], b, bg), dict()),
+        }[case]
+        want_kernel, plain_kw = ("sfc_gemm_fused_kernel", 1), {}
+    before = (tk.sfc_gemm_fused.launches, tk.sfc_gemm_fused.launches_by_kernel[want_kernel])
     got = tk.sfc_gemm_fused(*args, **kw)
     torch.cuda.synchronize()
-    assert tk.sfc_gemm_fused.launches == before + 1
-    want = tk.sfc_gemm_fused_plain(*args, bm=64, bn=64, **kw)
-    assert got.dtype == dt and got.shape == want.shape
-    assert _agree(got, want, dt)
+    assert (tk.sfc_gemm_fused.launches, tk.sfc_gemm_fused.launches_by_kernel[want_kernel]) == (before[0] + 1,
+                                                                                               before[1] + 1)
+    want = tk.sfc_gemm_fused_plain(*args, bm=64, bn=64, **plain_kw, **kw)
+    for g, w in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+        assert g.dtype == dt and g.shape == w.shape
+        assert _agree(g, w, dt)
 
 
 @pytest.mark.cuda
@@ -220,29 +260,78 @@ def test_dense_flash_kernel_matches_plain_version_on_card(dtype, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["serve_shape", "strided_cache_with_empty_row"])
+@pytest.mark.parametrize(
+    "case", ["serve_shape", "strided_cache_with_empty_row", "cache_4096_ragged", "empty_full_and_past_t_g1"])
 def test_decode_kernel_matches_plain_version_on_card(dtype, case):
+    """The decode kernel (batch x Hkv clusters of S CTAs, one a cache
+    segment) against its plain version over the same segments."""
     _card()
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(22)
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dt)
+
     if case == "serve_shape":
         b, t, h, hkv, d, valids = 4, 145, 32, 8, 128, (129, 134, 139, 144)
-        k, v = (torch.from_numpy(rng.standard_normal((b, t, hkv, d)).astype(np.float32)).to("cuda", dt)
-                for _ in range(2))
-    else:  # a view of a wider cache: strided rows, the head dim contiguous
+        k, v = r(b, t, hkv, d), r(b, t, hkv, d)
+    elif case == "strided_cache_with_empty_row":  # a view of a wider cache: strided rows, the head dim contiguous
         b, t, h, hkv, d, valids = 3, 300, 16, 2, 64, (0, 1, 300)
-        wide = torch.from_numpy(rng.standard_normal((2, b, t, hkv, 2 * d)).astype(np.float32)).to("cuda", dt)
+        wide = r(2, b, t, hkv, 2 * d)
         k, v = wide[0, ..., :d], wide[1, ..., d:]
-    q = torch.from_numpy(rng.standard_normal((b, 1, h, d)).astype(np.float32)).to("cuda", dt)
+    elif case == "cache_4096_ragged":
+        b, t, h, hkv, d, valids = 4, 4096, 32, 8, 128, (1, 1000, 2048, 4096)
+        k, v = r(b, t, hkv, d), r(b, t, hkv, d)
+    else:  # olmoe's heads (G = 1); a live length past T is clamped
+        b, t, h, hkv, d, valids = 3, 200, 16, 16, 128, (0, 200, 377)
+        k, v = r(b, t, hkv, d), r(b, t, hkv, d)
+    q = r(b, 1, h, d)
     valid = torch.tensor(valids, dtype=torch.int32, device="cuda")
-    before = tsa.sfc_decode_attention.launches
+    splits = tsa.decode_splits(b, hkv, t, torch.cuda.get_device_properties(0).multi_processor_count)
+    before = (tsa.sfc_decode_attention.launches, tsa.sfc_decode_attention.launches_by_splits[splits])
     got = tsa.sfc_decode_attention(q, k, v, valid)
     torch.cuda.synchronize()
-    assert tsa.sfc_decode_attention.launches == before + 1
-    want = tsa.sfc_decode_attention_plain(q, k, v, valid, k_chunk=build.DECODE_CHUNK)
+    assert (tsa.sfc_decode_attention.launches, tsa.sfc_decode_attention.launches_by_splits[splits]) == (
+        before[0] + 1, before[1] + 1)
+    want = tsa.sfc_decode_attention_plain(q, k, v, valid, k_chunk=build.DECODE_CHUNK, splits=splits)
     assert _agree(got, want, dt)
     if 0 in valids:
         assert torch.all(got[valids.index(0)] == 0)
+
+
+@pytest.mark.cuda
+def test_cluster_kernels_replay_in_a_cuda_graph_with_no_state_left():
+    """The split decode and the cluster GEMM keep no counter or scratch on
+    the device: a captured graph of both, replayed three times, gives the
+    eager outputs bitwise every time (a launch that left state behind would
+    change the next one's), and the launch counters count the capture only."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q = torch.randn((4, 1, 32, 128), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((4, 145, 8, 128), generator=gen, device="cuda").bfloat16() for _ in range(2))
+    valid = torch.tensor([129, 134, 0, 145], dtype=torch.int32, device="cuda")
+    a = torch.randn((4, 2560), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((2560, 1024), generator=gen, device="cuda") * 0.05).bfloat16()
+
+    def step():
+        return tsa.sfc_decode_attention(q, k, v, valid), tk.sfc_gemm_fused(a, w, abft=True)
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    counts = (tsa.sfc_decode_attention.launches, tk.sfc_gemm_fused.launches)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0])
+        assert all(torch.equal(x, y) for x, y in zip(out[1], eager[1]))
+    assert (tsa.sfc_decode_attention.launches, tk.sfc_gemm_fused.launches) == counts
 
 
 @pytest.mark.cuda
@@ -871,7 +960,17 @@ def test_abft_lanes_match_plain_versions_on_card(dtype):
         for name, wrong in cs._dropped(plain, tiles).items():
             assert abs(wrong - float(plain)) > limit, (name, wrong, float(plain), limit)
 
+    # the cluster kernel's twin (bf16; f32 takes the tile kernel's) at a
+    # decode-like shape with a ragged N, its plain version over its K layers
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    a4, w4, wg4, bias4, _, res4 = _cluster_inputs(dt, 4, 2056, 133, True, True, False, True)
     kw = dict(activation="silu", out_scale=0.5)
+    on = tk.sfc_gemm_fused(a4, w4, wg4, bias4, None, res4, abft=True, **kw)
+    assert torch.equal(on[0], tk.sfc_gemm_fused(a4, w4, wg4, bias4, None, res4, **kw))
+    plain = tk.sfc_gemm_fused_plain(a4.cpu(), w4.cpu(), wg4.cpu(), bias4.cpu(), None, res4.cpu(), bm=64, bn=64,
+                                    abft=True, k_layers=tk.cluster_layers(2056, 133, sms), **kw)
+    close(on[-1], plain[-1], abft.gemm_checksum_ref(a4, w4, wg4)[1], 2056, a4.float() @ w4.float(),
+          a4.float() @ wg4.float())
     on = tk.sfc_gemm_fused(a, b, bg, bias, gbias, res, abft=True, **kw)
     assert torch.equal(on[0], tk.sfc_gemm_fused(a, b, bg, bias, gbias, res, **kw))
     plain = tk.sfc_gemm_fused_plain(a.cpu(), b.cpu(), bg.cpu(), bias.cpu(), gbias.cpu(), res.cpu(), bm=64, bn=64,

@@ -240,3 +240,68 @@ def test_matmuls_that_need_a_gradient_run_through_the_autograd_function():
     assert tops.sfc_matmul(_t(a), _t(w)).grad_fn is None
     out.sum().backward()
     assert x.grad is not None and x.grad.shape == x.shape
+
+
+# ---------------------------------------------------------------------------
+# K1 at M <= 16 on the card: split-K across a cluster (its choices and sum)
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132  # the card the cluster kernel is sized for
+
+
+def test_cluster_layers_are_a_function_of_the_shape_and_the_card():
+    """L at qwen3-4b's and olmoe-1b-7b's decode products: every slab of the
+    K partition non-empty and at least 256 rows deep (L > 1), L at most
+    the cluster limit."""
+    from repro_torch.kernels import build
+
+    table = {  # (K, N): L
+        (2560, 4096): 4, (2560, 1024): 8, (4096, 2560): 8, (2560, 9728): 2, (9728, 2560): 8,  # q, k/v, o, GLU, w_out
+        (2560, 151936): 1,  # the LM head
+        (2048, 2048): 8, (2048, 64): 8, (2048, 50304): 1,  # olmoe's q/k/v/o, router, LM head
+        (203, 133): 1, (1000, 133): 2,  # ragged
+    }
+    for (k, n), want in table.items():
+        layers = tk.cluster_layers(k, n, H100_SMS)
+        slab = tk.layer_slab(k, layers)
+        assert layers == want, (k, n, layers)
+        assert 1 <= layers <= build.MAX_CLUSTER_LAYERS
+        assert (layers - 1) * slab < k <= layers * slab  # no empty slab
+        assert layers == 1 or slab >= 256
+
+
+@pytest.mark.parametrize("k", [203, 1000, 2056, 2560, 9728])
+def test_cluster_slabs_are_the_plain_versions_layer_chunks(k):
+    """CTA l of a cluster runs K rows [l * slab, (l + 1) * slab) clipped to K
+    (slab = layer_slab(K, L)): the chunks over which sfc_gemm_fused_plain
+    with k_layers=L sums, in the same order."""
+    for layers in (1, 2, 4, 8):
+        slab = tk.layer_slab(k, layers)
+        kernel = [slice(min(l * slab, k), min((l + 1) * slab, k)) for l in range(layers)]
+        assert kernel == tk._k_chunks(k, layers)
+
+
+# (glu, bias, gate_bias, residual, activation, out_scale, preact)
+_CLUSTER_EPILOGUES = [e + (False,) for e in EPILOGUES] + [(True, True, True, False, None, None, True)]
+
+
+@pytest.mark.parametrize("glu,has_bias,has_gbias,has_res,act,scale,preact", _CLUSTER_EPILOGUES)
+@pytest.mark.parametrize("m", [1, 4, 16])
+def test_plain_summed_by_cluster_layers_matches_pallas(m, glu, has_bias, has_gbias, has_res, act, scale, preact):
+    """The cluster kernel's arithmetic: each K slab's product in f32, the
+    slabs added in layer order, then the epilogue once; against the JAX
+    package's fused kernel over the same K layers (interpret mode)."""
+    k, n = 1024, 48
+    layers = tk.cluster_layers(k, n, H100_SMS)
+    assert layers == 4
+    a, b, bg, bias, gbias, res = _arrays(
+        11, (m, k), (k, n), (k, n) if glu else None,
+        (1, n) if has_bias else None, (1, n) if has_gbias else None, (m, n) if has_res else None, scale=0.1,
+    )
+    kw = dict(activation=act, out_scale=scale, k_layers=layers)
+    want = jk.sfc_gemm_fused(*map(_j, (a, b, bg, bias, gbias, res)), bm=m, bn=16, interpret=True,
+                             preact_out=preact, **kw)
+    got = tk.sfc_gemm_fused_plain(*map(_t, (a, b, bg, bias, gbias, res)), bm=64, bn=64, preact=preact, **kw)
+    for g, w in zip(got if preact else (got,), want if preact else (want,)):
+        assert tuple(g.shape) == (m, n)
+        _close(g, w)
