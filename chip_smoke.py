@@ -262,6 +262,29 @@ def launched(counter, fn):
     return out, key
 
 
+def by_kernel(counter) -> dict:
+    """A wrapper's ``launches_by_kernel`` summed by CUDA kernel name."""
+    out = collections.Counter()
+    for (name, _), n in counter.items():
+        out[name] += n
+    return dict(out)
+
+
+def plain_layers(name, config) -> int:
+    """The K layers a plain version sums over to follow a launch: the
+    cluster kernel's L, else one."""
+    return config if name == "sfc_gemm_cluster_kernel" else 1
+
+
+WGMMA_SOURCE = "src/repro_torch/kernels/csrc/sfc_gemm_wgmma.cuh"
+GEMM_SOURCE = "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu"
+
+
+def kernel_source(name: str) -> str:
+    """The file in the repository that holds a GEMM kernel's body."""
+    return WGMMA_SOURCE if "wgmma" in name else GEMM_SOURCE
+
+
 def time_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
     """Mean device time of fn(i) over reps calls, by CUDA events.  With
     ``graph`` the reps calls are captured once in a CUDA graph and one
@@ -571,8 +594,10 @@ def phase_kernels(torch, cfg, gemms, tk, ops):
 
         bm, bn, _ = ops.pick_blocks(gm.m, gm.n, gm.k)
         # which kernel the wrapper takes: the cluster kernel (M <= 16), its
-        # plain version summed over the same K layers, or the tile kernel
-        got, (name, layers) = launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: kernel(0))
+        # plain version summed over the same K layers, the wgmma kernel (bf16
+        # rows TMA can describe) with its C tile, or the tile kernel
+        got, (name, config) = launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: kernel(0))
+        layers = plain_layers(name, config)
 
         def plain(i):
             return tk.sfc_gemm_fused_plain(a, ws[i % copies], gs[i % copies] if gs else None, bm=bm, bn=bn,
@@ -582,7 +607,7 @@ def phase_kernels(torch, cfg, gemms, tk, ops):
         torch.cuda.synchronize()
         ok, err, worst = within_all(got, want, dt)
         checks.append({"case": gm.name, "shape": [gm.batch, gm.m, gm.k, gm.n], "glu": gm.glu, "preact": gm.preact,
-                       "kernel": name, "k_layers": layers, "ok": ok, "max_abs_err": err, "err_over_bound": worst})
+                       "kernel": name, "config": config, "ok": ok, "max_abs_err": err, "err_over_bound": worst})
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version at {gm}: max err {err}, err/bound {worst}")
         if gm.glu:
@@ -595,23 +620,25 @@ def phase_kernels(torch, cfg, gemms, tk, ops):
         plain_ms = time_ms(plain, reps=2, warmup=1)
         bound_ms, bound_by = gm.bound(2, PEAK_BF16_FLOPS)
         rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, kernel=name, k_layers=layers))
+                         bound_ms=bound_ms, bound_by=bound_by, kernel=name, config=config))
         del ws, gs, a
         if gm.glu:
             del cats
-    # one ragged case with every epilogue flag, in both input types
-    for dtype in (torch.float32, torch.bfloat16):
-        m, k, n = 77, 203, 133
+    # ragged cases with every epilogue flag: K 203 in both input types (rows
+    # TMA cannot describe: the tile kernel), and K 264 / N 328 in bf16 (the
+    # wgmma kernel, whose TMA boxes run past every edge)
+    for dtype, (m, k, n) in ((torch.float32, (77, 203, 133)), (torch.bfloat16, (77, 203, 133)),
+                             (torch.bfloat16, (77, 264, 328))):
         r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)  # noqa: E731
         args = (r(3, m, k), r(k, n) * 0.1, r(k, n) * 0.1, r(n), r(1, n), r(3, m, n))
         kw = dict(activation="gelu", out_scale=0.7)
-        got = tk.sfc_gemm_fused(*args, **kw)
+        got, (name, config) = launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: tk.sfc_gemm_fused(*args, **kw))
         torch.cuda.synchronize()
         ok, err, worst = within(got, tk.sfc_gemm_fused_plain(*args, bm=32, bn=32, **kw), dtype)
         checks.append({"case": "all_epilogue_flags_ragged", "dtype": str(dtype), "shape": [3, m, k, n],
-                       "ok": ok, "max_abs_err": err, "err_over_bound": worst})
-        if not ok:
-            raise AssertionError(f"all-flags ragged case ({dtype}) disagrees: max err {err}")
+                       "kernel": name, "config": config, "ok": ok, "max_abs_err": err, "err_over_bound": worst})
+        if not ok or (name == "sfc_gemm_wgmma_kernel") != (k % 8 == 0 and dtype == torch.bfloat16):
+            raise AssertionError(f"all-flags ragged case ({dtype}, K {k}) on {name} disagrees: max err {err}")
     return rows, checks
 
 
@@ -806,7 +833,7 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
 # kernel-name fragments of the serve's GEMM kernels in a profiler trace
 _SERVE_KERNEL_GROUPS = (("sfc_gemm_replicated_kernel", "K4/K5"), ("add_reduce_kernel", "K6"),
                         ("sfc_gemm_fused_kernel", "K1/K2"), ("sfc_gemm_cluster_kernel", "K1 cluster"),
-                        ("decode_split_kernel", "K14"))
+                        ("sfc_gemm_wgmma_kernel", "K2 wgmma"), ("decode_split_kernel", "K14"))
 
 
 def profile_decode(torch, eng, tokens, ops, layers=None):
@@ -891,11 +918,15 @@ def phase_backward_gemms(torch, gemms, tk, ops):
         # enough input copies that a timed loop streams them from HBM
         copies = max(1, math.ceil(4 * L2_BYTES / gm.bytes(2)))
         ins = [operands(gm, dt) for _ in range(copies)]
-        got, want = fn(*ins[0][0]), plain_fn(*ins[0][0], bm=bm, bn=bn)
+        if gm.kind == "nt":  # the wgmma NT kernel and its C tile, or the tile kernel
+            got, (name, config) = launched(tk.sfc_gemm_nt.launches_by_kernel, lambda: fn(*ins[0][0]))
+        else:
+            got, (name, config) = fn(*ins[0][0]), ("tn_kernel", 1)
+        want = plain_fn(*ins[0][0], bm=bm, bn=bn)
         torch.cuda.synchronize()
         ok, err, worst = within_all(got, want, dt)
         checks.append({"case": f"{gm.kind}:{gm.name}", "shape": [gm.m, gm.k, gm.n], "dual": gm.dual, "ok": ok,
-                       "max_abs_err": err, "err_over_bound": worst})
+                       "kernel": name, "config": config, "max_abs_err": err, "err_over_bound": worst})
         if not ok:
             raise AssertionError(f"sfc_gemm_{gm.kind} disagrees with its plain version at {gm}: max err {err}, "
                                  f"err/bound {worst}")
@@ -905,7 +936,7 @@ def phase_backward_gemms(torch, gemms, tk, ops):
         plain_ms = time_ms(lambda i: plain_fn(*ins[i % copies][0], bm=bm, bn=bn), reps=2, warmup=1)
         bound_ms, bound_by = _bound(gm.flops(), gm.bytes(2))
         rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
+                         bound_ms=bound_ms, bound_by=bound_by, kernel=name, config=config))
         del ins, got, want
     for kind in ("nt", "tn"):
         gm = BwdGemm("ragged_f32", kind, 77, 203, 133, dual=True)
@@ -1300,7 +1331,8 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
 
 
 # kernel-name fragments of the port's kernels in a profiler trace
-_KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("nt_kernel", "K7"), ("tn_kernel", "K8"),
+_KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("sfc_gemm_wgmma_kernel", "K2 wgmma"), ("nt_kernel", "K7"),
+                  ("nt_wgmma_kernel", "K7 wgmma"), ("tn_kernel", "K8"),
                   ("tn_update_kernel", "K8 norm/update"), ("flash_fwd_kernel", "K11"),
                   ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"))
 # the MoE step's: the grouped kernels first, since "nt_kernel",
@@ -1358,6 +1390,18 @@ def _tn_mode_counts(counted):
             for name in ("sfc_gemm_tn", "sfc_gemm_grouped_tn") if name in counted for mode in ("dw", "norm", "update")}
 
 
+def _kernel_counts(counted):
+    """K1/K2's and K7's launches on their wgmma kernels and on the 64 x 64
+    tile kernels (the cluster kernel takes none of a training step's)."""
+    out = {}
+    for name, tile in (("sfc_gemm_fused", "sfc_gemm_fused_kernel"), ("sfc_gemm_nt", "nt_kernel")):
+        if name in counted:
+            kernels = by_kernel(counted[name].launches_by_kernel)
+            out[f"{name}:wgmma"] = sum(n for k, n in kernels.items() if "wgmma" in k)
+            out[f"{name}:tile"] = kernels.get(tile, 0)
+    return out
+
+
 def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_groups=_KERNEL_GROUPS, abft=None):
     """TRAIN_STEPS steps of `build_trainer` from seed 0, each step's launch
     counts, times and loss, then a profiled step.  Returns (run summary,
@@ -1383,14 +1427,15 @@ def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_gro
         fn.launches = 0
         if hasattr(fn, "abft_launches"):
             fn.abft_launches = 0
-        for counter in ("launches_by_shape", "launches_by_mode"):
+        for counter in ("launches_by_shape", "launches_by_mode", "launches_by_kernel"):
             if hasattr(fn, counter):
                 getattr(fn, counter).clear()
     abft_lib.reset_runtime_sdc()
 
     def counts():
         lanes = {f"{k}:abft": fn.abft_launches for k, fn in counted.items() if abft and hasattr(fn, "abft_launches")}
-        return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(counted), **lanes}
+        return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(counted), **lanes,
+                **_kernel_counts(counted)}
 
     for step in range(TRAIN_STEPS):
         batch = batch_fn(step)
@@ -1432,8 +1477,11 @@ def phase_train(torch, cfg, build_trainer, counted):
     shape of each sfc run)."""
     per_step = cfg.n_layers * 6 + 1
     layers = {"sfc_flash_fwd": cfg.n_layers, "sfc_flash_bwd_dq": cfg.n_layers, "sfc_flash_bwd_dkv": cfg.n_layers}
+    # every K1/K2 and K7 launch (512 bf16 token rows) on the wgmma kernels
     want = {"sfc_gemm_fused": per_step, "sfc_gemm_nt": per_step, "sfc_gemm_tn": per_step, **layers,
-            "sfc_gemm_tn:dw": per_step, "sfc_gemm_tn:norm": 0, "sfc_gemm_tn:update": 0}
+            "sfc_gemm_tn:dw": per_step, "sfc_gemm_tn:norm": 0, "sfc_gemm_tn:update": 0,
+            "sfc_gemm_fused:wgmma": per_step, "sfc_gemm_fused:tile": 0, "sfc_gemm_nt:wgmma": per_step,
+            "sfc_gemm_nt:tile": 0}
     # the fused step: K8 runs its norm mode in the backward and its update
     # mode after it, and never writes dW
     want_fused = {**want, "sfc_gemm_tn": 2 * per_step, "sfc_gemm_tn:dw": 0, "sfc_gemm_tn:norm": per_step,
@@ -1947,15 +1995,22 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
             "sfc_cuda+sfc_attn": {**gemm_want, "sfc_flash_fwd": n_layers,
                                   "sfc_decode_attention": n_layers * (NEW_TOKENS - 1)},
             "torch": {k: 0 for k in counted}}
-    done, launches, by_shape = {}, {}, {}
+    # the prefill's K1/K2 (4 x 128 rows) on the wgmma kernel, every decode
+    # step's (4 rows) and the prefill's head (its last positions) on the
+    # cluster kernel
+    want_by_kernel = {"sfc_gemm_wgmma_kernel": 5 * n_layers,
+                      "sfc_gemm_cluster_kernel": (5 * n_layers + 1) * NEW_TOKENS - 5 * n_layers}
+    done, launches, by_shape, launches_by_kernel = {}, {}, {}, {}
     for name, eng in engines.items():
         for fn in counted.values():
             fn.launches = 0
             if hasattr(fn, "launches_by_shape"):
                 fn.launches_by_shape.clear()
+        tk.sfc_gemm_fused.launches_by_kernel.clear()
         done[name] = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
         torch.cuda.synchronize()
         launches[name] = {k: fn.launches for k, fn in counted.items()}
+        launches_by_kernel[name] = by_kernel(tk.sfc_gemm_fused.launches_by_kernel)
         if name == "sfc_cuda":
             by_shape = dict(tk.sfc_gemm_grouped.launches_by_shape)
     # the sfc_cuda serve under ABFT "detect": a fresh engine (its verify
@@ -1968,10 +2023,12 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
             if hasattr(fn, "launches_by_shape"):
                 fn.launches_by_shape.clear()
         tk.sfc_gemm_grouped.abft_launches = tk.sfc_gemm_fused.abft_launches = 0
+        tk.sfc_gemm_fused.launches_by_kernel.clear()
         abft.reset_runtime_sdc()
         with abft.abft_mode("detect"):
             done["sfc_cuda+abft"] = abft_eng.run(abft_eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
         torch.cuda.synchronize()
+    launches_by_kernel["sfc_cuda+abft"] = by_kernel(tk.sfc_gemm_fused.launches_by_kernel)
     launches["sfc_cuda+abft"] = {**{k: fn.launches for k, fn in counted.items()},
                                  "sfc_gemm_grouped:abft": tk.sfc_gemm_grouped.abft_launches,
                                  "sfc_gemm_fused:abft": tk.sfc_gemm_fused.abft_launches}
@@ -2012,6 +2069,7 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
         "experts": cfg.n_experts, "top_k": cfg.moe_top_k, "vocab": cfg.vocab, "dtype": cfg.param_dtype,
         "params": n_params, "init_s": init_s, "requests": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
         "launches": launches, "launches_expected": want,
+        "sfc_gemm_fused_launches_by_kernel": launches_by_kernel, "by_kernel_expected": want_by_kernel,
         "prefill_logits": {
             "f32_cut_layers": MOE_SERVE_F32_LAYERS, "f32_vs_torch": f32_agree,
             "bf16_sfc_cuda_vs_torch_mean_abs_err": float((logits["sfc_cuda"] - logits["torch"]).abs().mean()),
@@ -2032,6 +2090,9 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
     for name, expect in want.items():
         if launches[name] != expect:
             raise AssertionError(f"olmoe {name} serve launched {launches[name]}, expected {expect}")
+        if name != "torch" and launches_by_kernel[name] != want_by_kernel:
+            raise AssertionError(f"olmoe {name} serve launched K1/K2 {launches_by_kernel[name]} by kernel, "
+                                 f"expected {want_by_kernel}")
     for name, res in f32_agree.items():
         if not res["ok"]:
             raise AssertionError(f"olmoe f32 prefill logits {name} vs torch: max err {res['max_abs_err']}, "
@@ -2059,6 +2120,8 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
     grouped = 2 * n_layers  # the GLU pair and w_out a layer
     want = {"sfc_gemm_fused": dense, "sfc_gemm_nt": dense, "sfc_gemm_tn": dense,
             "sfc_gemm_tn:dw": dense, "sfc_gemm_tn:norm": 0, "sfc_gemm_tn:update": 0,
+            "sfc_gemm_fused:wgmma": dense, "sfc_gemm_fused:tile": 0, "sfc_gemm_nt:wgmma": dense,
+            "sfc_gemm_nt:tile": 0,
             "sfc_gemm_grouped": grouped, "sfc_gemm_grouped_nt": grouped, "sfc_gemm_grouped_tn": grouped,
             "sfc_gemm_grouped_tn:dw": grouped, "sfc_gemm_grouped_tn:norm": 0, "sfc_gemm_grouped_tn:update": 0,
             "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers, "sfc_flash_bwd_dkv": n_layers}
@@ -2142,19 +2205,30 @@ LANE_RTOL = 1e-5
 LANE_TILE = 64
 
 
-def raw_tile_sums(torch, *raws):
-    """The f32 sum of each LANE_TILE x LANE_TILE block (edge blocks clipped)
-    of the last two dims of the raw products ``raws``, the raws added block
-    by block as the GLU's lane adds its two accumulators: a lane's
-    partials at that tile, flattened, the bottom-right block last."""
+def raw_tile_sums(torch, *raws, tile=(LANE_TILE, LANE_TILE)):
+    """The f32 sum of each ``tile`` block (edge blocks clipped) of the last
+    two dims of the raw products ``raws``, the raws added block by block as
+    the GLU's lane adds its two accumulators: a lane's partials at that
+    tile, flattened, the bottom-right block last."""
+    tr, tc = tile
     total = None
     for c in raws:
         r, k = c.shape[-2:]
-        c = torch.nn.functional.pad(c.float(), (0, -k % LANE_TILE, 0, -r % LANE_TILE))
-        s = c.reshape(*c.shape[:-2], c.shape[-2] // LANE_TILE, LANE_TILE, c.shape[-1] // LANE_TILE,
-                      LANE_TILE).sum(dim=(-3, -1))
+        c = torch.nn.functional.pad(c.float(), (0, -k % tc, 0, -r % tr))
+        s = c.reshape(*c.shape[:-2], c.shape[-2] // tr, tr, c.shape[-1] // tc, tc).sum(dim=(-3, -1))
         total = s if total is None else total + s
     return total.reshape(-1)
+
+
+def kernel_tiles(torch, name, config, *raws):
+    """`raw_tile_sums` over the tiles a K1/K2 launch's lane sums: the
+    wgmma kernel's C tile (``config``, "128x256") over the rows of every
+    batch element together (shared weights fold the batch into the rows),
+    else LANE_TILE x LANE_TILE tiles of each batch element."""
+    if name != "sfc_gemm_wgmma_kernel":
+        return raw_tile_sums(torch, *raws)
+    tile = tuple(int(x) for x in config.split("x"))
+    return raw_tile_sums(torch, *(c.reshape(-1, c.shape[-1]) for c in raws), tile=tile)
 
 
 def lane_limit(tiles, tol):
@@ -2272,7 +2346,8 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
             def call(i, lane):
                 return tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies], abft=lane, **kw)
 
-            on, (name, layers) = launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: call(0, True))
+            on, (name, config) = launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: call(0, True))
+            layers = plain_layers(name, config)
             off = call(0, False)
             off = off if isinstance(off, tuple) else (off,)
             bm, bn, _ = ops.pick_blocks(gm.m, gm.n, gm.k)
@@ -2280,11 +2355,11 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
                                                                              k_layers=layers, abft=True, **kw))
             ref, mag = abft.gemm_checksum_ref(a, ws[0], gs[0])
             af = a.float()
-            tiles = raw_tile_sums(torch, *(af @ x.float() for x in (ws[0], gs[0]) if x is not None))
+            tiles = kernel_tiles(torch, name, config, *(af @ x.float() for x in (ws[0], gs[0]) if x is not None))
             del af
             checks.append(_lane_check(torch, abft, f"K1/K2:{gm.name}", on[-1], plain[-1], ref, mag, gm.k, on[:-1], off,
                                       tiles, _dropped(plain[-1], tiles) if gm.name == "decode/q" else None,
-                                      dtype=str(dt), kernel=name.replace("_kernel", "_abft_kernel"), k_layers=layers))
+                                      dtype=str(dt), kernel=name.replace("_kernel", "_abft_kernel"), config=config))
             if dt == torch.bfloat16:
                 if gm.name == "decode/q":
                     controls["K1/K2 decode/q"] = _negative_control(
@@ -2294,24 +2369,27 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
                 off_ms = time_ms(lambda i: call(i, False), reps=reps, graph=True)
                 ref_ms = time_ms(lambda i: abft.gemm_checksum_ref(a, ws[i % copies], gs[i % copies]), reps=reps,
                                  graph=True)
-                tasks = max(gm.batch, 1) * math.ceil(gm.m / 64) * math.ceil(gm.n / 64)
                 rows.append(_lane_row("K1/K2", gm, abs(float(on[-1]) - float(plain[-1])), ms, off_ms, ref_ms,
-                                      plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), tasks,
-                                      cuda_kernel=name.replace("_kernel", "_abft_kernel"), k_layers=layers))
+                                      plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), len(tiles),
+                                      cuda_kernel=name.replace("_kernel", "_abft_kernel"), config=config))
             del a, ws, gs, on, off, plain, tiles
-    # the ragged case with every epilogue flag, in both input types
-    for dt in (torch.float32, torch.bfloat16):
-        m, k, n = 77, 203, 133
+    # the ragged cases with every epilogue flag: K 203 in both input types
+    # (the tile kernel's lane), K 264 / N 328 in bf16 (the wgmma kernel's)
+    for dt, (m, k, n) in ((torch.float32, (77, 203, 133)), (torch.bfloat16, (77, 203, 133)),
+                          (torch.bfloat16, (77, 264, 328))):
         args = (r(3, m, k, dtype=dt), r(k, n, dtype=dt, scale=0.1), r(k, n, dtype=dt, scale=0.1), r(n, dtype=dt),
                 r(1, n, dtype=dt), r(3, m, n, dtype=dt))
         kw = dict(activation="gelu", out_scale=0.7)
-        on, off = tk.sfc_gemm_fused(*args, abft=True, **kw), tk.sfc_gemm_fused(*args, **kw)
+        on, (name, config) = launched(tk.sfc_gemm_fused.launches_by_kernel,
+                                      lambda: tk.sfc_gemm_fused(*args, abft=True, **kw))
+        off = tk.sfc_gemm_fused(*args, **kw)
         plain = tk.sfc_gemm_fused_plain(*args, bm=32, bn=32, abft=True, **kw)
         ref, mag = abft.gemm_checksum_ref(args[0], args[1], args[2])
-        tiles = raw_tile_sums(torch, args[0].float() @ args[1].float(), args[0].float() @ args[2].float())
+        tiles = kernel_tiles(torch, name, config, args[0].float() @ args[1].float(), args[0].float() @ args[2].float())
         wrong = {**_dropped(plain[-1], tiles), "after_epilogue": on[0].float().sum()}
         checks.append(_lane_check(torch, abft, "K1/K2:all_epilogue_flags_ragged", on[-1], plain[-1], ref, mag, k,
-                                  on[:-1], (off,), tiles, wrong, dtype=str(dt), shape=[3, m, k, n]))
+                                  on[:-1], (off,), tiles, wrong, dtype=str(dt), shape=[3, m, k, n],
+                                  kernel=name.replace("_kernel", "_abft_kernel"), config=config))
     # K3 at olmoe's shapes, then on the ragged expert sizes
     fwd = [gm for gm in moe_grouped_gemms(ocfg) if gm.kind == "fwd"]
     d, f = fwd[0].k, fwd[0].n
@@ -2630,6 +2708,12 @@ def main() -> int:
     attn_kernels = {"sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_decode_attention": tsa.sfc_decode_attention,
                     "flash_attention": tfa.flash_attention}
 
+    # K1/K2 by kernel: the prefill's 6 a layer (4 x 128 rows) on the wgmma
+    # kernel, the rest (4 rows: the decode steps, the prefill's head) on the
+    # cluster kernel, none on the tile kernel
+    want_by_kernel = {"sfc_gemm_wgmma_kernel": cfg.n_layers * 6,
+                      "sfc_gemm_cluster_kernel": want_launches - cfg.n_layers * 6}
+
     def reset_counts():
         for fn in (tk.sfc_gemm_fused, tk.sfc_gemm_replicated, tk.add_reduce):
             fn.launches = 0
@@ -2651,8 +2735,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = tk.sfc_gemm_fused.launches
     by_shape = dict(tk.sfc_gemm_fused.launches_by_shape)
-    if launches != want_launches:
-        raise AssertionError(f"sfc_cuda serve launched the kernel {launches} times, expected {want_launches}")
+    serve_by_kernel = {"sfc_cuda": by_kernel(tk.sfc_gemm_fused.launches_by_kernel)}
+    if launches != want_launches or serve_by_kernel["sfc_cuda"] != want_by_kernel:
+        raise AssertionError(f"sfc_cuda serve launched the kernel {launches} times, expected {want_launches}; "
+                             f"by kernel {serve_by_kernel['sfc_cuda']}, expected {want_by_kernel}")
     # the attn_impl="sfc" path: projections on the GEMM, attention on K11 / K14
     reset_counts()
     eng = engines["sfc_cuda+sfc_attn"]
@@ -2660,12 +2746,15 @@ def main() -> int:
     torch.cuda.synchronize()
     attn_launches = {name: fn.launches for name, fn in attn_kernels.items()}
     attn_gemm_launches = tk.sfc_gemm_fused.launches
-    attn_by_kernel = {"sfc_gemm_fused": {f"{name}@L{layers}": n for (name, layers), n in
+    attn_by_kernel = {"sfc_gemm_fused": {f"{name}@{config}": n for (name, config), n in
                                          tk.sfc_gemm_fused.launches_by_kernel.items()},
                       "sfc_decode_attention": {f"S{k}": n for k, n in
                                                tsa.sfc_decode_attention.launches_by_splits.items()}}
-    if attn_gemm_launches != want_launches or any(attn_launches[k] != n for k, n in want_attn.items()):
-        raise AssertionError(f"attn_impl='sfc' serve launched GEMM {attn_gemm_launches} (want {want_launches}) "
+    serve_by_kernel["sfc_cuda+sfc_attn"] = by_kernel(tk.sfc_gemm_fused.launches_by_kernel)
+    if (attn_gemm_launches != want_launches or any(attn_launches[k] != n for k, n in want_attn.items())
+            or serve_by_kernel["sfc_cuda+sfc_attn"] != want_by_kernel):
+        raise AssertionError(f"attn_impl='sfc' serve launched GEMM {attn_gemm_launches} (want {want_launches}; "
+                             f"by kernel {serve_by_kernel['sfc_cuda+sfc_attn']}, want {want_by_kernel}) "
                              f"and attention {attn_launches} (want {want_attn}) times")
     # the replicated form: every projection a K5 (prefill) or K4 (decode)
     # launch, the GLU two; k_layers resolves to 1 at every shape, so no K6
@@ -2704,6 +2793,7 @@ def main() -> int:
             done_abft = abft_eng.run(abft_eng.submit_many(prompts_, max_new_tokens=new))
         torch.cuda.synchronize()
     abft_by_shape = dict(tk.sfc_gemm_fused.launches_by_shape)
+    serve_by_kernel["sfc_cuda+sfc_attn+abft"] = by_kernel(tk.sfc_gemm_fused.launches_by_kernel)
     abft_serve = {
         "verify": abft_eng.degradation_report()["verify"], "sdc_detections": abft.runtime_sdc_total(),
         "checks": abft.runtime_check_total(), "max_residual_over_tol": abft.runtime_max_ratio(),
@@ -2785,6 +2875,7 @@ def main() -> int:
         "launches": launches, "launches_expected": want_launches,
         "attn_impl_sfc_launches": {"sfc_gemm_fused": attn_gemm_launches, **{k: attn_launches[k] for k in want_attn}},
         "attn_impl_sfc_launches_by_kernel": attn_by_kernel,
+        "sfc_gemm_fused_launches_by_kernel": serve_by_kernel, "by_kernel_expected": want_by_kernel,
         "flash_pallas_prefill_launches": attn_launches["flash_attention"],
         "replicated_launches": rep_counts, "replicated_launches_expected": {"replicated": want_rep,
                                                                            split: want_split},
@@ -2820,6 +2911,7 @@ def main() -> int:
             or abft_serve["launches"] != {"sfc_gemm_fused": want_launches, "with_lane": want_launches, **want_attn}
             or abft_serve["verify"] != {"verify_every": 1, "decode_steps": NEW_TOKENS - 1,
                                         "verified_steps": NEW_TOKENS - 1, "sdc_detections": 0}
+            or serve_by_kernel["sfc_cuda+sfc_attn+abft"] != want_by_kernel
             or not abft_serve["max_residual_over_tol"] < 1 or not rep_step["tokens_identical_to_off"]
             or not rep_step["max_residual_over_tol"] < 1 or not rep_step["checks"]):
         raise AssertionError(f"the serve under ABFT detect: {abft_serve}")
@@ -2873,7 +2965,7 @@ def main() -> int:
         kernels.append({
             "name": f"sfc_gemm_fused:{gm.name}",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "source": kernel_source(row["kernel"]),
             "replaces": "src/repro/kernels/sfc_gemm.py:491" if gm.batch else "src/repro/kernels/sfc_gemm.py:355",
             "launches": (train_counts["sfc_gemm_fused"] if gm.path == "train" else by_shape).get(gm.key, 0),
             "path": gm.path,
@@ -2883,9 +2975,10 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            # the CUDA kernel the wrapper launched at this shape, and its K layers (a cluster's CTAs)
+            # the CUDA kernel the wrapper launched at this shape, and its
+            # configuration: the cluster kernel's K layers, the wgmma kernel's C tile
             "kernel": row["kernel"],
-            "k_layers": row["k_layers"],
+            "config": row["config"],
             "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "glu": gm.glu, "preact": gm.preact},
         })
     # the replicated form: launches of each kernel in its serve (K4/K5 in
@@ -2923,7 +3016,7 @@ def main() -> int:
         kernels.append({
             "name": f"sfc_gemm_{gm.kind}:{gm.name}",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "source": kernel_source(row["kernel"]),
             "replaces": "src/repro/kernels/sfc_gemm.py:1219" if gm.kind == "nt" else "src/repro/kernels/sfc_gemm.py:1429",
             "launches": train_counts[f"sfc_gemm_{gm.kind}"].get(gm.key, 0),
             "path": "train",
@@ -2933,6 +3026,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "kernel": row["kernel"],
+            "config": row["config"],
             "shape": {"m": gm.m, "k": gm.k, "n": gm.n, "dual": gm.dual},
         })
     for row in upd_rows:
@@ -2978,7 +3073,7 @@ def main() -> int:
         kernels.append({
             "name": f"{row.get('cuda_kernel', lanes[lane][0])}:{lane}:{gm.name}",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "source": kernel_source(row.get("cuda_kernel", "")),
             "replaces": lanes[lane][1],
             "launches": count,
             "path": path,
@@ -2991,7 +3086,7 @@ def main() -> int:
             "lane_off_ms": row["lane_off_ms"],
             "operand_ref_ms": row["operand_ref_ms"],
             "partials": row["partials"],
-            **({"k_layers": row["k_layers"]} if "k_layers" in row else {}),
+            **({"config": row["config"]} if "config" in row else {}),
             "shape": dataclasses.asdict(gm),
         })
     replaces = {"sfc_flash_fwd": "src/repro/kernels/sfc_attention.py:204",

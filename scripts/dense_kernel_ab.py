@@ -19,7 +19,8 @@ indices, one pass each (parent, change, change, parent reads a drift of
 the card between passes).  Times: CUDA events around a captured graph of
 20+ calls with the weights (K14: the caches) rotated past the 50 MB L2, as
 `chip_smoke.py` times them; each pass also records which GEMM kernel (and
-how many K layers) each K1/K2 row launched, where its tree counts that.
+its configuration: the cluster kernel's K layers, the wgmma kernels' C
+tile) each K1/K2 and K7 row launched, where its tree counts that.
 Prints one JSON line per pass and, last, a summary: each row's times by
 tree, each tree's mean over the `--base` tree's (default 1), the ptxas
 counts of every kernel the trees share by name, side by side, those of
@@ -179,6 +180,9 @@ def worker(tree: Path) -> dict:
             ins = [(r(m, k), r(m, n)) + ((r(m, n),) if gm.dual else ()) for _ in range(copies)]
         rows[f"{'K7' if gm.kind == 'nt' else 'K8'} {gm.name}"] = cs.time_ms(
             lambda i: fn(*ins[i % copies]), reps=max(20, copies), graph=True)
+        by_kernel = getattr(fn, "launches_by_kernel", None)
+        if by_kernel is not None:
+            _, kernels[f"K7 {gm.name}"] = cs.launched(by_kernel, lambda: fn(*ins[0]))
         del ins
     if hasattr(cs, "train_update_gemms"):
         rows.update(_update_rows(torch, cs, tk, cs.train_update_gemms(cfg), gen, "K8"))

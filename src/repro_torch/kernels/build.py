@@ -21,7 +21,10 @@ the flags, and loaded with ``ctypes``.  Two libraries:
   part (K8's update and norm modes), each behind entries of its own, so the
   parts without the lane keep their code; the bf16 forward parts and their
   lane twins also hold the cluster kernel (K1 at M <= ``SPLIT_MAX_ROWS``)
-  behind entries of its own (`cluster_entry_name`);
+  and the wgmma kernel (K2, and K1 past those rows, on TMA and wgmma), each
+  behind entries of its own (`cluster_entry_name`, `wgmma_entry_name`), and
+  the bf16 backward part the wgmma NT kernel (K7, ``bwd_entry_name(
+  "nt_wgmma", "bf16")``); the wgmma kernels are in ``csrc/sfc_gemm_wgmma.cuh``;
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
@@ -59,10 +62,13 @@ __all__ = [
     "MAX_DECODE_SPLITS",
     "SPLIT_MAX_ROWS",
     "MAX_CLUSTER_LAYERS",
+    "WGMMA_TILE",
+    "WGMMA_BK",
     "ACTIVATION_CODES",
     "DTYPE_NAMES",
     "entry_name",
     "cluster_entry_name",
+    "wgmma_entry_name",
     "bwd_entry_name",
     "rep_entry_name",
     "attn_entry_name",
@@ -93,6 +99,11 @@ MAX_DECODE_SPLITS = 8
 # cluster (kMaxLayers), in csrc/sfc_gemm_fused.cu
 SPLIT_MAX_ROWS = 16
 MAX_CLUSTER_LAYERS = 8
+# (rows, cols) of the wgmma kernels' narrow C tile (the wide one is twice
+# as wide; the GLU's are half as wide: B's columns beside the same ones of
+# B_gate) and the K of a stage: kBM / kBN and kBK in csrc/sfc_gemm_wgmma.cuh
+WGMMA_TILE: Tuple[int, int] = (128, 128)
+WGMMA_BK = 64
 
 ACTIVATION_CODES: Dict[Optional[str], int] = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 DTYPE_NAMES = {"float32": "f32", "bfloat16": "bf16"}
@@ -119,12 +130,23 @@ def cluster_entry_name(glu: bool, activation: Optional[str], abft: bool = False)
     return f"sfc_gemm_cluster_{lane}bf16_glu{int(glu)}_act{ACTIVATION_CODES[activation]}"
 
 
+def wgmma_entry_name(glu: bool, activation: Optional[str], abft: bool = False) -> str:
+    """C symbol of the wgmma kernel's entry (K2, and K1 past
+    ``SPLIT_MAX_ROWS`` rows) in the bf16 part of one (GLU, activation), or
+    in its ABFT twin."""
+    lane = "abft_" if abft else ""
+    return f"sfc_gemm_wgmma_{lane}bf16_glu{int(glu)}_act{ACTIVATION_CODES[activation]}"
+
+
 def bwd_entry_name(kind: str, dtype_name: str, abft: bool = False) -> str:
-    """C symbol of a backward GEMM entry: ``kind`` is "nt" (dA), "tn" (dW)
-    or "tn_update" (the TN kernel's update and norm modes); ``abft``: the
-    entry with the checksum lane (TN and TN update only)."""
-    if kind not in ("nt", "tn", "tn_update") or (abft and kind == "nt"):
-        raise ValueError(f"unknown backward GEMM kind {kind!r}{' with the ABFT lane' if abft else ''}")
+    """C symbol of a backward GEMM entry: ``kind`` is "nt" (dA), "nt_wgmma"
+    (dA on the wgmma kernel, bf16 only), "tn" (dW) or "tn_update" (the TN
+    kernel's update and norm modes); ``abft``: the entry with the checksum
+    lane (TN and TN update only)."""
+    if kind not in ("nt", "nt_wgmma", "tn", "tn_update") or (abft and kind.startswith("nt")) or (
+            kind == "nt_wgmma" and dtype_name != "bf16"):
+        raise ValueError(f"unknown backward GEMM kind {kind!r} for {dtype_name}"
+                         f"{' with the ABFT lane' if abft else ''}")
     return f"sfc_gemm_{kind}_{'abft_' if abft else ''}{dtype_name}"
 
 
@@ -155,13 +177,15 @@ def _gemm_parts():
                         f"-DSFC_ACT={ACTIVATION_CODES[act]}",
                         f"-DSFC_ENTRY={entry_name(dt, glu, act, abft)}",
                         *(("-DSFC_ABFT=1",) if abft else ()),
-                        *((f"-DSFC_CLUSTER_ENTRY={cluster_entry_name(glu, act, abft)}",) if dt == "bf16" else ()),
+                        *((f"-DSFC_CLUSTER_ENTRY={cluster_entry_name(glu, act, abft)}",
+                           f"-DSFC_WGMMA_ENTRY={wgmma_entry_name(glu, act, abft)}") if dt == "bf16" else ()),
                     )
         yield f"sfc_gemm_bwd_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
             "-DSFC_BWD=1",
             f"-DSFC_NT_ENTRY={bwd_entry_name('nt', dt)}",
             f"-DSFC_TN_ENTRY={bwd_entry_name('tn', dt)}",
+            *((f"-DSFC_NT_WGMMA_ENTRY={bwd_entry_name('nt_wgmma', dt)}",) if dt == "bf16" else ()),
         )
         yield f"sfc_gemm_tn_update_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
@@ -229,6 +253,28 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                         ptr,  # cudaStream_t
                     ]
                     fn.restype = i32
+                    fn = getattr(lib, wgmma_entry_name(glu, act, abft))
+                    fn.argtypes = [
+                        ptr, ptr, ptr, ptr, ptr, ptr,  # a, b, b_gate, bias, gate_bias, residual
+                        ptr, ptr,  # out, out_gate (preact mode)
+                        ptr, i32, i32, i32,  # task table (2, tiles), tiles, batch, b_batched
+                        i32, i32, i32,  # M (rows a batch element), N, K
+                        i32, i32, i32,  # wide (the 128 x 256 tile), CTAs, CTAs a worker
+                        i32, ctypes.c_float,  # has_scale, out_scale
+                        *((ptr,) if abft else ()),  # the lane's (batch * tiles) f32 partials
+                        ptr,  # cudaStream_t
+                    ]
+                    fn.restype = i32
+        if dt == "bf16":
+            fn = getattr(lib, bwd_entry_name("nt_wgmma", dt))
+            fn.argtypes = [
+                ptr, ptr, ptr, ptr, ptr,  # a, b, a2, b2, out
+                ptr, i32,  # task table (2, tiles), tiles
+                i32, i32, i32,  # R, C, D (output rows, output cols, contraction)
+                i32, i32, i32,  # wide (the 128 x 256 tile), CTAs, CTAs a worker
+                ptr,  # cudaStream_t
+            ]
+            fn.restype = i32
         for kind in ("nt", "tn"):
             fn = getattr(lib, bwd_entry_name(kind, dt))
             fn.argtypes = [

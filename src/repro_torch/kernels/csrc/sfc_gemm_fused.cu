@@ -36,7 +36,8 @@
 // tile rows were real and narrow N gave few CTAs (16 for N = 1024), so the
 // weight stream could not reach the card's memory rate: the bf16 parts now
 // launch sfc_gemm_cluster_kernel (below) for a plain-mode A of at most 16
-// rows, and this kernel keeps every other shape, and f32.
+// rows and sfc_gemm_wgmma_kernel (sfc_gemm_wgmma.cuh) for the other bf16
+// calls whose rows TMA can describe, and this kernel keeps the rest, and f32.
 //
 // sfc_gemm_cluster_kernel replaces the same TPU kernel (`_fused_kernel`,
 // `sfc_gemm_fused` at M <= 16: every decode projection and the decode LM
@@ -168,6 +169,15 @@
 // bytes.  At prefill (4 x 128 rows) the products are tensor-core bound and
 // the split only adds copies.
 //
+// sfc_gemm_wgmma_kernel (K2, and K1 past the cluster kernel's 16 rows) and
+// nt_wgmma_kernel (K7), in sfc_gemm_wgmma.cuh, take every bf16 call whose
+// rows TMA can describe (16-byte rows and bases): persistent CTAs over
+// contiguous segments of the curve, TMA into a ring of stages, wgmma.  The
+// bf16 forward parts hold the first behind -DSFC_WGMMA_ENTRY (its lane
+// twin sfc_gemm_wgmma_abft_kernel in their -DSFC_ABFT=1 twins), the bf16
+// -DSFC_BWD=1 part the second behind -DSFC_NT_WGMMA_ENTRY; the kernels
+// above keep every other call and their code.
+//
 // -DSFC_ABFT=1 compiles, beside any of the forward parts, the -DSFC_BWD=1
 // part or the -DSFC_BWD=2 part, the same kernels with the TPU kernels' ABFT
 // checksum lane (`_FusedSpec.abft`, sfc_gemm.py:175-178, :216-224, :246-252;
@@ -188,6 +198,7 @@
 // flush is the same code, so the outputs are bitwise those without it.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap (the driver's encoder is fetched at run time: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -804,6 +815,37 @@ void launch_gbias(const Params& p, const GroupRows& g, float* chk, bool scale, d
   launch_scale<BIAS, false>(p, g, chk, scale, grid, s);
 }
 
+#if SFC_DTYPE == 1 && defined(SFC_WGMMA_ENTRY)
+
+// ---------------------------------------------------------------------------
+// K2 (and K1 past 16 rows) on wgmma and TMA: persistent CTAs over curve
+// segments (bf16 parts; sfc_gemm_wgmma.cuh)
+// ---------------------------------------------------------------------------
+
+#include "sfc_gemm_wgmma.cuh"
+
+// Maps: A, B, (unused: A again), B_gate (B again without the GLU); BN: B
+// columns a stage, the narrow (128) or the wide (256) tile.
+#if SFC_ABFT
+template <bool GLU, int ACT, int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    sfc_gemm_wgmma_abft_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                               const __grid_constant__ CUtensorMap tm_unused,
+                               const __grid_constant__ CUtensorMap tm_bg, const wg::Params p) {
+  wg::body<false, GLU, ACT, true, BN>(tm_a, tm_b, tm_unused, tm_bg, p);
+}
+#else
+template <bool GLU, int ACT, int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    sfc_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                          const __grid_constant__ CUtensorMap tm_unused, const __grid_constant__ CUtensorMap tm_bg,
+                          const wg::Params p) {
+  wg::body<false, GLU, ACT, false, BN>(tm_a, tm_b, tm_unused, tm_bg, p);
+}
+#endif
+
+#endif  // SFC_DTYPE == 1 && SFC_WGMMA_ENTRY
+
 #if SFC_DTYPE == 1 && defined(SFC_CLUSTER_ENTRY)
 
 // ---------------------------------------------------------------------------
@@ -1394,6 +1436,20 @@ __global__ void __launch_bounds__(kThreads) grouped_nt_kernel(const BwdParams p)
   nt_tile<T, DUAL>(p, a, b, a2, b2, out, rows, row0, __ldg(p.tab + p.n_tasks + t) * kBN);
 }
 
+#if SFC_BWD == 1 && !SFC_ABFT && SFC_DTYPE == 1 && defined(SFC_NT_WGMMA_ENTRY)
+#include "sfc_gemm_wgmma.cuh"
+
+// K7 on wgmma and TMA (sfc_gemm_wgmma.cuh).  Maps: dC, W, dC2, W2 (the
+// first pair again without the dual form); BN: the tile's columns.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    nt_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                    const __grid_constant__ CUtensorMap tm_a2, const __grid_constant__ CUtensorMap tm_b2,
+                    const wg::Params p) {
+  wg::body<true, false, 0, false, BN>(tm_a, tm_b, tm_a2, tm_b2, p);
+}
+#endif
+
 // One task's output tile of the TN kernel: out (p.R, p.C) = A^T @ B (and
 // out2 = A^T @ B2), the contraction over D rows, the operands already at
 // the tile's matrix.  ABFT: the checksum lane, each set's raw dW tile
@@ -1883,6 +1939,89 @@ extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const
 }
 #endif
 
+#if SFC_DTYPE == 1 && defined(SFC_WGMMA_ENTRY)
+// One launch of the wgmma kernel: `ctas` persistent CTAs, the tasks (batch
+// element, C tile of tab) split into contiguous segments, one a CTA.  A
+// (batch, M, K); B (K, N) or, b_batched, (batch, K, N); tab the (2, tiles)
+// table of one batch element's C tiles, 128 x 128 (the GLU's 128 x 64), or
+// with `wide` 128 x 256 (the GLU's 128 x 128); the epilogue pointers as
+// SFC_ENTRY's (bias, gate_bias (N,), residual, out, out_gate (batch, M,
+// N)).  K and N multiples of 8 and A, B, B_gate 16-byte aligned, as TMA
+// needs.  The -DSFC_ABFT=1 part's entry takes chk, the (batch * tiles) f32
+// partials of the lane.  Returns the launch's CUDA error.
+static int wgmma_entry(const void* a, const void* b, const void* b_gate, const void* bias, const void* gate_bias,
+                       const void* residual, void* out, void* out_gate, const int* tab, int tiles, int batch,
+                       int b_batched, int M, int N, int K, int wide, int ctas, int group, int has_scale,
+                       float out_scale, float* chk, void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  if ((SFC_GLU != 0) != (b_gate != nullptr) || (SFC_GLU && b_batched)) return kInvalid;
+  if (!SFC_GLU && gate_bias != nullptr) return kInvalid;
+  if (out_gate != nullptr && (!SFC_GLU || residual != nullptr || has_scale)) return kInvalid;
+  if (M < 1 || N < 1 || K < 1 || N % 8 != 0 || K % 8 != 0 || batch < 1 || tiles < 1) return kInvalid;
+  if (!wg::aligned16(a) || !wg::aligned16(b) || !wg::aligned16(b_gate)) return kInvalid;
+  if (SFC_ABFT && chk == nullptr) return kInvalid;
+  wg::Params p = {};
+  p.tab = tab;
+  p.tiles = tiles;
+  p.n_tasks = batch * tiles;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.b_batched = b_batched;
+  p.pairs = 1;
+  p.group = group;
+  p.pair_store = 1;  // N is even
+  p.bias = static_cast<const bf16*>(bias);
+  p.gbias = static_cast<const bf16*>(gate_bias);
+  p.res = static_cast<const bf16*>(residual);
+  p.out = static_cast<bf16*>(out);
+  p.out_gate = static_cast<bf16*>(out_gate);
+  p.has_scale = has_scale;
+  p.out_scale = out_scale;
+  p.chk = chk;
+  CUtensorMap ma, mb, mg;
+  int rc = wg::tensor_map(&ma, a, K, M, batch, wg::kBM);
+  if (rc == 0) rc = wg::tensor_map(&mb, b, N, K, b_batched ? batch : 1, wg::kBK);
+  if (rc == 0 && b_gate != nullptr) rc = wg::tensor_map(&mg, b_gate, N, K, 1, wg::kBK);
+  if (rc != 0) return rc;
+  if (b_gate == nullptr) mg = mb;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool opted_narrow[kMaxDevices] = {}, opted_wide[kMaxDevices] = {};
+  constexpr int kNarrow = wg::kBN, kWide = 2 * wg::kBN;
+#if SFC_ABFT
+  if (wide)
+    return wg::launch<kWide>(&sfc_gemm_wgmma_abft_kernel<SFC_GLU != 0, SFC_ACT, kWide>, opted_wide, ctas, s, ma, mb,
+                             ma, mg, p);
+  return wg::launch<kNarrow>(&sfc_gemm_wgmma_abft_kernel<SFC_GLU != 0, SFC_ACT, kNarrow>, opted_narrow, ctas, s, ma,
+                             mb, ma, mg, p);
+#else
+  if (wide)
+    return wg::launch<kWide>(&sfc_gemm_wgmma_kernel<SFC_GLU != 0, SFC_ACT, kWide>, opted_wide, ctas, s, ma, mb, ma,
+                             mg, p);
+  return wg::launch<kNarrow>(&sfc_gemm_wgmma_kernel<SFC_GLU != 0, SFC_ACT, kNarrow>, opted_narrow, ctas, s, ma, mb,
+                             ma, mg, p);
+#endif
+}
+
+#if !SFC_ABFT
+extern "C" int SFC_WGMMA_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
+                               const void* gate_bias, const void* residual, void* out, void* out_gate,
+                               const int* tab, int tiles, int batch, int b_batched, int M, int N, int K, int wide,
+                               int ctas, int group, int has_scale, float out_scale, void* stream) {
+  return wgmma_entry(a, b, b_gate, bias, gate_bias, residual, out, out_gate, tab, tiles, batch, b_batched, M, N, K,
+                     wide, ctas, group, has_scale, out_scale, nullptr, stream);
+}
+#else
+extern "C" int SFC_WGMMA_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
+                               const void* gate_bias, const void* residual, void* out, void* out_gate,
+                               const int* tab, int tiles, int batch, int b_batched, int M, int N, int K, int wide,
+                               int ctas, int group, int has_scale, float out_scale, float* chk, void* stream) {
+  return wgmma_entry(a, b, b_gate, bias, gate_bias, residual, out, out_gate, tab, tiles, batch, b_batched, M, N, K,
+                     wide, ctas, group, has_scale, out_scale, chk, stream);
+}
+#endif
+#endif  // SFC_DTYPE == 1 && SFC_WGMMA_ENTRY
+
 #if SFC_DTYPE == 1 && defined(SFC_CLUSTER_ENTRY)
 // One launch of the cluster kernel (K1 at M <= 16): n_tasks clusters of
 // `layers` CTAs over the (2, n_tasks) table of gemm_spec(1, nb), CTA l of
@@ -1987,6 +2126,49 @@ extern "C" int SFC_NT_ENTRY(const void* a, const void* b, const void* a2, const 
     nt_kernel<ElemT, false><<<(unsigned)n_tasks, kThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
+
+#if SFC_DTYPE == 1 && defined(SFC_NT_WGMMA_ENTRY)
+// NT on the wgmma kernel: out (R, C) = a (R, D) @ b (C, D)^T [+ a2 @ b2^T
+// when a2 is non-null], bf16, `ctas` persistent CTAs over the (2, tiles)
+// table of the 128 x 128 output tiles (`wide`: 128 x 256), each a
+// contiguous segment of it.  D a multiple of 8 and every operand 16-byte
+// aligned, as TMA needs.  Returns the launch's CUDA error.
+extern "C" int SFC_NT_WGMMA_ENTRY(const void* a, const void* b, const void* a2, const void* b2, void* out,
+                                  const int* tab, int tiles, int R, int C, int D, int wide, int ctas, int group,
+                                  void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  if ((a2 == nullptr) != (b2 == nullptr)) return kInvalid;
+  if (R < 1 || C < 1 || D < 1 || D % 8 != 0 || tiles < 1) return kInvalid;
+  if (!wg::aligned16(a) || !wg::aligned16(b) || !wg::aligned16(a2) || !wg::aligned16(b2)) return kInvalid;
+  wg::Params p = {};
+  p.tab = tab;
+  p.tiles = tiles;
+  p.n_tasks = tiles;
+  p.M = R;
+  p.N = C;
+  p.K = D;
+  p.pairs = a2 != nullptr ? 2 : 1;
+  p.group = group;
+  p.pair_store = C % 2 == 0;
+  p.out = static_cast<wg::bf16*>(out);
+  constexpr int kNarrow = wg::kBN, kWide = 2 * wg::kBN;
+  const int bn = wide ? kWide : kNarrow;
+  CUtensorMap ma, mb, ma2, mb2;
+  int rc = wg::tensor_map(&ma, a, D, R, 1, wg::kBM);
+  if (rc == 0) rc = wg::tensor_map(&mb, b, D, C, 1, bn);
+  if (rc == 0 && a2 != nullptr) rc = wg::tensor_map(&ma2, a2, D, R, 1, wg::kBM);
+  if (rc == 0 && a2 != nullptr) rc = wg::tensor_map(&mb2, b2, D, C, 1, bn);
+  if (rc != 0) return rc;
+  if (a2 == nullptr) {
+    ma2 = ma;
+    mb2 = mb;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool opted_narrow[kMaxDevices] = {}, opted_wide[kMaxDevices] = {};
+  if (wide) return wg::launch<kWide>(&nt_wgmma_kernel<kWide>, opted_wide, ctas, s, ma, mb, ma2, mb2, p);
+  return wg::launch<kNarrow>(&nt_wgmma_kernel<kNarrow>, opted_narrow, ctas, s, ma, mb, ma2, mb2, p);
+}
+#endif  // SFC_DTYPE == 1 && SFC_NT_WGMMA_ENTRY
 
 // TN: out (R, C) = a (D, R)^T @ b (D, C) [and out2 = a^T @ b2 when out2 is
 // non-null; b2 may then be null only for an empty contraction, D == 0,

@@ -204,8 +204,10 @@ def resolve_knobs(
 ) -> Tuple[int, int, int, int]:
     """(bm, bn, k_layers, k_block_factor) for one launch.
 
-    On a CUDA device the tile is the kernel's compiled one and an explicit
-    other ``bm``/``bn`` is an error; on the CPU unset blocks come from
+    On a CUDA device the tile is the tile kernels' compiled one and an
+    explicit other ``bm``/``bn`` is an error (the cluster kernel's K layers
+    and the wgmma kernels' tile are the wrappers' choice, from the shape and
+    the SM count, whatever these knobs say); on the CPU unset blocks come from
     `pick_blocks`.  Unset K knobs are `knob_defaults`'s, else 1: there is
     no tune cache or perf model yet (ROADMAP queue 1 item 13).  The fused
     kernels ignore them on the card; the replicated form's grid is

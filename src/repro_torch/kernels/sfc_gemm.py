@@ -21,8 +21,9 @@ instead.  ``sfc_gemm_nt`` (C = A@Bᵀ, the dA of a projection) and
 ``sfc_gemm_tn`` (C = Aᵀ@B, its dW) read the stored operands with swapped
 roles, so no transposed copy is made.  A tensor on the
 CPU goes to the plain version, ``sfc_gemm_fused_plain``; a CUDA tensor goes
-to the hand-written kernel in ``csrc/sfc_gemm_fused.cu`` or the call
-raises.  There is no fallback from one to the other.
+to a hand-written kernel in ``csrc/sfc_gemm_fused.cu`` (bf16 past 16 rows:
+the persistent wgmma + TMA kernels of ``csrc/sfc_gemm_wgmma.cuh``) or the
+call raises.  There is no fallback from one to the other.
 
 Each kernel and its plain version walk the C tiles in the order of the
 gilbert task table that ``core.schedule.compile_schedule(gemm_spec(mb,
@@ -77,7 +78,7 @@ from __future__ import annotations
 import collections
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +99,11 @@ __all__ = [
     "layer_slab",
     "cluster_layers",
     "uses_cluster_kernel",
+    "WgmmaLaunch",
+    "wgmma_grid",
+    "wgmma_launch",
+    "uses_wgmma_kernel",
+    "uses_nt_wgmma_kernel",
     "sfc_gemm_nt",
     "sfc_gemm_nt_plain",
     "sfc_gemm_tn",
@@ -376,8 +382,93 @@ def cluster_layers(k: int, n: int, sm_count: int) -> int:
 def uses_cluster_kernel(a: torch.Tensor) -> bool:
     """Whether `sfc_gemm_fused` launches the cluster kernel for this A on
     the card: the plain mode (2-D), 1 to ``build.SPLIT_MAX_ROWS`` rows,
-    bf16; every other A takes the 64 x 64 tile kernel."""
+    bf16; every other A takes the wgmma kernel (`uses_wgmma_kernel`) or the
+    64 x 64 tile kernel."""
     return a.ndim == 2 and 1 <= a.shape[0] <= build.SPLIT_MAX_ROWS and a.dtype == torch.bfloat16
+
+
+class WgmmaLaunch(NamedTuple):
+    """The wgmma kernels' launch configuration (`wgmma_launch`)."""
+
+    wide: bool  # the 128 x 256 C tile (the GLU's 128 x 128) in place of 128 x 128 (64)
+    mb: int  # C tile rows and columns of one batch element: the table is gemm_spec(mb, nb)'s
+    nb: int
+    ctas: int  # persistent CTAs, one an SM
+    group: int  # CTAs of a worker: a worker walks one contiguous segment, its CTAs taking its tasks in turn
+
+
+# a wide tile's time in narrow tiles' (twice the work, read at 85 flops a
+# byte of L2 in place of 64): 1.41-1.42 where both tiles fill an H100
+# (qwen3-4b's GLU and its w_out dA at 512 rows, scripts/wgmma_sweep.py)
+_WIDE_TILE_COST = 1.45
+
+
+def wgmma_grid(rows: int, n: int, glu: bool = False, wide: bool = False) -> tuple:
+    """(mb, nb): the wgmma kernel's C tiles over ``rows`` x ``n`` outputs,
+    128 x 128, or ``wide`` 128 x 256; the GLU's are half as wide (B's
+    columns beside the same ones of B_gate a stage)."""
+    bm, bn = build.WGMMA_TILE
+    cols = bn * (2 if wide else 1) // (2 if glu else 1)
+    return math.ceil(rows / bm), math.ceil(n / cols)
+
+
+def wgmma_launch(rows: int, n: int, sm_count: int, glu: bool = False, batch: int = 1) -> WgmmaLaunch:
+    """The launch configuration of the wgmma kernels for ``batch`` x
+    ``rows`` x ``n`` outputs on ``sm_count`` SMs: the tile, the CTAs and
+    the CTAs of a worker.  The CTAs are min(tasks, SMs), one an SM.  A
+    worker walks one contiguous segment of the tasks
+    (`core.decomposition.partition_curve` over the workers); where a CTA
+    has more than one task, a worker is a group of min(4, mb, CTAs) CTAs
+    that take its segment's tasks in turn, so the neighbouring tiles of the
+    curve run at once and read their shared A and B panels from L2 once
+    (qwen3-4b's LM head: 1.165 → 0.792 ms, scripts/wgmma_sweep.py).  The
+    wide tile is taken where its modelled time, ceil(tasks / CTAs) x 1.45,
+    is under the narrow tile's, ceil(tasks / CTAs): where the wide tiles
+    still fill the card (qwen3-4b's GLU, LM head and w_out dA at 512 rows),
+    not where halving the tiles would leave SMs idle.  A pure function of
+    the shape and the SM count, not a knob."""
+    best, best_cost = None, None
+    for wide in (False, True):
+        mb, nb = wgmma_grid(rows, n, glu, wide)
+        tasks = batch * mb * nb
+        ctas = min(tasks, sm_count)
+        group = min(4, mb, ctas) if tasks > ctas else 1
+        ctas -= ctas % group
+        cost = math.ceil(tasks / ctas) * (_WIDE_TILE_COST if wide else 1.0)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = WgmmaLaunch(wide, mb, nb, ctas, group), cost
+    return best
+
+
+def _tile_name(cfg: WgmmaLaunch, glu: bool) -> str:
+    """The launch counters' name of a wgmma launch's C tile, "128x128"."""
+    bm, bn = build.WGMMA_TILE
+    return f"{bm}x{bn * (2 if cfg.wide else 1) // (2 if glu else 1)}"
+
+
+def _tma_rows(cols: int, *tensors: Optional[torch.Tensor]) -> bool:
+    """Rows of ``cols`` bf16 elements, and the bases of the given tensors,
+    lie on 16-byte boundaries: what a TMA tensor map can describe."""
+    return cols > 0 and cols % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def uses_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, b_gate: Optional[torch.Tensor] = None) -> bool:
+    """Whether `sfc_gemm_fused` launches the wgmma kernel for these
+    operands on the card: bf16, every A that the cluster kernel does not
+    take (batched, or more than ``build.SPLIT_MAX_ROWS`` rows), and rows TMA
+    can describe (K and N multiples of 8, A, B and B_gate 16-byte aligned).
+    Every other call takes the 64 x 64 tile kernel."""
+    if a.dtype != torch.bfloat16 or uses_cluster_kernel(a):
+        return False
+    return _tma_rows(a.shape[-1], a) and _tma_rows(b.shape[-1], b, b_gate)
+
+
+def uses_nt_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, a2: Optional[torch.Tensor] = None,
+                         b2: Optional[torch.Tensor] = None) -> bool:
+    """Whether `sfc_gemm_nt` launches the wgmma kernel on the card: bf16 and
+    a contraction whose rows TMA can describe (a multiple of 8, every
+    operand 16-byte aligned); else the 64 x 64 NT tile kernel."""
+    return a.dtype == torch.bfloat16 and _tma_rows(a.shape[1], a, b, a2, b2)
 
 
 def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, bm, bn, out_dtype, shape,
@@ -393,6 +484,9 @@ def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, b
     if uses_cluster_kernel(a):
         return _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, activation=activation,
                                out_scale=out_scale, abft=abft)
+    if uses_wgmma_kernel(a, b, b_gate):
+        return _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, activation=activation,
+                             out_scale=out_scale, shape=shape, abft=abft)
     lib = build.load_library()
     fn = getattr(lib, build.entry_name(_dtype_name(a), b_gate is not None, activation, abft))
     mb, nb = math.ceil(m / bm), math.ceil(n / bn)
@@ -453,6 +547,36 @@ def _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, a
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
 
+def _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, activation, out_scale, shape, abft):
+    """The wgmma kernel (K2, and K1 past the cluster kernel's rows):
+    persistent clusters over contiguous segments of the tasks.  Shared
+    weights fold the batch into the rows; per-batch weights walk each batch
+    element's tiles in turn."""
+    batch, m, k, n, b_batched = shape
+    glu = b_gate is not None
+    tb, rows = (batch, m) if b_batched else (1, max(batch, 1) * m)
+    cfg = wgmma_launch(rows, n, sm_count(a.device), glu, tb)
+    mb, nb = cfg.mb, cfg.nb
+    tab = _device_table(mb, nb, a.device)
+    parts = torch.empty(tb * mb * nb, dtype=torch.float32, device=a.device) if abft else None
+    fn = getattr(build.load_library(), build.wgmma_entry_name(glu, activation, abft))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(
+            a.data_ptr(), b.data_ptr(), _ptr(b_gate), _ptr(bias), _ptr(gate_bias), _ptr(residual),
+            out.data_ptr(), _ptr(out_gate),
+            tab.data_ptr(), mb * nb, tb, int(b_batched),
+            rows, n, k,
+            int(cfg.wide), cfg.ctas, cfg.group,
+            int(out_scale is not None), float(out_scale if out_scale is not None else 1.0),
+            *((parts.data_ptr(),) if abft else ()), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sfc_gemm_fused wgmma kernel launch failed with CUDA error {rc}")
+    _count(batch, m, k, n, glu, abft, ("sfc_gemm_wgmma_kernel", _tile_name(cfg, glu)))
+    return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
+
+
 def sfc_gemm_fused(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -480,18 +604,23 @@ def sfc_gemm_fused(
     pair (A@B + bias, A@B_gate + gate_bias) from the one traversal of A:
     the training forward's ``_FusedSpec.preact_out``.
 
-    On a CUDA tensor this launches the kernel, whose C tile is fixed at
-    compile time: ``bm``/``bn`` must be `kernel_tile()`.  A plain-mode bf16
-    A of at most 16 rows (`uses_cluster_kernel`: every decode projection)
+    On a CUDA tensor this launches a kernel; ``bm``/``bn`` must be
+    `kernel_tile()`, the tile kernel's compiled tile.  A plain-mode bf16 A
+    of at most 16 rows (`uses_cluster_kernel`: every decode projection)
     takes the cluster kernel, each 64-column C tile split over
     `cluster_layers` K slabs (`layer_slab`) summed in layer order inside
-    the launch; every other A the 64 x 64 tile kernel with the whole K
-    range in one loop.  ``k_layers``/``k_block_factor`` only order the
-    plain version's sum.  Every launch adds one to
-    ``sfc_gemm_fused.launches``, to ``launches_by_shape`` under
-    ``(batch, M, K, N, glu)`` (batch 0 for the plain mode) and to
-    ``launches_by_kernel`` under ("sfc_gemm_cluster_kernel", L) or
-    ("sfc_gemm_fused_kernel", 1).  On a CPU tensor it runs
+    the launch; every other bf16 call whose rows TMA can describe
+    (`uses_wgmma_kernel`: the prefill and training forward) the wgmma
+    kernel, persistent CTAs over contiguous segments of the curve, whose
+    tile (128 x 128 or 128 x 256) and CTAs (`wgmma_launch`) the wrapper
+    chooses from the shape and the SM count; the rest (f32, ragged rows)
+    the 64 x 64 tile kernel with the whole K range in one loop.
+    ``k_layers``/``k_block_factor`` only order the plain version's sum.
+    Every launch adds one to ``sfc_gemm_fused.launches``, to
+    ``launches_by_shape`` under ``(batch, M, K, N, glu)`` (batch 0 for the
+    plain mode) and to ``launches_by_kernel`` under
+    ("sfc_gemm_cluster_kernel", L), ("sfc_gemm_wgmma_kernel", its C
+    tile, e.g. "128x128") or ("sfc_gemm_fused_kernel", 1).  On a CPU tensor it runs
     `sfc_gemm_fused_plain` and counts nothing.
 
     ``abft`` runs the kernel with its checksum lane (the TPU kernel's
@@ -1035,10 +1164,16 @@ def sfc_gemm_nt(
     """C = A @ Bᵀ (+ A2 @ B2ᵀ) over the gilbert traversal of C's tiles: the
     dA backward GEMM (A = dC, B = the forward weight as stored).
 
-    On a CUDA tensor this launches the NT kernel (tile `kernel_tile()`, the
-    whole contraction in one CTA loop, ragged edges masked) and adds one to
-    ``sfc_gemm_nt.launches`` and to ``launches_by_shape[(M, N, K, dual)]``.
-    On a CPU tensor it runs `sfc_gemm_nt_plain` and counts nothing."""
+    On a CUDA tensor this launches a kernel; ``bm``/``bn`` must be
+    `kernel_tile()`.  A bf16 call whose contraction rows TMA can describe
+    (`uses_nt_wgmma_kernel`) takes the wgmma NT kernel, whose tile and CTAs
+    (`wgmma_launch`) the wrapper chooses; the rest the 64 x 64 NT tile
+    kernel (the whole contraction in one CTA loop, ragged edges masked).
+    Every launch adds one to ``sfc_gemm_nt.launches``, to
+    ``launches_by_shape[(M, N, K, dual)]`` and to ``launches_by_kernel``
+    under ("nt_wgmma_kernel", its C tile, e.g. "128x128") or ("nt_kernel",
+    1).  On a CPU tensor it runs `sfc_gemm_nt_plain` and
+    counts nothing."""
     m, n, k = _check_nt(a, b, a2, b2)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
@@ -1050,12 +1185,33 @@ def sfc_gemm_nt(
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
-    # an empty contraction (k == 0) still launches: the CTAs flush zeros
-    _launch_bwd("nt", a, b, (a2, b2), out, None, rows=m, cols=n, depth=k,
-                vec_a=_rows_vec(k, a, a2), vec_b=_rows_vec(k, b, b2))
+    if uses_nt_wgmma_kernel(a, b, a2, b2):
+        kernel = ("nt_wgmma_kernel", _launch_nt_wgmma(a, b, a2, b2, out))
+    else:
+        # an empty contraction (k == 0) still launches: the CTAs flush zeros
+        _launch_bwd("nt", a, b, (a2, b2), out, None, rows=m, cols=n, depth=k,
+                    vec_a=_rows_vec(k, a, a2), vec_b=_rows_vec(k, b, b2))
+        kernel = ("nt_kernel", 1)
     sfc_gemm_nt.launches += 1
     sfc_gemm_nt.launches_by_shape[(m, n, k, a2 is not None)] += 1
+    sfc_gemm_nt.launches_by_kernel[kernel] += 1
     return out
+
+
+def _launch_nt_wgmma(a, b, a2, b2, out) -> str:
+    """One launch of the wgmma NT kernel; returns its tile's name."""
+    m, n = a.shape[0], b.shape[0]
+    cfg = wgmma_launch(m, n, sm_count(a.device))
+    mb, nb = cfg.mb, cfg.nb
+    tab = _device_table(mb, nb, a.device)
+    fn = getattr(build.load_library(), build.bwd_entry_name("nt_wgmma", "bf16"))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(a2), _ptr(b2), out.data_ptr(), tab.data_ptr(), mb * nb, m, n,
+                a.shape[1], int(cfg.wide), cfg.ctas, cfg.group, stream)
+    if rc != 0:
+        raise RuntimeError(f"sfc_gemm_nt wgmma kernel launch failed with CUDA error {rc}")
+    return _tile_name(cfg, False)
 
 
 def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: bool, rows: int, cols: int,
@@ -1190,6 +1346,7 @@ def sfc_gemm_tn(
 
 sfc_gemm_nt.launches = 0
 sfc_gemm_nt.launches_by_shape = collections.Counter()
+sfc_gemm_nt.launches_by_kernel = collections.Counter()
 sfc_gemm_tn.launches = 0
 sfc_gemm_tn.abft_launches = 0
 sfc_gemm_tn.launches_by_mode = collections.Counter()

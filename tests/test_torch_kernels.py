@@ -17,6 +17,7 @@ On a machine without a card the tests marked ``cuda`` skip.
 """
 
 import dataclasses
+import math
 import re
 from pathlib import Path
 
@@ -1005,3 +1006,221 @@ def test_abft_lanes_match_plain_versions_on_card(dtype):
     nnorms, nchk = tk.sfc_gemm_tn(x, dc, norm=True, abft=True)
     assert torch.equal(nnorms, tk.sfc_gemm_tn(x, dc, norm=True))
     close(nchk[0, 0], plain[-1][0, 0], abft.tn_checksum_ref(x, dc)[1], 77, x.float().T @ dc.float())
+
+
+# ---------------------------------------------------------------------------
+# the wgmma kernels: K2 (sfc_gemm_wgmma_kernel, its lane twin) and K7
+# (nt_wgmma_kernel), csrc/sfc_gemm_wgmma.cuh
+# ---------------------------------------------------------------------------
+
+WGMMA_SOURCE = CU_SOURCE.with_name("sfc_gemm_wgmma.cuh")
+
+
+def test_wgmma_constants_and_entries_match_the_compiled_sources():
+    """build.WGMMA_TILE / WGMMA_BK are the header's; every bf16 forward
+    part and its lane twin hold a wgmma entry of their own, the bf16
+    backward part the NT one; the f32 parts hold none."""
+    src = WGMMA_SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert build.WGMMA_TILE == (const("kBM"), const("kBN")) and build.WGMMA_BK == const("kBK")
+    gemm = CU_SOURCE.read_text()
+    assert 'extern "C" int SFC_WGMMA_ENTRY(' in gemm and 'extern "C" int SFC_NT_WGMMA_ENTRY(' in gemm
+    assert '#include "sfc_gemm_wgmma.cuh"' in gemm
+    parts = dict(build._gemm_parts())
+    names = set()
+    for glu in (False, True):
+        for act in build.ACTIVATION_CODES:
+            for abft in (False, True):
+                name = build.wgmma_entry_name(glu, act, abft)
+                assert f"-DSFC_WGMMA_ENTRY={name}" in parts[build.entry_name("bf16", glu, act, abft)]
+                assert not any(f.startswith("-DSFC_WGMMA_ENTRY") for f in parts[build.entry_name("f32", glu, act, abft)])
+                names.add(name)
+    assert len(names) == 16 and build.wgmma_entry_name(True, "silu", True) == "sfc_gemm_wgmma_abft_bf16_glu1_act1"
+    assert f"-DSFC_NT_WGMMA_ENTRY={build.bwd_entry_name('nt_wgmma', 'bf16')}" in parts["sfc_gemm_bwd_bf16"]
+    assert not any("NT_WGMMA" in f for f in parts["sfc_gemm_bwd_f32"])
+    with pytest.raises(ValueError):
+        build.bwd_entry_name("nt_wgmma", "f32")
+
+
+def _chip_smoke():
+    import importlib.util
+    import sys
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_limits", Path(__file__).resolve().parents[1]
+                                                  / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = cs  # dataclasses look their module up here
+    spec.loader.exec_module(cs)
+    return cs
+
+
+# (lead batch dims, M, K, N, GLU, per-batch B, flags, epilogue keywords):
+# qwen3-4b's 512-row prefill and training shapes (the GLU takes the wide
+# tile), and ragged ones whose TMA boxes run past every edge
+WGMMA_CASES = {
+    "prefill_q": ((4,), 128, 2560, 4096, False, False, (), dict()),
+    "prefill_kv_bias_residual_scale": ((4,), 128, 2560, 1024, False, False, ("bias", "res"),
+                                       dict(activation="relu", out_scale=0.5)),
+    "prefill_glu_silu": ((4,), 128, 2560, 9728, True, False, (), dict(activation="silu")),
+    "train_glu_preact_biases": ((2,), 256, 2560, 9728, True, False, ("bias", "gbias"), dict(preact=True)),
+    "prefill_w_out": ((4,), 128, 9728, 2560, False, False, (), dict()),
+    "plain_m200_every_flag_ragged": ((), 200, 264, 328, True, False, ("bias", "gbias", "res"),
+                                     dict(activation="gelu", out_scale=0.7)),
+    "batched_ragged_preact": ((3,), 77, 264, 328, True, False, ("bias", "gbias"), dict(preact=True)),
+    "per_batch_weights_ragged": ((3,), 77, 264, 328, False, True, ("bias", "res"), dict(out_scale=2.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_wgmma_kernel_matches_plain_version_on_card(case):
+    """The wgmma kernel against its plain version at the main path's
+    shapes and ragged ones (shared and per-batch B, every epilogue flag,
+    the GLU's preact), the tile `wgmma_launch` chooses; its lane twin's
+    outputs bitwise the kernel's and its lane within chip_smoke.py's
+    `lane_limit` over the kernel's own tiles, where a lane of 0 or less its
+    last tile misses it."""
+    _card()
+    from repro_torch.robust import abft
+
+    cs = _chip_smoke()
+    lead, m, k, n, glu, per_batch, flags, kw = WGMMA_CASES[case]
+    rng = np.random.default_rng(31)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to("cuda", torch.bfloat16)
+
+    a = r(*lead, m, k)
+    b = r(*lead, k, n, scale=0.05) if per_batch else r(k, n, scale=0.05)
+    bg = r(k, n, scale=0.05) if glu else None
+    args = (a, b, bg, r(n) if "bias" in flags else None, r(1, n) if "gbias" in flags else None,
+            r(*lead, m, n) if "res" in flags else None)
+    assert tk.uses_wgmma_kernel(a, b, bg)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = m if per_batch else m * math.prod(lead)
+    cfg = tk.wgmma_launch(rows, n, sms, glu, lead[0] if per_batch else 1)
+    tile = f"128x{128 * (2 if cfg.wide else 1) // (2 if glu else 1)}"
+    got, key = cs.launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: tk.sfc_gemm_fused(*args, **kw))
+    torch.cuda.synchronize()
+    assert key == ("sfc_gemm_wgmma_kernel", tile)
+    want = tk.sfc_gemm_fused_plain(*args, bm=64, bn=64, **kw)
+    got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, w in zip(got_t, want_t):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _agree(g, w, torch.bfloat16)
+    on = tk.sfc_gemm_fused(*args, abft=True, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(on[:-1], got_t))
+    plain = tk.sfc_gemm_fused_plain(*args, bm=64, bn=64, abft=True, **kw)
+    raws = [torch.matmul(a.float(), b.float())] + ([a.float() @ bg.float()] if glu else [])
+    if per_batch:  # each batch element's tiles in turn: fold nothing
+        tiles = cs.raw_tile_sums(torch, *raws, tile=(128, int(tile.split("x")[1])))
+    else:
+        tiles = cs.kernel_tiles(torch, "sfc_gemm_wgmma_kernel", tile, *raws)
+    limit = cs.lane_limit(tiles, abft.tolerance(abft.gemm_checksum_ref(a, b, bg)[1], k))
+    assert abs(float(on[-1]) - float(plain[-1])) <= limit
+    for name, wrong in cs._dropped(plain[-1], tiles).items():
+        assert abs(wrong - float(plain[-1])) > limit, name
+
+
+NT_WGMMA_CASES = {  # (M, K (the output's cols), N (the contraction), dual)
+    "q": (512, 2560, 4096, False),
+    "glu_dual": (512, 2560, 9728, True),
+    "w_out_wide": (512, 9728, 2560, False),
+    "head": (512, 2560, 151936, False),
+    "ragged_odd_cols_dual": (200, 203, 264, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(NT_WGMMA_CASES))
+def test_nt_wgmma_kernel_matches_plain_version_on_card(case):
+    """The wgmma NT kernel (dA = dC W^T [+ dC2 W2^T]) against its plain
+    version: single and dual, the LM head's 151936-deep contraction, and
+    an output of odd width (its pairs stored one by one)."""
+    _card()
+    m, k, n, dual = NT_WGMMA_CASES[case]
+    rng = np.random.default_rng(32)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to("cuda", torch.bfloat16)
+
+    args = (r(m, n), r(k, n, scale=0.02)) + ((r(m, n), r(k, n, scale=0.02)) if dual else ())
+    assert tk.uses_nt_wgmma_kernel(*args)
+    cfg = tk.wgmma_launch(m, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    got, key = _chip_smoke().launched(tk.sfc_gemm_nt.launches_by_kernel, lambda: tk.sfc_gemm_nt(*args))
+    torch.cuda.synchronize()
+    assert key == ("nt_wgmma_kernel", f"128x{256 if cfg.wide else 128}")
+    want = tk.sfc_gemm_nt_plain(*args, bm=64, bn=64)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, k)
+    assert _agree(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
+    """The wgmma kernels keep no counter or queue on the device (each CTA's
+    segment comes from its index): a captured graph of the forward (wide
+    GLU, narrow tile with its lane) and the dual NT, replayed three times,
+    gives the eager outputs bitwise every time, and the launch counters
+    count the capture only."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    a = torch.randn((4, 128, 2560), generator=gen, device="cuda").bfloat16()
+    w, wg = ((torch.randn((2560, 9728), generator=gen, device="cuda") * 0.02).bfloat16() for _ in range(2))
+    wkv = (torch.randn((2560, 1024), generator=gen, device="cuda") * 0.02).bfloat16()
+    dc = torch.randn((512, 9728), generator=gen, device="cuda").bfloat16()
+
+    def step():
+        return (tk.sfc_gemm_fused(a, w, wg, activation="silu"), tk.sfc_gemm_fused(a, wkv, abft=True),
+                tk.sfc_gemm_nt(dc, w, dc, wg))
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    counts = (tk.sfc_gemm_fused.launches, tk.sfc_gemm_nt.launches)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[2], eager[2])
+        assert all(torch.equal(x, y) for x, y in zip(out[1], eager[1]))
+    assert (tk.sfc_gemm_fused.launches, tk.sfc_gemm_nt.launches) == counts
+
+
+@pytest.mark.cuda
+def test_calls_the_wgmma_predicates_refuse_land_on_the_tile_kernels_on_card():
+    """K 203 (rows TMA cannot describe), f32, a base off a 16-byte
+    boundary and the grouped mode keep their old kernels, by
+    ``launches_by_kernel``."""
+    _card()
+    cs = _chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    fused, nt = tk.sfc_gemm_fused.launches_by_kernel, tk.sfc_gemm_nt.launches_by_kernel
+    flat = r(3 * 77 * 264 + 8)
+    shifted = flat[1:1 + 3 * 77 * 264].view(3, 77, 264)  # 2 bytes past a 16-byte boundary
+    for a, b in ((r(3, 77, 203), r(203, 328)), (r(3, 77, 264, dtype=torch.float32), r(264, 328, dtype=torch.float32)),
+                 (shifted, r(264, 328))):
+        assert not tk.uses_wgmma_kernel(a, b)
+        assert cs.launched(fused, lambda: tk.sfc_gemm_fused(a, b))[1] == ("sfc_gemm_fused_kernel", 1)
+    for dtype, n in ((torch.bfloat16, 203), (torch.float32, 264)):
+        a, b = r(77, n, dtype=dtype), r(133, n, dtype=dtype)
+        assert not tk.uses_nt_wgmma_kernel(a, b)
+        assert cs.launched(nt, lambda: tk.sfc_gemm_nt(a, b))[1] == ("nt_kernel", 1)
+    before = (dict(fused), dict(nt), tk.sfc_gemm_grouped.launches, tk.sfc_gemm_grouped_nt.launches)
+    x, w = r(56, 264), (r(4, 264, 328) * 0.05).contiguous()
+    tk.sfc_gemm_grouped(x, w, group_sizes=(5, 0, 19, 32))
+    tk.sfc_gemm_grouped_nt(r(56, 328), w, group_sizes=(5, 0, 19, 32))
+    torch.cuda.synchronize()
+    assert (dict(fused), dict(nt)) == before[:2]
+    assert (tk.sfc_gemm_grouped.launches, tk.sfc_gemm_grouped_nt.launches) == (before[2] + 1, before[3] + 1)

@@ -210,3 +210,20 @@ def test_lane_limit_holds_a_reordered_lane_and_misses_a_faulty_one(kernel):
             wrong["after_epilogue"] = out.float().sum()
         for name, v in wrong.items():
             assert abs(float(v) - float(lane)) > limit, (kernel, str(dt), name)
+
+
+def test_kernel_tiles_are_the_tiles_each_lane_sums():
+    """chip_smoke.py's `kernel_tiles`: for the wgmma kernel the batch folds
+    into the rows (shared weights) and the blocks are its C tile ("128x64",
+    a narrow GLU tile), against a loop; every other kernel's are
+    `raw_tile_sums`'s 64 x 64 blocks of each batch element."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    g = torch.Generator().manual_seed(7)
+    c, d = torch.randn(3, 77, 130, generator=g), torch.randn(3, 77, 130, generator=g)
+    flat = (c + d).reshape(231, 130)
+    want = [flat[r:r + 128, q:q + 64].sum() for r in range(0, 231, 128) for q in range(0, 130, 64)]
+    torch.testing.assert_close(cs.kernel_tiles(torch, "sfc_gemm_wgmma_kernel", "128x64", c, d), torch.stack(want),
+                               rtol=1e-6, atol=1e-5)
+    for name, config in (("sfc_gemm_fused_kernel", 1), ("sfc_gemm_cluster_kernel", 4)):
+        assert torch.equal(cs.kernel_tiles(torch, name, config, c, d), cs.raw_tile_sums(torch, c, d))
+    assert cs.plain_layers("sfc_gemm_cluster_kernel", 4) == 4 and cs.plain_layers("sfc_gemm_wgmma_kernel", "128x64") == 1
