@@ -39,8 +39,12 @@ phase 3 three) and raising on failure:
               (K15); the decode attention (K14, batch x Hkv clusters of S CTAs,
               one a cache segment; its plain version over the same S
               segments) at the serve's cache and at a 4096-row cache; the
-              flash backward (K12 dQ, K13 dK/dV) at the
-              training shape and a ragged GQA f32 case with S != T; the
+              flash backward (K12 dQ, K13 dK/dV) at the training shape and
+              at 1 x 2048 tokens (bf16: the wgmma kernels, K13 a cluster of
+              CTAs, each a part of the GQA group's q heads, against the
+              plain version summing those parts in turn) and a ragged GQA
+              f32 case with S != T (the 64 x 64 tile kernels), each row
+              naming its kernel and configuration; the
               grouped MoE kernels K3 (forward: GLU with silu in the flush,
               GLU preact, w_out), K9 (dA) and K10 (dW) at every olmoe-1b-7b
               shape (64 experts; decode 32, prefill and training 80 rows an
@@ -110,7 +114,9 @@ phase 3 three) and raising on failure:
               layers, bf16, AdamW on f32 master weights) for 3 steps of
               2 x 256 SyntheticLM tokens under sfc_cuda + attn_impl="sfc",
               with exactly 217 K1/K2, 217 K7, 217 K8, 36 K11, 36 K12 and 36
-              K13 launches per step, then the same 3 steps from the same
+              K13 launches per step (every K12 and K13 one on the wgmma
+              kernels; the f32 gradient check's on the tile kernels), then
+              the same 3 steps from the same
               init under torch + blockwise: every loss finite and within
               2^-7 of the torch backend's, every parameter changed; step
               times and peak memory, and a fourth step of each run under
@@ -1117,10 +1123,19 @@ class AttnBwd:
     causal: bool = True
     q_offset: int = 0
     main_path: bool = True
+    timed: bool = True
 
     def pairs(self) -> int:
         return Attn("", "sfc_flash_fwd", self.b, self.s, self.t, self.h, self.hkv, self.d, self.causal,
                     self.q_offset).pairs()
+
+    def kernels(self):
+        """The (K12, K13) CUDA kernels a call at this case launches: the
+        wgmma kernels for bf16 (`uses_bwd_wgmma_kernel`: these cases' head
+        dims, groups and layouts), the 64 x 64 tile kernels for f32."""
+        if self.dtype == "bfloat16":
+            return "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"
+        return "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
 
     def bound(self, kernel: str, elem: int):
         """K12 reads q, k, v, dO, lse and delta and writes dQ, with 6 D flops
@@ -1141,16 +1156,21 @@ def attention_bwd_cases(cfg):
     heads = dict(h=cfg.n_heads, hkv=cfg.kv_heads, d=cfg.head_dim_)
     return [
         AttnBwd("train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, dtype="bfloat16", **heads),
-        AttnBwd("ragged_gqa_f32", 1, 190, 250, dtype="float32", q_offset=60, main_path=False, **heads),
+        # off the main path: one 2048-token sequence, where the band's flops,
+        # not its bytes, bound the kernels
+        AttnBwd("band_2048", 1, 2048, 2048, dtype="bfloat16", main_path=False, **heads),
+        AttnBwd("ragged_gqa_f32", 1, 190, 250, dtype="float32", q_offset=60, main_path=False, timed=False, **heads),
     ]
 
 
 def phase_attention_bwd(torch, cases, tsa, build):
-    """K12 and K13 against their plain versions, the main case timed beside
-    its bound and the backward of scaled_dot_product_attention (a yardstick
-    the port never calls: one graph of SDPA forward and backward, less one
-    of the forward alone; it computes dQ, dK and dV together, so K12 and
-    K13 share it)."""
+    """K12 and K13 against their plain versions (K13's in the kernel's
+    summation order: its cluster's parts of the GQA group in turn), each
+    launch on the CUDA kernel its case names
+    (`AttnBwd.kernels`), the timed cases beside their bound and the
+    backward of scaled_dot_product_attention (a yardstick the port never
+    calls: one graph of SDPA forward and backward, less one of the forward
+    alone; it computes dQ, dK and dV together, so K12 and K13 share it)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -1166,14 +1186,17 @@ def phase_attention_bwd(torch, cases, tsa, build):
         args = (q, k, v, do, lse, delta)
         qc, kc = tsa.kernel_chunks()
         dqc, dkc = build.ATTN_DKV_TILE[build.DTYPE_NAMES[c.dtype]]
+        # the plain versions take the launch's configuration: K13's, its CTAs
+        # a cluster, the parts of the group it sums in turn (1 on the tile kernel)
         kernels = {
             "sfc_flash_bwd_dq": (lambda i: tsa.sfc_flash_bwd_dq(*args, **kw),
-                                 lambda i: tsa.sfc_flash_bwd_dq_plain(*args, q_chunk=qc, k_chunk=kc, **kw)),
+                                 lambda i, cfg: tsa.sfc_flash_bwd_dq_plain(*args, q_chunk=qc, k_chunk=kc, **kw)),
             "sfc_flash_bwd_dkv": (lambda i: tsa.sfc_flash_bwd_dkv(*args, **kw),
-                                  lambda i: tsa.sfc_flash_bwd_dkv_plain(*args, q_chunk=dqc, k_chunk=dkc, **kw)),
+                                  lambda i, cfg: tsa.sfc_flash_bwd_dkv_plain(*args, q_chunk=dqc, k_chunk=dkc,
+                                                                             group_parts=cfg, **kw)),
         }
         lib_ms = None
-        if c.main_path:
+        if c.timed:
             views = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
             do_t = do.transpose(1, 2)
 
@@ -1184,21 +1207,25 @@ def phase_attention_bwd(torch, cases, tsa, build):
                 return torch.autograd.grad(sdpa(i), views, do_t)
 
             lib_ms = time_ms(sdpa_fwd_bwd, reps=20, graph=True) - time_ms(sdpa, reps=20, graph=True)
-        for name, (kernel, plain) in kernels.items():
-            got, want = kernel(0), plain(0)
+        for (name, (kernel, plain)), cuda_kernel in zip(kernels.items(), c.kernels()):
+            got, (launched_kernel, config) = launched(getattr(tsa, name).launches_by_kernel, lambda: kernel(0))
+            want = plain(0, config)
             torch.cuda.synchronize()
             ok, err, worst = within_all(got, want, dt)
-            checks.append({"case": f"{name}:{c.name}", "shape": c.shape(), "ok": ok, "max_abs_err": err,
-                           "err_over_bound": worst})
+            checks.append({"case": f"{name}:{c.name}", "shape": c.shape(), "kernel": launched_kernel,
+                           "config": config, "ok": ok, "max_abs_err": err, "err_over_bound": worst})
+            if launched_kernel != cuda_kernel:
+                raise AssertionError(f"{name} at {c} launched {launched_kernel}, expected {cuda_kernel}")
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version at {c}: max err {err}, "
                                      f"err/bound {worst}")
-            if not c.main_path:
+            if not c.timed:
                 continue
             bound_ms, bound_by = c.bound(name, 2)
-            rows.append(dict(case=c, kernel=name, max_abs_err=err, ms=time_ms(kernel, reps=20, graph=True),
-                             plain_ms=time_ms(plain, reps=2, warmup=1), library_ms=lib_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
+            rows.append(dict(case=c, kernel=name, cuda_kernel=launched_kernel, config=config, max_abs_err=err,
+                             ms=time_ms(kernel, reps=20, graph=True),
+                             plain_ms=time_ms(lambda i: plain(i, config), reps=2, warmup=1),
+                             library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by))
     return rows, checks
 
 
@@ -1213,9 +1240,13 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     backend with blockwise attention, within the bf16 bound; every
     projection weight (the router and the expert stacks included) must get
     a non-zero gradient."""
+    from repro_torch.kernels import sfc_attention as tsa
+
     cfg4 = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32")
     model = build_model(cfg4, device="cuda").init(torch.Generator(device="cuda").manual_seed(7))
     losses, grads = {}, {}
+    # the f32 cut's flash backward: every launch on the 64 x 64 tile kernels
+    bwd_before = [collections.Counter(f.launches_by_kernel) for f in (tsa.sfc_flash_bwd_dq, tsa.sfc_flash_bwd_dkv)]
     for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
         with gemm_backend(gemm), attention_backend(impl):
             loss = model.loss(batch)
@@ -1228,10 +1259,15 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
                if _is_projection(n) and (g is None or not bool(g.abs().max() > 0))]
     if missing:
         raise AssertionError(f"projection weights without a gradient under sfc_cuda: {missing}")
+    bwd_kernels = [by_kernel(collections.Counter(f.launches_by_kernel) - before)
+                   for f, before in zip((tsa.sfc_flash_bwd_dq, tsa.sfc_flash_bwd_dkv), bwd_before)]
+    if bwd_kernels != [{"flash_bwd_dq_kernel": layers}, {"flash_bwd_dkv_kernel": layers}]:
+        raise AssertionError(f"the f32 cut's flash backward launched {bwd_kernels}, expected the tile kernels")
     ok_loss, err_loss, worst_loss = within(losses["sfc_cuda+sfc_attn"], losses["torch"], torch.bfloat16)
     per_param = {n: within(g, grads["torch"][n], torch.bfloat16) for n, g in grads["sfc_cuda+sfc_attn"].items()}
     bad = {n: r for n, r in per_param.items() if not r[0]}
     out = {"arch": cfg.name, "layers": layers, "dtype": "float32", "tokens": list(batch["tokens"].shape),
+           "flash_bwd_launches_by_kernel": bwd_kernels,
            "loss": {"sfc_cuda+sfc_attn": float(losses["sfc_cuda+sfc_attn"]), "torch": float(losses["torch"]),
                     "ok": ok_loss, "err_over_bound": worst_loss},
            "params": len(per_param), "projections_with_gradient": sum(map(_is_projection, per_param)),
@@ -1334,7 +1370,8 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
 _KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("sfc_gemm_wgmma_kernel", "K2 wgmma"), ("nt_kernel", "K7"),
                   ("nt_wgmma_kernel", "K7 wgmma"), ("tn_kernel", "K8"),
                   ("tn_update_kernel", "K8 norm/update"), ("flash_fwd_kernel", "K11"),
-                  ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"))
+                  ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"),
+                  ("flash_bwd_dq_wgmma_kernel", "K12 wgmma"), ("flash_bwd_dkv_wgmma_kernel", "K13 wgmma"))
 # the MoE step's: the grouped kernels first, since "nt_kernel",
 # "tn_kernel" and "tn_update_kernel" are fragments of their names too
 _MOE_KERNEL_GROUPS = (("sfc_gemm_grouped_kernel", "K3"), ("grouped_nt_kernel", "K9"), ("grouped_tn_kernel", "K10"),
@@ -1391,10 +1428,12 @@ def _tn_mode_counts(counted):
 
 
 def _kernel_counts(counted):
-    """K1/K2's and K7's launches on their wgmma kernels and on the 64 x 64
-    tile kernels (the cluster kernel takes none of a training step's)."""
+    """K1/K2's, K7's, K12's and K13's launches on their wgmma kernels and on
+    the 64 x 64 tile kernels (the cluster kernel takes none of a training
+    step's)."""
     out = {}
-    for name, tile in (("sfc_gemm_fused", "sfc_gemm_fused_kernel"), ("sfc_gemm_nt", "nt_kernel")):
+    for name, tile in (("sfc_gemm_fused", "sfc_gemm_fused_kernel"), ("sfc_gemm_nt", "nt_kernel"),
+                       ("sfc_flash_bwd_dq", "flash_bwd_dq_kernel"), ("sfc_flash_bwd_dkv", "flash_bwd_dkv_kernel")):
         if name in counted:
             kernels = by_kernel(counted[name].launches_by_kernel)
             out[f"{name}:wgmma"] = sum(n for k, n in kernels.items() if "wgmma" in k)
@@ -1476,7 +1515,10 @@ def phase_train(torch, cfg, build_trainer, counted):
     optimizer, then under torch + blockwise.  Returns (summary, launches by
     shape of each sfc run)."""
     per_step = cfg.n_layers * 6 + 1
-    layers = {"sfc_flash_fwd": cfg.n_layers, "sfc_flash_bwd_dq": cfg.n_layers, "sfc_flash_bwd_dkv": cfg.n_layers}
+    # every K12 and K13 launch (bf16, D 128) on the wgmma kernels
+    layers = {"sfc_flash_fwd": cfg.n_layers, "sfc_flash_bwd_dq": cfg.n_layers, "sfc_flash_bwd_dkv": cfg.n_layers,
+              "sfc_flash_bwd_dq:wgmma": cfg.n_layers, "sfc_flash_bwd_dq:tile": 0,
+              "sfc_flash_bwd_dkv:wgmma": cfg.n_layers, "sfc_flash_bwd_dkv:tile": 0}
     # every K1/K2 and K7 launch (512 bf16 token rows) on the wgmma kernels
     want = {"sfc_gemm_fused": per_step, "sfc_gemm_nt": per_step, "sfc_gemm_tn": per_step, **layers,
             "sfc_gemm_tn:dw": per_step, "sfc_gemm_tn:norm": 0, "sfc_gemm_tn:update": 0,
@@ -2124,7 +2166,9 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
             "sfc_gemm_nt:tile": 0,
             "sfc_gemm_grouped": grouped, "sfc_gemm_grouped_nt": grouped, "sfc_gemm_grouped_tn": grouped,
             "sfc_gemm_grouped_tn:dw": grouped, "sfc_gemm_grouped_tn:norm": 0, "sfc_gemm_grouped_tn:update": 0,
-            "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers, "sfc_flash_bwd_dkv": n_layers}
+            "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers, "sfc_flash_bwd_dkv": n_layers,
+            "sfc_flash_bwd_dq:wgmma": n_layers, "sfc_flash_bwd_dq:tile": 0,
+            "sfc_flash_bwd_dkv:wgmma": n_layers, "sfc_flash_bwd_dkv:tile": 0}
     # the fused step: K8 and K10 run their norm mode in the backward and
     # their update mode after it, and never write a routed weight's dW; the
     # router stays unrouted, as in the JAX package (its dW: K8's dW mode)
@@ -3096,13 +3140,18 @@ def main() -> int:
                 "sfc_flash_bwd_dkv": "src/repro/kernels/sfc_attention.py:509"}
     for row in attn_bwd_rows:
         c = row["case"]
+        count = train_counts["totals"][row["kernel"]]
         kernels.append({
             "name": f"{row['kernel']}:{c.name}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sfc_attention.cu",
             "replaces": replaces[row["kernel"]],
-            "launches": train_counts["totals"][row["kernel"]],
+            "kernel": row["cuda_kernel"],
+            "config": row["config"],
+            "launches": count,
+            "launches_at_shape": count if c.main_path else 0,
             "path": "train",
+            "main_path": c.main_path,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

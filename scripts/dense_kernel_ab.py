@@ -6,9 +6,12 @@ main-path shapes (`chip_smoke.py`'s `main_path_gemms` and
 (`train_update_gemms`), of the decode attention K14 at the serve's cache
 and the 4096-row check (`attention_cases`), of the grouped K3, K9 and K10
 at olmoe-1b-7b's (`moe_grouped_gemms`) and of K10's update and norm modes
-(`moe_update_gemms`) in the trees that have them, and the registers and
-spills that ptxas reports for every instantiation of the GEMM and
-attention libraries' CUDA kernels.
+(`moe_update_gemms`) in the trees that have them, of the flash forward
+K11 and the flash backward K12 / K13 at qwen3-4b's training step and at
+one 2048-token sequence, the host's cost of a K2, K7, K12 and K13 wrapper
+call and of one tensor-map encoding (where the tree has its timer), and
+the registers and spills that ptxas reports for every instantiation of
+the GEMM and attention libraries' CUDA kernels.
 
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1
 
@@ -20,7 +23,8 @@ the card between passes).  Times: CUDA events around a captured graph of
 20+ calls with the weights (K14: the caches) rotated past the 50 MB L2, as
 `chip_smoke.py` times them; each pass also records which GEMM kernel (and
 its configuration: the cluster kernel's K layers, the wgmma kernels' C
-tile) each K1/K2 and K7 row launched, where its tree counts that.
+tile) each K1/K2, K7, K12 and K13 row launched, where its tree counts
+that.
 Prints one JSON line per pass and, last, a summary: each row's times by
 tree, each tree's mean over the `--base` tree's (default 1), the ptxas
 counts of every kernel the trees share by name, side by side, those of
@@ -167,6 +171,9 @@ def worker(tree: Path) -> dict:
         rows[f"K14 {c.name}"] = cs.time_ms(lambda i: tsa.sfc_decode_attention(*ins[i % copies], valid),
                                            reps=max(20, copies), graph=True)
         del ins
+    rows_attn, kernels_attn = _attention_rows(torch, cs, tsa, cfg, gen)
+    rows.update(rows_attn)
+    kernels.update(kernels_attn)
     for gm in cs.train_backward_gemms(cfg):
         m, k, n = gm.m, gm.k, gm.n
         copies = max(1, math.ceil(4 * cs.L2_BYTES / gm.bytes(2)))
@@ -199,7 +206,77 @@ def worker(tree: Path) -> dict:
             torch.cuda.empty_cache()
     if hasattr(cs, "moe_update_gemms"):
         rows.update(_update_rows(torch, cs, tk, cs.moe_update_gemms(get_config("olmoe_1b_7b")), gen, "K10"))
-    return {"tree": str(tree), "ms": rows, "k1_kernels": kernels, "ptxas": ptxas_counts(tree)}
+    return {"tree": str(tree), "ms": rows, "k1_kernels": kernels, "ptxas": ptxas_counts(tree),
+            "host": _host_costs(torch, cs, tk, tsa, build, cfg, gen)}
+
+
+# the flash attention rows: qwen3-4b's training step (2 x 256 tokens) and
+# one 2048-token sequence, where the band's flops bound the kernels
+_ATTN_SHAPES = (("train", 2, 256), ("band_2048", 1, 2048))
+
+
+def _attention_rows(torch, cs, tsa, cfg, gen):
+    """Times of K11 (`sfc_flash_fwd`), K12 (`sfc_flash_bwd_dq`) and K13
+    (`sfc_flash_bwd_dkv`) at `_ATTN_SHAPES` (bf16, causal, qwen3-4b's heads),
+    and which CUDA kernel (and configuration) each backward row launched,
+    where the tree counts that."""
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    h, hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
+    rows, kernels = {}, {}
+    for name, b, s in _ATTN_SHAPES:
+        q, k, v, do = (torch.randn(sh, generator=gen, device=dev).to(dt)
+                       for sh in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, h, d)))
+        o, lse = tsa.sfc_flash_fwd(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        rows[f"K11 {name}"] = cs.time_ms(lambda i: tsa.sfc_flash_fwd(q, k, v, causal=True), reps=20, graph=True)
+        for label, fn in (("K12", tsa.sfc_flash_bwd_dq), ("K13", tsa.sfc_flash_bwd_dkv)):
+            rows[f"{label} {name}"] = cs.time_ms(lambda i: fn(*args, causal=True), reps=20, graph=True)
+            by_kernel = getattr(fn, "launches_by_kernel", None)
+            kernels[f"{label} {name}"] = (cs.launched(by_kernel, lambda: fn(*args, causal=True))[1]
+                                          if by_kernel is not None else None)
+        del q, k, v, do, o, lse, delta, args
+        torch.cuda.empty_cache()
+    return rows, kernels
+
+
+def _host_costs(torch, cs, tk, tsa, build, cfg, gen, calls: int = 200):
+    """The host's side of a launch: the microseconds of one wrapper call
+    (Python, checks, tensor maps, the launch; the mean of ``calls`` calls
+    that never wait on the card) for K2 (qwen3-4b's training q projection,
+    512 rows), K7 (its dA), K12 and K13 at the training shape; and, where
+    the tree has the timer, the nanoseconds of one tensor-map encoding
+    (`sfc_tensor_map_encode_ns`: a 3-D map as K2 / K7 encode each operand,
+    a 4-D one as K12 / K13 do) and the maps each launch encodes."""
+    import time
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    h, hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
+    r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa: E731
+    a, w, dc = r(512, cfg.d_model), r(cfg.d_model, h * d) * 0.02, r(512, h * d)
+    q, k, v, do = r(2, 256, h, d), r(2, 256, hkv, d), r(2, 256, hkv, d), r(2, 256, h, d)
+    o, lse = tsa.sfc_flash_fwd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    calls_by_kernel = {"K2": lambda: tk.sfc_gemm_fused(a, w), "K7": lambda: tk.sfc_gemm_nt(dc, w),
+                       "K12": lambda: tsa.sfc_flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+                       "K13": lambda: tsa.sfc_flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)}
+    out = {"wrapper_us": {}}
+    for label, fn in calls_by_kernel.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out["wrapper_us"][label] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    lib = build.load_attention_library()
+    if hasattr(lib, "sfc_tensor_map_encode_ns"):
+        ns = {rank: lib.sfc_tensor_map_encode_ns(a.data_ptr(), rank, 1000) for rank in (3, 4)}
+        maps = {"K2": 2, "K2 GLU": 3, "K7": 2, "K7 dual": 4, "K12": 4, "K13": 4}
+        out["encode_ns_per_map"] = {"rank3": ns[3], "rank4": ns[4]}
+        out["encode_us_per_launch"] = {key: n * ns[4 if key in ("K12", "K13") else 3] / 1e3
+                                       for key, n in maps.items()}
+    return out
 
 
 def _update_rows(torch, cs, tk, gemms, gen, label):
@@ -273,6 +350,7 @@ def main(argv=None) -> int:
         only[str(i)] = {n: ps[0]["ptxas"][n] for n in own}
     print(json.dumps({"trees": [str(t) for t in trees], "order": order, "base": args.base, "ms": ms,
                       "k1_kernels": {str(i): ps[0].get("k1_kernels", {}) for i, ps in by_tree.items()},
+                      "host": {str(i): [p.get("host") for p in ps] for i, ps in by_tree.items()},
                       "ptxas_registers_spill_st_spill_ld": ptxas, "ptxas_changed": changed,
                       "kernels_compared": len(shared), "ptxas_only_in_tree": only,
                       "sass_identical": len(shared) - len(sass_differ), "sass_differ": sass_differ}))

@@ -28,7 +28,12 @@ the flags, and loaded with ``ctypes``.  Two libraries:
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
-  (half 1).
+  (half 1); the bf16 backward part also holds their wgmma kernels (K12
+  ``flash_bwd_dq_wgmma_kernel``, K13 ``flash_bwd_dkv_wgmma_kernel``) behind
+  entries of their own (``attn_entry_name("dq_wgmma" / "dkv_wgmma",
+  "bf16", D)``) and ``sfc_tensor_map_encode_ns``, which times the host's
+  tensor-map encoding; the Hopper primitives both libraries' wgmma kernels
+  use are in ``csrc/hopper.cuh``.
 
 A library's parts are compiled by parallel ``nvcc`` processes and linked
 into one ``.so``; `load_all` starts the parts of every library that is not
@@ -60,6 +65,7 @@ __all__ = [
     "MAX_DECODE_GROUPS",
     "DECODE_CHUNK",
     "MAX_DECODE_SPLITS",
+    "MAX_BWD_CLUSTER",
     "SPLIT_MAX_ROWS",
     "MAX_CLUSTER_LAYERS",
     "WGMMA_TILE",
@@ -95,6 +101,9 @@ MAX_DECODE_GROUPS = 16
 DECODE_CHUNK = 64
 # segments (cluster CTAs) of the decode kernel: kMaxSplits in csrc/sfc_attention.cu
 MAX_DECODE_SPLITS = 8
+# CTAs a cluster of the wgmma dK/dV kernel, each a part of the GQA group (a
+# portable cluster): bw::kMaxCluster in csrc/sfc_attention.cu
+MAX_BWD_CLUSTER = 8
 # A rows the cluster GEMM kernel takes (kSplitRows) and CTAs (K layers) a
 # cluster (kMaxLayers), in csrc/sfc_gemm_fused.cu
 SPLIT_MAX_ROWS = 16
@@ -159,10 +168,12 @@ def rep_entry_name(kind: str, dtype_name: str) -> str:
 
 
 def attn_entry_name(kind: str, dtype_name: str, head_dim: int) -> str:
-    """C symbol of an attention entry: ``kind`` is "fwd", "decode", "dq" or
-    "dkv"."""
-    if kind not in ("fwd", "decode", "dq", "dkv"):
-        raise ValueError(f"unknown attention entry kind {kind!r}")
+    """C symbol of an attention entry: ``kind`` is "fwd", "decode", "dq",
+    "dkv", or "dq_wgmma" / "dkv_wgmma" (the backward's wgmma kernels, bf16
+    only)."""
+    if kind not in ("fwd", "decode", "dq", "dkv", "dq_wgmma", "dkv_wgmma") or (
+            kind.endswith("_wgmma") and dtype_name != "bf16"):
+        raise ValueError(f"unknown attention entry kind {kind!r} for {dtype_name}")
     return f"sfc_attn_{kind}_{dtype_name}_d{head_dim}"
 
 
@@ -355,20 +366,26 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
                 ptr,  # cudaStream_t
             ]
             dec.restype = i32
-            for kind in ("dq", "dkv"):
+            for kind in ("dq", "dkv", "dq_wgmma", "dkv_wgmma"):
+                if kind.endswith("_wgmma") and dt != "bf16":
+                    continue
                 bwd = getattr(lib, attn_entry_name(kind, dt, d))
                 bwd.argtypes = [
                     ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, dO, lse, delta
-                    *((ptr,) if kind == "dq" else (ptr, ptr)),  # dq, or dk and dv
+                    *((ptr,) if kind.startswith("dq") else (ptr, ptr)),  # dq, or dk and dv
                     ptr, ptr, i32,  # other tile per task, row starts, rows
                     i32, i32, i32,  # batch, H, groups
                     i32, i32, i32, i32,  # S, T, seq_q, seq_k
                     i32, i32,  # q_offset, causal
                     ptr,  # 12 strides (q, k, v, dO; batch, seq, head), int64 on the host
                     ctypes.c_float,  # scale
+                    *((i32,) if kind == "dkv_wgmma" else ()),  # CTAs a cluster, a divisor of the group
                     ptr,  # cudaStream_t
                 ]
                 bwd.restype = i32
+    enc = lib.sfc_tensor_map_encode_ns
+    enc.argtypes = [ptr, i32, i32]  # a 16-byte aligned device pointer, rank (3 or 4), repetitions
+    enc.restype = ctypes.c_double
 
 
 @dataclasses.dataclass(frozen=True)

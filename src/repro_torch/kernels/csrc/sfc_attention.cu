@@ -107,20 +107,49 @@
 //   peak; K13 moves 12.7 MB (3.8 us) against 8 D flops a pair (2.2 us):
 //   bytes bound both.  What they leave on the
 //   table is the forward's: no wgmma, TMA or pipeline, and the products of S
-//   and dP are recomputed by both kernels.
+//   and dP are recomputed by both kernels.  They stay for f32 (chip_smoke's
+//   f32 gradient check), for GQA groups past 8 and for what TMA cannot
+//   describe (`kernels/sfc_attention.py::uses_bwd_wgmma_kernel`).
+//
+// flash_bwd_dq_wgmma_kernel (K12) and flash_bwd_dkv_wgmma_kernel (K13) take
+//   every other bf16 backward, with the same contract and tiles, on
+//   Hopper's own machinery (hopper.cuh): a producer warp keeps TMA loads of
+//   the model's strided (B, S, H, D) views (4-D tensor maps, 64-column
+//   boxes, 128-byte swizzle, zeros past S and T) in flight through a ring of
+//   full / empty mbarrier stages, and one consumer warpgroup runs wgmma (bf16
+//   in, f32 accumulators) on 64 rows.  S, P, dP and dS live in the
+//   accumulators' registers: an m64nN accumulator and wgmma's k16 A
+//   fragment share their element layout, so P and dS enter the next product
+//   from registers as their hi and lo bf16 fragments (store_split's pairs,
+//   two wgmma a product) and never touch shared memory; dQ, dK and dV stay in
+//   registers for the whole walk.  K13 computes the transposed strips S^T =
+//   k q^T and dP^T = v dO^T (the k rows as M), with lse and delta indexed
+//   by the q column, staged beside each q tile.  The GQA group, which kept
+//   the tile kernel to 64 CTAs on 132 SMs at the training step, is split
+//   across a cluster of C CTAs, each walking its part of the group's q
+//   heads (C 2 there: 128 CTAs, one wave); after the walk the CTAs sum
+//   their f32 partials in rank order through distributed shared memory
+//   (the order `sfc_flash_bwd_dkv_plain(group_parts=C)` takes).  Both are
+//   one launch, deterministic, with no atomics and no HBM scratch, and keep
+//   nothing on the device between launches.  ptxas: K13 252 registers at
+//   D 128 (one CTA an SM), K12 194 (two), 0 spills.
 //
 // One compilation unit holds one input type, chosen by -DSFC_ATTN_DTYPE
 // (0: float32, 1: bfloat16) and named by -DSFC_ATTN_TAG, and one half,
-// chosen by -DSFC_ATTN_PART (0: flash forward and decode, 1: the backward),
-// with the head dims 64 and 128 (`repro_torch/kernels/build.py` builds all
-// four parts at once).  Every entry launches on the caller's stream and
-// returns cudaGetLastError().
+// chosen by -DSFC_ATTN_PART (0: flash forward and decode, 1: the backward;
+// the bf16 backward also holds the wgmma kernels), with the head dims 64
+// and 128 (`repro_torch/kernels/build.py` builds all four parts at once).
+// Every entry launches on the caller's stream and returns
+// cudaGetLastError().
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap (the driver's encoder is fetched at run time: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <chrono>
 
 #include "cuda_common.cuh"
 
@@ -1054,6 +1083,493 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dkv_kernel(const BwdPar
   }
 }
 
+#if SFC_ATTN_PART == 1 && SFC_ATTN_DTYPE == 1
+
+// ---------------------------------------------------------------------------
+// backward on wgmma and TMA (bf16): flash_bwd_dq_wgmma_kernel (K12) and
+// flash_bwd_dkv_wgmma_kernel (K13)
+// ---------------------------------------------------------------------------
+
+#include "hopper.cuh"
+
+namespace bw {
+
+using namespace hopper;
+
+constexpr int kThreads = 160;    // one consumer warpgroup, then the producer warp
+constexpr int kConsumers = 128;  // threads of the consumer warpgroup: 64 tile rows, wgmma's M
+constexpr int kStages = 2;       // ring stages: two CTAs an SM fit beside each other
+constexpr int kMaxCluster = 8;   // CTAs of a K13 cluster, each a part of the GQA group (build.py MAX_BWD_CLUSTER)
+constexpr int kBoxBytes = kBQ * kBox * 2;  // one 64-row x 64-column swizzled box: 8 KB
+static_assert(kBQ == 64 && kBK == 64, "wgmma's M and the boxes are 64 rows");
+
+// A 64-row tile of D bf16 columns: D / 64 boxes, each 64 rows of 128 bytes.
+template <int D>
+constexpr int tile_bytes() {
+  return kBQ * D * 2;
+}
+
+// K12's shared memory: the q and dO tiles, then a ring of (k, v) stages,
+// then the barriers, from a 1024-byte aligned base (the swizzle's period).
+template <int D>
+struct DqWgSmem {
+  static constexpr int TILE = tile_bytes<D>();
+  static constexpr int Q = 0;
+  static constexpr int DO = TILE;
+  static constexpr int RING = 2 * TILE;
+  static constexpr int STAGE = 2 * TILE;  // k, then v
+  static constexpr int BARS = RING + kStages * STAGE;
+  static constexpr int BYTES = 1024 + BARS + 8 * (1 + 2 * kStages);
+};
+
+// K13's: the k and v tiles, then a ring of (q, dO, lse, delta) stages (the
+// stats padded to 1024 bytes), then the barriers.  After the walk the ring
+// holds the CTA's f32 dK / dV partials for the cluster's merge.
+template <int D>
+struct DkvWgSmem {
+  static constexpr int TILE = tile_bytes<D>();
+  static constexpr int K = 0;
+  static constexpr int V = TILE;
+  static constexpr int RING = 2 * TILE;
+  static constexpr int STATS = 2 * TILE;  // in a stage: lse [64], delta [64]
+  static constexpr int STAGE = 2 * TILE + 1024;
+  static constexpr int BARS = RING + kStages * STAGE;
+  static constexpr int BYTES = 1024 + BARS + 8 * (1 + 2 * kStages);
+  static constexpr int PAIRS = D / 4;  // f32 pairs of one m64nD accumulator a thread
+  static_assert(2 * PAIRS * kConsumers * 8 <= kStages * STAGE, "the partials fit in the ring");
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// k16 step kk of a K-major operand (the contraction runs along the tile's D
+// columns): 8-row groups 1024 B apart, 32 B a k16, 64-column boxes 8 KB apart.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
+}
+// k16 step kk of an N-major operand (the contraction runs along the tile's
+// rows, N along its D columns): 16 rows of 128 B a k16, the boxes 8 KB apart
+// (LBO), 8-row groups 1024 B apart.
+__device__ __forceinline__ uint64_t desc_nmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 2048, kBoxBytes, 1024);
+}
+
+// Row (0..63) and column of accumulator i of consumer thread tw in an
+// m64nN strip: warp w owns rows 16w..16w+15; pair i / 2 sits 8 rows down
+// when odd and 8 columns right per two pairs.
+__device__ __forceinline__ int acc_row(int tw, int i) { return (tw / 32) * 16 + (tw % 32) / 4 + ((i & 2) ? 8 : 0); }
+__device__ __forceinline__ int acc_col(int tw, int i) { return (i / 4) * 8 + 2 * (tw % 4) + (i & 1); }
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 a, bf16 b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(a)) | (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
+}
+
+// store_split in registers: the hi and lo bf16 A fragments of a 64 x 64 f32
+// strip.  An m64nN accumulator and wgmma's k16 A fragment share their
+// element layout, so k16 slice kk's fragment is accumulators 8kk..8kk+7,
+// two to a register, the lower column in the low half.
+__device__ __forceinline__ void split_frags(const float (&x)[32], uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
+      const bf16 ha = __float2bfloat16(a), hb = __float2bfloat16(b);
+      hi[kk][r] = pack_bf16(ha, hb);
+      lo[kk][r] = pack_bf16(__float2bfloat16(a - __bfloat162float(ha)), __float2bfloat16(b - __bfloat162float(hb)));
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.0f;
+}
+
+// K12.  One CTA per (64-row q tile, (batch, q head)), as flash_bwd_dq_kernel;
+// the producer warp's one thread loads the q and dO tiles once and streams
+// the band row's (k, v) tiles through the ring; the consumer warpgroup runs,
+// per k tile, S = q k^T and dP = dO v^T (wgmma, both operands K-major from
+// shared memory), P and dS in the accumulators' registers, and dQ += dS k
+// with dS's hi and lo fragments from registers and k through the
+// descriptor's transpose bit.  dQ stays in registers and takes the scale
+// once, at the flush.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                              const BwdParams p) {
+  using L = DqWgSmem<D>;
+  extern __shared__ unsigned char bw_smem_raw[];
+  unsigned char* sm = align1024(bw_smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int iq = blockIdx.x;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int hk = h / p.groups;
+  const int t0 = __ldg(p.row_start + iq), t1 = __ldg(p.row_start + iq + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qbar, 2 * L::TILE);
+#pragma unroll
+      for (int j = 0; j < D / kBox; ++j) {
+        tma_load_4d(sm + L::Q + j * kBoxBytes, &tm_q, qbar, j * kBox, h, iq * kBQ, b);
+        tma_load_4d(sm + L::DO + j * kBoxBytes, &tm_do, qbar, j * kBox, h, iq * kBQ, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t0; t < t1; ++t) {
+        const int ik = __ldg(p.tab_minor + t);
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = sm + L::RING + stage * L::STAGE;
+        mbar_expect_tx(&full[stage], L::STAGE);
+#pragma unroll
+        for (int j = 0; j < D / kBox; ++j) {
+          tma_load_4d(st + j * kBoxBytes, &tm_k, &full[stage], j * kBox, hk, ik * kBK, b);
+          tma_load_4d(st + L::TILE + j * kBoxBytes, &tm_v, &full[stage], j * kBox, hk, ik * kBK, b);
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int tw = threadIdx.x;
+  int qpos[2];
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = iq * kBQ + acc_row(tw, 2 * r);
+    const long long stat = ((long long)b * p.S + qpos[r]) * p.H + h;
+    lse[r] = qpos[r] < p.S ? p.lse[stat] : 0.0f;
+    delta[r] = qpos[r] < p.S ? p.delta[stat] : 0.0f;
+  }
+  float dq[D / 2];
+  zero(dq);
+  const uint32_t q_addr = smem_u32(sm + L::Q), do_addr = smem_u32(sm + L::DO);
+  mbar_wait(qbar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int ik = __ldg(p.tab_minor + t);
+    mbar_wait(&full[stage], phase);
+    const uint32_t k_addr = smem_u32(sm + L::RING + stage * L::STAGE), v_addr = k_addr + L::TILE;
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    fence_acc(s);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<0>(s, desc_kmajor(q_addr, kk), desc_kmajor(k_addr, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<0>(dp, desc_kmajor(do_addr, kk), desc_kmajor(v_addr, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float pr = attn_valid(p, qpos[r], ik * kBK + acc_col(tw, i)) ? expf(s[i] * p.scale - lse[r]) : 0.0f;
+      s[i] = pr * (dp[i] - delta[r]);  // dS
+    }
+    uint32_t hi[4][4], lo[4][4];
+    split_frags(s, hi, lo);
+    fence_acc(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<1>(dq, hi[kk], desc_nmajor(k_addr, kk));
+      wgmma_rs<1>(dq, lo[kk], desc_nmajor(k_addr, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dq);
+    mbar_arrive(&empty[stage]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  bf16* out = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int pos = iq * kBQ + acc_row(tw, i);
+    if (pos >= p.S) continue;
+    const long long o = (((long long)b * p.S + pos) * p.H + h) * D + acc_col(tw, i);
+    *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(dq[i] * p.scale, dq[i + 1] * p.scale);
+  }
+}
+
+// K13.  One cluster of C CTAs per (64-row k tile, (batch, kv head)), C a
+// divisor of the GQA group's `groups` q heads (the wrapper's choice,
+// `kernels/sfc_attention.py::bwd_wgmma_grid`: the largest that keeps the
+// launch to one wave of the card at one CTA an SM, the kernel holding 252
+// registers a thread; past one wave, the smallest of two waves or more:
+// fewer, longer CTAs save the merge, more balance the band's uneven rows,
+// `scripts/split_sweep.py k13`).  CTA g takes the
+// group's q heads [g groups / C, (g + 1) groups / C) and walks the k-major
+// band row with them innermost, as the tile kernel walks the whole group.
+// The producer warp loads the k and v tiles once and streams (q, dO) of
+// each (task, head) through the ring by TMA, its 32 lanes staging the q
+// tile's lse and delta beside them (the stage's full barrier waits for the
+// 32 lanes and the TMA bytes).  The consumer warpgroup computes the
+// transposed strips S^T = k q^T and dP^T = v dO^T (the k rows as wgmma's M,
+// both operands K-major as stored), P^T = exp(scale S^T - lse) masked and
+// dS^T = P^T (dP^T - delta) with lse and delta indexed by the q column, in
+// the accumulators' registers, then dV += P^T dO and dK += dS^T q with the
+// hi and lo A fragments from registers and dO, q through the transpose
+// bit.  P, dS and both accumulators never touch shared memory.  After the
+// walk each CTA parks its f32 partials in its ring, and after
+// cluster.sync() rank g sums its share of the elements over the cluster's
+// CTAs in rank order, reading its peers through distributed shared memory:
+// no atomics, no HBM scratch, the same result from run to run.  dK takes
+// the scale once, there.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                               const BwdParams p) {
+  using L = DkvWgSmem<D>;
+  extern __shared__ unsigned char bw_smem_raw[];
+  unsigned char* sm = align1024(bw_smem_raw);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + kStages;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int g = static_cast<int>(cluster.block_rank());
+  const int heads = p.groups / C;  // q heads a CTA
+  const int ik = blockIdx.x / C;
+  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+  const int h0 = hk * p.groups + g * heads;
+  const int t0 = __ldg(p.row_start + ik), t1 = __ldg(p.row_start + ik + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float dk[D / 2], dv[D / 2];
+  if (threadIdx.x >= kConsumers) {
+    const int lane = threadIdx.x - kConsumers;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * L::TILE);
+#pragma unroll
+      for (int j = 0; j < D / kBox; ++j) {
+        tma_load_4d(sm + L::K + j * kBoxBytes, &tm_k, kvbar, j * kBox, hk, ik * kBK, b);
+        tma_load_4d(sm + L::V + j * kBoxBytes, &tm_v, kvbar, j * kBox, hk, ik * kBK, b);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    // step n: the band row's task t0 + n / heads, the CTA's head n % heads
+    for (int n = 0; n < (t1 - t0) * heads; ++n) {
+      const int iq = __ldg(p.tab_minor + t0 + n / heads), h = h0 + n % heads;
+      mbar_wait(&empty[stage], phase ^ 1);
+      unsigned char* st = sm + L::RING + stage * L::STAGE;
+      float* stats = reinterpret_cast<float*>(st + L::STATS);
+      for (int r = lane; r < kBQ; r += 32) {
+        const int qpos = iq * kBQ + r;
+        const long long stat = ((long long)b * p.S + qpos) * p.H + h;
+        stats[r] = qpos < p.S ? p.lse[stat] : 0.0f;
+        stats[kBQ + r] = qpos < p.S ? p.delta[stat] : 0.0f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[stage], 2 * L::TILE);
+#pragma unroll
+        for (int j = 0; j < D / kBox; ++j) {
+          tma_load_4d(st + j * kBoxBytes, &tm_q, &full[stage], j * kBox, h, iq * kBQ, b);
+          tma_load_4d(st + L::TILE + j * kBoxBytes, &tm_do, &full[stage], j * kBox, h, iq * kBQ, b);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    const int tw = threadIdx.x;
+    zero(dk);
+    zero(dv);
+    const uint32_t k_addr = smem_u32(sm + L::K), v_addr = smem_u32(sm + L::V);
+    const int kpos0 = ik * kBK + acc_row(tw, 0);
+    mbar_wait(kvbar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int n = 0; n < (t1 - t0) * heads; ++n) {
+      const int iq = __ldg(p.tab_minor + t0 + n / heads);
+      mbar_wait(&full[stage], phase);
+      unsigned char* st = sm + L::RING + stage * L::STAGE;
+      const uint32_t q_addr = smem_u32(st), do_addr = q_addr + L::TILE;
+      const float* stats = reinterpret_cast<const float*>(st + L::STATS);
+      float s[32], dp[32];
+      zero(s);
+      zero(dp);
+      fence_acc(s);
+      fence_acc(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<0>(s, desc_kmajor(k_addr, kk), desc_kmajor(q_addr, kk));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<0>(dp, desc_kmajor(v_addr, kk), desc_kmajor(do_addr, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = acc_col(tw, i);
+        const int kpos = kpos0 + ((i & 2) ? 8 : 0);
+        const float pr = attn_valid(p, iq * kBQ + c, kpos) ? expf(s[i] * p.scale - stats[c]) : 0.0f;
+        dp[i] = pr * (dp[i] - stats[kBQ + c]);  // dS^T
+        s[i] = pr;                              // P^T
+      }
+      uint32_t phi[4][4], plo[4][4], dshi[4][4], dslo[4][4];
+      split_frags(s, phi, plo);
+      split_frags(dp, dshi, dslo);
+      fence_acc(dk);
+      fence_acc(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<1>(dv, phi[kk], desc_nmajor(do_addr, kk));
+        wgmma_rs<1>(dv, plo[kk], desc_nmajor(do_addr, kk));
+        wgmma_rs<1>(dk, dshi[kk], desc_nmajor(q_addr, kk));
+        wgmma_rs<1>(dk, dslo[kk], desc_nmajor(q_addr, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dk);
+      fence_acc(dv);
+      mbar_arrive(&empty[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  __syncthreads();  // the consumers are done with the ring
+
+  // the partials, slot (which, pair q, thread tw): [dK | dV][D / 4][128] float2
+  float2* part = reinterpret_cast<float2*>(sm + L::RING);
+  if (threadIdx.x < kConsumers) {
+#pragma unroll
+    for (int q = 0; q < L::PAIRS; ++q) {
+      part[q * kConsumers + threadIdx.x] = make_float2(dk[2 * q], dk[2 * q + 1]);
+      part[(L::PAIRS + q) * kConsumers + threadIdx.x] = make_float2(dv[2 * q], dv[2 * q + 1]);
+    }
+  }
+  cluster.sync();  // every CTA's partials are visible to the cluster
+  constexpr int kSlots = 2 * L::PAIRS * kConsumers;
+  const int e_lo = kSlots * g / C, e_hi = kSlots * (g + 1) / C;
+  for (int e = e_lo + threadIdx.x; e < e_hi; e += kThreads) {
+    float2 acc = cluster.map_shared_rank(part, 0)[e];
+    for (int j = 1; j < C; ++j) {
+      const float2 x = cluster.map_shared_rank(part, j)[e];
+      acc.x += x.x;
+      acc.y += x.y;
+    }
+    const int out_dk = e < L::PAIRS * kConsumers, q = (e / kConsumers) % L::PAIRS, tw = e % kConsumers;
+    const int kpos = ik * kBK + acc_row(tw, 2 * q);
+    if (kpos >= p.T) continue;
+    const float sc = out_dk ? p.scale : 1.0f;
+    bf16* out = static_cast<bf16*>(out_dk ? p.dk : p.dv);
+    const long long o = (((long long)b * p.T + kpos) * p.Hkv + hk) * D + acc_col(tw, 2 * q);
+    *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(acc.x * sc, acc.y * sc);
+  }
+  cluster.sync();  // the peers keep their partials until every rank has read them
+}
+
+// The four maps of a backward launch, the model's strided (B, S, H, D)
+// views: q and dO in 64-row boxes of one q head, k and v of one kv head.
+template <int D>
+int bwd_maps(const BwdParams& p, int batch, CUtensorMap (&m)[4]) {
+  if (!aligned16(p.q) || !aligned16(p.k) || !aligned16(p.v) || !aligned16(p.dout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int rc = tensor_map_4d(&m[0], p.q, D, p.H, p.S, batch, p.q_sh, p.q_ss, p.q_sb, kBQ);
+  if (rc == 0) rc = tensor_map_4d(&m[1], p.k, D, p.Hkv, p.T, batch, p.k_sh, p.k_ss, p.k_sb, kBK);
+  if (rc == 0) rc = tensor_map_4d(&m[2], p.v, D, p.Hkv, p.T, batch, p.v_sh, p.v_ss, p.v_sb, kBK);
+  if (rc == 0) rc = tensor_map_4d(&m[3], p.dout, D, p.H, p.S, batch, p.o_sh, p.o_ss, p.o_sb, kBQ);
+  return rc;
+}
+
+template <int D>
+int launch_dq_wgmma(const BwdParams& p, int n_rows, int batch, cudaStream_t s) {
+  constexpr int bytes = DqWgSmem<D>::BYTES;
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
+  CUtensorMap m[4];
+  int rc = bwd_maps<D>(p, batch, m);
+  if (rc != 0) return rc;
+  static bool opted_in[kMaxDevices] = {};
+  rc = opt_in(flash_bwd_dq_wgmma_kernel<D>, bytes, opted_in);
+  if (rc != 0) return rc;
+  flash_bwd_dq_wgmma_kernel<D><<<dim3((unsigned)n_rows, (unsigned)(batch * p.H)), kThreads, bytes, s>>>(
+      m[0], m[1], m[2], m[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n_rows k tiles, a cluster of `cluster` CTAs each (a divisor of the group).
+template <int D>
+int launch_dkv_wgmma(const BwdParams& p, int n_rows, int batch, int cluster, cudaStream_t s) {
+  constexpr int bytes = DkvWgSmem<D>::BYTES;
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
+  if (cluster < 1 || cluster > kMaxCluster || p.groups % cluster != 0 || n_rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[4];
+  int rc = bwd_maps<D>(p, batch, m);
+  if (rc != 0) return rc;
+  static bool opted_in[kMaxDevices] = {};
+  rc = opt_in(flash_bwd_dkv_wgmma_kernel<D>, bytes, opted_in);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_rows * cluster), (unsigned)(batch * p.Hkv));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_wgmma_kernel<D>, m[0], m[1], m[2], m[3], p);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+}  // namespace bw
+
+#endif  // SFC_ATTN_PART == 1 && SFC_ATTN_DTYPE == 1
+
 #if SFC_ATTN_DTYPE == 1
 typedef bf16 ElemT;
 #else
@@ -1276,6 +1792,37 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
     return launch_dkv<D>(p, nk, batch * (H / groups), static_cast<cudaStream_t>(stream));       \
   }
 
+// The wgmma backward's entries (bf16): the dq / dkv entries' arguments,
+// the dK/dV entry's with `cluster` before the stream; its launch is batch *
+// Hkv clusters of `cluster` CTAs (a divisor of the group, at most 8) per k
+// tile.  q, k, v and dO need 16-byte aligned bases and strides of whole 16
+// bytes, as TMA does.
+#define SFC_DQ_WGMMA_ENTRY(D)                                                                   \
+  extern "C" int SFC_CAT(sfc_attn_dq_wgmma_, SFC_ATTN_TAG, _d, D)(                              \
+      const void* q, const void* k, const void* v, const void* dout, const float* lse,          \
+      const float* delta, void* dq, const int* tab_k, const int* row_start, int nq, int batch,  \
+      int H, int groups, int S, int T, int seq_q, int seq_k, int q_offset, int causal,          \
+      const long long* strides, float scale, void* stream) {                                    \
+    if (groups < 1 || H % groups != 0) return (int)cudaErrorInvalidValue;                       \
+    const BwdParams p = bwd_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, tab_k,      \
+                                   row_start, H, groups, S, T, seq_q, seq_k, q_offset, causal,  \
+                                   strides, scale);                                             \
+    return bw::launch_dq_wgmma<D>(p, nq, batch, static_cast<cudaStream_t>(stream));             \
+  }
+
+#define SFC_DKV_WGMMA_ENTRY(D)                                                                  \
+  extern "C" int SFC_CAT(sfc_attn_dkv_wgmma_, SFC_ATTN_TAG, _d, D)(                             \
+      const void* q, const void* k, const void* v, const void* dout, const float* lse,          \
+      const float* delta, void* dk, void* dv, const int* tab_q, const int* row_start, int nk,   \
+      int batch, int H, int groups, int S, int T, int seq_q, int seq_k, int q_offset,           \
+      int causal, const long long* strides, float scale, int cluster, void* stream) {           \
+    if (groups < 1 || H % groups != 0) return (int)cudaErrorInvalidValue;                       \
+    const BwdParams p = bwd_params(q, k, v, dout, lse, delta, nullptr, dk, dv, tab_q,           \
+                                   row_start, H, groups, S, T, seq_q, seq_k, q_offset, causal,  \
+                                   strides, scale);                                             \
+    return bw::launch_dkv_wgmma<D>(p, nk, batch, cluster, static_cast<cudaStream_t>(stream));   \
+  }
+
 #if SFC_ATTN_PART == 0
 SFC_FWD_ENTRY(64)
 SFC_FWD_ENTRY(128)
@@ -1286,4 +1833,29 @@ SFC_DQ_ENTRY(64)
 SFC_DQ_ENTRY(128)
 SFC_DKV_ENTRY(64)
 SFC_DKV_ENTRY(128)
+#if SFC_ATTN_DTYPE == 1
+SFC_DQ_WGMMA_ENTRY(64)
+SFC_DQ_WGMMA_ENTRY(128)
+SFC_DKV_WGMMA_ENTRY(64)
+SFC_DKV_WGMMA_ENTRY(128)
+
+// The host's cost of one tensor-map encoding (cuTensorMapEncodeTiled), the
+// mean of `reps` in ns: rank 3, a (512, 2560) bf16 matrix in 128-row boxes
+// as the wgmma GEMMs (K2, K7) map each operand; rank 4, a (2, 256, 32, 128)
+// (B, S, H, D) view in 64-row boxes as the flash backward maps q, k, v, dO.
+// `base`: any 16-byte aligned device pointer (the encoder does not read it).
+// Negative: the encoder refused.
+extern "C" double sfc_tensor_map_encode_ns(const void* base, int rank, int reps) {
+  CUtensorMap m;
+  int rc = 0;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps && rc == 0; ++i) {
+    rc = rank == 3 ? hopper::tensor_map(&m, base, 2560, 512, 1, 128)
+                   : hopper::tensor_map_4d(&m, base, 128, 32, 256, 2, 128, 4096, 1048576, 64);
+  }
+  const auto t1 = std::chrono::steady_clock::now();
+  if (rc != 0 || reps < 1) return -1.0;
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / reps;
+}
+#endif
 #endif

@@ -26,6 +26,11 @@ final division guarded by ``max(l, 1e-30)``; the backward's
 ``csrc/sfc_attention.cu`` or the call raises; there is no fallback from
 one to the other.  On the card the chunks are the kernel's compiled tile
 (`kernel_chunks`; the f32 dK/dV kernel's is ``build.ATTN_DKV_TILE``).
+The backward has two kernels each: a bf16 call whose operands TMA can
+describe (`uses_bwd_wgmma_kernel`) takes the wgmma kernels (K13 then sums
+its group's q heads in parts, one a CTA of its cluster, the order
+`sfc_flash_bwd_dkv_plain` takes with ``group_parts``), every other call
+the 64 x 64 tile kernels.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import collections
 import ctypes
 import functools
 import math
+import operator
 from typing import Optional, Tuple
 
 import numpy as np
@@ -54,6 +60,8 @@ __all__ = [
     "sfc_flash_bwd_dq_plain",
     "sfc_flash_bwd_dkv",
     "sfc_flash_bwd_dkv_plain",
+    "uses_bwd_wgmma_kernel",
+    "bwd_wgmma_grid",
     "sfc_decode_attention",
     "sfc_decode_attention_plain",
     "decode_splits",
@@ -424,12 +432,18 @@ def sfc_flash_bwd_dkv_plain(
     seq_q: Optional[int] = None,
     seq_k: Optional[int] = None,
     q_offset: int = 0,
+    group_parts: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the dK/dV kernel, on any device: a Python loop
+    """The plain version of the dK/dV kernels, on any device: a Python loop
     over the k-major (transposed) band table and, innermost, the GQA group
     of each kv head, with `_flash_bwd_dkv_kernel`'s arithmetic (``dv += pᵀ
     @ do``, ``dk += scale · dsᵀ @ q`` in f32, flushed at the row's last
-    task).  Returns (dK, dV), each (B, T, Hkv, D) in k's type."""
+    task).  ``group_parts`` sums as the wgmma kernel with that many CTAs a
+    cluster does: the group's q heads in that many consecutive parts, each
+    part into its own f32 accumulators along the band row (its heads
+    innermost), then the parts in order; 1, the tile kernel's and the TPU
+    kernel's order, adds every head into one accumulator as it goes.
+    Returns (dK, dV), each (B, T, Hkv, D) in k's type."""
     seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
     b, s, h, d = q.shape
     _, t, hkv, _ = k.shape
@@ -448,28 +462,104 @@ def sfc_flash_bwd_dkv_plain(
     kp = pad_seq(k, tp).float().transpose(1, 2)  # (B, Hkv, Tp, D)
     vp = pad_seq(v, tp).float().transpose(1, 2)
     dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
+    if group_parts < 1 or groups % group_parts:
+        raise ValueError(f"group_parts {group_parts} does not divide the group of {groups} q heads")
+    n_acc = group_parts
     tab = build_attention_task_table(nq, nk, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk,
                                      q_offset=q_offset, transpose=True)
     for ik, iq, first, last in tab.T.tolist():
         qs = slice(iq * q_chunk, (iq + 1) * q_chunk)
         ks = slice(ik * k_chunk, (ik + 1) * k_chunk)
         if first:
-            dk_acc = torch.zeros((b, hkv, k_chunk, d), dtype=torch.float32, device=q.device)
-            dv_acc = torch.zeros_like(dk_acc)
+            zero = torch.zeros((b, hkv, k_chunk, d), dtype=torch.float32, device=q.device)
+            dk_acc, dv_acc = [zero] * n_acc, [zero] * n_acc
         valid = _tile_valid(iq, ik, q_chunk, k_chunk, seq_q, seq_k, causal, q_offset, q.device)
         for g in range(groups):
             q_, do_ = qg[:, :, g, qs], dog[:, :, g, qs]
             p, ds = _bwd_p_ds(q_, kp[:, :, ks], vp[:, :, ks], do_, lseg[:, :, g, qs], deltag[:, :, g, qs],
                               valid, scale=scale)
-            dv_acc = dv_acc + p.transpose(-1, -2) @ do_
-            dk_acc = dk_acc + scale * (ds.transpose(-1, -2) @ q_)
+            j = g // (groups // n_acc)
+            dv_acc[j] = dv_acc[j] + p.transpose(-1, -2) @ do_
+            dk_acc[j] = dk_acc[j] + scale * (ds.transpose(-1, -2) @ q_)
         if last:
-            dk[:, :, ks], dv[:, :, ks] = dk_acc, dv_acc
+            dk[:, :, ks], dv[:, :, ks] = functools.reduce(operator.add, dk_acc), functools.reduce(operator.add, dv_acc)
     return dk[:, :, :t].transpose(1, 2).to(k.dtype), dv[:, :, :t].transpose(1, 2).to(v.dtype)
 
 
+_TMA_MAX_STRIDE = 2**37  # elements: a tensor map's strides are below 2^40 bytes
+
+
+def uses_bwd_wgmma_kernel(dtype: torch.dtype, d: int, strides, bases) -> bool:
+    """Whether the flash backward launches its wgmma kernels (K12
+    ``flash_bwd_dq_wgmma_kernel``, K13 ``flash_bwd_dkv_wgmma_kernel``) for
+    these operands on the card: bf16, a head dim of 64 or 128, and q, k, v
+    and dO that a TMA tensor map can describe: each of ``strides`` (one
+    (batch, seq, head, dim) element-stride tuple an operand, as `_tma_strides`
+    gives them) with a contiguous last dim and the others positive whole 16
+    bytes, and each of ``bases`` (data pointers) 16-byte aligned.  Every
+    other call takes the 64 x 64 tile kernels."""
+    if dtype != torch.bfloat16 or d not in build.ATTN_HEAD_DIMS:
+        return False
+    for st in strides:
+        if st[-1] != 1 or not all(0 < x < _TMA_MAX_STRIDE and x % 8 == 0 for x in st[:-1]):
+            return False
+    return all(base % 16 == 0 for base in bases)
+
+
+def _tma_strides(t: torch.Tensor) -> Tuple[int, ...]:
+    """The (batch, seq, head, dim) element strides of a (B, S, H, D) view as
+    its tensor map takes them: a dim of extent 1 is never stepped, so its
+    stride (which PyTorch leaves arbitrary) becomes the extent of the dims
+    inside it."""
+    if 1 not in t.shape[:3]:
+        return t.stride()
+    st = list(t.stride())
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = max(st[j] * t.shape[j] for j in range(i + 1, 4))
+    return tuple(st)
+
+
+def _bwd_route(q, k, v, do):
+    """(whether the wgmma kernels take these operands, their (batch, seq,
+    head, dim) strides as `_tma_strides` gives them, q, k, v, dO)."""
+    strides = [_tma_strides(x) for x in (q, k, v, do)]
+    return uses_bwd_wgmma_kernel(q.dtype, q.shape[-1], strides, [x.data_ptr() for x in (q, k, v, do)]), strides
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_wgmma_grid(kind: str, b: int, s: int, t: int, h: int, hkv: int,
+                   sm_count: int = H100_SMS) -> Tuple[Tuple[int, int], int]:
+    """((grid x, grid y), CTAs a cluster) of a wgmma backward launch over
+    the kernels' 64 x 64 tiles: K12 ("dq") one CTA per (q tile, (batch, q
+    head)); K13 ("dkv") one cluster of C CTAs per (k tile, (batch, kv
+    head)), each CTA taking ``h // hkv // C`` q heads of the group.  C is a
+    divisor of the group, at most ``build.MAX_BWD_CLUSTER``: the largest
+    whose CTAs fit one wave of ``sm_count`` SMs (K13 holds one CTA an SM);
+    where even C 1 takes more, the smallest that gives two waves or more,
+    so that the band's rows of uneven length balance (else the largest).
+    `scripts/split_sweep.py k13` times every C.  A function of the shapes
+    and the card alone."""
+    qc, kc = build.ATTN_TILE
+    if kind == "dq":
+        return (math.ceil(s / qc), b * h), 1
+    if kind == "dkv":
+        nk, groups = math.ceil(t / kc), h // hkv
+        sizes = [c for c in range(1, min(groups, build.MAX_BWD_CLUSTER) + 1) if groups % c == 0]
+        one_wave = [c for c in sizes if nk * c * b * hkv <= sm_count]
+        two_waves = [c for c in sizes if nk * c * b * hkv >= 2 * sm_count]
+        cluster = max(one_wave) if one_wave else min(two_waves or [max(sizes)])
+        return (nk * cluster, b * hkv), cluster
+    raise ValueError(f"unknown backward kernel {kind!r}")
+
+
+def _dkv_cluster(q, k, sms: int) -> int:
+    """K13's CTAs a cluster on a card of ``sms`` SMs (`bwd_wgmma_grid`)."""
+    return bwd_wgmma_grid("dkv", q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], sms)[1]
+
+
 def _launch_bwd(kind: str, q, k, v, do, lse, delta, outs, tab_minor, row_start, *, causal, seq_q, seq_k,
-                q_offset):
+                q_offset, wgmma: bool = False, cluster: int = 1, strides=None):
     b, s, h, d = q.shape
     _, t, hkv, _ = k.shape
     dt = _check_launch(f"flash backward {kind}", q, k, v, do)
@@ -478,8 +568,10 @@ def _launch_bwd(kind: str, q, k, v, do, lse, delta, outs, tab_minor, row_start, 
             raise ValueError(f"flash backward {kind}: {name} must be contiguous on {q.device}")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"batch x heads {b * h} exceeds the grid limit {_MAX_GRID_Y}")
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
-    fn = getattr(build.load_attention_library(), build.attn_entry_name(kind, dt, d))
+    if strides is None:
+        strides = [_tma_strides(x) for x in (q, k, v, do)]
+    strides = (ctypes.c_longlong * 12)(*(x for st in strides for x in st[:3]))
+    fn = getattr(build.load_attention_library(), build.attn_entry_name(f"{kind}_wgmma" if wgmma else kind, dt, d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -491,6 +583,7 @@ def _launch_bwd(kind: str, q, k, v, do, lse, delta, outs, tab_minor, row_start, 
             q_offset, int(causal),
             ctypes.addressof(strides),
             1.0 / math.sqrt(d),
+            *((cluster,) if wgmma and kind == "dkv" else ()),
             stream,
         )
     if rc != 0:
@@ -520,11 +613,12 @@ def sfc_flash_bwd_dq(
 ) -> torch.Tensor:
     """dQ (B, S, H, D, in q's type) over the q-major band table.
 
-    On a CUDA tensor this launches the dQ kernel (tile `kernel_chunks()`;
-    the chunks must be that or None) and adds one to
-    ``sfc_flash_bwd_dq.launches``.  On a CPU tensor it runs
-    `sfc_flash_bwd_dq_plain` (chunks default to the kernel's) and counts
-    nothing."""
+    On a CUDA tensor this launches a dQ kernel (tile `kernel_chunks()`;
+    the chunks must be that or None): ``flash_bwd_dq_wgmma_kernel`` where
+    `uses_bwd_wgmma_kernel` says so, else ``flash_bwd_dq_kernel``; it adds
+    one to ``sfc_flash_bwd_dq.launches`` and to ``launches_by_kernel[(kernel,
+    1)]``.  On a CPU tensor it runs `sfc_flash_bwd_dq_plain` (chunks default
+    to the kernel's) and counts nothing."""
     seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
     kw = dict(causal=causal, seq_q=seq_q, seq_k=seq_k, q_offset=q_offset)
     if q.device.type == "cpu":
@@ -538,8 +632,10 @@ def sfc_flash_bwd_dq(
     tab_k, row_start = _device_band(nq, nk, bool(causal), int(q_offset), q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel():
-        _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), tab_k, row_start, **kw)
+        wgmma, strides = _bwd_route(q, k, v, do)
+        _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), tab_k, row_start, wgmma=wgmma, strides=strides, **kw)
         sfc_flash_bwd_dq.launches += 1
+        sfc_flash_bwd_dq.launches_by_kernel[("flash_bwd_dq_wgmma_kernel" if wgmma else "flash_bwd_dq_kernel", 1)] += 1
     return dq
 
 
@@ -563,15 +659,23 @@ def sfc_flash_bwd_dkv(
     resident while its q heads stream through, so no per-q-head copies
     and no reduction pass.
 
-    On a CUDA tensor this launches the dK/dV kernel, whose tile is
+    On a CUDA tensor this launches a dK/dV kernel, whose tile is
     ``build.ATTN_DKV_TILE`` for the input type (the chunks must be that or
-    None), and adds one to ``sfc_flash_bwd_dkv.launches``.  On a CPU
-    tensor it runs `sfc_flash_bwd_dkv_plain` and counts nothing."""
+    None): where `uses_bwd_wgmma_kernel` says so
+    ``flash_bwd_dkv_wgmma_kernel``, a cluster of C CTAs per k tile
+    (`bwd_wgmma_grid`) that sums its CTAs' parts of the group after the
+    walk, else ``flash_bwd_dkv_kernel``; it adds one to
+    ``sfc_flash_bwd_dkv.launches`` and to ``launches_by_kernel[(kernel,
+    C)]`` (the tile kernel's C: 1).  On a CPU tensor it runs
+    `sfc_flash_bwd_dkv_plain` in the order the card would take for these
+    operands (with `H100_SMS` SMs) and counts nothing."""
     seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
     kw = dict(causal=causal, seq_q=seq_q, seq_k=seq_k, q_offset=q_offset)
     if q.device.type == "cpu":
         qc, kc = build.ATTN_TILE
-        return sfc_flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_chunk=q_chunk or qc, k_chunk=k_chunk or kc, **kw)
+        parts = _dkv_cluster(q, k, H100_SMS) if _bwd_route(q, k, v, do)[0] else 1
+        return sfc_flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_chunk=q_chunk or qc, k_chunk=k_chunk or kc,
+                                       group_parts=parts, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"sfc_flash_bwd_dkv runs on cuda or cpu tensors, got {q.device}")
     if q.dtype not in _KERNEL_DTYPES:
@@ -584,13 +688,20 @@ def sfc_flash_bwd_dkv(
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     if dk.numel():
-        _launch_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), tab_q, row_start, **kw)
+        wgmma, strides = _bwd_route(q, k, v, do)
+        cluster = _dkv_cluster(q, k, sm_count(q.device)) if wgmma else 1
+        _launch_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), tab_q, row_start, wgmma=wgmma, cluster=cluster,
+                    strides=strides, **kw)
         sfc_flash_bwd_dkv.launches += 1
+        sfc_flash_bwd_dkv.launches_by_kernel[("flash_bwd_dkv_wgmma_kernel" if wgmma else "flash_bwd_dkv_kernel",
+                                              cluster)] += 1
     return dk, dv
 
 
 sfc_flash_bwd_dq.launches = 0
+sfc_flash_bwd_dq.launches_by_kernel = collections.Counter()
 sfc_flash_bwd_dkv.launches = 0
+sfc_flash_bwd_dkv.launches_by_kernel = collections.Counter()
 
 
 def _check_decode(q, k, v, valid_len):

@@ -564,20 +564,245 @@ def test_flash_bwd_kernels_match_plain_versions_on_card(dtype, case):
     }[case]
     q, k, v = _attn_inputs(b, s, t, h, hkv, d, dt, seed=23)
     do = _attn_inputs(b, s, t, h, hkv, d, dt, seed=24)[0]
+    # bf16 takes the wgmma kernels (K13 a cluster of the group's q heads), f32 the tile kernels
+    wgmma = dtype == "bfloat16"
+    _check_flash_bwd(q, k, v, do, kw, ("flash_bwd_dq_wgmma_kernel", 1) if wgmma else ("flash_bwd_dq_kernel", 1),
+                     _dkv_wgmma_key(q, k) if wgmma else ("flash_bwd_dkv_kernel", 1))
+
+
+def _dkv_wgmma_key(q, k):
+    """K13's launch key on the wgmma kernel: its CTAs a cluster,
+    `bwd_wgmma_grid`'s on this card."""
+    from repro_torch.core.device import sm_count
+
+    _, cluster = tsa.bwd_wgmma_grid("dkv", q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                                    sm_count(q.device))
+    return "flash_bwd_dkv_wgmma_kernel", cluster
+
+
+def _check_flash_bwd(q, k, v, do, kw, dq_kernel, dkv_kernel):
+    """One K12 and one K13 launch on the given (kernel, configuration)
+    keys, each against its plain version in the same order (K13's parts of
+    the group: its configuration, its CTAs a cluster)."""
+    dt = q.dtype
     o, lse = tsa.sfc_flash_fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
     before = (tsa.sfc_flash_bwd_dq.launches, tsa.sfc_flash_bwd_dkv.launches)
-    dq = tsa.sfc_flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-    dk, dv = tsa.sfc_flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq, (dk, dv) = _launched_bwd(q, k, v, do, lse, delta, kw, dq_kernel, dkv_kernel)
     torch.cuda.synchronize()
     assert (tsa.sfc_flash_bwd_dq.launches, tsa.sfc_flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
     qc, kc = tsa.kernel_chunks()
     want_dq = tsa.sfc_flash_bwd_dq_plain(q, k, v, do, lse, delta, q_chunk=qc, k_chunk=kc, **kw)
-    dqc, dkc = build.ATTN_DKV_TILE[build.DTYPE_NAMES[dtype]]
-    want_dk, want_dv = tsa.sfc_flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_chunk=dqc, k_chunk=dkc, **kw)
+    dqc, dkc = build.ATTN_DKV_TILE[build.DTYPE_NAMES[str(dt).split(".")[1]]]
+    want_dk, want_dv = tsa.sfc_flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_chunk=dqc, k_chunk=dkc,
+                                                   group_parts=dkv_kernel[1], **kw)
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert got.dtype == dt and got.shape == want.shape
         assert _agree(got, want, dt)
+
+
+def _launched_bwd(q, k, v, do, lse, delta, kw, dq_kernel, dkv_kernel):
+    """(dQ, (dK, dV)), asserting the one (kernel, configuration) key each
+    wrapper's launches_by_kernel counted."""
+    out = []
+    for fn, key in ((tsa.sfc_flash_bwd_dq, dq_kernel), (tsa.sfc_flash_bwd_dkv, dkv_kernel)):
+        before = dict(fn.launches_by_kernel)
+        out.append(fn(q, k, v, do, lse, delta, **kw))
+        added = {k_: n - before.get(k_, 0) for k_, n in fn.launches_by_kernel.items() if n != before.get(k_, 0)}
+        assert added == {key: 1}, (fn.__name__, added)
+    return tuple(out)
+
+
+def _strided_qkv(b, s, h, hkv, d, dtype, seed):
+    """q, k, v as the model's views of one fused (B, S, (H + 2 Hkv) D)
+    projection: strided sequence rows, heads D apart."""
+    rng = np.random.default_rng(seed)
+    fused = torch.from_numpy(rng.standard_normal((b, s, (h + 2 * hkv) * d)).astype(np.float32)).to("cuda", dtype)
+    q = fused[..., :h * d].view(b, s, h, d)
+    k = fused[..., h * d:(h + hkv) * d].view(b, s, hkv, d)
+    v = fused[..., (h + hkv) * d:].view(b, s, hkv, d)
+    return q, k, v
+
+
+# (b, s, t, h, hkv, d, causal keywords, strided): GQA 8:1, a group of 16
+# past the 8-CTA cluster, and one group (olmoe's 16 / 16 heads) on the
+# wgmma kernels; the model's strided views of a fused projection; ragged
+# rows past every TMA edge
+BWD_WGMMA_CASES = {
+    "gqa_8_to_1": ((2, 256, 256, 32, 4, 128), dict(causal=True), False),
+    "gqa_16_to_1": ((1, 300, 300, 16, 1, 128), dict(causal=True), False),
+    "groups_1_olmoe": ((2, 256, 256, 16, 16, 128), dict(causal=True), False),
+    "strided_fused_qkv_ragged": ((2, 190, 190, 8, 2, 128), dict(causal=True), True),
+    "d64_ragged_q_offset": ((1, 77, 150, 6, 2, 64), dict(causal=True, q_offset=50), False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BWD_WGMMA_CASES))
+def test_bwd_wgmma_kernels_match_plain_versions_on_card(case):
+    _card()
+    (b, s, t, h, hkv, d), kw, strided = BWD_WGMMA_CASES[case]
+    if strided:
+        q, k, v = _strided_qkv(b, s, h, hkv, d, torch.bfloat16, seed=25)
+        assert not q.is_contiguous() and q.stride()[1] == (h + 2 * hkv) * d
+    else:
+        q, k, v = _attn_inputs(b, s, t, h, hkv, d, torch.bfloat16, seed=25)
+    do = _attn_inputs(b, s, t, h, hkv, d, torch.bfloat16, seed=26)[0]
+    _check_flash_bwd(q, k, v, do, kw, ("flash_bwd_dq_wgmma_kernel", 1), _dkv_wgmma_key(q, k))
+
+
+@pytest.mark.cuda
+def test_bwd_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
+    """K12 and K13 on the wgmma kernels keep nothing on the device between
+    launches: a CUDA graph of both replays to the eager results bitwise, and
+    the replays count no launch."""
+    _card()
+    q, k, v = _attn_inputs(2, 256, 256, 32, 8, 128, torch.bfloat16, seed=27)
+    do = _attn_inputs(2, 256, 256, 32, 8, 128, torch.bfloat16, seed=28)[0]
+    o, lse = tsa.sfc_flash_fwd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+
+    def step():
+        return (tsa.sfc_flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+                *tsa.sfc_flash_bwd_dkv(q, k, v, do, lse, delta, causal=True))
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    counts = (dict(tsa.sfc_flash_bwd_dq.launches_by_kernel), dict(tsa.sfc_flash_bwd_dkv.launches_by_kernel))
+    assert counts[0][("flash_bwd_dq_wgmma_kernel", 1)] >= 3 and counts[1][_dkv_wgmma_key(q, k)] >= 3
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(out, eager))
+    assert (dict(tsa.sfc_flash_bwd_dq.launches_by_kernel), dict(tsa.sfc_flash_bwd_dkv.launches_by_kernel)) == counts
+
+
+@pytest.mark.cuda
+def test_calls_the_bwd_wgmma_rule_refuses_land_on_the_tile_kernels_on_card():
+    """A kv cache broadcast over the batch (stride 0, which a tensor map
+    does not take) and an f32 call take the 64 x 64 tile kernels; a wgmma
+    launch that the kernel refuses (a cluster that does not divide the
+    group) raises, with no fallback and no count."""
+    _card()
+    q, k, v = _attn_inputs(2, 100, 100, 8, 2, 128, torch.bfloat16, seed=29)
+    do = _attn_inputs(2, 100, 100, 8, 2, 128, torch.bfloat16, seed=30)[0]
+    kb, vb = k[:1].expand(2, -1, -1, -1), v[:1].expand(2, -1, -1, -1)
+    assert kb.stride(0) == 0
+    _check_flash_bwd(q, kb, vb, do, dict(causal=True), ("flash_bwd_dq_kernel", 1), ("flash_bwd_dkv_kernel", 1))
+    o, lse = tsa.sfc_flash_fwd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    tab_q, rows = tsa._device_band(2, 2, True, 0, q.device, 64, 64, True)
+    counts = (tsa.sfc_flash_bwd_dkv.launches, dict(tsa.sfc_flash_bwd_dkv.launches_by_kernel))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tsa._launch_bwd("dkv", q, k, v, do, lse, delta, (torch.empty_like(k), torch.empty_like(v)), tab_q, rows,
+                        causal=True, seq_q=100, seq_k=100, q_offset=0, wgmma=True, cluster=3)
+    assert (tsa.sfc_flash_bwd_dkv.launches, dict(tsa.sfc_flash_bwd_dkv.launches_by_kernel)) == counts
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    _check_flash_bwd(q, k, v, do, dict(causal=True), ("flash_bwd_dq_kernel", 1), ("flash_bwd_dkv_kernel", 1))
+
+
+
+# the launch rule's table: (dtype, head dim, strides of q / k / v / dO,
+# bases) -> the wgmma kernels?  Strides are (batch, seq, head, dim)
+# in elements, as `_tma_strides` gives them.
+_QS, _KS = (256 * 32 * 128, 32 * 128, 128, 1), (256 * 8 * 128, 8 * 128, 128, 1)
+_FUSED = (256 * 48 * 128, 48 * 128, 128, 1)  # views of a fused (B, S, (32 + 2 * 8) * 128) projection
+BWD_RULE_TABLE = {
+    "train_bf16_d128": (torch.bfloat16, 128, (_QS, _KS, _KS, _QS), (0, 4096, 8192, 16), True),
+    "fused_projection_views": (torch.bfloat16, 128, (_FUSED, _FUSED, _FUSED, _QS), (0, 8192, 10240, 64), True),
+    "d64": (torch.bfloat16, 64, ((64, 64, 64, 1),) * 4, (0, 16, 32, 48), True),
+    "f32": (torch.float32, 128, (_QS, _KS, _KS, _QS), (0, 4096, 8192, 16), False),
+    "fp16": (torch.float16, 128, (_QS, _KS, _KS, _QS), (0, 4096, 8192, 16), False),
+    "d16_reduced": (torch.bfloat16, 16, ((16, 16, 16, 1),) * 4, (0, 16, 32, 48), False),
+    "base_8_bytes": (torch.bfloat16, 128, (_QS, _KS, _KS, _QS), (0, 4096, 8200, 16), False),
+    "row_stride_not_16_bytes": (torch.bfloat16, 128, (_QS, (1, 132, 128, 1), _KS, _QS), (0, 16, 32, 48), False),
+    "strided_dim": (torch.bfloat16, 128, (_QS, (1, 1024, 128, 2), _KS, _QS), (0, 16, 32, 48), False),
+    "zero_batch_stride": (torch.bfloat16, 128, (_QS, (0, 1024, 128, 1), _KS, _QS), (0, 16, 32, 48), False),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_RULE_TABLE))
+def test_bwd_wgmma_launch_rule_table(case):
+    dtype, d, strides, bases, want = BWD_RULE_TABLE[case]
+    assert tsa.uses_bwd_wgmma_kernel(dtype, d, strides, bases) is want
+
+
+def test_tma_strides_replace_what_a_dim_of_extent_one_leaves_arbitrary():
+    x = torch.zeros(2000, dtype=torch.bfloat16).as_strided((1, 5, 1, 64), (7, 320, 3, 1))
+    assert tsa._tma_strides(x) == (1600, 320, 64, 1)
+    y = torch.zeros(2, 256, 48, 128, dtype=torch.bfloat16)[:, :, :32]
+    assert tsa._tma_strides(y) == y.stride() == (256 * 48 * 128, 48 * 128, 128, 1)
+
+
+def test_bwd_wgmma_grids_are_functions_of_the_shapes():
+    # qwen3-4b's training step (2 x 256 tokens, 32 / 8 heads): K12 256 CTAs;
+    # K13 clusters of 2 CTAs, two q heads each (4 would need two waves at one
+    # CTA an SM); olmoe's 16 / 16: 128 CTAs of one head
+    assert tsa.bwd_wgmma_grid("dq", 2, 256, 256, 32, 8) == ((4, 64), 1)
+    assert tsa.bwd_wgmma_grid("dkv", 2, 256, 256, 32, 8) == ((8, 16), 2)
+    assert tsa.bwd_wgmma_grid("dkv", 2, 256, 256, 16, 16) == ((4, 32), 1)
+    assert tsa.bwd_wgmma_grid("dq", 1, 2048, 2048, 32, 8) == ((32, 32), 1)
+    # past one wave even at C 1: the smallest C of two waves or more
+    assert tsa.bwd_wgmma_grid("dkv", 1, 2048, 2048, 32, 8) == ((64, 8), 2)
+    assert tsa.bwd_wgmma_grid("dkv", 4, 2048, 2048, 32, 8) == ((32, 32), 1)
+    assert tsa.bwd_wgmma_grid("dkv", 1, 1024, 1024, 64, 1) == ((128, 1), 8)  # 64 heads: at most 8 CTAs a cluster
+    assert tsa.bwd_wgmma_grid("dkv", 1, 190, 250, 32, 8) == ((16, 8), 4)
+    assert tsa.bwd_wgmma_grid("dkv", 2, 256, 256, 32, 8, sm_count=264) == ((16, 16), 4)
+    assert tsa.bwd_wgmma_grid("dkv", 2, 256, 256, 24, 8) == ((4, 16), 1)  # a group of 3: 3 CTAs need two waves
+    with pytest.raises(ValueError):
+        tsa.bwd_wgmma_grid("fwd", 1, 64, 64, 4, 4)
+
+
+def test_bwd_wgmma_entries_and_constants_match_the_compiled_source():
+    src = ATTN_SOURCE.read_text()
+    assert build.MAX_BWD_CLUSTER == int(re.search(r"constexpr int kMaxCluster = (\d+);", src).group(1))
+    for kind in ("DQ", "DKV"):
+        dims = tuple(int(d) for d in re.findall(rf"^SFC_{kind}_WGMMA_ENTRY\((\d+)\)", src, re.MULTILINE))
+        assert dims == build.ATTN_HEAD_DIMS
+    assert build.attn_entry_name("dq_wgmma", "bf16", 128) == "sfc_attn_dq_wgmma_bf16_d128"
+    assert build.attn_entry_name("dkv_wgmma", "bf16", 64) == "sfc_attn_dkv_wgmma_bf16_d64"
+    for kind in ("dq_wgmma", "dkv_wgmma"):
+        with pytest.raises(ValueError):
+            build.attn_entry_name(kind, "f32", 128)
+    # both libraries take Hopper's primitives from the one header
+    hopper = ATTN_SOURCE.with_name("hopper.cuh")
+    assert '#include "hopper.cuh"' in src and '#include "hopper.cuh"' in WGMMA_SOURCE.read_text()
+    assert hopper in build._sources(ATTN_SOURCE) and hopper in build._sources(CU_SOURCE)
+    for fn in ("tma_load_4d", "tensor_map_4d", "wgmma_rs", "wgmma_ss", "desc_sw128", "mbar_wait"):
+        assert re.search(rf"\b{fn}\(", hopper.read_text()), fn
+        assert not re.search(rf"(void|int|uint64_t) {fn}\(", WGMMA_SOURCE.read_text()), fn
+
+
+@pytest.mark.parametrize("dtype,parts", [(torch.bfloat16, 2), (torch.float32, 1)])
+def test_cpu_dkv_wrapper_sums_in_the_order_the_card_takes(dtype, parts):
+    """On a CPU tensor the dK/dV wrapper runs the plain version in the order
+    the card's kernel for these operands would (`H100_SMS` SMs): in parts
+    of the group, one a CTA of K13's cluster, for a call the wgmma kernel
+    takes; one accumulator else."""
+    rng = np.random.default_rng(32)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dtype)
+                   for sh in ((2, 256, 32, 64), (2, 256, 8, 64), (2, 256, 8, 64), (2, 256, 32, 64)))
+    o, lse = tsa.sfc_flash_fwd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    assert tsa._bwd_route(q, k, v, do)[0] is (parts > 1)
+    before = dict(tsa.sfc_flash_bwd_dkv.launches_by_kernel)
+    got = tsa.sfc_flash_bwd_dkv(*args, causal=True)
+    assert dict(tsa.sfc_flash_bwd_dkv.launches_by_kernel) == before
+    want = tsa.sfc_flash_bwd_dkv_plain(*args, causal=True, q_chunk=64, k_chunk=64, group_parts=parts)
+    other = tsa.sfc_flash_bwd_dkv_plain(*args, causal=True, q_chunk=64, k_chunk=64, group_parts=4 // parts)
+    for g, w, o_ in zip(got, want, other):
+        assert torch.equal(g, w)
+        assert _agree(g, o_, torch.bfloat16)
+    with pytest.raises(ValueError, match="divide"):
+        tsa.sfc_flash_bwd_dkv_plain(*args, causal=True, q_chunk=64, k_chunk=64, group_parts=3)
 
 
 @pytest.mark.cuda

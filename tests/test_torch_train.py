@@ -207,11 +207,19 @@ FLASH_BWD_CASES = [
 ]
 
 
+# the plain versions also at the CUDA kernels' 64 x 64 tile (GQA 4:1 and
+# one group past a q_offset), where the bf16 calls take the wgmma kernels
+FLASH_BWD_PLAIN_CASES = FLASH_BWD_CASES + [
+    (1, 70, 130, 8, 2, 16, True, 0, 64, 64),
+    (1, 40, 100, 4, 4, 16, True, 20, 64, 64),
+]
+
+
 def _pad(x, length):
     return np.pad(x, ((0, 0), (0, length - x.shape[1])) + ((0, 0),) * (x.ndim - 2))
 
 
-@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,q_offset,qc,kc", FLASH_BWD_CASES)
+@pytest.mark.parametrize("b,s,t,h,hkv,d,causal,q_offset,qc,kc", FLASH_BWD_PLAIN_CASES)
 def test_flash_bwd_plain_versions_match_pallas_kernels(b, s, t, h, hkv, d, causal, q_offset, qc, kc):
     q, k, v, do = _arrays(5, (b, s, h, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, h, d), scale=1.0)
     sp, tp = -(-s // qc) * qc, -(-t // kc) * kc
@@ -231,9 +239,12 @@ def test_flash_bwd_plain_versions_match_pallas_kernels(b, s, t, h, hkv, d, causa
     tdelta = (tdo * to).sum(-1)
     targs = (tq, tk_, tv, tdo, tlse, tdelta)
     _close_grad(tsa.sfc_flash_bwd_dq_plain(*targs, q_chunk=qc, k_chunk=kc, **fkw), want_dq)
-    dk, dv = tsa.sfc_flash_bwd_dkv_plain(*targs, q_chunk=qc, k_chunk=kc, **fkw)
-    _close_grad(dk, want_dk)
-    _close_grad(dv, want_dv)
+    for parts in range(1, h // hkv + 1):  # 1: the tile kernel's order; the wgmma kernel's parts of the group
+        if (h // hkv) % parts:
+            continue
+        dk, dv = tsa.sfc_flash_bwd_dkv_plain(*targs, q_chunk=qc, k_chunk=kc, group_parts=parts, **fkw)
+        _close_grad(dk, want_dk)
+        _close_grad(dv, want_dv)
     # the CPU wrappers take the plain versions
     _close_grad(tsa.sfc_flash_bwd_dq(*targs, q_chunk=qc, k_chunk=kc, **fkw), want_dq)
 
