@@ -287,8 +287,10 @@ GEMM_SOURCE = "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu"
 
 
 def kernel_source(name: str) -> str:
-    """The file in the repository that holds a GEMM kernel's body."""
-    return WGMMA_SOURCE if "wgmma" in name else GEMM_SOURCE
+    """The file in the repository that holds a GEMM kernel: the wgmma
+    header's K2 and K7; the TN wgmma kernels (K8, K10) and their flush are
+    sfc_gemm_fused.cu's, over the header's main loop."""
+    return WGMMA_SOURCE if "wgmma" in name and "tn_" not in name else GEMM_SOURCE
 
 
 def time_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
@@ -778,19 +780,29 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
             del cats
         else:
             matmul_ms = time_ms(lambda i: torch.matmul(a, ws[i % copies]), reps=reps, graph=True)
-        library_ms = None
+        library_ms, library_note = None, None
         if not gm.glu and gm.k % kl == 0:
-            # the same copies from one torch.matmul over the K slabs (bf16
-            # out; no single call writes the GLU's f32 copies)
+            # the same copies from one torch.matmul over the K slabs (bf16 out)
             a_sl = a.unflatten(-1, (kl, gm.k // kl)).movedim(-2, -3)
             w_sl = [w.view(kl, gm.k // kl, gm.n) for w in ws]
             library_ms = time_ms(lambda i: torch.matmul(a_sl, w_sl[i % copies]), reps=reps, graph=True)
             del a_sl, w_sl
+        elif gm.k % kl == 0:
+            # the GLU product's f32 copies from one torch.bmm over the K
+            # slabs, the batch folded into the rows (a (L, rows, K / L) view)
+            a_sl = a.reshape(-1, kl, gm.k // kl).transpose(0, 1)
+            w_sl = [w.view(kl, gm.k // kl, gm.n) for w in ws]
+            try:
+                library_ms = time_ms(lambda i: torch.bmm(a_sl, w_sl[i % copies], out_dtype=torch.float32),
+                                     reps=reps, graph=True)
+            except (RuntimeError, NotImplementedError, TypeError) as exc:
+                library_note = f"torch.bmm(out_dtype=torch.float32) has no kernel here: {exc}"[:200]
+            del a_sl, w_sl
         plain_ms = time_ms(k4_plain, reps=2, warmup=1)
         bound_ms, bound_by = gm.bound()
         row = dict(gemm=gm, kernel=gm.kernel, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library_ms, together_ms=together_ms, fused_ms=fused_ms,
-                   matmul_ms=matmul_ms)
+                   bound_by=bound_by, library_ms=library_ms, library_note=library_note, together_ms=together_ms,
+                   fused_ms=fused_ms, matmul_ms=matmul_ms)
         rows.append(row)
         if kl > 1:
             # K6 timed on copies rotated past the L2, as its bound counts
@@ -924,10 +936,8 @@ def phase_backward_gemms(torch, gemms, tk, ops):
         # enough input copies that a timed loop streams them from HBM
         copies = max(1, math.ceil(4 * L2_BYTES / gm.bytes(2)))
         ins = [operands(gm, dt) for _ in range(copies)]
-        if gm.kind == "nt":  # the wgmma NT kernel and its C tile, or the tile kernel
-            got, (name, config) = launched(tk.sfc_gemm_nt.launches_by_kernel, lambda: fn(*ins[0][0]))
-        else:
-            got, (name, config) = fn(*ins[0][0]), ("tn_kernel", 1)
+        # the wgmma kernel and its C tile, or the tile kernel
+        got, (name, config) = launched(fn.launches_by_kernel, lambda: fn(*ins[0][0]))
         want = plain_fn(*ins[0][0], bm=bm, bn=bn)
         torch.cuda.synchronize()
         ok, err, worst = within_all(got, want, dt)
@@ -1047,12 +1057,15 @@ def phase_update_gemms(torch, cfg, tk, opt):
         for dt in (torch.bfloat16, torch.float32):
             x, dcs, sets = inputs(gm, dt)
             got_sets, want_sets = clone(sets), clone(sets)
-            got = update(tk.sfc_gemm_tn, x, dcs, got_sets, dt)
-            norm_only = tk.sfc_gemm_tn(x, dcs[0], dcs[1] if gm.dual else None, norm=True)
+            got, (name, config) = launched(tk.sfc_gemm_tn.launches_by_kernel,
+                                           lambda: update(tk.sfc_gemm_tn, x, dcs, got_sets, dt))
+            norm_only, norm_kernel = launched(tk.sfc_gemm_tn.launches_by_kernel,
+                                              lambda: tk.sfc_gemm_tn(x, dcs[0], dcs[1] if gm.dual else None, norm=True))
             torch.cuda.synchronize()
             want = update(tk.sfc_gemm_tn_plain, x, dcs, want_sets, dt, bm=64, bn=64)
             ok, norm_err, worst = within(got, want, torch.float32)
             res = {"case": f"tn_update:{gm.name}", "dtype": str(dt), "shape": [gm.m, gm.k, gm.n], "dual": gm.dual,
+                   "kernel": name, "config": config, "norm_kernel": list(norm_kernel),
                    "norm_ok": ok, "norm_max_abs_err": norm_err, "norm_err_over_bound": worst,
                    "norm_mode_bitwise": bool(torch.equal(norm_only, got))}
             err, worst_state, w_bitwise = 0.0, 0.0, True
@@ -1101,7 +1114,7 @@ def phase_update_gemms(torch, cfg, tk, opt):
                 g2 = dataclasses.replace(gm, mode=mode)
                 bound_ms, bound_by = _bound(g2.flops(), g2.bytes(2))
                 rows.append(dict(gemm=g2, max_abs_err=err if mode == "update" else norm_err, ms=ms, plain_ms=plain_ms,
-                                 library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by))
+                                 library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by, kernel=name, config=config))
             del ins, x, dcs, sets
             torch.cuda.empty_cache()
     return rows, checks
@@ -1299,7 +1312,7 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
     cfg4 = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32")
     kernels = {"sfc_gemm_tn": tk.sfc_gemm_tn, "sfc_gemm_grouped_tn": tk.sfc_gemm_grouped_tn}
     opt_cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3, clip_norm=FUSED_CHECK_CLIP)
-    runs = {}
+    runs, tn_kernels = {}, {}
     for name, fused in (("unfused", False), ("fused", True)):
         model = build_model(cfg4, device="cuda").init(torch.Generator(device="cuda").manual_seed(7))
         step = make_train_step(model, opt_cfg, backend=BackendConfig(gemm_backend="sfc_cuda", attn_impl="sfc",
@@ -1307,14 +1320,19 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
         state = opt.adamw_init(dict(model.named_parameters()))
         metrics = []
         modes0 = {k: dict(fn.launches_by_mode) for k, fn in kernels.items()}
+        by_kernel0 = {k: collections.Counter(fn.launches_by_kernel) for k, fn in kernels.items()}
         for batch in batches[:2]:
             state, m = step(state, batch)
             metrics.append({"loss": m["loss"], "grad_norm": m["grad_norm"]})
         torch.cuda.synchronize()
         modes = {k: {mode: v - modes0[k].get(mode, 0) for mode, v in fn.launches_by_mode.items()}
                  for k, fn in kernels.items()}
+        tn_kernels[name] = {k: by_kernel(collections.Counter(fn.launches_by_kernel) - by_kernel0[k])
+                            for k, fn in kernels.items()}
         runs[name] = (model, step, state, metrics, modes)
     (mu_, _, su, metu, _), (mf, stepf, sf, metf, modesf) = runs["unfused"], runs["fused"]
+    # the f32 cut's TN launches stay on the 64 x 64 tile kernels
+    tile_only = not any("wgmma" in kn for run in tn_kernels.values() for ks in run.values() for kn in ks)
     # routed a layer: q, k, v, o and the GLU pair and w_out, or q, k, v, o
     # and the two expert projections; the head.  The MoE router stays
     # unrouted (as in the JAX package): its dW runs K8's dW mode.
@@ -1353,7 +1371,8 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
            "grad_norms": {"fused": [float(m["grad_norm"]) for m in metf],
                           "unfused": [float(m["grad_norm"]) for m in metu]},
            "worst_err_over_bound": worst, "within_f32_bound": ok, "no_weight_has_grad": no_grad,
-           "launches_by_mode_2_steps": modesf, "nonfinite_step_skipped_bitwise": skipped}
+           "launches_by_mode_2_steps": modesf, "tn_launches_by_kernel_2_steps": tn_kernels,
+           "tn_on_tile_kernels": tile_only, "nonfinite_step_skipped_bitwise": skipped}
     clean = True
     if abft:
         out["abft"] = {"mode": abft, "sdc_detections": abft_lib.runtime_sdc_total(),
@@ -1361,21 +1380,33 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
                        "max_residual_over_tol": abft_lib.runtime_max_ratio()}
         clean = out["abft"]["sdc_detections"] == 0 and out["abft"]["checks"] > 0
     del mf, sf, stepf, pf, before, slots
-    if not (ok and binds and no_grad and counts_ok and skipped and clean):
+    if not (ok and binds and no_grad and counts_ok and skipped and clean and tile_only):
         raise AssertionError(f"the fused step disagrees with the unfused one: {out}")
     return out
 
 
 # kernel-name fragments of the port's kernels in a profiler trace
 _KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("sfc_gemm_wgmma_kernel", "K2 wgmma"), ("nt_kernel", "K7"),
-                  ("nt_wgmma_kernel", "K7 wgmma"), ("tn_kernel", "K8"),
-                  ("tn_update_kernel", "K8 norm/update"), ("flash_fwd_kernel", "K11"),
+                  ("nt_wgmma_kernel", "K7 wgmma"), ("tn_kernel", "K8"), ("tn_wgmma_kernel", "K8 wgmma"),
+                  ("tn_update_kernel", "K8 norm/update"), ("tn_update_wgmma_kernel", "K8 wgmma norm/update"),
+                  ("flash_fwd_kernel", "K11"),
                   ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"),
                   ("flash_bwd_dq_wgmma_kernel", "K12 wgmma"), ("flash_bwd_dkv_wgmma_kernel", "K13 wgmma"))
 # the MoE step's: the grouped kernels first, since "nt_kernel",
-# "tn_kernel" and "tn_update_kernel" are fragments of their names too
+# "tn_kernel", "tn_update_kernel" and their wgmma names are fragments of
+# their names too
 _MOE_KERNEL_GROUPS = (("sfc_gemm_grouped_kernel", "K3"), ("grouped_nt_kernel", "K9"), ("grouped_tn_kernel", "K10"),
-                      ("grouped_tn_update_kernel", "K10 norm/update"), *_KERNEL_GROUPS)
+                      ("grouped_tn_wgmma_kernel", "K10 wgmma"), ("grouped_tn_update_kernel", "K10 norm/update"),
+                      ("grouped_tn_update_wgmma_kernel", "K10 wgmma norm/update"), *_KERNEL_GROUPS)
+
+
+def _is_update(key: str) -> bool:
+    """Whether a profiler key of a [grouped_]tn_update[_wgmma]_kernel is its
+    update instantiation: the UPDATE template argument, the tile kernel's
+    third (<T, DUAL, UPDATE, SR>), the wgmma kernel's second (<DUAL, UPDATE>)."""
+    if "tn_update_wgmma_kernel<" in key:
+        return key.split("tn_update_wgmma_kernel<")[1].split(">")[0].split(", ")[1] == "true"
+    return key.split("tn_update_kernel<")[1].split(", ")[2] == "true"
 
 
 def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS):
@@ -1408,9 +1439,8 @@ def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS)
         if ev.device_type != DeviceType.CUDA or us <= 0:
             continue
         label = next((lab for frag, lab in kernel_groups if frag in ev.key), "other")
-        if label.endswith(" norm/update"):  # [grouped_]tn_update_kernel<T, DUAL, UPDATE, SR>
-            update = ev.key.split("tn_update_kernel<")[1].split(", ")[2] == "true"
-            label = label.removesuffix("norm/update") + ("update" if update else "norm")
+        if label.endswith(" norm/update"):
+            label = label.removesuffix("norm/update") + ("update" if _is_update(ev.key) else "norm")
         groups[label] += us / 1e3
         top.append((us / 1e3, ev.key[:80]))
     busy = sum(groups.values()) / 1e3
@@ -1428,16 +1458,19 @@ def _tn_mode_counts(counted):
 
 
 def _kernel_counts(counted):
-    """K1/K2's, K7's, K12's and K13's launches on their wgmma kernels and on
-    the 64 x 64 tile kernels (the cluster kernel takes none of a training
-    step's)."""
+    """K1/K2's, K7's, K8's, K10's, K12's and K13's launches on their wgmma
+    kernels and on the 64 x 64 tile kernels (the cluster kernel takes none
+    of a training step's)."""
     out = {}
-    for name, tile in (("sfc_gemm_fused", "sfc_gemm_fused_kernel"), ("sfc_gemm_nt", "nt_kernel"),
-                       ("sfc_flash_bwd_dq", "flash_bwd_dq_kernel"), ("sfc_flash_bwd_dkv", "flash_bwd_dkv_kernel")):
+    for name, tiles in (("sfc_gemm_fused", ("sfc_gemm_fused_kernel",)), ("sfc_gemm_nt", ("nt_kernel",)),
+                        ("sfc_gemm_tn", ("tn_kernel", "tn_update_kernel")),
+                        ("sfc_gemm_grouped_tn", ("grouped_tn_kernel", "grouped_tn_update_kernel")),
+                        ("sfc_flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+                        ("sfc_flash_bwd_dkv", ("flash_bwd_dkv_kernel",))):
         if name in counted:
             kernels = by_kernel(counted[name].launches_by_kernel)
             out[f"{name}:wgmma"] = sum(n for k, n in kernels.items() if "wgmma" in k)
-            out[f"{name}:tile"] = kernels.get(tile, 0)
+            out[f"{name}:tile"] = sum(kernels.get(t, 0) for t in tiles)
     return out
 
 
@@ -1519,15 +1552,15 @@ def phase_train(torch, cfg, build_trainer, counted):
     layers = {"sfc_flash_fwd": cfg.n_layers, "sfc_flash_bwd_dq": cfg.n_layers, "sfc_flash_bwd_dkv": cfg.n_layers,
               "sfc_flash_bwd_dq:wgmma": cfg.n_layers, "sfc_flash_bwd_dq:tile": 0,
               "sfc_flash_bwd_dkv:wgmma": cfg.n_layers, "sfc_flash_bwd_dkv:tile": 0}
-    # every K1/K2 and K7 launch (512 bf16 token rows) on the wgmma kernels
+    # every K1/K2, K7 and K8 launch (512 bf16 token rows) on the wgmma kernels
     want = {"sfc_gemm_fused": per_step, "sfc_gemm_nt": per_step, "sfc_gemm_tn": per_step, **layers,
             "sfc_gemm_tn:dw": per_step, "sfc_gemm_tn:norm": 0, "sfc_gemm_tn:update": 0,
             "sfc_gemm_fused:wgmma": per_step, "sfc_gemm_fused:tile": 0, "sfc_gemm_nt:wgmma": per_step,
-            "sfc_gemm_nt:tile": 0}
+            "sfc_gemm_nt:tile": 0, "sfc_gemm_tn:wgmma": per_step, "sfc_gemm_tn:tile": 0}
     # the fused step: K8 runs its norm mode in the backward and its update
     # mode after it, and never writes dW
     want_fused = {**want, "sfc_gemm_tn": 2 * per_step, "sfc_gemm_tn:dw": 0, "sfc_gemm_tn:norm": per_step,
-                  "sfc_gemm_tn:update": per_step}
+                  "sfc_gemm_tn:update": per_step, "sfc_gemm_tn:wgmma": 2 * per_step}
     # under ABFT "detect": the same launches, every K1/K2 and K8 one with
     # its checksum lane (K7 and the attention kernels have none)
     want_abft = {**want, "sfc_gemm_fused:abft": per_step, "sfc_gemm_tn:abft": per_step}
@@ -1711,11 +1744,14 @@ def phase_grouped_gemms(torch, gemms, tk):
         copies = max(1, math.ceil(4 * L2_BYTES / gm.bytes(2)))
         ins = [_grouped_operands(torch, gm, dt, gen) for _ in range(copies)]
         args, kw, _ = ins[0]
-        got, want = fn(*args, **gs, **kw), plain_fn(*args, **gs, bm=64, bn=64, **kw)
+        # K10 names the CUDA kernel it launched and its tile
+        got, (name, config) = (launched(fn.launches_by_kernel, lambda: fn(*args, **gs, **kw)) if gm.kind == "tn"
+                               else (fn(*args, **gs, **kw), (None, None)))
+        want = plain_fn(*args, **gs, bm=64, bn=64, **kw)
         torch.cuda.synchronize()
         ok, err, worst = within_all(got, want, dt)
         checks.append({"case": f"{gm.kernel}:{gm.name}", "shape": gm.shape(), "ok": ok, "max_abs_err": err,
-                       "err_over_bound": worst})
+                       "err_over_bound": worst, "kernel": name, "config": config})
         if not ok:
             raise AssertionError(f"{gm.kernel} disagrees with its plain version at {gm}: max err {err}, "
                                  f"err/bound {worst}")
@@ -1726,7 +1762,7 @@ def phase_grouped_gemms(torch, gemms, tk):
         plain_ms = time_ms(lambda i: plain_fn(*args, **gs, bm=64, bn=64, **kw), reps=1, warmup=0)
         bound_ms, bound_by = _bound(gm.flops(), gm.bytes(2))
         rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
+                         bound_ms=bound_ms, bound_by=bound_by, kernel=name, config=config))
         del ins, args
         torch.cuda.empty_cache()
     # the ragged checks: the olmoe widths, four experts, one of them empty
@@ -1741,13 +1777,15 @@ def phase_grouped_gemms(torch, gemms, tk):
         for gm in ragged:
             fn, plain_fn = fns[gm.kind]
             args, kw, _ = _grouped_operands(torch, gm, dtype, gen, rows=RAGGED_GROUPS)
-            got = fn(*args, group_sizes=RAGGED_GROUPS, **kw)
+            got, (name, config) = (launched(fn.launches_by_kernel, lambda: fn(*args, group_sizes=RAGGED_GROUPS, **kw))
+                                   if gm.kind == "tn" else (fn(*args, group_sizes=RAGGED_GROUPS, **kw), (None, None)))
             torch.cuda.synchronize()
             ok, err, worst = within_all(got, plain_fn(*args, group_sizes=RAGGED_GROUPS, bm=64, bn=64, **kw), dtype)
             if gm.kind == "tn":  # the empty expert's weight gradient is exactly zero
                 ok = ok and not any(bool(g[1].any()) for g in (got if gm.glu else [got]))
             checks.append({"case": f"{gm.kernel}:{gm.name}", "dtype": str(dtype), "group_sizes": list(RAGGED_GROUPS),
-                           "shape": gm.shape(), "ok": ok, "max_abs_err": err, "err_over_bound": worst})
+                           "shape": gm.shape(), "ok": ok, "max_abs_err": err, "err_over_bound": worst,
+                           "kernel": name, "config": config})
             if not ok:
                 raise AssertionError(f"{gm.kernel} ragged case {gm.name} ({dtype}) disagrees: max err {err}")
     return rows, checks
@@ -1847,15 +1885,18 @@ def phase_grouped_update_gemms(torch, cfg, tk, opt):
         x, dcs, sets = inputs(gm, dt, sizes)
         got_sets, want_sets = [tuple(v.clone() for v in st) for st in sets], [tuple(v.clone() for v in st)
                                                                                for st in sets]
-        got = update(tk.sfc_gemm_grouped_tn, x, dcs, got_sets, sizes, dt)
-        norm_only = tk.sfc_gemm_grouped_tn(x, *dcs, group_sizes=sizes, norm=True)
+        got, (name, config) = launched(tk.sfc_gemm_grouped_tn.launches_by_kernel,
+                                       lambda: update(tk.sfc_gemm_grouped_tn, x, dcs, got_sets, sizes, dt))
+        norm_only, norm_kernel = launched(tk.sfc_gemm_grouped_tn.launches_by_kernel,
+                                          lambda: tk.sfc_gemm_grouped_tn(x, *dcs, group_sizes=sizes, norm=True))
         torch.cuda.synchronize()
         want = []
         plain_ms = time_ms(lambda i: want.append(update(tk.sfc_gemm_grouped_tn_plain, x, dcs, want_sets, sizes, dt,
                                                         bm=64, bn=64)), reps=1, warmup=0)
         ok, norm_err, worst = within(got, want[0], torch.float32)
         res = {"case": f"sfc_gemm_grouped_tn:update:{case}", "dtype": str(dt), "group_sizes": list(sizes),
-               "shape": {"experts": gm.experts, "k": gm.k, "n": gm.n, "dual": gm.glu}, "norm_ok": ok,
+               "shape": {"experts": gm.experts, "k": gm.k, "n": gm.n, "dual": gm.glu}, "kernel": name,
+               "config": config, "norm_kernel": list(norm_kernel), "norm_ok": ok,
                "norm_max_abs_err": norm_err, "norm_err_over_bound": worst,
                "norm_mode_bitwise": bool(torch.equal(norm_only, got))}
         err, worst_state, w_bitwise, empty_moved = 0.0, 0.0, True, True
@@ -1904,7 +1945,9 @@ def phase_grouped_update_gemms(torch, cfg, tk, opt):
             g2 = dataclasses.replace(gm, mode=mode)
             bound_ms, bound_by = _bound(g2.flops(), g2.bytes(2))
             rows.append(dict(gemm=g2, max_abs_err=res["max_abs_err"] if mode == "update" else res["norm_max_abs_err"],
-                             ms=ms, plain_ms=plain_ms, library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by))
+                             ms=ms, plain_ms=plain_ms, library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             kernel=res["kernel"] if mode == "update" else res["norm_kernel"][0],
+                             config=res["config"] if mode == "update" else res["norm_kernel"][1]))
         del x, dcs, sets
         torch.cuda.empty_cache()
     # the ragged checks: olmoe's widths, four experts, one of them empty
@@ -2166,7 +2209,8 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
             "sfc_gemm_nt:tile": 0,
             "sfc_gemm_grouped": grouped, "sfc_gemm_grouped_nt": grouped, "sfc_gemm_grouped_tn": grouped,
             "sfc_gemm_grouped_tn:dw": grouped, "sfc_gemm_grouped_tn:norm": 0, "sfc_gemm_grouped_tn:update": 0,
-            "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers, "sfc_flash_bwd_dkv": n_layers,
+            "sfc_gemm_tn:wgmma": dense, "sfc_gemm_tn:tile": 0, "sfc_gemm_grouped_tn:wgmma": grouped,
+            "sfc_gemm_grouped_tn:tile": 0, "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers, "sfc_flash_bwd_dkv": n_layers,
             "sfc_flash_bwd_dq:wgmma": n_layers, "sfc_flash_bwd_dq:tile": 0,
             "sfc_flash_bwd_dkv:wgmma": n_layers, "sfc_flash_bwd_dkv:tile": 0}
     # the fused step: K8 and K10 run their norm mode in the backward and
@@ -2176,7 +2220,8 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
     want_fused = {**want, "sfc_gemm_tn": 2 * routed + n_layers, "sfc_gemm_tn:dw": n_layers,
                   "sfc_gemm_tn:norm": routed, "sfc_gemm_tn:update": routed, "sfc_gemm_grouped_tn": 2 * grouped,
                   "sfc_gemm_grouped_tn:dw": 0, "sfc_gemm_grouped_tn:norm": grouped,
-                  "sfc_gemm_grouped_tn:update": grouped}
+                  "sfc_gemm_grouped_tn:update": grouped, "sfc_gemm_tn:wgmma": 2 * routed + n_layers,
+                  "sfc_gemm_grouped_tn:wgmma": 2 * grouped}
     runs, by_shape = {}, {}
     for name, (gemm, impl, fused) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc", False)),
                                       ("sfc_cuda+sfc_attn+fused_optimizer", ("sfc_cuda", "sfc", True)),
@@ -2265,11 +2310,12 @@ def raw_tile_sums(torch, *raws, tile=(LANE_TILE, LANE_TILE)):
 
 
 def kernel_tiles(torch, name, config, *raws):
-    """`raw_tile_sums` over the tiles a K1/K2 launch's lane sums: the
-    wgmma kernel's C tile (``config``, "128x256") over the rows of every
-    batch element together (shared weights fold the batch into the rows),
-    else LANE_TILE x LANE_TILE tiles of each batch element."""
-    if name != "sfc_gemm_wgmma_kernel":
+    """`raw_tile_sums` over the tiles a launch's lane sums: a wgmma
+    kernel's C tile (``config``, "128x256"; K1/K2's over the rows of every
+    batch element together, as shared weights fold the batch into the rows;
+    K8's one set's (K, N) dW), else LANE_TILE x LANE_TILE tiles of each
+    batch element."""
+    if name not in ("sfc_gemm_wgmma_kernel", "tn_wgmma_kernel", "tn_update_wgmma_kernel"):
         return raw_tile_sums(torch, *raws)
     tile = tuple(int(x) for x in config.split("x"))
     return raw_tile_sums(torch, *(c.reshape(-1, c.shape[-1]) for c in raws), tile=tile)
@@ -2482,16 +2528,20 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
             ins = [(r(gm.m, gm.k, dtype=dt), r(gm.m, gm.n, dtype=dt), r(gm.m, gm.n, dtype=dt) if gm.dual else None)
                    for _ in range(copies)]
             x, dc, dc2 = ins[0]
-            on, off = tk.sfc_gemm_tn(x, dc, dc2, abft=True), tk.sfc_gemm_tn(x, dc, dc2)
+            on, (name, config) = launched(tk.sfc_gemm_tn.launches_by_kernel,
+                                          lambda: tk.sfc_gemm_tn(x, dc, dc2, abft=True))
+            off = tk.sfc_gemm_tn(x, dc, dc2)
             off = off if isinstance(off, tuple) else (off,)
             plain, plain_ms = _once_ms(torch, lambda: tk.sfc_gemm_tn_plain(x, dc, dc2, bm=64, bn=64, abft=True))
+            cuda_kernel = name.replace("_kernel", "_abft_kernel")
             for s, d_ in enumerate((dc, dc2) if gm.dual else (dc,)):
                 ref, mag = abft.tn_checksum_ref(x, d_)
-                tiles = raw_tile_sums(torch, x.float().T @ d_.float())
+                tiles = kernel_tiles(torch, name, config, x.float().T @ d_.float())
+                tasks = len(tiles) * (2 if gm.dual else 1)
                 checks.append(_lane_check(torch, abft, f"K8 dW:{gm.name}[{s}]", on[-1][s, 0], plain[-1][s, 0], ref,
                                           mag, gm.m, on[:-1], off, tiles,
                                           _dropped(plain[-1][s, 0], tiles) if gm.name == "train/q" else None,
-                                          dtype=str(dt)))
+                                          dtype=str(dt), kernel=cuda_kernel, config=config))
                 del tiles
             if dt == torch.bfloat16:
                 if gm.name == "train/q":
@@ -2502,10 +2552,9 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
                 off_ms = time_ms(lambda i: tk.sfc_gemm_tn(*ins[i % copies]), reps=reps, graph=True)
                 ref_ms = time_ms(lambda i: [abft.tn_checksum_ref(ins[i % copies][0], d_)
                                             for d_ in ins[i % copies][1:] if d_ is not None], reps=reps, graph=True)
-                sets = 2 if gm.dual else 1
-                tasks = sets * math.ceil(gm.k / 64) * math.ceil(gm.n / 64)
                 rows.append(_lane_row("K8 dW", gm, abs(float(on[-1][0, 0]) - float(plain[-1][0, 0])), ms, off_ms,
-                                      ref_ms, plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), tasks))
+                                      ref_ms, plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), tasks,
+                                      cuda_kernel=cuda_kernel, config=config))
             del ins, x, dc, dc2, on, off, plain
             torch.cuda.empty_cache()
     # K8's update and norm modes at every layer's training shape
@@ -2535,8 +2584,10 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
         for dt in (torch.bfloat16, torch.float32):
             x, dcs, sets = r(gm.m, gm.k, dtype=dt), [r(gm.m, gm.n, dtype=dt) for _ in range(gm.sets)], state(gm, dt)
             on_sets, off_sets = clone(sets), clone(sets)
-            norms_on, chk = update(tk.sfc_gemm_tn, x, dcs, on_sets, dt, abft=True)
+            (norms_on, chk), (name, config) = launched(tk.sfc_gemm_tn.launches_by_kernel,
+                                                       lambda: update(tk.sfc_gemm_tn, x, dcs, on_sets, dt, abft=True))
             norms_off = update(tk.sfc_gemm_tn, x, dcs, off_sets, dt)
+            cuda_kernel = name.replace("_kernel", "_abft_kernel")
             (_, plain_chk), plain_ms = _once_ms(torch, lambda: update(tk.sfc_gemm_tn_plain, x, dcs, clone(sets), dt,
                                                                       bm=64, bn=64, abft=True))
             nnorm_on, nchk = tk.sfc_gemm_tn(x, *dcs, norm=True, abft=True)
@@ -2545,13 +2596,15 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
             off_all = [norms_off, *(t for st in off_sets for t in st)]
             for s, d_ in enumerate(dcs):
                 ref, mag = abft.tn_checksum_ref(x, d_)
-                tiles = raw_tile_sums(torch, x.float().T @ d_.float())
+                tiles = kernel_tiles(torch, name, config, x.float().T @ d_.float())
+                tasks = len(tiles) * gm.sets
                 wrong = _dropped(plain_chk[s, 0], tiles) if gm.name == "train/q" else None
                 checks.append(_lane_check(torch, abft, f"K8 update:{gm.name}[{s}]", chk[s, 0], plain_chk[s, 0], ref,
                                           mag, gm.m, on_all, off_all, tiles, wrong, dtype=str(dt),
-                                          stochastic_round=dt == torch.bfloat16))
+                                          stochastic_round=dt == torch.bfloat16, kernel=cuda_kernel, config=config))
                 checks.append(_lane_check(torch, abft, f"K8 norm:{gm.name}[{s}]", nchk[s, 0], plain_chk[s, 0], ref,
-                                          mag, gm.m, [nnorm_on], [nnorm_off], tiles, wrong, dtype=str(dt)))
+                                          mag, gm.m, [nnorm_on], [nnorm_off], tiles, wrong, dtype=str(dt),
+                                          kernel=cuda_kernel, config=config))
                 del tiles
             if dt == torch.bfloat16:
                 if gm.name == "train/q":
@@ -2578,12 +2631,12 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
                 ref_ms = time_ms(lambda i: [abft.tn_checksum_ref(x, d_) for d_ in dcs], reps=20, graph=True)
                 nms = time_ms(lambda i: tk.sfc_gemm_tn(x, *dcs, norm=True, abft=True), reps=20, graph=True)
                 noff_ms = time_ms(lambda i: tk.sfc_gemm_tn(x, *dcs, norm=True), reps=20, graph=True)
-                tasks = gm.sets * math.ceil(gm.k / 64) * math.ceil(gm.n / 64)
                 err = abs(float(chk[0, 0]) - float(plain_chk[0, 0]))
                 for mode, t_on, t_off in (("update", ms, off_ms), ("norm", nms, noff_ms)):
                     g2 = dataclasses.replace(gm, mode=mode)
                     rows.append(_lane_row(f"K8 {mode}", g2, err, t_on, t_off, ref_ms, plain_ms,
-                                          (g2.flops(), g2.bytes(2), PEAK_BF16_FLOPS), tasks))
+                                          (g2.flops(), g2.bytes(2), PEAK_BF16_FLOPS), tasks,
+                                          cuda_kernel=cuda_kernel, config=config))
             del x, dcs, sets, on_sets, off_sets
             torch.cuda.empty_cache()
     return rows, checks, controls
@@ -3049,8 +3102,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "library": ("copies.float().sum(-3).to(dtype)" if k6 else
-                        None if row["library_ms"] is None else "torch.matmul over the K slabs"),
+            "library": ("copies.float().sum(-3).to(dtype)" if k6 else row.get("library_note") or (
+                None if row["library_ms"] is None else
+                "torch.bmm over the K slabs, f32 out" if gm.glu else "torch.matmul over the K slabs")),
             **({} if k6 else {"unfused_call_ms": row["together_ms"], "fused_k1_k2_ms": row["fused_ms"],
                               "torch_matmul_ms": row["matmul_ms"]}),
             "shape": gm.shape(),
@@ -3079,7 +3133,7 @@ def main() -> int:
         kernels.append({
             "name": f"sfc_gemm_tn_{gm.mode}:{gm.name}",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "source": kernel_source(row["kernel"]),
             "replaces": "src/repro/kernels/sfc_gemm.py:1094",
             "launches": fused_counts["sfc_gemm_tn"].get(gm.key, 0),
             "path": "train, fused optimizer",
@@ -3090,6 +3144,8 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library": "torch.mm to an f32 dW + torch._fused_adamw_ (two calls)" if gm.mode == "update" else None,
+            "kernel": row["kernel"],
+            "config": row["config"],
             "shape": {"m": gm.m, "k": gm.k, "n": gm.n, "dual": gm.dual, "dtype": "bfloat16",
                       "stochastic_round": gm.mode == "update"},
         })
@@ -3201,6 +3257,7 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library": "torch.bmm over the (E, rows, .) views (dual forms on concatenated operands)",
+            **({"kernel": row["kernel"], "config": row["config"]} if row["kernel"] else {}),
             "shape": gm.shape(),
         })
     for row in grouped_upd_rows:
@@ -3208,7 +3265,7 @@ def main() -> int:
         kernels.append({
             "name": f"sfc_gemm_grouped_tn_{gm.mode}:{gm.name}",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "source": kernel_source(row["kernel"]),
             "replaces": "src/repro/kernels/sfc_gemm.py:1859",
             "launches": moe_fused_counts.get(gm.key, 0),
             "path": "olmoe train, fused optimizer",
@@ -3219,6 +3276,8 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library": "torch.bmm per set to an f32 dW stack + torch._fused_adamw_" if gm.mode == "update" else None,
+            "kernel": row["kernel"],
+            "config": row["config"],
             "shape": {"experts": gm.experts, "rows_per_expert": gm.rows, "k": gm.k, "n": gm.n, "dual": gm.glu,
                       "dtype": "bfloat16", "stochastic_round": gm.mode == "update"},
         })

@@ -11,9 +11,17 @@ K11 and the flash backward K12 / K13 at qwen3-4b's training step and at
 one 2048-token sequence, the host's cost of a K2, K7, K12 and K13 wrapper
 call and of one tensor-map encoding (where the tree has its timer), and
 the registers and spills that ptxas reports for every instantiation of
-the GEMM and attention libraries' CUDA kernels.
+the GEMM and attention libraries' CUDA kernels.  Each K8 and K10 row also
+carries, in every pass, its bound (`chip_smoke.py`'s `_bound` of the row's
+bytes and flops) and the time of its library yardstick on the same
+inputs (`torch.matmul` / `torch.bmm` for dW, the same to an f32 dW plus
+`torch._fused_adamw_` for the update, none for the norm), and names the
+CUDA kernel and tile it launched where the tree counts that; K8's rows
+are also timed with the ABFT checksum lane ("K8 dW+lane ...", "K8
+update+lane ...", "K8 norm+lane ...").
 
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1
+    python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K8,K10
 
 Each pass runs in a process of its own with the tree's `src/` and
 `chip_smoke.py` first on its path, so each tree builds its kernels into
@@ -25,10 +33,13 @@ the card between passes).  Times: CUDA events around a captured graph of
 its configuration: the cluster kernel's K layers, the wgmma kernels' C
 tile) each K1/K2, K7, K12 and K13 row launched, where its tree counts
 that.
+`--only` keeps the rows of the listed families (K1/K2, K14, K11, K12,
+K13, K7, K8, K3, K9, K10; "host" for the wrapper costs).
 Prints one JSON line per pass and, last, a summary: each row's times by
 tree, each tree's mean over the `--base` tree's (default 1), the ptxas
 counts of every kernel the trees share by name, side by side, those of
-each tree's other kernels, and which shared kernels compiled to different
+each tree's other kernels, those of the TN wgmma kernels (K8, K10) apart,
+and which shared kernels compiled to different
 machine code (a digest of each kernel's SASS instructions, from
 `cuobjdump -sass` of each tree's libraries; addresses, encodings and line
 information left out).
@@ -38,6 +49,7 @@ Needs a CUDA device, nvcc and cuobjdump.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
@@ -129,9 +141,12 @@ def sass_digests(tree: Path) -> dict:
     return {names[n]: v for n, v in out.items()}
 
 
-def worker(tree: Path) -> dict:
+def worker(tree: Path, only=None) -> dict:
     sys.path[:0] = [str(tree / "src"), str(tree)]
     import torch
+
+    def keep(family):
+        return only is None or family in only
 
     import chip_smoke as cs
     from repro_torch.configs import get_config
@@ -143,8 +158,8 @@ def worker(tree: Path) -> dict:
     cfg = get_config("qwen3_4b")
     dev, dt = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows, kernels = {}, {}
-    for gm in cs.main_path_gemms(cfg):
+    rows, kernels, library, bounds = {}, {}, {}, {}
+    for gm in cs.main_path_gemms(cfg) if keep("K1/K2") else ():
         lead = (gm.batch,) if gm.batch else ()
         a = torch.randn((*lead, gm.m, gm.k), generator=gen, device=dev).to(dt)
         copies = max(1, math.ceil(4 * cs.L2_BYTES / (gm.k * gm.n * 2 * (2 if gm.glu else 1))))
@@ -161,7 +176,7 @@ def worker(tree: Path) -> dict:
             _, kernels[f"K1/K2 {gm.name}"] = cs.launched(
                 by_kernel, lambda: tk.sfc_gemm_fused(a, ws[0], gs[0] if gs else None, **kw))
         del a, ws, gs
-    for c in cs.attention_cases(cfg):
+    for c in cs.attention_cases(cfg) if keep("K14") else ():
         if c.kernel != "sfc_decode_attention":
             continue
         copies = max(1, math.ceil(4 * cs.L2_BYTES / c.bytes(2)))
@@ -171,10 +186,14 @@ def worker(tree: Path) -> dict:
         rows[f"K14 {c.name}"] = cs.time_ms(lambda i: tsa.sfc_decode_attention(*ins[i % copies], valid),
                                            reps=max(20, copies), graph=True)
         del ins
-    rows_attn, kernels_attn = _attention_rows(torch, cs, tsa, cfg, gen)
-    rows.update(rows_attn)
-    kernels.update(kernels_attn)
+    if any(keep(f) for f in ("K11", "K12", "K13")):
+        rows_attn, kernels_attn = _attention_rows(torch, cs, tsa, cfg, gen)
+        rows.update(rows_attn)
+        kernels.update(kernels_attn)
     for gm in cs.train_backward_gemms(cfg):
+        label = "K7" if gm.kind == "nt" else "K8"
+        if not keep(label):
+            continue
         m, k, n = gm.m, gm.k, gm.n
         copies = max(1, math.ceil(4 * cs.L2_BYTES / gm.bytes(2)))
         r = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(dt)  # noqa: E731
@@ -185,29 +204,47 @@ def worker(tree: Path) -> dict:
         else:
             fn = tk.sfc_gemm_tn
             ins = [(r(m, k), r(m, n)) + ((r(m, n),) if gm.dual else ()) for _ in range(copies)]
-        rows[f"{'K7' if gm.kind == 'nt' else 'K8'} {gm.name}"] = cs.time_ms(
-            lambda i: fn(*ins[i % copies]), reps=max(20, copies), graph=True)
+        row = f"{label} {gm.name}"
+        rows[row] = cs.time_ms(lambda i: fn(*ins[i % copies]), reps=max(20, copies), graph=True)
         by_kernel = getattr(fn, "launches_by_kernel", None)
         if by_kernel is not None:
-            _, kernels[f"K7 {gm.name}"] = cs.launched(by_kernel, lambda: fn(*ins[0]))
+            _, kernels[row] = cs.launched(by_kernel, lambda: fn(*ins[0]))
+        if gm.kind == "tn":  # torch.matmul of the same product (dual: on concatenated dC)
+            rows[f"K8 dW+lane {gm.name}"] = cs.time_ms(lambda i: fn(*ins[i % copies], abft=True), reps=max(20, copies),
+                                                       graph=True)
+            lib = [(x.T, torch.cat(d, 1) if len(d) > 1 else d[0]) for x, *d in ins]
+            library[row] = cs.time_ms(lambda i: torch.matmul(*lib[i % copies]), reps=max(20, copies), graph=True)
+            bounds[row] = cs._bound(gm.flops(), gm.bytes(2))
+            del lib
         del ins
-    if hasattr(cs, "train_update_gemms"):
-        rows.update(_update_rows(torch, cs, tk, cs.train_update_gemms(cfg), gen, "K8"))
+    if hasattr(cs, "train_update_gemms") and keep("K8"):
+        _update_rows(torch, cs, tk, cs.train_update_gemms(cfg), gen, "K8", rows, kernels, library, bounds)
     if hasattr(cs, "moe_grouped_gemms"):
         fns = {"fwd": ("K3", tk.sfc_gemm_grouped), "nt": ("K9", tk.sfc_gemm_grouped_nt),
                "tn": ("K10", tk.sfc_gemm_grouped_tn)}
         for gm in cs.moe_grouped_gemms(get_config("olmoe_1b_7b")):
             label, fn = fns[gm.kind]
+            if not keep(label):
+                continue
             # each launch streams every expert's weights, far past the L2
-            args, kw, _ = cs._grouped_operands(torch, gm, dt, gen)
+            args, kw, lib = cs._grouped_operands(torch, gm, dt, gen)
             gs = dict(group_sizes=(gm.rows,) * gm.experts)
-            rows[f"{label} {gm.name}"] = cs.time_ms(lambda i: fn(*args, **gs, **kw), reps=20, graph=True)
-            del args
+            row = f"{label} {gm.name}"
+            rows[row] = cs.time_ms(lambda i: fn(*args, **gs, **kw), reps=20, graph=True)
+            if label == "K10":  # one torch.bmm over the (E, rows, .) views
+                library[row] = cs.time_ms(lambda i: torch.bmm(*lib), reps=20, graph=True)
+                bounds[row] = cs._bound(gm.flops(), gm.bytes(2))
+                by_kernel = getattr(fn, "launches_by_kernel", None)
+                if by_kernel is not None:
+                    _, kernels[row] = cs.launched(by_kernel, lambda: fn(*args, **gs, **kw))
+            del args, lib
             torch.cuda.empty_cache()
-    if hasattr(cs, "moe_update_gemms"):
-        rows.update(_update_rows(torch, cs, tk, cs.moe_update_gemms(get_config("olmoe_1b_7b")), gen, "K10"))
-    return {"tree": str(tree), "ms": rows, "k1_kernels": kernels, "ptxas": ptxas_counts(tree),
-            "host": _host_costs(torch, cs, tk, tsa, build, cfg, gen)}
+    if hasattr(cs, "moe_update_gemms") and keep("K10"):
+        _update_rows(torch, cs, tk, cs.moe_update_gemms(get_config("olmoe_1b_7b")), gen, "K10", rows, kernels,
+                     library, bounds)
+    return {"tree": str(tree), "ms": rows, "k1_kernels": kernels, "library_ms": library, "bound_ms": bounds,
+            "ptxas": ptxas_counts(tree),
+            "host": _host_costs(torch, cs, tk, tsa, build, cfg, gen) if keep("host") else None}
 
 
 # the flash attention rows: qwen3-4b's training step (2 x 256 tokens) and
@@ -279,10 +316,13 @@ def _host_costs(torch, cs, tk, tsa, build, cfg, gen, calls: int = 200):
     return out
 
 
-def _update_rows(torch, cs, tk, gemms, gen, label):
+def _update_rows(torch, cs, tk, gemms, gen, label, rows, kernels, library, bounds):
     """Times of the update mode (bf16, stochastic rounding) and the norm
     mode of K8 (`sfc_gemm_tn`) or K10 (`sfc_gemm_grouped_tn`) at each of
-    ``gemms``; one copy of the inputs (the trees compare alike)."""
+    ``gemms`` into ``rows``, with the kernel each launched (where the tree
+    counts it), their bounds and the update's library yardstick (torch.mm /
+    torch.bmm to an f32 dW per set + torch._fused_adamw_ on the same
+    state); one copy of the inputs (the trees compare alike)."""
     from repro_torch.optim import adamw as opt
 
     dev, dt = torch.device("cuda"), torch.bfloat16
@@ -290,7 +330,8 @@ def _update_rows(torch, cs, tk, gemms, gen, label):
                                  torch.tensor(_HYPER_SCALE, device=dev))
     grouped = label == "K10"
     fn = tk.sfc_gemm_grouped_tn if grouped else tk.sfc_gemm_tn
-    out = {}
+    by_kernel = getattr(fn, "launches_by_kernel", None)
+    step_t = torch.zeros((), device=dev)
     for gm in gemms:
         t = gm.t if grouped else gm.m
         stack = (gm.experts, gm.k, gm.n) if grouped else (gm.k, gm.n)
@@ -302,13 +343,29 @@ def _update_rows(torch, cs, tk, gemms, gen, label):
         state = [*sets[0], *(sets[1] if gm.sets == 2 else (None,) * 3)]
         upd = dict(w=ws[0], w2=ws[1] if gm.sets == 2 else None, salt=_SALT, stochastic_round=True, **kw)
         dc2 = dcs[1] if gm.sets == 2 else None
-        out[f"{label} update {gm.name}"] = cs.time_ms(lambda i: fn(x, dcs[0], dc2, *state, hyper, **upd), reps=20,
-                                                      graph=True)
-        out[f"{label} norm {gm.name}"] = cs.time_ms(lambda i: fn(x, dcs[0], dc2, norm=True, **kw), reps=20,
-                                                    graph=True)
+        for mode, call in (("update", lambda i, **lane: fn(x, dcs[0], dc2, *state, hyper, **upd, **lane)),
+                           ("norm", lambda i, **lane: fn(x, dcs[0], dc2, norm=True, **kw, **lane))):
+            row = f"{label} {mode} {gm.name}"
+            rows[row] = cs.time_ms(call, reps=20, graph=True)
+            if not grouped:  # K8's checksum lane (K10 has none)
+                rows[f"K8 {mode}+lane {gm.name}"] = cs.time_ms(lambda i: call(i, abft=True), reps=20, graph=True)
+            if by_kernel is not None:
+                _, kernels[row] = cs.launched(by_kernel, lambda: call(0))
+            g2 = dataclasses.replace(gm, mode=mode)
+            bounds[row] = cs._bound(g2.flops(), g2.bytes(2))
+
+        def lib(i):
+            views = ((x.view(gm.experts, gm.rows, gm.k).transpose(1, 2), [d.view(gm.experts, gm.rows, gm.n)
+                                                                           for d in dcs]) if grouped
+                     else (x.T, dcs))
+            grads = [(torch.bmm if grouped else torch.mm)(views[0], d, out_dtype=torch.float32) for d in views[1]]
+            torch._fused_adamw_([st[0] for st in sets], grads, [st[1] for st in sets], [st[2] for st in sets], [],
+                                [step_t] * len(sets), lr=1e-2, beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+                                amsgrad=False, maximize=False)
+
+        library[f"{label} update {gm.name}"] = cs.time_ms(lib, reps=20, graph=True)
         del x, dcs, sets, ws, state, upd
         torch.cuda.empty_cache()
-    return out
 
 
 def main(argv=None) -> int:
@@ -316,16 +373,20 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", required=True, help="a source tree (repeat)")
     ap.add_argument("--order", default=None, help="comma-separated tree indices, one pass each")
     ap.add_argument("--base", type=int, default=1, help="the tree the others' times are divided by")
+    ap.add_argument("--only", default=None, help="comma-separated row families to time (K1/K2, K14, K11, K12, "
+                                                  "K13, K7, K8, K3, K9, K10, host); all by default")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     trees = [Path(t).resolve() for t in args.tree]
+    only = None if args.only is None else set(args.only.split(","))
     if args.worker:
-        print(json.dumps(worker(trees[0])), flush=True)
+        print(json.dumps(worker(trees[0], only)), flush=True)
         return 0
     order = [int(i) for i in args.order.split(",")] if args.order else list(range(len(trees)))
     passes = []
     for i in order:
-        res = subprocess.run([sys.executable, __file__, "--worker", "--tree", str(trees[i])],
+        res = subprocess.run([sys.executable, __file__, "--worker", "--tree", str(trees[i]),
+                              *(("--only", args.only) if args.only else ())],
                              capture_output=True, text=True, env={**os.environ, "PYTHONPATH": ""})
         if res.returncode != 0:
             sys.stderr.write(res.stderr)
@@ -348,7 +409,14 @@ def main(argv=None) -> int:
     for i, ps in by_tree.items():
         own = sorted(set(ps[0]["ptxas"]) - set(shared))
         only[str(i)] = {n: ps[0]["ptxas"][n] for n in own}
+    # the library yardsticks and bounds of the K8 / K10 rows, every pass's
+    library = {row: {str(i): [p.get("library_ms", {}).get(row) for p in ps] for i, ps in by_tree.items()}
+               for row in dict.fromkeys(r for _, p in passes for r in p.get("library_ms", {}))}
+    bounds = next((p["bound_ms"] for _, p in passes if p.get("bound_ms")), {})
+    tn_wgmma = {str(i): {n: v for n, v in ps[0]["ptxas"].items() if "tn_wgmma" in n or "tn_update_wgmma" in n}
+                for i, ps in by_tree.items()}
     print(json.dumps({"trees": [str(t) for t in trees], "order": order, "base": args.base, "ms": ms,
+                      "library_ms": library, "bound_ms_by": bounds, "ptxas_tn_wgmma": tn_wgmma,
                       "k1_kernels": {str(i): ps[0].get("k1_kernels", {}) for i, ps in by_tree.items()},
                       "host": {str(i): [p.get("host") for p in ps] for i, ps in by_tree.items()},
                       "ptxas_registers_spill_st_spill_ld": ptxas, "ptxas_changed": changed,

@@ -24,7 +24,10 @@ the flags, and loaded with ``ctypes``.  Two libraries:
   and the wgmma kernel (K2, and K1 past those rows, on TMA and wgmma), each
   behind entries of its own (`cluster_entry_name`, `wgmma_entry_name`), and
   the bf16 backward part the wgmma NT kernel (K7, ``bwd_entry_name(
-  "nt_wgmma", "bf16")``); the wgmma kernels are in ``csrc/sfc_gemm_wgmma.cuh``;
+  "nt_wgmma", "bf16")``) and the wgmma TN kernels (K8 and K10 dW,
+  ``"tn_wgmma"``), the bf16 TN-update part their norm and update modes
+  (``"tn_update_wgmma"``), and the bf16 TN lane parts K8's twins of both
+  (``abft=True``); the wgmma main loop is ``csrc/sfc_gemm_wgmma.cuh``'s;
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
@@ -149,11 +152,12 @@ def wgmma_entry_name(glu: bool, activation: Optional[str], abft: bool = False) -
 
 def bwd_entry_name(kind: str, dtype_name: str, abft: bool = False) -> str:
     """C symbol of a backward GEMM entry: ``kind`` is "nt" (dA), "nt_wgmma"
-    (dA on the wgmma kernel, bf16 only), "tn" (dW) or "tn_update" (the TN
-    kernel's update and norm modes); ``abft``: the entry with the checksum
-    lane (TN and TN update only)."""
-    if kind not in ("nt", "nt_wgmma", "tn", "tn_update") or (abft and kind.startswith("nt")) or (
-            kind == "nt_wgmma" and dtype_name != "bf16"):
+    (dA on the wgmma kernel, bf16 only), "tn" (dW), "tn_update" (the TN
+    kernel's update and norm modes), or "tn_wgmma" / "tn_update_wgmma"
+    (the same on the wgmma kernels, bf16 only); ``abft``: the entry with
+    the checksum lane (the TN kinds only)."""
+    if kind not in ("nt", "nt_wgmma", "tn", "tn_update", "tn_wgmma", "tn_update_wgmma") or (
+            abft and kind.startswith("nt")) or (kind.endswith("_wgmma") and dtype_name != "bf16"):
         raise ValueError(f"unknown backward GEMM kind {kind!r} for {dtype_name}"
                          f"{' with the ABFT lane' if abft else ''}")
     return f"sfc_gemm_{kind}_{'abft_' if abft else ''}{dtype_name}"
@@ -196,24 +200,29 @@ def _gemm_parts():
             "-DSFC_BWD=1",
             f"-DSFC_NT_ENTRY={bwd_entry_name('nt', dt)}",
             f"-DSFC_TN_ENTRY={bwd_entry_name('tn', dt)}",
-            *((f"-DSFC_NT_WGMMA_ENTRY={bwd_entry_name('nt_wgmma', dt)}",) if dt == "bf16" else ()),
+            *((f"-DSFC_NT_WGMMA_ENTRY={bwd_entry_name('nt_wgmma', dt)}",
+               f"-DSFC_TN_WGMMA_ENTRY={bwd_entry_name('tn_wgmma', dt)}") if dt == "bf16" else ()),
         )
         yield f"sfc_gemm_tn_update_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
             "-DSFC_BWD=2",
             f"-DSFC_TNU_ENTRY={bwd_entry_name('tn_update', dt)}",
+            *((f"-DSFC_TNU_WGMMA_ENTRY={bwd_entry_name('tn_update_wgmma', dt)}",) if dt == "bf16" else ()),
         )
         yield f"sfc_gemm_tn_abft_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
             "-DSFC_BWD=1",
             "-DSFC_ABFT=1",
             f"-DSFC_TN_ABFT_ENTRY={bwd_entry_name('tn', dt, abft=True)}",
+            *((f"-DSFC_TN_WGMMA_ENTRY={bwd_entry_name('tn_wgmma', dt, abft=True)}",) if dt == "bf16" else ()),
         )
         yield f"sfc_gemm_tn_update_abft_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
             "-DSFC_BWD=2",
             "-DSFC_ABFT=1",
             f"-DSFC_TNU_ABFT_ENTRY={bwd_entry_name('tn_update', dt, abft=True)}",
+            *((f"-DSFC_TNU_WGMMA_ENTRY={bwd_entry_name('tn_update_wgmma', dt, abft=True)}",)
+              if dt == "bf16" else ()),
         )
         yield f"sfc_gemm_rep_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
@@ -286,6 +295,32 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                 ptr,  # cudaStream_t
             ]
             fn.restype = i32
+            for abft in (False, True):
+                fn = getattr(lib, bwd_entry_name("tn_wgmma", dt, abft))
+                fn.argtypes = [
+                    ptr, ptr, ptr, ptr, ptr,  # a, b, b2, out, out2
+                    ptr, i32, i32,  # task table (2, tiles), tiles, experts (1 but in the grouped mode)
+                    i32, i32, i32,  # R, C, D
+                    i32, i32,  # CTAs, CTAs a worker
+                    ptr,  # grouped mode (K10): per-expert (3, E) rows; null otherwise
+                    ptr,  # the lane's (n_sets, experts * tiles) f32 partials (the lane's entry), else null
+                    ptr,  # cudaStream_t
+                ]
+                fn.restype = i32
+                fn = getattr(lib, bwd_entry_name("tn_update_wgmma", dt, abft))
+                fn.argtypes = [
+                    ptr, ptr, ptr, i32,  # a, b, b2, n_sets
+                    ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # w, w2, master, mu, nu, master2, mu2, nu2
+                    ptr, i32, i32,  # hyper (null: norm mode), salt, stochastic_round
+                    ptr,  # partials (n_sets, experts * tiles) f32
+                    ptr, i32, i32,  # task table (2, tiles), tiles, experts
+                    i32, i32, i32,  # R, C, D
+                    i32, i32,  # CTAs, CTAs a worker
+                    ptr,  # grouped mode (K10): per-expert (3, E) rows; null otherwise
+                    ptr,  # the lane's partials (the lane's entry), else null
+                    ptr,  # cudaStream_t
+                ]
+                fn.restype = i32
         for kind in ("nt", "tn"):
             fn = getattr(lib, bwd_entry_name(kind, dt))
             fn.argtypes = [

@@ -176,7 +176,19 @@
 // bf16 forward parts hold the first behind -DSFC_WGMMA_ENTRY (its lane
 // twin sfc_gemm_wgmma_abft_kernel in their -DSFC_ABFT=1 twins), the bf16
 // -DSFC_BWD=1 part the second behind -DSFC_NT_WGMMA_ENTRY; the kernels
-// above keep every other call and their code.
+// above keep every other call and their code.  The TN products (K8, and
+// K10 in its grouped mode) run the same main loop with A read as A^T
+// through wgmma's transpose bit and a flush of their own (`TnFlush`,
+// below), in all three modes: tn_wgmma_kernel / grouped_tn_wgmma_kernel
+// (dW, the bf16 -DSFC_BWD=1 part, -DSFC_TN_WGMMA_ENTRY),
+// tn_update_wgmma_kernel / grouped_tn_update_wgmma_kernel (norm and
+// update, the bf16 -DSFC_BWD=2 part, -DSFC_TNU_WGMMA_ENTRY) and K8's lane
+// twins tn_wgmma_abft_kernel / tn_update_wgmma_abft_kernel (the bf16 TN
+// lane parts).  The update flush is bound by its state's bytes (12 read,
+// 14 written a weight): it stages the tile in shared memory and walks it
+// by rows, 16-byte state accesses along each row, two batches in flight
+// a thread, where the 64 x 64 tile kernel's flush read one element a
+// thread after its main loop.
 //
 // -DSFC_ABFT=1 compiles, beside any of the forward parts, the -DSFC_BWD=1
 // part or the -DSFC_BWD=2 part, the same kernels with the TPU kernels' ABFT
@@ -832,7 +844,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     sfc_gemm_wgmma_abft_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                                const __grid_constant__ CUtensorMap tm_unused,
                                const __grid_constant__ CUtensorMap tm_bg, const wg::Params p) {
-  wg::body<false, GLU, ACT, true, BN>(tm_a, tm_b, tm_unused, tm_bg, p);
+  wg::body<wg::kFwd, GLU, ACT, true, BN>(tm_a, tm_b, tm_unused, tm_bg, p);
 }
 #else
 template <bool GLU, int ACT, int BN>
@@ -840,7 +852,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     sfc_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
                           const __grid_constant__ CUtensorMap tm_unused, const __grid_constant__ CUtensorMap tm_bg,
                           const wg::Params p) {
-  wg::body<false, GLU, ACT, false, BN>(tm_a, tm_b, tm_unused, tm_bg, p);
+  wg::body<wg::kFwd, GLU, ACT, false, BN>(tm_a, tm_b, tm_unused, tm_bg, p);
 }
 #endif
 
@@ -1436,20 +1448,6 @@ __global__ void __launch_bounds__(kThreads) grouped_nt_kernel(const BwdParams p)
   nt_tile<T, DUAL>(p, a, b, a2, b2, out, rows, row0, __ldg(p.tab + p.n_tasks + t) * kBN);
 }
 
-#if SFC_BWD == 1 && !SFC_ABFT && SFC_DTYPE == 1 && defined(SFC_NT_WGMMA_ENTRY)
-#include "sfc_gemm_wgmma.cuh"
-
-// K7 on wgmma and TMA (sfc_gemm_wgmma.cuh).  Maps: dC, W, dC2, W2 (the
-// first pair again without the dual form); BN: the tile's columns.
-template <int BN>
-__global__ void __launch_bounds__(wg::kThreads, 1)
-    nt_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-                    const __grid_constant__ CUtensorMap tm_a2, const __grid_constant__ CUtensorMap tm_b2,
-                    const wg::Params p) {
-  wg::body<true, false, 0, false, BN>(tm_a, tm_b, tm_a2, tm_b2, p);
-}
-#endif
-
 // One task's output tile of the TN kernel: out (p.R, p.C) = A^T @ B (and
 // out2 = A^T @ B2), the contraction over D rows, the operands already at
 // the tile's matrix.  ABFT: the checksum lane, each set's raw dW tile
@@ -1549,25 +1547,9 @@ BwdParams bwd_params(const void* a, const void* b, const void* a2, const void* b
   return p;
 }
 
-#if SFC_BWD == 2
-
 // lanes of the (12,) hyper vector (optim/adamw.py HYP_*); the salt lane is
 // not read, the salt is an argument
 enum { kLR, kB1, k1MB1, kB2, k1MB2, kEPS, kWD, kB1C, kB2C, kSCALE, kSEED };
-
-struct UpdParams {
-  void* w;  // update mode: W (R, C) in the input type, written in place
-  void* w2;
-  float* mst;  // f32 master, mu, nu (R, C), read and written in place
-  float* mu;
-  float* nu;
-  float* mst2;
-  float* mu2;
-  float* nu2;
-  const float* hyper;  // null: norm mode
-  unsigned salt;
-  float* partials;  // (n_sets, n_tasks): each task's sum(dW^2)
-};
 
 // repro/kernels/sfc_gemm.py::_hash_u32 (murmur3-style finalizer)
 __device__ __forceinline__ unsigned hash_u32(unsigned x) {
@@ -1591,6 +1573,20 @@ __device__ __forceinline__ unsigned tile_seed(unsigned step_bits, unsigned salt,
   return h;
 }
 
+// repro/kernels/sfc_gemm.py::_grouped_tn_kernel's flush seed: `_tile_seed`
+// with one more lane, 2e + set, hashed for every expert and set (K8's
+// `tile_seed` adds a lane for its second set only)
+__device__ __forceinline__ unsigned grouped_tile_seed(unsigned step_bits, unsigned salt, unsigned im, unsigned in,
+                                                      unsigned lane) {
+  return hash_u32(tile_seed(step_bits, salt, im, in, 0) ^ lane * 0x9E3779B1u);
+}
+
+// The stochastic-rounding bits of the element at (r, c) of its 64 x 64
+// tile, from the tile's seed (`tile_random_bits`)
+__device__ __forceinline__ unsigned element_bits(unsigned seed, int r, int c) {
+  return hash_u32(seed ^ ((unsigned)r * 0x9E3779B1u) ^ ((unsigned)c * 0x85EBCA77u));
+}
+
 // W from the new master: a plain cast, or for bf16 with SR the stochastic
 // rounding of repro/kernels/sfc_gemm.py::stochastic_round_to (non-finite
 // values are cast)
@@ -1606,6 +1602,347 @@ __device__ __forceinline__ bf16 write_w<bf16>(float x, unsigned bits, bool sr) {
   if (sr && (u & 0x7F800000u) != 0x7F800000u) x = __uint_as_float((u + (bits & 0xFFFFu)) & 0xFFFF0000u);
   return __float2bfloat16(x);  // exact after the truncation
 }
+
+// AdamW of one weight from its f32 dW in the TPU kernel's expression order
+// (`_apply_update_flush`), each step rounded as the plain version's (the
+// _rn intrinsics: no product fused into an FMA); a gradient scale of 0 is
+// a select that keeps the state, so a NaN gradient cannot reach it.
+__device__ __forceinline__ void adamw(float acc, const float* hv, bool skip, float m0, float v0, float w0,
+                                      float& m1, float& v1, float& w1) {
+  const float g = __fmul_rn(acc, hv[kSCALE]);
+  m1 = __fadd_rn(__fmul_rn(hv[kB1], m0), __fmul_rn(hv[k1MB1], g));
+  v1 = __fadd_rn(__fmul_rn(hv[kB2], v0), __fmul_rn(hv[k1MB2], __fmul_rn(g, g)));
+  const float mhat = __fdiv_rn(m1, hv[kB1C]);
+  const float nhat = __fdiv_rn(v1, hv[kB2C]);
+  const float step = __fadd_rn(__fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(nhat), hv[kEPS])), __fmul_rn(hv[kWD], w0));
+  w1 = __fsub_rn(w0, __fmul_rn(hv[kLR], step));
+  if (skip) {
+    m1 = m0;
+    v1 = v0;
+    w1 = w0;
+  }
+}
+
+#if SFC_DTYPE == 1 && (defined(SFC_NT_WGMMA_ENTRY) || defined(SFC_TN_WGMMA_ENTRY) || defined(SFC_TNU_WGMMA_ENTRY))
+#include "sfc_gemm_wgmma.cuh"
+#endif
+
+#if SFC_DTYPE == 1 && defined(SFC_NT_WGMMA_ENTRY)
+// K7 on wgmma and TMA (sfc_gemm_wgmma.cuh).  Maps: dC, W, dC2, W2 (the
+// first pair again without the dual form); BN: the tile's columns.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    nt_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                    const __grid_constant__ CUtensorMap tm_a2, const __grid_constant__ CUtensorMap tm_b2,
+                    const wg::Params p) {
+  wg::body<wg::kNt, false, 0, false, BN>(tm_a, tm_b, tm_a2, tm_b2, p);
+}
+#endif
+
+#if SFC_DTYPE == 1 && (defined(SFC_TN_WGMMA_ENTRY) || defined(SFC_TNU_WGMMA_ENTRY))
+
+// ---------------------------------------------------------------------------
+// K8 and K10 on wgmma and TMA: the TN kind of sfc_gemm_wgmma.cuh's main loop
+// with a flush from the accumulator registers in one of three modes
+// ---------------------------------------------------------------------------
+
+enum TnMode { kDw = 0, kNorm = 1, kUpdate = 2 };
+
+// What a TN flush writes, per operand set: dW (R, C) in dW mode; W, master,
+// mu and nu in place in update mode (K10: (E, R, C) stacks, the expert's
+// slice); the (n_sets, n_tasks) partials of sum(dW^2) in norm and update
+// modes; the (n_sets, n_tasks) checksum lane under ABFT.
+struct TnArgs {
+  bf16* out[2];
+  bf16* w[2];
+  float* mst[2];
+  float* mu[2];
+  float* nu[2];
+  const float* hyper;  // update: the (12,) AdamW vector
+  unsigned salt;
+  int sr;  // update: stochastically round W
+  float* partials;
+  float* chk;
+  int R, C, n_tasks;
+};
+
+// The flush of one task's 128 x CPS tile a set (CPS 128 columns, 64 for
+// the dual form's norm and update), run by the 256 consumer threads.
+// Their accumulator fragments (pair q of a set: rows r0 + 8 (q & 1), cols
+// c0 + 8 (q >> 1) and + 1; the dual form's second set ACC / 2 registers
+// further) give each set's sum(dW^2) (norm and update modes) and raw sum
+// (ABFT) in the fragment's order, summed over the threads in a fixed order
+// into the task's slots of the partials and chk: no atomics, and the
+// update mode's norms bitwise the norm mode's.  The writes go through the
+// flush buffer `stg`, rows padded to CPS + 8: dW is staged in bf16 and
+// stored as 16-byte row chunks; the update stages every set's f32 tile
+// (no accumulator stays live past it) and runs AdamW on 4-column chunks
+// along whole rows, the state of kBatch chunks a thread (48 bytes each:
+// master, mu, nu) loaded while the previous batch's arithmetic runs, so a
+// warp reads and writes whole row segments and keeps two batches in
+// flight.  W is stochastically rounded
+// with the bits of the element's 64 x 64 sub-tile (im, in, r, c), the
+// plain version's and the JAX package's.  The 12 AdamW scalars sit in
+// shared memory (red[32, 44)).
+template <int MODE, bool DUAL, bool GROUPED, bool ABFT>
+struct TnFlush {
+  TnArgs a;
+
+  // update: row chunks a thread loads at once, two batches in flight (4
+  // chunks spilled past the 168 registers the 9 warps leave a thread and
+  // ran 1.2-1.4x slower; scripts/dense_kernel_ab.py, K8 / K10 rows)
+  static constexpr int kBatch = 2;
+
+  template <int ACC>
+  __device__ __forceinline__ void operator()(const float (&acc)[ACC], int t, int e, int row0, int col0, int wgi,
+                                             int tw, float* red, unsigned char* stg) const {
+    constexpr int SETS = DUAL ? 2 : 1;
+    constexpr int Q = ACC / (2 * SETS);  // pairs a set a thread
+    constexpr int CPS = 4 * Q;           // C columns a set
+    constexpr int LD = CPS + 8;          // the flush buffer's row, in elements
+    constexpr int kSet = ACC / 2;        // the second set's first register
+    constexpr int SUMS = (MODE != kDw ? SETS : 0) + (ABFT ? SETS : 0);
+    static_assert(CPS % 64 == 0, "whole 64 x 64 sub-tiles");
+    static_assert(MODE == kNorm || SETS * wg::kBM * LD * (MODE == kDw ? 2 : 4) <= wg::kTnStageBytes,
+                  "every set's staged tile fits the flush buffer");
+    const int lane_id = tw % 32;
+    const int lr0 = wgi * 64 + (tw / 32) * 16 + lane_id / 4;  // the fragment's first row and col in the tile
+    const int lc0 = 2 * (lane_id % 4);
+    const size_t off = GROUPED ? static_cast<size_t>(e) * a.R * a.C : 0;
+    float sums[SUMS > 0 ? SUMS : 1];
+#pragma unroll
+    for (int set = 0; set < SETS; ++set) {
+      float sq = 0.0f, lane = 0.0f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int gr = row0 + lr0 + 8 * (q & 1), gc = col0 + lc0 + 8 * (q >> 1);
+        if (gr >= a.R || gc >= a.C) continue;
+        const float x0 = acc[set * kSet + 2 * q], x1 = acc[set * kSet + 2 * q + 1];
+        if constexpr (MODE != kDw) {
+          sq = __fadd_rn(sq, __fmul_rn(x0, x0));
+          sq = __fadd_rn(sq, __fmul_rn(x1, x1));
+        }
+        if constexpr (ABFT) lane += x0 + x1;
+      }
+      if constexpr (MODE != kDw) sums[set] = sq;
+      if constexpr (ABFT) sums[(MODE != kDw ? SETS : 0) + set] = lane;
+    }
+    if constexpr (MODE == kDw) {
+      // both sets' bf16 tiles, then CPS / 8 chunks of 8 a row
+      constexpr int C8 = CPS / 8;
+      bf16* sh = reinterpret_cast<bf16*>(stg);
+      wg::consumers_sync();  // the last tile's readers of the buffer are done
+#pragma unroll
+      for (int set = 0; set < SETS; ++set) {
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          *reinterpret_cast<__nv_bfloat162*>(sh + (set * wg::kBM + lr0 + 8 * (q & 1)) * LD + lc0 + 8 * (q >> 1)) =
+              __floats2bfloat162_rn(acc[set * kSet + 2 * q], acc[set * kSet + 2 * q + 1]);
+      }
+      wg::consumers_sync();
+#pragma unroll
+      for (int set = 0; set < SETS; ++set) {
+#pragma unroll
+        for (int k = 0; k < wg::kBM * C8 / wg::kConsumers; ++k) {
+          const int i = threadIdx.x + k * wg::kConsumers, row = i / C8, c8 = 8 * (i % C8);
+          const int gr = row0 + row, gc = col0 + c8;
+          if (gr < a.R && gc < a.C)
+            *reinterpret_cast<uint4*>(a.out[set] + off + static_cast<size_t>(gr) * a.C + gc) =
+                *reinterpret_cast<const uint4*>(sh + (set * wg::kBM + row) * LD + c8);
+        }
+      }
+    }
+    if constexpr (MODE == kUpdate) {
+      constexpr int C4 = CPS / 4;                                 // chunks of 4 a row
+      constexpr int kBatches = wg::kBM * C4 / wg::kConsumers / kBatch;  // a thread's, a set
+      float* hv = red + 32;
+      if (threadIdx.x <= kSEED) hv[threadIdx.x] = __ldg(a.hyper + threadIdx.x);
+      float* sf = reinterpret_cast<float*>(stg);
+      wg::consumers_sync();  // the buffer's last readers are done
+#pragma unroll
+      for (int set = 0; set < SETS; ++set) {
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          *reinterpret_cast<float2*>(sf + (set * wg::kBM + lr0 + 8 * (q & 1)) * LD + lc0 + 8 * (q >> 1)) =
+              make_float2(acc[set * kSet + 2 * q], acc[set * kSet + 2 * q + 1]);
+      }
+      wg::consumers_sync();  // staged; the scalars are in
+      const bool skip = hv[kSCALE] == 0.0f, dither = a.sr && !skip;
+      const unsigned step_bits = __float_as_uint(hv[kSEED]);
+      // a thread's chunks share its column chunk c4 and lie RS rows apart:
+      // chunk k at row rt + k RS
+      constexpr int RS = wg::kConsumers / C4;
+      static_assert(64 % RS == 0, "a chunk's sub-tile row half is (kk RS) >> 6");
+      const int c4 = 4 * (threadIdx.x % C4), rt = threadIdx.x / C4;
+      const bool col_in = col0 + c4 < a.C;
+      const int c = (col0 + c4) & 63;  // the chunk's first column in its 64 x 64 sub-tile
+      const size_t base = off + static_cast<size_t>(row0 + rt) * a.C + col0 + c4;
+      const size_t step = static_cast<size_t>(RS) * a.C;
+#pragma unroll
+      for (int set = 0; set < SETS; ++set) {
+        const float* st = sf + set * wg::kBM * LD + rt * LD + c4;
+        float* mst = a.mst[set] + base;
+        float* mu = a.mu[set] + base;
+        float* nu = a.nu[set] + base;
+        bf16* w = a.w[set] + base;
+        float4 m0[2][kBatch], v0[2][kBatch], w0[2][kBatch];
+        auto load = [&](int b, int slot) {
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) {
+            const int kk = b * kBatch + k;
+            if (col_in && row0 + rt + kk * RS < a.R) {
+              m0[slot][k] = __ldcs(reinterpret_cast<const float4*>(mu + kk * step));
+              v0[slot][k] = __ldcs(reinterpret_cast<const float4*>(nu + kk * step));
+              w0[slot][k] = __ldcs(reinterpret_cast<const float4*>(mst + kk * step));
+            }
+          }
+        };
+        load(0, 0);
+        // the seeds of the thread's two 64 x 64 sub-tiles (row halves) in its column block
+        unsigned seed[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const unsigned im = (row0 >> 6) + i, in = (col0 + c4) >> 6;
+          seed[i] = !dither ? 0u
+                    : GROUPED ? grouped_tile_seed(step_bits, a.salt, im, in, 2u * e + set)
+                              : tile_seed(step_bits, a.salt, im, in, set);
+        }
+#pragma unroll
+        for (int b = 0; b < kBatches; ++b) {
+          if (b + 1 < kBatches) load(b + 1, (b + 1) & 1);
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) {
+            const int kk = b * kBatch + k, row = rt + kk * RS;
+            if (!col_in || row0 + row >= a.R) continue;
+            const float4 g = *reinterpret_cast<const float4*>(st + kk * RS * LD);
+            const float4 mm = m0[b & 1][k], vv = v0[b & 1][k], ww = w0[b & 1][k];
+            float4 m1, v1, w1;
+            adamw(g.x, hv, skip, mm.x, vv.x, ww.x, m1.x, v1.x, w1.x);
+            adamw(g.y, hv, skip, mm.y, vv.y, ww.y, m1.y, v1.y, w1.y);
+            adamw(g.z, hv, skip, mm.z, vv.z, ww.z, m1.z, v1.z, w1.z);
+            adamw(g.w, hv, skip, mm.w, vv.w, ww.w, m1.w, v1.w, w1.w);
+            __stcs(reinterpret_cast<float4*>(mu + kk * step), m1);
+            __stcs(reinterpret_cast<float4*>(nu + kk * step), v1);
+            __stcs(reinterpret_cast<float4*>(mst + kk * step), w1);
+            const unsigned s0 = seed[(kk * RS) >> 6];
+            const int r = (row0 + row) & 63;
+            const __nv_bfloat162 lo = __halves2bfloat162(
+                write_w<bf16>(w1.x, dither ? element_bits(s0, r, c) : 0u, dither),
+                write_w<bf16>(w1.y, dither ? element_bits(s0, r, c + 1) : 0u, dither));
+            const __nv_bfloat162 hi = __halves2bfloat162(
+                write_w<bf16>(w1.z, dither ? element_bits(s0, r, c + 2) : 0u, dither),
+                write_w<bf16>(w1.w, dither ? element_bits(s0, r, c + 3) : 0u, dither));
+            uint2 packed;
+            packed.x = *reinterpret_cast<const unsigned*>(&lo);
+            packed.y = *reinterpret_cast<const unsigned*>(&hi);
+            *reinterpret_cast<uint2*>(w + kk * step) = packed;
+          }
+        }
+      }
+    }
+    if constexpr (SUMS > 0) {
+      wg::consumers_sum<SUMS>(sums, red);
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int set = 0; set < SETS; ++set) {
+          if constexpr (MODE != kDw) a.partials[static_cast<size_t>(set) * a.n_tasks + t] = sums[set];
+          if constexpr (ABFT) a.chk[static_cast<size_t>(set) * a.n_tasks + t] = sums[(MODE != kDw ? SETS : 0) + set];
+        }
+      }
+    }
+  }
+};
+
+// The B columns of a TN wgmma kernel's stage: 128 C columns a set (the
+// dual form's 128 of dC beside the same 128 of dC2), but 64 a set for the
+// dual form's norm and update, whose flush would otherwise hold the
+// second set's 64 accumulators a thread over the first set's AdamW.
+template <int MODE, bool DUAL>
+__host__ __device__ constexpr int tn_bn() {
+  return DUAL && MODE == kDw ? 2 * wg::kBN : wg::kBN;
+}
+
+// Every TN wgmma kernel.  Maps: A, dC, (A again), dC2 (dC again without
+// the dual form).
+#define SFC_TN_WGMMA_KERNEL(NAME, MODE_, GROUPED_, ABFT_)                                                     \
+  template <bool DUAL, bool UPDATE = false>                                                                   \
+  __global__ void __launch_bounds__(wg::kThreads, 1)                                                          \
+      NAME(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,               \
+           const __grid_constant__ CUtensorMap tm_a2, const __grid_constant__ CUtensorMap tm_b2,             \
+           const wg::Params p, const TnFlush<MODE_, DUAL, GROUPED_, ABFT_> fl) {                              \
+    wg::body<wg::kTn, DUAL, 0, false, tn_bn<MODE_, DUAL>()>(tm_a, tm_b, tm_a2, tm_b2, p, fl);                \
+  }
+
+#if SFC_BWD == 1 && !SFC_ABFT
+SFC_TN_WGMMA_KERNEL(tn_wgmma_kernel, kDw, false, false)          // K8 dW
+SFC_TN_WGMMA_KERNEL(grouped_tn_wgmma_kernel, kDw, true, false)  // K10 dW
+#elif SFC_BWD == 1
+SFC_TN_WGMMA_KERNEL(tn_wgmma_abft_kernel, kDw, false, true)  // K8 dW with the checksum lane
+#elif !SFC_ABFT
+// K8's and K10's norm (UPDATE false) and update modes
+SFC_TN_WGMMA_KERNEL(tn_update_wgmma_kernel, UPDATE ? kUpdate : kNorm, false, false)
+SFC_TN_WGMMA_KERNEL(grouped_tn_update_wgmma_kernel, UPDATE ? kUpdate : kNorm, true, false)
+#else
+SFC_TN_WGMMA_KERNEL(tn_update_wgmma_abft_kernel, UPDATE ? kUpdate : kNorm, false, true)  // with the lane
+#endif
+#undef SFC_TN_WGMMA_KERNEL
+
+// The maps and Params of a TN wgmma launch: A (D, R) and dC / dC2 (D, C)
+// row-major bf16, read in 64 x 64 boxes; the tasks are `experts` copies of
+// the (2, tiles) table (K10: task t is expert t / tiles's, grp its (3,
+// experts) rows).  R and C multiples of 8, D >= 1, every operand 16-byte
+// aligned, as TMA needs.  Returns a CUDA error code, 0 if the launch can go.
+static int tn_wgmma_setup(const void* a, const void* b, const void* b2, const int* tab, int tiles, int experts,
+                          int R, int C, int D, int group, const int* grp, CUtensorMap* ma, CUtensorMap* mb,
+                          CUtensorMap* mb2, wg::Params* p) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  if (R < 1 || C < 1 || D < 1 || R % 8 != 0 || C % 8 != 0 || tiles < 1 || experts < 1) return kInvalid;
+  if (grp == nullptr && experts != 1) return kInvalid;
+  if (!wg::aligned16(a) || !wg::aligned16(b) || !wg::aligned16(b2)) return kInvalid;
+  *p = wg::Params{};
+  p->tab = tab;
+  p->tiles = tiles;
+  p->n_tasks = experts * tiles;
+  p->M = R;
+  p->N = C;
+  p->K = D;
+  p->pairs = 1;
+  p->group = group;
+  p->grp = grp;
+  p->n_groups = experts;
+  int rc = wg::tensor_map(ma, a, R, D, 1, wg::kBK);
+  if (rc == 0) rc = wg::tensor_map(mb, b, C, D, 1, wg::kBK);
+  if (rc == 0 && b2 != nullptr) rc = wg::tensor_map(mb2, b2, C, D, 1, wg::kBK);
+  if (rc == 0 && b2 == nullptr) *mb2 = *mb;
+  return rc;
+}
+
+// One launch of a TN wgmma kernel with its flush; `opted`: the kernel's
+// opt-in flags, one a device.
+template <int MODE, bool DUAL, bool GROUPED, bool ABFT, typename Kernel>
+static int tn_wgmma_launch(Kernel kernel, bool* opted, int ctas, cudaStream_t s, const CUtensorMap& ma,
+                           const CUtensorMap& mb, const CUtensorMap& mb2, const wg::Params& p,
+                           const TnFlush<MODE, DUAL, GROUPED, ABFT>& fl) {
+  return wg::launch<tn_bn<MODE, DUAL>(), wg::kTn>(kernel, opted, ctas, s, ma, mb, ma, mb2, p, fl);
+}
+
+#endif  // SFC_DTYPE == 1 && (SFC_TN_WGMMA_ENTRY || SFC_TNU_WGMMA_ENTRY)
+
+#if SFC_BWD == 2
+
+struct UpdParams {
+  void* w;  // update mode: W (R, C) in the input type, written in place
+  void* w2;
+  float* mst;  // f32 master, mu, nu (R, C), read and written in place
+  float* mu;
+  float* nu;
+  float* mst2;
+  float* mu2;
+  float* nu2;
+  const float* hyper;  // null: norm mode
+  unsigned salt;
+  float* partials;  // (n_sets, n_tasks): each task's sum(dW^2)
+};
 
 // One set's flush from the f32 C tile in shared memory: sum(dW^2), and in
 // update mode AdamW in the TPU kernel's expression order.
@@ -1626,25 +1963,12 @@ __device__ __forceinline__ void update_flush(const float* Cs, const BwdParams& p
     sq = __fadd_rn(sq, __fmul_rn(acc, acc));
     if constexpr (UPDATE) {
       const size_t idx = (size_t)gr * p.C + gc;
-      const float m0 = mu[idx], v0 = nu[idx], w0 = mst[idx];
-      const float g = __fmul_rn(acc, hv[kSCALE]);
-      float m1 = __fadd_rn(__fmul_rn(hv[kB1], m0), __fmul_rn(hv[k1MB1], g));
-      float v1 = __fadd_rn(__fmul_rn(hv[kB2], v0), __fmul_rn(hv[k1MB2], __fmul_rn(g, g)));
-      const float mhat = __fdiv_rn(m1, hv[kB1C]);
-      const float nhat = __fdiv_rn(v1, hv[kB2C]);
-      const float step = __fadd_rn(__fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(nhat), hv[kEPS])), __fmul_rn(hv[kWD], w0));
-      float w1 = __fsub_rn(w0, __fmul_rn(hv[kLR], step));
-      if (skip) {  // a select: a NaN gradient cannot reach the state
-        m1 = m0;
-        v1 = v0;
-        w1 = w0;
-      }
+      float m1, v1, w1;
+      adamw(acc, hv, skip, mu[idx], nu[idx], mst[idx], m1, v1, w1);
       mu[idx] = m1;
       nu[idx] = v1;
       mst[idx] = w1;
-      unsigned bits = 0u;
-      if constexpr (SR) bits = hash_u32(seed ^ ((unsigned)r * 0x9E3779B1u) ^ ((unsigned)c * 0x85EBCA77u));
-      W[idx] = write_w<T>(w1, bits, SR && !skip);
+      W[idx] = write_w<T>(w1, SR ? element_bits(seed, r, c) : 0u, SR && !skip);
     }
   }
   const float total = block_sum(sq, red);
@@ -1702,14 +2026,6 @@ __global__ void __launch_bounds__(kThreads) tn_update_abft_kernel(const BwdParam
   tn_update_tile<T, DUAL, UPDATE, SR, true>(p, u, chk);
 }
 #endif
-
-// repro/kernels/sfc_gemm.py::_grouped_tn_kernel's flush seed: `_tile_seed`
-// with one more lane, 2e + set, hashed for every expert and set (K8's
-// `tile_seed` adds a lane for its second set only)
-__device__ __forceinline__ unsigned grouped_tile_seed(unsigned step_bits, unsigned salt, unsigned im, unsigned in,
-                                                      unsigned lane) {
-  return hash_u32(tile_seed(step_bits, salt, im, in, 0) ^ lane * 0x9E3779B1u);
-}
 
 // K10 update / norm (repro/kernels/sfc_gemm.py::sfc_gemm_grouped_tn with
 // master, mu, nu and hyper; body `_grouped_tn_kernel`, flush
@@ -2270,3 +2586,135 @@ extern "C" int SFC_TNU_ENTRY(const void* a, const void* b, const void* b2, int n
 #endif
 
 #endif  // SFC_BWD
+
+#if SFC_BWD == 1 && SFC_DTYPE == 1 && defined(SFC_TN_WGMMA_ENTRY)
+// TN (K8 dW; K10 dW with grp) on the wgmma kernel: out (R, C) = a (D,
+// R)^T @ b (D, C) [and out2 = a^T @ b2 when out2 is non-null], bf16,
+// `ctas` persistent CTAs over contiguous segments of the `experts` x
+// `tiles` tasks of the (2, tiles) table of the 128 x 128 output tiles.  A
+// non-null grp (3, experts) selects the grouped mode: expert e contracts
+// its rows [grp[e], grp[e] + grp[experts + e]) into its (R, C) slice of
+// the (experts, R, C) outputs.  The -DSFC_ABFT=1 part's entry needs chk,
+// the (n_sets, experts * tiles) f32 partials of the lane, and takes no
+// grouped mode (K10 has no lane); the other takes no chk.  R and C
+// multiples of 8, D >= 1 and every operand 16-byte aligned, as TMA needs.
+// Returns the launch's CUDA error.
+extern "C" int SFC_TN_WGMMA_ENTRY(const void* a, const void* b, const void* b2, void* out, void* out2,
+                                  const int* tab, int tiles, int experts, int R, int C, int D, int ctas, int group,
+                                  const int* grp, float* chk, void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  const bool dual = out2 != nullptr;
+  if (out == nullptr || dual != (b2 != nullptr)) return kInvalid;
+  if ((chk != nullptr) != (SFC_ABFT != 0) || (SFC_ABFT && grp != nullptr)) return kInvalid;
+  if (!wg::aligned16(out) || !wg::aligned16(out2)) return kInvalid;
+  CUtensorMap ma, mb, mb2;
+  wg::Params p;
+  const int rc = tn_wgmma_setup(a, b, b2, tab, tiles, experts, R, C, D, group, grp, &ma, &mb, &mb2, &p);
+  if (rc != 0) return rc;
+  TnArgs f = {};
+  f.out[0] = static_cast<bf16*>(out);
+  f.out[1] = static_cast<bf16*>(out2);
+  f.chk = chk;
+  f.R = R;
+  f.C = C;
+  f.n_tasks = p.n_tasks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool opted[4][kMaxDevices] = {};
+#if SFC_ABFT
+  if (dual)
+    return tn_wgmma_launch(&tn_wgmma_abft_kernel<true>, opted[0], ctas, s, ma, mb, mb2, p,
+                                 TnFlush<kDw, true, false, true>{f});
+  return tn_wgmma_launch(&tn_wgmma_abft_kernel<false>, opted[1], ctas, s, ma, mb, mb2, p,
+                                TnFlush<kDw, false, false, true>{f});
+#else
+  if (grp != nullptr && dual)
+    return tn_wgmma_launch(&grouped_tn_wgmma_kernel<true>, opted[2], ctas, s, ma, mb, mb2, p,
+                                 TnFlush<kDw, true, true, false>{f});
+  if (grp != nullptr)
+    return tn_wgmma_launch(&grouped_tn_wgmma_kernel<false>, opted[3], ctas, s, ma, mb, mb2, p,
+                                  TnFlush<kDw, false, true, false>{f});
+  if (dual)
+    return tn_wgmma_launch(&tn_wgmma_kernel<true>, opted[0], ctas, s, ma, mb, mb2, p,
+                                 TnFlush<kDw, true, false, false>{f});
+  return tn_wgmma_launch(&tn_wgmma_kernel<false>, opted[1], ctas, s, ma, mb, mb2, p,
+                                TnFlush<kDw, false, false, false>{f});
+#endif
+}
+#endif  // SFC_BWD == 1 && SFC_DTYPE == 1 && SFC_TN_WGMMA_ENTRY
+
+#if SFC_BWD == 2 && SFC_DTYPE == 1 && defined(SFC_TNU_WGMMA_ENTRY)
+namespace {
+// The update (UPDATE) or norm kernel of the part for one dual form: K8's,
+// or K10's when grouped (the part without the lane), or K8's lane twin.
+template <bool DUAL, bool UPDATE>
+int tnu_wgmma_dispatch(bool grouped, int ctas, cudaStream_t s, const CUtensorMap& ma, const CUtensorMap& mb,
+                       const CUtensorMap& mb2, const wg::Params& p, const TnArgs& f) {
+  constexpr int MODE = UPDATE ? kUpdate : kNorm;
+  static bool opted[2][kMaxDevices] = {};
+#if SFC_ABFT
+  (void)grouped;
+  return tn_wgmma_launch(&tn_update_wgmma_abft_kernel<DUAL, UPDATE>, opted[0], ctas, s, ma, mb, mb2, p,
+                               TnFlush<MODE, DUAL, false, true>{f});
+#else
+  if (grouped)
+    return tn_wgmma_launch(&grouped_tn_update_wgmma_kernel<DUAL, UPDATE>, opted[1], ctas, s, ma, mb, mb2, p,
+                                 TnFlush<MODE, DUAL, true, false>{f});
+  return tn_wgmma_launch(&tn_update_wgmma_kernel<DUAL, UPDATE>, opted[0], ctas, s, ma, mb, mb2, p,
+                               TnFlush<MODE, DUAL, false, false>{f});
+#endif
+}
+}  // namespace
+
+// TN with the update flush on the wgmma kernel (K8's and, with grp, K10's
+// update and norm modes): SFC_TNU_ENTRY's operands and modes (norm when
+// hyper is null) over SFC_TN_WGMMA_ENTRY's launch (table, tiles, experts,
+// CTAs, grouped rows); partials and chk are (n_sets, experts * tiles).
+// The -DSFC_ABFT=1 part's entry needs chk and takes no grouped mode; the
+// other takes no chk.  Every operand and state pointer 16-byte aligned.
+// Returns the launch's CUDA error.
+extern "C" int SFC_TNU_WGMMA_ENTRY(const void* a, const void* b, const void* b2, int n_sets, void* w, void* w2,
+                                   float* master, float* mu, float* nu, float* master2, float* mu2, float* nu2,
+                                   const float* hyper, int salt, int sr, float* partials, const int* tab, int tiles,
+                                   int experts, int R, int C, int D, int ctas, int group, const int* grp, float* chk,
+                                   void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  const bool dual = n_sets == 2, update = hyper != nullptr;
+  if (n_sets != 1 && n_sets != 2) return kInvalid;
+  if (dual != (b2 != nullptr) || partials == nullptr) return kInvalid;
+  if ((chk != nullptr) != (SFC_ABFT != 0) || (SFC_ABFT && grp != nullptr)) return kInvalid;
+  if (update) {
+    if (!w || !master || !mu || !nu || dual != (w2 && master2 && mu2 && nu2)) return kInvalid;
+    const void* state[] = {w, w2, master, mu, nu, master2, mu2, nu2};
+    for (const void* x : state)
+      if (!wg::aligned16(x)) return kInvalid;
+  }
+  CUtensorMap ma, mb, mb2;
+  wg::Params p;
+  const int rc = tn_wgmma_setup(a, b, b2, tab, tiles, experts, R, C, D, group, grp, &ma, &mb, &mb2, &p);
+  if (rc != 0) return rc;
+  TnArgs f = {};
+  f.w[0] = static_cast<bf16*>(w);
+  f.w[1] = static_cast<bf16*>(w2);
+  f.mst[0] = master;
+  f.mst[1] = master2;
+  f.mu[0] = mu;
+  f.mu[1] = mu2;
+  f.nu[0] = nu;
+  f.nu[1] = nu2;
+  f.hyper = hyper;
+  f.salt = static_cast<unsigned>(salt);
+  f.sr = sr != 0;
+  f.partials = partials;
+  f.chk = chk;
+  f.R = R;
+  f.C = C;
+  f.n_tasks = p.n_tasks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool grouped = grp != nullptr;
+  if (dual)
+    return update ? tnu_wgmma_dispatch<true, true>(grouped, ctas, s, ma, mb, mb2, p, f)
+                  : tnu_wgmma_dispatch<true, false>(grouped, ctas, s, ma, mb, mb2, p, f);
+  return update ? tnu_wgmma_dispatch<false, true>(grouped, ctas, s, ma, mb, mb2, p, f)
+                : tnu_wgmma_dispatch<false, false>(grouped, ctas, s, ma, mb, mb2, p, f);
+}
+#endif  // SFC_BWD == 2 && SFC_DTYPE == 1 && SFC_TNU_WGMMA_ENTRY

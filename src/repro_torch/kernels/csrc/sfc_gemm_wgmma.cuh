@@ -15,7 +15,10 @@
 // its order with one cast.  sfc_gemm_wgmma_abft_kernel is its ABFT twin
 // (the -DSFC_ABFT=1 parts), nt_wgmma_kernel replaces `sfc_gemm_nt`
 // (`_nt_kernel`, K7) for bf16 non-grouped calls: dA = dC @ W^T
-// (+ dC2 @ W2^T), flushed in bf16.
+// (+ dC2 @ W2^T), flushed in bf16.  The TN kernels of sfc_gemm_fused.cu
+// (K8 `sfc_gemm_tn`, K10 `sfc_gemm_grouped_tn`: dW = A^T @ dC, its norm and
+// AdamW-update modes) run the same main loop with kind kTn and a flush of
+// their own (the `Flush` argument of `body`).
 //
 // What bounds them: at the main path's 512 token rows every product does
 // 2 * 512 * K * N flops on (512 + N) * K inputs, far above the card's 295
@@ -62,6 +65,24 @@
 // accumulators (the GLU's two together), over the rows and columns inside
 // the output; the wrapper sums the slots on the device.  The flush is the
 // same code with the lane on or off.
+//
+// TN (kind kTn): C (R, C) = A^T @ dC over D token rows, A (D, R) and dC
+// (D, C) read as stored.  A stage holds two 64 x 64 boxes of A (token rows
+// x 64 of C's rows each, one a consumer warpgroup) and the BN columns of
+// dC (the dual form: BN / 2 of dC beside the same ones of dC2, as the
+// GLU's B beside B_gate), so A is M-major for wgmma, read through the
+// descriptor's transpose bit as B is: no transposed copy exists.  The
+// contraction is short (512 token rows: 8 stages a tile), so the producer
+// is well into the next tile while the consumers flush.  The flush stages
+// the tile through a shared-memory buffer of its own beside the ring
+// (`kTnStageBytes`: one set's f32 tile, or both sets' bf16 dW), read back
+// in whole rows, so its global traffic is 16-byte accesses along rows;
+// the dual form's ring has 3 stages to leave it room.  Grouped (K10,
+// `p.grp`): the task's batch element is its expert, whose rows [start,
+// start + count) of A and dC it contracts; a box past the expert's last
+// row reads the next expert's rows, so the consumers zero those rows of
+// the stage (both operands) before the products read it; an expert with
+// no rows loads nothing and flushes a zero tile.
 
 #pragma once
 
@@ -80,14 +101,32 @@ constexpr int kBN = 128;         // B columns a stage of the narrow tile; the wi
 constexpr int kBK = 64;          // K a stage: one 128-byte swizzle row of bf16 (build.py WGMMA_BK)
 constexpr int kStages = 4;
 constexpr int kTileBytesA = kBM * kBK * 2;  // 16 KB
+constexpr int kBoxBytes = kBox * kBK * 2;   // one 64 x 64 bf16 TMA box, 8 KB
+
+enum Kind { kFwd = 0, kNt = 1, kTn = 2 };
+
+// TN's flush buffer, 72 KB: 128 rows of 144 f32, one set's 128 x 128
+// tile or both sets' 128 x 64 (bf16 dW: both sets' 128 x 128), each row
+// padded by 8 elements so the fragments' stores and the row reads meet no
+// bank conflicts.
+constexpr int kTnStageBytes = kBM * (kBN + 16) * 4;
+
+// Stages of the ring: TN's dual form keeps 3, so its flush buffer fits.
+template <int KIND, int BN>
+__host__ __device__ constexpr int ring_stages() {
+  return KIND == kTn && BN == 2 * kBN ? 3 : kStages;
+}
 
 // Shared memory of a CTA with BN B columns a stage: the ring (aligned to
-// the 1024-byte swizzle period) and its barriers.
-template <int BN>
+// the 1024-byte swizzle period), its barriers, the consumers' 48-float
+// scratch (the reductions; the TN flush's AdamW scalars) and TN's flush
+// buffer.
+template <int BN, int KIND = kFwd>
 constexpr int smem_bytes() {
-  return 1024 + kStages * (kTileBytesA + BN * kBK * 2) + 128;
+  return 1024 + ring_stages<KIND, BN>() * (kTileBytesA + BN * kBK * 2) + 256 + (KIND == kTn ? kTnStageBytes : 0);
 }
 static_assert(smem_bytes<2 * kBN>() <= 232448, "over the 227 KB a block may use");
+static_assert(smem_bytes<kBN, kTn>() <= 232448 && smem_bytes<2 * kBN, kTn>() <= 232448, "TN: over the 227 KB");
 
 struct Params {
   const int* tab;  // (2, tiles): the gilbert table of one batch element's C tiles
@@ -106,6 +145,8 @@ struct Params {
   int has_scale;
   float out_scale;
   float* chk;  // ABFT: (n_tasks) f32 partials
+  const int* grp;  // TN grouped (K10): (3, n_groups) per-expert row start, row count, first row block
+  int n_groups;
 };
 
 // Worker w's tasks of n_tasks split over n_workers: `_block_ranges`
@@ -124,6 +165,18 @@ __device__ __forceinline__ void task_tile(const Params& p, int t, int& b, int& r
   const int j = t - b * p.tiles;
   row0 = __ldg(p.tab + j) * kBM;
   col0 = __ldg(p.tab + p.tiles + j) * TN;
+}
+
+// TN: the token rows of batch element (expert) b, [start, start + depth),
+// and their K steps; the whole contraction but in the grouped mode.
+__device__ __forceinline__ void tn_task_rows(const Params& p, int b, int& start, int& depth, int& steps) {
+  start = 0;
+  depth = p.K;
+  if (p.grp != nullptr) {
+    start = __ldg(p.grp + b);
+    depth = __ldg(p.grp + p.n_groups + b);
+  }
+  steps = (depth + kBK - 1) / kBK;
 }
 
 // Two adjacent outputs (gr, gc), (gr, gc + 1) from their raw accumulators
@@ -181,34 +234,87 @@ __device__ __forceinline__ void flush_pair(const Params& p, long long c_off, int
 // The consumer warpgroups' named barrier (the producer warp never joins it).
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 
-// The whole kernel: NT selects the dA product, GLU the forward's dual-B
-// form, BN the B columns a stage (128 or 256).  Maps: the forward's A, B,
-// (unused), B_gate; NT's A, B, A2, B2.
-template <bool NT, bool GLU, int ACT, bool ABFT, int BN>
+// Each v[i] summed over the 256 consumer threads in a fixed order (the
+// warp's butterfly, then the 8 warps in turn through red, 8 N floats);
+// the sums are thread 0's.  Every consumer thread calls it.
+template <int N>
+__device__ __forceinline__ void consumers_sum(float (&v)[N], float* red) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  }
+  if (threadIdx.x % 32 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[(threadIdx.x / 32) * N + i] = v[i];
+  }
+  consumers_sync();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kConsumers / 32; ++w) s += red[w * N + i];
+      v[i] = s;
+    }
+  }
+  consumers_sync();  // red is read before the next call writes it
+}
+
+// TN grouped: zero the token rows [keep, 64) of every 64 x 64 box of a
+// stage (rows are whole 128-byte lines, so the swizzle does not matter),
+// then order the stores before the products' reads.  All 256 consumer
+// threads take part.
+template <int STAGE_BYTES>
+__device__ __forceinline__ void zero_stage_rows(unsigned char* stage, int keep) {
+  constexpr int kBoxes = STAGE_BYTES / kBoxBytes;
+  const int per_box = (kBK - keep) * 8;  // 16-byte chunks
+  for (int i = threadIdx.x; i < kBoxes * per_box; i += kConsumers) {
+    const int box = i / per_box, rem = i - box * per_box;
+    *reinterpret_cast<uint4*>(stage + box * kBoxBytes + (keep + rem / 8) * 128 + (rem % 8) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+  consumers_sync();
+}
+
+// The forward and NT kinds flush in the body.
+struct NoFlush {};
+
+// The whole kernel: KIND the forward, the NT dA product or the TN dW
+// product; GLU the forward's dual-B form (TN: the dual form, dC beside
+// dC2); BN the B columns a stage (128 or 256).  Maps: the forward's A, B,
+// (unused), B_gate; NT's A, B, A2, B2; TN's A, dC, (unused), dC2.  TN's
+// flush is `fl(acc, t, b, row0, col0, wgi, tw, red, stg)` (sfc_gemm_fused.cu),
+// stg its flush buffer.
+template <int KIND, bool GLU, int ACT, bool ABFT, int BN, class Flush = NoFlush>
 __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap& tm_b, const CUtensorMap& tm_a2,
-                                     const CUtensorMap& tm_b2, const Params& p) {
+                                     const CUtensorMap& tm_b2, const Params& p, const Flush& fl = Flush()) {
+  constexpr bool NT = KIND == kNt, TN_KIND = KIND == kTn;
   static_assert(!(NT && (GLU || ABFT)), "NT has neither the GLU form nor the lane");
+  static_assert(!(TN_KIND && ABFT), "TN's lane is its flush's");
   static_assert(BN == kBN || BN == 2 * kBN, "the narrow or the wide tile");
   constexpr int TN = GLU ? BN / 2 : BN;  // C columns a tile
   constexpr int ACC = BN / 2;            // f32 accumulators a consumer thread (m64nBN)
   constexpr int Q = ACC / (GLU ? 4 : 2);  // bf16 output pairs a thread flushes a tile
   constexpr int B_BYTES = BN * kBK * 2;
   constexpr int STAGE_BYTES = kTileBytesA + B_BYTES;
+  constexpr int STAGES = ring_stages<KIND, BN>();
   extern __shared__ unsigned char wg_smem_raw[];
   unsigned char* ring =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * STAGE_BYTES);
-  uint64_t* empty = full + kStages;
-  float* red = reinterpret_cast<float*>(empty + kStages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  float* red = reinterpret_cast<float*>(empty + STAGES);
 
   // the worker (group of p.group CTAs) and this CTA's first task of its segment
   int t_lo, t_hi;
   segment(p.n_tasks, gridDim.x / p.group, blockIdx.x / p.group, t_lo, t_hi);
   const int t_first = t_lo + blockIdx.x % p.group;
-  const int steps = (p.K + kBK - 1) / kBK;
+  const int steps_all = (p.K + kBK - 1) / kBK;  // every task's but TN's (`tn_task_rows`)
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers);
     }
@@ -222,8 +328,12 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
       int stage = 0;
       uint32_t phase = 0;
       for (int t = t_first; t < t_hi; t += p.group) {
-        int b, row0, col0;
+        int b, row0, col0, start = 0, steps = steps_all;
         task_tile<TN>(p, t, b, row0, col0);
+        if constexpr (TN_KIND) {
+          int depth;
+          tn_task_rows(p, b, start, depth, steps);
+        }
         const int bb = p.b_batched ? b : 0;
         for (int pair = 0; pair < p.pairs; ++pair) {
           for (int s = 0; s < steps; ++s) {
@@ -232,20 +342,28 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
             unsigned char* sb = st + kTileBytesA;
             mbar_expect_tx(&full[stage], STAGE_BYTES);
             const int k0 = s * kBK;
-            tma_load(st, pair ? &tm_a2 : &tm_a, &full[stage], k0, row0, b);
+            if constexpr (TN_KIND) {
+              // A: C's rows [row0, row0 + 128) over the stage's token rows, as stored
+              tma_load(st, &tm_a, &full[stage], row0, start + k0, 0);
+              tma_load(st + kBoxBytes, &tm_a, &full[stage], row0 + kBox, start + k0, 0);
+            } else {
+              tma_load(st, pair ? &tm_a2 : &tm_a, &full[stage], k0, row0, b);
+            }
             if constexpr (NT) {
               tma_load(sb, pair ? &tm_b2 : &tm_b, &full[stage], k0, col0, 0);
             } else {
               // 64-column boxes: B's columns, then (GLU) B_gate's same ones
+              // (TN: dC's over the stage's token rows, then dC2's)
+              const int kr = TN_KIND ? start + k0 : k0;
 #pragma unroll
               for (int j = 0; j < BN / kBox; ++j) {
                 if (GLU && j >= BN / (2 * kBox))
-                  tma_load(sb + j * kBox * kBK * 2, &tm_b2, &full[stage], col0 + (j - BN / (2 * kBox)) * kBox, k0, 0);
+                  tma_load(sb + j * kBoxBytes, &tm_b2, &full[stage], col0 + (j - BN / (2 * kBox)) * kBox, kr, 0);
                 else
-                  tma_load(sb + j * kBox * kBK * 2, &tm_b, &full[stage], col0 + j * kBox, k0, bb);
+                  tma_load(sb + j * kBoxBytes, &tm_b, &full[stage], col0 + j * kBox, kr, bb);
               }
             }
-            if (++stage == kStages) {
+            if (++stage == STAGES) {
               stage = 0;
               phase ^= 1;
             }
@@ -263,27 +381,36 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
   int stage = 0;
   uint32_t phase = 0;
   for (int t = t_first; t < t_hi; t += p.group) {
-    int b, row0, col0;
+    int b, row0, col0, depth = p.K, steps = steps_all;
     task_tile<TN>(p, t, b, row0, col0);
+    if constexpr (TN_KIND) {
+      int start;
+      tn_task_rows(p, b, start, depth, steps);
+    }
 #pragma unroll
     for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
     int prev = -1;  // the stage whose products may still be in flight
     for (int pair = 0; pair < p.pairs; ++pair) {
       for (int s = 0; s < steps; ++s) {
         mbar_wait(&full[stage], phase);
+        if (TN_KIND && p.grp != nullptr && depth - s * kBK < kBK)
+          zero_stage_rows<STAGE_BYTES>(ring + stage * STAGE_BYTES, depth - s * kBK);
         const uint32_t a_base = smem_u32(ring + stage * STAGE_BYTES) + wgi * (kTileBytesA / 2);
         const uint32_t b_base = smem_u32(ring + stage * STAGE_BYTES + kTileBytesA);
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk) {
-          // A: K-major rows of 128 B, 8-row groups 1024 B apart, 32 B a k16
-          const uint64_t da = desc_sw128(a_base + kk * 32, 16, 1024);
-          // B: NT K-major as A; the forward N-major, 64-column boxes 8 KB
-          // apart (LBO), 8-row K groups 1024 B apart, 2048 B a k16
+          // A: K-major rows of 128 B, 8-row groups 1024 B apart, 32 B a k16;
+          // TN: the warpgroup's 64 x 64 box M-major, 8-row token groups
+          // 1024 B apart, 2048 B a k16
+          const uint64_t da = TN_KIND ? desc_sw128(a_base + kk * 2048, kBoxBytes, 1024)
+                                      : desc_sw128(a_base + kk * 32, 16, 1024);
+          // B: NT K-major as A; the forward (and TN) N-major, 64-column
+          // boxes 8 KB apart (LBO), 8-row K groups 1024 B apart, 2048 B a k16
           const uint64_t db = NT ? desc_sw128(b_base + kk * 32, 16, 1024)
-                                 : desc_sw128(b_base + kk * 2048, kBox * kBK * 2, 1024);
-          wgmma_tile<NT ? 0 : 1>(acc, da, db);
+                                 : desc_sw128(b_base + kk * 2048, kBoxBytes, 1024);
+          wgmma_tile<NT ? 0 : 1, TN_KIND ? 1 : 0>(acc, da, db);
         }
         wgmma_commit();
         // one group stays in flight: the previous step's products are done,
@@ -292,7 +419,7 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
         fence_acc(acc);
         if (prev >= 0) mbar_arrive(&empty[prev]);
         prev = stage;
-        if (++stage == kStages) {
+        if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -301,6 +428,10 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
     wgmma_wait<0>();
     fence_acc(acc);
     if (prev >= 0) mbar_arrive(&empty[prev]);
+    if constexpr (TN_KIND) {
+      fl(acc, t, b, row0, col0, wgi, tw, red, ring + STAGES * STAGE_BYTES + 256);
+      continue;
+    }
 
     // the flush: accumulator pair q holds rows r0 + 8 (q & 1), cols c0 + 8 (q >> 1) (+1);
     // the GLU's gate pair sits ACC / 2 registers further
@@ -334,15 +465,19 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
 // the host side: tensor maps and the launch
 // ---------------------------------------------------------------------------
 
-// One launch of `kernel` (B columns BN a stage) over `ctas` persistent CTAs.
-template <int BN, typename Kernel>
+// One launch of `kernel` (of kind KIND, B columns BN a stage) over `ctas`
+// persistent CTAs; `extra` (the TN kernels' flush) follows the Params
+// argument.
+template <int BN, int KIND = kFwd, typename Kernel, typename... Extra>
 static int launch(Kernel kernel, bool* opted_in, int ctas, cudaStream_t s, const CUtensorMap& m0,
-                  const CUtensorMap& m1, const CUtensorMap& m2, const CUtensorMap& m3, const Params& p) {
+                  const CUtensorMap& m1, const CUtensorMap& m2, const CUtensorMap& m3, const Params& p,
+                  const Extra&... extra) {
   if (p.group < 1 || ctas < p.group || ctas % p.group != 0 || ctas / p.group > p.n_tasks)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = opt_in(kernel, smem_bytes<BN>(), opted_in);
+  constexpr int bytes = smem_bytes<BN, KIND>();
+  const int rc = opt_in(kernel, bytes, opted_in);
   if (rc != 0) return rc;
-  kernel<<<static_cast<unsigned>(ctas), kThreads, smem_bytes<BN>(), s>>>(m0, m1, m2, m3, p);
+  kernel<<<static_cast<unsigned>(ctas), kThreads, bytes, s>>>(m0, m1, m2, m3, p, extra...);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,9 +21,10 @@ instead.  ``sfc_gemm_nt`` (C = A@Bᵀ, the dA of a projection) and
 ``sfc_gemm_tn`` (C = Aᵀ@B, its dW) read the stored operands with swapped
 roles, so no transposed copy is made.  A tensor on the
 CPU goes to the plain version, ``sfc_gemm_fused_plain``; a CUDA tensor goes
-to a hand-written kernel in ``csrc/sfc_gemm_fused.cu`` (bf16 past 16 rows:
-the persistent wgmma + TMA kernels of ``csrc/sfc_gemm_wgmma.cuh``) or the
-call raises.  There is no fallback from one to the other.
+to a hand-written kernel in ``csrc/sfc_gemm_fused.cu`` (bf16 past 16 rows,
+and bf16 NT and TN products, K8 and K10 in all their modes: the persistent
+wgmma + TMA main loop of ``csrc/sfc_gemm_wgmma.cuh``) or the call raises.
+There is no fallback from one to the other.
 
 Each kernel and its plain version walk the C tiles in the order of the
 gilbert task table that ``core.schedule.compile_schedule(gemm_spec(mb,
@@ -104,6 +105,8 @@ __all__ = [
     "wgmma_launch",
     "uses_wgmma_kernel",
     "uses_nt_wgmma_kernel",
+    "tn_wgmma_launch",
+    "uses_tn_wgmma_kernel",
     "sfc_gemm_nt",
     "sfc_gemm_nt_plain",
     "sfc_gemm_tn",
@@ -469,6 +472,42 @@ def uses_nt_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, a2: Optional[torch.Te
     a contraction whose rows TMA can describe (a multiple of 8, every
     operand 16-byte aligned); else the 64 x 64 NT tile kernel."""
     return a.dtype == torch.bfloat16 and _tma_rows(a.shape[1], a, b, a2, b2)
+
+
+def tn_wgmma_launch(rows: int, cols: int, sm_count: int, dual: bool = False, experts: int = 1,
+                    update: bool = False) -> WgmmaLaunch:
+    """The launch configuration of the TN wgmma kernels (K8, and K10 over
+    ``experts``) for (rows, cols) dW outputs a set on ``sm_count`` SMs, in
+    dW mode or (``update``) the norm and update modes: the C tile is 128 x
+    128 a set, over one gilbert grid (mb, nb) per expert; the dual form's
+    dW stage holds 128 columns of dC beside the same 128 of dC2 (the wide
+    stage, ``wide``), its norm and update 64 beside 64 (128 x 64 a set:
+    their flush would otherwise hold the second set's accumulators over
+    the first set's AdamW; the two modes share the tile, so their norms
+    are bitwise equal).  The CTAs and worker groups follow `wgmma_launch`'s
+    rule: min(tasks, SMs) CTAs, and where a CTA has more than one task,
+    workers of min(4, mb, CTAs) CTAs that take their segment's tasks in
+    turn.  A pure function of the shape, the SM count and the form and
+    mode, not a knob."""
+    bm, bn = build.WGMMA_TILE
+    wide = dual and not update
+    mb, nb = math.ceil(rows / bm), math.ceil(cols / (bn // 2 if dual and update else bn))
+    tasks = experts * mb * nb
+    ctas = min(tasks, sm_count)
+    group = min(4, mb, ctas) if tasks > ctas else 1
+    ctas -= ctas % group
+    return WgmmaLaunch(wide, mb, nb, ctas, group)
+
+
+def uses_tn_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, b2: Optional[torch.Tensor] = None,
+                         *state: Optional[torch.Tensor]) -> bool:
+    """Whether `sfc_gemm_tn` and `sfc_gemm_grouped_tn` launch the TN wgmma
+    kernels on the card, in any mode and grouped or not: bf16, at least one
+    token row, rows TMA can describe (K and N multiples of 8, A, dC and dC2
+    16-byte aligned) and, in the update mode, W and its f32 state (``state``)
+    16-byte aligned; every other call takes the 64 x 64 TN tile kernels."""
+    return (a.dtype == torch.bfloat16 and a.shape[0] >= 1 and _tma_rows(a.shape[1], a)
+            and _tma_rows(b.shape[1], b, b2) and all(t.data_ptr() % 16 == 0 for t in state if t is not None))
 
 
 def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, bm, bn, out_dtype, shape,
@@ -1214,6 +1253,76 @@ def _launch_nt_wgmma(a, b, a2, b2, out) -> str:
     return _tile_name(cfg, False)
 
 
+def _launch_tn_wgmma(a, b, b2, out, out2, *, gs: Optional[tuple] = None, abft: bool = False):
+    """One launch of the TN wgmma kernel in dW mode (K8, or K10 over the
+    group sizes ``gs``, its (E, K, N) outputs); returns (its tile's name,
+    the lane's (n_sets, tasks) partials under ``abft``, else None)."""
+    t, k = a.shape
+    n = b.shape[1]
+    experts = 1 if gs is None else len(gs)
+    cfg = tn_wgmma_launch(k, n, sm_count(a.device), b2 is not None, experts)
+    tiles = cfg.mb * cfg.nb
+    tab = _device_table(cfg.mb, cfg.nb, a.device)
+    grp = None if gs is None else _device_groups(gs, a.device)
+    chk = (torch.empty((1 if b2 is None else 2, experts * tiles), dtype=torch.float32, device=a.device)
+           if abft else None)
+    fn = getattr(build.load_library(), build.bwd_entry_name("tn_wgmma", "bf16", abft=abft))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), out.data_ptr(), _ptr(out2), tab.data_ptr(), tiles, experts,
+                k, n, t, cfg.ctas, cfg.group, _ptr(grp), _ptr(chk), stream)
+    if rc != 0:
+        kind = "sfc_gemm_tn" if gs is None else "sfc_gemm_grouped_tn"
+        raise RuntimeError(f"{kind} wgmma kernel launch failed with CUDA error {rc}")
+    return _tile_name(cfg, b2 is not None), chk
+
+
+def _launch_tn_update_wgmma(a, b, b2, sets, hyper, *, salt: int, stochastic_round: bool,
+                            gs: Optional[tuple] = None, abft: bool = False):
+    """One launch of the TN wgmma kernel in norm mode (``sets`` None) or
+    update mode, as `_launch_tn_update`'s; returns (its result, the tile's
+    name)."""
+    t, k = a.shape
+    n = b.shape[1]
+    n_sets = 1 if b2 is None else 2
+    experts = 1 if gs is None else len(gs)
+    cfg = tn_wgmma_launch(k, n, sm_count(a.device), b2 is not None, experts, update=True)
+    tiles = cfg.mb * cfg.nb
+    tab = _device_table(cfg.mb, cfg.nb, a.device)
+    grp = None if gs is None else _device_groups(gs, a.device)
+    partials = torch.empty((n_sets, experts * tiles), dtype=torch.float32, device=a.device)
+    chk = torch.empty_like(partials) if abft else None
+    fn = getattr(build.load_library(), build.bwd_entry_name("tn_update_wgmma", "bf16", abft=abft))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), n_sets, *(_ptr(x) for x in _entry_state(sets)), _ptr(hyper),
+                salt, int(stochastic_round), partials.data_ptr(), tab.data_ptr(), tiles, experts, k, n, t, cfg.ctas,
+                cfg.group, _ptr(grp), _ptr(chk), stream)
+    if rc != 0:
+        kind = "sfc_gemm_tn" if gs is None else "sfc_gemm_grouped_tn"
+        raise RuntimeError(f"{kind} {'update' if sets else 'norm'} wgmma kernel launch failed with CUDA error {rc}")
+    # the per-task partials in curve order, summed on the device: no atomics
+    norms = partials.sum(dim=1)
+    result = (norms, _lane_total(chk, a.device, n_sets)) if abft else norms
+    return result, _tile_name(cfg, b2 is not None)
+
+
+def _entry_state(sets) -> list:
+    """The update entries' state pointers' order (w, w2, master, mu, nu,
+    master2, mu2, nu2) from one (master, mu, nu, w) per set; all None in
+    norm mode."""
+    if sets is None:
+        return [None] * 8
+    (m1, u1, v1, w1), *rest = sets
+    m2, u2, v2, w2 = rest[0] if rest else (None,) * 4
+    return [w1, w2, m1, u1, v1, m2, u2, v2]
+
+
+def _state_tensors(sets) -> tuple:
+    """Every tensor of the update's sets, for `uses_tn_wgmma_kernel`."""
+    return () if sets is None else tuple(x for st in sets for x in st)
+
+
 def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: bool, rows: int, cols: int,
                       depth: int, vec_a: bool, vec_b: bool, gs: Optional[tuple] = None, abft: bool = False):
     """One launch of the TN kernel in norm mode (``sets`` None) or update
@@ -1233,11 +1342,7 @@ def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: boo
     partials = torch.empty((n_sets, n_tasks), dtype=torch.float32, device=a.device)
     chk = torch.empty_like(partials) if abft else None
     fn = getattr(build.load_library(), build.bwd_entry_name("tn_update", _dtype_name(a), abft=abft))
-    state = [None] * 8
-    if sets is not None:
-        (m1, u1, v1, w1), *rest = sets
-        m2, u2, v2, w2 = rest[0] if rest else (None,) * 4
-        state = [w1, w2, m1, u1, v1, m2, u2, v2]  # the entry's order
+    state = _entry_state(sets)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         lane = (_ptr(grp), n_groups) if chk is None else (chk.data_ptr(),)
@@ -1293,12 +1398,18 @@ def sfc_gemm_tn(
       weight's own: the kernel does not read ``hyper``'s salt lane.  The
       second set draws its bits with one more salt of 1.
 
-    On a CUDA tensor this launches the TN kernel, whose CTAs each loop over
-    all M rows (no atomics: the norms are per-task partials summed on the
-    device), and adds one to ``sfc_gemm_tn.launches``, to
-    ``launches_by_mode[mode]`` and to ``launches_by_shape[(K, N, M, dual)]``
-    (dW mode) or ``[(K, N, M, dual, mode)]``.  On a CPU tensor it runs
-    `sfc_gemm_tn_plain` and counts nothing.
+    On a CUDA tensor this launches a TN kernel, whose CTAs each loop over
+    all M rows of their tiles (no atomics: the norms are per-task partials
+    summed on the device): a bf16 call that `uses_tn_wgmma_kernel` takes
+    the persistent wgmma kernel (128 x 128 tiles a set, the dual form's
+    norm and update 128 x 64, `tn_wgmma_launch`; the writes staged in
+    shared memory), every other the 64 x 64 TN tile kernel.  Each launch adds one to
+    ``sfc_gemm_tn.launches``, to ``launches_by_mode[mode]``, to
+    ``launches_by_shape[(K, N, M, dual)]`` (dW mode) or ``[(K, N, M, dual,
+    mode)]`` and to ``launches_by_kernel`` under ("tn_wgmma_kernel" or, in
+    the norm and update modes, "tn_update_wgmma_kernel", its tile, e.g.
+    "128x128") or ("tn_kernel" / "tn_update_kernel", 1).  On a CPU tensor
+    it runs `sfc_gemm_tn_plain` and counts nothing.
 
     ``abft`` (any mode) runs the kernel with its checksum lane (the TPU
     kernel's ``abft``) and appends an (n_sets, 1) f32 tensor to the result:
@@ -1323,22 +1434,32 @@ def sfc_gemm_tn(
         out = torch.empty((k, n), dtype=out_dtype, device=a.device)
         out2 = torch.empty_like(out) if b2 is not None else None
         parts = None
-        if out.numel():
+        if out.numel() and uses_tn_wgmma_kernel(a, b, b2):
+            tile, parts = _launch_tn_wgmma(a, b, b2, out, out2, abft=abft)
+            kernel = ("tn_wgmma_kernel", tile)
+        elif out.numel():
             mb, nb = math.ceil(k / bm), math.ceil(n / bn)
             parts = torch.empty((n_sets, mb * nb), dtype=torch.float32, device=a.device) if abft else None
             _launch_bwd("tn", a, b, b2, out, out2, rows=k, cols=n, depth=m, chk=parts, **vecs)
+            kernel = ("tn_kernel", 1)
         result = _results((out, out2), _lane_total(parts, a.device, n_sets) if abft else None)
     elif k * n == 0:
         norms = torch.zeros(n_sets, dtype=torch.float32, device=a.device)
         return (norms, _lane_total(None, a.device, n_sets)) if abft else norms
+    elif uses_tn_wgmma_kernel(a, b, b2, *_state_tensors(sets)):
+        result, tile = _launch_tn_update_wgmma(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,
+                                               abft=abft)
+        kernel = ("tn_update_wgmma_kernel", tile)
     else:
         result = _launch_tn_update(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,
                                    rows=k, cols=n, depth=m, abft=abft, **vecs)
+        kernel = ("tn_update_kernel", 1)
     if k * n:
         sfc_gemm_tn.launches += 1
         sfc_gemm_tn.launches_by_mode[mode] += 1
         key = (k, n, m, b2 is not None)
         sfc_gemm_tn.launches_by_shape[key if mode == "dw" else (*key, mode)] += 1
+        sfc_gemm_tn.launches_by_kernel[kernel] += 1
         if abft:
             sfc_gemm_tn.abft_launches += 1
     return result
@@ -1351,6 +1472,7 @@ sfc_gemm_tn.launches = 0
 sfc_gemm_tn.abft_launches = 0
 sfc_gemm_tn.launches_by_mode = collections.Counter()
 sfc_gemm_tn.launches_by_shape = collections.Counter()
+sfc_gemm_tn.launches_by_kernel = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -1834,13 +1956,18 @@ def sfc_gemm_grouped_tn(
       the norm as the norm mode does.  The bf16 stochastic rounding hashes
       the expert lane ``2e + set`` into each tile's seed.
 
-    On a CUDA tensor this launches ``grouped_tn_kernel`` (dW) or
-    ``grouped_tn_update_kernel`` (norm, update) (K10, the TN kernel's tile
-    body; each CTA loops over its expert's rows, no atomics) and adds one to
-    ``sfc_gemm_grouped_tn.launches``, to ``launches_by_mode[mode]`` and to
-    ``launches_by_shape[(E, K, N, T, dual)]`` (dW mode) or ``[(E, K, N, T,
-    dual, mode)]``; ``row_block`` only chunks the plain version's sum.  On
-    a CPU tensor it runs `sfc_gemm_grouped_tn_plain` and counts nothing."""
+    On a CUDA tensor this launches K10, the TN kernels' grouped mode (each
+    tile's contraction over its expert's rows, no atomics): where
+    `uses_tn_wgmma_kernel` takes the call, the persistent wgmma kernel
+    ``grouped_tn_wgmma_kernel`` (dW) or ``grouped_tn_update_wgmma_kernel``
+    (norm, update) over the experts' tiles (`tn_wgmma_launch`),
+    else ``grouped_tn_kernel`` or ``grouped_tn_update_kernel`` (the 64 x 64
+    tile body).  Each launch adds one to ``sfc_gemm_grouped_tn.launches``,
+    to ``launches_by_mode[mode]``, to ``launches_by_shape[(E, K, N, T,
+    dual)]`` (dW mode) or ``[(E, K, N, T, dual, mode)]`` and to
+    ``launches_by_kernel[(kernel, tile or 1)]``; ``row_block`` only chunks
+    the plain version's sum.  On a CPU tensor it runs
+    `sfc_gemm_grouped_tn_plain` and counts nothing."""
     gs, k, n, t = _check_grouped_tn(a, b, b2, group_sizes, None)
     e_cnt = len(gs)
     mode, sets = _check_update(a, (e_cnt, k, n), b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
@@ -1858,10 +1985,16 @@ def sfc_gemm_grouped_tn(
             out = torch.empty((e_cnt, k, n), dtype=out_dtype, device=a.device)
             return out if b2 is None else (out, torch.empty_like(out))
         return torch.zeros(1 if b2 is None else 2, dtype=torch.float32, device=a.device)
-    if mode == "dw":
+    if mode == "dw" and uses_tn_wgmma_kernel(a, b, b2):
         out = torch.empty((e_cnt, k, n), dtype=out_dtype, device=a.device)
         out2 = torch.empty_like(out) if b2 is not None else None
         result = out if b2 is None else (out, out2)
+        kernel = ("grouped_tn_wgmma_kernel", _launch_tn_wgmma(a, b, b2, out, out2, gs=gs)[0])
+    elif mode == "dw":
+        out = torch.empty((e_cnt, k, n), dtype=out_dtype, device=a.device)
+        out2 = torch.empty_like(out) if b2 is not None else None
+        result = out if b2 is None else (out, out2)
+        kernel = ("grouped_tn_kernel", 1)
         tab = _device_grouped_tn_table(e_cnt, math.ceil(k / bm), math.ceil(n / bn), a.device)
         grp = _device_groups(gs, a.device)
         fn = getattr(build.load_library(), build.bwd_entry_name("tn", _dtype_name(a)))
@@ -1871,13 +2004,19 @@ def sfc_gemm_grouped_tn(
                     tab.shape[1], k, n, t, int(vecs["vec_a"]), int(vecs["vec_b"]), grp.data_ptr(), e_cnt, stream)
         if rc != 0:
             raise RuntimeError(f"sfc_gemm_grouped_tn kernel launch failed with CUDA error {rc}")
+    elif uses_tn_wgmma_kernel(a, b, b2, *_state_tensors(sets)):
+        result, tile = _launch_tn_update_wgmma(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,
+                                               gs=gs)
+        kernel = ("grouped_tn_update_wgmma_kernel", tile)
     else:
         result = _launch_tn_update(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,
                                    rows=k, cols=n, depth=t, gs=gs, **vecs)
+        kernel = ("grouped_tn_update_kernel", 1)
     sfc_gemm_grouped_tn.launches += 1
     sfc_gemm_grouped_tn.launches_by_mode[mode] += 1
     key = (e_cnt, k, n, t, b2 is not None)
     sfc_gemm_grouped_tn.launches_by_shape[key if mode == "dw" else (*key, mode)] += 1
+    sfc_gemm_grouped_tn.launches_by_kernel[kernel] += 1
     return result
 
 
@@ -1889,3 +2028,4 @@ sfc_gemm_grouped_nt.launches_by_shape = collections.Counter()
 sfc_gemm_grouped_tn.launches = 0
 sfc_gemm_grouped_tn.launches_by_mode = collections.Counter()
 sfc_gemm_grouped_tn.launches_by_shape = collections.Counter()
+sfc_gemm_grouped_tn.launches_by_kernel = collections.Counter()

@@ -1449,3 +1449,182 @@ def test_calls_the_wgmma_predicates_refuse_land_on_the_tile_kernels_on_card():
     torch.cuda.synchronize()
     assert (dict(fused), dict(nt)) == before[:2]
     assert (tk.sfc_gemm_grouped.launches, tk.sfc_gemm_grouped_nt.launches) == (before[2] + 1, before[3] + 1)
+
+
+# ---------------------------------------------------------------------------
+# the TN wgmma kernels: K8 (tn_wgmma_kernel, tn_update_wgmma_kernel, their
+# lane twins) and K10 (grouped_tn_wgmma_kernel, grouped_tn_update_wgmma_kernel)
+# ---------------------------------------------------------------------------
+
+# (expert row counts or None, token rows, K, N, dual): qwen3-4b's training
+# dW shapes (512 token rows), ragged ones whose boxes run past every edge,
+# and expert sizes that are not multiples of 64, with empty experts
+TN_WGMMA_CASES = {
+    "q": (None, 512, 2560, 4096, False),
+    "glu_dual": (None, 512, 2560, 9728, True),
+    "ragged_m200_dual": (None, 200, 264, 328, True),
+    "m5": (None, 5, 64, 1000, False),
+    "grouped_ragged_dual": ((5, 0, 19, 32), None, 264, 328, True),
+    "grouped_80_rows": ((80,) * 6, None, 256, 192, False),
+    "grouped_130_rows_dual": ((1, 130, 0, 64), None, 264, 136, True),
+}
+
+
+def _tn_case_inputs(case, dtype=torch.bfloat16, seed=41):
+    gs, m, k, n, dual = TN_WGMMA_CASES[case]
+    t = sum(gs) if gs else m
+    e = len(gs) if gs else 1
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=1.0, dt=dtype):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to("cuda", dt)
+
+    stack = (e, k, n) if gs else (k, n)
+    sets = []
+    for _ in range(2 if dual else 1):
+        mst = r(*stack, scale=0.02, dt=torch.float32)
+        sets.append((mst, r(*stack, scale=0.5, dt=torch.float32), r(*stack, scale=2.0, dt=torch.float32) ** 2 + 0.1,
+                     mst.to(dtype)))
+    return gs, (r(t, k), r(t, n), r(t, n) if dual else None), sets
+
+
+def _tn_update(fn, x, dc, dc2, sets, hyper, gs, **kw):
+    """One update-mode call on clones of ``sets``; returns (norms, sets)."""
+    sets = [tuple(v.clone() for v in st) for st in sets]
+    second = list(sets[1][:3]) if len(sets) > 1 else [None] * 3
+    extra = dict(group_sizes=gs) if gs else {}
+    norms = fn(x, dc, dc2, *sets[0][:3], *second, hyper, w=sets[0][3], w2=sets[1][3] if len(sets) > 1 else None,
+               salt=(5 << 16) + 3, stochastic_round=True, **extra, **kw)
+    return norms, sets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TN_WGMMA_CASES))
+def test_tn_wgmma_kernels_match_plain_versions_on_card(case):
+    """K8 and K10 on the wgmma kernels, single and dual, against their
+    plain versions in every mode, one launch each by ``launches_by_kernel``:
+    dW within one bf16 rounding (an empty expert's exactly zero); the norm
+    mode's norms bitwise the update mode's and within the f32 bound of the
+    plain's; master, mu and nu within the f32 bound; a bf16 W bitwise the
+    stochastic rounding of the kernel's own master with the plain version's
+    64 x 64 tile bits; K8's lane twins' outputs bitwise the kernels'."""
+    _card()
+    from repro_torch.optim.adamw import AdamWConfig, pack_adamw_hyper
+
+    gs, (x, dc, dc2), sets = _tn_case_inputs(case)
+    dual, (_, _, k, n, _) = dc2 is not None, TN_WGMMA_CASES[case]
+    fn, plain = (tk.sfc_gemm_grouped_tn, tk.sfc_gemm_grouped_tn_plain) if gs else (tk.sfc_gemm_tn, tk.sfc_gemm_tn_plain)
+    prefix = "grouped_" if gs else ""
+    grp = dict(group_sizes=gs) if gs else {}
+    assert tk.uses_tn_wgmma_kernel(x, dc, dc2, *(v for st in sets for v in st))
+    cs = _chip_smoke()
+    got, key = cs.launched(fn.launches_by_kernel, lambda: fn(x, dc, dc2, **grp))
+    assert key == (f"{prefix}tn_wgmma_kernel", "128x128")
+    want = plain(x, dc, dc2, bm=64, bn=64, **grp)
+    for g, w in zip(got if dual else [got], want if dual else [want]):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape and _agree(g, w, torch.bfloat16)
+        for e, size in enumerate(gs or ()):
+            if size == 0:
+                assert not bool(g[e].any())
+    hyper = pack_adamw_hyper(AdamWConfig(lr=1e-2), torch.tensor(7, dtype=torch.int32, device="cuda"),
+                             torch.tensor(0.37, device="cuda"))
+    # the norm and update modes' tile: 128 x 64 a set in the dual form
+    upd_tile = "128x64" if dual else "128x128"
+    (norms, got_sets), key = cs.launched(fn.launches_by_kernel,
+                                         lambda: _tn_update(fn, x, dc, dc2, sets, hyper, gs))
+    assert key == (f"{prefix}tn_update_wgmma_kernel", upd_tile)
+    only, key = cs.launched(fn.launches_by_kernel, lambda: fn(x, dc, dc2, norm=True, **grp))
+    assert key == (f"{prefix}tn_update_wgmma_kernel", upd_tile)
+    torch.cuda.synchronize()
+    want_norms, want_sets = _tn_update(plain, x, dc, dc2, sets, hyper, gs, bm=64, bn=64)
+    assert torch.equal(only, norms) and _agree(norms, want_norms, torch.float32)
+    for s, (g_set, p_set) in enumerate(zip(got_sets, want_sets)):
+        for g, w in zip(g_set[:3], p_set[:3]):
+            assert _agree(g, w, torch.float32)
+        bits = (tk._grouped_tile_bits(len(gs), k, n, 64, 64, hyper, (5 << 16) + 3, s) if gs
+                else tk._tile_bits(k, n, 64, 64, hyper, (5 << 16) + 3, *((1,) if s else ())))
+        assert torch.equal(g_set[3], tk.stochastic_round_to(g_set[0], bits, torch.bfloat16))
+    if gs:
+        return
+    on = tk.sfc_gemm_tn(x, dc, dc2, abft=True)
+    assert all(torch.equal(a, b) for a, b in zip(on[:-1], got if dual else [got]))
+    norms_on, chk = _tn_update(lambda *a, **kw: tk.sfc_gemm_tn(*a, abft=True, **kw), x, dc, dc2, sets, hyper, gs)[0]
+    assert torch.equal(norms_on, norms) and chk.shape == (2 if dual else 1, 1)
+    assert torch.equal(tk.sfc_gemm_tn(x, dc, dc2, norm=True, abft=True)[0], norms)
+
+
+@pytest.mark.cuda
+def test_tn_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
+    """The TN wgmma kernels keep no counter or queue on the device: a
+    captured graph of K8's dual dW, K10's ragged dW, its norm mode and K8's
+    update (its state reset before each replay), replayed three times, gives
+    the eager outputs bitwise every time, and the counters count the
+    capture only."""
+    _card()
+    from repro_torch.optim.adamw import AdamWConfig, pack_adamw_hyper
+
+    _, (x, dc, dc2), sets = _tn_case_inputs("glu_dual")
+    gs, (xg, dcg, dcg2), _ = _tn_case_inputs("grouped_ragged_dual")
+    hyper = pack_adamw_hyper(AdamWConfig(lr=1e-2), torch.tensor(3, dtype=torch.int32, device="cuda"),
+                             torch.tensor(0.5, device="cuda"))
+    work = [tuple(v.clone() for v in st) for st in sets]
+
+    def step():
+        (m1, u1, v1, w1), (m2, u2, v2, w2) = work
+        return (tk.sfc_gemm_tn(x, dc, dc2), tk.sfc_gemm_grouped_tn(xg, dcg, dcg2, group_sizes=gs),
+                tk.sfc_gemm_grouped_tn(xg, dcg, dcg2, group_sizes=gs, norm=True),
+                tk.sfc_gemm_tn(x, dc, dc2, m1, u1, v1, m2, u2, v2, hyper, w=w1, w2=w2, salt=9,
+                               stochastic_round=True))
+
+    def reset():
+        for dst, src in zip(work, sets):
+            for d, s_ in zip(dst, src):
+                d.copy_(s_)
+
+    eager = step()
+    eager_state = [tuple(v.clone() for v in st) for st in work]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    counts = (tk.sfc_gemm_tn.launches, tk.sfc_gemm_grouped_tn.launches)
+    for _ in range(3):
+        reset()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(out, eager):
+            assert all(torch.equal(a, b) for a, b in zip(o if isinstance(o, tuple) else (o,),
+                                                         e if isinstance(e, tuple) else (e,)))
+        assert all(torch.equal(a, b) for st, est in zip(work, eager_state) for a, b in zip(st, est))
+    assert (tk.sfc_gemm_tn.launches, tk.sfc_gemm_grouped_tn.launches) == counts
+
+
+@pytest.mark.cuda
+def test_calls_the_tn_wgmma_predicate_refuses_land_on_the_tile_kernels_on_card():
+    """f32, N 133 (rows TMA cannot describe), an empty contraction and a
+    misaligned master keep the 64 x 64 TN tile kernels, by
+    ``launches_by_kernel``, in every mode."""
+    _card()
+    cs = _chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    fn = tk.sfc_gemm_tn.launches_by_kernel
+    for x, dc in ((r(77, 264, dtype=torch.float32), r(77, 328, dtype=torch.float32)), (r(77, 264), r(77, 133)),
+                  (r(0, 264), r(0, 328))):
+        assert not tk.uses_tn_wgmma_kernel(x, dc)
+        assert cs.launched(fn, lambda: tk.sfc_gemm_tn(x, dc))[1] == ("tn_kernel", 1)
+        assert cs.launched(fn, lambda: tk.sfc_gemm_tn(x, dc, norm=True))[1] == ("tn_update_kernel", 1)
+    x, dc = r(77, 264), r(77, 328)
+    hyper = torch.zeros(12, device="cuda")
+    flat = torch.zeros(264 * 328 + 4, device="cuda")
+    mst = flat[1:1 + 264 * 328].view(264, 328)  # 4 bytes past a 16-byte boundary
+    state = dict(master=mst, mu=torch.zeros_like(mst), nu=torch.ones_like(mst), w=mst.bfloat16())
+    assert not tk.uses_tn_wgmma_kernel(x, dc, None, *state.values())
+    assert cs.launched(fn, lambda: tk.sfc_gemm_tn(x, dc, hyper=hyper, **state))[1] == ("tn_update_kernel", 1)

@@ -165,7 +165,7 @@ def test_raw_tile_sums_and_grouped_raw_are_the_lane_partials():
         off += n
 
 
-@pytest.mark.parametrize("kernel", ["fused_glu", "grouped_ragged", "tn_dual"])
+@pytest.mark.parametrize("kernel", ["fused_glu", "grouped_ragged", "tn_dual", "tn_dual_wgmma_tile"])
 def test_lane_limit_holds_a_reordered_lane_and_misses_a_faulty_one(kernel):
     """chip_smoke.py's lane-against-plain limit (1e-5 of the sum of |64 x
     64 raw tile sums|, never above `tolerance()`): the plain lane at 16 x
@@ -199,7 +199,9 @@ def test_lane_limit_holds_a_reordered_lane_and_misses_a_faulty_one(kernel):
         else:
             x, dc, dc2 = r(150, 90), r(150, 140), r(150, 140)
             lanes = [tk.sfc_gemm_tn_plain(x, dc, dc2, bm=b, bn=b, abft=True) for b in (64, 16)]
-            tiles = cs.raw_tile_sums(torch, x.float().T @ dc.float())
+            # the TN wgmma kernels' lane sums 128 x 128 tiles
+            tiles = (cs.kernel_tiles(torch, "tn_wgmma_kernel", "128x128", x.float().T @ dc.float())
+                     if kernel == "tn_dual_wgmma_tile" else cs.raw_tile_sums(torch, x.float().T @ dc.float()))
             ref, mag = abft.tn_checksum_ref(x, dc)
             lane, other, out, depth = lanes[0][-1][0, 0], lanes[1][-1][0, 0], None, 150
         limit = cs.lane_limit(tiles, abft.tolerance(mag, depth))
@@ -227,3 +229,74 @@ def test_kernel_tiles_are_the_tiles_each_lane_sums():
     for name, config in (("sfc_gemm_fused_kernel", 1), ("sfc_gemm_cluster_kernel", 4)):
         assert torch.equal(cs.kernel_tiles(torch, name, config, c, d), cs.raw_tile_sums(torch, c, d))
     assert cs.plain_layers("sfc_gemm_cluster_kernel", 4) == 4 and cs.plain_layers("sfc_gemm_wgmma_kernel", "128x64") == 1
+
+
+def test_kernel_tiles_of_the_tn_wgmma_kernels_are_their_128_by_128_tiles():
+    """K8's wgmma lanes (dW, update and norm) sum each set's (K, N) dW over
+    128 x 128 tiles; its tile kernels' over 64 x 64 ones."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    c = torch.randn(264, 328, generator=torch.Generator().manual_seed(8))
+    want = torch.stack([c[r:r + 128, q:q + 128].sum() for r in range(0, 264, 128) for q in range(0, 328, 128)])
+    for name in ("tn_wgmma_kernel", "tn_update_wgmma_kernel"):
+        torch.testing.assert_close(cs.kernel_tiles(torch, name, "128x128", c), want, rtol=1e-6, atol=1e-4)
+    for name in ("tn_kernel", "tn_update_kernel"):
+        assert torch.equal(cs.kernel_tiles(torch, name, 1, c), cs.raw_tile_sums(torch, c))
+
+
+# profiler keys of the TN kernels (demangled) -> (group, update instantiation)
+_TN_PROFILE_KEYS = {
+    "void (anonymous namespace)::tn_update_wgmma_kernel<true, true>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "CUtensorMap, wg::Params, (anonymous namespace)::TnFlush<2, true, false, false>)": ("K8 wgmma norm/update", True),
+    "void (anonymous namespace)::tn_update_wgmma_kernel<false, false>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "CUtensorMap, wg::Params, (anonymous namespace)::TnFlush<1, false, false, false>)":
+        ("K8 wgmma norm/update", False),
+    "void (anonymous namespace)::grouped_tn_update_wgmma_kernel<true, true>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "CUtensorMap, wg::Params, (anonymous namespace)::TnFlush<2, true, true, false>)": ("K10 wgmma norm/update", True),
+    "void (anonymous namespace)::grouped_tn_wgmma_kernel<true, false>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "CUtensorMap, wg::Params, (anonymous namespace)::TnFlush<0, true, true, false>)": ("K10 wgmma", None),
+    "void (anonymous namespace)::tn_wgmma_kernel<false, false>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
+    "wg::Params, (anonymous namespace)::TnFlush<0, false, false, false>)": ("K8 wgmma", None),
+    "void (anonymous namespace)::tn_update_kernel<__nv_bfloat16, true, true, true>((anonymous namespace)::BwdParams, "
+    "(anonymous namespace)::UpdParams)": ("K8 norm/update", True),
+    "void (anonymous namespace)::grouped_tn_update_kernel<float, false, false, false>((anonymous namespace)::"
+    "BwdParams, (anonymous namespace)::UpdParams)": ("K10 norm/update", False),
+    "void (anonymous namespace)::grouped_tn_kernel<float, true>((anonymous namespace)::BwdParams)": ("K10", None),
+    "void (anonymous namespace)::tn_kernel<__nv_bfloat16, false>((anonymous namespace)::BwdParams)": ("K8", None),
+    "void (anonymous namespace)::nt_wgmma_kernel<128>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
+    "wg::Params)": ("K7 wgmma", None),
+}
+
+
+@pytest.mark.parametrize("key", sorted(_TN_PROFILE_KEYS))
+def test_a_step_profile_names_every_tn_kernel_and_splits_norm_from_update(key):
+    """chip_smoke.py's profile groups, matched as `profile_step` matches
+    them (the first fragment of the MoE list in a key), give each TN
+    kernel its own group, and the norm / update split reads each kernel's
+    UPDATE template argument."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    label, update = _TN_PROFILE_KEYS[key]
+    assert next(lab for frag, lab in cs._MOE_KERNEL_GROUPS if frag in key) == label
+    if not label.startswith("K10"):
+        assert next(lab for frag, lab in cs._KERNEL_GROUPS if frag in key) == label
+    if update is not None:
+        assert cs._is_update(key) is update
+
+
+def test_kernel_counts_split_every_wgmma_family_from_its_tile_kernels():
+    """`_kernel_counts`: K8's and K10's launches on their wgmma kernels
+    (every mode) and on the tile kernels (dW and the update / norm kernel)."""
+    import collections
+    import types
+
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+
+    def fn(**counts):
+        return types.SimpleNamespace(launches_by_kernel=collections.Counter(
+            {(name, cfg): n for (name, cfg), n in counts.values()}))
+
+    counted = {"sfc_gemm_tn": fn(a=(("tn_wgmma_kernel", "128x128"), 3), b=(("tn_update_wgmma_kernel", "128x128"), 4),
+                                 c=(("tn_kernel", 1), 5), d=(("tn_update_kernel", 1), 6)),
+               "sfc_gemm_grouped_tn": fn(a=(("grouped_tn_update_wgmma_kernel", "128x128"), 2),
+                                         b=(("grouped_tn_kernel", 1), 1), c=(("grouped_tn_update_kernel", 1), 7))}
+    assert cs._kernel_counts(counted) == {"sfc_gemm_tn:wgmma": 7, "sfc_gemm_tn:tile": 11,
+                                          "sfc_gemm_grouped_tn:wgmma": 2, "sfc_gemm_grouped_tn:tile": 8}
