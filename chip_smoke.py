@@ -49,7 +49,9 @@ phase 3 three) and raising on failure:
               GLU preact, w_out), K9 (dA) and K10 (dW) at every olmoe-1b-7b
               shape (64 experts; decode 32, prefill and training 80 rows an
               expert), timed beside one torch.bmm, and each on ragged
-              expert sizes (5, 0, 19, 32) in f32 and bf16; K10's update
+              expert sizes (5, 0, 19, 32) and (80, 0, 45, 130) in f32 and
+              bf16, each row naming the CUDA kernel and tile it launched
+              (bf16 K3 / K9: the grouped wgmma kernels); K10's update
               mode (per-expert AdamW in the flush, bf16 W stochastically
               rounded) and norm mode at olmoe's two training shapes in
               bf16, timed beside torch.bmm + torch._fused_adamw_, and on
@@ -57,8 +59,9 @@ phase 3 three) and raising on failure:
               update included);
               the ABFT checksum lanes ("abft_lanes" line): K1/K2 at every
               K1/K2 shape above and the ragged all-flags case, K3 at
-              olmoe's decode, prefill and training shapes and the ragged
-              sizes, K8 dW (single, dual) at every training shape with the
+              olmoe's decode, prefill and training shapes and both ragged
+              sizes (bf16 the grouped wgmma kernel's lane, over its own
+              128-row tiles), K8 dW (single, dual) at every training shape with the
               LM head, K8's update (bf16 stochastically rounded, f32) and
               norm modes at every layer's training shape, each in bf16 and
               f32: the lane within 1e-5 of the sum of |64 x 64 raw tile
@@ -131,7 +134,8 @@ phase 3 three) and raising on failure:
               the runs without ABFT (bitwise or not is reported), step
               times and peak memory, the largest residual / tolerance;
 6. grad check olmoe-1b-7b at full width cut to 2 layers, f32, as phase 3:
-              the router and the expert stacks through K3, K9 and K10;
+              the router and the expert stacks through K3, K9 and K10
+              (K3 and K9 on their 64 x 64 tile kernels only);
               then its fused step as phase 3's (K8's modes for q, k, v, o
               and the head, K10's for the expert stacks; the router, as in
               the JAX package, unrouted), with the NaN step;
@@ -139,9 +143,11 @@ phase 3 three) and raising on failure:
               layers, 64 experts top-8, bf16, seeded random weights), 4
               requests, prompt 128, 16 new tokens: sfc_cuda GEMMs with
               blockwise attention and with attn_impl="sfc" (exactly 512 K3
-              and 1,296 K1/K2 launches; 16 K11 and 240 K14 with "sfc"), and
-              the torch backend; the f32 prefill logits of the same weights
-              cut to 4 layers within the bf16 bound of the torch backend's;
+              launches, all on the grouped wgmma kernel, and 1,296 K1/K2;
+              16 K11 and 240 K14 with "sfc"), and the torch backend; the
+              f32 prefill logits of the same weights cut to 4 layers within
+              the bf16 bound of the torch backend's (its 32 K3 launches on
+              the tile kernel);
               where the bf16 greedy tokens part from torch's, the routing
               of both backends at that step (top-k sets that differ, the
               router's probability gap of the swapped experts); the
@@ -151,7 +157,8 @@ phase 3 three) and raising on failure:
 8. train      `build_trainer` trains olmoe-1b-7b at full width on 8 of its 16
               layers (AdamW's 16 B a parameter: 57 GB) for 3 steps of 2 x 256
               tokens under sfc_cuda + attn_impl="sfc" (exactly 16 K3, 16 K9,
-              16 K10 and 41 each of K1/K2, K7, K8 a step), the same steps with
+              16 K10 and 41 each of K1/K2, K7, K8 a step, K3 and K9 on the
+              grouped wgmma kernels), the same steps with
               fused_optimizer=True (16 K10 norm and 16 update launches, 33
               K8 norm and 33 update, the router's 8 K8 dW, no K10 dW a step;
               no weight left with a .grad; losses within 2^-7 of the unfused
@@ -223,6 +230,8 @@ MOE_CHECK_LAYERS = 2  # the f32 gradient check
 MOE_SERVE_F32_LAYERS = 4  # the f32 prefill-logits check
 # expert row counts of the ragged checks: one expert empty, none a whole tile
 RAGGED_GROUPS = (5, 0, 19, 32)
+# and one expert over a 128-row tile of the wgmma kernels (K3, K9)
+RAGGED_GROUPS_LONG = (80, 0, 45, 130)
 
 # the replicated form (split-K): the K layers of phase 2's rows (the LM head
 # at two of them), and those of the second "replicated" serve
@@ -1252,14 +1261,19 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     K7, K8, K11, K12, K13; for olmoe also K3, K9 and K10) against the torch
     backend with blockwise attention, within the bf16 bound; every
     projection weight (the router and the expert stacks included) must get
-    a non-zero gradient."""
+    a non-zero gradient; the flash backward and K3 / K9 launch their 64 x
+    64 tile kernels only (f32)."""
     from repro_torch.kernels import sfc_attention as tsa
+    from repro_torch.kernels import sfc_gemm as tk
 
     cfg4 = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32")
     model = build_model(cfg4, device="cuda").init(torch.Generator(device="cuda").manual_seed(7))
     losses, grads = {}, {}
-    # the f32 cut's flash backward: every launch on the 64 x 64 tile kernels
+    # the f32 cut's flash backward and (MoE) K3 / K9: every launch on the
+    # 64 x 64 tile kernels
     bwd_before = [collections.Counter(f.launches_by_kernel) for f in (tsa.sfc_flash_bwd_dq, tsa.sfc_flash_bwd_dkv)]
+    grouped_fns = (tk.sfc_gemm_grouped, tk.sfc_gemm_grouped_nt)
+    grouped_before = [collections.Counter(f.launches_by_kernel) for f in grouped_fns]
     for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
         with gemm_backend(gemm), attention_backend(impl):
             loss = model.loss(batch)
@@ -1276,11 +1290,17 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
                    for f, before in zip((tsa.sfc_flash_bwd_dq, tsa.sfc_flash_bwd_dkv), bwd_before)]
     if bwd_kernels != [{"flash_bwd_dq_kernel": layers}, {"flash_bwd_dkv_kernel": layers}]:
         raise AssertionError(f"the f32 cut's flash backward launched {bwd_kernels}, expected the tile kernels")
+    grouped_kernels = [by_kernel(collections.Counter(f.launches_by_kernel) - before)
+                       for f, before in zip(grouped_fns, grouped_before)]
+    tiles_only = [set(k) == ({"sfc_gemm_grouped_kernel"}, {"grouped_nt_kernel"})[i] if cfg.n_experts else not k
+                  for i, k in enumerate(grouped_kernels)]
+    if not all(tiles_only):
+        raise AssertionError(f"the f32 cut's K3 / K9 launched {grouped_kernels}, expected the tile kernels only")
     ok_loss, err_loss, worst_loss = within(losses["sfc_cuda+sfc_attn"], losses["torch"], torch.bfloat16)
     per_param = {n: within(g, grads["torch"][n], torch.bfloat16) for n, g in grads["sfc_cuda+sfc_attn"].items()}
     bad = {n: r for n, r in per_param.items() if not r[0]}
     out = {"arch": cfg.name, "layers": layers, "dtype": "float32", "tokens": list(batch["tokens"].shape),
-           "flash_bwd_launches_by_kernel": bwd_kernels,
+           "flash_bwd_launches_by_kernel": bwd_kernels, "grouped_launches_by_kernel": grouped_kernels,
            "loss": {"sfc_cuda+sfc_attn": float(losses["sfc_cuda+sfc_attn"]), "torch": float(losses["torch"]),
                     "ok": ok_loss, "err_over_bound": worst_loss},
            "params": len(per_param), "projections_with_gradient": sum(map(_is_projection, per_param)),
@@ -1395,8 +1415,10 @@ _KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("sfc_gemm_wgmma_kernel", 
 # the MoE step's: the grouped kernels first, since "nt_kernel",
 # "tn_kernel", "tn_update_kernel" and their wgmma names are fragments of
 # their names too
-_MOE_KERNEL_GROUPS = (("sfc_gemm_grouped_kernel", "K3"), ("grouped_nt_kernel", "K9"), ("grouped_tn_kernel", "K10"),
-                      ("grouped_tn_wgmma_kernel", "K10 wgmma"), ("grouped_tn_update_kernel", "K10 norm/update"),
+_MOE_KERNEL_GROUPS = (("sfc_gemm_grouped_kernel", "K3"), ("sfc_gemm_grouped_wgmma_kernel", "K3 wgmma"),
+                      ("grouped_nt_kernel", "K9"), ("grouped_nt_wgmma_kernel", "K9 wgmma"),
+                      ("grouped_tn_kernel", "K10"), ("grouped_tn_wgmma_kernel", "K10 wgmma"),
+                      ("grouped_tn_update_kernel", "K10 norm/update"),
                       ("grouped_tn_update_wgmma_kernel", "K10 wgmma norm/update"), *_KERNEL_GROUPS)
 
 
@@ -1458,11 +1480,13 @@ def _tn_mode_counts(counted):
 
 
 def _kernel_counts(counted):
-    """K1/K2's, K7's, K8's, K10's, K12's and K13's launches on their wgmma
-    kernels and on the 64 x 64 tile kernels (the cluster kernel takes none
-    of a training step's)."""
+    """K1/K2's, K3's, K7's, K8's, K9's, K10's, K12's and K13's launches on
+    their wgmma kernels and on the 64 x 64 tile kernels (the cluster kernel
+    takes none of a training step's)."""
     out = {}
     for name, tiles in (("sfc_gemm_fused", ("sfc_gemm_fused_kernel",)), ("sfc_gemm_nt", ("nt_kernel",)),
+                        ("sfc_gemm_grouped", ("sfc_gemm_grouped_kernel",)),
+                        ("sfc_gemm_grouped_nt", ("grouped_nt_kernel",)),
                         ("sfc_gemm_tn", ("tn_kernel", "tn_update_kernel")),
                         ("sfc_gemm_grouped_tn", ("grouped_tn_kernel", "grouped_tn_update_kernel")),
                         ("sfc_flash_bwd_dq", ("flash_bwd_dq_kernel",)),
@@ -1729,7 +1753,9 @@ def phase_grouped_gemms(torch, gemms, tk):
     """K3, K9 and K10 against their plain versions at every olmoe shape
     (bf16), timed beside their bound and one torch.bmm of the same product;
     then each on the ragged expert sizes RAGGED_GROUPS (one expert empty)
-    at olmoe's widths, in f32 and bf16."""
+    and RAGGED_GROUPS_LONG (one over a 128-row tile) at olmoe's widths, in
+    f32 and bf16.  Every row names the CUDA kernel and tile it launched:
+    bf16 on the grouped wgmma kernels, f32 on the 64 x 64 tile kernels."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     dt = torch.bfloat16
     fns = {"fwd": (tk.sfc_gemm_grouped, tk.sfc_gemm_grouped_plain),
@@ -1744,9 +1770,8 @@ def phase_grouped_gemms(torch, gemms, tk):
         copies = max(1, math.ceil(4 * L2_BYTES / gm.bytes(2)))
         ins = [_grouped_operands(torch, gm, dt, gen) for _ in range(copies)]
         args, kw, _ = ins[0]
-        # K10 names the CUDA kernel it launched and its tile
-        got, (name, config) = (launched(fn.launches_by_kernel, lambda: fn(*args, **gs, **kw)) if gm.kind == "tn"
-                               else (fn(*args, **gs, **kw), (None, None)))
+        # the CUDA kernel it launched and its tile
+        got, (name, config) = launched(fn.launches_by_kernel, lambda: fn(*args, **gs, **kw))
         want = plain_fn(*args, **gs, bm=64, bn=64, **kw)
         torch.cuda.synchronize()
         ok, err, worst = within_all(got, want, dt)
@@ -1755,6 +1780,8 @@ def phase_grouped_gemms(torch, gemms, tk):
         if not ok:
             raise AssertionError(f"{gm.kernel} disagrees with its plain version at {gm}: max err {err}, "
                                  f"err/bound {worst}")
+        if "wgmma" not in name:
+            raise AssertionError(f"{gm.kernel} at {gm} launched {name}, not its wgmma kernel")
         del got, want
         reps = max(20, copies)
         ms = time_ms(lambda i: fn(*ins[i % copies][0], **gs, **ins[i % copies][1]), reps=reps, graph=True)
@@ -1773,21 +1800,24 @@ def phase_grouped_gemms(torch, gemms, tk):
               GroupedGemm("ragged/w_out", "fwd", "-", e, 0, f, d)]
     ragged += [GroupedGemm(f"ragged/{w}", kind, "-", e, 0, *kn, glu=glu) for kind in ("nt", "tn")
                for w, kn, glu in (("glu", (d, f), True), ("w_out", (f, d), False))]
-    for dtype in (torch.float32, torch.bfloat16):
-        for gm in ragged:
-            fn, plain_fn = fns[gm.kind]
-            args, kw, _ = _grouped_operands(torch, gm, dtype, gen, rows=RAGGED_GROUPS)
-            got, (name, config) = (launched(fn.launches_by_kernel, lambda: fn(*args, group_sizes=RAGGED_GROUPS, **kw))
-                                   if gm.kind == "tn" else (fn(*args, group_sizes=RAGGED_GROUPS, **kw), (None, None)))
-            torch.cuda.synchronize()
-            ok, err, worst = within_all(got, plain_fn(*args, group_sizes=RAGGED_GROUPS, bm=64, bn=64, **kw), dtype)
-            if gm.kind == "tn":  # the empty expert's weight gradient is exactly zero
-                ok = ok and not any(bool(g[1].any()) for g in (got if gm.glu else [got]))
-            checks.append({"case": f"{gm.kernel}:{gm.name}", "dtype": str(dtype), "group_sizes": list(RAGGED_GROUPS),
-                           "shape": gm.shape(), "ok": ok, "max_abs_err": err, "err_over_bound": worst,
-                           "kernel": name, "config": config})
-            if not ok:
-                raise AssertionError(f"{gm.kernel} ragged case {gm.name} ({dtype}) disagrees: max err {err}")
+    for sizes in (RAGGED_GROUPS, RAGGED_GROUPS_LONG):
+        for dtype in (torch.float32, torch.bfloat16):
+            for gm in ragged:
+                fn, plain_fn = fns[gm.kind]
+                args, kw, _ = _grouped_operands(torch, gm, dtype, gen, rows=sizes)
+                got, (name, config) = launched(fn.launches_by_kernel, lambda: fn(*args, group_sizes=sizes, **kw))
+                torch.cuda.synchronize()
+                ok, err, worst = within_all(got, plain_fn(*args, group_sizes=sizes, bm=64, bn=64, **kw), dtype)
+                if gm.kind == "tn":  # the empty expert's weight gradient is exactly zero
+                    ok = ok and not any(bool(g[1].any()) for g in (got if gm.glu else [got]))
+                checks.append({"case": f"{gm.kernel}:{gm.name}", "dtype": str(dtype), "group_sizes": list(sizes),
+                               "shape": gm.shape(), "ok": ok, "max_abs_err": err, "err_over_bound": worst,
+                               "kernel": name, "config": config})
+                if not ok:
+                    raise AssertionError(f"{gm.kernel} ragged case {gm.name} ({dtype}, {sizes}) disagrees: "
+                                         f"max err {err}")
+                if ("wgmma" in name) != (dtype == torch.bfloat16):
+                    raise AssertionError(f"{gm.kernel} ragged case {gm.name} ({dtype}) launched {name}")
     return rows, checks
 
 
@@ -2049,6 +2079,8 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
     serve again under ABFT "detect" (the prefill in `abft_mode`, every
     decode step verified, ``verify_every=1``): no detection, the same
     tokens and launches, every K3 and K1/K2 launch with its checksum lane.
+    Every bf16 K3 launch of the three sfc_cuda serves is on the grouped
+    wgmma kernel, every one of the f32 cut's on the 64 x 64 tile kernel.
     Returns (summary, K3 launches by shape of the sfc_cuda run and of the
     one under ABFT)."""
     from repro_torch.robust import abft
@@ -2085,17 +2117,21 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
     # cluster kernel
     want_by_kernel = {"sfc_gemm_wgmma_kernel": 5 * n_layers,
                       "sfc_gemm_cluster_kernel": (5 * n_layers + 1) * NEW_TOKENS - 5 * n_layers}
-    done, launches, by_shape, launches_by_kernel = {}, {}, {}, {}
+    # K3 (bf16): every launch on the grouped wgmma kernel
+    want_grouped_by_kernel = {"sfc_gemm_grouped_wgmma_kernel": gemm_want["sfc_gemm_grouped"]}
+    done, launches, by_shape, launches_by_kernel, grouped_by_kernel = {}, {}, {}, {}, {}
     for name, eng in engines.items():
         for fn in counted.values():
             fn.launches = 0
             if hasattr(fn, "launches_by_shape"):
                 fn.launches_by_shape.clear()
         tk.sfc_gemm_fused.launches_by_kernel.clear()
+        tk.sfc_gemm_grouped.launches_by_kernel.clear()
         done[name] = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
         torch.cuda.synchronize()
         launches[name] = {k: fn.launches for k, fn in counted.items()}
         launches_by_kernel[name] = by_kernel(tk.sfc_gemm_fused.launches_by_kernel)
+        grouped_by_kernel[name] = by_kernel(tk.sfc_gemm_grouped.launches_by_kernel)
         if name == "sfc_cuda":
             by_shape = dict(tk.sfc_gemm_grouped.launches_by_shape)
     # the sfc_cuda serve under ABFT "detect": a fresh engine (its verify
@@ -2109,11 +2145,13 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
                 fn.launches_by_shape.clear()
         tk.sfc_gemm_grouped.abft_launches = tk.sfc_gemm_fused.abft_launches = 0
         tk.sfc_gemm_fused.launches_by_kernel.clear()
+        tk.sfc_gemm_grouped.launches_by_kernel.clear()
         abft.reset_runtime_sdc()
         with abft.abft_mode("detect"):
             done["sfc_cuda+abft"] = abft_eng.run(abft_eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
         torch.cuda.synchronize()
     launches_by_kernel["sfc_cuda+abft"] = by_kernel(tk.sfc_gemm_fused.launches_by_kernel)
+    grouped_by_kernel["sfc_cuda+abft"] = by_kernel(tk.sfc_gemm_grouped.launches_by_kernel)
     launches["sfc_cuda+abft"] = {**{k: fn.launches for k, fn in counted.items()},
                                  "sfc_gemm_grouped:abft": tk.sfc_gemm_grouped.abft_launches,
                                  "sfc_gemm_fused:abft": tk.sfc_gemm_fused.abft_launches}
@@ -2143,9 +2181,13 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
     cut = dataclasses.replace(cfg, n_layers=MOE_SERVE_F32_LAYERS, param_dtype="float32")
     cut_params = {k: v.float() for k, v in params.items()
                   if not k.startswith("layers.") or int(k.split(".")[1]) < MOE_SERVE_F32_LAYERS}
+    tk.sfc_gemm_grouped.launches_by_kernel.clear()
     logits32 = {name: engine(name, cut, cut_params)._prefill(tokens)[0] for name in variants}
     del cut_params
     torch.cuda.synchronize()
+    # the f32 cut's K3 on the tile kernel: two launches a layer, two sfc_cuda variants
+    grouped_by_kernel["f32_cut"] = by_kernel(tk.sfc_gemm_grouped.launches_by_kernel)
+    want_grouped_f32 = {"sfc_gemm_grouped_kernel": 2 * 2 * MOE_SERVE_F32_LAYERS}
     f32_agree = {name: dict(zip(("ok", "max_abs_err", "err_over_bound"),
                                 within(logits32[name], logits32["torch"], torch.bfloat16)))
                  for name in ("sfc_cuda", "sfc_cuda+sfc_attn")}
@@ -2155,6 +2197,8 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
         "params": n_params, "init_s": init_s, "requests": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
         "launches": launches, "launches_expected": want,
         "sfc_gemm_fused_launches_by_kernel": launches_by_kernel, "by_kernel_expected": want_by_kernel,
+        "sfc_gemm_grouped_launches_by_kernel": grouped_by_kernel,
+        "grouped_by_kernel_expected": {"bf16": want_grouped_by_kernel, "f32_cut": want_grouped_f32},
         "prefill_logits": {
             "f32_cut_layers": MOE_SERVE_F32_LAYERS, "f32_vs_torch": f32_agree,
             "bf16_sfc_cuda_vs_torch_mean_abs_err": float((logits["sfc_cuda"] - logits["torch"]).abs().mean()),
@@ -2178,6 +2222,12 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
         if name != "torch" and launches_by_kernel[name] != want_by_kernel:
             raise AssertionError(f"olmoe {name} serve launched K1/K2 {launches_by_kernel[name]} by kernel, "
                                  f"expected {want_by_kernel}")
+        if name != "torch" and grouped_by_kernel[name] != want_grouped_by_kernel:
+            raise AssertionError(f"olmoe {name} serve launched K3 {grouped_by_kernel[name]} by kernel, "
+                                 f"expected {want_grouped_by_kernel}")
+    if grouped_by_kernel["f32_cut"] != want_grouped_f32:
+        raise AssertionError(f"the olmoe f32 cut launched K3 {grouped_by_kernel['f32_cut']} by kernel, expected "
+                             f"{want_grouped_f32}")
     for name, res in f32_agree.items():
         if not res["ok"]:
             raise AssertionError(f"olmoe f32 prefill logits {name} vs torch: max err {res['max_abs_err']}, "
@@ -2195,7 +2245,8 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
     K11-K13), the same steps from the same init with the fused optimizer
     (K8's and K10's norm and update modes, no dW launch, no routed weight
     left with a .grad), then under torch + blockwise: exact launches a
-    step, every unfused loss within 2^-7 of the torch backend's and every
+    step (by kernel too: every bf16 K3 / K9 launch on the grouped wgmma
+    kernels), every unfused loss within 2^-7 of the torch backend's and every
     fused loss within 2^-7 of the unfused one's, every parameter moved;
     then a profiled step of each.  Returns (summary, launches by shape of
     each sfc run)."""
@@ -2208,6 +2259,8 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
             "sfc_gemm_fused:wgmma": dense, "sfc_gemm_fused:tile": 0, "sfc_gemm_nt:wgmma": dense,
             "sfc_gemm_nt:tile": 0,
             "sfc_gemm_grouped": grouped, "sfc_gemm_grouped_nt": grouped, "sfc_gemm_grouped_tn": grouped,
+            "sfc_gemm_grouped:wgmma": grouped, "sfc_gemm_grouped:tile": 0, "sfc_gemm_grouped_nt:wgmma": grouped,
+            "sfc_gemm_grouped_nt:tile": 0,
             "sfc_gemm_grouped_tn:dw": grouped, "sfc_gemm_grouped_tn:norm": 0, "sfc_gemm_grouped_tn:update": 0,
             "sfc_gemm_tn:wgmma": dense, "sfc_gemm_tn:tile": 0, "sfc_gemm_grouped_tn:wgmma": grouped,
             "sfc_gemm_grouped_tn:tile": 0, "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers, "sfc_flash_bwd_dkv": n_layers,
@@ -2313,11 +2366,15 @@ def kernel_tiles(torch, name, config, *raws):
     """`raw_tile_sums` over the tiles a launch's lane sums: a wgmma
     kernel's C tile (``config``, "128x256"; K1/K2's over the rows of every
     batch element together, as shared weights fold the batch into the rows;
-    K8's one set's (K, N) dW), else LANE_TILE x LANE_TILE tiles of each
-    batch element."""
-    if name not in ("sfc_gemm_wgmma_kernel", "tn_wgmma_kernel", "tn_update_wgmma_kernel"):
+    K8's one set's (K, N) dW; K3's each expert's rows apart, the raws
+    `grouped_raw`'s), else LANE_TILE x LANE_TILE tiles of each batch
+    element."""
+    if name not in ("sfc_gemm_wgmma_kernel", "tn_wgmma_kernel", "tn_update_wgmma_kernel",
+                    "sfc_gemm_grouped_wgmma_kernel"):
         return raw_tile_sums(torch, *raws)
     tile = tuple(int(x) for x in config.split("x"))
+    if name == "sfc_gemm_grouped_wgmma_kernel":
+        return raw_tile_sums(torch, *raws, tile=tile)
     return raw_tile_sums(torch, *(c.reshape(-1, c.shape[-1]) for c in raws), tile=tile)
 
 
@@ -2395,7 +2452,8 @@ def _negative_control(torch, abft, namespace, out, chk, ref_of, a, depth):
 def _lane_row(kernel, gm, lane_err, ms, off_ms, ref_ms, plain_ms, bound, partials, **extra):
     """A lane's row of the kernels line: its time with the lane on and off,
     the operand-side reference's, and the bound of the launch with the
-    partials it writes (4 B a task and set)."""
+    partials it writes (4 B each: one a task and set, the forward wgmma
+    kernels' one a consumer warp of a task)."""
     flops, nbytes, peak = bound
     bound_ms, bound_by = _bound(flops, nbytes + 4.0 * partials, peak)
     return dict(kernel=kernel, gemm=gm, max_abs_err=lane_err, ms=ms, lane_off_ms=off_ms, operand_ref_ms=ref_ms,
@@ -2460,7 +2518,8 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
                 ref_ms = time_ms(lambda i: abft.gemm_checksum_ref(a, ws[i % copies], gs[i % copies]), reps=reps,
                                  graph=True)
                 rows.append(_lane_row("K1/K2", gm, abs(float(on[-1]) - float(plain[-1])), ms, off_ms, ref_ms,
-                                      plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), len(tiles),
+                                      plain_ms, (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS),
+                                      len(tiles) * (tk.build.WGMMA_LANE_SLOTS if "wgmma" in name else 1),
                                       cuda_kernel=name.replace("_kernel", "_abft_kernel"), config=config))
             del a, ws, gs, on, off, plain, tiles
     # the ragged cases with every epilogue flag: K 203 in both input types
@@ -2480,15 +2539,17 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
         checks.append(_lane_check(torch, abft, "K1/K2:all_epilogue_flags_ragged", on[-1], plain[-1], ref, mag, k,
                                   on[:-1], (off,), tiles, wrong, dtype=str(dt), shape=[3, m, k, n],
                                   kernel=name.replace("_kernel", "_abft_kernel"), config=config))
-    # K3 at olmoe's shapes, then on the ragged expert sizes
+    # K3 at olmoe's shapes, then on the ragged expert sizes (the second
+    # with an expert over a 128-row tile)
     fwd = [gm for gm in moe_grouped_gemms(ocfg) if gm.kind == "fwd"]
     d, f = fwd[0].k, fwd[0].n
     e = len(RAGGED_GROUPS)
     ragged = [GroupedGemm("ragged/glu", "fwd", "-", e, 0, d, f, glu=True),
               GroupedGemm("ragged/glu_preact", "fwd", "-", e, 0, d, f, glu=True, preact=True),
               GroupedGemm("ragged/w_out", "fwd", "-", e, 0, f, d)]
-    for gm in fwd + ragged:
-        sizes = (gm.rows,) * gm.experts if gm.rows else RAGGED_GROUPS
+    cases = [(gm, (gm.rows,) * gm.experts) for gm in fwd] + [(gm, RAGGED_GROUPS) for gm in ragged] + [
+        (dataclasses.replace(gm, name=gm.name + "_long"), RAGGED_GROUPS_LONG) for gm in ragged]
+    for gm, sizes in cases:
         for dt in (torch.bfloat16, torch.float32):
             args, kw, _ = _grouped_operands(torch, gm, dt, gen, rows=sizes)
             a, w, wg = args[0], args[1], args[2] if gm.glu else None
@@ -2496,7 +2557,8 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
             def call(lane):
                 return tk.sfc_gemm_grouped(*args, group_sizes=sizes, abft=lane, **kw)
 
-            on, off = call(True), call(False)
+            on, (name, config) = launched(tk.sfc_gemm_grouped.launches_by_kernel, lambda: call(True))
+            off = call(False)
             off = off if isinstance(off, tuple) else (off,)
             plain, plain_ms = _once_ms(torch, lambda: tk.sfc_gemm_grouped_plain(*args, group_sizes=sizes, bm=64, bn=64,
                                                                                abft=True, **kw))
@@ -2505,10 +2567,15 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
                 return abft.grouped_checksum_ref(x, w, wg, sizes)
 
             ref, mag = ref_of(a)
-            tiles = raw_tile_sums(torch, *(grouped_raw(torch, a, x, sizes) for x in (w, wg) if x is not None))
-            wrong = _dropped(plain[-1], tiles) if gm.name in ("decode/glu", "ragged/glu") else None
+            tiles = kernel_tiles(torch, name, config,
+                                 *(grouped_raw(torch, a, x, sizes) for x in (w, wg) if x is not None))
+            # the last real tile: `grouped_raw` pads an expert's slab with zero rows
+            wrong = (_dropped(plain[-1], tiles[tiles != 0]) if gm.name in ("decode/glu", "ragged/glu", "ragged/glu_long")
+                     else None)
+            lane_kernel = name.replace("_kernel", "_abft_kernel")
             checks.append(_lane_check(torch, abft, f"K3:{gm.name}", on[-1], plain[-1], ref, mag, gm.k, on[:-1], off,
-                                      tiles, wrong, dtype=str(dt), group_sizes=list(sizes)))
+                                      tiles, wrong, dtype=str(dt), group_sizes=list(sizes), kernel=lane_kernel,
+                                      config=config))
             if dt == torch.bfloat16 and gm.path == "serve":
                 if gm.name == "decode/glu":
                     controls["K3 decode/glu"] = _negative_control(torch, abft, "grouped_glu", on[0], on[-1], ref_of,
@@ -2516,9 +2583,10 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
                 ms = time_ms(lambda i: call(True), reps=20, graph=True)
                 off_ms = time_ms(lambda i: call(False), reps=20, graph=True)
                 ref_ms = time_ms(lambda i: ref_of(a), reps=20, graph=True)
-                tasks = gm.experts * math.ceil(gm.rows / 64) * math.ceil(gm.n / 64)
                 rows.append(_lane_row("K3", gm, abs(float(on[-1]) - float(plain[-1])), ms, off_ms, ref_ms, plain_ms,
-                                      (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS), tasks))
+                                      (gm.flops(), gm.bytes(2), PEAK_BF16_FLOPS),
+                                      len(tiles) * (tk.build.WGMMA_LANE_SLOTS if "wgmma" in name else 1),
+                                      cuda_kernel=lane_kernel, config=config))
             del args, a, w, wg, on, off, plain, tiles
             torch.cuda.empty_cache()
     # K8 dW at every training shape
@@ -3246,7 +3314,7 @@ def main() -> int:
         kernels.append({
             "name": f"{gm.kernel}:{gm.name}",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "source": kernel_source(row["kernel"]),
             "replaces": gm.replaces,
             "launches": counts.get(gm.key, 0),
             "path": f"olmoe {gm.path}",
@@ -3257,7 +3325,8 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library": "torch.bmm over the (E, rows, .) views (dual forms on concatenated operands)",
-            **({"kernel": row["kernel"], "config": row["config"]} if row["kernel"] else {}),
+            "kernel": row["kernel"],
+            "config": row["config"],
             "shape": gm.shape(),
         })
     for row in grouped_upd_rows:

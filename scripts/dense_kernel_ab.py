@@ -11,13 +11,14 @@ K11 and the flash backward K12 / K13 at qwen3-4b's training step and at
 one 2048-token sequence, the host's cost of a K2, K7, K12 and K13 wrapper
 call and of one tensor-map encoding (where the tree has its timer), and
 the registers and spills that ptxas reports for every instantiation of
-the GEMM and attention libraries' CUDA kernels.  Each K8 and K10 row also
-carries, in every pass, its bound (`chip_smoke.py`'s `_bound` of the row's
-bytes and flops) and the time of its library yardstick on the same
-inputs (`torch.matmul` / `torch.bmm` for dW, the same to an f32 dW plus
-`torch._fused_adamw_` for the update, none for the norm), and names the
-CUDA kernel and tile it launched where the tree counts that; K8's rows
-are also timed with the ABFT checksum lane ("K8 dW+lane ...", "K8
+the GEMM and attention libraries' CUDA kernels.  Each K3, K8, K9 and K10
+row also carries, in every pass, its bound (`chip_smoke.py`'s `_bound` of
+the row's bytes and flops) and the time of its library yardstick on the
+same inputs (`torch.matmul` / `torch.bmm` for the products, the same to
+an f32 dW plus `torch._fused_adamw_` for the update, none for the norm),
+and names the CUDA kernel and tile it launched where the tree counts
+that; K1/K2's, K3's and K8's rows are also timed with the ABFT checksum
+lane ("K1/K2+lane ...", "K3+lane ...", "K8 dW+lane ...", "K8
 update+lane ...", "K8 norm+lane ...").
 
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1
@@ -38,8 +39,8 @@ K13, K7, K8, K3, K9, K10; "host" for the wrapper costs).
 Prints one JSON line per pass and, last, a summary: each row's times by
 tree, each tree's mean over the `--base` tree's (default 1), the ptxas
 counts of every kernel the trees share by name, side by side, those of
-each tree's other kernels, those of the TN wgmma kernels (K8, K10) apart,
-and which shared kernels compiled to different
+each tree's other kernels, those of the wgmma kernels (K2, K3, K7-K10)
+apart, and which shared kernels compiled to different
 machine code (a digest of each kernel's SASS instructions, from
 `cuobjdump -sass` of each tree's libraries; addresses, encodings and line
 information left out).
@@ -167,9 +168,10 @@ def worker(tree: Path, only=None) -> dict:
         gs = [(torch.randn((gm.k, gm.n), generator=gen, device=dev) * 0.02).to(dt) for _ in range(copies)] \
             if gm.glu else None
         kw = dict(preact=True) if gm.preact else dict(activation=cfg.act if gm.glu else None)
-        rows[f"K1/K2 {gm.name}"] = cs.time_ms(
-            lambda i: tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies] if gs else None, **kw),
-            reps=max(20, copies), graph=True)
+        for lane, label in ((False, "K1/K2"), (True, "K1/K2+lane")):
+            rows[f"{label} {gm.name}"] = cs.time_ms(
+                lambda i: tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies] if gs else None, **kw, abft=lane),
+                reps=max(20, copies), graph=True)
         # after the timing, so that both trees allocate alike before it
         by_kernel = getattr(tk.sfc_gemm_fused, "launches_by_kernel", None)
         if by_kernel is not None:
@@ -231,12 +233,15 @@ def worker(tree: Path, only=None) -> dict:
             gs = dict(group_sizes=(gm.rows,) * gm.experts)
             row = f"{label} {gm.name}"
             rows[row] = cs.time_ms(lambda i: fn(*args, **gs, **kw), reps=20, graph=True)
-            if label == "K10":  # one torch.bmm over the (E, rows, .) views
-                library[row] = cs.time_ms(lambda i: torch.bmm(*lib), reps=20, graph=True)
-                bounds[row] = cs._bound(gm.flops(), gm.bytes(2))
-                by_kernel = getattr(fn, "launches_by_kernel", None)
-                if by_kernel is not None:
-                    _, kernels[row] = cs.launched(by_kernel, lambda: fn(*args, **gs, **kw))
+            if label == "K3":
+                rows[f"K3+lane {gm.name}"] = cs.time_ms(lambda i: fn(*args, **gs, **kw, abft=True), reps=20,
+                                                        graph=True)
+            # one torch.bmm over the (E, rows, .) views
+            library[row] = cs.time_ms(lambda i: torch.bmm(*lib), reps=20, graph=True)
+            bounds[row] = cs._bound(gm.flops(), gm.bytes(2))
+            by_kernel = getattr(fn, "launches_by_kernel", None)
+            if by_kernel is not None:
+                _, kernels[row] = cs.launched(by_kernel, lambda: fn(*args, **gs, **kw))
             del args, lib
             torch.cuda.empty_cache()
     if hasattr(cs, "moe_update_gemms") and keep("K10"):
@@ -409,14 +414,13 @@ def main(argv=None) -> int:
     for i, ps in by_tree.items():
         own = sorted(set(ps[0]["ptxas"]) - set(shared))
         only[str(i)] = {n: ps[0]["ptxas"][n] for n in own}
-    # the library yardsticks and bounds of the K8 / K10 rows, every pass's
+    # the library yardsticks and bounds of the K3 / K8 / K9 / K10 rows, every pass's
     library = {row: {str(i): [p.get("library_ms", {}).get(row) for p in ps] for i, ps in by_tree.items()}
                for row in dict.fromkeys(r for _, p in passes for r in p.get("library_ms", {}))}
     bounds = next((p["bound_ms"] for _, p in passes if p.get("bound_ms")), {})
-    tn_wgmma = {str(i): {n: v for n, v in ps[0]["ptxas"].items() if "tn_wgmma" in n or "tn_update_wgmma" in n}
-                for i, ps in by_tree.items()}
+    wgmma = {str(i): {n: v for n, v in ps[0]["ptxas"].items() if "wgmma" in n} for i, ps in by_tree.items()}
     print(json.dumps({"trees": [str(t) for t in trees], "order": order, "base": args.base, "ms": ms,
-                      "library_ms": library, "bound_ms_by": bounds, "ptxas_tn_wgmma": tn_wgmma,
+                      "library_ms": library, "bound_ms_by": bounds, "ptxas_wgmma": wgmma,
                       "k1_kernels": {str(i): ps[0].get("k1_kernels", {}) for i, ps in by_tree.items()},
                       "host": {str(i): [p.get("host") for p in ps] for i, ps in by_tree.items()},
                       "ptxas_registers_spill_st_spill_ld": ptxas, "ptxas_changed": changed,

@@ -21,9 +21,10 @@ the flags, and loaded with ``ctypes``.  Two libraries:
   part (K8's update and norm modes), each behind entries of its own, so the
   parts without the lane keep their code; the bf16 forward parts and their
   lane twins also hold the cluster kernel (K1 at M <= ``SPLIT_MAX_ROWS``)
-  and the wgmma kernel (K2, and K1 past those rows, on TMA and wgmma), each
-  behind entries of its own (`cluster_entry_name`, `wgmma_entry_name`), and
-  the bf16 backward part the wgmma NT kernel (K7, ``bwd_entry_name(
+  and the wgmma kernel (K2, and K1 past those rows, on TMA and wgmma; with
+  the per-expert row array its grouped mode, K3), each behind entries of
+  its own (`cluster_entry_name`, `wgmma_entry_name`), and the bf16
+  backward part the wgmma NT kernel (K7, and grouped K9, ``bwd_entry_name(
   "nt_wgmma", "bf16")``) and the wgmma TN kernels (K8 and K10 dW,
   ``"tn_wgmma"``), the bf16 TN-update part their norm and update modes
   (``"tn_update_wgmma"``), and the bf16 TN lane parts K8's twins of both
@@ -73,6 +74,7 @@ __all__ = [
     "MAX_CLUSTER_LAYERS",
     "WGMMA_TILE",
     "WGMMA_BK",
+    "WGMMA_LANE_SLOTS",
     "ACTIVATION_CODES",
     "DTYPE_NAMES",
     "entry_name",
@@ -116,6 +118,9 @@ MAX_CLUSTER_LAYERS = 8
 # B_gate) and the K of a stage: kBM / kBN and kBK in csrc/sfc_gemm_wgmma.cuh
 WGMMA_TILE: Tuple[int, int] = (128, 128)
 WGMMA_BK = 64
+# the forward wgmma kernels' ABFT partials a task, one a consumer warp:
+# kLaneSlots in csrc/sfc_gemm_wgmma.cuh
+WGMMA_LANE_SLOTS = 8
 
 ACTIVATION_CODES: Dict[Optional[str], int] = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 DTYPE_NAMES = {"float32": "f32", "bfloat16": "bf16"}
@@ -281,6 +286,7 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                         i32, i32, i32,  # M (rows a batch element), N, K
                         i32, i32, i32,  # wide (the 128 x 256 tile), CTAs, CTAs a worker
                         i32, ctypes.c_float,  # has_scale, out_scale
+                        ptr, i32,  # grouped mode (K3): per-expert (3, E) rows, E; null, 0 otherwise
                         *((ptr,) if abft else ()),  # the lane's (batch * tiles) f32 partials
                         ptr,  # cudaStream_t
                     ]
@@ -289,9 +295,10 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
             fn = getattr(lib, bwd_entry_name("nt_wgmma", dt))
             fn.argtypes = [
                 ptr, ptr, ptr, ptr, ptr,  # a, b, a2, b2, out
-                ptr, i32,  # task table (2, tiles), tiles
+                ptr, i32,  # task table (2, tiles; grouped (3, tiles)), tiles
                 i32, i32, i32,  # R, C, D (output rows, output cols, contraction)
                 i32, i32, i32,  # wide (the 128 x 256 tile), CTAs, CTAs a worker
+                ptr, i32,  # grouped mode (K9): per-expert (3, E) rows, E; null, 0 otherwise
                 ptr,  # cudaStream_t
             ]
             fn.restype = i32

@@ -72,8 +72,12 @@
 // tile order is the TPU's.  What bounds it: at the olmoe shapes (80 rows an
 // expert at prefill and training, 32 at decode) every launch reads each
 // expert's weights once, 2 * rows flops a weight, far below the card's
-// 295 flops a byte, so the weight bytes bound it; the 64-row tile is then
-// mostly a weight stream, and at decode 32 of its 64 rows are real.
+// 295 flops a byte, so the weight bytes bound it.  This tile kernel now
+// keeps f32 and the bf16 calls TMA cannot describe: every other bf16 call
+// takes sfc_gemm_grouped_wgmma_kernel, the grouped mode of the wgmma body
+// (sfc_gemm_wgmma.cuh), 128-row tiles of the table at 128-row blocks,
+// persistent CTAs over curve segments and a TMA ring, behind the bf16
+// parts' wgmma entry (its lane twin sfc_gemm_grouped_wgmma_abft_kernel).
 //
 // Epilogue flags are template parameters.  One compilation unit holds one
 // (input type, GLU, activation) part, chosen by -DSFC_DTYPE / -DSFC_GLU /
@@ -105,7 +109,9 @@
 // and launch it as a kernel of its own over the same tile body:
 // grouped_nt_kernel replaces `sfc_gemm_grouped_nt` (`_grouped_nt_kernel`, K9):
 //   dA[rows of e] = dC_e @ B[e]^T (+ dC2_e @ B2[e]^T) with the expert's
-//   weight read as stored (E, N, K), over the forward's grouped table.
+//   weight read as stored (E, N, K), over the forward's grouped table; it
+//   keeps f32 and the bf16 calls TMA cannot describe, the others take
+//   grouped_nt_wgmma_kernel (the NT wgmma entry's grouped mode, below).
 // grouped_tn_kernel replaces `sfc_gemm_grouped_tn` in its dW mode
 //   (`_grouped_tn_kernel`, K10): dW[e] = A_e^T @ dC_e (and dC2_e) over one
 //   gilbert map of the (K, N) tiles replayed per expert; the CTA's contraction loop runs over its
@@ -175,8 +181,11 @@
 // contiguous segments of the curve, TMA into a ring of stages, wgmma.  The
 // bf16 forward parts hold the first behind -DSFC_WGMMA_ENTRY (its lane
 // twin sfc_gemm_wgmma_abft_kernel in their -DSFC_ABFT=1 twins), the bf16
-// -DSFC_BWD=1 part the second behind -DSFC_NT_WGMMA_ENTRY; the kernels
-// above keep every other call and their code.  The TN products (K8, and
+// -DSFC_BWD=1 part the second behind -DSFC_NT_WGMMA_ENTRY; with a `grp`
+// array the same entries launch their grouped mode, K3's
+// sfc_gemm_grouped_wgmma_kernel (lane twin
+// sfc_gemm_grouped_wgmma_abft_kernel) and K9's grouped_nt_wgmma_kernel;
+// the kernels above keep every other call and their code.  The TN products (K8, and
 // K10 in its grouped mode) run the same main loop with A read as A^T
 // through wgmma's transpose bit and a flush of their own (`TnFlush`,
 // below), in all three modes: tn_wgmma_kernel / grouped_tn_wgmma_kernel
@@ -746,7 +755,9 @@ __global__ void __launch_bounds__(kThreads) sfc_gemm_fused_kernel(const Params p
 // time nvcc spent more registers on the tile (the bf16 GLU 250 in place of
 // 168, w_out 135 in place of 102), fewer CTAs fit an SM, and the grouped
 // launches ran 1.01-1.54x slower at olmoe's shapes on an H100
-// (scripts/dense_kernel_ab.py).
+// (scripts/dense_kernel_ab.py).  It runs f32 and the bf16 calls whose rows
+// TMA cannot describe; the other bf16 calls take
+// sfc_gemm_grouped_wgmma_kernel (sfc_gemm_wgmma.cuh, the wgmma entry).
 template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool PREACT>
 __global__ void __launch_bounds__(kThreads) sfc_gemm_grouped_kernel(const Params p, const GroupRows g) {
   fused_tile<T, GLU, ACT, BIAS, GBIAS, SCALE, false, PREACT, true>(p, g);
@@ -846,6 +857,15 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                                const __grid_constant__ CUtensorMap tm_bg, const wg::Params p) {
   wg::body<wg::kFwd, GLU, ACT, true, BN>(tm_a, tm_b, tm_unused, tm_bg, p);
 }
+// K3 with the lane: the grouped mode of the same body
+template <bool GLU, int ACT, int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    sfc_gemm_grouped_wgmma_abft_kernel(const __grid_constant__ CUtensorMap tm_a,
+                                       const __grid_constant__ CUtensorMap tm_b,
+                                       const __grid_constant__ CUtensorMap tm_unused,
+                                       const __grid_constant__ CUtensorMap tm_bg, const wg::Params p) {
+  wg::body<wg::kFwd, GLU, ACT, true, BN, wg::NoFlush, true>(tm_a, tm_b, tm_unused, tm_bg, p);
+}
 #else
 template <bool GLU, int ACT, int BN>
 __global__ void __launch_bounds__(wg::kThreads, 1)
@@ -853,6 +873,15 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                           const __grid_constant__ CUtensorMap tm_unused, const __grid_constant__ CUtensorMap tm_bg,
                           const wg::Params p) {
   wg::body<wg::kFwd, GLU, ACT, false, BN>(tm_a, tm_b, tm_unused, tm_bg, p);
+}
+// K3: the grouped mode of the same body, a kernel of its own so that a
+// profiler trace tells it from K2
+template <bool GLU, int ACT, int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    sfc_gemm_grouped_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                                  const __grid_constant__ CUtensorMap tm_unused,
+                                  const __grid_constant__ CUtensorMap tm_bg, const wg::Params p) {
+  wg::body<wg::kFwd, GLU, ACT, false, BN, wg::NoFlush, true>(tm_a, tm_b, tm_unused, tm_bg, p);
 }
 #endif
 
@@ -1637,6 +1666,15 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                     const wg::Params p) {
   wg::body<wg::kNt, false, 0, false, BN>(tm_a, tm_b, tm_a2, tm_b2, p);
 }
+// K9: the grouped mode of the same body (a kernel of its own: a profiler
+// trace tells it from K7)
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    grouped_nt_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                            const __grid_constant__ CUtensorMap tm_a2, const __grid_constant__ CUtensorMap tm_b2,
+                            const wg::Params p) {
+  wg::body<wg::kNt, false, 0, false, BN, wg::NoFlush, true>(tm_a, tm_b, tm_a2, tm_b2, p);
+}
 #endif
 
 #if SFC_DTYPE == 1 && (defined(SFC_TN_WGMMA_ENTRY) || defined(SFC_TNU_WGMMA_ENTRY))
@@ -2262,17 +2300,23 @@ extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const
 // table of one batch element's C tiles, 128 x 128 (the GLU's 128 x 64), or
 // with `wide` 128 x 256 (the GLU's 128 x 128); the epilogue pointers as
 // SFC_ENTRY's (bias, gate_bias (N,), residual, out, out_gate (batch, M,
-// N)).  K and N multiples of 8 and A, B, B_gate 16-byte aligned, as TMA
-// needs.  The -DSFC_ABFT=1 part's entry takes chk, the (batch * tiles) f32
-// partials of the lane.  Returns the launch's CUDA error.
+// N)).  A non-null grp (3, n_groups) selects the grouped mode (K3,
+// sfc_gemm_grouped_wgmma_kernel): tab is the (3, tiles) grouped table at
+// 128-row blocks, A the (M, K) packed rows of every expert, B and B_gate
+// (n_groups, K, N), the biases (n_groups, N); batch 1, no residual, no
+// b_batched.  K and N multiples of 8 and A, B, B_gate 16-byte aligned, as
+// TMA needs.  The -DSFC_ABFT=1 part's entry takes chk, the (batch * tiles,
+// wg::kLaneSlots) f32 partials of the lane.  Returns the launch's CUDA error.
 static int wgmma_entry(const void* a, const void* b, const void* b_gate, const void* bias, const void* gate_bias,
                        const void* residual, void* out, void* out_gate, const int* tab, int tiles, int batch,
                        int b_batched, int M, int N, int K, int wide, int ctas, int group, int has_scale,
-                       float out_scale, float* chk, void* stream) {
+                       float out_scale, const int* grp, int n_groups, float* chk, void* stream) {
   constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  const bool grouped = grp != nullptr;
   if ((SFC_GLU != 0) != (b_gate != nullptr) || (SFC_GLU && b_batched)) return kInvalid;
   if (!SFC_GLU && gate_bias != nullptr) return kInvalid;
   if (out_gate != nullptr && (!SFC_GLU || residual != nullptr || has_scale)) return kInvalid;
+  if (grouped && (batch != 1 || b_batched || residual != nullptr || n_groups < 1)) return kInvalid;
   if (M < 1 || N < 1 || K < 1 || N % 8 != 0 || K % 8 != 0 || batch < 1 || tiles < 1) return kInvalid;
   if (!wg::aligned16(a) || !wg::aligned16(b) || !wg::aligned16(b_gate)) return kInvalid;
   if (SFC_ABFT && chk == nullptr) return kInvalid;
@@ -2295,27 +2339,41 @@ static int wgmma_entry(const void* a, const void* b, const void* b_gate, const v
   p.has_scale = has_scale;
   p.out_scale = out_scale;
   p.chk = chk;
+  p.grp = grp;
+  p.n_groups = n_groups;
+  // B's (and B_gate's) batch dimension: the batch elements' or the experts' weights
+  const int b_count = grouped ? n_groups : b_batched ? batch : 1;
   CUtensorMap ma, mb, mg;
   int rc = wg::tensor_map(&ma, a, K, M, batch, wg::kBM);
-  if (rc == 0) rc = wg::tensor_map(&mb, b, N, K, b_batched ? batch : 1, wg::kBK);
-  if (rc == 0 && b_gate != nullptr) rc = wg::tensor_map(&mg, b_gate, N, K, 1, wg::kBK);
+  if (rc == 0) rc = wg::tensor_map(&mb, b, N, K, b_count, wg::kBK);
+  if (rc == 0 && b_gate != nullptr) rc = wg::tensor_map(&mg, b_gate, N, K, b_count, wg::kBK);
   if (rc != 0) return rc;
   if (b_gate == nullptr) mg = mb;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool opted_narrow[kMaxDevices] = {}, opted_wide[kMaxDevices] = {};
+  static bool opted[4][kMaxDevices] = {};  // narrow, wide; grouped narrow, wide
   constexpr int kNarrow = wg::kBN, kWide = 2 * wg::kBN;
+  constexpr bool GLU = SFC_GLU != 0;
 #if SFC_ABFT
-  if (wide)
-    return wg::launch<kWide>(&sfc_gemm_wgmma_abft_kernel<SFC_GLU != 0, SFC_ACT, kWide>, opted_wide, ctas, s, ma, mb,
-                             ma, mg, p);
-  return wg::launch<kNarrow>(&sfc_gemm_wgmma_abft_kernel<SFC_GLU != 0, SFC_ACT, kNarrow>, opted_narrow, ctas, s, ma,
-                             mb, ma, mg, p);
-#else
-  if (wide)
-    return wg::launch<kWide>(&sfc_gemm_wgmma_kernel<SFC_GLU != 0, SFC_ACT, kWide>, opted_wide, ctas, s, ma, mb, ma,
+  if (grouped && wide)
+    return wg::launch<kWide>(&sfc_gemm_grouped_wgmma_abft_kernel<GLU, SFC_ACT, kWide>, opted[3], ctas, s, ma, mb, ma,
                              mg, p);
-  return wg::launch<kNarrow>(&sfc_gemm_wgmma_kernel<SFC_GLU != 0, SFC_ACT, kNarrow>, opted_narrow, ctas, s, ma, mb,
-                             ma, mg, p);
+  if (grouped)
+    return wg::launch<kNarrow>(&sfc_gemm_grouped_wgmma_abft_kernel<GLU, SFC_ACT, kNarrow>, opted[2], ctas, s, ma, mb,
+                               ma, mg, p);
+  if (wide)
+    return wg::launch<kWide>(&sfc_gemm_wgmma_abft_kernel<GLU, SFC_ACT, kWide>, opted[1], ctas, s, ma, mb, ma, mg, p);
+  return wg::launch<kNarrow>(&sfc_gemm_wgmma_abft_kernel<GLU, SFC_ACT, kNarrow>, opted[0], ctas, s, ma, mb, ma, mg,
+                             p);
+#else
+  if (grouped && wide)
+    return wg::launch<kWide>(&sfc_gemm_grouped_wgmma_kernel<GLU, SFC_ACT, kWide>, opted[3], ctas, s, ma, mb, ma, mg,
+                             p);
+  if (grouped)
+    return wg::launch<kNarrow>(&sfc_gemm_grouped_wgmma_kernel<GLU, SFC_ACT, kNarrow>, opted[2], ctas, s, ma, mb, ma,
+                               mg, p);
+  if (wide)
+    return wg::launch<kWide>(&sfc_gemm_wgmma_kernel<GLU, SFC_ACT, kWide>, opted[1], ctas, s, ma, mb, ma, mg, p);
+  return wg::launch<kNarrow>(&sfc_gemm_wgmma_kernel<GLU, SFC_ACT, kNarrow>, opted[0], ctas, s, ma, mb, ma, mg, p);
 #endif
 }
 
@@ -2323,17 +2381,19 @@ static int wgmma_entry(const void* a, const void* b, const void* b_gate, const v
 extern "C" int SFC_WGMMA_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
                                const void* gate_bias, const void* residual, void* out, void* out_gate,
                                const int* tab, int tiles, int batch, int b_batched, int M, int N, int K, int wide,
-                               int ctas, int group, int has_scale, float out_scale, void* stream) {
+                               int ctas, int group, int has_scale, float out_scale, const int* grp, int n_groups,
+                               void* stream) {
   return wgmma_entry(a, b, b_gate, bias, gate_bias, residual, out, out_gate, tab, tiles, batch, b_batched, M, N, K,
-                     wide, ctas, group, has_scale, out_scale, nullptr, stream);
+                     wide, ctas, group, has_scale, out_scale, grp, n_groups, nullptr, stream);
 }
 #else
 extern "C" int SFC_WGMMA_ENTRY(const void* a, const void* b, const void* b_gate, const void* bias,
                                const void* gate_bias, const void* residual, void* out, void* out_gate,
                                const int* tab, int tiles, int batch, int b_batched, int M, int N, int K, int wide,
-                               int ctas, int group, int has_scale, float out_scale, float* chk, void* stream) {
+                               int ctas, int group, int has_scale, float out_scale, const int* grp, int n_groups,
+                               float* chk, void* stream) {
   return wgmma_entry(a, b, b_gate, bias, gate_bias, residual, out, out_gate, tab, tiles, batch, b_batched, M, N, K,
-                     wide, ctas, group, has_scale, out_scale, chk, stream);
+                     wide, ctas, group, has_scale, out_scale, grp, n_groups, chk, stream);
 }
 #endif
 #endif  // SFC_DTYPE == 1 && SFC_WGMMA_ENTRY
@@ -2447,13 +2507,17 @@ extern "C" int SFC_NT_ENTRY(const void* a, const void* b, const void* a2, const 
 // NT on the wgmma kernel: out (R, C) = a (R, D) @ b (C, D)^T [+ a2 @ b2^T
 // when a2 is non-null], bf16, `ctas` persistent CTAs over the (2, tiles)
 // table of the 128 x 128 output tiles (`wide`: 128 x 256), each a
-// contiguous segment of it.  D a multiple of 8 and every operand 16-byte
-// aligned, as TMA needs.  Returns the launch's CUDA error.
+// contiguous segment of it.  A non-null grp (3, n_groups) selects the
+// grouped mode (K9, grouped_nt_wgmma_kernel): tab is the (3, tiles)
+// grouped table at 128-row blocks, b (and b2) is (n_groups, C, D), R the
+// packed rows of every expert.  D a multiple of 8 and every operand
+// 16-byte aligned, as TMA needs.  Returns the launch's CUDA error.
 extern "C" int SFC_NT_WGMMA_ENTRY(const void* a, const void* b, const void* a2, const void* b2, void* out,
                                   const int* tab, int tiles, int R, int C, int D, int wide, int ctas, int group,
-                                  void* stream) {
+                                  const int* grp, int n_groups, void* stream) {
   constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
-  if ((a2 == nullptr) != (b2 == nullptr)) return kInvalid;
+  const bool grouped = grp != nullptr;
+  if ((a2 == nullptr) != (b2 == nullptr) || (grouped && n_groups < 1)) return kInvalid;
   if (R < 1 || C < 1 || D < 1 || D % 8 != 0 || tiles < 1) return kInvalid;
   if (!wg::aligned16(a) || !wg::aligned16(b) || !wg::aligned16(a2) || !wg::aligned16(b2)) return kInvalid;
   wg::Params p = {};
@@ -2467,22 +2531,28 @@ extern "C" int SFC_NT_WGMMA_ENTRY(const void* a, const void* b, const void* a2, 
   p.group = group;
   p.pair_store = C % 2 == 0;
   p.out = static_cast<wg::bf16*>(out);
+  p.grp = grp;
+  p.n_groups = n_groups;
   constexpr int kNarrow = wg::kBN, kWide = 2 * wg::kBN;
   const int bn = wide ? kWide : kNarrow;
+  const int b_count = grouped ? n_groups : 1;  // the experts' weights
   CUtensorMap ma, mb, ma2, mb2;
   int rc = wg::tensor_map(&ma, a, D, R, 1, wg::kBM);
-  if (rc == 0) rc = wg::tensor_map(&mb, b, D, C, 1, bn);
+  if (rc == 0) rc = wg::tensor_map(&mb, b, D, C, b_count, bn);
   if (rc == 0 && a2 != nullptr) rc = wg::tensor_map(&ma2, a2, D, R, 1, wg::kBM);
-  if (rc == 0 && a2 != nullptr) rc = wg::tensor_map(&mb2, b2, D, C, 1, bn);
+  if (rc == 0 && a2 != nullptr) rc = wg::tensor_map(&mb2, b2, D, C, b_count, bn);
   if (rc != 0) return rc;
   if (a2 == nullptr) {
     ma2 = ma;
     mb2 = mb;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool opted_narrow[kMaxDevices] = {}, opted_wide[kMaxDevices] = {};
-  if (wide) return wg::launch<kWide>(&nt_wgmma_kernel<kWide>, opted_wide, ctas, s, ma, mb, ma2, mb2, p);
-  return wg::launch<kNarrow>(&nt_wgmma_kernel<kNarrow>, opted_narrow, ctas, s, ma, mb, ma2, mb2, p);
+  static bool opted[4][kMaxDevices] = {};  // narrow, wide; grouped narrow, wide
+  if (grouped && wide)
+    return wg::launch<kWide>(&grouped_nt_wgmma_kernel<kWide>, opted[3], ctas, s, ma, mb, ma2, mb2, p);
+  if (grouped) return wg::launch<kNarrow>(&grouped_nt_wgmma_kernel<kNarrow>, opted[2], ctas, s, ma, mb, ma2, mb2, p);
+  if (wide) return wg::launch<kWide>(&nt_wgmma_kernel<kWide>, opted[1], ctas, s, ma, mb, ma2, mb2, p);
+  return wg::launch<kNarrow>(&nt_wgmma_kernel<kNarrow>, opted[0], ctas, s, ma, mb, ma2, mb2, p);
 }
 #endif  // SFC_DTYPE == 1 && SFC_NT_WGMMA_ENTRY
 

@@ -14,11 +14,15 @@
 // epilogue flag and the GLU's preact mode, the arithmetic of fused_flush in
 // its order with one cast.  sfc_gemm_wgmma_abft_kernel is its ABFT twin
 // (the -DSFC_ABFT=1 parts), nt_wgmma_kernel replaces `sfc_gemm_nt`
-// (`_nt_kernel`, K7) for bf16 non-grouped calls: dA = dC @ W^T
-// (+ dC2 @ W2^T), flushed in bf16.  The TN kernels of sfc_gemm_fused.cu
-// (K8 `sfc_gemm_tn`, K10 `sfc_gemm_grouped_tn`: dW = A^T @ dC, its norm and
-// AdamW-update modes) run the same main loop with kind kTn and a flush of
-// their own (the `Flush` argument of `body`).
+// (`_nt_kernel`, K7) for bf16 calls: dA = dC @ W^T (+ dC2 @ W2^T),
+// flushed in bf16.  Their grouped mode (`body`'s GROUPED) is K3 and K9:
+// sfc_gemm_grouped_wgmma_kernel (and its lane twin
+// sfc_gemm_grouped_wgmma_abft_kernel) replaces `sfc_gemm_grouped`
+// (`_fused_kernel` over the grouped table), grouped_nt_wgmma_kernel
+// `sfc_gemm_grouped_nt` (`_grouped_nt_kernel`).  The TN kernels of
+// sfc_gemm_fused.cu (K8 `sfc_gemm_tn`, K10 `sfc_gemm_grouped_tn`: dW = A^T
+// @ dC, its norm and AdamW-update modes) run the same main loop with kind
+// kTn and a flush of their own (the `Flush` argument of `body`).
 //
 // What bounds them: at the main path's 512 token rows every product does
 // 2 * 512 * K * N flops on (512 + N) * K inputs, far above the card's 295
@@ -61,10 +65,11 @@
 // replays in a CUDA graph.  The flush runs from the registers: each thread
 // owns pairs of adjacent columns of the accumulator fragment.
 //
-// ABFT: each task's slot of the partials holds the f32 sum of its raw
-// accumulators (the GLU's two together), over the rows and columns inside
-// the output; the wrapper sums the slots on the device.  The flush is the
-// same code with the lane on or off.
+// ABFT: each task's kLaneSlots slots of the partials hold the f32 sums of
+// its raw accumulators (the GLU's two together), over the rows and columns
+// inside the output, one a consumer warp, written with no barrier; the
+// wrapper sums the slots on the device.  The flush is the same code with
+// the lane on or off.
 //
 // TN (kind kTn): C (R, C) = A^T @ dC over D token rows, A (D, R) and dC
 // (D, C) read as stored.  A stage holds two 64 x 64 boxes of A (token rows
@@ -83,6 +88,22 @@
 // row reads the next expert's rows, so the consumers zero those rows of
 // the stage (both operands) before the products read it; an expert with
 // no rows loads nothing and flushes a zero tile.
+//
+// Grouped forward and NT (K3, K9; GROUPED): the experts' rows lie packed in
+// one (T, K) A (NT: dC (T, N)), expert e's weights are batch element e of
+// the 3-D B map ((E, K, N) forward, B_gate alike; NT's (E, N, K)).  The
+// task table is `build_grouped_task_table` at 128-row blocks, rows
+// (im_global, in, e): the task's first output row is start[e] + (im -
+// first_block[e]) * 128 and its rows end at start[e] + count[e] (`grp`,
+// (3, E)); an expert with no rows has no task.  A box past the expert's
+// rows reads the next expert's rows (past T, TMA's zeros); output row r
+// reads only row r of A, so the flush masks those rows and nothing is
+// zeroed.  The flush writes at the packed rows with expert e's bias rows,
+// and the lane sums the rows inside the expert only.  What bounds them: at
+// olmoe's 32-80 rows an expert every launch reads every expert's weights
+// once for 2 x rows flops a weight, so the weight bytes do; a stage's
+// products (2 x 128 x 64 x 64 x 2 flops a CTA) take less time than its
+// 8-16 KB of weights take to arrive at the CTA's share of 3.35 TB/s.
 
 #pragma once
 
@@ -100,6 +121,7 @@ constexpr int kBM = 128;         // C tile rows, 64 a consumer warpgroup (build.
 constexpr int kBN = 128;         // B columns a stage of the narrow tile; the wide one's 256 (build.py WGMMA_TILE)
 constexpr int kBK = 64;          // K a stage: one 128-byte swizzle row of bf16 (build.py WGMMA_BK)
 constexpr int kStages = 4;
+constexpr int kLaneSlots = kConsumers / 32;  // ABFT partials a task, one a consumer warp (build.py WGMMA_LANE_SLOTS)
 constexpr int kTileBytesA = kBM * kBK * 2;  // 16 KB
 constexpr int kBoxBytes = kBox * kBK * 2;   // one 64 x 64 bf16 TMA box, 8 KB
 
@@ -144,8 +166,8 @@ struct Params {
   bf16* out_gate;  // preact: the gate pre-activation's output
   int has_scale;
   float out_scale;
-  float* chk;  // ABFT: (n_tasks) f32 partials
-  const int* grp;  // TN grouped (K10): (3, n_groups) per-expert row start, row count, first row block
+  float* chk;  // ABFT: (n_tasks, kLaneSlots) f32 partials
+  const int* grp;  // grouped (K3, K9, K10): (3, n_groups) per-expert row start, row count, first 128-row block
   int n_groups;
 };
 
@@ -158,13 +180,25 @@ __device__ __forceinline__ void segment(int n_tasks, int n_workers, int w, int& 
   hi = lo + base + (w < rem ? 1 : 0);
 }
 
-// Task t: its batch element and its C tile's first row and column.
-template <int TN>
-__device__ __forceinline__ void task_tile(const Params& p, int t, int& b, int& row0, int& col0) {
-  b = t / p.tiles;
-  const int j = t - b * p.tiles;
-  row0 = __ldg(p.tab + j) * kBM;
-  col0 = __ldg(p.tab + p.tiles + j) * TN;
+// Task t: its batch element, its C tile's first row and column, and the
+// end of the rows it writes (M).  GROUPED: task t of the (3, tiles)
+// grouped table, b its expert, row0 a row of the packed output, the rows
+// ending at the expert's last.
+template <int TN, bool GROUPED = false>
+__device__ __forceinline__ void task_tile(const Params& p, int t, int& b, int& row0, int& col0, int& row_end) {
+  if constexpr (GROUPED) {
+    b = __ldg(p.tab + 2 * p.tiles + t);
+    const int start = __ldg(p.grp + b);
+    row0 = start + (__ldg(p.tab + t) - __ldg(p.grp + 2 * p.n_groups + b)) * kBM;
+    col0 = __ldg(p.tab + p.tiles + t) * TN;
+    row_end = start + __ldg(p.grp + p.n_groups + b);
+  } else {
+    b = t / p.tiles;
+    const int j = t - b * p.tiles;
+    row0 = __ldg(p.tab + j) * kBM;
+    col0 = __ldg(p.tab + p.tiles + j) * TN;
+    row_end = p.M;
+  }
 }
 
 // TN: the token rows of batch element (expert) b, [start, start + depth),
@@ -181,12 +215,13 @@ __device__ __forceinline__ void tn_task_rows(const Params& p, int b, int& start,
 
 // Two adjacent outputs (gr, gc), (gr, gc + 1) from their raw accumulators
 // v (and the GLU's gate g): the arithmetic of fused_flush in its order and
-// one cast (NT: the cast only); masked at the ragged edge.  ABFT: the raw
-// values flushed join the thread's lane sum.
+// one cast (NT: the cast only), the bias rows at vec_off; masked at the
+// ragged edge (rows at row_end).  ABFT: the raw values flushed join the
+// thread's lane sum.
 template <bool NT, bool GLU, int ACT, bool ABFT>
-__device__ __forceinline__ void flush_pair(const Params& p, long long c_off, int gr, int gc, const float (&v)[2],
-                                           const float (&g)[2], float& lane) {
-  if (gr >= p.M || gc >= p.N) return;
+__device__ __forceinline__ void flush_pair(const Params& p, long long c_off, int vec_off, int row_end, int gr, int gc,
+                                           const float (&v)[2], const float (&g)[2], float& lane) {
+  if (gr >= row_end || gc >= p.N) return;
   const bool two = gc + 1 < p.N;
   const size_t o = static_cast<size_t>(c_off) + static_cast<size_t>(gr) * p.N + gc;
   float y[2] = {0.0f, 0.0f}, yg[2] = {0.0f, 0.0f};
@@ -201,10 +236,10 @@ __device__ __forceinline__ void flush_pair(const Params& p, long long c_off, int
       y[e] = v[e];
     } else {
       float x = v[e];
-      if (p.bias) x += __bfloat162float(p.bias[gc + e]);
+      if (p.bias) x += __bfloat162float(p.bias[vec_off + gc + e]);
       if constexpr (GLU) {
         float gg = g[e];
-        if (p.gbias) gg += __bfloat162float(p.gbias[gc + e]);
+        if (p.gbias) gg += __bfloat162float(p.gbias[vec_off + gc + e]);
         if (p.out_gate) {
           yg[e] = gg;
           y[e] = x;
@@ -283,16 +318,18 @@ struct NoFlush {};
 
 // The whole kernel: KIND the forward, the NT dA product or the TN dW
 // product; GLU the forward's dual-B form (TN: the dual form, dC beside
-// dC2); BN the B columns a stage (128 or 256).  Maps: the forward's A, B,
-// (unused), B_gate; NT's A, B, A2, B2; TN's A, dC, (unused), dC2.  TN's
-// flush is `fl(acc, t, b, row0, col0, wgi, tw, red, stg)` (sfc_gemm_fused.cu),
-// stg its flush buffer.
-template <int KIND, bool GLU, int ACT, bool ABFT, int BN, class Flush = NoFlush>
+// dC2); BN the B columns a stage (128 or 256); GROUPED the forward's and
+// NT's grouped mode (K3, K9).  Maps: the forward's A, B, (unused), B_gate;
+// NT's A, B, A2, B2; TN's A, dC, (unused), dC2.  TN's flush is `fl(acc,
+// t, b, row0, col0, wgi, tw, red, stg)` (sfc_gemm_fused.cu), stg its
+// flush buffer.
+template <int KIND, bool GLU, int ACT, bool ABFT, int BN, class Flush = NoFlush, bool GROUPED = false>
 __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap& tm_b, const CUtensorMap& tm_a2,
                                      const CUtensorMap& tm_b2, const Params& p, const Flush& fl = Flush()) {
   constexpr bool NT = KIND == kNt, TN_KIND = KIND == kTn;
   static_assert(!(NT && (GLU || ABFT)), "NT has neither the GLU form nor the lane");
   static_assert(!(TN_KIND && ABFT), "TN's lane is its flush's");
+  static_assert(!(TN_KIND && GROUPED), "K10's grouped mode is TN's own (p.grp, tn_task_rows)");
   static_assert(BN == kBN || BN == 2 * kBN, "the narrow or the wide tile");
   constexpr int TN = GLU ? BN / 2 : BN;  // C columns a tile
   constexpr int ACC = BN / 2;            // f32 accumulators a consumer thread (m64nBN)
@@ -328,13 +365,15 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
       int stage = 0;
       uint32_t phase = 0;
       for (int t = t_first; t < t_hi; t += p.group) {
-        int b, row0, col0, start = 0, steps = steps_all;
-        task_tile<TN>(p, t, b, row0, col0);
+        int b, row0, col0, row_end, start = 0, steps = steps_all;
+        task_tile<TN, GROUPED>(p, t, b, row0, col0, row_end);
         if constexpr (TN_KIND) {
           int depth;
           tn_task_rows(p, b, start, depth, steps);
         }
-        const int bb = p.b_batched ? b : 0;
+        // B's batch coordinate: the batch element's or (grouped) the expert's
+        // weights; A's: the batch element's, or 0 for the packed rows
+        const int bb = GROUPED || p.b_batched ? b : 0;
         for (int pair = 0; pair < p.pairs; ++pair) {
           for (int s = 0; s < steps; ++s) {
             mbar_wait(&empty[stage], phase ^ 1);
@@ -347,10 +386,10 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
               tma_load(st, &tm_a, &full[stage], row0, start + k0, 0);
               tma_load(st + kBoxBytes, &tm_a, &full[stage], row0 + kBox, start + k0, 0);
             } else {
-              tma_load(st, pair ? &tm_a2 : &tm_a, &full[stage], k0, row0, b);
+              tma_load(st, pair ? &tm_a2 : &tm_a, &full[stage], k0, row0, GROUPED ? 0 : b);
             }
             if constexpr (NT) {
-              tma_load(sb, pair ? &tm_b2 : &tm_b, &full[stage], k0, col0, 0);
+              tma_load(sb, pair ? &tm_b2 : &tm_b, &full[stage], k0, col0, GROUPED ? bb : 0);
             } else {
               // 64-column boxes: B's columns, then (GLU) B_gate's same ones
               // (TN: dC's over the stage's token rows, then dC2's)
@@ -358,7 +397,8 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
 #pragma unroll
               for (int j = 0; j < BN / kBox; ++j) {
                 if (GLU && j >= BN / (2 * kBox))
-                  tma_load(sb + j * kBoxBytes, &tm_b2, &full[stage], col0 + (j - BN / (2 * kBox)) * kBox, kr, 0);
+                  tma_load(sb + j * kBoxBytes, &tm_b2, &full[stage], col0 + (j - BN / (2 * kBox)) * kBox, kr,
+                           GROUPED ? bb : 0);
                 else
                   tma_load(sb + j * kBoxBytes, &tm_b, &full[stage], col0 + j * kBox, kr, bb);
               }
@@ -381,8 +421,8 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
   int stage = 0;
   uint32_t phase = 0;
   for (int t = t_first; t < t_hi; t += p.group) {
-    int b, row0, col0, depth = p.K, steps = steps_all;
-    task_tile<TN>(p, t, b, row0, col0);
+    int b, row0, col0, row_end, depth = p.K, steps = steps_all;
+    task_tile<TN, GROUPED>(p, t, b, row0, col0, row_end);
     if constexpr (TN_KIND) {
       int start;
       tn_task_rows(p, b, start, depth, steps);
@@ -437,26 +477,22 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
     // the GLU's gate pair sits ACC / 2 registers further
     const int r0 = row0 + wgi * 64 + (tw / 32) * 16 + lane_id / 4;
     const int c0 = col0 + 2 * (lane_id % 4);
-    const long long c_off = static_cast<long long>(b) * p.M * p.N;
+    // grouped: the packed rows, expert b's bias rows
+    const long long c_off = GROUPED ? 0 : static_cast<long long>(b) * p.M * p.N;
+    const int vec_off = GROUPED ? b * p.N : 0;
     float lane = 0.0f;
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const float v[2] = {acc[2 * q], acc[2 * q + 1]};
       const float g[2] = {GLU ? acc[2 * q + ACC / 2] : 0.0f, GLU ? acc[2 * q + ACC / 2 + 1] : 0.0f};
-      flush_pair<NT, GLU, ACT, ABFT>(p, c_off, r0 + 8 * (q & 1), c0 + 8 * (q >> 1), v, g, lane);
+      flush_pair<NT, GLU, ACT, ABFT>(p, c_off, vec_off, row_end, r0 + 8 * (q & 1), c0 + 8 * (q >> 1), v, g, lane);
     }
     if constexpr (ABFT) {
+      // each consumer warp's sum into a slot of its own: no barrier, so
+      // the warpgroups run as free of each other as without the lane
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) lane += __shfl_xor_sync(0xffffffffu, lane, o);
-      if (lane_id == 0) red[threadIdx.x / 32] = lane;
-      consumers_sync();
-      if (threadIdx.x == 0) {
-        float s = 0.0f;
-#pragma unroll
-        for (int i = 0; i < kConsumers / 32; ++i) s += red[i];
-        p.chk[t] = s;
-      }
-      consumers_sync();  // red is read before the next tile writes it
+      if (lane_id == 0) p.chk[static_cast<size_t>(t) * kLaneSlots + threadIdx.x / 32] = lane;
     }
   }
 }

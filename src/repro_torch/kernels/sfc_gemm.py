@@ -430,17 +430,42 @@ def wgmma_launch(rows: int, n: int, sm_count: int, glu: bool = False, batch: int
     still fill the card (qwen3-4b's GLU, LM head and w_out dA at 512 rows),
     not where halving the tiles would leave SMs idle.  A pure function of
     the shape and the SM count, not a knob."""
+    mb = wgmma_grid(rows, n, glu)[0]
+    return _wgmma_cost_rule(mb, n, sm_count, glu, batch, mb)
+
+
+def _wgmma_cost_rule(mb: int, n: int, sm_count: int, glu: bool, batch: int, group_rows: int) -> WgmmaLaunch:
+    """`wgmma_launch`'s rule over ``batch`` x ``mb`` row blocks of ``n``
+    outputs: per tile width, min(tasks, SMs) CTAs, workers of min(4,
+    ``group_rows``, CTAs) CTAs where a CTA has more than one task, and the
+    width of the least ceil(tasks / CTAs) x (1.45 if wide)."""
     best, best_cost = None, None
     for wide in (False, True):
-        mb, nb = wgmma_grid(rows, n, glu, wide)
+        nb = wgmma_grid(1, n, glu, wide)[1]
         tasks = batch * mb * nb
         ctas = min(tasks, sm_count)
-        group = min(4, mb, ctas) if tasks > ctas else 1
+        group = min(4, group_rows, ctas) if tasks > ctas else 1
         ctas -= ctas % group
         cost = math.ceil(tasks / ctas) * (_WIDE_TILE_COST if wide else 1.0)
         if best_cost is None or cost < best_cost:
             best, best_cost = WgmmaLaunch(wide, mb, nb, ctas, group), cost
     return best
+
+
+def grouped_wgmma_launch(group_sizes, n: int, sm_count: int, glu: bool = False) -> WgmmaLaunch:
+    """The launch configuration of the grouped wgmma kernels (K3, K9) for
+    experts of ``group_sizes`` rows and ``n`` output columns on
+    ``sm_count`` SMs: each expert's ceil(rows / 128) row blocks (``mb`` is
+    their sum, the grouped table's row blocks; an expert with no rows has
+    none) by ``nb`` column tiles, and `wgmma_launch`'s rule for the tile,
+    the CTAs and the workers, a worker at most as many CTAs as the largest
+    expert has row blocks (neighbouring tasks of one expert share its A
+    rows).  A pure function of the group sizes, the width, the SM count and
+    the GLU form, not a knob."""
+    blocks = [math.ceil(int(g) / build.WGMMA_TILE[0]) for g in group_sizes]
+    if not sum(blocks):
+        raise ValueError(f"group sizes {tuple(group_sizes)} have no row: a grouped launch needs one")
+    return _wgmma_cost_rule(sum(blocks), n, sm_count, glu, 1, max(blocks))
 
 
 def _tile_name(cfg: WgmmaLaunch, glu: bool) -> str:
@@ -471,6 +496,23 @@ def uses_nt_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, a2: Optional[torch.Te
     """Whether `sfc_gemm_nt` launches the wgmma kernel on the card: bf16 and
     a contraction whose rows TMA can describe (a multiple of 8, every
     operand 16-byte aligned); else the 64 x 64 NT tile kernel."""
+    return a.dtype == torch.bfloat16 and _tma_rows(a.shape[1], a, b, a2, b2)
+
+
+def uses_grouped_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, b_gate: Optional[torch.Tensor] = None) -> bool:
+    """Whether `sfc_gemm_grouped` launches the grouped wgmma kernel (K3) on
+    the card: bf16 and rows TMA can describe (K and N multiples of 8; the
+    packed A, the (E, K, N) B and B_gate 16-byte aligned); every other call
+    takes the 64 x 64 tile kernel."""
+    return a.dtype == torch.bfloat16 and _tma_rows(a.shape[1], a) and _tma_rows(b.shape[2], b, b_gate)
+
+
+def uses_grouped_nt_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, a2: Optional[torch.Tensor] = None,
+                                 b2: Optional[torch.Tensor] = None) -> bool:
+    """Whether `sfc_gemm_grouped_nt` launches the grouped wgmma NT kernel
+    (K9) on the card: bf16 and a contraction whose rows TMA can describe (a
+    multiple of 8; the packed dC and dC2 and the (E, N, K) weights 16-byte
+    aligned); else the 64 x 64 grouped NT tile kernel."""
     return a.dtype == torch.bfloat16 and _tma_rows(a.shape[1], a, b, a2, b2)
 
 
@@ -597,7 +639,7 @@ def _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, act
     cfg = wgmma_launch(rows, n, sm_count(a.device), glu, tb)
     mb, nb = cfg.mb, cfg.nb
     tab = _device_table(mb, nb, a.device)
-    parts = torch.empty(tb * mb * nb, dtype=torch.float32, device=a.device) if abft else None
+    parts = torch.empty(tb * mb * nb * build.WGMMA_LANE_SLOTS, dtype=torch.float32, device=a.device) if abft else None
     fn = getattr(build.load_library(), build.wgmma_entry_name(glu, activation, abft))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -608,7 +650,7 @@ def _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, act
             rows, n, k,
             int(cfg.wide), cfg.ctas, cfg.group,
             int(out_scale is not None), float(out_scale if out_scale is not None else 1.0),
-            *((parts.data_ptr(),) if abft else ()), stream,
+            None, 0, *((parts.data_ptr(),) if abft else ()), stream,
         )
     if rc != 0:
         raise RuntimeError(f"sfc_gemm_fused wgmma kernel launch failed with CUDA error {rc}")
@@ -1237,19 +1279,25 @@ def sfc_gemm_nt(
     return out
 
 
-def _launch_nt_wgmma(a, b, a2, b2, out) -> str:
-    """One launch of the wgmma NT kernel; returns its tile's name."""
-    m, n = a.shape[0], b.shape[0]
-    cfg = wgmma_launch(m, n, sm_count(a.device))
-    mb, nb = cfg.mb, cfg.nb
-    tab = _device_table(mb, nb, a.device)
+def _launch_nt_wgmma(a, b, a2, b2, out, *, gs: Optional[tuple] = None) -> str:
+    """One launch of the wgmma NT kernel (K7, or K9 over the group sizes
+    ``gs``, b (E, N, K)); returns its tile's name."""
+    m, n = a.shape[0], b.shape[-2]
+    if gs is None:
+        cfg = wgmma_launch(m, n, sm_count(a.device))
+        tab, grp = _device_table(cfg.mb, cfg.nb, a.device), None
+    else:
+        cfg = grouped_wgmma_launch(gs, n, sm_count(a.device))
+        tab = _device_grouped_table(gs, build.WGMMA_TILE[0], cfg.nb, a.device)
+        grp = _device_groups(gs, build.WGMMA_TILE[0], a.device)
     fn = getattr(build.load_library(), build.bwd_entry_name("nt_wgmma", "bf16"))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(a2), _ptr(b2), out.data_ptr(), tab.data_ptr(), mb * nb, m, n,
-                a.shape[1], int(cfg.wide), cfg.ctas, cfg.group, stream)
+        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(a2), _ptr(b2), out.data_ptr(), tab.data_ptr(), tab.shape[1], m, n,
+                a.shape[1], int(cfg.wide), cfg.ctas, cfg.group, _ptr(grp), 0 if gs is None else len(gs), stream)
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_nt wgmma kernel launch failed with CUDA error {rc}")
+        kind = "sfc_gemm_nt" if gs is None else "sfc_gemm_grouped_nt"
+        raise RuntimeError(f"{kind} wgmma kernel launch failed with CUDA error {rc}")
     return _tile_name(cfg, False)
 
 
@@ -1263,7 +1311,7 @@ def _launch_tn_wgmma(a, b, b2, out, out2, *, gs: Optional[tuple] = None, abft: b
     cfg = tn_wgmma_launch(k, n, sm_count(a.device), b2 is not None, experts)
     tiles = cfg.mb * cfg.nb
     tab = _device_table(cfg.mb, cfg.nb, a.device)
-    grp = None if gs is None else _device_groups(gs, a.device)
+    grp = None if gs is None else _device_groups(gs, build.WGMMA_TILE[0], a.device)
     chk = (torch.empty((1 if b2 is None else 2, experts * tiles), dtype=torch.float32, device=a.device)
            if abft else None)
     fn = getattr(build.load_library(), build.bwd_entry_name("tn_wgmma", "bf16", abft=abft))
@@ -1289,7 +1337,7 @@ def _launch_tn_update_wgmma(a, b, b2, sets, hyper, *, salt: int, stochastic_roun
     cfg = tn_wgmma_launch(k, n, sm_count(a.device), b2 is not None, experts, update=True)
     tiles = cfg.mb * cfg.nb
     tab = _device_table(cfg.mb, cfg.nb, a.device)
-    grp = None if gs is None else _device_groups(gs, a.device)
+    grp = None if gs is None else _device_groups(gs, build.WGMMA_TILE[0], a.device)
     partials = torch.empty((n_sets, experts * tiles), dtype=torch.float32, device=a.device)
     chk = torch.empty_like(partials) if abft else None
     fn = getattr(build.load_library(), build.bwd_entry_name("tn_update_wgmma", "bf16", abft=abft))
@@ -1337,7 +1385,7 @@ def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: boo
         tab, grp, n_groups = _device_table(mb, nb, a.device), None, 0
     else:
         tab = _device_grouped_tn_table(len(gs), mb, nb, a.device)
-        grp, n_groups = _device_groups(gs, a.device), len(gs)
+        grp, n_groups = _device_groups(gs, build.TILE[0], a.device), len(gs)
     n_tasks = tab.shape[1]
     partials = torch.empty((n_sets, n_tasks), dtype=torch.float32, device=a.device)
     chk = torch.empty_like(partials) if abft else None
@@ -1616,18 +1664,20 @@ def sfc_gemm_grouped_plain(
 
 
 @functools.lru_cache(maxsize=64)
-def _device_groups(gs: tuple, device: torch.device) -> torch.Tensor:
+def _device_groups(gs: tuple, bm: int, device: torch.device) -> torch.Tensor:
     """(3, E) int32 per-expert row start, row count and first row block of
-    the kernel's tile, uploaded once per (group sizes, device)."""
-    row_blocks = [math.ceil(g / build.TILE[0]) for g in gs]
+    ``bm`` rows (the tile kernels' 64, the wgmma kernels' 128), uploaded
+    once per (group sizes, bm, device)."""
+    row_blocks = [math.ceil(g / bm) for g in gs]
     arr = torch.tensor([_starts(gs), list(gs), _starts(row_blocks)], dtype=torch.int32)
     return arr.to(device).contiguous()
 
 
 @functools.lru_cache(maxsize=64)
-def _device_grouped_table(gs: tuple, nb: int, device: torch.device) -> torch.Tensor:
-    """(3, T) int32 grouped table at the kernel's row tile, kept on the device."""
-    tab = build_grouped_task_table([math.ceil(g / build.TILE[0]) for g in gs], nb)
+def _device_grouped_table(gs: tuple, bm: int, nb: int, device: torch.device) -> torch.Tensor:
+    """(3, tasks) int32 grouped table at ``bm``-row blocks and ``nb``
+    column tiles, kept on the device."""
+    tab = build_grouped_task_table([math.ceil(g / bm) for g in gs], nb)
     return torch.from_numpy(tab.copy()).to(device).contiguous()
 
 
@@ -1643,32 +1693,43 @@ def _device_grouped_tn_table(experts: int, kb: int, nb: int, device: torch.devic
 def _launch_grouped(a, b, b_gate, bias, gate_bias, *, gs, activation, out_scale, bm, bn, out_dtype, preact, abft):
     t, k = a.shape
     e_cnt, _, n = b.shape
+    glu = b_gate is not None
     vecs = [None if v is None else v.reshape(e_cnt, n) for v in (bias, gate_bias)]
     _check_operands(bm, bn, out_dtype, a, b=b, b_gate=b_gate, bias=vecs[0], gate_bias=vecs[1])
     out = torch.empty((t, n), dtype=out_dtype, device=a.device)
     out_gate = torch.empty_like(out) if preact else None
     if out.numel() == 0:
         return _results((out, out_gate), _lane_total(None, a.device) if abft else None)
-    nb = math.ceil(n / bn)
-    tab = _device_grouped_table(gs, nb, a.device)
-    grp = _device_groups(gs, a.device)
-    parts = torch.empty(tab.shape[1], dtype=torch.float32, device=a.device) if abft else None
-    fn = getattr(build.load_library(), build.entry_name(_dtype_name(a), b_gate is not None, activation, abft))
+    wgmma = uses_grouped_wgmma_kernel(a, b, b_gate)
+    if wgmma:  # 128-row tiles, persistent CTAs over curve segments
+        cfg = grouped_wgmma_launch(gs, n, sm_count(a.device), glu)
+        bm, nb = build.WGMMA_TILE[0], cfg.nb
+        fn = getattr(build.load_library(), build.wgmma_entry_name(glu, activation, abft))
+    else:
+        nb = math.ceil(n / bn)
+        fn = getattr(build.load_library(), build.entry_name(_dtype_name(a), glu, activation, abft))
+    tab = _device_grouped_table(gs, bm, nb, a.device)
+    grp = _device_groups(gs, bm, a.device)
+    slots = build.WGMMA_LANE_SLOTS if wgmma else 1  # the wgmma lane's partials: one a consumer warp
+    parts = torch.empty(tab.shape[1] * slots, dtype=torch.float32, device=a.device) if abft else None
+    epilogue = (int(out_scale is not None), float(out_scale if out_scale is not None else 1.0))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(
-            a.data_ptr(), b.data_ptr(), _ptr(b_gate), _ptr(vecs[0]), _ptr(vecs[1]), None,
-            out.data_ptr(), _ptr(out_gate),
-            tab.data_ptr(), tab.shape[1], 1,
-            t, n, k, 0, 0,
-            int(out_scale is not None), float(out_scale if out_scale is not None else 1.0),
-            int(_rows_vec(k, a)), int(_rows_vec(n, b, b_gate)),
-            grp.data_ptr(), e_cnt, *((parts.data_ptr(),) if abft else ()), stream,
-        )
+        ptrs = (a.data_ptr(), b.data_ptr(), _ptr(b_gate), _ptr(vecs[0]), _ptr(vecs[1]), None, out.data_ptr(),
+                _ptr(out_gate), tab.data_ptr(), tab.shape[1], 1)
+        lane = (parts.data_ptr(),) if abft else ()
+        if wgmma:
+            rc = fn(*ptrs, 0, t, n, k, int(cfg.wide), cfg.ctas, cfg.group, *epilogue, grp.data_ptr(), e_cnt,
+                    *lane, stream)
+        else:
+            rc = fn(*ptrs, t, n, k, 0, 0, *epilogue, int(_rows_vec(k, a)), int(_rows_vec(n, b, b_gate)),
+                    grp.data_ptr(), e_cnt, *lane, stream)
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_grouped kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"sfc_gemm_grouped {'wgmma ' if wgmma else ''}kernel launch failed with CUDA error {rc}")
     sfc_gemm_grouped.launches += 1
-    sfc_gemm_grouped.launches_by_shape[(e_cnt, t, k, n, b_gate is not None)] += 1
+    sfc_gemm_grouped.launches_by_shape[(e_cnt, t, k, n, glu)] += 1
+    sfc_gemm_grouped.launches_by_kernel[("sfc_gemm_grouped_wgmma_kernel", _tile_name(cfg, glu)) if wgmma
+                                        else ("sfc_gemm_grouped_kernel", 1)] += 1
     if abft:
         sfc_gemm_grouped.abft_launches += 1
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
@@ -1698,10 +1759,17 @@ def sfc_gemm_grouped(
     `sfc_gemm_fused`.  Returns (T, N) (a pair under ``preact``; the lane's
     scalar appended under ``abft``).
 
-    On a CUDA tensor this launches ``sfc_gemm_grouped_kernel`` (K3, the
-    fused kernel's tile body; tile `kernel_tile()`, each expert's last row block masked, the K
-    loop inside the CTA) and adds one to ``sfc_gemm_grouped.launches`` and
-    to ``launches_by_shape[(E, T, K, N, glu)]``.  On a CPU tensor it runs
+    On a CUDA tensor this launches K3: where `uses_grouped_wgmma_kernel`
+    takes the call (bf16, rows TMA can describe), the persistent wgmma
+    kernel ``sfc_gemm_grouped_wgmma_kernel`` over the grouped table at
+    128-row blocks, whose tile and CTAs (`grouped_wgmma_launch`) the wrapper
+    chooses from the group sizes, the width and the SM count; else
+    ``sfc_gemm_grouped_kernel`` (the fused kernel's 64 x 64 tile body, tile
+    `kernel_tile()`).  Each masks every expert's last row block at its row
+    count.  A launch adds one to ``sfc_gemm_grouped.launches``, to
+    ``launches_by_shape[(E, T, K, N, glu)]`` and to ``launches_by_kernel``
+    under ("sfc_gemm_grouped_wgmma_kernel", its C tile, e.g. "128x64") or
+    ("sfc_gemm_grouped_kernel", 1).  On a CPU tensor it runs
     `sfc_gemm_grouped_plain` and counts nothing."""
     gs, _, _, _ = _check_grouped(a, b, b_gate, bias, gate_bias, group_sizes, activation, out_scale, preact)
     out_dtype = out_dtype or a.dtype
@@ -1774,10 +1842,15 @@ def sfc_gemm_grouped_nt(
     b2[e]ᵀ)``, the dA of the grouped (MoE expert) backward, over the
     forward's grouped table.
 
-    On a CUDA tensor this launches ``grouped_nt_kernel`` (K9, the NT
-    kernel's tile body) and adds one to ``sfc_gemm_grouped_nt.launches`` and to
-    ``launches_by_shape[(E, T, N, K, dual)]``.  On a CPU tensor it runs
-    `sfc_gemm_grouped_nt_plain` and counts nothing."""
+    On a CUDA tensor this launches K9: where `uses_grouped_nt_wgmma_kernel`
+    takes the call, the persistent wgmma kernel ``grouped_nt_wgmma_kernel``
+    over the grouped table at 128-row blocks (`grouped_wgmma_launch`), else
+    ``grouped_nt_kernel`` (the NT kernel's 64 x 64 tile body).  A launch
+    adds one to ``sfc_gemm_grouped_nt.launches``, to
+    ``launches_by_shape[(E, T, N, K, dual)]`` and to ``launches_by_kernel``
+    under ("grouped_nt_wgmma_kernel", its C tile) or ("grouped_nt_kernel",
+    1).  On a CPU tensor it runs `sfc_gemm_grouped_nt_plain` and counts
+    nothing."""
     gs, t, n, k = _check_grouped_nt(a, b, a2, b2, group_sizes)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
@@ -1790,17 +1863,22 @@ def sfc_gemm_grouped_nt(
     if out.numel() == 0:
         return out
     e_cnt = b.shape[0]
-    tab = _device_grouped_table(gs, math.ceil(n / bn), a.device)
-    grp = _device_groups(gs, a.device)
-    fn = getattr(build.load_library(), build.bwd_entry_name("nt", _dtype_name(a)))
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), _ptr(a2), _ptr(b2), out.data_ptr(), tab.data_ptr(), tab.shape[1],
-                t, n, k, int(_rows_vec(k, a, a2)), int(_rows_vec(k, b, b2)), grp.data_ptr(), e_cnt, stream)
-    if rc != 0:
-        raise RuntimeError(f"sfc_gemm_grouped_nt kernel launch failed with CUDA error {rc}")
+    if uses_grouped_nt_wgmma_kernel(a, b, a2, b2):
+        kernel = ("grouped_nt_wgmma_kernel", _launch_nt_wgmma(a, b, a2, b2, out, gs=gs))
+    else:
+        tab = _device_grouped_table(gs, bm, math.ceil(n / bn), a.device)
+        grp = _device_groups(gs, bm, a.device)
+        fn = getattr(build.load_library(), build.bwd_entry_name("nt", _dtype_name(a)))
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a.data_ptr(), b.data_ptr(), _ptr(a2), _ptr(b2), out.data_ptr(), tab.data_ptr(), tab.shape[1],
+                    t, n, k, int(_rows_vec(k, a, a2)), int(_rows_vec(k, b, b2)), grp.data_ptr(), e_cnt, stream)
+        if rc != 0:
+            raise RuntimeError(f"sfc_gemm_grouped_nt kernel launch failed with CUDA error {rc}")
+        kernel = ("grouped_nt_kernel", 1)
     sfc_gemm_grouped_nt.launches += 1
     sfc_gemm_grouped_nt.launches_by_shape[(e_cnt, t, n, k, a2 is not None)] += 1
+    sfc_gemm_grouped_nt.launches_by_kernel[kernel] += 1
     return out
 
 
@@ -1996,7 +2074,7 @@ def sfc_gemm_grouped_tn(
         result = out if b2 is None else (out, out2)
         kernel = ("grouped_tn_kernel", 1)
         tab = _device_grouped_tn_table(e_cnt, math.ceil(k / bm), math.ceil(n / bn), a.device)
-        grp = _device_groups(gs, a.device)
+        grp = _device_groups(gs, build.TILE[0], a.device)
         fn = getattr(build.load_library(), build.bwd_entry_name("tn", _dtype_name(a)))
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -2023,8 +2101,10 @@ def sfc_gemm_grouped_tn(
 sfc_gemm_grouped.launches = 0
 sfc_gemm_grouped.abft_launches = 0
 sfc_gemm_grouped.launches_by_shape = collections.Counter()
+sfc_gemm_grouped.launches_by_kernel = collections.Counter()
 sfc_gemm_grouped_nt.launches = 0
 sfc_gemm_grouped_nt.launches_by_shape = collections.Counter()
+sfc_gemm_grouped_nt.launches_by_kernel = collections.Counter()
 sfc_gemm_grouped_tn.launches = 0
 sfc_gemm_grouped_tn.launches_by_mode = collections.Counter()
 sfc_gemm_grouped_tn.launches_by_shape = collections.Counter()

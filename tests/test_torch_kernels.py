@@ -1383,23 +1383,143 @@ def test_nt_wgmma_kernel_matches_plain_version_on_card(case):
     assert _agree(got, want, torch.bfloat16)
 
 
+def test_grouped_wgmma_modes_are_arguments_of_the_wgmma_entries():
+    """K3 and K9 on the wgmma kernels are the grouped modes of the forward
+    and NT wgmma entries (the per-expert row array after the launch
+    configuration), under kernel names of their own: no part is added."""
+    gemm = CU_SOURCE.read_text()
+    for entry in ("SFC_WGMMA_ENTRY", "SFC_NT_WGMMA_ENTRY"):
+        for decl in re.findall(rf'extern "C" int {entry}\(([^)]*)\)', gemm):
+            assert "int ctas, int group," in " ".join(decl.split()) and "const int* grp, int n_groups," in " ".join(
+                decl.split()), entry
+    for kernel in ("sfc_gemm_grouped_wgmma_kernel(", "sfc_gemm_grouped_wgmma_abft_kernel(",
+                   "grouped_nt_wgmma_kernel("):
+        assert kernel in gemm
+    assert gemm.count("wg::NoFlush, true>(") == 3  # each body in its grouped mode
+
+
+# (group sizes, K, N): ragged experts, one empty and one over a 128-row
+# tile, boxes past every edge (K 264, N 328 not multiples of 64); 80 rows
+# an expert as olmoe's prefill; a row count of 1
+GROUPED_WGMMA_CASES = {
+    "ragged": ((5, 0, 19, 32), 264, 328),
+    "long": ((80, 0, 45, 130), 256, 192),
+    "olmoe_like": ((80,) * 6, 512, 1024),
+    "one_row": ((1, 130, 0, 64), 264, 136),
+}
+
+
+def _grouped_forms(a, w, wg, bias, gbias):
+    """K3's forms: linear, the GLU with silu in the flush, the GLU preact
+    with both biases, bias + relu + scale."""
+    return [((a, w), {}), ((a, w, wg), dict(activation="silu")), ((a, w, wg, bias, gbias), dict(preact=True)),
+            ((a, w, None, bias), dict(activation="relu", out_scale=0.5))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUPED_WGMMA_CASES))
+def test_grouped_wgmma_kernels_match_plain_versions_on_card(case):
+    """K3 on `sfc_gemm_grouped_wgmma_kernel` in every form and K9 on
+    `grouped_nt_wgmma_kernel` (single and dual) against their plain
+    versions, one launch each on the tile `grouped_wgmma_launch` chooses;
+    K3's lane twin: outputs bitwise the kernel's, its lane within
+    chip_smoke.py's `lane_limit` of the plain lane over the kernel's own
+    128-row tiles of each expert, where a lane of 0 or less its last real
+    tile misses it."""
+    _card()
+    from repro_torch.robust import abft
+
+    cs = _chip_smoke()
+    gs, k, n = GROUPED_WGMMA_CASES[case]
+    dt = torch.bfloat16
+    a, w, wg, bias, gbias, dc, dc2 = _grouped_inputs(np.random.default_rng(33), gs, k, n, dt)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kw_gs = dict(group_sizes=gs)
+    for args, kw in _grouped_forms(a, w, wg, bias, gbias):
+        glu = args[2] is not None if len(args) > 2 else False
+        assert tk.uses_grouped_wgmma_kernel(*args[:3])
+        cfg = tk.grouped_wgmma_launch(gs, n, sms, glu)
+        got, key = cs.launched(tk.sfc_gemm_grouped.launches_by_kernel,
+                               lambda: tk.sfc_gemm_grouped(*args, **kw_gs, **kw))
+        torch.cuda.synchronize()
+        assert key == ("sfc_gemm_grouped_wgmma_kernel", f"128x{128 * (2 if cfg.wide else 1) // (2 if glu else 1)}")
+        want = tk.sfc_gemm_grouped_plain(*args, bm=64, bn=64, **kw_gs, **kw)
+        got_t, want_t = (got, want) if kw.get("preact") else ((got,), (want,))
+        for g, w_ in zip(got_t, want_t):
+            assert g.dtype == dt and g.shape == (sum(gs), n) and _agree(g, w_, dt), kw
+        on = tk.sfc_gemm_grouped(*args, **kw_gs, **kw, abft=True)
+        assert all(torch.equal(x, y) for x, y in zip(on[:-1], got_t))
+        plain = tk.sfc_gemm_grouped_plain(*args, bm=64, bn=64, **kw_gs, **kw, abft=True)
+        raws = [cs.grouped_raw(torch, a, x, gs) for x in (args[1], args[2] if glu else None) if x is not None]
+        tiles = cs.kernel_tiles(torch, key[0], key[1], *raws)
+        limit = cs.lane_limit(tiles, abft.tolerance(abft.grouped_checksum_ref(a, w, wg if glu else None, gs)[1], k))
+        assert abs(float(on[-1]) - float(plain[-1])) <= limit, kw
+        # the controls drop the last real tile (a padded expert slab ends in zeros)
+        for name, wrong in cs._dropped(plain[-1], tiles[tiles != 0]).items():
+            assert abs(wrong - float(plain[-1])) > limit, (name, kw)
+    for dual in (False, True):
+        extra = (dc2, wg) if dual else (None, None)
+        assert tk.uses_grouped_nt_wgmma_kernel(dc, w, *extra)
+        cfg = tk.grouped_wgmma_launch(gs, k, sms)
+        da, key = cs.launched(tk.sfc_gemm_grouped_nt.launches_by_kernel,
+                              lambda: tk.sfc_gemm_grouped_nt(dc, w, *extra, **kw_gs))
+        torch.cuda.synchronize()
+        assert key == ("grouped_nt_wgmma_kernel", f"128x{256 if cfg.wide else 128}")
+        assert da.shape == (sum(gs), k) and _agree(da, tk.sfc_gemm_grouped_nt_plain(dc, w, *extra, bm=64, bn=64,
+                                                                                    **kw_gs), dt)
+
+
+@pytest.mark.cuda
+def test_the_next_experts_rows_never_reach_an_experts_outputs_on_card():
+    """A 128-row box of an expert's rows runs into the next expert's: with
+    the last expert's rows all NaN, every other expert's K3 (GLU, with its
+    lane) and K9 outputs are finite and the plain version's, and the last
+    expert's are NaN."""
+    _card()
+    gs, k, n = (45, 0, 130, 80), 256, 192
+    dt = torch.bfloat16
+    a, w, wg, bias, gbias, dc, dc2 = _grouped_inputs(np.random.default_rng(34), gs, k, n, dt)
+    last = sum(gs) - gs[-1]
+    a[last:] = float("nan")
+    dc[last:] = float("nan")
+    dc2[last:] = float("nan")
+    kw = dict(group_sizes=gs)
+    out, lane = tk.sfc_gemm_grouped(a, w, wg, bias, activation="silu", abft=True, **kw)
+    da = tk.sfc_gemm_grouped_nt(dc, w, dc2, wg, **kw)
+    torch.cuda.synchronize()
+    assert tk.uses_grouped_wgmma_kernel(a, w, wg) and tk.uses_grouped_nt_wgmma_kernel(dc, w, dc2, wg)
+    want = tk.sfc_gemm_grouped_plain(a, w, wg, bias, activation="silu", bm=64, bn=64, **kw)
+    want_da = tk.sfc_gemm_grouped_nt_plain(dc, w, dc2, wg, bm=64, bn=64, **kw)
+    for got, ref in ((out, want), (da, want_da)):
+        assert _agree(got[:last], ref[:last], dt)
+        assert bool(torch.isnan(got[last:].float()).all())
+    assert bool(torch.isnan(lane))  # the last expert's NaN rows are its own lane's
+
+
 @pytest.mark.cuda
 def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
     """The wgmma kernels keep no counter or queue on the device (each CTA's
     segment comes from its index): a captured graph of the forward (wide
-    GLU, narrow tile with its lane) and the dual NT, replayed three times,
-    gives the eager outputs bitwise every time, and the launch counters
-    count the capture only."""
+    GLU, narrow tile with its lane), the dual NT and their grouped modes
+    (K3's GLU with its lane over ragged experts, K9's dual), replayed three
+    times, gives the eager outputs bitwise every time, and the launch
+    counters count the capture only."""
     _card()
     gen = torch.Generator(device="cuda").manual_seed(24)
     a = torch.randn((4, 128, 2560), generator=gen, device="cuda").bfloat16()
     w, wg = ((torch.randn((2560, 9728), generator=gen, device="cuda") * 0.02).bfloat16() for _ in range(2))
     wkv = (torch.randn((2560, 1024), generator=gen, device="cuda") * 0.02).bfloat16()
     dc = torch.randn((512, 9728), generator=gen, device="cuda").bfloat16()
+    gs = (80, 0, 45, 130)
+    xe = torch.randn((sum(gs), 512), generator=gen, device="cuda").bfloat16()
+    we, wge = ((torch.randn((4, 512, 1024), generator=gen, device="cuda") * 0.05).bfloat16() for _ in range(2))
+    dce = torch.randn((sum(gs), 1024), generator=gen, device="cuda").bfloat16()
 
     def step():
         return (tk.sfc_gemm_fused(a, w, wg, activation="silu"), tk.sfc_gemm_fused(a, wkv, abft=True),
-                tk.sfc_gemm_nt(dc, w, dc, wg))
+                tk.sfc_gemm_nt(dc, w, dc, wg), tk.sfc_gemm_grouped(xe, we, wge, activation="silu", group_sizes=gs,
+                                                                   abft=True),
+                tk.sfc_gemm_grouped_nt(dce, we, dce, wge, group_sizes=gs))
 
     eager = step()
     side = torch.cuda.Stream()
@@ -1410,20 +1530,26 @@ def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = step()
-    counts = (tk.sfc_gemm_fused.launches, tk.sfc_gemm_nt.launches)
+    fns = (tk.sfc_gemm_fused, tk.sfc_gemm_nt, tk.sfc_gemm_grouped, tk.sfc_gemm_grouped_nt)
+    counts = [(f.launches, dict(f.launches_by_kernel)) for f in fns]
+    assert counts[2][1].get(("sfc_gemm_grouped_wgmma_kernel", "128x64"), 0) >= 3
+    assert sum(n for (name, _), n in counts[3][1].items() if name == "grouped_nt_wgmma_kernel") >= 3
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
-        assert torch.equal(out[0], eager[0]) and torch.equal(out[2], eager[2])
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[2], eager[2]) and torch.equal(out[4], eager[4])
         assert all(torch.equal(x, y) for x, y in zip(out[1], eager[1]))
-    assert (tk.sfc_gemm_fused.launches, tk.sfc_gemm_nt.launches) == counts
+        assert all(torch.equal(x, y) for x, y in zip(out[3], eager[3]))
+    assert [(f.launches, dict(f.launches_by_kernel)) for f in fns] == counts
 
 
 @pytest.mark.cuda
 def test_calls_the_wgmma_predicates_refuse_land_on_the_tile_kernels_on_card():
-    """K 203 (rows TMA cannot describe), f32, a base off a 16-byte
-    boundary and the grouped mode keep their old kernels, by
-    ``launches_by_kernel``."""
+    """K 203 (rows TMA cannot describe), f32 and a base off a 16-byte
+    boundary keep their old kernels, by ``launches_by_kernel``: K1/K2's and
+    K7's, and in the grouped mode K3's and K9's tile kernels, where the
+    aligned bf16 grouped calls take the grouped wgmma kernels and count
+    nothing under K1/K2 or K7."""
     _card()
     cs = _chip_smoke()
     gen = torch.Generator(device="cuda").manual_seed(25)
@@ -1443,12 +1569,27 @@ def test_calls_the_wgmma_predicates_refuse_land_on_the_tile_kernels_on_card():
         assert not tk.uses_nt_wgmma_kernel(a, b)
         assert cs.launched(nt, lambda: tk.sfc_gemm_nt(a, b))[1] == ("nt_kernel", 1)
     before = (dict(fused), dict(nt), tk.sfc_gemm_grouped.launches, tk.sfc_gemm_grouped_nt.launches)
+    gs = (5, 0, 19, 32)
+    g_fwd, g_nt = tk.sfc_gemm_grouped.launches_by_kernel, tk.sfc_gemm_grouped_nt.launches_by_kernel
     x, w = r(56, 264), (r(4, 264, 328) * 0.05).contiguous()
-    tk.sfc_gemm_grouped(x, w, group_sizes=(5, 0, 19, 32))
-    tk.sfc_gemm_grouped_nt(r(56, 328), w, group_sizes=(5, 0, 19, 32))
+    assert cs.launched(g_fwd, lambda: tk.sfc_gemm_grouped(x, w, group_sizes=gs))[1][0] == (
+        "sfc_gemm_grouped_wgmma_kernel")
+    assert cs.launched(g_nt, lambda: tk.sfc_gemm_grouped_nt(r(56, 328), w, group_sizes=gs))[1][0] == (
+        "grouped_nt_wgmma_kernel")
     torch.cuda.synchronize()
     assert (dict(fused), dict(nt)) == before[:2]
     assert (tk.sfc_gemm_grouped.launches, tk.sfc_gemm_grouped_nt.launches) == (before[2] + 1, before[3] + 1)
+    flat = r(56 * 264 + 8)
+    x_off = flat[1:1 + 56 * 264].view(56, 264)  # 2 bytes past a 16-byte boundary
+    for xa, wa in ((r(56, 203), r(4, 203, 328)), (x.float(), w.float()), (x_off, w)):
+        assert not tk.uses_grouped_wgmma_kernel(xa, wa)
+        assert cs.launched(g_fwd, lambda: tk.sfc_gemm_grouped(xa, wa, group_sizes=gs))[1] == (
+            "sfc_gemm_grouped_kernel", 1)
+    for dca, wa in ((r(56, 203), r(4, 328, 203)), (r(56, 264).float(), w.float().transpose(1, 2).contiguous()),
+                    (x_off, w.transpose(1, 2).contiguous())):
+        assert not tk.uses_grouped_nt_wgmma_kernel(dca, wa)
+        assert cs.launched(g_nt, lambda: tk.sfc_gemm_grouped_nt(dca, wa, group_sizes=gs))[1] == (
+            "grouped_nt_kernel", 1)
 
 
 # ---------------------------------------------------------------------------

@@ -300,3 +300,66 @@ def test_kernel_counts_split_every_wgmma_family_from_its_tile_kernels():
                                          b=(("grouped_tn_kernel", 1), 1), c=(("grouped_tn_update_kernel", 1), 7))}
     assert cs._kernel_counts(counted) == {"sfc_gemm_tn:wgmma": 7, "sfc_gemm_tn:tile": 11,
                                           "sfc_gemm_grouped_tn:wgmma": 2, "sfc_gemm_grouped_tn:tile": 8}
+
+
+# profiler keys of the grouped forward and dA kernels (demangled) -> group
+_GROUPED_PROFILE_KEYS = {
+    "void (anonymous namespace)::sfc_gemm_grouped_wgmma_kernel<true, 1, 256>(CUtensorMap, CUtensorMap, "
+    "CUtensorMap, CUtensorMap, wg::Params)": "K3 wgmma",
+    "void (anonymous namespace)::grouped_nt_wgmma_kernel<256>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "CUtensorMap, wg::Params)": "K9 wgmma",
+    "void (anonymous namespace)::sfc_gemm_grouped_kernel<float, true, 1, false, false, false, true>("
+    "(anonymous namespace)::Params, (anonymous namespace)::GroupRows)": "K3",
+    "void (anonymous namespace)::grouped_nt_kernel<float, true>((anonymous namespace)::BwdParams)": "K9",
+    "void (anonymous namespace)::sfc_gemm_wgmma_kernel<true, 1, 256>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "CUtensorMap, wg::Params)": "K2 wgmma",
+}
+
+
+@pytest.mark.parametrize("key", sorted(_GROUPED_PROFILE_KEYS))
+def test_a_moe_step_profile_tells_the_grouped_wgmma_kernels_from_k2_and_k7(key):
+    """The MoE step's profile groups, matched as `profile_step` matches
+    them: K3's and K9's wgmma kernels have groups of their own, ahead of
+    K2's and K7's, whose names ("nt_wgmma_kernel") are fragments of
+    theirs."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    assert next(lab for frag, lab in cs._MOE_KERNEL_GROUPS if frag in key) == _GROUPED_PROFILE_KEYS[key]
+
+
+def test_kernel_tiles_of_the_grouped_wgmma_kernel_are_each_experts_128_row_tiles():
+    """K3's wgmma lane sums each expert's rows (`grouped_raw`'s slabs) over
+    128 x BN tiles, never folding one expert's rows into another's; its
+    tile kernel's over 64 x 64 tiles."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    g = torch.Generator().manual_seed(9)
+    sizes = (80, 0, 45, 130)
+    a, w = torch.randn(sum(sizes), 24, generator=g), torch.randn(4, 24, 136, generator=g)
+    raw = cs.grouped_raw(torch, a, w, sizes)
+    want, off = [], 0
+    for e, rows in enumerate(sizes):
+        for r in range(0, max(sizes), 128):
+            for q in range(0, 136, 64):
+                want.append((a[off:off + rows] @ w[e])[r:r + 128, q:q + 64].sum())
+        off += rows
+    torch.testing.assert_close(cs.kernel_tiles(torch, "sfc_gemm_grouped_wgmma_kernel", "128x64", raw),
+                               torch.stack(want), rtol=1e-5, atol=1e-3)
+    assert torch.equal(cs.kernel_tiles(torch, "sfc_gemm_grouped_kernel", 1, raw), cs.raw_tile_sums(torch, raw))
+
+
+def test_kernel_counts_split_k3_and_k9_from_their_tile_kernels():
+    """`_kernel_counts` of a MoE run: K3's and K9's launches on their
+    grouped wgmma kernels and on their 64 x 64 tile kernels, apart."""
+    import collections
+    import types
+
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+
+    def fn(counts):
+        return types.SimpleNamespace(launches_by_kernel=collections.Counter(counts))
+
+    counted = {"sfc_gemm_grouped": fn({("sfc_gemm_grouped_wgmma_kernel", "128x128"): 16,
+                                       ("sfc_gemm_grouped_wgmma_kernel", "128x256"): 3,
+                                       ("sfc_gemm_grouped_kernel", 1): 2}),
+               "sfc_gemm_grouped_nt": fn({("grouped_nt_wgmma_kernel", "128x256"): 16})}
+    assert cs._kernel_counts(counted) == {"sfc_gemm_grouped:wgmma": 19, "sfc_gemm_grouped:tile": 2,
+                                          "sfc_gemm_grouped_nt:wgmma": 16, "sfc_gemm_grouped_nt:tile": 0}

@@ -212,3 +212,14 @@ def test_the_wide_tiles_ring_fits_one_cta_an_sm():
     const = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert const["kStages"] * (const["kBM"] + 2 * const["kBN"]) * const["kBK"] * 2 + 1024 <= 232448
     assert "__launch_bounds__(wg::kThreads, 1)" in WGMMA_SOURCE.with_name("sfc_gemm_fused.cu").read_text()
+
+
+def test_the_lane_slots_are_one_a_consumer_warp():
+    """The forward wgmma kernels' ABFT lane writes one partial a consumer
+    warp of a task, with no barrier: the wrappers size the partials by
+    `build.WGMMA_LANE_SLOTS`, the header's kLaneSlots."""
+    src = WGMMA_SOURCE.read_text()
+    consumers = int(re.search(r"constexpr int kConsumers = (\d+);", src).group(1))
+    assert "constexpr int kLaneSlots = kConsumers / 32;" in src
+    assert build.WGMMA_LANE_SLOTS == consumers // 32 == 8
+    assert "p.chk[static_cast<size_t>(t) * kLaneSlots + threadIdx.x / 32] = lane;" in src
