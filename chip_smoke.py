@@ -24,8 +24,13 @@ phase 3 three) and raising on failure:
               unfused call (`fuse=False`) as a whole beside K1/K2 and
               torch.matmul of the same product, plus a ragged case of each
               input type with every epilogue flag at k_layers 2, kbf 4 and
-              K = 203; the NT (K7, dA) and TN (K8, dW) kernels at every
-              training shape, single and dual, plus a ragged f32 case each;
+              K = 203 (the 64 x 64 tile kernel); each K4 / K5 row names the
+              kernel it launched: K4 (4 bf16 rows) the cluster kernel, each
+              (tile, layer) task a cluster of L' CTAs over sub-slabs of its
+              slab, held against the plain version summed over the same
+              L' sub-slabs, K5 the wgmma kernel with its C tile; the NT
+              (K7, dA) and TN (K8, dW) kernels at every training shape,
+              single and dual, plus a ragged f32 case each;
               K8's update mode (AdamW in the flush, bf16 W stochastically
               rounded) and norm mode at every training shape, in bf16 and
               f32;
@@ -95,9 +100,10 @@ phase 3 three) and raising on failure:
               blockwise attention (exactly 217 x 16 GEMM launches), sfc_cuda
               GEMMs with attn_impl="sfc" (exactly 3,472 GEMM, 36 K11 and 540
               K14 launches), the "replicated" backend (exactly 252 K5 and
-              3,796 K4 launches, no K6 and no K1/K2: k_layers is 1 at every
-              shape), the same with every product split over 8 K layers
-              (as many K4/K5, 4,048 K6), and the torch backend.  The
+              3,796 K4 launches, every K5 on the wgmma kernel and every K4
+              on the cluster kernel, no K6 and no K1/K2: k_layers is 1 at
+              every shape), the same with every product split over 8 K
+              layers (as many K4/K5, 4,048 K6), and the torch backend.  The
               attn_impl="sfc" serve again under ABFT "detect" (the prefill
               in abft_mode, ServingEngine(verify_every=1)): 0 detections,
               the same tokens, the same 3,472 K1/K2 launches, every one
@@ -168,13 +174,14 @@ phase 3 three) and raising on failure:
               of their own);
 9. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
-              library times and the bound (K1/K2 rows: the kernel launched
-              and its K layers; K14 rows: the segments); the lane rows (K1/K2, K3, K8 dW,
-              update, norm with the lane) carry the launches of the ABFT
+              library times and the bound (K1/K2 and K4/K5 rows: the kernel
+              launched and its K layers, L' or tile; K14 rows: the
+              segments); the lane rows (K1/K2, K3, K8 dW, update, norm
+              with the lane) carry the launches of the ABFT
               run of their path, the time with the lane off, the operand
               reference's time and the partials their bound adds; before
-              it, the seconds at which each phase began and the run's
-              total.
+              it, the seconds at which each phase began, the build's and
+              the run's total.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository's src/repro_torch beside this file, it exits non-zero
@@ -289,6 +296,17 @@ def plain_layers(name, config) -> int:
     """The K layers a plain version sums over to follow a launch: the
     cluster kernel's L, else one."""
     return config if name == "sfc_gemm_cluster_kernel" else 1
+
+
+# the kernel each bf16 product of the replicated serve launches: K4 (4
+# rows) the cluster kernel, K5 (4 x 128 rows) the wgmma kernel
+REP_ROUTES = {"K4": "sfc_gemm_replicated_cluster_kernel", "K5": "sfc_gemm_replicated_wgmma_kernel"}
+
+
+def rep_split(name, config) -> int:
+    """The sub-slabs a layer's copy sums over in the replicated plain
+    version to follow a launch: the cluster kernel's L', else one."""
+    return config if name == "sfc_gemm_replicated_cluster_kernel" else 1
 
 
 WGMMA_SOURCE = "src/repro_torch/kernels/csrc/sfc_gemm_wgmma.cuh"
@@ -756,8 +774,18 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
         def k4(i):
             return tk.sfc_gemm_replicated(a, ws[i % copies], k_layers=kl, out_dtype=cdt)
 
+        # which kernel the wrapper takes: at 4 bf16 rows (K4) the cluster
+        # kernel, each task a cluster of L' CTAs over sub-slabs, its plain
+        # version summed over the same split; batched (K5) the wgmma kernel
+        # with its C tile
+        parts, (name, config) = launched(tk.sfc_gemm_replicated.launches_by_kernel, lambda: k4(0))
+        if name != REP_ROUTES[gm.kernel]:
+            raise AssertionError(f"{gm.kernel} {gm.name}@L{kl} launched {name}, expected {REP_ROUTES[gm.kernel]}")
+        split = rep_split(name, config)
+
         def k4_plain(i):
-            return tk.sfc_gemm_replicated_plain(a, ws[i % copies], bm=bm, bn=bn, k_layers=kl, out_dtype=cdt)
+            return tk.sfc_gemm_replicated_plain(a, ws[i % copies], bm=bm, bn=bn, k_layers=kl, out_dtype=cdt,
+                                                split=split)
 
         def public(i):
             if gm.glu:
@@ -765,13 +793,13 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
                                           k_layers=kl)
             return ops.sfc_matmul(a, ws[i % copies], fuse=False, k_layers=kl)
 
-        parts = k4(0)
         summed = tk.add_reduce(parts) if kl > 1 else None
         got = public(0)
         torch.cuda.synchronize()
         want = k4_plain(0)
         shape = [gm.batch, gm.m, gm.k, gm.n, kl]
-        err = check(f"{gm.kernel}:{gm.name}@L{kl}", parts, want, cdt, shape=shape, copies=str(cdt))
+        err = check(f"{gm.kernel}:{gm.name}@L{kl}", parts, want, cdt, shape=shape, copies=str(cdt), kernel=name,
+                    config=config)
         err6 = check(f"K6:{gm.name}@L{kl}", summed, tk.add_reduce_plain(parts), cdt, shape=shape) if kl > 1 else None
         check(f"unfused:{gm.name}@L{kl}", got,
               composed(tk, a, ws[0], gs[0] if gs else None, activation=cfg.act if gm.glu else None, k_layers=kl),
@@ -809,9 +837,9 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
             del a_sl, w_sl
         plain_ms = time_ms(k4_plain, reps=2, warmup=1)
         bound_ms, bound_by = gm.bound()
-        row = dict(gemm=gm, kernel=gm.kernel, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library_ms, library_note=library_note, together_ms=together_ms,
-                   fused_ms=fused_ms, matmul_ms=matmul_ms)
+        row = dict(gemm=gm, kernel=gm.kernel, cuda_kernel=name, config=config, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                   library_note=library_note, together_ms=together_ms, fused_ms=fused_ms, matmul_ms=matmul_ms)
         rows.append(row)
         if kl > 1:
             # K6 timed on copies rotated past the L2, as its bound counts
@@ -837,11 +865,15 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
         knobs = dict(k_layers=2, k_block_factor=4)
         kw = dict(bias=bias, out_scale=0.7, residual=res, fuse=False, **knobs)
         cpu = {key: v.cpu() if isinstance(v, torch.Tensor) else v for key, v in kw.items()}
-        parts = tk.sfc_gemm_replicated(x, w, **knobs)
+        # f32, and bf16 rows TMA cannot describe (K 203): the tile kernel
+        parts, (name, config) = launched(tk.sfc_gemm_replicated.launches_by_kernel,
+                                         lambda: tk.sfc_gemm_replicated(x, w, **knobs))
+        if name != "sfc_gemm_replicated_kernel":
+            raise AssertionError(f"the ragged K5 case ({dtype}, K {k}) launched {name}, expected the tile kernel")
         got = ops.sfc_matmul(x, w, activation="gelu", **kw)
         got_glu = ops.sfc_glu_matmul(x, wg, w, activation="gelu", gate_bias=gbias, **kw)
         torch.cuda.synchronize()
-        extra = dict(dtype=str(dtype), shape=[3, m, k, n], slab=tk.layer_slab(k, 2, 4))
+        extra = dict(dtype=str(dtype), shape=[3, m, k, n], slab=tk.layer_slab(k, 2, 4), kernel=name, config=config)
         check("K5:ragged_kbf4", parts, tk.sfc_gemm_replicated_plain(x, w, bm=64, bn=64, **knobs), dtype, **extra)
         check("K6:ragged", tk.add_reduce(parts), tk.add_reduce_plain(parts), dtype, **extra)
         flags = dict(bias=bias, out_scale=0.7, residual=res, activation="gelu", **knobs)
@@ -858,7 +890,8 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
 
 
 # kernel-name fragments of the serve's GEMM kernels in a profiler trace
-_SERVE_KERNEL_GROUPS = (("sfc_gemm_replicated_kernel", "K4/K5"), ("add_reduce_kernel", "K6"),
+_SERVE_KERNEL_GROUPS = (("sfc_gemm_replicated_kernel", "K4/K5"), ("sfc_gemm_replicated_cluster_kernel", "K4/K5"),
+                        ("sfc_gemm_replicated_wgmma_kernel", "K4/K5"), ("add_reduce_kernel", "K6"),
                         ("sfc_gemm_fused_kernel", "K1/K2"), ("sfc_gemm_cluster_kernel", "K1 cluster"),
                         ("sfc_gemm_wgmma_kernel", "K2 wgmma"), ("decode_split_kernel", "K14"))
 
@@ -2780,8 +2813,9 @@ def main() -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     build.load_all()  # nvcc at first use, every part of both libraries at once
+    build_s = time.perf_counter() - t0
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_and_load_s": time.perf_counter() - t0})
+          "cuda": torch.version.cuda, "build_and_load_s": build_s})
 
     # ---- 2. kernels against their plain versions ---------------------------
     phase_at[2] = time.perf_counter() - run_t0
@@ -2884,6 +2918,7 @@ def main() -> int:
             fn.launches = 0
             fn.launches_by_shape.clear()
         tk.sfc_gemm_fused.launches_by_kernel.clear()
+        tk.sfc_gemm_replicated.launches_by_kernel.clear()
         tsa.sfc_decode_attention.launches_by_splits.clear()
         for fn in attn_kernels.values():
             fn.launches = 0
@@ -2929,8 +2964,10 @@ def main() -> int:
     want_rep = {"K5": cfg.n_layers * per_layer, "K4": cfg.n_layers * per_layer * (NEW_TOKENS - 1) + NEW_TOKENS,
                 "K6": 0, "K1/K2": 0}
     want_split = dict(want_rep, K6=want_rep["K5"] + want_rep["K4"])
+    # every K4 launch (4 rows) on the cluster kernel, every K5 on the wgmma kernel
+    want_rep_by_kernel = {REP_ROUTES[key]: want_rep[key] for key in ("K4", "K5")}
     eng = engines["replicated"]
-    rep_counts, rep_by_shape = {}, {}
+    rep_counts, rep_by_shape, rep_by_kernel = {}, {}, {}
     for name, layers, want in (("replicated", None, want_rep), (f"replicated@k{REP_SERVE_LAYERS}", REP_SERVE_LAYERS,
                                                                   want_split)):
         with ops.knob_defaults(k_layers=layers):
@@ -2941,8 +2978,11 @@ def main() -> int:
         torch.cuda.synchronize()
         rep_counts[name] = replicated_counts()
         rep_by_shape[name] = (dict(tk.sfc_gemm_replicated.launches_by_shape), dict(tk.add_reduce.launches_by_shape))
-        if rep_counts[name] != want:
-            raise AssertionError(f"{name} serve launched {rep_counts[name]}, expected {want}")
+        rep_by_kernel[name] = {f"{kernel}@{config}": n for (kernel, config), n in
+                               tk.sfc_gemm_replicated.launches_by_kernel.items()}
+        if rep_counts[name] != want or by_kernel(tk.sfc_gemm_replicated.launches_by_kernel) != want_rep_by_kernel:
+            raise AssertionError(f"{name} serve launched {rep_counts[name]} ({rep_by_kernel[name]}), expected {want} "
+                                 f"({want_rep_by_kernel})")
     # the attn_impl="sfc" serve again under ABFT "detect": the prefill in
     # abft_mode (eager checks), every decode step verified in a step scope
     # (verify_every=1); a warm-up engine, then a fresh one (its ledger at 0)
@@ -3044,6 +3084,7 @@ def main() -> int:
         "flash_pallas_prefill_launches": attn_launches["flash_attention"],
         "replicated_launches": rep_counts, "replicated_launches_expected": {"replicated": want_rep,
                                                                            split: want_split},
+        "replicated_launches_by_kernel": rep_by_kernel,
         "prefill_logits": {
             "f32_vs_torch": f32_agree,
             "bf16_sfc_cuda_vs_torch": {"within_bound": ok16, "max_abs_err": err16, "err_over_bound": worst16,
@@ -3158,7 +3199,7 @@ def main() -> int:
         kernels.append({
             "name": f"{'add_reduce' if k6 else 'sfc_gemm_replicated'}:{gm.name}@L{gm.layers}",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sfc_gemm_fused.cu",
+            "source": GEMM_SOURCE if k6 else kernel_source(row["cuda_kernel"]),
             "replaces": ("src/repro/kernels/sfc_gemm.py:2040" if k6 else
                          "src/repro/kernels/sfc_gemm.py:772" if gm.batch else "src/repro/kernels/sfc_gemm.py:656"),
             "launches": rep_counts[serve_name][row["kernel"] if k6 else gm.kernel],
@@ -3173,8 +3214,9 @@ def main() -> int:
             "library": ("copies.float().sum(-3).to(dtype)" if k6 else row.get("library_note") or (
                 None if row["library_ms"] is None else
                 "torch.bmm over the K slabs, f32 out" if gm.glu else "torch.matmul over the K slabs")),
-            **({} if k6 else {"unfused_call_ms": row["together_ms"], "fused_k1_k2_ms": row["fused_ms"],
-                              "torch_matmul_ms": row["matmul_ms"]}),
+            **({"kernel": "add_reduce_kernel"} if k6 else {
+                "kernel": row["cuda_kernel"], "config": row["config"], "unfused_call_ms": row["together_ms"],
+                "fused_k1_k2_ms": row["fused_ms"], "torch_matmul_ms": row["matmul_ms"]}),
             "shape": gm.shape(),
         })
     for row in bwd_rows:
@@ -3355,7 +3397,8 @@ def main() -> int:
         raise AssertionError(f"main-path kernels never launched in the run of their path: {missing}")
     # seconds since phase 1 began at the start of each later phase, and
     # the whole run's (the build included)
-    emit({"phase": "clock", "phase_start_s": phase_at, "total_s": time.perf_counter() - run_t0})
+    emit({"phase": "clock", "phase_start_s": phase_at, "build_and_load_s": build_s,
+          "total_s": time.perf_counter() - run_t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

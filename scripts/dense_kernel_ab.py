@@ -6,23 +6,28 @@ main-path shapes (`chip_smoke.py`'s `main_path_gemms` and
 (`train_update_gemms`), of the decode attention K14 at the serve's cache
 and the 4096-row check (`attention_cases`), of the grouped K3, K9 and K10
 at olmoe-1b-7b's (`moe_grouped_gemms`) and of K10's update and norm modes
-(`moe_update_gemms`) in the trees that have them, of the flash forward
+(`moe_update_gemms`) in the trees that have them, of the replicated
+form's partial copies K4 / K5 at the "replicated" serve's shapes
+(`replicated_gemms`) at k_layers 1 and 8, of the flash forward
 K11 and the flash backward K12 / K13 at qwen3-4b's training step and at
 one 2048-token sequence, the host's cost of a K2, K7, K12 and K13 wrapper
 call and of one tensor-map encoding (where the tree has its timer), and
 the registers and spills that ptxas reports for every instantiation of
-the GEMM and attention libraries' CUDA kernels.  Each K3, K8, K9 and K10
-row also carries, in every pass, its bound (`chip_smoke.py`'s `_bound` of
-the row's bytes and flops) and the time of its library yardstick on the
-same inputs (`torch.matmul` / `torch.bmm` for the products, the same to
-an f32 dW plus `torch._fused_adamw_` for the update, none for the norm),
-and names the CUDA kernel and tile it launched where the tree counts
-that; K1/K2's, K3's and K8's rows are also timed with the ABFT checksum
+the GEMM and attention libraries' CUDA kernels.  Each K3, K4, K5, K8, K9
+and K10 row also carries, in every pass, its bound (`chip_smoke.py`'s
+`_bound` of the row's bytes and flops) and the time of its library
+yardstick on the same inputs (`torch.matmul` / `torch.bmm` for the
+products, K4 / K5 over the K slabs, f32 out for the GLU's copies; the
+same to an f32 dW plus `torch._fused_adamw_` for the update, none for the
+norm), and names the CUDA kernel and tile (K4: L') it launched where the
+tree counts that (a tree without K4 / K5's counter has the tile kernel
+alone); K1/K2's, K3's and K8's rows are also timed with the ABFT checksum
 lane ("K1/K2+lane ...", "K3+lane ...", "K8 dW+lane ...", "K8
 update+lane ...", "K8 norm+lane ...").
 
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K8,K10
+    python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K4,K5
 
 Each pass runs in a process of its own with the tree's `src/` and
 `chip_smoke.py` first on its path, so each tree builds its kernels into
@@ -35,7 +40,7 @@ its configuration: the cluster kernel's K layers, the wgmma kernels' C
 tile) each K1/K2, K7, K12 and K13 row launched, where its tree counts
 that.
 `--only` keeps the rows of the listed families (K1/K2, K14, K11, K12,
-K13, K7, K8, K3, K9, K10; "host" for the wrapper costs).
+K13, K7, K8, K3, K9, K10, K4, K5; "host" for the wrapper costs).
 Prints one JSON line per pass and, last, a summary: each row's times by
 tree, each tree's mean over the `--base` tree's (default 1), the ptxas
 counts of every kernel the trees share by name, side by side, those of
@@ -69,6 +74,8 @@ _FUNCTION = re.compile(r"Function : (\S+)")
 _SASS = re.compile(r"/\*[0-9a-f]+\*/\s+(.+?)\s*;")
 _LIBRARIES = ("sfc_gemm_fused", "sfc_attention")
 _HYPER_STEP, _HYPER_SCALE, _SALT = 7, 0.37, (3 << 16) + 5
+# the K layers of the K4 / K5 rows: those of the two "replicated" serves
+_REP_LAYERS = (1, 8)
 
 
 def _demangle(names):
@@ -244,6 +251,8 @@ def worker(tree: Path, only=None) -> dict:
                 _, kernels[row] = cs.launched(by_kernel, lambda: fn(*args, **gs, **kw))
             del args, lib
             torch.cuda.empty_cache()
+    if hasattr(cs, "replicated_gemms"):
+        _replicated_rows(torch, cs, tk, replicated_ab_gemms(cs, cfg, keep), gen, rows, kernels, library, bounds)
     if hasattr(cs, "moe_update_gemms") and keep("K10"):
         _update_rows(torch, cs, tk, cs.moe_update_gemms(get_config("olmoe_1b_7b")), gen, "K10", rows, kernels,
                      library, bounds)
@@ -321,6 +330,50 @@ def _host_costs(torch, cs, tk, tsa, build, cfg, gen, calls: int = 200):
     return out
 
 
+def replicated_ab_gemms(cs, cfg, keep=lambda family: True):
+    """The K4 / K5 rows: `chip_smoke.replicated_gemms` at the k_layers of
+    the two "replicated" serves (1 and 8), those of the kept families."""
+    return [gm for gm in cs.replicated_gemms(cfg) if gm.layers in _REP_LAYERS and keep(gm.kernel)]
+
+
+def _replicated_rows(torch, cs, tk, gemms, gen, rows, kernels, library, bounds):
+    """Times of K4 / K5 (`sfc_gemm_replicated`: one product's k_layers
+    copies, bf16, the GLU's in f32) at each of ``gemms`` into ``rows``, the
+    weights rotated past the L2, with the kernel and configuration each
+    launched, its bound (`RepGemm.bound`) and its library yardstick: one
+    `torch.matmul` over the K slabs (a (L, rows, K / L) view; the GLU's f32
+    copies `torch.bmm(..., out_dtype=torch.float32)`, none where this torch
+    lacks it)."""
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    by_kernel = getattr(tk.sfc_gemm_replicated, "launches_by_kernel", None)
+    for gm in gemms:
+        lead = (gm.batch,) if gm.batch else ()
+        kl, cdt = gm.layers, (torch.float32 if gm.glu else dt)
+        a = torch.randn((*lead, gm.m, gm.k), generator=gen, device=dev).to(dt)
+        copies = max(1, math.ceil(4 * cs.L2_BYTES / (gm.k * gm.n * 2)))
+        ws = [(torch.randn((gm.k, gm.n), generator=gen, device=dev) * 0.02).to(dt) for _ in range(copies)]
+        row = f"{gm.kernel} {gm.name}@L{kl}"
+        reps = max(20, copies)
+        rows[row] = cs.time_ms(lambda i: tk.sfc_gemm_replicated(a, ws[i % copies], k_layers=kl, out_dtype=cdt),
+                               reps=reps, graph=True)
+        bounds[row] = gm.bound()
+        # as chip_smoke.py's phase 2 times it: the batch folded into the
+        # rows for the GLU's bmm, (.., L, M, K / L) slabs for the matmul
+        a_sl = a.reshape(-1, kl, gm.k // kl).transpose(0, 1) if gm.glu else a.unflatten(-1, (kl, gm.k // kl)).movedim(
+            -2, -3)
+        w_sl = [w.view(kl, gm.k // kl, gm.n) for w in ws]
+        try:
+            library[row] = cs.time_ms(lambda i: torch.bmm(a_sl, w_sl[i % copies], out_dtype=torch.float32) if gm.glu
+                                      else torch.matmul(a_sl, w_sl[i % copies]), reps=reps, graph=True)
+        except (RuntimeError, NotImplementedError, TypeError):
+            library[row] = None
+        # a tree without the counter has one K4 / K5 kernel, the 64 x 64 tile kernel
+        kernels[row] = (cs.launched(by_kernel, lambda: tk.sfc_gemm_replicated(a, ws[0], k_layers=kl, out_dtype=cdt))[1]
+                        if by_kernel is not None else ("sfc_gemm_replicated_kernel", 1))
+        del a, ws, a_sl, w_sl
+        torch.cuda.empty_cache()
+
+
 def _update_rows(torch, cs, tk, gemms, gen, label, rows, kernels, library, bounds):
     """Times of the update mode (bf16, stochastic rounding) and the norm
     mode of K8 (`sfc_gemm_tn`) or K10 (`sfc_gemm_grouped_tn`) at each of
@@ -379,7 +432,7 @@ def main(argv=None) -> int:
     ap.add_argument("--order", default=None, help="comma-separated tree indices, one pass each")
     ap.add_argument("--base", type=int, default=1, help="the tree the others' times are divided by")
     ap.add_argument("--only", default=None, help="comma-separated row families to time (K1/K2, K14, K11, K12, "
-                                                  "K13, K7, K8, K3, K9, K10, host); all by default")
+                                                  "K13, K7, K8, K3, K9, K10, K4, K5, host); all by default")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     trees = [Path(t).resolve() for t in args.tree]
@@ -414,7 +467,7 @@ def main(argv=None) -> int:
     for i, ps in by_tree.items():
         own = sorted(set(ps[0]["ptxas"]) - set(shared))
         only[str(i)] = {n: ps[0]["ptxas"][n] for n in own}
-    # the library yardsticks and bounds of the K3 / K8 / K9 / K10 rows, every pass's
+    # the library yardsticks and bounds of the K3 / K4 / K5 / K8 / K9 / K10 rows, every pass's
     library = {row: {str(i): [p.get("library_ms", {}).get(row) for p in ps] for i, ps in by_tree.items()}
                for row in dict.fromkeys(r for _, p in passes for r in p.get("library_ms", {}))}
     bounds = next((p["bound_ms"] for _, p in passes if p.get("bound_ms")), {})

@@ -19,7 +19,10 @@ the flags, and loaded with ``ctypes``.  Two libraries:
   checksum lanes (``-DSFC_ABFT=1``), a twin of each forward part (K1/K2 and
   K3 with the lane) and, per input type, a TN part (K8 dW) and a TN-update
   part (K8's update and norm modes), each behind entries of its own, so the
-  parts without the lane keep their code; the bf16 forward parts and their
+  parts without the lane keep their code; the bf16 replicated part also
+  holds K4 at M <= ``SPLIT_MAX_ROWS`` on a cluster kernel and K5 (and K4
+  past those rows) on the wgmma main loop (``rep_entry_name("cluster" /
+  "wgmma", "bf16")``); the bf16 forward parts and their
   lane twins also hold the cluster kernel (K1 at M <= ``SPLIT_MAX_ROWS``)
   and the wgmma kernel (K2, and K1 past those rows, on TMA and wgmma; with
   the per-expert row array its grouped mode, K3), each behind entries of
@@ -170,10 +173,16 @@ def bwd_entry_name(kind: str, dtype_name: str, abft: bool = False) -> str:
 
 def rep_entry_name(kind: str, dtype_name: str) -> str:
     """C symbol of a replicated-form entry: ``kind`` is "gemm" (K4/K5, the
-    partial copies) or "add_reduce" (K6, their sum)."""
-    if kind not in ("gemm", "add_reduce"):
-        raise ValueError(f"unknown replicated-form kind {kind!r}")
-    return f"sfc_gemm_replicated_{dtype_name}" if kind == "gemm" else f"sfc_add_reduce_{dtype_name}"
+    partial copies, on the 64 x 64 tile kernel), "cluster" (K4 at M <=
+    ``SPLIT_MAX_ROWS`` on the cluster kernel, bf16 only), "wgmma" (K5, and
+    K4 past those rows, on the wgmma kernel, bf16 only) or "add_reduce"
+    (K6, their sum)."""
+    if kind not in ("gemm", "cluster", "wgmma", "add_reduce") or (
+            kind in ("cluster", "wgmma") and dtype_name != "bf16"):
+        raise ValueError(f"unknown replicated-form kind {kind!r} for {dtype_name}")
+    if kind == "add_reduce":
+        return f"sfc_add_reduce_{dtype_name}"
+    return f"sfc_gemm_replicated_{'' if kind == 'gemm' else kind + '_'}{dtype_name}"
 
 
 def attn_entry_name(kind: str, dtype_name: str, head_dim: int) -> str:
@@ -234,6 +243,8 @@ def _gemm_parts():
             "-DSFC_REP=1",
             f"-DSFC_REP_ENTRY={rep_entry_name('gemm', dt)}",
             f"-DSFC_ADD_REDUCE_ENTRY={rep_entry_name('add_reduce', dt)}",
+            *((f"-DSFC_REP_CLUSTER_ENTRY={rep_entry_name('cluster', dt)}",
+               f"-DSFC_REP_WGMMA_ENTRY={rep_entry_name('wgmma', dt)}") if dt == "bf16" else ()),
         )
 
 
@@ -360,6 +371,27 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
             ptr,  # cudaStream_t
         ]
         fn.restype = i32
+        if dt == "bf16":
+            fn = getattr(lib, rep_entry_name("cluster", dt))
+            fn.argtypes = [
+                ptr, ptr, ptr, i32,  # a, b, out, out_f32
+                ptr, i32,  # task table (3, n_tasks), n_tasks
+                i32, i32, i32,  # M, N, K
+                i32, i32, i32,  # slab (K rows a layer), split (CTAs a cluster), sub (K rows a CTA)
+                i32, i32,  # vec_a, vec_b
+                ptr,  # cudaStream_t
+            ]
+            fn.restype = i32
+            fn = getattr(lib, rep_entry_name("wgmma", dt))
+            fn.argtypes = [
+                ptr, ptr, ptr, i32,  # a, b, out, out_f32
+                ptr, i32, i32, i32,  # task table (3, tiles), tiles, batch, b_batched
+                i32, i32, i32,  # M (rows a batch element), N, K
+                i32, i32,  # k_layers, slab
+                i32, i32, i32,  # wide (the 128 x 256 tile), CTAs, CTAs a worker
+                ptr,  # cudaStream_t
+            ]
+            fn.restype = i32
         fn = getattr(lib, rep_entry_name("add_reduce", dt))
         fn.argtypes = [ptr, ptr, i32, i32, ctypes.c_longlong, i32, ptr]  # copies, out, L, batch, M*N, vec, stream
         fn.restype = i32

@@ -173,7 +173,23 @@
 // k/v's N = 1024 at L = 1, 128 at L = 8), at the price of L copies of C
 // written and read back by K6, which is bound by (L + 1) M N elements of
 // bytes.  At prefill (4 x 128 rows) the products are tensor-core bound and
-// the split only adds copies.
+// the split only adds copies.  The 64 x 64 tile kernel streamed each K
+// step with synchronous copies, one CTA a (tile, layer) task, which left
+// most SMs idle at decode (k/v: 16 CTAs) and the tensor cores idle at
+// prefill, so the bf16 replicated part holds two more kernels, each behind
+// an entry of its own, and sfc_gemm_replicated_kernel keeps f32 and the
+// rest:
+// sfc_gemm_replicated_cluster_kernel (-DSFC_REP_CLUSTER_ENTRY) takes K4 at
+//   a bf16 plain-mode A of at most 16 rows (every decode projection and
+//   the LM head): K1's cluster design, each (tile, layer) task a cluster of
+//   L' CTAs over sub-slabs of the layer's slab through the same split-K
+//   main loop and rank-order DSMEM sum (`split_mainloop`, `cluster_sum`,
+//   shared with the forward parts), so nb x k_layers x L' CTAs stream the
+//   weights; L' is the wrapper's (`replicated_cluster_split`).
+// sfc_gemm_replicated_wgmma_kernel (-DSFC_REP_WGMMA_ENTRY) takes the other
+//   bf16 calls whose rows TMA can describe and whose slab is a whole number
+//   of 64-wide steps (or all of K): K5's prefill and K4 past 16 rows, as
+//   the replicated mode of the wgmma body (sfc_gemm_wgmma.cuh, kind kRep).
 //
 // sfc_gemm_wgmma_kernel (K2, and K1 past the cluster kernel's 16 rows) and
 // nt_wgmma_kernel (K7), in sfc_gemm_wgmma.cuh, take every bf16 call whose
@@ -562,11 +578,191 @@ typedef bf16 ElemT;
 typedef float ElemT;
 #endif
 
+#if SFC_DTYPE == 1 && (defined(SFC_CLUSTER_ENTRY) || defined(SFC_REP_CLUSTER_ENTRY))
+
+// ---------------------------------------------------------------------------
+// Split-K across a thread-block cluster at M <= 16 rows: the main loop and
+// the reduction of K1's cluster kernel (the bf16 forward parts) and of K4's
+// (the bf16 replicated part), one code for both
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitRows = 16;  // A rows the cluster kernels take (build.py SPLIT_MAX_ROWS)
+constexpr int kMaxLayers = 8;   // CTAs (K slabs) a cluster, a portable cluster (build.py MAX_CLUSTER_LAYERS)
+
+// The ring of (A, B[, B_gate]) stages in dynamic shared memory; after the
+// main loop the f32 partial tiles of the two K halves (and their gates)
+// alias it.  Three GLU stages or four plain ones keep 3 or 4 CTAs an SM.
+template <bool GLU>
+struct SplitCfg {
+  static constexpr int BK = Cfg<bf16>::BK;
+  static constexpr int LDA = Cfg<bf16>::LDA;
+  static constexpr int LDB = Cfg<bf16>::LDB;
+  static constexpr int STAGES = GLU ? 3 : 4;
+  static constexpr int A_ELEMS = kSplitRows * LDA;
+  static constexpr int B_ELEMS = BK * LDB;
+  static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS * (GLU ? 2 : 1);
+  static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
+  static constexpr int C_FLOATS = kSplitRows * kLDC;  // one f32 partial tile
+  static constexpr int SETS = GLU ? 2 : 1;            // the tile, and the gate's
+  static constexpr int C_BYTES = 2 * SETS * C_FLOATS * 4;
+  static constexpr int BYTES = RING_BYTES > C_BYTES ? RING_BYTES : C_BYTES;
+};
+
+// K rows [k0, k0 + BK) clipped to k_hi and the tile's 64 columns clipped to
+// N of a (K, N) weight into a stage, zeros outside: 16-byte cp.async copies
+// when rows are whole vectors (vec_b), else element loads.
+__device__ __forceinline__ void split_stage_b(const Params& p, const bf16* B, int col0, int k0, int k_hi, bf16* Bs) {
+  constexpr int BK = SplitCfg<false>::BK, LDB = SplitCfg<false>::LDB;
+  if (p.vec_b) {
+    for (int i = threadIdx.x; i < BK * (kBN / 8); i += kThreads) {
+      const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
+      const bool in = k0 + r < k_hi && col0 + c < p.N;
+      cp_async16(Bs + r * LDB + c, in ? B + (size_t)(k0 + r) * p.N + col0 + c : B, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BK * kBN; i += kThreads) {
+      const int r = i / kBN, c = i % kBN;
+      const bool in = k0 + r < k_hi && col0 + c < p.N;
+      Bs[r * LDB + c] = in ? B[(size_t)(k0 + r) * p.N + col0 + c] : from_f32<bf16>(0.0f);
+    }
+  }
+}
+
+// One stage: the M rows of A over [k0, k0 + BK) (vec_a: 16-byte copies,
+// one a thread; the slab and K are whole vectors) and the weights' rows.
+template <bool GLU>
+__device__ __forceinline__ void split_issue(const Params& p, int col0, int k0, int k_hi, bf16* st) {
+  using C = SplitCfg<GLU>;
+  const bf16* A = static_cast<const bf16*>(p.a);
+  bf16* As = st;
+  if (p.vec_a) {
+    const int r = threadIdx.x / (C::BK / 8), c = (threadIdx.x % (C::BK / 8)) * 8;
+    if (r < p.M) {
+      const bool in = k0 + c < k_hi;
+      cp_async16(As + r * C::LDA + c, in ? A + (size_t)r * p.K + k0 + c : A, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < p.M * C::BK; i += kThreads) {
+      const int r = i / C::BK, c = i % C::BK;
+      As[r * C::LDA + c] = k0 + c < k_hi ? A[(size_t)r * p.K + k0 + c] : from_f32<bf16>(0.0f);
+    }
+  }
+  split_stage_b(p, static_cast<const bf16*>(p.b), col0, k0, k_hi, st + C::A_ELEMS);
+  if constexpr (GLU) split_stage_b(p, static_cast<const bf16*>(p.bg), col0, k0, k_hi, st + C::A_ELEMS + C::B_ELEMS);
+}
+
+// The CTA's product over K rows [k_lo, k_hi) into Cs (and Cs + C_FLOATS,
+// the gate), rows < M of a 16 x 64 f32 tile at row stride kLDC (A's rows
+// past M in the ring are never written: they reach only C rows past M,
+// which nothing reads).  Swap-AB on
+// the tensor cores: the weight tile is the 32-row operand (32 columns of C
+// by 16 of K, read col-major from its stage) and A the 8-column one (16 of
+// K by 8 rows of C), WMMA 32x8x16.  Warp w takes C columns 32 (w & 1) and
+// the k16 steps w >> 1, w >> 1 + 2 of each BK step; the two K halves'
+// tiles are added in order at the end.
+template <bool GLU>
+__device__ __forceinline__ void split_mainloop(const Params& p, int col0, int k_lo, int k_hi, unsigned char* smem,
+                                               float* Cs) {
+  using namespace nvcuda;
+  using C = SplitCfg<GLU>;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int warp = threadIdx.x / 32;
+  const int wn = warp & 1, kh = warp >> 1;
+  const int mt = (p.M + 7) / 8;  // 8-row slices of C that hold rows
+  wmma::fragment<wmma::accumulator, 32, 8, 16, float> acc[2], accg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    wmma::fill_fragment(acc[i], 0.0f);
+    if constexpr (GLU) wmma::fill_fragment(accg[i], 0.0f);
+  }
+  const int nsteps = k_hi > k_lo ? (k_hi - k_lo + C::BK - 1) / C::BK : 0;
+#pragma unroll
+  for (int st = 0; st < C::STAGES - 1; ++st) {
+    if (st < nsteps) split_issue<GLU>(p, col0, k_lo + st * C::BK, k_hi, ring + st * C::STAGE_ELEMS);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // step s has landed; every warp is done with step s - 1's stage
+    const int nxt = s + C::STAGES - 1;
+    if (nxt < nsteps) split_issue<GLU>(p, col0, k_lo + nxt * C::BK, k_hi, ring + (nxt % C::STAGES) * C::STAGE_ELEMS);
+    cp_async_commit();
+    const bf16* As = ring + (s % C::STAGES) * C::STAGE_ELEMS;
+    const bf16* Bs = As + C::A_ELEMS;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int kk = (kh + 2 * j) * 16;
+      wmma::fragment<wmma::matrix_a, 32, 8, 16, bf16, wmma::col_major> wa;
+      wmma::fragment<wmma::matrix_b, 32, 8, 16, bf16, wmma::col_major> xb[2];
+      wmma::load_matrix_sync(wa, Bs + kk * C::LDB + wn * 32, C::LDB);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (mi < mt) {
+          wmma::load_matrix_sync(xb[mi], As + mi * 8 * C::LDA + kk, C::LDA);
+          wmma::mma_sync(acc[mi], wa, xb[mi], acc[mi]);
+        }
+      }
+      if constexpr (GLU) {
+        wmma::load_matrix_sync(wa, Bs + C::B_ELEMS + kk * C::LDB + wn * 32, C::LDB);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if (mi < mt) wmma::mma_sync(accg[mi], wa, xb[mi], accg[mi]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the partial tiles alias the ring
+  float* half = Cs + kh * C::SETS * C::C_FLOATS;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    if (mi < mt) {
+      wmma::store_matrix_sync(half + mi * 8 * kLDC + wn * 32, acc[mi], kLDC, wmma::mem_col_major);
+      if constexpr (GLU) {
+        wmma::store_matrix_sync(half + C::C_FLOATS + mi * 8 * kLDC + wn * 32, accg[mi], kLDC, wmma::mem_col_major);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < C::SETS * p.M * kBN; i += kThreads) {
+    const int set = i / (p.M * kBN), e = i % (p.M * kBN);
+    float* c = Cs + set * C::C_FLOATS + (e / kBN) * kLDC + e % kBN;
+    *c += c[C::SETS * C::C_FLOATS];
+  }
+}
+
+// After split_mainloop: each of the cluster's `n` CTAs holds its f32
+// partial tile in Cs (rows < M, and the gate's for the GLU).  The leader
+// (rank 0) adds its peers' tiles, read through distributed shared memory,
+// in rank order (P_0 + P_1 + ... + P_{n-1}) into its own.  Returns whether
+// this CTA is the leader, which then holds the sum; the peers may exit.
+template <bool GLU>
+__device__ __forceinline__ bool cluster_sum(cooperative_groups::cluster_group& cluster, int n, int rank, int M,
+                                            float* Cs) {
+  using C = SplitCfg<GLU>;
+  cluster.sync();  // every rank's partial tile is in its CTA's shared memory
+  if (rank == 0) {
+    for (int i = threadIdx.x; i < C::SETS * M * kBN; i += kThreads) {
+      const int set = i / (M * kBN), e = i % (M * kBN);
+      const int off = set * C::C_FLOATS + (e / kBN) * kLDC + e % kBN;
+      float v = Cs[off];
+      for (int l = 1; l < n; ++l) v += cluster.map_shared_rank(Cs, l)[off];
+      Cs[off] = v;
+    }
+  }
+  cluster.sync();  // the leader has read every peer (they may exit) and holds the sum
+  return rank == 0;
+}
+
+#endif  // SFC_DTYPE == 1 && (SFC_CLUSTER_ENTRY || SFC_REP_CLUSTER_ENTRY)
+
 #if SFC_REP
 
 // K4/K5: one 64 x 64 tile of copy `layer` of batch element blockIdx.y.  The
 // table is (3, n_tasks): major (im), minor (in), layer.  Ragged edges are
-// masked by the main loop (M, N and the slab's end) and by the write.
+// masked by the main loop (M, N and the slab's end) and by the write.  It
+// keeps f32 and the bf16 calls that neither sfc_gemm_replicated_cluster_kernel
+// nor sfc_gemm_replicated_wgmma_kernel (below) takes.
 // At least 4 CTAs an SM (128 registers): a decode product split 8 ways
 // has 128-1216 short CTAs, and a fourth resident CTA takes a 512-CTA
 // launch (q) in one wave on 132 SMs.
@@ -601,6 +797,62 @@ __global__ void __launch_bounds__(kThreads, 4) sfc_gemm_replicated_kernel(const 
     if (gr < p.M && gc < p.N) out[(size_t)gr * p.N + gc] = from_f32<OutT>(Cs[r * kLDC + c]);
   }
 }
+
+#if SFC_DTYPE == 1 && defined(SFC_REP_CLUSTER_ENTRY)
+
+// K4 at a bf16 plain-mode A of at most 16 rows (the decode projections and
+// the LM head): task t of gemm_spec(1, nb, k_layers)'s (3, n_tasks) table,
+// a 64-column tile of copy l, is a cluster of `split` CTAs, CTA r (its
+// rank) the sub-slab [l * slab + r * sub, l * slab + (r + 1) * sub) of
+// layer l's slab, clipped to the slab and to K, through K1's split-K main
+// loop; the leader adds the f32 partials in rank order (`cluster_sum`) and
+// writes the tile of copy l once, in OutT (bf16, or f32: the unfused GLU's
+// copies).  4 CTAs an SM (the 45 KB ring, 128 registers).
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 4)
+    sfc_gemm_replicated_cluster_kernel(const Params p, const int slab, const int sub) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(128) unsigned char split_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int t = blockIdx.x / split;
+  const int col0 = __ldg(p.tab + p.n_tasks + t) * kBN;  // one row block: the major row is 0
+  const int layer = __ldg(p.tab + 2 * p.n_tasks + t);
+  const long long s_lo = (long long)layer * slab;
+  const long long s_hi = min(s_lo + slab, (long long)p.K);  // a layer past K: s_hi = K <= s_lo, no step
+  const int k_lo = (int)min(s_lo + (long long)rank * sub, s_hi);
+  const int k_hi = (int)min((long long)k_lo + sub, s_hi);
+  float* Cs = reinterpret_cast<float*>(split_smem);
+  split_mainloop<false>(p, col0, k_lo, k_hi, split_smem, Cs);
+  if (!cluster_sum<false>(cluster, split, rank, p.M, Cs)) return;
+  OutT* out = static_cast<OutT*>(p.out) + (long long)layer * p.M * p.N;
+  for (int i = threadIdx.x; i < p.M * kBN; i += kThreads) {
+    const int r = i / kBN, c = i % kBN;
+    if (col0 + c < p.N) out[(size_t)r * p.N + col0 + c] = from_f32<OutT>(Cs[r * kLDC + c]);
+  }
+}
+
+#endif  // SFC_DTYPE == 1 && SFC_REP_CLUSTER_ENTRY
+
+#if SFC_DTYPE == 1 && defined(SFC_REP_WGMMA_ENTRY)
+
+// K5 (and K4 past 16 rows) on wgmma and TMA: the replicated mode of the
+// wgmma body (sfc_gemm_wgmma.cuh, kind kRep), persistent CTAs over curve
+// segments of the (batch element, layer, C tile) tasks; F32 writes f32
+// copies (the unfused GLU's), else bf16.
+#include "sfc_gemm_wgmma.cuh"
+
+template <int BN, bool F32>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    sfc_gemm_replicated_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                                     const __grid_constant__ CUtensorMap tm_a2,
+                                     const __grid_constant__ CUtensorMap tm_b2, const wg::Params p,
+                                     const wg::RepOut<F32> r) {
+  wg::body<wg::kRep, false, 0, false, BN, wg::RepOut<F32>>(tm_a, tm_b, tm_a2, tm_b2, p, r);
+}
+
+#endif  // SFC_DTYPE == 1 && SFC_REP_WGMMA_ENTRY
 
 constexpr int kReduceThreads = 256;
 
@@ -890,159 +1142,14 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 #if SFC_DTYPE == 1 && defined(SFC_CLUSTER_ENTRY)
 
 // ---------------------------------------------------------------------------
-// K1 at M <= 16 rows: split-K across a thread-block cluster (bf16 parts)
+// K1 at M <= 16 rows: split-K across a thread-block cluster (bf16 parts;
+// the main loop and the reduction are the shared section's, above)
 // ---------------------------------------------------------------------------
-
-constexpr int kSplitRows = 16;  // A rows the cluster kernel takes (build.py SPLIT_MAX_ROWS)
-constexpr int kMaxLayers = 8;   // CTAs (K layers) a cluster, a portable cluster (build.py MAX_CLUSTER_LAYERS)
-
-// The ring of (A, B[, B_gate]) stages in dynamic shared memory; after the
-// main loop the f32 partial tiles of the two K halves (and their gates)
-// alias it.  Three GLU stages or four plain ones keep 3 or 4 CTAs an SM.
-template <bool GLU>
-struct SplitCfg {
-  static constexpr int BK = Cfg<bf16>::BK;
-  static constexpr int LDA = Cfg<bf16>::LDA;
-  static constexpr int LDB = Cfg<bf16>::LDB;
-  static constexpr int STAGES = GLU ? 3 : 4;
-  static constexpr int A_ELEMS = kSplitRows * LDA;
-  static constexpr int B_ELEMS = BK * LDB;
-  static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS * (GLU ? 2 : 1);
-  static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
-  static constexpr int C_FLOATS = kSplitRows * kLDC;  // one f32 partial tile
-  static constexpr int SETS = GLU ? 2 : 1;            // the tile, and the gate's
-  static constexpr int C_BYTES = 2 * SETS * C_FLOATS * 4;
-  static constexpr int BYTES = RING_BYTES > C_BYTES ? RING_BYTES : C_BYTES;
-};
-
-// K rows [k0, k0 + BK) clipped to k_hi and the tile's 64 columns clipped to
-// N of a (K, N) weight into a stage, zeros outside: 16-byte cp.async copies
-// when rows are whole vectors (vec_b), else element loads.
-__device__ __forceinline__ void split_stage_b(const Params& p, const bf16* B, int col0, int k0, int k_hi, bf16* Bs) {
-  constexpr int BK = SplitCfg<false>::BK, LDB = SplitCfg<false>::LDB;
-  if (p.vec_b) {
-    for (int i = threadIdx.x; i < BK * (kBN / 8); i += kThreads) {
-      const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
-      const bool in = k0 + r < k_hi && col0 + c < p.N;
-      cp_async16(Bs + r * LDB + c, in ? B + (size_t)(k0 + r) * p.N + col0 + c : B, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < BK * kBN; i += kThreads) {
-      const int r = i / kBN, c = i % kBN;
-      const bool in = k0 + r < k_hi && col0 + c < p.N;
-      Bs[r * LDB + c] = in ? B[(size_t)(k0 + r) * p.N + col0 + c] : from_f32<bf16>(0.0f);
-    }
-  }
-}
-
-// One stage: the M rows of A over [k0, k0 + BK) (vec_a: 16-byte copies,
-// one a thread; the slab and K are whole vectors) and the weights' rows.
-template <bool GLU>
-__device__ __forceinline__ void split_issue(const Params& p, int col0, int k0, int k_hi, bf16* st) {
-  using C = SplitCfg<GLU>;
-  const bf16* A = static_cast<const bf16*>(p.a);
-  bf16* As = st;
-  if (p.vec_a) {
-    const int r = threadIdx.x / (C::BK / 8), c = (threadIdx.x % (C::BK / 8)) * 8;
-    if (r < p.M) {
-      const bool in = k0 + c < k_hi;
-      cp_async16(As + r * C::LDA + c, in ? A + (size_t)r * p.K + k0 + c : A, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < p.M * C::BK; i += kThreads) {
-      const int r = i / C::BK, c = i % C::BK;
-      As[r * C::LDA + c] = k0 + c < k_hi ? A[(size_t)r * p.K + k0 + c] : from_f32<bf16>(0.0f);
-    }
-  }
-  split_stage_b(p, static_cast<const bf16*>(p.b), col0, k0, k_hi, st + C::A_ELEMS);
-  if constexpr (GLU) split_stage_b(p, static_cast<const bf16*>(p.bg), col0, k0, k_hi, st + C::A_ELEMS + C::B_ELEMS);
-}
-
-// The CTA's product over K rows [k_lo, k_hi) into Cs (and Cs + C_FLOATS,
-// the gate), rows < M of a 16 x 64 f32 tile at row stride kLDC (A's rows
-// past M in the ring are never written: they reach only C rows past M,
-// which nothing reads).  Swap-AB on
-// the tensor cores: the weight tile is the 32-row operand (32 columns of C
-// by 16 of K, read col-major from its stage) and A the 8-column one (16 of
-// K by 8 rows of C), WMMA 32x8x16.  Warp w takes C columns 32 (w & 1) and
-// the k16 steps w >> 1, w >> 1 + 2 of each BK step; the two K halves'
-// tiles are added in order at the end.
-template <bool GLU>
-__device__ __forceinline__ void split_mainloop(const Params& p, int col0, int k_lo, int k_hi, unsigned char* smem,
-                                               float* Cs) {
-  using namespace nvcuda;
-  using C = SplitCfg<GLU>;
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x / 32;
-  const int wn = warp & 1, kh = warp >> 1;
-  const int mt = (p.M + 7) / 8;  // 8-row slices of C that hold rows
-  wmma::fragment<wmma::accumulator, 32, 8, 16, float> acc[2], accg[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    wmma::fill_fragment(acc[i], 0.0f);
-    if constexpr (GLU) wmma::fill_fragment(accg[i], 0.0f);
-  }
-  const int nsteps = k_hi > k_lo ? (k_hi - k_lo + C::BK - 1) / C::BK : 0;
-#pragma unroll
-  for (int st = 0; st < C::STAGES - 1; ++st) {
-    if (st < nsteps) split_issue<GLU>(p, col0, k_lo + st * C::BK, k_hi, ring + st * C::STAGE_ELEMS);
-    cp_async_commit();
-  }
-  for (int s = 0; s < nsteps; ++s) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();  // step s has landed; every warp is done with step s - 1's stage
-    const int nxt = s + C::STAGES - 1;
-    if (nxt < nsteps) split_issue<GLU>(p, col0, k_lo + nxt * C::BK, k_hi, ring + (nxt % C::STAGES) * C::STAGE_ELEMS);
-    cp_async_commit();
-    const bf16* As = ring + (s % C::STAGES) * C::STAGE_ELEMS;
-    const bf16* Bs = As + C::A_ELEMS;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int kk = (kh + 2 * j) * 16;
-      wmma::fragment<wmma::matrix_a, 32, 8, 16, bf16, wmma::col_major> wa;
-      wmma::fragment<wmma::matrix_b, 32, 8, 16, bf16, wmma::col_major> xb[2];
-      wmma::load_matrix_sync(wa, Bs + kk * C::LDB + wn * 32, C::LDB);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        if (mi < mt) {
-          wmma::load_matrix_sync(xb[mi], As + mi * 8 * C::LDA + kk, C::LDA);
-          wmma::mma_sync(acc[mi], wa, xb[mi], acc[mi]);
-        }
-      }
-      if constexpr (GLU) {
-        wmma::load_matrix_sync(wa, Bs + C::B_ELEMS + kk * C::LDB + wn * 32, C::LDB);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          if (mi < mt) wmma::mma_sync(accg[mi], wa, xb[mi], accg[mi]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the partial tiles alias the ring
-  float* half = Cs + kh * C::SETS * C::C_FLOATS;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    if (mi < mt) {
-      wmma::store_matrix_sync(half + mi * 8 * kLDC + wn * 32, acc[mi], kLDC, wmma::mem_col_major);
-      if constexpr (GLU) {
-        wmma::store_matrix_sync(half + C::C_FLOATS + mi * 8 * kLDC + wn * 32, accg[mi], kLDC, wmma::mem_col_major);
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < C::SETS * p.M * kBN; i += kThreads) {
-    const int set = i / (p.M * kBN), e = i % (p.M * kBN);
-    float* c = Cs + set * C::C_FLOATS + (e / kBN) * kLDC + e % kBN;
-    *c += c[C::SETS * C::C_FLOATS];
-  }
-}
 
 // One C tile of a plain-mode product with M <= 16 rows: the cluster of
 // `layers` CTAs of task blockIdx.x / layers, CTA l (its rank) running the
-// K slab [l * slab, (l + 1) * slab) clipped to K.  After cluster.sync()
-// the leader adds its peers' f32 tiles, read through distributed shared
-// memory, in layer order (P_0 + P_1 + ... + P_{L-1}), then flushes the
+// K slab [l * slab, (l + 1) * slab) clipped to K.  The leader adds its
+// peers' f32 tiles in layer order (`cluster_sum`), then flushes the
 // epilogue once; ABFT: the lane sums that raw tile before the epilogue.
 template <bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT, bool ABFT>
 __device__ __forceinline__ void cluster_tile(const Params& p, int slab, float* chk) {
@@ -1058,18 +1165,7 @@ __device__ __forceinline__ void cluster_tile(const Params& p, int slab, float* c
   const int k_hi = (int)min((long long)k_lo + slab, (long long)p.K);
   float* Cs = reinterpret_cast<float*>(split_smem);
   split_mainloop<GLU>(p, col0, k_lo, k_hi, split_smem, Cs);
-  cluster.sync();  // every layer's partial tile is in its CTA's shared memory
-  if (layer == 0) {
-    for (int i = threadIdx.x; i < C::SETS * p.M * kBN; i += kThreads) {
-      const int set = i / (p.M * kBN), e = i % (p.M * kBN);
-      const int off = set * C::C_FLOATS + (e / kBN) * kLDC + e % kBN;
-      float v = Cs[off];
-      for (int l = 1; l < layers; ++l) v += cluster.map_shared_rank(Cs, l)[off];
-      Cs[off] = v;
-    }
-  }
-  cluster.sync();  // the leader has read every peer (they may exit) and holds the sum
-  if (layer != 0) return;
+  if (!cluster_sum<GLU>(cluster, layers, layer, p.M, Cs)) return;
   fused_flush<bf16, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, p.M, Cs, Cs + C::C_FLOATS, 0, col0, 0, 0);
   if constexpr (ABFT) tile_checksum<GLU>(Cs, Cs + C::C_FLOATS, p.M, p.N, 0, col0, chk + t);
 }
@@ -2208,6 +2304,99 @@ extern "C" int SFC_REP_ENTRY(const void* a, const void* b, void* out, int out_f3
     sfc_gemm_replicated_kernel<ElemT, ElemT><<<grid, kThreads, 0, s>>>(p, k_layers, k_slab);
   return (int)cudaGetLastError();
 }
+
+#if SFC_DTYPE == 1 && defined(SFC_REP_CLUSTER_ENTRY)
+// K4 on the cluster kernel: out (k_layers, M, N) copies of a (M, K) @ b
+// (K, N), M <= 16, bf16 (out_f32: f32 copies).  tab is gemm_spec(1, nb,
+// k_layers)'s (3, n_tasks) table; each task a cluster of `split` CTAs over
+// sub-slabs of `sub` rows of its layer's slab.  vec_a also needs slab and
+// sub multiples of 8.  Returns the launch's CUDA error.
+extern "C" int SFC_REP_CLUSTER_ENTRY(const void* a, const void* b, void* out, int out_f32, const int* tab,
+                                     int n_tasks, int M, int N, int K, int slab, int split, int sub, int vec_a,
+                                     int vec_b, void* stream) {
+  if (M < 1 || M > kSplitRows || split < 1 || split > kMaxLayers || slab < 1 || sub < 1 || n_tasks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (vec_a && (slab % 8 != 0 || sub % 8 != 0)) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.a = a;
+  p.b = b;
+  p.out = out;
+  p.tab = tab;
+  p.n_tasks = n_tasks;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.vec_a = vec_a;
+  p.vec_b = vec_b;
+  const auto kernel = out_f32 ? &sfc_gemm_replicated_cluster_kernel<float> : &sfc_gemm_replicated_cluster_kernel<bf16>;
+  constexpr size_t bytes = SplitCfg<false>::BYTES;
+  static bool opted_in[2][kMaxDevices] = {};
+  const int rc = opt_in(kernel, bytes, opted_in[out_f32 ? 1 : 0]);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_tasks * split));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p, slab, sub);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+#endif  // SFC_DTYPE == 1 && SFC_REP_CLUSTER_ENTRY
+
+#if SFC_DTYPE == 1 && defined(SFC_REP_WGMMA_ENTRY)
+// K5 (and K4 past 16 rows) on the wgmma kernel: out (batch, k_layers, M,
+// N) copies of a (batch, M, K) @ b, b (K, N) shared or, b_batched, (batch,
+// K, N); bf16 inputs, out_f32 f32 copies.  tab is gemm_spec(mb, nb,
+// k_layers)'s (3, tiles) table at 128-row blocks, 128 x 128 or with `wide`
+// 128 x 256 C tiles; `ctas` persistent CTAs in workers of `group`.  K and
+// N multiples of 8 and a, b 16-byte aligned, as TMA needs; slab a
+// multiple of 64 or at least K.  Returns the launch's CUDA error.
+extern "C" int SFC_REP_WGMMA_ENTRY(const void* a, const void* b, void* out, int out_f32, const int* tab, int tiles,
+                                   int batch, int b_batched, int M, int N, int K, int k_layers, int slab, int wide,
+                                   int ctas, int group, void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || N < 1 || K < 1 || N % 8 != 0 || K % 8 != 0 || batch < 1 || tiles < 1 || k_layers < 1) return kInvalid;
+  if (slab < 1 || (slab % wg::kBK != 0 && slab < K)) return kInvalid;
+  if (!wg::aligned16(a) || !wg::aligned16(b)) return kInvalid;
+  wg::Params p = {};
+  p.tab = tab;
+  p.tiles = tiles;
+  p.n_tasks = batch * tiles;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.b_batched = b_batched;
+  p.pairs = 1;
+  p.group = group;
+  p.pair_store = 1;
+  p.out = static_cast<bf16*>(out);
+  CUtensorMap ma, mb;
+  int rc = wg::tensor_map(&ma, a, K, M, batch, wg::kBM);
+  if (rc == 0) rc = wg::tensor_map(&mb, b, N, K, b_batched ? batch : 1, wg::kBK);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool opted[4][kMaxDevices] = {};  // narrow, wide; bf16, f32 copies
+  constexpr int kNarrow = wg::kBN, kWide = 2 * wg::kBN;
+  if (wide && out_f32)
+    return wg::launch<kWide, wg::kRep>(&sfc_gemm_replicated_wgmma_kernel<kWide, true>, opted[3], ctas, s, ma, mb, ma,
+                                       mb, p, wg::RepOut<true>{slab, k_layers});
+  if (wide)
+    return wg::launch<kWide, wg::kRep>(&sfc_gemm_replicated_wgmma_kernel<kWide, false>, opted[1], ctas, s, ma, mb, ma,
+                                       mb, p, wg::RepOut<false>{slab, k_layers});
+  if (out_f32)
+    return wg::launch<kNarrow, wg::kRep>(&sfc_gemm_replicated_wgmma_kernel<kNarrow, true>, opted[2], ctas, s, ma, mb,
+                                         ma, mb, p, wg::RepOut<true>{slab, k_layers});
+  return wg::launch<kNarrow, wg::kRep>(&sfc_gemm_replicated_wgmma_kernel<kNarrow, false>, opted[0], ctas, s, ma, mb,
+                                       ma, mb, p, wg::RepOut<false>{slab, k_layers});
+}
+#endif  // SFC_DTYPE == 1 && SFC_REP_WGMMA_ENTRY
 
 // K6: out (batch, mn) = the f32 sum over l of copies (batch, layers, mn),
 // cast to the copies' type; vec asks for 16-byte vectors (mn a multiple of

@@ -104,6 +104,21 @@
 // once for 2 x rows flops a weight, so the weight bytes do; a stage's
 // products (2 x 128 x 64 x 64 x 2 flops a CTA) take less time than its
 // 8-16 KB of weights take to arrive at the CTA's share of 3.35 TB/s.
+//
+// Replicated (kind kRep; sfc_gemm_replicated_wgmma_kernel in the bf16
+// -DSFC_REP=1 part): replaces `repro/kernels/sfc_gemm.py::sfc_gemm_batched`
+// (`_sfc_gemm_batched_kernel`, K5) and `sfc_gemm_pallas` (K4) past 16 rows:
+// copy l of batch element b is A[b][:, slab l] @ B[slab l, :], the raw f32
+// accumulator written once in bf16 or f32, with no epilogue.  The task
+// table is gemm_spec(mb, nb, k_layers)'s at 128-row blocks (layer-major,
+// gilbert within a layer), batch element by batch element, walked as the
+// forward's in contiguous segments; the producer's K coordinate starts at
+// the task's layer x slab and runs that slab's steps (`rep_task_slab`).  A
+// slab that is not a whole number of 64-wide steps would read the next
+// layer's rows into its last stage: the wrapper routes such slabs to the
+// tile kernel, so no stage is zeroed.  What bounds it: at 4 x 128 prefill
+// rows the products are tensor-core bound as K2's; split over k_layers
+// slabs it adds the copies' bytes (L x rows x N written).
 
 #pragma once
 
@@ -125,7 +140,7 @@ constexpr int kLaneSlots = kConsumers / 32;  // ABFT partials a task, one a cons
 constexpr int kTileBytesA = kBM * kBK * 2;  // 16 KB
 constexpr int kBoxBytes = kBox * kBK * 2;   // one 64 x 64 bf16 TMA box, 8 KB
 
-enum Kind { kFwd = 0, kNt = 1, kTn = 2 };
+enum Kind { kFwd = 0, kNt = 1, kTn = 2, kRep = 3 };
 
 // TN's flush buffer, 72 KB: 128 rows of 144 f32, one set's 128 x 128
 // tile or both sets' 128 x 64 (bf16 dW: both sets' 128 x 128), each row
@@ -213,6 +228,29 @@ __device__ __forceinline__ void tn_task_rows(const Params& p, int b, int& start,
   steps = (depth + kBK - 1) / kBK;
 }
 
+// kRep's launch argument, after Params (as TN's flush is, so Params and
+// the other kinds' code stay as they were): the copies' slab and count,
+// and their type, F32 (the unfused GLU's copies) or bf16.
+template <bool F32>
+struct RepOut {
+  static constexpr bool kF32 = F32;
+  int slab;      // K rows a layer: a whole number of kBK steps or all of K
+  int k_layers;  // copies a batch element
+};
+
+// kRep: task t (of batch element b) is a tile of copy l, l row 2 of the
+// (3, tiles) table; it contracts K rows [l * slab, min((l + 1) * slab, K)),
+// from `start` in `steps` steps (none for a layer past K).  The wrapper
+// takes this kind only where a slab is a whole number of kBK steps or all
+// of K, so a stage never reads the next layer's rows: past K TMA fills
+// zeros.
+__device__ __forceinline__ void rep_task_slab(const Params& p, int slab, int t, int b, int& start, int& steps) {
+  const int layer = __ldg(p.tab + 2 * p.tiles + (t - b * p.tiles));
+  start = layer * slab;
+  const int depth = min(p.K - start, slab);
+  steps = depth > 0 ? (depth + kBK - 1) / kBK : 0;
+}
+
 // Two adjacent outputs (gr, gc), (gr, gc + 1) from their raw accumulators
 // v (and the GLU's gate g): the arithmetic of fused_flush in its order and
 // one cast (NT: the cast only), the bias rows at vec_off; masked at the
@@ -262,6 +300,31 @@ __device__ __forceinline__ void flush_pair(const Params& p, long long c_off, int
     if (GLU && p.out_gate) {
       p.out_gate[o] = __float2bfloat16(yg[0]);
       if (two) p.out_gate[o + 1] = __float2bfloat16(yg[1]);
+    }
+  }
+}
+
+// kRep's flush: the raw accumulator of task t (batch element b), no
+// epilogue, into its tile of copy l at (b * k_layers + l) * M * N of the
+// (B, L, M, N) output, a pair of adjacent columns a store (N is a multiple
+// of 8, so a pair inside the output is whole), masked at the ragged edge.
+template <bool F32, int ACC>
+__device__ __forceinline__ void rep_flush(const Params& p, int k_layers, const float (&acc)[ACC], int t, int b,
+                                          int row0, int col0, int wgi, int tw) {
+  const int lane_id = tw % 32;
+  const int layer = __ldg(p.tab + 2 * p.tiles + (t - b * p.tiles));
+  const size_t c_off = (static_cast<size_t>(b) * k_layers + layer) * p.M * p.N;
+  const int r0 = row0 + wgi * 64 + (tw / 32) * 16 + lane_id / 4;
+  const int c0 = col0 + 2 * (lane_id % 4);
+#pragma unroll
+  for (int q = 0; q < ACC / 2; ++q) {
+    const int gr = r0 + 8 * (q & 1), gc = c0 + 8 * (q >> 1);
+    if (gr >= p.M || gc >= p.N) continue;
+    const size_t o = c_off + static_cast<size_t>(gr) * p.N + gc;
+    if constexpr (F32) {
+      *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.out) + o) = make_float2(acc[2 * q], acc[2 * q + 1]);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(p.out + o) = __floats2bfloat162_rn(acc[2 * q], acc[2 * q + 1]);
     }
   }
 }
@@ -316,18 +379,20 @@ __device__ __forceinline__ void zero_stage_rows(unsigned char* stage, int keep) 
 // The forward and NT kinds flush in the body.
 struct NoFlush {};
 
-// The whole kernel: KIND the forward, the NT dA product or the TN dW
-// product; GLU the forward's dual-B form (TN: the dual form, dC beside
-// dC2); BN the B columns a stage (128 or 256); GROUPED the forward's and
-// NT's grouped mode (K3, K9).  Maps: the forward's A, B, (unused), B_gate;
-// NT's A, B, A2, B2; TN's A, dC, (unused), dC2.  TN's flush is `fl(acc,
-// t, b, row0, col0, wgi, tw, red, stg)` (sfc_gemm_fused.cu), stg its
-// flush buffer.
+// The whole kernel: KIND the forward, the NT dA product, the TN dW product
+// or the replicated copies (kRep); GLU the forward's dual-B form (TN: the
+// dual form, dC beside dC2); BN the B columns a stage (128 or 256);
+// GROUPED the forward's and NT's grouped mode (K3, K9).  Maps: the
+// forward's (and kRep's) A, B, (unused), B_gate (kRep: unused); NT's A, B,
+// A2, B2; TN's A, dC, (unused), dC2.  TN's flush is `fl(acc, t, b, row0,
+// col0, wgi, tw, red, stg)` (sfc_gemm_fused.cu), stg its flush buffer;
+// kRep's `Flush` is RepOut, the copies' slab, count and type (`rep_flush`).
 template <int KIND, bool GLU, int ACT, bool ABFT, int BN, class Flush = NoFlush, bool GROUPED = false>
 __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap& tm_b, const CUtensorMap& tm_a2,
                                      const CUtensorMap& tm_b2, const Params& p, const Flush& fl = Flush()) {
-  constexpr bool NT = KIND == kNt, TN_KIND = KIND == kTn;
+  constexpr bool NT = KIND == kNt, TN_KIND = KIND == kTn, REP = KIND == kRep;
   static_assert(!(NT && (GLU || ABFT)), "NT has neither the GLU form nor the lane");
+  static_assert(!(REP && (GLU || ABFT || GROUPED)), "the replicated copies are single products with no lane");
   static_assert(!(TN_KIND && ABFT), "TN's lane is its flush's");
   static_assert(!(TN_KIND && GROUPED), "K10's grouped mode is TN's own (p.grp, tn_task_rows)");
   static_assert(BN == kBN || BN == 2 * kBN, "the narrow or the wide tile");
@@ -371,6 +436,7 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
           int depth;
           tn_task_rows(p, b, start, depth, steps);
         }
+        if constexpr (REP) rep_task_slab(p, fl.slab, t, b, start, steps);
         // B's batch coordinate: the batch element's or (grouped) the expert's
         // weights; A's: the batch element's, or 0 for the packed rows
         const int bb = GROUPED || p.b_batched ? b : 0;
@@ -380,7 +446,7 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
             unsigned char* st = ring + stage * STAGE_BYTES;
             unsigned char* sb = st + kTileBytesA;
             mbar_expect_tx(&full[stage], STAGE_BYTES);
-            const int k0 = s * kBK;
+            const int k0 = (REP ? start : 0) + s * kBK;  // kRep: from the layer's slab
             if constexpr (TN_KIND) {
               // A: C's rows [row0, row0 + 128) over the stage's token rows, as stored
               tma_load(st, &tm_a, &full[stage], row0, start + k0, 0);
@@ -427,6 +493,10 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
       int start;
       tn_task_rows(p, b, start, depth, steps);
     }
+    if constexpr (REP) {
+      int start;
+      rep_task_slab(p, fl.slab, t, b, start, steps);
+    }
 #pragma unroll
     for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
     int prev = -1;  // the stage whose products may still be in flight
@@ -470,6 +540,10 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
     if (prev >= 0) mbar_arrive(&empty[prev]);
     if constexpr (TN_KIND) {
       fl(acc, t, b, row0, col0, wgi, tw, red, ring + STAGES * STAGE_BYTES + 256);
+      continue;
+    }
+    if constexpr (REP) {
+      rep_flush<Flush::kF32>(p, fl.k_layers, acc, t, b, row0, col0, wgi, tw);
       continue;
     }
 

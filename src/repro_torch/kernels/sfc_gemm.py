@@ -47,10 +47,12 @@ wrappers: ``sfc_gemm_replicated`` writes the (K_layers, M, N) partial
 copies of A (M, K) @ B, or (B, K_layers, M, N) for a batched A, copy ``l``
 the product over layer ``l``'s K slab (the JAX package's: K padded to a
 multiple of ``k_layers * k_block_factor`` and split evenly, clipped here
-instead of padded), one CTA per (tile, layer) task of
-``gemm_spec(mb, nb, k_layers)``'s table, so the layers run as split-K
-across the SMs; ``add_reduce`` sums the copies in f32 and casts them back
-to their type.  Neither has an epilogue.
+instead of padded), over the tasks of ``gemm_spec(mb, nb, k_layers)``'s
+table, so the layers run as split-K across the SMs (bf16 at decode: each
+task a cluster of CTAs over sub-slabs of its slab, K1's cluster design;
+bf16 past 16 rows: the wgmma kernel's persistent CTAs over curve
+segments); ``add_reduce`` sums the copies in f32 and casts them back to
+their type.  Neither has an epilogue.
 
 The grouped wrappers run the MoE expert GEMMs in one launch each:
 ``sfc_gemm_grouped`` (K3, the forward with the same epilogue and preact
@@ -100,6 +102,9 @@ __all__ = [
     "layer_slab",
     "cluster_layers",
     "uses_cluster_kernel",
+    "replicated_cluster_split",
+    "uses_replicated_wgmma_kernel",
+    "replicated_wgmma_launch",
     "WgmmaLaunch",
     "wgmma_grid",
     "wgmma_launch",
@@ -373,13 +378,29 @@ def cluster_layers(k: int, n: int, sm_count: int) -> int:
     would be under 256 K rows.  Past one and a half CTAs an SM a deeper
     split adds cluster and reduction cost and takes no more bytes at once
     (`scripts/split_sweep.py`).  The kernel's launch configuration: the
-    plain version's sum order is still ``k_layers``'s."""
+    plain version's sum order is still ``k_layers``'s.  The rule of
+    `replicated_cluster_split` for one layer."""
+    return replicated_cluster_split(k, n, 1, sm_count)
+
+
+def replicated_cluster_split(k: int, n: int, k_layers: int, sm_count: int, k_block_factor: int = 1) -> int:
+    """L', the CTAs a cluster of the replicated cluster kernel (K4 at M <=
+    16) for the ``k_layers`` copies of an (M, k) @ (k, n) product: each
+    (C tile, layer) task is a cluster of L' CTAs, one a sub-slab of
+    ``layer_slab(slab, L')`` rows of the layer's slab (``layer_slab(k,
+    k_layers, k_block_factor)``).  `cluster_layers`' rule over the task
+    count: the smallest power of two with nb * k_layers * L' >= 1.5 x
+    ``sm_count`` CTAs, at most ``build.MAX_CLUSTER_LAYERS``, and no more
+    once a sub-slab would be under 256 K rows.  At k_layers 1 it is
+    `cluster_layers`; at qwen3-4b's decode shapes and k_layers 8 it is 1.
+    A pure function of the shape, the split and the SM count, not a knob."""
     nb = math.ceil(n / build.TILE[1])
-    layers = 1
-    while (layers < build.MAX_CLUSTER_LAYERS and 2 * nb * layers < 3 * sm_count
-           and layer_slab(k, 2 * layers) >= _MIN_SLAB):
-        layers *= 2
-    return layers
+    slab = layer_slab(k, k_layers, k_block_factor)
+    split = 1
+    while (split < build.MAX_CLUSTER_LAYERS and 2 * nb * k_layers * split < 3 * sm_count
+           and layer_slab(slab, 2 * split) >= _MIN_SLAB):
+        split *= 2
+    return split
 
 
 def uses_cluster_kernel(a: torch.Tensor) -> bool:
@@ -489,6 +510,33 @@ def uses_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, b_gate: Optional[torch.T
     if a.dtype != torch.bfloat16 or uses_cluster_kernel(a):
         return False
     return _tma_rows(a.shape[-1], a) and _tma_rows(b.shape[-1], b, b_gate)
+
+
+def uses_replicated_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, k_layers: int = 1,
+                                 k_block_factor: int = 1) -> bool:
+    """Whether `sfc_gemm_replicated` launches the replicated wgmma kernel
+    (K5, and K4 past 16 rows) on the card: bf16, every A that the cluster
+    kernel does not take (`uses_cluster_kernel`: batched, or more than
+    ``build.SPLIT_MAX_ROWS`` rows), rows TMA can describe (K and N multiples
+    of 8, A and B 16-byte aligned), and a slab (`layer_slab`) that is a
+    whole number of ``build.WGMMA_BK``-row steps or all of K, so that no
+    stage reads the next layer's rows (past K, TMA fills zeros).  The other
+    calls with a cluster-kernel A take the cluster kernel; the rest (f32,
+    ragged rows or slabs) the 64 x 64 tile kernel."""
+    k = a.shape[-1]
+    slab = layer_slab(k, k_layers, k_block_factor)
+    return uses_wgmma_kernel(a, b) and (slab % build.WGMMA_BK == 0 or slab >= k)
+
+
+def replicated_wgmma_launch(batch: int, m: int, n: int, k_layers: int, sm_count: int) -> WgmmaLaunch:
+    """The launch configuration of the replicated wgmma kernel for the
+    ``k_layers`` copies of ``batch`` (0: the plain mode) x ``m`` x ``n``
+    outputs: `_wgmma_cost_rule` over max(batch, 1) x k_layers x mb x nb
+    tasks (mb = ceil(m / 128) row blocks of one batch element), workers of
+    at most mb CTAs.  The table is gemm_spec(mb, nb, k_layers)'s for one
+    batch element.  A pure function of the shape and the SM count."""
+    mb = wgmma_grid(m, n)[0]
+    return _wgmma_cost_rule(mb, n, sm_count, False, max(batch, 1) * k_layers, mb)
 
 
 def uses_nt_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, a2: Optional[torch.Tensor] = None,
@@ -761,6 +809,7 @@ def sfc_gemm_replicated_plain(
     k_layers: int = 1,
     k_block_factor: int = 1,
     out_dtype: Optional[torch.dtype] = None,
+    split: int = 1,
 ) -> torch.Tensor:
     """The plain version of the replicated kernel, on any device.
 
@@ -768,23 +817,32 @@ def sfc_gemm_replicated_plain(
     (layer-major, gilbert within a layer): for each (im, in, layer) it sums
     the layer's ``k_block_factor`` K chunks in f32, in order (the TPU grid's
     innermost axis), and writes that tile of copy ``layer`` in
-    ``out_dtype``.  Edge tiles and chunks are clipped to the matrix.
-    Returns (k_layers, M, N), or (B, k_layers, M, N) for a batched ``a``."""
+    ``out_dtype``.  With ``split`` > 1 it sums instead the layer's
+    ``split`` sub-slabs of ``layer_slab(slab, split)`` rows in order, each
+    one f32 product: the cluster kernel's order at its L'
+    (`replicated_cluster_split`).  Edge tiles and chunks are clipped to the
+    matrix.  Returns (k_layers, M, N), or (B, k_layers, M, N) for a batched
+    ``a``."""
     batch, m, k, n, b_batched = _rep_shape(a, b, k_layers, k_block_factor)
-    if bm < 1 or bn < 1:
-        raise ValueError(f"bad knobs bm={bm} bn={bn}")
+    if bm < 1 or bn < 1 or split < 1:
+        raise ValueError(f"bad knobs bm={bm} bn={bn} split={split}")
     a3 = a if a.ndim == 3 else a[None]
     b3 = b if b_batched else b[None]
     out = torch.zeros((a3.shape[0], k_layers, m, n), dtype=out_dtype or a.dtype, device=a.device)
     if m and n:
         chunks = _k_chunks(k, k_layers * k_block_factor)
+        slab = layer_slab(k, k_layers, k_block_factor)
+        sub = layer_slab(slab, split)
         tab = compile_schedule(gemm_spec(math.ceil(m / bm), math.ceil(n / bn), k_layers)).table
         for im, in_, layer in zip(*(row.tolist() for row in tab[:3])):
             rs = slice(im * bm, min((im + 1) * bm, m))
             cs = slice(in_ * bn, min((in_ + 1) * bn, n))
             acc = torch.zeros((a3.shape[0], rs.stop - rs.start, cs.stop - cs.start), dtype=torch.float32,
                               device=a.device)
-            for ks in chunks[layer * k_block_factor:(layer + 1) * k_block_factor]:
+            s_lo, s_hi = min(layer * slab, k), min((layer + 1) * slab, k)
+            parts = (chunks[layer * k_block_factor:(layer + 1) * k_block_factor] if split == 1 else
+                     [slice(min(s_lo + r * sub, s_hi), min(s_lo + (r + 1) * sub, s_hi)) for r in range(split)])
+            for ks in parts:
                 acc += a3[:, rs, ks].float() @ b3[:, ks, cs].float()
             out[:, layer, rs, cs] = acc.to(out.dtype)
     return out if a.ndim == 3 else out[0]
@@ -815,12 +873,24 @@ def sfc_gemm_replicated(
     ``a`` (M, K) gives (k_layers, M, N); ``a`` (B, M, K) against ``b`` (K,
     N) shared or (B, K, N) per element gives (B, k_layers, M, N).
     ``out_dtype`` is the input type or float32 (the unfused GLU's copies).
-    On a CUDA tensor this launches the kernel, one CTA per (tile, layer)
-    task, ``bm``/``bn`` the compiled tile; ``k_block_factor`` only sets the
-    slab (the kernel runs one K loop over it).  Every launch adds one to
-    ``sfc_gemm_replicated.launches`` and to ``launches_by_shape`` under
-    ``(batch, M, K, N, k_layers)``, batch 0 for the plain mode.  On a CPU
-    tensor it runs `sfc_gemm_replicated_plain` and counts nothing."""
+    On a CUDA tensor this launches a kernel, ``bm``/``bn`` the tile
+    kernel's compiled tile: a bf16 plain-mode A of at most 16 rows
+    (`uses_cluster_kernel`: the decode projections and the LM head) the
+    cluster kernel, each (tile, layer) task a cluster of
+    `replicated_cluster_split` CTAs over sub-slabs of its slab, summed in
+    order inside the launch; every other bf16 call whose rows TMA can
+    describe and whose slab is whole (`uses_replicated_wgmma_kernel`: the
+    prefill) the wgmma kernel, persistent CTAs over contiguous segments of
+    the (batch element, layer, tile) tasks, its tile from
+    `replicated_wgmma_launch`; the rest (f32, ragged rows or slabs) the 64
+    x 64 tile kernel, one CTA per (tile, layer) task.  ``k_block_factor``
+    only sets the slab (each kernel runs one K loop over it).  Every launch
+    adds one to ``sfc_gemm_replicated.launches``, to ``launches_by_shape``
+    under ``(batch, M, K, N, k_layers)``, batch 0 for the plain mode, and
+    to ``launches_by_kernel`` under ("sfc_gemm_replicated_cluster_kernel",
+    L'), ("sfc_gemm_replicated_wgmma_kernel", its C tile, e.g. "128x128")
+    or ("sfc_gemm_replicated_kernel", 1).  On a CPU tensor it runs
+    `sfc_gemm_replicated_plain` and counts nothing."""
     batch, m, k, n, b_batched = _rep_shape(a, b, k_layers, k_block_factor)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
@@ -838,31 +908,61 @@ def sfc_gemm_replicated(
     if out.numel() == 0 or k == 0:
         return out.zero_()
     slab = layer_slab(k, k_layers, k_block_factor)
+    out_f32 = int(out_dtype == torch.float32 and a.dtype != torch.float32)
     lib = build.load_library()
-    fn = getattr(lib, build.rep_entry_name("gemm", _dtype_name(a)))
-    mb, nb = math.ceil(m / bm), math.ceil(n / bn)
-    tab = _device_layer_table(mb, nb, k_layers, a.device)
-    vec = 16 // a.element_size()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), int(out_dtype == torch.float32 and a.dtype != torch.float32),
-            tab.data_ptr(), mb * nb * k_layers, max(batch, 1),
-            m, n, k,
-            m * k, k * n if b_batched else 0,
-            k_layers, slab,
-            int(_rows_vec(k, a) and slab % vec == 0), int(_rows_vec(n, b)),
-            stream,
-        )
+        if uses_cluster_kernel(a):
+            split = replicated_cluster_split(k, n, k_layers, sm_count(a.device), k_block_factor)
+            sub = layer_slab(slab, split)
+            nb = math.ceil(n / build.TILE[1])
+            tab = _device_layer_table(1, nb, k_layers, a.device)
+            kernel = ("sfc_gemm_replicated_cluster_kernel", split)
+            rc = getattr(lib, build.rep_entry_name("cluster", "bf16"))(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), out_f32,
+                tab.data_ptr(), nb * k_layers,
+                m, n, k,
+                slab, split, sub,
+                int(_rows_vec(k, a) and slab % 8 == 0 and sub % 8 == 0), int(_rows_vec(n, b)),
+                stream,
+            )
+        elif uses_replicated_wgmma_kernel(a, b, k_layers, k_block_factor):
+            cfg = replicated_wgmma_launch(batch, m, n, k_layers, sm_count(a.device))
+            tab = _device_layer_table(cfg.mb, cfg.nb, k_layers, a.device)
+            kernel = ("sfc_gemm_replicated_wgmma_kernel", _tile_name(cfg, False))
+            rc = getattr(lib, build.rep_entry_name("wgmma", "bf16"))(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), out_f32,
+                tab.data_ptr(), cfg.mb * cfg.nb * k_layers, max(batch, 1), int(b_batched),
+                m, n, k,
+                k_layers, slab,
+                int(cfg.wide), cfg.ctas, cfg.group,
+                stream,
+            )
+        else:
+            mb, nb = math.ceil(m / bm), math.ceil(n / bn)
+            tab = _device_layer_table(mb, nb, k_layers, a.device)
+            vec = 16 // a.element_size()
+            kernel = ("sfc_gemm_replicated_kernel", 1)
+            rc = getattr(lib, build.rep_entry_name("gemm", _dtype_name(a)))(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), out_f32,
+                tab.data_ptr(), mb * nb * k_layers, max(batch, 1),
+                m, n, k,
+                m * k, k * n if b_batched else 0,
+                k_layers, slab,
+                int(_rows_vec(k, a) and slab % vec == 0), int(_rows_vec(n, b)),
+                stream,
+            )
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_replicated kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"sfc_gemm_replicated {kernel[0]} launch failed with CUDA error {rc}")
     sfc_gemm_replicated.launches += 1
     sfc_gemm_replicated.launches_by_shape[(batch, m, k, n, k_layers)] += 1
+    sfc_gemm_replicated.launches_by_kernel[kernel] += 1
     return out
 
 
 sfc_gemm_replicated.launches = 0
 sfc_gemm_replicated.launches_by_shape = collections.Counter()
+sfc_gemm_replicated.launches_by_kernel = collections.Counter()
 
 
 def _check_copies(copies: torch.Tensor) -> None:

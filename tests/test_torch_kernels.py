@@ -470,12 +470,104 @@ def test_replicated_kernels_reject_what_they_do_not_take():
         tk.sfc_gemm_replicated(a.bfloat16(), b.bfloat16(), out_dtype=torch.float16)
     with pytest.raises(ValueError, match="compiled for"):
         tk.sfc_gemm_replicated(a, b, bm=32, bn=32)
+    # the cluster and wgmma routes check the tile knobs as the tile kernel does
+    for x in (a.bfloat16(), torch.ones(2, 40, 8, device="cuda").bfloat16()):
+        with pytest.raises(ValueError, match="compiled for"):
+            tk.sfc_gemm_replicated(x, b.bfloat16(), bm=32, bn=32)
     with pytest.raises(ValueError, match="contiguous"):
         tk.sfc_gemm_replicated(a, torch.ones(8, 8, device="cuda").T)
     with pytest.raises(ValueError, match="contiguous"):
         tk.add_reduce(torch.ones(2, 8, 4, device="cuda").transpose(1, 2))
     with pytest.raises(TypeError):
         tk.add_reduce(torch.ones(2, 4, 8, device="cuda").half())
+
+
+# K4 / K5 on their routes: (lead, M, K, N, per-batch B, knobs) -> the
+# kernel a bf16 call launches.  M 1 / 4 / 16 take the cluster kernel (K 203
+# and 2056: ragged slabs, element loads; N 133 ragged), M 17 / 130 and the
+# batched calls the wgmma kernel (N 328: boxes past the edge; kbf 4 keeps a
+# whole slab); a slab that is not a whole number of 64-row steps the tile
+# kernel.
+REP_ROUTE_CASES = {
+    "m1_ragged": ((), 1, 2056, 133, False, dict()),
+    "m4_k203_kbf4": ((), 4, 203, 133, False, dict(k_block_factor=4)),
+    "m4_qwen_kv": ((), 4, 2560, 1024, False, dict()),
+    "m16_ragged": ((), 16, 1000, 328, False, dict()),
+    "m17": ((), 17, 512, 328, False, dict()),
+    "m130": ((), 130, 512, 328, False, dict()),
+    "batched_ragged_n": ((3,), 77, 512, 328, False, dict()),
+    "per_batch_weights": ((3,), 77, 512, 328, True, dict()),
+    "batched_kbf4": ((2,), 40, 1024, 136, False, dict(k_block_factor=4)),
+    "batched_slab_not_whole": ((2,), 40, 264, 136, False, dict()),
+}
+
+
+def _rep_route(a, b, k_layers, kbf=1):
+    """(kernel, config) the wrapper launches for these operands, and the
+    plain version's split that follows it."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if tk.uses_cluster_kernel(a):
+        split = tk.replicated_cluster_split(a.shape[1], b.shape[-1], k_layers, sms, kbf)
+        return ("sfc_gemm_replicated_cluster_kernel", split), split
+    if tk.uses_replicated_wgmma_kernel(a, b, k_layers, kbf):
+        cfg = tk.replicated_wgmma_launch(a.shape[0] if a.ndim == 3 else 0, a.shape[-2], b.shape[-1], k_layers, sms)
+        return ("sfc_gemm_replicated_wgmma_kernel", tk._tile_name(cfg, False)), 1
+    return ("sfc_gemm_replicated_kernel", 1), 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copies", ["bf16", "f32"])
+@pytest.mark.parametrize("k_layers", [1, 2, 8])
+@pytest.mark.parametrize("case", sorted(REP_ROUTE_CASES))
+def test_replicated_routes_match_plain_versions_on_card(case, k_layers, copies):
+    """Each bf16 route of K4 / K5 (the cluster kernel at M <= 16, the wgmma
+    kernel past 16 rows and batched, the tile kernel for a ragged slab)
+    against the plain version over the same split, in bf16 and f32
+    copies; one launch a call, counted under its kernel and configuration."""
+    _card()
+    lead, m, k, n, per_batch, knobs = REP_ROUTE_CASES[case]
+    rng = np.random.default_rng(31)
+    a = torch.from_numpy(rng.standard_normal((*lead, m, k)).astype(np.float32)).to("cuda", torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal(((lead[0],) if per_batch else ()) + (k, n)) * 0.05)
+                         .astype(np.float32)).to("cuda", torch.bfloat16)
+    kw = dict(knobs, k_layers=k_layers, out_dtype=torch.float32 if copies == "f32" else None)
+    want_kernel, split = _rep_route(a, w, k_layers, knobs.get("k_block_factor", 1))
+    assert (want_kernel[0] == "sfc_gemm_replicated_cluster_kernel") == (m <= build.SPLIT_MAX_ROWS and not lead)
+    if case == "batched_slab_not_whole":
+        assert want_kernel[0] == "sfc_gemm_replicated_kernel" or k_layers == 1
+    before = (tk.sfc_gemm_replicated.launches, tk.sfc_gemm_replicated.launches_by_kernel[want_kernel])
+    got = tk.sfc_gemm_replicated(a, w, **kw)
+    torch.cuda.synchronize()
+    assert (tk.sfc_gemm_replicated.launches, tk.sfc_gemm_replicated.launches_by_kernel[want_kernel]) == (
+        before[0] + 1, before[1] + 1)
+    want = tk.sfc_gemm_replicated_plain(a, w, bm=64, bn=64, split=split, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _agree(got, want, got.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_layers", [2, 4])
+@pytest.mark.parametrize("lead,m,k,n", [((), 4, 2560, 1024), ((), 1, 2056, 133), ((), 130, 512, 328),
+                                        ((4,), 128, 1024, 1024)])
+def test_the_next_slab_never_reaches_a_copy_on_card(lead, m, k, n, k_layers):
+    """With the K rows of layer 1's slab all NaN in A and B, every other
+    copy is finite and the plain version's, and copy 1 is NaN: no stage
+    of the cluster or the wgmma kernel reads past its slab."""
+    _card()
+    rng = np.random.default_rng(32)
+    a = torch.from_numpy(rng.standard_normal((*lead, m, k)).astype(np.float32)).to("cuda", torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(np.float32)).to("cuda", torch.bfloat16)
+    slab = tk.layer_slab(k, k_layers)
+    a[..., slab:2 * slab] = float("nan")
+    w[slab:2 * slab] = float("nan")
+    (kernel, _), split = _rep_route(a, w, k_layers)
+    assert kernel != "sfc_gemm_replicated_kernel"
+    got = tk.sfc_gemm_replicated(a, w, k_layers=k_layers)
+    torch.cuda.synchronize()
+    want = tk.sfc_gemm_replicated_plain(a, w, bm=64, bn=64, k_layers=k_layers, split=split)
+    others = [layer for layer in range(k_layers) if layer != 1]
+    assert _agree(got[..., others, :, :], want[..., others, :, :], torch.bfloat16)
+    assert bool(torch.isnan(got[..., 1, :, :].float()).all())
 
 
 def _state(rng, k, n, dtype):
@@ -1501,9 +1593,10 @@ def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
     """The wgmma kernels keep no counter or queue on the device (each CTA's
     segment comes from its index): a captured graph of the forward (wide
     GLU, narrow tile with its lane), the dual NT and their grouped modes
-    (K3's GLU with its lane over ragged experts, K9's dual), replayed three
-    times, gives the eager outputs bitwise every time, and the launch
-    counters count the capture only."""
+    (K3's GLU with its lane over ragged experts, K9's dual), and the
+    replicated copies (K5 on the wgmma kernel, K4 on the cluster kernel, f32
+    copies), replayed three times, gives the eager outputs bitwise every
+    time, and the launch counters count the capture only."""
     _card()
     gen = torch.Generator(device="cuda").manual_seed(24)
     a = torch.randn((4, 128, 2560), generator=gen, device="cuda").bfloat16()
@@ -1519,7 +1612,8 @@ def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
         return (tk.sfc_gemm_fused(a, w, wg, activation="silu"), tk.sfc_gemm_fused(a, wkv, abft=True),
                 tk.sfc_gemm_nt(dc, w, dc, wg), tk.sfc_gemm_grouped(xe, we, wge, activation="silu", group_sizes=gs,
                                                                    abft=True),
-                tk.sfc_gemm_grouped_nt(dce, we, dce, wge, group_sizes=gs))
+                tk.sfc_gemm_grouped_nt(dce, we, dce, wge, group_sizes=gs), tk.sfc_gemm_replicated(a, wkv, k_layers=2),
+                tk.sfc_gemm_replicated(a[0, :4], wkv, k_layers=2, out_dtype=torch.float32))
 
     eager = step()
     side = torch.cuda.Stream()
@@ -1530,14 +1624,17 @@ def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = step()
-    fns = (tk.sfc_gemm_fused, tk.sfc_gemm_nt, tk.sfc_gemm_grouped, tk.sfc_gemm_grouped_nt)
+    fns = (tk.sfc_gemm_fused, tk.sfc_gemm_nt, tk.sfc_gemm_grouped, tk.sfc_gemm_grouped_nt, tk.sfc_gemm_replicated)
     counts = [(f.launches, dict(f.launches_by_kernel)) for f in fns]
     assert counts[2][1].get(("sfc_gemm_grouped_wgmma_kernel", "128x64"), 0) >= 3
     assert sum(n for (name, _), n in counts[3][1].items() if name == "grouped_nt_wgmma_kernel") >= 3
+    for name in ("sfc_gemm_replicated_wgmma_kernel", "sfc_gemm_replicated_cluster_kernel"):
+        assert sum(n for (kernel, _), n in counts[4][1].items() if kernel == name) >= 3
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out[0], eager[0]) and torch.equal(out[2], eager[2]) and torch.equal(out[4], eager[4])
+        assert torch.equal(out[5], eager[5]) and torch.equal(out[6], eager[6])
         assert all(torch.equal(x, y) for x, y in zip(out[1], eager[1]))
         assert all(torch.equal(x, y) for x, y in zip(out[3], eager[3]))
     assert [(f.launches, dict(f.launches_by_kernel)) for f in fns] == counts

@@ -363,3 +363,57 @@ def test_kernel_counts_split_k3_and_k9_from_their_tile_kernels():
                "sfc_gemm_grouped_nt": fn({("grouped_nt_wgmma_kernel", "128x256"): 16})}
     assert cs._kernel_counts(counted) == {"sfc_gemm_grouped:wgmma": 19, "sfc_gemm_grouped:tile": 2,
                                           "sfc_gemm_grouped_nt:wgmma": 16, "sfc_gemm_grouped_nt:tile": 0}
+
+
+# profiler keys (demangled) of the replicated serve's kernels -> group
+_REP_PROFILE_KEYS = {
+    "void (anonymous namespace)::sfc_gemm_replicated_cluster_kernel<__nv_bfloat16>((anonymous namespace)::Params, "
+    "int, int)": "K4/K5",
+    "void (anonymous namespace)::sfc_gemm_replicated_wgmma_kernel<128, true>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "CUtensorMap, wg::Params)": "K4/K5",
+    "void (anonymous namespace)::sfc_gemm_replicated_kernel<__nv_bfloat16, float>((anonymous namespace)::Params, "
+    "int, int)": "K4/K5",
+    "void (anonymous namespace)::add_reduce_kernel<__nv_bfloat16>(__nv_bfloat16 const*, __nv_bfloat16*, int, "
+    "long long, long long, int)": "K6",
+    "void (anonymous namespace)::sfc_gemm_cluster_kernel<false, 0, false, false, false, false, false>("
+    "(anonymous namespace)::Params, int)": "K1 cluster",
+    "void (anonymous namespace)::sfc_gemm_wgmma_kernel<false, 0, 128>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "CUtensorMap, wg::Params)": "K2 wgmma",
+}
+
+
+@pytest.mark.parametrize("key", sorted(_REP_PROFILE_KEYS))
+def test_a_decode_profile_files_every_replicated_kernel_under_k4_k5(key):
+    """`profile_decode`'s groups, matched as it matches them (the first
+    fragment in a key): K4 / K5's cluster, wgmma and tile kernels are
+    "K4/K5", and K1's cluster and K2's wgmma kernels keep their groups."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    assert next(lab for frag, lab in cs._SERVE_KERNEL_GROUPS if frag in key) == _REP_PROFILE_KEYS[key]
+
+
+def test_replicated_routes_and_splits_of_the_smoke_run():
+    """phase 2's K4 rows take the cluster kernel and sum the plain version
+    over its L'; K5's the wgmma kernel, one sum a layer."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    assert cs.REP_ROUTES == {"K4": "sfc_gemm_replicated_cluster_kernel", "K5": "sfc_gemm_replicated_wgmma_kernel"}
+    assert cs.rep_split("sfc_gemm_replicated_cluster_kernel", 4) == 4
+    assert cs.rep_split("sfc_gemm_replicated_wgmma_kernel", "128x128") == 1
+    assert cs.rep_split("sfc_gemm_replicated_kernel", 1) == 1
+    assert cs.kernel_source("sfc_gemm_replicated_wgmma_kernel") == cs.WGMMA_SOURCE
+    assert cs.kernel_source("sfc_gemm_replicated_cluster_kernel") == cs.GEMM_SOURCE
+
+
+def test_the_ab_scripts_k4_k5_rows_are_the_serves_products_at_both_splits():
+    """`dense_kernel_ab.replicated_ab_gemms`: every K4 (decode and the LM
+    head) and K5 (prefill) product of the "replicated" serve at k_layers 1
+    and 8, and `--only` keeps one family."""
+    ab = _load(ROOT / "scripts" / "dense_kernel_ab.py", "dense_kernel_ab")
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    cfg = get_config("qwen3_4b")
+    rows = ab.replicated_ab_gemms(cs, cfg)
+    assert len(rows) == 2 * (5 + 5 + 1) and {g.layers for g in rows} == {1, 8}
+    assert {g.name for g in rows if g.kernel == "K4"} == {f"decode/{n}" for n in ("q", "k,v", "o", "mlp_glu",
+                                                                                    "mlp_out")} | {"head"}
+    assert all(g.kernel == "K5" and g.m == cs.PROMPT for g in rows if g.name.startswith("prefill/"))
+    assert all(g.k % g.layers == 0 for g in rows)  # the library's K-slab views
+    assert {g.kernel for g in ab.replicated_ab_gemms(cs, cfg, lambda family: family == "K5")} == {"K5"}
