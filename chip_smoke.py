@@ -41,7 +41,9 @@ phase 3 three) and raising on failure:
               K1/K2 row names the kernel it launched and its L;
               the band flash forward (K11) at the prefill and training shapes
               and at 1 x 2000 with q_offset 0 and 48; the dense flash forward
-              (K15); the decode attention (K14, batch x Hkv clusters of S CTAs,
+              (K15); each K11 / K15 row (bf16) on the wgmma kernel with the
+              W (q heads of one kv head a CTA) of `fwd_wgmma_grid`, named
+              with it; the decode attention (K14, batch x Hkv clusters of S CTAs,
               one a cache segment; its plain version over the same S
               segments) at the serve's cache and at a 4096-row cache; the
               flash backward (K12 dQ, K13 dK/dV) at the training shape and
@@ -99,7 +101,8 @@ phase 3 three) and raising on failure:
               prompt 128, 16 new tokens, five times: sfc_cuda GEMMs with
               blockwise attention (exactly 217 x 16 GEMM launches), sfc_cuda
               GEMMs with attn_impl="sfc" (exactly 3,472 GEMM, 36 K11 and 540
-              K14 launches), the "replicated" backend (exactly 252 K5 and
+              K14 launches, every K11 one on the wgmma kernel), the
+              "replicated" backend (exactly 252 K5 and
               3,796 K4 launches, every K5 on the wgmma kernel and every K4
               on the cluster kernel, no K6 and no K1/K2: k_layers is 1 at
               every shape), the same with every product split over 8 K
@@ -112,7 +115,9 @@ phase 3 three) and raising on failure:
               residual / tolerance; and one serve step (prefill and one
               decode step) on "replicated" split over 8 K layers under
               "detect" (the op-level K4/K5 + K6 checks).  A prefill
-              under attn_impl="flash_pallas" must launch K15 36 times.  One
+              under attn_impl="flash_pallas" must launch K15 36 times, on the
+              wgmma kernel; the f32 prefills of "sfc" and "flash_pallas"
+              launch K11 and K15 36 times each on the tile kernel.  One
               decode step of sfc_cuda, both replicated serves and torch is
               profiled (device busy time, idle share, GEMM kernel time).  The
               prefill logits of the same weights in f32 must agree with the
@@ -123,7 +128,7 @@ phase 3 three) and raising on failure:
               layers, bf16, AdamW on f32 master weights) for 3 steps of
               2 x 256 SyntheticLM tokens under sfc_cuda + attn_impl="sfc",
               with exactly 217 K1/K2, 217 K7, 217 K8, 36 K11, 36 K12 and 36
-              K13 launches per step (every K12 and K13 one on the wgmma
+              K13 launches per step (every K11, K12 and K13 one on the wgmma
               kernels; the f32 gradient check's on the tile kernels), then
               the same 3 steps from the same
               init under torch + blockwise: every loss finite and within
@@ -150,7 +155,8 @@ phase 3 three) and raising on failure:
               requests, prompt 128, 16 new tokens: sfc_cuda GEMMs with
               blockwise attention and with attn_impl="sfc" (exactly 512 K3
               launches, all on the grouped wgmma kernel, and 1,296 K1/K2;
-              16 K11 and 240 K14 with "sfc"), and the torch backend; the
+              16 K11, all on the wgmma kernel at W 1, and 240 K14 with
+              "sfc"), and the torch backend; the
               f32 prefill logits of the same weights cut to 4 layers within
               the bf16 bound of the torch backend's (its 32 K3 launches on
               the tile kernel);
@@ -175,8 +181,8 @@ phase 3 three) and raising on failure:
 9. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound (K1/K2 and K4/K5 rows: the kernel
-              launched and its K layers, L' or tile; K14 rows: the
-              segments); the lane rows (K1/K2, K3, K8 dW, update, norm
+              launched and its K layers, L' or tile; K11 / K15 rows: the
+              kernel and its W; K14 rows: the segments); the lane rows (K1/K2, K3, K8 dW, update, norm
               with the lane) carry the launches of the ABFT
               run of their path, the time with the lane off, the operand
               reference's time and the partials their bound adds; before
@@ -534,6 +540,7 @@ def phase_attention(torch, cases, tsa, tfa, build):
     gen = torch.Generator(device=dev).manual_seed(4)
     dt = torch.bfloat16
     qc, kc = tsa.kernel_chunks()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, checks = [], []
     for c in cases:
         r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa: E731
@@ -545,7 +552,7 @@ def phase_attention(torch, cases, tsa, tfa, build):
             valid = torch.tensor(c.valid, dtype=torch.int32, device=dev)
             mask = (torch.arange(c.t, device=dev)[None, :] < valid[:, None])[:, None, None, :]
 
-            splits = tsa.decode_splits(c.b, c.hkv, c.t, torch.cuda.get_device_properties(dev).multi_processor_count)
+            splits = tsa.decode_splits(c.b, c.hkv, c.t, sms)
 
             def kernel(i):
                 return tsa.sfc_decode_attention(*ins[i % copies], valid)
@@ -578,8 +585,15 @@ def phase_attention(torch, cases, tsa, tfa, build):
             got, launched_splits = launched(tsa.sfc_decode_attention.launches_by_splits, lambda: kernel(0))
             if launched_splits != splits:
                 raise AssertionError(f"decode launched {launched_splits} segments, its plain version {splits}")
+            route = None
         else:
-            got = kernel(0)
+            # every bf16 K11 / K15 row on the wgmma kernel, with the W of
+            # `fwd_wgmma_grid` (q heads of one kv head a CTA) on this card
+            wrapper = tsa.sfc_flash_fwd if c.kernel == "sfc_flash_fwd" else tfa.flash_attention
+            got, route = launched(wrapper.launches_by_kernel, lambda: kernel(0))
+            want_route = ("flash_fwd_wgmma_kernel", tsa.fwd_wgmma_grid(c.b, c.s, c.t, c.h, c.hkv, sms)[1])
+            if route != want_route:
+                raise AssertionError(f"{c.kernel} at {c} launched {route}, expected {want_route}")
         want = plain(0)
         torch.cuda.synchronize()
         if c.kernel == "sfc_flash_fwd":
@@ -589,7 +603,8 @@ def phase_attention(torch, cases, tsa, tfa, build):
             ok_lse, err_lse, worst_lse = True, 0.0, 0.0
         ok, err, worst = within(got, want, dt)
         checks.append({"case": f"{c.kernel}:{c.name}", "shape": c.shape(), "ok": ok and ok_lse, "max_abs_err": err,
-                       "err_over_bound": worst, "lse_max_abs_err": err_lse, "lse_err_over_bound": worst_lse})
+                       "err_over_bound": worst, "lse_max_abs_err": err_lse, "lse_err_over_bound": worst_lse,
+                       **({"kernel": route[0], "config": route[1]} if route else {})})
         if not (ok and ok_lse):
             raise AssertionError(f"{c.kernel} disagrees with its plain version at {c}: max err {err} "
                                  f"(err/bound {worst}), lse max err {err_lse} (err/bound {worst_lse})")
@@ -599,7 +614,8 @@ def phase_attention(torch, cases, tsa, tfa, build):
         plain_ms = time_ms(plain, reps=2, warmup=1)
         bound_ms, bound_by = c.bound(2)
         rows.append(dict(case=c, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, **({"splits": splits} if c.decode else {})))
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         **({"splits": splits} if c.decode else {"kernel": route[0], "config": route[1]})))
         del ins, views
     return rows, checks
 
@@ -1294,17 +1310,18 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     K7, K8, K11, K12, K13; for olmoe also K3, K9 and K10) against the torch
     backend with blockwise attention, within the bf16 bound; every
     projection weight (the router and the expert stacks included) must get
-    a non-zero gradient; the flash backward and K3 / K9 launch their 64 x
-    64 tile kernels only (f32)."""
+    a non-zero gradient; the flash forward and backward and K3 / K9 launch
+    their 64 x 64 tile kernels only (f32)."""
     from repro_torch.kernels import sfc_attention as tsa
     from repro_torch.kernels import sfc_gemm as tk
 
     cfg4 = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32")
     model = build_model(cfg4, device="cuda").init(torch.Generator(device="cuda").manual_seed(7))
     losses, grads = {}, {}
-    # the f32 cut's flash backward and (MoE) K3 / K9: every launch on the
-    # 64 x 64 tile kernels
-    bwd_before = [collections.Counter(f.launches_by_kernel) for f in (tsa.sfc_flash_bwd_dq, tsa.sfc_flash_bwd_dkv)]
+    # the f32 cut's flash forward and backward and (MoE) K3 / K9: every
+    # launch on the 64 x 64 tile kernels
+    flash_fns = (tsa.sfc_flash_fwd, tsa.sfc_flash_bwd_dq, tsa.sfc_flash_bwd_dkv)
+    bwd_before = [collections.Counter(f.launches_by_kernel) for f in flash_fns]
     grouped_fns = (tk.sfc_gemm_grouped, tk.sfc_gemm_grouped_nt)
     grouped_before = [collections.Counter(f.launches_by_kernel) for f in grouped_fns]
     for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
@@ -1320,9 +1337,10 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     if missing:
         raise AssertionError(f"projection weights without a gradient under sfc_cuda: {missing}")
     bwd_kernels = [by_kernel(collections.Counter(f.launches_by_kernel) - before)
-                   for f, before in zip((tsa.sfc_flash_bwd_dq, tsa.sfc_flash_bwd_dkv), bwd_before)]
-    if bwd_kernels != [{"flash_bwd_dq_kernel": layers}, {"flash_bwd_dkv_kernel": layers}]:
-        raise AssertionError(f"the f32 cut's flash backward launched {bwd_kernels}, expected the tile kernels")
+                   for f, before in zip(flash_fns, bwd_before)]
+    if bwd_kernels != [{"flash_fwd_kernel": layers}, {"flash_bwd_dq_kernel": layers}, {"flash_bwd_dkv_kernel": layers}]:
+        raise AssertionError(f"the f32 cut's flash forward and backward launched {bwd_kernels}, expected the tile "
+                             "kernels")
     grouped_kernels = [by_kernel(collections.Counter(f.launches_by_kernel) - before)
                        for f, before in zip(grouped_fns, grouped_before)]
     tiles_only = [set(k) == ({"sfc_gemm_grouped_kernel"}, {"grouped_nt_kernel"})[i] if cfg.n_experts else not k
@@ -1333,7 +1351,7 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     per_param = {n: within(g, grads["torch"][n], torch.bfloat16) for n, g in grads["sfc_cuda+sfc_attn"].items()}
     bad = {n: r for n, r in per_param.items() if not r[0]}
     out = {"arch": cfg.name, "layers": layers, "dtype": "float32", "tokens": list(batch["tokens"].shape),
-           "flash_bwd_launches_by_kernel": bwd_kernels, "grouped_launches_by_kernel": grouped_kernels,
+           "flash_launches_by_kernel": bwd_kernels, "grouped_launches_by_kernel": grouped_kernels,
            "loss": {"sfc_cuda+sfc_attn": float(losses["sfc_cuda+sfc_attn"]), "torch": float(losses["torch"]),
                     "ok": ok_loss, "err_over_bound": worst_loss},
            "params": len(per_param), "projections_with_gradient": sum(map(_is_projection, per_param)),
@@ -1442,7 +1460,7 @@ def phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, Backend
 _KERNEL_GROUPS = (("sfc_gemm_fused_kernel", "K1/K2"), ("sfc_gemm_wgmma_kernel", "K2 wgmma"), ("nt_kernel", "K7"),
                   ("nt_wgmma_kernel", "K7 wgmma"), ("tn_kernel", "K8"), ("tn_wgmma_kernel", "K8 wgmma"),
                   ("tn_update_kernel", "K8 norm/update"), ("tn_update_wgmma_kernel", "K8 wgmma norm/update"),
-                  ("flash_fwd_kernel", "K11"),
+                  ("flash_fwd_kernel", "K11"), ("flash_fwd_wgmma_kernel", "K11 wgmma"),
                   ("flash_bwd_dq_kernel", "K12"), ("flash_bwd_dkv_kernel", "K13"),
                   ("flash_bwd_dq_wgmma_kernel", "K12 wgmma"), ("flash_bwd_dkv_wgmma_kernel", "K13 wgmma"))
 # the MoE step's: the grouped kernels first, since "nt_kernel",
@@ -1513,15 +1531,16 @@ def _tn_mode_counts(counted):
 
 
 def _kernel_counts(counted):
-    """K1/K2's, K3's, K7's, K8's, K9's, K10's, K12's and K13's launches on
-    their wgmma kernels and on the 64 x 64 tile kernels (the cluster kernel
-    takes none of a training step's)."""
+    """K1/K2's, K3's, K7's, K8's, K9's, K10's, K11's, K12's and K13's
+    launches on their wgmma kernels and on the 64 x 64 tile kernels (the
+    cluster kernel takes none of a training step's)."""
     out = {}
     for name, tiles in (("sfc_gemm_fused", ("sfc_gemm_fused_kernel",)), ("sfc_gemm_nt", ("nt_kernel",)),
                         ("sfc_gemm_grouped", ("sfc_gemm_grouped_kernel",)),
                         ("sfc_gemm_grouped_nt", ("grouped_nt_kernel",)),
                         ("sfc_gemm_tn", ("tn_kernel", "tn_update_kernel")),
                         ("sfc_gemm_grouped_tn", ("grouped_tn_kernel", "grouped_tn_update_kernel")),
+                        ("sfc_flash_fwd", ("flash_fwd_kernel",)),
                         ("sfc_flash_bwd_dq", ("flash_bwd_dq_kernel",)),
                         ("sfc_flash_bwd_dkv", ("flash_bwd_dkv_kernel",))):
         if name in counted:
@@ -1605,8 +1624,9 @@ def phase_train(torch, cfg, build_trainer, counted):
     optimizer, then under torch + blockwise.  Returns (summary, launches by
     shape of each sfc run)."""
     per_step = cfg.n_layers * 6 + 1
-    # every K12 and K13 launch (bf16, D 128) on the wgmma kernels
+    # every K11, K12 and K13 launch (bf16, D 128) on the wgmma kernels
     layers = {"sfc_flash_fwd": cfg.n_layers, "sfc_flash_bwd_dq": cfg.n_layers, "sfc_flash_bwd_dkv": cfg.n_layers,
+              "sfc_flash_fwd:wgmma": cfg.n_layers, "sfc_flash_fwd:tile": 0,
               "sfc_flash_bwd_dq:wgmma": cfg.n_layers, "sfc_flash_bwd_dq:tile": 0,
               "sfc_flash_bwd_dkv:wgmma": cfg.n_layers, "sfc_flash_bwd_dkv:tile": 0}
     # every K1/K2, K7 and K8 launch (512 bf16 token rows) on the wgmma kernels
@@ -2152,7 +2172,9 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
                       "sfc_gemm_cluster_kernel": (5 * n_layers + 1) * NEW_TOKENS - 5 * n_layers}
     # K3 (bf16): every launch on the grouped wgmma kernel
     want_grouped_by_kernel = {"sfc_gemm_grouped_wgmma_kernel": gemm_want["sfc_gemm_grouped"]}
-    done, launches, by_shape, launches_by_kernel, grouped_by_kernel = {}, {}, {}, {}, {}
+    # K11 (bf16, olmoe's 16 / 16 heads: W 1): every launch on the wgmma kernel
+    want_fwd_by_kernel = {"sfc_cuda": {}, "sfc_cuda+sfc_attn": {"flash_fwd_wgmma_kernel": n_layers}, "torch": {}}
+    done, launches, by_shape, launches_by_kernel, grouped_by_kernel, fwd_by_kernel = {}, {}, {}, {}, {}, {}
     for name, eng in engines.items():
         for fn in counted.values():
             fn.launches = 0
@@ -2160,11 +2182,13 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
                 fn.launches_by_shape.clear()
         tk.sfc_gemm_fused.launches_by_kernel.clear()
         tk.sfc_gemm_grouped.launches_by_kernel.clear()
+        tsa.sfc_flash_fwd.launches_by_kernel.clear()
         done[name] = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
         torch.cuda.synchronize()
         launches[name] = {k: fn.launches for k, fn in counted.items()}
         launches_by_kernel[name] = by_kernel(tk.sfc_gemm_fused.launches_by_kernel)
         grouped_by_kernel[name] = by_kernel(tk.sfc_gemm_grouped.launches_by_kernel)
+        fwd_by_kernel[name] = by_kernel(tsa.sfc_flash_fwd.launches_by_kernel)
         if name == "sfc_cuda":
             by_shape = dict(tk.sfc_gemm_grouped.launches_by_shape)
     # the sfc_cuda serve under ABFT "detect": a fresh engine (its verify
@@ -2230,7 +2254,7 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
         "params": n_params, "init_s": init_s, "requests": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
         "launches": launches, "launches_expected": want,
         "sfc_gemm_fused_launches_by_kernel": launches_by_kernel, "by_kernel_expected": want_by_kernel,
-        "sfc_gemm_grouped_launches_by_kernel": grouped_by_kernel,
+        "sfc_gemm_grouped_launches_by_kernel": grouped_by_kernel, "sfc_flash_fwd_launches_by_kernel": fwd_by_kernel,
         "grouped_by_kernel_expected": {"bf16": want_grouped_by_kernel, "f32_cut": want_grouped_f32},
         "prefill_logits": {
             "f32_cut_layers": MOE_SERVE_F32_LAYERS, "f32_vs_torch": f32_agree,
@@ -2258,6 +2282,8 @@ def phase_moe_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa):
         if name != "torch" and grouped_by_kernel[name] != want_grouped_by_kernel:
             raise AssertionError(f"olmoe {name} serve launched K3 {grouped_by_kernel[name]} by kernel, "
                                  f"expected {want_grouped_by_kernel}")
+    if fwd_by_kernel != want_fwd_by_kernel:
+        raise AssertionError(f"olmoe serves launched K11 {fwd_by_kernel} by kernel, expected {want_fwd_by_kernel}")
     if grouped_by_kernel["f32_cut"] != want_grouped_f32:
         raise AssertionError(f"the olmoe f32 cut launched K3 {grouped_by_kernel['f32_cut']} by kernel, expected "
                              f"{want_grouped_f32}")
@@ -2297,6 +2323,7 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
             "sfc_gemm_grouped_tn:dw": grouped, "sfc_gemm_grouped_tn:norm": 0, "sfc_gemm_grouped_tn:update": 0,
             "sfc_gemm_tn:wgmma": dense, "sfc_gemm_tn:tile": 0, "sfc_gemm_grouped_tn:wgmma": grouped,
             "sfc_gemm_grouped_tn:tile": 0, "sfc_flash_fwd": n_layers, "sfc_flash_bwd_dq": n_layers, "sfc_flash_bwd_dkv": n_layers,
+            "sfc_flash_fwd:wgmma": n_layers, "sfc_flash_fwd:tile": 0,
             "sfc_flash_bwd_dq:wgmma": n_layers, "sfc_flash_bwd_dq:tile": 0,
             "sfc_flash_bwd_dkv:wgmma": n_layers, "sfc_flash_bwd_dkv:tile": 0}
     # the fused step: K8 and K10 run their norm mode in the backward and
@@ -2906,6 +2933,10 @@ def main() -> int:
     want_attn = {"sfc_flash_fwd": cfg.n_layers, "sfc_decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}
     attn_kernels = {"sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_decode_attention": tsa.sfc_decode_attention,
                     "flash_attention": tfa.flash_attention}
+    # K11 and K15 by kernel: every bf16 launch (the serve's prefill) on the
+    # wgmma kernel, every f32 one (the f32 prefills) on the tile kernel
+    fwd_kernels = {"sfc_flash_fwd": tsa.sfc_flash_fwd, "flash_attention": tfa.flash_attention}
+    want_fwd_by_kernel = {"sfc_flash_fwd": {"flash_fwd_wgmma_kernel": cfg.n_layers}}
 
     # K1/K2 by kernel: the prefill's 6 a layer (4 x 128 rows) on the wgmma
     # kernel, the rest (4 rows: the decode steps, the prefill's head) on the
@@ -2922,6 +2953,8 @@ def main() -> int:
         tsa.sfc_decode_attention.launches_by_splits.clear()
         for fn in attn_kernels.values():
             fn.launches = 0
+        for fn in fwd_kernels.values():
+            fn.launches_by_kernel.clear()
 
     def replicated_counts():
         by_shape = tk.sfc_gemm_replicated.launches_by_shape
@@ -2945,17 +2978,22 @@ def main() -> int:
     done["sfc_cuda+sfc_attn"] = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
     torch.cuda.synchronize()
     attn_launches = {name: fn.launches for name, fn in attn_kernels.items()}
+    fwd_by_kernel = {"sfc_flash_fwd": by_kernel(tsa.sfc_flash_fwd.launches_by_kernel)}
     attn_gemm_launches = tk.sfc_gemm_fused.launches
     attn_by_kernel = {"sfc_gemm_fused": {f"{name}@{config}": n for (name, config), n in
                                          tk.sfc_gemm_fused.launches_by_kernel.items()},
                       "sfc_decode_attention": {f"S{k}": n for k, n in
-                                               tsa.sfc_decode_attention.launches_by_splits.items()}}
+                                               tsa.sfc_decode_attention.launches_by_splits.items()},
+                      "sfc_flash_fwd": {f"{name}@W{w}": n for (name, w), n in
+                                        tsa.sfc_flash_fwd.launches_by_kernel.items()}}
     serve_by_kernel["sfc_cuda+sfc_attn"] = by_kernel(tk.sfc_gemm_fused.launches_by_kernel)
     if (attn_gemm_launches != want_launches or any(attn_launches[k] != n for k, n in want_attn.items())
-            or serve_by_kernel["sfc_cuda+sfc_attn"] != want_by_kernel):
+            or serve_by_kernel["sfc_cuda+sfc_attn"] != want_by_kernel
+            or fwd_by_kernel["sfc_flash_fwd"] != want_fwd_by_kernel["sfc_flash_fwd"]):
         raise AssertionError(f"attn_impl='sfc' serve launched GEMM {attn_gemm_launches} (want {want_launches}; "
                              f"by kernel {serve_by_kernel['sfc_cuda+sfc_attn']}, want {want_by_kernel}) "
-                             f"and attention {attn_launches} (want {want_attn}) times")
+                             f"and attention {attn_launches} (want {want_attn}; K11 by kernel {fwd_by_kernel}) "
+                             "times")
     # the replicated form: every projection a K5 (prefill) or K4 (decode)
     # launch, the GLU two; k_layers resolves to 1 at every shape, so no K6
     # and no K1/K2.  Then the same serve with every product split over
@@ -3051,17 +3089,26 @@ def main() -> int:
     logits["sfc_cuda+flash_attn"] = engine("sfc_cuda+flash_attn", cfg)._prefill(tokens)[0].float()
     torch.cuda.synchronize()
     attn_launches["flash_attention"] = tfa.flash_attention.launches
-    if attn_launches["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"flash_pallas prefill launched K15 {attn_launches['flash_attention']} times, "
-                             f"expected {cfg.n_layers}")
+    fwd_by_kernel["flash_attention"] = by_kernel(tfa.flash_attention.launches_by_kernel)
+    want_fwd_by_kernel["flash_attention"] = {"flash_fwd_wgmma_kernel": cfg.n_layers}
+    if attn_launches["flash_attention"] != cfg.n_layers or fwd_by_kernel["flash_attention"] != want_fwd_by_kernel[
+            "flash_attention"]:
+        raise AssertionError(f"flash_pallas prefill launched K15 {attn_launches['flash_attention']} times "
+                             f"({fwd_by_kernel['flash_attention']}), expected {cfg.n_layers} on the wgmma kernel")
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     params_of["float32"] = {k: v.float() for k, v in params.items()}
+    reset_counts()
     for name in ("torch", "sfc_cuda", "sfc_cuda+sfc_attn", "sfc_cuda+flash_attn", "replicated"):
         logits[name + "_f32"] = engine(name, cfg32)._prefill(tokens)[0]
     with ops.knob_defaults(k_layers=REP_SERVE_LAYERS):
         logits[split + "_f32"] = engine("replicated", cfg32)._prefill(tokens)[0]
     del params_of["float32"]
     torch.cuda.synchronize()
+    for name, fn in fwd_kernels.items():
+        fwd_by_kernel[f"{name}_f32"] = by_kernel(fn.launches_by_kernel)
+        want_fwd_by_kernel[f"{name}_f32"] = {"flash_fwd_kernel": cfg.n_layers}
+    if fwd_by_kernel != want_fwd_by_kernel:
+        raise AssertionError(f"K11 / K15 launched {fwd_by_kernel} by kernel, expected {want_fwd_by_kernel}")
     sfc_variants = ("sfc_cuda", "sfc_cuda+sfc_attn", "sfc_cuda+flash_attn", "replicated", split)
     for name in sfc_variants:
         if tuple(logits[name].shape) != (BATCH, cfg.vocab) or not bool(torch.isfinite(logits[name]).all()):
@@ -3082,6 +3129,7 @@ def main() -> int:
         "attn_impl_sfc_launches_by_kernel": attn_by_kernel,
         "sfc_gemm_fused_launches_by_kernel": serve_by_kernel, "by_kernel_expected": want_by_kernel,
         "flash_pallas_prefill_launches": attn_launches["flash_attention"],
+        "flash_fwd_launches_by_kernel": fwd_by_kernel, "flash_fwd_by_kernel_expected": want_fwd_by_kernel,
         "replicated_launches": rep_counts, "replicated_launches_expected": {"replicated": want_rep,
                                                                            split: want_split},
         "replicated_launches_by_kernel": rep_by_kernel,
@@ -3347,7 +3395,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            **({"kernel": "decode_split_kernel", "splits": row["splits"]} if c.decode else {}),
+            **({"kernel": "decode_split_kernel", "splits": row["splits"]} if c.decode else
+               {"kernel": row["kernel"], "config": row["config"]}),
             "shape": c.shape(),
         })
     for row in grouped_rows:

@@ -8,16 +8,18 @@ and the 4096-row check (`attention_cases`), of the grouped K3, K9 and K10
 at olmoe-1b-7b's (`moe_grouped_gemms`) and of K10's update and norm modes
 (`moe_update_gemms`) in the trees that have them, of the replicated
 form's partial copies K4 / K5 at the "replicated" serve's shapes
-(`replicated_gemms`) at k_layers 1 and 8, of the flash forward
-K11 and the flash backward K12 / K13 at qwen3-4b's training step and at
+(`replicated_gemms`) at k_layers 1 and 8, of the flash forward K11 at
+qwen3-4b's prefill and training shapes and at 1 x 2000 tokens (q_offset
+0 and 48) and K15 at the prefill (`attention_cases`, `fwd_ab_cases`),
+of the flash backward K12 / K13 at qwen3-4b's training step and at
 one 2048-token sequence, the host's cost of a K2, K7, K12 and K13 wrapper
 call and of one tensor-map encoding (where the tree has its timer), and
 the registers and spills that ptxas reports for every instantiation of
-the GEMM and attention libraries' CUDA kernels.  Each K3, K4, K5, K8, K9
-and K10 row also carries, in every pass, its bound (`chip_smoke.py`'s
+the GEMM and attention libraries' CUDA kernels.  Each K3, K4, K5, K8, K9,
+K10, K11 and K15 row also carries, in every pass, its bound (`chip_smoke.py`'s
 `_bound` of the row's bytes and flops) and the time of its library
-yardstick on the same inputs (`torch.matmul` / `torch.bmm` for the
-products, K4 / K5 over the K slabs, f32 out for the GLU's copies; the
+yardstick on the same inputs (scaled_dot_product_attention for K11 /
+K15, `torch.matmul` / `torch.bmm` for the products, K4 / K5 over the K slabs, f32 out for the GLU's copies; the
 same to an f32 dW plus `torch._fused_adamw_` for the update, none for the
 norm), and names the CUDA kernel and tile (K4: L') it launched where the
 tree counts that (a tree without K4 / K5's counter has the tile kernel
@@ -28,6 +30,7 @@ update+lane ...", "K8 norm+lane ...").
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K8,K10
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K4,K5
+    python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K11,K15
 
 Each pass runs in a process of its own with the tree's `src/` and
 `chip_smoke.py` first on its path, so each tree builds its kernels into
@@ -35,12 +38,12 @@ its own `build/` and is timed by its own code; `--order` lists the trees'
 indices, one pass each (parent, change, change, parent reads a drift of
 the card between passes).  Times: CUDA events around a captured graph of
 20+ calls with the weights (K14: the caches) rotated past the 50 MB L2, as
-`chip_smoke.py` times them; each pass also records which GEMM kernel (and
+`chip_smoke.py` times them; each pass also records which CUDA kernel (and
 its configuration: the cluster kernel's K layers, the wgmma kernels' C
-tile) each K1/K2, K7, K12 and K13 row launched, where its tree counts
-that.
-`--only` keeps the rows of the listed families (K1/K2, K14, K11, K12,
-K13, K7, K8, K3, K9, K10, K4, K5; "host" for the wrapper costs).
+tile, the wgmma flash forward's W) each K1/K2, K7, K11, K12, K13 and K15
+row launched, where its tree counts that.
+`--only` keeps the rows of the listed families (K1/K2, K14, K11, K15,
+K12, K13, K7, K8, K3, K9, K10, K4, K5; "host" for the wrapper costs).
 Prints one JSON line per pass and, last, a summary: each row's times by
 tree, each tree's mean over the `--base` tree's (default 1), the ptxas
 counts of every kernel the trees share by name, side by side, those of
@@ -159,6 +162,7 @@ def worker(tree: Path, only=None) -> dict:
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import sfc_attention as tsa
     from repro_torch.kernels import sfc_gemm as tk
 
@@ -195,7 +199,9 @@ def worker(tree: Path, only=None) -> dict:
         rows[f"K14 {c.name}"] = cs.time_ms(lambda i: tsa.sfc_decode_attention(*ins[i % copies], valid),
                                            reps=max(20, copies), graph=True)
         del ins
-    if any(keep(f) for f in ("K11", "K12", "K13")):
+    if keep("K11") or keep("K15"):
+        _fwd_rows(torch, cs, tsa, tfa, fwd_ab_cases(cs, cfg, keep), gen, rows, kernels, library, bounds)
+    if keep("K12") or keep("K13"):
         rows_attn, kernels_attn = _attention_rows(torch, cs, tsa, cfg, gen)
         rows.update(rows_attn)
         kernels.update(kernels_attn)
@@ -261,16 +267,57 @@ def worker(tree: Path, only=None) -> dict:
             "host": _host_costs(torch, cs, tk, tsa, build, cfg, gen) if keep("host") else None}
 
 
-# the flash attention rows: qwen3-4b's training step (2 x 256 tokens) and
+# the flash backward rows: qwen3-4b's training step (2 x 256 tokens) and
 # one 2048-token sequence, where the band's flops bound the kernels
 _ATTN_SHAPES = (("train", 2, 256), ("band_2048", 1, 2048))
 
 
+def fwd_ab_cases(cs, cfg, keep=lambda family: True):
+    """The K11 / K15 rows: `chip_smoke.attention_cases`' flash forwards (K11
+    at the prefill, the training step and 1 x 2000 with q_offset 0 and 48;
+    K15 at the prefill), those of the kept families."""
+    family = {"sfc_flash_fwd": "K11", "flash_attention": "K15"}
+    return [c for c in cs.attention_cases(cfg) if c.kernel in family and keep(family[c.kernel])]
+
+
+def _fwd_rows(torch, cs, tsa, tfa, cases, gen, rows, kernels, library, bounds):
+    """Times of K11 (`sfc_flash_fwd`) and K15 (`flash_attention`) at each of
+    ``cases`` into ``rows`` (bf16, inputs rotated past the L2), as
+    `chip_smoke.phase_attention` times them, with the kernel and W each
+    launched (a tree without the counter has the tile kernel alone), its
+    bound (`Attn.bound`) and scaled_dot_product_attention of the same
+    function on the same inputs."""
+    import torch.nn.functional as F
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    for c in cases:
+        label, fn = ("K11", tsa.sfc_flash_fwd) if c.kernel == "sfc_flash_fwd" else ("K15", tfa.flash_attention)
+        kw = dict(causal=c.causal, q_offset=c.q_offset) if label == "K11" else dict(causal=c.causal)
+        copies = max(1, math.ceil(4 * cs.L2_BYTES / c.bytes(2)))
+        ins = [tuple(torch.randn(sh, generator=gen, device=dev).to(dt)
+                     for sh in ((c.b, c.s, c.h, c.d), (c.b, c.t, c.hkv, c.d), (c.b, c.t, c.hkv, c.d)))
+               for _ in range(copies)]
+        row, reps = f"{label} {c.name}", max(20, copies)
+        rows[row] = cs.time_ms(lambda i: fn(*ins[i % copies], **kw), reps=reps, graph=True)
+        by_kernel = getattr(fn, "launches_by_kernel", None)
+        kernels[row] = (cs.launched(by_kernel, lambda: fn(*ins[0], **kw))[1] if by_kernel is not None
+                        else ("flash_fwd_kernel", 1))
+        bounds[row] = c.bound(2)
+        mask = None
+        if c.causal and (c.q_offset or c.s != c.t):
+            mask = torch.arange(c.t, device=dev)[None, :] <= torch.arange(c.s, device=dev)[:, None] + c.q_offset
+        views = [tuple(x.transpose(1, 2) for x in trio) for trio in ins]
+        library[row] = cs.time_ms(lambda i: F.scaled_dot_product_attention(
+            *views[i % copies], attn_mask=mask, is_causal=c.causal and mask is None, enable_gqa=True),
+            reps=reps, graph=True)
+        del ins, views
+        torch.cuda.empty_cache()
+
+
 def _attention_rows(torch, cs, tsa, cfg, gen):
-    """Times of K11 (`sfc_flash_fwd`), K12 (`sfc_flash_bwd_dq`) and K13
-    (`sfc_flash_bwd_dkv`) at `_ATTN_SHAPES` (bf16, causal, qwen3-4b's heads),
-    and which CUDA kernel (and configuration) each backward row launched,
-    where the tree counts that."""
+    """Times of K12 (`sfc_flash_bwd_dq`) and K13 (`sfc_flash_bwd_dkv`) at
+    `_ATTN_SHAPES` (bf16, causal, qwen3-4b's heads), and which CUDA kernel
+    (and configuration) each row launched, where the tree counts that."""
     dev, dt = torch.device("cuda"), torch.bfloat16
     h, hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
     rows, kernels = {}, {}
@@ -280,7 +327,6 @@ def _attention_rows(torch, cs, tsa, cfg, gen):
         o, lse = tsa.sfc_flash_fwd(q, k, v, causal=True)
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta)
-        rows[f"K11 {name}"] = cs.time_ms(lambda i: tsa.sfc_flash_fwd(q, k, v, causal=True), reps=20, graph=True)
         for label, fn in (("K12", tsa.sfc_flash_bwd_dq), ("K13", tsa.sfc_flash_bwd_dkv)):
             rows[f"{label} {name}"] = cs.time_ms(lambda i: fn(*args, causal=True), reps=20, graph=True)
             by_kernel = getattr(fn, "launches_by_kernel", None)
@@ -295,10 +341,10 @@ def _host_costs(torch, cs, tk, tsa, build, cfg, gen, calls: int = 200):
     """The host's side of a launch: the microseconds of one wrapper call
     (Python, checks, tensor maps, the launch; the mean of ``calls`` calls
     that never wait on the card) for K2 (qwen3-4b's training q projection,
-    512 rows), K7 (its dA), K12 and K13 at the training shape; and, where
+    512 rows), K7 (its dA), K11, K12 and K13 at the training shape; and, where
     the tree has the timer, the nanoseconds of one tensor-map encoding
     (`sfc_tensor_map_encode_ns`: a 3-D map as K2 / K7 encode each operand,
-    a 4-D one as K12 / K13 do) and the maps each launch encodes."""
+    a 4-D one as K11-K13 do) and the maps each launch encodes."""
     import time
 
     dev, dt = torch.device("cuda"), torch.bfloat16
@@ -309,6 +355,7 @@ def _host_costs(torch, cs, tk, tsa, build, cfg, gen, calls: int = 200):
     o, lse = tsa.sfc_flash_fwd(q, k, v, causal=True)
     delta = (do.float() * o.float()).sum(-1)
     calls_by_kernel = {"K2": lambda: tk.sfc_gemm_fused(a, w), "K7": lambda: tk.sfc_gemm_nt(dc, w),
+                       "K11": lambda: tsa.sfc_flash_fwd(q, k, v, causal=True),
                        "K12": lambda: tsa.sfc_flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
                        "K13": lambda: tsa.sfc_flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)}
     out = {"wrapper_us": {}}
@@ -323,9 +370,9 @@ def _host_costs(torch, cs, tk, tsa, build, cfg, gen, calls: int = 200):
     lib = build.load_attention_library()
     if hasattr(lib, "sfc_tensor_map_encode_ns"):
         ns = {rank: lib.sfc_tensor_map_encode_ns(a.data_ptr(), rank, 1000) for rank in (3, 4)}
-        maps = {"K2": 2, "K2 GLU": 3, "K7": 2, "K7 dual": 4, "K12": 4, "K13": 4}
+        maps = {"K2": 2, "K2 GLU": 3, "K7": 2, "K7 dual": 4, "K11": 3, "K12": 4, "K13": 4}
         out["encode_ns_per_map"] = {"rank3": ns[3], "rank4": ns[4]}
-        out["encode_us_per_launch"] = {key: n * ns[4 if key in ("K12", "K13") else 3] / 1e3
+        out["encode_us_per_launch"] = {key: n * ns[4 if key in ("K11", "K12", "K13") else 3] / 1e3
                                        for key, n in maps.items()}
     return out
 
@@ -431,8 +478,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", required=True, help="a source tree (repeat)")
     ap.add_argument("--order", default=None, help="comma-separated tree indices, one pass each")
     ap.add_argument("--base", type=int, default=1, help="the tree the others' times are divided by")
-    ap.add_argument("--only", default=None, help="comma-separated row families to time (K1/K2, K14, K11, K12, "
-                                                  "K13, K7, K8, K3, K9, K10, K4, K5, host); all by default")
+    ap.add_argument("--only", default=None, help="comma-separated row families to time (K1/K2, K14, K11, K15, "
+                                                  "K12, K13, K7, K8, K3, K9, K10, K4, K5, host); all by default")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     trees = [Path(t).resolve() for t in args.tree]
@@ -467,7 +514,7 @@ def main(argv=None) -> int:
     for i, ps in by_tree.items():
         own = sorted(set(ps[0]["ptxas"]) - set(shared))
         only[str(i)] = {n: ps[0]["ptxas"][n] for n in own}
-    # the library yardsticks and bounds of the K3 / K4 / K5 / K8 / K9 / K10 rows, every pass's
+    # the library yardsticks and bounds of the K3 / K4 / K5 / K8 / K9 / K10 / K11 / K15 rows, every pass's
     library = {row: {str(i): [p.get("library_ms", {}).get(row) for p in ps] for i, ps in by_tree.items()}
                for row in dict.fromkeys(r for _, p in passes for r in p.get("library_ms", {}))}
     bounds = next((p["bound_ms"] for _, p in passes if p.get("bound_ms")), {})

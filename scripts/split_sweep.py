@@ -5,10 +5,14 @@ lengths; the cluster GEMM (K1 at M <= 16) at qwen3-4b's plain-mode decode
 shapes (`chip_smoke.main_path_gemms`) for L = 1, 2, 4, 8 K layers; and the
 wgmma dK/dV kernel (K13) at qwen3-4b's and olmoe-1b-7b's training steps (2
 x 256 tokens) and one 2048-token sequence for every cluster C of CTAs (a
-divisor of the GQA group, at most 8), beside the S, L and C that the
-wrappers choose.
+divisor of the GQA group, at most 8); and the wgmma flash forward (K11)
+at `chip_smoke.py`'s four K11 shapes (qwen3-4b's prefill and training
+step, 1 x 2000 tokens with q_offset 0 and 48) and the serve's
+single-prompt prefill (1 x 128) for every W (q heads of one kv head a
+CTA: a divisor of the group, at most 2); beside the S, L, C and W that
+the wrappers choose.
 
-    python3 scripts/split_sweep.py [k14] [k1] [k13]   # default: all three
+    python3 scripts/split_sweep.py [k14] [k1] [k13] [k11]   # default: all four
 
 Each kernel is launched through its C entry with the split forced, timed
 as `chip_smoke.py` times it (CUDA events around a captured graph of 40 or
@@ -18,6 +22,7 @@ shape.  Needs a CUDA device and nvcc.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import sys
@@ -28,10 +33,29 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 LIVE = ((1, 1000, 2048, 4096), (4096,) * 4, (512,) * 4, (32,) * 4, (0,) * 4)
 SPLITS = (1, 2, 4, 8)
+PARTS = ("k14", "k1", "k13", "k11")
+
+
+def sweep_parts(argv) -> set:
+    """The kernels to sweep: the names given, all of `PARTS` if none."""
+    parts = set(argv) or set(PARTS)
+    unknown = parts - set(PARTS)
+    if unknown:
+        raise SystemExit(f"unknown sweep {sorted(unknown)}; choose from {PARTS}")
+    return parts
+
+
+def k11_cases(cs, cfg):
+    """The K11 shapes of the sweep: `chip_smoke.attention_cases`' band
+    forwards (the prefill, the training step, 1 x 2000 with q_offset 0 and
+    48), then the prefill of one prompt, as a serve of a single request
+    (chip_smoke's warm-up serves) launches it."""
+    cases = [c for c in cs.attention_cases(cfg) if c.kernel == "sfc_flash_fwd"]
+    return cases + [dataclasses.replace(cases[0], name="prefill_1_prompt", b=1)]
 
 
 def main(argv=None) -> int:
-    parts = set(sys.argv[1:] if argv is None else argv) or {"k14", "k1", "k13"}
+    parts = sweep_parts(sys.argv[1:] if argv is None else argv)
     import torch
 
     import chip_smoke as cs
@@ -44,6 +68,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(4)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
+    if "k11" in parts:
+        sweep_k11(torch, cs, tsa, gen, sms)
     if "k13" in parts:
         sweep_k13(torch, cs, tsa, gen, sms)
     if "k14" in parts:
@@ -51,6 +77,37 @@ def main(argv=None) -> int:
     if "k1" in parts:
         sweep_k1(torch, cs, build, tk, gen, sms, stream)
     return 0
+
+
+def sweep_k11(torch, cs, tsa, gen, sms):
+    """K11 on the wgmma kernel by W, the q heads of one kv head a CTA
+    (`sfc_attention.fwd_wgmma_grid` chooses W), inputs rotated past the L2
+    as `chip_smoke.phase_attention` rotates them."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    for c in k11_cases(cs, get_config("qwen3_4b")):
+        copies = max(1, math.ceil(4 * cs.L2_BYTES / c.bytes(2)))
+        ins = [tuple(torch.randn(sh, generator=gen, device=dev).to(dt)
+                     for sh in ((c.b, c.s, c.h, c.d), (c.b, c.t, c.hkv, c.d), (c.b, c.t, c.hkv, c.d)))
+               for _ in range(copies)]
+        nq, nk = math.ceil(c.s / 64), math.ceil(c.t / 64)
+        tab_k, rows = tsa._device_band(nq, nk, c.causal, c.q_offset, dev)
+        groups = c.h // c.hkv
+        row = {"kernel": "K11", "shape": c.name, **c.shape(),
+               "chosen_W": tsa.fwd_wgmma_grid(c.b, c.s, c.t, c.h, c.hkv, sms)[1]}
+        for w in range(1, min(groups, build.MAX_FWD_WARPGROUPS) + 1):
+            if groups % w:
+                continue
+
+            def call(i, w=w):
+                tsa.launch_flash_fwd(*ins[i % copies], tab_k, rows, causal=c.causal, seq_q=c.s, seq_k=c.t,
+                                     q_offset=c.q_offset, want_lse=True, warpgroups=w)
+
+            row[f"W{w}_ms"] = cs.time_ms(call, reps=max(40, copies), graph=True)
+        print(json.dumps(row), flush=True)
+        del ins
 
 
 def sweep_k13(torch, cs, tsa, gen, sms):

@@ -35,7 +35,10 @@ the flags, and loaded with ``ctypes``.  Two libraries:
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
-  (half 1); the bf16 backward part also holds their wgmma kernels (K12
+  (half 1); the bf16 forward part also holds the wgmma flash forward
+  (K11 and K15, ``flash_fwd_wgmma_kernel``, entry ``attn_entry_name(
+  "fwd_wgmma", "bf16", D)``), the bf16 backward part the backward's wgmma
+  kernels (K12
   ``flash_bwd_dq_wgmma_kernel``, K13 ``flash_bwd_dkv_wgmma_kernel``) behind
   entries of their own (``attn_entry_name("dq_wgmma" / "dkv_wgmma",
   "bf16", D)``) and ``sfc_tensor_map_encode_ns``, which times the host's
@@ -73,6 +76,8 @@ __all__ = [
     "DECODE_CHUNK",
     "MAX_DECODE_SPLITS",
     "MAX_BWD_CLUSTER",
+    "MAX_FWD_WARPGROUPS",
+    "FWD_WGMMA_STAGES",
     "SPLIT_MAX_ROWS",
     "MAX_CLUSTER_LAYERS",
     "WGMMA_TILE",
@@ -112,6 +117,11 @@ MAX_DECODE_SPLITS = 8
 # CTAs a cluster of the wgmma dK/dV kernel, each a part of the GQA group (a
 # portable cluster): bw::kMaxCluster in csrc/sfc_attention.cu
 MAX_BWD_CLUSTER = 8
+# consumer warpgroups (q heads of one kv head) a CTA of the wgmma flash
+# forward, and its ring's (k, v) stages: fw::kMaxWarpgroups and
+# fw::kFwdStages in csrc/sfc_attention.cu
+MAX_FWD_WARPGROUPS = 2
+FWD_WGMMA_STAGES = 4
 # A rows the cluster GEMM kernel takes (kSplitRows) and CTAs (K layers) a
 # cluster (kMaxLayers), in csrc/sfc_gemm_fused.cu
 SPLIT_MAX_ROWS = 16
@@ -187,9 +197,9 @@ def rep_entry_name(kind: str, dtype_name: str) -> str:
 
 def attn_entry_name(kind: str, dtype_name: str, head_dim: int) -> str:
     """C symbol of an attention entry: ``kind`` is "fwd", "decode", "dq",
-    "dkv", or "dq_wgmma" / "dkv_wgmma" (the backward's wgmma kernels, bf16
-    only)."""
-    if kind not in ("fwd", "decode", "dq", "dkv", "dq_wgmma", "dkv_wgmma") or (
+    "dkv", or "fwd_wgmma" / "dq_wgmma" / "dkv_wgmma" (the wgmma kernels,
+    bf16 only)."""
+    if kind not in ("fwd", "decode", "dq", "dkv", "fwd_wgmma", "dq_wgmma", "dkv_wgmma") or (
             kind.endswith("_wgmma") and dtype_name != "bf16"):
         raise ValueError(f"unknown attention entry kind {kind!r} for {dtype_name}")
     return f"sfc_attn_{kind}_{dtype_name}_d{head_dim}"
@@ -430,6 +440,11 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
                 ptr,  # cudaStream_t
             ]
             fwd.restype = i32
+            if dt == "bf16":
+                fwd_wg = getattr(lib, attn_entry_name("fwd_wgmma", dt, d))
+                # the forward's arguments, then W (warpgroups a CTA)
+                fwd_wg.argtypes = fwd.argtypes[:-1] + [i32, ptr]
+                fwd_wg.restype = i32
             dec = getattr(lib, attn_entry_name("decode", dt, d))
             dec.argtypes = [
                 ptr, ptr, ptr, ptr, ptr,  # q, k, v, valid_len, o

@@ -1,8 +1,9 @@
 // SFC-scheduled attention for Hopper (sm_90a), hand-written CUDA C++.
 //
-// Four kernels, each with a plain C entry point per (input type, head dim):
+// Seven kernels, each with a plain C entry point per (input type, head dim):
 //
-// flash_fwd_kernel replaces two TPU kernels:
+// flash_fwd_kernel and, for bf16, flash_fwd_wgmma_kernel replace two TPU
+// kernels:
 //   * `repro/kernels/sfc_attention.py::sfc_flash_fwd` (`_flash_fwd_kernel`):
 //     the band-table online-softmax flash forward that returns (o, lse);
 //   * `repro/kernels/flash_attention.py::flash_attention_pallas`
@@ -44,7 +45,24 @@
 //   overlap; the f32 accumulator round-trips through shared memory each k
 //   tile (WMMA fragments have no documented element layout to rescale in
 //   registers); and each CTA re-reads its kv head's k and v once per q head
-//   of the group (from L2).
+//   of the group (from L2).  It stays for f32 (chip_smoke's f32 cuts), and
+//   for what TMA cannot describe (`kernels/sfc_attention.py::
+//   uses_fwd_wgmma_kernel`).
+//
+// flash_fwd_wgmma_kernel takes every other bf16 forward, with the same
+//   contract, tile and task segments, on Hopper's machinery (hopper.cuh):
+//   one CTA per (q tile, (batch, kv head), part of the GQA group) runs W
+//   consumer warpgroups, one q head each, on one TMA ring of (k, v) stages
+//   that a producer warp fills (4-D tensor maps of the strided views, zeros
+//   past S and T), so k and v cross from L2 once per W q heads (W at most
+//   2, `sfc_attention.py::fwd_wgmma_grid`).  S = q k^T and O += P v run on
+//   wgmma; S, P and the f32 O stay in the accumulators' registers for the
+//   whole walk, P entering P v as one bf16 A fragment (the accumulator's own
+//   layout); each warpgroup issues a tile's S with the previous tile's P v
+//   and runs the softmax while P v is in flight; a tile wholly inside the
+//   band skips the mask.  The last q tiles (the longest causal rows) go
+//   first.  ptxas: 168 / 176 registers at D 128 (W 2 / 1), 127 / 142 at D
+//   64, no spill.
 //
 // decode_split_kernel replaces `repro/kernels/sfc_attention.py::
 //   sfc_decode_attention_pallas` (:660, `_decode_kernel` :601): one launch
@@ -137,7 +155,7 @@
 // One compilation unit holds one input type, chosen by -DSFC_ATTN_DTYPE
 // (0: float32, 1: bfloat16) and named by -DSFC_ATTN_TAG, and one half,
 // chosen by -DSFC_ATTN_PART (0: flash forward and decode, 1: the backward;
-// the bf16 backward also holds the wgmma kernels), with the head dims 64
+// each bf16 half also holds its wgmma kernels), with the head dims 64
 // and 128 (`repro_torch/kernels/build.py` builds all four parts at once).
 // Every entry launches on the caller's stream and returns
 // cudaGetLastError().
@@ -1083,23 +1101,21 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dkv_kernel(const BwdPar
   }
 }
 
-#if SFC_ATTN_PART == 1 && SFC_ATTN_DTYPE == 1
+#if SFC_ATTN_DTYPE == 1
 
 // ---------------------------------------------------------------------------
-// backward on wgmma and TMA (bf16): flash_bwd_dq_wgmma_kernel (K12) and
-// flash_bwd_dkv_wgmma_kernel (K13)
+// Hopper's machinery for the bf16 flash kernels on wgmma and TMA (the
+// forward's flash_fwd_wgmma_kernel, the backward's K12 / K13): the tile
+// geometry of the 128-byte swizzled boxes, their wgmma descriptors, the
+// accumulators' element layout and the tensor maps of the model's views
 // ---------------------------------------------------------------------------
 
 #include "hopper.cuh"
 
-namespace bw {
+namespace fa {
 
 using namespace hopper;
 
-constexpr int kThreads = 160;    // one consumer warpgroup, then the producer warp
-constexpr int kConsumers = 128;  // threads of the consumer warpgroup: 64 tile rows, wgmma's M
-constexpr int kStages = 2;       // ring stages: two CTAs an SM fit beside each other
-constexpr int kMaxCluster = 8;   // CTAs of a K13 cluster, each a part of the GQA group (build.py MAX_BWD_CLUSTER)
 constexpr int kBoxBytes = kBQ * kBox * 2;  // one 64-row x 64-column swizzled box: 8 KB
 static_assert(kBQ == 64 && kBK == 64, "wgmma's M and the boxes are 64 rows");
 
@@ -1108,6 +1124,67 @@ template <int D>
 constexpr int tile_bytes() {
   return kBQ * D * 2;
 }
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// k16 step kk of a K-major operand (the contraction runs along the tile's D
+// columns): 8-row groups 1024 B apart, 32 B a k16, 64-column boxes 8 KB apart.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
+}
+// k16 step kk of an N-major operand (the contraction runs along the tile's
+// rows, N along its D columns): 16 rows of 128 B a k16, the boxes 8 KB apart
+// (LBO), 8-row groups 1024 B apart.
+__device__ __forceinline__ uint64_t desc_nmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 2048, kBoxBytes, 1024);
+}
+
+// Row (0..63) and column of accumulator i of consumer thread tw in an
+// m64nN strip: warp w owns rows 16w..16w+15; pair i / 2 sits 8 rows down
+// when odd and 8 columns right per two pairs.
+__device__ __forceinline__ int acc_row(int tw, int i) { return (tw / 32) * 16 + (tw % 32) / 4 + ((i & 2) ? 8 : 0); }
+__device__ __forceinline__ int acc_col(int tw, int i) { return (i / 4) * 8 + 2 * (tw % 4) + (i & 1); }
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 a, bf16 b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(a)) | (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.0f;
+}
+
+// The map of one operand, a strided (batch, seq, heads, D) view, read in
+// boxes of 64 sequence rows x 64 columns of one head (zeros past every edge).
+template <int D>
+int seq_map(CUtensorMap* m, const void* base, int heads, int seq, int batch, long long sh, long long ss,
+            long long sb) {
+  return tensor_map_4d(m, base, D, heads, seq, batch, sh, ss, sb, kBQ);
+}
+
+}  // namespace fa
+
+#endif  // SFC_ATTN_DTYPE == 1
+
+#if SFC_ATTN_PART == 1 && SFC_ATTN_DTYPE == 1
+
+// ---------------------------------------------------------------------------
+// backward on wgmma and TMA (bf16): flash_bwd_dq_wgmma_kernel (K12) and
+// flash_bwd_dkv_wgmma_kernel (K13)
+// ---------------------------------------------------------------------------
+
+namespace bw {
+
+using namespace hopper;
+using namespace fa;
+
+constexpr int kThreads = 160;    // one consumer warpgroup, then the producer warp
+constexpr int kConsumers = 128;  // threads of the consumer warpgroup: 64 tile rows, wgmma's M
+constexpr int kStages = 2;       // ring stages: two CTAs an SM fit beside each other
+constexpr int kMaxCluster = 8;   // CTAs of a K13 cluster, each a part of the GQA group (build.py MAX_BWD_CLUSTER)
 
 // K12's shared memory: the q and dO tiles, then a ring of (k, v) stages,
 // then the barriers, from a 1024-byte aligned base (the swizzle's period).
@@ -1139,32 +1216,6 @@ struct DkvWgSmem {
   static_assert(2 * PAIRS * kConsumers * 8 <= kStages * STAGE, "the partials fit in the ring");
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// k16 step kk of a K-major operand (the contraction runs along the tile's D
-// columns): 8-row groups 1024 B apart, 32 B a k16, 64-column boxes 8 KB apart.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
-}
-// k16 step kk of an N-major operand (the contraction runs along the tile's
-// rows, N along its D columns): 16 rows of 128 B a k16, the boxes 8 KB apart
-// (LBO), 8-row groups 1024 B apart.
-__device__ __forceinline__ uint64_t desc_nmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + kk * 2048, kBoxBytes, 1024);
-}
-
-// Row (0..63) and column of accumulator i of consumer thread tw in an
-// m64nN strip: warp w owns rows 16w..16w+15; pair i / 2 sits 8 rows down
-// when odd and 8 columns right per two pairs.
-__device__ __forceinline__ int acc_row(int tw, int i) { return (tw / 32) * 16 + (tw % 32) / 4 + ((i & 2) ? 8 : 0); }
-__device__ __forceinline__ int acc_col(int tw, int i) { return (i / 4) * 8 + 2 * (tw % 4) + (i & 1); }
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 a, bf16 b) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(a)) | (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
-}
-
 // store_split in registers: the hi and lo bf16 A fragments of a 64 x 64 f32
 // strip.  An m64nN accumulator and wgmma's k16 A fragment share their
 // element layout, so k16 slice kk's fragment is accumulators 8kk..8kk+7,
@@ -1180,12 +1231,6 @@ __device__ __forceinline__ void split_frags(const float (&x)[32], uint32_t (&hi)
       lo[kk][r] = pack_bf16(__float2bfloat16(a - __bfloat162float(ha)), __float2bfloat16(b - __bfloat162float(hb)));
     }
   }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.0f;
 }
 
 // K12.  One CTA per (64-row q tile, (batch, q head)), as flash_bwd_dq_kernel;
@@ -1515,10 +1560,10 @@ template <int D>
 int bwd_maps(const BwdParams& p, int batch, CUtensorMap (&m)[4]) {
   if (!aligned16(p.q) || !aligned16(p.k) || !aligned16(p.v) || !aligned16(p.dout))
     return static_cast<int>(cudaErrorInvalidValue);
-  int rc = tensor_map_4d(&m[0], p.q, D, p.H, p.S, batch, p.q_sh, p.q_ss, p.q_sb, kBQ);
-  if (rc == 0) rc = tensor_map_4d(&m[1], p.k, D, p.Hkv, p.T, batch, p.k_sh, p.k_ss, p.k_sb, kBK);
-  if (rc == 0) rc = tensor_map_4d(&m[2], p.v, D, p.Hkv, p.T, batch, p.v_sh, p.v_ss, p.v_sb, kBK);
-  if (rc == 0) rc = tensor_map_4d(&m[3], p.dout, D, p.H, p.S, batch, p.o_sh, p.o_ss, p.o_sb, kBQ);
+  int rc = seq_map<D>(&m[0], p.q, p.H, p.S, batch, p.q_sh, p.q_ss, p.q_sb);
+  if (rc == 0) rc = seq_map<D>(&m[1], p.k, p.Hkv, p.T, batch, p.k_sh, p.k_ss, p.k_sb);
+  if (rc == 0) rc = seq_map<D>(&m[2], p.v, p.Hkv, p.T, batch, p.v_sh, p.v_ss, p.v_sb);
+  if (rc == 0) rc = seq_map<D>(&m[3], p.dout, p.H, p.S, batch, p.o_sh, p.o_ss, p.o_sb);
   return rc;
 }
 
@@ -1570,6 +1615,327 @@ int launch_dkv_wgmma(const BwdParams& p, int n_rows, int batch, int cluster, cud
 
 #endif  // SFC_ATTN_PART == 1 && SFC_ATTN_DTYPE == 1
 
+#if SFC_ATTN_PART == 0 && SFC_ATTN_DTYPE == 1
+
+// ---------------------------------------------------------------------------
+// forward on wgmma and TMA (bf16): flash_fwd_wgmma_kernel (K11, K15)
+// ---------------------------------------------------------------------------
+
+namespace fw {
+
+using namespace hopper;
+using namespace fa;
+
+constexpr int kMaxWarpgroups = 2;  // consumer warpgroups a CTA, q heads of one kv head (build.py MAX_FWD_WARPGROUPS)
+constexpr int kFwdStages = 4;      // (k, v) stages of the ring (build.py FWD_WGMMA_STAGES)
+
+// W q tiles, then the ring of (k, v) stages, then the barriers, from a
+// 1024-byte aligned base (the swizzle's period).
+template <int D, int W>
+struct FwdWgSmem {
+  static constexpr int TILE = tile_bytes<D>();
+  static constexpr int Q = 0;
+  static constexpr int RING = W * TILE;
+  static constexpr int STAGE = 2 * TILE;  // k, then v
+  static constexpr int BARS = RING + kFwdStages * STAGE;
+  static constexpr int BYTES = 1024 + BARS + 8 * (1 + 2 * kFwdStages);
+};
+
+// The online softmax of k tile ik's S strip (unscaled q k^T) in the
+// accumulators' registers: each thread's two rows' new max over its quad of
+// lanes, P = e^(score - m) in place in f32 and its row sums into l, alpha =
+// e^(m_old - m_new), with score = scale * S.  A tile wholly inside the
+// sequences and the causal band (uniform across the CTA) has no mask to
+// evaluate: the max runs over S (scale > 0 keeps its order) and the scale
+// folds into one FMA before exp2.  Any other tile is masked, masked scores
+// exactly -1e30, so a row with no live score yet keeps m = -1e30 and p =
+// e^0 = 1, as the plain version does.
+__device__ __forceinline__ void fwd_softmax(float (&s)[32], float (&m_run)[2], float (&l_run)[2],
+                                            float (&alpha)[2], const FwdParams& p, int tw, int iq, int ik,
+                                            const int (&qpos)[2], bool rows_live) {
+  const bool whole = rows_live && (ik + 1) * kBK <= p.seq_k &&
+                     (!p.causal || (ik + 1) * kBK - 1 <= iq * kBQ + p.q_offset);
+  float mx[2] = {kNeg, kNeg};
+  if (whole) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int kpos = ik * kBK + acc_col(tw, i);
+      const bool ok = kpos < p.seq_k && qpos[r] < p.seq_q && (!p.causal || kpos <= qpos[r] + p.q_offset);
+      s[i] = ok ? s[i] * p.scale : kNeg;
+      mx[r] = fmaxf(mx[r], s[i]);
+    }
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], whole ? mx[r] * p.scale : mx[r]);
+    alpha[r] = exp2f((m_run[r] - m_new) * kLog2e);
+    m_run[r] = m_new;
+  }
+  if (whole) {
+    const float sl2 = p.scale * kLog2e, nm[2] = {-m_run[0] * kLog2e, -m_run[1] * kLog2e};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2f(fmaf(s[i], sl2, nm[r]));
+      sum[r] += s[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2f((s[i] - m_run[r]) * kLog2e);
+      sum[r] += s[i];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+    sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+    l_run[r] = l_run[r] * alpha[r] + sum[r];
+  }
+}
+
+// P's one bf16 rounding into wgmma's A fragments: an m64n64 accumulator and
+// the k16 A fragment share their element layout, so k16 slice kk is
+// accumulators 8kk..8kk+7, two a register, the lower column in the low half.
+__device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&pf)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    pf[i / 8][(i % 8) / 2] = pack_bf16(__float2bfloat16(s[i]), __float2bfloat16(s[i + 1]));
+}
+
+// One CTA per (64-row q tile, (batch, kv head), part of the GQA group): W
+// consumer warpgroups, warpgroup w the q head hk * groups + part * W + w,
+// and a producer warp.  The producer's one thread loads the W q tiles once
+// and streams the band row's (k, v) tiles through the ring; every stage is
+// read by all W warpgroups (its empty barrier counts their W * 128 threads),
+// so k and v cross from L2 once per W q heads.  Per k tile a warpgroup runs
+// S = q k^T (wgmma, both operands K-major as stored), masks and scales S in
+// the accumulators' registers (masked scores exactly -1e30), runs the f32
+// online softmax there (`fwd_softmax`), rescales O (64 x D f32, registers)
+// by alpha, and accumulates O += P v with P's bf16 A fragments from
+// registers (one rounding, as the tile kernel's) and v read N-major.  A
+// warpgroup issues tile j's S together with tile j - 1's P v and runs tile
+// j's softmax while P v is in flight (the products of one warpgroup overlap
+// its own softmax, and the W warpgroups overlap one another), so it holds
+// two stages at a time and releases tile j - 1's when its P v lands.  S, P
+// and O never touch shared memory; the flush writes o = O / max(l, 1e-30)
+// (times its reciprocal) from the registers as bf16 pairs and lse = m +
+// log(l).  A row at or past seq_q, and a row whose
+// tiles so far are all masked, keep m = -1e30 and p = e^0 = 1 per column, as
+// the plain version does, until alpha = e^(m - m') drops them at the first
+// live tile.  blockIdx.y walks the q tiles from the last (the longest
+// causal rows) to the first.
+template <int D, int W>
+__global__ void __launch_bounds__(W * 128 + 32, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const FwdParams p) {
+  using L = FwdWgSmem<D, W>;
+  constexpr int kConsumers = W * 128;
+  extern __shared__ unsigned char fw_smem_raw[];
+  unsigned char* sm = align1024(fw_smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kFwdStages;
+
+  const int iq = (int)gridDim.y - 1 - (int)blockIdx.y;
+  const int parts = p.groups / W;
+  const int hkv = p.H / p.groups;
+  const int part = (int)blockIdx.x % parts, bk = (int)blockIdx.x / parts;
+  const int b = bk / hkv, hk = bk % hkv;
+  const int h0 = hk * p.groups + part * W;
+  const int t0 = __ldg(p.row_start + iq), t1 = __ldg(p.row_start + iq + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qbar, W * L::TILE);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+#pragma unroll
+        for (int j = 0; j < D / kBox; ++j)
+          tma_load_4d(sm + L::Q + w * L::TILE + j * kBoxBytes, &tm_q, qbar, j * kBox, h0 + w, iq * kBQ, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t0; t < t1; ++t) {
+        const int ik = __ldg(p.tab_k + t);
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = sm + L::RING + stage * L::STAGE;
+        mbar_expect_tx(&full[stage], L::STAGE);
+#pragma unroll
+        for (int j = 0; j < D / kBox; ++j) {
+          tma_load_4d(st + j * kBoxBytes, &tm_k, &full[stage], j * kBox, hk, ik * kBK, b);
+          tma_load_4d(st + L::TILE + j * kBoxBytes, &tm_v, &full[stage], j * kBox, hk, ik * kBK, b);
+        }
+        if (++stage == kFwdStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  const int h = h0 + wg;
+  int qpos[2];
+  float m_run[2], l_run[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = iq * kBQ + acc_row(tw, 2 * r);
+    m_run[r] = kNeg;
+    l_run[r] = 0.0f;
+  }
+  const bool rows_live = (iq + 1) * kBQ <= p.seq_q;  // every q row of the tile inside seq_q
+  float o[D / 2];
+  zero(o);
+  uint32_t pf[4][4];  // P of the previous k tile: bf16 A fragments
+  const uint32_t q_addr = smem_u32(sm + L::Q + wg * L::TILE);
+  mbar_wait(qbar, 0);
+  // the pipeline: the first tile's S alone; then per tile S and the
+  // previous tile's P v together; then the last tile's P v (every path
+  // through the loop leaves the same products in flight)
+  if (t1 > t0) {
+    int stage = 0;
+    uint32_t phase = 0;
+    float s[32], alpha[2];
+    mbar_wait(&full[0], 0);
+    zero(s);
+    fence_acc(s);
+    wgmma_fence();
+    const uint32_t k0 = smem_u32(sm + L::RING);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<0>(s, desc_kmajor(q_addr, kk), desc_kmajor(k0, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fwd_softmax(s, m_run, l_run, alpha, p, tw, iq, __ldg(p.tab_k + t0), qpos, rows_live);
+    pack_p(s, pf);  // O is zero: no rescale
+    int prev = stage;
+    if (++stage == kFwdStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    for (int t = t0 + 1; t < t1; ++t) {
+      const int ik = __ldg(p.tab_k + t);
+      mbar_wait(&full[stage], phase);
+      const uint32_t k_addr = smem_u32(sm + L::RING + stage * L::STAGE);
+      const uint32_t v_prev = smem_u32(sm + L::RING + prev * L::STAGE) + L::TILE;
+      zero(s);
+      fence_acc(s);
+      fence_acc(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<0>(s, desc_kmajor(q_addr, kk), desc_kmajor(k_addr, kk));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(o, pf[kk], desc_nmajor(v_prev, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // S has landed; P v is in flight through the softmax
+      fence_acc(s);
+      fwd_softmax(s, m_run, l_run, alpha, p, tw, iq, ik, qpos, rows_live);
+      wgmma_wait<0>();
+      fence_acc(o);
+      mbar_arrive(&empty[prev]);  // the previous tile's stage goes back to the producer
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      pack_p(s, pf);
+      prev = stage;
+      if (++stage == kFwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    const uint32_t v_last = smem_u32(sm + L::RING + prev * L::STAGE) + L::TILE;
+    fence_acc(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(o, pf[kk], desc_nmajor(v_last, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    mbar_arrive(&empty[prev]);
+  }
+
+  bf16* out = static_cast<bf16*>(p.o);
+  float lc[2], rl[2];  // max(l, 1e-30) and its reciprocal
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lc[r] = fmaxf(l_run[r], kTiny);
+    rl[r] = 1.0f / lc[r];
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    if (qpos[r] >= p.S) continue;
+    const long long at = (((long long)b * p.S + qpos[r]) * p.H + h) * D + acc_col(tw, i);
+    *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(o[i] * rl[r], o[i + 1] * rl[r]);
+  }
+  if (p.lse != nullptr && tw % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] < p.S) p.lse[((long long)b * p.S + qpos[r]) * p.H + h] = m_run[r] + logf(lc[r]);
+    }
+  }
+}
+
+// The three maps of a forward launch: q in 64-row boxes of one q head, k
+// and v of one kv head.
+template <int D>
+int fwd_maps(const FwdParams& p, int batch, CUtensorMap (&m)[3]) {
+  if (!aligned16(p.q) || !aligned16(p.k) || !aligned16(p.v)) return static_cast<int>(cudaErrorInvalidValue);
+  const int hkv = p.H / p.groups;
+  int rc = seq_map<D>(&m[0], p.q, p.H, p.S, batch, p.q_sh, p.q_ss, p.q_sb);
+  if (rc == 0) rc = seq_map<D>(&m[1], p.k, hkv, p.T, batch, p.k_sh, p.k_ss, p.k_sb);
+  if (rc == 0) rc = seq_map<D>(&m[2], p.v, hkv, p.T, batch, p.v_sh, p.v_ss, p.v_sb);
+  return rc;
+}
+
+template <int D, int W>
+int launch_fwd_wgmma_w(const FwdParams& p, int nq, int batch, cudaStream_t s) {
+  constexpr int bytes = FwdWgSmem<D, W>::BYTES;
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
+  CUtensorMap m[3];
+  int rc = fwd_maps<D>(p, batch, m);
+  if (rc != 0) return rc;
+  static bool opted_in[kMaxDevices] = {};
+  rc = opt_in(flash_fwd_wgmma_kernel<D, W>, bytes, opted_in);
+  if (rc != 0) return rc;
+  const dim3 grid((unsigned)(batch * (p.H / p.groups) * (p.groups / W)), (unsigned)nq);
+  flash_fwd_wgmma_kernel<D, W><<<grid, W * 128 + 32, bytes, s>>>(m[0], m[1], m[2], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// W consumer warpgroups a CTA, a divisor of the group, at most kMaxWarpgroups.
+template <int D>
+int launch_fwd_wgmma(const FwdParams& p, int nq, int batch, int warpgroups, cudaStream_t s) {
+  if (p.groups < 1 || p.H % p.groups != 0 || warpgroups < 1 || warpgroups > kMaxWarpgroups ||
+      p.groups % warpgroups != 0 || nq < 1 || nq > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return warpgroups == 1 ? launch_fwd_wgmma_w<D, 1>(p, nq, batch, s) : launch_fwd_wgmma_w<D, 2>(p, nq, batch, s);
+}
+
+}  // namespace fw
+
+#endif  // SFC_ATTN_PART == 0 && SFC_ATTN_DTYPE == 1
+
 #if SFC_ATTN_DTYPE == 1
 typedef bf16 ElemT;
 #else
@@ -1587,6 +1953,39 @@ int launch_fwd(const FwdParams& p, int nq, int bh, cudaStream_t s) {
   if (rc != 0) return rc;
   flash_fwd_kernel<ElemT, D><<<dim3((unsigned)nq, (unsigned)bh), kFwdThreads, bytes, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+FwdParams fwd_params(const void* q, const void* k, const void* v, void* o, float* lse, const int* tab_k,
+                     const int* row_start, int H, int groups, int S, int T, int seq_q, int seq_k, int q_offset,
+                     int causal, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+                     long long k_sh, long long v_sb, long long v_ss, long long v_sh, float scale) {
+  FwdParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = lse;
+  p.tab_k = tab_k;
+  p.row_start = row_start;
+  p.S = S;
+  p.T = T;
+  p.seq_q = seq_q;
+  p.seq_k = seq_k;
+  p.H = H;
+  p.groups = groups;
+  p.q_offset = q_offset;
+  p.causal = causal;
+  p.q_sb = q_sb;
+  p.q_ss = q_ss;
+  p.q_sh = q_sh;
+  p.k_sb = k_sb;
+  p.k_ss = k_ss;
+  p.k_sh = k_sh;
+  p.v_sb = v_sb;
+  p.v_ss = v_ss;
+  p.v_sh = v_sh;
+  p.scale = scale;
+  return p;
 }
 
 // The split kernel over batch * Hkv clusters of `splits` CTAs, one launch.
@@ -1705,33 +2104,29 @@ BwdParams bwd_params(const void* q, const void* k, const void* v, const void* do
       int seq_k, int q_offset, int causal, long long q_sb, long long q_ss, long long q_sh,      \
       long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,           \
       long long v_sh, float scale, void* stream) {                                              \
-    FwdParams p;                                                                                \
-    p.q = q;                                                                                    \
-    p.k = k;                                                                                    \
-    p.v = v;                                                                                    \
-    p.o = o;                                                                                    \
-    p.lse = lse;                                                                                \
-    p.tab_k = tab_k;                                                                            \
-    p.row_start = row_start;                                                                    \
-    p.S = S;                                                                                    \
-    p.T = T;                                                                                    \
-    p.seq_q = seq_q;                                                                            \
-    p.seq_k = seq_k;                                                                            \
-    p.H = H;                                                                                    \
-    p.groups = groups;                                                                          \
-    p.q_offset = q_offset;                                                                      \
-    p.causal = causal;                                                                          \
-    p.q_sb = q_sb;                                                                              \
-    p.q_ss = q_ss;                                                                              \
-    p.q_sh = q_sh;                                                                              \
-    p.k_sb = k_sb;                                                                              \
-    p.k_ss = k_ss;                                                                              \
-    p.k_sh = k_sh;                                                                              \
-    p.v_sb = v_sb;                                                                              \
-    p.v_ss = v_ss;                                                                              \
-    p.v_sh = v_sh;                                                                              \
-    p.scale = scale;                                                                            \
+    const FwdParams p = fwd_params(q, k, v, o, lse, tab_k, row_start, H, groups, S, T, seq_q,   \
+                                   seq_k, q_offset, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, \
+                                   v_sb, v_ss, v_sh, scale);                                    \
     return launch_fwd<D>(p, nq, batch * H, static_cast<cudaStream_t>(stream));                  \
+  }
+
+// The wgmma forward's entry (bf16): the forward entry's arguments, then W
+// (`warpgroups`, q heads of one kv head a CTA: a divisor of the group, at
+// most 2) before the stream; the launch is (batch * Hkv * groups / W, nq)
+// CTAs, the last q tile (the longest causal row) first.  q, k and v need
+// 16-byte aligned bases and strides of whole 16 bytes, as TMA does.
+#define SFC_FWD_WGMMA_ENTRY(D)                                                                  \
+  extern "C" int SFC_CAT(sfc_attn_fwd_wgmma_, SFC_ATTN_TAG, _d, D)(                             \
+      const void* q, const void* k, const void* v, void* o, float* lse, const int* tab_k,       \
+      const int* row_start, int nq, int batch, int H, int groups, int S, int T, int seq_q,      \
+      int seq_k, int q_offset, int causal, long long q_sb, long long q_ss, long long q_sh,      \
+      long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,           \
+      long long v_sh, float scale, int warpgroups, void* stream) {                              \
+    const FwdParams p = fwd_params(q, k, v, o, lse, tab_k, row_start, H, groups, S, T, seq_q,   \
+                                   seq_k, q_offset, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, \
+                                   v_sb, v_ss, v_sh, scale);                                    \
+    return fw::launch_fwd_wgmma<D>(p, nq, batch, warpgroups,                                    \
+                                   static_cast<cudaStream_t>(stream));                          \
   }
 
 // Decode entry: one launch over batch * Hkv clusters of `splits` CTAs,
@@ -1828,6 +2223,10 @@ SFC_FWD_ENTRY(64)
 SFC_FWD_ENTRY(128)
 SFC_DECODE_ENTRY(64)
 SFC_DECODE_ENTRY(128)
+#if SFC_ATTN_DTYPE == 1
+SFC_FWD_WGMMA_ENTRY(64)
+SFC_FWD_WGMMA_ENTRY(128)
+#endif
 #else
 SFC_DQ_ENTRY(64)
 SFC_DQ_ENTRY(128)

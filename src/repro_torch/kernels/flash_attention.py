@@ -9,12 +9,16 @@ kernel of ``csrc/sfc_attention.cu`` in its dense mode: each q row's k
 tiles are uploaded in ascending order (the tiles the TPU kernel computes,
 without the skipped ones) and no lse is stored.  GQA is resolved by the
 kernel's head map (q head h reads kv head ``h // groups``) instead of
-expanding K and V, and the (B, S, H, D) layout is kept.  A CPU tensor goes
-to `flash_attention_plain`; a CUDA tensor launches the kernel or raises.
+expanding K and V, and the (B, S, H, D) layout is kept.  A bf16 call whose
+operands TMA can describe takes ``flash_fwd_wgmma_kernel`` (W q heads of
+one kv head a CTA, sharing each k / v tile), every other call
+``flash_fwd_kernel`` (`sfc_attention.launch_flash_fwd`).  A CPU tensor goes
+to `flash_attention_plain`; a CUDA tensor launches a kernel or raises.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import List
@@ -112,7 +116,8 @@ def flash_attention(
     On a CPU tensor it runs `flash_attention_plain` with the given chunks.
     On a CUDA tensor it launches the kernel, whose chunks are its compiled
     tile (``build.ATTN_TILE``; the chunk arguments are the TPU's VMEM
-    blocks and do not apply), and adds one to ``flash_attention.launches``.
+    blocks and do not apply), and adds one to ``flash_attention.launches``
+    and to ``launches_by_kernel[(kernel, W)]`` (the tile kernel's W: 1).
     Inputs that need a gradient raise.
     """
     require_no_grad("flash_attention", q, k, v)
@@ -124,10 +129,13 @@ def flash_attention(
     qc, kc = build.ATTN_TILE
     tab_k, row_start = _device_dense(math.ceil(q.shape[1] / qc), math.ceil(k.shape[1] / kc), bool(causal),
                                      q.device)
-    o, _ = launch_flash_fwd(q, k, v, tab_k, row_start, causal=causal, seq_q=q.shape[1], seq_k=k.shape[1],
-                            q_offset=0, want_lse=False)
-    flash_attention.launches += 1
+    o, _, key = launch_flash_fwd(q, k, v, tab_k, row_start, causal=causal, seq_q=q.shape[1], seq_k=k.shape[1],
+                                 q_offset=0, want_lse=False)
+    if key is not None:
+        flash_attention.launches += 1
+        flash_attention.launches_by_kernel[key] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = collections.Counter()

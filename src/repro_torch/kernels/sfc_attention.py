@@ -26,11 +26,13 @@ final division guarded by ``max(l, 1e-30)``; the backward's
 ``csrc/sfc_attention.cu`` or the call raises; there is no fallback from
 one to the other.  On the card the chunks are the kernel's compiled tile
 (`kernel_chunks`; the f32 dK/dV kernel's is ``build.ATTN_DKV_TILE``).
-The backward has two kernels each: a bf16 call whose operands TMA can
-describe (`uses_bwd_wgmma_kernel`) takes the wgmma kernels (K13 then sums
-its group's q heads in parts, one a CTA of its cluster, the order
-`sfc_flash_bwd_dkv_plain` takes with ``group_parts``), every other call
-the 64 x 64 tile kernels.
+The forward and the backward have two kernels each: a bf16 call whose
+operands TMA can describe (`uses_fwd_wgmma_kernel`,
+`uses_bwd_wgmma_kernel`) takes the wgmma kernels (the forward's CTA runs
+W q heads of one kv head on one stream of k / v tiles, `fwd_wgmma_grid`;
+K13 sums its group's q heads in parts, one a CTA of its cluster, the
+order `sfc_flash_bwd_dkv_plain` takes with ``group_parts``), every other
+call the 64 x 64 tile kernels.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ __all__ = [
     "require_no_grad",
     "sfc_flash_fwd",
     "sfc_flash_fwd_plain",
+    "uses_fwd_wgmma_kernel",
+    "fwd_wgmma_grid",
     "sfc_flash_bwd_dq",
     "sfc_flash_bwd_dq_plain",
     "sfc_flash_bwd_dkv",
@@ -151,6 +155,7 @@ def sfc_flash_fwd_plain(
     seq_q: Optional[int] = None,
     seq_k: Optional[int] = None,
     q_offset: int = 0,
+    p_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the band flash forward, on any device.
 
@@ -159,7 +164,10 @@ def sfc_flash_fwd_plain(
     1/sqrt(D) in f32, masked scores NEG, f32 online softmax, flush at the
     row's last task.  Sequences are zero-padded to chunk multiples here (as
     the JAX wrapper pads); rows at or past ``seq_q`` hold the masked
-    sentinel.  Returns o (B, S, H, D) in q's type and lse (B, S, H) f32.
+    sentinel.  ``p_dtype`` rounds P to that type for P v, the row sums
+    keeping the f32 P: ``torch.bfloat16`` is the CUDA kernels' bf16 forward,
+    which rounds P once (the JAX kernel and None keep P f32).  Returns o
+    (B, S, H, D) in q's type and lse (B, S, H) f32.
     """
     seq_q, seq_k = check_fwd_shapes(q, k, v, seq_q, seq_k, q_offset)
     b, s, h, d = q.shape
@@ -192,7 +200,7 @@ def sfc_flash_fwd_plain(
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
         p = torch.exp(sc - m_new)
         alpha = torch.exp(m - m_new)
-        acc = acc * alpha + p @ vp[:, :, ks]
+        acc = acc * alpha + (p if p_dtype is None else p.to(p_dtype).float()) @ vp[:, :, ks]
         m = m_new
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         if last:
@@ -245,6 +253,76 @@ def _check_launch(name: str, q: torch.Tensor, *others: torch.Tensor) -> str:
     return build.DTYPE_NAMES[str(q.dtype).split(".")[1]]
 
 
+_TMA_MAX_STRIDE = 2**37  # elements: a tensor map's strides are below 2^40 bytes
+
+
+def _wgmma_operands(dtype: torch.dtype, d: int, strides, bases) -> bool:
+    """Whether the wgmma flash kernels take operands of this type and head
+    dim, each operand's (batch, seq, head, dim) element strides (as
+    `_tma_strides` gives them) in ``strides`` and its data pointer in
+    ``bases``: bf16, a head dim of 64 or 128, and views a TMA tensor map can
+    describe (a contiguous last dim, the other strides positive whole 16
+    bytes, 16-byte aligned bases)."""
+    if dtype != torch.bfloat16 or d not in build.ATTN_HEAD_DIMS:
+        return False
+    for st in strides:
+        if st[-1] != 1 or not all(0 < x < _TMA_MAX_STRIDE and x % 8 == 0 for x in st[:-1]):
+            return False
+    return all(base % 16 == 0 for base in bases)
+
+
+def uses_fwd_wgmma_kernel(dtype: torch.dtype, d: int, strides, bases) -> bool:
+    """Whether the flash forward (K11, K15) launches ``flash_fwd_wgmma_kernel``
+    for these operands on the card: `_wgmma_operands` of q, k and v (one
+    strides tuple and one base each).  Every other call takes
+    ``flash_fwd_kernel``, the 64 x 64 tile kernel."""
+    return _wgmma_operands(dtype, d, strides, bases)
+
+
+def _tma_strides(t: torch.Tensor) -> Tuple[int, ...]:
+    """The (batch, seq, head, dim) element strides of a (B, S, H, D) view as
+    its tensor map takes them: a dim of extent 1 is never stepped, so its
+    stride (which PyTorch leaves arbitrary) becomes the extent of the dims
+    inside it."""
+    if 1 not in t.shape[:3]:
+        return t.stride()
+    st = list(t.stride())
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = max(st[j] * t.shape[j] for j in range(i + 1, 4))
+    return tuple(st)
+
+
+def _fwd_route(q, k, v):
+    """(whether ``flash_fwd_wgmma_kernel`` takes q, k, v, their strides as
+    `_tma_strides` gives them)."""
+    strides = [_tma_strides(x) for x in (q, k, v)]
+    return uses_fwd_wgmma_kernel(q.dtype, q.shape[-1], strides, [x.data_ptr() for x in (q, k, v)]), strides
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_wgmma_grid(b: int, s: int, t: int, h: int, hkv: int,
+                   sm_count: int = H100_SMS) -> Tuple[Tuple[int, int], int]:
+    """((grid x, grid y), W) of a ``flash_fwd_wgmma_kernel`` launch: one CTA
+    per (64-row q tile, (batch, kv head), part of the GQA group), x the
+    (batch, kv head, part), y the q tile, each CTA W consumer warpgroups
+    on W q heads of its kv head that share every k / v tile it loads.  W
+    is a divisor of the group, at most ``build.MAX_FWD_WARPGROUPS``: the
+    smallest whose CTAs fit one wave of ``sm_count`` SMs (one CTA an SM),
+    since two warpgroups on one SM lengthen a CTA that has the SM to
+    itself (one prompt's prefill, 1 x 128 tokens at 32 / 8 heads: W 1's
+    64 CTAs 0.0074 ms, W 2's 32 CTAs 0.0092-0.0096 on an H100 80GB HBM3 at
+    700 W); where none does, the largest, which reads k / v once per W q
+    heads (W 2 10-30% faster than W 1 at 4 x 128, 2 x 256 and 1 x 2000).
+    The keys ``t`` takes no part.  `scripts/split_sweep.py k11` times
+    every W.  A function of the shapes and the card alone."""
+    nq, groups = math.ceil(s / build.ATTN_TILE[0]), h // hkv
+    sizes = [w for w in range(1, min(groups, build.MAX_FWD_WARPGROUPS) + 1) if groups % w == 0]
+    fits = [w for w in sizes if nq * b * hkv * (groups // w) <= sm_count]
+    w = min(fits) if fits else max(sizes)
+    return (b * hkv * (groups // w), nq), w
+
+
 def launch_flash_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -257,21 +335,33 @@ def launch_flash_fwd(
     seq_k: int,
     q_offset: int,
     want_lse: bool,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One launch of the CUDA flash forward over the (row, (batch, head))
-    grid with the given per-row task segments.  Shared by K11 (serpentine
-    band, lse) and K15 (ascending k tiles, no lse); counts nothing."""
+    warpgroups: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Tuple[str, int]]]:
+    """One launch of a CUDA flash forward over the given per-row task
+    segments, one row a q tile: ``flash_fwd_wgmma_kernel`` where
+    `uses_fwd_wgmma_kernel` says so, with `fwd_wgmma_grid`'s W on this card
+    (``warpgroups`` forces another), else ``flash_fwd_kernel``.  Shared by
+    K11 (serpentine band, lse) and K15 (ascending k tiles, no lse).
+    Returns (o, lse or None, the launched (kernel, W) key, None where the
+    output is empty and nothing was launched); counts nothing."""
     b, s, h, d = q.shape
     _, t, hkv, _ = k.shape
     dt = _check_launch("flash forward", q, k, v)
-    if b * h > _MAX_GRID_Y:
-        raise ValueError(f"batch x heads {b * h} exceeds the grid limit {_MAX_GRID_Y}")
+    nq = row_start.numel() - 1
+    wgmma, strides = _fwd_route(q, k, v)
+    if (nq if wgmma else b * h) > _MAX_GRID_Y:
+        raise ValueError(f"{'q tiles' if wgmma else 'batch x heads'} {nq if wgmma else b * h} exceed the grid "
+                         f"limit {_MAX_GRID_Y}")
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device) if want_lse else None
     if o.numel() == 0:
-        return o, lse
-    nq = row_start.numel() - 1
-    fn = getattr(build.load_attention_library(), build.attn_entry_name("fwd", dt, d))
+        return o, lse, None
+    if wgmma:
+        w = warpgroups or fwd_wgmma_grid(b, s, t, h, hkv, sm_count(q.device))[1]
+        key, extra = ("flash_fwd_wgmma_kernel", w), (w,)
+    else:
+        key, extra, strides = ("flash_fwd_kernel", 1), (), (q.stride(), k.stride(), v.stride())
+    fn = getattr(build.load_attention_library(), build.attn_entry_name("fwd_wgmma" if wgmma else "fwd", dt, d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -280,13 +370,14 @@ def launch_flash_fwd(
             nq, b, h, h // hkv,
             s, t, seq_q, seq_k,
             q_offset, int(causal),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *(x for st in strides for x in st[:3]),
             1.0 / math.sqrt(d),
+            *extra,
             stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash forward kernel launch failed with CUDA error {rc}")
-    return o, lse
+    return o, lse, key
 
 
 def sfc_flash_fwd(
@@ -307,9 +398,12 @@ def sfc_flash_fwd(
     ``seq_q``/``seq_k`` (default: the shapes) bound the masks;
     ``q_offset`` places q row i at global position ``q_offset + i`` of a
     causal stream whose first ``q_offset`` keys are cached.  On a CUDA
-    tensor this launches the kernel, whose tile is fixed at compile time:
+    tensor this launches a forward kernel (`launch_flash_fwd`:
+    ``flash_fwd_wgmma_kernel`` for the operands `uses_fwd_wgmma_kernel`
+    takes, else ``flash_fwd_kernel``), whose tile is fixed at compile time:
     the chunks must be `kernel_chunks()` or None.  Every launch adds one to
-    ``sfc_flash_fwd.launches``.  On a CPU tensor it runs
+    ``sfc_flash_fwd.launches`` and to ``launches_by_kernel[(kernel, W)]``
+    (the tile kernel's W: 1).  On a CPU tensor it runs
     `sfc_flash_fwd_plain` (chunks default to the kernel's) and counts
     nothing.
     """
@@ -326,13 +420,16 @@ def sfc_flash_fwd(
     qc, kc = build.ATTN_TILE
     tab_k, row_start = _device_band(math.ceil(q.shape[1] / qc), math.ceil(k.shape[1] / kc), bool(causal),
                                     int(q_offset), q.device)
-    o, lse = launch_flash_fwd(q, k, v, tab_k, row_start, causal=causal, seq_q=seq_q, seq_k=seq_k,
-                              q_offset=q_offset, want_lse=True)
-    sfc_flash_fwd.launches += 1
+    o, lse, key = launch_flash_fwd(q, k, v, tab_k, row_start, causal=causal, seq_q=seq_q, seq_k=seq_k,
+                                   q_offset=q_offset, want_lse=True)
+    if key is not None:
+        sfc_flash_fwd.launches += 1
+        sfc_flash_fwd.launches_by_kernel[key] += 1
     return o, lse
 
 
 sfc_flash_fwd.launches = 0
+sfc_flash_fwd.launches_by_kernel = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -486,38 +583,13 @@ def sfc_flash_bwd_dkv_plain(
     return dk[:, :, :t].transpose(1, 2).to(k.dtype), dv[:, :, :t].transpose(1, 2).to(v.dtype)
 
 
-_TMA_MAX_STRIDE = 2**37  # elements: a tensor map's strides are below 2^40 bytes
-
-
 def uses_bwd_wgmma_kernel(dtype: torch.dtype, d: int, strides, bases) -> bool:
     """Whether the flash backward launches its wgmma kernels (K12
     ``flash_bwd_dq_wgmma_kernel``, K13 ``flash_bwd_dkv_wgmma_kernel``) for
-    these operands on the card: bf16, a head dim of 64 or 128, and q, k, v
-    and dO that a TMA tensor map can describe: each of ``strides`` (one
-    (batch, seq, head, dim) element-stride tuple an operand, as `_tma_strides`
-    gives them) with a contiguous last dim and the others positive whole 16
-    bytes, and each of ``bases`` (data pointers) 16-byte aligned.  Every
-    other call takes the 64 x 64 tile kernels."""
-    if dtype != torch.bfloat16 or d not in build.ATTN_HEAD_DIMS:
-        return False
-    for st in strides:
-        if st[-1] != 1 or not all(0 < x < _TMA_MAX_STRIDE and x % 8 == 0 for x in st[:-1]):
-            return False
-    return all(base % 16 == 0 for base in bases)
-
-
-def _tma_strides(t: torch.Tensor) -> Tuple[int, ...]:
-    """The (batch, seq, head, dim) element strides of a (B, S, H, D) view as
-    its tensor map takes them: a dim of extent 1 is never stepped, so its
-    stride (which PyTorch leaves arbitrary) becomes the extent of the dims
-    inside it."""
-    if 1 not in t.shape[:3]:
-        return t.stride()
-    st = list(t.stride())
-    for i in (2, 1, 0):
-        if t.shape[i] == 1:
-            st[i] = max(st[j] * t.shape[j] for j in range(i + 1, 4))
-    return tuple(st)
+    these operands on the card: `_wgmma_operands` of q, k, v and dO (one
+    strides tuple and one base each).  Every other call takes the 64 x 64
+    tile kernels."""
+    return _wgmma_operands(dtype, d, strides, bases)
 
 
 def _bwd_route(q, k, v, do):

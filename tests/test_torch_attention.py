@@ -111,6 +111,23 @@ def test_flash_fwd_bf16_within_one_rounding():
     _close(lse, want_lse)
 
 
+def test_flash_fwd_plain_rounds_p_only_for_p_v():
+    """``p_dtype=torch.bfloat16`` models the CUDA kernels' bf16 forward: in
+    one k tile, o is P rounded to bf16 times v over the f32 row sum; over
+    several tiles the lse is the f32-P run's, bitwise."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(1, 16, 16, 4, 2, 16, seed=6))
+    o, lse = tsa.sfc_flash_fwd_plain(q, k, v, causal=True, q_chunk=16, k_chunk=16, p_dtype=torch.bfloat16)
+    sc = torch.einsum("bshd,bthd->bhst", q.float() / 4.0, k.float().repeat_interleave(2, dim=2))
+    sc = sc.masked_fill(~torch.ones(16, 16, dtype=torch.bool).tril(), tsa.NEG)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    want = (p.bfloat16().float() @ v.float().repeat_interleave(2, dim=2).transpose(1, 2)) / p.sum(-1, keepdim=True)
+    _close(o.float(), want.transpose(1, 2).bfloat16().float())
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(2, 33, 40, 4, 2, 16, seed=7))
+    kw = dict(causal=True, q_chunk=16, k_chunk=16, q_offset=7)
+    assert torch.equal(tsa.sfc_flash_fwd_plain(q, k, v, p_dtype=torch.bfloat16, **kw)[1],
+                       tsa.sfc_flash_fwd_plain(q, k, v, **kw)[1])
+
+
 def test_flash_fwd_masks_rows_past_seq_like_jax():
     """seq_q / seq_k shorter than the tensors: the masks, not the shapes,
     bound the attention, and masked rows carry the JAX kernel's sentinel."""

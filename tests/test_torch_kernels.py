@@ -233,10 +233,35 @@ def test_flash_fwd_kernel_matches_plain_version_on_card(dtype, case):
         "masks_shorter_than_shapes": ((1, 100, 100, 4, 2, 128), dict(causal=True, seq_q=90, seq_k=77)),
     }[case]
     q, k, v = _attn_inputs(b, s, t, h, hkv, d, dt)
-    before = tsa.sfc_flash_fwd.launches
-    o, lse = tsa.sfc_flash_fwd(q, k, v, **kw)
+    # bf16 takes the wgmma kernel, f32 the 64 x 64 tile kernel
+    _check_flash_fwd(q, k, v, kw, _fwd_wgmma_key(q, k) if dtype == "bfloat16" else ("flash_fwd_kernel", 1))
+
+
+def _fwd_wgmma_key(q, k):
+    """The forward's launch key on the wgmma kernel: its W, `fwd_wgmma_grid`'s
+    on this card."""
+    from repro_torch.core.device import sm_count
+
+    return "flash_fwd_wgmma_kernel", tsa.fwd_wgmma_grid(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                                                        k.shape[2], sm_count(q.device))[1]
+
+
+def _counted(fn, call):
+    """(call(), the keys ``fn.launches_by_kernel`` gained and by how much),
+    asserting ``fn.launches`` moved by as many."""
+    before, launches = dict(fn.launches_by_kernel), fn.launches
+    out = call()
+    added = {k_: n - before.get(k_, 0) for k_, n in fn.launches_by_kernel.items() if n != before.get(k_, 0)}
+    assert fn.launches == launches + sum(added.values())
+    return out, added
+
+
+def _check_flash_fwd(q, k, v, kw, key):
+    """One K11 launch on the given (kernel, W) key against its plain version."""
+    dt = q.dtype
+    (o, lse), added = _counted(tsa.sfc_flash_fwd, lambda: tsa.sfc_flash_fwd(q, k, v, **kw))
     torch.cuda.synchronize()
-    assert tsa.sfc_flash_fwd.launches == before + 1
+    assert added == {key: 1}
     qc, kc = tsa.kernel_chunks()
     want_o, want_lse = tsa.sfc_flash_fwd_plain(q, k, v, q_chunk=qc, k_chunk=kc, **kw)
     assert o.dtype == dt and o.shape == want_o.shape and lse.shape == want_lse.shape
@@ -251,12 +276,135 @@ def test_dense_flash_kernel_matches_plain_version_on_card(dtype, causal):
     _card()
     dt = getattr(torch, dtype)
     q, k, v = _attn_inputs(2, 130, 130, 8, 2, 128, dt, seed=21)
-    before = tfa.flash_attention.launches
-    got = tfa.flash_attention(q, k, v, causal=causal, q_chunk=512, k_chunk=1024)
+    _check_dense_flash(q, k, v, causal, _fwd_wgmma_key(q, k) if dtype == "bfloat16" else ("flash_fwd_kernel", 1))
+
+
+def _check_dense_flash(q, k, v, causal, key):
+    """One K15 launch on the given (kernel, W) key against its plain version."""
+    got, added = _counted(tfa.flash_attention,
+                          lambda: tfa.flash_attention(q, k, v, causal=causal, q_chunk=512, k_chunk=1024))
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == before + 1
+    assert added == {key: 1}
     qc, kc = tsa.kernel_chunks()
-    assert _agree(got, tfa.flash_attention_plain(q, k, v, causal=causal, q_chunk=qc, k_chunk=kc), dt)
+    assert _agree(got, tfa.flash_attention_plain(q, k, v, causal=causal, q_chunk=qc, k_chunk=kc), q.dtype)
+
+
+# (b, s, t, h, hkv, d, keywords, strided) of the wgmma forward: GQA 4:1 at
+# the training shape, 8:1, 16:1 and one group (olmoe's 16 / 16 heads); the
+# model's strided views of one fused projection; D 64 with ragged rows and
+# q_offset; masks shorter than the shapes (rows at or past seq_q keep the
+# plain version's masked arithmetic); non-causal cross attention
+FWD_WGMMA_CASES = {
+    "gqa_4_to_1_train": ((2, 256, 256, 32, 8, 128), dict(causal=True), False),
+    "gqa_8_to_1": ((2, 256, 256, 32, 4, 128), dict(causal=True), False),
+    "gqa_16_to_1": ((1, 300, 300, 16, 1, 128), dict(causal=True), False),
+    "groups_1_olmoe": ((2, 256, 256, 16, 16, 128), dict(causal=True), False),
+    "strided_fused_qkv_ragged": ((2, 190, 190, 8, 2, 128), dict(causal=True), True),
+    "d64_ragged_q_offset": ((1, 77, 150, 6, 2, 64), dict(causal=True, q_offset=50), False),
+    "masks_shorter_than_shapes": ((1, 100, 100, 4, 2, 128), dict(causal=True, seq_q=90, seq_k=77), False),
+    "non_causal_cross_d64": ((2, 50, 200, 4, 1, 64), dict(causal=False), False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FWD_WGMMA_CASES))
+def test_fwd_wgmma_kernel_matches_plain_version_on_card(case):
+    _card()
+    (b, s, t, h, hkv, d), kw, strided = FWD_WGMMA_CASES[case]
+    if strided:
+        q, k, v = _strided_qkv(b, s, h, hkv, d, torch.bfloat16, seed=35)
+        assert not q.is_contiguous() and q.stride()[1] == (h + 2 * hkv) * d
+    else:
+        q, k, v = _attn_inputs(b, s, t, h, hkv, d, torch.bfloat16, seed=35)
+    _check_flash_fwd(q, k, v, kw, _fwd_wgmma_key(q, k))
+
+
+@pytest.mark.cuda
+def test_fwd_wgmma_kernel_at_every_w_matches_plain_version_on_card():
+    """Each W (q heads a CTA), forced, at a ragged GQA shape with q_offset:
+    bitwise one result, o within the bf16 bound of the plain version that
+    rounds P to bf16 for P v as both CUDA kernels do (the forward's
+    contract), lse within the f32 bound of the plain version's.  At these
+    inputs that rounding alone puts one element (q row 17, head 3) at 1.15x
+    the bf16 bound of the f32-P result."""
+    _card()
+    q, k, v = _attn_inputs(1, 190, 250, 8, 2, 128, torch.bfloat16, seed=36)
+    kw = dict(causal=True, seq_q=190, seq_k=250, q_offset=60)
+    tab_k, rows = tsa._device_band(3, 4, True, 60, q.device)
+    outs = {}
+    for warpgroups in (1, 2):
+        o, lse, key = tsa.launch_flash_fwd(q, k, v, tab_k, rows, want_lse=True, warpgroups=warpgroups, **kw)
+        assert key == ("flash_fwd_wgmma_kernel", warpgroups)
+        outs[warpgroups] = (o, lse)
+    torch.cuda.synchronize()
+    o, lse = outs[1]
+    assert torch.equal(o, outs[2][0]) and torch.equal(lse, outs[2][1])
+    want_o, want_lse = tsa.sfc_flash_fwd_plain(q, k, v, q_chunk=64, k_chunk=64, p_dtype=torch.bfloat16, **kw)
+    assert _agree(o, want_o, torch.bfloat16) and _agree(lse, want_lse, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+def test_dense_flash_on_the_fwd_wgmma_kernel_matches_plain_version_on_card(strided):
+    """K15 (ascending k tiles, no lse) on the wgmma kernel: the training
+    shape's heads, contiguous and as the strided views of a fused projection."""
+    _card()
+    if strided:
+        q, k, v = _strided_qkv(2, 256, 32, 8, 128, torch.bfloat16, seed=37)
+    else:
+        q, k, v = _attn_inputs(2, 256, 256, 32, 8, 128, torch.bfloat16, seed=37)
+    _check_dense_flash(q, k, v, True, _fwd_wgmma_key(q, k))
+
+
+@pytest.mark.cuda
+def test_fwd_wgmma_kernel_replays_in_a_cuda_graph_with_no_state_left():
+    """K11 and K15 on the wgmma kernel keep nothing on the device between
+    launches: a CUDA graph of both replays to the eager results bitwise, and
+    the replays count no launch."""
+    _card()
+    q, k, v = _attn_inputs(2, 256, 256, 32, 8, 128, torch.bfloat16, seed=38)
+
+    def step():
+        return (*tsa.sfc_flash_fwd(q, k, v, causal=True), tfa.flash_attention(q, k, v, causal=True))
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    counts = (dict(tsa.sfc_flash_fwd.launches_by_kernel), dict(tfa.flash_attention.launches_by_kernel))
+    key = _fwd_wgmma_key(q, k)
+    assert counts[0][key] >= 3 and counts[1][key] >= 3
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(out, eager))
+    assert (dict(tsa.sfc_flash_fwd.launches_by_kernel), dict(tfa.flash_attention.launches_by_kernel)) == counts
+
+
+@pytest.mark.cuda
+def test_calls_the_fwd_wgmma_rule_refuses_land_on_the_tile_kernel_on_card():
+    """A kv cache broadcast over the batch (stride 0, which a tensor map does
+    not take) and an f32 call take the 64 x 64 tile kernel; a wgmma launch
+    that the kernel refuses (3 warpgroups a CTA) raises, with no fallback
+    and no count."""
+    _card()
+    q, k, v = _attn_inputs(2, 100, 100, 8, 2, 128, torch.bfloat16, seed=39)
+    kb, vb = k[:1].expand(2, -1, -1, -1), v[:1].expand(2, -1, -1, -1)
+    assert kb.stride(0) == 0
+    _check_flash_fwd(q, kb, vb, dict(causal=True), ("flash_fwd_kernel", 1))
+    tab_k, rows = tsa._device_band(2, 2, True, 0, q.device)
+    counts = (tsa.sfc_flash_fwd.launches, dict(tsa.sfc_flash_fwd.launches_by_kernel))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tsa.launch_flash_fwd(q, k, v, tab_k, rows, causal=True, seq_q=100, seq_k=100, q_offset=0, want_lse=True,
+                             warpgroups=3)
+    assert (tsa.sfc_flash_fwd.launches, dict(tsa.sfc_flash_fwd.launches_by_kernel)) == counts
+    _check_flash_fwd(q.float(), k.float(), v.float(), dict(causal=True), ("flash_fwd_kernel", 1))
+    _check_dense_flash(q.float(), k.float(), v.float(), True, ("flash_fwd_kernel", 1))
 
 
 @pytest.mark.cuda
@@ -870,6 +1018,119 @@ def test_bwd_wgmma_entries_and_constants_match_the_compiled_source():
     for fn in ("tma_load_4d", "tensor_map_4d", "wgmma_rs", "wgmma_ss", "desc_sw128", "mbar_wait"):
         assert re.search(rf"\b{fn}\(", hopper.read_text()), fn
         assert not re.search(rf"(void|int|uint64_t) {fn}\(", WGMMA_SOURCE.read_text()), fn
+
+
+# the forward's rule: (dtype, head dim, strides of q / k / v, bases) -> the
+# wgmma kernel?  Strides as `_tma_strides` gives them.
+FWD_RULE_TABLE = {
+    "prefill_bf16_d128": (torch.bfloat16, 128, (_QS, _KS, _KS), (0, 4096, 8192), True),
+    "fused_projection_views": (torch.bfloat16, 128, (_FUSED, _FUSED, _FUSED), (0, 8192, 10240), True),
+    "d64": (torch.bfloat16, 64, ((64, 64, 64, 1),) * 3, (0, 16, 32), True),
+    "f32": (torch.float32, 128, (_QS, _KS, _KS), (0, 4096, 8192), False),
+    "d96": (torch.bfloat16, 96, ((96, 96, 96, 1),) * 3, (0, 16, 32), False),
+    "base_8_bytes": (torch.bfloat16, 128, (_QS, _KS, _KS), (0, 4104, 8192), False),
+    "row_stride_not_16_bytes": (torch.bfloat16, 128, (_QS, (132 * 8, 132, 128, 1), _KS), (0, 16, 32), False),
+    "zero_batch_stride": (torch.bfloat16, 128, (_QS, (0, 1024, 128, 1), _KS), (0, 16, 32), False),
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_RULE_TABLE))
+def test_fwd_wgmma_launch_rule_table(case):
+    dtype, d, strides, bases, want = FWD_RULE_TABLE[case]
+    assert tsa.uses_fwd_wgmma_kernel(dtype, d, strides, bases) is want
+    # the backward's rule over the same operands and dO laid out as q
+    assert tsa.uses_bwd_wgmma_kernel(dtype, d, (*strides, strides[0]), (*bases, bases[0])) is want
+
+
+def _route_operands(case):
+    """q, k, v on the CPU (2 x 64 tokens, 8 / 2 heads) as `FWD_ROUTE_CASES`
+    names them."""
+    d = 96 if case == "d96" else 128
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    if case == "fused_projection_views":
+        fused = torch.zeros((2, 64, 12 * d), dtype=dtype)
+        return fused[..., :8 * d].view(2, 64, 8, d), fused[..., 8 * d:10 * d].view(2, 64, 2, d), \
+            fused[..., 10 * d:].view(2, 64, 2, d)
+    q = torch.zeros(2 * 64 * 8 * d + 4, dtype=dtype)
+    q = (q[4:] if case == "misaligned_base" else q[:-4]).view(2, 64, 8, d)
+    return q, torch.zeros((2, 64, 2, d), dtype=dtype), torch.zeros((2, 64, 2, d), dtype=dtype)
+
+
+FWD_ROUTE_CASES = {"contiguous": True, "fused_projection_views": True, "misaligned_base": False, "f32": False,
+                   "d96": False}
+
+
+@pytest.mark.parametrize("case", list(FWD_ROUTE_CASES))
+def test_fwd_route_of_real_operands(case):
+    """The route a forward call's own tensors take: the model's contiguous
+    and fused-projection-strided bf16 views to the wgmma kernel; a base 8
+    bytes off 16, f32 and a head dim of 96 not."""
+    q, k, v = _route_operands(case)
+    assert (q.data_ptr() % 16 == 8) is (case == "misaligned_base")
+    wgmma, strides = tsa._fwd_route(q, k, v)
+    assert wgmma is FWD_ROUTE_CASES[case]
+    assert strides == [tsa._tma_strides(x) for x in (q, k, v)]
+
+
+def test_fwd_wgmma_grids_are_functions_of_the_shapes():
+    # qwen3-4b's prefill (4 x 128 tokens) and training step (2 x 256), 32 /
+    # 8 heads: W 2, 2 x (4 * 8 * 2) and 4 x (2 * 8 * 2) = 128 CTAs, one
+    # wave of 132 SMs (W 1 would take 256)
+    assert tsa.fwd_wgmma_grid(4, 128, 128, 32, 8) == ((64, 2), 2)
+    assert tsa.fwd_wgmma_grid(2, 256, 256, 32, 8) == ((32, 4), 2)
+    # olmoe's 16 / 16 heads: a group of one, W 1
+    assert tsa.fwd_wgmma_grid(4, 128, 128, 16, 16) == ((64, 2), 1)
+    # a small launch fits one wave at W 1 and spreads over the SMs
+    assert tsa.fwd_wgmma_grid(1, 128, 128, 32, 8) == ((32, 2), 1)
+    # past one wave at every W: the largest; the keys take no part
+    assert tsa.fwd_wgmma_grid(1, 2000, 2000, 32, 8) == ((16, 32), 2)
+    assert tsa.fwd_wgmma_grid(1, 2000, 2048, 32, 8) == ((16, 32), 2)
+    # a group of 3: 2 does not divide it
+    assert tsa.fwd_wgmma_grid(2, 256, 256, 24, 8) == ((48, 4), 1)
+    # a card of 264 SMs takes the training step in one wave at W 1
+    assert tsa.fwd_wgmma_grid(2, 256, 256, 32, 8, sm_count=264) == ((64, 4), 1)
+    for b, s, h, hkv in ((1, 64, 64, 4), (3, 777, 32, 2), (2, 4096, 48, 8), (1, 1, 16, 1)):
+        (gx, gy), w = tsa.fwd_wgmma_grid(b, s, s, h, hkv)
+        assert (h // hkv) % w == 0 and 1 <= w <= build.MAX_FWD_WARPGROUPS
+        assert (gx, gy) == (b * hkv * (h // hkv) // w, math.ceil(s / 64))
+
+
+def test_fwd_wgmma_entries_and_constants_match_the_compiled_source():
+    src = ATTN_SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert build.MAX_FWD_WARPGROUPS == const("kMaxWarpgroups")
+    assert build.FWD_WGMMA_STAGES == const("kFwdStages")
+    dims = tuple(int(d) for d in re.findall(r"^SFC_FWD_WGMMA_ENTRY\((\d+)\)", src, re.MULTILINE))
+    assert dims == build.ATTN_HEAD_DIMS
+    assert build.attn_entry_name("fwd_wgmma", "bf16", 128) == "sfc_attn_fwd_wgmma_bf16_d128"
+    with pytest.raises(ValueError):
+        build.attn_entry_name("fwd_wgmma", "f32", 128)
+    # the helpers the forward shares with K12 / K13 compile in both bf16
+    # parts, ahead of the backward's own section
+    shared = src.index("#if SFC_ATTN_DTYPE == 1\n")
+    backward = src.index("#if SFC_ATTN_PART == 1 && SFC_ATTN_DTYPE == 1")
+    forward = src.index("#if SFC_ATTN_PART == 0 && SFC_ATTN_DTYPE == 1")
+    assert shared < backward < forward
+    for fn in ("align1024", "desc_kmajor", "desc_nmajor", "acc_row", "acc_col", "pack_bf16", "seq_map"):
+        at = re.search(rf"\b{fn}\(", src[shared:]).start() + shared
+        assert shared < at < backward, fn
+    assert "flash_fwd_wgmma_kernel" in src[forward:]
+
+
+def test_cpu_forward_wrappers_count_nothing_by_kernel():
+    """On CPU tensors K11 and K15 run their plain versions: no launch and no
+    kernel key counted."""
+    rng = np.random.default_rng(40)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).bfloat16()
+               for sh in ((1, 70, 4, 64), (1, 70, 2, 64), (1, 70, 2, 64)))
+    before = [(f.launches, dict(f.launches_by_kernel)) for f in (tsa.sfc_flash_fwd, tfa.flash_attention)]
+    o, lse = tsa.sfc_flash_fwd(q, k, v, causal=True)
+    o2 = tfa.flash_attention(q, k, v)
+    assert o.shape == o2.shape == q.shape and lse.shape == q.shape[:3]
+    assert [(f.launches, dict(f.launches_by_kernel)) for f in (tsa.sfc_flash_fwd, tfa.flash_attention)] == before
 
 
 @pytest.mark.parametrize("dtype,parts", [(torch.bfloat16, 2), (torch.float32, 1)])

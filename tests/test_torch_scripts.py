@@ -417,3 +417,73 @@ def test_the_ab_scripts_k4_k5_rows_are_the_serves_products_at_both_splits():
     assert all(g.kernel == "K5" and g.m == cs.PROMPT for g in rows if g.name.startswith("prefill/"))
     assert all(g.k % g.layers == 0 for g in rows)  # the library's K-slab views
     assert {g.kernel for g in ab.replicated_ab_gemms(cs, cfg, lambda family: family == "K5")} == {"K5"}
+
+
+def test_the_ab_scripts_forward_rows_are_k11_and_k15_at_the_smoke_runs_shapes():
+    """`dense_kernel_ab.fwd_ab_cases`: K11 at the prefill, the training step
+    and 1 x 2000 tokens (q_offset 0 and 48) and K15 at the prefill, as
+    `chip_smoke.attention_cases` has them; `--only` keeps one family."""
+    ab = _load(ROOT / "scripts" / "dense_kernel_ab.py", "dense_kernel_ab")
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    cfg = get_config("qwen3_4b")
+    rows = ab.fwd_ab_cases(cs, cfg)
+    assert [(c.kernel, c.name, c.b, c.s, c.t, c.q_offset) for c in rows] == [
+        ("sfc_flash_fwd", "prefill", 4, 128, 128, 0), ("sfc_flash_fwd", "train", 2, 256, 256, 0),
+        ("sfc_flash_fwd", "long_1x2000", 1, 2000, 2000, 0),
+        ("sfc_flash_fwd", "long_1x2000_q_offset_48", 1, 2000, 2048, 48),
+        ("flash_attention", "prefill", 4, 128, 128, 0)]
+    assert all((c.h, c.hkv, c.d, c.causal) == (32, 8, 128, True) for c in rows)
+    assert [c.kernel for c in ab.fwd_ab_cases(cs, cfg, lambda family: family == "K15")] == ["flash_attention"]
+    assert len(ab.fwd_ab_cases(cs, cfg, lambda family: family == "K11")) == 4
+
+
+def test_split_sweep_takes_k11_and_its_shapes():
+    """`split_sweep.py` sweeps every kernel by default, the named ones else,
+    and refuses an unknown name; its K11 shapes are the smoke run's four
+    and one prompt's prefill, with the W the wrapper chooses on an H100's
+    132 SMs."""
+    from repro_torch.kernels import sfc_attention as tsa
+
+    sw = _load(ROOT / "scripts" / "split_sweep.py", "split_sweep")
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    assert sw.sweep_parts([]) == {"k14", "k1", "k13", "k11"}
+    assert sw.sweep_parts(["k11"]) == {"k11"}
+    with pytest.raises(SystemExit):
+        sw.sweep_parts(["k12"])
+    cases = sw.k11_cases(cs, get_config("qwen3_4b"))
+    assert [(c.b, c.s, c.t, c.q_offset) for c in cases] == [(4, 128, 128, 0), (2, 256, 256, 0), (1, 2000, 2000, 0),
+                                                             (1, 2000, 2048, 48), (1, 128, 128, 0)]
+    assert {(c.kernel, c.h, c.hkv, c.d) for c in cases} == {("sfc_flash_fwd", 32, 8, 128)}
+    assert [tsa.fwd_wgmma_grid(c.b, c.s, c.t, c.h, c.hkv)[1] for c in cases] == [2, 2, 2, 2, 1]
+
+
+# profiler keys of the flash forward's kernels (demangled) -> group
+_FWD_PROFILE_KEYS = {
+    "void (anonymous namespace)::fw::flash_fwd_wgmma_kernel<128, 2>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "(anonymous namespace)::FwdParams)": "K11 wgmma",
+    "void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 128>((anonymous namespace)::FwdParams)": "K11",
+    "void (anonymous namespace)::bw::flash_bwd_dq_wgmma_kernel<128>(CUtensorMap, CUtensorMap, CUtensorMap, "
+    "CUtensorMap, (anonymous namespace)::BwdParams)": "K12 wgmma",
+}
+
+
+@pytest.mark.parametrize("key", sorted(_FWD_PROFILE_KEYS))
+def test_a_step_profile_tells_the_wgmma_flash_forward_from_the_tile_kernel(key):
+    """chip_smoke.py's profile groups, matched as `profile_step` matches
+    them, in the dense and the MoE steps: the wgmma flash forward has a group
+    of its own ("flash_fwd_kernel" is no fragment of its name)."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    for groups in (cs._KERNEL_GROUPS, cs._MOE_KERNEL_GROUPS):
+        assert next(lab for frag, lab in groups if frag in key) == _FWD_PROFILE_KEYS[key]
+
+
+def test_kernel_counts_split_k11_from_its_tile_kernel():
+    """`_kernel_counts`: K11's launches on the wgmma kernel (every W) and on
+    the 64 x 64 tile kernel."""
+    import collections
+    import types
+
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    counted = {"sfc_flash_fwd": types.SimpleNamespace(launches_by_kernel=collections.Counter(
+        {("flash_fwd_wgmma_kernel", 2): 36, ("flash_fwd_wgmma_kernel", 1): 4, ("flash_fwd_kernel", 1): 3}))}
+    assert cs._kernel_counts(counted) == {"sfc_flash_fwd:wgmma": 40, "sfc_flash_fwd:tile": 3}
