@@ -809,7 +809,9 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
                                           k_layers=kl)
             return ops.sfc_matmul(a, ws[i % copies], fuse=False, k_layers=kl)
 
-        summed = tk.add_reduce(parts) if kl > 1 else None
+        # K6's launch configuration (threads, V, CTAs) from its counter
+        summed, (_, reduce_cfg) = (launched(tk.add_reduce.launches_by_kernel, lambda: tk.add_reduce(parts))
+                                   if kl > 1 else (None, (None, None)))
         got = public(0)
         torch.cuda.synchronize()
         want = k4_plain(0)
@@ -863,11 +865,18 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
             n_rot = max(1, math.ceil(4 * L2_BYTES / (parts.numel() * parts.element_size())))
             rot = [parts] + [parts.clone() for _ in range(n_rot - 1)]
             r_bound, r_by = gm.reduce_bound()
-            rows.append(dict(gemm=gm, kernel="K6", max_abs_err=err6,
-                             ms=time_ms(lambda i: tk.add_reduce(rot[i % n_rot]), reps=max(20, n_rot), graph=True),
+            # the yardstick, one copies.sum(-3) (torch's reduction sums bf16
+            # in f32 and writes once), held to the plain version at the bf16
+            # bound; the three calls float / sum / cast beside it
+            check(f"K6_library:{gm.name}@L{kl}", parts.sum(-3), tk.add_reduce_plain(parts), torch.bfloat16,
+                  shape=shape)
+            reps6 = max(20, n_rot)
+            rows.append(dict(gemm=gm, kernel="K6", max_abs_err=err6, config=reduce_cfg._asdict(),
+                             ms=time_ms(lambda i: tk.add_reduce(rot[i % n_rot]), reps=reps6, graph=True),
                              plain_ms=time_ms(lambda i: tk.add_reduce_plain(parts), reps=2, warmup=1),
-                             library_ms=time_ms(lambda i: rot[i % n_rot].float().sum(-3).to(cdt), reps=max(20, n_rot),
-                                                graph=True),
+                             library_ms=time_ms(lambda i: rot[i % n_rot].sum(-3), reps=reps6, graph=True),
+                             library_3_calls_ms=time_ms(lambda i: rot[i % n_rot].float().sum(-3).to(cdt), reps=reps6,
+                                                        graph=True),
                              bound_ms=r_bound, bound_by=r_by))
             del rot
         del ws, gs, a, parts
@@ -2948,8 +2957,7 @@ def main() -> int:
         for fn in (tk.sfc_gemm_fused, tk.sfc_gemm_replicated, tk.add_reduce):
             fn.launches = 0
             fn.launches_by_shape.clear()
-        tk.sfc_gemm_fused.launches_by_kernel.clear()
-        tk.sfc_gemm_replicated.launches_by_kernel.clear()
+            fn.launches_by_kernel.clear()
         tsa.sfc_decode_attention.launches_by_splits.clear()
         for fn in attn_kernels.values():
             fn.launches = 0
@@ -3259,10 +3267,13 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "library": ("copies.float().sum(-3).to(dtype)" if k6 else row.get("library_note") or (
+            "library": ("copies.sum(-3)" if k6 else row.get("library_note") or (
                 None if row["library_ms"] is None else
                 "torch.bmm over the K slabs, f32 out" if gm.glu else "torch.matmul over the K slabs")),
-            **({"kernel": "add_reduce_kernel"} if k6 else {
+            # K6: the launch configuration (threads a CTA, V vectors a
+            # thread, CTAs a batch element), and the three-call yardstick
+            **({"kernel": "add_reduce_kernel", "config": row["config"],
+                "library_3_calls_ms": row["library_3_calls_ms"]} if k6 else {
                 "kernel": row["cuda_kernel"], "config": row["config"], "unfused_call_ms": row["together_ms"],
                 "fused_k1_k2_ms": row["fused_ms"], "torch_matmul_ms": row["matmul_ms"]}),
             "shape": gm.shape(),

@@ -8,20 +8,22 @@ and the 4096-row check (`attention_cases`), of the grouped K3, K9 and K10
 at olmoe-1b-7b's (`moe_grouped_gemms`) and of K10's update and norm modes
 (`moe_update_gemms`) in the trees that have them, of the replicated
 form's partial copies K4 / K5 at the "replicated" serve's shapes
-(`replicated_gemms`) at k_layers 1 and 8, of the flash forward K11 at
+(`replicated_gemms`) at k_layers 1 and 8 and of their layer sum K6 at
+k_layers 8, of the flash forward K11 at
 qwen3-4b's prefill and training shapes and at 1 x 2000 tokens (q_offset
 0 and 48) and K15 at the prefill (`attention_cases`, `fwd_ab_cases`),
 of the flash backward K12 / K13 at qwen3-4b's training step and at
 one 2048-token sequence, the host's cost of a K2, K7, K12 and K13 wrapper
 call and of one tensor-map encoding (where the tree has its timer), and
 the registers and spills that ptxas reports for every instantiation of
-the GEMM and attention libraries' CUDA kernels.  Each K3, K4, K5, K8, K9,
-K10, K11 and K15 row also carries, in every pass, its bound (`chip_smoke.py`'s
-`_bound` of the row's bytes and flops) and the time of its library
-yardstick on the same inputs (scaled_dot_product_attention for K11 /
-K15, `torch.matmul` / `torch.bmm` for the products, K4 / K5 over the K slabs, f32 out for the GLU's copies; the
-same to an f32 dW plus `torch._fused_adamw_` for the update, none for the
-norm), and names the CUDA kernel and tile (K4: L') it launched where the
+the GEMM and attention libraries' CUDA kernels.  Each K3, K4, K5, K6,
+K8, K9, K10, K11 and K15 row also carries, in every pass, its bound
+(`chip_smoke.py`'s `_bound` of the row's bytes and flops) and the time of
+its library yardstick on the same inputs (scaled_dot_product_attention
+for K11 / K15, one `copies.sum(-3)` for K6, `torch.matmul` / `torch.bmm`
+for the products, K4 / K5 over the K slabs, f32 out for the GLU's copies;
+the same to an f32 dW plus `torch._fused_adamw_` for the update, none for
+the norm), and names the CUDA kernel and tile (K4: L') it launched where the
 tree counts that (a tree without K4 / K5's counter has the tile kernel
 alone); K1/K2's, K3's and K8's rows are also timed with the ABFT checksum
 lane ("K1/K2+lane ...", "K3+lane ...", "K8 dW+lane ...", "K8
@@ -31,6 +33,7 @@ update+lane ...", "K8 norm+lane ...").
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K8,K10
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K4,K5
     python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K11,K15
+    python3 scripts/dense_kernel_ab.py --tree . --tree build/parent --order 1,0,0,1 --only K6
 
 Each pass runs in a process of its own with the tree's `src/` and
 `chip_smoke.py` first on its path, so each tree builds its kernels into
@@ -43,7 +46,7 @@ its configuration: the cluster kernel's K layers, the wgmma kernels' C
 tile, the wgmma flash forward's W) each K1/K2, K7, K11, K12, K13 and K15
 row launched, where its tree counts that.
 `--only` keeps the rows of the listed families (K1/K2, K14, K11, K15,
-K12, K13, K7, K8, K3, K9, K10, K4, K5; "host" for the wrapper costs).
+K12, K13, K7, K8, K3, K9, K10, K4, K5, K6; "host" for the wrapper costs).
 Prints one JSON line per pass and, last, a summary: each row's times by
 tree, each tree's mean over the `--base` tree's (default 1), the ptxas
 counts of every kernel the trees share by name, side by side, those of
@@ -259,6 +262,8 @@ def worker(tree: Path, only=None) -> dict:
             torch.cuda.empty_cache()
     if hasattr(cs, "replicated_gemms"):
         _replicated_rows(torch, cs, tk, replicated_ab_gemms(cs, cfg, keep), gen, rows, kernels, library, bounds)
+        if keep("K6"):
+            _reduce_rows(torch, cs, tk, reduce_ab_gemms(cs, cfg), gen, rows, kernels, library, bounds)
     if hasattr(cs, "moe_update_gemms") and keep("K10"):
         _update_rows(torch, cs, tk, cs.moe_update_gemms(get_config("olmoe_1b_7b")), gen, "K10", rows, kernels,
                      library, bounds)
@@ -421,6 +426,43 @@ def _replicated_rows(torch, cs, tk, gemms, gen, rows, kernels, library, bounds):
         torch.cuda.empty_cache()
 
 
+def reduce_ab_gemms(cs, cfg):
+    """The K6 rows: `chip_smoke.replicated_gemms` at the split serve's
+    k_layers (8): the five decode and five prefill products and the LM
+    head, each summing its 8 copies."""
+    return [gm for gm in cs.replicated_gemms(cfg) if gm.layers == _REP_LAYERS[-1]]
+
+
+def _reduce_rows(torch, cs, tk, gemms, gen, rows, kernels, library, bounds):
+    """Times of K6 (`add_reduce`: the sum of one product's copies, bf16,
+    the GLU's f32) at each of ``gemms`` into ``rows``, the copies rotated
+    past the L2, with its bound (`RepGemm.reduce_bound`), the launch
+    configuration (threads, V, CTAs) where the tree counts it, and its
+    library yardstick, one `copies.sum(-3)` (held to `add_reduce_plain`
+    at the bf16 bound); the three calls `copies.float().sum(-3).to(dtype)`
+    beside it under "<row> float-sum-cast"."""
+    dev = torch.device("cuda")
+    by_kernel = getattr(tk.add_reduce, "launches_by_kernel", None)
+    for gm in gemms:
+        dt = torch.float32 if gm.glu else torch.bfloat16
+        shape = ((gm.batch,) if gm.batch else ()) + (gm.layers, gm.m, gm.n)
+        n_rot = max(1, math.ceil(4 * cs.L2_BYTES / (math.prod(shape) * gm.copy_elem)))
+        rot = [torch.randn(shape, generator=gen, device=dev).to(dt) for _ in range(n_rot)]
+        row, reps = f"K6 {gm.name}@L{gm.layers}", max(20, n_rot)
+        rows[row] = cs.time_ms(lambda i: tk.add_reduce(rot[i % n_rot]), reps=reps, graph=True)
+        bounds[row] = gm.reduce_bound()
+        ok, err, _ = cs.within(rot[0].sum(-3), tk.add_reduce_plain(rot[0]), torch.bfloat16)
+        if not ok:
+            raise AssertionError(f"copies.sum(-3) at {row} is {err} off the plain version")
+        library[row] = cs.time_ms(lambda i: rot[i % n_rot].sum(-3), reps=reps, graph=True)
+        library[f"{row} float-sum-cast"] = cs.time_ms(lambda i: rot[i % n_rot].float().sum(-3).to(dt), reps=reps,
+                                                      graph=True)
+        kernels[row] = (cs.launched(by_kernel, lambda: tk.add_reduce(rot[0]))[1] if by_kernel is not None
+                        else ("add_reduce_kernel", None))
+        del rot
+        torch.cuda.empty_cache()
+
+
 def _update_rows(torch, cs, tk, gemms, gen, label, rows, kernels, library, bounds):
     """Times of the update mode (bf16, stochastic rounding) and the norm
     mode of K8 (`sfc_gemm_tn`) or K10 (`sfc_gemm_grouped_tn`) at each of
@@ -479,7 +521,8 @@ def main(argv=None) -> int:
     ap.add_argument("--order", default=None, help="comma-separated tree indices, one pass each")
     ap.add_argument("--base", type=int, default=1, help="the tree the others' times are divided by")
     ap.add_argument("--only", default=None, help="comma-separated row families to time (K1/K2, K14, K11, K15, "
-                                                  "K12, K13, K7, K8, K3, K9, K10, K4, K5, host); all by default")
+                                                  "K12, K13, K7, K8, K3, K9, K10, K4, K5, K6, host); all by "
+                                                  "default")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     trees = [Path(t).resolve() for t in args.tree]
@@ -514,7 +557,7 @@ def main(argv=None) -> int:
     for i, ps in by_tree.items():
         own = sorted(set(ps[0]["ptxas"]) - set(shared))
         only[str(i)] = {n: ps[0]["ptxas"][n] for n in own}
-    # the library yardsticks and bounds of the K3 / K4 / K5 / K8 / K9 / K10 / K11 / K15 rows, every pass's
+    # the library yardsticks and bounds of the K3-K6 / K8 / K9 / K10 / K11 / K15 rows, every pass's
     library = {row: {str(i): [p.get("library_ms", {}).get(row) for p in ps] for i, ps in by_tree.items()}
                for row in dict.fromkeys(r for _, p in passes for r in p.get("library_ms", {}))}
     bounds = next((p["bound_ms"] for _, p in passes if p.get("bound_ms")), {})

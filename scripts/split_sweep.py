@@ -9,10 +9,14 @@ divisor of the GQA group, at most 8); and the wgmma flash forward (K11)
 at `chip_smoke.py`'s four K11 shapes (qwen3-4b's prefill and training
 step, 1 x 2000 tokens with q_offset 0 and 48) and the serve's
 single-prompt prefill (1 x 128) for every W (q heads of one kv head a
-CTA: a divisor of the group, at most 2); beside the S, L, C and W that
-the wrappers choose.
+CTA: a divisor of the group, at most 2); and the replicated form's layer
+sum (K6) at `chip_smoke.py`'s K6 shapes (qwen3-4b's decode and prefill
+products at k_layers 2, 4 and 8, the LM head at 8) for V = 1, 2, 4
+vectors a thread and 64, 128, 256 threads a CTA, each held bitwise to
+the layer-order sum, beside one `copies.sum(-3)`; beside the S, L, C, W
+and K6 configuration that the wrappers choose.
 
-    python3 scripts/split_sweep.py [k14] [k1] [k13] [k11]   # default: all four
+    python3 scripts/split_sweep.py [k14] [k1] [k13] [k11] [k6]   # default: all five
 
 Each kernel is launched through its C entry with the split forced, timed
 as `chip_smoke.py` times it (CUDA events around a captured graph of 40 or
@@ -33,7 +37,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 LIVE = ((1, 1000, 2048, 4096), (4096,) * 4, (512,) * 4, (32,) * 4, (0,) * 4)
 SPLITS = (1, 2, 4, 8)
-PARTS = ("k14", "k1", "k13", "k11")
+PARTS = ("k14", "k1", "k13", "k11", "k6")
 
 
 def sweep_parts(argv) -> set:
@@ -68,6 +72,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(4)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
+    if "k6" in parts:
+        sweep_k6(torch, cs, tk, gen, sms)
     if "k11" in parts:
         sweep_k11(torch, cs, tsa, gen, sms)
     if "k13" in parts:
@@ -77,6 +83,58 @@ def main(argv=None) -> int:
     if "k1" in parts:
         sweep_k1(torch, cs, build, tk, gen, sms, stream)
     return 0
+
+
+def k6_cases(cs, cfg):
+    """The K6 shapes of the sweep: `chip_smoke.replicated_gemms` past one K
+    layer (each decode and prefill product at k_layers 2, 4 and 8, the LM
+    head at 8), as phase 2 of `chip_smoke.py` sums their copies."""
+    return [gm for gm in cs.replicated_gemms(cfg) if gm.layers > 1]
+
+
+def sweep_k6(torch, cs, tk, gen, sms):
+    """K6 by V (vectors a thread) and threads a CTA, the CTAs under
+    `add_reduce_launch`'s cap (a full wave of that width), copies rotated
+    past the L2 as `chip_smoke.phase_replicated` rotates them; every
+    configuration's output held bitwise to the f32 layer-order loop cast
+    once."""
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda")
+    for gm in k6_cases(cs, get_config("qwen3_4b")):
+        dt = torch.float32 if gm.glu else torch.bfloat16
+        lead = (gm.batch,) if gm.batch else ()
+        shape = (*lead, gm.layers, gm.m, gm.n)
+        n_rot = max(1, math.ceil(4 * cs.L2_BYTES / (math.prod(shape) * gm.copy_elem)))
+        rot = [torch.randn(shape, generator=gen, device=dev).to(dt) for _ in range(n_rot)]
+        out = torch.empty((*lead, gm.m, gm.n), dtype=dt, device=dev)
+        acc = torch.zeros(out.shape, dtype=torch.float32, device=dev)
+        for layer in range(gm.layers):
+            acc += rot[0].select(-3, layer).float()
+        want = acc.to(dt)
+        b, mn = max(gm.batch, 1), gm.m * gm.n
+        vectors = math.ceil(mn * gm.copy_elem / 16)
+        reps = max(40, n_rot)
+        row = {"kernel": "K6", "gemm": gm.name, "layers": gm.layers, "shape": list(shape), "vectors": vectors,
+               "chosen": tk.add_reduce_launch(gm.batch, mn, gm.layers, gm.copy_elem, sms)._asdict()}
+        # every V and width, the CTAs under the rule's cap for that width
+        configs = {}
+        for threads in (64, 128, 256):
+            cap = max(1, tk._REDUCE_THREADS_PER_SM // threads * sms // b)
+            for v in (1, 2, 4):
+                ctas = min(math.ceil(vectors / (threads * v)), cap)
+                configs[f"V{v}_T{threads}"] = tk.AddReduceLaunch(threads, v, ctas)
+        for name, cfg in configs.items():
+            tk.launch_add_reduce(rot[0], out, cfg)
+            if not torch.equal(out, want):
+                raise AssertionError(f"K6 {gm.name}@L{gm.layers} at {cfg} is not the layer-order sum")
+            row[f"{name}_ms"] = cs.time_ms(lambda i, cfg=cfg: tk.launch_add_reduce(rot[i % n_rot], out, cfg),
+                                           reps=reps, graph=True)
+        row["library_ms"] = cs.time_ms(lambda i: rot[i % n_rot].sum(-3), reps=reps, graph=True)
+        row["bound_ms"] = gm.reduce_bound()[0]
+        print(json.dumps(row), flush=True)
+        del rot, out, acc, want
+        torch.cuda.empty_cache()
 
 
 def sweep_k11(torch, cs, tsa, gen, sms):

@@ -403,7 +403,11 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
             ]
             fn.restype = i32
         fn = getattr(lib, rep_entry_name("add_reduce", dt))
-        fn.argtypes = [ptr, ptr, i32, i32, ctypes.c_longlong, i32, ptr]  # copies, out, L, batch, M*N, vec, stream
+        fn.argtypes = [
+            ptr, ptr, i32, i32, ctypes.c_longlong, i32,  # copies, out, L, batch, M*N, vec
+            i32, i32, i32,  # threads a CTA, vectors a thread, CTAs a batch element
+            ptr,  # cudaStream_t
+        ]
         fn.restype = i32
         fn = getattr(lib, bwd_entry_name("tn_update", dt))
         fn.argtypes = [

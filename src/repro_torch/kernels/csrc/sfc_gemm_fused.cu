@@ -166,7 +166,9 @@
 // add_reduce_kernel replaces `add_reduce_pallas` (`_add_reduce_kernel`,
 //   `_add_reduce_batched_kernel`, K6): (B, L, M, N) copies -> (B, M, N),
 //   each output the f32 sum of its L copies in layer order, cast once to
-//   the copies' type, 16-byte vector loads where M*N allows.
+//   the copies' type, 16-byte vector loads where M*N allows; the copies
+//   are read in chunks of 8 whose loads are all in flight before the
+//   chunk's adds, V vectors a thread, on a grid from the SM count.
 // What bounds them: at decode (M = 4) K4 reads the weight once, 2*M flops a
 // weight, so the weight bytes bound it as they bound K1; split over k_layers
 // slabs the same bytes stream through k_layers times as many CTAs (16 for
@@ -854,45 +856,127 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 
 #endif  // SFC_DTYPE == 1 && SFC_REP_WGMMA_ENTRY
 
-constexpr int kReduceThreads = 256;
+// K6's launch limits: threads a CTA at most (`sfc_gemm.add_reduce_launch`
+// takes 128), and the copies a chunk whose loads are all issued before the
+// chunk's first add.
+constexpr int kReduceMaxThreads = 256;
+constexpr int kReduceChunk = 8;
+
+// Reads of data read once: the non-coherent path, no L1 line.
+__device__ __forceinline__ uint4 ld_once(const uint4* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+__device__ __forceinline__ float ld_once(const float* p) {
+  float r;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(r) : "l"(p));
+  return r;
+}
+__device__ __forceinline__ bf16 ld_once(const bf16* p) {
+  unsigned short r;
+  asm("ld.global.nc.L1::no_allocate.b16 %0, [%1];" : "=h"(r) : "l"(p));
+  return __ushort_as_bfloat16(r);
+}
 
 // K6: out[b, j] = sum over l of copies[b, l, j], in f32 in layer order, cast
-// once to T; total = batch * mn outputs.  vec: mn is a whole number of
-// 16-byte vectors and both arrays start 16-byte aligned, so each thread
-// reads one vector of every copy and writes one.
-template <typename T>
-__global__ void __launch_bounds__(kReduceThreads) add_reduce_kernel(const T* __restrict__ c, T* __restrict__ out,
-                                                                     int layers, long long mn, long long total,
-                                                                     int vec) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  const long long stride = (long long)gridDim.x * kReduceThreads;
-  const long long first = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
-  if (vec) {
-    for (long long e = first * VEC; e < total; e += stride * VEC) {
-      const long long b = e / mn, j = e - b * mn;
-      const T* src = c + b * layers * mn + j;
-      float acc[VEC];
+// once to T.  blockIdx.y is the batch element b; inside it Idx (int where
+// layers * mn and a pass's reach fit, else long long) indexes the copies, so
+// no thread divides.  The element range is cut into 16-byte slots (the last
+// ragged where mn is not a whole number of vectors); a pass of a CTA covers
+// blockDim.x * V consecutive slots, and the CTAs stride over the slots
+// (gridDim.x from `add_reduce_launch`).  Bound by bytes (the L copies read
+// once, C written once) and, at decode's few kilobytes, by latency: the
+// copies are read in chunks of kReduceChunk whose loads, each under its own
+// `l < layers` test, are all issued before the chunk's first add, so a
+// thread waits one memory round trip a chunk, not one a copy.  Every
+// address is clamped into the copies (a slot past the end reads the last
+// slot and is never stored), so a load hoisted out of its test stays in
+// bounds.  The adds keep layer order and stop at ``layers``, so the result
+// is bitwise the layer-order loop's.  (With each chunk's loads written
+// unguarded, exactly as many as there were copies, ptxas put the adds
+// between the loads (cuobjdump -sass), in every load form tried: nc and
+// no_allocate, __ldg, __ldcs, a __syncwarp between loads and adds; decode
+// k / v at 8 copies took 0.0030 ms against 0.0021, split_sweep k6 on the
+// H100.)
+//   VEC: mn is a whole number of vectors and both arrays 16-byte aligned.
+// Thread t of a pass takes slots base + i * blockDim.x + t (i < V), so each
+// load instruction of a warp reads 512 contiguous bytes.  Else the pass's
+// V x 16 / sizeof(T) elements a thread, base * 16 / sizeof(T) + q *
+// blockDim.x + t, one at a time, each with its chunk of loads (an odd M·N
+// or a misaligned view: off the main path).
+template <typename T, int V, bool VEC, typename Idx>
+__global__ void __launch_bounds__(kReduceMaxThreads) add_reduce_kernel(const T* __restrict__ c, T* __restrict__ out,
+                                                                        int layers, Idx mn) {
+  constexpr int kVec = 16 / (int)sizeof(T);  // elements a slot
+  const T* src = c + (long long)blockIdx.y * layers * mn;
+  T* dst = out + (long long)blockIdx.y * mn;
+  const Idx slots = (mn + kVec - 1) / kVec, per_cta = (Idx)blockDim.x * V;
+  const Idx t = (Idx)threadIdx.x;
+  for (Idx base = (Idx)blockIdx.x * per_cta; base < slots; base += (Idx)gridDim.x * per_cta) {
+    if constexpr (VEC) {
+      const uint4* in = reinterpret_cast<const uint4*>(src);
+      const Idx lstride = mn / kVec;  // vectors a copy
+      float acc[V][kVec];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
-      for (int l = 0; l < layers; ++l) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + l * mn));
-        const T* x = reinterpret_cast<const T*>(&raw);
+      for (int i = 0; i < V; ++i) {
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] += to_f32(x[i]);
+        for (int e = 0; e < kVec; ++e) acc[i][e] = 0.0f;
       }
-      uint4 res;
-      T* y = reinterpret_cast<T*>(&res);
+      for (int l0 = 0; l0 < layers; l0 += kReduceChunk) {
+        uint4 raw[kReduceChunk][V];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) y[i] = from_f32<T>(acc[i]);
-      *reinterpret_cast<uint4*>(out + e) = res;
-    }
-  } else {
-    for (long long e = first; e < total; e += stride) {
-      const long long b = e / mn, j = e - b * mn;
-      const T* src = c + b * layers * mn + j;
-      float acc = 0.0f;
-      for (int l = 0; l < layers; ++l) acc += to_f32(src[l * mn]);
-      out[e] = from_f32<T>(acc);
+        for (int u = 0; u < kReduceChunk; ++u) {
+          const Idx at = (Idx)min(l0 + u, layers - 1) * lstride;
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            if (l0 + u < layers) raw[u][i] = ld_once(in + at + min(base + i * (Idx)blockDim.x + t, slots - 1));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kReduceChunk; ++u) {
+          if (l0 + u >= layers) break;
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const T* x = reinterpret_cast<const T*>(&raw[u][i]);
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[i][e] += to_f32(x[e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const Idx s = base + i * (Idx)blockDim.x + t;
+        if (s >= slots) continue;
+        uint4 res;
+        T* y = reinterpret_cast<T*>(&res);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) y[e] = from_f32<T>(acc[i][e]);
+        reinterpret_cast<uint4*>(dst)[s] = res;
+      }
+    } else {
+      const Idx first = base * kVec;
+#pragma unroll 1
+      for (int q = 0; q < V * kVec; ++q) {
+        const Idx j = first + q * (Idx)blockDim.x + t;
+        if (j >= mn) break;
+        float acc = 0.0f;
+        for (int l0 = 0; l0 < layers; l0 += kReduceChunk) {
+          T x[kReduceChunk];
+#pragma unroll
+          for (int u = 0; u < kReduceChunk; ++u) {
+            if (l0 + u < layers) x[u] = ld_once(src + (Idx)min(l0 + u, layers - 1) * mn + j);
+          }
+#pragma unroll
+          for (int u = 0; u < kReduceChunk; ++u) {
+            if (l0 + u >= layers) break;
+            acc += to_f32(x[u]);
+          }
+        }
+        dst[j] = from_f32<T>(acc);
+      }
     }
   }
 }
@@ -2398,19 +2482,50 @@ extern "C" int SFC_REP_WGMMA_ENTRY(const void* a, const void* b, void* out, int 
 }
 #endif  // SFC_DTYPE == 1 && SFC_REP_WGMMA_ENTRY
 
-// K6: out (batch, mn) = the f32 sum over l of copies (batch, layers, mn),
-// cast to the copies' type; vec asks for 16-byte vectors (mn a multiple of
-// 16 / sizeof(T), both pointers 16-byte aligned).
-extern "C" int SFC_ADD_REDUCE_ENTRY(const void* copies, void* out, int layers, int batch, long long mn, int vec,
-                                    void* stream) {
-  if (layers < 1 || batch < 1 || mn < 1) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)batch * mn;
-  const long long items = vec ? total / (16 / (long long)sizeof(ElemT)) : total;
-  const long long want = (items + kReduceThreads - 1) / kReduceThreads;
-  const long long blocks = want < 132LL * 16 ? want : 132LL * 16;  // a grid-stride loop past 16 a SM
-  add_reduce_kernel<ElemT><<<(unsigned)blocks, kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const ElemT*>(copies), static_cast<ElemT*>(out), layers, mn, total, vec);
+namespace {
+
+// One K6 launch of V vectors a thread: 32-bit indexing where the batch
+// element's copies and one pass's reach past them stay under 2^31.
+template <int V, bool VEC>
+int launch_add_reduce(const ElemT* c, ElemT* out, int layers, long long mn, dim3 grid, int threads,
+                      cudaStream_t s) {
+  constexpr long long kVec = 16 / (long long)sizeof(ElemT);
+  const long long reach = (long long)grid.x * threads * V * kVec;
+  if ((long long)layers * mn + reach <= 0x7fffffffLL) {
+    add_reduce_kernel<ElemT, V, VEC, int><<<grid, threads, 0, s>>>(c, out, layers, (int)mn);
+  } else {
+    add_reduce_kernel<ElemT, V, VEC, long long><<<grid, threads, 0, s>>>(c, out, layers, mn);
+  }
   return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int launch_add_reduce(const ElemT* c, ElemT* out, int layers, long long mn, dim3 grid, int threads, int v,
+                      cudaStream_t s) {
+  if (v == 1) return launch_add_reduce<1, VEC>(c, out, layers, mn, grid, threads, s);
+  if (v == 2) return launch_add_reduce<2, VEC>(c, out, layers, mn, grid, threads, s);
+  return launch_add_reduce<4, VEC>(c, out, layers, mn, grid, threads, s);
+}
+
+}  // namespace
+
+// K6: out (batch, mn) = the f32 sum over l of copies (batch, layers, mn),
+// cast to the copies' type, on a (ctas, batch) grid of CTAs of `threads`,
+// v (1, 2 or 4) vectors a thread a pass (`sfc_gemm.add_reduce_launch`);
+// vec asks for 16-byte vectors (mn a multiple of 16 / sizeof(T), both
+// pointers 16-byte aligned).
+extern "C" int SFC_ADD_REDUCE_ENTRY(const void* copies, void* out, int layers, int batch, long long mn, int vec,
+                                    int threads, int v, int ctas, void* stream) {
+  if (layers < 1 || batch < 1 || batch > 65535 || mn < 1 || ctas < 1 || threads < 32 ||
+      threads > kReduceMaxThreads || threads % 32 != 0 || (v != 1 && v != 2 && v != 4) ||
+      (vec && mn % (16 / (long long)sizeof(ElemT)) != 0))
+    return (int)cudaErrorInvalidValue;
+  const auto* c = static_cast<const ElemT*>(copies);
+  auto* o = static_cast<ElemT*>(out);
+  const dim3 grid((unsigned)ctas, (unsigned)batch);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return vec ? launch_add_reduce<true>(c, o, layers, mn, grid, threads, v, s)
+             : launch_add_reduce<false>(c, o, layers, mn, grid, threads, v, s);
 }
 
 #elif !SFC_BWD

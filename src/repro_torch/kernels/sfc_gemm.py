@@ -99,6 +99,7 @@ __all__ = [
     "sfc_gemm_replicated_plain",
     "add_reduce",
     "add_reduce_plain",
+    "add_reduce_launch",
     "layer_slab",
     "cluster_layers",
     "uses_cluster_kernel",
@@ -106,6 +107,7 @@ __all__ = [
     "uses_replicated_wgmma_kernel",
     "replicated_wgmma_launch",
     "WgmmaLaunch",
+    "AddReduceLaunch",
     "wgmma_grid",
     "wgmma_launch",
     "uses_wgmma_kernel",
@@ -537,6 +539,41 @@ def replicated_wgmma_launch(batch: int, m: int, n: int, k_layers: int, sm_count:
     batch element.  A pure function of the shape and the SM count."""
     mb = wgmma_grid(m, n)[0]
     return _wgmma_cost_rule(mb, n, sm_count, False, max(batch, 1) * k_layers, mb)
+
+
+class AddReduceLaunch(NamedTuple):
+    """K6's launch configuration (`add_reduce_launch`)."""
+
+    threads: int  # a CTA
+    vectors: int  # V: 16-byte vectors a thread takes a pass
+    ctas: int  # CTAs a batch element (the grid is ctas x batch), striding past ctas x threads x V vectors
+
+
+# K6's CTAs across the batch are capped at one full wave, 2048 threads an
+# SM; past it they stride
+_REDUCE_THREADS_PER_SM = 2048
+
+
+def add_reduce_launch(batch: int, mn: int, layers: int, elem_size: int, sm_count: int) -> AddReduceLaunch:
+    """The launch configuration of K6 (`add_reduce`) for ``batch`` (0: the
+    3-D form) x ``layers`` copies of ``mn`` elements of ``elem_size`` bytes
+    on ``sm_count`` SMs: 128 threads a CTA, one 16-byte vector a thread a
+    pass (V 1), and a CTA for every 128 of the ceil(mn x elem_size / 16)
+    vectors of a batch element, at most one full wave across the batch
+    (2048 threads an SM), striding past it.  So decode's few vectors spread
+    over as many SMs as they fill and prefill's fill every SM.  The
+    constants are `scripts/split_sweep.py k6`'s (qwen3-4b's sums at 2, 4
+    and 8 copies on an H100): with every load of a chunk of 8 copies in
+    flight, V 2 and 4 were 3-28% slower at the bf16 rows (fewer CTAs for
+    the same bytes) and at most 5% faster at the f32 GLU rows; 64 threads
+    within 8% of 128, 256 up to 6% slower at decode (half the CTAs).  The
+    copy count does not enter: a thread holds a chunk of 8 loads in flight
+    whatever it is.  A pure function of the shape and the SM count, not a
+    knob."""
+    b = max(batch, 1)
+    threads = 128
+    cap = max(1, _REDUCE_THREADS_PER_SM // threads * sm_count // b)
+    return AddReduceLaunch(threads, 1, min(math.ceil(math.ceil(mn * elem_size / 16) / threads), cap))
 
 
 def uses_nt_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, a2: Optional[torch.Tensor] = None,
@@ -983,10 +1020,12 @@ def add_reduce(copies: torch.Tensor) -> torch.Tensor:
     the f32 sum of its L copies, written once in the copies' type.
 
     On a CUDA tensor this launches the kernel (bound by the (L + 1)·M·N
-    elements it moves); every launch adds one to ``add_reduce.launches`` and
-    to ``launches_by_shape`` under ``(batch, L, M, N)``, batch 0 for the
-    3-D form.  On a CPU tensor it runs `add_reduce_plain` and counts
-    nothing."""
+    elements it moves) at `add_reduce_launch`'s configuration for the
+    card's SM count, a batch of at most 65535; every launch adds one to
+    ``add_reduce.launches``, to ``launches_by_shape`` under ``(batch, L, M,
+    N)``, batch 0 for the 3-D form, and to ``launches_by_kernel`` under
+    ``("add_reduce_kernel", AddReduceLaunch)``.  On a CPU tensor it runs
+    `add_reduce_plain` and counts nothing."""
     _check_copies(copies)
     if copies.device.type == "cpu":
         return add_reduce_plain(copies)
@@ -1003,22 +1042,37 @@ def add_reduce(copies: torch.Tensor) -> torch.Tensor:
         return out
     if layers == 0:
         return out.zero_()
+    cfg = add_reduce_launch(batch, m * n, layers, copies.element_size(), sm_count(copies.device))
+    launch_add_reduce(copies, out, cfg)
+    add_reduce.launches += 1
+    add_reduce.launches_by_shape[(batch, layers, m, n)] += 1
+    add_reduce.launches_by_kernel[("add_reduce_kernel", cfg)] += 1
+    return out
+
+
+add_reduce.launches = 0
+add_reduce.launches_by_shape = collections.Counter()
+add_reduce.launches_by_kernel = collections.Counter()
+
+
+def launch_add_reduce(copies: torch.Tensor, out: torch.Tensor, cfg: AddReduceLaunch) -> None:
+    """One launch of K6 at the configuration ``cfg`` (`add_reduce` takes
+    `add_reduce_launch`'s; `scripts/split_sweep.py` forces others): the
+    contiguous (L, M, N) or (B, L, M, N) CUDA ``copies`` summed into
+    ``out``.  16-byte vectors where M·N is a whole number of them and both
+    bases are 16-byte aligned, else one element at a time.  Raises on a
+    launch the entry refuses; counts nothing."""
+    *lead, layers, m, n = copies.shape
     lib = build.load_library()
     fn = getattr(lib, build.rep_entry_name("add_reduce", _dtype_name(copies)))
     vec = int((m * n) % (16 // copies.element_size()) == 0 and copies.data_ptr() % 16 == 0
               and out.data_ptr() % 16 == 0)
     with torch.cuda.device(copies.device):
         stream = torch.cuda.current_stream(copies.device).cuda_stream
-        rc = fn(copies.data_ptr(), out.data_ptr(), layers, max(batch, 1), m * n, vec, stream)
+        rc = fn(copies.data_ptr(), out.data_ptr(), layers, lead[0] if lead else 1, m * n, vec, cfg.threads,
+                cfg.vectors, cfg.ctas, stream)
     if rc != 0:
         raise RuntimeError(f"add_reduce kernel launch failed with CUDA error {rc}")
-    add_reduce.launches += 1
-    add_reduce.launches_by_shape[(batch, layers, m, n)] += 1
-    return out
-
-
-add_reduce.launches = 0
-add_reduce.launches_by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ machine with only PyTorch (the repository's conftest needs JAX; skip it):
 On a machine without a card the tests marked ``cuda`` skip.
 """
 
+import collections
 import dataclasses
 import math
 import re
@@ -628,6 +629,86 @@ def test_replicated_kernels_reject_what_they_do_not_take():
         tk.add_reduce(torch.ones(2, 8, 4, device="cuda").transpose(1, 2))
     with pytest.raises(TypeError):
         tk.add_reduce(torch.ones(2, 4, 8, device="cuda").half())
+
+
+def _layer_order_sum(copies):
+    """K6's sum as the kernel orders it: f32 over the copies in layer order
+    from +0, cast once to the copies' type."""
+    acc = torch.zeros(copies.select(-3, 0).shape, dtype=torch.float32, device=copies.device)
+    for layer in range(copies.shape[-3]):
+        acc = acc + copies.select(-3, layer).float()
+    return acc.to(copies.dtype)
+
+
+def _k6_copies(shape, dtype, seed, offset_bytes=0):
+    """Seeded copies of ``shape`` on the card, their base ``offset_bytes``
+    past an allocation's (16-byte aligned) start."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+    if not offset_bytes:
+        return x
+    skip = offset_bytes // x.element_size()
+    buf = torch.empty(x.numel() + skip, dtype=dtype, device="cuda")
+    view = buf[skip:].view(shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["3d", "4d"])
+@pytest.mark.parametrize("path", ["vectors", "odd_n", "offset_4_bytes"])
+@pytest.mark.parametrize("layers", [1, 2, 3, 8, 9, 16])
+def test_add_reduce_kernel_is_the_layer_order_sum_on_card(layers, path, form, dtype):
+    """K6 bitwise equal to the f32 layer-order loop cast once (the chunks
+    of 8 copies keep that order: 9 and 16 cross a chunk), on the 16-byte
+    vector path and on the element path (an odd N; a copies view 4 bytes
+    past an aligned base), within the plain version's bound, one launch
+    counted at `add_reduce_launch`'s configuration."""
+    _card()
+    dt = getattr(torch, dtype)
+    m, n = (5, 133) if path == "odd_n" else (6, 1000)
+    shape = ((3,) if form == "4d" else ()) + (layers, m, n)
+    copies = _k6_copies(shape, dt, seed=layers, offset_bytes=4 if path == "offset_4_bytes" else 0)
+    assert (copies.data_ptr() % 16 == 0) == (path != "offset_4_bytes")
+    cfg = tk.add_reduce_launch(3 if form == "4d" else 0, m * n, layers, copies.element_size(),
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+    before, by_kernel = tk.add_reduce.launches, collections.Counter(tk.add_reduce.launches_by_kernel)
+    got = tk.add_reduce(copies)
+    torch.cuda.synchronize()
+    assert tk.add_reduce.launches == before + 1
+    assert collections.Counter(tk.add_reduce.launches_by_kernel) - by_kernel == {("add_reduce_kernel", cfg): 1}
+    assert got.dtype == dt and got.shape == copies.select(-3, 0).shape
+    assert torch.equal(got, _layer_order_sum(copies))
+    assert _agree(got, tk.add_reduce_plain(copies), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vec", [True, False])
+def test_add_reduce_kernel_every_configuration_on_card(vec, dtype):
+    """K6 at every V and width the entry takes (16-byte vectors, or the
+    element path where the copies are not whole vectors), with one CTA, a
+    few (the grid striding over the slots) and enough for one pass: each
+    launch the layer-order sum, bitwise; a configuration the entry refuses
+    raises."""
+    _card()
+    dt = getattr(torch, dtype)
+    shape = (2, 9, 7, 1000 if vec else 997)
+    copies = _k6_copies(shape, dt, seed=5)
+    want = _layer_order_sum(copies)
+    slots = math.ceil(shape[-1] * shape[-2] * copies.element_size() / 16)
+    for threads in (64, 128, 256):
+        for v in (1, 2, 4):
+            for ctas in (1, 3, math.ceil(slots / (threads * v))):
+                out = torch.full_like(want, float("nan"))
+                tk.launch_add_reduce(copies, out, tk.AddReduceLaunch(threads, v, ctas))
+                torch.cuda.synchronize()
+                assert torch.equal(out, want), (threads, v, ctas)
+    out = torch.empty_like(want)
+    for bad in ((96 + 1, 1, 1), (512, 1, 1), (128, 3, 1), (128, 1, 0)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tk.launch_add_reduce(copies, out, tk.AddReduceLaunch(*bad))
 
 
 # K4 / K5 on their routes: (lead, M, K, N, per-batch B, knobs) -> the

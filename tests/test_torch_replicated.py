@@ -13,6 +13,7 @@ by ``tests/test_torch_kernels.py`` and ``chip_smoke.py``.
 
 import dataclasses
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -140,7 +141,7 @@ def test_layer_slabs_are_the_plain_versions_k_chunks(depth, k_layers, kbf):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("batched", [False, True])
-@pytest.mark.parametrize("layers", [1, 2, 4])
+@pytest.mark.parametrize("layers", [1, 2, 3, 4, 9])
 def test_add_reduce_matches_pallas(batched, layers, dtype):
     shape = (3, layers, 16, 24) if batched else (layers, 16, 24)
     [c] = _arrays(3, shape)
@@ -148,6 +149,79 @@ def test_add_reduce_matches_pallas(batched, layers, dtype):
     got = tk.add_reduce(_t(c, dtype))
     assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == tuple(want.shape)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("layers", [1, 2, 3, 8, 9, 16])
+def test_add_reduce_plain_is_the_layer_order_f32_sum(layers, batched):
+    """K6's plain version against the sum the kernel computes: an f32 loop
+    over the copies in layer order (the kernel is held to that loop
+    bitwise on the card)."""
+    shape = (2, layers, 5, 40) if batched else (layers, 5, 40)
+    [c] = _arrays(layers, shape)
+    copies = _t(c)
+    acc = torch.zeros(copies.select(-3, 0).shape)
+    for layer in range(layers):
+        acc = acc + copies.select(-3, layer)
+    torch.testing.assert_close(tk.add_reduce_plain(copies), acc, rtol=1e-6, atol=1e-6)
+
+
+def _k6_slots_covered(cfg, slots):
+    """How often each 16-byte slot of one batch element is summed by a
+    launch at ``cfg``, by the mapping of `add_reduce_kernel`
+    (csrc/sfc_gemm_fused.cu): CTA x's pass p covers the threads x V slots
+    from (p x ctas + x) x threads x V, thread t taking base + i x threads
+    + t (i < V), while base < slots."""
+    per_cta = cfg.threads * cfg.vectors
+    passes = math.ceil(slots / (cfg.ctas * per_cta))
+    base = (np.arange(passes)[:, None] * cfg.ctas + np.arange(cfg.ctas)[None, :]).ravel() * per_cta
+    base = base[base < slots]
+    idx = (base[:, None, None] + np.arange(cfg.vectors)[None, :, None] * cfg.threads
+           + np.arange(cfg.threads)[None, None, :]).ravel()
+    return np.bincount(idx[idx < slots], minlength=slots)
+
+
+def test_k6_mapping_is_the_kernels():
+    """The slot mapping `_k6_slots_covered` simulates is the one written in
+    the kernel's source."""
+    src = (Path(build.__file__).resolve().parent / "csrc" / "sfc_gemm_fused.cu").read_text()
+    assert "for (Idx base = (Idx)blockIdx.x * per_cta; base < slots; base += (Idx)gridDim.x * per_cta)" in src
+    assert "per_cta = (Idx)blockDim.x * V" in src
+    assert "base + i * (Idx)blockDim.x + t" in src
+
+
+# qwen3-4b's K6 products (8 copies): decode (4 rows) q, k/v, o / w_out, one
+# GLU product (f32 copies), the LM head; prefill (4 x 128 rows) the same
+K6_MAIN_PATH = [(0, 4 * 4096, 2), (0, 4 * 1024, 2), (0, 4 * 2560, 2), (0, 4 * 9728, 4), (0, 4 * 151936, 2),
+                (4, 128 * 4096, 2), (4, 128 * 1024, 2), (4, 128 * 2560, 2), (4, 128 * 9728, 4)]
+
+
+@pytest.mark.parametrize("sms", [132, 78])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_add_reduce_launch_covers_every_vector_once(elem, sms, monkeypatch):
+    """`add_reduce_launch` over batches, element counts and copies: its CTAs
+    x threads x V cover every 16-byte vector of every batch element
+    exactly once (the grid's y is the batch); the CTAs across the batch
+    stay under one full wave (2048 threads an SM); 128 threads and V 1, a
+    CTA for every 128 vectors up to the cap (so qwen3-4b's decode sums
+    spread over 4-76 SMs); and the rule reads nothing but its arguments."""
+    # a rule that looked at the card would fail here
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda *a: pytest.fail("the rule read the card"))
+    monkeypatch.setattr(tk, "sm_count", lambda *a: pytest.fail("the rule read the card"))
+    cases = [(b, mn, elem) for b in (0, 1, 3, 16) for mn in (1, 7, 8, 333, 4096, 38912, 1 << 20)]
+    cases += [case for case in K6_MAIN_PATH if case[2] == elem]
+    for batch, mn, _ in cases:
+        for layers in (1, 2, 3, 4, 8, 9):
+            cfg = tk.add_reduce_launch(batch, mn, layers, elem, sms)
+            assert cfg == tk.add_reduce_launch(batch, mn, layers, elem, sms)
+            b, slots = max(batch, 1), math.ceil(mn * elem / 16)
+            assert (cfg.threads, cfg.vectors) == (128, 1)
+            cap = max(1, 16 * sms // b)
+            assert cfg.ctas == min(math.ceil(slots / 128), cap) and cfg.ctas * b <= max(16 * sms, b)
+            assert np.array_equal(_k6_slots_covered(cfg, slots), np.ones(slots, dtype=np.int64)), (batch, mn, layers)
+    if elem == 2 and sms == 132:
+        # qwen3-4b's decode q, k / v, o at 8 copies: one pass over 16, 4, 10 CTAs
+        assert [tk.add_reduce_launch(0, 4 * n, 8, 2, 132).ctas for n in (4096, 1024, 2560)] == [16, 4, 10]
 
 
 def test_oracles_match_the_jax_oracles():

@@ -373,8 +373,8 @@ _REP_PROFILE_KEYS = {
     "CUtensorMap, wg::Params)": "K4/K5",
     "void (anonymous namespace)::sfc_gemm_replicated_kernel<__nv_bfloat16, float>((anonymous namespace)::Params, "
     "int, int)": "K4/K5",
-    "void (anonymous namespace)::add_reduce_kernel<__nv_bfloat16>(__nv_bfloat16 const*, __nv_bfloat16*, int, "
-    "long long, long long, int)": "K6",
+    "void (anonymous namespace)::add_reduce_kernel<__nv_bfloat16, 1, true, int>(__nv_bfloat16 const*, "
+    "__nv_bfloat16*, int, int)": "K6",
     "void (anonymous namespace)::sfc_gemm_cluster_kernel<false, 0, false, false, false, false, false>("
     "(anonymous namespace)::Params, int)": "K1 cluster",
     "void (anonymous namespace)::sfc_gemm_wgmma_kernel<false, 0, 128>(CUtensorMap, CUtensorMap, CUtensorMap, "
@@ -446,7 +446,7 @@ def test_split_sweep_takes_k11_and_its_shapes():
 
     sw = _load(ROOT / "scripts" / "split_sweep.py", "split_sweep")
     cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
-    assert sw.sweep_parts([]) == {"k14", "k1", "k13", "k11"}
+    assert sw.sweep_parts([]) == {"k14", "k1", "k13", "k11", "k6"}
     assert sw.sweep_parts(["k11"]) == {"k11"}
     with pytest.raises(SystemExit):
         sw.sweep_parts(["k12"])
@@ -487,3 +487,32 @@ def test_kernel_counts_split_k11_from_its_tile_kernel():
     counted = {"sfc_flash_fwd": types.SimpleNamespace(launches_by_kernel=collections.Counter(
         {("flash_fwd_wgmma_kernel", 2): 36, ("flash_fwd_wgmma_kernel", 1): 4, ("flash_fwd_kernel", 1): 3}))}
     assert cs._kernel_counts(counted) == {"sfc_flash_fwd:wgmma": 40, "sfc_flash_fwd:tile": 3}
+
+
+def test_split_sweep_takes_k6_at_the_smoke_runs_reduce_shapes():
+    """`split_sweep.py k6`: K6 at every product of `chip_smoke.py`'s
+    replicated rows past one K layer (decode and prefill at k_layers 2, 4
+    and 8, the LM head at 8), the eleven split-serve shapes among them."""
+    sw = _load(ROOT / "scripts" / "split_sweep.py", "split_sweep")
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    assert sw.sweep_parts(["k6"]) == {"k6"}
+    cases = sw.k6_cases(cs, get_config("qwen3_4b"))
+    assert len(cases) == 10 * 3 + 1 and {g.layers for g in cases} == {2, 4, 8}
+    assert sum(g.layers == 8 for g in cases) == 11
+    assert {g.name for g in cases if g.name.startswith("decode/")} == {
+        f"decode/{n}" for n in ("q", "k,v", "o", "mlp_glu", "mlp_out")}
+    assert [g.copy_elem for g in cases if g.glu] == [4] * 6
+
+
+def test_the_ab_scripts_k6_rows_are_the_split_serves_sums():
+    """`dense_kernel_ab.reduce_ab_gemms` (`--only K6`): the eleven K6 shapes
+    of the k_layers-8 serve, each with its byte bound: 9 copies' bytes
+    (8 read, 1 written)."""
+    ab = _load(ROOT / "scripts" / "dense_kernel_ab.py", "dense_kernel_ab")
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke_under_test")
+    rows = ab.reduce_ab_gemms(cs, get_config("qwen3_4b"))
+    assert len(rows) == 11 and {g.layers for g in rows} == {8}
+    assert {g.reduce_key for g in rows} >= {(0, 8, cs.BATCH, 151936), (cs.BATCH, 8, cs.PROMPT, 9728)}
+    for g in rows:
+        ms, by = g.reduce_bound()
+        assert by == "bytes" and ms == pytest.approx(g.copy_elem * 9 * g.rows * g.n / cs.PEAK_BYTES * 1e3)
