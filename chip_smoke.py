@@ -7,7 +7,7 @@ Builds the port's hand-written CUDA kernels from the sources in this
 checkout (src/repro_torch/kernels/csrc: the GEMM library with its forward
 and backward parts and the attention library with its forward, decode and
 backward parts and the ABFT checksum lanes' parts, all compiled at once),
-then runs nine phases, each printing one JSON line (phases 2 and 6 two,
+then runs ten phases, each printing one JSON line (phases 2 and 6 two,
 phase 3 three) and raising on failure:
 
 1. device     the card's name and power limit (nvidia-smi) and the build time;
@@ -64,6 +64,17 @@ phase 3 three) and raising on failure:
               bf16, timed beside torch.bmm + torch._fused_adamw_, and on
               the ragged sizes in f32 and bf16 (the empty expert's g = 0
               update included);
+              the hybrid slice's K2 rows: the chunk_einsum products in
+              their batched framing with per-batch B, the SSD scores at
+              4 x 128 and at the 1 x 600 prompt (three 256-step chunks),
+              xlstm-1.3b's mLSTM qk block and a ragged unaligned case
+              (K 50, N 70: the tile kernel) in K2's f32-output mode (bf16
+              in, f32 out), and the SSD output product (bf16) at both
+              prompts, each against its plain version and timed beside
+              one torch.bmm (f32 out for the f32 mode), each with its
+              ABFT lane (in the "abft_lanes" line); K1/K2 at zamba2's
+              shared-block shapes (d_model 2048, 32 heads of 64, d_ff 8192
+              GLU; decode M 4 and prefill 4 x 128);
               the ABFT checksum lanes ("abft_lanes" line): K1/K2 at every
               K1/K2 shape above and the ragged all-flags case, K3 at
               olmoe's decode, prefill and training shapes and both ragged
@@ -178,7 +189,22 @@ phase 3 three) and raising on failure:
               losses within 2^-7, every parameter moved, a profiled fourth
               step of each (K8's and K10's norm and update modes as groups
               of their own);
-9. the {"kernels": [...]} line: per kernel and shape, launches in the run
+9. serve     ServingEngine serves full-width, full-depth zamba2-1.2b (38
+              Mamba2 layers, the shared attention block after every 6,
+              d_model 2048, vocab 32000, SSM state 64, SSD heads of 64,
+              chunk 256, bf16, seeded random weights), 4 requests x 128 +
+              16 tokens under sfc_cuda with blockwise and with "sfc"
+              attention and under torch, and one 600-token prompt + 8 under
+              sfc_cuda + "sfc" and torch: exactly 2 x 38 chunk_einsum K2
+              launches a prefill (the 38 SSD scores in the f32-output mode,
+              on its wgmma kernel), 6 K1/K2 a shared-block application (6
+              a forward) and 6 K11 a prefill and 6 K14 a decode step under
+              "sfc"; no K1/K2 under torch; the f32 prefill logits of each
+              sfc_cuda serve within the bf16 bound of torch's, the bf16
+              ones at accuracy parity; the parameter count, peak memory,
+              TTFT, the p50 per-token gap, tokens/s and a profiled decode
+              step;
+10. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound (K1/K2 and K4/K5 rows: the kernel
               launched and its K layers, L' or tile; K11 / K15 rows: the
@@ -205,6 +231,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of every kernel row
 PEAK_BF16_FLOPS = 989e12
@@ -251,6 +278,12 @@ RAGGED_GROUPS_LONG = (80, 0, 45, 130)
 REP_LAYERS = (1, 2, 4, 8)
 REP_HEAD_LAYERS = (1, 8)
 REP_SERVE_LAYERS = 8
+
+# zamba2-1.2b (the hybrid slice): served at full width and depth, 4 x
+# PROMPT + NEW_TOKENS, and one prompt of HYBRID_LONG_PROMPT tokens (three
+# 256-step SSD chunks, the last padded) + HYBRID_LONG_NEW
+HYBRID_ARCH = "zamba2_1_2b"
+HYBRID_LONG_PROMPT, HYBRID_LONG_NEW = 600, 8
 
 
 def emit(obj) -> None:
@@ -620,8 +653,9 @@ def phase_attention(torch, cases, tsa, tfa, build):
     return rows, checks
 
 
-def phase_kernels(torch, cfg, gemms, tk, ops):
-    """Kernel against plain version at the main path's shapes, timed."""
+def phase_kernels(torch, cfg, gemms, tk, ops, ragged=True):
+    """Kernel against plain version at the main path's shapes, timed; with
+    ``ragged`` also the ragged cases with every epilogue flag."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
@@ -679,7 +713,7 @@ def phase_kernels(torch, cfg, gemms, tk, ops):
     # TMA cannot describe: the tile kernel), and K 264 / N 328 in bf16 (the
     # wgmma kernel, whose TMA boxes run past every edge)
     for dtype, (m, k, n) in ((torch.float32, (77, 203, 133)), (torch.bfloat16, (77, 203, 133)),
-                             (torch.bfloat16, (77, 264, 328))):
+                             (torch.bfloat16, (77, 264, 328))) if ragged else ():
         r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)  # noqa: E731
         args = (r(3, m, k), r(k, n) * 0.1, r(k, n) * 0.1, r(n), r(1, n), r(3, m, n))
         kw = dict(activation="gelu", out_scale=0.7)
@@ -921,13 +955,14 @@ _SERVE_KERNEL_GROUPS = (("sfc_gemm_replicated_kernel", "K4/K5"), ("sfc_gemm_repl
                         ("sfc_gemm_wgmma_kernel", "K2 wgmma"), ("decode_split_kernel", "K14"))
 
 
-def profile_decode(torch, eng, tokens, ops, layers=None):
+def profile_decode(torch, eng, tokens, ops, layers=None, kernel_groups=None):
     """One decode step of 4 sequences (after the 128-token prefill and a
     warm step) under torch.profiler: the wall time until its tokens reach
     the host, the device's busy time (kernels, memcpy, memset), the idle
     share, and the busy time of the GEMM kernels by group.  The profiler
     slows the host, so the wall time and idle share run above an
-    unprofiled step's."""
+    unprofiled step's.  ``kernel_groups``: (name fragment, group) pairs,
+    the first match a kernel's group (default the qwen3-4b serve's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -941,13 +976,14 @@ def profile_decode(torch, eng, tokens, ops, layers=None):
             logits, cache = eng._decode(tok, cache)
             logits.argmax(-1).tolist()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {label: 0.0 for _, label in _SERVE_KERNEL_GROUPS}
+    kernel_groups = kernel_groups or _SERVE_KERNEL_GROUPS
+    groups = {label: 0.0 for _, label in kernel_groups}
     groups["other"] = 0.0
     for ev in prof.key_averages():
         us = ev.self_device_time_total
         if ev.device_type != DeviceType.CUDA or us <= 0:
             continue
-        groups[next((lab for frag, lab in _SERVE_KERNEL_GROUPS if frag in ev.key), "other")] += us / 1e3
+        groups[next((lab for frag, lab in kernel_groups if frag in ev.key), "other")] += us / 1e3
     busy = sum(groups.values())
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms if busy else None,
             "device_ms_by_group": groups}
@@ -2375,6 +2411,302 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
 
 
 # ---------------------------------------------------------------------------
+# the hybrid family: zamba2-1.2b (Mamba2 SSD layers and a shared attention
+# block); chunk_einsum on K2, its f32-output mode
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkGemm:
+    """One `chunk_einsum` product in its batched framing, (batch, M, K) @
+    (batch, K, N) with per-batch B, on K2: ``f32_out`` the f32-output mode
+    (bf16 in, the f32 accumulator out), else bf16 out.  ``path``: the serve
+    whose run launches it at this shape ("serve" the 4 x 128 one, "serve
+    1x600" the long prompt's), None for a check row; ``unaligned``: A a view
+    2 bytes past a 16-byte boundary."""
+
+    name: str
+    batch: int
+    m: int
+    k: int
+    n: int
+    f32_out: bool
+    path: Optional[str]
+    unaligned: bool = False
+
+    @property
+    def key(self):  # sfc_gemm_fused.launches_by_shape
+        return (self.batch, self.m, self.k, self.n, False)
+
+    def flops(self) -> float:
+        return 2.0 * self.batch * self.m * self.k * self.n
+
+    def bytes(self) -> float:
+        return 2.0 * self.batch * (self.m * self.k + self.k * self.n) + (4 if self.f32_out else 2) * (
+            self.batch * self.m * self.n)
+
+
+def chunk_gemms(cfg):
+    """The SSD's two intra-chunk products at the zamba2 serve's shapes (4 x
+    128: one 128-step chunk; the 1 x HYBRID_LONG_PROMPT prompt: chunks of
+    ``ssm_chunk`` steps, the last padded), the scores in the f32-output
+    mode and the output in bf16; xlstm-1.3b's mLSTM qk block at 4 x 128 (4
+    heads of 1024, 128-step chunks) and a ragged unaligned case, both off
+    the path (the f32-output mode's check rows)."""
+    heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    short = min(cfg.ssm_chunk, PROMPT)
+    long_ = min(cfg.ssm_chunk, HYBRID_LONG_PROMPT)
+    chunks = math.ceil(HYBRID_LONG_PROMPT / long_)
+    long_path = f"serve 1x{HYBRID_LONG_PROMPT}"
+    return [
+        ChunkGemm(f"ssd_scores@{BATCH}x{PROMPT}", BATCH * math.ceil(PROMPT / short), short, n, short, True, "serve"),
+        ChunkGemm(f"ssd_scores@1x{HYBRID_LONG_PROMPT}", chunks, long_, n, long_, True, long_path),
+        ChunkGemm(f"mlstm_qk@xlstm-1.3b,{BATCH}x{PROMPT}", BATCH * 4, PROMPT, 1024, PROMPT, True, None),
+        ChunkGemm("ragged_unaligned", 3, 60, 50, 70, True, None, unaligned=True),
+        ChunkGemm(f"ssd_out@{BATCH}x{PROMPT}", BATCH * heads, short, short, p, False, "serve"),
+        ChunkGemm(f"ssd_out@1x{HYBRID_LONG_PROMPT}", chunks * heads, long_, long_, p, False, long_path),
+    ]
+
+
+def chunk_route(gm) -> str:
+    """The kernel `sfc_gemm_fused` launches for a chunk product: the wgmma
+    kernel (its f32-output twin for the f32 mode) where TMA can describe
+    the rows, else the tile kernel's f32-output twin."""
+    if gm.unaligned or gm.k % 8 or gm.n % 8:
+        return "sfc_gemm_fused_f32out_kernel" if gm.f32_out else "sfc_gemm_fused_kernel"
+    return "sfc_gemm_wgmma_f32out_kernel" if gm.f32_out else "sfc_gemm_wgmma_kernel"
+
+
+def phase_chunk_gemms(torch, gemms, tk, abft):
+    """K2 at the chunk-einsum shapes against its plain version, timed with
+    inputs (A and the per-batch B) rotated past the L2 beside one
+    ``torch.bmm`` (``out_dtype=torch.float32`` for the f32 mode); then each
+    with its ABFT lane: the lane within `lane_limit` of its plain version's
+    and `tolerance()` of the operand-side reference, the output bitwise the
+    lane-off one, timed on and off.  Returns (rows, checks, lane rows, lane
+    checks)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    rows, checks, lane_rows, lane_checks = [], [], [], []
+    for gm in gemms:
+        odt = torch.float32 if gm.f32_out else torch.bfloat16
+        copies = max(1, math.ceil(4 * L2_BYTES / (2.0 * gm.batch * (gm.m * gm.k + gm.k * gm.n))))
+        count = gm.batch * gm.m * gm.k
+
+        def operand(i):
+            flat = torch.randn(count + 8, generator=gen, device=dev).bfloat16()
+            a = (flat[1:1 + count] if gm.unaligned else flat[:count]).view(gm.batch, gm.m, gm.k)
+            return a, (torch.randn((gm.batch, gm.k, gm.n), generator=gen, device=dev) * 0.1).bfloat16()
+
+        ops_ = [operand(i) for i in range(copies)]
+        a, b = ops_[0]
+
+        def kernel(i, lane=False):
+            x, w = ops_[i % copies]
+            return tk.sfc_gemm_fused(x, w, out_dtype=odt, abft=lane)
+
+        got, (name, config) = launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: kernel(0))
+
+        def plain(i):
+            x, w = ops_[i % copies]
+            return tk.sfc_gemm_fused_plain(x, w, bm=64, bn=64, out_dtype=odt)
+
+        want = plain(0)
+        torch.cuda.synchronize()
+        ok, err, worst = within(got, want, odt)
+        checks.append({"case": f"chunk_einsum:{gm.name}", "shape": [gm.batch, gm.m, gm.k, gm.n],
+                       "out": str(odt), "kernel": name, "config": config, "ok": ok, "max_abs_err": err,
+                       "err_over_bound": worst})
+        if not ok or name != chunk_route(gm) or got.dtype != odt:
+            raise AssertionError(f"chunk product {gm} on {name} ({got.dtype}) disagrees with its plain version: "
+                                 f"max err {err}, err/bound {worst}")
+        if gm.f32_out:
+            library = lambda i: torch.bmm(*ops_[i % copies], out_dtype=torch.float32)  # noqa: E731
+        else:
+            library = lambda i: torch.bmm(*ops_[i % copies])  # noqa: E731
+        reps = max(20, copies)
+        ms = time_ms(kernel, reps=reps, graph=True)
+        lib_ms = time_ms(library, reps=reps, graph=True)
+        plain_ms = time_ms(plain, reps=2, warmup=1)
+        bound_ms, bound_by = _bound(gm.flops(), gm.bytes())
+        rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, kernel=name, config=config))
+        # the lane: per batch element at the launch's C tile (per-batch B
+        # walks each element's tiles in turn)
+        on = kernel(0, True)
+        plain_lane, lane_plain_ms = _once_ms(torch, lambda: tk.sfc_gemm_fused_plain(a, b, bm=64, bn=64,
+                                                                                   out_dtype=odt, abft=True))
+        ref, mag = abft.gemm_checksum_ref(a, b)
+        exact = torch.bmm(a.float(), b.float())
+        tile = tuple(int(x) for x in config.split("x")) if "wgmma" in name else (LANE_TILE, LANE_TILE)
+        tiles = raw_tile_sums(torch, exact, tile=tile)
+        lane_name = name.replace("_kernel", "_abft_kernel")
+        lane_checks.append(_lane_check(torch, abft, f"K2 chunk_einsum:{gm.name}", on[-1], plain_lane[-1], ref, mag,
+                                       gm.k, on[:-1], (got,), tiles, _dropped(plain_lane[-1], tiles),
+                                       dtype="bfloat16", out=str(odt), kernel=lane_name, config=config))
+        on_ms = time_ms(lambda i: kernel(i, True), reps=reps, graph=True)
+        ref_ms = time_ms(lambda i: abft.gemm_checksum_ref(*ops_[i % copies]), reps=reps, graph=True)
+        slots = tk.build.WGMMA_LANE_SLOTS if "wgmma" in name else 1
+        lane_rows.append(_lane_row("K2 chunk_einsum", gm, abs(float(on[-1]) - float(plain_lane[-1])), on_ms, ms,
+                                   ref_ms, lane_plain_ms, (gm.flops(), gm.bytes(), PEAK_BF16_FLOPS),
+                                   len(tiles) * slots, cuda_kernel=lane_name, config=config))
+        del ops_, a, b, got, want, on, exact, tiles
+    return rows, checks, lane_rows, lane_checks
+
+
+def hybrid_projection_gemms(cfg):
+    """The shared attention block's K1/K2 products of the zamba2 serve:
+    decode (4 rows, the plain mode) and the 4 x 128 prefill (batched); the
+    LM head and the mixers' in_proj / out_proj are torch.matmul."""
+    return [dataclasses.replace(gm, name=f"zamba2/{gm.name}") for gm in main_path_gemms(cfg)
+            if gm.mode != "train" and gm.name != "head"]
+
+
+# a decode step's device time by group in the hybrid serve (first matching
+# fragment wins: the SFC kernels before cuBLAS's GEMMs, whose names hold "gemm")
+_HYBRID_KERNEL_GROUPS = (("sfc_gemm_wgmma_f32out_kernel", "K2 f32 out"), ("sfc_gemm_fused_f32out_kernel", "K2 f32 out"),
+                         ("sfc_gemm_cluster_kernel", "K1 cluster"), ("sfc_gemm_wgmma_kernel", "K2 wgmma"),
+                         ("sfc_gemm_fused_kernel", "K1/K2"), ("decode_split_kernel", "K14"),
+                         ("flash_fwd", "K11"), ("gemm", "torch.matmul"), ("nvjet", "torch.matmul"))
+
+
+def phase_hybrid_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa, ops):
+    """ServingEngine serves full-width, full-depth zamba2-1.2b (38 Mamba2
+    layers, the shared attention block after every 6, d_model 2048, bf16,
+    seeded random weights): 4 requests x PROMPT + NEW_TOKENS under sfc_cuda
+    with blockwise and with "sfc" attention and under torch, and one
+    HYBRID_LONG_PROMPT-token prompt + HYBRID_LONG_NEW under sfc_cuda +
+    "sfc" and torch.  Launch counts exact, reckoned from the structure:
+    per prefill 2 x n_layers chunk_einsum products on K2 (the n_layers
+    scores in the f32-output mode), 6 K1/K2 a shared-block application
+    (q, k, v, o, the GLU, w_out), and the same 6 an application a decode
+    step on the cluster kernel; under "sfc" one K11 an application a
+    prefill and one K14 an application a decode step; none under torch.
+    The f32 prefill logits of the same weights under each sfc_cuda variant
+    within the bf16 bound of torch's, and each bf16 variant's logits as
+    close to that f32 model as torch's are (ACCURACY_PARITY).  Returns
+    (summary, {run: sfc_gemm_fused launches by shape})."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = model.state_dict()
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=PROMPT).astype(np.int32) for _ in range(BATCH)]
+    long_prompt = [rng.integers(0, cfg.vocab, size=HYBRID_LONG_PROMPT).astype(np.int32)]
+    long_name = f"1x{HYBRID_LONG_PROMPT}"
+    variants = {"sfc_cuda": ("sfc_cuda", "blockwise"), "sfc_cuda+sfc_attn": ("sfc_cuda", "sfc"),
+                "torch": ("torch", "blockwise")}
+
+    def engine(name, config, weights, long_=False):
+        gemm, impl = variants[name]
+        seq = HYBRID_LONG_PROMPT + HYBRID_LONG_NEW + 1 if long_ else PROMPT + NEW_TOKENS + 1
+        return ServingEngine(dataclasses.replace(config, attn_impl=impl), weights, max_batch=BATCH, max_seq=seq,
+                             gemm_backend=gemm, device="cuda")
+
+    runs = {name: (engine(name, cfg, params), prompts, NEW_TOKENS) for name in variants}
+    runs.update({f"{name}@{long_name}": (engine(name, cfg, params, True), long_prompt, HYBRID_LONG_NEW)
+                 for name in ("sfc_cuda+sfc_attn", "torch")})
+    for eng, ps, _ in runs.values():  # warm-up: first launches, allocator, task tables
+        eng.run(eng.submit_many(ps[:1], max_new_tokens=2))
+    torch.cuda.synchronize()
+
+    groups = cfg.n_layers // cfg.attn_every
+    shared = groups * 6  # q, k, v, o, the GLU, w_out an application
+
+    def want(name, new):
+        if name.startswith("torch"):
+            return {"K1/K2": 0, "f32_out": 0, "by_kernel": {}, "K11": 0, "K14": 0}
+        attn = "sfc_attn" in name
+        return {"K1/K2": 2 * cfg.n_layers + shared + (new - 1) * shared, "f32_out": cfg.n_layers,
+                "by_kernel": {"sfc_gemm_wgmma_f32out_kernel": cfg.n_layers,
+                              "sfc_gemm_wgmma_kernel": cfg.n_layers + shared,
+                              "sfc_gemm_cluster_kernel": (new - 1) * shared},
+                "K11": groups if attn else 0, "K14": groups * (new - 1) if attn else 0}
+
+    counts, by_shape, done, reports = {}, {}, {}, {}
+    for name, (eng, ps, new) in runs.items():
+        for fn in (tk.sfc_gemm_fused, tsa.sfc_flash_fwd, tsa.sfc_decode_attention):
+            fn.launches = 0
+        tk.sfc_gemm_fused.f32_out_launches = 0
+        tk.sfc_gemm_fused.launches_by_shape.clear()
+        tk.sfc_gemm_fused.launches_by_kernel.clear()
+        done[name] = eng.run(eng.submit_many(ps, max_new_tokens=new))
+        torch.cuda.synchronize()
+        counts[name] = {"K1/K2": tk.sfc_gemm_fused.launches, "f32_out": tk.sfc_gemm_fused.f32_out_launches,
+                        "by_kernel": by_kernel(tk.sfc_gemm_fused.launches_by_kernel),
+                        "K11": tsa.sfc_flash_fwd.launches, "K14": tsa.sfc_decode_attention.launches}
+        by_shape[name] = dict(tk.sfc_gemm_fused.launches_by_shape)
+        reports[name] = eng.latency_report(done[name])
+        for r in done[name]:
+            if r.status != "completed" or len(r.output) != new or not all(0 <= t < cfg.vocab for t in r.output):
+                raise AssertionError(f"zamba2 {name}: request {r.uid} ended {r.status} with {len(r.output or [])} "
+                                     "tokens")
+    expected = {name: want(name, new) for name, (_, _, new) in runs.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
+    long_tokens = torch.from_numpy(np.stack(long_prompt)).long().cuda()
+    decode_profile = profile_decode(torch, runs["sfc_cuda"][0], tokens, ops, kernel_groups=_HYBRID_KERNEL_GROUPS)
+    logits = {name: eng._prefill(long_tokens if long_name in name else tokens)[0].float()
+              for name, (eng, _, _) in runs.items()}
+    del runs, eng
+    params32 = {k: v.float() for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    for name in variants:
+        logits[name + "_f32"] = engine(name, cfg32, params32)._prefill(tokens)[0]
+    for name in ("sfc_cuda+sfc_attn", "torch"):
+        logits[f"{name}@{long_name}_f32"] = engine(name, cfg32, params32, True)._prefill(long_tokens)[0]
+    del params32
+    sfc = ("sfc_cuda", "sfc_cuda+sfc_attn", f"sfc_cuda+sfc_attn@{long_name}")
+
+    def torch_of(name):
+        return f"torch@{long_name}" if long_name in name else "torch"
+
+    for name in sfc:
+        if not bool(torch.isfinite(logits[name]).all()):
+            raise AssertionError(f"zamba2 {name}: non-finite prefill logits")
+    f32_agree = {name: dict(zip(("ok", "max_abs_err", "err_over_bound"),
+                                within(logits[name + "_f32"], logits[torch_of(name) + "_f32"], torch.bfloat16)))
+                 for name in sfc}
+    noise = {name: float((logits[name] - logits[torch_of(name) + "_f32"]).abs().mean())
+             for name in (*sfc, "torch", f"torch@{long_name}")}
+    parity = {name: noise[name] <= ACCURACY_PARITY * noise[torch_of(name)] for name in sfc}
+    tokens_of = {name: np.array([r.output for r in batch]) for name, batch in done.items()}
+    summary = {
+        "phase": "serve_hybrid", "arch": cfg.name, "layers": cfg.n_layers, "attn_every": cfg.attn_every,
+        "shared_block_applications": groups, "d_model": cfg.d_model, "vocab": cfg.vocab,
+        "ssm_state": cfg.ssm_state, "ssm_head_dim": cfg.ssm_head_dim, "ssm_chunk": cfg.ssm_chunk,
+        "dtype": cfg.param_dtype, "params": n_params, "init_s": init_s, "peak_memory_gb": peak_gb,
+        "requests": {"4x": [BATCH, PROMPT, NEW_TOKENS], long_name: [1, HYBRID_LONG_PROMPT, HYBRID_LONG_NEW]},
+        "launches": counts, "launches_expected": expected,
+        "prefill_logits": {"f32_vs_torch": f32_agree, "bf16_mean_abs_err_vs_f32": noise, "parity_ok": parity,
+                           "first_token_match": {name: float((logits[name].argmax(-1) ==
+                                                              logits[torch_of(name)].argmax(-1)).float().mean())
+                                                 for name in sfc}},
+        "greedy_token_match": {name: float((tokens_of[name] == tokens_of[torch_of(name)]).mean()) for name in sfc},
+        "latency": {name: {key: rep[key] for key in ("ttft_mean_s", "ttft_p50_s", "token_p50_s", "tokens_per_s",
+                                                     "latency_mean_s")} for name, rep in reports.items()},
+        "decode_step_profile": decode_profile,
+    }
+    emit(summary)
+    if counts != expected:
+        raise AssertionError(f"zamba2 serves launched {counts}, expected {expected}")
+    for name in sfc:
+        if not f32_agree[name]["ok"]:
+            raise AssertionError(f"zamba2 f32 prefill logits {name} vs torch: {f32_agree[name]}")
+    if not all(parity.values()):
+        raise AssertionError(f"zamba2 bf16 logits further from the f32 model than torch's: {noise}")
+    del model, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, by_shape
+
+
+# ---------------------------------------------------------------------------
 # ABFT: the checksum lanes of K1/K2, K3 and K8 (dW, update, norm)
 # ---------------------------------------------------------------------------
 
@@ -2864,6 +3196,12 @@ def main() -> int:
     bwd_rows, bwd_checks = phase_backward_gemms(torch, train_backward_gemms(cfg), tk, ops)
     upd_rows, upd_checks = phase_update_gemms(torch, cfg, tk, opt)
     attn_bwd_rows, attn_bwd_checks = phase_attention_bwd(torch, attention_bwd_cases(cfg), tsa, build)
+    # the hybrid slice: K2 at the chunk-einsum shapes (its f32-output mode
+    # with the lanes) and K1/K2 at zamba2's shared-block shapes
+    zcfg = get_config(HYBRID_ARCH)
+    chunk_rows, chunk_checks, chunk_lane_rows, chunk_lane_checks = phase_chunk_gemms(torch, chunk_gemms(zcfg), tk,
+                                                                                     abft)
+    hyb_rows, hyb_checks = phase_kernels(torch, zcfg, hybrid_projection_gemms(zcfg), tk, ops, ragged=False)
     ocfg = get_config(MOE_ARCH)
     grouped_rows, grouped_checks = phase_grouped_gemms(torch, moe_grouped_gemms(ocfg), tk)
     grouped_upd_rows, grouped_upd_checks = phase_grouped_update_gemms(torch, ocfg, tk, opt)
@@ -2878,7 +3216,7 @@ def main() -> int:
                      "rounding of the kernel's master with the plain version's bits and within the bfloat16 "
                      "tolerance of the plain W",
         "checks": checks + rep_checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
-                  + grouped_upd_checks,
+                  + grouped_upd_checks + chunk_checks + hyb_checks,
         "reduced_model_f32_vs_reference": small})
     emit({"phase": "abft_lanes", "ok": True,
           "tolerance": f"|lane - plain lane| <= min({LANE_RTOL} * sum |{LANE_TILE}x{LANE_TILE} raw tile sums|, "
@@ -2886,11 +3224,19 @@ def main() -> int:
                        "less its last tile, the ragged case's sum after the epilogue) beyond it; "
                        "|lane - operand reference| <= robust.abft.tolerance(mag, depth); "
                        "the outputs with the lane on bitwise those with it off",
-          "max_lane_vs_plain_over_limit": max(c["lane_vs_plain_over_limit"] for c in lane_checks),
-          "min_lane_side_control_over_limit": min(r for c in lane_checks
+          "max_lane_vs_plain_over_limit": max(c["lane_vs_plain_over_limit"] for c in lane_checks + chunk_lane_checks),
+          "min_lane_side_control_over_limit": min(r for c in lane_checks + chunk_lane_checks
                                                   for r in c.get("lane_side_controls_over_limit", {}).values()),
-          "max_lane_vs_ref_over_tol": max(c["lane_vs_ref_over_tol"] for c in lane_checks),
-          "checks": lane_checks, "negative_controls": lane_controls})
+          "max_lane_vs_ref_over_tol": max(c["lane_vs_ref_over_tol"] for c in lane_checks + chunk_lane_checks),
+          "checks": lane_checks + chunk_lane_checks, "negative_controls": lane_controls,
+          # K2's lane at the chunk-einsum shapes (the f32-output mode's
+          # twins and the SSD output's): ms with the lane on and off, the
+          # operand-side reference's, the bound with the partials
+          "chunk_einsum_lane_times": [
+              {"case": row["gemm"].name, "kernel": row["cuda_kernel"], "config": row["config"], "ms": row["ms"],
+               "lane_off_ms": row["lane_off_ms"], "operand_ref_ms": row["operand_ref_ms"],
+               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+               "partials": row["partials"], "lane_vs_plain_abs": row["max_abs_err"]} for row in chunk_lane_rows]})
     torch.cuda.empty_cache()
 
     # ---- 3. gradients of a 4-layer full-width model in f32 -----------------
@@ -3219,8 +3565,12 @@ def main() -> int:
     _, moe_train_counts = phase_moe_train(torch, ocfg, build_trainer, moe_counted)
     moe_fused_counts = moe_train_counts["sfc_cuda+sfc_attn+fused_optimizer"]["sfc_gemm_grouped_tn"]
 
-    # ---- 9. the kernels line ------------------------------------------------
+    # ---- 9. serve full-width, full-depth zamba2-1.2b -----------------------
     phase_at[9] = time.perf_counter() - run_t0
+    hybrid_serve, hybrid_by_shape = phase_hybrid_serve(torch, np, zcfg, build_model, ServingEngine, tk, tsa, ops)
+
+    # ---- 10. the kernels line -----------------------------------------------
+    phase_at[10] = time.perf_counter() - run_t0
     kernels = []
     for row in rows:
         gm = row["gemm"]
@@ -3452,7 +3802,56 @@ def main() -> int:
             "shape": {"experts": gm.experts, "rows_per_expert": gm.rows, "k": gm.k, "n": gm.n, "dual": gm.glu,
                       "dtype": "bfloat16", "stochastic_round": gm.mode == "update"},
         })
-    missing = [k["name"] for k in kernels if k["launches"] == 0]
+    # the hybrid slice: K2 at the chunk-einsum shapes (launches at the
+    # row's shape in the run of its serve; a check row carries its CUDA
+    # kernel's launches in the 4 x 128 sfc_cuda serve) and K1/K2 at the
+    # shared block's shapes (the 4 x 128 sfc_cuda serve)
+    hybrid_runs = {"serve": "sfc_cuda", f"serve 1x{HYBRID_LONG_PROMPT}": f"sfc_cuda+sfc_attn@1x{HYBRID_LONG_PROMPT}"}
+    for row in chunk_rows:
+        gm = row["gemm"]
+        at_shape = hybrid_by_shape[hybrid_runs[gm.path]].get(gm.key, 0) if gm.path else 0
+        kernels.append({
+            "name": f"sfc_gemm_fused:chunk_einsum:{gm.name}",
+            "route": "cuda",
+            "source": kernel_source(row["kernel"]),
+            "replaces": "src/repro/kernels/sfc_gemm.py:491",
+            "launches": at_shape if gm.path else hybrid_serve["launches"]["sfc_cuda"]["by_kernel"].get(
+                row["kernel"], 0),
+            "launches_at_shape": at_shape,
+            "path": f"zamba2 {gm.path}" if gm.path else "check (zamba2 serve, sfc_cuda)",
+            "main_path": gm.path is not None,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": "torch.bmm(a, b, out_dtype=torch.float32)" if gm.f32_out else "torch.bmm(a, b)",
+            "kernel": row["kernel"],
+            "config": row["config"],
+            "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "per_batch_b": True,
+                      "out": "float32" if gm.f32_out else "bfloat16", "unaligned": gm.unaligned},
+        })
+    for row in hyb_rows:
+        gm = row["gemm"]
+        kernels.append({
+            "name": f"sfc_gemm_fused:{gm.name}",
+            "route": "cuda",
+            "source": kernel_source(row["kernel"]),
+            "replaces": "src/repro/kernels/sfc_gemm.py:491" if gm.batch else "src/repro/kernels/sfc_gemm.py:355",
+            "launches": hybrid_by_shape["sfc_cuda"].get(gm.key, 0),
+            "path": "zamba2 serve",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "kernel": row["kernel"],
+            "config": row["config"],
+            "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "glu": gm.glu, "preact": gm.preact},
+        })
+    missing = [k["name"] for k in kernels if k["launches"] == 0 and k.get("main_path", True)]
     if missing:
         raise AssertionError(f"main-path kernels never launched in the run of their path: {missing}")
     # seconds since phase 1 began at the start of each later phase, and

@@ -10,12 +10,13 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES
 
 __all__ = ["ARCH_IDS", "ALIASES", "get_config", "all_configs", "ArchConfig", "ShapeConfig", "SHAPES"]
 
-# the configs the port serves: two dense, one MoE; the JAX package has
-# more families
+# the configs the port serves: two dense, one MoE, one hybrid; the JAX
+# package has more families
 ARCH_IDS = [
     "qwen3_4b",
     "yi_6b",
     "olmoe_1b_7b",
+    "zamba2_1_2b",
 ]
 
 # hyphenated aliases (CLI --arch accepts both)

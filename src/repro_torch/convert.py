@@ -1,5 +1,11 @@
 """Parameters and optimizer state of the JAX package, as numpy arrays, to
-the port's, and the port's parameters back to the JAX tree layout."""
+the port's, and the port's parameters back to the JAX tree layout.
+
+The JAX trees stack repeated layers on leading axes; the port writes each
+slice out under its index: ``layers`` (the decoder's, on one axis) becomes
+``layers.{i}.*``; the hybrid family's ``groups`` (on (G, E)) becomes
+``groups.{g}.{e}.*`` and its ``tail`` (on one axis) ``tail.{i}.*``.  Every
+other leaf carries over with ``.`` joining the keys."""
 
 from __future__ import annotations
 
@@ -10,6 +16,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import torch_dtype
+
+# the JAX trees' stacked subtrees and their stacked axes
+_STACKED = {"layers": 1, "groups": 2, "tail": 1}
 
 __all__ = ["params_from_jax", "params_to_jax", "opt_state_from_jax", "jax_leaf_path"]
 
@@ -30,16 +39,36 @@ def _to_tensor(arr, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C")).to(device=device, dtype=dtype)
 
 
+def _stacked(name: str):
+    """(subtree, stacked axes) of a dotted name inside a stacked subtree,
+    else None."""
+    head = name.split(".", 1)[0]
+    return (head, _STACKED[head]) if head in _STACKED and "." in name else None
+
+
+def _stack_shape(head: str, cfg: ArchConfig) -> tuple:
+    """The leading (stacked) axes of subtree ``head`` under ``cfg``."""
+    if head == "layers":
+        return (cfg.n_layers,)
+    groups = cfg.n_layers // cfg.attn_every
+    return (groups, cfg.attn_every) if head == "groups" else (cfg.n_layers - groups * cfg.attn_every,)
+
+
 def jax_leaf_path(name: str):
     """(path, layer) of the JAX package's leaf that holds the port's
     parameter ``name``, the path as the JAX package's ``optim.fused`` spells
-    it: ``layers.{i}.attn.wq`` is row ``i`` of ``layers/attn/wq``, any
-    other name its keys joined by "/" with layer None (the inverse of
-    `params_from_jax`'s name map)."""
-    if name.startswith("layers."):
-        _, i, rest = name.split(".", 2)
-        return "layers/" + rest.replace(".", "/"), int(i)
-    return name.replace(".", "/"), None
+    it: ``layers.{i}.attn.wq`` is row ``i`` of ``layers/attn/wq`` (layer
+    ``i``), ``groups.{g}.{e}.mixer.in_proj`` the (g, e) slice of
+    ``groups/mixer/in_proj`` (layer ``(g, e)``), ``tail.{i}.*`` row ``i``
+    of ``tail/*``; any other name its keys joined by "/" with layer None
+    (the inverse of `params_from_jax`'s name map)."""
+    st = _stacked(name)
+    if st is None:
+        return name.replace(".", "/"), None
+    head, axes = st
+    parts = name.split(".")
+    idx = tuple(int(i) for i in parts[1:1 + axes])
+    return head + "/" + "/".join(parts[1 + axes:]), idx[0] if axes == 1 else idx
 
 
 def params_from_jax(
@@ -49,33 +78,43 @@ def params_from_jax(
     device: Union[str, torch.device],
     dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, torch.Tensor]:
-    """A ``DecoderLM`` state dict from the JAX parameter tree.
+    """A ``DecoderLM`` or ``HybridLM`` state dict from the JAX parameter
+    tree.
 
-    ``tree`` is ``repro.models.transformer.DecoderLM.init``'s output with
-    every leaf turned into a numpy array.  Its ``layers`` subtree is stacked
-    on a leading layer axis; each slice ``i`` becomes ``layers.{i}.*``.  The
-    other names carry over with ``.`` joining the keys, as ``nn.Module``
-    names them.  ``dtype`` defaults to the config's ``param_dtype``.
+    ``tree`` is the JAX model's ``init`` output with every leaf turned into
+    a numpy array.  Its stacked subtrees (``layers``; the hybrid's
+    ``groups`` and ``tail``) are written out slice by slice (the module
+    docstring), the other names carry over with ``.`` joining the keys, as
+    ``nn.Module`` names them.  ``dtype`` defaults to the config's
+    ``param_dtype``; the Mamba2 mixers' ``A_log``, ``D`` and ``dt_bias``
+    stay f32, as the JAX package keeps them.
     """
+    from repro_torch.models.ssm import F32_PARAMS  # the models import this module's importers
+
     dtype = torch_dtype(dtype or cfg.param_dtype)
     out: Dict[str, torch.Tensor] = {}
     for name, arr in _flatten(tree):
-        if name.startswith("layers."):
-            arr = np.asarray(arr)
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name} stacks {arr.shape[0]} layers, config has {cfg.n_layers}")
-            rest = name[len("layers."):]
-            for i in range(cfg.n_layers):
-                out[f"layers.{i}.{rest}"] = _to_tensor(arr[i], device, dtype)
-        else:
-            out[name] = _to_tensor(arr, device, dtype)
+        leaf_dtype = torch.float32 if cfg.family == "hybrid" and name.rsplit(".", 1)[-1] in F32_PARAMS else dtype
+        st = _stacked(name)
+        if st is None:
+            out[name] = _to_tensor(arr, device, leaf_dtype)
+            continue
+        head, axes = st
+        arr = np.asarray(arr)
+        want = _stack_shape(head, cfg)
+        if tuple(arr.shape[:axes]) != want:
+            raise ValueError(f"{name} stacks {tuple(arr.shape[:axes])} layers, config has {want}")
+        rest = name[len(head) + 1:]
+        for idx in np.ndindex(*want):
+            out[".".join((head, *map(str, idx), rest))] = _to_tensor(arr[idx], device, leaf_dtype)
     return out
 
 
 def params_to_jax(params: Mapping[str, torch.Tensor], cfg: ArchConfig) -> Dict[str, Any]:
     """The inverse name map of `params_from_jax`: the port's parameters as
-    f32 numpy arrays in the JAX tree layout (``layers.{i}.*`` stacked on a
-    leading layer axis, dotted names nested)."""
+    f32 numpy arrays in the JAX tree layout (``layers.{i}.*``,
+    ``groups.{g}.{e}.*`` and ``tail.{i}.*`` stacked on their leading axes,
+    dotted names nested)."""
     tree: Dict[str, Any] = {}
 
     def put(name: str, arr: np.ndarray) -> None:
@@ -85,16 +124,21 @@ def params_to_jax(params: Mapping[str, torch.Tensor], cfg: ArchConfig) -> Dict[s
             node = node.setdefault(key, {})
         node[leaf] = arr
 
-    layer_leaves: Dict[str, list] = {}
+    stacked: Dict[tuple, Dict[tuple, np.ndarray]] = {}
     for name, t in params.items():
         arr = t.detach().to("cpu", torch.float32).numpy()
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            layer_leaves.setdefault(rest, [None] * cfg.n_layers)[int(i)] = arr
-        else:
+        st = _stacked(name)
+        if st is None:
             put(name, arr)
-    for rest, arrs in layer_leaves.items():
-        put(f"layers.{rest}", np.stack(arrs))
+            continue
+        head, axes = st
+        parts = name.split(".")
+        idx = tuple(int(i) for i in parts[1:1 + axes])
+        stacked.setdefault((head, ".".join(parts[1 + axes:])), {})[idx] = arr
+    for (head, rest), slices in stacked.items():
+        shape = _stack_shape(head, cfg)
+        put(f"{head}.{rest}", np.stack([slices[idx] for idx in np.ndindex(*shape)]).reshape(
+            *shape, *next(iter(slices.values())).shape))
     return tree
 
 

@@ -42,6 +42,12 @@ active, a weight it routes goes through `ops.fused_update_matmul` /
 TN kernel's or K10's update flush under "sfc_cuda", the JAX package's
 oracle under the other backends); a routing probe counts the parameters
 that reach these call sites.
+
+`chunk_einsum()` is the chunked-recurrence intra-chunk block (the SSD's
+scores and output product, the mLSTM's qk scores and numerator): under
+"sfc_cuda" one batched launch of the fused kernel (K2) with per-batch B,
+its f32-output mode where the caller asks for f32; under every other
+backend ``torch.einsum``, as the JAX package's is ``jnp.einsum`` there.
 """
 
 from __future__ import annotations
@@ -60,7 +66,8 @@ from repro_torch.core.namespaces import (
 )
 from repro_torch.optim import fused as _fused
 
-__all__ = ["gemm_backend", "current_backend", "matmul", "glu_matmul", "grouped_matmul", "grouped_glu_matmul"]
+__all__ = ["gemm_backend", "current_backend", "matmul", "glu_matmul", "grouped_matmul", "grouped_glu_matmul",
+           "chunk_einsum"]
 
 _BACKEND: contextvars.ContextVar[str] = contextvars.ContextVar(
     "gemm_backend", default=BACKEND_TORCH
@@ -411,3 +418,67 @@ def grouped_glu_matmul(
         xe = rows[ei * g * c:(ei + 1) * g * c]
         parts.append(_act(activation)(_reference_matmul(xe, w_gate[ei])) * _reference_matmul(xe, w_val[ei]))
     return restore(_epilogue(torch.cat(parts), out_scale=out_scale), n)
+
+
+# ---------------------------------------------------------------------------
+# chunked-recurrence einsums (xLSTM / SSM intra-chunk blocks)
+# ---------------------------------------------------------------------------
+
+# Each supported signature is a pure transpose framing of a batched
+# (..., M, K) @ (..., K, N) product: (a_perm, b_perm, swap_b, out_perm), the
+# JAX package's table (core/gemm_backend.py:_CHUNK_EINSUMS).  ``swap_b``
+# transposes B's trailing pair (the qk / scores forms contract against Kᵀ /
+# Bᵀ); perms of None mean identity.
+_CHUNK_EINSUMS = {
+    # xLSTM intra-chunk attention scores: q·kᵀ per (batch, head)
+    "blhp,bjhp->bljh": ((0, 2, 1, 3), (0, 2, 1, 3), True, (0, 2, 3, 1)),
+    # xLSTM intra-chunk numerator: att·v per (batch, head)
+    "bljh,bjhp->blhp": ((0, 3, 1, 2), (0, 2, 1, 3), False, (0, 2, 1, 3)),
+    # SSD intra-chunk scores: C·Bᵀ per (batch, chunk)
+    "bcin,bcjn->bcij": (None, None, True, None),
+    # SSD intra-chunk output: w·x per (batch, chunk, head)
+    "bcijh,bcjhp->bcihp": ((0, 1, 4, 2, 3), (0, 1, 3, 2, 4), False, (0, 1, 3, 2, 4)),
+}
+
+
+def chunk_einsum(subs: str, a: torch.Tensor, b: torch.Tensor, *,
+                 preferred_element_type: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Backend-routed two-operand einsum of a chunked recurrence's
+    intra-chunk block, for the signatures of ``_CHUNK_EINSUMS`` (the JAX
+    package's ``chunk_einsum``).
+
+    Under "sfc_cuda" the operands are transposed into a batched (..., M, K)
+    @ (..., K, N) product and run as one launch of the fused kernel with
+    per-batch B (`kernels.ops.sfc_matmul`, ``fuse=True``), in the output
+    type ``preferred_element_type`` (else the inputs' common type): bf16
+    inputs asking for f32 take the kernel's f32-output mode, the
+    accumulator written with no bf16 rounding.  Knobs and namespace come
+    from `kernels.ops.chunk_gemm_plan`.  There is no fallback ladder
+    (ROADMAP item 14): a kernel that fails raises.  Under every other
+    backend it is ``torch.einsum`` of the same signature, on operands cast
+    to ``preferred_element_type`` when one is given (products of the
+    inputs' values are exact in f32, so that is the f32 accumulation JAX's
+    ``jnp.einsum(..., preferred_element_type=f32)`` gives).  Differentiable:
+    the kernel path runs through `sfc_matmul`'s autograd Function."""
+    if subs not in _CHUNK_EINSUMS:
+        raise ValueError(
+            f"chunk_einsum does not know {subs!r}; registered signatures: {sorted(_CHUNK_EINSUMS)}"
+        )
+    if _BACKEND.get() != BACKEND_SFC_CUDA:
+        if preferred_element_type is not None:
+            a, b = a.to(preferred_element_type), b.to(preferred_element_type)
+        return torch.einsum(subs, a, b)
+
+    from repro_torch.kernels.ops import chunk_gemm_plan, sfc_matmul
+
+    pa, pb, swap_b, po = _CHUNK_EINSUMS[subs]
+    at = a.permute(pa) if pa is not None else a
+    bt = b.permute(pb) if pb is not None else b
+    if swap_b:
+        bt = bt.transpose(-1, -2)
+    out_dtype = preferred_element_type or torch.promote_types(a.dtype, b.dtype)
+    m, k = at.shape[-2:]
+    n = bt.shape[-1]
+    _, knobs = chunk_gemm_plan(m, n, k, at.dtype, device=at.device)
+    out = sfc_matmul(at, bt, out_dtype=out_dtype, fuse=True, **knobs)
+    return out.permute(po) if po is not None else out

@@ -31,7 +31,10 @@ the flags, and loaded with ``ctypes``.  Two libraries:
   "nt_wgmma", "bf16")``) and the wgmma TN kernels (K8 and K10 dW,
   ``"tn_wgmma"``), the bf16 TN-update part their norm and update modes
   (``"tn_update_wgmma"``), and the bf16 TN lane parts K8's twins of both
-  (``abft=True``); the wgmma main loop is ``csrc/sfc_gemm_wgmma.cuh``'s;
+  (``abft=True``); the bf16 part of (no GLU, no activation) and its lane
+  twin also hold K1/K2's f32-output mode, on the tile kernel and on the
+  wgmma kernel, behind entries of their own (`f32out_entry_name`); the
+  wgmma main loop is ``csrc/sfc_gemm_wgmma.cuh``'s;
 * ``sfc_attention.cu``, compiled once per (input type, half), each part
   holding, for the head dims in ``ATTN_HEAD_DIMS``, the flash-forward and
   decode kernels (half 0) or the flash backward's dQ and dK/dV kernels
@@ -88,6 +91,7 @@ __all__ = [
     "entry_name",
     "cluster_entry_name",
     "wgmma_entry_name",
+    "f32out_entry_name",
     "bwd_entry_name",
     "rep_entry_name",
     "attn_entry_name",
@@ -168,6 +172,16 @@ def wgmma_entry_name(glu: bool, activation: Optional[str], abft: bool = False) -
     return f"sfc_gemm_wgmma_{lane}bf16_glu{int(glu)}_act{ACTIVATION_CODES[activation]}"
 
 
+def f32out_entry_name(kind: str, abft: bool = False) -> str:
+    """C symbol of K1/K2's f32-output mode (bf16 inputs, no GLU, no
+    epilogue): ``kind`` "tile" (the 64 x 64 tile kernel) or "wgmma", in the
+    bf16 part of (no GLU, no activation), or in its ABFT twin."""
+    if kind not in ("tile", "wgmma"):
+        raise ValueError(f"unknown f32-output kind {kind!r}")
+    lane = "abft_" if abft else ""
+    return f"sfc_gemm_{'fused' if kind == 'tile' else 'wgmma'}_f32out_{lane}bf16"
+
+
 def bwd_entry_name(kind: str, dtype_name: str, abft: bool = False) -> str:
     """C symbol of a backward GEMM entry: ``kind`` is "nt" (dA), "nt_wgmma"
     (dA on the wgmma kernel, bf16 only), "tn" (dW), "tn_update" (the TN
@@ -218,6 +232,9 @@ def _gemm_parts():
                         *(("-DSFC_ABFT=1",) if abft else ()),
                         *((f"-DSFC_CLUSTER_ENTRY={cluster_entry_name(glu, act, abft)}",
                            f"-DSFC_WGMMA_ENTRY={wgmma_entry_name(glu, act, abft)}") if dt == "bf16" else ()),
+                        *((f"-DSFC_F32_ENTRY={f32out_entry_name('tile', abft)}",
+                           f"-DSFC_WGMMA_F32_ENTRY={f32out_entry_name('wgmma', abft)}")
+                          if dt == "bf16" and not glu and act is None else ()),
                     )
         yield f"sfc_gemm_bwd_{dt}", (
             f"-DSFC_DTYPE={_DTYPE_CODES[dt]}",
@@ -313,6 +330,28 @@ def _bind_gemm(lib: ctypes.CDLL) -> None:
                     ]
                     fn.restype = i32
         if dt == "bf16":
+            for abft in (False, True):
+                fn = getattr(lib, f32out_entry_name("tile", abft))
+                fn.argtypes = [
+                    ptr, ptr, ptr,  # a, b, out (f32)
+                    ptr, i32, i32,  # task table, n_tasks, batch
+                    i32, i32, i32,  # M, N, K
+                    ctypes.c_longlong, ctypes.c_longlong,  # A / B batch strides (elements)
+                    i32, i32,  # vec_a, vec_b
+                    *((ptr,) if abft else ()),  # the lane's (batch * n_tasks) f32 partials
+                    ptr,  # cudaStream_t
+                ]
+                fn.restype = i32
+                fn = getattr(lib, f32out_entry_name("wgmma", abft))
+                fn.argtypes = [
+                    ptr, ptr, ptr,  # a, b, out (f32)
+                    ptr, i32, i32, i32,  # task table (2, tiles), tiles, batch, b_batched
+                    i32, i32, i32,  # M (rows a batch element), N, K
+                    i32, i32, i32,  # wide (the 128 x 256 tile), CTAs, CTAs a worker
+                    *((ptr,) if abft else ()),  # the lane's (batch * tiles) f32 partials
+                    ptr,  # cudaStream_t
+                ]
+                fn.restype = i32
             fn = getattr(lib, bwd_entry_name("nt_wgmma", dt))
             fn.argtypes = [
                 ptr, ptr, ptr, ptr, ptr,  # a, b, a2, b2, out

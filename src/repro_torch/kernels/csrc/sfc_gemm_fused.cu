@@ -235,6 +235,21 @@
 // reads the tile from shared memory once more after the flush (64 x 64
 // f32, 16 KB) and adds a block reduction and one 4-byte write a task; the
 // flush is the same code, so the outputs are bitwise those without it.
+//
+// The f32-output mode (the TPU kernel's `out_dtype`, sfc_gemm.py:265-269,
+// :286: `acc.astype(spec.out_dtype)` with an f32 out_dtype on bf16 inputs;
+// the SSD scores of `chunk_einsum`, repro/models/ssm.py:97-99, and the
+// mLSTM qk block ask for it).  Only the plain product, with no epilogue,
+// no GLU and no preact, has a caller, so the bf16 part of (no GLU, no
+// activation) and its lane twin hold it, behind entries of their own
+// (-DSFC_F32_ENTRY, -DSFC_WGMMA_F32_ENTRY) and under kernel names of their
+// own, so no other instantiation changes: sfc_gemm_fused_f32out_kernel
+// (the 64 x 64 tile kernel; also the route of a plain-mode A of at most 16
+// rows, which the cluster kernel keeps in bf16) and
+// sfc_gemm_wgmma_f32out_kernel (the wgmma body's forward kind with an f32
+// flush of the raw accumulator, `wg::OutF32`), and their lane twins
+// sfc_gemm_fused_f32out_abft_kernel / sfc_gemm_wgmma_f32out_abft_kernel.
+// The flush writes the f32 accumulator as it is: no bf16 rounding.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap (the driver's encoder is fetched at run time: no -lcuda)
@@ -985,14 +1000,16 @@ __global__ void __launch_bounds__(kReduceMaxThreads) add_reduce_kernel(const T* 
 
 // The fused kernel's flush of one C tile from the f32 accumulators in
 // shared memory: C (and the residual, the preact gate output) at c_off in
-// their arrays, the bias rows at vec_off; M bounds the tile's rows.
-template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT>
+// their arrays, the bias rows at vec_off; M bounds the tile's rows.  C is
+// written in OutT: the input type, or f32 in the f32-output mode.
+template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT,
+          typename OutT = T>
 __device__ __forceinline__ void fused_flush(const Params& p, int M, const float* Cs, const float* Cgs, int row0,
                                             int col0, long long c_off, long long vec_off) {
   const T* bias = static_cast<const T*>(p.bias) + (BIAS ? vec_off : 0);
   const T* gbias = static_cast<const T*>(p.gbias) + (GBIAS ? vec_off : 0);
   const T* res = static_cast<const T*>(p.res) + (RES ? c_off : 0);
-  T* out = static_cast<T*>(p.out) + c_off;
+  OutT* out = static_cast<OutT*>(p.out) + c_off;
   T* out_gate = static_cast<T*>(p.out_gate) + (PREACT ? c_off : 0);
   for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
     const int r = i / kBN, c = i % kBN;
@@ -1015,7 +1032,7 @@ __device__ __forceinline__ void fused_flush(const Params& p, int M, const float*
     }
     if constexpr (SCALE) y *= p.out_scale;
     if constexpr (RES) y += to_f32(res[(size_t)gr * p.N + gc]);
-    out[(size_t)gr * p.N + gc] = from_f32<T>(y);
+    out[(size_t)gr * p.N + gc] = from_f32<OutT>(y);
   }
 }
 
@@ -1026,7 +1043,7 @@ __device__ __forceinline__ void fused_flush(const Params& p, int M, const float*
 // sum of the raw accumulators (both for the GLU) before the epilogue, into
 // chk[blockIdx.y * n_tasks + blockIdx.x]; the flush is the same code.
 template <typename T, bool GLU, int ACT, bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT, bool GROUPED,
-          bool ABFT = false>
+          bool ABFT = false, typename OutT = T>
 __device__ __forceinline__ void fused_tile(const Params& p, const GroupRows& g, float* chk = nullptr) {
   static_assert(!PREACT || (GLU && !SCALE && !RES), "preact flushes the two biased pre-activations");
   static_assert(!GROUPED || !RES, "the grouped mode has no residual");
@@ -1068,13 +1085,13 @@ __device__ __forceinline__ void fused_tile(const Params& p, const GroupRows& g, 
     }
     mainloop<GLU>(p, M, A, B, Bg, row0, col0, 0, p.K, As, Bs, Bgs, Cs, Cgs);
     __syncthreads();
-    fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, M, Cs, Cgs, row0, col0, c_off, vec_off);
+    fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT, OutT>(p, M, Cs, Cgs, row0, col0, c_off, vec_off);
     if constexpr (ABFT) tile_checksum<GLU>(Cs, Cgs, M, p.N, row0, col0, chk + t);
   } else {
     mainloop<GLU>(p, p.M, A, B, Bg, row0, col0, 0, p.K, As, Bs, Bgs, Cs, Cgs);
     __syncthreads();
-    fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT>(p, p.M, Cs, Cgs, row0, col0, bi * (long long)p.M * p.N,
-                                                              0);
+    fused_flush<T, GLU, ACT, BIAS, GBIAS, SCALE, RES, PREACT, OutT>(p, p.M, Cs, Cgs, row0, col0,
+                                                                    bi * (long long)p.M * p.N, 0);
     if constexpr (ABFT) tile_checksum<GLU>(Cs, Cgs, p.M, p.N, row0, col0, chk + bi * p.n_tasks + t);
   }
 }
@@ -1114,6 +1131,22 @@ __global__ void __launch_bounds__(kThreads) sfc_gemm_grouped_abft_kernel(const P
   fused_tile<T, GLU, ACT, BIAS, GBIAS, SCALE, false, PREACT, true, true>(p, g, chk);
 }
 #endif
+
+#ifdef SFC_F32_ENTRY
+// The f32-output mode of K1/K2 on the tile kernel (bf16 inputs, no GLU, no
+// epilogue): the raw f32 accumulator written as it is.  The route of the
+// calls whose rows TMA cannot describe and of a plain-mode A of at most 16
+// rows (the cluster kernel writes bf16 only).
+#if SFC_ABFT
+__global__ void __launch_bounds__(kThreads) sfc_gemm_fused_f32out_abft_kernel(const Params p, float* chk) {
+  fused_tile<bf16, false, 0, false, false, false, false, false, false, true, float>(p, GroupRows{nullptr, 0}, chk);
+}
+#else
+__global__ void __launch_bounds__(kThreads) sfc_gemm_fused_f32out_kernel(const Params p) {
+  fused_tile<bf16, false, 0, false, false, false, false, false, false, false, float>(p, GroupRows{nullptr, 0});
+}
+#endif
+#endif  // SFC_F32_ENTRY
 
 template <bool BIAS, bool GBIAS, bool SCALE, bool RES, bool PREACT = false>
 void launch(const Params& p, const GroupRows& g, float* chk, dim3 grid, cudaStream_t s) {
@@ -1220,6 +1253,30 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   wg::body<wg::kFwd, GLU, ACT, false, BN, wg::NoFlush, true>(tm_a, tm_b, tm_unused, tm_bg, p);
 }
 #endif
+
+#ifdef SFC_WGMMA_F32_ENTRY
+// K2's f32-output mode (and K1's past 16 rows): the forward kind's main
+// loop, the raw f32 accumulator flushed as it is (`wg::OutF32`); no GLU,
+// no epilogue.  Maps as sfc_gemm_wgmma_kernel's.
+#if SFC_ABFT
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    sfc_gemm_wgmma_f32out_abft_kernel(const __grid_constant__ CUtensorMap tm_a,
+                                      const __grid_constant__ CUtensorMap tm_b,
+                                      const __grid_constant__ CUtensorMap tm_unused,
+                                      const __grid_constant__ CUtensorMap tm_bg, const wg::Params p) {
+  wg::body<wg::kFwd, false, 0, true, BN, wg::OutF32>(tm_a, tm_b, tm_unused, tm_bg, p);
+}
+#else
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    sfc_gemm_wgmma_f32out_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                                 const __grid_constant__ CUtensorMap tm_unused,
+                                 const __grid_constant__ CUtensorMap tm_bg, const wg::Params p) {
+  wg::body<wg::kFwd, false, 0, false, BN, wg::OutF32>(tm_a, tm_b, tm_unused, tm_bg, p);
+}
+#endif
+#endif  // SFC_WGMMA_F32_ENTRY
 
 #endif  // SFC_DTYPE == 1 && SFC_WGMMA_ENTRY
 
@@ -2597,6 +2654,57 @@ extern "C" int SFC_ENTRY(const void* a, const void* b, const void* b_gate, const
 }
 #endif
 
+#ifdef SFC_F32_ENTRY
+// K1/K2's f32-output mode on the tile kernel: out (batch, M, N) f32 = a
+// (batch, M, K) @ b, b (K, N) shared or, with b_bstride, (batch, K, N);
+// bf16 inputs, no epilogue.  The other arguments as SFC_ENTRY's.  The
+// -DSFC_ABFT=1 part's entry takes chk, the (batch * n_tasks) f32 partials
+// of the lane.  Returns the launch's CUDA error.
+static int f32_entry(const void* a, const void* b, void* out, const int* tab, int n_tasks, int batch, int M, int N,
+                     int K, long long a_bstride, long long b_bstride, int vec_a, int vec_b, float* chk,
+                     void* stream) {
+  if (n_tasks < 1 || batch < 1 || M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (SFC_ABFT && chk == nullptr) return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.a = a;
+  p.b = b;
+  p.out = out;
+  p.tab = tab;
+  p.n_tasks = n_tasks;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.a_bstride = a_bstride;
+  p.b_bstride = b_bstride;
+  p.out_scale = 1.0f;
+  p.vec_a = vec_a;
+  p.vec_b = vec_b;
+  const dim3 grid((unsigned)n_tasks, (unsigned)batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if SFC_ABFT
+  sfc_gemm_fused_f32out_abft_kernel<<<grid, kThreads, 0, s>>>(p, chk);
+#else
+  (void)chk;
+  sfc_gemm_fused_f32out_kernel<<<grid, kThreads, 0, s>>>(p);
+#endif
+  return (int)cudaGetLastError();
+}
+
+#if !SFC_ABFT
+extern "C" int SFC_F32_ENTRY(const void* a, const void* b, void* out, const int* tab, int n_tasks, int batch, int M,
+                             int N, int K, long long a_bstride, long long b_bstride, int vec_a, int vec_b,
+                             void* stream) {
+  return f32_entry(a, b, out, tab, n_tasks, batch, M, N, K, a_bstride, b_bstride, vec_a, vec_b, nullptr, stream);
+}
+#else
+extern "C" int SFC_F32_ENTRY(const void* a, const void* b, void* out, const int* tab, int n_tasks, int batch, int M,
+                             int N, int K, long long a_bstride, long long b_bstride, int vec_a, int vec_b, float* chk,
+                             void* stream) {
+  return f32_entry(a, b, out, tab, n_tasks, batch, M, N, K, a_bstride, b_bstride, vec_a, vec_b, chk, stream);
+}
+#endif
+#endif  // SFC_F32_ENTRY
+
 #if SFC_DTYPE == 1 && defined(SFC_WGMMA_ENTRY)
 // One launch of the wgmma kernel: `ctas` persistent CTAs, the tasks (batch
 // element, C tile of tab) split into contiguous segments, one a CTA.  A
@@ -2700,6 +2808,66 @@ extern "C" int SFC_WGMMA_ENTRY(const void* a, const void* b, const void* b_gate,
                      wide, ctas, group, has_scale, out_scale, grp, n_groups, chk, stream);
 }
 #endif
+
+#ifdef SFC_WGMMA_F32_ENTRY
+// K2's f32-output mode on the wgmma kernel (and K1's past 16 rows): out
+// (batch, M, N) f32 = a (batch, M, K) @ b, b (K, N) or, b_batched, (batch,
+// K, N); bf16 inputs, no epilogue; the other arguments as
+// SFC_WGMMA_ENTRY's.  K and N multiples of 8 and a, b 16-byte aligned, as
+// TMA needs.  The -DSFC_ABFT=1 part's entry takes chk, the (batch * tiles,
+// wg::kLaneSlots) f32 partials of the lane.  Returns the launch's CUDA
+// error.
+static int wgmma_f32_entry(const void* a, const void* b, void* out, const int* tab, int tiles, int batch,
+                           int b_batched, int M, int N, int K, int wide, int ctas, int group, float* chk,
+                           void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || N < 1 || K < 1 || N % 8 != 0 || K % 8 != 0 || batch < 1 || tiles < 1) return kInvalid;
+  if (!wg::aligned16(a) || !wg::aligned16(b) || !wg::aligned16(out)) return kInvalid;
+  if (SFC_ABFT && chk == nullptr) return kInvalid;
+  wg::Params p = {};
+  p.tab = tab;
+  p.tiles = tiles;
+  p.n_tasks = batch * tiles;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.b_batched = b_batched;
+  p.pairs = 1;
+  p.group = group;
+  p.pair_store = 1;  // N is even
+  p.out = static_cast<bf16*>(out);  // written as f32 by the OutF32 flush
+  p.out_scale = 1.0f;
+  p.chk = chk;
+  CUtensorMap ma, mb;
+  int rc = wg::tensor_map(&ma, a, K, M, batch, wg::kBM);
+  if (rc == 0) rc = wg::tensor_map(&mb, b, N, K, b_batched ? batch : 1, wg::kBK);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool opted[2][kMaxDevices] = {};  // narrow, wide
+  constexpr int kNarrow = wg::kBN, kWide = 2 * wg::kBN;
+#if SFC_ABFT
+  if (wide)
+    return wg::launch<kWide>(&sfc_gemm_wgmma_f32out_abft_kernel<kWide>, opted[1], ctas, s, ma, mb, ma, mb, p);
+  return wg::launch<kNarrow>(&sfc_gemm_wgmma_f32out_abft_kernel<kNarrow>, opted[0], ctas, s, ma, mb, ma, mb, p);
+#else
+  if (wide) return wg::launch<kWide>(&sfc_gemm_wgmma_f32out_kernel<kWide>, opted[1], ctas, s, ma, mb, ma, mb, p);
+  return wg::launch<kNarrow>(&sfc_gemm_wgmma_f32out_kernel<kNarrow>, opted[0], ctas, s, ma, mb, ma, mb, p);
+#endif
+}
+
+#if !SFC_ABFT
+extern "C" int SFC_WGMMA_F32_ENTRY(const void* a, const void* b, void* out, const int* tab, int tiles, int batch,
+                                   int b_batched, int M, int N, int K, int wide, int ctas, int group, void* stream) {
+  return wgmma_f32_entry(a, b, out, tab, tiles, batch, b_batched, M, N, K, wide, ctas, group, nullptr, stream);
+}
+#else
+extern "C" int SFC_WGMMA_F32_ENTRY(const void* a, const void* b, void* out, const int* tab, int tiles, int batch,
+                                   int b_batched, int M, int N, int K, int wide, int ctas, int group, float* chk,
+                                   void* stream) {
+  return wgmma_f32_entry(a, b, out, tab, tiles, batch, b_batched, M, N, K, wide, ctas, group, chk, stream);
+}
+#endif
+#endif  // SFC_WGMMA_F32_ENTRY
 #endif  // SFC_DTYPE == 1 && SFC_WGMMA_ENTRY
 
 #if SFC_DTYPE == 1 && defined(SFC_CLUSTER_ENTRY)

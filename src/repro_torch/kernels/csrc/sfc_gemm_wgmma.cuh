@@ -65,6 +65,12 @@
 // replays in a CUDA graph.  The flush runs from the registers: each thread
 // owns pairs of adjacent columns of the accumulator fragment.
 //
+// The f32-output mode (`Flush` OutF32; sfc_gemm_wgmma_f32out_kernel and
+// its lane twin): the forward's plain product on bf16 inputs, its raw f32
+// accumulator written as it is, 8 bytes a store, for `chunk_einsum`'s SSD
+// scores (the TPU kernel's f32 `out_dtype`).  What bounds it at the SSD's
+// shapes (M and N 128-256, K 64): the flush's f32 bytes and the launch.
+//
 // ABFT: each task's kLaneSlots slots of the partials hold the f32 sums of
 // its raw accumulators (the GLU's two together), over the rows and columns
 // inside the output, one a consumer warp, written with no barrier; the
@@ -379,6 +385,36 @@ __device__ __forceinline__ void zero_stage_rows(unsigned char* stage, int keep) 
 // The forward and NT kinds flush in the body.
 struct NoFlush {};
 
+// The forward kind's f32-output mode (the `Flush` argument of `body`): the
+// raw f32 accumulator flushed as it is, no GLU, no epilogue, no bf16
+// rounding (sfc_gemm_wgmma_f32out_kernel, sfc_gemm_fused.cu).
+struct OutF32 {};
+template <class F>
+struct IsOutF32 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsOutF32<OutF32> {
+  static constexpr bool value = true;
+};
+
+// OutF32's two adjacent outputs (gr, gc), (gr, gc + 1) of the (batch, M,
+// N) f32 output at c_off, one 8-byte store: gc is even and N a multiple of
+// 8 (TMA's rows), so a pair that starts inside the output lies inside it;
+// masked at the ragged rows (row_end).  ABFT: the values join the thread's
+// lane sum in flush_pair's order.
+template <bool ABFT>
+__device__ __forceinline__ void flush_pair_f32(const Params& p, long long c_off, int row_end, int gr, int gc,
+                                               const float (&v)[2], float& lane) {
+  if (gr >= row_end || gc >= p.N) return;
+  if constexpr (ABFT) {
+    lane += v[0];
+    lane += v[1];
+  }
+  const size_t o = static_cast<size_t>(c_off) + static_cast<size_t>(gr) * p.N + gc;
+  *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.out) + o) = make_float2(v[0], v[1]);
+}
+
 // The whole kernel: KIND the forward, the NT dA product, the TN dW product
 // or the replicated copies (kRep); GLU the forward's dual-B form (TN: the
 // dual form, dC beside dC2); BN the B columns a stage (128 or 256);
@@ -386,11 +422,14 @@ struct NoFlush {};
 // forward's (and kRep's) A, B, (unused), B_gate (kRep: unused); NT's A, B,
 // A2, B2; TN's A, dC, (unused), dC2.  TN's flush is `fl(acc, t, b, row0,
 // col0, wgi, tw, red, stg)` (sfc_gemm_fused.cu), stg its flush buffer;
-// kRep's `Flush` is RepOut, the copies' slab, count and type (`rep_flush`).
+// kRep's `Flush` is RepOut, the copies' slab, count and type (`rep_flush`);
+// the forward's OutF32 its f32-output mode (`flush_pair_f32`).
 template <int KIND, bool GLU, int ACT, bool ABFT, int BN, class Flush = NoFlush, bool GROUPED = false>
 __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap& tm_b, const CUtensorMap& tm_a2,
                                      const CUtensorMap& tm_b2, const Params& p, const Flush& fl = Flush()) {
   constexpr bool NT = KIND == kNt, TN_KIND = KIND == kTn, REP = KIND == kRep;
+  constexpr bool F32_OUT = IsOutF32<Flush>::value;
+  static_assert(!F32_OUT || (KIND == kFwd && !GLU && !GROUPED), "the f32 output is the plain forward product's");
   static_assert(!(NT && (GLU || ABFT)), "NT has neither the GLU form nor the lane");
   static_assert(!(REP && (GLU || ABFT || GROUPED)), "the replicated copies are single products with no lane");
   static_assert(!(TN_KIND && ABFT), "TN's lane is its flush's");
@@ -559,7 +598,10 @@ __device__ __forceinline__ void body(const CUtensorMap& tm_a, const CUtensorMap&
     for (int q = 0; q < Q; ++q) {
       const float v[2] = {acc[2 * q], acc[2 * q + 1]};
       const float g[2] = {GLU ? acc[2 * q + ACC / 2] : 0.0f, GLU ? acc[2 * q + ACC / 2 + 1] : 0.0f};
-      flush_pair<NT, GLU, ACT, ABFT>(p, c_off, vec_off, row_end, r0 + 8 * (q & 1), c0 + 8 * (q >> 1), v, g, lane);
+      if constexpr (F32_OUT)
+        flush_pair_f32<ABFT>(p, c_off, row_end, r0 + 8 * (q & 1), c0 + 8 * (q >> 1), v, lane);
+      else
+        flush_pair<NT, GLU, ACT, ABFT>(p, c_off, vec_off, row_end, r0 + 8 * (q & 1), c0 + 8 * (q >> 1), v, g, lane);
     }
     if constexpr (ABFT) {
       // each consumer warp's sum into a slot of its own: no barrier, so

@@ -154,6 +154,7 @@ __all__ = [
     "knob_defaults",
     "resolve_knobs",
     "reference_knobs",
+    "chunk_gemm_plan",
 ]
 
 
@@ -223,6 +224,35 @@ def resolve_knobs(
         bn = bn or pbn
     d_layers, d_kbf = _KNOB_DEFAULTS.get()
     return bm, bn, k_layers or d_layers or 1, k_block_factor or d_kbf or 1
+
+
+def chunk_gemm_plan(m: int, n: int, k: int, dtype, *, device=None):
+    """Tune namespace and knobs of one batched intra-chunk GEMM (the
+    chunked-recurrence einsums of `core.gemm_backend.chunk_einsum`; the JAX
+    package's ``kernels.ops.chunk_gemm_plan``): ``(namespace, knobs)``.
+
+    The namespace is the base "gemm" qualified by the compiled
+    ``gemm_spec(mb, nb, k_layers)`` key of the padded tile grid that the
+    host's knobs fix (`resolve_knobs` on the CPU: `pick_blocks`' blocks,
+    the K knobs `knob_defaults`', else 1), through
+    `namespaces.schedule_namespace`: ``"gemm@<key>"``, the same string as
+    the JAX package's wherever its analytical model, too, picks one K layer
+    (every chunk-einsum shape of the SSD and the mLSTM).  The namespace
+    names the tile space, not the device, so it is the same for a call on
+    the card.  ``knobs`` are ``bm``/``bn``/``k_layers``/``k_block_factor``
+    for `sfc_matmul` on ``device`` (the CPU when None): on the card the
+    kernels' compiled tile.  ``dtype`` is the JAX signature's (its tune
+    cache's key); the port has no tune cache yet (ROADMAP item 13)."""
+    from repro_torch.core.namespaces import schedule_namespace
+    from repro_torch.core.schedule import compile_schedule, gemm_spec
+
+    del dtype
+    bm, bn, kl, kbf = resolve_knobs(m, n, k, torch.device("cpu"))
+    sched = compile_schedule(gemm_spec(math.ceil(m / bm), math.ceil(n / bn), kl))
+    namespace = schedule_namespace(NS_GEMM, sched.key)
+    if device is not None and torch.device(device).type != "cpu":
+        bm, bn, kl, kbf = resolve_knobs(m, n, k, device)
+    return namespace, dict(bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf)
 
 
 def reference_knobs(m: int, n: int, k: int) -> Tuple[int, int, int, int, int]:

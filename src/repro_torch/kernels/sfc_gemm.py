@@ -328,14 +328,16 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _check_operands(bm, bn, out_dtype, a, **others):
+def _check_operands(bm, bn, out_dtype, a, *, f32_out: bool = False, **others):
     """Device, type, layout and tile checks shared by the GEMM kernels'
-    launches; ``others`` maps names to tensors (or None)."""
+    launches; ``others`` maps names to tensors (or None).  ``f32_out``: the
+    launch is K1/K2's f32-output mode (`_f32_out`), which writes f32 from
+    bf16 inputs."""
     if (bm, bn) != build.TILE:
         raise ValueError(f"the CUDA kernel is compiled for (bm, bn)={build.TILE}, got {(bm, bn)}")
     if a.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16 inputs, got {a.dtype}")
-    if out_dtype != a.dtype:
+    if out_dtype != a.dtype and not f32_out:
         raise TypeError(f"the CUDA kernel writes its input type {a.dtype}, asked for {out_dtype}")
     for name, t in others.items():
         if t is None:
@@ -348,6 +350,24 @@ def _check_operands(bm, bn, out_dtype, a, **others):
             raise ValueError(f"{name} must be contiguous")
     if not a.is_contiguous():
         raise ValueError("a must be contiguous")
+
+
+def _f32_out(a: torch.Tensor, out_dtype: torch.dtype) -> bool:
+    """Whether a forward call asks for K1/K2's f32-output mode: bf16 inputs,
+    an f32 output."""
+    return a.dtype == torch.bfloat16 and out_dtype == torch.float32
+
+
+def _check_f32_out(b_gate, bias, residual, activation, out_scale, preact) -> None:
+    """The f32-output mode is the plain product's (`chunk_einsum` passes no
+    epilogue): the GLU form, ``preact`` and every epilogue flag raise,
+    naming which."""
+    asked = [name for name, on in (("the GLU form (b_gate)", b_gate is not None), ("preact", preact),
+                                   ("bias", bias is not None), ("activation", activation is not None),
+                                   ("out_scale", out_scale is not None), ("residual", residual is not None)) if on]
+    if asked:
+        raise TypeError("the CUDA kernel writes f32 from bf16 inputs only for the plain product with no epilogue; "
+                        f"this call also asks for {', '.join(asked)}")
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -640,13 +660,19 @@ def uses_tn_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, b2: Optional[torch.Te
 def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, bm, bn, out_dtype, shape,
             preact=False, abft=False):
     batch, m, k, n, b_batched = shape
-    _check_operands(bm, bn, out_dtype, a, b=b, b_gate=b_gate, bias=bias, gate_bias=gate_bias, residual=residual)
+    f32_out = _f32_out(a, out_dtype)
+    if f32_out:
+        _check_f32_out(b_gate, bias, residual, activation, out_scale, preact)
+    _check_operands(bm, bn, out_dtype, a, f32_out=f32_out, b=b, b_gate=b_gate, bias=bias, gate_bias=gate_bias,
+                    residual=residual)
     if max(batch, 1) > _MAX_GRID_Y:
         raise ValueError(f"batch {batch} exceeds the grid limit {_MAX_GRID_Y}")
     out = torch.empty((batch, m, n) if a.ndim == 3 else (m, n), dtype=out_dtype, device=a.device)
     out_gate = torch.empty_like(out) if preact else None
     if out.numel() == 0:
         return _results((out, out_gate), _lane_total(None, a.device) if abft else None)
+    if f32_out:
+        return _launch_f32_out(a, b, out, bm=bm, bn=bn, shape=shape, abft=abft)
     if uses_cluster_kernel(a):
         return _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, activation=activation,
                                out_scale=out_scale, abft=abft)
@@ -743,6 +769,41 @@ def _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, act
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
 
+def _launch_f32_out(a, b, out, *, bm, bn, shape, abft):
+    """K1/K2's f32-output mode (bf16 inputs, the plain product): the wgmma
+    kernel's f32 flush where TMA can describe the rows (`uses_wgmma_kernel`),
+    else the tile kernel's, a plain-mode A of at most 16 rows included (the
+    cluster kernel writes bf16 only).  Per-batch B walks each batch
+    element's tiles in turn, as `_launch_wgmma` does."""
+    batch, m, k, n, b_batched = shape
+    lib = build.load_library()
+    if uses_wgmma_kernel(a, b):
+        tb, rows = (batch, m) if b_batched else (1, max(batch, 1) * m)
+        cfg = wgmma_launch(rows, n, sm_count(a.device), False, tb)
+        tab = _device_table(cfg.mb, cfg.nb, a.device)
+        parts = (torch.empty(tb * cfg.mb * cfg.nb * build.WGMMA_LANE_SLOTS, dtype=torch.float32, device=a.device)
+                 if abft else None)
+        fn = getattr(lib, build.f32out_entry_name("wgmma", abft))
+        args = (tab.data_ptr(), cfg.mb * cfg.nb, tb, int(b_batched), rows, n, k, int(cfg.wide), cfg.ctas, cfg.group)
+        kernel = ("sfc_gemm_wgmma_f32out_kernel", _tile_name(cfg, False))
+    else:
+        mb, nb = math.ceil(m / bm), math.ceil(n / bn)
+        tab = _device_table(mb, nb, a.device)
+        parts = torch.empty((max(batch, 1), mb * nb), dtype=torch.float32, device=a.device) if abft else None
+        fn = getattr(lib, build.f32out_entry_name("tile", abft))
+        args = (tab.data_ptr(), mb * nb, max(batch, 1), m, n, k, m * k, k * n if b_batched else 0,
+                int(_rows_vec(k, a)), int(_rows_vec(n, b)))
+        kernel = ("sfc_gemm_fused_f32out_kernel", 1)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), *args, *((parts.data_ptr(),) if abft else ()), stream)
+    if rc != 0:
+        raise RuntimeError(f"sfc_gemm_fused f32-output kernel launch failed with CUDA error {rc}")
+    _count(batch, m, k, n, False, abft, kernel)
+    sfc_gemm_fused.f32_out_launches += 1
+    return _results((out,), _lane_total(parts, a.device) if abft else None)
+
+
 def sfc_gemm_fused(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -789,6 +850,17 @@ def sfc_gemm_fused(
     tile, e.g. "128x128") or ("sfc_gemm_fused_kernel", 1).  On a CPU tensor it runs
     `sfc_gemm_fused_plain` and counts nothing.
 
+    ``out_dtype`` float32 on bf16 inputs is the f32-output mode (the TPU
+    kernel's ``acc.astype(out_dtype)``, `chunk_einsum`'s SSD scores): the
+    f32 accumulator written with no bf16 rounding, on the plain product
+    only (the GLU form, ``preact`` and the epilogue flags raise with it).
+    On the card it launches ``sfc_gemm_wgmma_f32out_kernel`` where
+    `uses_wgmma_kernel` holds and ``sfc_gemm_fused_f32out_kernel`` (the
+    tile kernel) for every other call, a plain-mode A of at most 16 rows
+    included; counted in ``launches_by_kernel`` under those names and in
+    ``sfc_gemm_fused.f32_out_launches``.  Any other output type but the
+    input's raises on the card.
+
     ``abft`` runs the kernel with its checksum lane (the TPU kernel's
     ``_FusedSpec.abft``) and appends an f32 scalar to the result: the sum
     of the raw f32 accumulators (the GLU's two) over every tile, before the
@@ -812,6 +884,7 @@ def sfc_gemm_fused(
 
 sfc_gemm_fused.launches = 0
 sfc_gemm_fused.abft_launches = 0
+sfc_gemm_fused.f32_out_launches = 0
 sfc_gemm_fused.launches_by_shape = collections.Counter()
 sfc_gemm_fused.launches_by_kernel = collections.Counter()
 

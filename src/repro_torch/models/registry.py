@@ -1,4 +1,5 @@
-"""Model registry: ArchConfig -> model instance (dense and MoE families)."""
+"""Model registry: ArchConfig -> model instance (the dense, MoE and hybrid
+families)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import DecoderLM
 
 __all__ = ["build_model"]
@@ -18,11 +20,14 @@ def build_model(
     *,
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
-) -> DecoderLM:
+) -> Union[DecoderLM, HybridLM]:
     """The config's model with uninitialised parameters on ``device`` (the
-    card unless another device is named; raises where CUDA is absent).
-    Fill it with ``.init(generator)`` or ``.load_state_dict(...)``."""
+    card unless another device is named; raises where CUDA is absent):
+    `DecoderLM` for the dense and MoE families, `HybridLM` for the hybrid
+    one.  Fill it with ``.init(generator)`` or ``.load_state_dict(...)``."""
     dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg, device=dev, dtype=dtype)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 12"

@@ -70,7 +70,8 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device, dtype=None):
         super().__init__()
         if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 12")
+            raise NotImplementedError(f"family {cfg.family!r} is not a DecoderLM (`build_model` builds the hybrid; "
+                                      "the others are not ported yet: ROADMAP queue 1 item 12)")
         if cfg.mrope_sections is not None:
             raise NotImplementedError("M-RoPE (VLM backbone) is not ported yet: ROADMAP queue 1 item 12")
         self.cfg = cfg

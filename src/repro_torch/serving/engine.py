@@ -67,9 +67,11 @@ class Request:
 
 
 class ServingEngine:
-    """Single-host batched serving of a dense decoder with a KV cache:
-    equal-length prompt grouping, greedy sampling, per-request latency
-    accounting."""
+    """Single-host batched serving of any model `build_model` returns (the
+    dense and MoE decoders, the hybrid) with its cache: equal-length prompt
+    grouping, greedy sampling, per-request latency accounting.  The engine
+    reads only the cache's ``index``; the model updates the rest in place
+    (the hybrid's SSM states and conv tails as the KV caches)."""
 
     def __init__(
         self,
@@ -82,9 +84,12 @@ class ServingEngine:
         device: Optional[Union[str, torch.device]] = None,
         verify_every: Optional[int] = None,
     ):
-        """``params`` is a ``DecoderLM`` state dict (``model.state_dict()``
-        or `repro_torch.convert.params_from_jax`).  Tensors already on
-        ``device`` in the config's type are used as they are, not copied.
+        """``params`` is the model's state dict (``model.state_dict()`` or
+        `repro_torch.convert.params_from_jax`).  Each tensor takes the type
+        of its parameter in the model (the config's type, but where the
+        model keeps a parameter in f32, as the hybrid's Mamba2 mixers keep
+        ``A_log``, ``D`` and ``dt_bias``); tensors already on ``device`` in
+        that type are used as they are, not copied.
         ``device`` defaults to the card and raises where CUDA is absent.
         ``verify_every``: run every Nth decode step under ABFT "detect"
         (None or 0: never)."""
@@ -97,8 +102,9 @@ class ServingEngine:
         self.backend = gemm_backend
         dtype = torch_dtype(cfg.param_dtype)
         self.model = build_model(cfg, device="meta")
+        types = {k: v.dtype for k, v in self.model.state_dict().items()}
         self.model.load_state_dict(
-            {k: v.to(device=self.device, dtype=dtype) for k, v in params.items()},
+            {k: v.to(device=self.device, dtype=types.get(k, dtype)) for k, v in params.items()},
             assign=True,
         )
         self._uid = 0

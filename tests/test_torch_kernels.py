@@ -1704,6 +1704,31 @@ def test_wgmma_constants_and_entries_match_the_compiled_sources():
         build.bwd_entry_name("nt_wgmma", "f32")
 
 
+def test_f32_output_entries_match_the_compiled_sources():
+    """K1/K2's f32-output mode lives in the bf16 part of (no GLU, no
+    activation) and its lane twin only, behind entries of its own; the
+    source defines both entries and their kernels under names of their
+    own, and every other part's flags are as they were."""
+    gemm = CU_SOURCE.read_text()
+    for entry in ("SFC_F32_ENTRY", "SFC_WGMMA_F32_ENTRY"):
+        assert gemm.count(f'extern "C" int {entry}(') == 2  # the part's and its lane twin's
+    for kernel in ("sfc_gemm_fused_f32out_kernel", "sfc_gemm_fused_f32out_abft_kernel",
+                   "sfc_gemm_wgmma_f32out_kernel", "sfc_gemm_wgmma_f32out_abft_kernel"):
+        assert re.search(rf"\b{kernel}\(", gemm), kernel
+    assert "struct OutF32" in WGMMA_SOURCE.read_text()
+    parts = dict(build._gemm_parts())
+    holders = {name for name, flags in parts.items() if any(f.startswith("-DSFC_F32_ENTRY") for f in flags)}
+    assert holders == {build.entry_name("bf16", False, None, abft) for abft in (False, True)}
+    for abft in (False, True):
+        flags = parts[build.entry_name("bf16", False, None, abft)]
+        assert f"-DSFC_F32_ENTRY={build.f32out_entry_name('tile', abft)}" in flags
+        assert f"-DSFC_WGMMA_F32_ENTRY={build.f32out_entry_name('wgmma', abft)}" in flags
+    assert build.f32out_entry_name("wgmma", True) == "sfc_gemm_wgmma_f32out_abft_bf16"
+    assert build.f32out_entry_name("tile") == "sfc_gemm_fused_f32out_bf16"
+    with pytest.raises(ValueError):
+        build.f32out_entry_name("cluster")
+
+
 def _chip_smoke():
     import importlib.util
     import sys
@@ -1782,6 +1807,151 @@ def test_wgmma_kernel_matches_plain_version_on_card(case):
     assert abs(float(on[-1]) - float(plain[-1])) <= limit
     for name, wrong in cs._dropped(plain[-1], tiles).items():
         assert abs(wrong - float(plain[-1])) > limit, name
+
+
+# K2's f32-output mode (bf16 in, the f32 accumulator out): (lead batch
+# dims, M, K, N, per-batch B, A a view 2 bytes past a 16-byte boundary, the
+# kernel it takes).  The chunk-einsum shapes: the SSD scores at a 4 x 128
+# prefill and at a 1 x 600 prompt's three 256-row chunks, xlstm-1.3b's
+# mLSTM qk block at 4 x 128; shared B; a plain-mode A of 4 rows (the
+# tile kernel: the cluster kernel writes bf16 only); the ragged case (K 50,
+# N 70, an unaligned view) on the tile kernel
+F32_OUT_CASES = {
+    "ssd_scores_4x128": ((4,), 128, 64, 128, True, False, "sfc_gemm_wgmma_f32out_kernel"),
+    "ssd_scores_1x600": ((3,), 256, 64, 256, True, False, "sfc_gemm_wgmma_f32out_kernel"),
+    "mlstm_qk_4x128": ((16,), 128, 1024, 128, True, False, "sfc_gemm_wgmma_f32out_kernel"),
+    "shared_b_ragged_rows": ((2,), 77, 264, 328, False, False, "sfc_gemm_wgmma_f32out_kernel"),
+    "plain_m4": ((), 4, 2048, 256, False, False, "sfc_gemm_fused_f32out_kernel"),
+    "ragged_unaligned_view": ((3,), 60, 50, 70, True, True, "sfc_gemm_fused_f32out_kernel"),
+}
+
+
+def _f32_out_operands(case, seed=33):
+    lead, m, k, n, per_batch, shifted, _ = F32_OUT_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    count = math.prod(lead) * m * k
+    flat = torch.randn(count + 8, generator=gen, device="cuda").bfloat16()
+    a = (flat[1:1 + count] if shifted else flat[:count]).view(*lead, m, k)
+    b = (torch.randn((*lead, k, n) if per_batch else (k, n), generator=gen, device="cuda") * 0.1).bfloat16()
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(F32_OUT_CASES))
+def test_f32_output_mode_matches_plain_version_on_card(case):
+    """K2's f32-output mode (``out_dtype=torch.float32`` on bf16 inputs):
+    the route `_launch_f32_out` takes (the wgmma kernel where TMA can
+    describe the rows, else the tile kernel), the f32 output within the f32
+    tolerance of the plain version (both the f32 accumulation of the same
+    bf16 products, in other orders), no bf16 rounding; its lane twin's
+    output bitwise the kernel's and its lane within chip_smoke.py's
+    `lane_limit` over the kernel's own tiles; the counter of the mode."""
+    _card()
+    from repro_torch.robust import abft
+
+    cs = _chip_smoke()
+    lead, m, k, n, per_batch, shifted, kernel = F32_OUT_CASES[case]
+    a, b = _f32_out_operands(case)
+    assert tk.uses_wgmma_kernel(a, b) == (kernel == "sfc_gemm_wgmma_f32out_kernel")
+    before = tk.sfc_gemm_fused.f32_out_launches
+    got, key = cs.launched(tk.sfc_gemm_fused.launches_by_kernel,
+                           lambda: tk.sfc_gemm_fused(a, b, out_dtype=torch.float32))
+    torch.cuda.synchronize()
+    assert key[0] == kernel and tk.sfc_gemm_fused.f32_out_launches == before + 1
+    want = tk.sfc_gemm_fused_plain(a, b, bm=64, bn=64, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _agree(got, want, torch.float32)
+    exact = torch.matmul(a.float(), b.float())
+    assert _agree(got, exact, torch.float32) and not torch.equal(got, exact.bfloat16().float())
+    on = tk.sfc_gemm_fused(a, b, out_dtype=torch.float32, abft=True)
+    assert torch.equal(on[0], got)
+    plain = tk.sfc_gemm_fused_plain(a, b, bm=64, bn=64, out_dtype=torch.float32, abft=True)
+    if kernel == "sfc_gemm_wgmma_f32out_kernel":
+        tile = tuple(int(x) for x in key[1].split("x"))
+        tiles = (cs.raw_tile_sums(torch, exact, tile=tile) if per_batch
+                 else cs.raw_tile_sums(torch, exact.reshape(-1, n), tile=tile))
+    else:
+        tiles = cs.raw_tile_sums(torch, exact)
+    limit = cs.lane_limit(tiles, abft.tolerance(abft.gemm_checksum_ref(a, b)[1], k))
+    assert abs(float(on[1]) - float(plain[1])) <= limit
+    for name, wrong in cs._dropped(plain[1], tiles).items():
+        assert abs(wrong - float(plain[1])) > limit, name
+
+
+@pytest.mark.cuda
+def test_f32_output_mode_refuses_an_epilogue_on_card():
+    """The f32-output mode is the plain product's: a GLU, preact or any
+    epilogue flag with it raises, naming what was asked, before any launch;
+    f32 out from f32 inputs is the f32 kernels' own type."""
+    _card()
+    a, b = _f32_out_operands("ssd_scores_4x128")
+    n = b.shape[-1]
+    w = b[0]
+    launches = tk.sfc_gemm_fused.launches
+    for kw, name in ((dict(b_gate=w), "GLU"), (dict(b_gate=w, preact=True), "GLU"),
+                     (dict(bias=torch.zeros(n, device="cuda").bfloat16()), "bias"),
+                     (dict(activation="silu"), "activation"), (dict(out_scale=0.5), "out_scale"),
+                     (dict(residual=torch.zeros(4, 128, n, device="cuda").bfloat16()), "residual")):
+        bb = w if "b_gate" in kw else b
+        with pytest.raises((TypeError, ValueError), match=name):
+            tk.sfc_gemm_fused(a, bb, out_dtype=torch.float32, **kw)
+    assert tk.sfc_gemm_fused.launches == launches
+    with pytest.raises(TypeError, match="writes its input type"):
+        tk.sfc_gemm_fused(a, b, out_dtype=torch.float16)
+    out = tk.sfc_gemm_fused(a.float(), b.float(), out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_impl", ["blockwise", "sfc"])
+def test_zamba2_cut_prefill_logits_under_sfc_cuda_match_torch_on_card(attn_impl):
+    """zamba2-1.2b at full width cut to 2 Mamba2 layers and one application
+    of the shared block (attn_every 2), a 4 x 128 prompt, bf16: the
+    prefill under sfc_cuda launches what the structure asks for (2 chunk
+    products a layer on K2, the scores in its f32-output mode; 6 K1/K2 the
+    shared block; K11 under "sfc"), and its logits, SSM states and KV
+    caches are as close to the same weights run in f32 under torch as the
+    torch backend's bf16 ones are (chip_smoke.py's ACCURACY_PARITY, the
+    mean |error|): the two bf16 runs round at other places (torch rounds
+    the GLU's g, h, silu(g) and their product apart, the kernel once), so
+    they sit more than one rounding apart.  The same weights in f32 under
+    sfc_cuda: every one of them within the bf16 bound of torch's, where
+    only the order of the sums differs."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm_backend import gemm_backend
+    from repro_torch.models.registry import build_model
+
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("zamba2_1_2b"), n_layers=2, attn_every=2, attn_impl=attn_impl)
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(6))
+    model32 = build_model(dataclasses.replace(cfg, param_dtype="float32"), device="cuda")
+    model32.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (4, 128), generator=torch.Generator(device="cuda").manual_seed(7),
+                           device="cuda")
+
+    def leaves(out):
+        logits, cache = out
+        return [logits] + [cache[part][key] for part, key in (("mamba", "ssm"), ("mamba", "conv"), ("kv", "k"),
+                                                                ("kv", "v"))]
+
+    outs = {}
+    for name, m in (("sfc_cuda", model), ("torch", model), ("sfc_cuda_f32", model32), ("torch_f32", model32)):
+        before = (tk.sfc_gemm_fused.launches, tk.sfc_gemm_fused.f32_out_launches, tsa.sfc_flash_fwd.launches)
+        with gemm_backend(name.split("_f32")[0]):
+            outs[name] = leaves(m.prefill(tokens, cache_len=129))
+        torch.cuda.synchronize()
+        after = (tk.sfc_gemm_fused.launches, tk.sfc_gemm_fused.f32_out_launches, tsa.sfc_flash_fwd.launches)
+        # 2 chunk products a layer (the bf16 scores in the f32-output mode), 6 K1/K2 the shared block
+        k11 = int(attn_impl == "sfc")
+        want = {"sfc_cuda": (2 * 2 + 6, 2, k11), "sfc_cuda_f32": (2 * 2 + 6, 0, k11)}.get(name, (0, 0, k11))
+        assert tuple(x - y for x, y in zip(after, before)) == want, name
+    assert outs["sfc_cuda"][0].dtype == torch.bfloat16 and outs["sfc_cuda"][0].shape == (4, cfg.vocab)
+    for i, (got, ref, ref16) in enumerate(zip(outs["sfc_cuda"], outs["torch_f32"], outs["torch"])):
+        noise, ref_noise = ((x.float() - ref.float()).abs().mean() for x in (got, ref16))
+        assert bool(torch.isfinite(got.float()).all()) and noise <= cs.ACCURACY_PARITY * ref_noise, i
+    for i, (got, ref) in enumerate(zip(outs["sfc_cuda_f32"], outs["torch_f32"])):
+        assert _agree(got, ref, torch.bfloat16), i
 
 
 NT_WGMMA_CASES = {  # (M, K (the output's cols), N (the contraction), dual)
@@ -1935,10 +2105,12 @@ def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
     """The wgmma kernels keep no counter or queue on the device (each CTA's
     segment comes from its index): a captured graph of the forward (wide
     GLU, narrow tile with its lane), the dual NT and their grouped modes
-    (K3's GLU with its lane over ragged experts, K9's dual), and the
+    (K3's GLU with its lane over ragged experts, K9's dual), the
     replicated copies (K5 on the wgmma kernel, K4 on the cluster kernel, f32
-    copies), replayed three times, gives the eager outputs bitwise every
-    time, and the launch counters count the capture only."""
+    copies) and the f32-output mode with its lane (the SSD scores of a
+    600-token prompt, per-batch B), replayed three times, gives the eager
+    outputs bitwise every time, and the launch counters count the capture
+    only."""
     _card()
     gen = torch.Generator(device="cuda").manual_seed(24)
     a = torch.randn((4, 128, 2560), generator=gen, device="cuda").bfloat16()
@@ -1950,12 +2122,15 @@ def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
     we, wge = ((torch.randn((4, 512, 1024), generator=gen, device="cuda") * 0.05).bfloat16() for _ in range(2))
     dce = torch.randn((sum(gs), 1024), generator=gen, device="cuda").bfloat16()
 
+    ssd_c, ssd_b = _f32_out_operands("ssd_scores_1x600")
+
     def step():
         return (tk.sfc_gemm_fused(a, w, wg, activation="silu"), tk.sfc_gemm_fused(a, wkv, abft=True),
                 tk.sfc_gemm_nt(dc, w, dc, wg), tk.sfc_gemm_grouped(xe, we, wge, activation="silu", group_sizes=gs,
                                                                    abft=True),
                 tk.sfc_gemm_grouped_nt(dce, we, dce, wge, group_sizes=gs), tk.sfc_gemm_replicated(a, wkv, k_layers=2),
-                tk.sfc_gemm_replicated(a[0, :4], wkv, k_layers=2, out_dtype=torch.float32))
+                tk.sfc_gemm_replicated(a[0, :4], wkv, k_layers=2, out_dtype=torch.float32),
+                tk.sfc_gemm_fused(ssd_c, ssd_b, out_dtype=torch.float32, abft=True))
 
     eager = step()
     side = torch.cuda.Stream()
@@ -1972,6 +2147,7 @@ def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
     assert sum(n for (name, _), n in counts[3][1].items() if name == "grouped_nt_wgmma_kernel") >= 3
     for name in ("sfc_gemm_replicated_wgmma_kernel", "sfc_gemm_replicated_cluster_kernel"):
         assert sum(n for (kernel, _), n in counts[4][1].items() if kernel == name) >= 3
+    assert sum(n for (kernel, _), n in counts[0][1].items() if kernel == "sfc_gemm_wgmma_f32out_kernel") >= 3
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
@@ -1979,6 +2155,7 @@ def test_wgmma_kernels_replay_in_a_cuda_graph_with_no_state_left():
         assert torch.equal(out[5], eager[5]) and torch.equal(out[6], eager[6])
         assert all(torch.equal(x, y) for x, y in zip(out[1], eager[1]))
         assert all(torch.equal(x, y) for x, y in zip(out[3], eager[3]))
+        assert all(torch.equal(x, y) for x, y in zip(out[7], eager[7]))
     assert [(f.launches, dict(f.launches_by_kernel)) for f in fns] == counts
 
 
