@@ -7,7 +7,7 @@ Builds the port's hand-written CUDA kernels from the sources in this
 checkout (src/repro_torch/kernels/csrc: the GEMM library with its forward
 and backward parts and the attention library with its forward, decode and
 backward parts and the ABFT checksum lanes' parts, all compiled at once),
-then runs ten phases, each printing one JSON line (phases 2 and 6 two,
+then runs twelve phases, each printing one JSON line (phases 2 and 6 two,
 phase 3 three) and raising on failure:
 
 1. device     the card's name and power limit (nvidia-smi) and the build time;
@@ -64,17 +64,28 @@ phase 3 three) and raising on failure:
               bf16, timed beside torch.bmm + torch._fused_adamw_, and on
               the ragged sizes in f32 and bf16 (the empty expert's g = 0
               update included);
-              the hybrid slice's K2 rows: the chunk_einsum products in
-              their batched framing with per-batch B, the SSD scores at
-              4 x 128 and at the 1 x 600 prompt (three 256-step chunks),
-              xlstm-1.3b's mLSTM qk block and a ragged unaligned case
-              (K 50, N 70: the tile kernel) in K2's f32-output mode (bf16
-              in, f32 out), and the SSD output product (bf16) at both
-              prompts, each against its plain version and timed beside
-              one torch.bmm (f32 out for the f32 mode), each with its
-              ABFT lane (in the "abft_lanes" line); K1/K2 at zamba2's
-              shared-block shapes (d_model 2048, 32 heads of 64, d_ff 8192
-              GLU; decode M 4 and prefill 4 x 128);
+              the hybrid and xLSTM slices' K2 rows: the chunk_einsum
+              products in their batched framing with per-batch B, the SSD
+              scores at 4 x 128 and at the 1 x 600 prompt (three 256-step
+              chunks), xlstm-1.3b's mLSTM qk block at 4 x 128 and at one
+              512-step chunk of the 1 x 600 prompt and a ragged unaligned
+              case (K 50, N 70: the tile kernel) in K2's f32-output mode
+              (bf16 in, f32 out), a plain-mode A of 4 rows in that mode
+              (K1's, the tile kernel; beside torch.mm), the SSD output
+              product (bf16) at both prompts and the mLSTM output product
+              (f32 in and out, the tile kernel, bound on the f32 peak) at
+              both, each against its plain version and timed beside one
+              torch.bmm (f32 out for the f32 mode), each batched bf16 one
+              with its ABFT lane (in the "abft_lanes" line); K1/K2 at
+              zamba2's shared-block shapes (d_model 2048, 32 heads of 64,
+              d_ff 8192 GLU; decode M 4 and prefill 4 x 128); the
+              encoder-decoder slice's rows: K1/K2 at seamless-m4t-
+              medium's shapes (d_model 1024, the gelu MLP of 4096 in the
+              flush; decode M 4, the encoder's 4 x 256 frames, the
+              decoder's 4 x 128 prompt), K11 non-causal at (4, 256, 256)
+              and (4, 128, 256) and causal at (4, 128, 128) with 16 / 16
+              heads of 64 (W 1), K14 over the 256-row memory (every row
+              valid) and over the decoder's cache;
               the ABFT checksum lanes ("abft_lanes" line): K1/K2 at every
               K1/K2 shape above and the ragged all-flags case, K3 at
               olmoe's decode, prefill and training shapes and both ragged
@@ -204,7 +215,31 @@ phase 3 three) and raising on failure:
               ones at accuracy parity; the parameter count, peak memory,
               TTFT, the p50 per-token gap, tokens/s and a profiled decode
               step;
-10. the {"kernels": [...]} line: per kernel and shape, launches in the run
+10. serve    ServingEngine serves full-width, full-depth xlstm-1.3b (48
+              blocks: 6 groups of 7 mLSTM blocks and an sLSTM block,
+              d_model 2048, 4 heads of 1024, chunk 512, bf16, seeded random
+              weights, 3.53 B parameters), 4 x 128 + 16 and 1 x 600 + 8
+              (two chunks, the second padded), each under sfc_cuda and
+              torch: exactly 2 x 42 K2 launches a prefill chunk (42 qk
+              scores in the f32-output mode on its wgmma kernel, 42 output
+              products in f32 on the tile kernel), none a decode step and
+              none under torch; the f32 prefill logits of a cut to one
+              group (8 blocks) within the bf16 bound of torch's at both
+              prompts, its bf16 ones at accuracy parity; the parameter
+              count, peak memory, TTFT, the p50 gap, tokens/s and a
+              profiled decode step;
+11. enc-dec  seamless-m4t-medium at full width and depth (12 + 12 layers,
+              d_model 1024, 16 / 16 heads of 64, a gelu MLP of 4096, vocab
+              256206, bf16, seeded weights, 0.88 B parameters): 4 x 256
+              stub frame embeddings encoded, a 4 x 128 prompt prefilled
+              and 16 tokens decoded greedily through EncDecLM under
+              sfc_cuda with "sfc" and blockwise attention and under torch:
+              exactly 72 K1/K2 and 12 non-causal K11 an encode, 216 K1/K2
+              and 36 K11 a prefill (which encodes again), 96 K1/K2 on the
+              cluster kernel and 24 K14 a decode step; the f32 prefill
+              logits within the bf16 bound of torch's, the bf16 ones at
+              accuracy parity; encode time, TTFT, the p50 gap, tokens/s;
+12. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound (K1/K2 and K4/K5 rows: the kernel
               launched and its K layers, L' or tile; K11 / K15 rows: the
@@ -284,6 +319,18 @@ REP_SERVE_LAYERS = 8
 # 256-step SSD chunks, the last padded) + HYBRID_LONG_NEW
 HYBRID_ARCH = "zamba2_1_2b"
 HYBRID_LONG_PROMPT, HYBRID_LONG_NEW = 600, 8
+
+# xlstm-1.3b (the xLSTM slice): served at full width and depth as zamba2
+# is (4 x PROMPT + NEW_TOKENS; one HYBRID_LONG_PROMPT prompt, two 512-step
+# chunks, the second padded); its f32 check on a cut to one group of blocks
+XLSTM_ARCH = "xlstm_1_3b"
+XLSTM_CHECK_LAYERS = 8
+
+# seamless-m4t-medium (the encoder-decoder slice): ENCDEC_FRAMES stub frame
+# embeddings a request encoded, a PROMPT-token decoder prompt, NEW_TOKENS
+# decoded greedily
+ENCDEC_ARCH = "seamless_m4t_medium"
+ENCDEC_FRAMES = 256
 
 
 def emit(obj) -> None:
@@ -406,6 +453,7 @@ class Gemm:
     n: int
     glu: bool = False
     preact: bool = False  # the training forward's GLU: both pre-activations out
+    act: Optional[str] = None  # the activation in the flush of a product that is not a GLU
 
     @property
     def path(self) -> str:
@@ -672,7 +720,7 @@ def phase_kernels(torch, cfg, gemms, tk, ops, ragged=True):
         gs = [(torch.randn((gm.k, gm.n), generator=gen, device=dev) * 0.02).to(dt) for _ in range(copies)] if gm.glu else None
         # the serve's GLU applies its activation in the flush; the training
         # forward's (preact) flushes both pre-activations
-        kw = dict(preact=True) if gm.preact else dict(activation=cfg.act if gm.glu else None)
+        kw = dict(preact=True) if gm.preact else dict(activation=cfg.act if gm.glu else gm.act)
 
         def kernel(i):
             return tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies] if gs else None, **kw)
@@ -2420,10 +2468,11 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
 class ChunkGemm:
     """One `chunk_einsum` product in its batched framing, (batch, M, K) @
     (batch, K, N) with per-batch B, on K2: ``f32_out`` the f32-output mode
-    (bf16 in, the f32 accumulator out), else bf16 out.  ``path``: the serve
-    whose run launches it at this shape ("serve" the 4 x 128 one, "serve
-    1x600" the long prompt's), None for a check row; ``unaligned``: A a view
-    2 bytes past a 16-byte boundary."""
+    (bf16 in, the f32 accumulator out), ``f32_in`` f32 in and out (the
+    mLSTM's output product, the tile kernel), else bf16 in and out; batch
+    0 a plain-mode (M, K) @ (K, N).  ``path``: the serve whose run launches
+    it at this shape (e.g. "zamba2 serve", "xlstm serve 1x600"), None for a
+    check row; ``unaligned``: A a view 2 bytes past a 16-byte boundary."""
 
     name: str
     batch: int
@@ -2433,47 +2482,72 @@ class ChunkGemm:
     f32_out: bool
     path: Optional[str]
     unaligned: bool = False
+    f32_in: bool = False
 
     @property
     def key(self):  # sfc_gemm_fused.launches_by_shape
         return (self.batch, self.m, self.k, self.n, False)
 
+    @property
+    def in_elem(self) -> int:
+        return 4 if self.f32_in else 2
+
+    @property
+    def out_elem(self) -> int:
+        return 4 if self.f32_out or self.f32_in else 2
+
     def flops(self) -> float:
-        return 2.0 * self.batch * self.m * self.k * self.n
+        return 2.0 * max(self.batch, 1) * self.m * self.k * self.n
 
     def bytes(self) -> float:
-        return 2.0 * self.batch * (self.m * self.k + self.k * self.n) + (4 if self.f32_out else 2) * (
-            self.batch * self.m * self.n)
+        b = max(self.batch, 1)
+        return self.in_elem * b * (self.m * self.k + self.k * self.n) + self.out_elem * b * self.m * self.n
+
+    @property
+    def peak(self) -> float:
+        return PEAK_F32_FLOPS if self.f32_in else PEAK_BF16_FLOPS
 
 
-def chunk_gemms(cfg):
+def chunk_gemms(cfg, xcfg):
     """The SSD's two intra-chunk products at the zamba2 serve's shapes (4 x
     128: one 128-step chunk; the 1 x HYBRID_LONG_PROMPT prompt: chunks of
     ``ssm_chunk`` steps, the last padded), the scores in the f32-output
-    mode and the output in bf16; xlstm-1.3b's mLSTM qk block at 4 x 128 (4
-    heads of 1024, 128-step chunks) and a ragged unaligned case, both off
-    the path (the f32-output mode's check rows)."""
+    mode and the output in bf16; xlstm-1.3b's two mLSTM products (4 heads
+    of 1024) at its serve's shapes (4 x 128: one 128-step chunk; the 1 x
+    HYBRID_LONG_PROMPT prompt: two 512-step chunks, one launch of each
+    product a chunk), the qk scores in the f32-output mode, the output
+    product in f32; a ragged unaligned case and a plain-mode A of 4 rows
+    in the f32-output mode, off the path (its check rows)."""
     heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
     n, p = cfg.ssm_state, cfg.ssm_head_dim
     short = min(cfg.ssm_chunk, PROMPT)
     long_ = min(cfg.ssm_chunk, HYBRID_LONG_PROMPT)
     chunks = math.ceil(HYBRID_LONG_PROMPT / long_)
-    long_path = f"serve 1x{HYBRID_LONG_PROMPT}"
+    long_path = f"zamba2 serve 1x{HYBRID_LONG_PROMPT}"
+    xh, xp = xcfg.n_heads, 2 * xcfg.d_model // xcfg.n_heads
+    x_short, x_long = min(xcfg.ssm_chunk, PROMPT), min(xcfg.ssm_chunk, HYBRID_LONG_PROMPT)
+    x_path = f"xlstm serve 1x{HYBRID_LONG_PROMPT}"
     return [
-        ChunkGemm(f"ssd_scores@{BATCH}x{PROMPT}", BATCH * math.ceil(PROMPT / short), short, n, short, True, "serve"),
+        ChunkGemm(f"ssd_scores@{BATCH}x{PROMPT}", BATCH * math.ceil(PROMPT / short), short, n, short, True,
+                  "zamba2 serve"),
         ChunkGemm(f"ssd_scores@1x{HYBRID_LONG_PROMPT}", chunks, long_, n, long_, True, long_path),
-        ChunkGemm(f"mlstm_qk@xlstm-1.3b,{BATCH}x{PROMPT}", BATCH * 4, PROMPT, 1024, PROMPT, True, None),
+        ChunkGemm(f"mlstm_qk@{BATCH}x{PROMPT}", BATCH * xh, x_short, xp, x_short, True, "xlstm serve"),
+        ChunkGemm(f"mlstm_qk@1x{HYBRID_LONG_PROMPT}", xh, x_long, xp, x_long, True, x_path),
         ChunkGemm("ragged_unaligned", 3, 60, 50, 70, True, None, unaligned=True),
-        ChunkGemm(f"ssd_out@{BATCH}x{PROMPT}", BATCH * heads, short, short, p, False, "serve"),
+        ChunkGemm("plain_m4", 0, BATCH, 2048, 256, True, None),
+        ChunkGemm(f"ssd_out@{BATCH}x{PROMPT}", BATCH * heads, short, short, p, False, "zamba2 serve"),
         ChunkGemm(f"ssd_out@1x{HYBRID_LONG_PROMPT}", chunks * heads, long_, long_, p, False, long_path),
+        ChunkGemm(f"mlstm_out@{BATCH}x{PROMPT}", BATCH * xh, x_short, x_short, xp, False, "xlstm serve", f32_in=True),
+        ChunkGemm(f"mlstm_out@1x{HYBRID_LONG_PROMPT}", xh, x_long, x_long, xp, False, x_path, f32_in=True),
     ]
 
 
 def chunk_route(gm) -> str:
     """The kernel `sfc_gemm_fused` launches for a chunk product: the wgmma
     kernel (its f32-output twin for the f32 mode) where TMA can describe
-    the rows, else the tile kernel's f32-output twin."""
-    if gm.unaligned or gm.k % 8 or gm.n % 8:
+    the rows of a batched bf16 product, else the tile kernel (its
+    f32-output twin for the f32 mode)."""
+    if gm.f32_in or gm.unaligned or gm.k % 8 or gm.n % 8 or not gm.batch:
         return "sfc_gemm_fused_f32out_kernel" if gm.f32_out else "sfc_gemm_fused_kernel"
     return "sfc_gemm_wgmma_f32out_kernel" if gm.f32_out else "sfc_gemm_wgmma_kernel"
 
@@ -2481,23 +2555,26 @@ def chunk_route(gm) -> str:
 def phase_chunk_gemms(torch, gemms, tk, abft):
     """K2 at the chunk-einsum shapes against its plain version, timed with
     inputs (A and the per-batch B) rotated past the L2 beside one
-    ``torch.bmm`` (``out_dtype=torch.float32`` for the f32 mode); then each
-    with its ABFT lane: the lane within `lane_limit` of its plain version's
-    and `tolerance()` of the operand-side reference, the output bitwise the
+    ``torch.bmm`` (``out_dtype=torch.float32`` for the f32 mode; the
+    plain-mode row ``torch.mm``); then each batched bf16 one with its ABFT
+    lane: the lane within `lane_limit` of its plain version's and
+    `tolerance()` of the operand-side reference, the output bitwise the
     lane-off one, timed on and off.  Returns (rows, checks, lane rows, lane
     checks)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(27)
     rows, checks, lane_rows, lane_checks = [], [], [], []
     for gm in gemms:
-        odt = torch.float32 if gm.f32_out else torch.bfloat16
-        copies = max(1, math.ceil(4 * L2_BYTES / (2.0 * gm.batch * (gm.m * gm.k + gm.k * gm.n))))
-        count = gm.batch * gm.m * gm.k
+        idt = torch.float32 if gm.f32_in else torch.bfloat16
+        odt = torch.float32 if gm.f32_out or gm.f32_in else torch.bfloat16
+        lead = (gm.batch,) if gm.batch else ()
+        copies = max(1, math.ceil(4 * L2_BYTES / (gm.in_elem * max(gm.batch, 1) * (gm.m * gm.k + gm.k * gm.n))))
+        count = max(gm.batch, 1) * gm.m * gm.k
 
         def operand(i):
-            flat = torch.randn(count + 8, generator=gen, device=dev).bfloat16()
-            a = (flat[1:1 + count] if gm.unaligned else flat[:count]).view(gm.batch, gm.m, gm.k)
-            return a, (torch.randn((gm.batch, gm.k, gm.n), generator=gen, device=dev) * 0.1).bfloat16()
+            flat = torch.randn(count + 8, generator=gen, device=dev).to(idt)
+            a = (flat[1:1 + count] if gm.unaligned else flat[:count]).view(*lead, gm.m, gm.k)
+            return a, (torch.randn((*lead, gm.k, gm.n), generator=gen, device=dev) * 0.1).to(idt)
 
         ops_ = [operand(i) for i in range(copies)]
         a, b = ops_[0]
@@ -2516,22 +2593,28 @@ def phase_chunk_gemms(torch, gemms, tk, abft):
         torch.cuda.synchronize()
         ok, err, worst = within(got, want, odt)
         checks.append({"case": f"chunk_einsum:{gm.name}", "shape": [gm.batch, gm.m, gm.k, gm.n],
-                       "out": str(odt), "kernel": name, "config": config, "ok": ok, "max_abs_err": err,
-                       "err_over_bound": worst})
+                       "in": str(idt), "out": str(odt), "kernel": name, "config": config, "ok": ok,
+                       "max_abs_err": err, "err_over_bound": worst})
         if not ok or name != chunk_route(gm) or got.dtype != odt:
             raise AssertionError(f"chunk product {gm} on {name} ({got.dtype}) disagrees with its plain version: "
                                  f"max err {err}, err/bound {worst}")
+        mm = torch.bmm if gm.batch else torch.mm
         if gm.f32_out:
-            library = lambda i: torch.bmm(*ops_[i % copies], out_dtype=torch.float32)  # noqa: E731
+            library = lambda i: mm(*ops_[i % copies], out_dtype=torch.float32)  # noqa: E731
         else:
-            library = lambda i: torch.bmm(*ops_[i % copies])  # noqa: E731
+            library = lambda i: mm(*ops_[i % copies])  # noqa: E731
         reps = max(20, copies)
         ms = time_ms(kernel, reps=reps, graph=True)
         lib_ms = time_ms(library, reps=reps, graph=True)
         plain_ms = time_ms(plain, reps=2, warmup=1)
-        bound_ms, bound_by = _bound(gm.flops(), gm.bytes())
+        bound_ms, bound_by = _bound(gm.flops(), gm.bytes(), gm.peak)
         rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                          bound_by=bound_by, kernel=name, config=config))
+        if gm.f32_in or not gm.batch:
+            # no lane row: the f32 lanes and the plain-mode f32-output lane
+            # are held at other shapes (the ragged rows, the card tests)
+            del ops_, a, b, got, want
+            continue
         # the lane: per batch element at the launch's C tile (per-batch B
         # walks each element's tiles in turn)
         on = kernel(0, True)
@@ -2704,6 +2787,374 @@ def phase_hybrid_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa, ops)
     gc.collect()
     torch.cuda.empty_cache()
     return summary, by_shape
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM family: xlstm-1.3b (mLSTM and sLSTM blocks); the mLSTM's two
+# chunk products on K2 in its two f32 modes
+# ---------------------------------------------------------------------------
+
+
+def _reset_gemm_counts(tk):
+    tk.sfc_gemm_fused.launches = 0
+    tk.sfc_gemm_fused.f32_out_launches = 0
+    tk.sfc_gemm_fused.launches_by_shape.clear()
+    tk.sfc_gemm_fused.launches_by_kernel.clear()
+
+
+def _gemm_counts(tk) -> dict:
+    return {"K1/K2": tk.sfc_gemm_fused.launches, "f32_out": tk.sfc_gemm_fused.f32_out_launches,
+            "by_kernel": by_kernel(tk.sfc_gemm_fused.launches_by_kernel)}
+
+
+def phase_xlstm_serve(torch, np, cfg, build_model, ServingEngine, tk, ops, gemm_backend):
+    """ServingEngine serves full-width, full-depth xlstm-1.3b (48 blocks: 6
+    groups of 7 mLSTM blocks and one sLSTM block, d_model 2048, 4 heads of
+    1024, chunk 512, bf16, seeded random weights): 4 requests x PROMPT +
+    NEW_TOKENS and one HYBRID_LONG_PROMPT-token prompt + HYBRID_LONG_NEW,
+    each under sfc_cuda and torch.  Launch counts exact, reckoned from the
+    structure: per prefill and chunk, each mLSTM block's qk scores in K2's
+    f32-output mode (the wgmma kernel) and its output product in f32 (the
+    tile kernel); none in a decode step (its products are torch.einsum and
+    its projections torch.matmul) and none under torch.  The f32 prefill
+    logits of a cut to one group (XLSTM_CHECK_LAYERS blocks) of the same
+    weights under sfc_cuda within the bf16 bound of torch's at both prompt
+    lengths, and the cut's bf16 sfc_cuda logits as close to the f32 torch
+    ones as torch's bf16 are (ACCURACY_PARITY).  Returns (summary, {run:
+    sfc_gemm_fused launches by shape})."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = model.state_dict()
+    n_params = sum(p.numel() for p in params.values())
+    del model
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=PROMPT).astype(np.int32) for _ in range(BATCH)]
+    long_prompt = [rng.integers(0, cfg.vocab, size=HYBRID_LONG_PROMPT).astype(np.int32)]
+    long_name = f"1x{HYBRID_LONG_PROMPT}"
+
+    def engine(gemm, long_=False):
+        seq = HYBRID_LONG_PROMPT + HYBRID_LONG_NEW + 1 if long_ else PROMPT + NEW_TOKENS + 1
+        return ServingEngine(cfg, params, max_batch=BATCH, max_seq=seq, gemm_backend=gemm, device="cuda")
+
+    runs = {name: (engine(name), prompts, NEW_TOKENS, PROMPT) for name in ("sfc_cuda", "torch")}
+    runs.update({f"{name}@{long_name}": (engine(name, True), long_prompt, HYBRID_LONG_NEW, HYBRID_LONG_PROMPT)
+                 for name in ("sfc_cuda", "torch")})
+    for eng, ps, _, _ in runs.values():  # warm-up: first launches, allocator, cuBLAS handles
+        eng.run(eng.submit_many(ps[:1], max_new_tokens=2))
+    torch.cuda.synchronize()
+
+    n_mlstm = (cfg.n_layers // cfg.slstm_every) * (cfg.slstm_every - 1)
+
+    def want(name, prompt_len):
+        if name.startswith("torch"):
+            return {"K1/K2": 0, "f32_out": 0, "by_kernel": {}}
+        chunks = math.ceil(prompt_len / min(cfg.ssm_chunk, prompt_len))
+        return {"K1/K2": 2 * n_mlstm * chunks, "f32_out": n_mlstm * chunks,
+                "by_kernel": {"sfc_gemm_wgmma_f32out_kernel": n_mlstm * chunks,
+                              "sfc_gemm_fused_kernel": n_mlstm * chunks}}
+
+    counts, by_shape, done, reports = {}, {}, {}, {}
+    for name, (eng, ps, new, _) in runs.items():
+        _reset_gemm_counts(tk)
+        done[name] = eng.run(eng.submit_many(ps, max_new_tokens=new))
+        torch.cuda.synchronize()
+        counts[name] = _gemm_counts(tk)
+        by_shape[name] = dict(tk.sfc_gemm_fused.launches_by_shape)
+        reports[name] = eng.latency_report(done[name])
+        for r in done[name]:
+            if r.status != "completed" or len(r.output) != new or not all(0 <= t < cfg.vocab for t in r.output):
+                raise AssertionError(f"xlstm {name}: request {r.uid} ended {r.status} with {len(r.output or [])} "
+                                     "tokens")
+    expected = {name: want(name, plen) for name, (_, _, _, plen) in runs.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
+    long_tokens = torch.from_numpy(np.stack(long_prompt)).long().cuda()
+    decode_profile = profile_decode(torch, runs["sfc_cuda"][0], tokens, ops, kernel_groups=_HYBRID_KERNEL_GROUPS)
+    logits = {name: eng._prefill(long_tokens if long_name in name else tokens)[0].float()
+              for name, (eng, _, _, _) in runs.items()}
+    tokens_of = {name: np.array([r.output for r in batch]) for name, batch in done.items()}
+    del runs, eng
+
+    # the cut: the first group's blocks, the embedding, the final norm and
+    # the head of the same weights, in bf16 and f32
+    cut = dataclasses.replace(cfg, n_layers=XLSTM_CHECK_LAYERS)
+    kept = ("embed", "final_norm.", "head", "mlstm.0.", "slstm.0.")
+    cut_params = {k: v for k, v in params.items() if k.startswith(kept)}
+    del params
+    cut_logits, cut_counts = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        m = build_model(dataclasses.replace(cut, param_dtype=dtype), device="cuda")
+        m.load_state_dict({k: v.to(getattr(torch, dtype)) for k, v in cut_params.items()})
+        for gemm in ("sfc_cuda", "torch"):
+            for name, toks in (("4x", tokens), (long_name, long_tokens)):
+                _reset_gemm_counts(tk)
+                with gemm_backend(gemm):
+                    cut_logits[(gemm, dtype, name)] = m.prefill(toks)[0].float()
+                torch.cuda.synchronize()
+                if gemm == "sfc_cuda":
+                    cut_counts[f"{dtype}@{name}"] = _gemm_counts(tk)
+        del m
+    f32_agree, noise, parity = {}, {}, {}
+    for name in ("4x", long_name):
+        ref = cut_logits[("torch", "float32", name)]
+        f32_agree[name] = dict(zip(("ok", "max_abs_err", "err_over_bound"),
+                                   within(cut_logits[("sfc_cuda", "float32", name)], ref, torch.bfloat16)))
+        noise[name] = {gemm: float((cut_logits[(gemm, "bfloat16", name)] - ref).abs().mean())
+                       for gemm in ("sfc_cuda", "torch")}
+        parity[name] = noise[name]["sfc_cuda"] <= ACCURACY_PARITY * noise[name]["torch"]
+    # the cut in f32: both products of each of its mLSTM blocks on the tile
+    # kernel (f32 in), none in the f32-output mode
+    cut_m = XLSTM_CHECK_LAYERS - 1
+    cut_expected = {}
+    for dtype in ("bfloat16", "float32"):
+        for name, plen in (("4x", PROMPT), (long_name, HYBRID_LONG_PROMPT)):
+            chunks = math.ceil(plen / min(cfg.ssm_chunk, plen))
+            cut_expected[f"{dtype}@{name}"] = (
+                {"K1/K2": 2 * cut_m * chunks, "f32_out": cut_m * chunks,
+                 "by_kernel": {"sfc_gemm_wgmma_f32out_kernel": cut_m * chunks,
+                               "sfc_gemm_fused_kernel": cut_m * chunks}} if dtype == "bfloat16" else
+                {"K1/K2": 2 * cut_m * chunks, "f32_out": 0, "by_kernel": {"sfc_gemm_fused_kernel": 2 * cut_m * chunks}})
+    summary = {
+        "phase": "serve_xlstm", "arch": cfg.name, "layers": cfg.n_layers, "slstm_every": cfg.slstm_every,
+        "mlstm_blocks": n_mlstm, "d_model": cfg.d_model, "heads": cfg.n_heads, "vocab": cfg.vocab,
+        "ssm_chunk": cfg.ssm_chunk, "dtype": cfg.param_dtype, "params": n_params, "init_s": init_s,
+        "peak_memory_gb": peak_gb,
+        "requests": {"4x": [BATCH, PROMPT, NEW_TOKENS], long_name: [1, HYBRID_LONG_PROMPT, HYBRID_LONG_NEW]},
+        "launches": counts, "launches_expected": expected,
+        "prefill_logits_full_depth": {
+            name: {"finite": bool(torch.isfinite(logits[name]).all()),
+                   "mean_abs_vs_torch": float((logits[name] - logits[name.replace("sfc_cuda", "torch")]).abs().mean()),
+                   "first_token_match": float((logits[name].argmax(-1) ==
+                                               logits[name.replace("sfc_cuda", "torch")].argmax(-1)).float().mean())}
+            for name in ("sfc_cuda", f"sfc_cuda@{long_name}")},
+        "cut": {"layers": XLSTM_CHECK_LAYERS, "f32_vs_torch": f32_agree, "bf16_mean_abs_err_vs_f32": noise,
+                "parity_ok": parity, "launches": cut_counts, "launches_expected": cut_expected},
+        "greedy_token_match": {name: float((tokens_of[name] == tokens_of[name.replace("sfc_cuda", "torch")]).mean())
+                               for name in ("sfc_cuda", f"sfc_cuda@{long_name}")},
+        "latency": {name: {key: rep[key] for key in ("ttft_mean_s", "ttft_p50_s", "token_p50_s", "tokens_per_s",
+                                                     "latency_mean_s")} for name, rep in reports.items()},
+        "decode_step_profile": decode_profile,
+    }
+    emit(summary)
+    if counts != expected or cut_counts != cut_expected:
+        raise AssertionError(f"xlstm serves launched {counts} (cut {cut_counts}), expected {expected} "
+                             f"(cut {cut_expected})")
+    for name, full in summary["prefill_logits_full_depth"].items():
+        if not full["finite"]:
+            raise AssertionError(f"xlstm {name}: non-finite prefill logits")
+    for name, res in f32_agree.items():
+        if not res["ok"]:
+            raise AssertionError(f"xlstm cut f32 prefill logits {name} vs torch: {res}")
+    if not all(parity.values()):
+        raise AssertionError(f"xlstm cut bf16 logits further from the f32 model than torch's: {noise}")
+    del logits, cut_logits, cut_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, by_shape
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family: seamless-m4t-medium (cross-attention on K11
+# and K14, the non-gated gelu MLP on K1/K2)
+# ---------------------------------------------------------------------------
+
+
+def encdec_gemms(cfg):
+    """The K1/K2 products of the seamless-m4t-medium run (d_model 1024, 16
+    heads of 64, a gelu MLP of 4096): a decode step's (4 rows, the plain
+    mode; the self and cross q / o and the self k / v share one shape),
+    the encoder's over 4 x ENCDEC_FRAMES frames (its q, k, v, o and the
+    decoder's cross k / v over the memory) and the decoder prefill's over 4
+    x PROMPT tokens; the LM head is torch.matmul."""
+    d, f = cfg.d_model, cfg.d_ff
+    proj = [("attn", d, d, None), ("mlp_in", d, f, cfg.act), ("mlp_out", f, d, None)]
+    out = [Gemm(f"seamless/decode/{n}", "decode", 0, BATCH, k, nn, act=a) for n, k, nn, a in proj]
+    out += [Gemm(f"seamless/encoder/{n}", "prefill", BATCH, ENCDEC_FRAMES, k, nn, act=a) for n, k, nn, a in proj]
+    out += [Gemm(f"seamless/prefill/{n}", "prefill", BATCH, PROMPT, k, nn, act=a) for n, k, nn, a in proj]
+    return out
+
+
+def encdec_attention_cases(cfg):
+    """The seamless run's attention shapes (16 / 16 heads of 64): the
+    encoder's bidirectional self-attention over the frames, the decoder
+    prefill's causal self-attention and its cross-attention over the
+    memory (K11); a decode step's self-attention over its cache (live
+    PROMPT + 8 rows, the middle step) and cross-attention over the whole
+    memory (K14)."""
+    heads = dict(h=cfg.n_heads, hkv=cfg.kv_heads, d=cfg.head_dim_, path="seamless")
+    cache = PROMPT + NEW_TOKENS + 1
+    return [
+        Attn("seamless/encoder_self", "sfc_flash_fwd", BATCH, ENCDEC_FRAMES, ENCDEC_FRAMES, causal=False, **heads),
+        Attn("seamless/decoder_self", "sfc_flash_fwd", BATCH, PROMPT, PROMPT, **heads),
+        Attn("seamless/cross", "sfc_flash_fwd", BATCH, PROMPT, ENCDEC_FRAMES, causal=False, **heads),
+        Attn("seamless/decode_self", "sfc_decode_attention", BATCH, 1, cache, valid=(PROMPT + 8,) * BATCH, **heads),
+        Attn("seamless/decode_memory", "sfc_decode_attention", BATCH, 1, ENCDEC_FRAMES,
+             valid=(ENCDEC_FRAMES,) * BATCH, **heads),
+    ]
+
+
+def phase_encdec(torch, np, cfg, build_model, tk, tsa, gemm_backend, attention_backend):
+    """seamless-m4t-medium at full width and depth (12 encoder and 12
+    decoder layers, d_model 1024, 16 / 16 heads of 64, d_ff 4096 gelu,
+    vocab 256206, bf16, seeded random weights): the stub frontend's 4 x
+    ENCDEC_FRAMES frame embeddings drawn from a seed, encoded; a 4 x
+    PROMPT decoder prompt prefilled (EncDecLM.prefill encodes again) and
+    NEW_TOKENS tokens decoded greedily, under sfc_cuda with "sfc" and
+    blockwise attention and under torch.  Launch counts exact, reckoned
+    from the structure: an encode 6 K1/K2 a layer and one non-causal K11;
+    a prefill the encode's and 12 K1/K2 a decoder layer (self q, k, v, o;
+    cross q and o; the memory's k and v twice, in the cross-attention and
+    for the cache; the MLP's two), one causal and one non-causal K11; a
+    decode step 8 K1/K2 a decoder layer on the cluster kernel, one K14
+    over the self cache and one over the memory; none under torch.  The
+    f32 prefill logits of the same weights (full depth) under each sfc_cuda
+    variant within the bf16 bound of torch's, and each bf16 variant's as
+    close to that f32 model as torch's are (ACCURACY_PARITY).  Returns
+    (summary, sfc_gemm_fused launches by shape of the "sfc" run, its K11
+    and K14 launches)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(BATCH, PROMPT))).long().cuda()
+    frames = torch.randn((BATCH, ENCDEC_FRAMES, cfg.d_model), generator=torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda")
+    variants = {"sfc_cuda+sfc_attn": ("sfc_cuda", "sfc"), "sfc_cuda": ("sfc_cuda", "blockwise"),
+                "torch": ("torch", "blockwise")}
+    cache_len = PROMPT + NEW_TOKENS + 1
+
+    def encode(m, name):
+        gemm, impl = variants[name]
+        with gemm_backend(gemm), attention_backend(impl), torch.no_grad():
+            t0 = time.perf_counter()
+            m.encode(frames)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    def greedy(m, name, new):
+        """(tokens (B, new), TTFT, the per-token gaps, the whole wall time)."""
+        gemm, impl = variants[name]
+        out, stamps = [], []
+        with gemm_backend(gemm), attention_backend(impl):
+            t0 = time.perf_counter()
+            logits, cache = m.prefill(tokens, frames, cache_len=cache_len)
+            tok = logits.argmax(-1)[:, None]
+            out.append(tok[:, 0].tolist())
+            stamps.append(time.perf_counter())
+            for _ in range(new - 1):
+                logits, cache = m.decode_step(tok, cache)
+                tok = logits.argmax(-1)[:, None]
+                out.append(tok[:, 0].tolist())
+                stamps.append(time.perf_counter())
+        gaps = np.diff(stamps)
+        return np.array(out).T, stamps[0] - t0, gaps, stamps[-1] - t0
+
+    def reset():
+        _reset_gemm_counts(tk)
+        for fn in (tsa.sfc_flash_fwd, tsa.sfc_decode_attention):
+            fn.launches = 0
+        tsa.sfc_flash_fwd.launches_by_kernel.clear()
+
+    def read():
+        return {**_gemm_counts(tk), "K11": tsa.sfc_flash_fwd.launches, "K14": tsa.sfc_decode_attention.launches,
+                "K11_by_kernel": {f"{k}@W{w}": n for (k, w), n in tsa.sfc_flash_fwd.launches_by_kernel.items()}}
+
+    for name in variants:  # warm-up: first launches, allocator, cuBLAS handles
+        encode(model, name)
+        greedy(model, name, 2)
+    torch.cuda.synchronize()
+
+    enc_l, dec_l = cfg.encoder_layers, cfg.n_layers
+    w1 = tsa.fwd_wgmma_grid(BATCH, PROMPT, ENCDEC_FRAMES, cfg.n_heads, cfg.kv_heads,
+                            torch.cuda.get_device_properties(0).multi_processor_count)[1]
+
+    def want(name, encode_only):
+        if name == "torch":
+            return {"K1/K2": 0, "f32_out": 0, "by_kernel": {}, "K11": 0, "K14": 0, "K11_by_kernel": {}}
+        attn = "sfc_attn" in name
+        if encode_only:
+            k11 = enc_l if attn else 0
+            return {"K1/K2": 6 * enc_l, "f32_out": 0, "by_kernel": {"sfc_gemm_wgmma_kernel": 6 * enc_l}, "K11": k11,
+                    "K14": 0, "K11_by_kernel": {f"flash_fwd_wgmma_kernel@W{w1}": k11} if k11 else {}}
+        prefill = 6 * enc_l + 12 * dec_l
+        decode = 8 * dec_l * (NEW_TOKENS - 1)
+        k11 = enc_l + 2 * dec_l if attn else 0
+        return {"K1/K2": prefill + decode, "f32_out": 0,
+                "by_kernel": {"sfc_gemm_wgmma_kernel": prefill, "sfc_gemm_cluster_kernel": decode},
+                "K11": k11, "K14": 2 * dec_l * (NEW_TOKENS - 1) if attn else 0,
+                "K11_by_kernel": {f"flash_fwd_wgmma_kernel@W{w1}": k11} if k11 else {}}
+
+    counts, expected, encode_s, runs, by_shape = {}, {}, {}, {}, {}
+    for name in variants:
+        reset()
+        encode_s[name] = encode(model, name)
+        counts[f"{name}/encode"], expected[f"{name}/encode"] = read(), want(name, True)
+        reset()
+        runs[name] = greedy(model, name, NEW_TOKENS)
+        torch.cuda.synchronize()
+        counts[name], expected[name] = read(), want(name, False)
+        by_shape[name] = dict(tk.sfc_gemm_fused.launches_by_shape)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    logits = {}
+    for name in variants:
+        gemm, impl = variants[name]
+        with gemm_backend(gemm), attention_backend(impl):
+            logits[name] = model.prefill(tokens, frames, cache_len=cache_len)[0].float()
+    model32 = build_model(dataclasses.replace(cfg, param_dtype="float32"), device="cuda")
+    model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    del model
+    for name in variants:
+        gemm, impl = variants[name]
+        with gemm_backend(gemm), attention_backend(impl):
+            logits[name + "_f32"] = model32.prefill(tokens, frames, cache_len=cache_len)[0]
+    del model32
+    sfc = ("sfc_cuda+sfc_attn", "sfc_cuda")
+    ref = logits["torch_f32"]
+    f32_agree = {name: dict(zip(("ok", "max_abs_err", "err_over_bound"),
+                                within(logits[name + "_f32"], ref, torch.bfloat16))) for name in sfc}
+    noise = {name: float((logits[name] - ref).abs().mean()) for name in (*sfc, "torch")}
+    parity = {name: noise[name] <= ACCURACY_PARITY * noise["torch"] for name in sfc}
+    latency = {}
+    for name, (toks, ttft, gaps, wall) in runs.items():
+        latency[name] = {"encode_s": encode_s[name], "ttft_s": ttft, "token_p50_s": float(np.median(gaps)),
+                         "tokens_per_s": toks.size / wall, "wall_s": wall}
+    summary = {
+        "phase": "encdec_seamless", "arch": cfg.name, "encoder_layers": enc_l, "decoder_layers": dec_l,
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.kv_heads], "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff,
+        "act": cfg.act, "vocab": cfg.vocab, "dtype": cfg.param_dtype, "params": n_params, "init_s": init_s,
+        "peak_memory_gb": peak_gb, "frames": [BATCH, ENCDEC_FRAMES, cfg.d_model],
+        "prompt": [BATCH, PROMPT], "new_tokens": NEW_TOKENS,
+        "launches": counts, "launches_expected": expected,
+        "prefill_logits": {"f32_vs_torch": f32_agree, "bf16_mean_abs_err_vs_f32": noise, "parity_ok": parity,
+                           "first_token_match": {name: float((logits[name].argmax(-1) ==
+                                                              logits["torch"].argmax(-1)).float().mean())
+                                                 for name in sfc}},
+        "greedy_token_match": {name: float((runs[name][0] == runs["torch"][0]).mean()) for name in sfc},
+        "latency": latency,
+    }
+    emit(summary)
+    if counts != expected:
+        raise AssertionError(f"seamless runs launched {counts}, expected {expected}")
+    for name in sfc:
+        if tuple(logits[name].shape) != (BATCH, cfg.vocab) or not bool(torch.isfinite(logits[name]).all()):
+            raise AssertionError(f"seamless {name}: prefill logits of shape {tuple(logits[name].shape)} or "
+                                 "non-finite")
+        if not f32_agree[name]["ok"]:
+            raise AssertionError(f"seamless f32 prefill logits {name} vs torch: {f32_agree[name]}")
+    if not all(parity.values()):
+        raise AssertionError(f"seamless bf16 logits further from the f32 model than torch's: {noise}")
+    del logits, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, by_shape["sfc_cuda+sfc_attn"], counts["sfc_cuda+sfc_attn"]
 
 
 # ---------------------------------------------------------------------------
@@ -2890,7 +3341,7 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
             a = r(*lead, gm.m, gm.k, dtype=dt)
             ws = [r(gm.k, gm.n, dtype=dt, scale=0.02) for _ in range(copies)]
             gs = [r(gm.k, gm.n, dtype=dt, scale=0.02) for _ in range(copies)] if gm.glu else [None] * copies
-            kw = dict(preact=True) if gm.preact else dict(activation=cfg.act if gm.glu else None)
+            kw = dict(preact=True) if gm.preact else dict(activation=cfg.act if gm.glu else gm.act)
 
             def call(i, lane):
                 return tk.sfc_gemm_fused(a, ws[i % copies], gs[i % copies], abft=lane, **kw)
@@ -3196,12 +3647,17 @@ def main() -> int:
     bwd_rows, bwd_checks = phase_backward_gemms(torch, train_backward_gemms(cfg), tk, ops)
     upd_rows, upd_checks = phase_update_gemms(torch, cfg, tk, opt)
     attn_bwd_rows, attn_bwd_checks = phase_attention_bwd(torch, attention_bwd_cases(cfg), tsa, build)
-    # the hybrid slice: K2 at the chunk-einsum shapes (its f32-output mode
-    # with the lanes) and K1/K2 at zamba2's shared-block shapes
-    zcfg = get_config(HYBRID_ARCH)
-    chunk_rows, chunk_checks, chunk_lane_rows, chunk_lane_checks = phase_chunk_gemms(torch, chunk_gemms(zcfg), tk,
-                                                                                     abft)
+    # the hybrid and xLSTM slices: K2 at the chunk-einsum shapes (its
+    # f32-output mode with the lanes, the mLSTM output product in f32) and
+    # K1/K2 at zamba2's shared-block shapes; the encoder-decoder slice:
+    # K1/K2 at seamless's shapes (the gelu MLP), K11 non-causal and K14
+    # over its memory
+    zcfg, xcfg, scfg = get_config(HYBRID_ARCH), get_config(XLSTM_ARCH), get_config(ENCDEC_ARCH)
+    chunk_rows, chunk_checks, chunk_lane_rows, chunk_lane_checks = phase_chunk_gemms(
+        torch, chunk_gemms(zcfg, xcfg), tk, abft)
     hyb_rows, hyb_checks = phase_kernels(torch, zcfg, hybrid_projection_gemms(zcfg), tk, ops, ragged=False)
+    encdec_rows, encdec_checks = phase_kernels(torch, scfg, encdec_gemms(scfg), tk, ops, ragged=False)
+    encdec_attn_rows, encdec_attn_checks = phase_attention(torch, encdec_attention_cases(scfg), tsa, tfa, build)
     ocfg = get_config(MOE_ARCH)
     grouped_rows, grouped_checks = phase_grouped_gemms(torch, moe_grouped_gemms(ocfg), tk)
     grouped_upd_rows, grouped_upd_checks = phase_grouped_update_gemms(torch, ocfg, tk, opt)
@@ -3216,7 +3672,7 @@ def main() -> int:
                      "rounding of the kernel's master with the plain version's bits and within the bfloat16 "
                      "tolerance of the plain W",
         "checks": checks + rep_checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
-                  + grouped_upd_checks + chunk_checks + hyb_checks,
+                  + grouped_upd_checks + chunk_checks + hyb_checks + encdec_checks + encdec_attn_checks,
         "reduced_model_f32_vs_reference": small})
     emit({"phase": "abft_lanes", "ok": True,
           "tolerance": f"|lane - plain lane| <= min({LANE_RTOL} * sum |{LANE_TILE}x{LANE_TILE} raw tile sums|, "
@@ -3569,8 +4025,18 @@ def main() -> int:
     phase_at[9] = time.perf_counter() - run_t0
     hybrid_serve, hybrid_by_shape = phase_hybrid_serve(torch, np, zcfg, build_model, ServingEngine, tk, tsa, ops)
 
-    # ---- 10. the kernels line -----------------------------------------------
+    # ---- 10. serve full-width, full-depth xlstm-1.3b ----------------------
     phase_at[10] = time.perf_counter() - run_t0
+    xlstm_serve, xlstm_by_shape = phase_xlstm_serve(torch, np, xcfg, build_model, ServingEngine, tk, ops,
+                                                    gemm_backend)
+
+    # ---- 11. seamless-m4t-medium at full width and depth --------------------
+    phase_at[11] = time.perf_counter() - run_t0
+    _, encdec_by_shape, encdec_counts = phase_encdec(torch, np, scfg, build_model, tk, tsa, gemm_backend,
+                                                     attention_backend)
+
+    # ---- 12. the kernels line -----------------------------------------------
+    phase_at[12] = time.perf_counter() - run_t0
     kernels = []
     for row in rows:
         gm = row["gemm"]
@@ -3802,23 +4268,26 @@ def main() -> int:
             "shape": {"experts": gm.experts, "rows_per_expert": gm.rows, "k": gm.k, "n": gm.n, "dual": gm.glu,
                       "dtype": "bfloat16", "stochastic_round": gm.mode == "update"},
         })
-    # the hybrid slice: K2 at the chunk-einsum shapes (launches at the
-    # row's shape in the run of its serve; a check row carries its CUDA
-    # kernel's launches in the 4 x 128 sfc_cuda serve) and K1/K2 at the
-    # shared block's shapes (the 4 x 128 sfc_cuda serve)
-    hybrid_runs = {"serve": "sfc_cuda", f"serve 1x{HYBRID_LONG_PROMPT}": f"sfc_cuda+sfc_attn@1x{HYBRID_LONG_PROMPT}"}
+    # the hybrid and xLSTM slices: K2 at the chunk-einsum shapes (launches
+    # at the row's shape in the run of its serve; a check row carries its
+    # CUDA kernel's launches in the 4 x 128 sfc_cuda zamba2 serve) and
+    # K1/K2 at the shared block's shapes (the 4 x 128 sfc_cuda serve)
+    long_ = f"1x{HYBRID_LONG_PROMPT}"
+    chunk_runs = {"zamba2 serve": hybrid_by_shape["sfc_cuda"],
+                  f"zamba2 serve {long_}": hybrid_by_shape[f"sfc_cuda+sfc_attn@{long_}"],
+                  "xlstm serve": xlstm_by_shape["sfc_cuda"], f"xlstm serve {long_}": xlstm_by_shape[f"sfc_cuda@{long_}"]}
     for row in chunk_rows:
         gm = row["gemm"]
-        at_shape = hybrid_by_shape[hybrid_runs[gm.path]].get(gm.key, 0) if gm.path else 0
+        at_shape = chunk_runs[gm.path].get(gm.key, 0) if gm.path else 0
         kernels.append({
             "name": f"sfc_gemm_fused:chunk_einsum:{gm.name}",
             "route": "cuda",
             "source": kernel_source(row["kernel"]),
-            "replaces": "src/repro/kernels/sfc_gemm.py:491",
+            "replaces": "src/repro/kernels/sfc_gemm.py:491" if gm.batch else "src/repro/kernels/sfc_gemm.py:355",
             "launches": at_shape if gm.path else hybrid_serve["launches"]["sfc_cuda"]["by_kernel"].get(
                 row["kernel"], 0),
             "launches_at_shape": at_shape,
-            "path": f"zamba2 {gm.path}" if gm.path else "check (zamba2 serve, sfc_cuda)",
+            "path": gm.path or "check (zamba2 serve, sfc_cuda)",
             "main_path": gm.path is not None,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
@@ -3826,11 +4295,12 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "library": "torch.bmm(a, b, out_dtype=torch.float32)" if gm.f32_out else "torch.bmm(a, b)",
+            "library": f"torch.{'bmm' if gm.batch else 'mm'}(a, b{', out_dtype=torch.float32' if gm.f32_out else ''})",
             "kernel": row["kernel"],
             "config": row["config"],
-            "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "per_batch_b": True,
-                      "out": "float32" if gm.f32_out else "bfloat16", "unaligned": gm.unaligned},
+            "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "per_batch_b": bool(gm.batch),
+                      "in": "float32" if gm.f32_in else "bfloat16",
+                      "out": "float32" if gm.f32_out or gm.f32_in else "bfloat16", "unaligned": gm.unaligned},
         })
     for row in hyb_rows:
         gm = row["gemm"]
@@ -3850,6 +4320,48 @@ def main() -> int:
             "kernel": row["kernel"],
             "config": row["config"],
             "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "glu": gm.glu, "preact": gm.preact},
+        })
+    # the encoder-decoder slice: K1/K2 at seamless's shapes (launches at the
+    # row's shape in its sfc_cuda + "sfc" run: the prefill, which encodes,
+    # and the decode steps) and K11 / K14 (the kernel's launches in that run)
+    for row in encdec_rows:
+        gm = row["gemm"]
+        kernels.append({
+            "name": f"sfc_gemm_fused:{gm.name}",
+            "route": "cuda",
+            "source": kernel_source(row["kernel"]),
+            "replaces": "src/repro/kernels/sfc_gemm.py:491" if gm.batch else "src/repro/kernels/sfc_gemm.py:355",
+            "launches": encdec_by_shape.get(gm.key, 0),
+            "path": "seamless encode, prefill and decode, sfc_cuda + sfc",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "kernel": row["kernel"],
+            "config": row["config"],
+            "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "activation": gm.act},
+        })
+    encdec_attn = {"sfc_flash_fwd": encdec_counts["K11"], "sfc_decode_attention": encdec_counts["K14"]}
+    for row in encdec_attn_rows:
+        c = row["case"]
+        kernels.append({
+            "name": f"{c.kernel}:{c.name}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_attention.cu",
+            "replaces": replaces[c.kernel],
+            "launches": encdec_attn[c.kernel],
+            "path": "seamless encode, prefill and decode, sfc_cuda + sfc",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            **({"kernel": "decode_split_kernel", "splits": row["splits"]} if c.decode else
+               {"kernel": row["kernel"], "config": row["config"]}),
+            "shape": c.shape(),
         })
     missing = [k["name"] for k in kernels if k["launches"] == 0 and k.get("main_path", True)]
     if missing:

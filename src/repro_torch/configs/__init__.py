@@ -10,13 +10,15 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES
 
 __all__ = ["ARCH_IDS", "ALIASES", "get_config", "all_configs", "ArchConfig", "ShapeConfig", "SHAPES"]
 
-# the configs the port serves: two dense, one MoE, one hybrid; the JAX
-# package has more families
+# the configs the port serves: two dense, one MoE, one hybrid, one xLSTM
+# and one encoder-decoder; the JAX package has more
 ARCH_IDS = [
     "qwen3_4b",
     "yi_6b",
     "olmoe_1b_7b",
     "zamba2_1_2b",
+    "xlstm_1_3b",
+    "seamless_m4t_medium",
 ]
 
 # hyphenated aliases (CLI --arch accepts both)

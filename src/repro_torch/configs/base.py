@@ -55,9 +55,9 @@ class ArchConfig:
     is_encoder_decoder: bool = False
     frontend: Optional[str] = None  # "audio" | "vision" (STUB embeddings)
 
-    # attention implementation: "blockwise" (plain online softmax, the
-    # port's only one so far); "flash_pallas" and "sfc" name the JAX
-    # package's attention kernels, which the port does not have yet
+    # attention implementation: "blockwise" (plain online softmax),
+    # "sfc" (the SFC flash forward K11 and decode K14) or "flash_pallas"
+    # (the dense flash forward K15)
     attn_impl: str = "blockwise"
     q_chunk: int = 512
     k_chunk: int = 1024

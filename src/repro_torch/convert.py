@@ -4,8 +4,12 @@ the port's, and the port's parameters back to the JAX tree layout.
 The JAX trees stack repeated layers on leading axes; the port writes each
 slice out under its index: ``layers`` (the decoder's, on one axis) becomes
 ``layers.{i}.*``; the hybrid family's ``groups`` (on (G, E)) becomes
-``groups.{g}.{e}.*`` and its ``tail`` (on one axis) ``tail.{i}.*``.  Every
-other leaf carries over with ``.`` joining the keys."""
+``groups.{g}.{e}.*`` and its ``tail`` (on one axis) ``tail.{i}.*``; the
+xLSTM family's ``mlstm`` (on (G, slstm_every - 1)) ``mlstm.{g}.{m}.*`` and
+its ``slstm`` (on G) ``slstm.{g}.*``; the encoder-decoder's ``encoder``
+and ``decoder`` (each on its layers) ``encoder.{i}.*`` and
+``decoder.{i}.*``.  Every other leaf carries over with ``.`` joining the
+keys."""
 
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import torch_dtype
 
 # the JAX trees' stacked subtrees and their stacked axes
-_STACKED = {"layers": 1, "groups": 2, "tail": 1}
+_STACKED = {"layers": 1, "groups": 2, "tail": 1, "mlstm": 2, "slstm": 1, "encoder": 1, "decoder": 1}
 
 __all__ = ["params_from_jax", "params_to_jax", "opt_state_from_jax", "jax_leaf_path"]
 
@@ -48,8 +52,13 @@ def _stacked(name: str):
 
 def _stack_shape(head: str, cfg: ArchConfig) -> tuple:
     """The leading (stacked) axes of subtree ``head`` under ``cfg``."""
-    if head == "layers":
+    if head in ("layers", "decoder"):
         return (cfg.n_layers,)
+    if head == "encoder":
+        return (cfg.encoder_layers,)
+    if head in ("mlstm", "slstm"):
+        groups = cfg.n_layers // cfg.slstm_every
+        return (groups, cfg.slstm_every - 1) if head == "mlstm" else (groups,)
     groups = cfg.n_layers // cfg.attn_every
     return (groups, cfg.attn_every) if head == "groups" else (cfg.n_layers - groups * cfg.attn_every,)
 
@@ -60,8 +69,10 @@ def jax_leaf_path(name: str):
     it: ``layers.{i}.attn.wq`` is row ``i`` of ``layers/attn/wq`` (layer
     ``i``), ``groups.{g}.{e}.mixer.in_proj`` the (g, e) slice of
     ``groups/mixer/in_proj`` (layer ``(g, e)``), ``tail.{i}.*`` row ``i``
-    of ``tail/*``; any other name its keys joined by "/" with layer None
-    (the inverse of `params_from_jax`'s name map)."""
+    of ``tail/*``, and so ``mlstm.{g}.{m}.*``, ``slstm.{g}.*``,
+    ``encoder.{i}.*`` and ``decoder.{i}.*``; any other name its keys
+    joined by "/" with layer None (the inverse of `params_from_jax`'s name
+    map)."""
     st = _stacked(name)
     if st is None:
         return name.replace(".", "/"), None
@@ -78,12 +89,14 @@ def params_from_jax(
     device: Union[str, torch.device],
     dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, torch.Tensor]:
-    """A ``DecoderLM`` or ``HybridLM`` state dict from the JAX parameter
-    tree.
+    """A ``DecoderLM``, ``HybridLM``, ``XLSTMLM`` or ``EncDecLM`` state
+    dict from the JAX parameter tree.
 
     ``tree`` is the JAX model's ``init`` output with every leaf turned into
     a numpy array.  Its stacked subtrees (``layers``; the hybrid's
-    ``groups`` and ``tail``) are written out slice by slice (the module
+    ``groups`` and ``tail``; the xLSTM's ``mlstm`` and ``slstm``; the
+    encoder-decoder's ``encoder`` and ``decoder``) are written out slice
+    by slice (the module
     docstring), the other names carry over with ``.`` joining the keys, as
     ``nn.Module`` names them.  ``dtype`` defaults to the config's
     ``param_dtype``; the Mamba2 mixers' ``A_log``, ``D`` and ``dt_bias``
@@ -112,9 +125,8 @@ def params_from_jax(
 
 def params_to_jax(params: Mapping[str, torch.Tensor], cfg: ArchConfig) -> Dict[str, Any]:
     """The inverse name map of `params_from_jax`: the port's parameters as
-    f32 numpy arrays in the JAX tree layout (``layers.{i}.*``,
-    ``groups.{g}.{e}.*`` and ``tail.{i}.*`` stacked on their leading axes,
-    dotted names nested)."""
+    f32 numpy arrays in the JAX tree layout (every stacked subtree of the
+    module docstring stacked on its leading axes, dotted names nested)."""
     tree: Dict[str, Any] = {}
 
     def put(name: str, arr: np.ndarray) -> None:

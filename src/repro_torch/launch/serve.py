@@ -39,6 +39,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:
+        raise SystemExit("an encoder-decoder is not served by the engine: drive EncDecLM.prefill and decode_step")
 
     model = build_model(cfg, device=args.device)
     model.init(torch.Generator(device=model.embed.device).manual_seed(args.seed))

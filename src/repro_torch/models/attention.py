@@ -1,5 +1,5 @@
-"""GQA attention block with RoPE, qk-norm, optional qkv bias and a KV-cache
-decode (the port's ``repro.models.attention``, dense-decoder half).
+"""GQA attention block with RoPE, qk-norm, optional qkv bias, a KV-cache
+decode and cross-attention (the port's ``repro.models.attention``).
 
 `Attention` holds the parameters; the prefill/decode math is in plain
 functions that take it, as the JAX package's functions take its parameter
@@ -27,7 +27,15 @@ from repro_torch.models.layers import (
     rmsnorm,
 )
 
-__all__ = ["Attention", "attention_forward", "attention_prefill", "attention_decode"]
+__all__ = [
+    "Attention",
+    "attention_forward",
+    "attention_prefill",
+    "attention_decode",
+    "cross_attention_forward",
+    "cross_attention_decode",
+    "precompute_cross_kv",
+]
 
 
 def _attend(q, k, v, *, causal: bool, q_chunk: int, k_chunk: int, attn_impl: str) -> torch.Tensor:
@@ -205,3 +213,66 @@ def attention_decode(
     valid = torch.full((b,), index + 1, dtype=torch.int32, device=x.device)
     o = _attend_cached(q, ck, cv, valid, attn_impl=attn_impl)
     return _bmm(o.reshape(b, 1, -1), p.wo), cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (enc-dec; the seamless-m4t decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_forward(
+    p: Attention,
+    x: torch.Tensor,  # (B, S_dec, d) decoder side
+    memory: torch.Tensor,  # (B, S_enc, d) encoder output
+    *,
+    n_heads: int,
+    kv_heads: int,
+    q_chunk: int = 512,
+    k_chunk: int = 512,
+    attn_impl: str = "blockwise",
+) -> torch.Tensor:
+    """Attention of the decoder's rows over the encoder memory: no mask, no
+    rotary embedding, no qkv bias (as in the JAX package); the projections
+    through the GEMM backend."""
+    b, s, _ = x.shape
+    t = memory.shape[1]
+    q = _bmm(x, p.wq).reshape(b, s, n_heads, -1)
+    k = _bmm(memory, p.wk).reshape(b, t, kv_heads, -1)
+    v = _bmm(memory, p.wv).reshape(b, t, kv_heads, -1)
+    if p.q_norm is not None:
+        q = rmsnorm(q, p.q_norm.scale)
+        k = rmsnorm(k, p.k_norm.scale)
+    o = _attend(q, k, v, causal=False, q_chunk=q_chunk, k_chunk=k_chunk, attn_impl=attn_impl)
+    return _bmm(o.reshape(b, s, -1), p.wo)
+
+
+def cross_attention_decode(
+    p: Attention,
+    x: torch.Tensor,  # (B, 1, d)
+    mem_kv: Dict[str, torch.Tensor],  # `precompute_cross_kv` of the encoder memory
+    mem_len: int,
+    *,
+    n_heads: int,
+    kv_heads: int,
+    attn_impl: str = "blockwise",
+) -> torch.Tensor:
+    """One decoder token over the precomputed memory k/v, the first
+    ``mem_len`` rows of each valid."""
+    del kv_heads  # the memory's k/v carry their heads
+    b = x.shape[0]
+    q = _bmm(x, p.wq).reshape(b, 1, n_heads, -1)
+    if p.q_norm is not None:
+        q = rmsnorm(q, p.q_norm.scale)
+    valid = torch.full((b,), int(mem_len), dtype=torch.int32, device=x.device)
+    o = _attend_cached(q, mem_kv["k"], mem_kv["v"], valid, attn_impl=attn_impl)
+    return _bmm(o.reshape(b, 1, -1), p.wo)
+
+
+def precompute_cross_kv(p: Attention, memory: torch.Tensor, *, kv_heads: int) -> Dict[str, torch.Tensor]:
+    """The memory's k and v (B, S_enc, Hkv, D) that each decode step reads."""
+    b, t, _ = memory.shape
+    k = _bmm(memory, p.wk).reshape(b, t, kv_heads, -1)
+    v = _bmm(memory, p.wv).reshape(b, t, kv_heads, -1)
+    if p.k_norm is not None:
+        k = rmsnorm(k, p.k_norm.scale)
+    return {"k": k, "v": v}

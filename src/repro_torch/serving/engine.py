@@ -67,11 +67,14 @@ class Request:
 
 
 class ServingEngine:
-    """Single-host batched serving of any model `build_model` returns (the
-    dense and MoE decoders, the hybrid) with its cache: equal-length prompt
-    grouping, greedy sampling, per-request latency accounting.  The engine
-    reads only the cache's ``index``; the model updates the rest in place
-    (the hybrid's SSM states and conv tails as the KV caches)."""
+    """Single-host batched serving of the decoder-only models `build_model`
+    returns (the dense and MoE decoders, the hybrid, the xLSTM) with their
+    cache: equal-length prompt grouping, greedy sampling, per-request
+    latency accounting.  The engine reads nothing of the cache; the model
+    updates it in place (the hybrid's SSM states and conv tails as the KV
+    caches, the xLSTM's recurrent state).  The encoder-decoder family is
+    not served, as in the JAX package: drive ``EncDecLM.prefill`` and
+    ``decode_step``."""
 
     def __init__(
         self,
@@ -95,6 +98,8 @@ class ServingEngine:
         (None or 0: never)."""
         if gemm_backend not in BACKENDS:
             raise ValueError(f"unknown gemm backend {gemm_backend!r}; pick from {BACKENDS}")
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name!r} is an encoder-decoder: drive EncDecLM.prefill and decode_step")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_batch = max_batch

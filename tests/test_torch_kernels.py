@@ -304,6 +304,9 @@ FWD_WGMMA_CASES = {
     "d64_ragged_q_offset": ((1, 77, 150, 6, 2, 64), dict(causal=True, q_offset=50), False),
     "masks_shorter_than_shapes": ((1, 100, 100, 4, 2, 128), dict(causal=True, seq_q=90, seq_k=77), False),
     "non_causal_cross_d64": ((2, 50, 200, 4, 1, 64), dict(causal=False), False),
+    # seamless-m4t-medium's cross-attention: 4 x 128 decoder rows over a
+    # 256-row memory, 16 / 16 heads of 64 (one q head a kv head)
+    "seamless_cross_g1_d64": ((4, 128, 256, 16, 16, 64), dict(causal=False), False),
 }
 
 
@@ -411,7 +414,8 @@ def test_calls_the_fwd_wgmma_rule_refuses_land_on_the_tile_kernel_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "case", ["serve_shape", "strided_cache_with_empty_row", "cache_4096_ragged", "empty_full_and_past_t_g1"])
+    "case", ["serve_shape", "strided_cache_with_empty_row", "cache_4096_ragged", "empty_full_and_past_t_g1",
+             "memory_valid_to_its_end"])
 def test_decode_kernel_matches_plain_version_on_card(dtype, case):
     """The decode kernel (batch x Hkv clusters of S CTAs, one a cache
     segment) against its plain version over the same segments."""
@@ -432,8 +436,11 @@ def test_decode_kernel_matches_plain_version_on_card(dtype, case):
     elif case == "cache_4096_ragged":
         b, t, h, hkv, d, valids = 4, 4096, 32, 8, 128, (1, 1000, 2048, 4096)
         k, v = r(b, t, hkv, d), r(b, t, hkv, d)
-    else:  # olmoe's heads (G = 1); a live length past T is clamped
+    elif case == "empty_full_and_past_t_g1":  # olmoe's heads (G = 1); a live length past T is clamped
         b, t, h, hkv, d, valids = 3, 200, 16, 16, 128, (0, 200, 377)
+        k, v = r(b, t, hkv, d), r(b, t, hkv, d)
+    else:  # seamless's decode over the encoder memory: every row valid, 16 / 16 heads of 64
+        b, t, h, hkv, d, valids = 4, 256, 16, 16, 64, (256,) * 4
         k, v = r(b, t, hkv, d), r(b, t, hkv, d)
     q = r(b, 1, h, d)
     valid = torch.tensor(valids, dtype=torch.int32, device="cuda")
@@ -1952,6 +1959,57 @@ def test_zamba2_cut_prefill_logits_under_sfc_cuda_match_torch_on_card(attn_impl)
         assert bool(torch.isfinite(got.float()).all()) and noise <= cs.ACCURACY_PARITY * ref_noise, i
     for i, (got, ref) in enumerate(zip(outs["sfc_cuda_f32"], outs["torch_f32"])):
         assert _agree(got, ref, torch.bfloat16), i
+
+
+@pytest.mark.cuda
+def test_mlstm_output_product_in_f32_matches_plain_version_on_card():
+    """xlstm-1.3b's mLSTM output product at one 512-step chunk of a 1 x 600
+    prompt, ``chunk_einsum("bljh,bjhp->blhp", att, v)`` with f32 operands
+    under "sfc_cuda": per-batch B (4 heads, M 512, K 512, N 1024) on the
+    64 x 64 tile kernel in f32, within the f32 tolerance of its plain
+    version and of the f32 einsum (no TF32)."""
+    _card()
+    from repro_torch.core.gemm_backend import chunk_einsum, gemm_backend
+
+    cs = _chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    att = torch.randn((1, 512, 512, 4), generator=gen, device="cuda")
+    v = torch.randn((1, 512, 4, 1024), generator=gen, device="cuda")
+    with gemm_backend("sfc_cuda"):
+        got, key = cs.launched(tk.sfc_gemm_fused.launches_by_kernel,
+                               lambda: chunk_einsum("bljh,bjhp->blhp", att, v))
+    torch.cuda.synchronize()
+    assert key == ("sfc_gemm_fused_kernel", 1) and got.dtype == torch.float32 and got.shape == (1, 512, 4, 1024)
+    at, bt = att[0].permute(2, 0, 1), v[0].permute(1, 0, 2)  # (4, 512, 512), (4, 512, 1024)
+    want = tk.sfc_gemm_fused_plain(at, bt, bm=64, bn=64)
+    assert _agree(got[0].permute(1, 0, 2), want, torch.float32)
+    assert _agree(got, torch.einsum("bljh,bjhp->blhp", att, v), torch.float32)
+
+
+# seamless-m4t-medium's MLP input (d_model 1024 -> d_ff 4096, gelu in the
+# flush): (rows, the kernel it takes) at a decode step (4 rows) and the
+# 4 x 128 prefill
+GELU_CASES = {"decode_m4": ((4,), "sfc_gemm_cluster_kernel"), "prefill_4x128": ((4, 128), "sfc_gemm_wgmma_kernel")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GELU_CASES))
+def test_gelu_product_matches_plain_version_on_card(case):
+    """The non-gated gelu product (``activation="gelu"``, the tanh form) at
+    seamless-m4t-medium's widths on the kernel its rows take, within the
+    bf16 bound of the plain version summed as the launch sums."""
+    _card()
+    cs = _chip_smoke()
+    rows, kernel = GELU_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    a = torch.randn((*rows, 1024), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((1024, 4096), generator=gen, device="cuda") * 0.03).bfloat16()
+    got, (name, config) = cs.launched(tk.sfc_gemm_fused.launches_by_kernel,
+                                      lambda: tk.sfc_gemm_fused(a, w, activation="gelu"))
+    torch.cuda.synchronize()
+    assert name == kernel and got.dtype == torch.bfloat16
+    want = tk.sfc_gemm_fused_plain(a, w, bm=64, bn=64, activation="gelu", k_layers=cs.plain_layers(name, config))
+    assert _agree(got, want, torch.bfloat16)
 
 
 NT_WGMMA_CASES = {  # (M, K (the output's cols), N (the contraction), dual)

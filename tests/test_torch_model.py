@@ -157,17 +157,19 @@ def test_unported_model_options_raise():
     # families are not
     with pytest.raises(NotImplementedError, match="item 12"):
         build_model(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_model(dataclasses.replace(cfg, family="ssm"), device="cpu")
     moe = build_model(dataclasses.replace(cfg, family="moe", n_experts=4, moe_top_k=2), device="cpu")
     assert tuple(moe.layers[0].moe.w_in.shape) == (4, cfg.d_model, cfg.d_ff)
-    # the hybrid family is ported (tests/test_torch_hybrid.py); the xLSTM
-    # ("ssm"), audio and VLM families are not
+    # the hybrid, xLSTM ("ssm") and audio families are ported
+    # (tests/test_torch_hybrid.py, test_torch_xlstm.py, test_torch_encdec.py);
+    # the VLM family is not, and a dense config is no xLSTM
     hybrid = build_model(get_config("zamba2_1_2b").reduced(), device="cpu")
     assert type(hybrid).__name__ == "HybridLM" and len(hybrid.groups) == 2
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            build_model(dataclasses.replace(cfg, family=family), device="cpu")
+    assert type(build_model(get_config("xlstm_1_3b").reduced(), device="cpu")).__name__ == "XLSTMLM"
+    assert type(build_model(get_config("seamless_m4t_medium").reduced(), device="cpu")).__name__ == "EncDecLM"
+    with pytest.raises(ValueError, match="XLSTMLM needs"):
+        build_model(dataclasses.replace(cfg, family="ssm"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build_model(dataclasses.replace(cfg, family="vlm"), device="cpu")
 
 
 def test_build_model_without_device_raises_where_cuda_is_absent(monkeypatch):
