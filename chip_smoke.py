@@ -7,7 +7,7 @@ Builds the port's hand-written CUDA kernels from the sources in this
 checkout (src/repro_torch/kernels/csrc: the GEMM library with its forward
 and backward parts and the attention library with its forward, decode and
 backward parts and the ABFT checksum lanes' parts, all compiled at once),
-then runs twelve phases, each printing one JSON line (phases 2 and 6 two,
+then runs fifteen phases, each printing one JSON line (phases 2 and 6 two,
 phase 3 three) and raising on failure:
 
 1. device     the card's name and power limit (nvidia-smi) and the build time;
@@ -85,7 +85,16 @@ phase 3 three) and raising on failure:
               decoder's 4 x 128 prompt), K11 non-causal at (4, 256, 256)
               and (4, 128, 256) and causal at (4, 128, 128) with 16 / 16
               heads of 64 (W 1), K14 over the 256-row memory (every row
-              valid) and over the decoder's cache;
+              valid) and over the decoder's cache; the last configs'
+              rows: K1 at qwen2-72b's decode (M 4: q / o, k, v, the GLU
+              of 2 x 29568, w_out over K 29568 and the 2.49 GB LM head of
+              8192 x 152064) and K2 at its 4 x 128 prefill, the same at
+              stablelm-1.6b's widths (d_model 2048, a GLU of 5632, vocab
+              100352), K3 at qwen3-moe-30b-a3b's 128 experts (32 rows an
+              expert at decode, 40 at the prefill; the GLU of 2 x 768 and
+              w_out), K11 at (4, 128, 128) and K14 over the serve's cache
+              with 64 / 8 heads of 128 and 32 / 32 heads of 64, each row's
+              operands built alone;
               the ABFT checksum lanes ("abft_lanes" line): K1/K2 at every
               K1/K2 shape above and the ragged all-flags case, K3 at
               olmoe's decode, prefill and training shapes and both ragged
@@ -239,7 +248,40 @@ phase 3 three) and raising on failure:
               cluster kernel and 24 K14 a decode step; the f32 prefill
               logits within the bf16 bound of torch's, the bf16 ones at
               accuracy parity; encode time, TTFT, the p50 gap, tokens/s;
-12. the {"kernels": [...]} line: per kernel and shape, launches in the run
+12. vlm      qwen2-vl-72b at full width (d_model 8192, 64 / 8 heads of
+              128, qkv bias, a GLU of 29568, vocab 152064, M-RoPE sections
+              (16, 24, 24), theta 1e6) cut to 16 of its 80 layers (bf16,
+              seeded weights, 16.5 B parameters; all 80 would be 145 GB):
+              ServingEngine serves 4 x 128 + 16 as text under sfc_cuda with
+              "sfc" and blockwise attention and under torch; the M-RoPE
+              path (DecoderLM.prefill with 64 stub patch embeddings on an
+              8 x 8 grid, positions (0, row, column) and the text's from 8
+              on all three axes, then 16 greedy decode_steps at explicit
+              (3, B, 1) positions) under sfc_cuda + "sfc" and torch;
+              qwen2-72b served on the same weights under sfc_cuda + "sfc"
+              and torch, its tokens and prefill logits bitwise the VLM's
+              text-only serve's; exactly 6 K1/K2 a layer a forward and the
+              head (the prefill's on the wgmma kernel, the rest on the
+              cluster kernel), 16 K11 a prefill and 16 K14 a decode step
+              under "sfc"; a 2-layer cut with the vision rows and M-RoPE:
+              f32 prefill logits within the bf16 bound of torch's, bf16 at
+              accuracy parity; peak memory, TTFT, the p50 gap, tokens/s and
+              a profiled decode step;
+13. moe128   qwen3-moe-30b-a3b at full width and depth (48 layers,
+              d_model 2048, 32 / 4 heads of 128, qk-norm, 128 experts of
+              768, top-8, bf16, seeded weights): 4 x 128 + 16 under
+              sfc_cuda + "sfc" and torch, exactly 2 K3 a layer a forward
+              (on the grouped wgmma kernel), 5 K1/K2 a layer and the head,
+              48 K11 a prefill and 48 K14 a step; where the greedy tokens
+              part from torch's, the routing at that step; the bf16 model
+              freed, a 4-layer f32 cut's prefill logits within the bf16
+              bound of torch's (its K3 on the tile kernel);
+14. stablelm stablelm-1.6b at full width and depth (24 layers, LayerNorm,
+              25% rotary, 32 / 32 heads of 64, bf16, seeded weights): 4 x
+              128 + 16 under sfc_cuda with "sfc" and blockwise attention
+              and under torch, exact launches; f32 prefill logits at full
+              depth within the bf16 bound of torch's, bf16 at parity;
+15. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound (K1/K2 and K4/K5 rows: the kernel
               launched and its K layers, L' or tile; K11 / K15 rows: the
@@ -331,6 +373,21 @@ XLSTM_CHECK_LAYERS = 8
 # decoded greedily
 ENCDEC_ARCH = "seamless_m4t_medium"
 ENCDEC_FRAMES = 256
+
+# qwen2-vl-72b and qwen2-72b (one tree: the VLM slice): full width cut to
+# VLM_LAYERS of their 80 layers (bf16, 16.5 B parameters, 33.1 GB; all 80
+# would be 145 GB, more than the card holds); the M-RoPE path's stub image
+# of VLM_GRID patches on the leading rows; its f32 check on a cut to
+# VLM_CHECK_LAYERS layers
+VLM_ARCH, DENSE72_ARCH = "qwen2_vl_72b", "qwen2_72b"
+VLM_LAYERS, VLM_CHECK_LAYERS = 16, 2
+VLM_GRID = (8, 8)
+# qwen3-moe-30b-a3b: full width and depth (30.5 B parameters, 61.1 GB in
+# bf16); its f32 check on a cut to MOE128_CHECK_LAYERS layers
+MOE128_ARCH = "qwen3_moe_30b_a3b"
+MOE128_LAYERS, MOE128_CHECK_LAYERS = 48, 4
+# stablelm-1.6b: full width and depth, its f32 check too
+STABLELM_ARCH = "stablelm_1_6b"
 
 
 def emit(obj) -> None:
@@ -1895,12 +1952,12 @@ def _grouped_operands(torch, gm, dtype, gen, rows=None):
     return (a, dc, dc2), {}, lib
 
 
-def phase_grouped_gemms(torch, gemms, tk):
-    """K3, K9 and K10 against their plain versions at every olmoe shape
+def phase_grouped_gemms(torch, gemms, tk, ragged=True):
+    """K3, K9 and K10 against their plain versions at every given shape
     (bf16), timed beside their bound and one torch.bmm of the same product;
-    then each on the ragged expert sizes RAGGED_GROUPS (one expert empty)
-    and RAGGED_GROUPS_LONG (one over a 128-row tile) at olmoe's widths, in
-    f32 and bf16.  Every row names the CUDA kernel and tile it launched:
+    with ``ragged`` then each on the ragged expert sizes RAGGED_GROUPS (one
+    expert empty) and RAGGED_GROUPS_LONG (one over a 128-row tile) at the
+    first shape's widths, in f32 and bf16.  Every row names the CUDA kernel and tile it launched:
     bf16 on the grouped wgmma kernels, f32 on the 64 x 64 tile kernels."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     dt = torch.bfloat16
@@ -1938,6 +1995,8 @@ def phase_grouped_gemms(torch, gemms, tk):
                          bound_ms=bound_ms, bound_by=bound_by, kernel=name, config=config))
         del ins, args
         torch.cuda.empty_cache()
+    if not ragged:
+        return rows, checks
     # the ragged checks: the olmoe widths, four experts, one of them empty
     d, f = gemms[0].k, gemms[0].n
     e = len(RAGGED_GROUPS)
@@ -2135,9 +2194,9 @@ def phase_grouped_update_gemms(torch, cfg, tk, opt):
     return rows, checks
 
 
-def moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, top_k):
-    """Why the bf16 sfc_cuda serve's greedy tokens leave the torch
-    backend's.  Both engines replay the serve (the same prompts, then
+def moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, top_k, sfc="sfc_cuda"):
+    """Why the bf16 sfc_cuda serve's greedy tokens (the run named ``sfc``)
+    leave the torch backend's.  Both engines replay the serve (the same prompts, then
     decode steps fed the torch run's tokens, which both runs chose up to
     each request's first divergent token) with every MoE layer's routing
     recorded.  For each request that diverged, at the step that produced
@@ -2160,8 +2219,8 @@ def moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, top_k):
         seen.append((r.probs.float(), r.flat_e.reshape(g, tg, top_k)))
         return r
 
-    first = {i: int(np.nonzero(tokens_of["sfc_cuda"][i] != tokens_of["torch"][i])[0][0])
-             for i in range(len(prompts)) if (tokens_of["sfc_cuda"][i] != tokens_of["torch"][i]).any()}
+    first = {i: int(np.nonzero(tokens_of[sfc][i] != tokens_of["torch"][i])[0][0])
+             for i in range(len(prompts)) if (tokens_of[sfc][i] != tokens_of["torch"][i]).any()}
     if not first:
         return {"diverged_requests": 0}
     steps = max(first.values())
@@ -2170,7 +2229,7 @@ def moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, top_k):
     rec = {}  # name -> [(routing of each layer, logits)] for step 0 (prefill) .. steps
     moe_mod.route = recording
     try:
-        for name in ("sfc_cuda", "torch"):
+        for name in (sfc, "torch"):
             eng, rec[name] = engines[name], []
             seen.clear()
             logits, cache = eng._prefill(torch.from_numpy(np.stack(prompts)).long().to(dev))
@@ -2183,7 +2242,7 @@ def moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, top_k):
         moe_mod.route = route
     out = {"diverged_requests": len(first), "requests": []}
     for i, j in sorted(first.items()):
-        layers_s, logits_t = rec["sfc_cuda"][j][0], rec["torch"][j][1]
+        layers_s, logits_t = rec[sfc][j][0], rec["torch"][j][1]
         layers_t = rec["torch"][j][0]
         differ, gaps, margins, prob_diff = [], [], [], 0.0
         for layer, ((ps, es), (pt, et)) in enumerate(zip(layers_s, layers_t)):
@@ -2197,7 +2256,7 @@ def moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, top_k):
                 gaps.append(float(max(pt[e] for e in chose_t - chose_s) - min(pt[e] for e in chose_s - chose_t)))
         upto, total = 0, 0
         for k in range(j + 1):
-            for (ps, es), (pt, et) in zip(rec["sfc_cuda"][k][0], rec["torch"][k][0]):
+            for (ps, es), (pt, et) in zip(rec[sfc][k][0], rec["torch"][k][0]):
                 a, b = torch.sort(es[i], dim=-1).values, torch.sort(et[i], dim=-1).values
                 upto += int((a != b).any(dim=-1).sum())
                 total += a.shape[0]
@@ -3158,6 +3217,470 @@ def phase_encdec(torch, np, cfg, build_model, tk, tsa, gemm_backend, attention_b
 
 
 # ---------------------------------------------------------------------------
+# the last configs: the VLM family (qwen2-vl-72b, M-RoPE with stub vision
+# embeddings) and qwen2-72b on one tree, qwen3-moe-30b-a3b (128 experts,
+# top-8) and stablelm-1.6b (LayerNorm, 25% rotary, MHA of 64)
+# ---------------------------------------------------------------------------
+
+
+def serve_gemms(cfg, label):
+    """The K1/K2 products of a decoder's serve: a decode step's (4 rows,
+    the plain mode), the LM head's, and the 4 x PROMPT prefill's (batched);
+    projections of one shape (q and o, or all four of an MHA of d_model)
+    are one row, named together."""
+    rows = {}
+    for gm in main_path_gemms(cfg):
+        if gm.mode == "train":
+            continue
+        if gm.key in rows:
+            rows[gm.key] = dataclasses.replace(rows[gm.key], name=f"{rows[gm.key].name},{gm.name.split('/')[-1]}")
+        else:
+            rows[gm.key] = dataclasses.replace(gm, name=f"{label}/{gm.name}")
+    return list(rows.values())
+
+
+def last_attention_cases(cfg, label):
+    """K11 at the serve's 4 x PROMPT prefill and K14 over its cache (live
+    lengths of the middle decode step) with ``cfg``'s heads."""
+    heads = dict(h=cfg.n_heads, hkv=cfg.kv_heads, d=cfg.head_dim_, path=label)
+    return [Attn(f"{label}/prefill", "sfc_flash_fwd", BATCH, PROMPT, PROMPT, **heads),
+            Attn(f"{label}/decode", "sfc_decode_attention", BATCH, 1, PROMPT + NEW_TOKENS + 1,
+                 valid=(129, 134, 139, 144), **heads)]
+
+
+def moe128_grouped_gemms(cfg):
+    """K3 at qwen3-moe-30b-a3b's serve (128 experts of 768, d_model 2048):
+    the decode step's 32 rows an expert and the 4 x PROMPT prefill's 40,
+    the GLU (silu in the flush) and w_out."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    out = []
+    for label, rows in (("decode", moe_rows(cfg, BATCH, 1)), ("prefill", moe_rows(cfg, BATCH, PROMPT))):
+        out += [GroupedGemm(f"qwen3-moe/{label}/glu", "fwd", "qwen3-moe serve", e, rows, d, f, glu=True),
+                GroupedGemm(f"qwen3-moe/{label}/w_out", "fwd", "qwen3-moe serve", e, rows, f, d)]
+    return out
+
+
+def _reset_serve_counts(tk, tsa):
+    _reset_gemm_counts(tk)
+    for fn in (tk.sfc_gemm_grouped, tsa.sfc_flash_fwd, tsa.sfc_decode_attention):
+        fn.launches = 0
+        for attr in ("launches_by_shape", "launches_by_kernel", "launches_by_splits"):
+            if hasattr(fn, attr):
+                getattr(fn, attr).clear()
+
+
+def _serve_counts(tk, tsa) -> dict:
+    return {"K1/K2": tk.sfc_gemm_fused.launches, "by_kernel": by_kernel(tk.sfc_gemm_fused.launches_by_kernel),
+            "K3": tk.sfc_gemm_grouped.launches, "K3_by_kernel": by_kernel(tk.sfc_gemm_grouped.launches_by_kernel),
+            "K11": tsa.sfc_flash_fwd.launches,
+            "K11_by_kernel": {f"{k}@W{w}": n for (k, w), n in tsa.sfc_flash_fwd.launches_by_kernel.items()},
+            "K14": tsa.sfc_decode_attention.launches}
+
+
+def decoder_want(cfg, variant, w, steps=NEW_TOKENS - 1) -> dict:
+    """The launches of one BATCH x PROMPT prefill and ``steps`` decode
+    steps of a DecoderLM under ``variant`` (gemm backend, attn_impl),
+    reckoned from the structure (tests/test_torch_vlm.py and
+    test_torch_configs.py count them at the call sites): a forward 6 K1/K2
+    a dense layer (q, k, v, o, the GLU, w_out) or 5 a MoE layer (q, k, v,
+    o, the router) and 2 K3 (the experts' GLU and w_out), and the head;
+    the prefill's layers on the wgmma kernel, every 4-row product (the
+    decode steps, the prefill's head) on the cluster kernel; under "sfc"
+    one K11 (at W ``w``) a layer a prefill and one K14 a layer a step;
+    none under torch."""
+    gemm, impl = variant
+    if gemm == "torch":
+        return {"K1/K2": 0, "by_kernel": {}, "K3": 0, "K3_by_kernel": {}, "K11": 0, "K11_by_kernel": {}, "K14": 0}
+    n = cfg.n_layers
+    dense = (5 if cfg.n_experts else 6) * n
+    fwd = dense + 1
+    k3 = 2 * n * (1 + steps) if cfg.n_experts else 0
+    attn = impl == "sfc"
+    return {"K1/K2": fwd * (1 + steps),
+            "by_kernel": {"sfc_gemm_wgmma_kernel": dense, "sfc_gemm_cluster_kernel": fwd * (1 + steps) - dense},
+            "K3": k3, "K3_by_kernel": {"sfc_gemm_grouped_wgmma_kernel": k3} if k3 else {},
+            "K11": n if attn else 0, "K11_by_kernel": {f"flash_fwd_wgmma_kernel@W{w}": n} if attn else {},
+            "K14": n * steps if attn else 0}
+
+
+# a decode step's device time by group (first matching fragment wins: the
+# grouped kernels before the dense ones, the SFC kernels before cuBLAS's)
+_DECODER_KERNEL_GROUPS = (("sfc_gemm_grouped_wgmma_kernel", "K3 wgmma"), ("sfc_gemm_grouped_kernel", "K3"),
+                          *_HYBRID_KERNEL_GROUPS)
+
+
+def serve_runs(torch, np, cfg, params, ServingEngine, tk, tsa, variants, prompts, label):
+    """ServingEngine serves ``prompts`` x NEW_TOKENS on ``params`` under
+    each of ``variants`` ({name: (gemm backend, attn_impl)}), after a
+    warm-up.  Returns (engines, launches by run, K1/K2 and K3 launches by
+    shape by run, latency by run, greedy tokens by run)."""
+    engines = {name: ServingEngine(dataclasses.replace(cfg, attn_impl=impl), params, max_batch=BATCH,
+                                   max_seq=PROMPT + NEW_TOKENS + 1, gemm_backend=gemm, device="cuda")
+               for name, (gemm, impl) in variants.items()}
+    for eng in engines.values():  # warm-up: first launches, allocator, task tables, cuBLAS handles
+        eng.run(eng.submit_many(prompts[:1], max_new_tokens=2))
+    torch.cuda.synchronize()
+    counts, by_shape, reports, tokens_of = {}, {}, {}, {}
+    for name, eng in engines.items():
+        _reset_serve_counts(tk, tsa)
+        done = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
+        torch.cuda.synchronize()
+        counts[name] = _serve_counts(tk, tsa)
+        by_shape[name] = {"K1/K2": dict(tk.sfc_gemm_fused.launches_by_shape),
+                          "K3": dict(tk.sfc_gemm_grouped.launches_by_shape)}
+        for r in done:
+            if r.status != "completed" or len(r.output) != NEW_TOKENS or not all(0 <= t < cfg.vocab for t in r.output):
+                raise AssertionError(f"{label} {name}: request {r.uid} ended {r.status} with "
+                                     f"{len(r.output or [])} tokens")
+        rep = eng.latency_report(done)
+        reports[name] = {key: rep[key] for key in ("ttft_mean_s", "ttft_p50_s", "token_p50_s", "tokens_per_s",
+                                                   "latency_mean_s")}
+        tokens_of[name] = np.array([r.output for r in done])
+    return engines, counts, by_shape, reports, tokens_of
+
+
+def _cut(params, layers):
+    """The tensors of a cut to the first ``layers`` layers (shared, not copied)."""
+    return {k: v for k, v in params.items() if not k.startswith("layers.") or int(k.split(".")[1]) < layers}
+
+
+def _agreement(torch, logits, sfc):
+    """The f32 logits of each ``sfc`` run within the bf16 bound of the
+    torch run's, and each bf16 run's mean |error| against the f32 torch
+    run beside torch's own (accuracy parity)."""
+    ref = logits["torch_f32"]
+    f32_agree = {name: dict(zip(("ok", "max_abs_err", "err_over_bound"),
+                                within(logits[name + "_f32"], ref, torch.bfloat16))) for name in sfc}
+    noise = {name: float((logits[name] - ref).abs().mean()) for name in (*sfc, "torch")}
+    parity = {name: noise[name] <= ACCURACY_PARITY * noise["torch"] for name in sfc}
+    return f32_agree, noise, parity
+
+
+def vlm_positions(torch, b, s, grid):
+    """Qwen2-VL's (3, B, S) positions of a stub image of ``grid`` patches on
+    the leading positions: (0, row, column) for patch i, then the text's
+    running index on all three axes from the grid's largest index plus
+    one; and the next text position, where decoding continues."""
+    rows, cols = grid
+    n_img = rows * cols
+    i = torch.arange(n_img)
+    img = torch.stack([torch.zeros_like(i), i // cols, i % cols])
+    start = max(rows, cols)
+    txt = torch.arange(start, start + s - n_img)[None].expand(3, -1)
+    pos = torch.cat([img, txt], dim=1)[:, None].expand(3, b, s).contiguous()
+    return pos.cuda(), start + s - n_img
+
+
+def phase_vlm_serve(torch, np, cfg, dense_cfg, build_model, ServingEngine, tk, tsa, ops, gemm_backend):
+    """qwen2-vl-72b at full width (d_model 8192, 64 / 8 heads of 128, qkv
+    bias, a GLU of 29568, vocab 152064, M-RoPE sections (16, 24, 24), theta
+    1e6) cut to VLM_LAYERS of its 80 layers (bf16, seeded weights: all 80
+    would be 145 GB, more than the card holds).  ServingEngine serves 4 x
+    PROMPT + NEW_TOKENS as text (no M-RoPE positions, as the JAX engine)
+    under sfc_cuda with "sfc" and blockwise attention and under torch.  The
+    M-RoPE path: `DecoderLM.prefill` of the same prompts with VLM_GRID stub
+    patch embeddings (a seeded generator) on the leading rows and
+    Qwen2-VL's grid positions, then NEW_TOKENS greedy `decode_step`s at
+    explicit (3, B, 1) positions continuing the text's, under sfc_cuda +
+    "sfc" and torch.  qwen2-72b (the same tree) served on the same weights
+    under sfc_cuda + "sfc" and torch: its tokens and prefill logits bitwise
+    the VLM's text-only serve's (M-RoPE with equal axes is RoPE).  Launch
+    counts exact (`decoder_want`).  A VLM_CHECK_LAYERS-layer cut with the
+    vision rows and M-RoPE: its f32 prefill logits under each sfc_cuda
+    variant within the bf16 bound of torch's, its bf16 ones at accuracy
+    parity.  Returns (summary, launches by shape of the sfc_cuda + "sfc"
+    text serve, its launch counts)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cut = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
+    model = build_model(cut, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = model.state_dict()
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cut.vocab, size=PROMPT).astype(np.int32) for _ in range(BATCH)]
+    variants = {"sfc_cuda+sfc_attn": ("sfc_cuda", "sfc"), "sfc_cuda": ("sfc_cuda", "blockwise"),
+                "torch": ("torch", "blockwise")}
+    engines, counts, by_shape, reports, tokens_of = serve_runs(torch, np, cut, params, ServingEngine, tk, tsa,
+                                                               variants, prompts, "qwen2-vl-72b")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w = tsa.fwd_wgmma_grid(BATCH, PROMPT, PROMPT, cut.n_heads, cut.kv_heads, sms)[1]
+    expected = {name: decoder_want(cut, v, w) for name, v in variants.items()}
+    tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
+    logits = {name: eng._prefill(tokens)[0].float() for name, eng in engines.items()}
+
+    # the M-RoPE path: the stub image's rows and grid positions
+    n_img = VLM_GRID[0] * VLM_GRID[1]
+    vision = torch.randn((BATCH, n_img, cut.d_model), generator=torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda") * 0.02
+    mpos, next_pos = vlm_positions(torch, BATCH, PROMPT, VLM_GRID)
+    mrope = {}
+    for name in ("sfc_cuda+sfc_attn", "torch"):
+        m = engines[name].model
+        _reset_serve_counts(tk, tsa)
+        with gemm_backend(variants[name][0]):
+            start = time.perf_counter()
+            lg, cache = m.prefill(tokens, cache_len=PROMPT + NEW_TOKENS + 1, mrope_positions=mpos,
+                                  vision_embeds=vision)
+            logits[f"{name}@mrope"] = lg.float()
+            tok = lg.argmax(-1)[:, None]
+            out, stamps = [tok[:, 0].tolist()], [time.perf_counter()]
+            for step in range(NEW_TOKENS):
+                pos = torch.full((3, BATCH, 1), next_pos + step, dtype=torch.long, device="cuda")
+                lg, cache = m.decode_step(tok, cache, mrope_positions=pos)
+                tok = lg.argmax(-1)[:, None]
+                out.append(tok[:, 0].tolist())
+                stamps.append(time.perf_counter())
+        torch.cuda.synchronize()
+        counts[f"{name}@mrope"] = _serve_counts(tk, tsa)
+        expected[f"{name}@mrope"] = decoder_want(cut, variants[name], w, steps=NEW_TOKENS)
+        toks = np.array(out).T
+        mrope[name] = {"tokens": toks, "ttft_s": stamps[0] - start, "token_p50_s": float(np.median(np.diff(stamps))),
+                       "tokens_per_s": toks.size / (stamps[-1] - start)}
+        del cache
+    mrope_moves = {name: float((logits[f"{name}@mrope"] - logits[name]).abs().max()) for name in mrope}
+
+    # qwen2-72b on the same weights: the VLM's text-only serve, bitwise
+    dense_cut = dataclasses.replace(dense_cfg, n_layers=VLM_LAYERS)
+    dense_variants = {f"qwen2-72b:{name}": variants[name] for name in ("sfc_cuda+sfc_attn", "torch")}
+    d_engines, d_counts, _, d_reports, d_tokens = serve_runs(torch, np, dense_cut, params, ServingEngine, tk, tsa,
+                                                             dense_variants, prompts, "qwen2-72b")
+    counts.update(d_counts)
+    expected.update({name: decoder_want(dense_cut, v, w) for name, v in dense_variants.items()})
+    reports.update(d_reports)
+    bitwise = {}
+    for name, eng in d_engines.items():
+        vlm_name = name.split(":")[1]
+        bitwise[name] = {"tokens": bool((d_tokens[name] == tokens_of[vlm_name]).all()),
+                         "prefill_logits": bool(torch.equal(eng._prefill(tokens)[0].float(), logits[vlm_name]))}
+    decode_profile = profile_decode(torch, engines["sfc_cuda+sfc_attn"], tokens, ops,
+                                    kernel_groups=_DECODER_KERNEL_GROUPS)
+    del d_engines, engines, eng, m
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the f32 check on a VLM_CHECK_LAYERS-layer cut, with the vision rows and M-RoPE
+    check = dataclasses.replace(cfg, n_layers=VLM_CHECK_LAYERS)
+    check_logits = {}
+    for suffix in ("", "_f32"):
+        weights = _cut(params, VLM_CHECK_LAYERS)
+        conf = check
+        if suffix:
+            weights = {k: v.float() for k, v in weights.items()}
+            conf = dataclasses.replace(check, param_dtype="float32")
+        for name, (gemm, impl) in variants.items():
+            eng = ServingEngine(dataclasses.replace(conf, attn_impl=impl), weights, max_batch=BATCH,
+                                max_seq=PROMPT + 1, gemm_backend=gemm, device="cuda")
+            with gemm_backend(gemm):
+                check_logits[name + suffix] = eng.model.prefill(tokens, cache_len=PROMPT + 1, mrope_positions=mpos,
+                                                                vision_embeds=vision)[0].float()
+            del eng
+        del weights
+    sfc = ("sfc_cuda+sfc_attn", "sfc_cuda")
+    f32_agree, noise, parity = _agreement(torch, check_logits, sfc)
+    summary = {
+        "phase": "serve_vlm", "arch": cfg.name, "dense_arch": dense_cfg.name, "layers": VLM_LAYERS,
+        "layers_published": cfg.n_layers, "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.kv_heads],
+        "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff, "vocab": cfg.vocab, "mrope_sections": list(cfg.mrope_sections),
+        "rope_theta": cfg.rope_theta, "qkv_bias": cfg.qkv_bias, "dtype": cfg.param_dtype, "params": n_params,
+        "init_s": init_s, "peak_memory_gb": peak_gb, "requests": [BATCH, PROMPT, NEW_TOKENS],
+        "vision_rows": n_img, "grid": list(VLM_GRID), "text_positions_from": int(mpos[0, 0, n_img]),
+        "launches": counts, "launches_expected": expected,
+        "qwen2_72b_bitwise_vlm_text_serve": bitwise,
+        "mrope_vs_text_only_prefill_max_abs_diff": mrope_moves,
+        "mrope_greedy_token_match": float((mrope["sfc_cuda+sfc_attn"]["tokens"] == mrope["torch"]["tokens"]).mean()),
+        "greedy_token_match": {name: float((tokens_of[name] == tokens_of["torch"]).mean()) for name in sfc},
+        "first_token_match": {name: float((logits[name].argmax(-1) == logits["torch"].argmax(-1)).float().mean())
+                              for name in sfc},
+        "check_cut": {"layers": VLM_CHECK_LAYERS, "f32_vs_torch": f32_agree, "bf16_mean_abs_err_vs_f32": noise,
+                      "parity_ok": parity},
+        "latency": reports,
+        "mrope_latency": {name: {k: v for k, v in run.items() if k != "tokens"} for name, run in mrope.items()},
+        "decode_step_profile": decode_profile,
+    }
+    emit(summary)
+    if counts != expected:
+        raise AssertionError(f"qwen2-vl-72b / qwen2-72b runs launched {counts}, expected {expected}")
+    if not all(all(b.values()) for b in bitwise.values()):
+        raise AssertionError(f"qwen2-72b's serve is not bitwise the VLM's text-only serve: {bitwise}")
+    for name, lg in logits.items():
+        if tuple(lg.shape) != (BATCH, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"qwen2-vl-72b {name}: prefill logits of shape {tuple(lg.shape)} or non-finite")
+    if not all(v > 0 for v in mrope_moves.values()):
+        raise AssertionError(f"the vision rows and M-RoPE positions left the prefill logits as they were: {mrope_moves}")
+    for name in sfc:
+        if not f32_agree[name]["ok"]:
+            raise AssertionError(f"qwen2-vl-72b f32 prefill logits {name} vs torch: {f32_agree[name]}")
+    if not all(parity.values()):
+        raise AssertionError(f"qwen2-vl-72b bf16 logits further from the f32 model than torch's: {noise}")
+    del model, params, logits, check_logits, vision
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, by_shape["sfc_cuda+sfc_attn"], counts["sfc_cuda+sfc_attn"]
+
+
+def phase_moe128_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa, ops):
+    """qwen3-moe-30b-a3b at full width (d_model 2048, 32 / 4 heads of 128,
+    qk-norm, 128 experts of 768, top-8, vocab 151936) and MOE128_LAYERS of
+    its 48 layers (bf16, seeded weights): ServingEngine serves 4 x PROMPT +
+    NEW_TOKENS under sfc_cuda + "sfc" and torch.  Launch counts exact
+    (`decoder_want`: 2 K3 a layer a forward, every one on the grouped wgmma
+    kernel).  Where the bf16 greedy tokens part from torch's, the routing
+    at that step (`moe_routing_at_divergence`).  The bf16 model freed, the
+    prefill logits of a MOE128_CHECK_LAYERS-layer cut in f32 within the
+    bf16 bound of torch's (its K3 on the 64 x 64 tile kernel).  Returns
+    (summary, launches by shape of the sfc_cuda + "sfc" serve, its launch
+    counts)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cut = dataclasses.replace(cfg, n_layers=MOE128_LAYERS)
+    model = build_model(cut, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = model.state_dict()
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cut.vocab, size=PROMPT).astype(np.int32) for _ in range(BATCH)]
+    variants = {"sfc_cuda+sfc_attn": ("sfc_cuda", "sfc"), "torch": ("torch", "blockwise")}
+    engines, counts, by_shape, reports, tokens_of = serve_runs(torch, np, cut, params, ServingEngine, tk, tsa,
+                                                               variants, prompts, "qwen3-moe")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w = tsa.fwd_wgmma_grid(BATCH, PROMPT, PROMPT, cut.n_heads, cut.kv_heads, sms)[1]
+    expected = {name: decoder_want(cut, v, w) for name, v in variants.items()}
+    tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
+    logits = {name: eng._prefill(tokens)[0].float() for name, eng in engines.items()}
+    divergence = moe_routing_at_divergence(torch, np, engines, prompts, tokens_of, cut.moe_top_k,
+                                           sfc="sfc_cuda+sfc_attn")
+    decode_profile = profile_decode(torch, engines["sfc_cuda+sfc_attn"], tokens, ops,
+                                    kernel_groups=_DECODER_KERNEL_GROUPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the f32 cut: the bf16 model freed first, but for the tensors the cut keeps
+    kept = _cut(params, MOE128_CHECK_LAYERS)
+    del engines, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params32 = {k: v.float() for k, v in kept.items()}
+    del kept
+    check = dataclasses.replace(cfg, n_layers=MOE128_CHECK_LAYERS, param_dtype="float32")
+    _reset_serve_counts(tk, tsa)
+    for name, (gemm, impl) in variants.items():
+        eng = ServingEngine(dataclasses.replace(check, attn_impl=impl), params32, max_batch=BATCH,
+                            max_seq=PROMPT + 1, gemm_backend=gemm, device="cuda")
+        logits[name + "_f32"] = eng._prefill(tokens)[0]
+        del eng
+    torch.cuda.synchronize()
+    k3_f32 = by_kernel(tk.sfc_gemm_grouped.launches_by_kernel)
+    want_k3_f32 = {"sfc_gemm_grouped_kernel": 2 * MOE128_CHECK_LAYERS}
+    del params32
+    f32_agree = {"sfc_cuda+sfc_attn": dict(zip(("ok", "max_abs_err", "err_over_bound"),
+                                               within(logits["sfc_cuda+sfc_attn_f32"], logits["torch_f32"],
+                                                      torch.bfloat16)))}
+    summary = {
+        "phase": "serve_moe128", "arch": cfg.name, "layers": MOE128_LAYERS, "layers_published": cfg.n_layers,
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.kv_heads], "head_dim": cfg.head_dim_,
+        "experts": cfg.n_experts, "top_k": cfg.moe_top_k, "expert_d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "qk_norm": cfg.qk_norm, "dtype": cfg.param_dtype, "params": n_params, "init_s": init_s,
+        "peak_memory_gb": peak_gb, "requests": [BATCH, PROMPT, NEW_TOKENS],
+        "rows_per_expert": {"decode": moe_rows(cfg, BATCH, 1), "prefill": moe_rows(cfg, BATCH, PROMPT)},
+        "launches": counts, "launches_expected": expected,
+        "f32_cut": {"layers": MOE128_CHECK_LAYERS, "f32_vs_torch": f32_agree, "K3_by_kernel": k3_f32,
+                    "K3_by_kernel_expected": want_k3_f32},
+        "bf16_sfc_vs_torch_mean_abs_err": float((logits["sfc_cuda+sfc_attn"] - logits["torch"]).abs().mean()),
+        "first_token_match": float((logits["sfc_cuda+sfc_attn"].argmax(-1) == logits["torch"].argmax(-1))
+                                   .float().mean()),
+        "greedy_token_match": float((tokens_of["sfc_cuda+sfc_attn"] == tokens_of["torch"]).mean()),
+        "routing_at_divergence": divergence,
+        "latency": reports,
+        "decode_step_profile": decode_profile,
+    }
+    emit(summary)
+    if counts != expected:
+        raise AssertionError(f"qwen3-moe serves launched {counts}, expected {expected}")
+    if k3_f32 != want_k3_f32:
+        raise AssertionError(f"the qwen3-moe f32 cut launched K3 {k3_f32} by kernel, expected {want_k3_f32}")
+    for name in variants:
+        lg = logits[name]
+        if tuple(lg.shape) != (BATCH, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"qwen3-moe {name}: prefill logits of shape {tuple(lg.shape)} or non-finite")
+    if not f32_agree["sfc_cuda+sfc_attn"]["ok"]:
+        raise AssertionError(f"qwen3-moe f32 prefill logits vs torch: {f32_agree}")
+    del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, by_shape["sfc_cuda+sfc_attn"], counts["sfc_cuda+sfc_attn"]
+
+
+def phase_stablelm_serve(torch, np, cfg, build_model, ServingEngine, tk, tsa, ops):
+    """stablelm-1.6b at full width and depth (24 layers, d_model 2048,
+    LayerNorm, 25% rotary, MHA of 32 / 32 heads of 64, a GLU of 5632,
+    vocab 100352, bf16, seeded weights): ServingEngine serves 4 x PROMPT +
+    NEW_TOKENS under sfc_cuda with "sfc" and blockwise attention and under
+    torch, launch counts exact (`decoder_want`); the f32 prefill logits at
+    full depth under each sfc_cuda variant within the bf16 bound of
+    torch's, the bf16 ones at accuracy parity.  Returns (summary, launches
+    by shape of the sfc_cuda + "sfc" serve, its launch counts)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = model.state_dict()
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=PROMPT).astype(np.int32) for _ in range(BATCH)]
+    variants = {"sfc_cuda+sfc_attn": ("sfc_cuda", "sfc"), "sfc_cuda": ("sfc_cuda", "blockwise"),
+                "torch": ("torch", "blockwise")}
+    engines, counts, by_shape, reports, tokens_of = serve_runs(torch, np, cfg, params, ServingEngine, tk, tsa,
+                                                               variants, prompts, "stablelm")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w = tsa.fwd_wgmma_grid(BATCH, PROMPT, PROMPT, cfg.n_heads, cfg.kv_heads, sms)[1]
+    expected = {name: decoder_want(cfg, v, w) for name, v in variants.items()}
+    tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
+    logits = {name: eng._prefill(tokens)[0].float() for name, eng in engines.items()}
+    decode_profile = profile_decode(torch, engines["sfc_cuda+sfc_attn"], tokens, ops,
+                                    kernel_groups=_DECODER_KERNEL_GROUPS)
+    del engines
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params32 = {k: v.float() for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    for name, (gemm, impl) in variants.items():
+        eng = ServingEngine(dataclasses.replace(cfg32, attn_impl=impl), params32, max_batch=BATCH,
+                            max_seq=PROMPT + 1, gemm_backend=gemm, device="cuda")
+        logits[name + "_f32"] = eng._prefill(tokens)[0]
+        del eng
+    del params32
+    sfc = ("sfc_cuda+sfc_attn", "sfc_cuda")
+    f32_agree, noise, parity = _agreement(torch, logits, sfc)
+    summary = {
+        "phase": "serve_stablelm", "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.kv_heads], "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "norm": cfg.norm, "rotary_pct": cfg.rotary_pct, "dtype": cfg.param_dtype, "params": n_params,
+        "init_s": init_s, "peak_memory_gb": peak_gb, "requests": [BATCH, PROMPT, NEW_TOKENS],
+        "launches": counts, "launches_expected": expected,
+        "prefill_logits": {"f32_vs_torch": f32_agree, "bf16_mean_abs_err_vs_f32": noise, "parity_ok": parity},
+        "first_token_match": {name: float((logits[name].argmax(-1) == logits["torch"].argmax(-1)).float().mean())
+                              for name in sfc},
+        "greedy_token_match": {name: float((tokens_of[name] == tokens_of["torch"]).mean()) for name in sfc},
+        "latency": reports,
+        "decode_step_profile": decode_profile,
+    }
+    emit(summary)
+    if counts != expected:
+        raise AssertionError(f"stablelm serves launched {counts}, expected {expected}")
+    for name in sfc:
+        if tuple(logits[name].shape) != (BATCH, cfg.vocab) or not bool(torch.isfinite(logits[name]).all()):
+            raise AssertionError(f"stablelm {name}: prefill logits of shape {tuple(logits[name].shape)} or non-finite")
+        if not f32_agree[name]["ok"]:
+            raise AssertionError(f"stablelm f32 prefill logits {name} vs torch: {f32_agree[name]}")
+    if not all(parity.values()):
+        raise AssertionError(f"stablelm bf16 logits further from the f32 model than torch's: {noise}")
+    del model, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, by_shape["sfc_cuda+sfc_attn"], counts["sfc_cuda+sfc_attn"]
+
+
+# ---------------------------------------------------------------------------
 # ABFT: the checksum lanes of K1/K2, K3 and K8 (dW, update, norm)
 # ---------------------------------------------------------------------------
 
@@ -3658,6 +4181,19 @@ def main() -> int:
     hyb_rows, hyb_checks = phase_kernels(torch, zcfg, hybrid_projection_gemms(zcfg), tk, ops, ragged=False)
     encdec_rows, encdec_checks = phase_kernels(torch, scfg, encdec_gemms(scfg), tk, ops, ragged=False)
     encdec_attn_rows, encdec_attn_checks = phase_attention(torch, encdec_attention_cases(scfg), tsa, tfa, build)
+    # the last configs: K1/K2 at qwen2-72b's serve shapes (the VLM's tree;
+    # its LM head weight 2.49 GB) and stablelm-1.6b's, K3 at qwen3-moe's 128
+    # experts, K11 / K14 with their heads (group 8 of D 128, MHA of D 64);
+    # each row's operands built alone and freed before the next
+    phase_at["2, the last configs' rows"] = time.perf_counter() - run_t0
+    vcfg, mcfg, lcfg = get_config(VLM_ARCH), get_config(MOE128_ARCH), get_config(STABLELM_ARCH)
+    vlm_rows, vlm_checks = phase_kernels(torch, vcfg, serve_gemms(vcfg, "qwen2-72b"), tk, ops, ragged=False)
+    torch.cuda.empty_cache()
+    lm_rows, lm_checks = phase_kernels(torch, lcfg, serve_gemms(lcfg, "stablelm"), tk, ops, ragged=False)
+    moe128_rows, moe128_checks = phase_grouped_gemms(torch, moe128_grouped_gemms(mcfg), tk, ragged=False)
+    last_attn_rows, last_attn_checks = phase_attention(
+        torch, last_attention_cases(vcfg, "qwen2-72b") + last_attention_cases(lcfg, "stablelm"), tsa, tfa, build)
+    torch.cuda.empty_cache()
     ocfg = get_config(MOE_ARCH)
     grouped_rows, grouped_checks = phase_grouped_gemms(torch, moe_grouped_gemms(ocfg), tk)
     grouped_upd_rows, grouped_upd_checks = phase_grouped_update_gemms(torch, ocfg, tk, opt)
@@ -3672,7 +4208,8 @@ def main() -> int:
                      "rounding of the kernel's master with the plain version's bits and within the bfloat16 "
                      "tolerance of the plain W",
         "checks": checks + rep_checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
-                  + grouped_upd_checks + chunk_checks + hyb_checks + encdec_checks + encdec_attn_checks,
+                  + grouped_upd_checks + chunk_checks + hyb_checks + encdec_checks + encdec_attn_checks
+                  + vlm_checks + lm_checks + moe128_checks + last_attn_checks,
         "reduced_model_f32_vs_reference": small})
     emit({"phase": "abft_lanes", "ok": True,
           "tolerance": f"|lane - plain lane| <= min({LANE_RTOL} * sum |{LANE_TILE}x{LANE_TILE} raw tile sums|, "
@@ -4035,8 +4572,21 @@ def main() -> int:
     _, encdec_by_shape, encdec_counts = phase_encdec(torch, np, scfg, build_model, tk, tsa, gemm_backend,
                                                      attention_backend)
 
-    # ---- 12. the kernels line -----------------------------------------------
+    # ---- 12. qwen2-vl-72b and qwen2-72b, full width, 16 of 80 layers -------
     phase_at[12] = time.perf_counter() - run_t0
+    _, vlm_by_shape, vlm_counts = phase_vlm_serve(torch, np, vcfg, get_config(DENSE72_ARCH), build_model,
+                                                  ServingEngine, tk, tsa, ops, gemm_backend)
+
+    # ---- 13. qwen3-moe-30b-a3b at full width and depth -----------------------
+    phase_at[13] = time.perf_counter() - run_t0
+    _, moe128_by_shape, moe128_counts = phase_moe128_serve(torch, np, mcfg, build_model, ServingEngine, tk, tsa, ops)
+
+    # ---- 14. stablelm-1.6b at full width and depth --------------------------
+    phase_at[14] = time.perf_counter() - run_t0
+    _, lm_by_shape, lm_counts = phase_stablelm_serve(torch, np, lcfg, build_model, ServingEngine, tk, tsa, ops)
+
+    # ---- 15. the kernels line -----------------------------------------------
+    phase_at[15] = time.perf_counter() - run_t0
     kernels = []
     for row in rows:
         gm = row["gemm"]
@@ -4353,6 +4903,72 @@ def main() -> int:
             "replaces": replaces[c.kernel],
             "launches": encdec_attn[c.kernel],
             "path": "seamless encode, prefill and decode, sfc_cuda + sfc",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            **({"kernel": "decode_split_kernel", "splits": row["splits"]} if c.decode else
+               {"kernel": row["kernel"], "config": row["config"]}),
+            "shape": c.shape(),
+        })
+    # the last configs: K1/K2 and K3 launches at the row's shape, K11 / K14
+    # launches, in the sfc_cuda + "sfc" serve of the row's model
+    last_runs = {"qwen2-72b": ("qwen2-vl-72b serve (16 of 80 layers), sfc_cuda + sfc", vlm_by_shape, vlm_counts),
+                 "stablelm": ("stablelm-1.6b serve, sfc_cuda + sfc", lm_by_shape, lm_counts),
+                 "qwen3-moe": ("qwen3-moe-30b-a3b serve, sfc_cuda + sfc", moe128_by_shape, moe128_counts)}
+    for row in vlm_rows + lm_rows:
+        gm = row["gemm"]
+        path, at_shape, _ = last_runs[gm.name.split("/")[0]]
+        kernels.append({
+            "name": f"sfc_gemm_fused:{gm.name}",
+            "route": "cuda",
+            "source": kernel_source(row["kernel"]),
+            "replaces": "src/repro/kernels/sfc_gemm.py:491" if gm.batch else "src/repro/kernels/sfc_gemm.py:355",
+            "launches": at_shape["K1/K2"].get(gm.key, 0),
+            "path": path,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "kernel": row["kernel"],
+            "config": row["config"],
+            "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "glu": gm.glu},
+        })
+    for row in moe128_rows:
+        gm = row["gemm"]
+        path, at_shape, _ = last_runs["qwen3-moe"]
+        kernels.append({
+            "name": f"{gm.kernel}:{gm.name}",
+            "route": "cuda",
+            "source": kernel_source(row["kernel"]),
+            "replaces": gm.replaces,
+            "launches": at_shape["K3"].get(gm.key, 0),
+            "path": path,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": "torch.bmm over the (E, rows, .) views (the GLU on concatenated weights)",
+            "kernel": row["kernel"],
+            "config": row["config"],
+            "shape": gm.shape(),
+        })
+    for row in last_attn_rows:
+        c = row["case"]
+        path, _, run_counts = last_runs[c.path]
+        kernels.append({
+            "name": f"{c.kernel}:{c.name}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_attention.cu",
+            "replaces": replaces[c.kernel],
+            "launches": run_counts["K14" if c.decode else "K11"],
+            "path": path,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

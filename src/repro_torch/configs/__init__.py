@@ -10,15 +10,19 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES
 
 __all__ = ["ARCH_IDS", "ALIASES", "get_config", "all_configs", "ArchConfig", "ShapeConfig", "SHAPES"]
 
-# the configs the port serves: two dense, one MoE, one hybrid, one xLSTM
-# and one encoder-decoder; the JAX package has more
+# every architecture of the JAX package (its `ARCH_IDS`, in its order):
+# dense, MoE, hybrid, xLSTM, encoder-decoder and VLM families
 ARCH_IDS = [
-    "qwen3_4b",
-    "yi_6b",
-    "olmoe_1b_7b",
-    "zamba2_1_2b",
     "xlstm_1_3b",
+    "stablelm_1_6b",
+    "qwen3_4b",
+    "qwen2_72b",
+    "yi_6b",
     "seamless_m4t_medium",
+    "zamba2_1_2b",
+    "olmoe_1b_7b",
+    "qwen3_moe_30b_a3b",
+    "qwen2_vl_72b",
 ]
 
 # hyphenated aliases (CLI --arch accepts both)

@@ -7,12 +7,16 @@ Weights are random, drawn from ``--seed``.  ``--device`` defaults to the
 card; ``--device cpu --reduced`` runs a tiny model on the CPU, where the
 ``sfc_cuda`` and ``replicated`` backends take the kernels' plain versions.
 ``--backend replicated`` serves on the replicated 2.5D form (split-K
-partial copies, their sum, the epilogue after).
+partial copies, their sum, the epilogue after).  ``--layers N`` cuts the
+model to its first N layers: qwen2-72b and qwen2-vl-72b (80 layers, 145 GB
+in bf16) fit one 80 GB card at 16.  The VLM is served as text, as the JAX
+engine serves it.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -34,11 +38,14 @@ def main(argv=None):
     ap.add_argument("--backend", default=BACKEND_TORCH, choices=list(BACKENDS))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None, help="cut the model to its first N layers")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if cfg.is_encoder_decoder:
         raise SystemExit("an encoder-decoder is not served by the engine: drive EncDecLM.prefill and decode_step")
 

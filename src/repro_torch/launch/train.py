@@ -31,6 +31,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -76,7 +77,16 @@ def build_trainer(
     data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
 
     def batch_fn(step: int):
-        return {k: torch.from_numpy(v).to(model.embed.device) for k, v in data.batch(step).items()}
+        out = {k: torch.from_numpy(v) for k, v in data.batch(step).items()}
+        if cfg.family == "vlm":
+            # the JAX package's VLM inputs: text positions on every M-RoPE
+            # axis and up to 8 stub patch embeddings drawn from the step
+            out["mrope_positions"] = torch.arange(seq, dtype=torch.int32)[None, None].expand(3, batch, seq)
+            n_img = min(8, seq)
+            rng = np.random.default_rng(step)
+            out["vision_embeds"] = torch.from_numpy(
+                rng.normal(size=(batch, n_img, cfg.d_model)).astype(np.float32) * 0.1)
+        return {k: v.to(model.embed.device) for k, v in out.items()}
 
     return model, opt_state, step_fn, batch_fn
 

@@ -127,6 +127,16 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def _rope_qk(q, k, positions, *, rope_theta, rotary_pct, mrope_sections, mrope_positions):
+    """q and k rotated at ``positions`` (M-RoPE: at ``mrope_positions``
+    where given); unchanged at ``rotary_pct`` 0."""
+    if rotary_pct <= 0:
+        return q, k
+    kw = dict(theta=rope_theta, rotary_pct=rotary_pct, mrope_sections=mrope_sections,
+              mrope_positions=mrope_positions)
+    return apply_rope(q, positions, **kw), apply_rope(k, positions, **kw)
+
+
 def attention_forward(
     p: Attention,
     x: torch.Tensor,  # (B, S, d)
@@ -136,6 +146,8 @@ def attention_forward(
     positions: Optional[torch.Tensor] = None,
     rope_theta: float = 10000.0,
     rotary_pct: float = 1.0,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
     causal: bool = True,
     q_chunk: int = 512,
     k_chunk: int = 512,
@@ -146,9 +158,8 @@ def attention_forward(
     q, k, v = _project_qkv(p, x, n_heads=n_heads, kv_heads=kv_heads)
     if positions is None:
         positions = _positions(b, s, x.device)
-    if rotary_pct > 0:
-        q = apply_rope(q, positions, theta=rope_theta, rotary_pct=rotary_pct)
-        k = apply_rope(k, positions, theta=rope_theta, rotary_pct=rotary_pct)
+    q, k = _rope_qk(q, k, positions, rope_theta=rope_theta, rotary_pct=rotary_pct,
+                    mrope_sections=mrope_sections, mrope_positions=mrope_positions)
     o = _attend(q, k, v, causal=causal, q_chunk=q_chunk, k_chunk=k_chunk, attn_impl=attn_impl)
     return _bmm(o.reshape(b, s, -1), p.wo)
 
@@ -163,6 +174,8 @@ def attention_prefill(
     positions: Optional[torch.Tensor] = None,
     rope_theta: float = 10000.0,
     rotary_pct: float = 1.0,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
     q_chunk: int = 512,
     k_chunk: int = 512,
     attn_impl: str = "blockwise",
@@ -174,9 +187,8 @@ def attention_prefill(
     q, k, v = _project_qkv(p, x, n_heads=n_heads, kv_heads=kv_heads)
     if positions is None:
         positions = _positions(b, s, x.device)
-    if rotary_pct > 0:
-        q = apply_rope(q, positions, theta=rope_theta, rotary_pct=rotary_pct)
-        k = apply_rope(k, positions, theta=rope_theta, rotary_pct=rotary_pct)
+    q, k = _rope_qk(q, k, positions, rope_theta=rope_theta, rotary_pct=rotary_pct,
+                    mrope_sections=mrope_sections, mrope_positions=mrope_positions)
     o = _attend(q, k, v, causal=True, q_chunk=q_chunk, k_chunk=k_chunk, attn_impl=attn_impl)
     pad = cache_len - s
     cache = {
@@ -196,17 +208,20 @@ def attention_decode(
     kv_heads: int,
     rope_theta: float = 10000.0,
     rotary_pct: float = 1.0,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, 1)
     attn_impl: str = "blockwise",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode against the KV cache.  The new k/v are written into
     ``cache`` in place (the JAX package returns a new cache; in place saves
-    a copy of the whole cache per step) and the same dict is returned."""
+    a copy of the whole cache per step) and the same dict is returned.
+    The token's position is ``index`` on every M-RoPE axis unless
+    ``mrope_positions`` (3, B, 1) names them, as in the JAX package."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, n_heads=n_heads, kv_heads=kv_heads)
     positions = torch.full((b, 1), index, device=x.device)
-    if rotary_pct > 0:
-        q = apply_rope(q, positions, theta=rope_theta, rotary_pct=rotary_pct)
-        k = apply_rope(k, positions, theta=rope_theta, rotary_pct=rotary_pct)
+    q, k = _rope_qk(q, k, positions, rope_theta=rope_theta, rotary_pct=rotary_pct,
+                    mrope_sections=mrope_sections, mrope_positions=mrope_positions)
     ck, cv = cache["k"], cache["v"]
     ck[:, index] = k[:, 0].to(ck.dtype)
     cv[:, index] = v[:, 0].to(cv.dtype)

@@ -9,7 +9,7 @@ Modules hold parameters; the math is in plain functions on tensors.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -106,7 +106,7 @@ def make_norm(kind: str):
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (standard / partial)
+# rotary position embeddings (standard / partial / M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -129,14 +129,29 @@ def apply_rope(
     *,
     theta: float = 10000.0,
     rotary_pct: float = 1.0,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S) for M-RoPE
 ) -> torch.Tensor:
     """Rotary embedding on split halves (not interleaved), f32 angles.
-    ``rotary_pct < 1`` rotates only the leading fraction of head_dim."""
+    ``rotary_pct < 1`` rotates only the leading fraction of head_dim
+    (StableLM).  ``mrope_sections`` splits the rotary half-dims into (t, h,
+    w) sections, each driven by its own axis of ``mrope_positions``
+    (Qwen2-VL M-RoPE); without them every axis carries ``positions``, which
+    is plain RoPE."""
     d = x.shape[-1]
     rot = int(d * rotary_pct)
     rot -= rot % 2
     x_rot, x_pass = x[..., :rot], x[..., rot:]
-    ang = rope_angles(positions, rot, theta)  # (B, S, rot/2)
+    if mrope_sections is not None:
+        if mrope_positions is None:
+            # text tokens carry identical (t, h, w) positions
+            mrope_positions = positions[None].expand(len(mrope_sections), *positions.shape)
+        # angles per axis, then each axis's section of the frequencies, in order
+        bounds = [sum(mrope_sections[:i]) for i in range(len(mrope_sections) + 1)]
+        ang = torch.cat([rope_angles(mrope_positions[i], rot, theta)[..., bounds[i]:bounds[i + 1]]
+                         for i in range(len(mrope_sections))], dim=-1)
+    else:
+        ang = rope_angles(positions, rot, theta)  # (B, S, rot/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)

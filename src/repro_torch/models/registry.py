@@ -1,5 +1,6 @@
-"""Model registry: ArchConfig -> model instance (the dense, MoE, hybrid,
-xLSTM and encoder-decoder families)."""
+"""Model registry: ArchConfig -> model instance (the dense, MoE, VLM,
+hybrid, xLSTM and encoder-decoder families), and the most patch
+embeddings the VLM's stub vision frontend places on a sequence."""
 
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.models.xlstm_model import XLSTMLM
 
-__all__ = ["build_model"]
+__all__ = ["build_model", "VISION_TOKENS"]
+
+VISION_TOKENS = 1024  # stub frontend: patch embeddings on leading positions (the JAX package's value)
 
 
 def build_model(
@@ -25,13 +28,12 @@ def build_model(
 ) -> Union[DecoderLM, HybridLM, XLSTMLM, EncDecLM]:
     """The config's model with uninitialised parameters on ``device`` (the
     card unless another device is named; raises where CUDA is absent):
-    `DecoderLM` for the dense and MoE families, `HybridLM` for the hybrid
-    one, `XLSTMLM` for "ssm" and `EncDecLM` for "audio".  Fill it with
+    `DecoderLM` for the dense, MoE and VLM families, `HybridLM` for the
+    hybrid one, `XLSTMLM` for "ssm" and `EncDecLM` for "audio".  Fill it with
     ``.init(generator)`` or ``.load_state_dict(...)``."""
     dev = resolve_device(device)
-    models = {"hybrid": HybridLM, "ssm": XLSTMLM, "audio": EncDecLM, "dense": DecoderLM, "moe": DecoderLM}
+    models = {"hybrid": HybridLM, "ssm": XLSTMLM, "audio": EncDecLM, "dense": DecoderLM, "moe": DecoderLM,
+              "vlm": DecoderLM}
     if cfg.family not in models:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 12"
-        )
+        raise ValueError(f"unknown model family {cfg.family!r}; pick from {sorted(models)}")
     return models[cfg.family](cfg, device=dev, dtype=dtype)

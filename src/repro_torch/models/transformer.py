@@ -1,6 +1,9 @@
-"""Decoder-only transformer LM, dense and MoE families (the port's
+"""Decoder-only transformer LM, dense, MoE and VLM families (the port's
 ``repro.models.transformer.DecoderLM``).  A config with ``n_experts``
-replaces each block's MLP by a `models.moe.MoE` layer.
+replaces each block's MLP by a `models.moe.MoE` layer; one with
+``mrope_sections`` is the Qwen2-VL backbone: stub vision patch embeddings
+replace the leading positions' token embeddings and M-RoPE rotates by (t,
+h, w) positions (`models.layers.apply_rope`).
 
 Parameters keep the JAX package's layout: projection weights are (in, out),
 so the GEMM kernel receives (K, N) as the TPU kernel did, and the per-layer
@@ -64,16 +67,13 @@ class Block(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Dense or MoE decoder LM: prefill into a KV cache, then one-token
+    """Dense, MoE or VLM decoder LM: prefill into a KV cache, then one-token
     decode."""
 
     def __init__(self, cfg: ArchConfig, *, device, dtype=None):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(f"family {cfg.family!r} is not a DecoderLM (`build_model` builds the hybrid; "
-                                      "the others are not ported yet: ROADMAP queue 1 item 12)")
-        if cfg.mrope_sections is not None:
-            raise NotImplementedError("M-RoPE (VLM backbone) is not ported yet: ROADMAP queue 1 item 12")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"family {cfg.family!r} is not a DecoderLM's (`build_model` builds each family's model)")
         self.cfg = cfg
         dtype = torch_dtype(dtype or cfg.param_dtype)
         kw = dict(dtype=dtype, device=device)
@@ -98,8 +98,13 @@ class DecoderLM(nn.Module):
 
     # ---------------- embedding / head ----------------
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens]
+    def _embed(self, tokens: torch.Tensor, vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.embed[tokens]
+        if vision_embeds is not None:
+            # the VLM's stub frontend: patch embeddings occupy the leading positions
+            n_img = vision_embeds.shape[1]
+            x = torch.cat([vision_embeds.to(x.dtype), x[:, n_img:]], dim=1)
+        return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
@@ -113,22 +118,32 @@ class DecoderLM(nn.Module):
             kv_heads=cfg.kv_heads,
             rope_theta=cfg.rope_theta,
             rotary_pct=cfg.rotary_pct,
+            mrope_sections=cfg.mrope_sections,
             attn_impl=cfg.attn_impl,
         )
 
     # ---------------- entry points ----------------
 
-    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(
+        self,
+        tokens: torch.Tensor,  # (B, S)
+        *,
+        mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
+        vision_embeds: Optional[torch.Tensor] = None,  # (B, n_img, d)
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Training forward: (logits, aux); aux holds the MoE losses summed
-        over the layers, zero for the dense family."""
+        over the layers, zero for the dense family.  The VLM takes its stub
+        patch embeddings and M-RoPE positions (else text positions on every
+        axis)."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = self._embed(tokens, vision_embeds)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux_acc = {"moe_aux_loss": zero, "moe_z_loss": zero}
         for layer in self.layers:
             h = layer.norm1(x)
             x = x + attn.attention_forward(
-                layer.attn, h, causal=True, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, **self._attn_kw()
+                layer.attn, h, causal=True, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
+                mrope_positions=mrope_positions, **self._attn_kw()
             )
             m, aux = layer.ffn(layer.norm2(x))
             x = x + m
@@ -137,31 +152,44 @@ class DecoderLM(nn.Module):
         return self._logits(x), aux_acc
 
     def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "none") -> torch.Tensor:
-        """Training loss of a batch ``{"tokens", "labels": (B, S)}``: the
-        f32 cross entropy of the forward's logits plus the MoE losses (zero
-        for the dense family) over the layer count.  Only ``remat="none"``
-        is ported (the JAX package's default is "dots")."""
+        """Training loss of a batch ``{"tokens", "labels": (B, S)}`` (the
+        VLM's also ``"mrope_positions"`` (3, B, S) and ``"vision_embeds"``
+        (B, n_img, d) where given): the f32 cross entropy of the forward's
+        logits plus the MoE losses (zero for the dense family) over the
+        layer count.  Only ``remat="none"`` is ported (the JAX package's
+        default is "dots")."""
         if remat != "none":
             raise NotImplementedError(
                 f"remat={remat!r} (activation recomputation through torch.utils.checkpoint) is not "
                 "ported: ROADMAP queue 1 item 18"
             )
-        logits, aux = self.forward(batch["tokens"].long())
+        logits, aux = self.forward(batch["tokens"].long(), mrope_positions=batch.get("mrope_positions"),
+                                   vision_embeds=batch.get("vision_embeds"))
         n = self.cfg.n_layers
         return cross_entropy_loss(logits, batch["labels"]) + aux["moe_aux_loss"] / n + aux["moe_z_loss"] / n
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, cache_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Prefill (B, S) tokens: (last-position logits (B, V), cache), the
-        cache ``{"k", "v": (L, B, cache_len, Hkv, D), "index": S}``."""
+    def prefill(
+        self,
+        tokens: torch.Tensor,
+        *,
+        cache_len: int,
+        mrope_positions: Optional[torch.Tensor] = None,
+        vision_embeds: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Prefill (B, S) tokens (the VLM's with its stub patch embeddings
+        and M-RoPE positions, as `forward`): (last-position logits (B, V),
+        cache), the cache ``{"k", "v": (L, B, cache_len, Hkv, D), "index":
+        S}``."""
         cfg = self.cfg
         s = tokens.shape[1]
-        x = self._embed(tokens)
+        x = self._embed(tokens, vision_embeds)
         ks, vs = [], []
         for layer in self.layers:
             h = layer.norm1(x)
             a, cache = attn.attention_prefill(
-                layer.attn, h, cache_len=cache_len, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, **self._attn_kw()
+                layer.attn, h, cache_len=cache_len, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
+                mrope_positions=mrope_positions, **self._attn_kw()
             )
             ks.append(cache["k"])
             vs.append(cache["v"])
@@ -171,10 +199,13 @@ class DecoderLM(nn.Module):
         return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs), "index": s}
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One-token decode of (B, 1) tokens at ``cache["index"]``.  The
-        cache tensors are updated in place; the returned dict shares them
-        and carries ``index + 1``."""
+    def decode_step(
+        self, token: torch.Tensor, cache: Dict[str, Any], *, mrope_positions: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One-token decode of (B, 1) tokens at ``cache["index"]``; the VLM
+        rotates by ``mrope_positions`` (3, B, 1) where given, else by the
+        index on every axis.  The cache tensors are updated in place; the
+        returned dict shares them and carries ``index + 1``."""
         index = int(cache["index"])
         if index >= cache["k"].shape[2]:
             raise ValueError(f"KV cache of length {cache['k'].shape[2]} is full")
@@ -182,7 +213,8 @@ class DecoderLM(nn.Module):
         for i, layer in enumerate(self.layers):
             h = layer.norm1(x)
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-            a, _ = attn.attention_decode(layer.attn, h, layer_cache, index, **self._attn_kw())
+            a, _ = attn.attention_decode(layer.attn, h, layer_cache, index, mrope_positions=mrope_positions,
+                                         **self._attn_kw())
             x = x + a
             x = x + layer.ffn(layer.norm2(x))[0]
         logits = self._logits(x)

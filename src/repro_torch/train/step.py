@@ -102,11 +102,20 @@ def _step_ctx(abft: Optional[str]):
     return ctx
 
 
+# the batch axis of each batch entry: 0, except the VLM's M-RoPE positions (3, B, S)
+_BATCH_AXIS = {"mrope_positions": 1}
+
+
 def _split_microbatches(batch: Dict[str, torch.Tensor], k: int):
-    for x in batch.values():
-        if x.ndim < 1 or x.shape[0] % k:
-            raise ValueError(f"cannot microbatch shape {tuple(x.shape)} by {k}")
-    return [{n: x.chunk(k, dim=0)[i] for n, x in batch.items()} for i in range(k)]
+    """``k`` row slices of the batch, each entry cut on its batch axis
+    (`_BATCH_AXIS`).  The JAX package cuts an entry on axis 0 where k
+    divides it, so there the (3, B, S) positions' (t, h, w) axis when k is
+    3; the port always cuts their batch axis."""
+    for n, x in batch.items():
+        axis = _BATCH_AXIS.get(n, 0)
+        if x.ndim <= axis or x.shape[axis] % k:
+            raise ValueError(f"cannot microbatch {n} of shape {tuple(x.shape)} by {k}")
+    return [{n: x.chunk(k, dim=_BATCH_AXIS.get(n, 0))[i] for n, x in batch.items()} for i in range(k)]
 
 
 def make_train_step(

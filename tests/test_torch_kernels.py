@@ -2443,3 +2443,97 @@ def test_calls_the_tn_wgmma_predicate_refuses_land_on_the_tile_kernels_on_card()
     state = dict(master=mst, mu=torch.zeros_like(mst), nu=torch.ones_like(mst), w=mst.bfloat16())
     assert not tk.uses_tn_wgmma_kernel(x, dc, None, *state.values())
     assert cs.launched(fn, lambda: tk.sfc_gemm_tn(x, dc, hyper=hyper, **state))[1] == ("tn_update_kernel", 1)
+
+
+# the last configs' widths: qwen2-72b / qwen2-vl-72b (d_model 8192, 64 / 8
+# heads of 128, a GLU of 29568, vocab 152064; its LM head weight is 1.25 G
+# elements, 2.49 GB, byte offsets past 2 GiB), at the serve's decode (M 4,
+# the cluster kernel) and 4 x 128 prefill (the wgmma kernel): (lead, M, K,
+# N, GLU)
+WIDE_GEMM_CASES = {
+    "decode_q_o": ((), 4, 8192, 8192, False),
+    "decode_k_v": ((), 4, 8192, 1024, False),
+    "decode_glu": ((), 4, 8192, 29568, True),
+    "decode_w_out": ((), 4, 29568, 8192, False),
+    "decode_head": ((), 4, 8192, 152064, False),
+    "prefill_q_o": ((4,), 128, 8192, 8192, False),
+    "prefill_k_v": ((4,), 128, 8192, 1024, False),
+    "prefill_glu": ((4,), 128, 8192, 29568, True),
+    "prefill_w_out": ((4,), 128, 29568, 8192, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIDE_GEMM_CASES))
+def test_kernels_at_qwen2_72b_widths_match_plain_versions_on_card(case):
+    """K1 (cluster kernel, its K layers from `cluster_layers`) and K2 (the
+    wgmma kernel) at qwen2-72b's serve shapes, the LM head included, in
+    bf16 against the plain version (summed over the same K layers)."""
+    _card()
+    lead, m, k, n, glu = WIDE_GEMM_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(41)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    a, w = r(*lead, m, k), r(k, n, scale=0.02)
+    wg = r(k, n, scale=0.02) if glu else None
+    kw = dict(activation="silu") if glu else {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cs = _chip_smoke()
+    got, key = cs.launched(tk.sfc_gemm_fused.launches_by_kernel, lambda: tk.sfc_gemm_fused(a, w, wg, **kw))
+    torch.cuda.synchronize()
+    if lead:
+        assert key[0] == "sfc_gemm_wgmma_kernel"
+        layers = 1
+    else:
+        layers = tk.cluster_layers(k, n, sms)
+        assert key == ("sfc_gemm_cluster_kernel", layers)
+    want = tk.sfc_gemm_fused_plain(a, w, wg, bm=128, bn=1024, k_layers=layers, **kw)
+    assert got.shape == (*lead, m, n) and _agree(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 40])
+@pytest.mark.parametrize("form", ["glu", "w_out"])
+def test_grouped_wgmma_kernel_at_128_experts_matches_plain_version_on_card(form, rows):
+    """K3 at qwen3-moe-30b-a3b's widths (128 experts of 768, d_model 2048):
+    32 rows an expert (the serve's decode) and 40 (its 4 x 128 prefill),
+    the GLU with silu in the flush and w_out, on the grouped wgmma kernel."""
+    _card()
+    gs = (rows,) * 128
+    k, n = (2048, 768) if form == "glu" else (768, 2048)
+    a, w, wg, *_ = _grouped_inputs(np.random.default_rng(43), gs, k, n, torch.bfloat16, scale=0.02)
+    args, kw = ((a, w, wg), dict(activation="silu")) if form == "glu" else ((a, w), {})
+    got, key = _chip_smoke().launched(tk.sfc_gemm_grouped.launches_by_kernel,
+                                      lambda: tk.sfc_gemm_grouped(*args, group_sizes=gs, **kw))
+    torch.cuda.synchronize()
+    assert key[0] == "sfc_gemm_grouped_wgmma_kernel"
+    want = tk.sfc_gemm_grouped_plain(*args, group_sizes=gs, bm=64, bn=64, **kw)
+    assert got.shape == (sum(gs), n) and _agree(got, want, torch.bfloat16)
+
+
+# (heads, kv heads, head dim): qwen2-72b's group 8 of D 128 and
+# stablelm-1.6b's 32 / 32 of D 64
+LAST_HEADS = {"group8_d128": (64, 8, 128), "group1_d64": (32, 32, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", sorted(LAST_HEADS))
+def test_attention_kernels_at_the_last_configs_heads_match_plain_versions_on_card(heads):
+    """K11 at the serve's 4 x 128 prefill (bf16, the wgmma kernel at its W)
+    and K14 over the serve's 145-row cache at its segments, each against
+    its plain version."""
+    _card()
+    h, hkv, d = LAST_HEADS[heads]
+    q, k, v = _attn_inputs(4, 128, 128, h, hkv, d, torch.bfloat16)
+    _check_flash_fwd(q, k, v, dict(causal=True), _fwd_wgmma_key(q, k))
+    qd, kc, vc = _attn_inputs(4, 1, 145, h, hkv, d, torch.bfloat16, seed=21)
+    valid = torch.tensor((129, 134, 139, 144), dtype=torch.int32, device="cuda")
+    splits = tsa.decode_splits(4, hkv, 145, torch.cuda.get_device_properties(0).multi_processor_count)
+    got, added = _chip_smoke().launched(tsa.sfc_decode_attention.launches_by_splits,
+                                        lambda: tsa.sfc_decode_attention(qd, kc, vc, valid))
+    torch.cuda.synchronize()
+    assert added == splits
+    want = tsa.sfc_decode_attention_plain(qd, kc, vc, valid, k_chunk=build.DECODE_CHUNK, splits=splits)
+    assert _agree(got, want, torch.bfloat16)

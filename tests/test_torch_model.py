@@ -153,23 +153,25 @@ def test_init_is_seeded_and_shaped_like_jax():
 
 def test_unported_model_options_raise():
     cfg = get_config("qwen3_4b").reduced()
-    # MoE layers are ported (tests/test_torch_moe.py); M-RoPE and the other
-    # families are not
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_model(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)), device="cpu")
+    # every family is ported: MoE layers (tests/test_torch_moe.py), M-RoPE
+    # and the VLM family (tests/test_torch_vlm.py); a family no model has raises
+    mrope = build_model(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)), device="cpu")
+    assert type(mrope).__name__ == "DecoderLM" and mrope.cfg.mrope_sections == (2, 3, 3)
     moe = build_model(dataclasses.replace(cfg, family="moe", n_experts=4, moe_top_k=2), device="cpu")
     assert tuple(moe.layers[0].moe.w_in.shape) == (4, cfg.d_model, cfg.d_ff)
     # the hybrid, xLSTM ("ssm") and audio families are ported
-    # (tests/test_torch_hybrid.py, test_torch_xlstm.py, test_torch_encdec.py);
-    # the VLM family is not, and a dense config is no xLSTM
+    # (tests/test_torch_hybrid.py, test_torch_xlstm.py, test_torch_encdec.py),
+    # and a dense config is no xLSTM
     hybrid = build_model(get_config("zamba2_1_2b").reduced(), device="cpu")
     assert type(hybrid).__name__ == "HybridLM" and len(hybrid.groups) == 2
     assert type(build_model(get_config("xlstm_1_3b").reduced(), device="cpu")).__name__ == "XLSTMLM"
     assert type(build_model(get_config("seamless_m4t_medium").reduced(), device="cpu")).__name__ == "EncDecLM"
     with pytest.raises(ValueError, match="XLSTMLM needs"):
         build_model(dataclasses.replace(cfg, family="ssm"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_model(dataclasses.replace(cfg, family="vlm"), device="cpu")
+    vlm = build_model(get_config("qwen2_vl_72b").reduced(), device="cpu")
+    assert type(vlm).__name__ == "DecoderLM" and vlm.cfg.family == "vlm"
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(dataclasses.replace(cfg, family="vision"), device="cpu")
 
 
 def test_build_model_without_device_raises_where_cuda_is_absent(monkeypatch):

@@ -100,8 +100,8 @@ def test_registry_builds_the_xlstm_with_the_jax_layout(xl):
     converted = params_from_jax(jparams, cfg, device="cpu")
     assert {k: tuple(v.shape) for k, v in converted.items()} == {k: tuple(v.shape) for k, v in
                                                                 fresh.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_model(dataclasses.replace(cfg, family="vlm"), device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(dataclasses.replace(cfg, family="vision"), device="cpu")
 
 
 def test_xlstm_tree_converts_both_ways(xl):
