@@ -307,6 +307,7 @@ import math
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 from typing import Optional
 
@@ -645,6 +646,10 @@ class Attn:
     def bound(self, elem: int):
         return _bound(4.0 * self.d * self.pairs(), self.bytes(elem))
 
+    @property
+    def key(self):  # the flash wrappers' launches_by_shape key (sfc_attention.shape_key)
+        return (self.b, self.s, self.t, self.h, self.hkv, self.d, self.causal)
+
     def shape(self) -> dict:
         out = {"b": self.b, "s": self.s, "t": self.t, "h": self.h, "hkv": self.hkv, "d": self.d}
         out.update({"valid": list(self.valid)} if self.decode else {"causal": self.causal, "q_offset": self.q_offset})
@@ -732,8 +737,7 @@ def phase_attention(torch, cases, tsa, tfa, build):
             want_route = ("flash_fwd_wgmma_kernel", tsa.fwd_wgmma_grid(c.b, c.s, c.t, c.h, c.hkv, sms)[1])
             if route != want_route:
                 raise AssertionError(f"{c.kernel} at {c} launched {route}, expected {want_route}")
-        want = plain(0)
-        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(torch, lambda: plain(0))
         if c.kernel == "sfc_flash_fwd":
             (got, got_lse), (want, want_lse) = got, want
             ok_lse, err_lse, worst_lse = within(got_lse, want_lse, torch.float32)
@@ -749,7 +753,6 @@ def phase_attention(torch, cases, tsa, tfa, build):
         reps = max(20, copies)
         ms = time_ms(kernel, reps=reps, graph=True)
         lib_ms = time_ms(library, reps=reps, graph=True)
-        plain_ms = time_ms(plain, reps=2, warmup=1)
         bound_ms, bound_by = c.bound(2)
         rows.append(dict(case=c, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
@@ -793,8 +796,7 @@ def phase_kernels(torch, cfg, gemms, tk, ops, ragged=True):
             return tk.sfc_gemm_fused_plain(a, ws[i % copies], gs[i % copies] if gs else None, bm=bm, bn=bn,
                                            k_layers=layers, **kw)
 
-        want = plain(0)
-        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(torch, lambda: plain(0))
         ok, err, worst = within_all(got, want, dt)
         checks.append({"case": gm.name, "shape": [gm.batch, gm.m, gm.k, gm.n], "glu": gm.glu, "preact": gm.preact,
                        "kernel": name, "config": config, "ok": ok, "max_abs_err": err, "err_over_bound": worst})
@@ -807,7 +809,6 @@ def phase_kernels(torch, cfg, gemms, tk, ops, ragged=True):
             library = lambda i: torch.matmul(a, ws[i % copies])  # noqa: E731
         ms = time_ms(kernel, reps=max(20, copies), graph=True)
         lib_ms = time_ms(library, reps=max(20, copies), graph=True)
-        plain_ms = time_ms(plain, reps=2, warmup=1)
         bound_ms, bound_by = gm.bound(2, PEAK_BF16_FLOPS)
         rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by, kernel=name, config=config))
@@ -953,7 +954,7 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
                                    if kl > 1 else (None, (None, None)))
         got = public(0)
         torch.cuda.synchronize()
-        want = k4_plain(0)
+        want, plain_ms = _once_ms(torch, lambda: k4_plain(0))
         shape = [gm.batch, gm.m, gm.k, gm.n, kl]
         err = check(f"{gm.kernel}:{gm.name}@L{kl}", parts, want, cdt, shape=shape, copies=str(cdt), kernel=name,
                     config=config)
@@ -992,7 +993,6 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
             except (RuntimeError, NotImplementedError, TypeError) as exc:
                 library_note = f"torch.bmm(out_dtype=torch.float32) has no kernel here: {exc}"[:200]
             del a_sl, w_sl
-        plain_ms = time_ms(k4_plain, reps=2, warmup=1)
         bound_ms, bound_by = gm.bound()
         row = dict(gemm=gm, kernel=gm.kernel, cuda_kernel=name, config=config, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
@@ -1007,12 +1007,12 @@ def phase_replicated(torch, cfg, gemms, tk, ops):
             # the yardstick, one copies.sum(-3) (torch's reduction sums bf16
             # in f32 and writes once), held to the plain version at the bf16
             # bound; the three calls float / sum / cast beside it
-            check(f"K6_library:{gm.name}@L{kl}", parts.sum(-3), tk.add_reduce_plain(parts), torch.bfloat16,
-                  shape=shape)
+            k6_want, k6_plain_ms = _once_ms(torch, lambda: tk.add_reduce_plain(parts))
+            check(f"K6_library:{gm.name}@L{kl}", parts.sum(-3), k6_want, torch.bfloat16, shape=shape)
             reps6 = max(20, n_rot)
             rows.append(dict(gemm=gm, kernel="K6", max_abs_err=err6, config=reduce_cfg._asdict(),
                              ms=time_ms(lambda i: tk.add_reduce(rot[i % n_rot]), reps=reps6, graph=True),
-                             plain_ms=time_ms(lambda i: tk.add_reduce_plain(parts), reps=2, warmup=1),
+                             plain_ms=k6_plain_ms,
                              library_ms=time_ms(lambda i: rot[i % n_rot].sum(-3), reps=reps6, graph=True),
                              library_3_calls_ms=time_ms(lambda i: rot[i % n_rot].float().sum(-3).to(cdt), reps=reps6,
                                                         graph=True),
@@ -1146,8 +1146,7 @@ def phase_backward_gemms(torch, gemms, tk, ops):
         ins = [operands(gm, dt) for _ in range(copies)]
         # the wgmma kernel and its C tile, or the tile kernel
         got, (name, config) = launched(fn.launches_by_kernel, lambda: fn(*ins[0][0]))
-        want = plain_fn(*ins[0][0], bm=bm, bn=bn)
-        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(torch, lambda: plain_fn(*ins[0][0], bm=bm, bn=bn))
         ok, err, worst = within_all(got, want, dt)
         checks.append({"case": f"{gm.kind}:{gm.name}", "shape": [gm.m, gm.k, gm.n], "dual": gm.dual, "ok": ok,
                        "kernel": name, "config": config, "max_abs_err": err, "err_over_bound": worst})
@@ -1157,7 +1156,6 @@ def phase_backward_gemms(torch, gemms, tk, ops):
         reps = max(20, copies)
         ms = time_ms(lambda i: fn(*ins[i % copies][0]), reps=reps, graph=True)
         lib_ms = time_ms(lambda i: torch.matmul(*ins[i % copies][1]), reps=reps, graph=True)
-        plain_ms = time_ms(lambda i: plain_fn(*ins[i % copies][0], bm=bm, bn=bn), reps=2, warmup=1)
         bound_ms, bound_by = _bound(gm.flops(), gm.bytes(2))
         rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by, kernel=name, config=config))
@@ -1219,7 +1217,7 @@ def train_update_gemms(cfg):
     return [UpdGemm(f"train/{name}", "update", rows, k, n, glu) for name, k, n, glu in proj]
 
 
-def phase_update_gemms(torch, cfg, tk, opt):
+def phase_update_gemms(torch, cfg, tk, opt, gemms=None, dtypes=None):
     """K8's update and norm modes against their plain versions at every
     training shape, in bf16 (stochastic rounding on, the main path, timed)
     and in f32: master, mu and nu within the f32 bound; a bf16 W bitwise the
@@ -1261,8 +1259,8 @@ def phase_update_gemms(torch, cfg, tk, opt):
     def clone(sets):
         return [tuple(t.clone() for t in st) for st in sets]
 
-    for gm in train_update_gemms(cfg):
-        for dt in (torch.bfloat16, torch.float32):
+    for gm in gemms or train_update_gemms(cfg):
+        for dt in dtypes or (torch.bfloat16, torch.float32):
             x, dcs, sets = inputs(gm, dt)
             got_sets, want_sets = clone(sets), clone(sets)
             got, (name, config) = launched(tk.sfc_gemm_tn.launches_by_kernel,
@@ -1270,7 +1268,8 @@ def phase_update_gemms(torch, cfg, tk, opt):
             norm_only, norm_kernel = launched(tk.sfc_gemm_tn.launches_by_kernel,
                                               lambda: tk.sfc_gemm_tn(x, dcs[0], dcs[1] if gm.dual else None, norm=True))
             torch.cuda.synchronize()
-            want = update(tk.sfc_gemm_tn_plain, x, dcs, want_sets, dt, bm=64, bn=64)
+            want, plain_upd_ms = _once_ms(torch, lambda: update(tk.sfc_gemm_tn_plain, x, dcs, want_sets, dt,
+                                                                bm=64, bn=64))
             ok, norm_err, worst = within(got, want, torch.float32)
             res = {"case": f"tn_update:{gm.name}", "dtype": str(dt), "shape": [gm.m, gm.k, gm.n], "dual": gm.dual,
                    "kernel": name, "config": config, "norm_kernel": list(norm_kernel),
@@ -1313,10 +1312,7 @@ def phase_update_gemms(torch, cfg, tk, opt):
             norm_ms = time_ms(lambda i: tk.sfc_gemm_tn(ins[i % copies][0], *ins[i % copies][1], norm=True),
                               reps=reps, graph=True)
             lib_ms = time_ms(library, reps=reps, graph=True)
-            plain_upd_ms = time_ms(lambda i: update(tk.sfc_gemm_tn_plain, x, dcs, sets, dt, bm=64, bn=64),
-                                   reps=1, warmup=1)
-            plain_norm_ms = time_ms(lambda i: tk.sfc_gemm_tn_plain(x, *dcs, norm=True, bm=64, bn=64),
-                                    reps=1, warmup=1)
+            _, plain_norm_ms = _once_ms(torch, lambda: tk.sfc_gemm_tn_plain(x, *dcs, norm=True, bm=64, bn=64))
             for mode, ms, plain_ms, l_ms in (("update", upd_ms, plain_upd_ms, lib_ms),
                                              ("norm", norm_ms, plain_norm_ms, None)):
                 g2 = dataclasses.replace(gm, mode=mode)
@@ -1349,6 +1345,10 @@ class AttnBwd:
     def pairs(self) -> int:
         return Attn("", "sfc_flash_fwd", self.b, self.s, self.t, self.h, self.hkv, self.d, self.causal,
                     self.q_offset).pairs()
+
+    @property
+    def key(self):  # the flash wrappers' launches_by_shape key (sfc_attention.shape_key)
+        return (self.b, self.s, self.t, self.h, self.hkv, self.d, self.causal)
 
     def kernels(self):
         """The (K12, K13) CUDA kernels a call at this case launches: the
@@ -1430,8 +1430,7 @@ def phase_attention_bwd(torch, cases, tsa, build):
             lib_ms = time_ms(sdpa_fwd_bwd, reps=20, graph=True) - time_ms(sdpa, reps=20, graph=True)
         for (name, (kernel, plain)), cuda_kernel in zip(kernels.items(), c.kernels()):
             got, (launched_kernel, config) = launched(getattr(tsa, name).launches_by_kernel, lambda: kernel(0))
-            want = plain(0, config)
-            torch.cuda.synchronize()
+            want, plain_ms = _once_ms(torch, lambda: plain(0, config))
             ok, err, worst = within_all(got, want, dt)
             checks.append({"case": f"{name}:{c.name}", "shape": c.shape(), "kernel": launched_kernel,
                            "config": config, "ok": ok, "max_abs_err": err, "err_over_bound": worst})
@@ -1445,7 +1444,7 @@ def phase_attention_bwd(torch, cases, tsa, build):
             bound_ms, bound_by = c.bound(name, 2)
             rows.append(dict(case=c, kernel=name, cuda_kernel=launched_kernel, config=config, max_abs_err=err,
                              ms=time_ms(kernel, reps=20, graph=True),
-                             plain_ms=time_ms(lambda i: plain(i, config), reps=2, warmup=1),
+                             plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by))
     return rows, checks
 
@@ -1454,18 +1453,30 @@ def _is_projection(name: str) -> bool:
     return name.split(".")[-1] in ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "head", "router")
 
 
-def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, batch, layers=GRAD_CHECK_LAYERS):
+def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, batch, layers=GRAD_CHECK_LAYERS,
+                     cut=None, want=None):
     """The config at full width cut to ``layers`` layers, in f32: the loss
     and every parameter's gradient under sfc_cuda + attn_impl="sfc" (K1/K2,
     K7, K8, K11, K12, K13; for olmoe also K3, K9 and K10) against the torch
     backend with blockwise attention, within the bf16 bound; every
     projection weight (the router and the expert stacks included) must get
     a non-zero gradient; the flash forward and backward and K3 / K9 launch
-    their 64 x 64 tile kernels only (f32)."""
+    their 64 x 64 tile kernels only (f32).  ``cut``: the fields of the cut
+    (default ``n_layers=layers``).  ``want``: the launches of each wrapper
+    the loss and its backward must make (`family_train_want` of the cut
+    under "none"), held exactly; without it, a decoder's ``layers`` flash
+    calls of each kind.  The loss runs without remat, so every count is one
+    forward's."""
     from repro_torch.kernels import sfc_attention as tsa
     from repro_torch.kernels import sfc_gemm as tk
 
-    cfg4 = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32")
+    wrappers = {"sfc_gemm_fused": tk.sfc_gemm_fused, "sfc_gemm_nt": tk.sfc_gemm_nt, "sfc_gemm_tn": tk.sfc_gemm_tn,
+                "sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_flash_bwd_dq": tsa.sfc_flash_bwd_dq,
+                "sfc_flash_bwd_dkv": tsa.sfc_flash_bwd_dkv}
+    want = {k: n for k, n in (want or {}).items() if k in wrappers}
+    attentions = want.get("sfc_flash_fwd", layers)
+    launched_before = {k: wrappers[k].launches for k in want}
+    cfg4 = dataclasses.replace(cfg, **(cut or {"n_layers": layers}), param_dtype="float32")
     model = build_model(cfg4, device="cuda").init(torch.Generator(device="cuda").manual_seed(7))
     losses, grads = {}, {}
     # the f32 cut's flash forward and backward and (MoE) K3 / K9: every
@@ -1476,19 +1487,29 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     grouped_before = [collections.Counter(f.launches_by_kernel) for f in grouped_fns]
     for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
         with gemm_backend(gemm), attention_backend(impl):
-            loss = model.loss(batch)
+            loss = model.loss(batch, remat="none")
             loss.backward()
         torch.cuda.synchronize()
+        if name == "sfc_cuda+sfc_attn":
+            launched = {k: wrappers[k].launches - n for k, n in launched_before.items()}
         losses[name] = loss.detach()
         grads[name] = {n: p.grad for n, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
-    missing = [n for n, g in grads["sfc_cuda+sfc_attn"].items()
-               if _is_projection(n) and (g is None or not bool(g.abs().max() > 0))]
+    missing = {n: ("none" if g is None else "nan" if bool(torch.isnan(g).any()) else "zero")
+               for n, g in grads["sfc_cuda+sfc_attn"].items()
+               if _is_projection(n) and (g is None or not bool(g.abs().max() > 0))}
     if missing:
-        raise AssertionError(f"projection weights without a gradient under sfc_cuda: {missing}")
+        nonfinite = sorted(n for n, g in grads["sfc_cuda+sfc_attn"].items()
+                           if g is not None and not bool(torch.isfinite(g).all()))
+        raise AssertionError(f"projection weights without a gradient under sfc_cuda: {missing}; losses "
+                             f"{ {k: float(v) for k, v in losses.items()} }; non-finite gradients: {nonfinite}")
     bwd_kernels = [by_kernel(collections.Counter(f.launches_by_kernel) - before)
                    for f, before in zip(flash_fns, bwd_before)]
-    if bwd_kernels != [{"flash_fwd_kernel": layers}, {"flash_bwd_dq_kernel": layers}, {"flash_bwd_dkv_kernel": layers}]:
+    want_flash = [{"flash_fwd_kernel": attentions}, {"flash_bwd_dq_kernel": attentions},
+                  {"flash_bwd_dkv_kernel": attentions}] if attentions else [{}, {}, {}]
+    if launched != want:
+        raise AssertionError(f"the f32 cut's loss and backward launched {launched}, expected {want}")
+    if bwd_kernels != want_flash:
         raise AssertionError(f"the f32 cut's flash forward and backward launched {bwd_kernels}, expected the tile "
                              "kernels")
     grouped_kernels = [by_kernel(collections.Counter(f.launches_by_kernel) - before)
@@ -1500,8 +1521,10 @@ def phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, b
     ok_loss, err_loss, worst_loss = within(losses["sfc_cuda+sfc_attn"], losses["torch"], torch.bfloat16)
     per_param = {n: within(g, grads["torch"][n], torch.bfloat16) for n, g in grads["sfc_cuda+sfc_attn"].items()}
     bad = {n: r for n, r in per_param.items() if not r[0]}
-    out = {"arch": cfg.name, "layers": layers, "dtype": "float32", "tokens": list(batch["tokens"].shape),
-           "flash_launches_by_kernel": bwd_kernels, "grouped_launches_by_kernel": grouped_kernels,
+    out = {"arch": cfg.name, "layers": cfg4.n_layers, "cut": cut or {"n_layers": layers}, "dtype": "float32",
+           "tokens": list(batch["tokens"].shape),
+           "launches": launched, "flash_launches_by_kernel": bwd_kernels,
+           "grouped_launches_by_kernel": grouped_kernels,
            "loss": {"sfc_cuda+sfc_attn": float(losses["sfc_cuda+sfc_attn"]), "torch": float(losses["torch"]),
                     "ok": ok_loss, "err_over_bound": worst_loss},
            "params": len(per_param), "projections_with_gradient": sum(map(_is_projection, per_param)),
@@ -1654,18 +1677,20 @@ def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS)
         base, split = label.removesuffix(" norm/update"), label.endswith(" norm/update")
         groups.update({f"{base} norm": 0.0, f"{base} update": 0.0} if split else {label: 0.0})
     groups["other"] = 0.0
+    # the device's own activities (kernels, memcpy, memset) by name, from
+    # the trace's raw events: key_averages() builds an event tree at about
+    # 0.1 ms an event, minutes for a step of many small ops
+    by_name = collections.Counter()
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
+            by_name[ev.name()] += ev.duration_ns() / 1e6
     top = []
-    for ev in prof.key_averages():
-        # the device's own activities (kernels, memcpy, memset); a CPU op
-        # also reports the device time of the kernels it launched
-        us = ev.self_device_time_total
-        if ev.device_type != DeviceType.CUDA or us <= 0:
-            continue
-        label = next((lab for frag, lab in kernel_groups if frag in ev.key), "other")
+    for key, ms in by_name.items():
+        label = next((lab for frag, lab in kernel_groups if frag in key), "other")
         if label.endswith(" norm/update"):
-            label = label.removesuffix("norm/update") + ("update" if _is_update(ev.key) else "norm")
-        groups[label] += us / 1e3
-        top.append((us / 1e3, ev.key[:80]))
+            label = label.removesuffix("norm/update") + ("update" if _is_update(key) else "norm")
+        groups[label] += ms
+        top.append((ms, key[:80]))
     busy = sum(groups.values()) / 1e3
     top.sort(reverse=True)
     # a trace with no device time measured nothing: no idle share then
@@ -1700,20 +1725,44 @@ def _kernel_counts(counted):
     return out
 
 
-def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_groups=_KERNEL_GROUPS, abft=None):
-    """TRAIN_STEPS steps of `build_trainer` from seed 0, each step's launch
+def digest(torch, t) -> int:
+    """An exact digest of a tensor's bits: the wrapping int64 sum of each
+    element's bits times an odd multiple of its index.  Equal bits give
+    equal digests; a changed element changes it (short of a 2^-64 chance)."""
+    bits = t.detach().contiguous().view(-1)
+    bits = bits.view({4: torch.int32, 2: torch.int16}[bits.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    step = 1 << 24
+    for start in range(0, bits.numel(), step):
+        chunk = bits[start:start + step].long()
+        idx = torch.arange(start, start + chunk.numel(), dtype=torch.int64, device=t.device) * 2 + 1
+        total += (chunk * idx * 0x9E3779B1).sum()
+    return int(total)
+
+
+def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_groups=_KERNEL_GROUPS, abft=None,
+               remat=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, profile=True, digests=False,
+               probe=False):
+    """``steps`` steps of `build_trainer` from seed 0 (TRAIN_STEPS of
+    TRAIN_BATCH x TRAIN_SEQ tokens unless named), each step's launch
     counts, times and loss, then a profiled step.  Returns (run summary,
     launches by shape of every counted kernel, their totals).  ``abft``:
     `BackendConfig.abft`; such a run also counts each kernel's launches with
     the checksum lane (``"<kernel>:abft"``) and reports the runtime ABFT
-    counters of its steps, and profiles no step."""
+    counters of its steps, and profiles no step.  ``remat``: the step's
+    remat policy (None: `build_trainer`'s, "none").  ``digests``: the run
+    also holds ``"digests"``, every parameter's and f32 master's `digest`
+    after the steps (before the profiled one); ``probe``: ``"routed"``, the
+    weights `optim.fused.probe_routed` routes for this model."""
+    from repro_torch.optim.fused import probe_routed
     from repro_torch.robust import abft as abft_lib
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, opt_state, step_fn, batch_fn = build_trainer(
-        cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=TRAIN_STEPS, seed=0,
-        gemm_backend=gemm, attn_impl=impl, fused_optimizer=fused, abft=abft, device="cuda")
+        cfg, batch=batch, seq=seq, total_steps=TRAIN_STEPS, seed=0,
+        gemm_backend=gemm, attn_impl=impl, fused_optimizer=fused, abft=abft, device="cuda",
+        **({"remat": remat} if remat else {}))
     params = dict(model.named_parameters())
     # a fingerprint of each initial parameter (its f64 sum): every
     # parameter's f32 master must move off it
@@ -1735,31 +1784,44 @@ def _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, kernel_gro
         return {**{k: fn.launches for k, fn in counted.items()}, **_tn_mode_counts(counted), **lanes,
                 **_kernel_counts(counted)}
 
-    for step in range(TRAIN_STEPS):
-        batch = batch_fn(step)
+    for step in range(steps):
+        batch_ = batch_fn(step)
         start = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        opt_state, metrics = step_fn(opt_state, batch)
+        opt_state, metrics = step_fn(opt_state, batch_)
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         launches.append({k: v - start[k] for k, v in counts().items()})
     unchanged = [n for n in params if float(opt_state["master"][n].double().sum()) == before[n]]
-    run = {"losses": losses, "step_s": times, "setup_s": setup_s,
-           "peak_memory_bytes": torch.cuda.max_memory_allocated(), "unchanged_params": unchanged,
+    run = {"remat": remat or "none", "batch": batch, "seq": seq, "losses": losses, "step_s": times,
+           "setup_s": setup_s, "peak_memory_bytes": torch.cuda.max_memory_allocated(), "unchanged_params": unchanged,
            "params_with_grad": [n for n, p in params.items() if p.grad is not None],
            "launches_per_step": launches, "grad_norm_last": float(metrics["grad_norm"])}
+    if probe:
+        routed = probe_routed(model)
+        run["routed"] = {"weights": len(routed), "paths": sorted({leaf.path for leaf in routed.values()})}
+    if digests:
+        run["digests"] = {**{n: digest(torch, p) for n, p in params.items()},
+                          **{f"master:{n}": digest(torch, t) for n, t in opt_state["master"].items()}}
     if abft:
         run["abft"] = {"mode": abft, "sdc_detections": abft_lib.runtime_sdc_total(),
                        "checks": abft_lib.runtime_check_total(), "max_residual_over_tol": abft_lib.runtime_max_ratio()}
     by_shape = {k: dict(fn.launches_by_shape) for k, fn in counted.items() if hasattr(fn, "launches_by_shape")}
     by_shape["totals"] = counts()
-    if not abft:  # a fourth step, profiled, for the split of its time (not compared)
-        opt_state, run["profiled_step"] = profile_step(torch, step_fn, opt_state, batch_fn(TRAIN_STEPS),
-                                                       kernel_groups)
+    if profile and not abft:  # one more step, profiled, for the split of its time (not compared)
+        opt_state, run["profiled_step"] = profile_step(torch, step_fn, opt_state, batch_fn(steps), kernel_groups)
+    alive = weakref.ref(model)
     del model, opt_state, step_fn, batch_fn, params, metrics
+    gc.collect()
     torch.cuda.empty_cache()
+    # what the run leaves behind: nothing of its model, state or graphs
+    run["left_allocated_bytes"] = torch.cuda.memory_allocated()
+    run["model_freed"] = alive() is None
+    print(f"train run {cfg.name} x{cfg.n_layers} {gemm} fused={fused} remat={run['remat']} {batch}x{seq}: peak "
+          f"{run['peak_memory_bytes']}, left {run['left_allocated_bytes']}, model freed {run['model_freed']}",
+          file=sys.stderr, flush=True)
     return run, by_shape
 
 
@@ -1799,9 +1861,12 @@ def phase_train(torch, cfg, build_trainer, counted):
             ("sfc_cuda+sfc_attn+fused_optimizer", ("sfc_cuda", "sfc", True, None)),
             ("sfc_cuda+sfc_attn+fused_optimizer+abft", ("sfc_cuda", "sfc", True, "detect")),
             ("torch", ("torch", "blockwise", False, None))):
-        runs[name], shapes = _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, abft=abft)
+        runs[name], shapes = _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, abft=abft,
+                                        digests=abft is None)
         if gemm == "sfc_cuda":
             by_shape[name] = shapes
+    # the remat phase holds its runs to these, remat "none" (`build_trainer`'s)
+    digests = {name: run.pop("digests") for name, run in runs.items() if "digests" in run}
     sfc, fused, ref = runs["sfc_cuda+sfc_attn"], runs["sfc_cuda+sfc_attn+fused_optimizer"], runs["torch"]
     sfc_abft, fused_abft = runs["sfc_cuda+sfc_attn+abft"], runs["sfc_cuda+sfc_attn+fused_optimizer+abft"]
     loss_ok, fused_ok = _losses_close(sfc, ref), _losses_close(fused, sfc)
@@ -1829,7 +1894,7 @@ def phase_train(torch, cfg, build_trainer, counted):
             raise AssertionError(f"{name} training left parameters unchanged: {run['unchanged_params']}")
     if fused["params_with_grad"]:
         raise AssertionError(f"the fused step left weights with a .grad: {fused['params_with_grad']}")
-    return out, by_shape
+    return out, by_shape, runs, digests
 
 
 # ---------------------------------------------------------------------------
@@ -2491,9 +2556,11 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
     for name, (gemm, impl, fused) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc", False)),
                                       ("sfc_cuda+sfc_attn+fused_optimizer", ("sfc_cuda", "sfc", True)),
                                       ("torch", ("torch", "blockwise", False))):
-        runs[name], shapes = _train_run(torch, cut, build_trainer, counted, gemm, impl, fused, _MOE_KERNEL_GROUPS)
+        runs[name], shapes = _train_run(torch, cut, build_trainer, counted, gemm, impl, fused, _MOE_KERNEL_GROUPS,
+                                        digests=fused)
         if gemm == "sfc_cuda":
             by_shape[name] = shapes
+    digests = {name: run.pop("digests") for name, run in runs.items() if "digests" in run}
     sfc, fused, ref = runs["sfc_cuda+sfc_attn"], runs["sfc_cuda+sfc_attn+fused_optimizer"], runs["torch"]
     loss_ok, fused_ok = _losses_close(sfc, ref), _losses_close(fused, sfc)
     out = {"phase": "train_moe", "arch": cfg.name, "layers": n_layers, "layers_of_config": cfg.n_layers,
@@ -2514,7 +2581,7 @@ def phase_moe_train(torch, cfg, build_trainer, counted):
             raise AssertionError(f"olmoe {name} training left parameters unchanged: {run['unchanged_params']}")
     if fused["params_with_grad"]:
         raise AssertionError(f"the fused olmoe step left weights with a .grad: {fused['params_with_grad']}")
-    return out, by_shape
+    return out, by_shape, runs, digests
 
 
 # ---------------------------------------------------------------------------
@@ -2611,7 +2678,7 @@ def chunk_route(gm) -> str:
     return "sfc_gemm_wgmma_f32out_kernel" if gm.f32_out else "sfc_gemm_wgmma_kernel"
 
 
-def phase_chunk_gemms(torch, gemms, tk, abft):
+def phase_chunk_gemms(torch, gemms, tk, abft, lanes=True):
     """K2 at the chunk-einsum shapes against its plain version, timed with
     inputs (A and the per-batch B) rotated past the L2 beside one
     ``torch.bmm`` (``out_dtype=torch.float32`` for the f32 mode; the
@@ -2648,8 +2715,7 @@ def phase_chunk_gemms(torch, gemms, tk, abft):
             x, w = ops_[i % copies]
             return tk.sfc_gemm_fused_plain(x, w, bm=64, bn=64, out_dtype=odt)
 
-        want = plain(0)
-        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(torch, lambda: plain(0))
         ok, err, worst = within(got, want, odt)
         checks.append({"case": f"chunk_einsum:{gm.name}", "shape": [gm.batch, gm.m, gm.k, gm.n],
                        "in": str(idt), "out": str(odt), "kernel": name, "config": config, "ok": ok,
@@ -2665,13 +2731,13 @@ def phase_chunk_gemms(torch, gemms, tk, abft):
         reps = max(20, copies)
         ms = time_ms(kernel, reps=reps, graph=True)
         lib_ms = time_ms(library, reps=reps, graph=True)
-        plain_ms = time_ms(plain, reps=2, warmup=1)
         bound_ms, bound_by = _bound(gm.flops(), gm.bytes(), gm.peak)
         rows.append(dict(gemm=gm, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                          bound_by=bound_by, kernel=name, config=config))
-        if gm.f32_in or not gm.batch:
+        if gm.f32_in or not gm.batch or not lanes:
             # no lane row: the f32 lanes and the plain-mode f32-output lane
-            # are held at other shapes (the ragged rows, the card tests)
+            # are held at other shapes (the ragged rows, the card tests),
+            # and the training shapes' lanes are those of their serve's
             del ops_, a, b, got, want
             continue
         # the lane: per batch element at the launch's C tile (per-batch B
@@ -3702,7 +3768,10 @@ def flip_exponent_bit(torch, x):
 
 
 def _once_ms(torch, fn):
-    """(result, ms) of one call, by CUDA events."""
+    """(result, ms) of one call, by CUDA events.  A row's ``plain_ms`` is
+    this of the correctness check's own call of the plain version, the
+    first at that shape: one call, not the mean of several, as the plain
+    versions take up to 15 s a call and the rows hold more than 250."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     out = fn()
@@ -4085,6 +4154,389 @@ def phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt):
     return rows, checks, controls
 
 
+# ---------------------------------------------------------------------------
+# remat (the JAX package's default training path, "dots") and the training
+# of the families that only served: seamless-m4t-medium, zamba2-1.2b,
+# xlstm-1.3b, qwen2-vl-72b
+# ---------------------------------------------------------------------------
+
+# the remat phase's policies beside "none" (the runs of phases 5 and 8)
+REMAT_RUNS = ("dots", "full")
+# one fused qwen3-4b step of LONG_SEQ-token sequences under "dots": the
+# largest batch `fused_step_reckoning` fits on the card (2 x 2048 would
+# need about 85 GB: the fused tape holds every projection's (a, dh, dg))
+LONG_BATCH, LONG_SEQ = 1, 2048
+CARD_BYTES = 80e9
+# qwen2-vl-72b trains at full width on VLM_TRAIN_LAYERS of its 80 layers:
+# AdamW holds 16 B a parameter unfused, the embedding and head are 2.49 B
+# parameters and a layer 0.876 B, so 2 layers hold 67.9 GB and 1 layer
+# 53.9 GB; 2 x 256 tokens under "dots" add about 1.5 GB (the head's f32
+# logits and their gradient), so 2 layers fit with 10 GB to spare; its
+# f32 gradient check on VLM_TRAIN_CHECK_LAYERS
+VLM_TRAIN_LAYERS, VLM_TRAIN_CHECK_LAYERS = 2, 1
+
+
+def family_train_want(cfg, seq, fused=False, remat="dots"):
+    """The launches of each SFC wrapper in one train step of ``cfg`` at
+    ``seq`` tokens a sequence under sfc_cuda + "sfc" attention, reckoned
+    from the call sites (tests/test_torch_remat.py counts them on the CPU):
+    under a policy other than "none" every kernel call of a remat unit's
+    forward runs twice (the forward and its recompute), those outside the
+    units (a decoder's LM head) once; each projection's backward launches
+    K7 and K8 once (the fused step: K8's norm and update modes for a routed
+    weight, one launch for a GLU pair), each chunk product's K2 twice (its
+    dA and dB over per-batch B on the forward kernel), each attention K12
+    and K13 once.  Units: a decoder or encoder layer (q, k, v, o and the
+    MLP; a seamless decoder layer also the cross-attention's q, o and the
+    memory's k, v), a hybrid group (2 chunk products a Mamba2 layer; the
+    shared block's 6 projections) or tail block, an xLSTM group (2 chunk
+    products a chunk of each mLSTM block; the sLSTM none)."""
+    r = 1 if remat == "none" else 2
+    if cfg.family == "audio":
+        in_units, outside, chunk_bwd = 6 * cfg.encoder_layers + 10 * cfg.n_layers, 0, 0
+        proj, attn = in_units, cfg.encoder_layers + 2 * cfg.n_layers
+        routed = proj  # every projection reaches its call site once a step
+    elif cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        in_units, outside, chunk_bwd = 2 * cfg.n_layers + 6 * groups, 0, 4 * cfg.n_layers
+        # the shared block's weights serve every group: none is routed
+        proj, attn, routed = 6 * groups, groups, 0
+    elif cfg.family == "ssm":
+        chunks = math.ceil(seq / min(cfg.ssm_chunk, seq))
+        mlstm = cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1)
+        # the projections and the head are torch.matmul: no K7, K8
+        in_units, outside, chunk_bwd = 2 * mlstm * chunks, 0, 4 * mlstm * chunks
+        proj = attn = routed = 0
+    else:  # a dense decoder or the VLM: q, k, v, o, the GLU, w_out a layer, and the LM head
+        in_units, outside, chunk_bwd = 6 * cfg.n_layers, 1, 0
+        proj, attn = 6 * cfg.n_layers + 1, cfg.n_layers
+        routed = proj
+    routed = routed if fused else 0
+    return {"sfc_gemm_fused": r * in_units + outside + chunk_bwd, "sfc_gemm_nt": proj,
+            "sfc_gemm_tn": proj + routed, "sfc_gemm_tn:dw": proj - routed, "sfc_gemm_tn:norm": routed,
+            "sfc_gemm_tn:update": routed, "sfc_flash_fwd": r * attn, "sfc_flash_bwd_dq": attn,
+            "sfc_flash_bwd_dkv": attn}
+
+
+def fused_step_reckoning(cfg, batch, seq) -> dict:
+    """GB a fused step of a dense decoder holds at its peak under "dots",
+    reckoned from the shapes: the weights and their f32 master, mu and nu
+    (14 B a parameter; the unrouted embedding's bf16 gradient besides), the
+    fused tape (each projection's input a and cotangents dh, dg in bf16
+    until the update: a layer's four distinct inputs and its outputs' 30 k
+    columns, and the head's), the layer inputs remat keeps, the head's
+    logits in bf16 and f32 and their f32 gradient; and what "none" keeps
+    more: a layer's saved activations beyond the tape's (about 37 k
+    elements a token for qwen3-4b)."""
+    d, q, kv, ff, L, v = (cfg.d_model, cfg.n_heads * cfg.head_dim_, cfg.kv_heads * cfg.head_dim_, cfg.d_ff,
+                          cfg.n_layers, cfg.vocab)
+    tokens = batch * seq
+    params = v * d * (1 if cfg.tie_embeddings else 2) + d + L * (d * (q + 2 * kv) + q * d + 3 * d * ff + 2 * d)
+    state = params * 14 + v * d * 2
+    a_cols, dh_cols = d + q + d + ff, q + 2 * kv + d + 2 * ff + d
+    tape = 2 * tokens * (L * (a_cols + dh_cols) + d + v)
+    inputs = 2 * tokens * d * L
+    head = tokens * v * (2 + 4 + 4)
+    none_more = 2 * tokens * L * (2 * d + 2 * (q + 2 * kv) + q + d + 2 * ff + ff - a_cols)
+    gb = {"state": state, "tape": tape, "layer_inputs": inputs, "head": head}
+    gb = {k: val / 1e9 for k, val in gb.items()}
+    gb["dots_total"] = sum(gb.values())
+    gb["none_total"] = gb["dots_total"] + none_more / 1e9
+    return gb
+
+
+def family_bwd_gemms(scfg, zcfg, vcfg):
+    """K7 and K8 at each distinct projection shape of the families' training
+    steps (2 x 256 token rows): seamless's attention (self and cross, one
+    shape) and its gelu MLP, zamba2's shared block, qwen2-vl-72b's layer
+    (its 2.49 GB head off: its plain TN alone takes seconds)."""
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    d = scfg.d_model
+    shapes = [("seamless", "attention", d, d, False), ("seamless", "mlp_in", d, scfg.d_ff, False),
+              ("seamless", "mlp_out", scfg.d_ff, d, False)]
+    for label, c in (("zamba2", zcfg), ("qwen2-vl-72b", vcfg)):
+        seen = set()
+        for name, k, n, glu in _projections(c):
+            if (k, n, glu) not in seen:
+                seen.add((k, n, glu))
+                shapes.append((label, name, k, n, glu))
+    return [BwdGemm(f"{label}/train/{name}", kind, rows, k, n, glu)
+            for kind in ("nt", "tn") for label, name, k, n, glu in shapes]
+
+
+def family_update_gemms(vcfg):
+    """K8's update and norm modes at qwen2-vl-72b's GLU, the widest routed
+    pair of the families' fused steps: 8192 x 2 x 29568."""
+    return [UpdGemm("qwen2-vl-72b/train/mlp_glu", "update", TRAIN_BATCH * TRAIN_SEQ, vcfg.d_model, vcfg.d_ff,
+                    True)]
+
+
+def family_attention_cases(scfg, zcfg, vcfg):
+    """K11 at the families' training shapes (2 x 256): seamless's decoder
+    self-attention (causal) and its encoder's and cross-attention's
+    (non-causal, 256 queries over 256 frames, one shape), zamba2's shared
+    block, the VLM's 64 / 8 heads."""
+    def heads(c):
+        return dict(h=c.n_heads, hkv=c.kv_heads, d=c.head_dim_)
+
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    return [Attn("seamless/train_decoder_self", "sfc_flash_fwd", b, s, s, path="seamless train", **heads(scfg)),
+            Attn("seamless/train_encoder_self_and_cross", "sfc_flash_fwd", b, s, s, causal=False,
+                 path="seamless train", **heads(scfg)),
+            Attn("zamba2/train", "sfc_flash_fwd", b, s, s, path="zamba2 train", **heads(zcfg)),
+            Attn("qwen2-vl-72b/train", "sfc_flash_fwd", b, s, s, path="qwen2-vl-72b train", **heads(vcfg))]
+
+
+def family_attention_bwd_cases(scfg, zcfg, vcfg):
+    """K12 and K13 at the same training shapes (bf16, the wgmma kernels),
+    and one check off the path at S != T: 128 queries over 256 frames, the
+    seamless serve's cross-attention shape."""
+    def heads(c):
+        return dict(h=c.n_heads, hkv=c.kv_heads, d=c.head_dim_, dtype="bfloat16")
+
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    return [AttnBwd("seamless/train_decoder_self", b, s, s, **heads(scfg)),
+            AttnBwd("seamless/train_encoder_self_and_cross", b, s, s, causal=False, **heads(scfg)),
+            AttnBwd("seamless/cross_128_over_256", b, PROMPT, ENCDEC_FRAMES, causal=False, main_path=False,
+                    **heads(scfg)),
+            AttnBwd("zamba2/train", b, s, s, **heads(zcfg)),
+            AttnBwd("qwen2-vl-72b/train", b, s, s, **heads(vcfg))]
+
+
+def family_chunk_gemms(zcfg, xcfg):
+    """The chunk products of the training steps (2 x 256 tokens: one chunk
+    a sequence for both) and their backward over per-batch B, the forward
+    kernel on transposed operands (dA = dC B^T, dB = A^T dC; the f32-output
+    products' cotangent cast to bf16 first): zamba2's SSD scores (f32 out)
+    and output, xlstm-1.3b's mLSTM qk scores (f32 out) and output product
+    (f32).  A backward product of a forward's shape shares its row."""
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    L = min(zcfg.ssm_chunk, s)
+    nc = math.ceil(s / L)
+    heads = zcfg.ssm_expand * zcfg.d_model // zcfg.ssm_head_dim
+    n, p = zcfg.ssm_state, zcfg.ssm_head_dim
+    xl = min(xcfg.ssm_chunk, s)
+    xh = xcfg.n_heads
+    xp = 2 * xcfg.d_model // xh
+    z, x = "zamba2 train", "xlstm train"
+    return [
+        ChunkGemm("zamba2/train/ssd_scores", b * nc, L, n, L, True, z),
+        ChunkGemm("zamba2/train/ssd_scores_bwd_dC", b * nc, L, L, n, False, z),
+        ChunkGemm("zamba2/train/ssd_scores_bwd_dB", b * nc, n, L, L, False, z),
+        ChunkGemm("zamba2/train/ssd_out_and_bwd_dx", b * nc * heads, L, L, p, False, z),
+        ChunkGemm("zamba2/train/ssd_out_bwd_dw", b * nc * heads, L, p, L, False, z),
+        ChunkGemm("xlstm/train/mlstm_qk", b * xh, xl, xp, xl, True, x),
+        ChunkGemm("xlstm/train/mlstm_qk_bwd_dq", b * xh, xl, xl, xp, False, x),
+        ChunkGemm("xlstm/train/mlstm_qk_bwd_dk", b * xh, xp, xl, xl, False, x),
+        ChunkGemm("xlstm/train/mlstm_out_and_bwd_dv", b * xh, xl, xl, xp, False, x, f32_in=True),
+        ChunkGemm("xlstm/train/mlstm_out_bwd_datt", b * xh, xl, xp, xl, False, x, f32_in=True),
+    ]
+
+
+def _fwd_key(key: str) -> bool:
+    """A launch-count key of a forward wrapper (run twice by a remat unit)."""
+    return key.split(":")[0] in ("sfc_gemm_fused", "sfc_gemm_grouped", "sfc_flash_fwd")
+
+
+def _remat_counts_ok(none_step: dict, step: dict, outside: dict) -> bool:
+    """A step under remat launches each forward wrapper twice its "none"
+    count less the launches outside the remat units (``outside``: the LM
+    head's), and every backward wrapper as often."""
+    return set(step) == set(none_step) and all(
+        step[k] == (2 * n - outside.get(k, 0) if _fwd_key(k) else n) for k, n in none_step.items())
+
+
+def forward_kept(torch, cfg, build_model, gemm_backend, attention_backend, make_batch_fn):
+    """What one forward of ``cfg`` (bf16, seed 0, a TRAIN_BATCH x TRAIN_SEQ
+    batch) leaves allocated for its backward, by backend and remat policy:
+    the bytes allocated after the loss less before it, and the peak of the
+    forward and backward (the gradients included) over the same base."""
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    batch = make_batch_fn(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, device="cuda")(0)
+    out = {}
+    for name, (gemm, impl) in (("sfc_cuda+sfc_attn", ("sfc_cuda", "sfc")), ("torch", ("torch", "blockwise"))):
+        out[name] = {}
+        for policy in ("none", *REMAT_RUNS):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            with gemm_backend(gemm), attention_backend(impl):
+                loss = model.loss(batch, remat=policy)
+            torch.cuda.synchronize()
+            m1 = torch.cuda.memory_allocated()
+            loss.backward()
+            torch.cuda.synchronize()
+            out[name][policy] = {"kept_bytes": m1 - m0, "fwd_bwd_peak_bytes": torch.cuda.max_memory_allocated() - m0}
+            del loss
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(torch, cfg, ocfg, build_trainer, build_model, make_batch_fn, gemm_backend, attention_backend,
+                counted, moe_counted, base, moe_base):
+    """Remat on the card.  qwen3-4b at full depth, 2 x 256 tokens, three
+    steps under "dots" and "full" beside phase 5's "none" runs, unfused and
+    fused under sfc_cuda + "sfc", and unfused under torch + blockwise;
+    olmoe-1b-7b fused at MOE_TRAIN_LAYERS layers under "dots" beside phase
+    8's.  The same kernels get the same inputs, so the losses and every
+    parameter and f32 master (`digest`) must be bitwise "none"'s; each
+    forward wrapper launches twice its "none" count a step but the head's
+    (K2 at every layer projection, K11, K3), each backward one as often,
+    and by shape each layer projection's K2 exactly twice.  A forward's
+    kept bytes (`forward_kept`): under torch "dots" keeps the products'
+    outputs, more than "full"; under sfc_cuda both keep the same (the
+    layers' inputs), less than "none".  Then one fused qwen3-4b
+    step at LONG_BATCH x LONG_SEQ under "dots" (`fused_step_reckoning`:
+    "none" is reckoned, not run).  ``base`` / ``moe_base``: {run name:
+    (run, launches by shape, digests)} of phases 5 and 8."""
+    def head_key(c):
+        return Gemm("train/head", "train", TRAIN_BATCH, TRAIN_SEQ, c.d_model, c.vocab).key
+
+    head = {"sfc_gemm_fused": 1, "sfc_gemm_fused:wgmma": 1}
+    out = {"phase": "remat", "arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS}
+    bad = []
+
+    def compare(label, name, base_run, base_shapes, base_digests, run, shapes, digests, head_shape):
+        mism = sorted(n for n, v in digests.items() if v != base_digests[n])
+        res = {"losses": run["losses"], "losses_bitwise_none": run["losses"] == base_run["losses"],
+               "params_and_masters_bitwise_none": not mism, "differing": mism[:8], "step_s": run["step_s"],
+               "peak_memory_bytes": run["peak_memory_bytes"]}
+        if "profiled_step" in run:
+            res["profiled_step"] = run["profiled_step"]
+        if "sfc_gemm_fused" in shapes and base_run["launches_per_step"][0].get("sfc_gemm_fused"):
+            res["launches_per_step"] = run["launches_per_step"]
+            res["counts_ok"] = all(_remat_counts_ok(b, s, head)
+                                   for b, s in zip(base_run["launches_per_step"], run["launches_per_step"]))
+            fwd, none_fwd = shapes["sfc_gemm_fused"], base_shapes["sfc_gemm_fused"]
+            res["k2_by_projection_twice_none"] = set(fwd) == set(none_fwd) and all(
+                fwd[k] == (n if k == head_shape else 2 * n) for k, n in none_fwd.items())
+            res["backward_by_shape_as_none"] = all(shapes[k] == base_shapes[k] for k in shapes if not _fwd_key(k)
+                                                   and k != "totals")
+            ok = res["counts_ok"] and res["backward_by_shape_as_none"] and res["k2_by_projection_twice_none"]
+        else:
+            ok = True
+        if not (ok and res["losses_bitwise_none"] and res["params_and_masters_bitwise_none"]):
+            bad.append(f"{label} {name}")
+        return res
+
+    for label, base_name, (gemm, impl, fused) in (
+            ("qwen3-4b unfused", "sfc_cuda+sfc_attn", ("sfc_cuda", "sfc", False)),
+            ("qwen3-4b fused", "sfc_cuda+sfc_attn+fused_optimizer", ("sfc_cuda", "sfc", True)),
+            ("qwen3-4b torch", "torch", ("torch", "blockwise", False))):
+        base_run, base_shapes, base_digests = base[base_name]
+        res = {"none": {"losses": base_run["losses"], "step_s": base_run["step_s"],
+                        "peak_memory_bytes": base_run["peak_memory_bytes"]}}
+        for policy in REMAT_RUNS:
+            run, shapes = _train_run(torch, cfg, build_trainer, counted, gemm, impl, fused, remat=policy,
+                                     digests=True, profile=policy == "dots" and label == "qwen3-4b unfused")
+            res[policy] = compare(label, policy, base_run, base_shapes, base_digests, run, shapes,
+                                  run.pop("digests"), head_key(cfg))
+        out[label] = res
+    out["peak_memory_bytes"] = {label: {p: out[label][p]["peak_memory_bytes"] for p in ("none", *REMAT_RUNS)}
+                                for label in ("qwen3-4b unfused", "qwen3-4b fused", "qwen3-4b torch")}
+    # what a forward keeps for its backward (the step's peak is the eager
+    # AdamW's, after the activations are gone)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = forward_kept(torch, cfg, build_model, gemm_backend, attention_backend, make_batch_fn)
+    out["forward_kept"] = kept
+    sfc_kept = {p: kept["sfc_cuda+sfc_attn"][p]["kept_bytes"] for p in ("none", *REMAT_RUNS)}
+    torch_kept = {p: kept["torch"][p]["kept_bytes"] for p in ("none", *REMAT_RUNS)}
+    out["torch_dots_keeps_more_than_full"] = torch_kept["dots"] > torch_kept["full"]
+    out["sfc_dots_keeps_what_full_keeps"] = sfc_kept["dots"] == sfc_kept["full"] < sfc_kept["none"]
+    if not (out["torch_dots_keeps_more_than_full"] and out["sfc_dots_keeps_what_full_keeps"]):
+        bad.append(f"kept bytes: sfc {sfc_kept}, torch {torch_kept}")
+    # olmoe's grouped tape under recompute
+    cut = dataclasses.replace(ocfg, n_layers=MOE_TRAIN_LAYERS)
+    base_run, base_shapes, base_digests = moe_base["sfc_cuda+sfc_attn+fused_optimizer"]
+    run, shapes = _train_run(torch, cut, build_trainer, moe_counted, "sfc_cuda", "sfc", True, _MOE_KERNEL_GROUPS,
+                             remat="dots", digests=True, profile=False)
+    out["olmoe fused"] = {"layers": MOE_TRAIN_LAYERS, "none": {"losses": base_run["losses"],
+                                                                "step_s": base_run["step_s"],
+                                                                "peak_memory_bytes": base_run["peak_memory_bytes"]},
+                          "dots": compare("olmoe fused", "dots", base_run, base_shapes, base_digests, run, shapes,
+                                          run.pop("digests"), head_key(ocfg))}
+    # one long fused step
+    gc.collect()
+    torch.cuda.empty_cache()
+    reckon = {b: fused_step_reckoning(cfg, b, LONG_SEQ) for b in (1, 2)}
+    run, _ = _train_run(torch, cfg, build_trainer, counted, "sfc_cuda", "sfc", True, remat="dots",
+                        batch=LONG_BATCH, seq=LONG_SEQ, steps=1, profile=False)
+    want = family_train_want(cfg, LONG_SEQ, fused=True)
+    step = run["launches_per_step"][0]
+    out["long_fused_step"] = {"batch": LONG_BATCH, "seq": LONG_SEQ, "remat": "dots", "loss": run["losses"][0],
+                              "step_s": run["step_s"][0], "peak_memory_bytes": run["peak_memory_bytes"],
+                              "reckoned_gb": reckon, "launches": step, "launches_expected": want,
+                              "none_not_run": f"reckoned {reckon[LONG_BATCH]['none_total']:.1f} GB"}
+    if not math.isfinite(run["losses"][0]) or {k: step[k] for k in want} != want:
+        bad.append("the long fused step")
+    emit(out)
+    if bad:
+        raise AssertionError(f"remat runs disagree with remat none: {bad}")
+    return out
+
+
+def phase_family_train(torch, cfg, build_trainer, build_model, make_batch_fn, gemm_backend, attention_backend,
+                       counted, label, check_cut):
+    """TRAIN_STEPS steps of `build_trainer` at full width (qwen2-vl-72b at
+    VLM_TRAIN_LAYERS layers) and 2 x 256 tokens under the JAX package's
+    default remat, "dots": under sfc_cuda + "sfc" (then one profiled
+    step), with the fused optimizer where `probe_routed` routes a weight,
+    and under torch + blockwise; exact launches a step
+    (`family_train_want`), every unfused loss within 2^-7 of torch's and
+    every fused one of the unfused one's, every parameter moved, no routed
+    weight left with a .grad.  Then the f32 cut ``check_cut`` (config
+    fields): loss and every gradient under sfc_cuda + "sfc" within the
+    bf16 bound of torch's, its launches exact (`phase_grad_check`).
+    Returns (summary, launches by shape of the sfc run and of the fused
+    one)."""
+    want = family_train_want(cfg, TRAIN_SEQ)
+    runs, shapes = {}, {}
+    runs["sfc_cuda+sfc_attn"], shapes["sfc_cuda+sfc_attn"] = _train_run(
+        torch, cfg, build_trainer, counted, "sfc_cuda", "sfc", False, remat="dots", probe=True)
+    routed = runs["sfc_cuda+sfc_attn"]["routed"]
+    if routed["weights"]:
+        runs["fused"], shapes["fused"] = _train_run(torch, cfg, build_trainer, counted, "sfc_cuda", "sfc", True,
+                                                    remat="dots", profile=False)
+    runs["torch"], _ = _train_run(torch, cfg, build_trainer, counted, "torch", "blockwise", False, remat="dots",
+                                  profile=False)
+    sfc, ref = runs["sfc_cuda+sfc_attn"], runs["torch"]
+    bad = [i for i, c in enumerate(sfc["launches_per_step"]) if {k: c[k] for k in want} != want]
+    loss_ok = _losses_close(sfc, ref)
+    out = {"phase": f"train_{label}", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "remat": "dots", "routed": routed,
+           "launches_expected_per_step": want, "loss_within_2^-7": loss_ok}
+    if "fused" in runs:
+        want_fused = family_train_want(cfg, TRAIN_SEQ, fused=True)
+        out["fused_launches_expected_per_step"] = want_fused
+        out["fused_loss_within_2^-7_of_unfused"] = _losses_close(runs["fused"], sfc)
+        bad += [f"fused {i}" for i, c in enumerate(runs["fused"]["launches_per_step"])
+                if {k: c[k] for k in want_fused} != want_fused]
+        if not all(out["fused_loss_within_2^-7_of_unfused"]) or runs["fused"]["params_with_grad"]:
+            bad.append("fused losses or .grad")
+    out.update(runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut_cfg = dataclasses.replace(cfg, **check_cut)
+    batch = make_batch_fn(cut_cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=1, device="cuda")(0)
+    out["grad_check"] = phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, batch,
+                                         cut=check_cut, want=family_train_want(cut_cfg, TRAIN_SEQ, remat="none"))
+    emit(out)
+    if bad or not all(loss_ok) or not all(math.isfinite(x) for x in ref["losses"]):
+        raise AssertionError(f"{cfg.name} training: launches off at {bad} ({sfc['launches_per_step']}, expected "
+                             f"{want}) or losses {sfc['losses']} vs torch {ref['losses']}")
+    for name, run in runs.items():
+        if run["unchanged_params"]:
+            raise AssertionError(f"{cfg.name} {name} training left parameters unchanged: {run['unchanged_params']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, shapes
+
+
 def small_reference_check(torch, get_config, build_model, gemm_backend):
     """Reduced qwen3-4b in f32 on the card: sfc_cuda logits against the
     Listing-1 reference backend at rtol 1e-4 (prefill and 3 decode steps)."""
@@ -4134,7 +4586,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import sfc_attention as tsa
     from repro_torch.kernels import sfc_gemm as tk
-    from repro_torch.launch.train import build_trainer
+    from repro_torch.launch.train import build_trainer, make_batch_fn
     from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw as opt
     from repro_torch.robust import abft
@@ -4197,6 +4649,22 @@ def main() -> int:
     ocfg = get_config(MOE_ARCH)
     grouped_rows, grouped_checks = phase_grouped_gemms(torch, moe_grouped_gemms(ocfg), tk)
     grouped_upd_rows, grouped_upd_checks = phase_grouped_update_gemms(torch, ocfg, tk, opt)
+    # the training shapes of the families that only served until now: K7 /
+    # K8 at their widths, K8's update at qwen2-vl-72b's GLU, K11-K13 at
+    # seamless's D 64 (and a check at S != T), zamba2's and the VLM's heads,
+    # K2 at the chunk products and their per-batch backward
+    phase_at["2, the families' training shapes"] = time.perf_counter() - run_t0
+    fam_bwd_rows, fam_bwd_checks = phase_backward_gemms(torch, family_bwd_gemms(scfg, zcfg, vcfg), tk, ops)
+    torch.cuda.empty_cache()
+    fam_upd_rows, fam_upd_checks = phase_update_gemms(torch, vcfg, tk, opt, gemms=family_update_gemms(vcfg),
+                                                      dtypes=(torch.bfloat16,))
+    torch.cuda.empty_cache()
+    fam_attn_rows, fam_attn_checks = phase_attention(torch, family_attention_cases(scfg, zcfg, vcfg), tsa, tfa, build)
+    fam_attn_bwd_rows, fam_attn_bwd_checks = phase_attention_bwd(torch, family_attention_bwd_cases(scfg, zcfg, vcfg),
+                                                                 tsa, build)
+    fam_chunk_rows, fam_chunk_checks, _, _ = phase_chunk_gemms(torch, family_chunk_gemms(zcfg, xcfg), tk, abft,
+                                                               lanes=False)
+    torch.cuda.empty_cache()
     phase_at["2, the ABFT lanes"] = time.perf_counter() - run_t0
     lane_rows, lane_checks, lane_controls = phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt)
     small = small_reference_check(torch, get_config, build_model, gemm_backend)
@@ -4209,7 +4677,8 @@ def main() -> int:
                      "tolerance of the plain W",
         "checks": checks + rep_checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
                   + grouped_upd_checks + chunk_checks + hyb_checks + encdec_checks + encdec_attn_checks
-                  + vlm_checks + lm_checks + moe128_checks + last_attn_checks,
+                  + vlm_checks + lm_checks + moe128_checks + last_attn_checks + fam_bwd_checks + fam_upd_checks
+                  + fam_attn_checks + fam_attn_bwd_checks + fam_chunk_checks,
         "reduced_model_f32_vs_reference": small})
     emit({"phase": "abft_lanes", "ok": True,
           "tolerance": f"|lane - plain lane| <= min({LANE_RTOL} * sum |{LANE_TILE}x{LANE_TILE} raw tile sums|, "
@@ -4526,7 +4995,7 @@ def main() -> int:
     counted = {"sfc_gemm_fused": tk.sfc_gemm_fused, "sfc_gemm_nt": tk.sfc_gemm_nt, "sfc_gemm_tn": tk.sfc_gemm_tn,
                "sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_flash_bwd_dq": tsa.sfc_flash_bwd_dq,
                "sfc_flash_bwd_dkv": tsa.sfc_flash_bwd_dkv}
-    _, counts_by_run = phase_train(torch, cfg, build_trainer, counted)
+    _, counts_by_run, train_runs, train_digests = phase_train(torch, cfg, build_trainer, counted)
     train_counts, fused_counts = counts_by_run["sfc_cuda+sfc_attn"], counts_by_run["sfc_cuda+sfc_attn+fused_optimizer"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4555,7 +5024,7 @@ def main() -> int:
     phase_at[8] = time.perf_counter() - run_t0
     moe_counted = {**counted, "sfc_gemm_grouped": tk.sfc_gemm_grouped, "sfc_gemm_grouped_nt": tk.sfc_gemm_grouped_nt,
                    "sfc_gemm_grouped_tn": tk.sfc_gemm_grouped_tn}
-    _, moe_train_counts = phase_moe_train(torch, ocfg, build_trainer, moe_counted)
+    _, moe_train_counts, moe_train_runs, moe_train_digests = phase_moe_train(torch, ocfg, build_trainer, moe_counted)
     moe_fused_counts = moe_train_counts["sfc_cuda+sfc_attn+fused_optimizer"]["sfc_gemm_grouped_tn"]
 
     # ---- 9. serve full-width, full-depth zamba2-1.2b -----------------------
@@ -4585,8 +5054,32 @@ def main() -> int:
     phase_at[14] = time.perf_counter() - run_t0
     _, lm_by_shape, lm_counts = phase_stablelm_serve(torch, np, lcfg, build_model, ServingEngine, tk, tsa, ops)
 
-    # ---- 15. the kernels line -----------------------------------------------
+    # ---- 15. remat: qwen3-4b at full depth, olmoe-1b-7b at 8 layers ----------
     phase_at[15] = time.perf_counter() - run_t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_remat(torch, cfg, ocfg, build_trainer, build_model, make_batch_fn, gemm_backend, attention_backend,
+                counted, moe_counted,
+                {name: (train_runs[name], counts_by_run.get(name, {}), train_digests[name])
+                 for name in train_digests},
+                {name: (moe_train_runs[name], moe_train_counts[name], moe_train_digests[name])
+                 for name in moe_train_digests})
+
+    # ---- 16-19. train the families that only served (the VLM cut first) -----
+    fam_shapes = {}
+    for number, (label, fcfg, check_cut) in enumerate((
+            # the VLM first: its 2-layer cut holds 68 GB, the most of the four
+            ("qwen2-vl-72b", dataclasses.replace(vcfg, n_layers=VLM_TRAIN_LAYERS),
+             {"n_layers": VLM_TRAIN_CHECK_LAYERS}),
+            ("seamless", scfg, {"n_layers": scfg.n_layers}),
+            ("zamba2", zcfg, {"n_layers": zcfg.n_layers}),
+            ("xlstm", xcfg, {"n_layers": XLSTM_CHECK_LAYERS})), start=16):
+        phase_at[number] = time.perf_counter() - run_t0
+        _, fam_shapes[label] = phase_family_train(torch, fcfg, build_trainer, build_model, make_batch_fn,
+                                                  gemm_backend, attention_backend, counted, label, check_cut)
+
+    # ---- 20. the kernels line -----------------------------------------------
+    phase_at[20] = time.perf_counter() - run_t0
     kernels = []
     for row in rows:
         gm = row["gemm"]
@@ -4978,6 +5471,114 @@ def main() -> int:
             **({"kernel": "decode_split_kernel", "splits": row["splits"]} if c.decode else
                {"kernel": row["kernel"], "config": row["config"]}),
             "shape": c.shape(),
+        })
+    # the families' training shapes: launches at the row's shape in the
+    # family's sfc_cuda + "sfc" run (K8's modes: its fused run); an
+    # attention row's ``launches`` is its kernel's in that run, which the
+    # family's main-path rows split by shape (seamless: its decoder's causal
+    # self-attention, and its encoder's and cross-attention's non-causal
+    # calls at one shape)
+    for row in fam_bwd_rows:
+        gm = row["gemm"]
+        family = gm.name.split("/")[0]
+        kernels.append({
+            "name": f"sfc_gemm_{gm.kind}:{gm.name}",
+            "route": "cuda",
+            "source": kernel_source(row["kernel"]),
+            "replaces": "src/repro/kernels/sfc_gemm.py:1219" if gm.kind == "nt" else "src/repro/kernels/sfc_gemm.py:1429",
+            "launches": fam_shapes[family]["sfc_cuda+sfc_attn"][f"sfc_gemm_{gm.kind}"].get(gm.key, 0),
+            "path": f"{family} train",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "kernel": row["kernel"],
+            "config": row["config"],
+            "shape": {"m": gm.m, "k": gm.k, "n": gm.n, "dual": gm.dual},
+        })
+    for row in fam_upd_rows:
+        gm = row["gemm"]
+        kernels.append({
+            "name": f"sfc_gemm_tn_{gm.mode}:{gm.name}",
+            "route": "cuda",
+            "source": kernel_source(row["kernel"]),
+            "replaces": "src/repro/kernels/sfc_gemm.py:1094",
+            "launches": fam_shapes["qwen2-vl-72b"]["fused"]["sfc_gemm_tn"].get(gm.key, 0),
+            "path": f"qwen2-vl-72b train ({VLM_TRAIN_LAYERS} layers), fused optimizer",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": "torch.mm to an f32 dW + torch._fused_adamw_ (two calls)" if gm.mode == "update" else None,
+            "kernel": row["kernel"],
+            "config": row["config"],
+            "shape": {"m": gm.m, "k": gm.k, "n": gm.n, "dual": gm.dual, "dtype": "bfloat16",
+                      "stochastic_round": gm.mode == "update"},
+        })
+    split = collections.Counter()
+    for row in fam_attn_rows + fam_attn_bwd_rows:
+        c = row["case"]
+        kernel = row.get("kernel") if "cuda_kernel" in row else c.kernel
+        family = c.name.split("/")[0]
+        run = fam_shapes[family]["sfc_cuda+sfc_attn"]
+        at_shape = run[kernel].get(c.key, 0)
+        if c.main_path:
+            split[family, kernel] += at_shape
+        kernels.append({
+            "name": f"{kernel}:{c.name}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sfc_attention.cu",
+            "replaces": replaces[kernel],
+            "launches": run["totals"][kernel],
+            "launches_at_shape": at_shape,
+            "path": f"{family} train",
+            "main_path": c.main_path,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": ("scaled_dot_product_attention backward (dQ, dK, dV together)" if "cuda_kernel" in row
+                        else "scaled_dot_product_attention"),
+            "kernel": row.get("cuda_kernel", row["kernel"]),
+            "config": row["config"],
+            "shape": c.shape(),
+        })
+    unsplit = {f"{family}:{kernel}": (n, fam_shapes[family]["sfc_cuda+sfc_attn"]["totals"][kernel])
+               for (family, kernel), n in split.items()
+               if n != fam_shapes[family]["sfc_cuda+sfc_attn"]["totals"][kernel]}
+    if unsplit:
+        raise AssertionError(f"the families' attention launches at their rows' shapes do not sum to the run's: "
+                             f"{unsplit}")
+    for row in fam_chunk_rows:
+        gm = row["gemm"]
+        family = gm.name.split("/")[0]
+        count = fam_shapes[family]["sfc_cuda+sfc_attn"]["sfc_gemm_fused"].get(gm.key, 0)
+        kernels.append({
+            "name": f"sfc_gemm_fused:chunk_einsum:{gm.name}",
+            "route": "cuda",
+            "source": kernel_source(row["kernel"]),
+            "replaces": "src/repro/kernels/sfc_gemm.py:491",
+            "launches": count,
+            "launches_at_shape": count,
+            "path": gm.path,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": f"torch.bmm(a, b{', out_dtype=torch.float32' if gm.f32_out else ''})",
+            "kernel": row["kernel"],
+            "config": row["config"],
+            "shape": {"batch": gm.batch, "m": gm.m, "k": gm.k, "n": gm.n, "per_batch_b": True,
+                      "in": "float32" if gm.f32_in else "bfloat16",
+                      "out": "float32" if gm.f32_out or gm.f32_in else "bfloat16"},
         })
     missing = [k["name"] for k in kernels if k["launches"] == 0 and k.get("main_path", True)]
     if missing:

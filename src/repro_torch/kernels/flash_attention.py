@@ -14,6 +14,7 @@ operands TMA can describe takes ``flash_fwd_wgmma_kernel`` (W q heads of
 one kv head a CTA, sharing each k / v tile), every other call
 ``flash_fwd_kernel`` (`sfc_attention.launch_flash_fwd`).  A CPU tensor goes
 to `flash_attention_plain`; a CUDA tensor launches a kernel or raises.
+The wrapper is a `kernels.entry.kernel_entry`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.entry import kernel_entry
 from repro_torch.kernels.sfc_attention import NEG, check_fwd_shapes, launch_flash_fwd, pad_seq, require_no_grad
 
 __all__ = ["flash_attention", "flash_attention_plain"]
@@ -102,6 +104,7 @@ def _device_dense(nq: int, nk: int, causal: bool, device: torch.device):
     return torch.from_numpy(tab_k).to(device), torch.from_numpy(row_start).to(device)
 
 
+@kernel_entry
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, T, Hkv, D)

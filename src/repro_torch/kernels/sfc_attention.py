@@ -32,7 +32,8 @@ operands TMA can describe (`uses_fwd_wgmma_kernel`,
 W q heads of one kv head on one stream of k / v tiles, `fwd_wgmma_grid`;
 K13 sums its group's q heads in parts, one a CTA of its cluster, the
 order `sfc_flash_bwd_dkv_plain` takes with ``group_parts``), every other
-call the 64 x 64 tile kernels.
+call the 64 x 64 tile kernels.  Each public wrapper is a
+`kernels.entry.kernel_entry` (one opaque operation to remat's policy).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import torch
 from repro_torch.core.device import sm_count
 from repro_torch.core.schedule import attention_spec, compile_schedule
 from repro_torch.kernels import build
+from repro_torch.kernels.entry import kernel_entry
 
 __all__ = [
     "NEG",
@@ -106,6 +108,13 @@ def build_attention_task_table(
 def kernel_chunks() -> Tuple[int, int]:
     """(q_chunk, k_chunk) of the tile the CUDA flash kernel is compiled for."""
     return build.ATTN_TILE
+
+
+def shape_key(q: torch.Tensor, k: torch.Tensor, causal: bool) -> Tuple[int, ...]:
+    """The flash wrappers' ``launches_by_shape`` key: (B, S, T, H, Hkv, D,
+    causal)."""
+    b, s, h, d = q.shape
+    return (b, s, k.shape[1], h, k.shape[2], d, bool(causal))
 
 
 def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -380,6 +389,7 @@ def launch_flash_fwd(
     return o, lse, key
 
 
+@kernel_entry
 def sfc_flash_fwd(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, T, Hkv, D)
@@ -402,8 +412,9 @@ def sfc_flash_fwd(
     ``flash_fwd_wgmma_kernel`` for the operands `uses_fwd_wgmma_kernel`
     takes, else ``flash_fwd_kernel``), whose tile is fixed at compile time:
     the chunks must be `kernel_chunks()` or None.  Every launch adds one to
-    ``sfc_flash_fwd.launches`` and to ``launches_by_kernel[(kernel, W)]``
-    (the tile kernel's W: 1).  On a CPU tensor it runs
+    ``sfc_flash_fwd.launches``, to ``launches_by_kernel[(kernel, W)]`` (the
+    tile kernel's W: 1) and to ``launches_by_shape[shape_key(...)]``.  On a
+    CPU tensor it runs
     `sfc_flash_fwd_plain` (chunks default to the kernel's) and counts
     nothing.
     """
@@ -425,11 +436,13 @@ def sfc_flash_fwd(
     if key is not None:
         sfc_flash_fwd.launches += 1
         sfc_flash_fwd.launches_by_kernel[key] += 1
+        sfc_flash_fwd.launches_by_shape[shape_key(q, k, causal)] += 1
     return o, lse
 
 
 sfc_flash_fwd.launches = 0
 sfc_flash_fwd.launches_by_kernel = collections.Counter()
+sfc_flash_fwd.launches_by_shape = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -668,6 +681,7 @@ def _bwd_chunks(name: str, tile: Tuple[int, int], q_chunk, k_chunk) -> None:
                          f"got {(q_chunk, k_chunk)}")
 
 
+@kernel_entry
 def sfc_flash_bwd_dq(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, T, Hkv, D)
@@ -688,9 +702,10 @@ def sfc_flash_bwd_dq(
     On a CUDA tensor this launches a dQ kernel (tile `kernel_chunks()`;
     the chunks must be that or None): ``flash_bwd_dq_wgmma_kernel`` where
     `uses_bwd_wgmma_kernel` says so, else ``flash_bwd_dq_kernel``; it adds
-    one to ``sfc_flash_bwd_dq.launches`` and to ``launches_by_kernel[(kernel,
-    1)]``.  On a CPU tensor it runs `sfc_flash_bwd_dq_plain` (chunks default
-    to the kernel's) and counts nothing."""
+    one to ``sfc_flash_bwd_dq.launches``, to ``launches_by_kernel[(kernel,
+    1)]`` and to ``launches_by_shape[shape_key(...)]``.  On a CPU tensor
+    it runs `sfc_flash_bwd_dq_plain` (chunks default to the kernel's) and
+    counts nothing."""
     seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
     kw = dict(causal=causal, seq_q=seq_q, seq_k=seq_k, q_offset=q_offset)
     if q.device.type == "cpu":
@@ -708,9 +723,11 @@ def sfc_flash_bwd_dq(
         _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), tab_k, row_start, wgmma=wgmma, strides=strides, **kw)
         sfc_flash_bwd_dq.launches += 1
         sfc_flash_bwd_dq.launches_by_kernel[("flash_bwd_dq_wgmma_kernel" if wgmma else "flash_bwd_dq_kernel", 1)] += 1
+        sfc_flash_bwd_dq.launches_by_shape[shape_key(q, k, causal)] += 1
     return dq
 
 
+@kernel_entry
 def sfc_flash_bwd_dkv(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -737,10 +754,11 @@ def sfc_flash_bwd_dkv(
     ``flash_bwd_dkv_wgmma_kernel``, a cluster of C CTAs per k tile
     (`bwd_wgmma_grid`) that sums its CTAs' parts of the group after the
     walk, else ``flash_bwd_dkv_kernel``; it adds one to
-    ``sfc_flash_bwd_dkv.launches`` and to ``launches_by_kernel[(kernel,
-    C)]`` (the tile kernel's C: 1).  On a CPU tensor it runs
-    `sfc_flash_bwd_dkv_plain` in the order the card would take for these
-    operands (with `H100_SMS` SMs) and counts nothing."""
+    ``sfc_flash_bwd_dkv.launches``, to ``launches_by_kernel[(kernel, C)]``
+    (the tile kernel's C: 1) and to ``launches_by_shape[shape_key(...)]``.
+    On a CPU tensor it runs `sfc_flash_bwd_dkv_plain` in the order the card
+    would take for these operands (with `H100_SMS` SMs) and counts
+    nothing."""
     seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
     kw = dict(causal=causal, seq_q=seq_q, seq_k=seq_k, q_offset=q_offset)
     if q.device.type == "cpu":
@@ -767,13 +785,16 @@ def sfc_flash_bwd_dkv(
         sfc_flash_bwd_dkv.launches += 1
         sfc_flash_bwd_dkv.launches_by_kernel[("flash_bwd_dkv_wgmma_kernel" if wgmma else "flash_bwd_dkv_kernel",
                                               cluster)] += 1
+        sfc_flash_bwd_dkv.launches_by_shape[shape_key(q, k, causal)] += 1
     return dk, dv
 
 
 sfc_flash_bwd_dq.launches = 0
 sfc_flash_bwd_dq.launches_by_kernel = collections.Counter()
+sfc_flash_bwd_dq.launches_by_shape = collections.Counter()
 sfc_flash_bwd_dkv.launches = 0
 sfc_flash_bwd_dkv.launches_by_kernel = collections.Counter()
+sfc_flash_bwd_dkv.launches_by_shape = collections.Counter()
 
 
 def _check_decode(q, k, v, valid_len):
@@ -875,6 +896,7 @@ def sfc_decode_attention_plain(
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
+@kernel_entry
 def sfc_decode_attention(
     q: torch.Tensor,  # (B, 1, H, D)
     k: torch.Tensor,  # (B, T, Hkv, D) cache, as stored

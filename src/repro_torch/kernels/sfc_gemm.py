@@ -74,6 +74,11 @@ checksum needs no atomics and is as deterministic as the output.  On the
 card it is a kernel of its own per mode (the ``-DSFC_ABFT=1`` parts); the
 plain versions sum the same tiles.  `robust.abft` compares it with the
 operand-side checksum.
+
+Each public wrapper (``sfc_gemm_fused``, ``sfc_gemm_replicated``,
+``add_reduce``, ``sfc_gemm_nt``, ``sfc_gemm_tn`` and the grouped three) is a
+`kernels.entry.kernel_entry`: one opaque operation to remat's policy, its
+launch or its plain version alike.
 """
 
 from __future__ import annotations
@@ -89,6 +94,7 @@ import torch.nn.functional as F
 from repro_torch.core.device import sm_count
 from repro_torch.core.schedule import compile_schedule, gemm_spec, grouped_gemm_spec, grouped_tn_spec
 from repro_torch.kernels import build
+from repro_torch.kernels.entry import kernel_entry
 
 __all__ = [
     "ACTIVATIONS",
@@ -804,6 +810,7 @@ def _launch_f32_out(a, b, out, *, bm, bn, shape, abft):
     return _results((out,), _lane_total(parts, a.device) if abft else None)
 
 
+@kernel_entry
 def sfc_gemm_fused(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -966,6 +973,7 @@ def _device_layer_table(mb: int, nb: int, k_layers: int, device: torch.device) -
     return torch.from_numpy(tab.copy()).to(device).contiguous()
 
 
+@kernel_entry
 def sfc_gemm_replicated(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -1088,6 +1096,7 @@ def add_reduce_plain(copies: torch.Tensor) -> torch.Tensor:
     return copies.float().sum(dim=copies.ndim - 3).to(copies.dtype)
 
 
+@kernel_entry
 def add_reduce(copies: torch.Tensor) -> torch.Tensor:
     """The layer sum of the replicated form (K6): each output element is
     the f32 sum of its L copies, written once in the copies' type.
@@ -1457,6 +1466,7 @@ def _launch_bwd(kind: str, a, b, x2, out, out2, *, rows: int, cols: int, depth: 
         raise RuntimeError(f"sfc_gemm_{kind} kernel launch failed with CUDA error {rc}")
 
 
+@kernel_entry
 def sfc_gemm_nt(
     a: torch.Tensor,  # (M, K)
     b: torch.Tensor,  # (N, K): consumed as bᵀ, never transposed in memory
@@ -1632,6 +1642,7 @@ def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: boo
     return (norms, _lane_total(chk, a.device, n_sets)) if abft else norms
 
 
+@kernel_entry
 def sfc_gemm_tn(
     a: torch.Tensor,  # (M, K): consumed as aᵀ, never transposed in memory
     b: torch.Tensor,  # (M, N)
@@ -1962,6 +1973,7 @@ def _launch_grouped(a, b, b_gate, bias, gate_bias, *, gs, activation, out_scale,
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
 
+@kernel_entry
 def sfc_gemm_grouped(
     a: torch.Tensor,  # (T, K) the experts' rows, packed, unpadded
     b: torch.Tensor,  # (E, K, N) per-expert weights
@@ -2053,6 +2065,7 @@ def sfc_gemm_grouped_nt_plain(
     return out
 
 
+@kernel_entry
 def sfc_gemm_grouped_nt(
     a: torch.Tensor,  # (T, K) the experts' packed rows (the dC of each expert)
     b: torch.Tensor,  # (E, N, K) per-expert weights as stored, consumed as b[e]ᵀ
@@ -2222,6 +2235,7 @@ def sfc_gemm_grouped_tn_plain(
     return norms
 
 
+@kernel_entry
 def sfc_gemm_grouped_tn(
     a: torch.Tensor,  # (T, K) the experts' packed forward rows
     b: torch.Tensor,  # (T, N) their dC rows, packed alike

@@ -11,7 +11,9 @@ version.  The JAX CLI's ``--backend xla`` / ``sfc_pallas`` are ``torch`` /
 ``--fused-optimizer`` runs AdamW of every routed projection weight inside
 the TN kernel's flush (dW never reaches device memory; the clip stays
 exact), and ``--no-stochastic-round`` makes its bf16 write-back round to
-nearest:
+nearest; ``--remat`` (JAX's choices and CLI default, "none") recomputes
+each layer, or each group of the hybrid and xLSTM families, in the
+backward (`models.remat`):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --reduced \
       --device cpu --fused-optimizer --backend sfc_cuda --steps 8 --batch 4 --seq 32
@@ -21,6 +23,13 @@ stack's AdamW inside the grouped TN kernel's flush (K10):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced \
       --device cpu --fused-optimizer --backend sfc_cuda --steps 4 --batch 2 --seq 16
+
+Every family trains: the encoder-decoder's batch carries the JAX package's
+stub frame embeddings (``src_embeds``, as many frames as tokens), the VLM's its M-RoPE
+positions and stub vision rows:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-medium --reduced \
+      --device cpu --backend sfc_cuda --remat dots --steps 2 --batch 2 --seq 16
 
 Checkpointing and `TrainLoop` (ROADMAP queue 1 item 14) and the mesh (item
 16) are not ported.
@@ -39,8 +48,35 @@ from repro_torch.core.attention_backend import ATTN_IMPLS
 from repro_torch.core.namespaces import BACKENDS
 from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
 from repro_torch.models.registry import build_model
+from repro_torch.models.remat import REMAT_POLICIES
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.train.step import BackendConfig, make_train_step
+
+
+def make_batch_fn(cfg, *, batch: int, seq: int, seed: int = 0, device=None):
+    """``batch_fn(step) -> batch`` on ``device``: `SyntheticLM`'s tokens and
+    labels, and the family's inputs as the JAX package's trainer draws
+    them."""
+    data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
+
+    def batch_fn(step: int):
+        out = {k: torch.from_numpy(v) for k, v in data.batch(step).items()}
+        if cfg.family == "audio":
+            # the JAX package's encoder-decoder inputs: ``seq`` stub frame embeddings
+            rng = np.random.default_rng(step)
+            out["src_embeds"] = torch.from_numpy(
+                rng.normal(size=(batch, seq, cfg.d_model)).astype(np.float32) * 0.1)
+        if cfg.family == "vlm":
+            # the JAX package's VLM inputs: text positions on every M-RoPE
+            # axis and up to 8 stub patch embeddings drawn from the step
+            out["mrope_positions"] = torch.arange(seq, dtype=torch.int32)[None, None].expand(3, batch, seq)
+            n_img = min(8, seq)
+            rng = np.random.default_rng(step)
+            out["vision_embeds"] = torch.from_numpy(
+                rng.normal(size=(batch, n_img, cfg.d_model)).astype(np.float32) * 0.1)
+        return {k: v.to(device) for k, v in out.items()}
+
+    return batch_fn
 
 
 def build_trainer(
@@ -74,20 +110,7 @@ def build_trainer(
                               stochastic_round=stochastic_round, abft=abft),
     )
     opt_state = adamw_init(dict(model.named_parameters()))
-    data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed))
-
-    def batch_fn(step: int):
-        out = {k: torch.from_numpy(v) for k, v in data.batch(step).items()}
-        if cfg.family == "vlm":
-            # the JAX package's VLM inputs: text positions on every M-RoPE
-            # axis and up to 8 stub patch embeddings drawn from the step
-            out["mrope_positions"] = torch.arange(seq, dtype=torch.int32)[None, None].expand(3, batch, seq)
-            n_img = min(8, seq)
-            rng = np.random.default_rng(step)
-            out["vision_embeds"] = torch.from_numpy(
-                rng.normal(size=(batch, n_img, cfg.d_model)).astype(np.float32) * 0.1)
-        return {k: v.to(model.embed.device) for k, v in out.items()}
-
+    batch_fn = make_batch_fn(cfg, batch=batch, seq=seq, seed=seed, device=model.embed.device)
     return model, opt_state, step_fn, batch_fn
 
 
@@ -99,6 +122,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--remat", default="none", choices=list(REMAT_POLICIES),
+                    help="activation recomputation of each layer (group) in the backward")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--backend", default=None, choices=list(BACKENDS),
                     help="GEMM backend for the train step (forward and backward)")
@@ -117,7 +142,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     model, opt_state, step_fn, batch_fn = build_trainer(
-        cfg, batch=args.batch, seq=args.seq, lr=args.lr, total_steps=args.steps,
+        cfg, batch=args.batch, seq=args.seq, lr=args.lr, total_steps=args.steps, remat=args.remat,
         microbatches=args.microbatches, seed=args.seed, gemm_backend=args.backend,
         attn_impl=args.attn_impl, fused_optimizer=args.fused_optimizer,
         stochastic_round=not args.no_stochastic_round, device=args.device,

@@ -20,6 +20,7 @@ stacks them; a decode step writes its self-attention k / v in place.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -29,6 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import MLP, cross_entropy_loss, make_norm, normal_, param
+from repro_torch.models.remat import check_policy, remat_call
 
 __all__ = ["EncoderLayer", "DecoderLayer", "EncDecLM"]
 
@@ -114,15 +116,20 @@ class EncDecLM(nn.Module):
 
     # ---------------- encoder ----------------
 
-    def encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
+    def _enc_layer(self, layer: EncoderLayer, kw: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        x = x + attn.attention_forward(layer.attn, layer.norm1(x), causal=False, **kw)
+        return x + layer.mlp(layer.norm2(x))
+
+    def encode(self, src_embeds: torch.Tensor, *, remat: str = "dots") -> torch.Tensor:
         """The encoder's memory (B, S_enc, d_model) of the frame embeddings,
-        cast to the model's type first."""
+        cast to the model's type first.  Each encoder layer is one remat
+        unit under ``remat`` (`models.remat`)."""
+        check_policy(remat)
         x = src_embeds.to(self.embed.dtype)
         b, s, _ = x.shape
         kw = self._kw(self._positions(b, s, x.device))
         for layer in self.encoder:
-            x = x + attn.attention_forward(layer.attn, layer.norm1(x), causal=False, **kw)
-            x = x + layer.mlp(layer.norm2(x))
+            x = remat_call(functools.partial(self._enc_layer, layer, kw), remat, x)
         return self.enc_norm(x)
 
     # ---------------- decoder ----------------
@@ -143,42 +150,47 @@ class EncDecLM(nn.Module):
                                              attn_impl=cfg.attn_impl)
         return x + layer.mlp(layer.norm2(x)), cache
 
+    def _dec_layer(self, layer: DecoderLayer, memory, positions, x: torch.Tensor) -> torch.Tensor:
+        return self._dec_block(layer, x, memory, positions)[0]
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(self.final_norm(x), self.head)
 
     # ---------------- entry points ----------------
 
-    def forward(self, tokens: torch.Tensor, src_embeds: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def forward(self, tokens: torch.Tensor, src_embeds: torch.Tensor, *,
+                remat: str = "dots") -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Training forward of (B, S_dec) decoder tokens over (B, S_enc,
-        d_model) frame embeddings: (logits (B, S_dec, V), {})."""
-        memory = self.encode(src_embeds)
+        d_model) frame embeddings: (logits (B, S_dec, V), {}).  Each encoder
+        and each decoder layer is one remat unit under ``remat``
+        (`models.remat`; the JAX package's default, "dots"), the memory an
+        input of every decoder layer's."""
+        memory = self.encode(src_embeds, remat=remat)
         b, s = tokens.shape
         positions = self._positions(b, s, tokens.device)
         x = self.embed[tokens]
         for layer in self.decoder:
-            x, _ = self._dec_block(layer, x, memory, positions)
+            x = remat_call(functools.partial(self._dec_layer, layer, memory, positions), remat, x)
         return self._logits(x), {}
 
-    def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "none") -> torch.Tensor:
+    def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "dots") -> torch.Tensor:
         """The f32 cross entropy of the forward's logits on ``{"tokens",
-        "src_embeds", "labels"}``.  Only ``remat="none"`` is ported
-        (ROADMAP queue 1 item 18)."""
-        if remat != "none":
-            raise NotImplementedError(f"remat={remat!r} is not ported: ROADMAP queue 1 item 18")
-        logits, _ = self.forward(batch["tokens"].long(), batch["src_embeds"])
+        "src_embeds", "labels"}``; ``remat`` as `forward`'s."""
+        logits, _ = self.forward(batch["tokens"].long(), batch["src_embeds"], remat=remat)
         return cross_entropy_loss(logits, batch["labels"])
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, src_embeds: torch.Tensor, *,
-                cache_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                cache_len: int, remat: str = "dots") -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Encode, then prefill (B, S) decoder tokens: (last-position logits
         (B, V), cache).  The cache is ``{"kv": {"k", "v": (L, B, cache_len,
         Hkv, D)}, "mem_kv": {"k", "v": (L, B, S_enc, Hkv, D)}, "mem_len":
         S_enc, "index": S}``, the JAX package's layout.  As there, each
         layer projects the memory's k / v twice: in its cross-attention and
-        once more for the cache."""
+        once more for the cache.  ``remat`` is accepted as the JAX
+        package's; without gradients it changes nothing."""
         cfg = self.cfg
-        memory = self.encode(src_embeds)
+        memory = self.encode(src_embeds, remat=remat)
         b, s = tokens.shape
         positions = self._positions(b, s, tokens.device)
         x = self.embed[tokens]

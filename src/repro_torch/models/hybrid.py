@@ -23,6 +23,7 @@ stacks them; a decode step updates every one of them in place.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -33,6 +34,7 @@ from repro_torch.core.device import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import MLP, cross_entropy_loss, make_norm, normal_, param
+from repro_torch.models.remat import check_policy, remat_call
 
 __all__ = ["MambaBlock", "SharedAttention", "HybridLM"]
 
@@ -151,33 +153,41 @@ class HybridLM(nn.Module):
 
     # ---------------- entry points ----------------
 
-    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Training forward: (logits (B, S, V), {}), no auxiliary loss."""
+    def _group(self, group: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+        """A group of Mamba2 blocks and the shared block (JAX's remat unit)."""
+        for block in group:
+            x = self._mamba_block(block, x)
+        return self._attn_block(x)[0]
+
+    def forward(self, tokens: torch.Tensor, *, remat: str = "dots") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training forward: (logits (B, S, V), {}), no auxiliary loss.
+        Each group (its Mamba2 blocks and the shared block) and each tail
+        block is one remat unit under ``remat`` (`models.remat`; the JAX
+        package's default, "dots")."""
+        check_policy(remat)
         x = self.embed[tokens]
         for group in self.groups:
-            for block in group:
-                x = self._mamba_block(block, x)
-            x, _ = self._attn_block(x)
+            x = remat_call(functools.partial(self._group, group), remat, x)
         for block in self.tail:
-            x = self._mamba_block(block, x)
+            x = remat_call(functools.partial(self._mamba_block, block), remat, x)
         return self._logits(x), {}
 
-    def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "none") -> torch.Tensor:
+    def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "dots") -> torch.Tensor:
         """The f32 cross entropy of the forward's logits on ``{"tokens",
-        "labels": (B, S)}``.  Only ``remat="none"`` is ported (ROADMAP
-        queue 1 item 18)."""
-        if remat != "none":
-            raise NotImplementedError(f"remat={remat!r} is not ported: ROADMAP queue 1 item 18")
-        logits, _ = self.forward(batch["tokens"].long())
+        "labels": (B, S)}``; ``remat`` as `forward`'s."""
+        logits, _ = self.forward(batch["tokens"].long(), remat=remat)
         return cross_entropy_loss(logits, batch["labels"])
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, cache_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def prefill(self, tokens: torch.Tensor, *, cache_len: int,
+                remat: str = "dots") -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Prefill (B, S) tokens: (last-position logits (B, V), cache).  The
         cache is ``{"mamba": {"ssm": (G, E, B, H, N, P) f32, "conv": (G, E,
         B, W - 1, conv_dim)}, "tail": the same stacked on (n_tail, ...) or
         None, "kv": {"k", "v": (G, B, cache_len, Hkv, D)}, "index": S}``,
-        the JAX package's layout."""
+        the JAX package's layout.  ``remat`` is accepted as the JAX
+        package's; without gradients it changes nothing."""
+        check_policy(remat)
         s = tokens.shape[1]
         x = self.embed[tokens]
         group_states, ks, vs = [], [], []

@@ -141,7 +141,10 @@ def ssd_chunked(
     scores = chunk_einsum("bcin,bcjn->bcij", cc, bc, preferred_element_type=torch.float32)
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, NC, i, j, H)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    w = torch.where(mask[None, None, :, :, None], torch.exp(decay), 0.0)
+    # exp of -inf above the diagonal: the same weights as JAX's
+    # where(mask, exp(decay), 0), whose gradient is NaN wherever the masked
+    # decay overflows exp (at full width, 256-step chunks)
+    w = torch.exp(decay.masked_fill(~mask[None, None, :, :, None], float("-inf")))
     w = w * scores[..., None]  # (B, NC, i, j, H)
     y_intra = chunk_einsum("bcijh,bcjhp->bcihp", w.to(x.dtype), xc)
 

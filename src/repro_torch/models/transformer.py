@@ -9,11 +9,13 @@ Parameters keep the JAX package's layout: projection weights are (in, out),
 so the GEMM kernel receives (K, N) as the TPU kernel did, and the per-layer
 parameters are indexable — ``model.layers[i]`` here, the leading axis of
 the stacked ``layers`` tree there (`repro_torch.convert.params_from_jax`
-maps one onto the other).  The layer stack is a Python loop.
+maps one onto the other).  The layer stack is a Python loop, each layer
+one remat unit of the training forward (`models.remat`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -25,6 +27,7 @@ from repro_torch.core.gemm_backend import matmul as _bmm
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import MLP, cross_entropy_loss, make_norm, normal_, param
 from repro_torch.models.moe import MoE, moe_forward
+from repro_torch.models.remat import check_policy, remat_call
 
 __all__ = ["Block", "DecoderLM"]
 
@@ -124,47 +127,49 @@ class DecoderLM(nn.Module):
 
     # ---------------- entry points ----------------
 
+    def _layer(self, layer: Block, mrope_positions: Optional[torch.Tensor], x: torch.Tensor):
+        """One decoder layer of the training forward (JAX's remat unit):
+        (x, the MoE aux losses or None)."""
+        cfg = self.cfg
+        h = layer.norm1(x)
+        x = x + attn.attention_forward(
+            layer.attn, h, causal=True, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
+            mrope_positions=mrope_positions, **self._attn_kw()
+        )
+        m, aux = layer.ffn(layer.norm2(x))
+        return x + m, aux
+
     def forward(
         self,
         tokens: torch.Tensor,  # (B, S)
         *,
         mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
         vision_embeds: Optional[torch.Tensor] = None,  # (B, n_img, d)
+        remat: str = "dots",
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Training forward: (logits, aux); aux holds the MoE losses summed
         over the layers, zero for the dense family.  The VLM takes its stub
         patch embeddings and M-RoPE positions (else text positions on every
-        axis)."""
-        cfg = self.cfg
+        axis).  Each layer is one remat unit under ``remat``
+        (`models.remat`; the JAX package's default, "dots")."""
+        check_policy(remat)
         x = self._embed(tokens, vision_embeds)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux_acc = {"moe_aux_loss": zero, "moe_z_loss": zero}
         for layer in self.layers:
-            h = layer.norm1(x)
-            x = x + attn.attention_forward(
-                layer.attn, h, causal=True, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
-                mrope_positions=mrope_positions, **self._attn_kw()
-            )
-            m, aux = layer.ffn(layer.norm2(x))
-            x = x + m
+            x, aux = remat_call(functools.partial(self._layer, layer, mrope_positions), remat, x)
             if aux is not None:
                 aux_acc = {k: aux_acc[k] + aux[k] for k in aux_acc}
         return self._logits(x), aux_acc
 
-    def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "none") -> torch.Tensor:
+    def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "dots") -> torch.Tensor:
         """Training loss of a batch ``{"tokens", "labels": (B, S)}`` (the
         VLM's also ``"mrope_positions"`` (3, B, S) and ``"vision_embeds"``
         (B, n_img, d) where given): the f32 cross entropy of the forward's
         logits plus the MoE losses (zero for the dense family) over the
-        layer count.  Only ``remat="none"`` is ported (the JAX package's
-        default is "dots")."""
-        if remat != "none":
-            raise NotImplementedError(
-                f"remat={remat!r} (activation recomputation through torch.utils.checkpoint) is not "
-                "ported: ROADMAP queue 1 item 18"
-            )
+        layer count.  ``remat`` as `forward`'s."""
         logits, aux = self.forward(batch["tokens"].long(), mrope_positions=batch.get("mrope_positions"),
-                                   vision_embeds=batch.get("vision_embeds"))
+                                   vision_embeds=batch.get("vision_embeds"), remat=remat)
         n = self.cfg.n_layers
         return cross_entropy_loss(logits, batch["labels"]) + aux["moe_aux_loss"] / n + aux["moe_z_loss"] / n
 
@@ -176,11 +181,14 @@ class DecoderLM(nn.Module):
         cache_len: int,
         mrope_positions: Optional[torch.Tensor] = None,
         vision_embeds: Optional[torch.Tensor] = None,
+        remat: str = "dots",
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Prefill (B, S) tokens (the VLM's with its stub patch embeddings
         and M-RoPE positions, as `forward`): (last-position logits (B, V),
         cache), the cache ``{"k", "v": (L, B, cache_len, Hkv, D), "index":
-        S}``."""
+        S}``.  ``remat`` is accepted as the JAX package's; without gradients
+        it changes nothing."""
+        check_policy(remat)
         cfg = self.cfg
         s = tokens.shape[1]
         x = self._embed(tokens, vision_embeds)

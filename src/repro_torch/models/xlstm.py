@@ -104,7 +104,9 @@ def mlstm_chunked(
         # intra-chunk weights w_ij = exp(fcum_i - fcum_j + i_j - m_loc_i), j <= i
         dlog = (fcum_i[:, :, None, :] - fcum_i[:, None, :, :] + i_i[:, None, :, :]
                 - m_loc[:, :, None, :])  # (B, i, j, H)
-        w = torch.where(mask[None, :, :, None], torch.exp(dlog), 0.0)
+        # exp of -inf above the diagonal (JAX: where(mask, exp(dlog), 0), NaN
+        # gradients where the masked dlog overflows exp; the same weights)
+        w = torch.exp(dlog.masked_fill(~mask[None, :, :, None], float("-inf")))
         qk = chunk_einsum("blhp,bjhp->bljh", q_i, k_i, preferred_element_type=torch.float32)
         att = w * qk  # (B, i, j, H)
         num_intra = chunk_einsum("bljh,bjhp->blhp", att, v_i.float())

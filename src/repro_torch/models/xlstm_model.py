@@ -15,6 +15,7 @@ stacked as the JAX package stacks it; a decode step updates it in place.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -24,6 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import torch_dtype
 from repro_torch.models import xlstm
 from repro_torch.models.layers import cross_entropy_loss, make_norm, normal_, param
+from repro_torch.models.remat import check_policy, remat_call
 
 __all__ = ["XLSTMLM"]
 
@@ -67,34 +69,41 @@ class XLSTMLM(nn.Module):
 
     # ---------------- entry points ----------------
 
-    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Training forward: (logits (B, S, V), {}), no auxiliary loss."""
+    def _group(self, group: nn.ModuleList, s_block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """A group of mLSTM blocks and its sLSTM block (JAX's remat unit)."""
         cfg = self.cfg
+        for block in group:
+            x = xlstm.mlstm_block_forward(block, x, n_heads=cfg.n_heads, chunk=cfg.ssm_chunk)
+        return xlstm.slstm_block_forward(s_block, x, n_heads=cfg.n_heads)
+
+    def forward(self, tokens: torch.Tensor, *, remat: str = "dots") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training forward: (logits (B, S, V), {}), no auxiliary loss.
+        Each group is one remat unit under ``remat`` (`models.remat`; the
+        JAX package's default, "dots")."""
+        check_policy(remat)
         x = self.embed[tokens]
         for group, s_block in zip(self.mlstm, self.slstm):
-            for block in group:
-                x = xlstm.mlstm_block_forward(block, x, n_heads=cfg.n_heads, chunk=cfg.ssm_chunk)
-            x = xlstm.slstm_block_forward(s_block, x, n_heads=cfg.n_heads)
+            x = remat_call(functools.partial(self._group, group, s_block), remat, x)
         return self._logits(x), {}
 
-    def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "none") -> torch.Tensor:
+    def loss(self, batch: Dict[str, torch.Tensor], *, remat: str = "dots") -> torch.Tensor:
         """The f32 cross entropy of the forward's logits on ``{"tokens",
-        "labels": (B, S)}``.  Only ``remat="none"`` is ported (ROADMAP
-        queue 1 item 18)."""
-        if remat != "none":
-            raise NotImplementedError(f"remat={remat!r} is not ported: ROADMAP queue 1 item 18")
-        logits, _ = self.forward(batch["tokens"].long())
+        "labels": (B, S)}``; ``remat`` as `forward`'s."""
+        logits, _ = self.forward(batch["tokens"].long(), remat=remat)
         return cross_entropy_loss(logits, batch["labels"])
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, cache_len: int = 0) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def prefill(self, tokens: torch.Tensor, *, cache_len: int = 0,
+                remat: str = "dots") -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Prefill (B, S) tokens: (last-position logits (B, V), cache).  The
         cache is the recurrent state, ``{"mlstm_core": (C (G, M, B, H, P,
         P), n (G, M, B, H, P), m (G, M, B, H)) in f32, "mlstm_conv": (G, M,
         B, W - 1, d_inner), "slstm": (c, n, m, h) each (G, B, H, P) f32,
         "index": S}``, the JAX package's layout.  ``cache_len`` is accepted
-        for the engine's interface and ignored, as in the JAX package."""
+        for the engine's interface and ignored, as in the JAX package, and
+        so is ``remat`` without gradients."""
         del cache_len
+        check_policy(remat)
         cfg = self.cfg
         x = self.embed[tokens]
         cores, convs, s_states = [], [], []

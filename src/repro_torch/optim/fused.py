@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch.convert import jax_leaf_path
+from repro_torch.kernels.entry import recomputing
 
 __all__ = [
     "FusedUpdateConfig",
@@ -144,9 +145,10 @@ def probe_routed(
     fused_filter: Optional[Callable[[str, torch.Tensor], bool]] = None,
 ) -> Dict[str, RoutedLeaf]:
     """{name: RoutedLeaf} for every candidate parameter of ``model`` that a
-    one-token forward brings to a projection call site exactly once (a
-    weight consumed twice would need two updates).  The forward runs on the
-    "torch" backend with blockwise attention, so it launches no kernel."""
+    one-token forward (an encoder-decoder's over one stub frame) brings to a
+    projection call site exactly once (a weight consumed twice would need
+    two updates).  The forward runs on the "torch" backend with blockwise
+    attention, so it launches no kernel."""
     from repro_torch.core.attention_backend import attention_backend
     from repro_torch.core.gemm_backend import gemm_backend
 
@@ -154,11 +156,15 @@ def probe_routed(
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
     one = torch.zeros((1, 1), dtype=torch.long, device=device)
+    batch = {"tokens": one, "labels": one}
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None and cfg.is_encoder_decoder:  # one stub frame for the encoder
+        batch["src_embeds"] = torch.zeros((1, 1, cfg.d_model), device=device)
     probe = _Probe()
     tok = _PROBE.set(probe)
     try:
         with gemm_backend("torch"), attention_backend("blockwise"):
-            model.loss({"tokens": one, "labels": one})
+            model.loss(batch)
     finally:
         _PROBE.reset(tok)
     chosen = {n: p for n, p in params.items() if fused_filter(n, p) and probe.count.get(id(p)) == 1}
@@ -256,20 +262,31 @@ class FusedSession:
         self.two_phase = two_phase
         self._by_id = {id(params[n]): leaf for n, leaf in routed.items()}
         self.slots: List[_Slot] = []
-        self._seen: set = set()
+        self._slot_of: Dict[str, _Slot] = {}
 
     def lookup(self, w: torch.Tensor) -> Optional[RoutedLeaf]:
         leaf = self._by_id.get(id(w))
         return leaf if leaf is not None and self.params[leaf.name] is w else None
 
     def slot(self, *leaves: RoutedLeaf) -> _Slot:
-        for leaf in leaves:
-            if leaf.name in self._seen:
-                raise RuntimeError(f"routed weight {leaf.name} reached a projection twice in one step: "
+        """The tape's slot of a routed projection.  A remat unit's recomputed
+        forward (`kernels.entry.recomputing`) reaches each of its projections
+        a second time: it gets the slot the forward's call took, with its
+        salts, and adds none (the backward of the forward's graph hands
+        ``(a, dh, dg)`` to that slot once)."""
+        names = [leaf.name for leaf in leaves]
+        if recomputing():
+            s = self._slot_of.get(names[0])
+            if s is None or [leaf.name for leaf in s.leaves] != names:
+                raise RuntimeError(f"a recomputed forward reached routed weights {names} that its forward did not")
+            return s
+        for name in names:
+            if name in self._slot_of:
+                raise RuntimeError(f"routed weight {name} reached a projection twice in one step: "
                                    "its update would apply twice")
-            self._seen.add(leaf.name)
         s = _Slot(self, list(leaves))
         self.slots.append(s)
+        self._slot_of.update((name, s) for name in names)
         return s
 
     def check_complete(self) -> None:

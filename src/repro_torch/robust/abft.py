@@ -52,7 +52,7 @@ import contextvars
 import functools
 import os
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -290,8 +290,9 @@ def reset_runtime_sdc() -> None:
 
 
 class StepScope:
-    """A step's device-side ledger: per-namespace mismatch counts and the
-    running largest ratio, read to the host once, at the scope's exit; then
+    """A step's device-side ledger: each check's mismatch flag and ratio,
+    counted by namespace and maxed on the device and read to the host once,
+    at the scope's exit; then
     ``detections`` ({namespace: count}, the namespaces that mismatched) and
     ``max_ratio`` hold this step's share of the runtime counters.  The exit
     closes the scope: a check made in it later (a backward run after the
@@ -299,25 +300,31 @@ class StepScope:
 
     def __init__(self):
         self.closed = False
-        self.bad: Dict[str, torch.Tensor] = {}
-        self.ratio: Optional[torch.Tensor] = None
+        self.bad: Dict[str, List[torch.Tensor]] = {}
+        self.ratios: List[torch.Tensor] = []
         self.checks = 0
         self.detections: Dict[str, int] = {}
         self.max_ratio = 0.0
 
     def record(self, namespace: str, bad: torch.Tensor, ratio: torch.Tensor) -> None:
-        prev = self.bad.get(namespace)
-        flag = bad.to(torch.float32)
-        self.bad[namespace] = flag if prev is None else prev + flag
-        self.ratio = ratio if self.ratio is None else torch.fmax(self.ratio, ratio)
+        # kept, and summed at the flush: a check runs the same device ops
+        # whatever was recorded before it, so a remat unit's recomputed
+        # forward replays its forward's ops (`models.remat`)
+        self.bad.setdefault(namespace, []).append(bad.to(torch.float32))
+        self.ratios.append(ratio)
         self.checks += 1
 
     def flush(self) -> None:
         if not self.checks:
             return
         names = list(self.bad)
-        dev = self.ratio.device
-        vals = torch.stack([self.bad[n].to(dev) for n in names] + [self.ratio]).tolist()  # the one host read
+        ratios = torch.stack(self.ratios)
+        dev = ratios.device
+        # fmax over the checks: NaN only where every ratio is NaN
+        top = torch.where(ratios.isnan().all(), ratios.new_full((), float("nan")),
+                          ratios.nan_to_num(nan=float("-inf")).max())
+        counts = [torch.stack(self.bad[n]).to(dev).sum() for n in names]
+        vals = torch.stack(counts + [top]).tolist()  # the one host read
         self.detections = {n: int(v) for n, v in zip(names, vals[:-1]) if v}
         self.max_ratio = vals[-1] if vals[-1] == vals[-1] else 0.0
         _note(self.checks, vals[-1], self.detections)

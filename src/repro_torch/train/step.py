@@ -21,8 +21,15 @@ stand-in for JAX's traced step, so every kernel launch of the step, the
 backward and the fused update included, checks its checksum without a host
 read, and nothing raises for a mismatch: the caller reads
 ``runtime_sdc_total()`` after the step, as the JAX package's ``TrainLoop``
-does (its rollback is ROADMAP queue 1 item 14).  Left out: remat other than
-"none" (item 18), which raises ``NotImplementedError``.
+does (its rollback is ROADMAP queue 1 item 14).
+
+Remat (``remat``, `models.remat`): the JAX package's default, "dots",
+recomputes each layer (each group of the hybrid and xLSTM families) in the
+backward, keeping its input and the products of plain torch ops; every
+SFC kernel call is recomputed.  The recompute runs in the forward's
+context (backends, ABFT state, the fused step's tape), so the fused step's
+recomputed projections reuse their slots and each routed weight is
+updated once.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 
 from repro_torch.core.attention_backend import attention_backend as _attn_backend_ctx
 from repro_torch.core.gemm_backend import gemm_backend as _gemm_backend_ctx
+from repro_torch.models.remat import check_policy
 from repro_torch.optim import fused as _fused
 from repro_torch.optim.adamw import (
     HYP_LR,
@@ -122,7 +130,7 @@ def make_train_step(
     model,
     opt_cfg: AdamWConfig,
     *,
-    remat: str = "none",
+    remat: str = "dots",
     microbatches: int = 1,
     backend: Optional[BackendConfig] = None,
     fused_filter: Optional[Callable[[str, torch.Tensor], bool]] = None,
@@ -137,12 +145,15 @@ def make_train_step(
     nonfinite global gradient norm skips the update exactly (the scale-0
     sentinel of `optim.adamw.clip_scale`); as in the JAX package's unfused
     step, ``nonfinite_guard`` only matters to the fused step.
-    ``lr_scale`` (None = 1) multiplies the schedule's lr.
+    ``lr_scale`` (None = 1) multiplies the schedule's lr.  ``remat`` is
+    the loss's remat policy (`models.remat`; "dots", the JAX package's
+    default).
 
     ``backend.fused_optimizer`` builds the grad-and-update step instead
     (`_make_fused_train_step`); ``fused_filter(name, param) -> bool``
     overrides its routing candidates.
     """
+    check_policy(remat)
     cfg = backend if backend is not None else BackendConfig()
     if cfg.fused_optimizer:
         if microbatches != 1:
@@ -265,8 +276,9 @@ def _make_fused_train_step(model, opt_cfg: AdamWConfig, *, remat: str, cfg: Back
     return train_step
 
 
-def make_eval_step(model, *, remat: str = "none", backend: Optional[BackendConfig] = None) -> Callable:
-    """Returns ``eval_step(batch) -> loss``, run without gradients."""
+def make_eval_step(model, *, remat: str = "dots", backend: Optional[BackendConfig] = None) -> Callable:
+    """Returns ``eval_step(batch) -> loss``, run without gradients (so
+    ``remat`` changes nothing)."""
     cfg = backend if backend is not None else BackendConfig()
 
     @torch.no_grad()

@@ -162,8 +162,9 @@ def test_encode_forward_logits_and_loss_match_jax(seamless, backends):
     _close(memory, jmemory)
     _close(logits, jlogits)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        model.loss(batch, remat="dots")
+    # "dots" recomputes each unit in the backward: the loss is bitwise "none"'s
+    with gemm_backend(backends[0]):
+        assert torch.equal(model.loss(batch, remat="dots").detach(), model.loss(batch, remat="none").detach())
 
 
 def _cache_leaves(cache):

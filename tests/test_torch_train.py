@@ -403,6 +403,7 @@ def test_unported_training_options_raise(yi_reduced):
         make_train_step(model, opt, microbatches=2, backend=BackendConfig(fused_optimizer=True))
     # the ABFT lane is ported: a step under "detect" runs and counts no
     # detection (tests/test_torch_abft.py holds its losses to "off")
+    from repro_torch.core.gemm_backend import gemm_backend
     from repro_torch.robust import abft
 
     model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, yi_reduced[1]), cfg, device="cpu"))
@@ -412,8 +413,11 @@ def test_unported_training_options_raise(yi_reduced):
     _, metrics = step(tadamw.adamw_init(dict(model.named_parameters())), batch)
     assert np.isfinite(float(metrics["loss"]))
     assert abft.runtime_sdc_total() == 0 and abft.runtime_check_total() > 0
-    with pytest.raises(NotImplementedError, match="item 18"):
-        model.loss(batch, remat="dots")
+    # "dots" recomputes each layer in the backward: the loss is bitwise "none"'s
+    with gemm_backend("sfc_cuda"):
+        assert torch.equal(model.loss(batch, remat="dots").detach(), model.loss(batch, remat="none").detach())
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        model.loss(batch, remat="everything")
     with pytest.raises(ValueError, match="microbatch"):
         make_train_step(model, opt, microbatches=3)(tadamw.adamw_init(dict(model.named_parameters())), batch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -222,8 +222,9 @@ def test_forward_logits_and_loss_match_jax(xl, backends):
     assert aux == {}
     _close(logits, jlogits)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        model.loss(batch, remat="dots")
+    # "dots" recomputes each unit in the backward: the loss is bitwise "none"'s
+    with gemm_backend(backends[0]):
+        assert torch.equal(model.loss(batch, remat="dots").detach(), model.loss(batch, remat="none").detach())
 
 
 def _cache_leaves(cache):
