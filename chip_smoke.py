@@ -7,7 +7,7 @@ Builds the port's hand-written CUDA kernels from the sources in this
 checkout (src/repro_torch/kernels/csrc: the GEMM library with its forward
 and backward parts and the attention library with its forward, decode and
 backward parts and the ABFT checksum lanes' parts, all compiled at once),
-then runs fifteen phases, each printing one JSON line (phases 2 and 6 two,
+then runs sixteen phases, each printing one JSON line (phases 2 and 6 two,
 phase 3 three) and raising on failure:
 
 1. device     the card's name and power limit (nvidia-smi) and the build time;
@@ -281,7 +281,18 @@ phase 3 three) and raising on failure:
               128 + 16 under sfc_cuda with "sfc" and blockwise attention
               and under torch, exact launches; f32 prefill logits at full
               depth within the bf16 bound of torch's, bf16 at parity;
-15. the {"kernels": [...]} line: per kernel and shape, launches in the run
+15. tune     qwen3-4b at full width and depth under sfc_cuda with "sfc"
+              attention on a tune cache of its own: calibrate() (the fitted
+              constants and their error), warmup(128, tune=True,
+              tune_update=True) (every namespace keyed by the rows its
+              launch runs: the rule's and the winner's launch and time,
+              predicted against measured), a second warmup measuring
+              nothing, the 4 x 128 + 16 serve and a fused and an unfused
+              4 x 128 training step on the tuned cache against the same on
+              an empty one (tokens bitwise or at parity, losses within
+              2^-7); every tuned bucket launched there, and every shape
+              launched in one held against its plain version;
+16. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound (K1/K2 and K4/K5 rows: the kernel
               launched and its K layers, L' or tile; K11 / K15 rows: the
@@ -304,6 +315,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -465,38 +477,13 @@ def kernel_source(name: str) -> str:
 
 
 def time_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
-    """Mean device time of fn(i) over reps calls, by CUDA events.  With
-    ``graph`` the reps calls are captured once in a CUDA graph and one
-    replay is timed, so the host's per-call cost (Python, argument checks)
-    does not leave the card idle between short kernels."""
-    import torch
+    """Mean device time of fn(i) over reps calls, by CUDA events, with
+    ``graph`` one replay of a CUDA graph of the reps calls: the package's
+    `repro_torch.tune.timing.time_ms`, which the tuner times its
+    candidates with."""
+    from repro_torch.tune.timing import time_ms as timed
 
-    # warm up on a side stream, as capturing autograd's backward requires
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for i in range(warmup):
-            fn(i)
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for i in range(reps):
-                fn(i)
-        g.replay()  # first replay uploads the graph
-        run = g.replay
-    else:
-        def run():
-            for i in range(reps):
-                fn(i)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return timed(fn, reps, warmup, graph)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -4537,6 +4524,433 @@ def phase_family_train(torch, cfg, build_trainer, build_model, make_batch_fn, ge
     return out, shapes
 
 
+# ---------------------------------------------------------------------------
+# the tuner (item 13): calibration, warmup tuning of qwen3-4b's serve and
+# train namespaces, the tuned serve and step
+# ---------------------------------------------------------------------------
+
+# the TPU kernel each tuned namespace's kernel replaces, and the CUDA source
+TUNE_REPLACES = {"gemm": "src/repro/kernels/sfc_gemm.py:355", "glu": "src/repro/kernels/sfc_gemm.py:355",
+                 "nt": "src/repro/kernels/sfc_gemm.py:1219", "nt_dual": "src/repro/kernels/sfc_gemm.py:1219",
+                 "tn": "src/repro/kernels/sfc_gemm.py:1429", "tn_dual": "src/repro/kernels/sfc_gemm.py:1429",
+                 "tn_update": "src/repro/kernels/sfc_gemm.py:1094",
+                 "tn_update_dual": "src/repro/kernels/sfc_gemm.py:1094",
+                 "attn_fwd": "src/repro/kernels/sfc_attention.py:204",
+                 "attn_bwd": "src/repro/kernels/sfc_attention.py:509",
+                 "attn_decode": "src/repro/kernels/sfc_attention.py:660"}
+# a winner that sets one of these orders an element's sum differently from
+# the rule (the cluster kernel's K layers, K13's parts of the group, K14's
+# segments); the tile width, the worker group and W do not
+SUM_ORDER_KEYS = ("layers", "cluster", "splits")
+
+
+def tuned_shapes(deltas):
+    """{(op, (m, n, k), heads): launches} of the tuned serve and steps, from
+    the wrappers' ``launches_by_shape`` deltas, each key the resolver's: a
+    GEMM's (rows, N, K), a shared weight's batch folded into its rows (no
+    per-batch weight runs on qwen3-4b's sfc_cuda path), the TN kernel's (K,
+    N, M) with the contraction M last, an attention's (Sq, Sk, D) or the
+    decode's (H, T, D) with its (batch, q heads, kv heads)."""
+    out = collections.Counter()
+    for (batch, m, k, n, glu), c in deltas["sfc_gemm_fused"].items():
+        out[("glu" if glu else "gemm", (max(batch, 1) * m, n, k), None)] += c
+    for (m, n, k, dual), c in deltas["sfc_gemm_nt"].items():
+        out[("nt_dual" if dual else "nt", (m, n, k), None)] += c
+    for key, c in deltas["sfc_gemm_tn"].items():
+        (k, n, m, dual), update = key[:4], len(key) == 5
+        op = ("tn_update" if update else "tn") + ("_dual" if dual else "")
+        out[(op, (k, n, m), None)] += c
+    for op, wrapper in (("attn_fwd", "sfc_flash_fwd"), ("attn_bwd", "sfc_flash_bwd_dkv")):
+        for (b, s_, t, h, hkv, d, _), c in deltas[wrapper].items():
+            out[(op, (s_, t, d), (b, h, hkv))] += c
+    for (b, h, t, hkv, d), c in deltas["sfc_decode_attention"].items():
+        out[("attn_decode", (h, t, d), (b, h, hkv))] += c
+    return out
+
+
+def tuned_case(torch, tk, tsa, ops, ab, build, op, m, n, k, heads):
+    """One launched shape of a tuned namespace on card operands, the call
+    resolving its launch from the process-wide tune cache: (run(), the
+    wrapper counter that names its launch, plain(key) its plain version
+    over the split that key names, flops, bytes, library() or None, the
+    comparison's dtype)."""
+    import torch.nn.functional as F
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dt)  # noqa: E731
+    big = dict(bm=4096, bn=4096)  # coarse plain tiles: the same sum for every element, fewer host steps
+    dual = op in ("glu", "nt_dual", "tn_dual", "tn_update_dual")
+    if op in ("gemm", "glu"):
+        a, b, bg = rnd(m, k), rnd(k, n), rnd(k, n)
+        run = (lambda: ops.sfc_glu_matmul(a, bg, b)) if dual else (lambda: ops.sfc_matmul(a, b))
+
+        def plain(key):  # the cluster kernel's L, else one K layer
+            return tk.sfc_gemm_fused_plain(a, b, bg if dual else None, activation="silu" if dual else None,
+                                           k_layers=key[1] if key[0] == "sfc_gemm_cluster_kernel" else 1, **big)
+
+        lib = None if dual else (lambda: torch.matmul(a, b))
+        nbytes = 2 * (m * k + k * n * (2 if dual else 1) + m * n)
+        return run, tk.sfc_gemm_fused.launches_by_kernel, plain, 2.0 * m * n * k * (2 if dual else 1), nbytes, \
+            lib, dt
+    if op in ("nt", "nt_dual"):
+        a, b = rnd(m, k), rnd(n, k)
+        extra = (a, b) if dual else ()
+        nbytes = 2 * ((m * k + n * k) * (2 if dual else 1) + m * n)
+        return (lambda: ops.sfc_matmul_nt(a, b, *extra)), tk.sfc_gemm_nt.launches_by_kernel, \
+            (lambda key: tk.sfc_gemm_nt_plain(a, b, *extra, **big)), 2.0 * m * n * k * (2 if dual else 1), \
+            nbytes, (None if dual else (lambda: a @ b.T)), dt
+    if op in ("tn", "tn_dual"):
+        a, b = rnd(k, m), rnd(k, n)
+        b2 = b if dual else None
+        nbytes = 2 * (k * m + k * n * (2 if dual else 1) + m * n * (2 if dual else 1))
+        return (lambda: ops.sfc_matmul_tn(a, b, b2)), tk.sfc_gemm_tn.launches_by_kernel, \
+            (lambda key: tk.sfc_gemm_tn_plain(a, b, b2, **big)), 2.0 * m * n * k * (2 if dual else 1), nbytes, \
+            (None if dual else (lambda: a.T @ b)), dt
+    if op in ("tn_update", "tn_update_dual"):
+        from repro_torch.optim.adamw import AdamWConfig, pack_adamw_hyper
+
+        a, b = rnd(k, m), rnd(k, n)
+        hyper = pack_adamw_hyper(AdamWConfig(), torch.ones((), dtype=torch.int32, device=dev),
+                                 torch.ones((), dtype=torch.float32, device=dev))
+        w0 = rnd(m, n)
+        sets = 2 if dual else 1
+
+        def state():
+            return [(w0.float(), torch.zeros_like(w0, dtype=torch.float32), torch.zeros_like(w0, dtype=torch.float32),
+                     w0.clone()) for _ in range(sets)]
+
+        def update(st):
+            (m1, u1, v1, w1), *rest = st
+            second = (b, *rest[0][:3]) if dual else ()
+            return ops.sfc_matmul_tn_update(a, b, m1, u1, v1, hyper, *second, w=w1,
+                                            **({"w2": rest[0][3]} if dual else {}))
+
+        def run():
+            st = state()
+            norms = update(st)
+            return (torch.stack(list(norms)) if dual else norms.reshape(1), *(x[0] for x in st))
+
+        def plain(key):
+            st = state()
+            (m1, u1, v1, w1), *rest = st
+            second = (b, *rest[0][:3]) if dual else (None, None, None, None)
+            norms = tk.sfc_gemm_tn_plain(a, b, second[0], m1, u1, v1, *second[1:], hyper, w=w1,
+                                         w2=rest[0][3] if dual else None, **big)
+            return (norms.reshape(-1), *(x[0] for x in st))
+
+        fixed = state()
+        run.timed = lambda: update(fixed)  # in place on one state
+        nbytes = 2 * (k * m + k * n * sets) + sets * 4 * m * n * 3 * 2 + sets * 2 * m * n * 2
+        return run, tk.sfc_gemm_tn.launches_by_kernel, plain, 2.0 * m * n * k * sets, nbytes, None, torch.float32
+    b_, h, hkv = heads
+    if op == "attn_decode":
+        q, kk, vv = rnd(b_, 1, m, k), rnd(b_, n, hkv, k), rnd(b_, n, hkv, k)
+        valid = torch.full((b_,), n, dtype=torch.int32, device=dev)
+        views = [x.transpose(1, 2) for x in (q, kk, vv)]
+        nbytes = 2 * (2 * b_ * n * hkv * k + 2 * b_ * m * k)
+        return (lambda: ab.decode_attention(q, kk, vv, valid)), tsa.sfc_decode_attention.launches_by_splits, \
+            (lambda key: tsa.sfc_decode_attention_plain(q, kk, vv, valid, k_chunk=build.DECODE_CHUNK, splits=key)), \
+            4.0 * b_ * m * n * k, nbytes, \
+            (lambda: F.scaled_dot_product_attention(*views, enable_gqa=True)), dt
+    q, kk, vv, do = rnd(b_, m, h, k), rnd(b_, n, hkv, k), rnd(b_, n, hkv, k), rnd(b_, m, h, k)
+    pairs = sum(min(i + 1, n) for i in range(m))  # causal (q, k) pairs of a head
+    qc, kc = tsa.kernel_chunks()
+    if op == "attn_fwd":
+        views = [x.transpose(1, 2) for x in (q, kk, vv)]
+        nbytes = 2 * (2 * b_ * m * h * k + 2 * b_ * n * hkv * k)
+        return (lambda: ab.flash_attention(q, kk, vv, causal=True)), tsa.sfc_flash_fwd.launches_by_kernel, \
+            (lambda key: tsa.sfc_flash_fwd_plain(q, kk, vv, causal=True, q_chunk=qc, k_chunk=kc,
+                                                 p_dtype=torch.bfloat16)[0]), \
+            4.0 * b_ * h * pairs * k, nbytes, \
+            (lambda: F.scaled_dot_product_attention(*views, is_causal=True, enable_gqa=True)), dt
+    o, lse = tsa.sfc_flash_fwd(q, kk, vv, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, kk, vv, do, lse, delta)
+    dqc, dkc = build.ATTN_DKV_TILE["bf16"]
+
+    def run():  # `_FlashCore.backward`'s launches: K13's C resolved under attn_bwd
+        knobs = ab.resolve_attn_knobs(m, n, k, dt, op="attn_bwd", device=dev)
+        return (tsa.sfc_flash_bwd_dq(*args, causal=True),
+                *tsa.sfc_flash_bwd_dkv(*args, causal=True, cluster=(knobs.launch or {}).get("cluster")))
+
+    def plain(key):
+        return (tsa.sfc_flash_bwd_dq_plain(*args, causal=True, q_chunk=qc, k_chunk=kc),
+                *tsa.sfc_flash_bwd_dkv_plain(*args, causal=True, q_chunk=dqc, k_chunk=dkc, group_parts=key[1]))
+
+    # the library's backward alone: SDPA forward and backward less its forward
+    views = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, kk, vv)]
+    sdpa = lambda i: F.scaled_dot_product_attention(*views, is_causal=True, enable_gqa=True)  # noqa: E731
+    run.library_ms = lambda: (time_ms(lambda i: torch.autograd.grad(sdpa(i), views, do.transpose(1, 2)), reps=20,
+                                      graph=True) - time_ms(sdpa, reps=20, graph=True))
+    nbytes = 2 * (3 * b_ * m * h * k + 4 * b_ * n * hkv * k) + 8 * b_ * m * h
+    return run, tsa.sfc_flash_bwd_dkv.launches_by_kernel, plain, 10.0 * b_ * h * pairs * k, nbytes, None, dt
+
+
+# the wrappers whose launches the tuned serve and steps count by shape
+TUNED_WRAPPERS = ("sfc_gemm_fused", "sfc_gemm_nt", "sfc_gemm_tn", "sfc_flash_fwd", "sfc_flash_bwd_dkv",
+                  "sfc_decode_attention")
+
+
+def phase_tune(torch, np, cfg, build_model, ServingEngine, build_trainer, tk, tsa, ops):
+    """Item 13 on the card: `repro_torch.tune.calibrate` (the fitted
+    constants and their fit error), then `ServingEngine.warmup(PROMPT,
+    tune=True, tune_update=True)` of full-width, full-depth qwen3-4b under
+    sfc_cuda with attn_impl "sfc" (every namespace of its `tune_table`,
+    keyed by the rows each launch runs: the projections' forward at BATCH x
+    PROMPT rows, the LM head at BATCH and, for the step, at BATCH x PROMPT,
+    their backward and fused-update buckets, and the three attention
+    kernels), on a cache file of its own, so that no other phase sees a
+    tuned entry.  For each namespace and bucket: the rule's launch and
+    time, the winner's, the predicted-against-measured error of every
+    candidate measured.  A second warmup measures nothing.  Then on the
+    tuned cache the serve of BATCH x PROMPT + NEW_TOKENS against the same
+    serve on an empty one (tokens bitwise where no winner orders a sum
+    differently, else prefill and first-decode logits at accuracy parity
+    with the torch backend against the f32 model), and one fused and one
+    unfused training step of BATCH x PROMPT, the shape whose buckets the
+    warmup tuned, each loss within 2^-7 of the same step's on the empty
+    cache (the same init and batch).  Every tuned bucket must be resolved
+    by that serve or those steps; every shape they launched in a tuned
+    bucket is held, under the tuned cache, against its kernel's plain
+    version over the split the launch's counter names, and timed.
+    Returns (summary, kernel rows: one per tuned namespace and launched
+    shape, its launches that shape's count)."""
+    import tempfile
+
+    from repro_torch.core import attention_backend as ab
+    from repro_torch.core.device import sm_count
+    from repro_torch.kernels import build
+    from repro_torch.tune import KnobCache, calibrate, tuner, using_cache
+    from repro_torch.tune.cache import shape_bucket
+
+    wrappers = {"sfc_gemm_fused": tk.sfc_gemm_fused, "sfc_gemm_nt": tk.sfc_gemm_nt, "sfc_gemm_tn": tk.sfc_gemm_tn,
+                "sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_flash_bwd_dkv": tsa.sfc_flash_bwd_dkv,
+                "sfc_decode_attention": tsa.sfc_decode_attention}
+
+    def snapshot():
+        return {name: collections.Counter(fn.launches_by_shape) for name, fn in wrappers.items()}
+
+    def since(before):
+        return {name: collections.Counter(fn.launches_by_shape) - before[name] for name, fn in wrappers.items()}
+
+    t_start = time.perf_counter()
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    sms = sm_count(dev)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    tcache = KnobCache(str(Path(work) / "tuned.json"))
+    empty = KnobCache(str(Path(work) / "empty.json"))
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    params = model.state_dict()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=PROMPT).astype(np.int32) for _ in range(BATCH)]
+    acfg = dataclasses.replace(cfg, attn_impl="sfc")
+    eng = ServingEngine(acfg, params, max_batch=BATCH, max_seq=PROMPT + NEW_TOKENS + 1, gemm_backend="sfc_cuda",
+                        device="cuda")
+    heads = (BATCH, cfg.n_heads, cfg.kv_heads)
+    with using_cache(empty):
+        eng.run(eng.submit_many(prompts[:1], max_new_tokens=2))  # first launches, allocator
+        torch.cuda.synchronize()
+        untuned = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
+    with using_cache(tcache):
+        t0 = time.perf_counter()
+        constants = calibrate(device=dev)
+        calibrate_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = eng.warmup(PROMPT, tune=True, tune_update=True)
+        warmup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = eng.warmup(PROMPT, tune=True, tune_update=True)
+        warm_again_s = time.perf_counter() - t0
+    if again["n_measured"] != 0:
+        raise AssertionError(f"a second warmup on the tuned cache measured {again['n_measured']} candidates")
+    table = eng.tune_table(PROMPT, backward=True, update=True)
+    buckets = {(op, shape_bucket(m, n, k)) for op, m, n, k in table}
+    namespaces, order_changed = [], []
+    for op, m, n, k in table:
+        bucket = "x".join(map(str, shape_bucket(m, n, k)))
+        hd = heads if op.startswith("attn") else None
+        entry = tcache.get(m, n, k, dt, "gpu", op)
+        rule = tuner.rule_launch(op, m, n, k, dt, sms=sms, heads=hd)
+        measured = [r for r in stats["report"] if r["op"] == op and r["bucket"] == bucket]
+        rule_row = next((r for r in measured if r.get("rule")), None)
+        winner = entry.launch or rule
+        if entry.launch is not None and any(winner.get(key) != rule.get(key) for key in SUM_ORDER_KEYS):
+            order_changed.append(f"{op}:{bucket}")
+        # the entry's source reads back as "cached": a namespace with no
+        # measurement cached its seed unmeasured ("analytical")
+        namespaces.append({
+            "op": op, "m": m, "n": n, "k": k, "bucket": bucket, "route": tuner.card_route(op, m, n, k, dt),
+            "source": "measured" if measured else "analytical", "rule_launch": rule,
+            "rule_ms": rule_row and rule_row["measured_s"] * 1e3, "winner_launch": winner,
+            "winner_differs_from_rule": entry.launch is not None,
+            "winner_ms": entry.time_s * 1e3 if measured else None,
+            "candidates": [{"launch": r.get("launch"), "predicted_ms": r["predicted_s"] * 1e3,
+                            "measured_ms": r["measured_s"] * 1e3,
+                            "rel_err": abs(r["measured_s"] - r["predicted_s"]) / r["measured_s"]}
+                           for r in measured]})
+
+    # the serve on the tuned cache, its launches counted by shape
+    before = snapshot()
+    with using_cache(tcache):
+        tuned = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
+    torch.cuda.synchronize()
+    serve_deltas = since(before)
+    tokens = {"untuned": np.array([r.output for r in untuned]), "tuned": np.array([r.output for r in tuned])}
+    bitwise = bool((tokens["tuned"] == tokens["untuned"]).all())
+    parity = None
+    if order_changed:
+        # the logits of the prefill and the first decode step, each variant
+        # against the same model in f32 (torch backend)
+        tok = torch.from_numpy(np.stack(prompts)).long().cuda()
+        f32 = ServingEngine(dataclasses.replace(cfg, param_dtype="float32"), {k_: v.float() for k_, v in params.items()},
+                            max_batch=BATCH, max_seq=PROMPT + NEW_TOKENS + 1, gemm_backend="torch", device="cuda")
+        ref_p, ref_cache = f32._prefill(tok)
+        nxt = ref_p.argmax(-1)[:, None]
+        ref_d, _ = f32._decode(nxt, ref_cache)
+        del f32, ref_cache
+        noise = {}
+        for name, gemm, cache in (("sfc_cuda_tuned", "sfc_cuda", tcache), ("torch", "torch", empty)):
+            e = ServingEngine(acfg if gemm == "sfc_cuda" else cfg, params, max_batch=BATCH,
+                              max_seq=PROMPT + NEW_TOKENS + 1, gemm_backend=gemm, device="cuda")
+            with using_cache(cache):
+                lp, c_ = e._prefill(tok)
+                ld, _ = e._decode(nxt, c_)
+            noise[name] = float(((lp.float() - ref_p).abs().mean() + (ld.float() - ref_d).abs().mean()) / 2)
+            del e, c_
+        parity = {"mean_abs_err_vs_f32": noise,
+                  "ok": noise["sfc_cuda_tuned"] <= ACCURACY_PARITY * noise["torch"]}
+    del eng, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a fused and an unfused training step of BATCH x PROMPT, on the empty
+    # and on the tuned cache, from the same init and batch
+    steps, step_deltas = {}, collections.Counter()
+    for fused in (True, False):
+        for label, cache in (("untuned", empty), ("tuned", tcache)):
+            with using_cache(cache):
+                model, opt_state, step_fn, batch_fn = build_trainer(
+                    cfg, batch=BATCH, seq=PROMPT, total_steps=TRAIN_STEPS, seed=0, gemm_backend="sfc_cuda",
+                    attn_impl="sfc", fused_optimizer=fused, device="cuda")
+                before = snapshot()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt_state, metrics = step_fn(opt_state, batch_fn(0))
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                steps[f"{'fused' if fused else 'unfused'}_{label}"] = {"loss": loss, "seconds": time.perf_counter() - t0}
+                if label == "tuned":
+                    for name, c in since(before).items():
+                        step_deltas[name] = step_deltas.get(name, collections.Counter()) + c
+            del model, opt_state, step_fn, batch_fn, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+    losses_ok = {kind: math.isfinite(steps[f"{kind}_tuned"]["loss"])
+                 and abs(steps[f"{kind}_tuned"]["loss"] - steps[f"{kind}_untuned"]["loss"])
+                 <= TRAIN_LOSS_RTOL * abs(steps[f"{kind}_untuned"]["loss"]) for kind in ("fused", "unfused")}
+
+    # every launched shape of a tuned bucket, held and timed under the tuned cache
+    launched_shapes = tuned_shapes({name: serve_deltas[name] + step_deltas.get(name, collections.Counter())
+                                    for name in wrappers})
+    on_path = collections.Counter()
+    rows, checks = [], []
+    for (op, (m, n, k), hd), launches in sorted(launched_shapes.items(), key=str):
+        bucket = shape_bucket(m, n, k)
+        if (op, bucket) not in buckets:
+            continue  # no entry: the rule, as in every earlier phase
+        on_path[(op, bucket)] += launches
+        run, counter, plain, flops, nbytes, lib, cmp_dt = tuned_case(torch, tk, tsa, ops, ab, build, op, m, n, k,
+                                                                      hd or heads)
+        with torch.no_grad(), using_cache(tcache):
+            got, key = launched(counter, run)
+            want, plain_ms = _once_ms(torch, lambda: plain(key))
+            ok, err, worst = within_all(got, want, cmp_dt)
+            timed = getattr(run, "timed", run)
+            ms = time_ms(lambda i: timed(), reps=20, graph=True)
+        with torch.no_grad():
+            lib_ms = time_ms(lambda i: lib(), reps=20, graph=True) if lib is not None else None
+        if hasattr(run, "library_ms"):
+            lib_ms = run.library_ms()
+        del got, want
+        entry = tcache.get(m, n, k, dt, "gpu", op)
+        name = f"{op}:{m}x{n}x{k}"
+        checks.append({"case": name, "launch": entry.launch, "counter_key": str(key), "ok": ok,
+                       "max_abs_err": err, "err_over_bound": worst})
+        if not ok:
+            raise AssertionError(f"tuned {name} ({entry.launch}, {key}) disagrees with its plain version: max err "
+                                 f"{err}, err/bound {worst}")
+        bound_ms, bound_by = _bound(flops, nbytes)
+        rows.append({"op": op, "shape": (m, n, k), "heads": hd, "bucket": "x".join(map(str, bucket)),
+                     "key": key, "launch": entry.launch, "launches": launches, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+        torch.cuda.empty_cache()
+    off_path = sorted(f"{op}:{'x'.join(map(str, b))}" for op, b in buckets if not on_path[(op, b)])
+
+    errs = [c["rel_err"] for ns_row in namespaces for c in ns_row["candidates"]]
+    summary = {
+        "phase": "tune", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype, "init_s": init_s,
+        "calibration": {**constants.as_dict(), "seconds": calibrate_s},
+        "warmup": {"n_namespaces": stats["n_namespaces"], "n_measured": stats["n_measured"],
+                   "median_rel_err": stats["median_rel_err"], "seconds": warmup_s},
+        "second_warmup": {"n_measured": again["n_measured"], "seconds": warm_again_s},
+        "median_rel_err_all_candidates": float(np.median(errs)) if errs else None,
+        "namespaces": namespaces, "winners_vs_plain": checks,
+        "winners_that_order_sums_differently": order_changed,
+        "serve": {"requests": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
+                  "tokens_bitwise_untuned": bitwise, "parity": parity},
+        "train_steps": {"batch": BATCH, "seq": PROMPT, **steps, "losses_within_2^-7": losses_ok},
+        "tuned_buckets_launched": {f"{op}:{'x'.join(map(str, b))}": c for (op, b), c in sorted(on_path.items())},
+        "tuned_buckets_never_launched": off_path,
+        "seconds": time.perf_counter() - t_start,
+    }
+    emit(summary)
+    for ns_row in namespaces:
+        print(f"tune {ns_row['op']:>14} {ns_row['bucket']:>20} rule {ns_row['rule_launch']} "
+              f"{ns_row['rule_ms']} ms -> winner {ns_row['winner_launch']} {ns_row['winner_ms']} ms "
+              f"({ns_row['source']}); predicted/measured: "
+              f"{[(round(c['predicted_ms'], 4), round(c['measured_ms'], 4)) for c in ns_row['candidates']]}",
+              file=sys.stderr, flush=True)
+    if off_path:
+        raise AssertionError(f"tuned buckets that neither the tuned serve nor the tuned steps launched: {off_path}")
+    if not order_changed and not bitwise:
+        raise AssertionError("the tuned serve's tokens part from the untuned serve's, and no winner orders a sum "
+                             "differently")
+    if parity is not None and not parity["ok"]:
+        raise AssertionError(f"the tuned serve's logits are further from the f32 model than torch's: {parity}")
+    if not all(losses_ok.values()):
+        raise AssertionError(f"a tuned step's loss is not within 2^-7 of the untuned step's: {steps}")
+    kernel_rows = []
+    for row in rows:
+        # the launch's name as its wrapper counted it: (kernel, tile / L / W / C), or the decode's S
+        kernel, config = row["key"] if isinstance(row["key"], tuple) else ("decode_split_kernel", row["key"])
+        kernel_rows.append({
+            "name": f"tuned:{row['op']}:{'x'.join(map(str, row['shape']))}",
+            "route": "cuda",
+            "source": ("src/repro_torch/kernels/csrc/sfc_attention.cu" if row["op"].startswith("attn")
+                       else kernel_source(kernel)),
+            "replaces": TUNE_REPLACES[row["op"]],
+            "launches": row["launches"],
+            "path": f"qwen3-4b's serve of {BATCH} x {PROMPT} + {NEW_TOKENS} and its fused and unfused steps of "
+                    f"{BATCH} x {PROMPT} on the tuned cache",
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "kernel": kernel,
+            "config": config,
+            "launch": row["launch"],
+            "bucket": row["bucket"],
+            "shape": dict(zip("mnk", row["shape"])),
+        })
+    return summary, kernel_rows
+
+
 def small_reference_check(torch, get_config, build_model, gemm_backend):
     """Reduced qwen3-4b in f32 on the card: sfc_cuda logits against the
     Listing-1 reference backend at rtol 1e-4 (prefill and 3 decode steps)."""
@@ -4576,7 +4990,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    import tempfile
+
     import numpy as np
+
+    # every phase resolves its launches on an empty tune cache (the kernels'
+    # rules); the tune phase brings caches of its own
+    tune_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_knobs_")
+    os.environ["REPRO_TORCH_SFC_TUNE_CACHE"] = str(Path(tune_dir.name) / "knobs.json")
 
     from repro_torch.configs import get_config
     from repro_torch.core.attention_backend import attention_backend
@@ -5077,6 +5498,12 @@ def main() -> int:
         phase_at[number] = time.perf_counter() - run_t0
         _, fam_shapes[label] = phase_family_train(torch, fcfg, build_trainer, build_model, make_batch_fn,
                                                   gemm_backend, attention_backend, counted, label, check_cut)
+
+    # ---- 21. the tuner: calibrate, tune qwen3-4b's warmup, serve and step ----
+    phase_at[21] = time.perf_counter() - run_t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, tune_rows = phase_tune(torch, np, cfg, build_model, ServingEngine, build_trainer, tk, tsa, ops)
 
     # ---- 20. the kernels line -----------------------------------------------
     phase_at[20] = time.perf_counter() - run_t0
@@ -5580,6 +6007,7 @@ def main() -> int:
                       "in": "float32" if gm.f32_in else "bfloat16",
                       "out": "float32" if gm.f32_out or gm.f32_in else "bfloat16"},
         })
+    kernels += tune_rows
     missing = [k["name"] for k in kernels if k["launches"] == 0 and k.get("main_path", True)]
     if missing:
         raise AssertionError(f"main-path kernels never launched in the run of their path: {missing}")

@@ -11,17 +11,16 @@ it:
                   the flash backward (K12 dQ, K13 dK/dV), and the
                   single-launch decode (K14), `kernels/sfc_attention`
 
-Knobs: on CPU tensors `resolve_attn_knobs` clips the caller's hint exactly
-as the JAX package does when its tune cache has no entry, so the plain
-versions walk the JAX package's task tables.  On the card the chunks are
-the CUDA kernel's compiled tile, and the task table is built over it.
+Knobs: `resolve_attn_knobs` consults the tune cache (`repro_torch.tune`)
+first, as the JAX package does.  On CPU tensors a cached winner's chunks,
+else the caller's hint, are clipped as the JAX package clips them, so the
+plain versions walk the JAX package's task tables.  On the card the chunks
+are the CUDA kernel's compiled tile, the task table is built over it, and
+the cache entry's launch (K11's W, K13's C, K14's S; ``Knobs.launch``)
+replaces the kernel's rule; with no entry every launch is the rule's.
 
-Left out of this slice, each with its ROADMAP queue 1 item:
-
-* the tune-cache lookup (item 13): `resolve_attn_knobs` takes the hint path
-  only, as the JAX package does when the cache has no entry;
-* `run_with_fallback` and `degradation_report` (item 14): nothing falls
-  back, a kernel that fails raises.
+Left out of this slice: `run_with_fallback` and `degradation_report`
+(ROADMAP queue 1 item 14): nothing falls back, a kernel that fails raises.
 
 `flash_attention` is differentiable (`_FlashCore`, the JAX package's
 ``_flash_core`` custom VJP); `decode_attention` and the "flash_pallas"
@@ -34,12 +33,13 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.core.namespaces import NS_ATTN_BWD, NS_ATTN_DECODE, NS_ATTN_FWD
 from repro_torch.kernels import build
+from repro_torch.kernels.ops import ResolvedKnobs
 from repro_torch.kernels.sfc_attention import (
     check_fwd_shapes,
     require_no_grad,
@@ -48,6 +48,7 @@ from repro_torch.kernels.sfc_attention import (
     sfc_flash_bwd_dq,
     sfc_flash_fwd,
 )
+from repro_torch.tune.tuner import default_cache, lookup_knobs
 
 __all__ = [
     "ATTN_IMPLS",
@@ -107,16 +108,38 @@ def resolve_attn_knobs(
     q_chunk: Optional[int] = None,
     k_chunk: Optional[int] = None,
     device: Union[str, torch.device] = "cpu",
-) -> Tuple[int, int]:
-    """(q_chunk, k_chunk) for one attention launch of namespace ``op``.
+) -> ResolvedKnobs:
+    """(q_chunk, k_chunk) for one attention launch of namespace ``op``,
+    equal to the JAX package's pair, with ``.launch``
+    (`kernels.ops.ResolvedKnobs`).
 
-    On the card: the CUDA kernel's compiled tile (the decode kernel's
-    chunk for ``op="attn_decode"``).  Elsewhere: the hint
-    (128 when absent) clipped to the padded extents, the JAX package's path
-    when its tune cache has no entry (the cache is not ported: item 13)."""
-    if torch.device(device).type == "cuda":
-        return (build.ATTN_TILE[0], build.DECODE_CHUNK) if op == NS_ATTN_DECODE else build.ATTN_TILE
-    return _clip_chunk(q_chunk or 128, sq), _clip_chunk(k_chunk or 128, sk)
+    The tune cache's entry for the bucket (sq, sk, d) first
+    (`repro_torch.tune.lookup_knobs`, backend by ``device``; a failed
+    lookup raises), as the JAX package consults it even when a hint is
+    given.  On the card: the CUDA kernel's compiled tile (the decode
+    kernel's chunk for ``op="attn_decode"``) and as ``.launch`` the entry's
+    (K11's W, K13's C, K14's S; None: the kernel's rule).  Elsewhere: the
+    entry's chunks (its bm / bn), else the hint (128 when absent), clipped
+    to the padded extents, the JAX package's path.  Answered once per exact
+    call and cache state (`KnobCache.resolved`)."""
+    cache = default_cache()
+    memo = (sq, sk, d, dtype, op, q_chunk, k_chunk, device)
+    hit = cache.resolved.get(memo)
+    if hit is None:
+        cached = lookup_knobs(sq, sk, d, dtype, cache=cache, op=op, device=device)
+        if torch.device(device).type == "cuda":
+            tile = (build.ATTN_TILE[0], build.DECODE_CHUNK) if op == NS_ATTN_DECODE else build.ATTN_TILE
+            hit = ResolvedKnobs(tile, cached.launch if cached is not None else None)
+        else:
+            if cached is not None:
+                q_chunk, k_chunk = cached.bm, cached.bn
+            hit = ResolvedKnobs((_clip_chunk(q_chunk or 128, sq), _clip_chunk(k_chunk or 128, sk)))
+        cache.resolved[memo] = hit
+    return hit
+
+
+def _launch_value(knobs: ResolvedKnobs, key: str) -> Optional[int]:
+    return (knobs.launch or {}).get(key)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +152,7 @@ class _FlashCfg:
     q_chunk_hint: Optional[int]
     k_chunk_hint: Optional[int]
     q_offset: int = 0
+    warpgroups: Optional[int] = None
 
 
 class _FlashCore(torch.autograd.Function):
@@ -139,7 +163,8 @@ class _FlashCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg: _FlashCfg, q, k, v):
         o, lse = sfc_flash_fwd(q, k, v, causal=cfg.causal, seq_q=cfg.seq_q, seq_k=cfg.seq_k,
-                               q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, q_offset=cfg.q_offset)
+                               q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk, q_offset=cfg.q_offset,
+                               warpgroups=cfg.warpgroups)
         ctx.cfg = cfg
         ctx.save_for_backward(q, k, v, o, lse)
         return o
@@ -150,16 +175,14 @@ class _FlashCore(torch.autograd.Function):
         cfg = ctx.cfg
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)  # (B, S, H) f32
-        if q.device.type == "cuda":
-            qc = kc = None  # each kernel's compiled tile
-        else:
-            # the backward resolves its own knobs, as the JAX package does
-            qc, kc = resolve_attn_knobs(cfg.seq_q, cfg.seq_k, q.shape[-1], q.dtype, op=NS_ATTN_BWD,
-                                        q_chunk=cfg.q_chunk_hint, k_chunk=cfg.k_chunk_hint)
+        # the backward resolves its own knobs, as the JAX package does
+        knobs = resolve_attn_knobs(cfg.seq_q, cfg.seq_k, q.shape[-1], q.dtype, op=NS_ATTN_BWD,
+                                   q_chunk=cfg.q_chunk_hint, k_chunk=cfg.k_chunk_hint, device=q.device)
+        qc, kc = (None, None) if q.device.type == "cuda" else knobs  # on the card each kernel's compiled tile
         kw = dict(causal=cfg.causal, seq_q=cfg.seq_q, seq_k=cfg.seq_k, q_offset=cfg.q_offset,
                   q_chunk=qc, k_chunk=kc)
         dq = sfc_flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = sfc_flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dk, dv = sfc_flash_bwd_dkv(q, k, v, do, lse, delta, cluster=_launch_value(knobs, "cluster"), **kw)
         return None, dq, dk, dv
 
 
@@ -184,13 +207,15 @@ def flash_attention(
     `_FlashCore` (K11 forward, K12/K13 backward)."""
     check_fwd_shapes(q, k, v, None, None, q_offset)  # negative q_offset, GQA ratio, ...
     s, d, t = q.shape[1], q.shape[3], k.shape[1]
-    qc, kc = resolve_attn_knobs(s, t, d, q.dtype, op=NS_ATTN_FWD, q_chunk=q_chunk, k_chunk=k_chunk,
-                                device=q.device)
+    knobs = resolve_attn_knobs(s, t, d, q.dtype, op=NS_ATTN_FWD, q_chunk=q_chunk, k_chunk=k_chunk,
+                               device=q.device)
+    qc, kc = knobs
     cfg = _FlashCfg(causal=causal, seq_q=s, seq_k=t, q_chunk=qc, k_chunk=kc, q_chunk_hint=q_chunk,
-                    k_chunk_hint=k_chunk, q_offset=q_offset)
+                    k_chunk_hint=k_chunk, q_offset=q_offset, warpgroups=_launch_value(knobs, "warpgroups"))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashCore.apply(cfg, q, k, v)
-    o, _ = sfc_flash_fwd(q, k, v, causal=causal, seq_q=s, seq_k=t, q_offset=q_offset, q_chunk=qc, k_chunk=kc)
+    o, _ = sfc_flash_fwd(q, k, v, causal=causal, seq_q=s, seq_k=t, q_offset=q_offset, q_chunk=qc, k_chunk=kc,
+                         warpgroups=cfg.warpgroups)
     return o
 
 
@@ -206,6 +231,6 @@ def decode_attention(
     drop-in for `models.layers.decode_attention`."""
     require_no_grad("attn_impl='sfc' decode_attention", q, k, v)
     h, d, t = q.shape[2], q.shape[3], k.shape[1]
-    _, kc = resolve_attn_knobs(h, t, d, q.dtype, op=NS_ATTN_DECODE, q_chunk=None, k_chunk=k_chunk,
+    knobs = resolve_attn_knobs(h, t, d, q.dtype, op=NS_ATTN_DECODE, q_chunk=None, k_chunk=k_chunk,
                                device=q.device)
-    return sfc_decode_attention(q, k, v, valid_len, k_chunk=kc)
+    return sfc_decode_attention(q, k, v, valid_len, k_chunk=knobs[1], splits=_launch_value(knobs, "splits"))

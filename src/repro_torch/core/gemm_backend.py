@@ -63,6 +63,8 @@ from repro_torch.core.namespaces import (
     BACKEND_SFC_CUDA,
     BACKEND_TORCH,
     BACKENDS,
+    NS_GEMM,
+    NS_GLU,
 )
 from repro_torch.optim import fused as _fused
 
@@ -122,13 +124,14 @@ def _epilogue(y, *, bias=None, activation=None, out_scale=None, residual=None):
     return y
 
 
-def _reference_matmul(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Listing-1 reference with divisor blocks from `ops.reference_knobs`."""
+def _reference_matmul(x2: torch.Tensor, w: torch.Tensor, op: str = NS_GEMM) -> torch.Tensor:
+    """Listing-1 reference with the knobs of `ops.reference_knobs` (``op``:
+    the tune-cache namespace, "glu" for the gate and value products)."""
     from repro_torch.core.sfc_gemm import sfc_ca_gemm_reference
     from repro_torch.kernels.ops import reference_knobs
 
     m, k = x2.shape
-    bm, bn, bk, kl, kbf = reference_knobs(m, w.shape[1], k)
+    bm, bn, bk, kl, kbf = reference_knobs(m, w.shape[1], k, x2.dtype, op)
     return sfc_ca_gemm_reference(
         x2, w, bm=bm, bn=bn, bk=bk, k_layers=kl, k_block_factor=kbf
     )
@@ -279,8 +282,8 @@ def glu_matmul(
     lead = x.shape[:-1]
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
-    g = _reference_matmul(x2, w_gate).reshape(*lead, w_gate.shape[1])
-    h = _reference_matmul(x2, w_val).reshape(*lead, w_val.shape[1])
+    g = _reference_matmul(x2, w_gate, NS_GLU).reshape(*lead, w_gate.shape[1])
+    h = _reference_matmul(x2, w_val, NS_GLU).reshape(*lead, w_val.shape[1])
     if gate_bias is not None:
         g = g + gate_bias
     if bias is not None:
@@ -416,7 +419,8 @@ def grouped_glu_matmul(
     parts = []
     for ei in range(e):
         xe = rows[ei * g * c:(ei + 1) * g * c]
-        parts.append(_act(activation)(_reference_matmul(xe, w_gate[ei])) * _reference_matmul(xe, w_val[ei]))
+        parts.append(_act(activation)(_reference_matmul(xe, w_gate[ei], NS_GLU))
+                     * _reference_matmul(xe, w_val[ei], NS_GLU))
     return restore(_epilogue(torch.cat(parts), out_scale=out_scale), n)
 
 

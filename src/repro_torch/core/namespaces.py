@@ -59,7 +59,7 @@ __all__ = [
     "base_namespace",
 ]
 
-# --- tune-cache namespaces (the tuner is not ported yet) ------------------
+# --- tune-cache namespaces (measured by `repro_torch.tune.tune_gemm`) -----
 NS_GEMM = "gemm"                        # forward A·B (paper Listing 1)
 NS_GLU = "glu"                          # dual-B gated forward
 NS_NT = "nt"                            # dX = dY·Wᵀ backward

@@ -10,10 +10,14 @@ f32 accumulator, one write of C.  `sfc_glu_matmul` is the dual-B gated form
 (``act(A@Wg + gate_bias) * (A@Wv + bias)``, one traversal of A).
 
 Ragged M/N/K need no padding here: the CUDA kernels mask their edge tiles
-and the plain versions clip them.  Knobs: on the CPU, ``bm``/``bn`` come
-from `pick_blocks` (as in the JAX package, minus its tune cache and perf
-model); on the card they are the kernels' compiled tile.  Unset K knobs are
-1, or what `knob_defaults` sets for a block of calls.  The fused kernel
+and the plain versions clip them.  Knobs (`resolve_knobs`): on the CPU the
+JAX package's order, the tune cache (`repro_torch.tune`) and then
+`pick_blocks` with the perf model's ``choose_knobs_analytical``; on the
+card the kernels' compiled tile, the K knobs from the cache or 1, and the
+launch the cache holds for the namespace (``Knobs.launch``, keyed by the
+rows the kernel runs: a shared weight's batch folded in) in place of the
+kernel's rule; `knob_defaults` fills the K knobs for a block of calls.
+The fused kernel
 loops over the whole K range inside one CTA, so its plan always fits: the
 JAX package's VMEM check (``ensure_fused_fits``) and the fallback it
 guards have no counterpart here.
@@ -131,6 +135,7 @@ from repro_torch.kernels.sfc_gemm import (
     tile_random_bits,
 )
 from repro_torch.robust import abft as _abft
+from repro_torch.tune.tuner import default_cache, lookup_knobs
 
 __all__ = [
     "sfc_matmul",
@@ -150,8 +155,10 @@ __all__ = [
     "sfc_grouped_matmul_tn_update",
     "fused_update_grouped_matmul",
     "fused_update_grouped_glu_matmul",
+    "bwd_shape_key",
     "pick_blocks",
     "knob_defaults",
+    "ResolvedKnobs",
     "resolve_knobs",
     "reference_knobs",
     "chunk_gemm_plan",
@@ -179,9 +186,9 @@ _KNOB_DEFAULTS: contextvars.ContextVar[Tuple[Optional[int], Optional[int]]] = co
 @contextlib.contextmanager
 def knob_defaults(*, k_layers: Optional[int] = None, k_block_factor: Optional[int] = None):
     """Values for the K knobs that the calls inside the block leave unset
-    (a call's own knobs win).  The port has no tune cache yet (ROADMAP
-    queue 1 item 13), so this is how a caller runs, say, every product of a
-    serve on the replicated backend at ``k_layers=8``."""
+    (a call's own knobs win, and these win over the tune cache): how a
+    caller runs, say, every product of a serve on the replicated backend at
+    ``k_layers=8``."""
     for name, val in (("k_layers", k_layers), ("k_block_factor", k_block_factor)):
         if val is not None and val < 1:
             raise ValueError(f"{name} must be at least 1, got {val}")
@@ -192,38 +199,94 @@ def knob_defaults(*, k_layers: Optional[int] = None, k_block_factor: Optional[in
         _KNOB_DEFAULTS.reset(tok)
 
 
+class ResolvedKnobs(tuple):
+    """A resolver's knobs, equal to the JAX package's tuple (`resolve_knobs`'
+    ``(bm, bn, k_layers, k_block_factor)``, `resolve_attn_knobs`'
+    ``(q_chunk, k_chunk)``), and ``launch``: the launch configuration the
+    card's kernel takes in place of its rule (None: the rule's)."""
+
+    def __new__(cls, values, launch: Optional[dict] = None):
+        self = super().__new__(cls, values)
+        self.launch = launch
+        return self
+
+
 def resolve_knobs(
     m: int,
     n: int,
     k: int,
-    device: torch.device,
+    device,
     *,
     bm: Optional[int] = None,
     bn: Optional[int] = None,
     k_layers: Optional[int] = None,
     k_block_factor: Optional[int] = None,
-) -> Tuple[int, int, int, int]:
-    """(bm, bn, k_layers, k_block_factor) for one launch.
+    dtype=None,
+    op: str = NS_GEMM,
+) -> ResolvedKnobs:
+    """(bm, bn, k_layers, k_block_factor) for one launch of namespace
+    ``op`` (the JAX package's ``resolve_knobs``), with ``.launch``.
 
-    On a CUDA device the tile is the tile kernels' compiled one and an
-    explicit other ``bm``/``bn`` is an error (the cluster kernel's K layers
-    and the wgmma kernels' tile are the wrappers' choice, from the shape and
-    the SM count, whatever these knobs say); on the CPU unset blocks come from
-    `pick_blocks`.  Unset K knobs are `knob_defaults`'s, else 1: there is
-    no tune cache or perf model yet (ROADMAP queue 1 item 13).  The fused
-    kernels ignore them on the card; the replicated form's grid is
-    ``k_layers`` times its tile count."""
+    A call's own knobs win, then `knob_defaults`' K knobs; when one is
+    still unset and ``dtype`` is given, the tune cache's entry for the
+    shape bucket (`repro_torch.tune.lookup_knobs`, backend "cpu" or "gpu"
+    by ``device``; a failed lookup raises).  On the CPU the rest is the JAX
+    package's fallback: `pick_blocks` and ``choose_knobs_analytical(...,
+    hw=TPU_V5E)`` for one worker, so the knobs equal the JAX package's for
+    every shape.  On a CUDA device the tile is the kernels' compiled one
+    (an explicit other ``bm``/``bn`` is an error), unset K knobs are 1, and
+    ``.launch`` is the cache entry's: the kernel wrappers take it over
+    their rules (the wgmma tile and worker group, the cluster kernel's K
+    layers, the TN group), and with no entry every launch is the rule's.
+    The fused kernels ignore the K knobs on the card; the replicated form's
+    grid is ``k_layers`` times its tile count.
+
+    A call that leaves every knob to the cache is answered once per exact
+    (m, n, k, dtype, op, device) and cache state (`KnobCache.resolved`)."""
+    d_layers, d_kbf = _KNOB_DEFAULTS.get()
+    cache = None
+    if dtype is not None and bm is None and bn is None and k_layers is None and k_block_factor is None:
+        cache = default_cache()
+        if d_layers is None and d_kbf is None:
+            memo = (m, n, k, dtype, op, device)
+            hit = cache.resolved.get(memo)
+            if hit is None:
+                hit = cache.resolved[memo] = _resolve_knobs(m, n, k, device, None, None, None, None, dtype, op,
+                                                            cache)
+            return hit
+    elif dtype is not None and None in (bm, bn, k_layers or d_layers, k_block_factor or d_kbf):
+        cache = default_cache()
+    return _resolve_knobs(m, n, k, device, bm, bn, k_layers or d_layers, k_block_factor or d_kbf, dtype, op, cache)
+
+
+def _resolve_knobs(m, n, k, device, bm, bn, k_layers, k_block_factor, dtype, op, cache) -> ResolvedKnobs:
+    """`resolve_knobs` past the defaults; ``cache`` None: no lookup."""
+    cached = None
+    if cache is not None and None in (bm, bn, k_layers, k_block_factor):
+        cached = lookup_knobs(m, n, k, dtype, cache=cache, op=op, device=device)
     if torch.device(device).type == "cuda":
         tile = kernel_tile()
         if (bm or tile[0], bn or tile[1]) != tile:
             raise ValueError(f"the CUDA kernel is compiled for (bm, bn)={tile}, got {(bm, bn)}")
-        bm, bn = tile
-    elif bm is None or bn is None:
+        launch = None
+        if cached is not None:
+            k_layers, k_block_factor = k_layers or cached.k_layers, k_block_factor or cached.k_block_factor
+            launch = cached.launch
+        return ResolvedKnobs((*tile, k_layers or 1, k_block_factor or 1), launch)
+    if cached is not None:
+        bm, bn = bm or cached.bm, bn or cached.bn
+        k_layers, k_block_factor = k_layers or cached.k_layers, k_block_factor or cached.k_block_factor
+    if bm is None or bn is None:
         pbm, pbn, _ = pick_blocks(m, n, k)
         bm = bm or pbm
         bn = bn or pbn
-    d_layers, d_kbf = _KNOB_DEFAULTS.get()
-    return bm, bn, k_layers or d_layers or 1, k_block_factor or d_kbf or 1
+    if k_layers is None or k_block_factor is None:
+        # one worker: the JAX package's kernel runs on one TensorCore
+        from repro_torch.core.perf_model import TPU_V5E, choose_knobs_analytical
+
+        c, kbf = choose_knobs_analytical(max(m, bm), max(n, bn), max(k, 1), 1, bm=bm, bn=bn, hw=TPU_V5E)
+        k_layers, k_block_factor = k_layers or c, k_block_factor or kbf
+    return ResolvedKnobs((bm, bn, k_layers, k_block_factor))
 
 
 def chunk_gemm_plan(m: int, n: int, k: int, dtype, *, device=None):
@@ -233,35 +296,58 @@ def chunk_gemm_plan(m: int, n: int, k: int, dtype, *, device=None):
 
     The namespace is the base "gemm" qualified by the compiled
     ``gemm_spec(mb, nb, k_layers)`` key of the padded tile grid that the
-    host's knobs fix (`resolve_knobs` on the CPU: `pick_blocks`' blocks,
-    the K knobs `knob_defaults`', else 1), through
-    `namespaces.schedule_namespace`: ``"gemm@<key>"``, the same string as
-    the JAX package's wherever its analytical model, too, picks one K layer
-    (every chunk-einsum shape of the SSD and the mLSTM).  The namespace
-    names the tile space, not the device, so it is the same for a call on
-    the card.  ``knobs`` are ``bm``/``bn``/``k_layers``/``k_block_factor``
-    for `sfc_matmul` on ``device`` (the CPU when None): on the card the
-    kernels' compiled tile.  ``dtype`` is the JAX signature's (its tune
-    cache's key); the port has no tune cache yet (ROADMAP item 13)."""
+    host's knobs fix (`resolve_knobs` on the CPU under "gemm": the tune
+    cache, else `pick_blocks` and the analytical model, as the JAX
+    package's), through `namespaces.schedule_namespace`: ``"gemm@<key>"``,
+    the JAX package's string for every shape.  The namespace names the tile
+    space, not the device, so it is the same for a call on the card.  The
+    knobs then re-resolve under it (a winner in the schedule's own bucket
+    overrides the base choice): ``bm``/``bn``/``k_layers``/
+    ``k_block_factor`` for `sfc_matmul` on ``device`` (the CPU when None;
+    on the card the kernels' compiled tile, and the launch their rules
+    choose, since the knobs are explicit)."""
     from repro_torch.core.namespaces import schedule_namespace
     from repro_torch.core.schedule import compile_schedule, gemm_spec
 
-    del dtype
-    bm, bn, kl, kbf = resolve_knobs(m, n, k, torch.device("cpu"))
+    bm, bn, kl, kbf = resolve_knobs(m, n, k, torch.device("cpu"), dtype=dtype)
     sched = compile_schedule(gemm_spec(math.ceil(m / bm), math.ceil(n / bn), kl))
     namespace = schedule_namespace(NS_GEMM, sched.key)
-    if device is not None and torch.device(device).type != "cpu":
-        bm, bn, kl, kbf = resolve_knobs(m, n, k, device)
+    bm, bn, kl, kbf = resolve_knobs(m, n, k, torch.device("cpu" if device is None else device), dtype=dtype,
+                                    op=namespace)
     return namespace, dict(bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf)
 
 
-def reference_knobs(m: int, n: int, k: int) -> Tuple[int, int, int, int, int]:
-    """(bm, bn, bk, k_layers, k_block_factor) for `sfc_ca_gemm_reference`:
-    divisor blocks from `pick_blocks`, one K layer and one chunk (the JAX
-    package draws the K knobs from its perf model; they order the sum and
-    do not change its value beyond rounding)."""
-    bm, bn, bk = pick_blocks(m, n, k)
-    return bm, bn, bk, 1, 1
+def bwd_shape_key(m: int, n: int, k: int, dtype) -> str:
+    """The shape class of a backward launch (the JAX package's
+    ``_bwd_shape_key``, its ladder's quarantine key): the tune cache's
+    bucket of (M, N, K), each at least 1, and the dtype's name."""
+    from repro_torch.tune.cache import dtype_name, shape_bucket
+
+    bm_, bn_, bk_ = shape_bucket(max(m, 1), max(n, 1), max(k, 1))
+    return f"{bm_}x{bn_}x{bk_}|{dtype_name(dtype)}"
+
+
+def _divisor_block(dim: int, cap: int) -> int:
+    """Largest aligned block <= cap that divides dim, else the dim itself
+    (the reference loop does not pad)."""
+    for cand in (256, 128, 64, 32, 16, 8):
+        if cand <= cap and dim % cand == 0:
+            return cand
+    return dim
+
+
+def reference_knobs(m: int, n: int, k: int, dtype=None, op: str = NS_GEMM) -> Tuple[int, int, int, int, int]:
+    """(bm, bn, bk, k_layers, k_block_factor) for `sfc_ca_gemm_reference`,
+    the JAX package's: the knobs `resolve_knobs` gives on the CPU (the tune
+    cache under ``op`` when ``dtype`` is given, else `pick_blocks` and the
+    analytical model), each block clipped to a divisor of its extent, and
+    the K knobs dropped to (1, 1) when K's block count cannot hold them."""
+    bm, bn, k_layers, k_block_factor = resolve_knobs(m, n, k, torch.device("cpu"), dtype=dtype, op=op)
+    bm, bn = _divisor_block(m, bm), _divisor_block(n, bn)
+    _, _, bk = pick_blocks(m, n, k)
+    if max(k // bk, 1) % (k_layers * k_block_factor):
+        k_layers = k_block_factor = 1
+    return bm, bn, bk, k_layers, k_block_factor
 
 
 def _mode(abft: Optional[str], namespace: str) -> str:
@@ -314,18 +400,26 @@ def _matmul_impl(
     if residual is not None and tuple(residual.shape) != (*lead, m, n):
         raise ValueError(f"residual shape {tuple(residual.shape)} != output {(*lead, m, n)}")
 
-    bm, bn, k_layers, k_block_factor = resolve_knobs(
-        m, n, k, a.device, bm=bm, bn=bn, k_layers=k_layers, k_block_factor=k_block_factor
-    )
+    op = NS_GLU if glu else NS_GEMM
+    bsz = math.prod(lead)
+    # On the card a shared weight's batch folds into the rows of one launch
+    # (`sfc_gemm_fused`), and the tune cache is keyed, and its winners
+    # measured, by the rows the kernel runs; a per-batch weight walks its
+    # batch as a grid axis, a launch the tuner does not time, so it keeps
+    # the rule.  On the CPU the key is the JAX package's, M a batch element.
+    rows, tuned = m, True
+    if a.device.type == "cuda" and lead:
+        rows, tuned = (m, bsz == 1) if b_batched else (bsz * m, True)
+    resolved = resolve_knobs(rows, n, k, a.device, bm=bm, bn=bn, k_layers=k_layers, k_block_factor=k_block_factor,
+                             dtype=a.dtype if tuned else None, op=op)
+    bm, bn, k_layers, k_block_factor = resolved
     gate = None if b_gate is None else b_gate.contiguous()
     vecs = [None if v is None else v.contiguous() for v in (bias, gate_bias)]
     # fold leading dims into one batch axis for the kernel grid
-    bsz = math.prod(lead)
     a_run = a.reshape(bsz, m, k).contiguous() if lead else a.contiguous()
     b_run = b.reshape(bsz, k, n).contiguous() if b_batched else b.contiguous()
     res_run = None if residual is None else residual.reshape(a_run.shape[:-1] + (n,)).contiguous()
     knobs = dict(bm=bm, bn=bn, k_layers=k_layers, k_block_factor=k_block_factor)
-    op = NS_GLU if glu else NS_GEMM
     mode = _mode(abft, op)
     if fuse is False:
         check_preact(preact, b_gate, activation, out_scale, residual)
@@ -333,7 +427,7 @@ def _matmul_impl(
                                knobs=knobs, out_dtype=out_dtype or a.dtype, preact=preact, mode=mode)
     else:
         out = sfc_gemm_fused(a_run, b_run, gate, *vecs, res_run, activation=activation, out_scale=out_scale,
-                             out_dtype=out_dtype, preact=preact, abft=mode != "off", **knobs)
+                             out_dtype=out_dtype, preact=preact, abft=mode != "off", launch=resolved.launch, **knobs)
         if mode != "off":
             *outs, chk = out
             out = tuple(outs) if preact else outs[0]
@@ -414,12 +508,13 @@ def sfc_matmul_nt(
     a22d = None if a2 is None else a2.reshape(-1, a2.shape[-1]).contiguous()
     m, k = a2d.shape
     n = b.shape[0]
-    bm, bn, kl, kbf = resolve_knobs(m, n, k, a.device, bm=bm, bn=bn, k_layers=k_layers,
-                                    k_block_factor=k_block_factor)
-    out = sfc_gemm_nt(a2d, b.contiguous(), a22d, None if b2 is None else b2.contiguous(),
-                      bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf, out_dtype=out_dtype)
-    res = out.reshape(*lead, a.shape[-2], n)
     ns = NS_NT if a2 is None else NS_NT_DUAL
+    resolved = resolve_knobs(m, n, k, a.device, bm=bm, bn=bn, k_layers=k_layers, k_block_factor=k_block_factor,
+                             dtype=a.dtype, op=ns)
+    bm, bn, kl, kbf = resolved
+    out = sfc_gemm_nt(a2d, b.contiguous(), a22d, None if b2 is None else b2.contiguous(),
+                      bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf, out_dtype=out_dtype, launch=resolved.launch)
+    res = out.reshape(*lead, a.shape[-2], n)
     mode = _mode(abft, ns)
     if mode != "off":
         ref, mag = _abft.nt_checksum_ref(a2d, b)
@@ -452,12 +547,13 @@ def sfc_matmul_tn(
     a2d, b2d, b22d = _tn_operands(a, b, b2)
     m, k = a2d.shape
     # the output is (K, N); the contraction runs over M
-    bm, bn, kl, kbf = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
-                                    k_block_factor=k_block_factor)
     ns = NS_TN if b2 is None else NS_TN_DUAL
+    resolved = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
+                             k_block_factor=k_block_factor, dtype=a.dtype, op=ns)
+    bm, bn, kl, kbf = resolved
     mode = _mode(abft, ns)
     out = sfc_gemm_tn(a2d, b2d, b22d, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf, out_dtype=out_dtype,
-                      abft=mode != "off")
+                      abft=mode != "off", launch=resolved.launch)
     if mode == "off":
         return out
     *outs, chk = out
@@ -503,12 +599,13 @@ def sfc_matmul_tn_norm(
     update flush."""
     a2d, b2d, b22d = _tn_operands(a, dy, dy2)
     m, k = a2d.shape
-    bm, bn, kl, kbf = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
-                                    k_block_factor=k_block_factor)
     ns = NS_TN_UPDATE if dy2 is None else NS_TN_UPDATE_DUAL
+    resolved = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
+                             k_block_factor=k_block_factor, dtype=a.dtype, op=ns)
+    bm, bn, kl, kbf = resolved
     mode = _mode(None, ns)
     norms = sfc_gemm_tn(a2d, b2d, b22d, norm=True, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf,
-                        abft=mode != "off")
+                        abft=mode != "off", launch=resolved.launch)
     if mode != "off":
         norms, chk = norms
         norms = _verify_tn(ns, norms, chk, a2d, b2d, b22d, mode)
@@ -551,13 +648,14 @@ def sfc_matmul_tn_update(
     place as well as the norms."""
     a2d, b2d, b22d = _tn_operands(a, dy, dy2)
     m, k = a2d.shape
-    bm, bn, kl, kbf = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
-                                    k_block_factor=k_block_factor)
     ns = NS_TN_UPDATE if dy2 is None else NS_TN_UPDATE_DUAL
+    resolved = resolve_knobs(k, b2d.shape[1], m, a.device, bm=bm, bn=bn, k_layers=k_layers,
+                             k_block_factor=k_block_factor, dtype=a.dtype, op=ns)
+    bm, bn, kl, kbf = resolved
     mode = _mode(abft, ns)
     norms = sfc_gemm_tn(a2d, b2d, b22d, master, mu, nu, master2, mu2, nu2, hyper, w=w, w2=w2, salt=salt,
                         stochastic_round=stochastic_round, bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf,
-                        abft=mode != "off")
+                        abft=mode != "off", launch=resolved.launch)
     if mode != "off":
         norms, chk = norms
         state = [x for x in (w, master, mu, nu, w2, master2, mu2, nu2) if x is not None]

@@ -62,15 +62,18 @@ __all__ = [
     "sfc_flash_fwd_plain",
     "uses_fwd_wgmma_kernel",
     "fwd_wgmma_grid",
+    "fwd_warpgroup_sizes",
     "sfc_flash_bwd_dq",
     "sfc_flash_bwd_dq_plain",
     "sfc_flash_bwd_dkv",
     "sfc_flash_bwd_dkv_plain",
     "uses_bwd_wgmma_kernel",
     "bwd_wgmma_grid",
+    "dkv_cluster_sizes",
     "sfc_decode_attention",
     "sfc_decode_attention_plain",
     "decode_splits",
+    "decode_split_sizes",
     "decode_segment_rows",
     "H100_SMS",
 ]
@@ -309,6 +312,14 @@ def _fwd_route(q, k, v):
     return uses_fwd_wgmma_kernel(q.dtype, q.shape[-1], strides, [x.data_ptr() for x in (q, k, v)]), strides
 
 
+def fwd_warpgroup_sizes(h: int, hkv: int) -> Tuple[int, ...]:
+    """The W ``flash_fwd_wgmma_kernel`` takes for ``h`` q heads over
+    ``hkv`` kv heads: the divisors of the group up to
+    ``build.MAX_FWD_WARPGROUPS``."""
+    groups = h // hkv
+    return tuple(w for w in range(1, min(groups, build.MAX_FWD_WARPGROUPS) + 1) if groups % w == 0)
+
+
 @functools.lru_cache(maxsize=256)
 def fwd_wgmma_grid(b: int, s: int, t: int, h: int, hkv: int,
                    sm_count: int = H100_SMS) -> Tuple[Tuple[int, int], int]:
@@ -326,7 +337,7 @@ def fwd_wgmma_grid(b: int, s: int, t: int, h: int, hkv: int,
     The keys ``t`` takes no part.  `scripts/split_sweep.py k11` times
     every W.  A function of the shapes and the card alone."""
     nq, groups = math.ceil(s / build.ATTN_TILE[0]), h // hkv
-    sizes = [w for w in range(1, min(groups, build.MAX_FWD_WARPGROUPS) + 1) if groups % w == 0]
+    sizes = fwd_warpgroup_sizes(h, hkv)
     fits = [w for w in sizes if nq * b * hkv * (groups // w) <= sm_count]
     w = min(fits) if fits else max(sizes)
     return (b * hkv * (groups // w), nq), w
@@ -401,6 +412,7 @@ def sfc_flash_fwd(
     q_offset: int = 0,
     q_chunk: Optional[int] = None,
     k_chunk: Optional[int] = None,
+    warpgroups: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Band-scheduled flash forward: (o (B, S, H, D) in q's type, lse
     (B, S, H) f32).
@@ -411,7 +423,11 @@ def sfc_flash_fwd(
     tensor this launches a forward kernel (`launch_flash_fwd`:
     ``flash_fwd_wgmma_kernel`` for the operands `uses_fwd_wgmma_kernel`
     takes, else ``flash_fwd_kernel``), whose tile is fixed at compile time:
-    the chunks must be `kernel_chunks()` or None.  Every launch adds one to
+    the chunks must be `kernel_chunks()` or None.  ``warpgroups`` (a tuned
+    W, which `core.attention_backend.resolve_attn_knobs` hands down)
+    replaces `fwd_wgmma_grid`'s W where it is a valid one for this group
+    (`fwd_warpgroup_sizes`); the tile kernel ignores it, as does the plain
+    version (W does not order any sum).  Every launch adds one to
     ``sfc_flash_fwd.launches``, to ``launches_by_kernel[(kernel, W)]`` (the
     tile kernel's W: 1) and to ``launches_by_shape[shape_key(...)]``.  On a
     CPU tensor it runs
@@ -431,8 +447,10 @@ def sfc_flash_fwd(
     qc, kc = build.ATTN_TILE
     tab_k, row_start = _device_band(math.ceil(q.shape[1] / qc), math.ceil(k.shape[1] / kc), bool(causal),
                                     int(q_offset), q.device)
+    if warpgroups is not None and warpgroups not in fwd_warpgroup_sizes(q.shape[2], k.shape[2]):
+        warpgroups = None
     o, lse, key = launch_flash_fwd(q, k, v, tab_k, row_start, causal=causal, seq_q=seq_q, seq_k=seq_k,
-                                   q_offset=q_offset, want_lse=True)
+                                   q_offset=q_offset, want_lse=True, warpgroups=warpgroups)
     if key is not None:
         sfc_flash_fwd.launches += 1
         sfc_flash_fwd.launches_by_kernel[key] += 1
@@ -629,13 +647,21 @@ def bwd_wgmma_grid(kind: str, b: int, s: int, t: int, h: int, hkv: int,
     if kind == "dq":
         return (math.ceil(s / qc), b * h), 1
     if kind == "dkv":
-        nk, groups = math.ceil(t / kc), h // hkv
-        sizes = [c for c in range(1, min(groups, build.MAX_BWD_CLUSTER) + 1) if groups % c == 0]
+        nk = math.ceil(t / kc)
+        sizes = dkv_cluster_sizes(h, hkv)
         one_wave = [c for c in sizes if nk * c * b * hkv <= sm_count]
         two_waves = [c for c in sizes if nk * c * b * hkv >= 2 * sm_count]
         cluster = max(one_wave) if one_wave else min(two_waves or [max(sizes)])
         return (nk * cluster, b * hkv), cluster
     raise ValueError(f"unknown backward kernel {kind!r}")
+
+
+def dkv_cluster_sizes(h: int, hkv: int) -> Tuple[int, ...]:
+    """The C ``flash_bwd_dkv_wgmma_kernel`` takes for ``h`` q heads over
+    ``hkv`` kv heads: the divisors of the group up to
+    ``build.MAX_BWD_CLUSTER``."""
+    groups = h // hkv
+    return tuple(c for c in range(1, min(groups, build.MAX_BWD_CLUSTER) + 1) if groups % c == 0)
 
 
 def _dkv_cluster(q, k, sms: int) -> int:
@@ -742,6 +768,7 @@ def sfc_flash_bwd_dkv(
     q_offset: int = 0,
     q_chunk: Optional[int] = None,
     k_chunk: Optional[int] = None,
+    cluster: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV), each (B, T, Hkv, D) in k's type, over the k-major band
     table with the GQA group innermost: one kv head's accumulators stay
@@ -756,14 +783,19 @@ def sfc_flash_bwd_dkv(
     walk, else ``flash_bwd_dkv_kernel``; it adds one to
     ``sfc_flash_bwd_dkv.launches``, to ``launches_by_kernel[(kernel, C)]``
     (the tile kernel's C: 1) and to ``launches_by_shape[shape_key(...)]``.
-    On a CPU tensor it runs `sfc_flash_bwd_dkv_plain` in the order the card
-    would take for these operands (with `H100_SMS` SMs) and counts
+    ``cluster`` (a tuned C, which `core.attention_backend.resolve_attn_knobs`
+    hands down) replaces the rule's where it is a valid one for this group
+    (`dkv_cluster_sizes`); it orders the group's sum.  On a CPU tensor it
+    runs `sfc_flash_bwd_dkv_plain` in the order the card would take for
+    these operands (with `H100_SMS` SMs, or ``cluster``) and counts
     nothing."""
     seq_q, seq_k = _check_bwd(q, k, v, do, lse, delta, seq_q, seq_k, q_offset)
     kw = dict(causal=causal, seq_q=seq_q, seq_k=seq_k, q_offset=q_offset)
+    if cluster is not None and cluster not in dkv_cluster_sizes(q.shape[2], k.shape[2]):
+        cluster = None
     if q.device.type == "cpu":
         qc, kc = build.ATTN_TILE
-        parts = _dkv_cluster(q, k, H100_SMS) if _bwd_route(q, k, v, do)[0] else 1
+        parts = (cluster or _dkv_cluster(q, k, H100_SMS)) if _bwd_route(q, k, v, do)[0] else 1
         return sfc_flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_chunk=q_chunk or qc, k_chunk=k_chunk or kc,
                                        group_parts=parts, **kw)
     if q.device.type != "cuda":
@@ -779,7 +811,7 @@ def sfc_flash_bwd_dkv(
     dv = torch.empty_like(dk)
     if dk.numel():
         wgmma, strides = _bwd_route(q, k, v, do)
-        cluster = _dkv_cluster(q, k, sm_count(q.device)) if wgmma else 1
+        cluster = (cluster or _dkv_cluster(q, k, sm_count(q.device))) if wgmma else 1
         _launch_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), tab_q, row_start, wgmma=wgmma, cluster=cluster,
                     strides=strides, **kw)
         sfc_flash_bwd_dkv.launches += 1
@@ -817,6 +849,15 @@ def decode_segment_rows(t: int, splits: int, chunk: int = build.DECODE_CHUNK) ->
     if splits < 1 or chunk < 1:
         raise ValueError(f"bad decode split: splits={splits} chunk={chunk}")
     return max(1, math.ceil(math.ceil(t / chunk) / splits)) * chunk
+
+
+def decode_split_sizes(t: int) -> Tuple[int, ...]:
+    """The segment counts the decode kernel takes for a cache capacity
+    ``t``: 1 to ``build.MAX_DECODE_SPLITS``, at most one a chunk, none
+    empty of capacity."""
+    chunks = max(1, math.ceil(t / build.DECODE_CHUNK))
+    return tuple(s for s in range(1, min(chunks, build.MAX_DECODE_SPLITS) + 1)
+                 if math.ceil(chunks / math.ceil(chunks / s)) == s)
 
 
 def decode_splits(batch: int, kv_heads: int, t: int, sm_count: int) -> int:
@@ -904,6 +945,7 @@ def sfc_decode_attention(
     valid_len: torch.Tensor,  # (B,) live cache lengths
     *,
     k_chunk: Optional[int] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Single-launch decode attention against the KV cache: (B, 1, H, D).
 
@@ -913,17 +955,23 @@ def sfc_decode_attention(
     CTAs per (batch, kv head), each reducing one segment, the leader merging
     them; the live lengths ``valid_len`` stay on the device (int32; the host
     never reads them) and the cache is read in place.  ``k_chunk`` must be
-    ``build.DECODE_CHUNK`` or None.  Every launch adds one to
-    ``sfc_decode_attention.launches`` and to ``launches_by_splits[S]``.  On
+    ``build.DECODE_CHUNK`` or None.  ``splits`` (a tuned S, which
+    `core.attention_backend.resolve_attn_knobs` hands down) replaces the
+    rule's where `decode_split_sizes` holds it; it orders the merge, on
+    the card and in the plain version alike.  Every launch adds one to
+    ``sfc_decode_attention.launches``, to ``launches_by_splits[S]`` and to
+    ``launches_by_shape[(B, H, T, Hkv, D)]``.  On
     a CPU tensor it runs `sfc_decode_attention_plain` with the same
     segments and counts nothing.
     """
     _check_decode(q, k, v, valid_len)
     b, _, h, d = q.shape
     _, t, hkv, _ = k.shape
+    if splits is not None and splits not in decode_split_sizes(t):
+        splits = None
     if q.device.type == "cpu":
         return sfc_decode_attention_plain(q, k, v, valid_len, k_chunk=k_chunk or build.DECODE_CHUNK,
-                                          splits=decode_splits(b, hkv, t, H100_SMS))
+                                          splits=splits or decode_splits(b, hkv, t, H100_SMS))
     if q.device.type != "cuda":
         raise ValueError(f"sfc_decode_attention runs on cuda or cpu tensors, got {q.device}")
     if k_chunk not in (None, build.DECODE_CHUNK):
@@ -938,7 +986,7 @@ def sfc_decode_attention(
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    splits = decode_splits(b, hkv, t, sm_count(q.device))
+    splits = splits or decode_splits(b, hkv, t, sm_count(q.device))
     fn = getattr(build.load_attention_library(), build.attn_entry_name("decode", dt, d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -954,8 +1002,10 @@ def sfc_decode_attention(
         raise RuntimeError(f"decode attention kernel launch failed with CUDA error {rc}")
     sfc_decode_attention.launches += 1
     sfc_decode_attention.launches_by_splits[splits] += 1
+    sfc_decode_attention.launches_by_shape[(b, h, t, hkv, d)] += 1
     return o
 
 
 sfc_decode_attention.launches = 0
 sfc_decode_attention.launches_by_splits = collections.Counter()
+sfc_decode_attention.launches_by_shape = collections.Counter()

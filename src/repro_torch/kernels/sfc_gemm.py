@@ -97,6 +97,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.entry import kernel_entry
 
 __all__ = [
+    "KERNEL_VERSION",
     "ACTIVATIONS",
     "activation_fn",
     "sfc_gemm_fused",
@@ -136,7 +137,13 @@ __all__ = [
     "tile_random_bits",
     "stochastic_round_to",
     "kernel_tile",
+    "check_launch",
 ]
+
+# The kernel generation a tune-cache entry was measured against
+# (`repro_torch.tune.cache`): bump it when a kernel change makes measured
+# launch winners or calibrated constants stale.
+KERNEL_VERSION = 1
 
 ACTIVATIONS = ("silu", "gelu", "relu")
 
@@ -431,6 +438,40 @@ def replicated_cluster_split(k: int, n: int, k_layers: int, sm_count: int, k_blo
     return split
 
 
+def forced_cluster_layers(k: int, layers: int) -> int:
+    """A tuned K-layer count of the cluster kernel for a K of ``k``: the
+    largest power of two up to ``layers`` whose slabs stay at least 256
+    rows deep (`cluster_layers`' floor), so that one cache entry serves
+    every K of its bucket."""
+    while layers > 1 and layer_slab(k, layers) < _MIN_SLAB:
+        layers //= 2
+    return layers
+
+
+_LAUNCH_KEYS = ("wide", "group", "layers")
+
+
+def check_launch(launch) -> Optional[dict]:
+    """A launch override (`repro_torch.tune`'s ``Knobs.launch``) as a dict
+    of ints, or None.  ``wide``: the wgmma kernels' 128 x 256 C tile (1) or
+    128 x 128 (0); ``group``: CTAs of a worker of a persistent wgmma or TN
+    launch (at least 1); ``layers``: the cluster kernel's K layers, a power
+    of two up to ``build.MAX_CLUSTER_LAYERS``.  A kernel reads only the
+    keys that concern it and keeps its rule for the others."""
+    if launch is None:
+        return None
+    out = {str(k): int(v) for k, v in dict(launch).items()}
+    bad = [k for k in out if k not in _LAUNCH_KEYS]
+    if bad:
+        raise ValueError(f"unknown launch keys {bad}; pick from {_LAUNCH_KEYS}")
+    if out.get("wide", 0) not in (0, 1) or out.get("group", 1) < 1:
+        raise ValueError(f"bad launch {out}: wide is 0 or 1, group at least 1")
+    layers = out.get("layers", 1)
+    if layers < 1 or layers > build.MAX_CLUSTER_LAYERS or layers & (layers - 1):
+        raise ValueError(f"bad launch {out}: layers is a power of two up to {build.MAX_CLUSTER_LAYERS}")
+    return out
+
+
 def uses_cluster_kernel(a: torch.Tensor) -> bool:
     """Whether `sfc_gemm_fused` launches the cluster kernel for this A on
     the card: the plain mode (2-D), 1 to ``build.SPLIT_MAX_ROWS`` rows,
@@ -464,7 +505,8 @@ def wgmma_grid(rows: int, n: int, glu: bool = False, wide: bool = False) -> tupl
     return math.ceil(rows / bm), math.ceil(n / cols)
 
 
-def wgmma_launch(rows: int, n: int, sm_count: int, glu: bool = False, batch: int = 1) -> WgmmaLaunch:
+def wgmma_launch(rows: int, n: int, sm_count: int, glu: bool = False, batch: int = 1,
+                 launch: Optional[dict] = None) -> WgmmaLaunch:
     """The launch configuration of the wgmma kernels for ``batch`` x
     ``rows`` x ``n`` outputs on ``sm_count`` SMs: the tile, the CTAs and
     the CTAs of a worker.  The CTAs are min(tasks, SMs), one an SM.  A
@@ -477,27 +519,45 @@ def wgmma_launch(rows: int, n: int, sm_count: int, glu: bool = False, batch: int
     wide tile is taken where its modelled time, ceil(tasks / CTAs) x 1.45,
     is under the narrow tile's, ceil(tasks / CTAs): where the wide tiles
     still fill the card (qwen3-4b's GLU, LM head and w_out dA at 512 rows),
-    not where halving the tiles would leave SMs idle.  A pure function of
-    the shape and the SM count, not a knob."""
+    not where halving the tiles would leave SMs idle.  A function of the
+    shape and the SM count; ``launch`` (a tuned ``Knobs.launch``, which
+    reaches a wrapper only through `kernels.ops.resolve_knobs`) overrides
+    the tile (``wide``) and the worker group (``group``, at most the
+    CTAs)."""
     mb = wgmma_grid(rows, n, glu)[0]
-    return _wgmma_cost_rule(mb, n, sm_count, glu, batch, mb)
+    return _wgmma_cost_rule(mb, n, sm_count, glu, batch, mb, launch)
 
 
-def _wgmma_cost_rule(mb: int, n: int, sm_count: int, glu: bool, batch: int, group_rows: int) -> WgmmaLaunch:
+def _wgmma_config(mb: int, n: int, sm_count: int, glu: bool, batch: int, group_rows: int, wide: bool,
+                  group: Optional[int] = None) -> WgmmaLaunch:
+    """The launch of one tile width: min(tasks, SMs) CTAs, workers of
+    ``group`` CTAs (else min(4, ``group_rows``, CTAs) where a CTA has more
+    than one task, else 1), the CTAs cut to a multiple of the group."""
+    nb = wgmma_grid(1, n, glu, wide)[1]
+    tasks = batch * mb * nb
+    ctas = min(tasks, sm_count)
+    if group is None:
+        group = min(4, group_rows, ctas) if tasks > ctas else 1
+    group = max(1, min(group, ctas))
+    ctas -= ctas % group
+    return WgmmaLaunch(wide, mb, nb, ctas, group)
+
+
+def _wgmma_cost_rule(mb: int, n: int, sm_count: int, glu: bool, batch: int, group_rows: int,
+                     launch: Optional[dict] = None) -> WgmmaLaunch:
     """`wgmma_launch`'s rule over ``batch`` x ``mb`` row blocks of ``n``
-    outputs: per tile width, min(tasks, SMs) CTAs, workers of min(4,
-    ``group_rows``, CTAs) CTAs where a CTA has more than one task, and the
-    width of the least ceil(tasks / CTAs) x (1.45 if wide)."""
+    outputs: per tile width, `_wgmma_config`, and the width of the least
+    ceil(tasks / CTAs) x (1.45 if wide); ``launch`` overrides the width
+    and the group."""
     best, best_cost = None, None
     for wide in (False, True):
-        nb = wgmma_grid(1, n, glu, wide)[1]
-        tasks = batch * mb * nb
-        ctas = min(tasks, sm_count)
-        group = min(4, group_rows, ctas) if tasks > ctas else 1
-        ctas -= ctas % group
-        cost = math.ceil(tasks / ctas) * (_WIDE_TILE_COST if wide else 1.0)
+        cfg = _wgmma_config(mb, n, sm_count, glu, batch, group_rows, wide)
+        cost = math.ceil(batch * mb * cfg.nb / cfg.ctas) * (_WIDE_TILE_COST if wide else 1.0)
         if best_cost is None or cost < best_cost:
-            best, best_cost = WgmmaLaunch(wide, mb, nb, ctas, group), cost
+            best, best_cost = cfg, cost
+    if launch and ("wide" in launch or "group" in launch):
+        wide = bool(launch.get("wide", best.wide))
+        best = _wgmma_config(mb, n, sm_count, glu, batch, group_rows, wide, launch.get("group"))
     return best
 
 
@@ -628,7 +688,7 @@ def uses_grouped_nt_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, a2: Optional[
 
 
 def tn_wgmma_launch(rows: int, cols: int, sm_count: int, dual: bool = False, experts: int = 1,
-                    update: bool = False) -> WgmmaLaunch:
+                    update: bool = False, group: Optional[int] = None) -> WgmmaLaunch:
     """The launch configuration of the TN wgmma kernels (K8, and K10 over
     ``experts``) for (rows, cols) dW outputs a set on ``sm_count`` SMs, in
     dW mode or (``update``) the norm and update modes: the C tile is 128 x
@@ -640,14 +700,17 @@ def tn_wgmma_launch(rows: int, cols: int, sm_count: int, dual: bool = False, exp
     are bitwise equal).  The CTAs and worker groups follow `wgmma_launch`'s
     rule: min(tasks, SMs) CTAs, and where a CTA has more than one task,
     workers of min(4, mb, CTAs) CTAs that take their segment's tasks in
-    turn.  A pure function of the shape, the SM count and the form and
-    mode, not a knob."""
+    turn.  A function of the shape, the SM count and the form and mode;
+    ``group`` (a tuned ``Knobs.launch["group"]``, at most the CTAs)
+    overrides the worker group."""
     bm, bn = build.WGMMA_TILE
     wide = dual and not update
     mb, nb = math.ceil(rows / bm), math.ceil(cols / (bn // 2 if dual and update else bn))
     tasks = experts * mb * nb
     ctas = min(tasks, sm_count)
-    group = min(4, mb, ctas) if tasks > ctas else 1
+    if group is None:
+        group = min(4, mb, ctas) if tasks > ctas else 1
+    group = max(1, min(group, ctas))
     ctas -= ctas % group
     return WgmmaLaunch(wide, mb, nb, ctas, group)
 
@@ -664,7 +727,7 @@ def uses_tn_wgmma_kernel(a: torch.Tensor, b: torch.Tensor, b2: Optional[torch.Te
 
 
 def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, bm, bn, out_dtype, shape,
-            preact=False, abft=False):
+            preact=False, abft=False, launch=None):
     batch, m, k, n, b_batched = shape
     f32_out = _f32_out(a, out_dtype)
     if f32_out:
@@ -678,13 +741,13 @@ def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, b
     if out.numel() == 0:
         return _results((out, out_gate), _lane_total(None, a.device) if abft else None)
     if f32_out:
-        return _launch_f32_out(a, b, out, bm=bm, bn=bn, shape=shape, abft=abft)
+        return _launch_f32_out(a, b, out, bm=bm, bn=bn, shape=shape, abft=abft, launch=launch)
     if uses_cluster_kernel(a):
         return _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, activation=activation,
-                               out_scale=out_scale, abft=abft)
+                               out_scale=out_scale, abft=abft, launch=launch)
     if uses_wgmma_kernel(a, b, b_gate):
         return _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, activation=activation,
-                             out_scale=out_scale, shape=shape, abft=abft)
+                             out_scale=out_scale, shape=shape, abft=abft, launch=launch)
     lib = build.load_library()
     fn = getattr(lib, build.entry_name(_dtype_name(a), b_gate is not None, activation, abft))
     mb, nb = math.ceil(m / bm), math.ceil(n / bn)
@@ -716,12 +779,17 @@ def _count(batch, m, k, n, glu, abft, kernel):
         sfc_gemm_fused.abft_launches += 1
 
 
-def _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, activation, out_scale, abft):
+def _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, activation, out_scale, abft,
+                    launch=None):
     """The cluster kernel (K1 at M <= 16): one cluster of L CTAs per C tile
-    of ``gemm_spec(1, nb)``'s table, CTA l the K slab of layer l."""
+    of ``gemm_spec(1, nb)``'s table, CTA l the K slab of layer l; L is
+    `cluster_layers`', or a tuned ``launch["layers"]`` (`forced_cluster_layers`)."""
     m, k = a.shape
     n = b.shape[1]
-    layers = cluster_layers(k, n, sm_count(a.device))
+    if launch and "layers" in launch:
+        layers = forced_cluster_layers(k, launch["layers"])
+    else:
+        layers = cluster_layers(k, n, sm_count(a.device))
     slab = layer_slab(k, layers)
     nb = math.ceil(n / build.TILE[1])
     tab = _device_table(1, nb, a.device)
@@ -745,7 +813,8 @@ def _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, a
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
 
-def _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, activation, out_scale, shape, abft):
+def _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, activation, out_scale, shape, abft,
+                  launch=None):
     """The wgmma kernel (K2, and K1 past the cluster kernel's rows):
     persistent clusters over contiguous segments of the tasks.  Shared
     weights fold the batch into the rows; per-batch weights walk each batch
@@ -753,7 +822,7 @@ def _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, act
     batch, m, k, n, b_batched = shape
     glu = b_gate is not None
     tb, rows = (batch, m) if b_batched else (1, max(batch, 1) * m)
-    cfg = wgmma_launch(rows, n, sm_count(a.device), glu, tb)
+    cfg = wgmma_launch(rows, n, sm_count(a.device), glu, tb, launch)
     mb, nb = cfg.mb, cfg.nb
     tab = _device_table(mb, nb, a.device)
     parts = torch.empty(tb * mb * nb * build.WGMMA_LANE_SLOTS, dtype=torch.float32, device=a.device) if abft else None
@@ -775,7 +844,7 @@ def _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, act
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
 
-def _launch_f32_out(a, b, out, *, bm, bn, shape, abft):
+def _launch_f32_out(a, b, out, *, bm, bn, shape, abft, launch=None):
     """K1/K2's f32-output mode (bf16 inputs, the plain product): the wgmma
     kernel's f32 flush where TMA can describe the rows (`uses_wgmma_kernel`),
     else the tile kernel's, a plain-mode A of at most 16 rows included (the
@@ -785,7 +854,7 @@ def _launch_f32_out(a, b, out, *, bm, bn, shape, abft):
     lib = build.load_library()
     if uses_wgmma_kernel(a, b):
         tb, rows = (batch, m) if b_batched else (1, max(batch, 1) * m)
-        cfg = wgmma_launch(rows, n, sm_count(a.device), False, tb)
+        cfg = wgmma_launch(rows, n, sm_count(a.device), False, tb, launch)
         tab = _device_table(cfg.mb, cfg.nb, a.device)
         parts = (torch.empty(tb * cfg.mb * cfg.nb * build.WGMMA_LANE_SLOTS, dtype=torch.float32, device=a.device)
                  if abft else None)
@@ -828,6 +897,7 @@ def sfc_gemm_fused(
     out_dtype: Optional[torch.dtype] = None,
     preact: bool = False,
     abft: bool = False,
+    launch: Optional[dict] = None,
 ):
     """Single-launch SFC GEMM with the fused epilogue, plain or batched.
 
@@ -850,6 +920,9 @@ def sfc_gemm_fused(
     chooses from the shape and the SM count; the rest (f32, ragged rows)
     the 64 x 64 tile kernel with the whole K range in one loop.
     ``k_layers``/``k_block_factor`` only order the plain version's sum.
+    ``launch`` (`check_launch`; `kernels.ops.resolve_knobs` hands a tuned
+    one down) replaces the rule's L (``layers``) or the wgmma tile and
+    worker group (``wide``, ``group``) of the kernel the call takes.
     Every launch adds one to ``sfc_gemm_fused.launches``, to
     ``launches_by_shape`` under ``(batch, M, K, N, glu)`` (batch 0 for the
     plain mode) and to ``launches_by_kernel`` under
@@ -877,6 +950,7 @@ def sfc_gemm_fused(
     """
     shape = _check(a, b, b_gate, bias, gate_bias, residual, activation, out_scale, preact)
     out_dtype = out_dtype or a.dtype
+    launch = check_launch(launch)
     kw = dict(activation=activation, out_scale=out_scale, bm=bm, bn=bn, out_dtype=out_dtype, preact=preact,
               abft=abft)
     if a.device.type == "cpu":
@@ -886,7 +960,7 @@ def sfc_gemm_fused(
         )
     if a.device.type != "cuda":
         raise ValueError(f"sfc_gemm_fused runs on cuda or cpu tensors, got {a.device}")
-    return _launch(a, b, b_gate, bias, gate_bias, residual, shape=shape, **kw)
+    return _launch(a, b, b_gate, bias, gate_bias, residual, shape=shape, launch=launch, **kw)
 
 
 sfc_gemm_fused.launches = 0
@@ -1478,6 +1552,7 @@ def sfc_gemm_nt(
     k_layers: int = 1,
     k_block_factor: int = 1,
     out_dtype: Optional[torch.dtype] = None,
+    launch: Optional[dict] = None,
 ) -> torch.Tensor:
     """C = A @ Bᵀ (+ A2 @ B2ᵀ) over the gilbert traversal of C's tiles: the
     dA backward GEMM (A = dC, B = the forward weight as stored).
@@ -1485,8 +1560,9 @@ def sfc_gemm_nt(
     On a CUDA tensor this launches a kernel; ``bm``/``bn`` must be
     `kernel_tile()`.  A bf16 call whose contraction rows TMA can describe
     (`uses_nt_wgmma_kernel`) takes the wgmma NT kernel, whose tile and CTAs
-    (`wgmma_launch`) the wrapper chooses; the rest the 64 x 64 NT tile
-    kernel (the whole contraction in one CTA loop, ragged edges masked).
+    (`wgmma_launch`, or ``launch``'s ``wide`` and ``group``) the wrapper
+    chooses; the rest the 64 x 64 NT tile kernel (the whole contraction in
+    one CTA loop, ragged edges masked).
     Every launch adds one to ``sfc_gemm_nt.launches``, to
     ``launches_by_shape[(M, N, K, dual)]`` and to ``launches_by_kernel``
     under ("nt_wgmma_kernel", its C tile, e.g. "128x128") or ("nt_kernel",
@@ -1494,6 +1570,7 @@ def sfc_gemm_nt(
     counts nothing."""
     m, n, k = _check_nt(a, b, a2, b2)
     out_dtype = out_dtype or a.dtype
+    launch = check_launch(launch)
     if a.device.type == "cpu":
         return sfc_gemm_nt_plain(a, b, a2, b2, bm=bm, bn=bn, k_layers=k_layers,
                                  k_block_factor=k_block_factor, out_dtype=out_dtype)
@@ -1504,7 +1581,7 @@ def sfc_gemm_nt(
     if out.numel() == 0:
         return out
     if uses_nt_wgmma_kernel(a, b, a2, b2):
-        kernel = ("nt_wgmma_kernel", _launch_nt_wgmma(a, b, a2, b2, out))
+        kernel = ("nt_wgmma_kernel", _launch_nt_wgmma(a, b, a2, b2, out, launch=launch))
     else:
         # an empty contraction (k == 0) still launches: the CTAs flush zeros
         _launch_bwd("nt", a, b, (a2, b2), out, None, rows=m, cols=n, depth=k,
@@ -1516,12 +1593,12 @@ def sfc_gemm_nt(
     return out
 
 
-def _launch_nt_wgmma(a, b, a2, b2, out, *, gs: Optional[tuple] = None) -> str:
+def _launch_nt_wgmma(a, b, a2, b2, out, *, gs: Optional[tuple] = None, launch: Optional[dict] = None) -> str:
     """One launch of the wgmma NT kernel (K7, or K9 over the group sizes
     ``gs``, b (E, N, K)); returns its tile's name."""
     m, n = a.shape[0], b.shape[-2]
     if gs is None:
-        cfg = wgmma_launch(m, n, sm_count(a.device))
+        cfg = wgmma_launch(m, n, sm_count(a.device), launch=launch)
         tab, grp = _device_table(cfg.mb, cfg.nb, a.device), None
     else:
         cfg = grouped_wgmma_launch(gs, n, sm_count(a.device))
@@ -1538,14 +1615,15 @@ def _launch_nt_wgmma(a, b, a2, b2, out, *, gs: Optional[tuple] = None) -> str:
     return _tile_name(cfg, False)
 
 
-def _launch_tn_wgmma(a, b, b2, out, out2, *, gs: Optional[tuple] = None, abft: bool = False):
+def _launch_tn_wgmma(a, b, b2, out, out2, *, gs: Optional[tuple] = None, abft: bool = False,
+                     group: Optional[int] = None):
     """One launch of the TN wgmma kernel in dW mode (K8, or K10 over the
     group sizes ``gs``, its (E, K, N) outputs); returns (its tile's name,
     the lane's (n_sets, tasks) partials under ``abft``, else None)."""
     t, k = a.shape
     n = b.shape[1]
     experts = 1 if gs is None else len(gs)
-    cfg = tn_wgmma_launch(k, n, sm_count(a.device), b2 is not None, experts)
+    cfg = tn_wgmma_launch(k, n, sm_count(a.device), b2 is not None, experts, group=group)
     tiles = cfg.mb * cfg.nb
     tab = _device_table(cfg.mb, cfg.nb, a.device)
     grp = None if gs is None else _device_groups(gs, build.WGMMA_TILE[0], a.device)
@@ -1563,7 +1641,7 @@ def _launch_tn_wgmma(a, b, b2, out, out2, *, gs: Optional[tuple] = None, abft: b
 
 
 def _launch_tn_update_wgmma(a, b, b2, sets, hyper, *, salt: int, stochastic_round: bool,
-                            gs: Optional[tuple] = None, abft: bool = False):
+                            gs: Optional[tuple] = None, abft: bool = False, group: Optional[int] = None):
     """One launch of the TN wgmma kernel in norm mode (``sets`` None) or
     update mode, as `_launch_tn_update`'s; returns (its result, the tile's
     name)."""
@@ -1571,7 +1649,7 @@ def _launch_tn_update_wgmma(a, b, b2, sets, hyper, *, salt: int, stochastic_roun
     n = b.shape[1]
     n_sets = 1 if b2 is None else 2
     experts = 1 if gs is None else len(gs)
-    cfg = tn_wgmma_launch(k, n, sm_count(a.device), b2 is not None, experts, update=True)
+    cfg = tn_wgmma_launch(k, n, sm_count(a.device), b2 is not None, experts, update=True, group=group)
     tiles = cfg.mb * cfg.nb
     tab = _device_table(cfg.mb, cfg.nb, a.device)
     grp = None if gs is None else _device_groups(gs, build.WGMMA_TILE[0], a.device)
@@ -1666,6 +1744,7 @@ def sfc_gemm_tn(
     k_block_factor: int = 1,
     out_dtype: Optional[torch.dtype] = None,
     abft: bool = False,
+    launch: Optional[dict] = None,
 ):
     """C = Aᵀ @ B (and Aᵀ @ B2) over the gilbert traversal of C's (K, N)
     tiles: the dW backward GEMM (A = the forward activations, B = dC), in
@@ -1688,8 +1767,9 @@ def sfc_gemm_tn(
     all M rows of their tiles (no atomics: the norms are per-task partials
     summed on the device): a bf16 call that `uses_tn_wgmma_kernel` takes
     the persistent wgmma kernel (128 x 128 tiles a set, the dual form's
-    norm and update 128 x 64, `tn_wgmma_launch`; the writes staged in
-    shared memory), every other the 64 x 64 TN tile kernel.  Each launch adds one to
+    norm and update 128 x 64, `tn_wgmma_launch`, its worker group
+    ``launch["group"]`` where given; the writes staged in shared memory),
+    every other the 64 x 64 TN tile kernel.  Each launch adds one to
     ``sfc_gemm_tn.launches``, to ``launches_by_mode[mode]``, to
     ``launches_by_shape[(K, N, M, dual)]`` (dW mode) or ``[(K, N, M, dual,
     mode)]`` and to ``launches_by_kernel`` under ("tn_wgmma_kernel" or, in
@@ -1707,6 +1787,7 @@ def sfc_gemm_tn(
     k, n, m = _check_tn(a, b, b2)
     mode, sets = _check_update(a, (k, n), b2, master, mu, nu, master2, mu2, nu2, hyper, w, w2, norm, salt)
     out_dtype = out_dtype or a.dtype
+    group = (check_launch(launch) or {}).get("group")
     if a.device.type == "cpu":
         return sfc_gemm_tn_plain(a, b, b2, master, mu, nu, master2, mu2, nu2, hyper, w=w, w2=w2, salt=salt,
                                  stochastic_round=stochastic_round, norm=norm, bm=bm, bn=bn, k_layers=k_layers,
@@ -1721,7 +1802,7 @@ def sfc_gemm_tn(
         out2 = torch.empty_like(out) if b2 is not None else None
         parts = None
         if out.numel() and uses_tn_wgmma_kernel(a, b, b2):
-            tile, parts = _launch_tn_wgmma(a, b, b2, out, out2, abft=abft)
+            tile, parts = _launch_tn_wgmma(a, b, b2, out, out2, abft=abft, group=group)
             kernel = ("tn_wgmma_kernel", tile)
         elif out.numel():
             mb, nb = math.ceil(k / bm), math.ceil(n / bn)
@@ -1734,7 +1815,7 @@ def sfc_gemm_tn(
         return (norms, _lane_total(None, a.device, n_sets)) if abft else norms
     elif uses_tn_wgmma_kernel(a, b, b2, *_state_tensors(sets)):
         result, tile = _launch_tn_update_wgmma(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,
-                                               abft=abft)
+                                               abft=abft, group=group)
         kernel = ("tn_update_wgmma_kernel", tile)
     else:
         result = _launch_tn_update(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,

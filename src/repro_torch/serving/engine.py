@@ -19,23 +19,27 @@ the port has no fallback ladder yet (ROADMAP queue 1 item 14), so it raises
 `SdcDetected` for the step instead.  A prefill runs under the caller's
 ABFT mode, eagerly: a mismatch raises there too.
 
-Not ported in this slice: warmup and knob tuning (ROADMAP queue 1 item 13),
-the self-healing retry and the health registry (item 14), and the
-telemetry registry (item 15); percentiles are computed with numpy.
+Warmup (`ServingEngine.warmup`) runs one prefill and one decode step
+before traffic and, with ``tune=True`` under "sfc_cuda", first calibrates
+the device and tunes every namespace of `tune_table` (`repro_torch.tune`),
+as the JAX engine does under "sfc_pallas".  Not ported in this slice: the
+self-healing retry and the health registry (item 14), and the telemetry
+registry (item 15); percentiles are computed with numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import namespaces as ns
 from repro_torch.core.device import resolve_device, torch_dtype
-from repro_torch.core.namespaces import BACKEND_TORCH, BACKENDS
+from repro_torch.core.namespaces import BACKEND_SFC_CUDA, BACKEND_TORCH, BACKENDS
 from repro_torch.models.registry import build_model
 from repro_torch.robust import abft as _abft
 from repro_torch.serving import backend as backend_lib
@@ -155,6 +159,128 @@ class ServingEngine:
             self._sdc_detections += sum(scope.detections.values())
             raise _abft.SdcDetected(", ".join(sorted(scope.detections)), scope.max_ratio, 1.0)
         return out
+
+    # ---------------- warmup / tuning ----------------
+
+    def _launch_rows(self, prompt_len: int) -> int:
+        """Rows of one launch of a prefill projection: the JAX engine keys a
+        sequence's (its kernel's batch walks the sequences); on the card a
+        shared weight's batch folds into the rows of one launch, so the
+        tune cache is keyed (and its winners measured) at max_batch x
+        prompt_len (`kernels.ops.sfc_matmul`)."""
+        return prompt_len * (self.max_batch if self.device.type == "cuda" else 1)
+
+    def projection_gemm_shapes(self, prompt_len: int) -> List[Tuple[str, int, int, int]]:
+        """(op, M, N, K) of the dominant prefill projection GEMMs at this
+        batch size, the JAX engine's table: attention / ffn projections (M
+        the rows of one launch, `_launch_rows`) and the LM head (the last
+        position of each sequence); "glu" for the gated up-projection,
+        "gemm" otherwise."""
+        d, ff, v = self.cfg.d_model, self.cfg.d_ff, self.cfg.vocab
+        rows = self._launch_rows(prompt_len)
+        shapes = [(ns.NS_GEMM, rows, d, d)]
+        if ff:
+            up_op = ns.NS_GLU if getattr(self.cfg, "gated_mlp", True) else ns.NS_GEMM
+            shapes += [(up_op, rows, ff, d), (ns.NS_GEMM, rows, d, ff)]
+        shapes.append((ns.NS_GEMM, self.max_batch, v, d))
+        return shapes
+
+    def tune_table(self, prompt_len: int, *, backward: bool = False,
+                   update: bool = False) -> List[Tuple[str, int, int, int]]:
+        """The (op, m, n, k) tune-namespace table warmup fills, the JAX
+        engine's: per forward projection shape its namespace; with
+        ``backward`` the two backward buckets (`perf_model.
+        backward_gemm_shapes`) in the namespaces the training backward
+        resolves (the dual forms for the GLU); with ``update`` the fused
+        optimizer's on the TN buckets; under attn_impl "sfc" the flash
+        forward (and with ``backward`` its backward) at (prompt_len,
+        prompt_len, head_dim) and the decode at (heads, max_seq,
+        head_dim).  On the card a training step runs the LM head at every
+        row, so with ``backward`` or ``update`` the head's forward is tuned
+        at `_launch_rows` too and its backward buckets derive from those
+        rows (the JAX engine derives them from the serve's max_batch)."""
+        from repro_torch.core.perf_model import attention_phase_shapes, backward_gemm_shapes
+
+        rows = self._launch_rows(prompt_len)
+        card = self.device.type == "cuda"
+        entries: List[Tuple[str, int, int, int]] = []
+        for (op, m, n, k) in self.projection_gemm_shapes(prompt_len):
+            entries.append((op, m, n, k))
+            if not (backward or update):
+                continue
+            if card and m != rows:
+                m = rows
+                entries.append((op, m, n, k))
+            bwd = backward_gemm_shapes(m, n, k)
+            dual = op == ns.NS_GLU
+            if backward:
+                entries.append((ns.NS_NT_DUAL if dual else ns.NS_NT, *bwd[ns.NS_NT]))
+                entries.append((ns.NS_TN_DUAL if dual else ns.NS_TN, *bwd[ns.NS_TN]))
+            if update:
+                entries.append((ns.NS_TN_UPDATE_DUAL if dual else ns.NS_TN_UPDATE, *bwd[ns.NS_TN]))
+        if getattr(self.cfg, "attn_impl", "") == "sfc":
+            attn = attention_phase_shapes(prompt_len, prompt_len, self.cfg.head_dim_, n_heads=self.cfg.n_heads,
+                                          cache_len=self.max_seq)
+            entries.append((ns.NS_ATTN_FWD, *attn[ns.NS_ATTN_FWD]))
+            if backward:
+                entries.append((ns.NS_ATTN_BWD, *attn[ns.NS_ATTN_BWD]))
+            entries.append((ns.NS_ATTN_DECODE, *attn[ns.NS_ATTN_DECODE]))
+        return entries
+
+    def warmup(
+        self,
+        prompt_len: int = 32,
+        *,
+        tune: bool = False,
+        tune_backward: bool = False,
+        tune_update: bool = False,
+        tune_strategy: str = "predict",
+    ) -> Optional[Dict[str, Any]]:
+        """Run one prefill of ``max_batch`` x ``prompt_len`` tokens and one
+        decode step before traffic arrives (first launches, task tables,
+        the allocator); with ``tune=True`` under "sfc_cuda" first calibrate
+        the device (`repro_torch.tune.calibrate`, once per device kind) and
+        tune every namespace of `tune_table` on the engine's device, keyed
+        by the parameters' type, so that the serve resolves the winners (a
+        second warmup is a pure cache hit: it measures nothing).
+
+        ``tune_backward`` adds the backward namespaces and implies ``tune``;
+        ``tune_update`` adds the fused optimizer's and implies
+        ``tune_backward``.  ``tune_strategy``: `tune_gemm`'s.  On the card
+        an attention namespace is measured at the model's heads (max_batch,
+        n_heads, kv_heads).  A failed calibration or measurement raises.
+
+        Returns, when tuning ran, the JAX engine's stats: ``n_namespaces``,
+        ``n_measured``, ``median_rel_err`` (predicted against measured over
+        the measurements) and the per-measurement ``report``; else None."""
+        tune_backward = tune_backward or tune_update
+        tune = tune or tune_backward
+        stats: Optional[Dict[str, Any]] = None
+        if tune and self.backend == BACKEND_SFC_CUDA:
+            from repro_torch.tune import calibrate, tune_gemm
+
+            calibrate(device=self.device)
+            dtype = torch_dtype(self.cfg.param_dtype)
+            heads = (self.max_batch, self.cfg.n_heads, self.cfg.kv_heads)
+            report: List[Dict[str, Any]] = []
+            entries = self.tune_table(prompt_len, backward=tune_backward, update=tune_update)
+            for (op, m, n, k) in entries:
+                tune_gemm(m, n, k, dtype, op=op, strategy=tune_strategy, report=report, device=self.device,
+                          heads=heads if op in ns.ATTN_OPS else None)
+            errs = [abs(r["measured_s"] - r["predicted_s"]) / r["measured_s"]
+                    for r in report if r.get("predicted_s") and r["measured_s"] > 0]
+            stats = {
+                "n_namespaces": len(entries),
+                "n_measured": len(report),
+                "median_rel_err": float(np.median(errs)) if errs else None,
+                "report": report,
+            }
+        tokens = torch.zeros((self.max_batch, prompt_len), dtype=torch.long, device=self.device)
+        logits, cache = self._prefill(tokens)
+        self._decode(logits.argmax(dim=-1)[:, None], cache)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return stats
 
     # ---------------- serving loop ----------------
 
