@@ -292,6 +292,19 @@ phase 3 three) and raising on failure:
               an empty one (tokens bitwise or at parity, losses within
               2^-7); every tuned bucket launched there, and every shape
               launched in one held against its plain version;
+4b. heal    right after the serve, on its weights (`phase_heal`): the
+              fallback ladder healing a compile fault on the sfc_cuda rung
+              of gemm and glu (launches and tokens those of the
+              "replicated" serve), every kernel rung faulted (the torch
+              rung, no SFC launch, logits at parity), a transient bitflip
+              retried on the same rung under ABFT "detect" (tokens
+              bitwise), an injected detection in the last verified decode
+              step redone on the healed rungs (in f32, within twice
+              the f32 bound, its quarantines marked injected); TrainLoop on a 2-layer cut: 6 fused steps of 2 x
+              256, checkpoints every 2, a preemption at 4, a resume from
+              other weights bitwise the uninterrupted run, an injected
+              detection rolling back to 4; the seconds and GB of each save
+              and restore; the ladder's host µs a call;
 16. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound (K1/K2 and K4/K5 rows: the kernel
@@ -302,6 +315,13 @@ phase 3 three) and raising on failure:
               reference's time and the partials their bound adds; before
               it, the seconds at which each phase began, the build's and
               the run's total.
+
+The whole run is strict (``REPRO_STRICT=1``, on top of the card's
+default, so no ``REPRO_ALLOW_FALLBACK`` in the caller's environment
+loosens it): a fallback that was not injected raises, and before every phase the ladder's ledger must show no
+fallback and no quarantine (the "strict" part of the clock line), so a
+kernel that fails to build or launch fails the run.  ``--heal-only`` runs
+phases 1, 4 and 4b alone and prints no result line.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository's src/repro_torch beside this file, it exits non-zero
@@ -318,6 +338,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 from pathlib import Path
@@ -4951,6 +4972,435 @@ def phase_tune(torch, np, cfg, build_model, ServingEngine, build_trainer, tk, ts
     return summary, kernel_rows
 
 
+# ---------------------------------------------------------------------------
+# the fallback ladder, fault injection, checkpoints and the train loop
+# ---------------------------------------------------------------------------
+
+# TrainLoop on qwen3-4b at full width cut to HEAL_TRAIN_LAYERS layers:
+# HEAL_TRAIN_STEPS fused steps of TRAIN_BATCH x TRAIN_SEQ, a checkpoint
+# every HEAL_CKPT_EVERY steps, a simulated preemption at HEAL_FAIL_AT
+HEAL_TRAIN_LAYERS, HEAL_TRAIN_STEPS, HEAL_CKPT_EVERY, HEAL_FAIL_AT = 2, 6, 2, 4
+# heal (d)'s gate, in units of the f32 bound (`within`): the redo runs all
+# 36 layers on other rungs (sfc_reference, the attention oracle) in f32, so
+# it carries one f32 rounding a layer where `within` allows one; measured
+# 0.983 on an H100 80GB HBM3 at 700 W.  A redo in bf16 would read >= ~20
+# (bf16 output rounding, 2^-9, over the bound's 1e-4).
+HEAL_REDO_F32_MARGIN = 2.0
+# host µs of a ladder call: calls a loop, loops (median)
+LADDER_CALLS, LADDER_LOOPS = 500, 11
+
+
+def assert_no_degradation(robust, after: str) -> dict:
+    """Strict run: nothing fell back and nothing is quarantined."""
+    rep = robust.degradation_report()
+    if rep["fallback_calls"] or rep["quarantined"] or not rep["strict"]:
+        raise AssertionError(f"after {after}: the fallback ladder degraded: {rep}")
+    return {"total_calls": rep["total_calls"], "fallback_calls": 0, "quarantined": 0}
+
+
+def ladder_summary(rep: dict) -> dict:
+    """The ledger part of a degradation report a heal line shows."""
+    quarantined = collections.Counter((r["namespace"], r["rung"], r["reason"], r["injected"])
+                                      for r in rep["quarantined"])
+    return {"total_calls": rep["total_calls"], "fallback_calls": rep["fallback_calls"], "served": rep["served"],
+            "sdc": rep["sdc"],
+            "quarantined": [{"namespace": ns, "rung": rung, "reason": why, "injected": inj, "shapes": n}
+                            for (ns, rung, why, inj), n in sorted(quarantined.items())]}
+
+
+def ladder_host_us(torch, np, gb, ops, robust):
+    """Host µs of the GEMM ladder a call, where the device's time is
+    negligible (`scripts/resolve_overhead_ab.py`'s shapes): a 4 x 64 @ 64 x
+    64 product (decode's 2-D form) and a 4 x 8 x 64 batch over a shared
+    weight, each as `ops.sfc_matmul` directly (the rung), through
+    `run_with_fallback` with `gemm_backend.matmul`'s rung table (what
+    ``matmul`` walks under sfc_cuda), and as `gemm_backend.matmul` itself;
+    LADDER_LOOPS loops of LADDER_CALLS calls, each loop ending in one
+    synchronisation, the three interleaved in alternating order, medians.
+    Beside them the ladder alone: the same walk around a rung that does
+    nothing, against that rung called directly (host only)."""
+    from repro_torch.core.namespaces import NS_GEMM
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(64, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(bias=None, activation=None, out_scale=None, residual=None)
+
+    def timed(fns):
+        times = {k: [] for k in fns}
+        for fn in fns.values():
+            for _ in range(50):
+                fn()
+        torch.cuda.synchronize()
+        for loop in range(LADDER_LOOPS):
+            for key in (list(fns) if loop % 2 == 0 else list(fns)[::-1]):
+                fn = fns[key]
+                t0 = time.perf_counter()
+                for _ in range(LADDER_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                times[key].append((time.perf_counter() - t0) / LADDER_CALLS * 1e6)
+        return {k: float(np.median(v)) for k, v in times.items()}, times
+
+    out = {}
+    for name, shape in (("decode_4x64", (4, 64)), ("batched_4x8x64", (4, 8, 64))):
+        a = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def backend():
+            with gb.gemm_backend("sfc_cuda"):
+                return gb.matmul(a, w)
+
+        med, each = timed({
+            "direct": lambda: ops.sfc_matmul(a, w, **kw),
+            "ladder": lambda: robust.run_with_fallback(NS_GEMM, gb._MATMUL_RUNGS, args=(a, w, kw),
+                                                       shape_key=gb._rung_key),
+            "gemm_backend_matmul": backend})
+        out[name] = {"median_us": med, "each_us": each, "ladder_minus_direct_us": med["ladder"] - med["direct"],
+                     "ladder_over_direct": med["ladder"] / med["direct"] - 1.0}
+
+    def noop(x, w_, kw_):
+        return x
+
+    rungs = tuple((r, noop) for r in ("sfc_cuda", "replicated", "sfc_reference", "torch"))
+    a = torch.randn(4, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    med, _ = timed({"noop": lambda: noop(a, w, kw),
+                    "ladder_around_noop": lambda: robust.run_with_fallback(NS_GEMM, rungs, args=(a, w, kw),
+                                                                           shape_key=gb._rung_key)})
+    out["ladder_alone_us"] = med["ladder_around_noop"] - med["noop"]
+    return out
+
+
+def phase_heal(torch, np, cfg, params, ServingEngine, tk, tsa, robust, gb, ops, abft, build_trainer,
+               reset_counts, replicated_counts, done, want_rep, want_launches, ref, torch_noise):
+    """The fallback ladder on the card, on phase 4's full-width qwen3-4b
+    weights, the health registry reset before each part:
+
+    (a) the sfc_cuda serve (blockwise attention) under a "compile" fault
+        on the sfc_cuda rung of "gemm" and "glu": every projection heals to
+        the replicated rung; launches and tokens are those of phase 4's
+        "replicated" serve at k_layers 1 (K4 / K5, no K1/K2), the ledger
+        shows the fallbacks and the injected quarantines;
+    (b) every kernel rung of every namespace faulted (sfc_cuda,
+        replicated, sfc_reference), attention "sfc": the serve lands on the
+        torch rung with no SFC launch; its prefill logits at parity with
+        the torch backend's (mean |error| from the f32 model at most
+        ACCURACY_PARITY times torch's) and its tokens beside torch's;
+    (c) under ABFT "detect", outside a step scope, a transient bitflip
+        (fires once) on the last gemm call of the serve (a decode step's
+        LM head, K1): the op is retried on the same rung, the ledger counts
+        the detection and the heal, and tokens and launches are the clean
+        serve's bitwise;
+    (d) an injected detection in the step scope of the last decode step,
+        the only verified one (verify_every = NEW_TOKENS - 1), on the
+        weights in f32, attention "sfc": the engine quarantines the kernel
+        rungs (every record marked injected) and redoes the step on
+        sfc_reference (GEMMs) and the oracle (attention); the redone f32
+        logits against the clean run's last step within
+        HEAL_REDO_F32_MARGIN times the f32 bound (the bf16 bound's reading
+        shown beside), one detection in the ledger;
+    (e) `TrainLoop` on a HEAL_TRAIN_LAYERS-layer cut, fused optimizer,
+        "sfc" attention: an uninterrupted run of HEAL_TRAIN_STEPS steps;
+        a run checkpointing every HEAL_CKPT_EVERY steps preempted at
+        HEAL_FAIL_AT (its losses bitwise the uninterrupted run's); a run
+        from other weights resumed from that checkpoint under "detect"
+        with an injected detection in its first step, which rolls back to
+        HEAL_FAIL_AT and skips the data ahead; then a run from other
+        weights resumed at HEAL_FAIL_AT to the end: losses and final
+        weights bitwise the uninterrupted run's; seconds and GB of every
+        save and restore;
+    (f) the ladder's host µs a call (`ladder_host_us`)."""
+    from repro_torch.robust import FaultSpec, fault_injection
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import CorruptionPolicy, TrainLoop, model_step
+
+    reg = robust.get_registry()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=PROMPT).astype(np.int32) for _ in range(BATCH)]
+    tokens_of = {name: [r.output for r in batch] for name, batch in done.items()}
+
+    def engine(impl, weights=params, config=cfg, **kw):
+        return ServingEngine(dataclasses.replace(config, attn_impl=impl), weights, max_batch=BATCH,
+                             max_seq=PROMPT + NEW_TOKENS + 1, gemm_backend="sfc_cuda", device="cuda", **kw)
+
+    def serve(eng):
+        out = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
+        torch.cuda.synchronize()
+        return [r.output for r in out]
+
+    def sfc_launches():
+        return {"K1/K2": tk.sfc_gemm_fused.launches, "K4/K5": tk.sfc_gemm_replicated.launches,
+                "K6": tk.add_reduce.launches, "K11": tsa.sfc_flash_fwd.launches,
+                "K14": tsa.sfc_decode_attention.launches}
+
+    out = {"phase": "heal", "arch": cfg.name, "layers": cfg.n_layers, "requests": BATCH, "prompt": PROMPT,
+           "new_tokens": NEW_TOKENS}
+    t_phase = time.perf_counter()
+
+    # (a) the sfc_cuda rung of gemm and glu refuses every shape
+    reg.reset()
+    eng = engine("blockwise")
+    reset_counts()
+    specs = [FaultSpec(ns, kind="compile", rungs=("sfc_cuda",)) for ns in ("gemm", "glu")]
+    with fault_injection(*specs) as state:
+        toks = serve(eng)
+    rep = reg.degradation_report()
+    calls = dict(state.calls)
+    gemm_calls = calls["gemm"]
+    launches = replicated_counts()
+    by_kern = by_kernel(tk.sfc_gemm_replicated.launches_by_kernel)
+    a_ok = (launches == want_rep and toks == tokens_of["replicated"]
+            and by_kern == {REP_ROUTES[key]: want_rep[key] for key in ("K4", "K5")}
+            and rep["fallback_calls"] == calls["gemm"] + calls["glu"]
+            and all(r["injected"] and r["rung"] == "sfc_cuda" and r["reason"] == "compile"
+                    for r in rep["quarantined"])
+            and {r["namespace"] for r in rep["quarantined"]} == {"gemm", "glu"})
+    out["a_compile_fault_heals_to_replicated"] = {
+        "ok": a_ok, "launches": launches, "launches_expected": want_rep, "by_kernel": by_kern,
+        "tokens_identical_to_replicated_serve": toks == tokens_of["replicated"], "ladder_calls": calls,
+        "ledger": ladder_summary(rep)}
+    if not a_ok:
+        raise AssertionError(f"heal (a): {out['a_compile_fault_heals_to_replicated']}")
+    del eng
+
+    # (b) every kernel rung of every namespace refuses: the torch rung serves
+    reg.reset()
+    eng = engine("sfc")
+    reset_counts()
+    with fault_injection(FaultSpec("*", kind="compile", rungs=("sfc_cuda", "replicated", "sfc_reference"))) as state:
+        toks = serve(eng)
+        ptoks = torch.from_numpy(np.stack(prompts)).long().cuda()
+        logits_b = eng._prefill(ptoks)[0].float()
+    rep = reg.degradation_report()
+    launches = sfc_launches()
+    noise_b = float((logits_b - ref).abs().mean())
+    match = float((np.array(toks) == np.array(tokens_of["torch"])).mean())
+    b_ok = (not any(launches.values()) and rep["fallback_calls"] == rep["total_calls"] > 0
+            and set(rep["served"]) == {"gemm", "glu", "attn_fwd", "attn_decode"}
+            and all(set(r) == {"torch"} for r in rep["served"].values())
+            and noise_b <= ACCURACY_PARITY * torch_noise)
+    out["b_every_kernel_rung_faulted_serves_on_torch"] = {
+        "ok": b_ok, "sfc_launches": launches, "ladder_calls": dict(state.calls),
+        "prefill_logits_bf16_mean_abs_err_vs_f32": noise_b, "torch_backend_mean_abs_err_vs_f32": torch_noise,
+        "parity_ok": noise_b <= ACCURACY_PARITY * torch_noise, "greedy_token_match_vs_torch": match,
+        "ledger": ladder_summary(rep)}
+    if not b_ok:
+        raise AssertionError(f"heal (b): {out['b_every_kernel_rung_faulted_serves_on_torch']}")
+    del eng, logits_b
+
+    # (c) a transient flip on one decode K1 launch, detected eagerly and retried
+    reg.reset()
+    abft.reset_runtime_sdc()
+    eng = engine("blockwise")
+    reset_counts()
+    target = gemm_calls - 1  # the LM head of the last decode step
+    with abft.abft_mode("detect"), fault_injection(
+            FaultSpec("gemm", kind="bitflip", calls=(target,), fires=1, rungs=("sfc_cuda",))) as state:
+        toks = serve(eng)
+    rep = reg.degradation_report()
+    c_ok = (state.fired == [("gemm", "sfc_cuda", target, "bitflip")] and toks == tokens_of["sfc_cuda"]
+            and rep["sdc"] == {"gemm": {"detected": 1, "healed": 1}} and not rep["quarantined"]
+            and not rep["fallback_calls"] and tk.sfc_gemm_fused.launches == want_launches)
+    out["c_transient_bitflip_retried_on_the_same_rung"] = {
+        "ok": c_ok, "fired": state.fired, "call": target, "tokens_identical_to_clean": toks == tokens_of["sfc_cuda"],
+        "k1_k2_launches": tk.sfc_gemm_fused.launches, "launches_expected": want_launches,
+        "abft_checks": abft.runtime_check_total(), "ledger": ladder_summary(rep)}
+    if not c_ok:
+        raise AssertionError(f"heal (c): {out['c_transient_bitflip_retried_on_the_same_rung']}")
+    del eng
+
+    # (d) a detection in the last (verified) decode step: quarantine and redo, in f32
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params32 = {k: v.float() for k, v in params.items()}
+    last = {}
+
+    def capture(eng, key):
+        real = eng._decode
+
+        def decode(token, cache):
+            logits, cache = real(token, cache)
+            last[key] = logits.clone()
+            return logits, cache
+
+        eng._decode = decode
+
+    runs = {}
+    for key, specs in (("clean", ()), ("detected", None)):
+        reg.reset()
+        abft.reset_runtime_sdc()
+        eng = engine("sfc", params32, cfg32, verify_every=NEW_TOKENS - 1)
+        capture(eng, key)
+        if specs is None:  # the last gemm call of the serve: inside the verified step's scope
+            specs = (FaultSpec("gemm", kind="bitflip", calls=(runs["clean"]["calls"]["gemm"] - 1,), fires=1,
+                               rungs=("sfc_cuda",)),)
+        reset_counts()
+        t0 = time.perf_counter()
+        with fault_injection(*specs) as state:
+            toks = serve(eng)
+        runs[key] = {"calls": dict(state.calls), "fired": state.fired, "tokens": toks,
+                     "s": time.perf_counter() - t0, "report": eng.degradation_report(),
+                     "launches": sfc_launches()}
+        del eng
+    del params32
+    torch.cuda.empty_cache()
+    rep = runs["detected"]["report"]
+    ok16, err16, worst16 = within(last["detected"], last["clean"], torch.bfloat16)
+    ok32, err32, worst32 = within(last["detected"], last["clean"], torch.float32)
+    served = rep["served"]
+    d_ok = (worst32 <= HEAL_REDO_F32_MARGIN and last["detected"].dtype == torch.float32
+            and rep["verify"]["sdc_detections"] == 1 and rep["verify"]["verified_steps"] == 1
+            and runs["clean"]["report"]["verify"]["sdc_detections"] == 0
+            and served.get("gemm", {}).get("sfc_reference", 0) > 0 and served.get("glu", {}).get("sfc_reference", 0) > 0
+            and served.get("attn_decode", {}).get("torch", 0) > 0 and all(r["injected"] for r in rep["quarantined"])
+            and {(r["namespace"], r["rung"]) for r in rep["quarantined"]} == {
+                (ns, rung) for ns in ("gemm", "glu", "grouped", "grouped_glu", "attn_fwd", "attn_decode")
+                for rung in ("sfc_cuda", "replicated")})
+    out["d_verified_step_redone_on_healed_rungs"] = {
+        "ok": d_ok, "dtype": "float32", "verify_every": NEW_TOKENS - 1, "fired": runs["detected"]["fired"],
+        "verify": rep["verify"], "redone_logits_vs_clean": {
+            "f32_bound": {"ok": ok32, "max_abs_err": err32, "err_over_bound": worst32,
+                          "gate": HEAL_REDO_F32_MARGIN},
+            "bf16_bound": {"ok": ok16, "max_abs_err": err16, "err_over_bound": worst16}},
+        "quarantines_injected": all(r["injected"] for r in rep["quarantined"]),
+        "greedy_token_match_vs_clean": float((np.array(runs["detected"]["tokens"])
+                                              == np.array(runs["clean"]["tokens"])).mean()),
+        "serve_s": {k: v["s"] for k, v in runs.items()}, "launches": {k: v["launches"] for k, v in runs.items()},
+        "ledger": ladder_summary(rep)}
+    if not d_ok:
+        raise AssertionError(f"heal (d): {out['d_verified_step_redone_on_healed_rungs']}")
+
+    # (e) the fault-tolerant train loop, with checkpoints
+    reg.reset()
+    abft.reset_runtime_sdc()
+    cut = dataclasses.replace(cfg, n_layers=HEAL_TRAIN_LAYERS)
+    io = []  # (kind, step, seconds, GB)
+    real_host, real_write, real_restore = ckpt_mod._host_leaves, ckpt_mod._save_host, ckpt_mod.restore
+
+    def host_leaves(tree):
+        t0 = time.perf_counter()
+        leaves = real_host(tree)
+        io.append(("save_host_copy", None, time.perf_counter() - t0, sum(a.nbytes for _, a, _ in leaves) / 1e9))
+        return leaves
+
+    def save_host(ckpt_dir, step, leaves, extra):
+        t0 = time.perf_counter()
+        path = real_write(ckpt_dir, step, leaves, extra)
+        io.append(("save_hash_and_write", step, time.perf_counter() - t0, sum(a.nbytes for _, a, _ in leaves) / 1e9))
+        return path
+
+    def restore(ckpt_dir, step=None, *, target=None):
+        t0 = time.perf_counter()
+        tree, manifest = real_restore(ckpt_dir, step, target=target)
+        torch.cuda.synchronize()
+        gb_ = sum(int(np.prod(leaf["shape"])) * (2 if leaf["dtype"] == "bfloat16" else 4)
+                  for leaf in manifest["leaves"]) / 1e9
+        io.append(("restore", manifest["step"], time.perf_counter() - t0, gb_))
+        return tree, manifest
+
+    ckpt_mod._host_leaves, ckpt_mod._save_host, ckpt_mod.restore = host_leaves, save_host, restore
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    try:
+        def trainer(seed, abft_mode=None):
+            model, opt_state, step_fn, batch_fn = build_trainer(
+                cut, batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=HEAL_TRAIN_STEPS, seed=seed,
+                gemm_backend="sfc_cuda", attn_impl="sfc", fused_optimizer=True, abft=abft_mode, device="cuda")
+            return model, opt_state, model_step(step_fn), batch_fn
+
+        def losses_of(events):
+            return {e["step"]: e["loss"] for e in events}
+
+        def final_digest(model):
+            return sum(digest(torch, p) for p in model.parameters()) & 0xFFFFFFFFFFFFFFFF
+
+        # the uninterrupted run (no checkpoints)
+        model, opt_state, step, data_fn = trainer(0)
+        ev_u = []
+        TrainLoop(step, data_fn, None, on_metrics=ev_u.append).run(
+            dict(model.named_parameters()), opt_state, num_steps=HEAL_TRAIN_STEPS, resume=False, log_every=0)
+        want, want_digest = losses_of(ev_u), final_digest(model)
+        del model, opt_state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        # checkpoints every HEAL_CKPT_EVERY steps, preempted at HEAL_FAIL_AT
+        ckdir = str(Path(tmp.name) / "run")
+        model, opt_state, step, _ = trainer(0)
+        ev_p = []
+        t0 = time.perf_counter()
+        try:
+            TrainLoop(step, data_fn, CheckpointManager(ckdir, interval=HEAL_CKPT_EVERY, keep=2),
+                      on_metrics=ev_p.append).run(dict(model.named_parameters()), opt_state,
+                                                  num_steps=HEAL_TRAIN_STEPS, resume=False, fail_at=HEAL_FAIL_AT,
+                                                  log_every=0)
+            raise AssertionError("the simulated preemption did not happen")
+        except KeyboardInterrupt:
+            pass
+        preempt_s = time.perf_counter() - t0
+        committed = ckpt_mod.latest_step(ckdir)
+        del model, opt_state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        # other weights, resumed under "detect": a detection in the first step rolls
+        # back; preempted after the step that follows (no save: the resume below
+        # is from HEAL_FAIL_AT again)
+        model, opt_state, step, _ = trainer(1, abft_mode="detect")
+        ev_s, logs = [], []
+        with fault_injection(FaultSpec("*", kind="bitflip", calls=(0,), fires=1, rungs=("sfc_cuda",))) as state:
+            try:
+                TrainLoop(step, data_fn, CheckpointManager(ckdir, interval=HEAL_CKPT_EVERY, keep=2),
+                          corruption_policy=CorruptionPolicy(rollback_on_sdc=True), on_metrics=ev_s.append).run(
+                    dict(model.named_parameters()), opt_state, num_steps=HEAL_TRAIN_STEPS, resume=True,
+                    fail_at=HEAL_FAIL_AT + 1, log_every=0, logger=logs.append)
+                raise AssertionError("the SDC run was not preempted")
+            except KeyboardInterrupt:
+                pass
+        sdc_fired = state.fired
+        del model, opt_state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        # other weights again, resumed at HEAL_FAIL_AT to the end
+        model, opt_state, step, _ = trainer(2)
+        ev_r, logs_r = [], []
+        TrainLoop(step, data_fn, CheckpointManager(ckdir, interval=HEAL_CKPT_EVERY, keep=2),
+                  on_metrics=ev_r.append).run(dict(model.named_parameters()), opt_state,
+                                              num_steps=HEAL_TRAIN_STEPS, resume=True, log_every=0,
+                                              logger=logs_r.append)
+        got, got_digest = losses_of(ev_r), final_digest(model)
+        del model, opt_state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        ckpt_mod._host_leaves, ckpt_mod._save_host, ckpt_mod.restore = real_host, real_write, real_restore
+        tmp.cleanup()
+    pre = losses_of(ev_p)
+    rollback = [line for line in logs if "rolled back" in line]
+    e_ok = (committed == HEAL_FAIL_AT and all(pre[k] == want[k] for k in pre) and len(pre) == HEAL_FAIL_AT
+            and logs_r[:1] == [f"[ft] resumed from checkpoint at step {HEAL_FAIL_AT}"]
+            and got == {k: v for k, v in want.items() if k > HEAL_FAIL_AT} and got_digest == want_digest
+            and len(sdc_fired) == 1 and rollback == [
+                f"[ft] SDC detected in step (1 checksum mismatches): rolled back {HEAL_FAIL_AT + 1} -> {HEAL_FAIL_AT}, "
+                "data stream skipped ahead by 1"]
+            and [e["step"] for e in ev_s] == [HEAL_FAIL_AT + 1] and ev_s[0]["sdc_delta"] == 0
+            and all(math.isfinite(v) for v in want.values()))
+    out["e_train_loop"] = {
+        "ok": e_ok, "layers": HEAL_TRAIN_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": HEAL_TRAIN_STEPS,
+        "ckpt_every": HEAL_CKPT_EVERY, "fail_at": HEAL_FAIL_AT, "committed_at_preemption": committed,
+        "losses_uninterrupted": want, "losses_before_preemption": pre, "losses_resumed": got,
+        "resumed_bitwise": got == {k: v for k, v in want.items() if k > HEAL_FAIL_AT} and got_digest == want_digest,
+        "sdc_run": {"fired": sdc_fired, "log": logs, "steps": [e["step"] for e in ev_s]},
+        "preempted_run_s": preempt_s,
+        "io": [{"kind": k, "step": s_, "s": t, "gb": g} for k, s_, t, g in io]}
+    if not e_ok:
+        raise AssertionError(f"heal (e): {out['e_train_loop']}")
+
+    # (f) the ladder's host cost a call
+    reg.reset()
+    out["f_ladder_host_us"] = ladder_host_us(torch, np, gb, ops, robust)
+    reg.reset()
+    abft.reset_runtime_sdc()
+    out["s"] = time.perf_counter() - t_phase
+    out["ok"] = True
+    return out
+
+
 def small_reference_check(torch, get_config, build_model, gemm_backend):
     """Reduced qwen3-4b in f32 on the card: sfc_cuda logits against the
     Listing-1 reference backend at rtol 1e-4 (prefill and 3 decode steps)."""
@@ -4990,9 +5440,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    import tempfile
-
     import numpy as np
+
+    # the whole run is strict: a fallback that was not injected raises, so a
+    # kernel that fails to build or launch fails the run
+    os.environ["REPRO_STRICT"] = "1"
 
     # every phase resolves its launches on an empty tune cache (the kernels'
     # rules); the tune phase brings caches of its own
@@ -5003,6 +5455,8 @@ def main() -> int:
     from repro_torch.core.attention_backend import attention_backend
     from repro_torch.core.gemm_backend import gemm_backend
     from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch import robust
+    from repro_torch.core import gemm_backend as gb
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import sfc_attention as tsa
@@ -5017,6 +5471,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
+    # --heal-only: phases 1 and 4 and the heal phase, no result line (a quick check of the heal phase)
+    heal_only = sys.argv[1:] == ["--heal-only"]
+    strict = {}  # after each phase: the ladder served every call on its first rung
+
+    def no_degradation(after: str) -> None:
+        strict[after] = assert_no_degradation(robust, after)
 
     # ---- 1. device ---------------------------------------------------------
     run_t0 = time.perf_counter()
@@ -5033,113 +5493,116 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_and_load_s": build_s})
 
     # ---- 2. kernels against their plain versions ---------------------------
-    phase_at[2] = time.perf_counter() - run_t0
     cfg = get_config("qwen3_4b")
-    gemms = main_path_gemms(cfg)
-    rows, checks = phase_kernels(torch, cfg, gemms, tk, ops)
-    rep_rows, rep_checks = phase_replicated(torch, cfg, replicated_gemms(cfg), tk, ops)
-    phase_at["2, after the replicated form's rows"] = time.perf_counter() - run_t0
-    attn_rows, attn_checks = phase_attention(torch, attention_cases(cfg), tsa, tfa, build)
-    bwd_rows, bwd_checks = phase_backward_gemms(torch, train_backward_gemms(cfg), tk, ops)
-    upd_rows, upd_checks = phase_update_gemms(torch, cfg, tk, opt)
-    attn_bwd_rows, attn_bwd_checks = phase_attention_bwd(torch, attention_bwd_cases(cfg), tsa, build)
-    # the hybrid and xLSTM slices: K2 at the chunk-einsum shapes (its
-    # f32-output mode with the lanes, the mLSTM output product in f32) and
-    # K1/K2 at zamba2's shared-block shapes; the encoder-decoder slice:
-    # K1/K2 at seamless's shapes (the gelu MLP), K11 non-causal and K14
-    # over its memory
-    zcfg, xcfg, scfg = get_config(HYBRID_ARCH), get_config(XLSTM_ARCH), get_config(ENCDEC_ARCH)
-    chunk_rows, chunk_checks, chunk_lane_rows, chunk_lane_checks = phase_chunk_gemms(
-        torch, chunk_gemms(zcfg, xcfg), tk, abft)
-    hyb_rows, hyb_checks = phase_kernels(torch, zcfg, hybrid_projection_gemms(zcfg), tk, ops, ragged=False)
-    encdec_rows, encdec_checks = phase_kernels(torch, scfg, encdec_gemms(scfg), tk, ops, ragged=False)
-    encdec_attn_rows, encdec_attn_checks = phase_attention(torch, encdec_attention_cases(scfg), tsa, tfa, build)
-    # the last configs: K1/K2 at qwen2-72b's serve shapes (the VLM's tree;
-    # its LM head weight 2.49 GB) and stablelm-1.6b's, K3 at qwen3-moe's 128
-    # experts, K11 / K14 with their heads (group 8 of D 128, MHA of D 64);
-    # each row's operands built alone and freed before the next
-    phase_at["2, the last configs' rows"] = time.perf_counter() - run_t0
-    vcfg, mcfg, lcfg = get_config(VLM_ARCH), get_config(MOE128_ARCH), get_config(STABLELM_ARCH)
-    vlm_rows, vlm_checks = phase_kernels(torch, vcfg, serve_gemms(vcfg, "qwen2-72b"), tk, ops, ragged=False)
-    torch.cuda.empty_cache()
-    lm_rows, lm_checks = phase_kernels(torch, lcfg, serve_gemms(lcfg, "stablelm"), tk, ops, ragged=False)
-    moe128_rows, moe128_checks = phase_grouped_gemms(torch, moe128_grouped_gemms(mcfg), tk, ragged=False)
-    last_attn_rows, last_attn_checks = phase_attention(
-        torch, last_attention_cases(vcfg, "qwen2-72b") + last_attention_cases(lcfg, "stablelm"), tsa, tfa, build)
-    torch.cuda.empty_cache()
-    ocfg = get_config(MOE_ARCH)
-    grouped_rows, grouped_checks = phase_grouped_gemms(torch, moe_grouped_gemms(ocfg), tk)
-    grouped_upd_rows, grouped_upd_checks = phase_grouped_update_gemms(torch, ocfg, tk, opt)
-    # the training shapes of the families that only served until now: K7 /
-    # K8 at their widths, K8's update at qwen2-vl-72b's GLU, K11-K13 at
-    # seamless's D 64 (and a check at S != T), zamba2's and the VLM's heads,
-    # K2 at the chunk products and their per-batch backward
-    phase_at["2, the families' training shapes"] = time.perf_counter() - run_t0
-    fam_bwd_rows, fam_bwd_checks = phase_backward_gemms(torch, family_bwd_gemms(scfg, zcfg, vcfg), tk, ops)
-    torch.cuda.empty_cache()
-    fam_upd_rows, fam_upd_checks = phase_update_gemms(torch, vcfg, tk, opt, gemms=family_update_gemms(vcfg),
-                                                      dtypes=(torch.bfloat16,))
-    torch.cuda.empty_cache()
-    fam_attn_rows, fam_attn_checks = phase_attention(torch, family_attention_cases(scfg, zcfg, vcfg), tsa, tfa, build)
-    fam_attn_bwd_rows, fam_attn_bwd_checks = phase_attention_bwd(torch, family_attention_bwd_cases(scfg, zcfg, vcfg),
-                                                                 tsa, build)
-    fam_chunk_rows, fam_chunk_checks, _, _ = phase_chunk_gemms(torch, family_chunk_gemms(zcfg, xcfg), tk, abft,
-                                                               lanes=False)
-    torch.cuda.empty_cache()
-    phase_at["2, the ABFT lanes"] = time.perf_counter() - run_t0
-    lane_rows, lane_checks, lane_controls = phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt)
-    small = small_reference_check(torch, get_config, build_model, gemm_backend)
-    emit({"phase": "kernels_vs_plain", "ok": True, "tolerance": {
-        "float32": f"|k-p| <= {F32_RTOL}|p| + {F32_ATOL_REL} max|p|",
-        "bfloat16": f"|k-p| <= 2^-7 |p| + {BF16_ATOL_REL} max|p|",
-        "lse": "float32 tolerance"},
-        "tn_update": "master, mu, nu and the norms at the float32 tolerance; a bf16 W bitwise the stochastic "
-                     "rounding of the kernel's master with the plain version's bits and within the bfloat16 "
-                     "tolerance of the plain W",
-        "checks": checks + rep_checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
-                  + grouped_upd_checks + chunk_checks + hyb_checks + encdec_checks + encdec_attn_checks
-                  + vlm_checks + lm_checks + moe128_checks + last_attn_checks + fam_bwd_checks + fam_upd_checks
-                  + fam_attn_checks + fam_attn_bwd_checks + fam_chunk_checks,
-        "reduced_model_f32_vs_reference": small})
-    emit({"phase": "abft_lanes", "ok": True,
-          "tolerance": f"|lane - plain lane| <= min({LANE_RTOL} * sum |{LANE_TILE}x{LANE_TILE} raw tile sums|, "
-                       "robust.abft.tolerance(mag, depth)), and each lane-side control (a lane of 0, the plain lane "
-                       "less its last tile, the ragged case's sum after the epilogue) beyond it; "
-                       "|lane - operand reference| <= robust.abft.tolerance(mag, depth); "
-                       "the outputs with the lane on bitwise those with it off",
-          "max_lane_vs_plain_over_limit": max(c["lane_vs_plain_over_limit"] for c in lane_checks + chunk_lane_checks),
-          "min_lane_side_control_over_limit": min(r for c in lane_checks + chunk_lane_checks
-                                                  for r in c.get("lane_side_controls_over_limit", {}).values()),
-          "max_lane_vs_ref_over_tol": max(c["lane_vs_ref_over_tol"] for c in lane_checks + chunk_lane_checks),
-          "checks": lane_checks + chunk_lane_checks, "negative_controls": lane_controls,
-          # K2's lane at the chunk-einsum shapes (the f32-output mode's
-          # twins and the SSD output's): ms with the lane on and off, the
-          # operand-side reference's, the bound with the partials
-          "chunk_einsum_lane_times": [
-              {"case": row["gemm"].name, "kernel": row["cuda_kernel"], "config": row["config"], "ms": row["ms"],
-               "lane_off_ms": row["lane_off_ms"], "operand_ref_ms": row["operand_ref_ms"],
-               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-               "partials": row["partials"], "lane_vs_plain_abs": row["max_abs_err"]} for row in chunk_lane_rows]})
-    torch.cuda.empty_cache()
+    if not heal_only:
+        phase_at[2] = time.perf_counter() - run_t0
+        gemms = main_path_gemms(cfg)
+        rows, checks = phase_kernels(torch, cfg, gemms, tk, ops)
+        rep_rows, rep_checks = phase_replicated(torch, cfg, replicated_gemms(cfg), tk, ops)
+        phase_at["2, after the replicated form's rows"] = time.perf_counter() - run_t0
+        attn_rows, attn_checks = phase_attention(torch, attention_cases(cfg), tsa, tfa, build)
+        bwd_rows, bwd_checks = phase_backward_gemms(torch, train_backward_gemms(cfg), tk, ops)
+        upd_rows, upd_checks = phase_update_gemms(torch, cfg, tk, opt)
+        attn_bwd_rows, attn_bwd_checks = phase_attention_bwd(torch, attention_bwd_cases(cfg), tsa, build)
+        # the hybrid and xLSTM slices: K2 at the chunk-einsum shapes (its
+        # f32-output mode with the lanes, the mLSTM output product in f32) and
+        # K1/K2 at zamba2's shared-block shapes; the encoder-decoder slice:
+        # K1/K2 at seamless's shapes (the gelu MLP), K11 non-causal and K14
+        # over its memory
+        zcfg, xcfg, scfg = get_config(HYBRID_ARCH), get_config(XLSTM_ARCH), get_config(ENCDEC_ARCH)
+        chunk_rows, chunk_checks, chunk_lane_rows, chunk_lane_checks = phase_chunk_gemms(
+            torch, chunk_gemms(zcfg, xcfg), tk, abft)
+        hyb_rows, hyb_checks = phase_kernels(torch, zcfg, hybrid_projection_gemms(zcfg), tk, ops, ragged=False)
+        encdec_rows, encdec_checks = phase_kernels(torch, scfg, encdec_gemms(scfg), tk, ops, ragged=False)
+        encdec_attn_rows, encdec_attn_checks = phase_attention(torch, encdec_attention_cases(scfg), tsa, tfa, build)
+        # the last configs: K1/K2 at qwen2-72b's serve shapes (the VLM's tree;
+        # its LM head weight 2.49 GB) and stablelm-1.6b's, K3 at qwen3-moe's 128
+        # experts, K11 / K14 with their heads (group 8 of D 128, MHA of D 64);
+        # each row's operands built alone and freed before the next
+        phase_at["2, the last configs' rows"] = time.perf_counter() - run_t0
+        vcfg, mcfg, lcfg = get_config(VLM_ARCH), get_config(MOE128_ARCH), get_config(STABLELM_ARCH)
+        vlm_rows, vlm_checks = phase_kernels(torch, vcfg, serve_gemms(vcfg, "qwen2-72b"), tk, ops, ragged=False)
+        torch.cuda.empty_cache()
+        lm_rows, lm_checks = phase_kernels(torch, lcfg, serve_gemms(lcfg, "stablelm"), tk, ops, ragged=False)
+        moe128_rows, moe128_checks = phase_grouped_gemms(torch, moe128_grouped_gemms(mcfg), tk, ragged=False)
+        last_attn_rows, last_attn_checks = phase_attention(
+            torch, last_attention_cases(vcfg, "qwen2-72b") + last_attention_cases(lcfg, "stablelm"), tsa, tfa, build)
+        torch.cuda.empty_cache()
+        ocfg = get_config(MOE_ARCH)
+        grouped_rows, grouped_checks = phase_grouped_gemms(torch, moe_grouped_gemms(ocfg), tk)
+        grouped_upd_rows, grouped_upd_checks = phase_grouped_update_gemms(torch, ocfg, tk, opt)
+        # the training shapes of the families that only served until now: K7 /
+        # K8 at their widths, K8's update at qwen2-vl-72b's GLU, K11-K13 at
+        # seamless's D 64 (and a check at S != T), zamba2's and the VLM's heads,
+        # K2 at the chunk products and their per-batch backward
+        phase_at["2, the families' training shapes"] = time.perf_counter() - run_t0
+        fam_bwd_rows, fam_bwd_checks = phase_backward_gemms(torch, family_bwd_gemms(scfg, zcfg, vcfg), tk, ops)
+        torch.cuda.empty_cache()
+        fam_upd_rows, fam_upd_checks = phase_update_gemms(torch, vcfg, tk, opt, gemms=family_update_gemms(vcfg),
+                                                          dtypes=(torch.bfloat16,))
+        torch.cuda.empty_cache()
+        fam_attn_rows, fam_attn_checks = phase_attention(torch, family_attention_cases(scfg, zcfg, vcfg), tsa, tfa, build)
+        fam_attn_bwd_rows, fam_attn_bwd_checks = phase_attention_bwd(torch, family_attention_bwd_cases(scfg, zcfg, vcfg),
+                                                                     tsa, build)
+        fam_chunk_rows, fam_chunk_checks, _, _ = phase_chunk_gemms(torch, family_chunk_gemms(zcfg, xcfg), tk, abft,
+                                                                   lanes=False)
+        torch.cuda.empty_cache()
+        phase_at["2, the ABFT lanes"] = time.perf_counter() - run_t0
+        lane_rows, lane_checks, lane_controls = phase_abft_lanes(torch, cfg, ocfg, tk, ops, abft, opt)
+        small = small_reference_check(torch, get_config, build_model, gemm_backend)
+        emit({"phase": "kernels_vs_plain", "ok": True, "tolerance": {
+            "float32": f"|k-p| <= {F32_RTOL}|p| + {F32_ATOL_REL} max|p|",
+            "bfloat16": f"|k-p| <= 2^-7 |p| + {BF16_ATOL_REL} max|p|",
+            "lse": "float32 tolerance"},
+            "tn_update": "master, mu, nu and the norms at the float32 tolerance; a bf16 W bitwise the stochastic "
+                         "rounding of the kernel's master with the plain version's bits and within the bfloat16 "
+                         "tolerance of the plain W",
+            "checks": checks + rep_checks + attn_checks + bwd_checks + upd_checks + attn_bwd_checks + grouped_checks
+                      + grouped_upd_checks + chunk_checks + hyb_checks + encdec_checks + encdec_attn_checks
+                      + vlm_checks + lm_checks + moe128_checks + last_attn_checks + fam_bwd_checks + fam_upd_checks
+                      + fam_attn_checks + fam_attn_bwd_checks + fam_chunk_checks,
+            "reduced_model_f32_vs_reference": small})
+        emit({"phase": "abft_lanes", "ok": True,
+              "tolerance": f"|lane - plain lane| <= min({LANE_RTOL} * sum |{LANE_TILE}x{LANE_TILE} raw tile sums|, "
+                           "robust.abft.tolerance(mag, depth)), and each lane-side control (a lane of 0, the plain lane "
+                           "less its last tile, the ragged case's sum after the epilogue) beyond it; "
+                           "|lane - operand reference| <= robust.abft.tolerance(mag, depth); "
+                           "the outputs with the lane on bitwise those with it off",
+              "max_lane_vs_plain_over_limit": max(c["lane_vs_plain_over_limit"] for c in lane_checks + chunk_lane_checks),
+              "min_lane_side_control_over_limit": min(r for c in lane_checks + chunk_lane_checks
+                                                      for r in c.get("lane_side_controls_over_limit", {}).values()),
+              "max_lane_vs_ref_over_tol": max(c["lane_vs_ref_over_tol"] for c in lane_checks + chunk_lane_checks),
+              "checks": lane_checks + chunk_lane_checks, "negative_controls": lane_controls,
+              # K2's lane at the chunk-einsum shapes (the f32-output mode's
+              # twins and the SSD output's): ms with the lane on and off, the
+              # operand-side reference's, the bound with the partials
+              "chunk_einsum_lane_times": [
+                  {"case": row["gemm"].name, "kernel": row["cuda_kernel"], "config": row["config"], "ms": row["ms"],
+                   "lane_off_ms": row["lane_off_ms"], "operand_ref_ms": row["operand_ref_ms"],
+                   "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                   "partials": row["partials"], "lane_vs_plain_abs": row["max_abs_err"]} for row in chunk_lane_rows]})
+        torch.cuda.empty_cache()
 
-    # ---- 3. gradients of a 4-layer full-width model in f32 -----------------
-    phase_at[3] = time.perf_counter() - run_t0
-    data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=1))
-    gc_batch = {key: torch.from_numpy(val).cuda() for key, val in data.batch(0).items()}
-    emit({"phase": "grad_check", "ok": True,
-          **phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, gc_batch)})
-    torch.cuda.empty_cache()
-    fc_batches = [{key: torch.from_numpy(val).cuda() for key, val in data.batch(i).items()} for i in range(3)]
-    emit({"phase": "fused_step_check", "ok": True,
-          **phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, fc_batches)})
-    gc.collect()
-    emit({"phase": "fused_step_check_abft", "ok": True,
-          **phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, fc_batches,
-                                   abft="detect")})
-    gc.collect()
-    torch.cuda.empty_cache()
+        # ---- 3. gradients of a 4-layer full-width model in f32 -----------------
+        no_degradation("before phase 3")
+        phase_at[3] = time.perf_counter() - run_t0
+        data = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=1))
+        gc_batch = {key: torch.from_numpy(val).cuda() for key, val in data.batch(0).items()}
+        emit({"phase": "grad_check", "ok": True,
+              **phase_grad_check(torch, cfg, build_model, gemm_backend, attention_backend, gc_batch)})
+        torch.cuda.empty_cache()
+        fc_batches = [{key: torch.from_numpy(val).cuda() for key, val in data.batch(i).items()} for i in range(3)]
+        emit({"phase": "fused_step_check", "ok": True,
+              **phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, fc_batches)})
+        gc.collect()
+        emit({"phase": "fused_step_check_abft", "ok": True,
+              **phase_fused_step_check(torch, cfg, build_model, tk, make_train_step, BackendConfig, opt, fc_batches,
+                                       abft="detect")})
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ---- 4. serve full-width qwen3-4b --------------------------------------
+    no_degradation("before phase 4")
     phase_at[4] = time.perf_counter() - run_t0
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
@@ -5406,12 +5869,20 @@ def main() -> int:
             or not abft_serve["max_residual_over_tol"] < 1 or not rep_step["tokens_identical_to_off"]
             or not rep_step["max_residual_over_tol"] < 1 or not rep_step["checks"]):
         raise AssertionError(f"the serve under ABFT detect: {abft_serve}")
+    # ---- 4b. heal: the fallback ladder, fault injection, the train loop ------
+    no_degradation("before phase 4b")
+    phase_at["4b, heal"] = time.perf_counter() - run_t0
+    emit(phase_heal(torch, np, cfg, params, ServingEngine, tk, tsa, robust, gb, ops, abft, build_trainer,
+                    reset_counts, replicated_counts, done, want_rep, want_launches, ref, noise["torch"]))
+    if heal_only:
+        return 0
     # the serve's model and every tensor of it leave the card before training
     del model, params, params_of, logits, ref
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 5. train full-width qwen3-4b --------------------------------------
+    no_degradation("before phase 5")
     phase_at[5] = time.perf_counter() - run_t0
     counted = {"sfc_gemm_fused": tk.sfc_gemm_fused, "sfc_gemm_nt": tk.sfc_gemm_nt, "sfc_gemm_tn": tk.sfc_gemm_tn,
                "sfc_flash_fwd": tsa.sfc_flash_fwd, "sfc_flash_bwd_dq": tsa.sfc_flash_bwd_dq,
@@ -5422,6 +5893,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. olmoe-1b-7b: f32 gradients of a 2-layer full-width cut ---------
+    no_degradation("before phase 6")
     phase_at[6] = time.perf_counter() - run_t0
     odata = SyntheticLM(SyntheticLMConfig(vocab=ocfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=1))
     ogc_batch = {key: torch.from_numpy(val).cuda() for key, val in odata.batch(0).items()}
@@ -5438,10 +5910,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. serve full-width, full-depth olmoe-1b-7b ------------------------
+    no_degradation("before phase 7")
     phase_at[7] = time.perf_counter() - run_t0
     _, moe_serve_counts, moe_abft_counts = phase_moe_serve(torch, np, ocfg, build_model, ServingEngine, tk, tsa)
 
     # ---- 8. train olmoe-1b-7b at full width, 8 layers ----------------------
+    no_degradation("before phase 8")
     phase_at[8] = time.perf_counter() - run_t0
     moe_counted = {**counted, "sfc_gemm_grouped": tk.sfc_gemm_grouped, "sfc_gemm_grouped_nt": tk.sfc_gemm_grouped_nt,
                    "sfc_gemm_grouped_tn": tk.sfc_gemm_grouped_tn}
@@ -5449,33 +5923,40 @@ def main() -> int:
     moe_fused_counts = moe_train_counts["sfc_cuda+sfc_attn+fused_optimizer"]["sfc_gemm_grouped_tn"]
 
     # ---- 9. serve full-width, full-depth zamba2-1.2b -----------------------
+    no_degradation("before phase 9")
     phase_at[9] = time.perf_counter() - run_t0
     hybrid_serve, hybrid_by_shape = phase_hybrid_serve(torch, np, zcfg, build_model, ServingEngine, tk, tsa, ops)
 
     # ---- 10. serve full-width, full-depth xlstm-1.3b ----------------------
+    no_degradation("before phase 10")
     phase_at[10] = time.perf_counter() - run_t0
     xlstm_serve, xlstm_by_shape = phase_xlstm_serve(torch, np, xcfg, build_model, ServingEngine, tk, ops,
                                                     gemm_backend)
 
     # ---- 11. seamless-m4t-medium at full width and depth --------------------
+    no_degradation("before phase 11")
     phase_at[11] = time.perf_counter() - run_t0
     _, encdec_by_shape, encdec_counts = phase_encdec(torch, np, scfg, build_model, tk, tsa, gemm_backend,
                                                      attention_backend)
 
     # ---- 12. qwen2-vl-72b and qwen2-72b, full width, 16 of 80 layers -------
+    no_degradation("before phase 12")
     phase_at[12] = time.perf_counter() - run_t0
     _, vlm_by_shape, vlm_counts = phase_vlm_serve(torch, np, vcfg, get_config(DENSE72_ARCH), build_model,
                                                   ServingEngine, tk, tsa, ops, gemm_backend)
 
     # ---- 13. qwen3-moe-30b-a3b at full width and depth -----------------------
+    no_degradation("before phase 13")
     phase_at[13] = time.perf_counter() - run_t0
     _, moe128_by_shape, moe128_counts = phase_moe128_serve(torch, np, mcfg, build_model, ServingEngine, tk, tsa, ops)
 
     # ---- 14. stablelm-1.6b at full width and depth --------------------------
+    no_degradation("before phase 14")
     phase_at[14] = time.perf_counter() - run_t0
     _, lm_by_shape, lm_counts = phase_stablelm_serve(torch, np, lcfg, build_model, ServingEngine, tk, tsa, ops)
 
     # ---- 15. remat: qwen3-4b at full depth, olmoe-1b-7b at 8 layers ----------
+    no_degradation("before phase 15")
     phase_at[15] = time.perf_counter() - run_t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -5495,17 +5976,20 @@ def main() -> int:
             ("seamless", scfg, {"n_layers": scfg.n_layers}),
             ("zamba2", zcfg, {"n_layers": zcfg.n_layers}),
             ("xlstm", xcfg, {"n_layers": XLSTM_CHECK_LAYERS})), start=16):
+        no_degradation(f"before phase {number}")
         phase_at[number] = time.perf_counter() - run_t0
         _, fam_shapes[label] = phase_family_train(torch, fcfg, build_trainer, build_model, make_batch_fn,
                                                   gemm_backend, attention_backend, counted, label, check_cut)
 
     # ---- 21. the tuner: calibrate, tune qwen3-4b's warmup, serve and step ----
+    no_degradation("before phase 21")
     phase_at[21] = time.perf_counter() - run_t0
     gc.collect()
     torch.cuda.empty_cache()
     _, tune_rows = phase_tune(torch, np, cfg, build_model, ServingEngine, build_trainer, tk, tsa, ops)
 
     # ---- 20. the kernels line -----------------------------------------------
+    no_degradation("before phase 20")
     phase_at[20] = time.perf_counter() - run_t0
     kernels = []
     for row in rows:
@@ -6013,8 +6497,9 @@ def main() -> int:
         raise AssertionError(f"main-path kernels never launched in the run of their path: {missing}")
     # seconds since phase 1 began at the start of each later phase, and
     # the whole run's (the build included)
+    no_degradation("the end")
     emit({"phase": "clock", "phase_start_s": phase_at, "build_and_load_s": build_s,
-          "total_s": time.perf_counter() - run_t0})
+          "total_s": time.perf_counter() - run_t0, "strict": strict})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -19,8 +19,13 @@ are the CUDA kernel's compiled tile, the task table is built over it, and
 the cache entry's launch (K11's W, K13's C, K14's S; ``Knobs.launch``)
 replaces the kernel's rule; with no entry every launch is the rule's.
 
-Left out of this slice: `run_with_fallback` and `degradation_report`
-(ROADMAP queue 1 item 14): nothing falls back, a kernel that fails raises.
+Self-healing, as in the JAX package: the flash forward (``NS_ATTN_FWD``),
+its backward (``NS_ATTN_BWD``) and the decode (``NS_ATTN_DECODE``) each run
+through `robust.run_with_fallback`, the kernel first, then a plain torch
+oracle of the kernels' semantics (`_reference_attention`, differentiable;
+the masked decode); `degradation_report()` filters the health registry to
+the attention namespaces.  The "flash_pallas" kernel (K15) has no ladder,
+as JAX's has none.
 
 `flash_attention` is differentiable (`_FlashCore`, the JAX package's
 ``_flash_core`` custom VJP); `decode_attention` and the "flash_pallas"
@@ -31,13 +36,14 @@ a gradient.
 from __future__ import annotations
 
 import contextlib
+import math
 import contextvars
 import dataclasses
 from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.namespaces import NS_ATTN_BWD, NS_ATTN_DECODE, NS_ATTN_FWD
+from repro_torch.core.namespaces import NS_ATTN_BWD, NS_ATTN_DECODE, NS_ATTN_FWD, RUNG_SFC_CUDA, RUNG_TORCH
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import ResolvedKnobs
 from repro_torch.kernels.sfc_attention import (
@@ -48,12 +54,14 @@ from repro_torch.kernels.sfc_attention import (
     sfc_flash_bwd_dq,
     sfc_flash_fwd,
 )
+from repro_torch.robust.ladder import run_with_fallback
 from repro_torch.tune.tuner import default_cache, lookup_knobs
 
 __all__ = [
     "ATTN_IMPLS",
     "attention_backend",
     "current_attention_backend",
+    "degradation_report",
     "resolve_attn_impl",
     "resolve_attn_knobs",
     "flash_attention",
@@ -61,6 +69,13 @@ __all__ = [
 ]
 
 ATTN_IMPLS = ("blockwise", "flash_pallas", "sfc")
+
+
+def degradation_report() -> dict:
+    """Health-registry summary filtered to the attention namespaces."""
+    from repro_torch.robust import degradation_report as _report
+
+    return _report(namespaces=("attn",))
 
 _ATTN_BACKEND: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
     "attention_backend", default=None
@@ -138,6 +153,36 @@ def resolve_attn_knobs(
     return hit
 
 
+def _attn_shape_key(sq: int, sk: int, d: int, dtype):
+    """The quarantine shape class of the attention namespaces (the JAX
+    package's), computed when the ladder needs it."""
+    from repro_torch.tune.cache import dtype_name
+
+    return lambda: f"{_pow2_ceil(sq)}x{_pow2_ceil(sk)}x{_pow2_ceil(d)}|{dtype_name(dtype)}"
+
+
+def _reference_attention(q, k, v, *, causal: bool, seq_q: int, seq_k: int, q_offset: int = 0) -> torch.Tensor:
+    """The oracle rung, differentiable (the JAX package's
+    ``_reference_attention``): the kernels' semantics in einsum form, the
+    1/sqrt(D) scale, the start-aligned causal mask shifted by ``q_offset``
+    and the (kpos < seq_k) & (qpos < seq_q) mask, an f32 softmax on
+    GQA-repeated heads, the output in q's type."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if h != hkv:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = (kpos < seq_k) & (qpos < seq_q)
+    if causal:
+        mask = mask & (kpos <= qpos + q_offset)
+    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.float())
+    return o.to(q.dtype)
+
+
 def _launch_value(knobs: ResolvedKnobs, key: str) -> Optional[int]:
     return (knobs.launch or {}).get(key)
 
@@ -181,8 +226,22 @@ class _FlashCore(torch.autograd.Function):
         qc, kc = (None, None) if q.device.type == "cuda" else knobs  # on the card each kernel's compiled tile
         kw = dict(causal=cfg.causal, seq_q=cfg.seq_q, seq_k=cfg.seq_k, q_offset=cfg.q_offset,
                   q_chunk=qc, k_chunk=kc)
-        dq = sfc_flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = sfc_flash_bwd_dkv(q, k, v, do, lse, delta, cluster=_launch_value(knobs, "cluster"), **kw)
+
+        def kernel():
+            dq = sfc_flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = sfc_flash_bwd_dkv(q, k, v, do, lse, delta, cluster=_launch_value(knobs, "cluster"), **kw)
+            return dq, dk, dv
+
+        def oracle():
+            # recompute-and-differentiate the reference
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                o_ = _reference_attention(*leaves, causal=cfg.causal, seq_q=cfg.seq_q, seq_k=cfg.seq_k,
+                                          q_offset=cfg.q_offset)
+                return torch.autograd.grad(o_, leaves, do.to(q.dtype))
+
+        dq, dk, dv = run_with_fallback(NS_ATTN_BWD, ((RUNG_SFC_CUDA, kernel), (RUNG_TORCH, oracle)),
+                                       shape_key=_attn_shape_key(cfg.seq_q, cfg.seq_k, q.shape[-1], q.dtype))
         return None, dq, dk, dv
 
 
@@ -212,11 +271,21 @@ def flash_attention(
     qc, kc = knobs
     cfg = _FlashCfg(causal=causal, seq_q=s, seq_k=t, q_chunk=qc, k_chunk=kc, q_chunk_hint=q_chunk,
                     k_chunk_hint=k_chunk, q_offset=q_offset, warpgroups=_launch_value(knobs, "warpgroups"))
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _FlashCore.apply(cfg, q, k, v)
-    o, _ = sfc_flash_fwd(q, k, v, causal=causal, seq_q=s, seq_k=t, q_offset=q_offset, q_chunk=qc, k_chunk=kc,
-                         warpgroups=cfg.warpgroups)
-    return o
+
+    def kernel():
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+            return _FlashCore.apply(cfg, q, k, v)
+        o, _ = sfc_flash_fwd(q, k, v, causal=causal, seq_q=s, seq_k=t, q_offset=q_offset, q_chunk=qc, k_chunk=kc,
+                             warpgroups=cfg.warpgroups)
+        return o
+
+    # plain autograd through the reference: its backward never reaches the kernels either
+    return run_with_fallback(
+        NS_ATTN_FWD,
+        ((RUNG_SFC_CUDA, kernel),
+         (RUNG_TORCH, lambda: _reference_attention(q, k, v, causal=causal, seq_q=s, seq_k=t, q_offset=q_offset))),
+        shape_key=_attn_shape_key(s, t, d, q.dtype),
+    )
 
 
 def decode_attention(
@@ -233,4 +302,24 @@ def decode_attention(
     h, d, t = q.shape[2], q.shape[3], k.shape[1]
     knobs = resolve_attn_knobs(h, t, d, q.dtype, op=NS_ATTN_DECODE, q_chunk=None, k_chunk=k_chunk,
                                device=q.device)
-    return sfc_decode_attention(q, k, v, valid_len, k_chunk=knobs[1], splits=_launch_value(knobs, "splits"))
+    return run_with_fallback(
+        NS_ATTN_DECODE,
+        ((RUNG_SFC_CUDA, lambda: sfc_decode_attention(q, k, v, valid_len, k_chunk=knobs[1],
+                                                      splits=_launch_value(knobs, "splits"))),
+         (RUNG_TORCH, lambda: _reference_decode(q, k, v, valid_len))),
+        shape_key=_attn_shape_key(h, t, d, q.dtype),
+    )
+
+
+def _reference_decode(q, k, v, valid_len) -> torch.Tensor:
+    """The decode's oracle rung (the JAX package's): a masked f32 decode over
+    the cache, each q head against its kv head, the 1/sqrt(D) scale, the
+    rows at or past ``valid_len[b]`` masked."""
+    b, _, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d)
+    s_ = torch.einsum("bhgd,bthd->bhgt", qg.float(), k.float()) * (1.0 / math.sqrt(d))
+    live = torch.arange(t, device=q.device)[None, :] < valid_len.to(q.device)[:, None]
+    s_ = torch.where(live[:, None, None, :], s_, torch.full((), -1e30, device=q.device))
+    out = torch.einsum("bhgt,bthd->bhgd", torch.softmax(s_, dim=-1), v.float())
+    return out.to(q.dtype).reshape(b, 1, h, d)

@@ -15,9 +15,15 @@
                    rung
   "sfc_reference"  the Listing-1 loop in plain torch
 
-The four are the JAX fallback ladder's rungs, one to one; the port has no
-ladder (ROADMAP item 14), so a backend is chosen, never fallen back to.
-Every backend is differentiable.  "torch" and "sfc_reference" are plain
+The four are the JAX fallback ladder's rungs, one to one.  Under
+"sfc_cuda" every entry point runs through `robust.run_with_fallback`, as
+JAX's do under "sfc_pallas": the fused kernel first, then the replicated
+``fuse=False`` form (gemm, glu, chunk_einsum), then the Listing-1
+reference, then plain torch.  Classified failures quarantine the failing
+(namespace, rung, shape class) in the process health registry and the
+next rung serves; `degradation_report()` summarises what degraded.  The
+explicit "torch", "replicated" and "sfc_reference" backends bypass the
+ladder: they *are* its rungs.  Every backend is differentiable.  "torch" and "sfc_reference" are plain
 torch ops under autograd; under "sfc_cuda" and "replicated", with an input
 that needs a gradient, `matmul` and `glu_matmul` run through
 `kernels.ops`'s autograd Function, whose backward launches the NT (dA) and
@@ -40,8 +46,9 @@ active, a weight it routes goes through `ops.fused_update_matmul` /
 `fused_update_glu_matmul` instead, and an expert stack through
 `ops.fused_update_grouped_matmul` / `fused_update_grouped_glu_matmul` (the
 TN kernel's or K10's update flush under "sfc_cuda", the JAX package's
-oracle under the other backends); a routing probe counts the parameters
-that reach these call sites.
+oracle under the other backends; under "sfc_cuda" a two-rung ladder of
+the two, ``NS_*_UPDATE``); a routing probe counts the parameters that
+reach these call sites.
 
 `chunk_einsum()` is the chunked-recurrence intra-chunk block (the SSD's
 scores and output product, the mLSTM's qk scores and numerator): under
@@ -64,12 +71,49 @@ from repro_torch.core.namespaces import (
     BACKEND_TORCH,
     BACKENDS,
     NS_GEMM,
+    NS_GEMM_UPDATE,
     NS_GLU,
+    NS_GLU_UPDATE,
+    NS_GROUPED,
+    NS_GROUPED_GLU,
+    NS_GROUPED_GLU_UPDATE,
+    NS_GROUPED_UPDATE,
+    NS_NT,
+    NS_TN,
+    RUNG_REPLICATED,
+    RUNG_SFC_CUDA,
+    RUNG_SFC_REFERENCE,
+    RUNG_TORCH,
 )
 from repro_torch.optim import fused as _fused
+from repro_torch.robust.ladder import run_with_fallback
 
-__all__ = ["gemm_backend", "current_backend", "matmul", "glu_matmul", "grouped_matmul", "grouped_glu_matmul",
-           "chunk_einsum"]
+__all__ = ["gemm_backend", "current_backend", "degradation_report", "matmul", "glu_matmul", "grouped_matmul",
+           "grouped_glu_matmul", "chunk_einsum"]
+
+# every ladder namespace this backend owns (forward, fused-update and the
+# backward kernels ops.py routes for it): the degradation_report filter,
+# JAX's prefixes
+_NAMESPACES = (NS_GEMM, NS_GLU, NS_GROUPED, NS_NT, NS_TN)
+
+
+def degradation_report() -> dict:
+    """Health-registry summary filtered to the GEMM namespaces: the
+    forward ladders ("gemm", "glu", "grouped", "grouped_glu", and the
+    chunk einsums' "gemm@..."), the fused-update routes ("*_update") and
+    the backward kernels ("nt", "tn", "grouped_nt", "grouped_tn")."""
+    from repro_torch.robust import degradation_report as _report
+
+    return _report(namespaces=_NAMESPACES)
+
+
+def _shape_key(m: int, n: int, k: int, dtype):
+    """The quarantine shape class, computed only when the ladder needs it:
+    the tune cache's shape bucket and the dtype (`ops.bwd_shape_key`, the
+    JAX package's formula)."""
+    from repro_torch.kernels.ops import bwd_shape_key
+
+    return lambda: bwd_shape_key(m, n, k, dtype)
 
 _BACKEND: contextvars.ContextVar[str] = contextvars.ContextVar(
     "gemm_backend", default=BACKEND_TORCH
@@ -137,12 +181,6 @@ def _reference_matmul(x2: torch.Tensor, w: torch.Tensor, op: str = NS_GEMM) -> t
     )
 
 
-def _fuse(name: str) -> Optional[bool]:
-    """``fuse`` of a kernel backend's `sfc_matmul` call: False (the
-    replicated form) under "replicated", the fused form otherwise."""
-    return False if name == BACKEND_REPLICATED else None
-
-
 def _kernel_operands(x, residual, n):
     """The kernel's view of ``x``: a 1-D ``x`` becomes one row, and a
     decode-shaped (B, 1, K) ``x`` is flattened into M (a batched grid would
@@ -189,32 +227,87 @@ def matmul(
         from repro_torch.kernels.ops import fused_update_matmul
 
         slot = session.slot(leaf)
-        if name in _KERNEL_BACKENDS:
+
+        def kernel():
             x_run, _, post = _kernel_operands(x, None, w.shape[1])
             out = fused_update_matmul(x_run, w, slot, bias=bias, activation=activation)
             return post(out) if post is not None else out
-        return fused_update_matmul(x, w, slot.dw_sink(0), bias=bias, activation=activation, fused=False)
+
+        def oracle():
+            return fused_update_matmul(x, w, slot.dw_sink(0), bias=bias, activation=activation, fused=False)
+
+        if name == BACKEND_SFC_CUDA:
+            m = x.shape[-2] if x.ndim >= 2 else 1
+            return run_with_fallback(NS_GEMM_UPDATE, ((RUNG_SFC_CUDA, kernel), (RUNG_TORCH, oracle)),
+                                     shape_key=_shape_key(m, w.shape[-1], x.shape[-1], x.dtype))
+        return kernel() if name in _KERNEL_BACKENDS else oracle()
     if name == BACKEND_TORCH or w.ndim != 2:
         return _epilogue(
             x @ w, bias=bias, activation=activation,
             out_scale=out_scale, residual=residual,
         )
     if name in _KERNEL_BACKENDS:
-        from repro_torch.kernels.ops import sfc_matmul
-
         x_run, res_run, post = _kernel_operands(x, residual, w.shape[1])
-        out = sfc_matmul(
-            x_run, w, bias=bias, activation=activation,
-            out_scale=out_scale, residual=res_run, fuse=_fuse(name),
-        )
+        kw = dict(bias=bias, activation=activation, out_scale=out_scale, residual=res_run)
+        if name == BACKEND_REPLICATED:
+            out = _replicated_rung(x_run, w, kw)
+        else:
+            out = run_with_fallback(NS_GEMM, _MATMUL_RUNGS, args=(x_run, w, kw), shape_key=_rung_key)
         return post(out) if post is not None else out
+    return _reference_rung(x, w, dict(bias=bias, activation=activation, out_scale=out_scale, residual=residual))
+
+
+# the ladder rungs of `matmul` (args: x, w, the epilogue's keywords) and of
+# `glu_matmul` (args: x, w_gate, w_val, its keywords), constant tables, so
+# that the healthy path builds no closure per call
+
+
+_OPS = None
+
+
+def _ops():
+    """`kernels.ops`, imported at the first call (it imports this module),
+    then held: an import statement costs a microsecond a call."""
+    global _OPS
+    if _OPS is None:
+        from repro_torch.kernels import ops
+
+        _OPS = ops
+    return _OPS
+
+
+def _sfc_rung(x, w, kw):
+    return _ops().sfc_matmul(x, w, **kw)
+
+
+def _replicated_rung(x, w, kw):
+    return _ops().sfc_matmul(x, w, fuse=False, **kw)
+
+
+def _reference_rung(x, w, epilogue_kw):
+    """``epilogue(x @ w)`` with the product by Listing 1."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     out = _reference_matmul(x.reshape(-1, k), w).reshape(*lead, w.shape[1])
-    return _epilogue(
-        out, bias=bias, activation=activation,
-        out_scale=out_scale, residual=residual,
-    )
+    return _epilogue(out, **epilogue_kw)
+
+
+def _torch_rung(x, w, kw):
+    return _epilogue(x @ w, **kw)
+
+
+def _rung_key(x, w, *_):
+    """The quarantine shape class of a `matmul` / `glu_matmul` ladder call
+    (``w`` the value weight)."""
+    return _ops().bwd_shape_key(x.shape[-2], w.shape[-1], x.shape[-1], x.dtype)
+
+
+_MATMUL_RUNGS = (
+    (RUNG_SFC_CUDA, _sfc_rung),
+    (RUNG_REPLICATED, _replicated_rung),
+    (RUNG_SFC_REFERENCE, _reference_rung),
+    (RUNG_TORCH, _torch_rung),
+)
 
 
 def glu_matmul(
@@ -254,43 +347,69 @@ def glu_matmul(
 
         slot = session.slot(leaf_v, leaf_g)
         kw = dict(activation=activation, bias=bias, gate_bias=gate_bias)
-        if name in _KERNEL_BACKENDS:
+
+        def kernel():
             x_run, _, post = _kernel_operands(x, None, w_val.shape[1])
             out = fused_update_glu_matmul(x_run, w_gate, w_val, slot, **kw)
             return post(out) if post is not None else out
-        return fused_update_glu_matmul(x, w_gate, w_val, (slot.dw_sink(0), slot.dw_sink(1)), fused=False, **kw)
-    if name == BACKEND_TORCH or w_val.ndim != 2:
-        g = x @ w_gate
-        if gate_bias is not None:
-            g = g + gate_bias
-        h = x @ w_val
-        if bias is not None:
-            h = h + bias
-        return _epilogue(
-            _act(activation)(g) * h, out_scale=out_scale, residual=residual
-        )
-    if name in _KERNEL_BACKENDS:
-        from repro_torch.kernels.ops import sfc_glu_matmul
 
+        def oracle():
+            return fused_update_glu_matmul(x, w_gate, w_val, (slot.dw_sink(0), slot.dw_sink(1)), fused=False,
+                                           **kw)
+
+        if name == BACKEND_SFC_CUDA:
+            m = x.shape[-2] if x.ndim >= 2 else 1
+            return run_with_fallback(NS_GLU_UPDATE, ((RUNG_SFC_CUDA, kernel), (RUNG_TORCH, oracle)),
+                                     shape_key=_shape_key(m, w_val.shape[-1], x.shape[-1], x.dtype))
+        return kernel() if name in _KERNEL_BACKENDS else oracle()
+    kw = dict(activation=activation, bias=bias, gate_bias=gate_bias, out_scale=out_scale, residual=residual)
+    if name == BACKEND_TORCH or w_val.ndim != 2:
+        return _glu_torch(x, w_val, w_gate, kw)
+    if name in _KERNEL_BACKENDS:
         x_run, res_run, post = _kernel_operands(x, residual, w_val.shape[1])
-        out = sfc_glu_matmul(
-            x_run, w_gate, w_val, activation=activation, bias=bias,
-            gate_bias=gate_bias, out_scale=out_scale, residual=res_run,
-            fuse=_fuse(name),
-        )
+        kw["residual"] = res_run
+        if name == BACKEND_REPLICATED:
+            out = _glu_replicated(x_run, w_val, w_gate, kw)
+        else:
+            out = run_with_fallback(NS_GLU, _GLU_RUNGS, args=(x_run, w_val, w_gate, kw), shape_key=_rung_key)
         return post(out) if post is not None else out
+    return _glu_reference(x, w_val, w_gate, kw)
+
+
+def _glu_sfc(x, w_val, w_gate, kw):
+    return _ops().sfc_glu_matmul(x, w_gate, w_val, **kw)
+
+
+def _glu_replicated(x, w_val, w_gate, kw):
+    return _ops().sfc_glu_matmul(x, w_gate, w_val, fuse=False, **kw)
+
+
+def _glu_epilogue(g, h, kw):
+    if kw["gate_bias"] is not None:
+        g = g + kw["gate_bias"]
+    if kw["bias"] is not None:
+        h = h + kw["bias"]
+    return _epilogue(_act(kw["activation"])(g) * h, out_scale=kw["out_scale"], residual=kw["residual"])
+
+
+def _glu_torch(x, w_val, w_gate, kw):
+    return _glu_epilogue(x @ w_gate, x @ w_val, kw)
+
+
+def _glu_reference(x, w_val, w_gate, kw):
     lead = x.shape[:-1]
-    k = x.shape[-1]
-    x2 = x.reshape(-1, k)
+    x2 = x.reshape(-1, x.shape[-1])
     g = _reference_matmul(x2, w_gate, NS_GLU).reshape(*lead, w_gate.shape[1])
     h = _reference_matmul(x2, w_val, NS_GLU).reshape(*lead, w_val.shape[1])
-    if gate_bias is not None:
-        g = g + gate_bias
-    if bias is not None:
-        h = h + bias
-    return _epilogue(
-        _act(activation)(g) * h, out_scale=out_scale, residual=residual
-    )
+    return _glu_epilogue(g, h, kw)
+
+
+_GLU_RUNGS = (
+    (RUNG_SFC_CUDA, _glu_sfc),
+    (RUNG_REPLICATED, _glu_replicated),
+    (RUNG_SFC_REFERENCE, _glu_reference),
+    (RUNG_TORCH, _glu_torch),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -344,9 +463,18 @@ def grouped_matmul(
 
         slot = session.slot(leaf)
         rows, (g, e, c), restore = _rows_by_expert(x)
-        fused = name in _KERNEL_BACKENDS
-        out = fused_update_grouped_matmul(rows, w, (g * c,) * e, slot if fused else slot.dw_sink(0), bias=bias,
-                                          activation=activation, fused=fused)
+        sizes = (g * c,) * e
+
+        def update(fused):
+            return fused_update_grouped_matmul(rows, w, sizes, slot if fused else slot.dw_sink(0), bias=bias,
+                                               activation=activation, fused=fused)
+
+        if name == BACKEND_SFC_CUDA:
+            out = run_with_fallback(NS_GROUPED_UPDATE,
+                                    ((RUNG_SFC_CUDA, lambda: update(True)), (RUNG_TORCH, lambda: update(False))),
+                                    shape_key=_shape_key(rows.shape[0], w.shape[-1], rows.shape[-1], rows.dtype))
+        else:
+            out = update(name in _KERNEL_BACKENDS)
         return restore(out, w.shape[-1])
     if name == BACKEND_TORCH:
         y = torch.einsum("...eck,ekn->...ecn", x, w)
@@ -355,16 +483,34 @@ def grouped_matmul(
         return _epilogue(y, activation=activation, out_scale=out_scale)
     rows, (g, e, c), restore = _rows_by_expert(x)
     n = w.shape[-1]
+
+    def per_expert(product):
+        parts = []
+        for ei in range(e):
+            ye = product(rows[ei * g * c:(ei + 1) * g * c], w[ei])
+            parts.append(ye if bias is None else ye + bias[ei])
+        return _epilogue(torch.cat(parts), activation=activation, out_scale=out_scale)
+
     if name in _KERNEL_BACKENDS:
         from repro_torch.kernels.ops import sfc_grouped_matmul
 
-        out = sfc_grouped_matmul(rows, w, (g * c,) * e, bias=bias, activation=activation, out_scale=out_scale)
+        def kernel():
+            return sfc_grouped_matmul(rows, w, (g * c,) * e, bias=bias, activation=activation, out_scale=out_scale)
+
+        if name == BACKEND_SFC_CUDA:
+            out = run_with_fallback(
+                NS_GROUPED,
+                (
+                    (RUNG_SFC_CUDA, kernel),
+                    (RUNG_SFC_REFERENCE, lambda: per_expert(_reference_matmul)),
+                    (RUNG_TORCH, lambda: per_expert(torch.matmul)),
+                ),
+                shape_key=_shape_key(rows.shape[0], n, rows.shape[-1], rows.dtype),
+            )
+        else:
+            out = kernel()
         return restore(out, n)
-    parts = []
-    for ei in range(e):
-        ye = _reference_matmul(rows[ei * g * c:(ei + 1) * g * c], w[ei])
-        parts.append(ye if bias is None else ye + bias[ei])
-    return restore(_epilogue(torch.cat(parts), activation=activation, out_scale=out_scale), n)
+    return restore(per_expert(_reference_matmul), n)
 
 
 def grouped_glu_matmul(
@@ -399,10 +545,20 @@ def grouped_glu_matmul(
 
         slot = session.slot(leaf_v, leaf_g)
         rows, (g, e, c), restore = _rows_by_expert(x)
-        fused = name in _KERNEL_BACKENDS
-        out = fused_update_grouped_glu_matmul(rows, w_gate, w_val, (g * c,) * e,
-                                              slot if fused else (slot.dw_sink(0), slot.dw_sink(1)),
-                                              activation=activation, fused=fused)
+        sizes = (g * c,) * e
+
+        def update(fused):
+            return fused_update_grouped_glu_matmul(rows, w_gate, w_val, sizes,
+                                                   slot if fused else (slot.dw_sink(0), slot.dw_sink(1)),
+                                                   activation=activation, fused=fused)
+
+        if name == BACKEND_SFC_CUDA:
+            out = run_with_fallback(NS_GROUPED_GLU_UPDATE,
+                                    ((RUNG_SFC_CUDA, lambda: update(True)), (RUNG_TORCH, lambda: update(False))),
+                                    shape_key=_shape_key(rows.shape[0], w_val.shape[-1], rows.shape[-1],
+                                                         rows.dtype))
+        else:
+            out = update(name in _KERNEL_BACKENDS)
         return restore(out, w_val.shape[-1])
     if name == BACKEND_TORCH:
         g_ = torch.einsum("...eck,ekn->...ecn", x, w_gate)
@@ -410,18 +566,36 @@ def grouped_glu_matmul(
         return _epilogue(_act(activation)(g_) * h, out_scale=out_scale)
     rows, (g, e, c), restore = _rows_by_expert(x)
     n = w_val.shape[-1]
+
+    def per_expert(product):
+        slabs = (rows[ei * g * c:(ei + 1) * g * c] for ei in range(e))
+        parts = [_act(activation)(product(xe, w_gate[ei])) * product(xe, w_val[ei]) for ei, xe in enumerate(slabs)]
+        return _epilogue(torch.cat(parts), out_scale=out_scale)
+
+    def reference(xe, we):
+        return _reference_matmul(xe, we, NS_GLU)
+
     if name in _KERNEL_BACKENDS:
         from repro_torch.kernels.ops import sfc_grouped_glu_matmul
 
-        out = sfc_grouped_glu_matmul(rows, w_gate, w_val, (g * c,) * e, activation=activation,
-                                     out_scale=out_scale)
+        def kernel():
+            return sfc_grouped_glu_matmul(rows, w_gate, w_val, (g * c,) * e, activation=activation,
+                                          out_scale=out_scale)
+
+        if name == BACKEND_SFC_CUDA:
+            out = run_with_fallback(
+                NS_GROUPED_GLU,
+                (
+                    (RUNG_SFC_CUDA, kernel),
+                    (RUNG_SFC_REFERENCE, lambda: per_expert(reference)),
+                    (RUNG_TORCH, lambda: per_expert(torch.matmul)),
+                ),
+                shape_key=_shape_key(rows.shape[0], n, rows.shape[-1], rows.dtype),
+            )
+        else:
+            out = kernel()
         return restore(out, n)
-    parts = []
-    for ei in range(e):
-        xe = rows[ei * g * c:(ei + 1) * g * c]
-        parts.append(_act(activation)(_reference_matmul(xe, w_gate[ei], NS_GLU))
-                     * _reference_matmul(xe, w_val[ei], NS_GLU))
-    return restore(_epilogue(torch.cat(parts), out_scale=out_scale), n)
+    return restore(per_expert(reference), n)
 
 
 # ---------------------------------------------------------------------------
@@ -457,8 +631,10 @@ def chunk_einsum(subs: str, a: torch.Tensor, b: torch.Tensor, *,
     type ``preferred_element_type`` (else the inputs' common type): bf16
     inputs asking for f32 take the kernel's f32-output mode, the
     accumulator written with no bf16 rounding.  Knobs and namespace come
-    from `kernels.ops.chunk_gemm_plan`.  There is no fallback ladder
-    (ROADMAP item 14): a kernel that fails raises.  Under every other
+    from `kernels.ops.chunk_gemm_plan`, and the launch runs through the
+    fallback ladder under that (schedule-qualified) namespace, JAX's
+    rungs: the fused kernel, the replicated form (``fuse=False``), then
+    ``torch.matmul`` in f32 cast to the output type.  Under every other
     backend it is ``torch.einsum`` of the same signature, on operands cast
     to ``preferred_element_type`` when one is given (products of the
     inputs' values are exact in f32, so that is the f32 accumulation JAX's
@@ -483,6 +659,14 @@ def chunk_einsum(subs: str, a: torch.Tensor, b: torch.Tensor, *,
     out_dtype = preferred_element_type or torch.promote_types(a.dtype, b.dtype)
     m, k = at.shape[-2:]
     n = bt.shape[-1]
-    _, knobs = chunk_gemm_plan(m, n, k, at.dtype, device=at.device)
-    out = sfc_matmul(at, bt, out_dtype=out_dtype, fuse=True, **knobs)
+    namespace, knobs = chunk_gemm_plan(m, n, k, at.dtype, device=at.device)
+    out = run_with_fallback(
+        namespace,
+        (
+            (RUNG_SFC_CUDA, lambda: sfc_matmul(at, bt, out_dtype=out_dtype, fuse=True, **knobs)),
+            (RUNG_REPLICATED, lambda: sfc_matmul(at, bt, out_dtype=out_dtype, fuse=False, **knobs)),
+            (RUNG_TORCH, lambda: torch.matmul(at.float(), bt.float()).to(out_dtype)),
+        ),
+        shape_key=_shape_key(m, n, k, at.dtype),
+    )
     return out.permute(po) if po is not None else out

@@ -9,9 +9,11 @@ keyed the same way on both sides.  Two axes live here:
 * **namespaces** — *what* is being tuned/healed: the kernel-variant
   buckets of the tune cache (``NS_*``) plus the ladder-only namespaces of
   the fused-optimizer flush paths.
-* **backends** — *which implementation* runs a projection: the names the
-  ``repro_torch.core.gemm_backend`` switch takes (``BACKEND_*``).  The
-  port has no fallback ladder: a backend runs or raises.
+* **backends / rungs** — *which implementation* runs a projection: the
+  names the ``repro_torch.core.gemm_backend`` switch takes (``BACKEND_*``)
+  and, the same four strings, the fallback ladder's rungs (``RUNG_*``,
+  `robust.ladder`), walked in :data:`DEFAULT_LADDER` order under
+  "sfc_cuda".
 
 **Schedule-derived namespaces.**  The unified schedule compiler
 (`repro_torch.core.schedule`) lets new op families reuse existing kernels under
@@ -54,6 +56,12 @@ __all__ = [
     "BACKEND_REPLICATED",
     "BACKEND_SFC_REFERENCE",
     "BACKENDS",
+    "RUNG_SFC_CUDA",
+    "RUNG_REPLICATED",
+    "RUNG_SFC_REFERENCE",
+    "RUNG_TORCH",
+    "DEFAULT_LADDER",
+    "KERNEL_RUNGS",
     "schedule_namespace",
     "is_schedule_namespace",
     "base_namespace",
@@ -119,10 +127,27 @@ BACKEND_SFC_CUDA = "sfc_cuda"            # the hand-written SFC CUDA kernel
 BACKEND_REPLICATED = "replicated"        # split-K partial copies + add_reduce, epilogue after
 BACKEND_SFC_REFERENCE = "sfc_reference"  # Listing-1 loop in plain torch
 
-# The JAX package's ladder rungs, one to one: "sfc_pallas", "replicated",
-# "sfc_reference", "xla" (its DEFAULT_LADDER order, which a ported ladder,
-# ROADMAP item 14, would walk: sfc_cuda, replicated, sfc_reference, torch).
 BACKENDS = (BACKEND_TORCH, BACKEND_SFC_CUDA, BACKEND_REPLICATED, BACKEND_SFC_REFERENCE)
+
+# --- fallback-ladder rungs (implementation names, `robust.ladder`) --------
+# The JAX package's rungs one to one: "sfc_pallas", "replicated",
+# "sfc_reference", "xla".  An explicit backend of the same name bypasses
+# the ladder: it *is* that rung.
+RUNG_SFC_CUDA = BACKEND_SFC_CUDA
+RUNG_REPLICATED = BACKEND_REPLICATED
+RUNG_SFC_REFERENCE = BACKEND_SFC_REFERENCE
+RUNG_TORCH = BACKEND_TORCH
+
+DEFAULT_LADDER = (
+    RUNG_SFC_CUDA,
+    RUNG_REPLICATED,
+    RUNG_SFC_REFERENCE,
+    RUNG_TORCH,
+)
+# the rungs that launch the hand-written kernels (JAX: ``PALLAS_RUNGS``):
+# the fault harness's default target, and what the serving engine
+# quarantines wholesale on a classified failure or a detection
+KERNEL_RUNGS = (RUNG_SFC_CUDA, RUNG_REPLICATED)
 
 
 def schedule_namespace(base: str, key: str) -> str:

@@ -5,17 +5,19 @@
 regenerates the exact batch stream; each data-parallel rank can take its
 slice of rows.  Sequences follow per-dataset affine recurrences
 t_{i+1} = (a·t_i + b) mod V, so small models visibly reduce the loss.
-The background ``HostPrefetcher`` waits for ROADMAP queue 1 item 14.
+``HostPrefetcher`` generates future steps on a background thread.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import queue
+import threading
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SyntheticLMConfig", "SyntheticLM"]
+__all__ = ["SyntheticLMConfig", "SyntheticLM", "HostPrefetcher"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,3 +56,41 @@ class SyntheticLM:
             "tokens": toks[:, :-1].astype(np.int32),
             "labels": toks[:, 1:].astype(np.int32),
         }
+
+
+class HostPrefetcher:
+    """Background-thread prefetch of future steps (overlaps host datagen
+    with device compute; depth-bounded queue)."""
+
+    def __init__(self, source: SyntheticLM, start_step: int, depth: int = 2, **slice_kw):
+        self._source = source
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._slice_kw = slice_kw
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self._source.batch(step, **self._slice_kw)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def next(self) -> Tuple[int, Dict[str, np.ndarray]]:
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2)

@@ -54,6 +54,12 @@ built yet at the same time.  Each part's compiler output (``-Xptxas -v``:
 registers, shared memory, spills) is kept in ``nvcc.log`` beside the
 library.  Nothing here runs at import: the CPU tests import this module on
 machines with no ``nvcc``.
+
+Failures have types of their own, which the fallback ladder
+(`robust.ladder.classify_failure`) reads: `KernelBuildError` for a build
+that failed (the installation is broken, so no rung may hide it) and
+`KernelLaunchError`, carrying the ``cudaError_t`` code, for a launch the
+runtime refused.
 """
 
 from __future__ import annotations
@@ -71,6 +77,8 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
+    "KernelBuildError",
+    "KernelLaunchError",
     "TILE",
     "ATTN_TILE",
     "ATTN_DKV_TILE",
@@ -100,6 +108,21 @@ __all__ = [
     "load_attention_library",
     "load_all",
 ]
+
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing, or a part failed to compile or link."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch that returned a CUDA error; ``code`` is the
+    ``cudaError_t`` value."""
+
+    def __init__(self, what: str, code: int):
+        self.code = int(code)
+        super().__init__(f"{what} launch failed with CUDA error {self.code}")
+
 
 # (bm, bn) of the C tile one CTA computes: kBM / kBN in csrc/sfc_gemm_fused.cu
 TILE: Tuple[int, int] = (64, 64)
@@ -546,7 +569,7 @@ def _nvcc() -> str:
             return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+        raise KernelBuildError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
     return found
 
 
@@ -610,12 +633,12 @@ def _finish(job) -> None:
             if proc.returncode != 0:
                 failed.append(text)
         if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp.name) / out_lib.name
         link = [nvcc, *_ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)]
         res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n$ {' '.join(link)}\n{res.stdout.decode(errors='replace')}")
+            raise KernelBuildError(f"nvcc link failed:\n$ {' '.join(link)}\n{res.stdout.decode(errors='replace')}")
         (out_lib.parent / "nvcc.log").write_text("\n".join(logs))
         os.replace(tmp_lib, out_lib)
 

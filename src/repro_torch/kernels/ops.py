@@ -90,8 +90,16 @@ K9, K10 and the add-reduce of the unfused GLU have no check, as in JAX.
 `_VjpCfg.abft` pins the forward only; the backward launches resolve from
 the ambient mode of the forward, which the autograd Functions carry to
 their backward (on the card autograd runs it on a thread of its own).
-There is no fallback ladder (item 14): a kernel that fails raises, and so
-does a mismatch outside a step scope.
+Self-healing.  The backward launches run at backward time, far from the
+forward's ladder in `core.gemm_backend`, so a failure there degrades here,
+as in the JAX package: each NT, TN, grouped NT and grouped TN launch of
+the autograd Functions has a two-rung ladder (`robust.run_with_fallback`),
+the kernel, then a plain torch contraction with an f32 accumulator, the
+math the kernel performs (`_nt_with_fallback`, `_tn_with_fallback`,
+`_grouped_nt_with_fallback`, `_grouped_tn_with_fallback`).  The fused
+optimizer's norm and update flushes have theirs in `optim.fused` (the
+oracle: `_torch_tn` dW and `plain_update`).  A mismatch outside a step
+scope raises `SdcDetected`, which these ladders retry once on the kernel.
 """
 
 from __future__ import annotations
@@ -110,12 +118,16 @@ from repro_torch.core.namespaces import (
     NS_GLU,
     NS_GROUPED,
     NS_GROUPED_GLU,
+    NS_GROUPED_NT,
+    NS_GROUPED_TN,
     NS_NT,
     NS_NT_DUAL,
     NS_TN,
     NS_TN_DUAL,
     NS_TN_UPDATE,
     NS_TN_UPDATE_DUAL,
+    RUNG_SFC_CUDA,
+    RUNG_TORCH,
 )
 from repro_torch.kernels.sfc_gemm import (
     _epilogue,
@@ -135,6 +147,7 @@ from repro_torch.kernels.sfc_gemm import (
     tile_random_bits,
 )
 from repro_torch.robust import abft as _abft
+from repro_torch.robust.ladder import run_with_fallback
 from repro_torch.tune.tuner import default_cache, lookup_knobs
 
 __all__ = [
@@ -317,10 +330,12 @@ def chunk_gemm_plan(m: int, n: int, k: int, dtype, *, device=None):
     return namespace, dict(bm=bm, bn=bn, k_layers=kl, k_block_factor=kbf)
 
 
+@functools.lru_cache(maxsize=4096)
 def bwd_shape_key(m: int, n: int, k: int, dtype) -> str:
-    """The shape class of a backward launch (the JAX package's
-    ``_bwd_shape_key``, its ladder's quarantine key): the tune cache's
-    bucket of (M, N, K), each at least 1, and the dtype's name."""
+    """The shape class of a GEMM launch (the JAX package's
+    ``_bwd_shape_key``, and its ``gemm_backend._shape_key``, the same
+    formula: its ladder's quarantine key): the tune cache's bucket of (M,
+    N, K), each at least 1, and the dtype's name.  Memoised."""
     from repro_torch.tune.cache import dtype_name, shape_bucket
 
     bm_, bn_, bk_ = shape_bucket(max(m, 1), max(n, 1), max(k, 1))
@@ -699,6 +714,87 @@ def plain_update(dw, master, mu, nu, w, hyper, *, salt: int, stochastic_round: b
 
 
 # ---------------------------------------------------------------------------
+# backward self-healing: fallback-ladder rungs for the NT / TN launches
+# ---------------------------------------------------------------------------
+
+
+def _torch_nt(dh, b, dg=None, b_gate=None) -> torch.Tensor:
+    """The torch rung of `sfc_matmul_nt`: dh (..., M, N) @ b (K, N)ᵀ (+ the
+    dual pair) in f32."""
+    out = torch.einsum("...mn,kn->...mk", dh.float(), b.float())
+    if dg is not None:
+        out = out + torch.einsum("...mn,kn->...mk", dg.float(), b_gate.float())
+    return out
+
+
+def _torch_tn(a2d, dh2, dg2=None):
+    """The torch rung of `sfc_matmul_tn`: a (M, K)ᵀ @ dh (M, N) in f32 (dual:
+    a pair)."""
+    at = a2d.float().t()
+    db = at @ dh2.float()
+    return db if dg2 is None else (db, at @ dg2.float())
+
+
+def _torch_grouped_nt(dh, b, group_sizes, dg=None, b_gate=None) -> torch.Tensor:
+    """The torch rung of `sfc_grouped_matmul_nt`, expert by expert."""
+    parts = torch.split(dh, list(group_sizes))
+    gparts = torch.split(dg, list(group_sizes)) if dg is not None else [None] * len(parts)
+    return torch.cat([_torch_nt(p, b[e], gp, None if gp is None else b_gate[e])
+                      for e, (p, gp) in enumerate(zip(parts, gparts))])
+
+
+def _torch_grouped_tn(a, dh, group_sizes, dg=None):
+    """The torch rung of `sfc_grouped_matmul_tn`: (E, K, N) dW stack(s)."""
+    sizes = list(group_sizes)
+    a_p, dh_p = torch.split(a, sizes), torch.split(dh, sizes)
+    db = torch.stack([_torch_tn(x, y) for x, y in zip(a_p, dh_p)])
+    if dg is None:
+        return db
+    return db, torch.stack([_torch_tn(x, y) for x, y in zip(a_p, torch.split(dg, sizes))])
+
+
+def _nt_with_fallback(dh_c, b, dg_c, b_gate):
+    m = math.prod(dh_c.shape[:-1])
+    return run_with_fallback(
+        NS_NT,
+        ((RUNG_SFC_CUDA, lambda: sfc_matmul_nt(dh_c, b, dg_c, b_gate)),
+         (RUNG_TORCH, lambda: _torch_nt(dh_c, b, dg_c, b_gate))),
+        shape_key=lambda: bwd_shape_key(m, b.shape[0], dh_c.shape[-1], dh_c.dtype),
+    )
+
+
+def _tn_with_fallback(a2d, dh2, dg2):
+    def kernel():
+        return sfc_matmul_tn(a2d, dh2) if dg2 is None else sfc_matmul_tn(a2d, dh2, dg2)
+
+    return run_with_fallback(
+        NS_TN,
+        ((RUNG_SFC_CUDA, kernel), (RUNG_TORCH, lambda: _torch_tn(a2d, dh2, dg2))),
+        shape_key=lambda: bwd_shape_key(a2d.shape[-1], dh2.shape[-1], a2d.shape[0], a2d.dtype),
+    )
+
+
+def _grouped_nt_with_fallback(dh_c, b, gs, dg_c, b_gate):
+    return run_with_fallback(
+        NS_GROUPED_NT,
+        ((RUNG_SFC_CUDA, lambda: sfc_grouped_matmul_nt(dh_c, b, gs, dg_c, b_gate)),
+         (RUNG_TORCH, lambda: _torch_grouped_nt(dh_c, b, gs, dg_c, b_gate))),
+        shape_key=lambda: bwd_shape_key(dh_c.shape[0], b.shape[-2], dh_c.shape[-1], dh_c.dtype),
+    )
+
+
+def _grouped_tn_with_fallback(a, dh_c, gs, dg_c):
+    def kernel():
+        return sfc_grouped_matmul_tn(a, dh_c, gs) if dg_c is None else sfc_grouped_matmul_tn(a, dh_c, gs, dg_c)
+
+    return run_with_fallback(
+        NS_GROUPED_TN,
+        ((RUNG_SFC_CUDA, kernel), (RUNG_TORCH, lambda: _torch_grouped_tn(a, dh_c, gs, dg_c))),
+        shape_key=lambda: bwd_shape_key(a.shape[-1], dh_c.shape[-1], a.shape[0], a.dtype),
+    )
+
+
+# ---------------------------------------------------------------------------
 # the custom VJP: the backward pass is itself SFC GEMMs
 # ---------------------------------------------------------------------------
 
@@ -832,14 +928,14 @@ class _MatmulCore(torch.autograd.Function):
                 db = sfc_matmul(a.transpose(-1, -2), dh_c)
         else:
             if need_a:
-                da = sfc_matmul_nt(dh_c, b, dg_c, b_gate if dg_c is not None else None)
+                da = _nt_with_fallback(dh_c, b, dg_c, b_gate if dg_c is not None else None)
             if need_b or need_bg:
                 n = b.shape[-1]
                 a2d = a.reshape(-1, a.shape[-1])
                 if dg_c is not None:
-                    db, dbg = sfc_matmul_tn(a2d, dh_c.reshape(-1, n), dg_c.reshape(-1, n))
+                    db, dbg = _tn_with_fallback(a2d, dh_c.reshape(-1, n), dg_c.reshape(-1, n))
                 else:
-                    db = sfc_matmul_tn(a2d, dh_c.reshape(-1, n))
+                    db = _tn_with_fallback(a2d, dh_c.reshape(-1, n), None)
         dbias, dgbias = _bias_grads(dh, dg, bias, gate_bias)
         dres = None if ctx.res_dtype is None else dy.to(ctx.res_dtype)
         return (
@@ -876,7 +972,7 @@ class _UpdateCore(torch.autograd.Function):
         dh, dg, dh_c, dg_c = _compute_cotangents(ctx.cfg, a, h_pre, g_pre, dy)
         da = None
         if ctx.needs_input_grad[1]:
-            da = sfc_matmul_nt(dh_c, b, dg_c, b_gate if dg_c is not None else None).to(a.dtype)
+            da = _nt_with_fallback(dh_c, b, dg_c, b_gate if dg_c is not None else None).to(a.dtype)
         n = b.shape[-1]
         ctx.sink(a.reshape(-1, a.shape[-1]), dh_c.reshape(-1, n), None if dg_c is None else dg_c.reshape(-1, n))
         dbias, dgbias = _bias_grads(dh, dg, bias, gate_bias)
@@ -1258,9 +1354,9 @@ class _GroupedCore(torch.autograd.Function):
         db = dbg = None
         if need_b or need_bg:
             if dg_c is not None:
-                db, dbg = sfc_grouped_matmul_tn(a, dh_c, gs, dg_c)
+                db, dbg = _grouped_tn_with_fallback(a, dh_c, gs, dg_c)
             else:
-                db = sfc_grouped_matmul_tn(a, dh_c, gs)
+                db = _grouped_tn_with_fallback(a, dh_c, gs, None)
         return (
             None,
             da,
@@ -1283,7 +1379,7 @@ def _grouped_backward(ctx, a, b, b_gate, h_pre, g_pre, bias, gate_bias, dy):
     da = None
     if ctx.needs_input_grad[1]:
         # (E, K, N) weights as stored are the NT kernel's (E, N', K') operand
-        da = sfc_grouped_matmul_nt(dh_c, b, gs, dg_c, b_gate if dg_c is not None else None).to(a.dtype)
+        da = _grouped_nt_with_fallback(dh_c, b, gs, dg_c, b_gate if dg_c is not None else None).to(a.dtype)
     dbias = None if bias is None else _segment_sums(dh, gs).to(bias.dtype)
     dgbias = None if gate_bias is None else _segment_sums(dg, gs).to(gate_bias.dtype)
     return dh_c, dg_c, da, dbias, dgbias

@@ -396,7 +396,7 @@ def launch_flash_fwd(
             stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash forward kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError("flash forward kernel", rc)
     return o, lse, key
 
 
@@ -698,7 +698,7 @@ def _launch_bwd(kind: str, q, k, v, do, lse, delta, outs, tab_minor, row_start, 
             stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash backward {kind} kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError(f"flash backward {kind} kernel", rc)
 
 
 def _bwd_chunks(name: str, tile: Tuple[int, int], q_chunk, k_chunk) -> None:
@@ -999,7 +999,7 @@ def sfc_decode_attention(
             stream,
         )
     if rc != 0:
-        raise RuntimeError(f"decode attention kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError("decode attention kernel", rc)
     sfc_decode_attention.launches += 1
     sfc_decode_attention.launches_by_splits[splits] += 1
     sfc_decode_attention.launches_by_shape[(b, h, t, hkv, d)] += 1

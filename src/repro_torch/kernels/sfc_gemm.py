@@ -766,7 +766,7 @@ def _launch(a, b, b_gate, bias, gate_bias, residual, *, activation, out_scale, b
             None, 0, *((parts.data_ptr(),) if abft else ()), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_fused kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError("sfc_gemm_fused kernel", rc)
     _count(batch, m, k, n, b_gate is not None, abft, ("sfc_gemm_fused_kernel", 1))
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
@@ -808,7 +808,7 @@ def _launch_cluster(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, a
             *((parts.data_ptr(),) if abft else ()), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_fused cluster kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError("sfc_gemm_fused cluster kernel", rc)
     _count(0, m, k, n, b_gate is not None, abft, ("sfc_gemm_cluster_kernel", layers))
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
@@ -839,7 +839,7 @@ def _launch_wgmma(a, b, b_gate, bias, gate_bias, residual, out, out_gate, *, act
             None, 0, *((parts.data_ptr(),) if abft else ()), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_fused wgmma kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError("sfc_gemm_fused wgmma kernel", rc)
     _count(batch, m, k, n, glu, abft, ("sfc_gemm_wgmma_kernel", _tile_name(cfg, glu)))
     return _results((out, out_gate), _lane_total(parts, a.device) if abft else None)
 
@@ -873,7 +873,7 @@ def _launch_f32_out(a, b, out, *, bm, bn, shape, abft, launch=None):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), *args, *((parts.data_ptr(),) if abft else ()), stream)
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_fused f32-output kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError("sfc_gemm_fused f32-output kernel", rc)
     _count(batch, m, k, n, False, abft, kernel)
     sfc_gemm_fused.f32_out_launches += 1
     return _results((out,), _lane_total(parts, a.device) if abft else None)
@@ -1145,7 +1145,7 @@ def sfc_gemm_replicated(
                 stream,
             )
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_replicated {kernel[0]} launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError(f"sfc_gemm_replicated {kernel[0]}", rc)
     sfc_gemm_replicated.launches += 1
     sfc_gemm_replicated.launches_by_shape[(batch, m, k, n, k_layers)] += 1
     sfc_gemm_replicated.launches_by_kernel[kernel] += 1
@@ -1228,7 +1228,7 @@ def launch_add_reduce(copies: torch.Tensor, out: torch.Tensor, cfg: AddReduceLau
         rc = fn(copies.data_ptr(), out.data_ptr(), layers, lead[0] if lead else 1, m * n, vec, cfg.threads,
                 cfg.vectors, cfg.ctas, stream)
     if rc != 0:
-        raise RuntimeError(f"add_reduce kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError("add_reduce kernel", rc)
 
 
 # ---------------------------------------------------------------------------
@@ -1537,7 +1537,7 @@ def _launch_bwd(kind: str, a, b, x2, out, out2, *, rows: int, cols: int, depth: 
         tail = (None, 0) if chk is None else (chk.data_ptr(),)  # no grouped mode; the lane's partials
         rc = fn(*ptrs, tab.data_ptr(), mb * nb, rows, cols, depth, int(vec_a), int(vec_b), *tail, stream)
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_{kind} kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError(f"sfc_gemm_{kind} kernel", rc)
 
 
 @kernel_entry
@@ -1611,7 +1611,7 @@ def _launch_nt_wgmma(a, b, a2, b2, out, *, gs: Optional[tuple] = None, launch: O
                 a.shape[1], int(cfg.wide), cfg.ctas, cfg.group, _ptr(grp), 0 if gs is None else len(gs), stream)
     if rc != 0:
         kind = "sfc_gemm_nt" if gs is None else "sfc_gemm_grouped_nt"
-        raise RuntimeError(f"{kind} wgmma kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError(f"{kind} wgmma kernel", rc)
     return _tile_name(cfg, False)
 
 
@@ -1636,7 +1636,7 @@ def _launch_tn_wgmma(a, b, b2, out, out2, *, gs: Optional[tuple] = None, abft: b
                 k, n, t, cfg.ctas, cfg.group, _ptr(grp), _ptr(chk), stream)
     if rc != 0:
         kind = "sfc_gemm_tn" if gs is None else "sfc_gemm_grouped_tn"
-        raise RuntimeError(f"{kind} wgmma kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError(f"{kind} wgmma kernel", rc)
     return _tile_name(cfg, b2 is not None), chk
 
 
@@ -1663,7 +1663,7 @@ def _launch_tn_update_wgmma(a, b, b2, sets, hyper, *, salt: int, stochastic_roun
                 cfg.group, _ptr(grp), _ptr(chk), stream)
     if rc != 0:
         kind = "sfc_gemm_tn" if gs is None else "sfc_gemm_grouped_tn"
-        raise RuntimeError(f"{kind} {'update' if sets else 'norm'} wgmma kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError(f"{kind} {'update' if sets else 'norm'} wgmma kernel", rc)
     # the per-task partials in curve order, summed on the device: no atomics
     norms = partials.sum(dim=1)
     result = (norms, _lane_total(chk, a.device, n_sets)) if abft else norms
@@ -1714,7 +1714,7 @@ def _launch_tn_update(a, b, b2, sets, hyper, *, salt: int, stochastic_round: boo
                 int(vec_a), int(vec_b), *lane, stream)
     if rc != 0:
         kind = "sfc_gemm_tn" if gs is None else "sfc_gemm_grouped_tn"
-        raise RuntimeError(f"{kind} {'update' if sets else 'norm'} kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError(f"{kind} {'update' if sets else 'norm'} kernel", rc)
     # the per-task partials in table order, summed on the device: no atomics
     norms = partials.sum(dim=1)
     return (norms, _lane_total(chk, a.device, n_sets)) if abft else norms
@@ -2044,7 +2044,7 @@ def _launch_grouped(a, b, b_gate, bias, gate_bias, *, gs, activation, out_scale,
             rc = fn(*ptrs, t, n, k, 0, 0, *epilogue, int(_rows_vec(k, a)), int(_rows_vec(n, b, b_gate)),
                     grp.data_ptr(), e_cnt, *lane, stream)
     if rc != 0:
-        raise RuntimeError(f"sfc_gemm_grouped {'wgmma ' if wgmma else ''}kernel launch failed with CUDA error {rc}")
+        raise build.KernelLaunchError(f"sfc_gemm_grouped {'wgmma ' if wgmma else ''}kernel", rc)
     sfc_gemm_grouped.launches += 1
     sfc_gemm_grouped.launches_by_shape[(e_cnt, t, k, n, glu)] += 1
     sfc_gemm_grouped.launches_by_kernel[("sfc_gemm_grouped_wgmma_kernel", _tile_name(cfg, glu)) if wgmma
@@ -2195,7 +2195,7 @@ def sfc_gemm_grouped_nt(
             rc = fn(a.data_ptr(), b.data_ptr(), _ptr(a2), _ptr(b2), out.data_ptr(), tab.data_ptr(), tab.shape[1],
                     t, n, k, int(_rows_vec(k, a, a2)), int(_rows_vec(k, b, b2)), grp.data_ptr(), e_cnt, stream)
         if rc != 0:
-            raise RuntimeError(f"sfc_gemm_grouped_nt kernel launch failed with CUDA error {rc}")
+            raise build.KernelLaunchError("sfc_gemm_grouped_nt kernel", rc)
         kernel = ("grouped_nt_kernel", 1)
     sfc_gemm_grouped_nt.launches += 1
     sfc_gemm_grouped_nt.launches_by_shape[(e_cnt, t, n, k, a2 is not None)] += 1
@@ -2403,7 +2403,7 @@ def sfc_gemm_grouped_tn(
             rc = fn(a.data_ptr(), b.data_ptr(), _ptr(b2), out.data_ptr(), _ptr(out2), tab.data_ptr(),
                     tab.shape[1], k, n, t, int(vecs["vec_a"]), int(vecs["vec_b"]), grp.data_ptr(), e_cnt, stream)
         if rc != 0:
-            raise RuntimeError(f"sfc_gemm_grouped_tn kernel launch failed with CUDA error {rc}")
+            raise build.KernelLaunchError("sfc_gemm_grouped_tn kernel", rc)
     elif uses_tn_wgmma_kernel(a, b, b2, *_state_tensors(sets)):
         result, tile = _launch_tn_update_wgmma(a, b, b2, sets, hyper, salt=salt, stochastic_round=stochastic_round,
                                                gs=gs)

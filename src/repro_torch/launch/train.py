@@ -31,8 +31,21 @@ positions and stub vision rows:
   PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-medium --reduced \
       --device cpu --backend sfc_cuda --remat dots --steps 2 --batch 2 --seq 16
 
-Checkpointing and `TrainLoop` (ROADMAP queue 1 item 14) and the mesh (item
-16) are not ported.
+The steps run in `train.fault_tolerance.TrainLoop` (a `StepWatchdog`
+logs stragglers).  ``--ckpt-dir DIR`` resumes from DIR's latest committed
+checkpoint and saves there every ``--ckpt-every`` steps (default 50) and at
+the end (`train.checkpoint.CheckpointManager`: the parameters, the AdamW
+state and the loop's lr scale and data offset); ``--fail-at N`` simulates
+a preemption at step N.  Without ``--ckpt-dir`` nothing is saved (the JAX
+CLI saves to a fixed directory).  A checkpoint holds 14 bytes a parameter
+(bf16 weights, f32 master, mu and nu):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --reduced \
+      --device cpu --backend sfc_cuda --steps 8 --ckpt-dir /tmp/ck --ckpt-every 2 --fail-at 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --reduced \
+      --device cpu --backend sfc_cuda --steps 8 --ckpt-dir /tmp/ck --ckpt-every 2
+
+The mesh (ROADMAP item 16) is not ported.
 """
 
 from __future__ import annotations
@@ -50,6 +63,8 @@ from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
 from repro_torch.models.registry import build_model
 from repro_torch.models.remat import REMAT_POLICIES
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.fault_tolerance import StepWatchdog, TrainLoop, model_step
 from repro_torch.train.step import BackendConfig, make_train_step
 
 
@@ -125,6 +140,9 @@ def main(argv=None):
     ap.add_argument("--remat", default="none", choices=list(REMAT_POLICIES),
                     help="activation recomputation of each layer (group) in the backward")
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None, help="resume from and save checkpoints in this directory")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fail-at", type=int, default=None, help="simulate preemption")
     ap.add_argument("--backend", default=None, choices=list(BACKENDS),
                     help="GEMM backend for the train step (forward and backward)")
     ap.add_argument("--attn-impl", default=None, choices=list(ATTN_IMPLS),
@@ -147,10 +165,10 @@ def main(argv=None):
         attn_impl=args.attn_impl, fused_optimizer=args.fused_optimizer,
         stochastic_round=not args.no_stochastic_round, device=args.device,
     )
-    history = []
-    for step in range(args.steps):
-        opt_state, metrics = step_fn(opt_state, batch_fn(step))
-        history.append((step + 1, float(metrics["loss"])))
+    ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_every) if args.ckpt_dir else None
+    loop = TrainLoop(train_step=model_step(step_fn), batch_fn=batch_fn, ckpt=ckpt, watchdog=StepWatchdog())
+    _, _, history = loop.run(dict(model.named_parameters()), opt_state, num_steps=args.steps,
+                             resume=ckpt is not None, fail_at=args.fail_at)
     print(f"final loss: {history[-1][1]:.4f}  (from {history[0][1]:.4f})")
     return history
 

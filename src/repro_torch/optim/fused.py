@@ -32,6 +32,15 @@ second run inside the train step's ABFT mode and step scope, so under
 "detect" both carry K8's checksum lane (the JAX package checks the update
 flush of both of its phases); K10's have no lane, as in JAX.
 
+Self-healing: each norm and update launch runs through the fallback ladder
+under ``NS_TN_UPDATE`` (``NS_GROUPED_TN_UPDATE`` for an expert stack), the
+kernel, then the JAX package's oracle (dW in plain torch with an f32
+accumulator, `kernels.ops.plain_update`).  The update writes W, master,
+mu and nu in place, so once it has run nothing is retried or handed to
+the oracle (``in_place=True``; the oracle would apply AdamW a second
+time): a detection, or any failure after the launch, goes up to the step,
+whose rollback restores the state (`train.fault_tolerance.CorruptionPolicy`).
+
 Salts follow the JAX package's ``wrap_routed``: ``(index of the weight's
 JAX path in sorted(routed paths) + 1) << 16``, plus the layer index for
 the scan-stacked ``layers/...`` leaves, so the port's ``layers.{i}.attn.wq``
@@ -198,11 +207,17 @@ class _Slot:
 
         self.kernel_args = (a2d, dh, dg, group_sizes)
         if self.session.two_phase:
-            if group_sizes is None:
-                norms = sfc_matmul_tn_norm(a2d, dh, dg)
-            else:
-                norms = sfc_grouped_matmul_tn_norm(a2d, dh, group_sizes, dg)
-            self.norm_sq = norms if dg is None else norms[0] + norms[1]
+            def kernel():
+                if group_sizes is None:
+                    norms = sfc_matmul_tn_norm(a2d, dh, dg)
+                else:
+                    norms = sfc_grouped_matmul_tn_norm(a2d, dh, group_sizes, dg)
+                return norms if dg is None else norms[0] + norms[1]
+
+            def oracle():
+                return sum(torch.sum(torch.square(d)) for d in _oracle_dws(a2d, dh, dg, group_sizes))
+
+            self.norm_sq = _update_ladder(kernel, oracle, a2d, dh, group_sizes, in_place=False)
 
     # the oracle: `_RoutedWeight.backward` of weight ``i`` calls this
     def dw_sink(self, i: int):
@@ -229,6 +244,10 @@ class _Slot:
         # the GLU's pair shares the value weight's salt (the JAX package
         # passes w_val.hyper for both); the kernel salts the gate's set once more
         salt = self.leaves[0].salt
+        def oracle(dws):
+            return sum(plain_update(dw, mst, mu, nu, w, hyper, salt=salt, stochastic_round=stochastic_round)
+                       for dw, (w, mst, mu, nu) in zip(dws, sets))
+
         if self.kernel_args is not None:
             a2d, dh, dg, group_sizes = self.kernel_args
             (w, mst, mu, nu), *rest = sets
@@ -236,16 +255,44 @@ class _Slot:
             if rest:
                 w2, mst2, mu2, nu2 = rest[0]
                 extra.update(dy2=dg, master2=mst2, mu2=mu2, nu2=nu2, w2=w2)
-            if group_sizes is None:
-                norms = sfc_matmul_tn_update(a2d, dh, mst, mu, nu, hyper, **extra)
-            else:
-                norms = sfc_grouped_matmul_tn_update(a2d, dh, group_sizes, mst, mu, nu, hyper, **extra)
-            sq = norms if not rest else norms[0] + norms[1]
+
+            def kernel():
+                if group_sizes is None:
+                    norms = sfc_matmul_tn_update(a2d, dh, mst, mu, nu, hyper, **extra)
+                else:
+                    norms = sfc_grouped_matmul_tn_update(a2d, dh, group_sizes, mst, mu, nu, hyper, **extra)
+                return norms if not rest else norms[0] + norms[1]
+
+            sq = _update_ladder(kernel, lambda: oracle(_oracle_dws(a2d, dh, dg, group_sizes)), a2d, dh,
+                                group_sizes, in_place=True)
         else:
-            sq = sum(plain_update(dw, mst, mu, nu, w, hyper, salt=salt, stochastic_round=stochastic_round)
-                     for dw, (w, mst, mu, nu) in zip(self.dws, sets))
+            sq = oracle(self.dws)
         self.kernel_args, self.dws = None, [None] * len(self.leaves)
         return sq
+
+
+def _oracle_dws(a2d, dh, dg, group_sizes) -> List[torch.Tensor]:
+    """The f32 dW of each set (the value's, then the gate's) in plain
+    torch: the oracle rung of a norm or update flush."""
+    from repro_torch.kernels.ops import _torch_grouped_tn, _torch_tn
+
+    dws = _torch_tn(a2d, dh, dg) if group_sizes is None else _torch_grouped_tn(a2d, dh, group_sizes, dg)
+    return [dws] if dg is None else list(dws)
+
+
+def _update_ladder(kernel, oracle, a2d, dh, group_sizes, *, in_place: bool):
+    """A norm or update flush under its ladder: ``NS_TN_UPDATE`` (an expert
+    stack: ``NS_GROUPED_TN_UPDATE``), the kernel, then the oracle."""
+    from repro_torch.core.namespaces import NS_GROUPED_TN_UPDATE, NS_TN_UPDATE, RUNG_SFC_CUDA, RUNG_TORCH
+    from repro_torch.kernels.ops import bwd_shape_key
+    from repro_torch.robust.ladder import run_with_fallback
+
+    ns = NS_TN_UPDATE if group_sizes is None else NS_GROUPED_TN_UPDATE
+    return run_with_fallback(
+        ns, ((RUNG_SFC_CUDA, kernel), (RUNG_TORCH, oracle)),
+        shape_key=lambda: bwd_shape_key(a2d.shape[-1], dh.shape[-1], a2d.shape[0], a2d.dtype),
+        in_place=in_place,
+    )
 
 
 class FusedSession:

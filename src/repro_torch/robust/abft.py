@@ -39,10 +39,15 @@ checks run (`runtime_max_ratio`, the margin against false positives; a NaN
 residual, which is no detection, does not enter it) and their number
 (`runtime_check_total`).
 
-Not ported yet: ``InjectedSdc`` (it needs ``robust/inject.py``) and the
-mirror of runtime detections into the fallback ladder's health registry
-(ROADMAP queue 1 item 14, the ladder part), and the ``obs`` metrics and the
-``abft/verify`` span (item 15).
+A detection outside a scope raises `SdcDetected`, which the fallback
+ladder (`robust.ladder`) classifies as "sdc": it retries the op once on
+the same rung, then quarantines it.  Detections counted in a scope are
+mirrored into the ladder's health registry, as the JAX package's runtime
+detections are, so ``degradation_report()`` covers them.  `InjectedSdc` is
+the fault harness's detection (`robust.inject`, ``kind="bitflip"``); inside
+a scope the harness records it with `record_injected` instead of raising.
+The ``obs`` metrics ``abft.*`` and the ``abft/verify`` span are ROADMAP
+item 15's.
 """
 
 from __future__ import annotations
@@ -56,9 +61,12 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.robust.inject import InjectedFault
+
 __all__ = [
     "ABFT_MODES",
     "SdcDetected",
+    "InjectedSdc",
     "abft_mode",
     "current_mode",
     "gemm_checksum_ref",
@@ -71,6 +79,7 @@ __all__ = [
     "StepScope",
     "capture",
     "restored",
+    "record_injected",
     "runtime_sdc_total",
     "runtime_sdc_counts",
     "runtime_max_ratio",
@@ -98,6 +107,20 @@ class SdcDetected(RuntimeError):
         super().__init__(
             f"ABFT checksum failure in {namespace!r}: residual {residual:.3e} exceeds tolerance "
             f"{tol:.3e} — silent data corruption detected"
+        )
+
+
+class InjectedSdc(SdcDetected, InjectedFault):
+    """Synthetic SDC detection from the fault harness (``kind="bitflip"``
+    with an ABFT mode active, outside a step scope).  Carries strict-mode
+    amnesty like every injected fault."""
+
+    def __init__(self, namespace: str, rung: str, call: int):
+        SdcDetected.__init__(self, namespace, float("inf"), 0.0)
+        # overwrite the SdcDetected message with the injection provenance
+        self.args = (
+            f"INJECTED ABFT checksum failure for {namespace}/{rung} "
+            f"(call {call}): simulated accumulator bit flip",
         )
 
 
@@ -256,6 +279,14 @@ def _note(checks: int, ratio: float, bad: Dict[str, int]) -> None:
         for ns, n in bad.items():
             if n:
                 _RUNTIME_SDC[ns] = _RUNTIME_SDC.get(ns, 0) + n
+    if any(bad.values()):
+        # mirror into the health registry so degradation_report() covers it
+        from repro_torch.robust.ladder import get_registry
+
+        reg = get_registry()
+        for ns, n in bad.items():
+            for _ in range(n):
+                reg.record_sdc(ns, healed=False)
 
 
 def runtime_sdc_total() -> int:
@@ -303,6 +334,7 @@ class StepScope:
         self.bad: Dict[str, List[torch.Tensor]] = {}
         self.ratios: List[torch.Tensor] = []
         self.checks = 0
+        self.injected: Dict[str, int] = {}  # the fault harness's detections, on the host
         self.detections: Dict[str, int] = {}
         self.max_ratio = 0.0
 
@@ -314,8 +346,16 @@ class StepScope:
         self.ratios.append(ratio)
         self.checks += 1
 
+    def record_injected(self, namespace: str) -> None:
+        """An injected detection (`robust.inject`, "bitflip"): counted at
+        the flush as a device check's would be, entering no ratio."""
+        self.injected[namespace] = self.injected.get(namespace, 0) + 1
+
     def flush(self) -> None:
         if not self.checks:
+            if self.injected:
+                self.detections = dict(self.injected)
+                _note(0, float("nan"), self.detections)
             return
         names = list(self.bad)
         ratios = torch.stack(self.ratios)
@@ -326,6 +366,8 @@ class StepScope:
         counts = [torch.stack(self.bad[n]).to(dev).sum() for n in names]
         vals = torch.stack(counts + [top]).tolist()  # the one host read
         self.detections = {n: int(v) for n, v in zip(names, vals[:-1]) if v}
+        for n, v in self.injected.items():
+            self.detections[n] = self.detections.get(n, 0) + v
         self.max_ratio = vals[-1] if vals[-1] == vals[-1] else 0.0
         _note(self.checks, vals[-1], self.detections)
 
@@ -352,6 +394,16 @@ def step_scope():
         _SCOPE.reset(tok)
         scope.closed = True
     scope.flush()  # not after an exception: the step's results are gone
+
+
+def record_injected(namespace: str) -> bool:
+    """Record an injected detection in the open step scope, if there is
+    one; returns whether it was recorded (else the harness raises)."""
+    scope = _SCOPE.get()
+    if scope is None or scope.closed:
+        return False
+    scope.record_injected(namespace)
+    return True
 
 
 def capture():

@@ -10,28 +10,46 @@ built with:
                    sum, the epilogue after (``fuse=False``)
   "sfc_reference"  the Listing-1 reference loop
 
+Self-healing (`_run_healed`, the JAX engine's): every op of a prefill or
+decode step already degrades through its own fallback ladder
+(`robust.run_with_fallback`); a classified failure that still reaches the
+engine quarantines the kernel rungs of every namespace it routes
+(`_LADDER_NAMESPACES`, shape None: the whole rung) and retries the call
+once.  A decode step has written the KV slot and, in the hybrid and the
+xLSTM, the recurrent state in place before it fails: the KV slot is
+rewritten at the same index by the retry, but a recurrent state would take
+the step twice, so such a step is retried only from a snapshot (below),
+and otherwise re-raises after quarantining.  On the card a failure the
+fault harness did not inject raises `robust.StrictFallbackError` instead
+of quarantining, unless ``REPRO_ALLOW_FALLBACK=1`` allows the descent (the
+ladder's own rule; ``REPRO_STRICT=1`` makes it so on the CPU too).
+
 Sampled ABFT verification (``verify_every=N``): every Nth decode step runs
 under ``abft_mode("detect")`` in a step scope (`robust.abft`), so each of
 its kernel launches checks its checksum lane on the device and the step
-reads the verdict once, at its end.  On a detection the JAX engine
-quarantines the kernel rungs and redoes the step on the healed program;
-the port has no fallback ladder yet (ROADMAP queue 1 item 14), so it raises
-`SdcDetected` for the step instead.  A prefill runs under the caller's
-ABFT mode, eagerly: a mismatch raises there too.
+reads the verdict once, at its end.  On a detection the engine quarantines
+the kernel rungs of its namespaces and redoes the step on the healed rungs
+(the GEMMs on "sfc_reference", attention on its oracle), as the JAX engine
+redoes it on the healed trace.  The redo must start from the state before
+the step: the dense decoders' KV slot is simply rewritten, and the
+recurrent state of the hybrid and the xLSTM is restored from a snapshot
+taken before each verified step (only those; its device time is in
+`degradation_report()["snapshot"]`).  A prefill runs under the caller's
+ABFT mode, eagerly: a mismatch raises there, and its ladders retry it.
 
 Warmup (`ServingEngine.warmup`) runs one prefill and one decode step
 before traffic and, with ``tune=True`` under "sfc_cuda", first calibrates
 the device and tunes every namespace of `tune_table` (`repro_torch.tune`),
-as the JAX engine does under "sfc_pallas".  Not ported in this slice: the
-self-healing retry and the health registry (item 14), and the telemetry
-registry (item 15); percentiles are computed with numpy.
+as the JAX engine does under "sfc_pallas".  The telemetry (spans, the
+``serving.*`` counters) is ROADMAP item 15's; percentiles are computed with
+numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,9 +60,39 @@ from repro_torch.core.device import resolve_device, torch_dtype
 from repro_torch.core.namespaces import BACKEND_SFC_CUDA, BACKEND_TORCH, BACKENDS
 from repro_torch.models.registry import build_model
 from repro_torch.robust import abft as _abft
+from repro_torch.robust.inject import InjectedFault
+from repro_torch.robust.ladder import (
+    KERNEL_RUNGS,
+    StrictFallbackError,
+    classify_failure,
+    get_registry,
+    refuses_degradation,
+)
 from repro_torch.serving import backend as backend_lib
 
 __all__ = ["Request", "ServingEngine"]
+
+
+def _recurrent_state(cache) -> List[torch.Tensor]:
+    """The tensors of a cache that a decode step updates in place, but the
+    KV caches ("k", "v"), which a redo rewrites at the same index: the
+    hybrid's SSM states and conv tails, the xLSTM's state; none for the
+    dense decoders."""
+    out: List[torch.Tensor] = []
+
+    def walk(x, key):
+        if isinstance(x, torch.Tensor):
+            if key not in ("k", "v"):
+                out.append(x)
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, k)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v, key)
+
+    walk(cache, None)
+    return out
 
 
 @dataclasses.dataclass
@@ -121,19 +169,96 @@ class ServingEngine:
         self._decode_steps = 0
         self._verified_steps = 0
         self._sdc_detections = 0
+        self._snapshots: List[Any] = []  # (start, end) CUDA events, or host seconds
+
+    # namespaces an engine call may route through the fallback ladder: what
+    # a classified failure or a detection quarantines wholesale
+    _LADDER_NAMESPACES = (
+        ns.NS_GEMM, ns.NS_GLU, ns.NS_GROUPED, ns.NS_GROUPED_GLU,
+        ns.NS_ATTN_FWD, ns.NS_ATTN_DECODE,
+    )
+
+    def _quarantine_kernels(self, reason: str, *, injected: bool, exc: Optional[BaseException] = None) -> None:
+        """Quarantine the kernel rungs of every routed namespace, or raise
+        `StrictFallbackError` where no degradation is allowed (a fault not
+        injected, on the card without ``REPRO_ALLOW_FALLBACK=1``, or under
+        ``REPRO_STRICT=1``; `robust.ladder.refuses_degradation`)."""
+        if refuses_degradation(injected, self.device.type == "cuda"):
+            raise StrictFallbackError(
+                f"the engine would quarantine every kernel rung ({reason}) and serve on the rungs below"
+                + ("; REPRO_ALLOW_FALLBACK=1 allows it on the card" if self.device.type == "cuda" else "")
+            ) from exc
+        reg = get_registry()
+        for namespace in self._LADDER_NAMESPACES:
+            for rung in KERNEL_RUNGS:
+                reg.quarantine(namespace, rung, None, reason, injected=injected, error=exc)
+
+    def _run_healed(self, which: str, *args, restore: Optional[Callable[[], None]] = None):
+        """Run ``_prefill`` or ``_decode``; on a *classified* failure
+        quarantine the kernel rungs of every namespace this engine routes
+        (shape ``None``: the whole rung) and retry once, so the retry walks
+        the ladders to the rungs below.  ``restore`` puts a decode step's
+        recurrent state back as it was before the step (a verified step's
+        snapshot); a decode whose cache holds recurrent state and that has
+        no ``restore`` is not retried but re-raised, since its state is
+        half updated.  Unclassified errors propagate: self-healing covers
+        platform breakage, not bugs."""
+        try:
+            return getattr(self, which)(*args)
+        except Exception as exc:  # noqa: BLE001 — classified below
+            kind = classify_failure(exc)
+            if kind is None:
+                raise
+            self._quarantine_kernels(kind, injected=isinstance(exc, InjectedFault), exc=exc)
+            if restore is not None:
+                restore()
+            elif which == "_decode" and _recurrent_state(args[1]):
+                raise
+            return getattr(self, which)(*args)
+
+    def _snapshot(self, cache) -> Callable[[], None]:
+        """Copy the cache's recurrent state (`_recurrent_state`) and return
+        what puts it back; a no-op for the dense decoders.  The copy's
+        device time is kept for `degradation_report`."""
+        state = _recurrent_state(cache)
+        if not state:
+            return lambda: None
+        if self.device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            saved = [t.clone() for t in state]
+            end.record()
+            self._snapshots.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            saved = [t.clone() for t in state]
+            self._snapshots.append(time.perf_counter() - t0)
+
+        def restore() -> None:
+            for t, c in zip(state, saved):
+                t.copy_(c)
+
+        return restore
 
     def degradation_report(self) -> Dict[str, Any]:
-        """This engine's sampled-verification ledger, under the JAX engine's
-        ``"verify"`` key (decode steps run, steps verified, detections).  The
-        JAX report's health-registry part waits for the fallback ladder."""
-        return {
-            "verify": {
-                "verify_every": self._verify_every,
-                "decode_steps": self._decode_steps,
-                "verified_steps": self._verified_steps,
-                "sdc_detections": self._sdc_detections,
-            }
+        """Health-registry summary for the namespaces this engine serves,
+        plus this engine's sampled-verification ledger (decode steps run,
+        steps verified, detections that forced a redo), under the JAX
+        engine's keys, and the recurrent-state snapshots of its verified
+        steps (``"snapshot"``: their number and device milliseconds; host
+        seconds on the CPU)."""
+        from repro_torch.robust import degradation_report as _report
+
+        rep = _report(namespaces=self._LADDER_NAMESPACES)
+        rep["verify"] = {
+            "verify_every": self._verify_every,
+            "decode_steps": self._decode_steps,
+            "verified_steps": self._verified_steps,
+            "sdc_detections": self._sdc_detections,
         }
+        times = [s[0].elapsed_time(s[1]) if isinstance(s, tuple) else s * 1e3 for s in self._snapshots]
+        rep["snapshot"] = {"count": len(times), "ms": float(sum(times))}
+        return rep
 
     # ---------------- model calls ----------------
 
@@ -146,19 +271,24 @@ class ServingEngine:
             return self.model.decode_step(token, cache)
 
     def _verified_decode(self, token: torch.Tensor, cache):
-        """One decode step under ABFT "detect" in a step scope: every kernel
-        launch checks its checksum on the device, and the scope reads the
-        verdict once.  A detection raises `SdcDetected` for the step (the
-        JAX engine redoes it on healed rungs; the port has no ladder yet),
-        naming the namespaces that mismatched and, as residual over a
-        tolerance of 1, the step's largest residual / tolerance."""
+        """One decode step under ABFT "detect" in a step scope with
+        runtime-SDC handling: every kernel launch checks its checksum on the
+        device, and the scope reads the verdict once.  On a detection the
+        kernel rungs of every routed namespace are quarantined and the step
+        is *redone* from the state before it (the recurrent state restored
+        from its snapshot), so the cache never absorbs the flip."""
         self._verified_steps += 1
+        restore = self._snapshot(cache)
         with _abft.abft_mode("detect"), _abft.step_scope() as scope:
-            out = self._decode(token, cache)
-        if scope.detections:
-            self._sdc_detections += sum(scope.detections.values())
-            raise _abft.SdcDetected(", ".join(sorted(scope.detections)), scope.max_ratio, 1.0)
-        return out
+            out = self._run_healed("_decode", token, cache, restore=restore)
+        delta = sum(scope.detections.values())
+        if not delta:
+            return out
+        self._sdc_detections += delta
+        restore()
+        # the scope's detections were all the fault harness's
+        self._quarantine_kernels("sdc", injected=sum(scope.injected.values()) == delta)
+        return self._run_healed("_decode", token, cache, restore=restore)
 
     # ---------------- warmup / tuning ----------------
 
@@ -338,7 +468,7 @@ class ServingEngine:
                 waiting.remove(r)
 
             tokens = torch.from_numpy(np.stack([r.prompt for r in batch])).long().to(self.device)
-            logits, cache = self._prefill(tokens)
+            logits, cache = self._run_healed("_prefill", tokens)
             next_tok = logits.argmax(dim=-1)[:, None]
             ids = next_tok[:, 0].tolist()  # waits for the device
             now = time.perf_counter()
@@ -368,7 +498,7 @@ class ServingEngine:
                 if self._verify_every and self._decode_steps % self._verify_every == 0:
                     logits, cache = self._verified_decode(next_tok, cache)
                 else:
-                    logits, cache = self._decode(next_tok, cache)
+                    logits, cache = self._run_healed("_decode", next_tok, cache)
                 next_tok = logits.argmax(dim=-1)[:, None]
                 ids = next_tok[:, 0].tolist()
                 still = []

@@ -20,8 +20,9 @@ backward and update inside the mode's context and a step scope, the port's
 stand-in for JAX's traced step, so every kernel launch of the step, the
 backward and the fused update included, checks its checksum without a host
 read, and nothing raises for a mismatch: the caller reads
-``runtime_sdc_total()`` after the step, as the JAX package's ``TrainLoop``
-does (its rollback is ROADMAP queue 1 item 14).
+``runtime_sdc_total()`` after the step, as `train.fault_tolerance.
+TrainLoop` does, and rolls back on a detection (``CorruptionPolicy(
+rollback_on_sdc=True)``).
 
 Remat (``remat``, `models.remat`): the JAX package's default, "dots",
 recomputes each layer (each group of the hybrid and xLSTM families) in the

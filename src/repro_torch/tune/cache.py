@@ -33,8 +33,8 @@ the cache rebuilds from empty.  The package's own version stamp (``META_KEY``,
 not the JAX package's ``"__meta__"``, so neither package's stamp purges the
 other's file) records the kernel generation the entries were measured
 against; on a mismatch they are dropped.  ``__health__|…`` entries
-round-trip fallback-ladder quarantine records (stored, not yet used: the
-ladder is ROADMAP item 14).  The JAX module's cache counters are item 15's.
+round-trip fallback-ladder quarantine records
+(`robust.HealthRegistry.save_to_cache` / ``load_from_cache``).  The JAX module's cache counters are item 15's.
 """
 
 from __future__ import annotations

@@ -44,9 +44,10 @@ Where it differs from the JAX module:
 * **Nothing is swallowed.**  A candidate that fails to build, launch or
   be predicted raises; so does a failed cache lookup.  (The JAX module
   skips such candidates.)
-* Left to their items: the lifting of ladder quarantines after a
-  confirmed winner (item 14), the drift monitor and the tuner's spans and
-  counters (item 15).
+* A confirmed winner (measured or predicted, not the analytical seed)
+  lifts its namespace's ladder quarantines and persists the lift, as in
+  the JAX module.  Left to item 15: the drift monitor and the tuner's spans
+  and counters.
 """
 
 from __future__ import annotations
@@ -797,4 +798,22 @@ def _tune_sweep(m, n, k, dtype, *, cache: KnobCache, backend: str, measure_fn, m
     if card and best_i == 0:
         best = dataclasses.replace(best, launch=None)  # the rule's, at every shape of the bucket
     cache.put(m, n, k, dtype, backend, best, op)
+    if best.source != "analytical":
+        _lift_quarantines(op, cache)
     return best
+
+
+def _lift_quarantines(op: str, cache: KnobCache) -> None:
+    """A confirmed winner vouches for the kernel path again: lift ``op``'s
+    ladder quarantines so the kernel rung is retried with the fresh knobs
+    instead of staying degraded forever, and persist the lift (``put_health``
+    replaces the ``__health__|`` set, so a fresh process no longer reloads
+    the quarantine this re-tune healed).  The analytical fall-back vouches
+    for nothing and lifts nothing."""
+    from repro_torch.robust.ladder import get_registry
+
+    reg = get_registry()
+    cleared = reg.clear(namespace=op)
+    if cleared:
+        reg.save_to_cache(cache)
+        print(f"[tune] {op}: re-tune lifted {cleared} ladder quarantine(s)")
