@@ -150,7 +150,15 @@ phase 3 three) and raising on failure:
               wgmma kernel; the f32 prefills of "sfc" and "flash_pallas"
               launch K11 and K15 36 times each on the tile kernel.  One
               decode step of sfc_cuda, both replicated serves and torch is
-              profiled (device busy time, idle share, GEMM kernel time).  The
+              profiled (device busy time: kernels, memcpy and memset; idle
+              share, GEMM kernel time), and four of the "sfc" serve with
+              the telemetry gate open, shut, open, shut: open, one
+              ladder/run annotation a routed call with all 217 K1 and 36
+              K14 launches inside one; the busy times within 10% either
+              way.  The process's telemetry registry is reset before the
+              phase and held after it to the phase's own counts (requests,
+              tokens, decode steps, the "detect" serve's checks, the
+              ladder's served calls).  The
               prefill logits of the same weights in f32 must agree with the
               torch backend's within the bf16 bound for each SFC variant,
               and each variant's bf16 logits must be as close to that f32
@@ -165,7 +173,9 @@ phase 3 three) and raising on failure:
               init under torch + blockwise: every loss finite and within
               2^-7 of the torch backend's, every parameter changed; step
               times and peak memory, and a fourth step of each run under
-              torch.profiler for its device-busy time by kernel group.  A
+              torch.profiler for its device-busy time by kernel group (the
+              sfc_cuda one: a ladder/run annotation a routed call, every
+              launch of the port's kernels inside one).  A
               third run, between them, trains the same 3 steps with
               fused_optimizer=True (K8 in its norm and update modes, exactly
               217 of each and no dW launch per step, no weight left with a
@@ -304,7 +314,13 @@ phase 3 three) and raising on failure:
               256, checkpoints every 2, a preemption at 4, a resume from
               other weights bitwise the uninterrupted run, an injected
               detection rolling back to 4; the seconds and GB of each save
-              and restore; the ladder's host µs a call;
+              and restore; the ladder's host µs a call, with the telemetry
+              gate open and shut (the ladder/run span's cost);
+--   telemetry the registry (reset before phase 4) after the tune phase,
+              exported as JSONL: every series of REQUIRED_SERIES present,
+              the train loop's steps against its train.steps, phase 4's
+              checks, the profiled steps' annotations, the drift monitor's
+              median error by namespace and the flagged ones;
 16. the {"kernels": [...]} line: per kernel and shape, launches in the run
               of its path (serve or train), max error, kernel / plain /
               library times and the bound (K1/K2 and K4/K5 rows: the kernel
@@ -330,6 +346,7 @@ and prints no result.  Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import dataclasses
 import gc
@@ -401,6 +418,10 @@ HYBRID_LONG_PROMPT, HYBRID_LONG_NEW = 600, 8
 # chunks, the second padded); its f32 check on a cut to one group of blocks
 XLSTM_ARCH = "xlstm_1_3b"
 XLSTM_CHECK_LAYERS = 8
+# its training at full depth: 2 steps (each 7-12 s on one H100, the
+# sLSTM's sequential steps; at full depth every step has agreed with
+# torch's within 2^-7), which keeps the run inside its time limit
+XLSTM_TRAIN_STEPS = 2
 
 # seamless-m4t-medium (the encoder-decoder slice): ENCDEC_FRAMES stub frame
 # embeddings a request encoded, a PROMPT-token decoder prompt, NEW_TOKENS
@@ -1068,15 +1089,131 @@ _SERVE_KERNEL_GROUPS = (("sfc_gemm_replicated_kernel", "K4/K5"), ("sfc_gemm_repl
                         ("sfc_gemm_wgmma_kernel", "K2 wgmma"), ("decode_split_kernel", "K14"))
 
 
+# the device's own work in a trace: what a busy time sums.  Spans forwarded
+# into an active profiler also put their ranges on the device's timeline
+# ("gpu_user_annotation", the span of the kernels launched inside), which
+# would count the kernels under them twice
+BUSY_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def activity(ev) -> str:
+    """A raw trace event's kineto activity type ("kernel", "gpu_memcpy",
+    "gpu_memset", "gpu_user_annotation", "user_annotation", "cuda_runtime",
+    "cuda_driver", "cpu_op").  Where the torch build's events have no
+    ``activity_type()``, it is read from the device type, the name (the
+    spans' names, `repro_torch.obs.SPAN_NAMES`; "Memcpy" / "Memset"; a
+    CUDA API call's "cuda..." / "cu..." name) and the user-annotation flag."""
+    if hasattr(ev, "activity_type"):
+        return ev.activity_type()
+    from torch.autograd import DeviceType
+
+    from repro_torch.obs import SPAN_NAMES
+
+    name = ev.name()
+    user = name in SPAN_NAMES or (hasattr(ev, "is_user_annotation") and ev.is_user_annotation())
+    if ev.device_type() == DeviceType.CUDA:
+        if user:
+            return "gpu_user_annotation"
+        if name.startswith("Memcpy"):
+            return "gpu_memcpy"
+        if name.startswith("Memset"):
+            return "gpu_memset"
+        return "kernel"
+    if user:
+        return "user_annotation"
+    if name.startswith("cuda") or (name.startswith("cu") and name[2:3].isupper()):
+        return "cuda_driver" if name.startswith("cu") and not name.startswith("cuda") else "cuda_runtime"
+    return "cpu_op"
+
+
+def device_ms_by_name(torch, events):
+    """Milliseconds of the device's own activities (`BUSY_ACTIVITIES`) by
+    name, from a trace's raw events (key_averages() builds an event tree at
+    about 0.1 ms an event, minutes for a step of many small ops), and the
+    sum over every device-side event of the trace, annotations included."""
+    from torch.autograd import DeviceType
+
+    by_name, every = collections.Counter(), 0.0
+    for ev in events:
+        if ev.device_type() != DeviceType.CUDA or ev.duration_ns() <= 0:
+            continue
+        every += ev.duration_ns() / 1e6
+        if activity(ev) in BUSY_ACTIVITIES:
+            by_name[ev.name()] += ev.duration_ns() / 1e6
+    return by_name, every
+
+
+def ladder_annotations(events, kernel_groups, calls=None):
+    """The ``ladder/run`` spans of a trace (user annotations; the JAX
+    package's span taxonomy) and, per kernel group, how many of the port's
+    launches fall inside one.  A launch's host time is its CUDA runtime or
+    driver call, found by the kernel's correlation id, else the start of
+    the operation the profiler linked it to.  ``calls``: the ladder calls
+    the ledger counted while the trace ran, for the caller to hold the
+    annotations to."""
+    kinds = [(ev, activity(ev)) for ev in events]
+    anns = sorted((ev.start_ns(), ev.end_ns()) for ev, kind in kinds
+                  if kind == "user_annotation" and ev.name() == "ladder/run")
+    starts = [a for a, _ in anns]
+    launch_at = {ev.correlation_id(): ev.start_ns() for ev, kind in kinds if kind in ("cuda_runtime", "cuda_driver")}
+    op_at = {ev.correlation_id(): ev.start_ns() for ev, kind in kinds if kind in ("cpu_op", "user_annotation")}
+
+    def inside(t):
+        i = bisect.bisect_right(starts, t)
+        return any(a <= t <= b for a, b in anns[max(0, i - 4):i])
+
+    kernels = {}
+    for ev, kind in kinds:
+        if kind != "kernel":
+            continue
+        label = next((lab for frag, lab in kernel_groups if frag in ev.name()), None)
+        if label is None:
+            continue
+        rec = kernels.setdefault(label, {"launches": 0, "inside": 0, "by_runtime_call": 0, "by_linked_op": 0,
+                                         "unresolved": 0})
+        rec["launches"] += 1
+        t = launch_at.get(ev.correlation_id())
+        if t is not None:
+            rec["by_runtime_call"] += 1
+        else:
+            t = op_at.get(ev.linked_correlation_id()) if hasattr(ev, "linked_correlation_id") else None
+            if t is None:
+                rec["unresolved"] += 1
+                continue
+            rec["by_linked_op"] += 1
+        rec["inside"] += inside(t)
+    return {"ladder_run": len(anns), "ladder_calls": calls,
+            "gpu_ladder_run": sum(1 for ev, kind in kinds if kind == "gpu_user_annotation" and ev.name() == "ladder/run"),
+            "kernels": kernels, "activities": dict(collections.Counter(kind for _, kind in kinds))}
+
+
+def annotations_ok(ann, want=None) -> bool:
+    """One ``ladder/run`` annotation for each ladder call of the traced
+    step, and every port kernel launch of the groups ``want`` ({group:
+    launches}, or every group seen) inside one."""
+    kernels = ann["kernels"]
+    groups = want or kernels
+    return (ann["ladder_run"] == ann["ladder_calls"] > 0 and bool(groups)
+            and all(g in kernels and kernels[g]["launches"] == kernels[g]["inside"] > 0 for g in groups)
+            and all(kernels[g]["launches"] == n for g, n in (want or {}).items()))
+
+
+def _ledger_calls():
+    from repro_torch.robust import degradation_report
+
+    return degradation_report()["total_calls"]
+
+
 def profile_decode(torch, eng, tokens, ops, layers=None, kernel_groups=None):
     """One decode step of 4 sequences (after the 128-token prefill and a
     warm step) under torch.profiler: the wall time until its tokens reach
     the host, the device's busy time (kernels, memcpy, memset), the idle
-    share, and the busy time of the GEMM kernels by group.  The profiler
-    slows the host, so the wall time and idle share run above an
+    share, the busy time of the GEMM kernels by group, and the step's
+    ``ladder/run`` annotations with the port's launches inside them
+    (`ladder_annotations`).  The profiler slows the host (the spans'
+    annotations among it), so the wall time and idle share run above an
     unprofiled step's.  ``kernel_groups``: (name fragment, group) pairs,
     the first match a kernel's group (default the qwen3-4b serve's)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with ops.knob_defaults(k_layers=layers):
@@ -1085,21 +1222,23 @@ def profile_decode(torch, eng, tokens, ops, layers=None, kernel_groups=None):
         tok = logits.argmax(-1)[:, None]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            calls = _ledger_calls()
             t0 = time.perf_counter()
             logits, cache = eng._decode(tok, cache)
             logits.argmax(-1).tolist()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            calls = _ledger_calls() - calls
     kernel_groups = kernel_groups or _SERVE_KERNEL_GROUPS
     groups = {label: 0.0 for _, label in kernel_groups}
     groups["other"] = 0.0
-    for ev in prof.key_averages():
-        us = ev.self_device_time_total
-        if ev.device_type != DeviceType.CUDA or us <= 0:
-            continue
-        groups[next((lab for frag, lab in kernel_groups if frag in ev.key), "other")] += us / 1e3
+    events = list(prof.profiler.kineto_results.events())
+    by_name, every = device_ms_by_name(torch, events)
+    for key, ms in by_name.items():
+        groups[next((lab for frag, lab in kernel_groups if frag in key), "other")] += ms
     busy = sum(groups.values())
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms if busy else None,
-            "device_ms_by_group": groups}
+            "device_ms_by_group": groups, "every_device_event_ms": every,
+            "annotations": ladder_annotations(events, kernel_groups, calls)}
 
 
 def composed(tk, a, w, w_gate=None, *, activation=None, bias=None, gate_bias=None, out_scale=None, residual=None,
@@ -1664,34 +1803,31 @@ def _is_update(key: str) -> bool:
 
 
 def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS):
-    """One more train step under torch.profiler: its wall time, the
-    device's busy time (the sum of the device-side events: kernels, memcpy,
-    memset), the idle share, and the busy time by group: the port's
+    """One more train step under torch.profiler: its wall time (the spans'
+    annotations' host cost included), the device's busy time (kernels,
+    memcpy, memset), the idle share, the busy time by group: the port's
     kernels by name, the rest (elementwise, reductions, cuBLAS, copies) as
-    "other"."""
-    from torch.autograd import DeviceType
+    "other"; and the step's ``ladder/run`` annotations with the port's
+    launches inside them (`ladder_annotations`)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        calls = _ledger_calls()
         t0 = time.perf_counter()
         opt_state, metrics = step_fn(opt_state, batch)
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        calls = _ledger_calls() - calls
     # a "norm/update" kernel is two groups, split by its UPDATE template argument
     groups = {}
     for _, label in kernel_groups:
         base, split = label.removesuffix(" norm/update"), label.endswith(" norm/update")
         groups.update({f"{base} norm": 0.0, f"{base} update": 0.0} if split else {label: 0.0})
     groups["other"] = 0.0
-    # the device's own activities (kernels, memcpy, memset) by name, from
-    # the trace's raw events: key_averages() builds an event tree at about
-    # 0.1 ms an event, minutes for a step of many small ops
-    by_name = collections.Counter()
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0:
-            by_name[ev.name()] += ev.duration_ns() / 1e6
+    events = list(prof.profiler.kineto_results.events())
+    by_name, every = device_ms_by_name(torch, events)
     top = []
     for key, ms in by_name.items():
         label = next((lab for frag, lab in kernel_groups if frag in key), "other")
@@ -1703,7 +1839,8 @@ def profile_step(torch, step_fn, opt_state, batch, kernel_groups=_KERNEL_GROUPS)
     top.sort(reverse=True)
     # a trace with no device time measured nothing: no idle share then
     return opt_state, {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall if busy else None,
-                       "device_ms_by_group": groups, "top_device_ms": top[:10]}
+                       "device_ms_by_group": groups, "top_device_ms": top[:10], "every_device_event_ms": every,
+                       "annotations": ladder_annotations(events, kernel_groups, calls)}
 
 
 def _tn_mode_counts(counted):
@@ -4489,8 +4626,8 @@ def phase_remat(torch, cfg, ocfg, build_trainer, build_model, make_batch_fn, gem
 
 
 def phase_family_train(torch, cfg, build_trainer, build_model, make_batch_fn, gemm_backend, attention_backend,
-                       counted, label, check_cut):
-    """TRAIN_STEPS steps of `build_trainer` at full width (qwen2-vl-72b at
+                       counted, label, check_cut, steps=TRAIN_STEPS):
+    """``steps`` steps of `build_trainer` at full width (qwen2-vl-72b at
     VLM_TRAIN_LAYERS layers) and 2 x 256 tokens under the JAX package's
     default remat, "dots": under sfc_cuda + "sfc" (then one profiled
     step), with the fused optimizer where `probe_routed` routes a weight,
@@ -4505,18 +4642,18 @@ def phase_family_train(torch, cfg, build_trainer, build_model, make_batch_fn, ge
     want = family_train_want(cfg, TRAIN_SEQ)
     runs, shapes = {}, {}
     runs["sfc_cuda+sfc_attn"], shapes["sfc_cuda+sfc_attn"] = _train_run(
-        torch, cfg, build_trainer, counted, "sfc_cuda", "sfc", False, remat="dots", probe=True)
+        torch, cfg, build_trainer, counted, "sfc_cuda", "sfc", False, remat="dots", steps=steps, probe=True)
     routed = runs["sfc_cuda+sfc_attn"]["routed"]
     if routed["weights"]:
         runs["fused"], shapes["fused"] = _train_run(torch, cfg, build_trainer, counted, "sfc_cuda", "sfc", True,
-                                                    remat="dots", profile=False)
+                                                    remat="dots", steps=steps, profile=False)
     runs["torch"], _ = _train_run(torch, cfg, build_trainer, counted, "torch", "blockwise", False, remat="dots",
-                                  profile=False)
+                                  steps=steps, profile=False)
     sfc, ref = runs["sfc_cuda+sfc_attn"], runs["torch"]
     bad = [i for i, c in enumerate(sfc["launches_per_step"]) if {k: c[k] for k in want} != want]
     loss_ok = _losses_close(sfc, ref)
     out = {"phase": f"train_{label}", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "remat": "dots", "routed": routed,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps, "remat": "dots", "routed": routed,
            "launches_expected_per_step": want, "loss_within_2^-7": loss_ok}
     if "fused" in runs:
         want_fused = family_train_want(cfg, TRAIN_SEQ, fused=True)
@@ -4998,6 +5135,105 @@ def assert_no_degradation(robust, after: str) -> dict:
     return {"total_calls": rep["total_calls"], "fallback_calls": 0, "quarantined": 0}
 
 
+# the series the telemetry export must hold after the tune phase: the
+# tuner's, the ladder's, ABFT's, the serve's, the train loop's, the drift
+# monitor's, and the span of every instrumented path
+REQUIRED_SERIES = (
+    "tune.cache.hit", "tune.cache.miss", "tune.calibrations", "tune.sweep",
+    "ladder.served", "abft.checks",
+    "serving.requests", "serving.completed", "serving.tokens", "serving.ttft_us",
+    "span.serving/prefill_us", "span.serving/decode_us", "span.ladder/run_us", "span.abft/verify_us",
+    "span.tune/calibrate_us", "span.tune/tune_gemm_us",
+    "train.steps", "train.step_us", "span.train/step_us", "span.train/checkpoint_us", "log.events",
+    "drift.samples",
+)
+# how far the mean busy time of a profiled decode step with the spans on
+# may lie from the one with them off: the annotations' device ranges,
+# counted, would add the kernels under them a second time (about 2x)
+SPAN_BUSY_RTOL = 0.10
+
+
+def spans_in_profile(profiles: dict, want: dict) -> dict:
+    """The profiled decode steps of the spans-on / spans-off comparison:
+    the annotation checks of each "on" step (`annotations_ok` with the
+    launches ``want`` a step), none in an "off" one, and the busy times of
+    both, the means within SPAN_BUSY_RTOL."""
+    busy = {gate: [p["device_busy_ms"] for p in runs] for gate, runs in profiles.items()}
+    mean = {gate: float(sum(v) / len(v)) for gate, v in busy.items()}
+    out = {"annotations": [p["annotations"] for p in profiles["on"]],
+           "annotations_ok": [annotations_ok(p["annotations"], want) for p in profiles["on"]],
+           "annotations_off": [p["annotations"]["ladder_run"] for p in profiles["off"]],
+           "busy_ms": busy, "every_device_event_ms": {g: [p["every_device_event_ms"] for p in runs]
+                                                      for g, runs in profiles.items()},
+           "wall_ms": {g: [p["wall_ms"] for p in runs] for g, runs in profiles.items()},
+           "busy_on_over_off": mean["on"] / mean["off"] - 1.0}
+    if (not all(out["annotations_ok"]) or any(out["annotations_off"])
+            or abs(out["busy_on_over_off"]) > SPAN_BUSY_RTOL):
+        raise AssertionError(f"the spans in a profiled decode step: {out}")
+    return out
+
+
+def phase4_telemetry(obs, robust, tel: dict, detect_checks: int) -> dict:
+    """The registry after phase 4 against the phase's own counts: tokens,
+    requests, decode steps served; the "detect" serve's checks against
+    `abft.runtime_check_total`; the ladder's served calls against its
+    ledger (less the calls made with the gate off)."""
+    snap = obs.snapshot()
+
+    def counter(name):
+        return sum(r["value"] for r in snap["counters"].get(name, []))
+
+    def count(name):
+        return sum(r["count"] for r in snap["histograms"].get(name, []))
+
+    served = tel["served"]
+    pairs = {
+        "serving.requests": (counter("serving.requests"), len(served)),
+        "serving.completed": (counter("serving.completed"), sum(r.status == "completed" for r in served)),
+        "serving.tokens": (counter("serving.tokens"), sum(len(r.output) for r in served)),
+        "span.serving/decode_us count": (count("span.serving/decode_us"), tel["decode_steps"]),
+        "serving.ttft_us count": (count("serving.ttft_us"), len(served)),
+        "abft.checks, the detect serve": (tel["abft_checks_detect_serve"], detect_checks),
+        "ladder.served": (counter("ladder.served"), robust.degradation_report()["total_calls"]
+                          - tel["ledger_at_reset"] - tel["calls_obs_off"]),
+        "span.ladder/run_us count": (count("span.ladder/run_us"), robust.degradation_report()["total_calls"]
+                                     - tel["ledger_at_reset"] - tel["calls_obs_off"]),
+    }
+    out = {k: {"registry": a, "run": b} for k, (a, b) in pairs.items()}
+    if any(a != b for a, b in pairs.values()) or not len(served):
+        raise AssertionError(f"phase 4's telemetry against its own counts: {out}")
+    return out
+
+
+def phase_telemetry(obs, tel: dict) -> dict:
+    """The process registry exported after the tune phase (it was reset
+    before phase 4): every REQUIRED_SERIES present, the train loop's steps
+    against the export's ``train.steps``; with phase 4's checks, the
+    profiled steps' annotations and the drift monitor's medians (each
+    namespace with min_samples; a finding, not a gate)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as d:
+        path = str(Path(d) / "telemetry.jsonl")
+        rows_written = obs.to_jsonl(path)
+        missing = obs.missing_series(path, REQUIRED_SERIES)
+        rows = obs.read_jsonl(path)
+    series = sorted({r["series"] for r in rows})
+    train_steps = sum(r["value"] for r in rows if r["series"] == "train.steps")
+    mon = obs.get_monitor()
+    report = mon.report()
+    out = {"phase": "telemetry", "ok": not missing and train_steps == tel["train_loop_steps"],
+           "rows": rows_written, "series": series, "required": list(REQUIRED_SERIES), "missing": missing,
+           "train_steps": {"export": train_steps, "train_loop": tel["train_loop_steps"]},
+           "phase4": tel["phase4"], "profiled_decode": tel["profiled_decode"],
+           "profiled_train_step": tel["profiled_train_step"],
+           "drift": {"threshold": mon.threshold, "min_samples": mon.min_samples, "flagged": list(mon.flagged()),
+                     "median_rel_err": {ns: r["median_rel_err"] for ns, r in report.items()
+                                        if r["median_rel_err"] is not None},
+                     "samples": {ns: r["n"] for ns, r in report.items()}}}
+    if not out["ok"]:
+        raise AssertionError(f"the telemetry export: missing {missing}, train.steps {out['train_steps']}")
+    return out
+
+
 def ladder_summary(rep: dict) -> dict:
     """The ledger part of a degradation report a heal line shows."""
     quarantined = collections.Counter((r["namespace"], r["rung"], r["reason"], r["injected"])
@@ -5008,17 +5244,20 @@ def ladder_summary(rep: dict) -> dict:
                             for (ns, rung, why, inj), n in sorted(quarantined.items())]}
 
 
-def ladder_host_us(torch, np, gb, ops, robust):
+def ladder_host_us(torch, np, gb, ops, robust, obs):
     """Host µs of the GEMM ladder a call, where the device's time is
     negligible (`scripts/resolve_overhead_ab.py`'s shapes): a 4 x 64 @ 64 x
     64 product (decode's 2-D form) and a 4 x 8 x 64 batch over a shared
     weight, each as `ops.sfc_matmul` directly (the rung), through
     `run_with_fallback` with `gemm_backend.matmul`'s rung table (what
-    ``matmul`` walks under sfc_cuda), and as `gemm_backend.matmul` itself;
+    ``matmul`` walks under sfc_cuda) with the telemetry gate open (its
+    ``ladder/run`` span and ``ladder.served`` mirror) and shut
+    (``"..._obs_off"``), and as `gemm_backend.matmul` itself;
     LADDER_LOOPS loops of LADDER_CALLS calls, each loop ending in one
-    synchronisation, the three interleaved in alternating order, medians.
-    Beside them the ladder alone: the same walk around a rung that does
-    nothing, against that rung called directly (host only)."""
+    synchronisation, interleaved in alternating order, medians.  Beside
+    them the ladder alone: the same walk around a rung that does nothing,
+    against that rung called directly (host only), with the gate open and
+    shut; their difference is what the span and the mirror cost a call."""
     from repro_torch.core.namespaces import NS_GEMM
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5026,19 +5265,25 @@ def ladder_host_us(torch, np, gb, ops, robust):
     kw = dict(bias=None, activation=None, out_scale=None, residual=None)
 
     def timed(fns):
+        """``fns``: name -> callable, run with the gate open, or (callable,
+        gate)."""
+        fns = {k: v if isinstance(v, tuple) else (v, True) for k, v in fns.items()}
         times = {k: [] for k in fns}
-        for fn in fns.values():
+        for fn, gate in fns.values():
+            obs.set_enabled(gate)
             for _ in range(50):
                 fn()
         torch.cuda.synchronize()
         for loop in range(LADDER_LOOPS):
             for key in (list(fns) if loop % 2 == 0 else list(fns)[::-1]):
-                fn = fns[key]
+                fn, gate = fns[key]
+                obs.set_enabled(gate)
                 t0 = time.perf_counter()
                 for _ in range(LADDER_CALLS):
                     fn()
                 torch.cuda.synchronize()
                 times[key].append((time.perf_counter() - t0) / LADDER_CALLS * 1e6)
+        obs.set_enabled(None)
         return {k: float(np.median(v)) for k, v in times.items()}, times
 
     out = {}
@@ -5049,28 +5294,35 @@ def ladder_host_us(torch, np, gb, ops, robust):
             with gb.gemm_backend("sfc_cuda"):
                 return gb.matmul(a, w)
 
-        med, each = timed({
-            "direct": lambda: ops.sfc_matmul(a, w, **kw),
-            "ladder": lambda: robust.run_with_fallback(NS_GEMM, gb._MATMUL_RUNGS, args=(a, w, kw),
-                                                       shape_key=gb._rung_key),
-            "gemm_backend_matmul": backend})
+        def ladder():
+            return robust.run_with_fallback(NS_GEMM, gb._MATMUL_RUNGS, args=(a, w, kw), shape_key=gb._rung_key)
+
+        med, each = timed({"direct": lambda: ops.sfc_matmul(a, w, **kw), "ladder": ladder,
+                           "ladder_obs_off": (ladder, False), "gemm_backend_matmul": backend})
         out[name] = {"median_us": med, "each_us": each, "ladder_minus_direct_us": med["ladder"] - med["direct"],
-                     "ladder_over_direct": med["ladder"] / med["direct"] - 1.0}
+                     "ladder_over_direct": med["ladder"] / med["direct"] - 1.0,
+                     "obs_on_minus_off_us": med["ladder"] - med["ladder_obs_off"]}
 
     def noop(x, w_, kw_):
         return x
 
     rungs = tuple((r, noop) for r in ("sfc_cuda", "replicated", "sfc_reference", "torch"))
     a = torch.randn(4, 64, generator=gen, device="cuda").to(torch.bfloat16)
-    med, _ = timed({"noop": lambda: noop(a, w, kw),
-                    "ladder_around_noop": lambda: robust.run_with_fallback(NS_GEMM, rungs, args=(a, w, kw),
-                                                                           shape_key=gb._rung_key)})
+
+    def walk():
+        return robust.run_with_fallback(NS_GEMM, rungs, args=(a, w, kw), shape_key=gb._rung_key)
+
+    med, _ = timed({"noop": lambda: noop(a, w, kw), "ladder_around_noop": walk,
+                    "ladder_around_noop_obs_off": (walk, False)})
     out["ladder_alone_us"] = med["ladder_around_noop"] - med["noop"]
+    out["ladder_alone_obs_off_us"] = med["ladder_around_noop_obs_off"] - med["noop"]
+    # what the open gate adds to the walk alone: the span and the mirror
+    out["span_us"] = med["ladder_around_noop"] - med["ladder_around_noop_obs_off"]
     return out
 
 
 def phase_heal(torch, np, cfg, params, ServingEngine, tk, tsa, robust, gb, ops, abft, build_trainer,
-               reset_counts, replicated_counts, done, want_rep, want_launches, ref, torch_noise):
+               reset_counts, replicated_counts, done, want_rep, want_launches, ref, torch_noise, obs):
     """The fallback ladder on the card, on phase 4's full-width qwen3-4b
     weights, the health registry reset before each part:
 
@@ -5387,13 +5639,15 @@ def phase_heal(torch, np, cfg, params, ServingEngine, tk, tsa, robust, gb, ops, 
         "resumed_bitwise": got == {k: v for k, v in want.items() if k > HEAL_FAIL_AT} and got_digest == want_digest,
         "sdc_run": {"fired": sdc_fired, "log": logs, "steps": [e["step"] for e in ev_s]},
         "preempted_run_s": preempt_s,
+        # the steps the loops committed: what the export's train.steps holds
+        "loop_steps": len(ev_u) + len(ev_p) + len(ev_s) + len(ev_r),
         "io": [{"kind": k, "step": s_, "s": t, "gb": g} for k, s_, t, g in io]}
     if not e_ok:
         raise AssertionError(f"heal (e): {out['e_train_loop']}")
 
     # (f) the ladder's host cost a call
     reg.reset()
-    out["f_ladder_host_us"] = ladder_host_us(torch, np, gb, ops, robust)
+    out["f_ladder_host_us"] = ladder_host_us(torch, np, gb, ops, robust, obs)
     reg.reset()
     abft.reset_runtime_sdc()
     out["s"] = time.perf_counter() - t_phase
@@ -5451,6 +5705,7 @@ def main() -> int:
     tune_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_knobs_")
     os.environ["REPRO_TORCH_SFC_TUNE_CACHE"] = str(Path(tune_dir.name) / "knobs.json")
 
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.attention_backend import attention_backend
     from repro_torch.core.gemm_backend import gemm_backend
@@ -5604,6 +5859,19 @@ def main() -> int:
     # ---- 4. serve full-width qwen3-4b --------------------------------------
     no_degradation("before phase 4")
     phase_at[4] = time.perf_counter() - run_t0
+    # the process's telemetry from here on: phase 4's serves (held to their
+    # own counts right after the phase), 4b's train loop and the tune phase
+    # (the export, the "telemetry" line)
+    obs.reset_all()
+    tel = {"ledger_at_reset": robust.degradation_report()["total_calls"], "calls_obs_off": 0, "served": [],
+           "decode_steps": 0}
+
+    def serve(eng, reqs):
+        steps = eng._decode_steps
+        out = eng.run(reqs)
+        tel["decode_steps"] += eng._decode_steps - steps
+        tel["served"].extend(out)
+        return out
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -5626,7 +5894,7 @@ def main() -> int:
     params_of = {cfg.param_dtype: params}
     engines = {name: engine(name, cfg) for name in served}
     for eng in engines.values():  # warm-up: first launches, allocator, cuBLAS handles
-        eng.run(eng.submit_many(prompts[:1], max_new_tokens=2))
+        serve(eng, eng.submit_many(prompts[:1], max_new_tokens=2))
     torch.cuda.synchronize()
 
     per_step = cfg.n_layers * 6 + 1  # q, k, v, o, GLU, w_out per layer, plus the head
@@ -5664,7 +5932,7 @@ def main() -> int:
 
     # the blockwise path: every projection on the GEMM kernel
     reset_counts()
-    done = {"sfc_cuda": engines["sfc_cuda"].run(engines["sfc_cuda"].submit_many(prompts, max_new_tokens=NEW_TOKENS))}
+    done = {"sfc_cuda": serve(engines["sfc_cuda"], engines["sfc_cuda"].submit_many(prompts, max_new_tokens=NEW_TOKENS))}
     torch.cuda.synchronize()
     launches = tk.sfc_gemm_fused.launches
     by_shape = dict(tk.sfc_gemm_fused.launches_by_shape)
@@ -5675,7 +5943,7 @@ def main() -> int:
     # the attn_impl="sfc" path: projections on the GEMM, attention on K11 / K14
     reset_counts()
     eng = engines["sfc_cuda+sfc_attn"]
-    done["sfc_cuda+sfc_attn"] = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
+    done["sfc_cuda+sfc_attn"] = serve(eng, eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
     torch.cuda.synchronize()
     attn_launches = {name: fn.launches for name, fn in attn_kernels.items()}
     fwd_by_kernel = {"sfc_flash_fwd": by_kernel(tsa.sfc_flash_fwd.launches_by_kernel)}
@@ -5709,10 +5977,10 @@ def main() -> int:
     for name, layers, want in (("replicated", None, want_rep), (f"replicated@k{REP_SERVE_LAYERS}", REP_SERVE_LAYERS,
                                                                   want_split)):
         with ops.knob_defaults(k_layers=layers):
-            eng.run(eng.submit_many(prompts[:1], max_new_tokens=2))  # warm-up: this split's task tables
+            serve(eng, eng.submit_many(prompts[:1], max_new_tokens=2))  # warm-up: this split's task tables
             torch.cuda.synchronize()
             reset_counts()
-            done[name] = eng.run(eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
+            done[name] = serve(eng, eng.submit_many(prompts, max_new_tokens=NEW_TOKENS))
         torch.cuda.synchronize()
         rep_counts[name] = replicated_counts()
         rep_by_shape[name] = (dict(tk.sfc_gemm_replicated.launches_by_shape), dict(tk.add_reduce.launches_by_shape))
@@ -5732,9 +6000,11 @@ def main() -> int:
         reset_counts()
         tk.sfc_gemm_fused.abft_launches = 0
         abft.reset_runtime_sdc()
+        checks = obs.registry().counter("abft.checks").total()
         with abft.abft_mode("detect"):
-            done_abft = abft_eng.run(abft_eng.submit_many(prompts_, max_new_tokens=new))
+            done_abft = serve(abft_eng, abft_eng.submit_many(prompts_, max_new_tokens=new))
         torch.cuda.synchronize()
+        tel["abft_checks_detect_serve"] = obs.registry().counter("abft.checks").total() - checks
     abft_by_shape = dict(tk.sfc_gemm_fused.launches_by_shape)
     serve_by_kernel["sfc_cuda+sfc_attn+abft"] = by_kernel(tk.sfc_gemm_fused.launches_by_kernel)
     abft_serve = {
@@ -5753,14 +6023,14 @@ def main() -> int:
     reset_counts()
     abft.reset_runtime_sdc()
     with ops.knob_defaults(k_layers=REP_SERVE_LAYERS), abft.abft_mode("detect"):
-        rep_abft = eng.run(eng.submit_many(prompts, max_new_tokens=2))
+        rep_abft = serve(eng, eng.submit_many(prompts, max_new_tokens=2))
     torch.cuda.synchronize()
     abft_serve[f"replicated@k{REP_SERVE_LAYERS}_one_decode_step"] = {
         "checks": abft.runtime_check_total(), "max_residual_over_tol": abft.runtime_max_ratio(),
         "launches": replicated_counts(),
         "tokens_identical_to_off": [r.output for r in rep_abft] == [r.output[:2] for r in
                                                                       done[f"replicated@k{REP_SERVE_LAYERS}"]]}
-    done["torch"] = engines["torch"].run(engines["torch"].submit_many(prompts, max_new_tokens=NEW_TOKENS))
+    done["torch"] = serve(engines["torch"], engines["torch"].submit_many(prompts, max_new_tokens=NEW_TOKENS))
     reports = {name: engines[name.split("@")[0]].latency_report(batch) for name, batch in done.items()}
     for batch in done.values():
         for r in batch:
@@ -5780,6 +6050,19 @@ def main() -> int:
     decode_profile = {name: profile_decode(torch, engines[name.split("@")[0]], tokens, ops, layers)
                       for name, layers in (("sfc_cuda", None), ("replicated", None), (split, REP_SERVE_LAYERS),
                                            ("torch", None))}
+    # the spans in a profile: the attn_impl="sfc" decode step with the spans
+    # on and off (REPRO_OBS's gate), interleaved; on, one ladder/run
+    # annotation a routed call with every K1 and K14 launch inside one; the
+    # busy time alike either way (kernels, memcpy and memset only)
+    span_profiles = {"on": [], "off": []}
+    for gate in ("on", "off", "on", "off"):
+        obs.set_enabled(gate == "on")
+        calls = _ledger_calls()
+        span_profiles[gate].append(profile_decode(torch, engines["sfc_cuda+sfc_attn"], tokens, ops))
+        if gate == "off":
+            tel["calls_obs_off"] += _ledger_calls() - calls
+    obs.set_enabled(None)
+    tel["profiled_decode"] = spans_in_profile(span_profiles, {"K1 cluster": per_step, "K14": cfg.n_layers})
     logits = {name: eng._prefill(tokens)[0].float() for name, eng in engines.items()}
     with ops.knob_defaults(k_layers=REP_SERVE_LAYERS):
         logits[split] = engines["replicated"]._prefill(tokens)[0].float()
@@ -5869,11 +6152,15 @@ def main() -> int:
             or not abft_serve["max_residual_over_tol"] < 1 or not rep_step["tokens_identical_to_off"]
             or not rep_step["max_residual_over_tol"] < 1 or not rep_step["checks"]):
         raise AssertionError(f"the serve under ABFT detect: {abft_serve}")
+    # the registry against what the phase itself counted
+    tel["phase4"] = phase4_telemetry(obs, robust, tel, abft_serve["checks"])
     # ---- 4b. heal: the fallback ladder, fault injection, the train loop ------
     no_degradation("before phase 4b")
     phase_at["4b, heal"] = time.perf_counter() - run_t0
-    emit(phase_heal(torch, np, cfg, params, ServingEngine, tk, tsa, robust, gb, ops, abft, build_trainer,
-                    reset_counts, replicated_counts, done, want_rep, want_launches, ref, noise["torch"]))
+    heal = phase_heal(torch, np, cfg, params, ServingEngine, tk, tsa, robust, gb, ops, abft, build_trainer,
+                      reset_counts, replicated_counts, done, want_rep, want_launches, ref, noise["torch"], obs)
+    emit(heal)
+    tel["train_loop_steps"] = heal["e_train_loop"]["loop_steps"]
     if heal_only:
         return 0
     # the serve's model and every tensor of it leave the card before training
@@ -5889,6 +6176,11 @@ def main() -> int:
                "sfc_flash_bwd_dkv": tsa.sfc_flash_bwd_dkv}
     _, counts_by_run, train_runs, train_digests = phase_train(torch, cfg, build_trainer, counted)
     train_counts, fused_counts = counts_by_run["sfc_cuda+sfc_attn"], counts_by_run["sfc_cuda+sfc_attn+fused_optimizer"]
+    # the profiled step's ladder/run annotations: one a routed call, every
+    # launch of the port's kernels inside one
+    tel["profiled_train_step"] = train_runs["sfc_cuda+sfc_attn"]["profiled_step"]["annotations"]
+    if not annotations_ok(tel["profiled_train_step"]):
+        raise AssertionError(f"the spans in the profiled train step: {tel['profiled_train_step']}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5978,8 +6270,9 @@ def main() -> int:
             ("xlstm", xcfg, {"n_layers": XLSTM_CHECK_LAYERS})), start=16):
         no_degradation(f"before phase {number}")
         phase_at[number] = time.perf_counter() - run_t0
-        _, fam_shapes[label] = phase_family_train(torch, fcfg, build_trainer, build_model, make_batch_fn,
-                                                  gemm_backend, attention_backend, counted, label, check_cut)
+        _, fam_shapes[label] = phase_family_train(
+            torch, fcfg, build_trainer, build_model, make_batch_fn, gemm_backend, attention_backend, counted, label,
+            check_cut, steps=XLSTM_TRAIN_STEPS if label == "xlstm" else TRAIN_STEPS)
 
     # ---- 21. the tuner: calibrate, tune qwen3-4b's warmup, serve and step ----
     no_degradation("before phase 21")
@@ -5987,6 +6280,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _, tune_rows = phase_tune(torch, np, cfg, build_model, ServingEngine, build_trainer, tk, tsa, ops)
+
+    # ---- the telemetry export: phase 4 on, the train loop, the tune --------
+    phase_at["telemetry"] = time.perf_counter() - run_t0
+    emit(phase_telemetry(obs, tel))
 
     # ---- 20. the kernels line -----------------------------------------------
     no_degradation("before phase 20")

@@ -45,6 +45,11 @@ CLI saves to a fixed directory).  A checkpoint holds 14 bytes a parameter
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --reduced \
       --device cpu --backend sfc_cuda --steps 8 --ckpt-dir /tmp/ck --ckpt-every 2
 
+``--obs-export PATH`` writes the run's telemetry (the train loop's spans
+and ``[ft]`` event counters, the tune and ladder series; `repro_torch.obs`)
+as JSONL when the run ends, as the JAX CLI does; check it with
+``python -m repro_torch.obs.export --check PATH --require train.steps``.
+
 The mesh (ROADMAP item 16) is not ported.
 """
 
@@ -154,6 +159,9 @@ def main(argv=None):
                     help="round-to-nearest bf16 write-back in the fused flush")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--obs-export", default=None, metavar="PATH",
+                    help="write the JSONL telemetry snapshot here on exit (train-step spans, [ft] event "
+                         "counters, tune / ladder series)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -167,8 +175,15 @@ def main(argv=None):
     )
     ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_every) if args.ckpt_dir else None
     loop = TrainLoop(train_step=model_step(step_fn), batch_fn=batch_fn, ckpt=ckpt, watchdog=StepWatchdog())
-    _, _, history = loop.run(dict(model.named_parameters()), opt_state, num_steps=args.steps,
-                             resume=ckpt is not None, fail_at=args.fail_at)
+    try:
+        _, _, history = loop.run(dict(model.named_parameters()), opt_state, num_steps=args.steps,
+                                 resume=ckpt is not None, fail_at=args.fail_at)
+    finally:
+        if args.obs_export:
+            from repro_torch import obs
+
+            n = obs.to_jsonl(args.obs_export)
+            print(f"[obs] wrote {n} series to {args.obs_export}")
     print(f"final loss: {history[-1][1]:.4f}  (from {history[0][1]:.4f})")
     return history
 

@@ -13,15 +13,17 @@ Three series types, all labeled:
     writer at a time whose label key the caller built once (the fallback
     ladder's healthy path).
 ``Gauge``
-    last-write-wins floats.
+    last-write-wins floats (rolling drift error, a calibration's fit
+    error).
 ``Histogram``
     exact ``count``/``sum`` plus a bounded reservoir of recent samples
-    for quantiles.
+    for quantiles (serving TTFT / per-token latency, span durations, train
+    step time).  `ServingEngine.latency_report` computes its p50/p95/p99
+    through the same class.  ``observe_key`` is ``inc_key``'s counterpart.
 
-The process-wide registry (:func:`registry`) is the one an exporter would
-snapshot (the exporters, spans and drift monitor are ROADMAP item 15's);
-independent `Registry` instances back stores that must work even when the
-global gate is off (`repro_torch.robust.HealthRegistry` keeps its
+The process-wide registry (:func:`registry`) is what `obs.export`
+snapshots; independent `Registry` instances back stores that must work
+even when the global gate is off (`repro_torch.robust.HealthRegistry` keeps its
 degradation ledger in one: ``degradation_report()`` cannot go dark because
 telemetry export is disabled).
 
@@ -202,6 +204,19 @@ class Histogram:
             s.sum += v
             s.max = max(s.max, v)
             s.values.append(v)
+
+    def observe_key(self, key: LabelKey, value: float) -> None:
+        """`observe` under a label key the caller built, without the lock:
+        for a series with one writer at a time (the fallback ladder's
+        ``span.ladder/run_us``; `Counter.inc_key`)."""
+        s = self._series.get(key)
+        if s is None:
+            s = self._series[key] = _HistSeries()
+        s.count += 1
+        s.sum += value
+        if value > s.max:
+            s.max = value
+        s.values.append(value)
 
     def count(self, **labels) -> int:
         with self._lock:

@@ -46,8 +46,13 @@ mirrored into the ladder's health registry, as the JAX package's runtime
 detections are, so ``degradation_report()`` covers them.  `InjectedSdc` is
 the fault harness's detection (`robust.inject`, ``kind="bitflip"``); inside
 a scope the harness records it with `record_injected` instead of raising.
-The ``obs`` metrics ``abft.*`` and the ``abft/verify`` span are ROADMAP
-item 15's.
+
+Telemetry (the JAX module's series): every `verify` is an ``abft/verify``
+span and counts ``abft.checks``; a detection counts ``abft.sdc`` (eagerly
+where it raises; in a scope at the scope's exit, from the counts the exit
+reads, so no check adds a host read) and, in a scope, ``abft.runtime_sdc``,
+as JAX's runtime channel does.  The port counts every call: JAX counts a
+traced check once a trace.
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import span
 from repro_torch.robust.inject import InjectedFault
 
 __all__ = [
@@ -285,6 +292,8 @@ def _note(checks: int, ratio: float, bad: Dict[str, int]) -> None:
 
         reg = get_registry()
         for ns, n in bad.items():
+            if n:
+                obs_metrics.inc("abft.runtime_sdc", n, namespace=ns)
             for _ in range(n):
                 reg.record_sdc(ns, healed=False)
 
@@ -332,17 +341,19 @@ class StepScope:
     def __init__(self):
         self.closed = False
         self.bad: Dict[str, List[torch.Tensor]] = {}
+        self.modes: Dict[str, str] = {}  # the mode of each namespace's checks, for ``abft.sdc``
         self.ratios: List[torch.Tensor] = []
         self.checks = 0
         self.injected: Dict[str, int] = {}  # the fault harness's detections, on the host
         self.detections: Dict[str, int] = {}
         self.max_ratio = 0.0
 
-    def record(self, namespace: str, bad: torch.Tensor, ratio: torch.Tensor) -> None:
+    def record(self, namespace: str, bad: torch.Tensor, ratio: torch.Tensor, mode: str = "detect") -> None:
         # kept, and summed at the flush: a check runs the same device ops
         # whatever was recorded before it, so a remat unit's recomputed
         # forward replays its forward's ops (`models.remat`)
         self.bad.setdefault(namespace, []).append(bad.to(torch.float32))
+        self.modes[namespace] = mode
         self.ratios.append(ratio)
         self.checks += 1
 
@@ -366,6 +377,8 @@ class StepScope:
         counts = [torch.stack(self.bad[n]).to(dev).sum() for n in names]
         vals = torch.stack(counts + [top]).tolist()  # the one host read
         self.detections = {n: int(v) for n, v in zip(names, vals[:-1]) if v}
+        for n, v in self.detections.items():
+            obs_metrics.inc("abft.sdc", v, namespace=n, mode=self.modes[n])
         for n, v in self.injected.items():
             self.detections[n] = self.detections.get(n, 0) + v
         self.max_ratio = vals[-1] if vals[-1] == vals[-1] else 0.0
@@ -462,15 +475,18 @@ def verify(
     if mode == "off":
         return out
     _check(mode)
-    tol = tolerance(mag, contract_dim, cast_dtype)
-    resid = (chk.to(torch.float32) - ref).abs()
-    scope = _SCOPE.get()
-    if scope is not None and not scope.closed:
-        bad = resid > tol
-        scope.record(namespace, bad, resid / tol)
-        return _nan_where(out, bad) if mode == "strict" else out
-    r, t = torch.stack([resid, tol.to(resid.device)]).tolist()  # the one host read
-    _note(1, r / t, {})
-    if r > t:
-        raise SdcDetected(namespace, r, t)
-    return out
+    with span("abft/verify"):
+        obs_metrics.inc("abft.checks", namespace=namespace, mode=mode)
+        tol = tolerance(mag, contract_dim, cast_dtype)
+        resid = (chk.to(torch.float32) - ref).abs()
+        scope = _SCOPE.get()
+        if scope is not None and not scope.closed:
+            bad = resid > tol
+            scope.record(namespace, bad, resid / tol, mode)
+            return _nan_where(out, bad) if mode == "strict" else out
+        r, t = torch.stack([resid, tol.to(resid.device)]).tolist()  # the one host read
+        _note(1, r / t, {})
+        if r > t:
+            obs_metrics.inc("abft.sdc", namespace=namespace, mode=mode)
+            raise SdcDetected(namespace, r, t)
+        return out

@@ -40,9 +40,17 @@ ABFT mode, eagerly: a mismatch raises there, and its ladders retry it.
 Warmup (`ServingEngine.warmup`) runs one prefill and one decode step
 before traffic and, with ``tune=True`` under "sfc_cuda", first calibrates
 the device and tunes every namespace of `tune_table` (`repro_torch.tune`),
-as the JAX engine does under "sfc_pallas".  The telemetry (spans, the
-``serving.*`` counters) is ROADMAP item 15's; percentiles are computed with
-numpy.
+as the JAX engine does under "sfc_pallas".
+
+Telemetry (`repro_torch.obs`, the JAX engine's series): the spans
+``serving/admission``, ``serving/prefill``, ``serving/decode`` and
+``serving/retire``; ``serving.requests``, ``serving.sdc_redo``, and per
+retired request ``serving.completed`` / ``timed_out`` / ``shed`` /
+``tokens`` and the ``serving.ttft_us``, ``e2e_us`` and ``token_us``
+histograms (`_record_retired`).  The prefill and decode spans end with the
+step's one host read (the tokens), so they time the device's work too;
+JAX's end at the dispatch.  `latency_report` takes its percentiles from
+the same `obs.metrics.Histogram`.
 """
 
 from __future__ import annotations
@@ -59,6 +67,8 @@ from repro_torch.core import namespaces as ns
 from repro_torch.core.device import resolve_device, torch_dtype
 from repro_torch.core.namespaces import BACKEND_SFC_CUDA, BACKEND_TORCH, BACKENDS
 from repro_torch.models.registry import build_model
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import span
 from repro_torch.robust import abft as _abft
 from repro_torch.robust.inject import InjectedFault
 from repro_torch.robust.ladder import (
@@ -285,6 +295,7 @@ class ServingEngine:
         if not delta:
             return out
         self._sdc_detections += delta
+        obs_metrics.inc("serving.sdc_redo", value=delta)
         restore()
         # the scope's detections were all the fault harness's
         self._quarantine_kernels("sdc", injected=sum(scope.injected.values()) == delta)
@@ -446,6 +457,7 @@ class ServingEngine:
         produced the tokens they stamp."""
         waiting = list(requests)
         results: List[Request] = []
+        obs_metrics.inc("serving.requests", value=len(requests))
 
         def shed_overdue() -> None:
             now = time.perf_counter()
@@ -455,22 +467,25 @@ class ServingEngine:
                 r.done_at = now
                 if r.output is None:
                     r.output = []
+                self._record_retired(r)
                 results.append(r)
 
         while waiting:
-            shed_overdue()
-            if not waiting:
-                break
-            # group up to max_batch same-length prompts
-            length = len(waiting[0].prompt)
-            batch = [r for r in waiting if len(r.prompt) == length][: self.max_batch]
-            for r in batch:
-                waiting.remove(r)
+            with span("serving/admission"):
+                shed_overdue()
+                if not waiting:
+                    break
+                # group up to max_batch same-length prompts
+                length = len(waiting[0].prompt)
+                batch = [r for r in waiting if len(r.prompt) == length][: self.max_batch]
+                for r in batch:
+                    waiting.remove(r)
 
             tokens = torch.from_numpy(np.stack([r.prompt for r in batch])).long().to(self.device)
-            logits, cache = self._run_healed("_prefill", tokens)
-            next_tok = logits.argmax(dim=-1)[:, None]
-            ids = next_tok[:, 0].tolist()  # waits for the device
+            with span("serving/prefill", batch=len(batch)):
+                logits, cache = self._run_healed("_prefill", tokens)
+                next_tok = logits.argmax(dim=-1)[:, None]
+                ids = next_tok[:, 0].tolist()  # waits for the device
             now = time.perf_counter()
             live = []
             for i, r in enumerate(batch):
@@ -495,12 +510,13 @@ class ServingEngine:
                 if not live:
                     break
                 self._decode_steps += 1
-                if self._verify_every and self._decode_steps % self._verify_every == 0:
-                    logits, cache = self._verified_decode(next_tok, cache)
-                else:
-                    logits, cache = self._run_healed("_decode", next_tok, cache)
-                next_tok = logits.argmax(dim=-1)[:, None]
-                ids = next_tok[:, 0].tolist()
+                with span("serving/decode", step=self._decode_steps):
+                    if self._verify_every and self._decode_steps % self._verify_every == 0:
+                        logits, cache = self._verified_decode(next_tok, cache)
+                    else:
+                        logits, cache = self._run_healed("_decode", next_tok, cache)
+                    next_tok = logits.argmax(dim=-1)[:, None]
+                    ids = next_tok[:, 0].tolist()
                 still = []
                 for i in live:
                     r = batch[i]
@@ -516,21 +532,44 @@ class ServingEngine:
                     else:
                         still.append(i)
                 live = still
-            now = time.perf_counter()
-            for r in batch:
-                if not r.done_at:
-                    r.status = "completed"
-                    r.done_at = now
-            results.extend(batch)
+            with span("serving/retire"):
+                now = time.perf_counter()
+                for r in batch:
+                    if not r.done_at:
+                        r.status = "completed"
+                        r.done_at = now
+                    self._record_retired(r)
+                results.extend(batch)
         return results
 
     # ---------------- metrics ----------------
 
     @staticmethod
+    def _record_retired(r: Request) -> None:
+        """Emit one request's lifecycle into the obs registry: the
+        quantities `latency_report` summarises (TTFT, end-to-end latency,
+        per-decoded-token latency) as histograms, as the JAX engine does."""
+        obs_metrics.inc("serving." + ("timed_out" if r.status == "timed_out" else "completed"))
+        n_tok = len(r.output or [])
+        if n_tok:
+            obs_metrics.inc("serving.tokens", value=n_tok)
+        if r.first_token_at > 0:
+            obs_metrics.observe("serving.ttft_us", (r.first_token_at - r.submitted_at) * 1e6)
+        else:
+            obs_metrics.inc("serving.shed")
+        if r.done_at > 0:
+            obs_metrics.observe("serving.e2e_us", (r.done_at - r.submitted_at) * 1e6)
+        if r.first_token_at > 0 and n_tok > 1:
+            obs_metrics.observe("serving.token_us", (r.done_at - r.first_token_at) / (n_tok - 1) * 1e6)
+
+    @staticmethod
     def latency_report(requests: List[Request]) -> Dict[str, Any]:
         """Latency summary with the JAX engine's keys; zeros on an empty
         list.  Requests shed before serving (``first_token_at == 0``) are
-        left out of the TTFT statistics and counted in ``n_timed_out``."""
+        left out of the TTFT statistics and counted in ``n_timed_out``.
+        The p50 / p95 / p99 tails come from `obs.metrics.Histogram`, the
+        class (and the sample definitions, `_record_retired`) behind the
+        ``serving.ttft_us`` / ``serving.token_us`` series."""
         zeros = {
             "n_requests": 0,
             "n_timed_out": 0,
@@ -547,35 +586,29 @@ class ServingEngine:
         }
         if not requests:
             return zeros
-        ttft, token = [], []
+        hist = obs_metrics.Histogram("latency_report")
         for r in requests:
             if r.first_token_at > 0:
-                ttft.append(r.first_token_at - r.submitted_at)
+                hist.observe(r.first_token_at - r.submitted_at, kind="ttft")
                 n_out = len(r.output or [])
                 if n_out > 1:
-                    token.append((r.done_at - r.first_token_at) / (n_out - 1))
-
-        def pct(vals):
-            if not vals:
-                return 0.0, 0.0, 0.0
-            return tuple(float(x) for x in np.percentile(vals, (50, 95, 99)))
-
-        t50, t95, t99 = pct(ttft)
-        k50, k95, k99 = pct(token)
+                    hist.observe((r.done_at - r.first_token_at) / (n_out - 1), kind="token")
+        ttft = hist.summary(kind="ttft")
+        token = hist.summary(kind="token")
         total = [r.done_at - r.submitted_at for r in requests]
         n_tok = sum(len(r.output or []) for r in requests)
         wall = max(r.done_at for r in requests) - min(r.submitted_at for r in requests)
         return {
             "n_requests": len(requests),
             "n_timed_out": sum(1 for r in requests if r.status == "timed_out"),
-            "ttft_mean_s": float(np.mean(ttft)) if ttft else 0.0,
-            "ttft_p50_s": t50,
-            "ttft_p95_s": t95,
-            "ttft_p99_s": t99,
+            "ttft_mean_s": ttft["mean"],
+            "ttft_p50_s": ttft["p50"],
+            "ttft_p95_s": ttft["p95"],
+            "ttft_p99_s": ttft["p99"],
             "latency_mean_s": float(np.mean(total)),
-            "token_p50_s": k50,
-            "token_p95_s": k95,
-            "token_p99_s": k99,
+            "token_p50_s": token["p50"],
+            "token_p95_s": token["p95"],
+            "token_p99_s": token["p99"],
             "tokens_total": n_tok,
             "tokens_per_s": n_tok / wall if wall > 0 else float("inf"),
         }

@@ -42,13 +42,19 @@ Where it differs from the JAX module:
 * ``ckpt`` may be None: the loop then saves nothing and has nothing to
   resume or roll back to (the port's CLI without ``--ckpt-dir``; the JAX
   CLI writes to a fixed directory instead).
-* The ``train/*`` spans and the structured ``[ft]`` events are ROADMAP
-  item 15's; the lines go to ``logger`` as plain strings, and the
-  ``train.*`` counters to `obs.metrics`.
+* ``train/checkpoint`` spans only where the loop has a ``ckpt`` to save
+  to (the port's CLI without ``--ckpt-dir`` has none).
+
+Telemetry as the JAX module's: the ``train/batch``, ``train/step`` (the
+step and its loss read, so it times the device's work) and
+``train/checkpoint`` spans, the ``train.*`` series, and every ``[ft]`` /
+``[train]`` line through `obs.as_structured`, so that each also counts
+``log.events{kind=...}`` while the sink receives the same string.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import math
@@ -57,7 +63,9 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.obs import as_structured
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import span
 from repro_torch.train.checkpoint import CheckpointManager
 
 __all__ = [
@@ -207,6 +215,11 @@ class TrainLoop:
         log_every: int = 10,
         logger: Callable[[str], None] = print,
     ):
+        # every [ft] / [train] line goes through the structured logger: the
+        # sink (default: the `logger` callable, so print) still receives the
+        # human-readable string, and each line doubles as a typed
+        # `log.events{kind=...}` counter in the obs registry
+        log = as_structured(logger)
         step = start_step
         streak = 0  # consecutive nonfinite-loss steps
         lr_scale = 1.0
@@ -225,7 +238,7 @@ class TrainLoop:
                 lr_scale = float(extra.get("lr_scale", 1.0))
                 streak = int(extra.get("streak", 0))
                 data_offset = int(extra.get("data_offset", 0))
-                logger(f"[ft] resumed from checkpoint at step {step}")
+                log.event("ft.resume", f"[ft] resumed from checkpoint at step {step}", step=step)
 
         policy = self.corruption_policy if self.corruption_policy is not None else self.nonfinite_policy
         has_lr_scale = policy is not None and self._supports_lr_scale()
@@ -250,6 +263,9 @@ class TrainLoop:
             if ckpt is not None:
                 ckpt.wait()
 
+        def saving():
+            return span("train/checkpoint", step=step) if ckpt is not None else contextlib.nullcontext()
+
         def rollback(cur_step, params, opt_state, why, reason):
             nonlocal rollbacks, data_offset, saved_at
             rollbacks += 1
@@ -265,10 +281,12 @@ class TrainLoop:
                 target={"params": params, "opt": opt_state})
             if got_step is not None:
                 data_offset += cur_step - got_step
-                logger(f"[ft] {why}: rolled back {cur_step} -> {got_step}, "
-                       f"data stream skipped ahead by {data_offset}")
+                log.event("ft.rollback", f"[ft] {why}: rolled back {cur_step} -> {got_step}, "
+                          f"data stream skipped ahead by {data_offset}", step=cur_step, to_step=got_step,
+                          reason=reason)
                 return got_step, restored["params"], restored["opt"]
-            logger(f"[ft] {why} and no checkpoint to roll back to; continuing")
+            log.event("ft.rollback_unavailable", f"[ft] {why} and no checkpoint to roll back to; continuing",
+                      step=cur_step, reason=reason)
             return cur_step, params, opt_state
 
         history = []
@@ -277,13 +295,15 @@ class TrainLoop:
                 wait()
                 raise KeyboardInterrupt(f"simulated preemption at step {step}")
             t0 = time.perf_counter()
-            batch = self.batch_fn(step + data_offset)
+            with span("train/batch", step=step):
+                batch = self.batch_fn(step + data_offset)
             sdc_before = _abft.runtime_sdc_total() if watch_sdc else 0
-            if has_lr_scale and lr_scale != 1.0:
-                params, opt_state, metrics = self.train_step(params, opt_state, batch, lr_scale=lr_scale)
-            else:
-                params, opt_state, metrics = self.train_step(params, opt_state, batch)
-            loss = float(metrics["loss"])  # waits for the device
+            with span("train/step", step=step):
+                if has_lr_scale and lr_scale != 1.0:
+                    params, opt_state, metrics = self.train_step(params, opt_state, batch, lr_scale=lr_scale)
+                else:
+                    params, opt_state, metrics = self.train_step(params, opt_state, batch)
+                loss = float(metrics["loss"])  # waits for the device
             elapsed = time.perf_counter() - t0
             step += 1
 
@@ -307,14 +327,16 @@ class TrainLoop:
                     streak += 1
                     obs_metrics.inc("train.nonfinite")
                     if streak <= policy.skip_steps:
-                        logger(f"[ft] nonfinite loss at step {step} (streak {streak}): update skipped")
+                        log.event("ft.nonfinite", f"[ft] nonfinite loss at step {step} (streak {streak}): "
+                                  "update skipped", step=step, streak=streak)
                     elif streak <= policy.skip_steps + policy.backoff_steps:
                         if has_lr_scale:
                             lr_scale *= policy.lr_backoff
-                            logger(f"[ft] nonfinite streak {streak}: lr backoff to {lr_scale:g}")
+                            log.event("ft.backoff", f"[ft] nonfinite streak {streak}: lr backoff to {lr_scale:g}",
+                                      step=step, lr_scale=lr_scale)
                         else:
-                            logger(f"[ft] nonfinite streak {streak}: train_step has no lr_scale hook, "
-                                   "continuing to skip")
+                            log.event("ft.nonfinite", f"[ft] nonfinite streak {streak}: train_step has no "
+                                      "lr_scale hook, continuing to skip", step=step, streak=streak)
                     else:
                         step, params, opt_state = rollback(step, params, opt_state, f"nonfinite streak {streak}",
                                                            "nonfinite")
@@ -322,7 +344,7 @@ class TrainLoop:
                         lr_scale = 1.0
                 else:
                     if streak or lr_scale != 1.0:
-                        logger(f"[ft] recovered: finite loss at step {step}")
+                        log.event("ft.recovered", f"[ft] recovered: finite loss at step {step}", step=step)
                     streak = 0
                     lr_scale = 1.0
 
@@ -345,21 +367,26 @@ class TrainLoop:
                 ev = self.watchdog.observe(step, elapsed)
                 if ev is not None:
                     if self.on_straggler == "raise":
-                        save(force=True)
-                        wait()
+                        with saving():
+                            save(force=True)
+                            wait()
                         raise ev
-                    logger(f"[ft] straggler: {ev}")
+                    log.event("ft.straggler", f"[ft] straggler: {ev}", step=step)
                     if self.on_straggler == "checkpoint":
-                        save(force=True)
+                        with saving():
+                            save(force=True)
                         saved_this_step = True
             if not saved_this_step:
                 # a straggler-forced save above already committed this step;
                 # the periodic path would write the same tree twice
-                save()
+                with saving():
+                    save()
             if log_every and step % log_every == 0:
-                logger(f"[train] step={step} loss={loss:.4f} dt={elapsed*1e3:.1f}ms")
+                log.event("train.step", f"[train] step={step} loss={loss:.4f} dt={elapsed*1e3:.1f}ms",
+                          step=step, loss=loss)
 
-        if saved_at != step:  # the last step's own save already holds the end state
-            save(force=True)
-        wait()
+        with saving():
+            if saved_at != step:  # the last step's own save already holds the end state
+                save(force=True)
+            wait()
         return params, opt_state, history

@@ -34,7 +34,14 @@ not the JAX package's ``"__meta__"``, so neither package's stamp purges the
 other's file) records the kernel generation the entries were measured
 against; on a mismatch they are dropped.  ``__health__|…`` entries
 round-trip fallback-ladder quarantine records
-(`robust.HealthRegistry.save_to_cache` / ``load_from_cache``).  The JAX module's cache counters are item 15's.
+(`robust.HealthRegistry.save_to_cache` / ``load_from_cache``).
+
+Counters (`repro_torch.obs`, the JAX module's): ``tune.cache.corrupt`` and
+``stale_purge`` by path, ``tune.cache.hit`` / ``miss`` by op and backend at
+every `get`, ``tune.cache.platform_purge`` by backend.  The resolvers'
+memo (`KnobCache.resolved`) answers a repeated exact call without `get`,
+so it counts no hit: JAX counts each lookup once a trace, the port each
+`get`.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.namespaces import NS_GEMM
+from repro_torch.obs import metrics as obs_metrics
 
 try:  # unix-only; the lock degrades to best-effort elsewhere
     import fcntl
@@ -221,7 +229,10 @@ class KnobCache:
     # ---------------- storage ----------------
 
     def _quarantine_corrupt(self, err: Exception) -> None:
-        """Move an unreadable cache file aside so it never crashes again."""
+        """Move an unreadable cache file aside so it never crashes again.
+        The warning is deduplicated per path; the counter fires on every
+        occurrence."""
+        obs_metrics.inc("tune.cache.corrupt", path=self.path)
         dest = f"{self.path}.corrupt-{int(time.time())}"
         try:
             os.replace(self.path, dest)
@@ -243,6 +254,7 @@ class KnobCache:
         meta = raw.get(META_KEY)
         stamped = meta.get("kernel_version") if isinstance(meta, dict) else None
         if stamped is not None and int(stamped) != cur and len(raw) > 1:
+            obs_metrics.inc("tune.cache.stale_purge", path=self.path)
             if self.path not in _WARNED_STALE:
                 _WARNED_STALE.add(self.path)
                 warnings.warn(
@@ -338,7 +350,11 @@ class KnobCache:
         if d is None and device:
             # legacy fallback: entries written without a device kind
             d = entries.get(self.key(m, n, k, dtype, backend, op))
-        return None if d is None else dataclasses.replace(Knobs.from_dict(d), source="cached")
+        if d is None:
+            obs_metrics.inc("tune.cache.miss", op=op, backend=backend)
+            return None
+        obs_metrics.inc("tune.cache.hit", op=op, backend=backend)
+        return dataclasses.replace(Knobs.from_dict(d), source="cached")
 
     def put(self, m: int, n: int, k: int, dtype, backend: str, knobs: Knobs, op: str = NS_GEMM) -> None:
         self._load()[self.key(m, n, k, dtype, backend, op, self.device_of(backend))] = knobs.as_dict()
@@ -365,6 +381,7 @@ class KnobCache:
                 return d
             del entries[key]
             self._save(drop_keys=(key,))
+            obs_metrics.inc("tune.cache.platform_purge", backend=backend)
             warn_key = (self.path, backend)
             if warn_key not in _WARNED_PLATFORM:
                 _WARNED_PLATFORM.add(warn_key)
@@ -387,6 +404,7 @@ class KnobCache:
         for k in drop:
             del entries[k]
         self._save(drop_keys=drop)
+        obs_metrics.inc("tune.cache.platform_purge", backend=backend)
         return True
 
     def put_platform(self, backend: str, constants: Dict) -> None:

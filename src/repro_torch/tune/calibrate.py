@@ -39,8 +39,9 @@ On the card (a deliberate difference from the JAX module):
   measurement that fails raises: calibration is not skipped.
 
 On the CPU the sweep is the JAX module's (f32, k-knob variants, the
-simulator as the measurement, `TPU_V5E` as the base).  The JAX module's
-calibration span and gauges are ROADMAP item 15's.
+simulator as the measurement, `TPU_V5E` as the base).  A fit is a
+``tune/calibrate`` span and counts ``tune.calibrations`` and the
+``tune.calibration_fit_err`` gauge by backend, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -320,6 +321,8 @@ def calibrate(
     """Fit-once entry point on ``device`` (the card unless the caller names
     the CPU): the persisted constants when present (no measurement), else
     the micro-sweep, the fit, persisted in the knob-cache file."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs.trace import span
     from repro_torch.tune.tuner import _backend_name, _device, default_cache
 
     device = _device(device)
@@ -330,9 +333,12 @@ def calibrate(
         if hit is not None:
             return hit
     base = base or base_hardware(device)
-    records = calibration_sweep(shapes, dtype, base=base, measure_fn=measure_fn, device=device)
-    constants = fit_constants(records, base=base, backend=backend, device_kind=cache.device_of(backend))
-    cache.put_platform(backend, constants.as_dict())
+    with span("tune/calibrate", backend=backend):
+        records = calibration_sweep(shapes, dtype, base=base, measure_fn=measure_fn, device=device)
+        constants = fit_constants(records, base=base, backend=backend, device_kind=cache.device_of(backend))
+        cache.put_platform(backend, constants.as_dict())
+        obs_metrics.inc("tune.calibrations", backend=backend)
+        obs_metrics.set_gauge("tune.calibration_fit_err", constants.median_abs_rel_err, backend=backend)
     return constants
 
 

@@ -46,8 +46,12 @@ Where it differs from the JAX module:
   skips such candidates.)
 * A confirmed winner (measured or predicted, not the analytical seed)
   lifts its namespace's ladder quarantines and persists the lift, as in
-  the JAX module.  Left to item 15: the drift monitor and the tuner's spans
-  and counters.
+  the JAX module.
+
+Telemetry as the JAX module's: a sweep is a ``tune/tune_gemm`` span and
+counts ``tune.sweep``; a lift counts ``tune.quarantine_lifted``; every
+measured candidate with a prediction feeds the drift monitor
+(`obs.drift`), the same pairs the report holds.
 """
 
 from __future__ import annotations
@@ -87,6 +91,9 @@ from repro_torch.core.perf_model import (
     simulate_flash_attention,
     simulate_gemm,
 )
+from repro_torch.obs import drift as obs_drift
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import span
 from repro_torch.tune.cache import KnobCache, Knobs, dtype_name, shape_bucket
 
 __all__ = [
@@ -729,9 +736,12 @@ def tune_gemm(
         hit = cache.get(m, n, k, dtype, backend, op)
         if hit is not None:
             return hit
-    return _tune_sweep(m, n, k, dtype, cache=cache, backend=backend, measure_fn=measure_fn,
-                       max_candidates=max_candidates, op=op, strategy=strategy, confirm_top=confirm_top,
-                       report=report, device=device, heads=heads)
+    # the span covers candidate generation, the ranking and the measurements
+    with span("tune/tune_gemm", op=op):
+        obs_metrics.inc("tune.sweep", op=op, strategy=strategy)
+        return _tune_sweep(m, n, k, dtype, cache=cache, backend=backend, measure_fn=measure_fn,
+                           max_candidates=max_candidates, op=op, strategy=strategy, confirm_top=confirm_top,
+                           report=report, device=device, heads=heads)
 
 
 def _tune_sweep(m, n, k, dtype, *, cache: KnobCache, backend: str, measure_fn, max_candidates: int, op: str,
@@ -788,6 +798,9 @@ def _tune_sweep(m, n, k, dtype, *, cache: KnobCache, backend: str, measure_fn, m
             if card:
                 row.update(launch=cand.launch, rule=i == 0)
             report.append(row)
+        if predictions.get(i) is not None:
+            # every confirmation measurement doubles as a drift sample
+            obs_drift.get_monitor().observe(op, predictions[i], t)
         if best is None or t < best.time_s:
             best, best_i = dataclasses.replace(cand, source="measured", time_s=t), i
     if best is None and strategy == "predict" and predictions and confirm_top == 0:
@@ -815,5 +828,6 @@ def _lift_quarantines(op: str, cache: KnobCache) -> None:
     reg = get_registry()
     cleared = reg.clear(namespace=op)
     if cleared:
+        obs_metrics.inc("tune.quarantine_lifted", cleared, op=op)
         reg.save_to_cache(cache)
         print(f"[tune] {op}: re-tune lifted {cleared} ladder quarantine(s)")
